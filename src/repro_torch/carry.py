@@ -1,0 +1,55 @@
+"""State carried across from the reference package.
+
+This system has no weights: its state is the machine model and the
+configuration. :func:`topology_from_spec` and :func:`config_from_dict`
+rebuild them from plain dictionaries (no import of the reference), and
+:func:`topology_spec` writes a topology out as one, so a topology or a
+config written out on one side is the same object on the other — :meth:`~repro_torch.core.topology.Topology.digest` equality is
+the check.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+from repro_torch.comm.config import CommConfig
+from repro_torch.core.topology import Link, Topology
+
+
+def topology_spec(topology) -> dict[str, Any]:
+    """The plain-dict state of a topology — of this package or any object
+    with the same attributes — as :func:`topology_from_spec` takes it:
+    the nominal links in registration order (route enumeration visits
+    them in that order), the island assignment and the grid."""
+    return {"num_devices": topology.num_devices, "name": topology.name,
+            "grid_shape": topology.grid_shape,
+            "node_assignment": [topology.node_of(d)
+                                for d in range(topology.num_devices)],
+            "links": [(ln.src, ln.dst, ln.kind, ln.bandwidth_gbps)
+                      for ln in topology.links.values()]}
+
+
+def topology_from_spec(spec: Mapping[str, Any]) -> Topology:
+    """Build a :class:`Topology` from ``{"num_devices", "name",
+    "grid_shape", "node_assignment", "links"}``, where ``links`` holds
+    ``(src, dst, kind, gbps)`` tuples (the nominal link set; repeated
+    pairs aggregate as sublinks)."""
+    grid = spec.get("grid_shape")
+    return Topology(
+        int(spec["num_devices"]),
+        [Link(int(s), int(d), str(k), float(bw))
+         for s, d, k, bw in spec["links"]],
+        name=spec.get("name", "custom"),
+        grid_shape=tuple(grid) if grid is not None else None,
+        node_assignment=spec.get("node_assignment"))
+
+
+def config_from_dict(d: Mapping[str, Any]) -> CommConfig:
+    """Build a :class:`CommConfig` from its field values; unknown keys
+    raise ``TypeError``."""
+    names = {f.name for f in dataclasses.fields(CommConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise TypeError(f"unknown CommConfig fields {sorted(unknown)}")
+    return CommConfig(**dict(d))

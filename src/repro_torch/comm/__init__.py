@@ -1,0 +1,32 @@
+"""repro_torch.comm — the communication API (paper Algorithm 1).
+
+* :mod:`repro_torch.comm.config`  — :class:`CommConfig` (+ ``from_env``)
+* :mod:`repro_torch.comm.plan`    — transfer-plan data model
+* :mod:`repro_torch.comm.graph`   — :class:`TransferGraph` DAG IR
+* :mod:`repro_torch.comm.passes`  — chunk-interleaving scheduler passes
+* :mod:`repro_torch.comm.policy`  — pluggable :class:`PathPolicy` strategies
+* :mod:`repro_torch.comm.planner` — route enumeration + plan construction
+* :mod:`repro_torch.comm.cache`   — captured-graph LRU + dispatch fast path
+* :mod:`repro_torch.comm.engine`  — the engine on the ``multipath_dma`` kernel
+* :mod:`repro_torch.comm.session` — :class:`CommSession` facade
+"""
+
+from repro_torch.comm.config import (  # noqa: F401
+    POLICY_NAMES, SCHEDULE_NAMES, VALIDATE_MODES, CommConfig)
+from repro_torch.comm.plan import (  # noqa: F401
+    PathAssignment, TransferGroup, TransferPlan, TransferRequest)
+from repro_torch.comm.graph import (  # noqa: F401
+    ComputeNode, CopyNode, DepEdge, TransferGraph, canonical_digest, lower)
+from repro_torch.comm.passes import (  # noqa: F401
+    AutoSchedule, CriticalPathSchedule, DepthFirstSchedule, GraphPass,
+    RoundRobinSchedule, apply_schedule, check_pass, make_schedule,
+    reindex, run_pipeline)
+from repro_torch.comm.policy import (  # noqa: F401
+    GreedyBandwidthPolicy, PathPolicy, RoundRobinPolicy, TunerPolicy,
+    contention_scaled, make_policy)
+from repro_torch.comm.planner import PathPlanner  # noqa: F401
+from repro_torch.comm.cache import (  # noqa: F401
+    CompiledPlan, FastPathCache, FastPathEntry, PlanLifecycle,
+    TransferPlanCache, compile_plan)
+from repro_torch.comm.engine import GroupKey, MultiPathTransfer  # noqa: F401
+from repro_torch.comm.session import CommSession  # noqa: F401

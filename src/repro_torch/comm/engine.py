@@ -1,0 +1,495 @@
+"""MultiPathTransfer — executable multi-path transfers on one CUDA device.
+
+The port of the reference engine's main path. One or more
+:class:`~repro_torch.comm.plan.TransferPlan` objects lower to ONE
+:class:`~repro_torch.comm.graph.TransferGraph`, the configured
+chunk-interleaving scheduler pass runs over it
+(:mod:`repro_torch.comm.passes`, DESIGN.md §2.2), and the SCHEDULED graph
+becomes the work table of the hand-written ``multipath_dma`` kernel
+(:mod:`repro_torch.kernels.multipath_dma`), in the graph's index order.
+The kernel launch is captured once into a ``torch.cuda.CUDAGraph`` and
+cached in a :class:`~repro_torch.comm.cache.TransferPlanCache` keyed on the
+scheduled graph's canonical digest: the paper's graph cache.
+
+Logical devices are the rows of each message's operand
+``(window, num_devices, nelems)``, all on one ``torch.device``. One
+dispatch is one graph replay:
+
+1. stage each message into its operand's ``src`` row, for every window;
+2. replay the captured graph (the kernel writes the message into each
+   window's ``dst`` row of the output and zeros into every other row — the
+   reference ``emit_graph`` contract);
+3. return *copies* of ``y[0, dst]``: the output is a static graph buffer
+   that the next replay overwrites.
+
+A **transfer group** (:meth:`MultiPathTransfer.transfer_group`) fuses a
+set of concurrent messages into one graph, one cache entry and one
+replay. Steady state takes the **dispatch fast path** (DESIGN.md §2.3):
+the whole plan→lower→schedule→digest resolution is memoized per request
+signature in an epoch-stamped :class:`~repro_torch.comm.cache.FastPathCache`,
+so repeat traffic is one dict lookup + one staging copy + one replay.
+
+On the CPU the same entries run the kernel's plain version eagerly. The
+degraded-mode ladder, telemetry and whole-iteration capture are later
+slices: dispatch under fault state raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from functools import lru_cache
+from typing import Sequence
+
+import torch
+
+from repro_torch.comm.cache import (CompiledPlan, FastPathCache,
+                                    FastPathEntry, TransferPlanCache,
+                                    compile_plan)
+from repro_torch.comm.config import VALIDATE_MODES, _env_bool
+from repro_torch.comm.graph import TransferGraph, lower
+from repro_torch.comm.passes import AutoSchedule, GraphPass, apply_schedule
+from repro_torch.comm.plan import TransferGroup, TransferPlan, TransferRequest
+from repro_torch.comm.planner import PathPlanner
+from repro_torch.core.pipelining import validate_plan
+from repro_torch.core.topology import HOST, Topology
+from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
+                                                      build_node_table)
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A ``torch.dtype`` from a dtype or its name (``"float32"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return out
+
+
+def dtype_name(dtype) -> str:
+    """The numpy-style name of a dtype (``"float32"``, ``"bfloat16"``) —
+    what keys and signatures carry, comparable with the reference."""
+    return str(as_dtype(dtype)).removeprefix("torch.")
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupKey:
+    """Graph-cache key for a fused transfer group.
+
+    ``digest`` is the canonical content hash of the SCHEDULED
+    :class:`~repro_torch.comm.graph.TransferGraph` (nodes in dispatch
+    order + edges + window), so the key can never diverge from the work
+    table that was captured. ``entries`` adds the per-message element
+    type/count (``(src, dst, nelems, dtype name)``), which the byte-level
+    graph does not carry but the operand layout depends on;
+    ``num_devices`` is the row count of every operand.
+    """
+
+    digest: str
+    entries: tuple   # ((src, dst, nelems, dtype_str), ...) per message
+    window: int = 1
+    num_devices: int = 0
+
+
+@lru_cache(maxsize=256)
+def _scheduled_graph(graph: TransferGraph, schedule: str,
+                     topology: Topology,
+                     topology_epoch: tuple) -> tuple[TransferGraph, str]:
+    """Memoized schedule application for name-addressed schedulers.
+
+    ``lower()`` memoizes the lowering, so steady-state launches reuse the
+    same graph object; without this cache every cache-hit dispatch would
+    re-run the pass AND the full §2.2 contract check. ``topology_epoch``
+    is part of the key: ``Topology`` hashes by identity, so a link
+    mutation must not serve a model-weighted scheduler a stale order.
+    """
+    return apply_schedule(graph, schedule, topology)
+
+
+def _check_executable(plan: TransferPlan) -> None:
+    for pa in plan.paths:
+        for link in pa.route.hops:
+            if HOST in (link.src, link.dst):
+                # Checked per HOP, not per route.via: a 3-hop detour can
+                # stage through the host mid-route while its recorded via
+                # is a device.
+                raise ValueError(
+                    "host-staged path is not executable on the device "
+                    "(DESIGN.md §2); plan with include_host=False")
+
+
+class MultiPathTransfer:
+    """Build, cache, and replay captured multi-path transfer graphs."""
+
+    def __init__(self, device: torch.device | str, *,
+                 topology: Topology | None = None,
+                 planner: PathPlanner | None = None,
+                 cache: TransferPlanCache | None = None,
+                 schedule: str | GraphPass = "round_robin",
+                 fastpath: bool | None = None,
+                 validate: str | None = None,
+                 fastpath_cache: FastPathCache | None = None):
+        self.device = torch.device(device)
+        if topology is None:
+            topology = Topology.full_mesh(4, with_host=True)
+        self.topology = topology
+        self.num_devices = topology.num_devices
+        # `if ... is None` (not `or`): an *empty* TransferPlanCache is falsy
+        # via __len__, and `or` would silently replace a caller's cache.
+        self.planner = planner if planner is not None else PathPlanner(
+            topology)
+        self.cache = cache if cache is not None else TransferPlanCache()
+        #: Default chunk-interleaving scheduler (DESIGN.md §2.2) applied
+        #: to every lowering before the work table is built.
+        self.schedule = schedule
+        #: Steady-state dispatch fast path (DESIGN.md §2.3);
+        #: ``REPRO_MP_FASTPATH=0`` (or ``fastpath=False``) turns it off.
+        self.fastpath = (_env_bool("REPRO_MP_FASTPATH", True)
+                         if fastpath is None else fastpath)
+        #: ``"miss"`` validates plans/graphs only when they are (re)built;
+        #: ``"always"`` re-validates on every dispatch (§4.5).
+        self.validate = (os.environ.get("REPRO_MP_VALIDATE", "miss")
+                         if validate is None else validate)
+        if self.validate not in VALIDATE_MODES:
+            raise ValueError(f"unknown validate mode {self.validate!r}; "
+                             f"expected one of {VALIDATE_MODES}")
+        self._fastpath = (fastpath_cache if fastpath_cache is not None
+                          else FastPathCache())
+        #: Cumulative nanoseconds spent staging messages into the static
+        #: operands (host-side enqueue of the copies).
+        self.staging_ns = 0
+        #: Concrete schedule name → dispatch/compile calls resolved to it.
+        self.schedule_counts: dict[str, int] = {}
+        #: Graph replays issued (one per transfer or per fused group).
+        self.dispatches = 0
+        #: Copy nodes / dependency edges across every graph this engine
+        #: captured (cache misses only).
+        self.nodes_compiled = 0
+        self.edges_compiled = 0
+        self.copy_nodes_compiled = 0
+        self.compute_nodes_compiled = 0
+
+    # -- planning -----------------------------------------------------------
+    def plan_for(self, src: int, dst: int, nelems: int,
+                 dtype=torch.float32, **plan_kwargs) -> TransferPlan:
+        itemsize = as_dtype(dtype).itemsize
+        plan = self.planner.plan(src, dst, nelems * itemsize,
+                                 granularity=itemsize,
+                                 include_host=plan_kwargs.pop(
+                                     "include_host", False),
+                                 **plan_kwargs)
+        validate_plan(plan)
+        return plan
+
+    def plan_group_for(self, specs: Sequence[tuple], *,
+                       max_paths: int | None = None,
+                       num_chunks: int | None = None,
+                       exclusive: bool = False) -> TransferGroup:
+        """Jointly plan executable messages; ``specs`` holds one
+        ``(src, dst, nelems, dtype)`` tuple per message. Host paths are
+        never admitted."""
+        requests = []
+        for (src, dst, nelems, dtype) in specs:
+            itemsize = as_dtype(dtype).itemsize
+            requests.append(TransferRequest(src, dst, nelems * itemsize,
+                                            granularity=itemsize))
+        group = self.planner.plan_group(requests, max_paths=max_paths,
+                                        include_host=False,
+                                        num_chunks=num_chunks,
+                                        exclusive=exclusive)
+        for plan in group.plans:
+            validate_plan(plan)
+            _check_executable(plan)
+        return group
+
+    # -- program construction -----------------------------------------------
+    def _group_graph(self, plans: Sequence[TransferPlan], window: int,
+                     schedule: str | GraphPass | None = None
+                     ) -> tuple[TransferGraph, str]:
+        """Lower the fused group and run the scheduler pass (§2.2).
+
+        Returns the SCHEDULED graph — the one the work table is built from
+        AND the one ``_group_key`` digests — plus the concrete schedule
+        name that was chosen.
+        """
+        for p in plans:
+            _check_executable(p)
+        graph = lower(TransferGroup(tuple(plans), self.topology.name),
+                      window)
+        sched = self.schedule if schedule is None else schedule
+        if isinstance(sched, str):
+            return _scheduled_graph(graph, sched, self.topology,
+                                    self.topology.epoch)
+        return apply_schedule(graph, sched, self.topology)
+
+    def _count_schedule(self, chosen: str) -> None:
+        self.schedule_counts[chosen] = self.schedule_counts.get(chosen,
+                                                                0) + 1
+
+    def _compile_group(self, key: GroupKey, graph: TransferGraph,
+                       shapes: Sequence[tuple[int, torch.dtype]]
+                       ) -> CompiledPlan:
+        nelems = [n for n, _ in shapes]
+        dtypes = [d for _, d in shapes]
+        itemsizes = [d.itemsize for d in dtypes]
+
+        def build() -> DmaProgram:
+            table = build_node_table(graph, nelems, itemsizes,
+                                     self.num_devices, fill="zero")
+            return DmaProgram(table, dtypes, self.device)
+
+        self.nodes_compiled += graph.num_nodes
+        self.edges_compiled += graph.num_edges
+        self.copy_nodes_compiled += graph.num_copy_nodes
+        self.compute_nodes_compiled += graph.num_compute_nodes
+        return compile_plan(key, build, num_nodes=graph.num_nodes)
+
+    def _group_key(self, graph: TransferGraph, plans: Sequence[TransferPlan],
+                   shapes: Sequence[tuple[int, torch.dtype]],
+                   window: int) -> GroupKey:
+        entries = tuple(
+            (p.src, p.dst, nelems, dtype_name(dtype))
+            for p, (nelems, dtype) in zip(plans, shapes))
+        return GroupKey(graph.digest(), entries, window, self.num_devices)
+
+    # -- steady-state dispatch (DESIGN.md §2.3) -----------------------------
+    def _request_signature(self, mode: str, specs: Sequence[tuple],
+                           window: int, schedule: str,
+                           max_paths: int | None, num_chunks: int | None,
+                           exclusive: bool) -> tuple:
+        """Request identity for the fast path: everything that determines
+        the resolved plans + graph BESIDES planner/topology state (which
+        the epoch stamp covers)."""
+        return (mode,
+                tuple((src, dst, nelems, dtype_name(dtype))
+                      for src, dst, nelems, dtype in specs),
+                window, schedule, max_paths, num_chunks, exclusive,
+                self.num_devices)
+
+    def _launch(self, entry: FastPathEntry, messages: Sequence[torch.Tensor],
+                *, block: bool) -> list[torch.Tensor]:
+        """Stage the messages into the static operands and replay ONCE;
+        returns copies of each message's ``y[0, dst]``."""
+        compiled = entry.compiled
+        t0 = time.perf_counter_ns()
+        for buf, m, p in zip(compiled.inputs(), messages, entry.plans):
+            buf[:, p.src].copy_(m)
+        staging = time.perf_counter_ns() - t0
+        self.staging_ns += staging
+        compiled.lifecycle.staging_ns += staging
+        ys = compiled() if block else compiled.dispatch()
+        self.dispatches += 1
+        return [y[0, p.dst].clone() for y, p in zip(ys, entry.plans)]
+
+    def _resolve(self, specs: Sequence[tuple], *, window: int,
+                 max_paths: int | None, num_chunks: int | None,
+                 exclusive: bool, schedule: str | GraphPass | None,
+                 single: bool) -> FastPathEntry:
+        """Resolve a request to a launchable :class:`FastPathEntry`.
+
+        Fast path (hit): one dict lookup against the epoch-stamped
+        :class:`FastPathCache`; the plan cache is still consulted by
+        stored key so LRU stats stay coherent (and an evicted graph is
+        recaptured from the memoized scheduled graph without
+        re-planning). Slow path (miss): the full pipeline, then the
+        resolution is memoized under the current planner epoch. Custom
+        :class:`GraphPass` objects bypass the fast path.
+        """
+        sched = self.schedule if schedule is None else schedule
+        sched_name = sched if isinstance(sched, str) else None
+        use_fast = self.fastpath and sched_name is not None
+        shapes = [(nelems, as_dtype(dtype))
+                  for (_, _, nelems, dtype) in specs]
+        sig = epoch = None
+        if use_fast:
+            sig = self._request_signature(
+                "plan" if single else "plan_group", specs, window,
+                sched_name, max_paths, num_chunks, exclusive)
+            epoch = self.planner.epoch
+            entry = self._fastpath.get(sig, epoch)
+            if entry is not None:
+                compiled = self.cache.get(entry.key)
+                if compiled is None:   # evicted under us: recapture only
+                    compiled = self._compile_group(entry.key, entry.graph,
+                                                   shapes)
+                    self.cache.put(entry.key, compiled)
+                entry.compiled = compiled
+                if self.validate == "always":
+                    for p in entry.plans:
+                        validate_plan(p)
+                    entry.graph.validate(
+                        {i: p.nbytes for i, p in enumerate(entry.plans)},
+                        cross_flow_exclusive=False)
+                compiled.lifecycle.fastpath_hits += 1
+                self._count_schedule(entry.schedule)
+                return entry
+        if single:
+            (src, dst, nelems, dtype) = specs[0]
+            plans: tuple[TransferPlan, ...] = (self.plan_for(
+                src, dst, nelems, dtype, max_paths=max_paths,
+                num_chunks=num_chunks),)
+        else:
+            plans = self.plan_group_for(specs, max_paths=max_paths,
+                                        num_chunks=num_chunks,
+                                        exclusive=exclusive).plans
+        graph, chosen = self._group_graph(plans, window, sched)
+        self._count_schedule(chosen)
+        key = self._group_key(graph, plans, shapes, window)
+        compiled = self.cache.get_or_build(
+            key, lambda: self._compile_group(key, graph, shapes))
+        entry = FastPathEntry(plans=tuple(plans), graph=graph,
+                              digest=key.digest, key=key,
+                              compiled=compiled, schedule=chosen)
+        if use_fast:
+            self._fastpath.put(sig, epoch, entry)
+        return entry
+
+    def _dispatch(self, specs: Sequence[tuple],
+                  messages: Sequence[torch.Tensor], *, window: int,
+                  max_paths: int | None, num_chunks: int | None,
+                  exclusive: bool, schedule: str | GraphPass | None,
+                  single: bool, block: bool) -> list[torch.Tensor]:
+        """Resolve + replay one request (the healthy branch)."""
+        if self.planner.quarantined or self.topology.failed_links:
+            raise NotImplementedError(
+                "dispatch under link faults (quarantined or failed links) "
+                "needs the degradation ladder, which is ported with the "
+                "health slice")
+        entry = self._resolve(specs, window=window, max_paths=max_paths,
+                              num_chunks=num_chunks, exclusive=exclusive,
+                              schedule=schedule, single=single)
+        return self._launch(entry, messages, block=block)
+
+    def _as_message(self, message) -> torch.Tensor:
+        m = torch.as_tensor(message)
+        if m.device != self.device:
+            m = m.to(self.device)
+        return m
+
+    # -- public API ---------------------------------------------------------
+    def transfer(self, message: torch.Tensor, src: int, dst: int, *,
+                 window: int = 1, max_paths: int | None = None,
+                 num_chunks: int | None = None,
+                 schedule: str | GraphPass | None = None,
+                 block: bool = True) -> torch.Tensor:
+        """Move ``message`` (1-D tensor) from logical device ``src`` to
+        ``dst``; returns the received message (a fresh tensor).
+        ``block=False`` replays without waiting; the caller syncs."""
+        message = self._as_message(message)
+        if message.dim() != 1:
+            raise ValueError("message must be 1-D; reshape first")
+        return self._dispatch(
+            [(src, dst, message.shape[0], message.dtype)], [message],
+            window=window, max_paths=max_paths, num_chunks=num_chunks,
+            exclusive=False, schedule=schedule, single=True,
+            block=block)[0]
+
+    def transfer_group(self, messages: Sequence[torch.Tensor],
+                       pairs: Sequence[tuple[int, int]], *,
+                       window: int = 1, max_paths: int | None = None,
+                       num_chunks: int | None = None,
+                       exclusive: bool = False,
+                       schedule: str | GraphPass | None = None,
+                       block: bool = True) -> list[torch.Tensor]:
+        """Move ``messages[i]`` (1-D) from ``pairs[i][0]`` to
+        ``pairs[i][1]`` — all of them in ONE graph replay.
+
+        The set is planned jointly, lowered to one transfer graph, and
+        cached under a :class:`GroupKey`. Message order is canonicalized
+        by ``(src, dst, nelems, dtype)`` (stable) before planning, so
+        permuted twins share one entry; results come back in the
+        caller's order.
+        """
+        msgs = [self._as_message(m) for m in messages]
+        if len(msgs) != len(pairs):
+            raise ValueError(f"{len(msgs)} messages vs {len(pairs)} pairs")
+        if not msgs:
+            return []
+        for m in msgs:
+            if m.dim() != 1:
+                raise ValueError("messages must be 1-D; reshape first")
+        specs = [(src, dst, m.shape[0], m.dtype)
+                 for m, (src, dst) in zip(msgs, pairs)]
+        order = sorted(range(len(msgs)),
+                       key=lambda i: (specs[i][0], specs[i][1],
+                                      specs[i][2], dtype_name(specs[i][3])))
+        outs = self._dispatch([specs[i] for i in order],
+                              [msgs[i] for i in order], window=window,
+                              max_paths=max_paths, num_chunks=num_chunks,
+                              exclusive=exclusive, schedule=schedule,
+                              single=False, block=block)
+        inverse = {i: k for k, i in enumerate(order)}
+        return [outs[inverse[i]] for i in range(len(msgs))]
+
+    def compiled_for(self, src: int, dst: int, nelems: int,
+                     dtype=torch.float32, *, window: int = 1,
+                     max_paths: int | None = None,
+                     num_chunks: int | None = None,
+                     schedule: str | GraphPass | None = None,
+                     ) -> tuple[CompiledPlan, TransferPlan]:
+        """AOT handle for benchmarks: returns (captured graph, plan).
+        ``compiled(x)`` copies a staged ``(window, num_devices, nelems)``
+        operand in, replays once and returns the static outputs."""
+        plan = self.plan_for(src, dst, nelems, dtype, max_paths=max_paths,
+                             num_chunks=num_chunks)
+        graph, chosen = self._group_graph((plan,), window, schedule)
+        self._count_schedule(chosen)
+        shapes = ((nelems, as_dtype(dtype)),)
+        key = self._group_key(graph, (plan,), shapes, window)
+        compiled = self.cache.get_or_build(
+            key, lambda: self._compile_group(key, graph, shapes))
+        return compiled, plan
+
+    def compiled_for_group(self, specs: Sequence[tuple], *,
+                           window: int = 1, max_paths: int | None = None,
+                           num_chunks: int | None = None,
+                           exclusive: bool = False,
+                           schedule: str | GraphPass | None = None,
+                           ) -> tuple[CompiledPlan, TransferGroup]:
+        """AOT handle for a fused group; ``specs`` as in
+        :meth:`plan_group_for`, taken in the caller's order. Returns
+        (captured graph, group)."""
+        group = self.plan_group_for(specs, max_paths=max_paths,
+                                    num_chunks=num_chunks,
+                                    exclusive=exclusive)
+        graph, chosen = self._group_graph(group.plans, window, schedule)
+        self._count_schedule(chosen)
+        shapes = [(nelems, as_dtype(dtype))
+                  for (_, _, nelems, dtype) in specs]
+        key = self._group_key(graph, group.plans, shapes, window)
+        compiled = self.cache.get_or_build(
+            key, lambda: self._compile_group(key, graph, shapes))
+        return compiled, group
+
+    # -- introspection ------------------------------------------------------
+    def stats(self, reset: bool = False) -> dict:
+        """Engine-level accounting: replays, plan-cache counters, fast-
+        path counters, cumulative staging time, captured graph totals and
+        per-schedule resolution counts. ``reset=True`` returns the
+        snapshot then zeroes every windowed counter."""
+        out = {
+            "dispatches": self.dispatches,
+            "cache": self.cache.stats(reset=reset),
+            "fastpath": {"enabled": self.fastpath,
+                         "validate": self.validate,
+                         "staging_ns": self.staging_ns,
+                         **self._fastpath.stats(reset=reset)},
+            "graph": {"nodes_compiled": self.nodes_compiled,
+                      "edges_compiled": self.edges_compiled,
+                      "copy_nodes_compiled": self.copy_nodes_compiled,
+                      "compute_nodes_compiled":
+                          self.compute_nodes_compiled},
+            "schedules": dict(self.schedule_counts),
+            "schedule_scores": AutoSchedule.score_stats(reset=reset),
+        }
+        if reset:
+            self.dispatches = 0
+            self.staging_ns = 0
+            self.nodes_compiled = 0
+            self.edges_compiled = 0
+            self.copy_nodes_compiled = 0
+            self.compute_nodes_compiled = 0
+            self.schedule_counts = {}
+        return out

@@ -1,0 +1,118 @@
+"""Multi-path halo exchange — the paper's Jacobi application (§5.4, Fig. 11).
+
+A 1-D ring decomposition (the paper uses 4 ranks, each exchanging boundary
+columns with its two neighbours). The domain is device-stacked: one
+tensor ``(n, rows, cols)`` whose leading index is the rank, on one
+``torch.device``. Rank *i*'s halos come either from the session's fused
+exchange (:func:`halo_exchange_group`, through the ``multipath_dma``
+kernel) or from row shifts of the stacked tensor (:func:`halo_exchange_ring`,
+the counterpart of the reference's ``ppermute`` shifts, with the same
+direct/staged split of each boundary). :func:`jacobi_step` masks the
+global edge with Dirichlet zeros and sweeps with the ``jacobi`` kernel.
+
+``make_captured_jacobi_step`` comes with the capture slice.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import torch
+
+from repro_torch.kernels.jacobi import ops as jacobi_ops
+from repro_torch.kernels.jacobi.kernel import jacobi_sweep_plain
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.comm.session import CommSession
+
+
+def _shift(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Rank *i* sends to rank *i + shift*: row *j* of the result holds
+    row *j - shift* of ``x`` (ring wrap-around)."""
+    return torch.roll(x, shifts=shift, dims=0)
+
+
+def halo_exchange_ring(left_bnd: torch.Tensor, right_bnd: torch.Tensor, *,
+                       multipath: bool = False
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exchange boundaries with ring neighbours over the stacked axis 0.
+
+    ``left_bnd``/``right_bnd`` are every rank's own boundary slices,
+    ``(n, ...)``. Returns ``(left_halo, right_halo)``: for rank *i* the
+    right boundary of rank *i-1* and the left boundary of rank *i+1*.
+    ``multipath=True`` splits each boundary in two stripes along the last
+    axis: the first moves over the direct ±1 shift, the second is staged
+    through the rank two hops around the ring (the idle diagonal of a
+    4-rank node) — the same data movement, as two shifts.
+    """
+    n = left_bnd.shape[0]
+    if n == 1:
+        return right_bnd, left_bnd
+    if not multipath or n < 3:
+        return _shift(right_bnd, 1), _shift(left_bnd, -1)
+
+    def split(b):
+        h = b.shape[-1] // 2
+        if h == 0:
+            return b, b[..., :0]
+        return b[..., :h], b[..., h:]
+
+    r0, r1 = split(right_bnd)
+    left_halo = torch.cat([_shift(r0, 1), _shift(_shift(r1, 2), -1)], dim=-1)
+    l0, l1 = split(left_bnd)
+    right_halo = torch.cat([_shift(l0, -1), _shift(_shift(l1, -2), 1)],
+                           dim=-1)
+    return left_halo, right_halo
+
+
+def halo_exchange_group(session: "CommSession", blocks: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Driver-level ring halo exchange as ONE fused transfer group.
+
+    ``blocks`` is the column-decomposed domain ``(n, rows, cols)``. Every
+    rank's two boundary columns ride a single ``2n``-message group through
+    ``session.exchange`` — one graph replay. Returns ``(left_halos,
+    right_halos)``, ``(n, rows, 1)`` each: rank *i*'s left halo is rank
+    *i-1*'s right boundary and vice versa (periodic; :func:`jacobi_step`
+    applies the Dirichlet mask).
+    """
+    n = blocks.shape[0]
+    if n == 1:
+        return blocks[:, :, -1:], blocks[:, :, :1]
+    items = []
+    for i in range(n):
+        items.append((blocks[i, :, -1:], i, (i + 1) % n))  # → right nbr
+        items.append((blocks[i, :, :1], i, (i - 1) % n))   # → left nbr
+    received = session.exchange(items)
+    left_halos = torch.stack([received[2 * ((i - 1) % n)]
+                              for i in range(n)])
+    right_halos = torch.stack([received[2 * ((i + 1) % n) + 1]
+                               for i in range(n)])
+    return left_halos, right_halos
+
+
+def jacobi_step(u: torch.Tensor, *, session: "CommSession | None" = None,
+                multipath: bool = False,
+                use_kernel: bool = True) -> torch.Tensor:
+    """One Jacobi sweep of the stacked column-partitioned domain
+    ``u: (n, rows, cols)``.
+
+    Halos come from ``session``'s fused exchange when one is given,
+    otherwise from row shifts (:func:`halo_exchange_ring`, optionally
+    multi-path). The global edge gets Dirichlet zeros, then the 5-point
+    stencil averages the four neighbours: the ``jacobi`` kernel on a CUDA
+    tensor (``use_kernel=True``), else the plain version.
+    """
+    if session is not None:
+        left_halo, right_halo = halo_exchange_group(session, u)
+    else:
+        left_halo, right_halo = halo_exchange_ring(
+            u[:, :, :1], u[:, :, -1:], multipath=multipath)
+    left_halo = left_halo.clone()
+    right_halo = right_halo.clone()
+    left_halo[0] = 0       # global edge → Dirichlet zeros
+    right_halo[-1] = 0
+    ext = torch.cat([left_halo, u, right_halo], dim=2)
+    if use_kernel:
+        return jacobi_ops.jacobi_sweep(ext)
+    return jacobi_sweep_plain(ext)

@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+* :mod:`repro_torch.kernels.multipath_dma` — one transfer graph per launch
+* :mod:`repro_torch.kernels.jacobi` — the 5-point Jacobi sweep
+"""

@@ -85,3 +85,9 @@ def two_island():
     """Hierarchical 2-island × 4-GPU topology (NVLink islands + one
     inter-node link pair per island pair)."""
     return Topology.hierarchical(2, 4, name="two_island")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one "
+        "(on the card: python -m pytest -q --noconftest tests/test_torch_cuda.py)")

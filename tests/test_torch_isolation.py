@@ -1,0 +1,54 @@
+"""The port stands alone: no JAX and no reference package at run time.
+
+``repro_torch`` and every submodule must import with ``jax`` blocked, and
+no source file of the port (nor ``chip_smoke.py``) may name jax or import
+the reference package ``repro``.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "repro" or m.startswith("repro.") or m.split(".")[0] == "jax"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMPORT], capture_output=True,
+        text=True, cwd=ROOT, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20     # every module was visited
+
+
+def port_files():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_no_file_names_jax_or_imports_the_reference():
+    names_jax = re.compile(r"\bjax\b", re.IGNORECASE)
+    imports_ref = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)",
+                             re.MULTILINE)
+    files = port_files()
+    assert len(files) > 20
+    for path in files:
+        text = path.read_text()
+        assert not names_jax.search(text), path
+        assert not imports_ref.search(text), path
