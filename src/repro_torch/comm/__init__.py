@@ -7,6 +7,8 @@
 * :mod:`repro_torch.comm.policy`  — pluggable :class:`PathPolicy` strategies
 * :mod:`repro_torch.comm.planner` — route enumeration + plan construction
 * :mod:`repro_torch.comm.cache`   — captured-graph LRU + dispatch fast path
+* :mod:`repro_torch.comm.capture` — whole-iteration step capture
+* :mod:`repro_torch.comm.collectives` — bidirectional-ring collectives
 * :mod:`repro_torch.comm.engine`  — the engine on the ``multipath_dma`` kernel
 * :mod:`repro_torch.comm.session` — :class:`CommSession` facade
 """
@@ -28,5 +30,13 @@ from repro_torch.comm.planner import PathPlanner  # noqa: F401
 from repro_torch.comm.cache import (  # noqa: F401
     CompiledPlan, FastPathCache, FastPathEntry, PlanLifecycle,
     TransferPlanCache, compile_plan)
+from repro_torch.comm.capture import (  # noqa: F401
+    BufferRef, BufferSpec, CapturedStep, StepCapture, StepProgram,
+    captured_psum, lower_step)
+from repro_torch.comm.collectives import (  # noqa: F401
+    bidir_ring_all_gather, bidir_ring_reduce_scatter, modeled_all_reduce_s,
+    multipath_all_reduce, multipath_all_to_all, psum_via_multipath,
+    select_all_reduce_strategy, tier_bandwidths_gbps, two_level_all_reduce)
 from repro_torch.comm.engine import GroupKey, MultiPathTransfer  # noqa: F401
-from repro_torch.comm.session import CommSession  # noqa: F401
+from repro_torch.comm.session import (  # noqa: F401
+    BoundCollectives, CollectiveKey, CommSession)

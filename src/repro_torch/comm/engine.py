@@ -29,9 +29,16 @@ the whole plan→lower→schedule→digest resolution is memoized per request
 signature in an epoch-stamped :class:`~repro_torch.comm.cache.FastPathCache`,
 so repeat traffic is one dict lookup + one staging copy + one replay.
 
-On the CPU the same entries run the kernel's plain version eagerly. The
-degraded-mode ladder, telemetry and whole-iteration capture are later
-slices: dispatch under fault state raises ``NotImplementedError``.
+**Whole-iteration capture** (:meth:`MultiPathTransfer.capture`) lowers a
+recorded step of kernels and exchanges to ONE heterogeneous graph, makes
+it resident as a :class:`~repro_torch.comm.capture.StepProgram` (kernels
+and ``multipath_dma`` runs over one byte arena) and replays the whole
+iteration as ONE CUDA graph per call, keyed and memoized like a transfer
+group.
+
+On the CPU the same entries run the kernels' plain versions eagerly. The
+degraded-mode ladder and telemetry are later slices: dispatch under fault
+state raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,8 +54,10 @@ import torch
 from repro_torch.comm.cache import (CompiledPlan, FastPathCache,
                                     FastPathEntry, TransferPlanCache,
                                     compile_plan)
+from repro_torch.comm.capture import (CapturedStep, StepCapture, StepProgram,
+                                      as_dtype, dtype_name, lower_step)
 from repro_torch.comm.config import VALIDATE_MODES, _env_bool
-from repro_torch.comm.graph import TransferGraph, lower
+from repro_torch.comm.graph import ComputeNode, TransferGraph, lower
 from repro_torch.comm.passes import AutoSchedule, GraphPass, apply_schedule
 from repro_torch.comm.plan import TransferGroup, TransferPlan, TransferRequest
 from repro_torch.comm.planner import PathPlanner
@@ -56,22 +65,6 @@ from repro_torch.core.pipelining import validate_plan
 from repro_torch.core.topology import HOST, Topology
 from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
                                                       build_node_table)
-
-
-def as_dtype(dtype) -> torch.dtype:
-    """A ``torch.dtype`` from a dtype or its name (``"float32"``)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    out = getattr(torch, str(dtype), None)
-    if not isinstance(out, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return out
-
-
-def dtype_name(dtype) -> str:
-    """The numpy-style name of a dtype (``"float32"``, ``"bfloat16"``) —
-    what keys and signatures carry, comparable with the reference."""
-    return str(as_dtype(dtype)).removeprefix("torch.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,12 +78,38 @@ class GroupKey:
     type/count (``(src, dst, nelems, dtype name)``), which the byte-level
     graph does not carry but the operand layout depends on;
     ``num_devices`` is the row count of every operand.
+
+    Captured whole-iteration steps reuse this key: ``digest`` is the
+    scheduled heterogeneous graph's digest (compute nodes included) and
+    ``entries`` carries the capture signature plus one
+    ``(kernel, flops, cost_ns)`` triple per compute node, so the key
+    covers compute identity as well as routes.
     """
 
     digest: str
     entries: tuple   # ((src, dst, nelems, dtype_str), ...) per message
     window: int = 1
     num_devices: int = 0
+
+
+@dataclasses.dataclass
+class _StepEntry:
+    """Fast-path entry for a captured whole-iteration step.
+
+    Same shape as :class:`~repro_torch.comm.cache.FastPathEntry` (the
+    front cache stores entries opaquely) plus the recording itself
+    (``program`` — needed to rebuild the resident program if the plan
+    cache evicts it under us) and the step's output buffer ids.
+    """
+
+    plans: tuple
+    graph: TransferGraph
+    digest: str
+    key: GroupKey
+    compiled: CompiledPlan
+    schedule: str
+    program: StepCapture
+    outputs: tuple
 
 
 @lru_cache(maxsize=256)
@@ -346,17 +365,20 @@ class MultiPathTransfer:
             self._fastpath.put(sig, epoch, entry)
         return entry
 
+    def _check_healthy(self) -> None:
+        if self.planner.quarantined or self.topology.failed_links:
+            raise NotImplementedError(
+                "dispatch under link faults (quarantined or failed links) "
+                "needs the degradation ladder, which is ported with the "
+                "health slice")
+
     def _dispatch(self, specs: Sequence[tuple],
                   messages: Sequence[torch.Tensor], *, window: int,
                   max_paths: int | None, num_chunks: int | None,
                   exclusive: bool, schedule: str | GraphPass | None,
                   single: bool, block: bool) -> list[torch.Tensor]:
         """Resolve + replay one request (the healthy branch)."""
-        if self.planner.quarantined or self.topology.failed_links:
-            raise NotImplementedError(
-                "dispatch under link faults (quarantined or failed links) "
-                "needs the degradation ladder, which is ported with the "
-                "health slice")
+        self._check_healthy()
         entry = self._resolve(specs, window=window, max_paths=max_paths,
                               num_chunks=num_chunks, exclusive=exclusive,
                               schedule=schedule, single=single)
@@ -462,6 +484,141 @@ class MultiPathTransfer:
         compiled = self.cache.get_or_build(
             key, lambda: self._compile_group(key, graph, shapes))
         return compiled, group
+
+    # -- whole-iteration capture (heterogeneous graphs) ---------------------
+    def capture(self, build_fn, *, schedule: str | None = None
+                ) -> CapturedStep:
+        """Record one iteration and return a launchable
+        :class:`~repro_torch.comm.capture.CapturedStep`.
+
+        ``build_fn(cap)`` declares the step against a fresh
+        :class:`~repro_torch.comm.capture.StepCapture` and returns the
+        output ref(s). Nothing is planned or captured here — resolution
+        happens on first launch (or :meth:`CapturedStep.resolve`) and is
+        memoized on the fast path.
+        """
+        cap = StepCapture(self.num_devices)
+        outputs = build_fn(cap)
+        if not isinstance(outputs, (tuple, list)):
+            outputs = (outputs,)
+        return CapturedStep(self, cap, tuple(outputs), schedule=schedule)
+
+    def _compile_step(self, key: GroupKey, graph: TransferGraph,
+                      program: StepCapture, outputs: tuple) -> CompiledPlan:
+        """Make one scheduled step resident (and captured, on a CUDA
+        device) as a :class:`~repro_torch.comm.capture.StepProgram`."""
+        self.nodes_compiled += graph.num_nodes
+        self.edges_compiled += graph.num_edges
+        self.copy_nodes_compiled += graph.num_copy_nodes
+        self.compute_nodes_compiled += graph.num_compute_nodes
+        return compile_plan(
+            key, lambda: StepProgram(graph, program, outputs,
+                                     self.num_devices, self.device),
+            num_nodes=graph.num_nodes)
+
+    def resolve_step(self, step: CapturedStep,
+                     schedule: str | GraphPass | None = None) -> _StepEntry:
+        """Resolve a captured step to a launchable entry.
+
+        Mirrors :meth:`_resolve`: a fast-path hit is one dict lookup keyed
+        on (capture signature, outputs, schedule name, device count) under
+        the planner epoch; a miss runs lower_step → scheduler pass → §4.5
+        validation (inside lowering) → resident program, keyed on the
+        scheduled graph digest + capture signature + per-kernel compute
+        identity, then memoizes. Two schedules of the same capture digest
+        apart and never cross-serve programs.
+        """
+        program = step.capture
+        sched = self.schedule if schedule is None else schedule
+        sched_name = sched if isinstance(sched, str) else None
+        use_fast = self.fastpath and sched_name is not None
+        sig = epoch = None
+        if use_fast:
+            sig = ("capture_step", program.signature(), step.outputs,
+                   sched_name, self.num_devices)
+            epoch = self.planner.epoch
+            entry = self._fastpath.get(sig, epoch)
+            if entry is not None:
+                compiled = self.cache.get(entry.key)
+                if compiled is None:   # evicted under us: rebuild only
+                    compiled = self._compile_step(
+                        entry.key, entry.graph, entry.program,
+                        entry.outputs)
+                    self.cache.put(entry.key, compiled)
+                entry.compiled = compiled
+                if self.validate == "always":
+                    for p in entry.plans:
+                        validate_plan(p)
+                    entry.graph.validate(
+                        {i: p.nbytes for i, p in enumerate(entry.plans)},
+                        cross_flow_exclusive=False)
+                compiled.lifecycle.fastpath_hits += 1
+                self._count_schedule(entry.schedule)
+                return entry
+        graph, plans = lower_step(program, self.plan_group_for,
+                                  self.topology.name)
+        scheduled, chosen = apply_schedule(graph, sched, self.topology)
+        self._count_schedule(chosen)
+        compute_id = tuple((n.kernel, n.flops, n.cost_ns)
+                           for n in scheduled.nodes
+                           if isinstance(n, ComputeNode))
+        key = GroupKey(scheduled.digest(),
+                       entries=(program.signature(), step.outputs)
+                       + compute_id,
+                       window=1, num_devices=self.num_devices)
+        compiled = self.cache.get_or_build(
+            key, lambda: self._compile_step(key, scheduled, program,
+                                            step.outputs))
+        entry = _StepEntry(plans=plans, graph=scheduled, digest=key.digest,
+                           key=key, compiled=compiled, schedule=chosen,
+                           program=program, outputs=step.outputs)
+        if use_fast:
+            self._fastpath.put(sig, epoch, entry)
+        return entry
+
+    def _launch_step(self, entry: _StepEntry,
+                     tensors: Sequence[torch.Tensor], *,
+                     block: bool) -> list[torch.Tensor]:
+        """Stage the step inputs into the resident program's static
+        buffers and replay it ONCE; returns copies of the outputs."""
+        program = entry.program
+        if len(tensors) != len(program.inputs):
+            raise ValueError(f"captured step takes {len(program.inputs)} "
+                             f"input tensors, got {len(tensors)}")
+        compiled = entry.compiled
+        t0 = time.perf_counter_ns()
+        for bid, t, buf in zip(program.inputs, tensors, compiled.inputs()):
+            spec = program.buffers[bid]
+            t = torch.as_tensor(t)
+            want = (spec.shape if spec.replicated
+                    else (self.num_devices,) + spec.shape)
+            if tuple(t.shape) != want:
+                raise ValueError(
+                    f"input for buffer {bid} must have shape {want} "
+                    f"({'replicated' if spec.replicated else 'stacked'}), "
+                    f"got {tuple(t.shape)}")
+            buf.copy_(t)
+        staging = time.perf_counter_ns() - t0
+        self.staging_ns += staging
+        compiled.lifecycle.staging_ns += staging
+        ys = compiled() if block else compiled.dispatch()
+        self.dispatches += 1
+        return [y.clone() for y in ys]
+
+    def run_step(self, step: CapturedStep, tensors: Sequence[torch.Tensor],
+                 *, schedule: str | GraphPass | None = None,
+                 block: bool = True) -> list[torch.Tensor]:
+        """Resolve + launch one captured iteration as ONE dispatch.
+
+        Returns the step outputs device-stacked ``(num_devices,
+        *local_shape)``, aligned with the capture's declared outputs.
+        Under fault state (quarantined or failed links) it raises
+        ``NotImplementedError``: the captured-step retry ladder comes
+        with the health slice.
+        """
+        self._check_healthy()
+        entry = self.resolve_step(step, schedule)
+        return self._launch_step(entry, tensors, block=block)
 
     # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:

@@ -14,37 +14,53 @@ handler: it owns one :class:`~repro_torch.core.topology.Topology`, one
 * ``session.exchange([(x, src, dst), ...])`` — a *transfer group*: a set
   of concurrent messages planned jointly, fused into one graph, one cache
   entry, one replay,
+* ``session.all_gather/reduce_scatter/all_reduce/all_to_all/psum(...)`` —
+  driver-level bidirectional-ring collectives over global tensors, each
+  captured once per (op, shape, dtype) into one CUDA graph and cached in
+  the *same* plan cache (the all-gather runs the ``ring_allgather``
+  kernel),
+* ``session.collectives`` — the same collectives over device-stacked
+  tensors, for use inside a captured step's kernels,
+* ``session.capture(build_fn)`` — whole-iteration capture: kernels and
+  fused exchanges of one iteration replayed as ONE CUDA graph per call,
 * ``session.plan(...)`` / ``session.tune(...)`` / ``session.plan_group``
   — planning and the offline tuner (paper §4.4).
 
 ``device=None`` means ``cuda`` and raises when no GPU is present; pass
 ``device="cpu"`` to run the kernels' plain versions. Logical devices are
-rows of each message's operand on that one device. Without a topology
-the session models the paper's Beluga node (``Topology.full_mesh(4)``):
-one card has no device count to read the size from.
+rows of each operand on that one device. Without a topology the session
+models the paper's Beluga node (``Topology.full_mesh(4)``): one card has
+no device count to read the size from.
 
 Options whose subsystems are ported in later slices raise
 ``NotImplementedError`` instead of being ignored: ``telemetry``
-(telemetry/calibration slice), ``profile_dir`` (telemetry/calibration),
-``faults`` (health slice) and ``capture`` (capture slice). ``health``
-(on by default) is accepted: with no telemetry and no fault state the
-monitor has nothing to watch, and every dispatch under fault state raises
-``NotImplementedError`` naming the health slice.
+(telemetry/calibration slice), ``profile_dir`` (telemetry/calibration)
+and ``faults`` (health slice). ``health`` (on by default) is accepted:
+with no telemetry and no fault state the monitor has nothing to watch,
+and every dispatch under fault state raises ``NotImplementedError``
+naming the health slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
+from repro_torch.comm import collectives as coll
 from repro_torch.comm.cache import (CompiledPlan, FastPathCache,
-                                    TransferPlanCache)
+                                    TransferPlanCache, compile_plan)
+from repro_torch.comm.capture import CapturedStep, dtype_name
 from repro_torch.comm.config import CommConfig, _env_bool
 from repro_torch.comm.engine import MultiPathTransfer
+from repro_torch.comm.graph import canonical_digest
 from repro_torch.comm.passes import AutoSchedule, GraphPass
 from repro_torch.comm.plan import TransferPlan
 from repro_torch.comm.planner import PathPlanner
 from repro_torch.comm.policy import PathPolicy, make_policy
 from repro_torch.core.topology import Topology
+from repro_torch.kernels._graph import GraphProgram
 
 _LATER = {
     "telemetry": "the telemetry/calibration slice",
@@ -67,6 +83,82 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveKey:
+    """Plan-cache key for a captured collective.
+
+    The digest keys the device count along with op/shape/dtype/axis: a
+    cache shared across sessions of different sizes must not serve one
+    size's program to the other. Like
+    :class:`~repro_torch.comm.engine.GroupKey`, the key's identity is a
+    canonical digest (:func:`repro_torch.comm.graph.canonical_digest`),
+    equal to the reference's for the same ``(op, shape, dtype, axis,
+    n)``.
+    """
+
+    op: str
+    digest: str
+
+    @classmethod
+    def for_collective(cls, op: str, shape: tuple, dtype: str, axis: str,
+                       num_devices: int) -> "CollectiveKey":
+        return cls(op, canonical_digest(
+            ("collective", op, tuple(shape), dtype, axis, num_devices)))
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundCollectives:
+    """Multipath collectives over device-stacked tensors ``(n, ...)``,
+    bound to a session's axis name (part of the collective keys). For use
+    inside a captured step's kernels; the driver-level captured
+    counterparts over global tensors live on :class:`CommSession`."""
+
+    axis_name: str
+
+    def all_gather(self, xs: torch.Tensor) -> torch.Tensor:
+        return coll.bidir_ring_all_gather(xs)
+
+    def reduce_scatter(self, xs: torch.Tensor) -> torch.Tensor:
+        return coll.bidir_ring_reduce_scatter(xs)
+
+    def all_reduce(self, xs: torch.Tensor) -> torch.Tensor:
+        return coll.multipath_all_reduce(xs)
+
+    def all_to_all(self, xs: torch.Tensor) -> torch.Tensor:
+        return coll.multipath_all_to_all(xs)
+
+    def psum(self, xs: torch.Tensor) -> torch.Tensor:
+        return coll.psum_via_multipath(xs)
+
+    def pmean(self, xs: torch.Tensor) -> torch.Tensor:
+        return self.psum(xs) / xs.shape[0]
+
+
+class CollectiveProgram(GraphProgram):
+    """One collective made resident: a static stacked input buffer and
+    the collective's body, replayed as one CUDA graph on a CUDA device
+    (the body's result, allocated inside the graph, is the static output)
+    and run eagerly on the CPU."""
+
+    def __init__(self, body: Callable[[torch.Tensor], torch.Tensor],
+                 in_shape: tuple, dtype: torch.dtype,
+                 device: torch.device):
+        self.device = device
+        self.body = body
+        self.x = torch.zeros(in_shape, dtype=dtype, device=device)
+        self.y: torch.Tensor | None = None
+
+    def run(self) -> None:
+        self.y = None                    # free the last result first
+        self.y = self.body(self.x)
+
+    def inputs(self) -> list[torch.Tensor]:
+        return [self.x]
+
+    def outputs(self) -> list[torch.Tensor]:
+        return [self.y]
 
 
 class CommSession:
@@ -101,6 +193,7 @@ class CommSession:
         self.cache = cache if cache is not None else TransferPlanCache(
             self.config.cache_capacity)
         self._engine: MultiPathTransfer | None = None
+        self.collectives = BoundCollectives(self.config.axis_name)
 
     @property
     def engine(self) -> MultiPathTransfer:
@@ -207,11 +300,126 @@ class CommSession:
         """AOT (captured graph, plan) handle for benchmarks."""
         return self.engine.compiled_for(src, dst, nelems, dtype, **kwargs)
 
-    def capture(self, build_fn, *, schedule: str | None = None):
-        """Whole-iteration capture — not ported yet."""
-        raise NotImplementedError(
-            "session.capture is not ported yet; it comes with the capture "
-            "slice (with make_captured_jacobi_step)")
+    def capture(self, build_fn, *, schedule: str | None = None
+                ) -> CapturedStep:
+        """Capture one whole iteration (kernels + multipath exchanges) as
+        ONE heterogeneous transfer graph; returns a launchable
+        :class:`~repro_torch.comm.capture.CapturedStep`.
+
+        ``build_fn(cap)`` declares the step against a
+        :class:`~repro_torch.comm.capture.StepCapture` — inputs, kernel
+        invocations over stacked tensors, fused exchanges — and returns
+        the output ref(s). The recording lowers to one graph of copy AND
+        compute nodes, the session's chunk-interleaving scheduler (§2.2)
+        orders it, and every call replays ONE CUDA graph:
+        ``stats()["dispatches"]`` increments by exactly one per captured
+        iteration, however many kernels and messages it carries.
+        Resolution rides the §2.3 fast path (memoized per capture
+        signature + schedule + planner epoch).
+        """
+        return self.engine.capture(build_fn, schedule=schedule)
+
+    # -- driver-level collectives ------------------------------------------
+    def _run_collective(self, op: str, x: torch.Tensor,
+                        body: Callable[[torch.Tensor], torch.Tensor],
+                        stacked: tuple, num_nodes: int, *,
+                        replicated: bool) -> torch.Tensor:
+        """Stage ``x`` into the cached program of ``(op, shape, dtype)``
+        (built and captured on a miss) as the stacked operand of shape
+        ``stacked`` — every device's row a copy of ``x`` when
+        ``replicated``, else ``x`` cut along dim 0 — replay once, and
+        return the stacked result (a static buffer: callers copy out)."""
+        key = CollectiveKey.for_collective(
+            op, tuple(x.shape), dtype_name(x.dtype), self.config.axis_name,
+            self.num_devices)
+
+        def build() -> CompiledPlan:
+            return compile_plan(
+                key, lambda: CollectiveProgram(body, stacked, x.dtype,
+                                               self.device),
+                num_nodes=num_nodes)
+
+        compiled = self.cache.get_or_build(key, build)
+        (y,) = compiled(x if replicated else x.reshape(stacked))
+        return y
+
+    def _as_input(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        return x if x.device == self.device else x.to(self.device)
+
+    def _check_ring_divisible(self, op: str, x: torch.Tensor,
+                              n: int) -> None:
+        if x.dim() == 0 or x.shape[0] % n:
+            raise ValueError(
+                f"{op} needs dim 0 divisible by the axis size {n}, got "
+                f"{tuple(x.shape)[:1]}; pad upstream or use psum for "
+                f"arbitrary shapes")
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Bidirectional-ring all-gather of ``x`` sharded on dim 0 (device
+        *i* holds rows ``[i*s, (i+1)*s)``).
+
+        Returns the same global tensor, as every device's replica holds
+        it — both ring directions carry half the features each step,
+        through the ``ring_allgather`` kernel on a CUDA device.
+        """
+        x = self._as_input(x)
+        n = self.num_devices
+        self._check_ring_divisible("all_gather", x, n)
+        y = self._run_collective(
+            "all_gather", x, self.collectives.all_gather,
+            (n, x.shape[0] // n) + tuple(x.shape[1:]),
+            num_nodes=2 * (n - 1), replicated=False)
+        return y[0].clone()
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Bidirectional-ring reduce-scatter of a replicated operand; the
+        result is sharded on dim 0 (device i owns the reduced block i)."""
+        x = self._as_input(x)
+        n = self.num_devices
+        self._check_ring_divisible("reduce_scatter", x, n)
+        y = self._run_collective(
+            "reduce_scatter", x, self.collectives.reduce_scatter,
+            (n,) + tuple(x.shape), num_nodes=2 * (n - 1), replicated=True)
+        return y.reshape(x.shape).clone()
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum over the devices) of a replicated operand whose
+        dim 0 is divisible by the device count; use :meth:`psum`
+        otherwise."""
+        x = self._as_input(x)
+        n = self.num_devices
+        self._check_ring_divisible("all_reduce", x, n)
+        y = self._run_collective(
+            "all_reduce", x, self.collectives.all_reduce,
+            (n,) + tuple(x.shape), num_nodes=4 * (n - 1), replicated=True)
+        return y[0].clone()
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """All-to-all: ``x`` sharded on dim 0, one destination block per
+        device pair — global dim 0 must be exactly n² (block payload goes
+        in the trailing dims)."""
+        x = self._as_input(x)
+        n = self.num_devices
+        if x.dim() == 0 or x.shape[0] != n * n:
+            raise ValueError(
+                f"all_to_all needs global dim 0 == n²={n * n} (one block "
+                f"per device pair), got {tuple(x.shape)[:1]}; put "
+                f"multi-row block payloads in the trailing dims")
+        y = self._run_collective(
+            "all_to_all", x, self.collectives.all_to_all,
+            (n, n) + tuple(x.shape[1:]), num_nodes=n - 1, replicated=False)
+        return y.reshape(x.shape).clone()
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum a replicated arbitrary-shape operand over the devices (pads
+        and stripes through the bidirectional ring)."""
+        x = self._as_input(x)
+        n = self.num_devices
+        y = self._run_collective(
+            "psum", x, self.collectives.psum, (n,) + tuple(x.shape),
+            num_nodes=4 * (n - 1), replicated=True)
+        return y[0].clone()
 
     # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:

@@ -9,8 +9,9 @@ kernel) or from row shifts of the stacked tensor (:func:`halo_exchange_ring`,
 the counterpart of the reference's ``ppermute`` shifts, with the same
 direct/staged split of each boundary). :func:`jacobi_step` masks the
 global edge with Dirichlet zeros and sweeps with the ``jacobi`` kernel.
-
-``make_captured_jacobi_step`` comes with the capture slice.
+:func:`make_captured_jacobi_step` records one whole iteration (boundary
+slices, the fused ring exchange, the sweep) with ``session.capture`` and
+replays it as ONE CUDA graph per call.
 """
 
 from __future__ import annotations
@@ -89,6 +90,69 @@ def halo_exchange_group(session: "CommSession", blocks: torch.Tensor
     right_halos = torch.stack([received[2 * ((i + 1) % n) + 1]
                                for i in range(n)])
     return left_halos, right_halos
+
+
+def make_captured_jacobi_step(session: "CommSession", rows: int, cols: int,
+                              dtype=torch.float32, *,
+                              schedule: str | None = None,
+                              max_paths: int | None = None,
+                              num_chunks: int | None = None):
+    """Capture one whole Jacobi iteration (halo exchange + sweep) as ONE
+    heterogeneous graph — the ``session.capture`` idiom.
+
+    The returned :class:`~repro_torch.comm.capture.CapturedStep` takes the
+    stacked domain ``(n, rows, cols)`` and returns the swept domain, same
+    shape, in ONE dispatch: boundary extraction and the 5-point stencil are
+    compute nodes, the ``2n``-message ring exchange is planned jointly
+    (``max_paths``/``num_chunks`` as in :meth:`CommSession.exchange`), and
+    the scheduler pass orders the graph. Each halo is joined from the
+    exchange's reception buffers by exact zero-sum, the global edge gets
+    Dirichlet zeros, and the sweep is ``jacobi_ops.jacobi_sweep`` — the
+    ``jacobi`` kernel on a CUDA device — so the result is bitwise the
+    eager :func:`jacobi_step` with the same session.
+    """
+    from repro_torch.comm.capture import BufferSpec, dtype_name
+
+    n = session.engine.num_devices
+    if n < 2:
+        raise ValueError("captured Jacobi needs >= 2 devices (the ring "
+                         "exchange cannot self-send)")
+
+    def halo_slices(u_):
+        return u_[:, :, -1], u_[:, :, 0]
+
+    def sweep(u_, *halos):
+        # device j's left halo is j-1's right boundary: of the n
+        # right-going receptions exactly one is nonzero on each device.
+        left_halo = halos[0]
+        for h in halos[1:n]:
+            left_halo = left_halo + h
+        right_halo = halos[n]
+        for h in halos[n + 1:]:
+            right_halo = right_halo + h
+        left_halo = left_halo.reshape(n, rows, 1)
+        right_halo = right_halo.reshape(n, rows, 1)
+        dev = torch.arange(n, device=u_.device).view(n, 1, 1)
+        left_halo = torch.where(dev == 0, torch.zeros_like(left_halo),
+                                left_halo)
+        right_halo = torch.where(dev == n - 1,
+                                 torch.zeros_like(right_halo), right_halo)
+        ext = torch.cat([left_halo, u_, right_halo], dim=2)
+        return jacobi_ops.jacobi_sweep(ext)
+
+    def build(cap):
+        u = cap.input((rows, cols), dtype)
+        right, left = cap.kernel(halo_slices, u, name="halo_slices",
+                                 flops=0)
+        sends = ([(right, i, (i + 1) % n) for i in range(n)]
+                 + [(left, i, (i - 1) % n) for i in range(n)])
+        recvs = cap.exchange(sends, max_paths=max_paths,
+                             num_chunks=num_chunks)
+        return cap.kernel(sweep, u, *recvs, name="jacobi_sweep",
+                          out=BufferSpec((rows, cols), dtype_name(dtype)),
+                          flops=5 * rows * cols)
+
+    return session.capture(build, schedule=schedule)
 
 
 def jacobi_step(u: torch.Tensor, *, session: "CommSession | None" = None,

@@ -2,4 +2,6 @@
 
 * :mod:`repro_torch.kernels.multipath_dma` — one transfer graph per launch
 * :mod:`repro_torch.kernels.jacobi` — the 5-point Jacobi sweep
+* :mod:`repro_torch.kernels.ring_allgather` — the bidirectional-ring
+  all-gather
 """

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
@@ -40,6 +39,7 @@ import torch
 from repro_torch.comm.graph import CopyNode, TransferGraph
 from repro_torch.core.topology import HOST
 from repro_torch.kernels import _build
+from repro_torch.kernels._graph import GraphProgram
 
 #: Item columns (must match ``csrc/multipath_dma.cu``).
 ITEM_COLS = 8
@@ -66,7 +66,8 @@ def _align(n: int, a: int) -> int:
 class MessageLayout:
     """Where one message lives in the operand and output byte buffers:
     ``(window, num_devices, nelems)`` elements of ``itemsize`` bytes,
-    row-major, starting at byte ``base`` of both buffers."""
+    row-major, starting at byte ``base`` of the operand and ``out_base``
+    of the output."""
 
     src: int
     dst: int
@@ -75,6 +76,7 @@ class MessageLayout:
     nelems: int
     itemsize: int
     base: int
+    out_base: int
 
     @property
     def row_bytes(self) -> int:
@@ -86,6 +88,10 @@ class MessageLayout:
 
     def row_offset(self, window: int, row: int) -> int:
         return self.base + (window * self.num_devices + row) * self.row_bytes
+
+    def out_row_offset(self, window: int, row: int) -> int:
+        return (self.out_base
+                + (window * self.num_devices + row) * self.row_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,17 +123,31 @@ def _tiles(nbytes: int, tile: int) -> list[tuple[int, int]]:
 def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                      itemsizes: Sequence[int], num_devices: int, *,
                      fill: str = "zero",
-                     tile_bytes: int = TILE_BYTES) -> NodeTable:
+                     tile_bytes: int = TILE_BYTES,
+                     nodes: Sequence[int] | None = None,
+                     bases: Sequence[tuple[int, int]] | None = None,
+                     slots: dict[int, int] | None = None,
+                     stage_base: int = 0) -> NodeTable:
     """Turn a scheduled transfer graph into the kernel's work table.
 
     ``nelems[m]``/``itemsizes[m]`` give message *m*'s row length and
     element size; each message occupies ``(graph.window, num_devices,
-    nelems[m])`` elements of the operand and output buffers. ``fill`` is
-    ``"zero"`` (every non-destination row of the output reads zero, the
-    engine's contract) or ``"copy"`` (it keeps the input row, the identity
-    contract). Copy nodes keep the graph's index order, which is
-    topological; raises ``ValueError`` for host hops, compute nodes and
-    chunks that are not element-aligned.
+    nelems[m])`` elements of the operand and output buffers, packed one
+    after the other unless ``bases[m] = (operand byte, output byte)``
+    places them (a captured step's arena, where both buffers are one).
+    ``fill`` is ``"zero"`` (every non-destination row of the output reads
+    zero, the engine's contract) or ``"copy"`` (it keeps the input row,
+    the identity contract). Copy nodes keep the graph's index order, which
+    is topological.
+
+    ``nodes`` restricts the table to those copy nodes (one run of a
+    captured step, default: every node). A message's fill goes in the
+    table that holds its first node. Staging slots are allocated from
+    ``stage_base`` on and recorded in ``slots`` (node index → staging
+    byte), which runs of one step share: a hop whose predecessor sits in
+    an earlier table reads that slot with no predecessor item, because
+    stream order already orders the two launches. Raises ``ValueError``
+    for host hops, compute nodes and chunks that are not element-aligned.
     """
     if fill not in ("zero", "copy"):
         raise ValueError(f"fill must be 'zero' or 'copy', got {fill!r}")
@@ -137,12 +157,24 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                          f"{len(nelems)} sizes")
     messages = []
     base = 0
-    for (src, dst), n, isz in zip(flows, nelems, itemsizes):
-        lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
-                            int(isz), base)
+    for m, ((src, dst), n, isz) in enumerate(zip(flows, nelems, itemsizes)):
+        if bases is None:
+            lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
+                                int(isz), base, base)
+            base = _align(base + lay.nbytes, _ALIGN)
+        else:
+            lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
+                                int(isz), *bases[m])
+            base = max(base, lay.base + lay.nbytes, lay.out_base + lay.nbytes)
         messages.append(lay)
-        base = _align(base + lay.nbytes, _ALIGN)
     io_bytes = base
+    if nodes is None:
+        nodes = range(graph.num_nodes)
+    run = set(nodes)
+    first_node: dict[int, int] = {}
+    for idx, node in enumerate(graph.nodes):
+        if isinstance(node, CopyNode):
+            first_node.setdefault(node.msg_idx, idx)
     rows: list[list[int]] = []
 
     def add(src_space, src_off, dst_space, dst_off, nbytes, pred=-1,
@@ -151,26 +183,32 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                      node, node_tiles])
 
     src_fill = SPACE_ZERO if fill == "zero" else SPACE_IN
-    for lay in messages:
+    for m, lay in enumerate(messages):
+        if first_node.get(m) not in run:
+            continue
         for w in range(lay.window):
             for lo, hi in ((0, lay.dst), (lay.dst + 1, num_devices)):
                 if hi <= lo:
                     continue
                 start = lay.row_offset(w, lo)
+                out_start = lay.out_row_offset(w, lo)
                 for off, size in _tiles((hi - lo) * lay.row_bytes,
                                         tile_bytes):
                     add(src_fill, start + off if fill == "copy" else 0,
-                        SPACE_OUT, start + off, size)
+                        SPACE_OUT, out_start + off, size)
 
     preds = graph.hop_predecessor
     terminals = graph.terminal_nodes
     first_item: dict[int, int] = {}
-    slot: dict[int, int] = {}
-    stage = 0
-    for idx, node in enumerate(graph.nodes):
+    slot = {} if slots is None else slots
+    stage = stage_base
+    count = 0
+    for idx in nodes:
+        node = graph.nodes[idx]
         if not isinstance(node, CopyNode):
             raise ValueError("the multipath_dma kernel executes copy nodes "
-                             "only; captured compute is a later slice")
+                             "only; a captured step runs compute nodes "
+                             "between its tables")
         if HOST in node.link:
             raise ValueError("host-staged path is not executable on the "
                              "device (DESIGN.md §2); plan with "
@@ -188,7 +226,8 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
             src_space, src_off = SPACE_STAGE, slot[pred]
         if idx in terminals:
             dst_space = SPACE_OUT
-            dst_off = lay.row_offset(node.window, node.link[1]) + node.offset
+            dst_off = (lay.out_row_offset(node.window, node.link[1])
+                       + node.offset)
         else:
             # Keep the slot congruent to the source mod 16 so the 16-byte
             # path applies to every hop of the chain.
@@ -198,13 +237,14 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
             stage = dst_off + node.nbytes
         tiles = _tiles(node.nbytes, tile_bytes)
         first_item[idx] = len(rows)
+        pred_item = first_item.get(pred)
         for t, (off, size) in enumerate(tiles):
             add(src_space, src_off + off, dst_space, dst_off + off, size,
-                -1 if pred is None else first_item[pred] + t, idx,
+                -1 if pred_item is None else pred_item + t, count,
                 len(tiles))
+        count += 1
     items = np.asarray(rows, dtype=np.int64).reshape(-1, ITEM_COLS)
-    return NodeTable(items, tuple(messages), graph.num_copy_nodes,
-                     io_bytes, stage)
+    return NodeTable(items, tuple(messages), count, io_bytes, stage)
 
 
 def run_node_table_plain(items: np.ndarray, x: torch.Tensor, y: torch.Tensor,
@@ -240,7 +280,33 @@ def _lib():
     return lib
 
 
-class DmaProgram:
+def grid_size(num_items: int, device: torch.device) -> int:
+    """Blocks of the persistent grid for a table of ``num_items``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(num_items, _BLOCKS_PER_SM * sms))
+
+
+def launch_table(items: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 stage: torch.Tensor, state: torch.Tensor, grid: int) -> None:
+    """Zero the state words and launch the kernel over the work table
+    ``items`` (int64, on the card) on the current stream. ``x`` and ``y``
+    are the operand and output byte buffers (they may be one buffer, the
+    arena of a captured step); ``state`` holds ``2 + items + copy nodes``
+    int32 words."""
+    global LAUNCHES
+    if items.device.type != "cuda":
+        raise ValueError(f"multipath_dma kernel needs CUDA tensors, got "
+                         f"{items.device}")
+    state.zero_()
+    rc = _lib().multipath_dma_launch(
+        items.data_ptr(), items.shape[0], x.data_ptr(), y.data_ptr(),
+        stage.data_ptr(), state.data_ptr(), grid,
+        torch.cuda.current_stream(items.device).cuda_stream)
+    _build.check(rc, "multipath_dma")
+    LAUNCHES += 1
+
+
+class DmaProgram(GraphProgram):
     """One node table made resident on a device, with its buffers.
 
     ``inputs()``/``outputs()`` are typed ``(window, num_devices, nelems)``
@@ -257,6 +323,8 @@ class DmaProgram:
         self.dtypes = tuple(dtypes)
         self.device = torch.device(device)
         dev = self.device
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {dev}")
         self.x = torch.zeros(table.io_bytes, dtype=torch.uint8, device=dev)
         self.y = torch.zeros(table.io_bytes, dtype=torch.uint8, device=dev)
         self.stage = torch.empty(max(table.stage_bytes, 16),
@@ -265,15 +333,8 @@ class DmaProgram:
         self.state = torch.zeros(2 + table.num_items + table.num_copy_nodes,
                                  dtype=torch.int32, device=dev)
         self._completed = 0
-        self._graph = None
-        self._grid = 0
-        if self.device.type == "cuda":
-            self._fn = _lib().multipath_dma_launch
-            sms = torch.cuda.get_device_properties(
-                self.device).multi_processor_count
-            self._grid = max(1, min(table.num_items, _BLOCKS_PER_SM * sms))
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self._grid = grid_size(table.num_items, dev) \
+            if dev.type == "cuda" else 0
 
     def _views(self, buf: torch.Tensor) -> list[torch.Tensor]:
         out = []
@@ -289,48 +350,14 @@ class DmaProgram:
     def outputs(self) -> list[torch.Tensor]:
         return self._views(self.y)
 
-    def _launch(self) -> None:
-        self.state.zero_()
-        rc = self._fn(self.items.data_ptr(), self.table.num_items,
-                      self.x.data_ptr(), self.y.data_ptr(),
-                      self.stage.data_ptr(), self.state.data_ptr(),
-                      self._grid, torch.cuda.current_stream(
-                          self.device).cuda_stream)
-        _build.check(rc, "multipath_dma")
-
     def run(self) -> None:
         """Execute the table once (no graph)."""
-        global LAUNCHES
         if self.device.type == "cuda":
-            self._launch()
-            LAUNCHES += 1
+            launch_table(self.items, self.x, self.y, self.stage, self.state,
+                         self._grid)
         else:
             self._completed = run_node_table_plain(
                 self.table.items, self.x, self.y, self.stage)
-
-    def capture(self) -> tuple[int, int]:
-        """Warm up once, record one run into a CUDA graph and instantiate
-        it. Returns ``(warm-up + capture ns, instantiation ns)``."""
-        t0 = time.perf_counter_ns()
-        self.run()
-        torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            self._launch()
-        t1 = time.perf_counter_ns()
-        graph.instantiate()
-        self._graph = graph
-        return t1 - t0, time.perf_counter_ns() - t1
-
-    def replay(self) -> None:
-        """One execution: replay the captured graph (CUDA) or run the
-        plain version (CPU)."""
-        global LAUNCHES
-        if self._graph is None:
-            self.run()
-            return
-        self._graph.replay()
-        LAUNCHES += 1
 
     def completed_nodes(self) -> int:
         """Copy nodes the last execution completed (synchronises)."""

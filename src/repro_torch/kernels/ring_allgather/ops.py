@@ -1,0 +1,52 @@
+"""Wrappers of the ring all-gather: the kernel on the card, the plain
+version on the CPU, and the capture adopter."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ring_allgather.kernel import (ring_allgather_cuda,
+                                                       ring_allgather_plain)
+
+
+def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
+    """Bidirectional-ring all-gather of the stacked shards
+    ``xs: (n, rows, f)`` → ``(n, n, rows, f)``; ``out[d]`` is device
+    ``d``'s replica. A CUDA tensor goes through the hand-written kernel
+    (or raises); a CPU tensor through the plain version."""
+    if xs.device.type == "cuda":
+        return ring_allgather_cuda(xs)
+    if xs.device.type == "cpu":
+        return ring_allgather_plain(xs)
+    raise ValueError(f"unsupported device {xs.device}")
+
+
+def gather_rows(xs: torch.Tensor) -> torch.Tensor:
+    """Stacked ``(n, rows, f)`` → ``(n, n * rows, f)``: every device's
+    gathered shard rows (the kernel function of
+    :func:`captured_ring_allgather`)."""
+    n, rows, f = xs.shape
+    return ring_allgather(xs).reshape(n, n * rows, f)
+
+
+def captured_ring_allgather(cap, x, num_devices: int, *,
+                            name: str = "ring_allgather", telemetry=None):
+    """Record the ring all-gather kernel on a ``session.capture`` step.
+
+    ``x`` is a capture ref with local shape ``(rows, f)``; returns the
+    gathered ``(num_devices * rows, f)`` ref (every device holds the full
+    result). One compute node with the declared result spec, ``flops`` 0
+    (wire work) and ``cost_ns`` 0. Stamping ``cost_ns`` from a telemetry
+    recorder comes with the telemetry slice: a recorder raises
+    ``NotImplementedError``.
+    """
+    if telemetry is not None:
+        raise NotImplementedError(
+            "captured_ring_allgather(telemetry=...) is not ported yet; it "
+            "comes with the telemetry/calibration slice")
+    from repro_torch.comm.capture import BufferSpec
+    spec = cap.buffers[cap._resolve(x)]
+    rows, f = spec.shape
+    return cap.kernel(gather_rows, x, name=name,
+                      out=BufferSpec((num_devices * rows, f), spec.dtype),
+                      cost_ns=0)

@@ -10,6 +10,8 @@ package, which the card's machine need not have.)
 
 Copies are held bit for bit; the Jacobi sweep to float32 atol 1e-6 and
 bfloat16 atol 2e-2 (the kernel rounds once, the plain version per add).
+The ring all-gather and the captured Jacobi step (float32) are held bit
+for bit against their plain or eager versions.
 """
 
 import pytest
@@ -17,9 +19,11 @@ import torch
 
 from repro_torch.comm import CommConfig, CommSession, PathPlanner, lower
 from repro_torch.comm.passes import apply_schedule
+from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.jacobi import kernel as jk
 from repro_torch.kernels.multipath_dma import kernel as dk
+from repro_torch.kernels.ring_allgather import kernel as rk
 
 pytestmark = pytest.mark.cuda
 
@@ -69,3 +73,39 @@ def test_session_send_replays_one_launch(dev):
     assert torch.equal(sess.send(x, 0, 3, max_paths=3, num_chunks=4), x)
     assert dk.LAUNCHES == before + 1
     assert sess.stats()["fastpath"]["hits"] == 1
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+@pytest.mark.parametrize("rows,f", [(8, 128), (4, 64), (8, 7), (3, 1),
+                                    (300, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_allgather_matches_plain(dev, n, rows, f, dtype):
+    xs = torch.randn(n, rows, f, device=dev).to(dtype)
+    g = rk.RingGeometry.for_shape(n, rows, f, xs.element_size())
+    state = torch.empty(2 + g.num_items, dtype=torch.int32, device=dev)
+    got = rk.ring_allgather_cuda(xs, state=state)
+    assert int(state[1].item()) == g.num_items
+    assert torch.equal(got, rk.ring_allgather_plain(xs))
+
+
+def test_session_all_gather_is_one_replay(dev):
+    sess = CommSession(device=dev)
+    x = torch.randn(4 * 64, 96, device=dev)
+    assert torch.equal(sess.all_gather(x), x)
+    before = rk.LAUNCHES
+    assert torch.equal(sess.all_gather(x), x)
+    assert rk.LAUNCHES == before + 1
+    assert sess.stats()["cache"]["hits"] == 1
+
+
+def test_captured_jacobi_bitwise_eager_one_dispatch(dev):
+    sess = CommSession(device=dev)
+    u = torch.randn(4, 8, 1000, device=dev)
+    step = make_captured_jacobi_step(sess, 8, 1000)
+    (out,) = step(u)
+    assert torch.equal(out, jacobi_step(u, session=sess))
+    d0, j0, m0 = sess.stats()["dispatches"], jk.LAUNCHES, dk.LAUNCHES
+    (out2,) = step(out)
+    assert sess.stats()["dispatches"] == d0 + 1
+    assert (jk.LAUNCHES, dk.LAUNCHES) == (j0 + 1, m0 + 1)
+    assert torch.equal(out2, jacobi_step(out, session=sess))

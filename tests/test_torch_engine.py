@@ -160,11 +160,13 @@ def test_unported_options_raise(knob):
 
 def test_unported_paths_raise(monkeypatch):
     sess = CommSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="capture slice"):
-        sess.capture(lambda cap: None)
+    step = sess.capture(lambda cap: cap.kernel(
+        torch.neg, cap.input((8,), torch.float32), name="neg"))
     sess.planner.quarantine((0, 1))
     with pytest.raises(NotImplementedError, match="health slice"):
         sess.send(torch.ones(8), 0, 1)
+    with pytest.raises(NotImplementedError, match="health slice"):
+        step(torch.ones(4, 8))
     monkeypatch.setenv("REPRO_MP_TELEMETRY", "1")
     with pytest.raises(NotImplementedError, match="telemetry"):
         CommSession(device="cpu")
