@@ -1,4 +1,4 @@
-"""Drive the port's main path on one CUDA card and check every kernel.
+"""Drive the port's main paths on one CUDA card and check every kernel.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100::
 
@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100::
 What it does, in order (any failed check exits nonzero):
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, started together), printing the build seconds;
 2. holds ``multipath_dma`` against its plain version, bit for bit:
    ``Topology.full_mesh(4)`` plans with 1/2/3 paths, 1/4/8 chunks,
@@ -15,10 +15,16 @@ What it does, in order (any failed check exits nonzero):
    ``torus2d(4, 4)`` send with 3-hop chains through the engine; the
    kernel's completion counter must equal the graph's copy-node count;
 3. holds ``jacobi`` against its plain version (float32 atol 1e-6, bfloat16
-   atol 2e-2 on inputs in [-1, 1)) at W = 700 and W = 2**22, and
+   atol 2e-2 on inputs in [-1, 1)) at W = 700 and W = 2**22,
    ``ring_allgather`` against its plain version, bit for bit, at n = 4 and
    8, ``(rows, f)`` = (8, 128), (4, 64), (8, 7), (2048, 8192), float32
-   and bfloat16 (completed items = table size);
+   and bfloat16 (completed items = table size), and ``flash_attention``
+   against its plain version: the reference's sweep (``(B, Hq, Hkv, S,
+   D)`` = (1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
+   (1, 2, 1, 384, 128); causal, causal with a window of 64, full) in
+   float32 at atol 3e-5 / rtol 1e-4, bfloat16 at max abs 2e-2, a
+   Gemma-style window of 64 at (1, 32, 16, 512, 128) and D = 128 with
+   Hq/Hkv = 32/8;
 4. main path A, with every launch counter set to 0 just before it and read
    after phase 5: a ``CommSession(schedule="auto")`` on the default
    4-device topology sends 256 MiB of float32 0→1 with 3 paths (bitwise),
@@ -47,14 +53,40 @@ What it does, in order (any failed check exits nonzero):
    replay against eager launches per dispatch at 64 KiB, sends of 64 KiB
    to 256 MiB (replay against one ``copy_`` of the message), the ring
    also at (8, 2048, 8192) float32 and (4, 2048, 8192) bfloat16, each
-   collective's graph replay and ``session.all_gather`` per call, and the
-   captured Jacobi iteration against the eager one;
-10. one JSON line ``{"kernels": [...]}``, then as the last line
+   collective's graph replay and ``session.all_gather`` per call, the
+   captured Jacobi iteration against the eager one, and
+   ``flash_attention`` at the prefill shape (4, 32, 512, 128) bfloat16
+   causal beside its bound, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick only; the port never
+   calls it); then everything of paths A–D is freed;
+10. main path E, counters set to 0 before it and read after it: serving
+    Llama-3 8B at full width (``get_config("llama3_8b")``: 32 layers,
+    d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256, bfloat16,
+    about 16 GB of seeded random weights) with
+    ``ServeEngine(max_len=1024, kv_chunks=4, comm=CommSession())``: 4
+    requests of 512/384/256/128 seeded prompt tokens and 32 new tokens
+    each, greedily, twice (the same tokens, every one in range), then a
+    prefill whose cache ``migrate_kv(cache, 0, 1)`` moves, twice
+    (bitwise, one dispatch, the second a fast-path hit); ``flash_attention``
+    launched once per layer per prefill; at layer 0's real prefill q/k/v
+    the kernel within 4e-3 + 8e-3·|want| of its plain version, and the whole
+    prefill's logits against a prefill on the plain version (printed);
+    prefill, per-token decode and migration-replay times;
+11. main path F: ``make_captured_decode_step`` (batch 1, 32 heads, 2048
+    positions, head dim 128, an 8 MiB bfloat16 KV chunk 0→2, schedule
+    ``overlap``), resolved first, then 5 calls with the counters set to 0
+    just before: one dispatch per call, one ``flash_attention`` and at
+    least one ``multipath_dma`` launch per replay, attention on every
+    device within 4e-3 + 8e-3·|want| of the plain version, the KV chunk
+    bitwise; the replay against the eager composition (attention +
+    ``session.send``);
+12. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,6 +100,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 #: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate, FLOP/s (NVIDIA data sheet).
+BF16_FLOPS_PER_S = 989e12
 MiB = 1 << 20
 
 
@@ -79,6 +113,21 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+#: bfloat16 outputs of a kernel and its plain version (both rounded
+#: from float32) may differ by about two bfloat16 steps: an absolute
+#: floor for values near 0, and a share of the value elsewhere.
+BF16_ATOL, BF16_RTOL = 4e-3, 8e-3
+
+
+def bf16_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """The max abs difference of two bfloat16 tensors, and whether every
+    element lies within ``BF16_ATOL + BF16_RTOL * |want|``."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    ok = bool((diff <= BF16_ATOL + BF16_RTOL * want.abs()).all())
+    return diff.max().item(), ok
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -110,157 +159,44 @@ def host_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    from repro_torch.comm import (CommConfig, CommSession, PathPlanner,
-                                  TransferRequest, lower)
+def profile_device_ms(fn) -> tuple[float, float, int, list]:
+    """One synced call of ``fn`` under ``torch.profiler``: (wall ms under
+    the profiler, device ms of the device-side events (kernels, copies,
+    fills: one stream, so they do not overlap), their count, and the five
+    with the most device time as (name, ms)). Device ms is 0 when the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows, count = [], 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            rows.append((e.key, e.self_device_time_total / 1e3))
+            count += e.count
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(ms for _, ms in rows), count, rows[:5]
+
+
+def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
+    """Main paths A–D (phases 4–8) on one session, then their kernels at
+    the paths' shapes and their times (phase 9). Returns the report rows
+    of ``multipath_dma``, ``jacobi`` and ``ring_allgather`` (``launches``
+    is filled in by the caller); everything else is freed on return."""
+    from repro_torch.comm import CommConfig, CommSession
     from repro_torch.comm import collectives as coll
     from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
-    from repro_torch.core.topology import Topology
-    from repro_torch.kernels import _build
-    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.kernels.jacobi import kernel as jk
     from repro_torch.kernels.multipath_dma import kernel as dk
-    from repro_torch.kernels.multipath_dma import ops as dops
     from repro_torch.kernels.ring_allgather import kernel as rk
     from repro_torch.kernels.ring_allgather import ops as rops
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
-    # -- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(_build.KERNELS)}) into {_build.build_dir()}",
-          flush=True)
-
-    errs = {"multipath_dma": 0.0, "jacobi": 0.0, "ring_allgather": 0.0}
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    dev_gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
-
-    def table_vs_plain(graph, nelems, dtypes, ndev, fill="zero"):
-        """Run one scheduled graph through the kernel and the plain
-        version on the same inputs; both outputs must match bit for bit
-        and the completion counter must equal the copy-node count."""
-        table = dk.build_node_table(graph, nelems,
-                                    [d.itemsize for d in dtypes], ndev,
-                                    fill=fill)
-        kern = dk.DmaProgram(table, dtypes, dev)
-        for buf in kern.inputs():
-            buf.copy_(torch.randn(buf.shape, generator=gen).to(buf.dtype))
-        plain_y = torch.zeros_like(kern.y)
-        plain_stage = torch.empty_like(kern.stage)
-        kern.run()
-        done = kern.completed_nodes()
-        plain_done = dk.run_node_table_plain(table.items, kern.x, plain_y,
-                                             plain_stage)
-        torch.cuda.synchronize()
-        check(torch.equal(kern.y, plain_y), "multipath_dma differs from its "
-              "plain version")
-        check(done == graph.num_copy_nodes == plain_done,
-              f"completion counter {done} (plain {plain_done}) != "
-              f"{graph.num_copy_nodes} copy nodes")
-        return kern
-
-    # -- 2. multipath_dma vs plain ----------------------------------------
-    t0 = time.perf_counter()
-    planner = PathPlanner(Topology.full_mesh(4), multipath_threshold=0)
-    n = 1_000_003
-    cases = 0
-    for dt in (torch.float32, torch.bfloat16):
-        isz = dt.itemsize
-        for paths in (1, 2, 3):
-            for chunks in (1, 4, 8):
-                plan = planner.plan(0, 1, n * isz, granularity=isz,
-                                    max_paths=paths, num_chunks=chunks,
-                                    include_host=False)
-                x = randn(4, n, dtype=dt)
-                got = dops.multipath_dma_transfer(x, plan)
-                ref = x.clone()
-                ref[plan.dst] = x[plan.src]
-                check(torch.equal(got, ref), f"multipath_dma_transfer "
-                      f"{dt} paths={paths} chunks={chunks}")
-                for window in (1, 2):
-                    table_vs_plain(lower(plan, window), [n], [dt], 4)
-                    cases += 1
-    group = planner.plan_group([TransferRequest(i, (i + 1) % 4, 4 * n, 4)
-                                for i in range(4)])
-    table_vs_plain(lower(group), [n] * 4, [torch.float32] * 4, 4)
-    torus = CommSession(CommConfig(multipath_threshold=0), device=dev,
-                        topology=Topology.torus2d(4, 4))
-    msg = randn(n)
-    got = torus.send(msg, 0, 1, max_paths=3, num_chunks=4)
-    entry = next(iter(torus.engine._fastpath._store.values()))[1]
-    hops = sorted(pa.route.num_hops for pa in entry.plans[0].paths)
-    check(torch.equal(got, msg) and max(hops) == 3,
-          f"torus2d(4,4) 3-hop send wrong (route hops {hops})")
-    check(entry.compiled.program.completed_nodes()
-          == entry.graph.num_copy_nodes, "torus completion counter")
-    table_vs_plain(entry.graph, [n], [torch.float32], 16)
-    print(f"multipath_dma vs plain: {cases} plan/window cases + exchange "
-          f"group + torus2d(4,4) route hops {hops}: bitwise equal, "
-          f"completion counter = copy nodes "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
-    # -- 3. jacobi vs plain -----------------------------------------------
-    for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
-        for w in (700, 1 << 22):
-            ext = (torch.rand(8, w + 2, generator=gen) * 2 - 1).to(dt).to(dev)
-            got = jk.jacobi_sweep_cuda(ext)
-            ref = jk.jacobi_sweep_plain(ext)
-            err = (got.float() - ref.float()).abs().max().item()
-            errs["jacobi"] = max(errs["jacobi"], err)
-            check(err <= tol, f"jacobi {dt} W={w}: max abs err {err} > {tol}")
-            print(f"jacobi vs plain {str(dt)[6:]} W={w}: max abs err {err} "
-                  f"(atol {tol})", flush=True)
-
-    t0 = time.perf_counter()
-    cases = 0
-    for n_dev in (4, 8):
-        for rows_, f_ in ((8, 128), (4, 64), (8, 7), (2048, 8192)):
-            for dt in (torch.float32, torch.bfloat16):
-                xs = randn(n_dev, rows_, f_, dtype=dt)
-                geo = rk.RingGeometry.for_shape(n_dev, rows_, f_, dt.itemsize)
-                state = torch.empty(2 + geo.num_items, dtype=torch.int32,
-                                    device=dev)
-                got = rk.ring_allgather_cuda(xs, state=state)
-                ref = rk.ring_allgather_plain(xs)
-                check(torch.equal(got, ref), f"ring_allgather n={n_dev} "
-                      f"({rows_}, {f_}) {dt} differs from plain")
-                check(int(state[1].item()) == geo.num_items,
-                      f"ring_allgather completed {int(state[1].item())} of "
-                      f"{geo.num_items} items")
-                cases += 1
-                del xs, got, ref
-    print(f"ring_allgather vs plain: {cases} cases bitwise equal, completed "
-          f"items = table size ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
-
-    main_launches = {name: 0 for name in _build.KERNELS}
-    per_path = {}
-
-    def read_path(name: str) -> None:
-        """Add the launch counters since the last reset to the main-path
-        totals and print them."""
-        counts = launch_counts()
-        per_path[name] = {k: v for k, v in counts.items() if v}
-        for k, v in counts.items():
-            main_launches[k] += v
-        print(f"main path {name} launches: {per_path[name]}", flush=True)
 
     # -- 4. main path A ----------------------------------------------------
     reset_launch_counts()
@@ -469,9 +405,6 @@ def main() -> int:
     print("captured ring_allgather + compute node: bitwise equal to eager",
           flush=True)
     del gout, geager
-    print(f"main-path launches (paths A-D): {main_launches}", flush=True)
-    for name, count in main_launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
 
     # -- 9a. kernels vs plain at the main path's shapes ---------------------
     plain_y = torch.zeros_like(main_prog.y)
@@ -644,24 +577,19 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
-    # -- 10. report --------------------------------------------------------
     kernels = [
         {"name": "multipath_dma", "route": "cuda",
          "source": "src/repro_torch/kernels/multipath_dma/csrc/"
                    "multipath_dma.cu",
          "replaces": "src/repro/kernels/multipath_dma/kernel.py:201",
-         "launches": main_launches["multipath_dma"],
-         "max_abs_err": errs["multipath_dma"], "ms": dma_ms,
-         "plain_ms": dma_plain_ms, "bound_ms": dma_bound,
+         "ms": dma_ms, "plain_ms": dma_plain_ms, "bound_ms": dma_bound,
          "bound_by": "bytes", "library_ms": where_ms,
          "library_call": "torch.where(row == dst, x[src], 0) into the "
                          "(4, n) output (a single path: no staging)"},
         {"name": "jacobi", "route": "cuda",
          "source": "src/repro_torch/kernels/jacobi/csrc/jacobi.cu",
          "replaces": "src/repro/kernels/jacobi/kernel.py:47",
-         "launches": main_launches["jacobi"],
-         "max_abs_err": errs["jacobi"], "ms": jac_ms,
-         "plain_ms": jac_plain_ms, "bound_ms": jac_bound,
+         "ms": jac_ms, "plain_ms": jac_plain_ms, "bound_ms": jac_bound,
          "bound_by": "bytes", "library_ms": conv_ms,
          "library_call": "F.conv2d with the cross-shaped 3x3 weights, "
                          "cudnn tf32 off"},
@@ -669,14 +597,531 @@ def main() -> int:
          "source": "src/repro_torch/kernels/ring_allgather/csrc/"
                    "ring_allgather.cu",
          "replaces": "src/repro/kernels/ring_allgather/kernel.py:87",
-         "launches": main_launches["ring_allgather"],
-         "max_abs_err": errs["ring_allgather"], "ms": ring_ms,
-         "plain_ms": ring_plain_ms, "bound_ms": ring_floor,
+         "ms": ring_ms, "plain_ms": ring_plain_ms, "bound_ms": ring_floor,
          "bound_by": "bytes", "library_ms": yard_ms,
          "ring_bytes_ms": ring_bytes,
          "library_call": "xs.reshape(1, n*rows, f).expand(n, -1, -1)"
                          ".contiguous()"},
     ]
+    return kernels
+
+
+def flash_times(randn, errs) -> dict:
+    """Phase 9's ``flash_attention`` row, at path E's prefill shape (4
+    requests of 512 positions, Llama-3 8B's 32/8 heads of 128, bfloat16,
+    causal): the kernel against its plain version, then its time beside
+    its bound, the plain version's and SDPA's (the yardstick only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    b, hq, hkv, s, d = 4, 32, 8, 512, 128
+    q = randn(b, hq, s, d, dtype=torch.bfloat16)
+    k = randn(b, hkv, s, d, dtype=torch.bfloat16)
+    v = randn(b, hkv, s, d, dtype=torch.bfloat16)
+    want = fk.flash_attention_plain(q, k, v)
+    err, ok = bf16_err(fk.flash_attention_cuda(q, k, v), want)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    check(ok, f"flash_attention at the prefill shape: max abs err {err}, "
+          f"beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    kk = k.repeat_interleave(hq // hkv, dim=1)
+    vv = v.repeat_interleave(hq // hkv, dim=1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                              scale=d ** -0.5)
+
+    sdpa_err = (sdpa().float() - want.float()).abs().max().item()
+    ms = cuda_time_ms(lambda: fk.flash_attention_cuda(q, k, v), 20)
+    plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(q, k, v), 5,
+                            warmup=1)
+    lib_ms = cuda_time_ms(sdpa, 20)
+    flops = 2 * b * hq * s * s * d        # causal: half of 4·B·H·S²·D
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    print(f"flash_attention ({b}, {hq}/{hkv}, {s}, {d}) bf16 causal: kernel "
+          f"{ms:.4f} ms, bound {bound:.4f} ms ({flops} causal FLOPs at "
+          f"989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = "
+          f"{bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
+          f"{plain_ms:.4f} ms, SDPA on repeat_interleave'd k/v "
+          f"{lib_ms:.4f} ms (max abs diff to plain {sdpa_err}); kernel max "
+          f"abs err vs plain {err}", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
+            "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms,
+            "library_call": "F.scaled_dot_product_attention(q, "
+                            "k.repeat_interleave(4, 1), "
+                            "v.repeat_interleave(4, 1), is_causal=True)"}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for t in tree.values():
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
+def serving_paths(dev, errs, per_path, read_path) -> None:
+    """Main paths E (phase 10: serving Llama-3 8B at full width) and F
+    (phase 11: the captured decode step), each read with the counters set
+    to 0 just before it."""
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import (Request, ServeEngine,
+                                     make_captured_decode_step,
+                                     make_serve_step)
+
+    # -- 10. main path E: serving -------------------------------------------
+    cfg = get_config("llama3_8b")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == (32, 4096, 32, 8, 128, 14336, 128256, "bfloat16"),
+          f"llama3_8b is not the full-width config: {cfg}")
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"llama3_8b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}: {wbytes / 1e9:.2f} GB of seeded random weights in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sess = CommSession()
+    engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4, comm=sess)
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist()
+               for n in (512, 384, 256, 128)]
+    new = 32
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
+                        device=dev)
+
+    def requests():
+        return [Request(list(p), new) for p in prompts]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen2_s = time.perf_counter() - t0
+    logits, cache = engine.prefill(toks)
+    moved = engine.migrate_kv(cache, 0, 1)
+    s1 = sess.stats()
+    moved2 = engine.migrate_kv(cache, 0, 1)
+    s2 = sess.stats()
+    torch.cuda.synchronize()
+    read_path("E")
+    outs = [r.out for r in first]
+    check(all(len(o) == new for o in outs)
+          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "generate returned a wrong count or an out-of-range token")
+    check([r.out for r in second] == outs, "a second generate gave other "
+          "tokens")
+    check(per_path["E"].get("flash_attention", 0) == 3 * cfg.num_layers,
+          f"path E launched flash_attention "
+          f"{per_path['E'].get('flash_attention', 0)} times, not once per "
+          f"layer per prefill ({3 * cfg.num_layers})")
+    check(per_path["E"].get("multipath_dma", 0) > 0,
+          "path E did not launch multipath_dma")
+    check(all(torch.equal(moved[k], cache[k])
+              and torch.equal(moved2[k], cache[k]) for k in cache),
+          "migrate_kv is not bitwise equal to the cache")
+    check(s1["dispatches"] == 1 and s2["dispatches"] == 2,
+          f"migrations took {s1['dispatches']}, {s2['dispatches']} "
+          f"dispatches, not one each")
+    check(s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1,
+          "the second migration was not one fast-path hit")
+    cbytes = sum(t.numel() * t.element_size() for t in cache.values())
+    print(f"served {len(prompts)} requests (prompts "
+          f"{[len(p) for p in prompts]}, {new} new tokens each, greedy): "
+          f"tokens in range, a second generate gives the same tokens; "
+          f"first outputs {[o[:4] for o in outs]}; migrate_kv of the "
+          f"{cbytes / 1e6:.1f} MB cache 0->1 bitwise, one dispatch, second "
+          f"one fast-path hit", flush=True)
+    del moved, moved2
+
+    # the kernel at layer 0's real prefill q/k/v, and the whole prefill on
+    # the plain version
+    lp = tfm.layer_params(params, 0)
+    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
+    q, k, v = tfm.attention_qkv(x, lp["attn"], cfg,
+                                torch.arange(plen, device=dev))
+    scale = cfg.head_dim_ ** -0.5
+    err0, ok = bf16_err(fk.flash_attention_cuda(q, k, v, scale=scale),
+                        fk.flash_attention_plain(q, k, v, scale=scale))
+    errs["flash_attention"] = max(errs["flash_attention"], err0)
+    check(ok, f"flash_attention at layer 0's prefill q/k/v: max abs err "
+          f"{err0}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    del x, q, k, v
+
+    def plain_attention(q, k, v, *, causal, window, scale, block_k=1024):
+        return fk.flash_attention_plain(
+            q, k, v, causal=causal, window=window if window >= 0 else None,
+            scale=scale)
+
+    kernel_attention = tfm.blockwise_attention
+    tfm.blockwise_attention = plain_attention
+    try:
+        plain_logits, _ = engine.prefill(toks)
+    finally:
+        tfm.blockwise_attention = kernel_attention
+    logit_diff = (logits.float() - plain_logits.float()).abs().max().item()
+    same_next = (logits[:, -1].argmax(-1) == plain_logits[:, -1].argmax(-1)
+                 ).tolist()
+    print(f"layer 0 prefill q/k/v {tuple(toks.shape)}: kernel vs plain max "
+          f"abs err {err0} (limit {BF16_ATOL} + {BF16_RTOL} * |want|); whole prefill, kernel vs plain "
+          f"attention: logits max abs diff {logit_diff} (|logits| max "
+          f"{logits.float().abs().max().item():.3f}), same next token "
+          f"{same_next}", flush=True)
+    del plain_logits
+
+    prefill_ms = cuda_time_ms(lambda: engine.prefill(toks), 3, warmup=1)
+    serve_step = make_serve_step(cfg, engine.spec)
+    _, dcache = engine.prefill(toks)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(new - 1):
+        lg, dcache = serve_step(params, dcache, tok, plen + i)
+        tok = lg.argmax(-1)[:, None]
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (new - 1)
+    pre_wall, pre_dev, pre_n, pre_top = profile_device_ms(
+        lambda: engine.prefill(toks))
+    dec_wall, dec_dev, dec_n, dec_top = profile_device_ms(
+        lambda: serve_step(params, dcache, tok, plen + new - 1))
+
+    def top(rows):
+        return ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in rows)
+
+    def idle(dev_ms, ms):
+        return (f"{1 - dev_ms / ms:.1%}" if dev_ms > 0 else
+                "not measured: the profiler recorded no device time")
+
+    print(f"profiler (one call each): prefill {pre_dev:.2f} ms of device "
+          f"time in {pre_n} device ops, {pre_wall:.2f} ms wall (idle share "
+          f"vs the unprofiled {prefill_ms:.2f} ms: "
+          f"{idle(pre_dev, prefill_ms)}; top ms: {top(pre_top)}); decode "
+          f"step {dec_dev:.2f} ms of device time in {dec_n} device ops, "
+          f"{dec_wall:.2f} ms wall (idle share vs the unprofiled "
+          f"{decode_ms:.2f} ms: {idle(dec_dev, decode_ms)}; top ms: "
+          f"{top(dec_top)})", flush=True)
+    mig = next(iter(sess.engine._fastpath._store.values()))[1]
+    mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
+    mig_call_ms = host_time_ms(lambda: engine.migrate_kv(cache, 0, 1), 5)
+    print(f"serving {cfg.name} {cfg.dtype}, batch {len(prompts)}: prefill of "
+          f"{tuple(toks.shape)} tokens {prefill_ms:.2f} ms (CUDA events), "
+          f"decode {decode_ms:.2f} ms per token step (CUDA events, "
+          f"{new - 1} steps from position {plen}), generate of "
+          f"{len(prompts)} x {new} tokens {gen2_s:.3f} s = "
+          f"{len(prompts) * new / gen2_s:.1f} tokens/s (host clock, second "
+          f"call; first {gen1_s:.3f} s); migration of the cache: graph "
+          f"replay {mig_ms:.4f} ms, whole migrate_kv {mig_call_ms:.4f} ms "
+          f"synced", flush=True)
+    print(f"peak device memory, path E: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del logits, cache, dcache, lg, engine, params, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. main path F: the captured decode step ----------------------------
+    n = sess.num_devices
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd          # one layer's K and V, 8 MiB
+    step = make_captured_decode_step(
+        sess, batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+        kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+        schedule="overlap")
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((n, 1, heads, kv_len, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    kv = torch.randn((n, kv_chunk), generator=g, device=dev).to(
+        torch.bfloat16)
+    entry = step.resolve()
+    prog = entry.compiled.program
+    calls = 5
+    d0 = sess.stats()["dispatches"]
+    reset_launch_counts()
+    for _ in range(calls):
+        attn, new_kv = step(q, k, v, kv)
+    torch.cuda.synchronize()
+    read_path("F")
+    check(sess.stats()["dispatches"] - d0 == calls,
+          "the captured decode step was not one dispatch per call")
+    check(per_path["F"].get("flash_attention", 0) == calls
+          and per_path["F"].get("multipath_dma", 0) >= calls
+          and prog.replay_launches.get("flash_attention") == 1
+          and prog.replay_launches.get("multipath_dma", 0) >= 1,
+          f"captured decode step launches {per_path['F']} (per replay "
+          f"{prog.replay_launches}) != one flash_attention and at least "
+          f"one multipath_dma per replay")
+    q4, k4, v4 = (t.view(n, heads, kv_len, hd) for t in (q, k, v))
+    want = fk.flash_attention_plain(q4, k4, v4)
+    errf, ok = bf16_err(attn.view(n, heads, kv_len, hd), want)
+    errs["flash_attention"] = max(errs["flash_attention"], errf)
+    check(ok, f"captured decode step attention: max abs err {errf}, "
+          f"beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    expect = kv.clone()
+    expect[2] = kv[0]
+    check(torch.equal(new_kv, expect), "captured decode step: the KV chunk "
+          "did not land bitwise on device 2")
+    del want
+    replay_ms = cuda_time_ms(prog.replay, 10)
+    call_ms = host_time_ms(lambda: step(q, k, v, kv), 5)
+    attn_ms = cuda_time_ms(lambda: fops.flash_attention(q4, k4, v4), 10)
+
+    def eager():
+        fops.flash_attention(q4, k4, v4)
+        sess.send(kv[0], 0, 2)
+
+    eager_ms = cuda_time_ms(eager, 5)
+    eager_host_ms = host_time_ms(eager, 5)
+    print(f"captured decode step ({n} devices x (1, {heads}, {kv_len}, "
+          f"{hd}) bf16 attention + {kv_chunk * 2 / MiB:.0f} MiB KV chunk "
+          f"0->2, schedule {entry.schedule}, walk "
+          f"{[type(w).__name__ for w in prog.walk]}): one dispatch per "
+          f"call, per replay {prog.replay_launches}; attention max abs err "
+          f"vs plain {errf}, KV chunk bitwise; graph replay "
+          f"{replay_ms:.4f} ms (CUDA events), whole call {call_ms:.4f} ms "
+          f"synced; eager attention + session.send {eager_ms:.4f} ms (CUDA "
+          f"events), {eager_host_ms:.4f} ms synced; attention alone "
+          f"{attn_ms:.4f} ms", flush=True)
+    print(f"peak device memory, paths E-F: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.comm import (CommConfig, CommSession, PathPlanner,
+                                  TransferRequest, lower)
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.jacobi import kernel as jk
+    from repro_torch.kernels.multipath_dma import kernel as dk
+    from repro_torch.kernels.multipath_dma import ops as dops
+    from repro_torch.kernels.ring_allgather import kernel as rk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(_build.KERNELS)}) into {_build.build_dir()}",
+          flush=True)
+
+    errs = {name: 0.0 for name in _build.KERNELS}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    dev_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    def table_vs_plain(graph, nelems, dtypes, ndev, fill="zero"):
+        """Run one scheduled graph through the kernel and the plain
+        version on the same inputs; both outputs must match bit for bit
+        and the completion counter must equal the copy-node count."""
+        table = dk.build_node_table(graph, nelems,
+                                    [d.itemsize for d in dtypes], ndev,
+                                    fill=fill)
+        kern = dk.DmaProgram(table, dtypes, dev)
+        for buf in kern.inputs():
+            buf.copy_(torch.randn(buf.shape, generator=gen).to(buf.dtype))
+        plain_y = torch.zeros_like(kern.y)
+        plain_stage = torch.empty_like(kern.stage)
+        kern.run()
+        done = kern.completed_nodes()
+        plain_done = dk.run_node_table_plain(table.items, kern.x, plain_y,
+                                             plain_stage)
+        torch.cuda.synchronize()
+        check(torch.equal(kern.y, plain_y), "multipath_dma differs from its "
+              "plain version")
+        check(done == graph.num_copy_nodes == plain_done,
+              f"completion counter {done} (plain {plain_done}) != "
+              f"{graph.num_copy_nodes} copy nodes")
+        return kern
+
+    # -- 2. multipath_dma vs plain ----------------------------------------
+    t0 = time.perf_counter()
+    planner = PathPlanner(Topology.full_mesh(4), multipath_threshold=0)
+    n = 1_000_003
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        isz = dt.itemsize
+        for paths in (1, 2, 3):
+            for chunks in (1, 4, 8):
+                plan = planner.plan(0, 1, n * isz, granularity=isz,
+                                    max_paths=paths, num_chunks=chunks,
+                                    include_host=False)
+                x = randn(4, n, dtype=dt)
+                got = dops.multipath_dma_transfer(x, plan)
+                ref = x.clone()
+                ref[plan.dst] = x[plan.src]
+                check(torch.equal(got, ref), f"multipath_dma_transfer "
+                      f"{dt} paths={paths} chunks={chunks}")
+                for window in (1, 2):
+                    table_vs_plain(lower(plan, window), [n], [dt], 4)
+                    cases += 1
+    group = planner.plan_group([TransferRequest(i, (i + 1) % 4, 4 * n, 4)
+                                for i in range(4)])
+    table_vs_plain(lower(group), [n] * 4, [torch.float32] * 4, 4)
+    torus = CommSession(CommConfig(multipath_threshold=0), device=dev,
+                        topology=Topology.torus2d(4, 4))
+    msg = randn(n)
+    got = torus.send(msg, 0, 1, max_paths=3, num_chunks=4)
+    entry = next(iter(torus.engine._fastpath._store.values()))[1]
+    hops = sorted(pa.route.num_hops for pa in entry.plans[0].paths)
+    check(torch.equal(got, msg) and max(hops) == 3,
+          f"torus2d(4,4) 3-hop send wrong (route hops {hops})")
+    check(entry.compiled.program.completed_nodes()
+          == entry.graph.num_copy_nodes, "torus completion counter")
+    table_vs_plain(entry.graph, [n], [torch.float32], 16)
+    print(f"multipath_dma vs plain: {cases} plan/window cases + exchange "
+          f"group + torus2d(4,4) route hops {hops}: bitwise equal, "
+          f"completion counter = copy nodes "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # -- 3. jacobi vs plain -----------------------------------------------
+    for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+        for w in (700, 1 << 22):
+            ext = (torch.rand(8, w + 2, generator=gen) * 2 - 1).to(dt).to(dev)
+            got = jk.jacobi_sweep_cuda(ext)
+            ref = jk.jacobi_sweep_plain(ext)
+            err = (got.float() - ref.float()).abs().max().item()
+            errs["jacobi"] = max(errs["jacobi"], err)
+            check(err <= tol, f"jacobi {dt} W={w}: max abs err {err} > {tol}")
+            print(f"jacobi vs plain {str(dt)[6:]} W={w}: max abs err {err} "
+                  f"(atol {tol})", flush=True)
+
+    t0 = time.perf_counter()
+    cases = 0
+    for n_dev in (4, 8):
+        for rows_, f_ in ((8, 128), (4, 64), (8, 7), (2048, 8192)):
+            for dt in (torch.float32, torch.bfloat16):
+                xs = randn(n_dev, rows_, f_, dtype=dt)
+                geo = rk.RingGeometry.for_shape(n_dev, rows_, f_, dt.itemsize)
+                state = torch.empty(2 + geo.num_items, dtype=torch.int32,
+                                    device=dev)
+                got = rk.ring_allgather_cuda(xs, state=state)
+                ref = rk.ring_allgather_plain(xs)
+                check(torch.equal(got, ref), f"ring_allgather n={n_dev} "
+                      f"({rows_}, {f_}) {dt} differs from plain")
+                check(int(state[1].item()) == geo.num_items,
+                      f"ring_allgather completed {int(state[1].item())} of "
+                      f"{geo.num_items} items")
+                cases += 1
+                del xs, got, ref
+    print(f"ring_allgather vs plain: {cases} cases bitwise equal, completed "
+          f"items = table size ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    cases = 0
+
+    def flash_case(shape, dtype, causal, window, atol, rtol):
+        b, hq, hkv, s, d = shape
+        q = (randn(b, hq, s, d) * 0.3).to(dtype)
+        k = (randn(b, hkv, s, d) * 0.3).to(dtype)
+        v = randn(b, hkv, s, d, dtype=dtype)
+        got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = fk.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        check(bool((diff <= atol + rtol * want.float().abs()).all()),
+              f"flash_attention {shape} {dtype} causal={causal} "
+              f"window={window}: max abs err {err} (atol {atol}, rtol "
+              f"{rtol})")
+        return err
+
+    masks = ((True, None), (True, 64), (False, None))
+    f32_err = bf16_err = 0.0
+    for shape in ((1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
+                  (1, 2, 1, 384, 128)):
+        for causal, window in masks:
+            f32_err = max(f32_err, flash_case(shape, torch.float32, causal,
+                                              window, 3e-5, 1e-4))
+            cases += 1
+    f32_err = max(f32_err, flash_case((1, 32, 8, 512, 128), torch.float32,
+                                      True, None, 3e-5, 1e-4))
+    for causal, window in masks:
+        bf16_err = max(bf16_err, flash_case((1, 4, 2, 128, 64),
+                                            torch.bfloat16, causal, window,
+                                            2e-2, 0.0))
+    bf16_err = max(bf16_err, flash_case((1, 32, 16, 512, 128),
+                                        torch.bfloat16, True, 64, 2e-2, 0.0))
+    bf16_err = max(bf16_err, flash_case((1, 32, 8, 512, 128), torch.bfloat16,
+                                        True, None, 2e-2, 0.0))
+    print(f"flash_attention vs plain: {cases} float32 sweep cases + D=128 "
+          f"32/8 heads (atol 3e-5, rtol 1e-4; max abs err {f32_err}), "
+          f"bfloat16 sweep + Gemma-style window 64 at (1, 32/16, 512, 128) "
+          f"+ 32/8 heads (max abs 2e-2; max abs err {bf16_err}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    main_launches = {name: 0 for name in _build.KERNELS}
+    per_path: dict[str, dict[str, int]] = {}
+
+    def read_path(name: str) -> None:
+        """Add the launch counters since the last reset to the main-path
+        totals and print them."""
+        counts = launch_counts()
+        per_path[name] = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            main_launches[k] += v
+        print(f"main path {name} launches: {per_path[name]}", flush=True)
+
+    del torus, entry
+    kernels = comm_paths(dev, randn, errs, per_path, read_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.append(flash_times(randn, errs))
+    serving_paths(dev, errs, per_path, read_path)
+    print(f"main-path launches (paths A-F): {main_launches}", flush=True)
+    for name, count in main_launches.items():
+        check(count > 0, f"{name} was not launched on the main path")
+
+    # -- 12. report --------------------------------------------------------
+    for row in kernels:
+        row["launches"] = main_launches[row["name"]]
+        row["max_abs_err"] = errs[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,27 @@
 """State carried across from the reference package.
 
-This system has no weights: its state is the machine model and the
-configuration. :func:`topology_from_spec` and :func:`config_from_dict`
+The communication layer's state is the machine model and the
+configuration: :func:`topology_from_spec` and :func:`config_from_dict`
 rebuild them from plain dictionaries (no import of the reference), and
 :func:`topology_spec` writes a topology out as one, so a topology or a
-config written out on one side is the same object on the other — :meth:`~repro_torch.core.topology.Topology.digest` equality is
-the check.
+config written out on one side is the same object on the other —
+:meth:`~repro_torch.core.topology.Topology.digest` equality is the check.
+
+The models' state is their weights and decode caches: nested dicts of
+numpy arrays in the reference's layout (``embed``, ``layers/{ln1, ln2,
+attn/{wq, wk, wv, wo}, mlp/{w1, w2, w3}}``, ``final_norm``, ``lm_head``;
+a cache's ``k`` and ``v``) become the port's tensors with
+:func:`params_from_numpy` and :func:`cache_from_numpy`, so both packages
+compute with the same numbers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping
+
+import numpy as np
+import torch
 
 from repro_torch.comm.config import CommConfig
 from repro_torch.core.topology import Link, Topology
@@ -53,3 +63,34 @@ def config_from_dict(d: Mapping[str, Any]) -> CommConfig:
     if unknown:
         raise TypeError(f"unknown CommConfig fields {sorted(unknown)}")
     return CommConfig(**dict(d))
+
+
+def tensor_from_numpy(a, *, device=None) -> torch.Tensor:
+    """One array (anything ``np.asarray`` takes) as a tensor on ``device``
+    with its own dtype. A bfloat16 array (numpy's extension type, which
+    ``torch.from_numpy`` rejects) is reinterpreted bit for bit through
+    16-bit integers."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_numpy(tree, *, device=None):
+    """A model's parameters — nested dicts (and lists) of arrays in the
+    reference's layout, layers stacked on a leading ``L`` axis — as the
+    same structure of tensors on ``device``, dtypes kept (bfloat16
+    included)."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device=device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device=device) for v in tree)
+    return tensor_from_numpy(tree, device=device)
+
+
+#: A decode cache (``{"k", "v"}`` arrays, ``(L, B, Hkv, ...)``) carries
+#: across the same way.
+cache_from_numpy = params_from_numpy

@@ -13,7 +13,8 @@ handler: it owns one :class:`~repro_torch.core.topology.Topology`, one
   graph,
 * ``session.exchange([(x, src, dst), ...])`` — a *transfer group*: a set
   of concurrent messages planned jointly, fused into one graph, one cache
-  entry, one replay,
+  entry, one replay; ``session.send_pytree`` moves every leaf of a nested
+  dict/list of tensors (a KV cache) as one such group,
 * ``session.all_gather/reduce_scatter/all_reduce/all_to_all/psum(...)`` —
   driver-level bidirectional-ring collectives over global tensors, each
   captured once per (op, shape, dtype) into one CUDA graph and cached in
@@ -318,6 +319,39 @@ class CommSession:
         signature + schedule + planner epoch).
         """
         return self.engine.capture(build_fn, schedule=schedule)
+
+    def send_pytree(self, tree, src: int, dst: int):
+        """Move every tensor leaf of ``tree`` (nested dicts, lists and
+        tuples) from ``src`` to ``dst``; returns the same structure.
+
+        All leaves are fused into ONE transfer group: one captured graph
+        covering every leaf (one plan-cache entry keyed on all leaf
+        plans, not one per leaf) and one replay — steady-state KV
+        migration is a single dispatch regardless of leaf count, and a
+        second migration of the same shapes one fast-path hit. Zero-size
+        leaves and ``src == dst`` are per-leaf no-ops.
+        """
+        leaves: list = []
+
+        def flatten(t):
+            if isinstance(t, dict):
+                return {k: flatten(t[k]) for k in sorted(t)}
+            if isinstance(t, (list, tuple)):
+                return type(t)(flatten(v) for v in t)
+            leaves.append(t)
+            return len(leaves) - 1
+
+        skeleton = flatten(tree)
+        moved = self.exchange([(leaf, src, dst) for leaf in leaves])
+
+        def unflatten(s):
+            if isinstance(s, dict):
+                return {k: unflatten(v) for k, v in s.items()}
+            if isinstance(s, (list, tuple)):
+                return type(s)(unflatten(v) for v in s)
+            return moved[s]
+
+        return unflatten(skeleton)
 
     # -- driver-level collectives ------------------------------------------
     def _run_collective(self, op: str, x: torch.Tensor,

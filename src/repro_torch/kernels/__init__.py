@@ -4,4 +4,6 @@
 * :mod:`repro_torch.kernels.jacobi` — the 5-point Jacobi sweep
 * :mod:`repro_torch.kernels.ring_allgather` — the bidirectional-ring
   all-gather
+* :mod:`repro_torch.kernels.flash_attention` — blockwise online-softmax
+  attention (GQA, causal and sliding-window masks)
 """

@@ -1,0 +1,113 @@
+"""The ``flash_attention`` kernel: blockwise online-softmax attention.
+
+Replaces the Pallas kernel ``flash_attention_kernel`` of the reference
+package (``src/repro/kernels/flash_attention/kernel.py``): q ``(B, Hq, S,
+D)``, k and v ``(B, Hkv, S, D)`` with ``Hq % Hkv == 0``, float32 or
+bfloat16, scores, statistics and accumulator in float32, causal and
+sliding-window masks, exact zeros for a row with nothing to attend to.
+
+:func:`flash_attention_cuda` launches the hand-written kernel
+(``csrc/flash_attention.cu``, built by :mod:`repro_torch.kernels._build`)
+for head dims :data:`HEAD_DIMS`; :func:`flash_attention_plain` is the
+materialised attention of :mod:`.ref`, the plain version used for CPU
+tensors and as the check of the kernel on the card.
+:data:`LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: Head dims the kernel is built for.
+HEAD_DIMS = (16, 32, 64, 128)
+#: The kernel's grid puts ``B * Hq`` in its second dimension.
+_MAX_BATCH_HEADS = 65535
+
+#: Kernel launches so far.
+LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int | None) -> None:
+    """Raise ``ValueError`` unless q is ``(B, Hq, S, D)``, k and v are
+    ``(B, Hkv, S, D)`` with ``Hq % Hkv == 0``, and ``window`` is None or
+    positive."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B, Hq, S, D) and k, v (B, Hkv, S, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.shape[1] == 0 or hq % k.shape[1]:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={k.shape[1]}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """Plain PyTorch version: :func:`~.ref.attention_ref`, the whole
+    ``(S, S)`` score matrix with a float32 softmax, after the kernel's
+    shape checks; returns ``(B, Hq, S, D)`` in q's dtype."""
+    check_shapes(q, k, v, window)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 14
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns a new contiguous
+    ``(B, Hq, S, D)`` tensor in q's dtype. q, k and v may have any strides
+    over batch, head and position but a contiguous head dim; any other
+    layout, dtype or head dim raises."""
+    global LAUNCHES
+    check_shapes(q, k, v, window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention kernel needs CUDA tensors on "
+                             f"one device, got {name} on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"flash_attention kernel takes float32 or "
+                             f"bfloat16 q, k, v of one dtype, got {name} "
+                             f"{t.dtype}")
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"flash_attention kernel needs a contiguous "
+                             f"head dim, got {name} strides {t.stride()}")
+    b, hq, s, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel supports head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if b * hq > _MAX_BATCH_HEADS:
+        raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_BATCH_HEADS}")
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                b, hq, k.shape[1], s, d, float(scale), int(bool(causal)),
+                -1 if window is None else int(window),
+                _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,69 @@
+"""Wrappers of flash attention: the kernel on the card, the plain version
+on the CPU, the FLOP count, and the capture adopter."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
+                                                        flash_attention_plain)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention of q ``(B, Hq, S, D)`` over k, v ``(B, Hkv, S, D)``
+    (``scale`` defaults to ``D ** -0.5``). A CUDA tensor goes through the
+    hand-written kernel, which takes head dims 16, 32, 64 and 128 and
+    raises on any other; a CPU tensor goes through the plain version; any
+    other device raises."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def attention_flops(q_shape, k_shape) -> int:
+    """Nominal FLOP count of one attention call: ``2·B·H·Sq·Sk·D`` for
+    QKᵀ plus the same again for the value matmul."""
+    b, h, sq, d = q_shape
+    sk = k_shape[2]
+    return 4 * b * h * sq * sk * d
+
+
+def captured_flash_attention(cap, q, k, v, *, name: str = "flash_attention",
+                             causal: bool = True, window: int | None = None,
+                             scale: float | None = None, telemetry=None):
+    """Record a flash-attention invocation on a ``session.capture`` step.
+
+    ``q``/``k``/``v`` are capture refs with local shapes ``(B, H, S, D)``;
+    returns the attention output ref (q's shape). The kernel function folds
+    the stacked ``(n, B, H, S, D)`` operands into ``(n·B, H, S, D)``, so
+    one launch serves every device. The node is priced with ``flops`` from
+    :func:`attention_flops` and ``cost_ns`` 0; stamping ``cost_ns`` from a
+    telemetry recorder comes with the telemetry slice, so a recorder
+    raises ``NotImplementedError``. ``name`` is the capture's kernel
+    identity: one adopter call per name per capture.
+    """
+    if telemetry is not None:
+        raise NotImplementedError(
+            "captured_flash_attention(telemetry=...) is not ported yet; it "
+            "comes with the telemetry/calibration slice")
+    from repro_torch.comm.capture import BufferSpec
+    q_spec = cap.buffers[cap._resolve(q)]
+    k_spec = cap.buffers[cap._resolve(k)]
+
+    def attn(q_, k_, v_):
+        def fold(t):
+            return t.reshape((-1,) + tuple(t.shape[2:]))
+        out = flash_attention(fold(q_), fold(k_), fold(v_), causal=causal,
+                              window=window, scale=scale)
+        return out.reshape(q_.shape)
+
+    return cap.kernel(attn, q, k, v, name=name,
+                      out=BufferSpec(q_spec.shape, q_spec.dtype),
+                      flops=attention_flops(q_spec.shape, k_spec.shape),
+                      cost_ns=0)

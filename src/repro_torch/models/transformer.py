@@ -1,0 +1,338 @@
+"""Model assembly, forward only: blocks, layer stacks, prefill and decode.
+
+The dense subset of the reference's builder (``family`` ``dense``, and
+``vlm``, whose images arrive as tokens): ``ArchConfig`` selects the
+attention pattern and the MLP kind. Each per-layer parameter is stacked
+on a leading ``L`` axis, as in the reference, and the layer stack is a
+Python loop over ``L``. MoE, SSM, hybrid and audio models raise
+``NotImplementedError`` naming the slice that ports them.
+
+Decode caches (serve path):
+
+* full / local_global attention → chunked cache ``(L, B, Hkv, C, Sc, hd)``
+  for flash-decoding,
+* sliding-window attention → ring cache ``(L, B, Hkv, W, hd)`` (O(window)
+  memory),
+* gemma3's 5:1 local:global stack walks a per-layer window list with a
+  single code path (window = −1 ⇒ global).
+
+Unlike the reference, whose arrays are immutable, :func:`decode_step`
+writes the new token's key and value into the cache in place and returns
+the same cache: a decode step allocates no second cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (NEG_INF, apply_rope,
+                                       blockwise_attention,
+                                       chunked_decode_attention, mlp_apply,
+                                       mlp_init, rms_norm)
+
+Params = dict
+Cache = dict
+
+_LATER = {"moe": "the MoE slice", "ssm": "the rwkv6_1_6b SSM slice",
+          "hybrid": "the hybrid (Mamba) slice", "audio": "the audio slice"}
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a model family the port does not
+    run yet (MoE, SSM, hybrid, audio)."""
+    kind = ("moe" if cfg.num_experts else
+            cfg.family if cfg.family in _LATER else
+            "audio" if cfg.frontend == "audio" else None)
+    if kind is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} models are not ported yet; they come with "
+            f"{_LATER[kind]}")
+
+
+def layer_windows(cfg: ArchConfig) -> list[int]:
+    """Per-layer window list: -1 = full/global attention."""
+    if cfg.attention == "swa":
+        return [cfg.window] * cfg.num_layers
+    if cfg.attention == "local_global":
+        r = cfg.local_global_ratio
+        return [(cfg.window if (i % (r + 1)) != r else -1)
+                for i in range(cfg.num_layers)]
+    return [-1] * cfg.num_layers
+
+
+# ================================ init =======================================
+def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
+    w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return w.mul_(scale)
+
+
+def _attn_init(cfg: ArchConfig, *, generator, device, lead=()) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    s, dt = d ** -0.5, _dtype(cfg)
+    return {
+        "wq": _normal(lead + (d, h * hd), s, dt, generator, device),
+        "wk": _normal(lead + (d, kv * hd), s, dt, generator, device),
+        "wv": _normal(lead + (d, kv * hd), s, dt, generator, device),
+        "wo": _normal(lead + (h * hd, d), (h * hd) ** -0.5, dt, generator,
+                      device),
+    }
+
+
+def block_init(cfg: ArchConfig, *, generator: torch.Generator, device,
+               lead: tuple = ()) -> Params:
+    """One block's parameters (``lead``-stacked: ``lead=(L,)`` gives the
+    whole stack)."""
+    d = cfg.d_model
+    return {"ln1": torch.zeros(lead + (d,), device=device),
+            "ln2": torch.zeros(lead + (d,), device=device),
+            "attn": _attn_init(cfg, generator=generator, device=device,
+                               lead=lead),
+            "mlp": mlp_init(d, cfg.d_ff, cfg.mlp, _dtype(cfg),
+                            generator=generator, device=device, lead=lead)}
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator,
+                device=None) -> Params:
+    """Random weights from ``generator`` with the reference's
+    distributions: normal × ``d**-0.5`` (``wo``: × ``(h·hd)**-0.5``; MLP
+    out: × ``ff**-0.5``), zero norm weights; layers stacked on ``L``."""
+    check_supported(cfg)
+    d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
+    p = {"embed": _normal((v, d), d ** -0.5, dt, generator, device),
+         "layers": block_init(cfg, generator=generator, device=device,
+                              lead=(cfg.num_layers,)),
+         "final_norm": torch.zeros((d,), device=device)}
+    head = "lm_head" if cfg.decoder else "head"
+    p[head] = _normal((d, v), d ** -0.5, dt, generator, device)
+    return p
+
+
+def layer_params(params: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked layer parameters."""
+    def take(tree):
+        if isinstance(tree, dict):
+            return {k: take(t) for k, t in tree.items()}
+        return tree[i]
+    return take(params["layers"])
+
+
+# ============================ full-sequence path =============================
+def attention_qkv(x: torch.Tensor, ap: Params, cfg: ArchConfig,
+                  positions: torch.Tensor):
+    """q ``(B, H, S, hd)``, k and v ``(B, Hkv, S, hd)`` of one block,
+    RoPE applied to q and k."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = (x @ ap["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    k = (x @ ap["wk"]).reshape(b, s, kv, hd).transpose(1, 2)
+    v = (x @ ap["wv"]).reshape(b, s, kv, hd).transpose(1, 2)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attention_full(x, ap, cfg: ArchConfig, window: int, positions,
+                    return_kv: bool = False):
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim_
+    q, k, v = attention_qkv(x, ap, cfg, positions)
+    o = blockwise_attention(q, k, v, causal=cfg.causal, window=window,
+                            scale=hd ** -0.5)
+    out = o.transpose(1, 2).reshape(b, s, h * hd) @ ap["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _ffn(x, lp, cfg: ArchConfig):
+    """The dense MLP (MoE models raise before they get here, so there is
+    no auxiliary loss)."""
+    return mlp_apply(x, lp["mlp"], cfg.mlp)
+
+
+def block_apply(x, lp, cfg: ArchConfig, window: int, positions):
+    """Full-sequence block. x: (B, S, d) → (x', aux); aux is 0 for dense
+    models."""
+    x = x + _attention_full(rms_norm(x, lp["ln1"]), lp["attn"], cfg, window,
+                            positions)
+    x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+    return x, torch.zeros((), device=x.device)
+
+
+def embed_inputs(params: Params, cfg: ArchConfig,
+                 batch: dict) -> torch.Tensor:
+    check_supported(cfg)
+    return params["embed"][batch["tokens"]]
+
+
+def forward(params: Params, cfg: ArchConfig, batch: dict,
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. batch: tokens (B, S).
+
+    Returns (logits (B, S, V), aux_loss)."""
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        x, a = block_apply(x, layer_params(params, i), cfg, window,
+                           positions)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"])
+    head = params["lm_head"] if cfg.decoder else params["head"]
+    return x @ head, aux
+
+
+# ============================ prefill-into-cache ============================
+def _kv_to_chunked(k, spec: "CacheSpec"):
+    """(B, Hkv, S, hd) → (B, Hkv, C, Sc, hd), zero-padded to max_len."""
+    b, kv, s, hd = k.shape
+    pad = spec.max_len - s
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+    return k.reshape(b, kv, spec.kv_chunks, spec.chunk_len, hd)
+
+
+def _kv_to_ring(k, spec: "CacheSpec", s: int):
+    """(B, Hkv, S, hd) → ring (B, Hkv, W, hd): slot j holds the largest
+    position p < S with p ≡ j (mod W); slots from before position 0 zero."""
+    w = spec.max_len
+    j = torch.arange(w, device=k.device)
+    p = (s - 1) - ((s - 1 - j) % w)
+    valid = p >= 0
+    gathered = k[:, :, p.clamp(min=0)]
+    return torch.where(valid[None, None, :, None], gathered,
+                       torch.zeros((), dtype=k.dtype, device=k.device))
+
+
+def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
+                    spec: "CacheSpec") -> tuple[torch.Tensor, Cache]:
+    """Full-sequence forward that also emits the decode cache.
+
+    Returns (logits (B, S, V), cache) with the cache positioned after the
+    last prompt token (``cur_len = S`` for the subsequent decode_step)."""
+    x = embed_inputs(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, b, spec, device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        lp = layer_params(params, i)
+        a, (k, v) = _attention_full(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                                    window, positions, return_kv=True)
+        if spec.kind == "chunked":
+            cache["k"][i] = _kv_to_chunked(k, spec)
+            cache["v"][i] = _kv_to_chunked(v, spec)
+        else:
+            cache["k"][i] = _kv_to_ring(k, spec, s)
+            cache["v"][i] = _kv_to_ring(v, spec, s)
+        x = x + a
+        x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+    x = rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"], cache
+
+
+# ================================ decode path ================================
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Static decode-cache geometry for one arch × shape."""
+    kind: str            # "chunked" | "ring" | "none"
+    max_len: int
+    kv_chunks: int = 16  # C, the split-KV chunk count
+
+    @property
+    def chunk_len(self) -> int:
+        return self.max_len // self.kv_chunks
+
+
+def cache_spec(cfg: ArchConfig, max_len: int, kv_chunks: int = 16,
+               ) -> CacheSpec:
+    if cfg.family == "ssm":
+        return CacheSpec("none", max_len)
+    if cfg.attention == "swa":
+        return CacheSpec("ring", min(cfg.window, max_len))
+    return CacheSpec("chunked", max_len, kv_chunks)
+
+
+def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
+               device=None) -> Cache:
+    """A zero decode cache (attention models)."""
+    check_supported(cfg)
+    l, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    if spec.kind == "chunked":
+        shape = (l, batch, kv, spec.kv_chunks, spec.chunk_len, hd)
+    else:
+        shape = (l, batch, kv, spec.max_len, hd)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+
+
+def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
+                      cur_len: int, spec: CacheSpec):
+    """x: (B, d) one token at position ``cur_len``; writes its key and
+    value into ``cache_k``/``cache_v`` in place. Returns out (B, d)."""
+    b, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = (x @ ap["wq"]).reshape(b, h, hd)
+    k = (x @ ap["wk"]).reshape(b, kv, hd)
+    v = (x @ ap["wv"]).reshape(b, kv, hd)
+    pos = torch.full((1,), cur_len, device=x.device)
+    q = apply_rope(q[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    k = apply_rope(k[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+
+    if spec.kind == "ring":
+        slot = cur_len % spec.max_len
+        cache_k[:, :, slot] = k
+        cache_v[:, :, slot] = v
+        qpk = h // kv
+        qg = (q.reshape(b, kv, qpk, hd) * hd ** -0.5).float()
+        s = torch.einsum("bgqd,bgsd->bgqs", qg, cache_k.float())
+        idx = torch.arange(spec.max_len, device=x.device)
+        # ring slot ``idx`` holds global position cur_len - ((slot - idx) %
+        # W) (slot itself holds cur_len); entries from before position 0
+        # are unfilled and masked out. Window validity is automatic: the
+        # ring only ever holds the freshest W positions.
+        p_stored = cur_len - ((slot - idx) % spec.max_len)
+        s = torch.where(p_stored >= 0, s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgqs,bgsd->bgqd", pr, cache_v.float())
+        o = o.reshape(b, h, hd).to(x.dtype)
+    else:
+        ci = cur_len // spec.chunk_len
+        slot = cur_len % spec.chunk_len
+        cache_k[:, :, ci, slot] = k
+        cache_v[:, :, ci, slot] = v
+        o = chunked_decode_attention(q, cache_k, cache_v, cur_len + 1,
+                                     window=window, scale=hd ** -0.5)
+    return o.reshape(b, h * hd) @ ap["wo"]
+
+
+def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
+                       cur_len: int, spec: CacheSpec):
+    """One token through one block. x: (B, d); ``cache_l`` is the layer's
+    ``{"k", "v"}`` views, updated in place."""
+    x = x + _attention_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                              window, cache_l["k"], cache_l["v"], cur_len,
+                              spec)
+    return x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
+                tokens: torch.Tensor, cur_len: int,
+                spec: CacheSpec) -> tuple[torch.Tensor, Cache]:
+    """One serve step: tokens (B, 1) int → (logits (B, V), cache), the
+    cache updated in place at position ``cur_len``."""
+    x = params["embed"][tokens[:, 0]]
+    cur_len = int(cur_len)
+    for i, window in enumerate(layer_windows(cfg)):
+        x = decode_block_apply(x, layer_params(params, i), cfg, window,
+                               {"k": cache["k"][i], "v": cache["v"][i]},
+                               cur_len, spec)
+    x = rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"], cache

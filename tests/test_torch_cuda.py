@@ -11,7 +11,11 @@ package, which the card's machine need not have.)
 Copies are held bit for bit; the Jacobi sweep to float32 atol 1e-6 and
 bfloat16 atol 2e-2 (the kernel rounds once, the plain version per add).
 The ring all-gather and the captured Jacobi step (float32) are held bit
-for bit against their plain or eager versions.
+for bit against their plain or eager versions. Flash attention is held to
+its plain version at the reference's tolerances (float32 atol 3e-5 /
+rtol 1e-4, bfloat16 max abs 2e-2), and the serving path on a reduced
+model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
+orders).
 """
 
 import pytest
@@ -20,10 +24,16 @@ import torch
 from repro_torch.comm import CommConfig, CommSession, PathPlanner, lower
 from repro_torch.comm.passes import apply_schedule
 from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
+from repro_torch.configs import get_config
 from repro_torch.core.topology import Topology
+from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.jacobi import kernel as jk
 from repro_torch.kernels.multipath_dma import kernel as dk
 from repro_torch.kernels.ring_allgather import kernel as rk
+from repro_torch.models import layers
+from repro_torch.models import transformer as tfm
+from repro_torch.serving import (Request, ServeEngine,
+                                 make_captured_decode_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +119,117 @@ def test_captured_jacobi_bitwise_eager_one_dispatch(dev):
     assert sess.stats()["dispatches"] == d0 + 1
     assert (jk.LAUNCHES, dk.LAUNCHES) == (j0 + 1, m0 + 1)
     assert torch.equal(out2, jacobi_step(out, session=sess))
+
+
+FLASH_SWEEP = [(1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
+               (1, 2, 1, 384, 128), (2, 4, 2, 77, 16), (1, 32, 8, 512, 128)]
+FLASH_MASKS = [(True, None), (True, 64), (False, None), (False, 64)]
+
+
+def _qkv(dev, b, hq, hkv, s, d, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + s + d)
+    q = torch.randn(b, hq, s, d, generator=g, device=dev) * 0.3
+    k = torch.randn(b, hkv, s, d, generator=g, device=dev) * 0.3
+    v = torch.randn(b, hkv, s, d, generator=g, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", FLASH_SWEEP)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_matches_plain(dev, b, hq, hkv, s, d, causal,
+                                       window):
+    q, k, v = _qkv(dev, b, hq, hkv, s, d)
+    before = fk.LAUNCHES
+    got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert fk.LAUNCHES == before + 1
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("shape", [(1, 4, 2, 128, 64), (1, 32, 8, 300, 128)])
+def test_flash_attention_bf16_matches_plain(dev, causal, window, shape):
+    q, k, v = _qkv(dev, *shape, dtype=torch.bfloat16)
+    got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+def test_flash_attention_strided_and_rejects(dev):
+    x = torch.randn(2, 96, 4, 64, device=dev)
+    kv = torch.randn(2, 96, 2, 64, device=dev)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    got = fk.flash_attention_cuda(q, k, k, window=40)
+    want = fk.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                    k.contiguous(), window=40)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    for d in (8, 96):
+        t = torch.zeros(1, 2, 8, d, device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            fk.flash_attention_cuda(t, t, t)
+    t = torch.zeros(1, 2, 16, 16, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fk.flash_attention_cuda(t, t, t)
+
+
+def test_blockwise_attention_runs_the_kernel(dev):
+    q, k, v = _qkv(dev, 1, 4, 2, 130, 32)
+    before = fk.LAUNCHES
+    got = layers.blockwise_attention(q, k, v, causal=True, window=-1,
+                                     scale=32 ** -0.5)
+    assert fk.LAUNCHES == before + 1
+    want = layers.blockwise_attention(q.cpu(), k.cpu(), v.cpu(),
+                                      causal=True, window=-1,
+                                      scale=32 ** -0.5)
+    torch.testing.assert_close(got.cpu(), want, atol=3e-5, rtol=1e-4)
+
+
+def test_serving_reduced_model_matches_cpu(dev):
+    cfg = get_config("gemma3_27b").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    cuda_params = {"embed": params["embed"].to(dev),
+                   "final_norm": params["final_norm"].to(dev),
+                   "lm_head": params["lm_head"].to(dev),
+                   "layers": {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                                  if isinstance(v, dict) else v.to(dev))
+                              for k, v in params["layers"].items()}}
+    toks = [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12], [5, 6, 7] * 4]
+    cpu = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    gpu = ServeEngine(cfg, cuda_params, max_len=32, kv_chunks=4)
+    lc, _ = cpu.prefill(toks)
+    before = fk.LAUNCHES
+    lg, _ = gpu.prefill(toks)
+    assert fk.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=0)
+    reqs = [Request([1, 2, 3], 5), Request([7, 8, 9, 10], 6)]
+    a = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
+                      for r in reqs])
+    b = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
+                      for r in reqs])
+    assert [r.out for r in a] == [r.out for r in b]
+
+
+def test_captured_decode_step_one_dispatch(dev):
+    sess = CommSession(device=dev)
+    n = sess.num_devices
+    step = make_captured_decode_step(sess, batch=1, heads=4, kv_len=256,
+                                     head_dim=64, kv_chunk=1 << 20, src=0,
+                                     dst=2, dtype=torch.bfloat16,
+                                     schedule="overlap")
+    q, k, v = _qkv(dev, n, 4, 4, 256, 64, dtype=torch.bfloat16)
+    q, k, v = (t.view(n, 1, 4, 256, 64) for t in (q, k, v))
+    kv = torch.randn(n, 1 << 20, device=dev).to(torch.bfloat16)
+    step(q, k, v, kv)
+    d0, f0, m0 = sess.stats()["dispatches"], fk.LAUNCHES, dk.LAUNCHES
+    attn, new_kv = step(q, k, v, kv)
+    assert sess.stats()["dispatches"] == d0 + 1
+    assert fk.LAUNCHES == f0 + 1 and dk.LAUNCHES > m0
+    want = fk.flash_attention_plain(q.view(n, 4, 256, 64),
+                                    k.view(n, 4, 256, 64),
+                                    v.view(n, 4, 256, 64))
+    assert (attn.view(n, 4, 256, 64).float() - want.float()
+            ).abs().max().item() < 2e-2
+    expect = kv.clone()
+    expect[2] = kv[0]
+    assert torch.equal(new_kv, expect)

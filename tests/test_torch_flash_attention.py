@@ -1,0 +1,182 @@
+"""The port's ``flash_attention`` against the reference Pallas kernel.
+
+The reference runs ``fa_ops.flash_attention`` (the Pallas kernel in
+interpret mode on the CPU) and its oracle ``attention_ref``; the port
+runs ``flash_attention`` on CPU tensors, which is its plain version —
+the materialised attention with a float32 softmax. Same inputs, made with
+numpy from a seed, on both sides. Tolerances are the reference's own
+(``tests/test_kernels.py``): float32 atol 3e-5 / rtol 1e-4 (sums in
+another order), bfloat16 max abs 2e-2 (one rounding of the output). The
+CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import StepCapture as JStepCapture
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention import ref as jref
+
+from repro_torch.carry import tensor_from_numpy
+from repro_torch.comm import StepCapture
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+SWEEP = [(1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
+         (1, 2, 1, 384, 128)]
+MASKS = [(True, None), (True, 64), (False, None)]
+
+
+def inputs(seed, b, hq, hkv, s, d):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, hq, s, d).astype(np.float32) * 0.3
+    k = rng.randn(b, hkv, s, d).astype(np.float32) * 0.3
+    v = rng.randn(b, hkv, s, d).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", SWEEP)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_plain_matches_reference_kernel_and_oracle(b, hq, hkv, s, d, causal,
+                                                   window):
+    q, k, v = inputs(0, b, hq, hkv, s, d)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    oracle = np.asarray(jref.attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (b, hq, s, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=3e-5, rtol=1e-4)
+    ours = attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(ours.numpy(), oracle, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_bf16_matches_reference(causal, window):
+    q, k, v = inputs(1, 1, 4, 2, 128, 64)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           window=window), np.float32)
+    oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal,
+                                           window=window), np.float32)
+    tq, tk, tv = (tensor_from_numpy(np.asarray(a)) for a in (jq, jk, jv))
+    assert tq.dtype == torch.bfloat16
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.max(np.abs(got - want)) < 2e-2
+    assert np.max(np.abs(got - oracle)) < 2e-2
+
+
+def test_strided_layout_equals_contiguous():
+    """The model hands the kernel q/k/v as transposes of (B, S, H, D):
+    strided over heads and positions, contiguous over D."""
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 96, 4, 32).astype(np.float32))
+    kv = torch.from_numpy(rng.randn(2, 96, 2, 32).astype(np.float32))
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, k, window=40)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               k.contiguous(), window=40)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 384])
+@pytest.mark.parametrize("causal,window", MASKS + [(False, 64), (True, 1),
+                                                   (True, 130)])
+def test_plain_matches_reference_kernel_at_ragged_lengths(s, causal, window):
+    """Lengths on either side of the reference kernel's 64-wide tiles and
+    windows narrower and wider than a tile: the port's plain version
+    against the Pallas kernel and its oracle."""
+    q, k, v = inputs(3, 1, 2, 1, s, 32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           window=window))
+    oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal,
+                                           window=window))
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal, window=window).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, oracle, atol=3e-5, rtol=1e-4)
+
+
+def test_attention_flops_equal():
+    for q_shape, k_shape in [((1, 2, 8, 8), (1, 2, 8, 8)),
+                             ((4, 32, 512, 128), (4, 8, 512, 128))]:
+        assert ops.attention_flops(q_shape, k_shape) == \
+            jops.attention_flops(q_shape, k_shape)
+
+
+def _kernel_op(cap, name):
+    (rec,) = [op for op in cap.ops if op[0] == "kernel" and op[1] == name]
+    return rec[2], rec[3], rec[4], rec[5]
+
+
+def test_captured_flash_attention_records_like_reference():
+    """The adopter's node: FLOPs from ``attention_flops``, q's spec as the
+    output, ``cost_ns`` 0 without a recorder — the recording's signature
+    equals the reference's."""
+    cap, jcap = StepCapture(), JStepCapture()
+    q = cap.input((1, 2, 8, 8), torch.float32)
+    k = cap.input((1, 2, 8, 8), torch.float32)
+    v = cap.input((1, 2, 8, 8), torch.float32)
+    jq = jcap.input((1, 2, 8, 8), jnp.float32)
+    jk = jcap.input((1, 2, 8, 8), jnp.float32)
+    jv = jcap.input((1, 2, 8, 8), jnp.float32)
+    out = ops.captured_flash_attention(cap, q, k, v)
+    jops.captured_flash_attention(jcap, jq, jk, jv)
+    _, _, flops, cost_ns = _kernel_op(cap, "flash_attention")
+    assert flops == jops.attention_flops((1, 2, 8, 8), (1, 2, 8, 8))
+    assert cost_ns == 0
+    assert cap.buffers[out.buf_id].shape == (1, 2, 8, 8)
+    assert cap.signature() == jcap.signature()
+
+
+def test_captured_kernel_folds_the_device_axis():
+    """The recorded function folds ``(n, B, H, S, D)`` into
+    ``(n·B, H, S, D)``: each device's attention is its own."""
+    cap = StepCapture(3)
+    q = cap.input((2, 4, 16, 16), torch.float32)
+    k = cap.input((2, 2, 16, 16), torch.float32)
+    ops.captured_flash_attention(cap, q, k, k, window=5)
+    fn = cap.kernels["flash_attention"]
+    rng = np.random.RandomState(3)
+    qs = torch.from_numpy(rng.randn(3, 2, 4, 16, 16).astype(np.float32))
+    ks = torch.from_numpy(rng.randn(3, 2, 2, 16, 16).astype(np.float32))
+    got = fn(qs, ks, ks)
+    for d in range(3):
+        assert torch.equal(got[d], ops.flash_attention(qs[d], ks[d], ks[d],
+                                                       window=5))
+
+
+def test_telemetry_raises_until_its_slice():
+    cap = StepCapture()
+    q = cap.input((1, 2, 8, 8), torch.float32)
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        ops.captured_flash_attention(cap, q, q, q, telemetry=object())
+
+
+def test_other_devices_raise_instead_of_running_plain():
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_attention(q, q, q)
+    cpu = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_cuda(cpu, cpu, cpu)
+
+
+@pytest.mark.parametrize("bad", ["heads", "shape", "window"])
+def test_bad_inputs_raise(bad):
+    q = torch.zeros((1, 4, 8, 16))
+    k = torch.zeros((1, 3 if bad == "heads" else 2, 8, 16))
+    v = torch.zeros((1, 2, 9, 16)) if bad == "shape" else k
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=0 if bad == "window" else None)

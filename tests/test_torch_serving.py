@@ -1,0 +1,211 @@
+"""The port's serving engine against the reference's.
+
+* ``ServeEngine.generate`` on reduced SmolLM (the reference's serve-test
+  config) with the reference's weights carried by ``params_from_numpy``:
+  greedy tokens equal to the reference engine's on its own requests.
+* ``migrate_kv``: the migrated cache is bit-equal to the cache (and to the
+  reference's migration), one dispatch per migration, the second one a
+  fast-path hit.
+* ``make_captured_decode_step`` at the reference test's sizes: the same
+  recording as the reference (signature, lowered and scheduled graph
+  digests under all five schedulers), attention within 2e-5 of the
+  reference step's, the migrated KV chunk exact, one dispatch per call.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import CommSession as JCommSession
+from repro.comm.capture import lower_step as jlower_step
+from repro.comm.passes import apply_schedule as japply_schedule
+from repro.configs import REGISTRY as JREGISTRY
+from repro.configs import load_all as jload_all
+from repro.models import transformer as jtfm
+from repro.serving import Request as JRequest
+from repro.serving import ServeEngine as JServeEngine
+from repro.serving.engine import (
+    make_captured_decode_step as jmake_captured_decode_step)
+
+from repro_torch.carry import params_from_numpy
+from repro_torch.comm import CommSession, lower_step
+from repro_torch.comm.config import SCHEDULE_NAMES
+from repro_torch.comm.passes import apply_schedule
+from repro_torch.configs import get_config
+from repro_torch.core.topology import Topology
+from repro_torch.launch import serve as serve_cli
+from repro_torch.serving import (Request, ServeEngine,
+                                 make_captured_decode_step, make_serve_step)
+
+jload_all()
+
+N = 8
+
+
+@pytest.fixture(scope="module")
+def smollm():
+    """(reference config, reference params, port config, port params)."""
+    jcfg = JREGISTRY["smollm_360m"].reduced()
+    jparams = jtfm.init_params(jax.random.key(0), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jcfg, jparams, get_config("smollm_360m").reduced(), params
+
+
+REQUESTS = {
+    "two": (48, [([1, 2, 3], 5), ([7, 8, 9, 10], 8)]),
+    "one": (32, [([5, 6, 7], 6)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REQUESTS))
+def test_generate_greedy_equals_reference(smollm, case):
+    jcfg, jparams, cfg, params = smollm
+    max_len, reqs = REQUESTS[case]
+    want = JServeEngine(jcfg, jparams, max_len=max_len, kv_chunks=4
+                        ).generate([JRequest(list(p), n) for p, n in reqs])
+    engine = ServeEngine(cfg, params, max_len=max_len, kv_chunks=4)
+    got = engine.generate([Request(list(p), n) for p, n in reqs])
+    assert [r.out for r in got] == [r.out for r in want]
+    assert [len(r.out) for r in got] == [n for _, n in reqs]
+    assert all(r.done for r in got)
+    again = engine.generate([Request(list(p), n) for p, n in reqs])
+    assert [r.out for r in again] == [r.out for r in got]
+
+
+def test_serve_step_is_decode_step(smollm):
+    _, _, cfg, params = smollm
+    engine = ServeEngine(cfg, params, max_len=16, kv_chunks=4)
+    logits, cache = engine.prefill([[3, 4, 5, 6]])
+    step = make_serve_step(cfg, engine.spec)
+    nxt = torch.argmax(logits[:, -1], -1)[:, None]
+    lg, same = step(params, cache, nxt, 4)
+    assert same is cache and lg.shape == (1, cfg.vocab_size)
+
+
+def test_temperature_sampling_is_seeded(smollm):
+    _, _, cfg, params = smollm
+    engine = ServeEngine(cfg, params, max_len=32, kv_chunks=4,
+                         temperature=0.8)
+
+    def run(seed):
+        return [r.out for r in engine.generate(
+            [Request([1, 2, 3], 6), Request([9, 8], 4)], seed=seed)]
+
+    first = run(0)
+    assert run(0) == first
+    assert all(0 <= t < cfg.vocab_size for out in first for t in out)
+    assert [len(o) for o in first] == [6, 4]
+
+
+def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
+    jcfg, jparams, cfg, params = smollm
+    sess = CommSession(device="cpu")
+    engine = ServeEngine(cfg, params, max_len=48, kv_chunks=4, comm=sess)
+    toks = [[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]]
+    _, cache = engine.prefill(toks)
+    moved = engine.migrate_kv(cache, 0, 1)
+    assert sorted(moved) == ["k", "v"]
+    for key in cache:
+        assert torch.equal(moved[key], cache[key])
+    s1 = sess.stats()
+    assert s1["dispatches"] == 1 and s1["cache"]["size"] == 1
+    again = engine.migrate_kv(cache, 0, 1)
+    s2 = sess.stats()
+    assert s2["dispatches"] == 2
+    assert s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1
+    assert all(torch.equal(again[k], cache[k]) for k in cache)
+
+    jengine = JServeEngine(jcfg, jparams, max_len=48, kv_chunks=4,
+                           comm=JCommSession(mesh=dev_mesh))
+    _, jcache = jengine.prefill(np.asarray(toks, np.int32))
+    jmoved = jengine.migrate_kv(jcache, 0, 1)
+    for key in cache:
+        np.testing.assert_allclose(moved[key].numpy(),
+                                   np.asarray(jmoved[key]), atol=1e-4,
+                                   rtol=0)
+    with pytest.raises(ValueError, match="CommSession"):
+        ServeEngine(cfg, params).migrate_kv(cache, 0, 1)
+
+
+def test_send_pytree_structure_and_no_ops():
+    sess = CommSession(device="cpu")
+    tree = {"b": [torch.arange(6.0), (torch.ones(2, 3),)],
+            "a": torch.zeros(0), "c": {"d": torch.full((4,), 2.0)}}
+    out = sess.send_pytree(tree, 0, 2)
+    assert sorted(out) == ["a", "b", "c"]
+    assert isinstance(out["b"], list) and isinstance(out["b"][1], tuple)
+    assert torch.equal(out["b"][0], tree["b"][0])
+    assert torch.equal(out["b"][1][0], tree["b"][1][0])
+    assert torch.equal(out["c"]["d"], tree["c"]["d"])
+    assert out["a"].numel() == 0
+    assert sess.stats()["dispatches"] == 1
+    same = sess.send_pytree(tree, 1, 1)
+    assert same["c"]["d"] is tree["c"]["d"]
+    assert sess.stats()["dispatches"] == 1
+
+
+# -- the captured decode step ---------------------------------------------
+
+DECODE = dict(batch=1, heads=2, kv_len=16, head_dim=8, kv_chunk=4096,
+              src=0, dst=2)
+
+
+def sessions(dev_mesh):
+    return (JCommSession(mesh=dev_mesh),
+            CommSession(device="cpu",
+                        topology=Topology.full_mesh(N, with_host=True)))
+
+
+def test_captured_decode_step_matches_reference(dev_mesh):
+    jsess, sess = sessions(dev_mesh)
+    jstep = jmake_captured_decode_step(jsess, schedule="overlap", **DECODE)
+    step = make_captured_decode_step(sess, schedule="overlap", **DECODE)
+    rng = np.random.default_rng(3)
+    shp = (N, 1, 2, 16, 8)
+    q, k, v = (rng.random(shp).astype(np.float32) for _ in range(3))
+    kv = rng.random((N, 4096)).astype(np.float32)
+    jattn, jnew = jstep(q, k, v, kv)
+    attn, new_kv = step(*(torch.from_numpy(a) for a in (q, k, v, kv)))
+    assert sess.stats()["dispatches"] == 1
+    np.testing.assert_allclose(attn.numpy(), np.asarray(jattn), atol=2e-5,
+                               rtol=2e-5)
+    expect = kv.copy()
+    expect[2] = kv[0]
+    np.testing.assert_array_equal(new_kv.numpy(), expect)
+    np.testing.assert_array_equal(new_kv.numpy(), np.asarray(jnew))
+    step(*(torch.from_numpy(a) for a in (q, k, v, kv)))
+    assert sess.stats()["dispatches"] == 2
+    assert sess.stats()["fastpath"]["hits"] >= 1
+
+
+def test_captured_decode_step_digests_equal_reference(dev_mesh):
+    jsess, sess = sessions(dev_mesh)
+    jcap = jmake_captured_decode_step(jsess, **DECODE).capture
+    cap = make_captured_decode_step(sess, **DECODE).capture
+    assert cap.signature() == jcap.signature()
+    jgraph, _ = jlower_step(jcap, jsess.engine.plan_group_for,
+                            jsess.topology.name)
+    graph, _ = lower_step(cap, sess.engine.plan_group_for,
+                          sess.topology.name)
+    assert graph.digest() == jgraph.digest()
+    assert graph.num_compute_nodes == 3 and graph.num_copy_nodes > 0
+    for sched in SCHEDULE_NAMES:
+        jsched, jchosen = japply_schedule(jgraph, sched, jsess.topology)
+        ours, chosen = apply_schedule(graph, sched, sess.topology)
+        assert (ours.digest(), chosen) == (jsched.digest(), jchosen), sched
+
+
+def test_captured_decode_step_rejects_bad_endpoints():
+    sess = CommSession(device="cpu")
+    with pytest.raises(ValueError, match="distinct"):
+        make_captured_decode_step(sess, **{**DECODE, "dst": 0})
+    with pytest.raises(ValueError, match="distinct"):
+        make_captured_decode_step(sess, **{**DECODE, "dst": 9})
+
+
+def test_cli_serves_on_the_cpu(capsys):
+    serve_cli.main(["--device", "cpu", "--arch", "gemma3_27b",
+                    "--requests", "2", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "6 tokens in" in out

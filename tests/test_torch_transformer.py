@@ -1,0 +1,170 @@
+"""The port's transformer against the reference's, on reduced configs.
+
+Reduced ``llama3_8b``, ``smollm_360m`` (15 heads at full size) and
+``gemma3_27b`` (local/global windows, GeGLU), float32. The reference
+draws the weights (``init_params``); ``params_from_numpy`` carries them
+into the port, so both sides compute with the same numbers. ``forward``,
+``prefill_forward`` (logits and cache) and 4 ``decode_step`` calls agree
+within atol 1e-4: the same float32 arithmetic, summed in another order.
+A sliding-window variant exercises the ring cache.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import REGISTRY as JREGISTRY
+from repro.configs import load_all as jload_all
+from repro.models import transformer as jtfm
+
+from repro_torch.carry import cache_from_numpy, params_from_numpy
+from repro_torch.configs import REGISTRY, get_config, load_all
+from repro_torch.models import transformer as tfm
+
+jload_all()
+load_all()
+
+NAMES = ["llama3_8b", "smollm_360m", "gemma3_27b"]
+ATOL = 1e-4
+
+
+def to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def swa(cfg):
+    return dataclasses.replace(cfg, attention="swa", window=8)
+
+
+def config(name, variant):
+    jcfg = JREGISTRY[name].reduced()
+    cfg = get_config(name).reduced()
+    if variant == "swa":
+        jcfg, cfg = swa(jcfg), swa(cfg)
+    return jcfg, cfg
+
+
+@pytest.fixture(scope="module", params=[(n, "base") for n in NAMES]
+                + [("llama3_8b", "swa")], ids=lambda p: "-".join(p))
+def model(request):
+    """(reference config, port config, reference params, port params)."""
+    jcfg, cfg = config(*request.param)
+    jparams = jtfm.init_params(jax.random.key(1), jcfg)
+    return jcfg, cfg, jparams, params_from_numpy(to_numpy(jparams))
+
+
+def tokens(seed, b, s, vocab):
+    return np.random.RandomState(seed).randint(0, vocab, (b, s))
+
+
+def close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_configs_equal_the_reference():
+    for name in NAMES:
+        ours, ref = REGISTRY[name], JREGISTRY[name]
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert ours.param_count() == ref.param_count()
+        assert dataclasses.asdict(ours.reduced()) == \
+            dataclasses.asdict(ref.reduced())
+        assert tfm.layer_windows(ours) == list(
+            np.asarray(jtfm.layer_windows(ref)))
+    assert get_config("llama3-8b") is REGISTRY["llama3_8b"]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mixtral_8x22b")
+
+
+def test_forward(model):
+    jcfg, cfg, jparams, params = model
+    toks = tokens(2, 2, 12, cfg.vocab_size)
+    want, jaux = jtfm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    got, aux = tfm.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 12, cfg.vocab_size)
+    close(got, want)
+    assert float(aux) == float(jaux) == 0.0
+
+
+def test_prefill_then_decode(model):
+    jcfg, cfg, jparams, params = model
+    b, sp, steps = 2, 10, 4
+    toks = tokens(3, b, sp + steps, cfg.vocab_size)
+    jspec = jtfm.cache_spec(jcfg, max_len=16, kv_chunks=4)
+    spec = tfm.cache_spec(cfg, max_len=16, kv_chunks=4)
+    assert dataclasses.asdict(spec) == dataclasses.asdict(jspec)
+    want, jcache = jtfm.prefill_forward(
+        jparams, jcfg, {"tokens": jnp.asarray(toks[:, :sp])}, jspec)
+    got, cache = tfm.prefill_forward(
+        params, cfg, {"tokens": torch.from_numpy(toks[:, :sp])}, spec)
+    close(got, want)
+    assert sorted(cache) == sorted(jcache) == ["k", "v"]
+    for key in cache:
+        assert cache[key].shape == jcache[key].shape
+        close(cache[key], jcache[key])
+    for t in range(sp, sp + steps):
+        want, jcache = jtfm.decode_step(
+            jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]),
+            jnp.int32(t), jspec)
+        got, same = tfm.decode_step(params, cfg, cache,
+                                    torch.from_numpy(toks[:, t:t + 1]), t,
+                                    spec)
+        assert same is cache                     # updated in place
+        close(got, want)
+    for key in cache:
+        close(cache[key], jcache[key])
+
+
+def test_decode_from_a_carried_cache(model):
+    """A reference cache carried with ``cache_from_numpy`` decodes to the
+    reference's logits (positions past the ring's wrap included)."""
+    jcfg, cfg, jparams, params = model
+    jspec = jtfm.cache_spec(jcfg, max_len=16, kv_chunks=4)
+    spec = tfm.cache_spec(cfg, max_len=16, kv_chunks=4)
+    toks = tokens(4, 1, 12, cfg.vocab_size)
+    _, jcache = jtfm.prefill_forward(
+        jparams, jcfg, {"tokens": jnp.asarray(toks[:, :11])}, jspec)
+    cache = cache_from_numpy(to_numpy(jcache))
+    want, _ = jtfm.decode_step(jparams, jcfg, jcache,
+                               jnp.asarray(toks[:, 11:]), jnp.int32(11),
+                               jspec)
+    got, _ = tfm.decode_step(params, cfg, cache, torch.from_numpy(
+        toks[:, 11:]), 11, spec)
+    close(got, want)
+
+
+def test_init_params_shapes_dtypes_and_scales():
+    cfg = get_config("llama3_8b").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    ref = jax.eval_shape(lambda k: jtfm.init_params(k, JREGISTRY[
+        "llama3_8b"].reduced()), jax.random.key(0))
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    for path, leaf in flat:
+        t = params
+        for p in path:
+            t = t[p.key]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).removeprefix("torch.") == str(leaf.dtype), path
+    assert float(params["layers"]["ln1"].abs().max()) == 0.0
+    assert abs(params["embed"].std().item() - 64 ** -0.5) < 0.01
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    pb = tfm.init_params(bf, generator=torch.Generator().manual_seed(0))
+    assert pb["layers"]["mlp"]["w1"].dtype == torch.bfloat16
+    assert pb["final_norm"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"num_experts": 4, "top_k": 2}, "MoE"),
+    ({"family": "ssm"}, "rwkv6_1_6b"),
+    ({"family": "hybrid"}, "hybrid"),
+    ({"family": "audio", "frontend": "audio"}, "audio")])
+def test_unported_families_raise(change, match):
+    cfg = dataclasses.replace(get_config("llama3_8b").reduced(), **change)
+    with pytest.raises(NotImplementedError, match=match):
+        tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=match):
+        tfm.init_cache(cfg, 1, tfm.CacheSpec("chunked", 8, 2))
