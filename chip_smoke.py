@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100::
 What it does, in order (any failed check exits nonzero):
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   five CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, started together), printing the build seconds;
 2. holds ``multipath_dma`` against its plain version, bit for bit:
    ``Topology.full_mesh(4)`` plans with 1/2/3 paths, 1/4/8 chunks,
@@ -24,7 +24,13 @@ What it does, in order (any failed check exits nonzero):
    (1, 2, 1, 384, 128); causal, causal with a window of 64, full) in
    float32 at atol 3e-5 / rtol 1e-4, bfloat16 at max abs 2e-2, a
    Gemma-style window of 64 at (1, 32, 16, 512, 128) and D = 128 with
-   Hq/Hkv = 32/8;
+   Hq/Hkv = 32/8; and ``rwkv6_scan`` against its plain version and the
+   literal per-step recurrence at the reference's sweep (``(BH, S, dk, dv,
+   chunk)`` = (2, 128, 32, 32, 32), (1, 200, 64, 64, 64), (4, 64, 16, 32,
+   16), (1, 96, 8, 8, 32), float32, max error relative to the largest
+   output below 1e-4), and at the model's shape (4, 1024, 32 heads, 64,
+   64) with bfloat16 r/k/v, float32 w/u/out, output and final state
+   within the same bound;
 4. main path A, with every launch counter set to 0 just before it and read
    after phase 5: a ``CommSession(schedule="auto")`` on the default
    4-device topology sends 256 MiB of float32 0→1 with 3 paths (bitwise),
@@ -58,7 +64,9 @@ What it does, in order (any failed check exits nonzero):
    ``flash_attention`` at the prefill shape (4, 32, 512, 128) bfloat16
    causal beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (the yardstick only; the port never
-   calls it); then everything of paths A–D is freed;
+   calls it), and ``rwkv6_scan`` at path G's prefill shape (4, 1024, 32,
+   64, 64) beside its bound and its plain version (no one PyTorch call
+   computes this scan); then everything of paths A–D is freed;
 10. main path E, counters set to 0 before it and read after it: serving
     Llama-3 8B at full width (``get_config("llama3_8b")``: 32 layers,
     d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256, bfloat16,
@@ -80,7 +88,27 @@ What it does, in order (any failed check exits nonzero):
     device within 4e-3 + 8e-3·|want| of the plain version, the KV chunk
     bitwise; the replay against the eager composition (attention +
     ``session.send``);
-12. one JSON line ``{"kernels": [...]}``, then as the last line
+12. main path G, after path E's and F's tensors are freed, counters set to
+    0 before it and read after it: serving RWKV-6 1.6B at full width
+    (``get_config("rwkv6_1_6b")``: 24 layers, d_model 2048, 32 heads of
+    64, d_ff 7168, vocab 65536, bfloat16, about 3.16 GB of seeded random
+    weights) with ``ServeEngine(comm=CommSession())``: 4 requests of
+    1024/768/512/256 seeded prompt tokens and 32 new tokens each,
+    greedily, twice (the same tokens, every one in range), then a prefill
+    whose state cache ``migrate_kv(cache, 0, 1)`` moves, twice (bitwise,
+    one dispatch, the second a fast-path hit: a float32 state beside a
+    bfloat16 shift in one transfer group); ``rwkv6_scan`` launched once
+    per layer per prefill; at layer 0's real prefill r/k/v/w the kernel's
+    output and final state within 1e-4 (relative to the largest) of the
+    plain version, and the decay range of that prefill; a prefill of all
+    but the last 8 tokens and 8 decode steps against the full prefill's
+    logits (max abs difference within 0.47, 3× the sound reading of
+    bfloat16 activations through 24 layers in two orders), and the same
+    with a zeroed state, the state of one chunk earlier and of one
+    position earlier planted in the cache, each of which must exceed the
+    limit; prefill, per-token decode and migration-replay times and the
+    profiler's idle share;
+13. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,6 +130,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate, FLOP/s (NVIDIA data sheet).
 BF16_FLOPS_PER_S = 989e12
+#: H100 SXM float32 rate outside the tensor cores, FLOP/s (data sheet).
+F32_FLOPS_PER_S = 67e12
 MiB = 1 << 20
 
 
@@ -661,12 +691,209 @@ def flash_times(randn, errs) -> dict:
                             "v.repeat_interleave(4, 1), is_causal=True)"}
 
 
+#: The reference's bound for the RWKV-6 scan: max error relative to the
+#: largest output (float32 sums in another order).
+RWKV_REL = 1e-4
+#: Path G's bound on prefill + 8 decode steps against the full prefill,
+#: the largest logit difference: 3× the sound reading (0.156, bfloat16
+#: computed in two orders); a state planted one position early reads 3.93.
+RWKV_DECODE_ATOL = 0.47
+#: Path G's shape: 4 requests of 1024 positions, 32 heads of 64.
+RWKV_SHAPE = (4, 1024, 32, 64, 64)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference relative to the largest ``|want|``."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def rwkv_inputs(randn, rand, b, s, h, dk, dv, dtype=torch.float32):
+    """The reference sweep's distributions in the model's ``(B, S, H, d)``
+    layout: r, k ~ 0.5·N(0, 1), v ~ N(0, 1), decays uniform in [0.85,
+    0.999) in float32, and a float32 bonus ~ 0.3·N(0, 1) per (batch,
+    head)."""
+    r = (randn(b, s, h, dk) * 0.5).to(dtype)
+    k = (randn(b, s, h, dk) * 0.5).to(dtype)
+    v = randn(b, s, h, dv, dtype=dtype)
+    w = rand(b, s, h, dk) * 0.149 + 0.85
+    u = randn(b, h, dk) * 0.3
+    return r, k, v, w, u
+
+
+def rwkv_checks(randn, rand, errs) -> None:
+    """Phase 3's ``rwkv6_scan`` cases: the reference sweep in float32
+    against the plain version and the literal recurrence, and the model's
+    shape and types against the plain version, output and final state."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    from repro_torch.kernels.rwkv6_scan import ops as sops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    for bh, s, dk, dv, chunk in ((2, 128, 32, 32, 32), (1, 200, 64, 64, 64),
+                                 (4, 64, 16, 32, 16), (1, 96, 8, 8, 32)):
+        *rkvw, u = rwkv_inputs(randn, rand, bh, s, 1, dk, dv)
+        r, k, v, w = (t[:, :, 0] for t in rkvw)
+        u = u[:, 0]
+        got = sops.rwkv6_scan(r, k, v, w, u, chunk=chunk)
+        plain = sops.rwkv6_scan(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu(),
+                                chunk=chunk).to(got.device)
+        oracle = rwkv6_scan_ref(r, k, v, w, u)
+        e_plain, e_ref = rel_err(got, plain), rel_err(got, oracle)
+        worst = max(worst, e_plain, e_ref)
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"],
+                                 (got - plain).abs().max().item())
+        check(e_plain < RWKV_REL and e_ref < RWKV_REL,
+              f"rwkv6_scan ({bh}, {s}, {dk}, {dv}) chunk {chunk}: relative "
+              f"err {e_plain} vs plain, {e_ref} vs the recurrence")
+    b, s, h, dk, dv = RWKV_SHAPE
+    r, k, v, w, u = rwkv_inputs(randn, rand, b, s, h, dk, dv,
+                                dtype=torch.bfloat16)
+    u = u[:1].expand(b, -1, -1)                  # one bonus row per head
+    o, st = sk.rwkv6_scan_cuda(r, k, v, w, u, out_dtype=torch.float32,
+                               return_state=True)
+    po, pst = sk.rwkv6_scan_plain(r, k, v, w, u, out_dtype=torch.float32,
+                                  return_state=True)
+    e_o, e_s = rel_err(o, po), rel_err(st, pst)
+    errs["rwkv6_scan"] = max(errs["rwkv6_scan"], (o - po).abs().max().item())
+    check(e_o < RWKV_REL and e_s < RWKV_REL,
+          f"rwkv6_scan at the model's shape: relative err {e_o} (output), "
+          f"{e_s} (state)")
+    print(f"rwkv6_scan vs plain and the per-step recurrence: 4 float32 sweep "
+          f"cases (max relative err {worst}, limit {RWKV_REL}); "
+          f"{RWKV_SHAPE} bf16 r/k/v, f32 w/u/out: relative err {e_o} "
+          f"(output), {e_s} (final state) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def rwkv_times(randn, rand, errs) -> dict:
+    """Phase 9's ``rwkv6_scan`` row at path G's prefill shape, with the
+    model's types (bfloat16 r/k/v, float32 w, u and output, the final
+    state): the kernel against its plain version, then its time beside its
+    bound and the plain version's. No one PyTorch call computes the scan,
+    so there is no yardstick."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+
+    b, s, h, dk, dv = RWKV_SHAPE
+    chunk = sk.MAX_CHUNK
+    r, k, v, w, u = rwkv_inputs(randn, rand, b, s, h, dk, dv,
+                                dtype=torch.bfloat16)
+    u = u[:1].expand(b, -1, -1)
+
+    def kernel():
+        return sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk,
+                                  out_dtype=torch.float32, return_state=True)
+
+    def plain():
+        return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
+                                   out_dtype=torch.float32, return_state=True)
+
+    (o, st), (po, pst) = kernel(), plain()
+    err = (o - po).abs().max().item()
+    errs["rwkv6_scan"] = max(errs["rwkv6_scan"], err)
+    check(rel_err(o, po) < RWKV_REL and rel_err(st, pst) < RWKV_REL,
+          "rwkv6_scan differs from plain at path G's shape")
+    ms = cuda_time_ms(kernel, 20)
+    plain_ms = cuda_time_ms(plain, 5, warmup=1)
+    # each input read once, each output written once: r, k, v bfloat16,
+    # w float32, one u row per head, o float32, the final state float32
+    nbytes = ((2 * dk + dv) * 2 + dk * 4 + dv * 4) * b * s * h \
+        + h * dk * 4 + b * h * dk * dv * 4
+    # the least work of any chunking: q̃·S and the state update, 4·dk·dv
+    # per position, plus per position in chunks of c the strictly causal
+    # scores, (c - 1)·dk, P·V with the bonus diagonal, (c + 1)·dv, and the
+    # state's decay once a chunk, dk·dv / c; at the c that needs least
+    def per_position(c):
+        return 4 * dk * dv + (c - 1) * dk + (c + 1) * dv + dk * dv / c
+
+    best = min(range(1, s + 1), key=per_position)
+    flops = round(b * h * s * per_position(best))
+    kernel_flops = round(b * h * s * per_position(chunk))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"rwkv6_scan {RWKV_SHAPE} bf16 r/k/v, f32 w/u/out + state, chunk "
+          f"{chunk}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({flops} float32"
+          f" FLOPs in chunks of {best} at 67 TFLOP/s = {ops_ms:.4f} ms, the "
+          f"kernel's chunks of {chunk} do {kernel_flops}; {nbytes} B at 3.35 "
+          f"TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
+          f"{plain_ms:.4f} ms; kernel max abs err vs plain {err}", flush=True)
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:99",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for t in tree.values():
             yield from _leaves(t)
     else:
         yield tree
+
+
+def serving_times(cfg, engine, sess, toks, logits, cache, new,
+                  gen_s: tuple[float, float], path: str) -> None:
+    """Print a served model's times: prefill and per-token decode (CUDA
+    events, ``new - 1`` greedy steps from the end of ``toks``), each
+    one's device time, op count and idle share under the profiler,
+    tokens/s of the second ``generate`` (host clock, ``gen_s`` = first and
+    second call) and the migration of ``cache`` (graph replay, whole
+    ``migrate_kv``)."""
+    from repro_torch.serving import make_serve_step
+
+    b, plen = toks.shape
+    prefill_ms = cuda_time_ms(lambda: engine.prefill(toks), 3, warmup=1)
+    serve_step = make_serve_step(cfg, engine.spec)
+    _, dcache = engine.prefill(toks)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(new - 1):
+        lg, dcache = serve_step(engine.params, dcache, tok, plen + i)
+        tok = lg.argmax(-1)[:, None]
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (new - 1)
+    pre_wall, pre_dev, pre_n, pre_top = profile_device_ms(
+        lambda: engine.prefill(toks))
+    dec_wall, dec_dev, dec_n, dec_top = profile_device_ms(
+        lambda: serve_step(engine.params, dcache, tok, plen + new - 1))
+
+    def top(rows):
+        return ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in rows)
+
+    def idle(dev_ms, ms):
+        return (f"{1 - dev_ms / ms:.1%}" if dev_ms > 0 else
+                "not measured: the profiler recorded no device time")
+
+    print(f"profiler (one call each): prefill {pre_dev:.2f} ms of device "
+          f"time in {pre_n} device ops, {pre_wall:.2f} ms wall (idle share "
+          f"vs the unprofiled {prefill_ms:.2f} ms: "
+          f"{idle(pre_dev, prefill_ms)}; top ms: {top(pre_top)}); decode "
+          f"step {dec_dev:.2f} ms of device time in {dec_n} device ops, "
+          f"{dec_wall:.2f} ms wall (idle share vs the unprofiled "
+          f"{decode_ms:.2f} ms: {idle(dec_dev, decode_ms)}; top ms: "
+          f"{top(dec_top)})", flush=True)
+    mig = next(iter(sess.engine._fastpath._store.values()))[1]
+    mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
+    mig_call_ms = host_time_ms(lambda: engine.migrate_kv(cache, 0, 1), 5)
+    gen1_s, gen2_s = gen_s
+    print(f"serving {cfg.name} {cfg.dtype}, batch {b}: prefill of "
+          f"{tuple(toks.shape)} tokens {prefill_ms:.2f} ms (CUDA events), "
+          f"decode {decode_ms:.2f} ms per token step (CUDA events, "
+          f"{new - 1} steps from position {plen}), generate of "
+          f"{b} x {new} tokens {gen2_s:.3f} s = {b * new / gen2_s:.1f} "
+          f"tokens/s (host clock, second call; first {gen1_s:.3f} s); "
+          f"migration of the cache: graph replay {mig_ms:.4f} ms, whole "
+          f"migrate_kv {mig_call_ms:.4f} ms synced", flush=True)
+    print(f"peak device memory, path {path}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
 def serving_paths(dev, errs, per_path, read_path) -> None:
@@ -681,8 +908,7 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
     from repro_torch.models import layers
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import (Request, ServeEngine,
-                                     make_captured_decode_step,
-                                     make_serve_step)
+                                     make_captured_decode_step)
 
     # -- 10. main path E: serving -------------------------------------------
     cfg = get_config("llama3_8b")
@@ -795,55 +1021,9 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
           f"{same_next}", flush=True)
     del plain_logits
 
-    prefill_ms = cuda_time_ms(lambda: engine.prefill(toks), 3, warmup=1)
-    serve_step = make_serve_step(cfg, engine.spec)
-    _, dcache = engine.prefill(toks)
-    tok = logits[:, -1].argmax(-1)[:, None]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(new - 1):
-        lg, dcache = serve_step(params, dcache, tok, plen + i)
-        tok = lg.argmax(-1)[:, None]
-    end.record()
-    torch.cuda.synchronize()
-    decode_ms = start.elapsed_time(end) / (new - 1)
-    pre_wall, pre_dev, pre_n, pre_top = profile_device_ms(
-        lambda: engine.prefill(toks))
-    dec_wall, dec_dev, dec_n, dec_top = profile_device_ms(
-        lambda: serve_step(params, dcache, tok, plen + new - 1))
-
-    def top(rows):
-        return ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in rows)
-
-    def idle(dev_ms, ms):
-        return (f"{1 - dev_ms / ms:.1%}" if dev_ms > 0 else
-                "not measured: the profiler recorded no device time")
-
-    print(f"profiler (one call each): prefill {pre_dev:.2f} ms of device "
-          f"time in {pre_n} device ops, {pre_wall:.2f} ms wall (idle share "
-          f"vs the unprofiled {prefill_ms:.2f} ms: "
-          f"{idle(pre_dev, prefill_ms)}; top ms: {top(pre_top)}); decode "
-          f"step {dec_dev:.2f} ms of device time in {dec_n} device ops, "
-          f"{dec_wall:.2f} ms wall (idle share vs the unprofiled "
-          f"{decode_ms:.2f} ms: {idle(dec_dev, decode_ms)}; top ms: "
-          f"{top(dec_top)})", flush=True)
-    mig = next(iter(sess.engine._fastpath._store.values()))[1]
-    mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
-    mig_call_ms = host_time_ms(lambda: engine.migrate_kv(cache, 0, 1), 5)
-    print(f"serving {cfg.name} {cfg.dtype}, batch {len(prompts)}: prefill of "
-          f"{tuple(toks.shape)} tokens {prefill_ms:.2f} ms (CUDA events), "
-          f"decode {decode_ms:.2f} ms per token step (CUDA events, "
-          f"{new - 1} steps from position {plen}), generate of "
-          f"{len(prompts)} x {new} tokens {gen2_s:.3f} s = "
-          f"{len(prompts) * new / gen2_s:.1f} tokens/s (host clock, second "
-          f"call; first {gen1_s:.3f} s); migration of the cache: graph "
-          f"replay {mig_ms:.4f} ms, whole migrate_kv {mig_call_ms:.4f} ms "
-          f"synced", flush=True)
-    print(f"peak device memory, path E: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del logits, cache, dcache, lg, engine, params, first, second
+    serving_times(cfg, engine, sess, toks, logits, cache, new,
+                  (gen1_s, gen2_s), "E")
+    del logits, cache, engine, params, first, second
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -913,6 +1093,168 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
+def rwkv_path(dev, errs, per_path, read_path) -> None:
+    """Main path G (phase 12): serving RWKV-6 1.6B at full width, read with
+    the counters set to 0 just before it; then the kernel at layer 0's
+    real prefill, prefill-then-decode against the full prefill, and the
+    times."""
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request, ServeEngine, make_serve_step
+
+    # -- 12. main path G: serving RWKV-6 ------------------------------------
+    cfg = get_config("rwkv6_1_6b")
+    hd = cfg.rwkv_head_dim
+    check((cfg.family, cfg.num_layers, cfg.d_model, cfg.d_model // hd, hd,
+           cfg.d_ff, cfg.mlp, cfg.vocab_size, cfg.dtype)
+          == ("ssm", 24, 2048, 32, 64, 7168, "relu2", 65536, "bfloat16"),
+          f"rwkv6_1_6b is not the full-width config: {cfg}")
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"rwkv6_1_6b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.d_model // hd} heads of {hd}, d_ff "
+          f"{cfg.d_ff} ({cfg.mlp}), vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
+          f"{wbytes / 1e9:.2f} GB of seeded random weights in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sess = CommSession()
+    engine = ServeEngine(cfg, params, comm=sess)
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist()
+               for n in (1024, 768, 512, 256)]
+    new = 32
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
+                        device=dev)
+
+    def requests():
+        return [Request(list(p), new) for p in prompts]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen2_s = time.perf_counter() - t0
+    logits, cache = engine.prefill(toks)
+    moved = engine.migrate_kv(cache, 0, 1)
+    s1 = sess.stats()
+    moved2 = engine.migrate_kv(cache, 0, 1)
+    s2 = sess.stats()
+    torch.cuda.synchronize()
+    read_path("G")
+    outs = [r.out for r in first]
+    check(all(len(o) == new for o in outs)
+          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "path G: a wrong count or an out-of-range token")
+    check([r.out for r in second] == outs, "path G: a second generate gave "
+          "other tokens")
+    check(per_path["G"].get("rwkv6_scan", 0) == 3 * cfg.num_layers,
+          f"path G launched rwkv6_scan {per_path['G'].get('rwkv6_scan', 0)}"
+          f" times, not once per layer per prefill ({3 * cfg.num_layers})")
+    check(per_path["G"].get("multipath_dma", 0) > 0,
+          "path G did not launch multipath_dma")
+    check(sorted(cache) == ["rwkv_shift", "rwkv_state"]
+          and cache["rwkv_state"].dtype == torch.float32
+          and cache["rwkv_shift"].dtype == torch.bfloat16,
+          f"path G cache {[(k, t.dtype) for k, t in cache.items()]}")
+    check(all(moved[k].dtype == cache[k].dtype
+              and torch.equal(moved[k], cache[k])
+              and torch.equal(moved2[k], cache[k]) for k in cache),
+          "path G: migrate_kv is not bitwise equal to the state cache")
+    check(s1["dispatches"] == 1 and s2["dispatches"] == 2,
+          f"path G migrations took {s1['dispatches']}, {s2['dispatches']} "
+          f"dispatches, not one each")
+    check(s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1,
+          "path G: the second migration was not one fast-path hit")
+    sizes = {k: t.numel() * t.element_size() / 1e6 for k, t in cache.items()}
+    print(f"served {len(prompts)} requests (prompts "
+          f"{[len(p) for p in prompts]}, {new} new tokens each, greedy): "
+          f"tokens in range, a second generate gives the same tokens; "
+          f"first outputs {[o[:4] for o in outs]}; migrate_kv of the state "
+          f"cache ({', '.join(f'{k} {mb:.2f} MB' for k, mb in sizes.items())}"
+          f") 0->1 bitwise, one dispatch, second one fast-path hit",
+          flush=True)
+    del moved, moved2
+
+    # the kernel at layer 0's real prefill r/k/v/w, and the decay range
+    lp = tfm.layer_params(params, 0)
+    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
+    shifted = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    r, k, v, w, _ = ssm._rwkv6_project(x, shifted, lp["rwkv"], hd)
+    u = lp["rwkv"]["u"].expand(len(prompts), -1, -1)
+    o, st = sk.rwkv6_scan_cuda(r, k, v, w, u, out_dtype=torch.float32,
+                               return_state=True)
+    po, pst = sk.rwkv6_scan_plain(r, k, v, w, u, out_dtype=torch.float32,
+                                  return_state=True)
+    e_o, e_s = rel_err(o, po), rel_err(st, pst)
+    errs["rwkv6_scan"] = max(errs["rwkv6_scan"], (o - po).abs().max().item())
+    check(e_o < RWKV_REL and e_s < RWKV_REL and bool(torch.isfinite(o).all()),
+          f"rwkv6_scan at layer 0's prefill: relative err {e_o} (output), "
+          f"{e_s} (state)")
+    logw = torch.log(w)
+    chunk_decay = -logw.reshape(len(prompts), plen // sk.MAX_CHUNK,
+                                sk.MAX_CHUNK, *logw.shape[2:]).sum(2)
+    print(f"layer 0 prefill r/k/v/w {tuple(r.shape)}: kernel vs plain "
+          f"relative err {e_o} (output), {e_s} (final state), limit "
+          f"{RWKV_REL}; log w in [{logw.min().item():.4f}, "
+          f"{logw.max().item():.4f}], largest decay over one chunk of "
+          f"{sk.MAX_CHUNK}: exp({chunk_decay.max().item():.3f})", flush=True)
+    del x, shifted, r, k, v, w, o, st, po, pst, logw, chunk_decay
+
+    # prefill of all but the last 8 tokens, then 8 decode steps, against
+    # the full prefill's logits; then the same with a state planted wrong,
+    # each of which the limit must catch
+    serve_step = make_serve_step(cfg, engine.spec)
+    tail = 8
+    start = plen - tail
+
+    def decode_diff(state_from=None, zero=False):
+        _, pcache = engine.prefill(toks[:, :start])
+        if state_from is not None:
+            _, other = engine.prefill(toks[:, :state_from])
+            pcache["rwkv_state"].copy_(other["rwkv_state"])
+        if zero:
+            pcache["rwkv_state"].zero_()
+        worst = 0.0
+        for t in range(start, plen):
+            lg, pcache = serve_step(params, pcache, toks[:, t:t + 1], t)
+            worst = max(worst, (lg.float() - logits[:, t].float()).abs()
+                        .max().item())
+        return worst
+
+    worst = decode_diff()
+    top = logits[:, start:].float().abs().max().item()
+    faults = {"zeroed state": decode_diff(zero=True),
+              f"state one chunk ({sk.MAX_CHUNK}) early":
+                  decode_diff(state_from=start - sk.MAX_CHUNK),
+              "state one position early": decode_diff(state_from=start - 1)}
+    limit = RWKV_DECODE_ATOL
+    check(worst <= limit, f"path G: prefill + {tail} decode steps differ"
+          f" from the full prefill by {worst} (limit {limit})")
+    check(all(d > limit for d in faults.values()),
+          f"path G: a planted fault passes the decode check: {faults}")
+    print(f"prefill of {start} tokens + {tail} decode steps vs the full "
+          f"prefill: logits max abs diff {worst} (largest logit {top:.3f}, "
+          f"limit {limit}); planted faults: "
+          + ", ".join(f"{k} {d}" for k, d in faults.items()), flush=True)
+
+    serving_times(cfg, engine, sess, toks, logits, cache, new,
+                  (gen1_s, gen2_s), "G")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -952,6 +1294,9 @@ def main() -> int:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=dev_gen, device=dev)
 
     def table_vs_plain(graph, nelems, dtypes, ndev, fill="zero"):
         """Run one scheduled graph through the kernel and the plain
@@ -1094,6 +1439,7 @@ def main() -> int:
           f"bfloat16 sweep + Gemma-style window 64 at (1, 32/16, 512, 128) "
           f"+ 32/8 heads (max abs 2e-2; max abs err {bf16_err}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    rwkv_checks(randn, rand, errs)
 
     main_launches = {name: 0 for name in _build.KERNELS}
     per_path: dict[str, dict[str, int]] = {}
@@ -1113,12 +1459,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.append(flash_times(randn, errs))
+    kernels.append(rwkv_times(randn, rand, errs))
     serving_paths(dev, errs, per_path, read_path)
-    print(f"main-path launches (paths A-F): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rwkv_path(dev, errs, per_path, read_path)
+    print(f"main-path launches (paths A-G): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 12. report --------------------------------------------------------
+    # -- 13. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

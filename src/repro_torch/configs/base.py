@@ -152,7 +152,7 @@ class ArchConfig:
 REGISTRY: dict[str, ArchConfig] = {}
 
 #: The architectures ported so far (the reference registers ten).
-ARCH_IDS = ("gemma3_27b", "llama3_8b", "smollm_360m")
+ARCH_IDS = ("gemma3_27b", "llama3_8b", "rwkv6_1_6b", "smollm_360m")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

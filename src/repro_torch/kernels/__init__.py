@@ -6,4 +6,5 @@
   all-gather
 * :mod:`repro_torch.kernels.flash_attention` — blockwise online-softmax
   attention (GQA, causal and sliding-window masks)
+* :mod:`repro_torch.kernels.rwkv6_scan` — the chunked RWKV-6 recurrence
 """

@@ -25,7 +25,8 @@ from pathlib import Path
 KERNEL_DIR = Path(__file__).resolve().parent
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("multipath_dma", "jacobi", "ring_allgather", "flash_attention")
+KERNELS = ("multipath_dma", "jacobi", "ring_allgather", "flash_attention",
+           "rwkv6_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,10 +1,11 @@
 """Model assembly, forward only: blocks, layer stacks, prefill and decode.
 
-The dense subset of the reference's builder (``family`` ``dense``, and
-``vlm``, whose images arrive as tokens): ``ArchConfig`` selects the
-attention pattern and the MLP kind. Each per-layer parameter is stacked
-on a leading ``L`` axis, as in the reference, and the layer stack is a
-Python loop over ``L``. MoE, SSM, hybrid and audio models raise
+The dense and SSM subset of the reference's model assembly (``family``
+``dense``, ``vlm``, whose images arrive as tokens, and ``ssm``, whose
+blocks mix with RWKV-6 instead of attention): ``ArchConfig`` selects the
+mixer, the attention pattern and the MLP kind. Each per-layer parameter
+is stacked on a leading ``L`` axis, as in the reference, and the layer
+stack is a Python loop over ``L``. MoE, hybrid and audio models raise
 ``NotImplementedError`` naming the slice that ports them.
 
 Decode caches (serve path):
@@ -14,11 +15,15 @@ Decode caches (serve path):
 * sliding-window attention → ring cache ``(L, B, Hkv, W, hd)`` (O(window)
   memory),
 * gemma3's 5:1 local:global stack walks a per-layer window list with a
-  single code path (window = −1 ⇒ global).
+  single code path (window = −1 ⇒ global),
+* RWKV-6 (SSM) → no key/value cache: the float32 recurrent state
+  ``rwkv_state`` ``(L, B, h, hd, hd)`` and the token-shift input
+  ``rwkv_shift`` ``(L, B, d)``.
 
 Unlike the reference, whose arrays are immutable, :func:`decode_step`
-writes the new token's key and value into the cache in place and returns
-the same cache: a decode step allocates no second cache.
+writes the new token's key and value (or the new SSM state) into the cache
+in place and returns the same cache: a decode step allocates no second
+cache.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        blockwise_attention,
                                        chunked_decode_attention, mlp_apply,
@@ -37,8 +43,8 @@ from repro_torch.models.layers import (NEG_INF, apply_rope,
 Params = dict
 Cache = dict
 
-_LATER = {"moe": "the MoE slice", "ssm": "the rwkv6_1_6b SSM slice",
-          "hybrid": "the hybrid (Mamba) slice", "audio": "the audio slice"}
+_LATER = {"moe": "the MoE slice", "hybrid": "the hybrid (Mamba) slice",
+          "audio": "the audio slice"}
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -47,7 +53,7 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a model family the port does not
-    run yet (MoE, SSM, hybrid, audio)."""
+    run yet (MoE, hybrid, audio)."""
     kind = ("moe" if cfg.num_experts else
             cfg.family if cfg.family in _LATER else
             "audio" if cfg.frontend == "audio" else None)
@@ -91,19 +97,26 @@ def block_init(cfg: ArchConfig, *, generator: torch.Generator, device,
     """One block's parameters (``lead``-stacked: ``lead=(L,)`` gives the
     whole stack)."""
     d = cfg.d_model
-    return {"ln1": torch.zeros(lead + (d,), device=device),
-            "ln2": torch.zeros(lead + (d,), device=device),
-            "attn": _attn_init(cfg, generator=generator, device=device,
-                               lead=lead),
-            "mlp": mlp_init(d, cfg.d_ff, cfg.mlp, _dtype(cfg),
-                            generator=generator, device=device, lead=lead)}
+    p = {"ln1": torch.zeros(lead + (d,), device=device),
+         "ln2": torch.zeros(lead + (d,), device=device)}
+    if cfg.family == "ssm":
+        p["rwkv"] = ssm_lib.rwkv6_init(d, cfg.rwkv_head_dim, _dtype(cfg),
+                                       generator=generator, device=device,
+                                       lead=lead)
+    else:
+        p["attn"] = _attn_init(cfg, generator=generator, device=device,
+                               lead=lead)
+    p["mlp"] = mlp_init(d, cfg.d_ff, cfg.mlp, _dtype(cfg),
+                        generator=generator, device=device, lead=lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 device=None) -> Params:
     """Random weights from ``generator`` with the reference's
     distributions: normal × ``d**-0.5`` (``wo``: × ``(h·hd)**-0.5``; MLP
-    out: × ``ff**-0.5``), zero norm weights; layers stacked on ``L``."""
+    out: × ``ff**-0.5``; RWKV-6 as :func:`~.ssm.rwkv6_init`), zero norm
+    weights; layers stacked on ``L``."""
     check_supported(cfg)
     d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
     p = {"embed": _normal((v, d), d ** -0.5, dt, generator, device),
@@ -160,9 +173,13 @@ def _ffn(x, lp, cfg: ArchConfig):
 
 def block_apply(x, lp, cfg: ArchConfig, window: int, positions):
     """Full-sequence block. x: (B, S, d) → (x', aux); aux is 0 for dense
-    models."""
-    x = x + _attention_full(rms_norm(x, lp["ln1"]), lp["attn"], cfg, window,
-                            positions)
+    and SSM models."""
+    xin = rms_norm(x, lp["ln1"])
+    if cfg.family == "ssm":
+        x = x + ssm_lib.rwkv6_apply(xin, lp["rwkv"],
+                                    head_dim=cfg.rwkv_head_dim)
+    else:
+        x = x + _attention_full(xin, lp["attn"], cfg, window, positions)
     x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
     return x, torch.zeros((), device=x.device)
 
@@ -224,14 +241,22 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
     cache = init_cache(cfg, b, spec, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
-        a, (k, v) = _attention_full(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
-                                    window, positions, return_kv=True)
-        if spec.kind == "chunked":
-            cache["k"][i] = _kv_to_chunked(k, spec)
-            cache["v"][i] = _kv_to_chunked(v, spec)
+        xin = rms_norm(x, lp["ln1"])
+        if cfg.family == "ssm":
+            a, (st, sh) = ssm_lib.rwkv6_apply(
+                xin, lp["rwkv"], head_dim=cfg.rwkv_head_dim,
+                return_state=True)
+            cache["rwkv_state"][i] = st
+            cache["rwkv_shift"][i] = sh
         else:
-            cache["k"][i] = _kv_to_ring(k, spec, s)
-            cache["v"][i] = _kv_to_ring(v, spec, s)
+            a, (k, v) = _attention_full(xin, lp["attn"], cfg, window,
+                                        positions, return_kv=True)
+            if spec.kind == "chunked":
+                cache["k"][i] = _kv_to_chunked(k, spec)
+                cache["v"][i] = _kv_to_chunked(v, spec)
+            else:
+                cache["k"][i] = _kv_to_ring(k, spec, s)
+                cache["v"][i] = _kv_to_ring(v, spec, s)
         x = x + a
         x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
     x = rms_norm(x, params["final_norm"])
@@ -262,9 +287,17 @@ def cache_spec(cfg: ArchConfig, max_len: int, kv_chunks: int = 16,
 
 def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
                device=None) -> Cache:
-    """A zero decode cache (attention models)."""
+    """A zero decode cache: keys and values for attention models, the
+    recurrent state and the token-shift input for SSM models."""
     check_supported(cfg)
-    l, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    l, kv, hd, d = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
+                    cfg.d_model)
+    if cfg.family == "ssm":
+        rh = cfg.rwkv_head_dim
+        return {"rwkv_state": torch.zeros((l, batch, d // rh, rh, rh),
+                                          device=device),
+                "rwkv_shift": torch.zeros((l, batch, d), dtype=_dtype(cfg),
+                                          device=device)}
     if spec.kind == "chunked":
         shape = (l, batch, kv, spec.kv_chunks, spec.chunk_len, hd)
     else:
@@ -316,10 +349,18 @@ def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
 def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
                        cur_len: int, spec: CacheSpec):
     """One token through one block. x: (B, d); ``cache_l`` is the layer's
-    ``{"k", "v"}`` views, updated in place."""
-    x = x + _attention_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
-                              window, cache_l["k"], cache_l["v"], cur_len,
-                              spec)
+    views of the cache's leaves, updated in place."""
+    xin = rms_norm(x, lp["ln1"])
+    if cfg.family == "ssm":
+        mix, st, sh = ssm_lib.rwkv6_decode(
+            xin, lp["rwkv"], cache_l["rwkv_state"], cache_l["rwkv_shift"],
+            head_dim=cfg.rwkv_head_dim)
+        cache_l["rwkv_state"].copy_(st)
+        cache_l["rwkv_shift"].copy_(sh)
+    else:
+        mix = _attention_decode(xin, lp["attn"], cfg, window, cache_l["k"],
+                                cache_l["v"], cur_len, spec)
+    x = x + mix
     return x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
 
 
@@ -332,7 +373,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     cur_len = int(cur_len)
     for i, window in enumerate(layer_windows(cfg)):
         x = decode_block_apply(x, layer_params(params, i), cfg, window,
-                               {"k": cache["k"][i], "v": cache["v"][i]},
+                               {key: t[i] for key, t in cache.items()},
                                cur_len, spec)
     x = rms_norm(x, params["final_norm"])
     return x @ params["lm_head"], cache

@@ -15,7 +15,11 @@ for bit against their plain or eager versions. Flash attention is held to
 its plain version at the reference's tolerances (float32 atol 3e-5 /
 rtol 1e-4, bfloat16 max abs 2e-2), and the serving path on a reduced
 model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
-orders).
+orders). The RWKV-6 scan is held to its plain version and to the literal
+recurrence at the reference's tolerance (max error relative to the
+largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
+beside float32 w, strided inputs, and the reduced RWKV-6 model served
+against the CPU.
 """
 
 import pytest
@@ -30,6 +34,9 @@ from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.jacobi import kernel as jk
 from repro_torch.kernels.multipath_dma import kernel as dk
 from repro_torch.kernels.ring_allgather import kernel as rk
+from repro_torch.kernels.rwkv6_scan import kernel as sk
+from repro_torch.kernels.rwkv6_scan import ops as sops
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import (Request, ServeEngine,
@@ -233,3 +240,106 @@ def test_captured_decode_step_one_dispatch(dev):
     expect = kv.clone()
     expect[2] = kv[0]
     assert torch.equal(new_kv, expect)
+
+
+RWKV_SWEEP = [(2, 128, 32, 32, 32), (1, 200, 64, 64, 64),
+              (4, 64, 16, 32, 16), (1, 96, 8, 8, 32)]
+
+
+def _rwkv(dev, b, s, h, dk, dv, dtype=torch.float32):
+    """Inputs of the reference sweep's distributions, (B, S, H, d)."""
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + s + dk + dv)
+    r = torch.randn(b, s, h, dk, generator=g, device=dev) * 0.5
+    k = torch.randn(b, s, h, dk, generator=g, device=dev) * 0.5
+    v = torch.randn(b, s, h, dv, generator=g, device=dev)
+    w = torch.rand(b, s, h, dk, generator=g, device=dev) * 0.149 + 0.85
+    u = torch.randn(b, h, dk, generator=g, device=dev) * 0.3
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", RWKV_SWEEP)
+def test_rwkv6_scan_matches_plain_and_recurrence(dev, bh, s, dk, dv, chunk):
+    *rkvw, u = _rwkv(dev, bh, s, 1, dk, dv)
+    r, k, v, w = (t[:, :, 0] for t in rkvw)
+    u = u[:, 0]
+    before = sk.LAUNCHES
+    got = sops.rwkv6_scan(r, k, v, w, u, chunk=chunk)
+    assert sk.LAUNCHES == before + 1
+    plain = sops.rwkv6_scan(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu(),
+                            chunk=chunk)
+    assert _rel(got.cpu(), plain) < 1e-4
+    assert _rel(got, rwkv6_scan_ref(r, k, v, w, u)) < 1e-4
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_bf16_inputs_and_final_state(dev, out_dtype):
+    """The model's mix: bfloat16 r/k/v, float32 w and u, the bonus of a
+    head broadcast over the batch, and the final state."""
+    r, k, v, w, u = _rwkv(dev, 2, 256, 4, 64, 64, dtype=torch.bfloat16)
+    u = u[:1].expand(2, -1, -1)
+    o, st = sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=64, out_dtype=out_dtype,
+                               return_state=True)
+    po, pst = sk.rwkv6_scan_plain(r, k, v, w, u, chunk=64,
+                                  out_dtype=torch.float32, return_state=True)
+    assert o.dtype == out_dtype and st.dtype == torch.float32
+    assert _rel(st, pst) < 1e-4
+    if out_dtype == torch.float32:
+        assert _rel(o, po) < 1e-4
+    else:
+        diff = (o.float() - po).abs()
+        assert bool((diff <= 4e-3 + 8e-3 * po.abs()).all())
+
+
+def test_rwkv6_scan_strided_and_rejects(dev):
+    r, k, v, w, u = _rwkv(dev, 2, 128, 3, 16, 32)
+    heads_first = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (r, k, v, w)]
+    assert not heads_first[0].is_contiguous()
+    a = sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=32)
+    b = sk.rwkv6_scan_cuda(*heads_first, u, chunk=32)
+    assert torch.equal(a, b)
+    for dk, dv in ((12, 16), (16, 128)):
+        bad = _rwkv(dev, 1, 64, 1, dk, dv)
+        with pytest.raises(ValueError, match="dk and dv"):
+            sk.rwkv6_scan_cuda(*bad, chunk=64)
+    with pytest.raises(ValueError, match="chunks up to 64"):
+        sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=128)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        t = r.transpose(2, 3).contiguous().transpose(2, 3)
+        sk.rwkv6_scan_cuda(t, k, v, w, u, chunk=32)
+    with pytest.raises(ValueError, match="float32 u"):
+        sk.rwkv6_scan_cuda(r, k, v, w, u.to(torch.bfloat16), chunk=32)
+    with pytest.raises(ValueError, match="float32 w"):
+        sk.rwkv6_scan_cuda(r, k, v, w.to(torch.bfloat16), u, chunk=32)
+
+
+def test_rwkv_serving_reduced_model_matches_cpu(dev):
+    cfg = get_config("rwkv6_1_6b").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {key: to(t) for key, t in tree.items()}
+        return tree.to(dev)
+
+    toks = [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12], [5, 6, 7] * 4]
+    cpu = ServeEngine(cfg, params, max_len=32)
+    gpu = ServeEngine(cfg, to(params), max_len=32)
+    lc, cc = cpu.prefill(toks)
+    before = sk.LAUNCHES
+    lg, cg = gpu.prefill(toks)
+    assert sk.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=0)
+    torch.testing.assert_close(cg["rwkv_state"].cpu(), cc["rwkv_state"],
+                               atol=1e-3, rtol=0)
+    reqs = [Request([1, 2, 3], 5), Request([7, 8, 9, 10], 6)]
+    a = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
+                      for r in reqs])
+    b = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
+                      for r in reqs])
+    assert [r.out for r in a] == [r.out for r in b]

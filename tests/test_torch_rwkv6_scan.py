@@ -1,0 +1,131 @@
+"""The port's ``rwkv6_scan`` against the reference Pallas kernel.
+
+The reference runs ``r_ops.rwkv6_scan`` (the Pallas kernel in interpret
+mode on the CPU) and its oracle ``rwkv6_scan_ref`` (the literal per-step
+recurrence); the port runs ``ops.rwkv6_scan`` on CPU tensors, which is its
+plain version — the chunked einsum form. Same inputs, made with numpy from
+a seed, on both sides, at the reference's sweep shapes
+(``tests/test_kernels.py``) and with sequences that need padding. The
+tolerance is the reference's own: max error relative to the largest
+output below 1e-4 (float32 sums in another order). The final state, which
+the port's kernel also returns, is held against the literal recurrence's.
+The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rwkv6_scan import ops as r_ops
+from repro.kernels.rwkv6_scan import ref as r_ref
+
+from repro_torch.kernels.rwkv6_scan import kernel as rk
+from repro_torch.kernels.rwkv6_scan import ops
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+SWEEP = [(2, 128, 32, 32, 32), (1, 200, 64, 64, 64), (4, 64, 16, 32, 16),
+         (1, 96, 8, 8, 32)]
+PADDED = [(2, 100, 16, 16, 32), (3, 70, 64, 64, 64), (1, 5, 8, 8, 64)]
+
+
+def inputs(seed, bh, s, dk, dv):
+    """The reference sweep's inputs: decays in [0.85, 0.999)."""
+    rng = np.random.RandomState(seed)
+    r = rng.randn(bh, s, dk).astype(np.float32) * 0.5
+    k = rng.randn(bh, s, dk).astype(np.float32) * 0.5
+    v = rng.randn(bh, s, dv).astype(np.float32)
+    w = rng.uniform(0.85, 0.999, (bh, s, dk)).astype(np.float32)
+    u = rng.randn(bh, dk).astype(np.float32) * 0.3
+    return r, k, v, w, u
+
+
+def rel_err(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.max(np.abs(np.asarray(got) - want))
+                 / (np.max(np.abs(want)) + 1e-9))
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", SWEEP + PADDED)
+def test_plain_matches_reference_kernel_and_oracle(bh, s, dk, dv, chunk):
+    arrays = inputs(3, bh, s, dk, dv)
+    want = r_ops.rwkv6_scan(*(jnp.asarray(a) for a in arrays), chunk=chunk)
+    oracle = r_ref.rwkv6_scan_ref(*(jnp.asarray(a) for a in arrays))
+    got = ops.rwkv6_scan(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    assert got.shape == (bh, s, dv) and got.dtype == torch.float32
+    assert rel_err(got.numpy(), want) < 1e-4
+    assert rel_err(got.numpy(), oracle) < 1e-4
+    ours = rwkv6_scan_ref(*(torch.from_numpy(a) for a in arrays))
+    assert rel_err(ours.numpy(), oracle) < 1e-4
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", SWEEP + PADDED)
+def test_final_state_matches_the_recurrence(bh, s, dk, dv, chunk):
+    """The state after the last position, as the decode cache needs it:
+    padding (w = 1, zero k) leaves it exact."""
+    r, k, v, w, u = (torch.from_numpy(a) for a in inputs(4, bh, s, dk, dv))
+    want_o, want_s = rwkv6_scan_ref(r, k, v, w, u, return_state=True)
+    pad = (-s) % chunk
+    if pad:
+        r, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (r, k, v))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    o, state = ops.chunked_scan(r[:, :, None], k[:, :, None], v[:, :, None],
+                                w[:, :, None], u[:, None], chunk=chunk,
+                                return_state=True)
+    assert state.shape == (bh, 1, dk, dv) and state.dtype == torch.float32
+    assert rel_err(o[:, :s, 0].numpy(), want_o.numpy()) < 1e-4
+    assert rel_err(state[:, 0].numpy(), want_s.numpy()) < 1e-4
+
+
+def test_model_layout_and_dtypes():
+    """The model's layout: (B, S, H, d) projections, one bonus row per head
+    broadcast over the batch (stride 0), bfloat16 r/k/v beside float32 w,
+    a float32 output; equal to the (BH, S, d) op on the same numbers."""
+    b, s, h, d = 2, 64, 3, 16
+    rng = np.random.RandomState(5)
+    r, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.85, 0.999, (b, s, h, d))
+                         .astype(np.float32))
+    u = torch.from_numpy(rng.randn(h, d).astype(np.float32) * 0.3)
+    o = ops.chunked_scan(r, k, v, w, u.expand(b, h, d), chunk=32,
+                         out_dtype=torch.float32)
+    assert o.shape == (b, s, h, d) and o.dtype == torch.float32
+
+    def heads_first(t):
+        return t.float().transpose(1, 2).reshape(b * h, s, d)
+
+    want = ops.rwkv6_scan(*(heads_first(t) for t in (r, k, v, w)),
+                          u.repeat(b, 1), chunk=32)
+    got = o.transpose(1, 2).reshape(b * h, s, d)
+    assert rel_err(got.numpy(), want.numpy()) < 1e-6
+    low = ops.chunked_scan(r, k, v, w, u.expand(b, h, d), chunk=32)
+    assert low.dtype == torch.bfloat16
+
+
+def test_shape_checks_and_no_fallback():
+    r = torch.zeros(1, 16, 2, 8)
+    u = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        rk.rwkv6_scan_plain(r, r, r, r, u, chunk=6)
+    with pytest.raises(ValueError, match="u \\(B, H, dk\\)"):
+        rk.rwkv6_scan_plain(r, r, r, r, torch.zeros(2, 8), chunk=8)
+    with pytest.raises(ValueError, match="does not match"):
+        rk.rwkv6_scan_plain(r, r, torch.zeros(1, 8, 2, 8), r, u, chunk=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.rwkv6_scan_cuda(r, r, r, r, u, chunk=8)
+
+
+def test_w_is_float32():
+    """w stays float32, since its log-cumsum drifts in bfloat16: the scan
+    raises on another dtype, and the op-level wrapper casts it, as the
+    reference's kernel computes in float32."""
+    r, k, v, w, u = map(torch.from_numpy, inputs(9, 2, 64, 16, 16))
+    low = w.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 w"):
+        rk.rwkv6_scan_plain(*(t[:, :, None] for t in (r, k, v, low)),
+                            u[:, None], chunk=32)
+    got = ops.rwkv6_scan(r, k, v, low, u, chunk=32)
+    want = ops.rwkv6_scan(r, k, v, low.float(), u, chunk=32)
+    assert torch.equal(got, want)

@@ -1,16 +1,20 @@
 """The port's serving engine against the reference's.
 
 * ``ServeEngine.generate`` on reduced SmolLM (the reference's serve-test
-  config) with the reference's weights carried by ``params_from_numpy``:
-  greedy tokens equal to the reference engine's on its own requests.
-* ``migrate_kv``: the migrated cache is bit-equal to the cache (and to the
-  reference's migration), one dispatch per migration, the second one a
-  fast-path hit.
+  config) and reduced RWKV-6 with the reference's weights carried by
+  ``params_from_numpy``: greedy tokens equal to the reference engine's on
+  its own requests.
+* ``migrate_kv``: the migrated cache (keys and values, or RWKV-6's
+  float32 state beside its token-shift input, also in bfloat16) is
+  bit-equal to the cache (and to the reference's migration), one dispatch
+  per migration, the second one a fast-path hit.
 * ``make_captured_decode_step`` at the reference test's sizes: the same
   recording as the reference (signature, lowered and scheduled graph
   digests under all five schedulers), attention within 2e-5 of the
   reference step's, the migrated KV chunk exact, one dispatch per call.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -35,6 +39,7 @@ from repro_torch.comm.passes import apply_schedule
 from repro_torch.configs import get_config
 from repro_torch.core.topology import Topology
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer as tfm_port
 from repro_torch.serving import (Request, ServeEngine,
                                  make_captured_decode_step, make_serve_step)
 
@@ -43,13 +48,22 @@ jload_all()
 N = 8
 
 
-@pytest.fixture(scope="module")
-def smollm():
+def reduced_model(name):
     """(reference config, reference params, port config, port params)."""
-    jcfg = JREGISTRY["smollm_360m"].reduced()
+    jcfg = JREGISTRY[name].reduced()
     jparams = jtfm.init_params(jax.random.key(0), jcfg)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams))
-    return jcfg, jparams, get_config("smollm_360m").reduced(), params
+    return jcfg, jparams, get_config(name).reduced(), params
+
+
+@pytest.fixture(scope="module")
+def smollm():
+    return reduced_model("smollm_360m")
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    return reduced_model("rwkv6_1_6b")
 
 
 REQUESTS = {
@@ -58,9 +72,8 @@ REQUESTS = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REQUESTS))
-def test_generate_greedy_equals_reference(smollm, case):
-    jcfg, jparams, cfg, params = smollm
+def check_greedy_equals_reference(model, case):
+    jcfg, jparams, cfg, params = model
     max_len, reqs = REQUESTS[case]
     want = JServeEngine(jcfg, jparams, max_len=max_len, kv_chunks=4
                         ).generate([JRequest(list(p), n) for p, n in reqs])
@@ -71,6 +84,16 @@ def test_generate_greedy_equals_reference(smollm, case):
     assert all(r.done for r in got)
     again = engine.generate([Request(list(p), n) for p, n in reqs])
     assert [r.out for r in again] == [r.out for r in got]
+
+
+@pytest.mark.parametrize("case", sorted(REQUESTS))
+def test_generate_greedy_equals_reference(smollm, case):
+    check_greedy_equals_reference(smollm, case)
+
+
+@pytest.mark.parametrize("case", sorted(REQUESTS))
+def test_rwkv_generate_greedy_equals_reference(rwkv, case):
+    check_greedy_equals_reference(rwkv, case)
 
 
 def test_serve_step_is_decode_step(smollm):
@@ -98,15 +121,14 @@ def test_temperature_sampling_is_seeded(smollm):
     assert [len(o) for o in first] == [6, 4]
 
 
-def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
-    jcfg, jparams, cfg, params = smollm
-    sess = CommSession(device="cpu")
-    engine = ServeEngine(cfg, params, max_len=48, kv_chunks=4, comm=sess)
-    toks = [[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]]
-    _, cache = engine.prefill(toks)
+def check_migration(engine, cache):
+    """Two migrations 0→1: each bit-equal, one dispatch each, the second a
+    fast-path hit. Returns the first migration's cache."""
+    sess = engine.comm
     moved = engine.migrate_kv(cache, 0, 1)
-    assert sorted(moved) == ["k", "v"]
+    assert sorted(moved) == sorted(cache)
     for key in cache:
+        assert moved[key].dtype == cache[key].dtype
         assert torch.equal(moved[key], cache[key])
     s1 = sess.stats()
     assert s1["dispatches"] == 1 and s1["cache"]["size"] == 1
@@ -115,7 +137,16 @@ def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
     assert s2["dispatches"] == 2
     assert s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1
     assert all(torch.equal(again[k], cache[k]) for k in cache)
+    return moved
 
+
+def check_migrate_matches_reference(model, dev_mesh):
+    jcfg, jparams, cfg, params = model
+    engine = ServeEngine(cfg, params, max_len=48, kv_chunks=4,
+                         comm=CommSession(device="cpu"))
+    toks = [[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]]
+    _, cache = engine.prefill(toks)
+    moved = check_migration(engine, cache)
     jengine = JServeEngine(jcfg, jparams, max_len=48, kv_chunks=4,
                            comm=JCommSession(mesh=dev_mesh))
     _, jcache = jengine.prefill(np.asarray(toks, np.int32))
@@ -126,6 +157,29 @@ def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
                                    rtol=0)
     with pytest.raises(ValueError, match="CommSession"):
         ServeEngine(cfg, params).migrate_kv(cache, 0, 1)
+
+
+def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
+    check_migrate_matches_reference(smollm, dev_mesh)
+
+
+def test_rwkv_migrate_kv_exact_one_dispatch_fast_path(rwkv, dev_mesh):
+    check_migrate_matches_reference(rwkv, dev_mesh)
+
+
+def test_rwkv_bf16_state_cache_migrates_bitwise():
+    """A bfloat16 RWKV-6 cache mixes dtypes: the float32 state beside the
+    bfloat16 token-shift input ride one transfer group."""
+    cfg = dataclasses.replace(get_config("rwkv6_1_6b").reduced(),
+                              dtype="bfloat16")
+    params = tfm_port.init_params(
+        cfg, generator=torch.Generator().manual_seed(0))
+    engine = ServeEngine(cfg, params, max_len=32,
+                         comm=CommSession(device="cpu"))
+    _, cache = engine.prefill([[1, 2, 3, 4, 5, 6], [7, 8, 9, 10, 11, 12]])
+    assert cache["rwkv_state"].dtype == torch.float32
+    assert cache["rwkv_shift"].dtype == torch.bfloat16
+    check_migration(engine, cache)
 
 
 def test_send_pytree_structure_and_no_ops():
@@ -206,6 +260,13 @@ def test_captured_decode_step_rejects_bad_endpoints():
 
 def test_cli_serves_on_the_cpu(capsys):
     serve_cli.main(["--device", "cpu", "--arch", "gemma3_27b",
+                    "--requests", "2", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "6 tokens in" in out
+
+
+def test_cli_serves_rwkv_on_the_cpu(capsys):
+    serve_cli.main(["--device", "cpu", "--arch", "rwkv6_1_6b",
                     "--requests", "2", "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "req1:" in out and "6 tokens in" in out

@@ -1,12 +1,14 @@
 """The port's transformer against the reference's, on reduced configs.
 
-Reduced ``llama3_8b``, ``smollm_360m`` (15 heads at full size) and
-``gemma3_27b`` (local/global windows, GeGLU), float32. The reference
+Reduced ``llama3_8b``, ``smollm_360m`` (15 heads at full size),
+``gemma3_27b`` (local/global windows, GeGLU) and ``rwkv6_1_6b`` (RWKV-6
+time-mix, squared-ReLU MLP, a recurrent-state cache), float32. The reference
 draws the weights (``init_params``); ``params_from_numpy`` carries them
 into the port, so both sides compute with the same numbers. ``forward``,
 ``prefill_forward`` (logits and cache) and 4 ``decode_step`` calls agree
 within atol 1e-4: the same float32 arithmetic, summed in another order.
-A sliding-window variant exercises the ring cache.
+A sliding-window variant exercises the ring cache. On the CPU the RWKV-6
+scan is the kernel's plain version, in the reference's chunks of 128.
 """
 
 import dataclasses
@@ -28,7 +30,7 @@ from repro_torch.models import transformer as tfm
 jload_all()
 load_all()
 
-NAMES = ["llama3_8b", "smollm_360m", "gemma3_27b"]
+NAMES = ["llama3_8b", "smollm_360m", "gemma3_27b", "rwkv6_1_6b"]
 ATOL = 1e-4
 
 
@@ -102,7 +104,8 @@ def test_prefill_then_decode(model):
     got, cache = tfm.prefill_forward(
         params, cfg, {"tokens": torch.from_numpy(toks[:, :sp])}, spec)
     close(got, want)
-    assert sorted(cache) == sorted(jcache) == ["k", "v"]
+    assert sorted(cache) == sorted(jcache) == (
+        ["rwkv_shift", "rwkv_state"] if cfg.family == "ssm" else ["k", "v"])
     for key in cache:
         assert cache[key].shape == jcache[key].shape
         close(cache[key], jcache[key])
@@ -157,13 +160,17 @@ def test_init_params_shapes_dtypes_and_scales():
     assert pb["final_norm"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"num_experts": 4, "top_k": 2}, "MoE"),
-    ({"family": "ssm"}, "rwkv6_1_6b"),
-    ({"family": "hybrid"}, "hybrid"),
-    ({"family": "audio", "frontend": "audio"}, "audio")])
-def test_unported_families_raise(change, match):
-    cfg = dataclasses.replace(get_config("llama3_8b").reduced(), **change)
+@pytest.mark.parametrize("arch,change,match", [
+    pytest.param("llama3_8b", {"num_experts": 4, "top_k": 2}, "MoE",
+                 id="change0-MoE"),
+    pytest.param("rwkv6_1_6b", {"num_experts": 4, "top_k": 2},
+                 "rwkv6_1_6b-smoke: moe", id="change1-rwkv6_1_6b"),
+    pytest.param("llama3_8b", {"family": "hybrid"}, "hybrid",
+                 id="change2-hybrid"),
+    pytest.param("llama3_8b", {"family": "audio", "frontend": "audio"},
+                 "audio", id="change3-audio")])
+def test_unported_families_raise(arch, change, match):
+    cfg = dataclasses.replace(get_config(arch).reduced(), **change)
     with pytest.raises(NotImplementedError, match=match):
         tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=match):
