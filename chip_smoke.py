@@ -22,7 +22,8 @@ What it does, in order (any failed check exits nonzero):
    against its plain version: the reference's sweep (``(B, Hq, Hkv, S,
    D)`` = (1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
    (1, 2, 1, 384, 128); causal, causal with a window of 64, full) in
-   float32 at atol 3e-5 / rtol 1e-4, bfloat16 at max abs 2e-2, a
+   float32 at atol 3e-5 / rtol 1e-4, bfloat16 at max abs 2e-2 (also at
+   D = 16, 32, 64 with S = 200 and at (2, 32, 8, 300, 128), each mask), a
    Gemma-style window of 64 at (1, 32, 16, 512, 128) and D = 128 with
    Hq/Hkv = 32/8; and ``rwkv6_scan`` against its plain version and the
    literal per-step recurrence at the reference's sweep (``(BH, S, dk, dv,
@@ -61,8 +62,9 @@ What it does, in order (any failed check exits nonzero):
    also at (8, 2048, 8192) float32 and (4, 2048, 8192) bfloat16, each
    collective's graph replay and ``session.all_gather`` per call, the
    captured Jacobi iteration against the eager one, and
-   ``flash_attention`` at the prefill shape (4, 32, 512, 128) bfloat16
-   causal beside its bound, its plain version and
+   ``flash_attention`` (bfloat16, causal) at path E's prefill shape (4,
+   32/8, 512, 128) and at path F's (4, 32, 2048, 128), each against its
+   plain version and beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (the yardstick only; the port never
    calls it), and ``rwkv6_scan`` at path G's prefill shape (4, 1024, 32,
    64, 64) beside its bound and its plain version (no one PyTorch call
@@ -636,24 +638,23 @@ def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
     return kernels
 
 
-def flash_times(randn, errs) -> dict:
-    """Phase 9's ``flash_attention`` row, at path E's prefill shape (4
-    requests of 512 positions, Llama-3 8B's 32/8 heads of 128, bfloat16,
-    causal): the kernel against its plain version, then its time beside
-    its bound, the plain version's and SDPA's (the yardstick only)."""
+def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters) -> dict:
+    """``flash_attention`` at one bfloat16 causal shape: the kernel against
+    its plain version (within ``BF16_ATOL + BF16_RTOL * |want|``), then its
+    time beside its bound, the plain version's and SDPA's (the yardstick
+    only; the port never calls it)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    b, hq, hkv, s, d = 4, 32, 8, 512, 128
     q = randn(b, hq, s, d, dtype=torch.bfloat16)
     k = randn(b, hkv, s, d, dtype=torch.bfloat16)
     v = randn(b, hkv, s, d, dtype=torch.bfloat16)
     want = fk.flash_attention_plain(q, k, v)
     err, ok = bf16_err(fk.flash_attention_cuda(q, k, v), want)
     errs["flash_attention"] = max(errs["flash_attention"], err)
-    check(ok, f"flash_attention at the prefill shape: max abs err {err}, "
-          f"beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    check(ok, f"flash_attention at ({b}, {hq}/{hkv}, {s}, {d}): max abs err "
+          f"{err}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
     kk = k.repeat_interleave(hq // hkv, dim=1)
     vv = v.repeat_interleave(hq // hkv, dim=1)
 
@@ -662,33 +663,48 @@ def flash_times(randn, errs) -> dict:
                                               scale=d ** -0.5)
 
     sdpa_err = (sdpa().float() - want.float()).abs().max().item()
+    del want
     ms = cuda_time_ms(lambda: fk.flash_attention_cuda(q, k, v), 20)
-    plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(q, k, v), 5,
-                            warmup=1)
+    plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(q, k, v),
+                            plain_iters, warmup=1)
     lib_ms = cuda_time_ms(sdpa, 20)
     flops = 2 * b * hq * s * s * d        # causal: half of 4·B·H·S²·D
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
+    rep = "repeat_interleave'd " if hq != hkv else ""
     print(f"flash_attention ({b}, {hq}/{hkv}, {s}, {d}) bf16 causal: kernel "
           f"{ms:.4f} ms, bound {bound:.4f} ms ({flops} causal FLOPs at "
           f"989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = "
           f"{bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
-          f"{plain_ms:.4f} ms, SDPA on repeat_interleave'd k/v "
-          f"{lib_ms:.4f} ms (max abs diff to plain {sdpa_err}); kernel max "
-          f"abs err vs plain {err}", flush=True)
+          f"{plain_ms:.4f} ms, SDPA on {rep}k/v {lib_ms:.4f} ms "
+          f"({bound / lib_ms:.1%} of bound; max abs diff to plain "
+          f"{sdpa_err}); kernel max abs err vs plain {err}", flush=True)
+    return {"shape": [b, hq, hkv, s, d], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms}
+
+
+def flash_times(randn, errs) -> dict:
+    """Phase 9's ``flash_attention`` row: at path E's prefill shape (4
+    requests of 512 positions, Llama-3 8B's 32/8 heads of 128, bfloat16,
+    causal), and under ``shapes`` also at path F's (4 devices x 32 heads x
+    2048 positions of 128, one KV head per query head)."""
+    at_e = flash_case_times(randn, errs, 4, 32, 8, 512, 128, plain_iters=5)
+    at_f = flash_case_times(randn, errs, 4, 32, 32, 2048, 128,
+                            plain_iters=2)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
-            "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms,
+            **{key: at_e[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
             "library_call": "F.scaled_dot_product_attention(q, "
                             "k.repeat_interleave(4, 1), "
-                            "v.repeat_interleave(4, 1), is_causal=True)"}
+                            "v.repeat_interleave(4, 1), is_causal=True)",
+            "shapes": {"E": at_e, "F": at_f}}
 
 
 #: The reference's bound for the RWKV-6 scan: max error relative to the
@@ -1430,14 +1446,22 @@ def main() -> int:
         bf16_err = max(bf16_err, flash_case((1, 4, 2, 128, 64),
                                             torch.bfloat16, causal, window,
                                             2e-2, 0.0))
+        for d in (16, 32, 64):
+            bf16_err = max(bf16_err, flash_case((1, 8, 2, 200, d),
+                                                torch.bfloat16, causal,
+                                                window, 2e-2, 0.0))
+        bf16_err = max(bf16_err, flash_case((2, 32, 8, 300, 128),
+                                            torch.bfloat16, causal, window,
+                                            2e-2, 0.0))
     bf16_err = max(bf16_err, flash_case((1, 32, 16, 512, 128),
                                         torch.bfloat16, True, 64, 2e-2, 0.0))
     bf16_err = max(bf16_err, flash_case((1, 32, 8, 512, 128), torch.bfloat16,
                                         True, None, 2e-2, 0.0))
     print(f"flash_attention vs plain: {cases} float32 sweep cases + D=128 "
           f"32/8 heads (atol 3e-5, rtol 1e-4; max abs err {f32_err}), "
-          f"bfloat16 sweep + Gemma-style window 64 at (1, 32/16, 512, 128) "
-          f"+ 32/8 heads (max abs 2e-2; max abs err {bf16_err}) "
+          f"bfloat16 sweep + D=16/32/64 at S=200 + (2, 32/8, 300, 128) + "
+          f"Gemma-style window 64 at (1, 32/16, 512, 128) + 32/8 heads (max "
+          f"abs 2e-2; max abs err {bf16_err}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     rwkv_checks(randn, rand, errs)
 

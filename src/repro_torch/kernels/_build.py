@@ -4,10 +4,11 @@ Each kernel's source lives in ``kernels/<name>/csrc/<name>.cu`` and exposes
 a plain C interface. It is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library at first
 use, under ``build/repro_torch/`` at the root of the checkout (or
-``$REPRO_TORCH_BUILD_DIR``). The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. :func:`build_all` starts one ``nvcc`` per source, all at
-once. A failed build raises; nothing falls back to the plain versions.
+``$REPRO_TORCH_BUILD_DIR``). The library's file name carries a hash of
+every file in the kernel's ``csrc/`` (a header too) and of the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source, all at once. A failed
+build raises; nothing falls back to the plain versions.
 
 The cache of loaded libraries here and each kernel module's launch
 counter are the package's only global state.
@@ -57,9 +58,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = source_path(name).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{tag[:16]}.so"
+    """The library's path: its name carries a hash of every file under
+    ``kernels/<name>/csrc/`` (names and contents, in sorted order) and of
+    the flags, so an edited header or flag is a new build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    csrc = KERNEL_DIR / name / "csrc"
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(csrc)).encode() + b"\0")
+        h.update(path.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -5,40 +5,80 @@
 // (`flash_attention_kernel`, body `_flash_kernel`). There the grid is
 // (batch, q_heads, q_blocks, kv_blocks) with the last dimension sequential,
 // carrying the running max, sum and accumulator in VMEM scratch from one
-// key block to the next. Here one block of 256 threads owns one
-// (batch * q_head, 64-query tile) and walks the key tiles in a loop,
-// carrying the same state in registers.
+// key block to the next. Here one block owns one (batch * q_head, 64-query
+// tile) and walks the key tiles in a loop, carrying the same state in
+// registers.
 //
-// What bounds it: operations. Attention does 4 * S_q * S_k * D flops per
-// head (half of that under the causal mask) on (S, D) inputs; at the
-// serving shapes that is far above the card's bytes-to-flops balance. This
-// first version computes in float32 on the CUDA cores (the card's float32
-// rate, not its bf16 tensor-core rate), so it runs well below the bound;
-// a tensor-core version is later work.
+// What bounds it: operations at long sequences, bytes at short ones.
+// Attention does 4 * S_q * S_k * D flops per head (half of that under the
+// causal mask) on (S, D) inputs. The card's bf16 tensor cores do 989
+// TFLOP/s against 67 TFLOP/s of float32 on the CUDA cores, so the product
+// type decides which rate is in reach. Two kernels, chosen by dtype:
 //
-// Design:
+// bfloat16: `flash_wgmma_kernel`, on the tensor cores.
+// * One warpgroup (128 threads) per block owns 64 query rows. Two blocks
+//   share an SM at D = 128 (82,944 bytes of shared memory each), so one
+//   block's softmax runs under the other's products. Both products are
+//   warpgroup `wgmma.mma_async` with float32 accumulators in registers:
+//   S = Q K^T as m64n64k16 with Q and the K tile read from shared memory
+//   (both K-major, as loaded), then O += P V as m64nDk16 with P from
+//   registers and the V tile from shared memory as the transposed
+//   ("MN-major") B operand.
+// * Loads are TMA copies over 4-D tensor maps (D, S, heads, batch) built
+//   on the host per call and passed as __grid_constant__ parameters, so a
+//   launch recorded into a CUDA graph carries them by value. Tiles land in
+//   shared memory in the 128-byte swizzle (64- or 32-byte for D = 32, 16)
+//   that the wgmma descriptors name; rows past S arrive as zeros. K and V
+//   tiles of 64 keys go through a ring of two stages with one barrier for
+//   each K and each V: thread 0 reloads a stage's K as soon as every
+//   warp's Q K^T has read it, and its V after P V, so tile j + 2 loads
+//   under tile j's math.
+// * Every block reads each K/V tile it needs from L2, so the blocks of a
+//   head must run together: the 1-D grid walks groups of heads whose K
+//   and V fit in 16 MB, the longest causal query tiles of a group first.
+//   In launch order of heads, long sequences thrash L2.
+// * The score accumulator becomes P in place: the m64n64 accumulator
+//   fragment of a thread is the A-operand fragment of the next product,
+//   rounded to bf16. The reference keeps P in float32; rounding it is the
+//   one deliberate difference, as in every tensor-core flash kernel. The
+//   running max, alpha and the row sums (each thread sums its own columns;
+//   the four threads of a row add up at the end) stay float32.
+// * The output goes through shared memory (padded rows) and leaves as
+//   16-byte stores.
+// * What holds it below the tensor-core rate: a block waits on its own
+//   K/V loads and does not overlap its softmax with its own products.
+//   Sharing tiles between more rows (two warpgroups per block, or
+//   multicast within a cluster of two blocks) and overlapping within a
+//   warpgroup were slower in this structure; see PERF.md.
+//
+// float32: `flash_kernel`, on the CUDA cores. The reference's float32
+// tolerance (atol 3e-5 / rtol 1e-4) rules out TF32 tensor cores.
 // * Q (64 rows) is staged once in shared memory, transposed to [d][row];
 //   each K tile (64 keys) transposed to [d][key] and each V tile as
-//   [key][d], all converted to float32 on the load. Rows and keys past
-//   the sequence end load as zeros.
+//   [key][d]. Rows and keys past the sequence end load as zeros.
 // * Thread t owns rows 4 * (t / 16) .. + 3. For the scores it owns keys
 //   4 * (t % 16) .. + 3 (a 4 x 4 register tile, two float4 shared loads
 //   per d); for the output it owns dims t % 16 + 16 * i. The 16 threads
 //   of a row group are 16 lanes of one warp, so row max and row sum are
 //   warp shuffles.
-// * Per key tile, exactly what the Pallas body does: scores in float32,
-//   scaled, masked to -1e30 (col < S, col <= row if causal,
-//   col > row - window if a window is given), m_new = max(m, rowmax),
-//   p = exp(s - m_new) zeroed where masked, alpha = exp(m - m_new),
-//   l = alpha * l + rowsum(p), acc = alpha * acc + p V. The end writes
-//   acc / l, and exact zeros where l == 0.
-// * Key tiles wholly above the diagonal or wholly left of every row's
-//   window are skipped: they add exact zeros (p = 0, alpha = 1).
-// * GQA: kv_head = q_head / (Hq / Hkv); grouped heads are never copied.
-// * Q, K and V take any element strides over batch, head and position;
-//   the head dim must be contiguous. The output is a new contiguous
-//   (B, Hq, S, D) tensor in q's type.
+//
+// Both, per key tile, exactly what the Pallas body does: scores in
+// float32, scaled, masked to -1e30 (col < S, col <= row if causal,
+// col > row - window if a window is given), m_new = max(m, rowmax),
+// p = exp(s - m_new) zeroed where masked, alpha = exp(m - m_new),
+// l = alpha * l + rowsum(p), acc = alpha * acc + p V; the end writes
+// acc / l, and exact zeros where l == 0. Key tiles wholly above the
+// diagonal or wholly left of every row's window are skipped: they add
+// exact zeros (p = 0, alpha = 1). The bf16 kernel evaluates the element
+// mask only on tiles that straddle a boundary, computes exp as exp2 of
+// log2(e)-scaled scores, and starts the longest causal query tiles first.
+// GQA: kv_head = q_head / (Hq / Hkv); grouped heads are never copied.
+// Q, K and V take any element strides over batch, head and position with
+// a contiguous head dim (bf16: 16-byte aligned base and strides, which TMA
+// needs; the wrapper checks). The output is a new contiguous (B, Hq, S, D)
+// tensor in q's type.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,18 +87,7 @@ namespace {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
-constexpr int PS = BK + 4;    // padded row length of the probability tile
-constexpr int THREADS = 256;  // 16 row groups x 16 column groups
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 struct Args {
   const void* q;
@@ -71,13 +100,35 @@ struct Args {
   int64_t hq, qpk, seq, window;  // window < 0: no window
   float scale;
   int causal;
+  int64_t group;  // bf16: heads per L2 group of the block order
 };
+
+// The key tiles [*begin, *end) of KEYS keys that rows r0 .. r_last visit:
+// tiles wholly above the diagonal or wholly left of every row's window
+// add exact zeros (p = 0, alpha = 1) and are skipped.
+template <int KEYS>
+__device__ __forceinline__ void key_tiles(const Args& a, int64_t r0,
+                                          int64_t r_last, int64_t* begin,
+                                          int64_t* end) {
+  *end = a.causal ? r_last / KEYS + 1 : (a.seq + KEYS - 1) / KEYS;
+  *begin = 0;
+  if (a.window >= 0) {
+    const int64_t first = r0 - a.window + 1;  // least column row r0 keeps
+    *begin = first > 0 ? first / KEYS : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel.
+
+constexpr int PS = BK + 4;    // padded row length of the probability tile
+constexpr int THREADS = 256;  // 16 row groups x 16 column groups
 
 constexpr size_t smem_bytes(int d) {
   return sizeof(float) * (2 * (size_t)d * BQ + (size_t)BK * d + (size_t)BQ * PS);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
   static_assert(D % 16 == 0 && D <= 128, "head dim");
   constexpr int DPT = D / 16;  // output dims per thread
@@ -97,15 +148,15 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
   const int64_t seq = a.seq;
   const int64_t q0 = (int64_t)blockIdx.x * BQ;
 
-  const T* qp = (const T*)a.q + b * a.qsb + h * a.qsh;
-  const T* kp = (const T*)a.k + b * a.ksb + hk * a.ksh;
-  const T* vp = (const T*)a.v + b * a.vsb + hk * a.vsh;
+  const float* qp = (const float*)a.q + b * a.qsb + h * a.qsh;
+  const float* kp = (const float*)a.k + b * a.ksb + hk * a.ksh;
+  const float* vp = (const float*)a.v + b * a.vsb + hk * a.vsh;
 
   for (int idx = t; idx < BQ * D; idx += THREADS) {
     const int row = idx & (BQ - 1);
     const int d = idx / BQ;
     const int64_t r = q0 + row;
-    qt[d * BQ + row] = r < seq ? to_f(qp[r * a.qss + d]) : 0.0f;
+    qt[d * BQ + row] = r < seq ? qp[r * a.qss + d] : 0.0f;
   }
 
   float m[4], l[4], acc[4][DPT];
@@ -118,13 +169,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
   }
 
   const int64_t q_last = (q0 + BQ < seq ? q0 + BQ : seq) - 1;
-  const int64_t n_tiles = (seq + BK - 1) / BK;
-  const int64_t kt_end = a.causal ? q_last / BK + 1 : n_tiles;
-  int64_t kt_begin = 0;
-  if (a.window >= 0) {
-    const int64_t first = q0 - a.window + 1;  // least column row q0 keeps
-    kt_begin = first > 0 ? first / BK : 0;
-  }
+  int64_t kt_begin, kt_end;
+  key_tiles<BK>(a, q0, q_last, &kt_begin, &kt_end);
 
   for (int64_t tile = kt_begin; tile < kt_end; ++tile) {
     const int64_t k0 = tile * BK;
@@ -133,13 +179,13 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
       const int key = idx & (BK - 1);
       const int d = idx / BK;
       const int64_t c = k0 + key;
-      kt[d * BK + key] = c < seq ? to_f(kp[c * a.kss + d]) : 0.0f;
+      kt[d * BK + key] = c < seq ? kp[c * a.kss + d] : 0.0f;
     }
     for (int idx = t; idx < BK * D; idx += THREADS) {
       const int key = idx / D;
       const int d = idx % D;
       const int64_t c = k0 + key;
-      vs[key * D + d] = c < seq ? to_f(vp[c * a.vss + d]) : 0.0f;
+      vs[key * D + d] = c < seq ? vp[c * a.vss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -229,7 +275,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     }
   }
 
-  T* op = (T*)a.o + bh * seq * D;
+  float* op = (float*)a.o + bh * seq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + 4 * rg + i;
@@ -237,35 +283,694 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      store_f(op + row * D + cg + 16 * j, acc[i][j] / denom);
+      op[row * D + cg + 16 * j] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const Args& a, int64_t batch, cudaStream_t stream) {
+template <int D>
+int launch_f32(const Args& a, int64_t batch, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes(D);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((unsigned)((a.seq + BQ - 1) / BQ), (unsigned)(batch * a.hq));
-  flash_kernel<T, D><<<grid, THREADS, bytes, stream>>>(a);
+  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const Args& a, int64_t batch, int64_t d, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, batch, s);
-    case 32: return launch<T, 32>(a, batch, s);
-    case 64: return launch<T, 64>(a, batch, s);
-    case 128: return launch<T, 128>(a, batch, s);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel. PTX wrappers first.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for phase `parity` of a barrier. A load that never lands traps
+// after 10 s (the launch then fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (start == 0)
+      start = now;
+    else if (now - start > 10000000000ull)
+      __trap();
   }
+}
+
+// One TMA tile load of a 4-D map at (d, row, head, batch), completing on
+// `bar` with the box's bytes (rows past the map's extent arrive as zeros).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from touching accumulator registers across a
+// wgmma.wait_group: every use after it depends on this.
+template <int N>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (in 16-byte units) and the swizzle mode
+// (1: 128-byte, 2: 64-byte, 3: 32-byte).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)mode << 62);
+}
+
+// D(64 x N, float32) (+)= A(64 x 16) . B(16 x N), both from shared memory,
+// both K-major; scale_d = 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+
+// D(64 x N, float32) += P(64 x 16, bf16 fragments in registers) .
+// B(16 x N) from shared memory, transposed ("MN-major": N contiguous).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The tensor-core kernel's tiles for head dim D. Each tile of R rows is
+// D / SWE column blocks of R rows x SW bytes, in the SW-byte swizzle that
+// TMA writes and the descriptors read, starting on a 1024-byte boundary.
+// At D = 128 a block takes 82,944 bytes of shared memory, so two blocks
+// (two warpgroups) share an SM.
+template <int D>
+struct Tiles {
+  static constexpr int ROWS = 64;    // query rows per block: one warpgroup
+  static constexpr int KEYS = 64;    // keys per K/V tile (as many as ROWS)
+  static constexpr int STAGES = 2;   // K/V ring
+  static constexpr int THREADS = 128;
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // bytes per row
+  static constexpr int SWE = SW / 2;                     // values per row
+  static constexpr int CB = D / SWE;                     // column blocks
+  static constexpr uint32_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int Q_TILE = ROWS * D * 2;
+  static constexpr int KV_TILE = KEYS * D * 2;
+  static constexpr int OUT_ROW = (D + 8) * 2;  // padded output row, bytes
+  static constexpr size_t SMEM =
+      1024 + Q_TILE + 2 * STAGES * (size_t)KV_TILE;
+  static_assert(ROWS == 64 && KEYS == 64, "64-row tiles throughout");
+  static_assert(ROWS * OUT_ROW <= Q_TILE + KV_TILE,
+                "output staging fits over Q and stage 0's K");
+};
+
+// K-major descriptor (Q as A, K as B of Q K^T) of k-step kk: 16 values
+// of d. The stride offset steps over groups of 8 rows; a k-step inside a
+// swizzled row moves the start address by its 32 bytes.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  using T = Tiles<D>;
+  constexpr int steps = T::SWE / 16;  // k-steps per column block
+  const uint32_t addr = tile + (kk / steps) * (64 * T::SW) + (kk % steps) * 32;
+  return make_desc(addr, 16, 8 * T::SW, T::MODE);
+}
+
+// MN-major descriptor (V as B of P V) of k-step kk: 16 keys. The leading
+// offset steps over column blocks (SWE values of d), the stride offset
+// over groups of 8 keys.
+template <int D>
+__device__ __forceinline__ uint64_t vmajor_desc(uint32_t tile, int kk) {
+  using T = Tiles<D>;
+  return make_desc(tile + kk * 16 * T::SW, T::KEYS * T::SW, 8 * T::SW,
+                   T::MODE);
+}
+
+// Loads the 64-row tile at (row, head, batch) of `map` into `dst`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          int row, int head, int batch,
+                                          uint32_t bar) {
+  using T = Tiles<D>;
+#pragma unroll
+  for (int cb = 0; cb < T::CB; ++cb)
+    tma_load(dst + cb * 64 * T::SW, map, cb * T::SWE, row, head, batch, bar);
+}
+
+// Issues S(64 x KEYS) = Q K^T for the Q tile at q_tile and the K tile at
+// k_tile, as one commit group.
+template <int D>
+__device__ __forceinline__ void issue_scores(float* s, uint32_t q_tile,
+                                             uint32_t k_tile) {
+  using T = Tiles<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T::KEYS>(s, kmajor_desc<D>(q_tile, kk),
+                      kmajor_desc<D>(k_tile, kk), kk > 0);
+  wgmma_commit();
+}
+
+// Issues O(64 x D) += P V for P's fragments p[KEYS / 16][4] and the V
+// tile at v_tile, as one commit group.
+template <int D>
+__device__ __forceinline__ void issue_values(float* o, uint32_t (*p)[4],
+                                             uint32_t v_tile) {
+  using T = Tiles<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::KEYS / 16; ++kk)
+    wgmma_rs<D>(o, p[kk], vmajor_desc<D>(v_tile, kk));
+  wgmma_commit();
+}
+
+// The online-softmax step of one key tile for this thread's two rows (r0
+// and r0 + 8) and its KEYS / 4 columns. Fragment element i is (row r0 +
+// 8 * ((i >> 1) & 1), column c0 + 8 * (i >> 2) + (i & 1)). Turns s into
+// the probabilities, updates m and l, and returns each row's alpha; the
+// accumulator is rescaled by the caller once the previous P V is done.
+template <int KEYS, bool MASK>
+__device__ __forceinline__ void softmax_step(const Args& a, float* s,
+                                             float* m, float* l,
+                                             float* alpha, int64_t r0,
+                                             int64_t c0, float scale_log2) {
+  constexpr int N = KEYS / 2;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = s[i] * scale_log2;
+    if (MASK) {
+      const int64_t row = r0 + 8 * ((i >> 1) & 1);
+      const int64_t col = c0 + 8 * (i >> 2) + (i & 1);
+      bool ok = col < a.seq;
+      if (a.causal) ok = ok && col <= row;
+      if (a.window >= 0) ok = ok && col > row - a.window;
+      if (!ok) x = -INFINITY;  // never the max (nor is -1e30); p = 0
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    const float e = MASK && s[i] == -INFINITY ? 0.0f : exp2f(s[i] - m[r]);
+    l[r] += e;
+    s[i] = e;
+  }
+}
+
+// Rescales this thread's accumulator rows by alpha and packs the
+// probabilities in s into P's A-operand fragments: the m64nK accumulator
+// fragment of a thread is, pair by pair, its A fragment of the next
+// product.
+template <int D, int KEYS>
+__device__ __forceinline__ void rescale_and_pack(float* o, const float* alpha,
+                                                 const float* s,
+                                                 uint32_t (*p)[4]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// A 1-D grid of (query tile, batch * head) blocks in groups of a.group
+// heads: a group's K and V stay in L2 while its blocks run, and within a
+// group the longest causal query tiles start first, heads innermost. Thread
+// 0 issues every TMA load. Barriers: one for Q, and per stage one for K
+// and one for V, so a tile's Q K^T starts once its K has landed and K's
+// stage is refilled as soon as every warp's Q K^T has read it.
+template <int D>
+__global__ void __launch_bounds__(Tiles<D>::THREADS)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, Args a) {
+  using T = Tiles<D>;
+  constexpr int KEYS = T::KEYS;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t q_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t ring = q_tile + T::Q_TILE;  // stage s: K, then V
+  const uint32_t q_bar = smem_u32(&bars[0]);
+  auto k_bar = [&](int st) { return smem_u32(&bars[1 + 2 * st]); };
+  auto v_bar = [&](int st) { return smem_u32(&bars[2 + 2 * st]); };
+  auto k_tile = [&](int st) { return ring + 2 * st * T::KV_TILE; };
+
+  const int64_t n_qt = (a.seq + T::ROWS - 1) / T::ROWS;
+  const int64_t span = a.group * n_qt;
+  const int64_t g0 = blockIdx.x / span * a.group;
+  const int64_t bh_all = gridDim.x / n_qt;
+  const int64_t heads = a.group < bh_all - g0 ? a.group : bh_all - g0;
+  const int64_t rank = blockIdx.x % span;
+  const int64_t bh = g0 + rank % heads;
+  const int64_t q0 = (n_qt - 1 - rank / heads) * T::ROWS;
+  const int b = (int)(bh / a.hq);
+  const int h = (int)(bh % a.hq);
+  const int hk = (int)(h / a.qpk);
+  const int64_t q_last = (q0 + T::ROWS < a.seq ? q0 + T::ROWS : a.seq) - 1;
+  int64_t kt_begin, kt_end;
+  key_tiles<KEYS>(a, q0, q_last, &kt_begin, &kt_end);
+  const int n_tiles = (int)(kt_end - kt_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * STAGES; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, T::Q_TILE);
+    load_tile<D>(q_tile, &tq, (int)q0, h, b, q_bar);
+    for (int j = 0; j < STAGES && j < n_tiles; ++j) {
+      const int k0 = (int)((kt_begin + j) * KEYS);
+      mbar_expect_tx(k_bar(j), T::KV_TILE);
+      load_tile<D>(k_tile(j), &tk, k0, hk, b, k_bar(j));
+      mbar_expect_tx(v_bar(j), T::KV_TILE);
+      load_tile<D>(k_tile(j) + T::KV_TILE, &tv, k0, hk, b, v_bar(j));
+    }
+  }
+
+  const int lane = tid & 31;
+  const int64_t r0 = q0 + 16 * (tid >> 5) + (lane >> 2);
+  const int64_t c_lane = 2 * (lane & 3);
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+  float alpha[2];
+  float s[KEYS / 2];
+  uint32_t p[KEYS / 16][4];
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const uint32_t parity = (uint32_t)(j / STAGES) & 1u;
+    const int64_t k0 = (kt_begin + j) * KEYS;
+    const bool refill = j + STAGES < n_tiles;
+    const int kn = (int)(k0 + STAGES * KEYS);
+    mbar_wait(k_bar(st), parity);
+    issue_scores<D>(s, q_tile, k_tile(st));
+    wgmma_wait_all();
+    reg_fence<KEYS / 2>(s);
+    if (refill) {
+      __syncthreads();  // every warp's Q K^T has read this K tile
+      if (tid == 0) {
+        mbar_expect_tx(k_bar(st), T::KV_TILE);
+        load_tile<D>(k_tile(st), &tk, kn, hk, b, k_bar(st));
+      }
+    }
+    // The element mask matters only on tiles that cross the sequence end,
+    // the diagonal or a row's window edge.
+    if (k0 + KEYS > a.seq || (a.causal && k0 + KEYS - 1 > q0) ||
+        (a.window >= 0 && k0 <= q_last - a.window))
+      softmax_step<KEYS, true>(a, s, m, l, alpha, r0, k0 + c_lane,
+                               scale_log2);
+    else
+      softmax_step<KEYS, false>(a, s, m, l, alpha, r0, k0 + c_lane,
+                                scale_log2);
+    rescale_and_pack<D, KEYS>(o, alpha, s, p);
+    mbar_wait(v_bar(st), parity);
+    issue_values<D>(o, p, k_tile(st) + T::KV_TILE);
+    wgmma_wait_all();
+    reg_fence<D / 2>(o);
+    if (refill) {
+      __syncthreads();  // every warp's P V has read this V tile
+      if (tid == 0) {
+        mbar_expect_tx(v_bar(st), T::KV_TILE);
+        load_tile<D>(k_tile(st) + T::KV_TILE, &tv, kn, hk, b,
+                           v_bar(st));
+      }
+    }
+  }
+
+  // acc / l (exact zeros where l == 0) as bf16 into padded rows over the Q
+  // tile and stage 0's K, once every warp is done with them, then 16-byte
+  // stores.
+  uint8_t* out_s = dyn + (q_tile - smem_u32(dyn));
+  __syncthreads();
+  const int lr = 16 * (tid >> 5) + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = l[r] == 0.0f ? 0.0f : 1.0f / l[r];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(o[4 * c + 2 * r] * inv,
+                                               o[4 * c + 2 * r + 1] * inv);
+      *reinterpret_cast<__nv_bfloat162*>(
+          out_s + (lr + 8 * r) * T::OUT_ROW + (8 * c + c_lane) * 2) = v;
+    }
+  }
+  __syncthreads();
+  uint8_t* out_g =
+      (uint8_t*)a.o + ((size_t)bh * a.seq + q0) * D * sizeof(__nv_bfloat16);
+  constexpr int CHUNKS = D / 8;  // 16-byte pieces per row
+  for (int idx = tid; idx < T::ROWS * CHUNKS; idx += T::THREADS) {
+    const int row = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    if (q0 + row < a.seq)
+      *reinterpret_cast<uint4*>(out_g + (size_t)row * D * 2 + c * 16) =
+          *reinterpret_cast<const uint4*>(out_s + row * T::OUT_ROW + c * 16);
+  }
+}
+
+// One 64-row tile of each product, through the same loads, descriptors
+// and fragments as the kernel: s = q k^T (64 x 64) and o = p v (64 x D),
+// float32, row-major; p is a row-major 64 x 64 bf16 matrix. For testing
+// the layouts on the card.
+template <int D>
+__global__ void __launch_bounds__(128)
+    tile_products_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __nv_bfloat16* p, float* s_out, float* o_out) {
+  using T = Tiles<D>;
+  constexpr int KEYS = T::KEYS;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bar_mem;
+  const uint32_t q_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t k_tile = q_tile + T::Q_TILE;
+  const uint32_t v_tile = k_tile + T::KV_TILE;
+  const uint32_t bar = smem_u32(&bar_mem);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, T::Q_TILE + 2 * T::KV_TILE);
+    load_tile<D>(q_tile, &tq, 0, 0, 0, bar);
+    load_tile<D>(k_tile, &tk, 0, 0, 0, bar);
+    load_tile<D>(v_tile, &tv, 0, 0, 0, bar);
+  }
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);
+  const int c_lane = 2 * (lane & 3);
+  uint32_t pf[KEYS / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e & 1);
+      const int col = 16 * kk + 8 * (e >> 1) + c_lane;
+      pf[kk][e] = *reinterpret_cast<const uint32_t*>(p + row * KEYS + col);
+    }
+  mbar_wait(bar, 0);
+  float s[KEYS / 2];
+  issue_scores<D>(s, q_tile, k_tile);
+  wgmma_wait_all();
+  reg_fence<KEYS / 2>(s);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  issue_values<D>(o, pf, v_tile);
+  wgmma_wait_all();
+  reg_fence<D / 2>(o);
+#pragma unroll
+  for (int i = 0; i < KEYS / 2; ++i)
+    s_out[(r0 + 8 * ((i >> 1) & 1)) * KEYS + 8 * (i >> 2) + c_lane + (i & 1)] =
+        s[i];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i)
+    o_out[(r0 + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c_lane + (i & 1)] =
+        o[i];
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
+// entry-point query (no link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over (D, seq, heads, batch) with element strides
+// (position, head, batch), read in boxes of SWE values x 64 rows. A
+// dimension of extent 1 gets a stride the map accepts: it is never
+// stepped.
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, int64_t seq, int64_t heads,
+              int64_t batch, int64_t ss, int64_t sh, int64_t sb) {
+  using T = Tiles<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  if (seq == 1) ss = D;
+  if (heads == 1) sh = seq * D;
+  if (batch == 1) sb = heads * seq * D;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)seq,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::SWE, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D>
+int launch_bf16(const Args& a, int64_t batch, int64_t hkv,
+                cudaStream_t stream) {
+  using T = Tiles<D>;
+  static bool configured = false;
+  if (!configured) {
+    const int err = set_smem(flash_wgmma_kernel<D>, T::SMEM);
+    if (err) return err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, a.q, a.seq, a.hq, batch, a.qss, a.qsh, a.qsb) ||
+      !make_map<D>(&tk, a.k, a.seq, hkv, batch, a.kss, a.ksh, a.ksb) ||
+      !make_map<D>(&tv, a.v, a.seq, hkv, batch, a.vss, a.vsh, a.vsb))
+    return (int)cudaErrorInvalidValue;
+  // Heads per L2 group: as many as keep their K and V (shared by the
+  // Hq / Hkv query heads of a group) within 16 MB, a third of the L2.
+  const int64_t kv_bytes = 4 * a.seq * D / a.qpk;  // K and V per query head
+  Args g = a;
+  g.group = (int64_t)(16 << 20) / kv_bytes;
+  if (g.group < 1) g.group = 1;
+  if (g.group > batch * a.hq) g.group = batch * a.hq;
+  const int64_t blocks = (a.seq + T::ROWS - 1) / T::ROWS * batch * a.hq;
+  flash_wgmma_kernel<D>
+      <<<(unsigned)blocks, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, g);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tile_products(const void* q, const void* k, const void* v,
+                         const void* p, void* s_out, void* o_out,
+                         cudaStream_t stream) {
+  using T = Tiles<D>;
+  constexpr size_t bytes = 1024 + T::Q_TILE + 2 * (size_t)T::KV_TILE;
+  static bool configured = false;
+  if (!configured) {
+    const int err = set_smem(tile_products_kernel<D>, bytes);
+    if (err) return err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, q, 64, 1, 1, D, 0, 0) ||
+      !make_map<D>(&tk, k, 64, 1, 1, D, 0, 0) ||
+      !make_map<D>(&tv, v, 64, 1, 1, D, 0, 0))
+    return (int)cudaErrorInvalidValue;
+  tile_products_kernel<D><<<1, 128, bytes, stream>>>(
+      tq, tk, tv, (const __nv_bfloat16*)p, (float*)s_out, (float*)o_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -274,8 +979,9 @@ extern "C" {
 
 // q (B, Hq, S, D), k and v (B, Hkv, S, D) with element strides (batch,
 // head, position) and a contiguous head dim; o a contiguous
-// (B, Hq, S, D). dtype: 0 float32, 1 bfloat16. window < 0: no window.
-// Returns cudaGetLastError() after the launch.
+// (B, Hq, S, D). dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the
+// tensor-core kernel; 16-byte aligned bases and strides). window < 0: no
+// window. Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int64_t qsb, int64_t qsh, int64_t qss,
                            int64_t ksb, int64_t ksh, int64_t kss,
@@ -288,8 +994,37 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   Args a{q, k, v, o, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
          hq, hq / hkv, seq, window, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(a, batch, d, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, batch, d, s);
+  if (dtype == 0) {
+    switch (d) {
+      case 16: return launch_f32<16>(a, batch, s);
+      case 32: return launch_f32<32>(a, batch, s);
+      case 64: return launch_f32<64>(a, batch, s);
+      case 128: return launch_f32<128>(a, batch, s);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 16: return launch_bf16<16>(a, batch, hkv, s);
+      case 32: return launch_bf16<32>(a, batch, hkv, s);
+      case 64: return launch_bf16<64>(a, batch, hkv, s);
+      case 128: return launch_bf16<128>(a, batch, hkv, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One tile of each bf16 product through the tensor-core kernel's loads
+// and wgmma layouts: q, k, v contiguous (64, d) bf16, p contiguous
+// (64, 64) bf16; s_out = q k^T (64, 64) and o_out = p v (64, d), float32.
+int flash_attention_tile_products(const void* q, const void* k,
+                                  const void* v, const void* p, void* s_out,
+                                  void* o_out, int64_t d, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 16: return launch_tile_products<16>(q, k, v, p, s_out, o_out, s);
+    case 32: return launch_tile_products<32>(q, k, v, p, s_out, o_out, s);
+    case 64: return launch_tile_products<64>(q, k, v, p, s_out, o_out, s);
+    case 128: return launch_tile_products<128>(q, k, v, p, s_out, o_out, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,9 +8,13 @@ sliding-window masks, exact zeros for a row with nothing to attend to.
 
 :func:`flash_attention_cuda` launches the hand-written kernel
 (``csrc/flash_attention.cu``, built by :mod:`repro_torch.kernels._build`)
-for head dims :data:`HEAD_DIMS`; :func:`flash_attention_plain` is the
+for head dims :data:`HEAD_DIMS`: bfloat16 runs on the tensor cores
+(``wgmma`` products fed by TMA loads, P rounded to bfloat16 before P·V),
+float32 on the CUDA cores. :func:`flash_attention_plain` is the
 materialised attention of :mod:`.ref`, the plain version used for CPU
 tensors and as the check of the kernel on the card.
+:func:`tile_products_cuda` runs one tile of each bfloat16 product through
+the kernel's loads and ``wgmma`` layouts, for testing them on the card.
 :data:`LAUNCHES` counts kernel launches.
 """
 
@@ -73,13 +77,28 @@ def _lib():
     return fn
 
 
+def check_tma_alignment(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless bfloat16 ``t`` suits the tensor-core
+    kernel's TMA loads: a 16-byte aligned base, and batch, head and
+    position strides in multiples of 8 elements (16 bytes) wherever that
+    dimension has more than one entry."""
+    bad = [st for st, n in zip(t.stride()[:3], t.shape[:3])
+           if n > 1 and st % 8]
+    if t.data_ptr() % 16 or bad:
+        raise ValueError(f"flash_attention kernel needs bfloat16 {name} "
+                         f"with a 16-byte aligned base and strides in "
+                         f"multiples of 8 elements, got base "
+                         f"{t.data_ptr():#x}, strides {t.stride()}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns a new contiguous
     ``(B, Hq, S, D)`` tensor in q's dtype. q, k and v may have any strides
-    over batch, head and position but a contiguous head dim; any other
-    layout, dtype or head dim raises."""
+    over batch, head and position but a contiguous head dim (bfloat16:
+    aligned as :func:`check_tma_alignment` says); any other layout, dtype
+    or head dim raises."""
     global LAUNCHES
     check_shapes(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -93,6 +112,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError(f"flash_attention kernel needs a contiguous "
                              f"head dim, got {name} strides {t.stride()}")
+        if t.dtype == torch.bfloat16:
+            check_tma_alignment(name, t)
     b, hq, s, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel supports head dims "
@@ -111,3 +132,32 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, "flash_attention")
     LAUNCHES += 1
     return out
+
+
+def tile_products_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One 64-row tile of each bfloat16 product, through the tensor-core
+    kernel's TMA loads, shared-memory layouts and ``wgmma`` fragments:
+    ``(q @ k.T, p @ v)`` in float32 for contiguous bfloat16 CUDA tensors q,
+    k, v ``(64, D)`` and p ``(64, 64)``. A test of the layouts on the
+    card; it does not count in :data:`LAUNCHES`."""
+    d = q.shape[-1]
+    for name, t, shape in (("q", q, (64, d)), ("k", k, (64, d)),
+                           ("v", v, (64, d)), ("p", p, (64, 64))):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
+                or t.device.type != "cuda" or not t.is_contiguous()):
+            raise ValueError(f"tile_products_cuda needs contiguous "
+                             f"bfloat16 CUDA {name} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dims {HEAD_DIMS}, got {d}")
+    s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attention").flash_attention_tile_products
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+            s.data_ptr(), o.data_ptr(), d,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention tile products")
+    return s, o

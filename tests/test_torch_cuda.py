@@ -13,7 +13,8 @@ bfloat16 atol 2e-2 (the kernel rounds once, the plain version per add).
 The ring all-gather and the captured Jacobi step (float32) are held bit
 for bit against their plain or eager versions. Flash attention is held to
 its plain version at the reference's tolerances (float32 atol 3e-5 /
-rtol 1e-4, bfloat16 max abs 2e-2), and the serving path on a reduced
+rtol 1e-4, bfloat16 max abs 2e-2), its bfloat16 tile products to
+torch.matmul (atol 1e-3 / rtol 1e-4), and the serving path on a reduced
 model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
 orders). The RWKV-6 scan is held to its plain version and to the literal
 recurrence at the reference's tolerance (max error relative to the
@@ -153,14 +154,55 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, s, d, causal,
     torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
 
 
+#: bfloat16 cases: every head dim, ragged lengths, GQA 32/8 and MHA.
+FLASH_BF16 = ([(1, 4, 2, 128, 64), (1, 32, 8, 300, 128)]
+              + [(1, 32, 8, 200, d) for d in fk.HEAD_DIMS]
+              + [(2, 4, 4, 300, d) for d in fk.HEAD_DIMS])
+
+
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
-@pytest.mark.parametrize("shape", [(1, 4, 2, 128, 64), (1, 32, 8, 300, 128)])
+@pytest.mark.parametrize("shape", FLASH_BF16)
 def test_flash_attention_bf16_matches_plain(dev, causal, window, shape):
     q, k, v = _qkv(dev, *shape, dtype=torch.bfloat16)
     got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16
     want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+def test_flash_attention_tile_products_match_matmul(dev, d):
+    """One tile of Q·Kᵀ and P·V through the kernel's TMA loads, swizzled
+    layouts and wgmma fragments against torch.matmul in float32: the
+    products of bfloat16 values are exact, so only the order and rounding
+    of the float32 sums differ (|q·kᵀ| reaches ~50 at D = 128). A layout
+    fault gives errors of order 1."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(64, d, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    p = torch.rand(64, 64, generator=g, device=dev).to(torch.bfloat16)
+    s, o = fk.tile_products_cuda(q, k, v, p)
+    torch.testing.assert_close(s, q.float() @ k.float().T, atol=1e-3,
+                               rtol=1e-4)
+    torch.testing.assert_close(o, p.float() @ v.float(), atol=1e-3,
+                               rtol=1e-4)
+
+
+def test_flash_attention_bf16_rejects_misaligned(dev):
+    flat = torch.randn(2 * 64 * 64 + 1, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = flat.to(dtype)[1:].view(1, 2, 64, 64)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fk.flash_attention_cuda(x, x, x)
+        else:
+            torch.testing.assert_close(fk.flash_attention_cuda(x, x, x),
+                                       fk.flash_attention_plain(x, x, x),
+                                       atol=3e-5, rtol=1e-4)
+    wide = torch.randn(1, 2, 64, 68, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fk.flash_attention_cuda(wide[..., :64], wide[..., :64],
+                                wide[..., :64])
 
 
 def test_flash_attention_strided_and_rejects(dev):

@@ -180,3 +180,37 @@ def test_bad_inputs_raise(bad):
     v = torch.zeros((1, 2, 9, 16)) if bad == "shape" else k
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, window=0 if bad == "window" else None)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,make", [
+    ("contiguous", lambda: _bf16(2, 4, 64, 64)),
+    ("heads-inner layout", lambda: _bf16(2, 64, 4, 32).transpose(1, 2)),
+    ("batch broadcast", lambda: _bf16(1, 4, 64, 64).expand(3, -1, -1, -1)),
+    ("odd stride on a dim of extent 1",
+     lambda: _bf16(64 * 16 + 3).as_strided((1, 1, 64, 16), (3, 5, 16, 1))),
+])
+def test_tma_alignment_accepts(name, make):
+    fk.check_tma_alignment("q", make())
+
+
+@pytest.mark.parametrize("name,make,match", [
+    ("base off by one element",
+     lambda: _bf16(2 * 64 * 64 + 1)[1:].view(1, 2, 64, 64), "16-byte aligned"),
+    ("position stride 68", lambda: _bf16(1, 2, 64, 68)[..., :64],
+     "multiples of 8"),
+    ("head stride 4 values off", lambda: _bf16(1, 2, 64 * 64 + 4)[
+        ..., :64 * 64].view(1, 2, 64, 64), "multiples of 8"),
+])
+def test_tma_alignment_rejects(name, make, match):
+    with pytest.raises(ValueError, match=match):
+        fk.check_tma_alignment("q", make())
+
+
+def test_tile_products_need_cuda_tensors():
+    t = _bf16(64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.tile_products_cuda(t, t, t, t)
