@@ -31,7 +31,9 @@ What it does, in order (any failed check exits nonzero):
    16), (1, 96, 8, 8, 32), float32, max error relative to the largest
    output below 1e-4), and at the model's shape (4, 1024, 32 heads, 64,
    64) with bfloat16 r/k/v, float32 w/u/out, output and final state
-   within the same bound;
+   within the same bound, and there also its first pass's chunk-start
+   states (the two-pass kernel's workspace) against the plain first pass
+   within that bound;
 4. main path A, with every launch counter set to 0 just before it and read
    after phase 5: a ``CommSession(schedule="auto")`` on the default
    4-device topology sends 256 MiB of float32 0→1 with 3 paths (bitwise),
@@ -67,7 +69,8 @@ What it does, in order (any failed check exits nonzero):
    plain version and beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (the yardstick only; the port never
    calls it), and ``rwkv6_scan`` at path G's prefill shape (4, 1024, 32,
-   64, 64) beside its bound and its plain version (no one PyTorch call
+   64, 64) beside its bound and its plain version, with each of its two
+   kernels' times and the workspace's bytes (no one PyTorch call
    computes this scan); then everything of paths A–D is freed;
 10. main path E, counters set to 0 before it and read after it: serving
     Llama-3 8B at full width (``get_config("llama3_8b")``: 32 layers,
@@ -776,10 +779,20 @@ def rwkv_checks(randn, rand, errs) -> None:
     check(e_o < RWKV_REL and e_s < RWKV_REL,
           f"rwkv6_scan at the model's shape: relative err {e_o} (output), "
           f"{e_s} (state)")
+    # the first pass alone: the state at every chunk's start
+    _, states, final = sk.rwkv6_scan_passes_cuda(r, k, v, w, u,
+                                                 out_dtype=torch.float32)
+    pstates, _ = sk.rwkv6_chunk_states_plain(k, v, w, chunk=sk.MAX_CHUNK)
+    e_c = rel_err(states, pstates)
+    check(e_c < RWKV_REL and torch.equal(final, st),
+          f"rwkv6_scan's first pass at the model's shape: relative err {e_c} "
+          f"(chunk-start states), final state equal to the scan's: "
+          f"{torch.equal(final, st)}")
     print(f"rwkv6_scan vs plain and the per-step recurrence: 4 float32 sweep "
           f"cases (max relative err {worst}, limit {RWKV_REL}); "
           f"{RWKV_SHAPE} bf16 r/k/v, f32 w/u/out: relative err {e_o} "
-          f"(output), {e_s} (final state) "
+          f"(output), {e_s} (final state), {e_c} (the first pass's "
+          f"{states.shape[2]} chunk-start states of each head) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -787,8 +800,10 @@ def rwkv_times(randn, rand, errs) -> dict:
     """Phase 9's ``rwkv6_scan`` row at path G's prefill shape, with the
     model's types (bfloat16 r/k/v, float32 w, u and output, the final
     state): the kernel against its plain version, then its time beside its
-    bound and the plain version's. No one PyTorch call computes the scan,
-    so there is no yardstick."""
+    bound and the plain version's, and each of its two kernels' times
+    (CUDA events around each launch, back to back) beside the workspace
+    between them. No one PyTorch call computes the scan, so there is no
+    yardstick."""
     from repro_torch.kernels.rwkv6_scan import kernel as sk
 
     b, s, h, dk, dv = RWKV_SHAPE
@@ -812,6 +827,18 @@ def rwkv_times(randn, rand, errs) -> dict:
           "rwkv6_scan differs from plain at path G's shape")
     ms = cuda_time_ms(kernel, 20)
     plain_ms = cuda_time_ms(plain, 5, warmup=1)
+    # the passes launched apart, events around each, no sync between calls
+    iters = 20
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(iters + 2)]
+    for ev in events:
+        sk.rwkv6_scan_passes_cuda(r, k, v, w, u, chunk=chunk,
+                                  out_dtype=torch.float32, events=ev)
+    torch.cuda.synchronize()
+    states_ms, output_ms = (
+        sum(ev[i].elapsed_time(ev[i + 1]) for ev in events[2:]) / iters
+        for i in (0, 1))
+    workspace = b * h * (s // chunk) * dk * dv * 4
     # each input read once, each output written once: r, k, v bfloat16,
     # w float32, one u row per head, o float32, the final state float32
     nbytes = ((2 * dk + dv) * 2 + dk * 4 + dv * 4) * b * s * h \
@@ -834,13 +861,18 @@ def rwkv_times(randn, rand, errs) -> dict:
           f" FLOPs in chunks of {best} at 67 TFLOP/s = {ops_ms:.4f} ms, the "
           f"kernel's chunks of {chunk} do {kernel_flops}; {nbytes} B at 3.35 "
           f"TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
-          f"{plain_ms:.4f} ms; kernel max abs err vs plain {err}", flush=True)
+          f"{plain_ms:.4f} ms; kernel max abs err vs plain {err}; launched "
+          f"apart, pass 1 (chunk-start states) {states_ms:.4f} ms, pass 2 "
+          f"(outputs) {output_ms:.4f} ms, a {workspace} B float32 workspace "
+          f"between them", flush=True)
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:99",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": None,
+            "passes_ms": {"states": states_ms, "output": output_ms},
+            "workspace_bytes": workspace}
 
 
 def _leaves(tree):

@@ -19,8 +19,9 @@ model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
 orders). The RWKV-6 scan is held to its plain version and to the literal
 recurrence at the reference's tolerance (max error relative to the
 largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
-beside float32 w, strided inputs, and the reduced RWKV-6 model served
-against the CPU.
+beside float32 w, strided inputs, its first pass's chunk-start states
+against the plain first pass at the same bound, and the reduced RWKV-6
+model served against the CPU. ``-k rwkv`` runs the scan's tests alone.
 """
 
 import pytest
@@ -358,6 +359,31 @@ def test_rwkv6_scan_strided_and_rejects(dev):
         sk.rwkv6_scan_cuda(r, k, v, w, u.to(torch.bfloat16), chunk=32)
     with pytest.raises(ValueError, match="float32 w"):
         sk.rwkv6_scan_cuda(r, k, v, w.to(torch.bfloat16), u, chunk=32)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,dtype", [
+    (2, 256, 2, 64, 64, torch.float32), (2, 128, 3, 16, 32, torch.float32),
+    (1, 96, 2, 8, 8, torch.float32), (4, 1024, 32, 64, 64, torch.bfloat16)])
+def test_rwkv6_chunk_states_match_plain(dev, b, s, h, dk, dv, dtype):
+    """The first pass's workspace (the state at every chunk's start) and
+    final state against the plain first pass, at the model's shape too;
+    the two passes launched apart give the scan's output bit for bit and
+    do not count as a launch; a base off the 16-byte grid raises."""
+    r, k, v, w, u = _rwkv(dev, b, s, h, dk, dv, dtype=dtype)
+    chunk = 64 if s % 64 == 0 else 32
+    before = sk.LAUNCHES
+    o, states, final = sk.rwkv6_scan_passes_cuda(
+        r, k, v, w, u, chunk=chunk, out_dtype=torch.float32)
+    assert sk.LAUNCHES == before
+    pstates, pfinal = sk.rwkv6_chunk_states_plain(k, v, w, chunk=chunk)
+    assert states.shape == pstates.shape == (b, h, s // chunk, dk, dv)
+    assert _rel(states, pstates) < 1e-4 and _rel(final, pfinal) < 1e-4
+    assert torch.equal(o, sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk,
+                                             out_dtype=torch.float32))
+    shifted = torch.empty(r.numel() + 1, dtype=dtype, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.rwkv6_scan_cuda(shifted.view(r.shape).copy_(r), k, v, w, u,
+                           chunk=chunk)
 
 
 def test_rwkv_serving_reduced_model_matches_cpu(dev):

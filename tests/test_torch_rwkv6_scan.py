@@ -8,7 +8,8 @@ a seed, on both sides, at the reference's sweep shapes
 (``tests/test_kernels.py``) and with sequences that need padding. The
 tolerance is the reference's own: max error relative to the largest
 output below 1e-4 (float32 sums in another order). The final state, which
-the port's kernel also returns, is held against the literal recurrence's.
+the port's kernel also returns, and the state at every chunk's start, which
+its first pass writes, are held against the literal recurrence's.
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -76,6 +77,38 @@ def test_final_state_matches_the_recurrence(bh, s, dk, dv, chunk):
     assert state.shape == (bh, 1, dk, dv) and state.dtype == torch.float32
     assert rel_err(o[:, :s, 0].numpy(), want_o.numpy()) < 1e-4
     assert rel_err(state[:, 0].numpy(), want_s.numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", SWEEP + PADDED)
+def test_chunk_states_match_the_recurrence_over_each_prefix(bh, s, dk, dv,
+                                                            chunk):
+    """The first pass's state at the start of chunk c equals the literal
+    recurrence's final state over the first c·chunk positions (zeros at
+    c = 0), and its final state the recurrence's over the whole padded
+    sequence; the two passes compose to the scan."""
+    r, k, v, w, u = (torch.from_numpy(a) for a in inputs(6, bh, s, dk, dv))
+    pad = (-s) % chunk
+    if pad:
+        r, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (r, k, v))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    r4, k4, v4, w4 = (t[:, :, None] for t in (r, k, v, w))
+    states, final = rk.rwkv6_chunk_states_plain(k4, v4, w4, chunk=chunk)
+    nc = (s + pad) // chunk
+    assert states.shape == (bh, 1, nc, dk, dv)
+    assert states.dtype == torch.float32
+    assert not states[:, :, 0].any()
+    for c in range(1, nc):
+        n = c * chunk
+        _, want = rwkv6_scan_ref(r[:, :n], k[:, :n], v[:, :n], w[:, :n], u,
+                                 return_state=True)
+        assert rel_err(states[:, 0, c].numpy(), want.numpy()) < 1e-4
+    _, want = rwkv6_scan_ref(r, k, v, w, u, return_state=True)
+    assert rel_err(final[:, 0].numpy(), want.numpy()) < 1e-4
+    o = rk.rwkv6_chunk_output_plain(r4, k4, v4, w4, u[:, None], states,
+                                    chunk=chunk)
+    assert torch.equal(o, rk.rwkv6_scan_plain(r4, k4, v4, w4, u[:, None],
+                                              chunk=chunk))
 
 
 def test_model_layout_and_dtypes():
