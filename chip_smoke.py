@@ -832,13 +832,14 @@ def rwkv_times(randn, rand, errs) -> dict:
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
               for _ in range(iters + 2)]
     for ev in events:
-        sk.rwkv6_scan_passes_cuda(r, k, v, w, u, chunk=chunk,
-                                  out_dtype=torch.float32, events=ev)
+        _, ws, _ = sk.rwkv6_scan_passes_cuda(r, k, v, w, u, chunk=chunk,
+                                             out_dtype=torch.float32,
+                                             events=ev)
     torch.cuda.synchronize()
     states_ms, output_ms = (
         sum(ev[i].elapsed_time(ev[i + 1]) for ev in events[2:]) / iters
         for i in (0, 1))
-    workspace = b * h * (s // chunk) * dk * dv * 4
+    workspace = ws.numel() * ws.element_size()
     # each input read once, each output written once: r, k, v bfloat16,
     # w float32, one u row per head, o float32, the final state float32
     nbytes = ((2 * dk + dv) * 2 + dk * 4 + dv * 4) * b * s * h \

@@ -67,22 +67,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Pass 1's largest state tile (16 or 32) and pass 2's blocks per SM (1, 2
-// or 3): the defaults are the build's, the others are for measuring.
-#ifndef RWKV6_STATE_TILE
-#define RWKV6_STATE_TILE 32
-#endif
-#ifndef RWKV6_OUTPUT_BLOCKS_PER_SM
-#define RWKV6_OUTPUT_BLOCKS_PER_SM 3
-#endif
-
 namespace {
 
 constexpr int CH = 64;    // longest chunk: rows of a tile
 constexpr int DMAX = 64;  // largest dk and dv
 
-// pass 1: threads of TILE x TILE / 16, each a 4 x 4 piece of the state tile
-constexpr int T1 = RWKV6_STATE_TILE;
+// pass 1: a state tile of at most T1 x T1, T1 * T1 / 16 threads, each a
+// 4 x 4 piece of it
+constexpr int T1 = 32;
 constexpr int NT1 = T1 * T1 / 16;
 constexpr int NSEG1 = NT1 / T1;       // decay segments per channel
 constexpr int SEG1 = CH / NSEG1;
@@ -96,11 +88,7 @@ constexpr int SEG2 = CH / NSEG2;
 constexpr int SMEM2_FLOATS = 3 * CH * P2 + CH * DMAX + CH + NSEG2 * DMAX;
 // 68.3 KiB (the v tile counted as float32; bfloat16 v leaves 8 KiB unused)
 constexpr size_t SMEM2_BYTES = sizeof(float) * SMEM2_FLOATS;
-// fewer blocks per SM than fit are asked for by taking more of its memory
-constexpr size_t SMEM2_FLOOR =
-    228 * 1024 / (RWKV6_OUTPUT_BLOCKS_PER_SM + 1) + 1024;
-constexpr size_t SMEM2_ASK =
-    SMEM2_BYTES > SMEM2_FLOOR ? SMEM2_BYTES : SMEM2_FLOOR;
+constexpr int BLOCKS2 = 3;            // pass 2's blocks per SM
 
 // 16 bytes of r, k or v: 4 float32 or 8 bfloat16 values
 template <typename T>
@@ -316,7 +304,7 @@ __global__ void __launch_bounds__(NT1, 256 / NT1)
 }
 
 template <typename T, typename O>
-__global__ void __launch_bounds__(NT2, RWKV6_OUTPUT_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(NT2, BLOCKS2)
     rwkv6_output_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;               // [CH][P2]   r, then q~
@@ -570,13 +558,13 @@ int launch_output(const Args& a, int64_t nbh, cudaStream_t stream) {
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         rwkv6_output_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM2_ASK);
+        (int)SMEM2_BYTES);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   if (a.nc == 0) return (int)cudaGetLastError();
   rwkv6_output_kernel<T, O>
-      <<<(unsigned)(nbh * a.nc), NT2, SMEM2_ASK, stream>>>(a);
+      <<<(unsigned)(nbh * a.nc), NT2, SMEM2_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ start state (:func:`rwkv6_chunk_output_plain`).
 Layout: r, k, w ``(B, S, H, dk)``, v ``(B, S, H, dv)`` (any strides over
 batch, position and head, a contiguous last dim: the model's
 ``(B, L, h, hd)`` projections go in as they are; the kernels load 16
-bytes at a time, so base and strides must keep those loads aligned), w
+bytes at a time, so an input whose base or strides are off that grid is
+first copied to a new contiguous tensor), w
 float32 (its log-cumsum drifts in bfloat16), u ``(B, H, dk)`` float32 (a
 head's bonus broadcast over the batch has batch stride 0). The output
 is a new ``(B, S, H, dv)`` tensor in ``out_dtype`` (r's by default; the
@@ -180,16 +181,19 @@ def _check_cuda(r, k, v, w, u, chunk, out_dtype) -> torch.dtype:
     if chunk > MAX_CHUNK:
         raise ValueError(f"rwkv6_scan kernel takes chunks up to "
                          f"{MAX_CHUNK}, got {chunk}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        n = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(
-                st % n for st, size in zip(t.stride()[:3], t.shape[:3])
-                if size > 1):
-            raise ValueError(f"rwkv6_scan kernel loads 16 bytes at a time: "
-                             f"{name} needs a 16-byte aligned base and "
-                             f"batch, position and head strides in "
-                             f"multiples of {n}, got strides {t.stride()}")
     return out_dtype
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its base and its batch, position and head strides
+    keep 16-byte loads aligned, else a contiguous copy (whose rows are
+    16-byte multiples for every dim in :data:`DIMS`)."""
+    n = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st % n == 0 for st, size in zip(t.stride()[:3], t.shape[:3])
+            if size > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _buffers(r, v, chunk, out_dtype):
@@ -234,6 +238,7 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises."""
     global LAUNCHES
     out_dtype = _check_cuda(r, k, v, w, u, chunk, out_dtype)
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w))
     o, state, ws = _buffers(r, v, chunk, out_dtype)
     _launch("rwkv6_scan_launch", r, k, v, w, u, o, state, ws, chunk)
     LAUNCHES += 1
@@ -252,6 +257,7 @@ def rwkv6_scan_passes_cuda(r: torch.Tensor, k: torch.Tensor,
     between the passes and after the second. Does not count in
     :data:`LAUNCHES`."""
     out_dtype = _check_cuda(r, k, v, w, u, chunk, out_dtype)
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w))
     o, state, ws = _buffers(r, v, chunk, out_dtype)
     stream = torch.cuda.current_stream(r.device)
     for i, entry in enumerate(("rwkv6_states_launch", "rwkv6_output_launch")):

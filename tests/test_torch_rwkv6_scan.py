@@ -162,3 +162,19 @@ def test_w_is_float32():
     got = ops.rwkv6_scan(r, k, v, low, u, chunk=32)
     want = ops.rwkv6_scan(r, k, v, low.float(), u, chunk=32)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inputs_off_the_16_byte_grid_are_copied(dtype):
+    """The kernels load r, k, v and w 16 bytes at a time: ``aligned16``
+    passes an input on that grid through and copies one whose base or
+    head stride is off it, with the same values."""
+    x = torch.randn(2, 16, 3, 8).to(dtype)
+    assert rk.aligned16(x) is x
+    shifted = torch.empty(x.numel() + 1, dtype=dtype)[1:].view(x.shape)
+    narrow = torch.empty(2, 16, 3, 9, dtype=dtype)[..., :8]
+    for t in (shifted, narrow):
+        t.copy_(x)
+        got = rk.aligned16(t)
+        assert got.data_ptr() != t.data_ptr() and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
