@@ -76,15 +76,25 @@ What it does, in order (any failed check exits nonzero):
     Llama-3 8B at full width (``get_config("llama3_8b")``: 32 layers,
     d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256, bfloat16,
     about 16 GB of seeded random weights) with
-    ``ServeEngine(max_len=1024, kv_chunks=4, comm=CommSession())``: 4
-    requests of 512/384/256/128 seeded prompt tokens and 32 new tokens
-    each, greedily, twice (the same tokens, every one in range), then a
-    prefill whose cache ``migrate_kv(cache, 0, 1)`` moves, twice
-    (bitwise, one dispatch, the second a fast-path hit); ``flash_attention``
-    launched once per layer per prefill; at layer 0's real prefill q/k/v
-    the kernel within 4e-3 + 8e-3·|want| of its plain version, and the whole
-    prefill's logits against a prefill on the plain version (printed);
-    prefill, per-token decode and migration-replay times;
+    ``ServeEngine(max_len=1024, kv_chunks=4, comm=CommSession())``, whose
+    prefill and decode step are captured CUDA graphs (the first call of
+    each program captures it, later calls replay): 4 requests of
+    512/384/256/128 seeded prompt tokens and 32 new tokens each, greedily,
+    twice (the same tokens, every one in range), then a prefill whose
+    cache ``migrate_kv(cache, 0, 1)`` moves, twice (bitwise, one dispatch,
+    the second a fast-path hit); ``flash_attention`` launched once per
+    layer per prefill (captures and replays counted); after the counts are
+    read, ``generate``'s tokens against an eager loop of ``prefill_forward``
+    + ``make_serve_step`` + ``argmax`` (all 4 x 32 equal), one captured
+    decode step's logits and cache against the eager step's on a copy of
+    the same cache (bitwise, the max abs difference printed); at layer 0's
+    real prefill q/k/v the kernel within 4e-3 + 8e-3·|want| of its plain
+    version, and the whole eager prefill's logits against one on the plain
+    version (printed); times in one call: the prefill program's replay
+    against the eager prefill, the captured decode step against the eager
+    step (in turns), each one's device time, op count and idle share under
+    the profiler, tokens/s of the second ``generate``, the memory the
+    engine's graphs hold, and the migration's replay;
 11. main path F: ``make_captured_decode_step`` (batch 1, 32 heads, 2048
     positions, head dim 128, an 8 MiB bfloat16 KV chunk 0→2, schedule
     ``overlap``), resolved first, then 5 calls with the counters set to 0
@@ -92,7 +102,8 @@ What it does, in order (any failed check exits nonzero):
     least one ``multipath_dma`` launch per replay, attention on every
     device within 4e-3 + 8e-3·|want| of the plain version, the KV chunk
     bitwise; the replay against the eager composition (attention +
-    ``session.send``);
+    ``session.send``), and every device op of one of each under the
+    profiler;
 12. main path G, after path E's and F's tensors are freed, counters set to
     0 before it and read after it: serving RWKV-6 1.6B at full width
     (``get_config("rwkv6_1_6b")``: 24 layers, d_model 2048, 32 heads of
@@ -111,8 +122,9 @@ What it does, in order (any failed check exits nonzero):
     bfloat16 activations through 24 layers in two orders), and the same
     with a zeroed state, the state of one chunk earlier and of one
     position earlier planted in the cache, each of which must exceed the
-    limit; prefill, per-token decode and migration-replay times and the
-    profiler's idle share;
+    limit; the same prefill and 8 steps through the captured prefill and
+    decode programs within the same limit; the token and logit checks and
+    the times of path E;
 13. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
@@ -194,12 +206,14 @@ def host_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_device_ms(fn) -> tuple[float, float, int, list]:
+def profile_device_ms(fn, top: int | None = 5
+                      ) -> tuple[float, float, int, list]:
     """One synced call of ``fn`` under ``torch.profiler``: (wall ms under
     the profiler, device ms of the device-side events (kernels, copies,
-    fills: one stream, so they do not overlap), their count, and the five
-    with the most device time as (name, ms)). Device ms is 0 when the
-    profiler records no device activity."""
+    fills: one stream, so they do not overlap), their count, and the
+    ``top`` (all with ``None``) with the most device time as (name, ms,
+    count)). Device ms is 0 when the profiler records no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,10 +227,15 @@ def profile_device_ms(fn) -> tuple[float, float, int, list]:
     rows, count = [], 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            rows.append((e.key, e.self_device_time_total / 1e3))
+            rows.append((e.key, e.self_device_time_total / 1e3, e.count))
             count += e.count
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(ms for _, ms in rows), count, rows[:5]
+    return wall, sum(r[1] for r in rows), count, rows[:top]
+
+
+def top_ops(rows) -> str:
+    """Profiler rows as ``name ms xcount``, names cut to 48 characters."""
+    return ", ".join(f"{name[:48]} {ms:.4f} x{n}" for name, ms, n in rows)
 
 
 def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
@@ -884,61 +903,163 @@ def _leaves(tree):
         yield tree
 
 
+def eager_greedy(cfg, params, spec, toks, new) -> list[list[int]]:
+    """Greedy tokens ``(B, new)`` of the eager loop on left-padded prompt
+    tokens ``toks``: ``prefill_forward``, then ``make_serve_step`` and
+    ``argmax`` per step, no program and no graph."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import make_serve_step
+
+    plen = toks.shape[1]
+    logits, cache = tfm.prefill_forward(params, cfg, {"tokens": toks}, spec)
+    step = make_serve_step(cfg, spec)
+    tok = logits[:, -1].argmax(-1)
+    out = [tok]
+    for i in range(new - 1):
+        logits, cache = step(params, cache, tok[:, None], plen + i)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, 1).tolist()
+
+
+def program_checks(cfg, engine, toks, outs, path: str) -> None:
+    """The token check (``generate``'s greedy tokens ``outs`` against the
+    eager loop's) and the logit check (one decode program step against
+    ``make_serve_step`` on a copy of the same cache, token and position:
+    bit for bit)."""
+    from repro_torch.serving import make_serve_step
+
+    new = len(outs[0])
+    want = eager_greedy(cfg, engine.params, engine.spec, toks, new)
+    same = sum(a == b for o, w in zip(outs, want) for a, b in zip(o, w))
+    check(outs == want, f"path {path}: generate's tokens differ from the "
+          f"eager loop's in {len(outs) * new - same} of {len(outs) * new}")
+    b, plen = toks.shape
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    tok = prefill()[:, -1].argmax(-1)[:, None]
+    decode = engine.decode_program(b)
+    eager_cache = {k: t.clone() for k, t in decode.cache.items()}
+    want_lg, _ = make_serve_step(cfg, engine.spec)(engine.params, eager_cache,
+                                                   tok, plen)
+    decode.tokens.copy_(tok)
+    decode.cur_len.fill_(plen)
+    got = decode()
+    diff = (got.float() - want_lg.float()).abs().max().item()
+    cache_same = all(torch.equal(decode.cache[k], eager_cache[k])
+                     for k in eager_cache)
+    print(f"path {path}: generate's greedy tokens (prefill and decode "
+          f"programs, captured) equal the eager loop's, {same} of "
+          f"{len(outs) * new}; one decode program replay vs the eager step "
+          f"at position {plen}: logits max abs diff {diff}, bitwise "
+          f"{torch.equal(got, want_lg)}, cache bitwise {cache_same}",
+          flush=True)
+    check(torch.equal(got, want_lg) and cache_same, f"path {path}: the "
+          f"captured decode step differs from the eager step (logits max "
+          f"abs diff {diff}, cache bitwise {cache_same})")
+    del eager_cache
+
+
 def serving_times(cfg, engine, sess, toks, logits, cache, new,
                   gen_s: tuple[float, float], path: str) -> None:
-    """Print a served model's times: prefill and per-token decode (CUDA
-    events, ``new - 1`` greedy steps from the end of ``toks``), each
-    one's device time, op count and idle share under the profiler,
-    tokens/s of the second ``generate`` (host clock, ``gen_s`` = first and
-    second call) and the migration of ``cache`` (graph replay, whole
-    ``migrate_kv``)."""
+    """Print a served model's times, in one call: the prefill program's
+    replay against the eager ``prefill_forward``; the decode step (``new -
+    1`` greedy steps from the end of ``toks``, the argmax included) as the
+    decode program's replay and as the eager ``make_serve_step``, twice
+    each in turns (CUDA events); each one's device time, op count and idle
+    share under the profiler; tokens/s of the second ``generate`` (host
+    clock, ``gen_s`` = first and second call); the device memory that the
+    engine's graphs hold; and the migration of ``cache`` (graph replay,
+    whole ``migrate_kv``)."""
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving import make_serve_step
 
     b, plen = toks.shape
-    prefill_ms = cuda_time_ms(lambda: engine.prefill(toks), 3, warmup=1)
-    serve_step = make_serve_step(cfg, engine.spec)
-    _, dcache = engine.prefill(toks)
-    tok = logits[:, -1].argmax(-1)[:, None]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(new - 1):
-        lg, dcache = serve_step(engine.params, dcache, tok, plen + i)
-        tok = lg.argmax(-1)[:, None]
-    end.record()
-    torch.cuda.synchronize()
-    decode_ms = start.elapsed_time(end) / (new - 1)
-    pre_wall, pre_dev, pre_n, pre_top = profile_device_ms(
-        lambda: engine.prefill(toks))
-    dec_wall, dec_dev, dec_n, dec_top = profile_device_ms(
-        lambda: serve_step(engine.params, dcache, tok, plen + new - 1))
+    params, spec = engine.params, engine.spec
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    decode = engine.decode_program(b)
+    serve_step = make_serve_step(cfg, spec)
 
-    def top(rows):
-        return ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in rows)
+    def eager_prefill():
+        return tfm.prefill_forward(params, cfg, {"tokens": toks}, spec)
 
-    def idle(dev_ms, ms):
-        return (f"{1 - dev_ms / ms:.1%}" if dev_ms > 0 else
-                "not measured: the profiler recorded no device time")
+    replay_ms = cuda_time_ms(prefill, 3, warmup=1)
+    eager_prefill_ms = cuda_time_ms(eager_prefill, 3, warmup=1)
+    _, dcache = eager_prefill()
+    tok0 = logits[:, -1].argmax(-1)[:, None]
 
-    print(f"profiler (one call each): prefill {pre_dev:.2f} ms of device "
-          f"time in {pre_n} device ops, {pre_wall:.2f} ms wall (idle share "
-          f"vs the unprofiled {prefill_ms:.2f} ms: "
-          f"{idle(pre_dev, prefill_ms)}; top ms: {top(pre_top)}); decode "
-          f"step {dec_dev:.2f} ms of device time in {dec_n} device ops, "
-          f"{dec_wall:.2f} ms wall (idle share vs the unprofiled "
-          f"{decode_ms:.2f} ms: {idle(dec_dev, decode_ms)}; top ms: "
-          f"{top(dec_top)})", flush=True)
+    def captured(tok, pos):
+        decode.tokens.copy_(tok)
+        decode.cur_len.fill_(pos)
+        return decode().argmax(-1)[:, None]
+
+    def eager(tok, pos):
+        lg, _ = serve_step(params, dcache, tok, pos)
+        return lg.argmax(-1)[:, None]
+
+    def step_ms(one):
+        prefill()
+        tok = tok0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for i in range(new - 1):
+            tok = one(tok, plen + i)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (new - 1)
+
+    turns = [("captured", step_ms(captured)), ("eager", step_ms(eager)),
+             ("captured", step_ms(captured)), ("eager", step_ms(eager))]
+    cap_ms = min(ms for kind, ms in turns if kind == "captured")
+    eager_ms = min(ms for kind, ms in turns if kind == "eager")
+    decode.tokens.copy_(tok0)
+    decode.cur_len.fill_(plen + new - 1)
+    prof = {
+        "prefill replay": (profile_device_ms(prefill), replay_ms),
+        "eager prefill": (profile_device_ms(eager_prefill),
+                          eager_prefill_ms),
+        "decode replay": (profile_device_ms(decode), cap_ms),
+        "eager decode step": (profile_device_ms(
+            lambda: serve_step(params, dcache, tok0, plen + new - 1)),
+            eager_ms)}
+    eager_dev = {"prefill replay": prof["eager prefill"][0][1],
+                 "decode replay": prof["eager decode step"][0][1]}
+    for name, ((wall, dev_ms, n_ops, rows), ms) in prof.items():
+        if dev_ms <= 0:
+            idle = "not measured: the profiler recorded no device time"
+        elif n_ops <= 1 and name in eager_dev:
+            idle = (f"the profiler shows the replay as {n_ops} op; against "
+                    f"the eager version's {eager_dev[name]:.2f} ms of "
+                    f"device time: {1 - eager_dev[name] / ms:.1%}")
+        else:
+            idle = f"{1 - dev_ms / ms:.1%}"
+        print(f"profiler, path {path}, {name} (one call): {dev_ms:.2f} ms "
+              f"of device time in {n_ops} device ops, {wall:.2f} ms wall; "
+              f"idle share vs the unprofiled {ms:.2f} ms: {idle}; top ms: "
+              f"{top_ops(rows)}", flush=True)
     mig = next(iter(sess.engine._fastpath._store.values()))[1]
     mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
     mig_call_ms = host_time_ms(lambda: engine.migrate_kv(cache, 0, 1), 5)
     gen1_s, gen2_s = gen_s
+    held = {f"prefill {key}": p.held_bytes
+            for key, p in engine._prefills.items()}
+    held.update({f"decode {key}": p.held_bytes
+                 for key, p in engine._decodes.items()})
     print(f"serving {cfg.name} {cfg.dtype}, batch {b}: prefill of "
-          f"{tuple(toks.shape)} tokens {prefill_ms:.2f} ms (CUDA events), "
-          f"decode {decode_ms:.2f} ms per token step (CUDA events, "
-          f"{new - 1} steps from position {plen}), generate of "
-          f"{b} x {new} tokens {gen2_s:.3f} s = {b * new / gen2_s:.1f} "
-          f"tokens/s (host clock, second call; first {gen1_s:.3f} s); "
+          f"{tuple(toks.shape)} tokens: program replay {replay_ms:.2f} ms, "
+          f"eager {eager_prefill_ms:.2f} ms (CUDA events); decode per "
+          f"token step ({new - 1} steps from position {plen}, argmax "
+          f"included; CUDA events, in turns "
+          f"{', '.join(f'{k} {ms:.2f}' for k, ms in turns)}): captured "
+          f"{cap_ms:.2f} ms, eager {eager_ms:.2f} ms, captured/eager "
+          f"{cap_ms / eager_ms:.3f}; generate of {b} x {new} tokens "
+          f"{gen2_s:.3f} s = {b * new / gen2_s:.1f} tokens/s (host clock, "
+          f"second call; first {gen1_s:.3f} s, with the captures); the "
+          f"engine's graphs hold {engine.graph_bytes() / 2**20:.1f} MiB ("
+          f"{', '.join(f'{k} {v / 2**20:.1f}' for k, v in held.items())}); "
           f"migration of the cache: graph replay {mig_ms:.4f} ms, whole "
           f"migrate_kv {mig_call_ms:.4f} ms synced", flush=True)
     print(f"peak device memory, path {path}: "
@@ -1034,6 +1155,7 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
           f"{cbytes / 1e6:.1f} MB cache 0->1 bitwise, one dispatch, second "
           f"one fast-path hit", flush=True)
     del moved, moved2
+    program_checks(cfg, engine, toks, outs, "E")
 
     # the kernel at layer 0's real prefill q/k/v, and the whole prefill on
     # the plain version
@@ -1057,7 +1179,8 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
     kernel_attention = tfm.blockwise_attention
     tfm.blockwise_attention = plain_attention
     try:
-        plain_logits, _ = engine.prefill(toks)
+        plain_logits, _ = tfm.prefill_forward(params, cfg, {"tokens": toks},
+                                              engine.spec)
     finally:
         tfm.blockwise_attention = kernel_attention
     logit_diff = (logits.float() - plain_logits.float()).abs().max().item()
@@ -1128,6 +1251,12 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
 
     eager_ms = cuda_time_ms(eager, 5)
     eager_host_ms = host_time_ms(eager, 5)
+    for name, fn in (("graph replay", prog.replay),
+                     ("eager attention + session.send", eager)):
+        wall, dev_ms, n_ops, rows = profile_device_ms(fn, top=None)
+        print(f"profiler, path F, {name} (one call): {dev_ms:.4f} ms of "
+              f"device time in {n_ops} device ops, {wall:.4f} ms wall; every "
+              f"op: {top_ops(rows)}", flush=True)
     print(f"captured decode step ({n} devices x (1, {heads}, {kv_len}, "
           f"{hd}) bf16 attention + {kv_chunk * 2 / MiB:.0f} MiB KV chunk "
           f"0->2, schedule {entry.schedule}, walk "
@@ -1238,6 +1367,7 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
           f") 0->1 bitwise, one dispatch, second one fast-path hit",
           flush=True)
     del moved, moved2
+    program_checks(cfg, engine, toks, outs, "G")
 
     # the kernel at layer 0's real prefill r/k/v/w, and the decay range
     lp = tfm.layer_params(params, 0)
@@ -1285,7 +1415,21 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
                         .max().item())
         return worst
 
+    def captured_decode_diff():
+        prefill = engine.prefill_program(len(prompts), start)
+        prefill.tokens.copy_(toks[:, :start])
+        prefill()
+        decode = engine.decode_program(len(prompts))
+        worst = 0.0
+        for t in range(start, plen):
+            decode.tokens.copy_(toks[:, t:t + 1])
+            decode.cur_len.fill_(t)
+            worst = max(worst, (decode().float() - logits[:, t].float())
+                        .abs().max().item())
+        return worst
+
     worst = decode_diff()
+    worst_captured = captured_decode_diff()
     top = logits[:, start:].float().abs().max().item()
     faults = {"zeroed state": decode_diff(zero=True),
               f"state one chunk ({sk.MAX_CHUNK}) early":
@@ -1294,11 +1438,15 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
     limit = RWKV_DECODE_ATOL
     check(worst <= limit, f"path G: prefill + {tail} decode steps differ"
           f" from the full prefill by {worst} (limit {limit})")
+    check(worst_captured <= limit, f"path G: the captured prefill + {tail} "
+          f"captured decode steps differ from the full prefill by "
+          f"{worst_captured} (limit {limit})")
     check(all(d > limit for d in faults.values()),
           f"path G: a planted fault passes the decode check: {faults}")
     print(f"prefill of {start} tokens + {tail} decode steps vs the full "
-          f"prefill: logits max abs diff {worst} (largest logit {top:.3f}, "
-          f"limit {limit}); planted faults: "
+          f"prefill: logits max abs diff {worst} eager steps, "
+          f"{worst_captured} captured prefill and steps (largest logit "
+          f"{top:.3f}, limit {limit}); planted faults: "
           + ", ".join(f"{k} {d}" for k, d in faults.items()), flush=True)
 
     serving_times(cfg, engine, sess, toks, logits, cache, new,

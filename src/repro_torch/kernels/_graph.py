@@ -50,12 +50,15 @@ class GraphProgram:
 
     Subclasses set ``device`` and implement :meth:`run`, :meth:`inputs`
     and :meth:`outputs`. ``replay_launches`` holds the kernel launches one
-    replay of the captured graph makes (empty before :meth:`capture`).
+    replay of the captured graph makes (empty before :meth:`capture`), and
+    ``held_bytes`` the device memory that the graph's pool keeps (0 before
+    it, and on the CPU).
     """
 
     device: torch.device
     _graph: torch.cuda.CUDAGraph | None = None
     replay_launches: dict[str, int] = {}
+    held_bytes: int = 0
 
     def run(self) -> None:
         """Execute the body once, without a graph."""
@@ -72,7 +75,20 @@ class GraphProgram:
         it. Returns ``(warm-up + capture ns, instantiation ns)``."""
         t0 = time.perf_counter_ns()
         self.run()
+        warm_ns = time.perf_counter_ns() - t0
+        capture_ns, instantiate_ns = self.record()
+        return warm_ns + capture_ns, instantiate_ns
+
+    def record(self) -> tuple[int, int]:
+        """Record one run into a CUDA graph and instantiate it; the body
+        must have run once before, as the warm-up. Recording runs nothing,
+        and a body that cannot be captured raises. Sets ``held_bytes``,
+        the device memory of the graph's private pool. Returns ``(capture
+        ns, instantiation ns)``."""
+        t0 = time.perf_counter_ns()
         torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = launch_counts()
         with torch.cuda.graph(graph):
@@ -85,6 +101,7 @@ class GraphProgram:
         graph.instantiate()
         self._graph = graph
         self.replay_launches = recorded
+        self.held_bytes = torch.cuda.memory_reserved(self.device) - reserved
         return t1 - t0, time.perf_counter_ns() - t1
 
     def replay(self) -> None:

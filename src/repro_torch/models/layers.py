@@ -158,13 +158,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def chunked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                             v_cache: torch.Tensor, cur_len: int, *,
+                             v_cache: torch.Tensor,
+                             cur_len: torch.Tensor | int, *,
                              window: int | None,
                              scale: float) -> torch.Tensor:
     """Single-token decode against a chunked cache (flash-decoding).
 
     q: (B, Hq, hd); k/v_cache: (B, Hkv, C, Sc, hd) — C is the split-KV
-    chunk dim. ``cur_len`` is the number of valid cache positions.
+    chunk dim. ``cur_len`` is the number of valid cache positions, an int
+    or a 0-d tensor on the cache's device (read on the device only).
     Returns (B, Hq, hd).
     """
     b, hq, hd = q.shape

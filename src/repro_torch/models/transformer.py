@@ -23,7 +23,11 @@ Decode caches (serve path):
 Unlike the reference, whose arrays are immutable, :func:`decode_step`
 writes the new token's key and value (or the new SSM state) into the cache
 in place and returns the same cache: a decode step allocates no second
-cache.
+cache. Its position ``cur_len`` is a 0-d int64 tensor on the cache's
+device (an int is turned into one), and the step reads nothing back to
+the host, so one step can be captured as a CUDA graph and replayed with
+another position. :func:`prefill_forward` can fill a given cache in
+place instead of a new one.
 """
 
 from __future__ import annotations
@@ -230,15 +234,20 @@ def _kv_to_ring(k, spec: "CacheSpec", s: int):
 
 
 def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
-                    spec: "CacheSpec") -> tuple[torch.Tensor, Cache]:
+                    spec: "CacheSpec", cache: Cache | None = None,
+                    ) -> tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also emits the decode cache.
 
     Returns (logits (B, S, V), cache) with the cache positioned after the
-    last prompt token (``cur_len = S`` for the subsequent decode_step)."""
+    last prompt token (``cur_len = S`` for the subsequent decode_step).
+    Every entry of the cache is written: a given ``cache`` (of
+    :func:`init_cache`'s shapes) is filled in place and returned, else a
+    new one is made."""
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)
-    cache = init_cache(cfg, b, spec, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, b, spec, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
         xin = rms_norm(x, lp["ln1"])
@@ -307,22 +316,23 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
 
 
 def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
-                      cur_len: int, spec: CacheSpec):
-    """x: (B, d) one token at position ``cur_len``; writes its key and
-    value into ``cache_k``/``cache_v`` in place. Returns out (B, d)."""
+                      cur_len: torch.Tensor, spec: CacheSpec):
+    """x: (B, d) one token at position ``cur_len`` (a 0-d int64 tensor);
+    writes its key and value into ``cache_k``/``cache_v`` in place.
+    Returns out (B, d)."""
     b, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     q = (x @ ap["wq"]).reshape(b, h, hd)
     k = (x @ ap["wk"]).reshape(b, kv, hd)
     v = (x @ ap["wv"]).reshape(b, kv, hd)
-    pos = torch.full((1,), cur_len, device=x.device)
+    pos = cur_len.view(1)
     q = apply_rope(q[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
     k = apply_rope(k[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
 
     if spec.kind == "ring":
         slot = cur_len % spec.max_len
-        cache_k[:, :, slot] = k
-        cache_v[:, :, slot] = v
+        cache_k.index_copy_(2, slot.view(1), k[:, :, None])
+        cache_v.index_copy_(2, slot.view(1), v[:, :, None])
         qpk = h // kv
         qg = (q.reshape(b, kv, qpk, hd) * hd ** -0.5).float()
         s = torch.einsum("bgqd,bgsd->bgqs", qg, cache_k.float())
@@ -337,17 +347,18 @@ def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
         o = torch.einsum("bgqs,bgsd->bgqd", pr, cache_v.float())
         o = o.reshape(b, h, hd).to(x.dtype)
     else:
-        ci = cur_len // spec.chunk_len
-        slot = cur_len % spec.chunk_len
-        cache_k[:, :, ci, slot] = k
-        cache_v[:, :, ci, slot] = v
+        # chunk cur_len // Sc, slot cur_len % Sc: row cur_len of the
+        # (B, Hkv, C·Sc, hd) view
+        flat = (b, kv, spec.max_len, hd)
+        cache_k.view(flat).index_copy_(2, pos, k[:, :, None])
+        cache_v.view(flat).index_copy_(2, pos, v[:, :, None])
         o = chunked_decode_attention(q, cache_k, cache_v, cur_len + 1,
                                      window=window, scale=hd ** -0.5)
     return o.reshape(b, h * hd) @ ap["wo"]
 
 
 def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
-                       cur_len: int, spec: CacheSpec):
+                       cur_len: torch.Tensor, spec: CacheSpec):
     """One token through one block. x: (B, d); ``cache_l`` is the layer's
     views of the cache's leaves, updated in place."""
     xin = rms_norm(x, lp["ln1"])
@@ -365,12 +376,14 @@ def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
-                tokens: torch.Tensor, cur_len: int,
+                tokens: torch.Tensor, cur_len: torch.Tensor | int,
                 spec: CacheSpec) -> tuple[torch.Tensor, Cache]:
     """One serve step: tokens (B, 1) int → (logits (B, V), cache), the
-    cache updated in place at position ``cur_len``."""
+    cache updated in place at position ``cur_len``: a 0-d int64 tensor on
+    the cache's device, or an int, which becomes one. Nothing is read back
+    to the host."""
     x = params["embed"][tokens[:, 0]]
-    cur_len = int(cur_len)
+    cur_len = torch.as_tensor(cur_len, dtype=torch.int64, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):
         x = decode_block_apply(x, layer_params(params, i), cfg, window,
                                {key: t[i] for key, t in cache.items()},

@@ -1,8 +1,20 @@
 """Batched serving engine: prefill → decode with a chunked KV cache.
 
-``make_serve_step`` builds the single-token step; ``ServeEngine`` is the
-runnable engine — batched requests, prefill-into-cache, greedy or
-temperature sampling, per-request completion tracking.
+``make_serve_step`` builds the single-token step, run eagerly;
+``ServeEngine`` is the runnable engine — batched requests,
+prefill-into-cache, greedy or temperature sampling, per-request
+completion tracking.
+
+The engine runs its prefill and its decode step as programs with static
+buffers, the counterpart of the reference's jitted steps: one
+:class:`DecodeProgram` per batch size (tokens ``(B, 1)``, the position,
+the cache, the logits ``(B, V)``) and one :class:`PrefillProgram` per
+(batch, prompt length), which fills the decode program's cache in place;
+the :data:`PREFILL_PROGRAMS` most recently used are kept. On a CUDA device
+each program's first call runs its body once, as the capture's warm-up,
+and records it into a CUDA graph; every later call replays the graph. A
+capture that fails raises: there is no eager path on the card. On the CPU
+the same bodies run eagerly, with the kernels' plain versions.
 
 Communication goes through an optional
 :class:`~repro_torch.comm.session.CommSession`: ``ServeEngine.migrate_kv``
@@ -18,6 +30,7 @@ graph per call.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import TYPE_CHECKING, Callable, Sequence
 
@@ -25,6 +38,7 @@ import torch
 
 from repro_torch.comm.capture import BufferSpec, dtype_name
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.flash_attention.ops import captured_flash_attention
 from repro_torch.models import transformer as tfm
 
@@ -102,16 +116,101 @@ class Request:
     done: bool = False
 
 
+#: Prefill programs an engine keeps, the most recently used: on a CUDA
+#: device each one's graph holds its activations and logits.
+PREFILL_PROGRAMS = 4
+
+
+class _ServeProgram(GraphProgram):
+    """A serving step over static buffers. Calling it runs the body on
+    the CPU; on a CUDA device the first call runs the body once as the
+    capture's warm-up, records it into a CUDA graph and returns the
+    warm-up's results, and every later call replays the graph. A capture
+    that fails raises and leaves the program uncaptured. ``calls`` counts
+    the calls and ``replays`` the graph replays among them."""
+
+    def __init__(self, engine: "ServeEngine", cache: dict):
+        self.cfg = engine.cfg
+        self.params = engine.params
+        self.spec = engine.spec
+        self.device = engine.device
+        self.cache = cache
+        self.logits: torch.Tensor | None = None
+        self.calls = 0
+        self.replays = 0
+
+    def outputs(self) -> list[torch.Tensor]:
+        return [self.logits, *self.cache.values()]
+
+    def __call__(self) -> torch.Tensor:
+        """One execution; returns the logits (the graph's static buffer
+        after a replay: read it before the next call)."""
+        self.calls += 1
+        if self._graph is not None:
+            self.replay()
+            self.replays += 1
+            return self.logits
+        self.run()
+        first = self.logits
+        if self.device.type == "cuda":
+            self.record()
+        return first
+
+
+class PrefillProgram(_ServeProgram):
+    """``prefill_forward`` of one (batch, prompt length) into a given
+    cache: static tokens ``(B, S)`` in, logits ``(B, S, V)`` out, every
+    entry of ``cache`` written in place."""
+
+    def __init__(self, engine: "ServeEngine", cache: dict, batch: int,
+                 length: int):
+        super().__init__(engine, cache)
+        self.tokens = torch.zeros((batch, length), dtype=torch.long,
+                                  device=self.device)
+
+    def inputs(self) -> list[torch.Tensor]:
+        return [self.tokens]
+
+    def run(self) -> None:
+        self.logits, _ = tfm.prefill_forward(
+            self.params, self.cfg, {"tokens": self.tokens}, self.spec,
+            cache=self.cache)
+
+
+class DecodeProgram(_ServeProgram):
+    """``decode_step`` of one batch size on its own cache: static tokens
+    ``(B, 1)`` and position ``cur_len`` (0-d int64) in, logits ``(B, V)``
+    out, the cache written in place at ``cur_len``."""
+
+    def __init__(self, engine: "ServeEngine", batch: int):
+        super().__init__(engine, tfm.init_cache(engine.cfg, batch,
+                                                engine.spec,
+                                                device=engine.device))
+        self.tokens = torch.zeros((batch, 1), dtype=torch.long,
+                                  device=self.device)
+        self.cur_len = torch.zeros((), dtype=torch.long, device=self.device)
+
+    def inputs(self) -> list[torch.Tensor]:
+        return [self.tokens, self.cur_len]
+
+    def run(self) -> None:
+        self.logits, _ = tfm.decode_step(self.params, self.cfg, self.cache,
+                                         self.tokens, self.cur_len,
+                                         self.spec)
+
+
 class ServeEngine:
     """Minimal batched engine: pads a request batch to a common prompt
     length (left, with token 0, and no padding mask — as the reference
     does), prefills once, decodes until every request finishes.
 
-    Runs on the device the parameters live on. Greedy sampling is
-    ``argmax``; with ``temperature > 0`` tokens are drawn from a
-    ``torch.Generator`` seeded by ``generate``'s ``seed`` (the reference
-    draws from its own generator, so sampled tokens differ between the
-    two packages; greedy ones agree).
+    Runs on the device the parameters live on, through its
+    :class:`PrefillProgram` and :class:`DecodeProgram` (captured CUDA
+    graphs on the card). Greedy sampling is ``argmax``; with
+    ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded
+    by ``generate``'s ``seed`` (the reference draws from its own
+    generator, so sampled tokens differ between the two packages; greedy
+    ones agree). Sampling runs outside the programs, on their logits.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256,
@@ -126,16 +225,48 @@ class ServeEngine:
         #: Comm-health events from the session; draining them comes with
         #: the health slice, so the list stays empty.
         self.health_events: list[dict] = []
-        self._decode = make_serve_step(cfg, self.spec)
         self.device = params["embed"].device
+        self._decodes: dict[int, DecodeProgram] = {}
+        self._prefills: collections.OrderedDict[
+            tuple[int, int], PrefillProgram] = collections.OrderedDict()
+
+    def decode_program(self, batch: int) -> DecodeProgram:
+        """The decode program of ``batch`` requests, made at first use; its
+        cache is the one every prefill program of that batch fills."""
+        prog = self._decodes.get(batch)
+        if prog is None:
+            prog = self._decodes[batch] = DecodeProgram(self, batch)
+        return prog
+
+    def prefill_program(self, batch: int, length: int) -> PrefillProgram:
+        """The prefill program of ``batch`` prompts of ``length`` tokens,
+        made at first use, writing into :meth:`decode_program`'s cache;
+        past :data:`PREFILL_PROGRAMS` the least recently used is
+        dropped."""
+        key = (batch, length)
+        prog = self._prefills.pop(key, None)
+        if prog is None:
+            prog = PrefillProgram(self, self.decode_program(batch).cache,
+                                  batch, length)
+        self._prefills[key] = prog
+        while len(self._prefills) > PREFILL_PROGRAMS:
+            self._prefills.popitem(last=False)
+        return prog
+
+    def graph_bytes(self) -> int:
+        """Device memory that the programs' captured graphs hold."""
+        return sum(p.held_bytes for p in (*self._decodes.values(),
+                                          *self._prefills.values()))
 
     def prefill(self, tokens):
         """Run the prefill forward pass: ``(B, S)`` prompt tokens →
-        ``(logits, cache)``. The cache is what :meth:`migrate_kv` moves."""
-        tokens = torch.as_tensor(tokens, dtype=torch.long,
-                                 device=self.device)
-        return tfm.prefill_forward(self.params, self.cfg,
-                                   {"tokens": tokens}, self.spec)
+        ``(logits, cache)``, new tensors that do not share memory with the
+        engine's programs. The cache is what :meth:`migrate_kv` moves."""
+        tokens = torch.as_tensor(tokens, dtype=torch.long)
+        prog = self.prefill_program(*tokens.shape)
+        prog.tokens.copy_(tokens)
+        logits = prog()
+        return logits.clone(), {k: t.clone() for k, t in prog.cache.items()}
 
     def migrate_kv(self, cache, src: int, dst: int):
         """Move a KV cache from logical device ``src`` to ``dst`` through
@@ -162,27 +293,41 @@ class ServeEngine:
 
     def generate(self, requests: Sequence[Request],
                  seed: int = 0) -> list[Request]:
+        """Serve ``requests`` as one batch: one prefill program call, then
+        one decode program call per step until every request has its
+        tokens. Completion depends on step counts only, so the tokens are
+        read back to the host once, at the end."""
         reqs = list(requests)
         plen = max(len(r.prompt) for r in reqs)
-        toks = [([0] * (plen - len(r.prompt))) + r.prompt for r in reqs]
-        logits, cache = self.prefill(toks)
+        max_new = max(r.max_new_tokens for r in reqs)
+        if (self.spec.kind == "chunked"
+                and plen + max(max_new - 1, 0) > self.spec.max_len):
+            raise ValueError(f"a {plen}-token prompt and {max_new} new "
+                             f"tokens do not fit a cache of max_len "
+                             f"{self.spec.max_len}")
+        prefill = self.prefill_program(len(reqs), plen)
+        prefill.tokens.copy_(torch.tensor(
+            [([0] * (plen - len(r.prompt))) + r.prompt for r in reqs]))
+        logits = prefill()
+        decode = self.decode_program(len(reqs))
         gen = None
         if self.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        cur = plen - 1
         next_tok = self._sample(logits[:, -1], gen)
-        max_new = max(r.max_new_tokens for r in reqs)
+        drawn, taken = [], [[] for _ in reqs]
         for step in range(max_new):
-            host = next_tok.tolist()
+            drawn.append(next_tok)
             for i, r in enumerate(reqs):
                 if not r.done and step < r.max_new_tokens:
-                    r.out.append(int(host[i]))
+                    taken[i].append(step)
                     if step + 1 >= r.max_new_tokens:
                         r.done = True
             if all(r.done for r in reqs):
                 break
-            cur = cur + 1
-            logits, cache = self._decode(self.params, cache,
-                                         next_tok[:, None], cur)
-            next_tok = self._sample(logits, gen)
+            decode.tokens.copy_(next_tok[:, None])
+            decode.cur_len.fill_(plen + step)
+            next_tok = self._sample(decode(), gen)
+        host = torch.stack(drawn).tolist() if drawn else []
+        for i, r in enumerate(reqs):
+            r.out.extend(host[step][i] for step in taken[i])
         return reqs

@@ -16,13 +16,19 @@ its plain version at the reference's tolerances (float32 atol 3e-5 /
 rtol 1e-4, bfloat16 max abs 2e-2), its bfloat16 tile products to
 torch.matmul (atol 1e-3 / rtol 1e-4), and the serving path on a reduced
 model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
-orders). The RWKV-6 scan is held to its plain version and to the literal
+orders). ``ServeEngine``'s captured decode step is held bit for bit to
+the eager ``make_serve_step`` (dense, ring and RWKV-6 caches), and its
+programs' call and replay counts to one prefill and ``new - 1`` decode
+steps per ``generate``; a failed capture raises. The RWKV-6 scan is held
+to its plain version and to the literal
 recurrence at the reference's tolerance (max error relative to the
 largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
 beside float32 w, strided inputs, its first pass's chunk-start states
 against the plain first pass at the same bound, and the reduced RWKV-6
 model served against the CPU. ``-k rwkv`` runs the scan's tests alone.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -42,7 +48,7 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import (Request, ServeEngine,
-                                 make_captured_decode_step)
+                                 make_captured_decode_step, make_serve_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -258,6 +264,96 @@ def test_serving_reduced_model_matches_cpu(dev):
     b = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
                       for r in reqs])
     assert [r.out for r in a] == [r.out for r in b]
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {key: _on(t, dev) for key, t in tree.items()}
+    return tree.to(dev)
+
+
+def _served(dev, arch, swa=False):
+    cfg = get_config(arch).reduced()
+    if swa:
+        cfg = dataclasses.replace(cfg, attention="swa", window=8)
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    return cfg, _on(params, dev), ServeEngine(cfg, _on(params, dev),
+                                              max_len=32, kv_chunks=4)
+
+
+@pytest.mark.parametrize("arch,swa", [("llama3_8b", False),
+                                      ("llama3_8b", True),
+                                      ("gemma3_27b", False),
+                                      ("rwkv6_1_6b", False)],
+                         ids=["llama3_8b", "llama3_8b-swa", "gemma3_27b",
+                              "rwkv6_1_6b"])
+def test_captured_decode_logits_equal_the_eager_step(dev, arch, swa):
+    """Three calls of the decode program (a capture, then two replays)
+    against ``make_serve_step`` on a copy of the same cache, token and
+    position: logits and cache bit for bit."""
+    cfg, params, engine = _served(dev, arch, swa)
+    prefill = engine.prefill_program(2, 12)
+    prefill.tokens.copy_(torch.tensor([list(range(1, 13)), [5, 6, 7] * 4]))
+    tok = prefill()[:, -1].argmax(-1)[:, None]
+    decode = engine.decode_program(2)
+    step = make_serve_step(cfg, engine.spec)
+    for pos in range(12, 15):
+        eager = {k: t.clone() for k, t in decode.cache.items()}
+        want, _ = step(params, eager, tok, pos)
+        decode.tokens.copy_(tok)
+        decode.cur_len.fill_(pos)
+        got = decode()
+        assert torch.equal(got, want)
+        assert all(torch.equal(decode.cache[k], eager[k]) for k in eager)
+        tok = got.argmax(-1)[:, None]
+    assert (decode.calls, decode.replays) == (3, 2)
+
+
+def test_generate_runs_through_the_programs(dev):
+    """A ``generate`` of ``new`` tokens calls the prefill program once and
+    the decode program ``new - 1`` times: the first ``generate`` captures
+    both, the second only replays them (one prefill's ``flash_attention``
+    launches), with the same tokens."""
+    cfg, _, engine = _served(dev, "llama3_8b")
+    new = 5
+
+    def run():
+        return [r.out for r in engine.generate(
+            [Request([1, 2, 3], new), Request([7, 8, 9, 10], new)])]
+
+    first = run()
+    prefill, decode = engine._prefills[(2, 4)], engine._decodes[2]
+    assert (prefill.calls, prefill.replays) == (1, 0)
+    assert (decode.calls, decode.replays) == (new - 1, new - 2)
+    before = fk.LAUNCHES
+    assert run() == first
+    assert fk.LAUNCHES == before + cfg.num_layers
+    assert (prefill.calls, prefill.replays) == (2, 1)
+    assert (decode.calls, decode.replays) == (2 * (new - 1), 2 * new - 3)
+    assert prefill.held_bytes > 0 and decode.held_bytes > 0
+    assert engine.graph_bytes() == prefill.held_bytes + decode.held_bytes
+
+
+def test_a_failed_capture_raises(dev, monkeypatch):
+    """A decode step that cannot be captured raises from ``generate``,
+    every time, and the program stays uncaptured: nothing runs it eagerly
+    instead."""
+    _, _, engine = _served(dev, "llama3_8b")
+    real = tfm.decode_step
+
+    def uncapturable(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("cannot be captured")
+        return out
+
+    monkeypatch.setattr(tfm, "decode_step", uncapturable)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            engine.generate([Request([1, 2, 3], 3)])
+    decode = engine._decodes[1]
+    assert decode._graph is None and decode.replays == 0
+    assert decode.calls == 2
 
 
 def test_captured_decode_step_one_dispatch(dev):

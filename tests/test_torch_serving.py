@@ -8,6 +8,11 @@
   float32 state beside its token-shift input, also in bfloat16) is
   bit-equal to the cache (and to the reference's migration), one dispatch
   per migration, the second one a fast-path hit.
+* The engine's programs (run eagerly here, captured on the card): one
+  engine serves batches of other shapes with fresh reference engines'
+  tokens; at most ``PREFILL_PROGRAMS`` prefill programs are kept; what
+  ``prefill`` returns shares no memory with them; one decode program step
+  equals ``make_serve_step`` bit for bit.
 * ``make_captured_decode_step`` at the reference test's sizes: the same
   recording as the reference (signature, lowered and scheduled graph
   digests under all five schedulers), attention within 2e-5 of the
@@ -42,6 +47,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as tfm_port
 from repro_torch.serving import (Request, ServeEngine,
                                  make_captured_decode_step, make_serve_step)
+from repro_torch.serving.engine import PREFILL_PROGRAMS
 
 jload_all()
 
@@ -94,6 +100,123 @@ def test_generate_greedy_equals_reference(smollm, case):
 @pytest.mark.parametrize("case", sorted(REQUESTS))
 def test_rwkv_generate_greedy_equals_reference(rwkv, case):
     check_greedy_equals_reference(rwkv, case)
+
+
+# -- the engine's programs -------------------------------------------------
+
+#: Batches one engine serves in turn: (max new tokens, prompts).
+BATCHES = [(5, [[1, 2, 3], [7, 8, 9, 10]]),
+           (4, [[4, 5, 6, 7, 8, 9], [3], [11, 12]]),
+           (6, [[2, 3, 4], [9, 9]])]
+
+
+@pytest.mark.parametrize("name", ["smollm", "rwkv"])
+def test_one_engine_serves_batches_of_other_shapes(request, name):
+    """Batches of other sizes and prompt lengths in turn through one
+    engine (per-shape programs, decode caches shared by batch size) give
+    fresh reference engines' greedy tokens."""
+    jcfg, jparams, cfg, params = request.getfixturevalue(name)
+    engine = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    for new, prompts in BATCHES:
+        want = JServeEngine(jcfg, jparams, max_len=32, kv_chunks=4
+                            ).generate([JRequest(list(p), new)
+                                        for p in prompts])
+        got = engine.generate([Request(list(p), new) for p in prompts])
+        assert [r.out for r in got] == [r.out for r in want]
+    assert sorted(engine._decodes) == [2, 3]
+    assert sorted(engine._prefills) == [(2, 3), (2, 4), (3, 6)]
+
+
+def eager_greedy(cfg, params, spec, prompts, new):
+    """Greedy tokens of an eager loop: ``prefill_forward``, then
+    ``make_serve_step`` and ``argmax``, with the engine's left padding."""
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts])
+    logits, cache = tfm_port.prefill_forward(params, cfg, {"tokens": toks},
+                                             spec)
+    step = make_serve_step(cfg, spec)
+    tok = logits[:, -1].argmax(-1)
+    out = [tok]
+    for i in range(new - 1):
+        logits, cache = step(params, cache, tok[:, None], plen + i)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, 1).tolist()
+
+
+def test_prefill_programs_are_bounded(smollm):
+    """Six prompt shapes through one engine keep the PREFILL_PROGRAMS
+    most recently used programs, and every batch's tokens equal the eager
+    loop's; a shape served again after its program was dropped too."""
+    _, _, cfg, params = smollm
+    engine = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    shapes = [(1, 3), (2, 3), (1, 5), (2, 6), (1, 7), (2, 4), (1, 3)]
+    for i, (b, s) in enumerate(shapes):
+        prompts = [[(7 * i + 3 * j + t) % cfg.vocab_size for t in range(s)]
+                   for j in range(b)]
+        got = engine.generate([Request(list(p), 4) for p in prompts])
+        assert [r.out for r in got] == eager_greedy(cfg, params, engine.spec,
+                                                    prompts, 4)
+        assert len(engine._prefills) == min(i + 1, PREFILL_PROGRAMS)
+    assert list(engine._prefills) == shapes[-PREFILL_PROGRAMS:]
+    assert sorted(engine._decodes) == [1, 2]
+
+
+def test_prefill_returns_new_tensors(smollm):
+    """The logits and cache that ``prefill`` returns share no memory with
+    the engine's programs: a later ``generate`` leaves them as they were,
+    and changing them leaves the next ``generate``'s tokens unchanged."""
+    _, _, cfg, params = smollm
+    engine = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    prompts = [[1, 2, 3, 4], [5, 6, 7, 8]]
+
+    def reqs():
+        return [Request(list(p), 5) for p in prompts]
+
+    first = [r.out for r in engine.generate(reqs())]
+    logits, cache = engine.prefill(prompts)
+    prog = engine.prefill_program(2, 4)
+    static = {t.untyped_storage().data_ptr()
+              for t in [*prog.inputs(), *prog.outputs(),
+                        *engine.decode_program(2).inputs()]}
+    assert not static & {t.untyped_storage().data_ptr()
+                         for t in [logits, *cache.values()]}
+    kept = logits.clone(), {k: t.clone() for k, t in cache.items()}
+    assert [r.out for r in engine.generate(reqs())] == first
+    assert torch.equal(logits, kept[0])
+    assert all(torch.equal(cache[k], kept[1][k]) for k in cache)
+    logits.fill_(5.0)
+    for t in cache.values():
+        t.fill_(-3.0)
+    assert [r.out for r in engine.generate(reqs())] == first
+
+
+@pytest.mark.parametrize("name", ["smollm", "rwkv"])
+def test_decode_program_step_is_serve_step(request, name):
+    """One call of the decode program gives ``make_serve_step``'s logits
+    and cache on the same cache, token and position, bit for bit."""
+    _, _, cfg, params = request.getfixturevalue(name)
+    engine = ServeEngine(cfg, params, max_len=16, kv_chunks=4)
+    prefill = engine.prefill_program(2, 5)
+    prefill.tokens.copy_(torch.tensor([[3, 4, 5, 6, 7], [1, 1, 2, 3, 5]]))
+    logits = prefill()
+    decode = engine.decode_program(2)
+    eager = {k: t.clone() for k, t in decode.cache.items()}
+    tok = logits[:, -1].argmax(-1)[:, None]
+    want, _ = make_serve_step(cfg, engine.spec)(params, eager, tok, 5)
+    decode.tokens.copy_(tok)
+    decode.cur_len.fill_(5)
+    assert torch.equal(decode(), want)
+    assert all(torch.equal(decode.cache[k], eager[k]) for k in eager)
+    assert (decode.calls, decode.replays) == (1, 0)
+
+
+def test_generate_checks_the_cache_length(smollm):
+    _, _, cfg, params = smollm
+    engine = ServeEngine(cfg, params, max_len=8, kv_chunks=4)
+    assert len(engine.generate([Request([1, 2, 3], 6)])[0].out) == 6
+    with pytest.raises(ValueError, match="max_len 8"):
+        engine.generate([Request([1, 2, 3], 7)])
 
 
 def test_serve_step_is_decode_step(smollm):

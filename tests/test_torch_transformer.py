@@ -7,8 +7,10 @@ draws the weights (``init_params``); ``params_from_numpy`` carries them
 into the port, so both sides compute with the same numbers. ``forward``,
 ``prefill_forward`` (logits and cache) and 4 ``decode_step`` calls agree
 within atol 1e-4: the same float32 arithmetic, summed in another order.
-A sliding-window variant exercises the ring cache. On the CPU the RWKV-6
-scan is the kernel's plain version, in the reference's chunks of 128.
+A sliding-window variant exercises the ring cache. ``decode_step`` takes
+its position as an int or a 0-d tensor, bit-equal, and the jitted
+reference step agrees. On the CPU the RWKV-6 scan is the kernel's plain
+version, in the reference's chunks of 128.
 """
 
 import dataclasses
@@ -138,6 +140,52 @@ def test_decode_from_a_carried_cache(model):
     got, _ = tfm.decode_step(params, cfg, cache, torch.from_numpy(
         toks[:, 11:]), 11, spec)
     close(got, want)
+
+
+def test_decode_step_takes_cur_len_as_a_tensor(model):
+    """``cur_len`` as a 0-d int64 tensor gives the int form's logits and
+    cache bit for bit, and the jitted reference step's within ATOL, at
+    positions 10-13: past the ring's wrap (window 8) and across a chunk
+    boundary (chunks of 4)."""
+    jcfg, cfg, jparams, params = model
+    b, sp, steps = 2, 10, 4
+    toks = tokens(5, b, sp + steps, cfg.vocab_size)
+    jspec = jtfm.cache_spec(jcfg, max_len=16, kv_chunks=4)
+    spec = tfm.cache_spec(cfg, max_len=16, kv_chunks=4)
+    jstep = jax.jit(lambda p, c, t, n: jtfm.decode_step(p, jcfg, c, t, n,
+                                                        jspec))
+    _, jcache = jtfm.prefill_forward(
+        jparams, jcfg, {"tokens": jnp.asarray(toks[:, :sp])}, jspec)
+    _, as_int = tfm.prefill_forward(
+        params, cfg, {"tokens": torch.from_numpy(toks[:, :sp])}, spec)
+    as_tensor = {k: t.clone() for k, t in as_int.items()}
+    for t in range(sp, sp + steps):
+        tok = torch.from_numpy(toks[:, t:t + 1])
+        want, jcache = jstep(jparams, jcache, jnp.asarray(toks[:, t:t + 1]),
+                             jnp.int32(t))
+        got_int, _ = tfm.decode_step(params, cfg, as_int, tok, t, spec)
+        got, _ = tfm.decode_step(params, cfg, as_tensor, tok,
+                                 torch.tensor(t), spec)
+        assert torch.equal(got, got_int)
+        close(got, want)
+    for key in as_int:
+        assert torch.equal(as_tensor[key], as_int[key])
+        close(as_tensor[key], jcache[key])
+
+
+def test_prefill_fills_a_given_cache(model):
+    """``prefill_forward(cache=...)`` writes every entry of a used cache
+    in place: the same logits and cache as a prefill into a new one."""
+    _, cfg, _, params = model
+    spec = tfm.cache_spec(cfg, max_len=16, kv_chunks=4)
+    batch = {"tokens": torch.from_numpy(tokens(6, 2, 9, cfg.vocab_size))}
+    want, fresh = tfm.prefill_forward(params, cfg, batch, spec)
+    used = {k: torch.full_like(t, 3.0) for k, t in fresh.items()}
+    got, same = tfm.prefill_forward(params, cfg, batch, spec, cache=used)
+    assert same is used
+    assert torch.equal(got, want)
+    for key in fresh:
+        assert torch.equal(used[key], fresh[key])
 
 
 def test_init_params_shapes_dtypes_and_scales():
