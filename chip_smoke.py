@@ -125,7 +125,32 @@ What it does, in order (any failed check exits nonzero):
     limit; the same prefill and 8 steps through the captured prefill and
     decode programs within the same limit; the token and logit checks and
     the times of path E;
-13. one JSON line ``{"kernels": [...]}``, then as the last line
+13. main path H, after path G's tensors are freed, counters set to 0
+    before it and read after it: the measured-feedback loop on a
+    ``CommSession(CommConfig(telemetry=True, profile_dir=...))`` on the
+    default 4-device topology (the directory a temporary one under
+    ``build/``): float32 sends 0→1 of 64 KiB, 1, 16, 64 and 256 MiB with
+    ``max_paths`` 1, 2 and 3, 10 dispatches each, and a 4-message
+    ``exchange`` 10 times; ``flash_attention`` at path F's shape and
+    ``ring_allgather`` at (4, 2048, 8192) float32, each timed 5 times by
+    CUDA events into the recorder's kernel channel; path F's captured
+    decode step (its attention node's ``cost_ns`` must equal the
+    recorder's median) resolved and called 3 times, and a captured ring
+    all-gather whose node is priced the same way; then
+    ``calibrate(min_samples=3, warmup=2, persist=True)`` and the sweep,
+    the exchange and the step again under the fitted profile. Checks:
+    every message and KV chunk bitwise before and after the profile, the
+    attention within 4e-3 + 8e-3·|want| of the plain version, one sample
+    per dispatch, zero setup stages on every fast-path hit, launch and
+    execute above 0 and the stage sum within the call's wall time in every
+    sample, a second session on the directory loads an equal profile, and
+    ``multipath_dma``, ``flash_attention`` and ``ring_allgather`` each
+    launched. Printed beside the card's name and power limit: the fitted
+    launch and instantiate terms against the nominal ones and phase 9's
+    64 KiB eager launch, the fitted link bandwidths and kernel costs, the
+    residuals' median and p90 with nominal and fitted terms, and a 64 KiB
+    send's host time with telemetry on and off, in turns;
+14. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -238,11 +263,14 @@ def top_ops(rows) -> str:
     return ", ".join(f"{name[:48]} {ms:.4f} x{n}" for name, ms, n in rows)
 
 
-def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
+def comm_paths(dev, randn, errs, per_path, read_path
+               ) -> tuple[list[dict], dict]:
     """Main paths A–D (phases 4–8) on one session, then their kernels at
     the paths' shapes and their times (phase 9). Returns the report rows
     of ``multipath_dma``, ``jacobi`` and ``ring_allgather`` (``launches``
-    is filled in by the caller); everything else is freed on return."""
+    is filled in by the caller) and the 64 KiB send's per-dispatch times
+    in µs (graph replay and eager launch, back to back and synced);
+    everything else is freed on return."""
     from repro_torch.comm import CommConfig, CommSession
     from repro_torch.comm import collectives as coll
     from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
@@ -557,6 +585,10 @@ def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
           f"{eager_dev * 1e3:.2f} us ({eager_host * 1e3:.2f} us synced), "
           f"eager one copy_ per work item {pernode_dev * 1e3:.2f} us; whole "
           f"session.send {send_host * 1e3:.2f} us synced", flush=True)
+    launch64 = {"replay_us": rep_dev * 1e3,
+                "replay_synced_us": rep_host * 1e3,
+                "eager_us": eager_dev * 1e3,
+                "eager_synced_us": eager_host * 1e3, "copy_nodes": nodes}
     # send size sweep on the main session: graph replay vs one copy_
     for nbytes in (64 * 1024, MiB, 16 * MiB, 256 * MiB):
         m = big[: nbytes // 4]
@@ -657,7 +689,7 @@ def comm_paths(dev, randn, errs, per_path, read_path) -> list[dict]:
          "library_call": "xs.reshape(1, n*rows, f).expand(n, -1, -1)"
                          ".contiguous()"},
     ]
-    return kernels
+    return kernels, launch64
 
 
 def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters) -> dict:
@@ -1451,6 +1483,322 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
 
     serving_times(cfg, engine, sess, toks, logits, cache, new,
                   (gen1_s, gen2_s), "G")
+def quantile(xs, q: float) -> float:
+    """The ``q`` quantile of ``xs`` (linear between the order
+    statistics)."""
+    xs = sorted(xs)
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def calibration_path(dev, errs, per_path, read_path, launch64: dict,
+                     smi: str) -> None:
+    """Main path H (phase 13): the measured-feedback loop, read with the
+    counters set to 0 just before it. A ``CommSession`` with telemetry on
+    and a profile directory records every dispatch of a send sweep, an
+    exchange and path F's captured decode step, times ``flash_attention``
+    and ``ring_allgather`` into the recorder's kernel channel, fits and
+    persists a calibration profile, and sends again under it; then the
+    fitted terms beside the nominal ones, the residuals and telemetry's
+    own cost."""
+    import tempfile
+
+    from repro_torch.comm import (CalibrationFitter, CommConfig,
+                                  CommSession, StageTimings,
+                                  modeled_sample_time_s, modeled_vs_measured)
+    from repro_torch.core import pipelining as pl
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ring_allgather import kernel as rk
+    from repro_torch.kernels.ring_allgather.ops import captured_ring_allgather
+    from repro_torch.serving import make_captured_decode_step
+
+    # -- 13. main path H: telemetry and calibration --------------------------
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    profiles = tempfile.TemporaryDirectory(
+        dir=os.path.join(HERE, "build"), prefix="profiles-")
+    reset_launch_counts()
+    sess = CommSession(CommConfig(telemetry=True,
+                                  profile_dir=profiles.name))
+    rec = sess.telemetry
+    check(rec.enabled and sess.topology.calibration is None,
+          "path H session: telemetry off or a profile already attached")
+    walls = []
+
+    def dispatch(fn):
+        """Run one dispatch, keeping its host wall time beside the one
+        sample it must record."""
+        n0 = rec.recorded
+        t0 = time.perf_counter_ns()
+        out = fn()
+        wall = time.perf_counter_ns() - t0
+        check(rec.recorded == n0 + 1, f"a dispatch recorded "
+              f"{rec.recorded - n0} samples, not one")
+        walls.append((rec.samples()[-1], wall))
+        return out
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    big = torch.randn(1 << 26, generator=g, device=dev)       # 256 MiB f32
+    sizes = (64 * 1024, MiB, 16 * MiB, 64 * MiB, 256 * MiB)
+    sweep = [(nbytes, paths) for nbytes in sizes for paths in (1, 2, 3)]
+    quarter = [torch.randn(4 * MiB, generator=g, device=dev)
+               for _ in range(4)]                            # 16 MiB each
+    items = [(quarter[i], i, (i + 1) % 4) for i in range(4)]
+
+    def send_sweep(reps: int) -> None:
+        for nbytes, paths in sweep:
+            m = big[: nbytes // 4]
+            for _ in range(reps):
+                got = dispatch(lambda: sess.send(m, 0, 1, max_paths=paths))
+                check(torch.equal(got, m), f"path H: {nbytes} B send with "
+                      f"max_paths={paths} not bitwise")
+
+    def exchange(reps: int) -> None:
+        for _ in range(reps):
+            got = dispatch(lambda: sess.exchange(items))
+            check(all(torch.equal(a, b) for a, b in zip(got, quarter)),
+                  "path H: 4-message exchange not bitwise")
+
+    send_sweep(10)                      # 2 warm-up + 8 kept per signature
+    exchange(10)
+
+    # the kernel channel: CUDA-event times of the two kernels
+    n = sess.num_devices
+    heads, kv_len, hd = 32, 2048, 128
+    q, k, v = (torch.randn((n, 1, heads, kv_len, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    q4, k4, v4 = (t.view(n, heads, kv_len, hd) for t in (q, k, v))
+    rows_ag = torch.randn((n, 2048, 8192), generator=g, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for name, fn in (("flash_attention",
+                      lambda: fops.flash_attention(q4, k4, v4)),
+                     ("ring_allgather",
+                      lambda: rk.ring_allgather_cuda(rows_ag))):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            rec.record_kernel(name, start.elapsed_time(end) * 1e6)
+
+    # path F's captured decode step, its attention node priced from them
+    kv_chunk = 2 * 8 * kv_len * hd
+    kv = torch.randn((n, kv_chunk), generator=g, device=dev).to(
+        torch.bfloat16)
+    step = make_captured_decode_step(
+        sess, batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+        kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+        schedule="overlap")
+    entry = step.resolve()
+    (attn_node,) = [nd for nd in entry.graph.nodes
+                    if getattr(nd, "kernel", None) == "flash_attention"]
+    want_cost = int(rec.kernel_cost_ns("flash_attention"))
+    check(want_cost > 0 and attn_node.cost_ns == want_cost,
+          f"path H: the decode step's attention node carries cost_ns "
+          f"{attn_node.cost_ns}, not the recorder's {want_cost}")
+    want_attn = fk.flash_attention_plain(q4, k4, v4)
+    want_kv = kv.clone()
+    want_kv[2] = kv[0]
+
+    def decode_calls(reps: int) -> float:
+        worst = 0.0
+        for _ in range(reps):
+            attn, new_kv = dispatch(lambda: step(q, k, v, kv))
+            err, ok = bf16_err(attn.view(n, heads, kv_len, hd), want_attn)
+            check(ok, f"path H: decode step attention max abs err {err}, "
+                  f"beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+            check(torch.equal(new_kv, want_kv), "path H: the KV chunk did "
+                  "not land bitwise on device 2")
+            worst = max(worst, err)
+        return worst
+
+    worst = decode_calls(3)
+
+    # the ring adopter: its node priced from the kernel channel
+    ring_step = sess.capture(lambda cap: captured_ring_allgather(
+        cap, cap.input((2048, 8192), torch.float32), n,
+        telemetry=sess.telemetry))
+    rentry = ring_step.resolve()
+    (ring_node,) = [nd for nd in rentry.graph.nodes
+                    if getattr(nd, "kernel", None) == "ring_allgather"]
+    ring_cost = int(rec.kernel_cost_ns("ring_allgather"))
+    check(ring_cost > 0 and ring_node.cost_ns == ring_cost,
+          f"path H: the ring node carries cost_ns {ring_node.cost_ns}, not "
+          f"the recorder's {ring_cost}")
+    (gathered,) = dispatch(lambda: ring_step(rows_ag))
+    check(torch.equal(gathered, rk.ring_allgather_plain(rows_ag).reshape(
+        n, n * 2048, 8192)), "path H: captured ring all-gather not bitwise")
+    del gathered
+
+    # fit, attach and persist
+    fitted_from = rec.samples()
+    t0 = time.perf_counter()
+    epoch = sess.planner.epoch
+    prof = sess.calibrate(min_samples=3, warmup=2, persist=True)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    check(sess.topology.calibration is prof and sess.planner.epoch != epoch,
+          "path H: the fitted profile was not attached")
+    check(prof.launch is not None and prof.link_bandwidth_gbps
+          and set(prof.kernel_cost_ns) == {"flash_attention",
+                                           "ring_allgather"},
+          f"path H: the profile lacks terms: {prof.summary()}")
+    # under the fitted terms the same traffic replans; still bitwise
+    send_sweep(2)
+    exchange(2)
+    worst = max(worst, decode_calls(1))
+    torch.cuda.synchronize()
+    read_path("H")
+    errs["flash_attention"] = max(errs["flash_attention"], worst)
+    for name in ("multipath_dma", "flash_attention", "ring_allgather"):
+        check(per_path["H"].get(name, 0) > 0,
+              f"path H did not launch {name}")
+
+    # the recorder's own checks
+    samples = rec.samples()
+    dispatches = sess.stats()["dispatches"]
+    check(len(samples) == rec.recorded == dispatches == len(walls),
+          f"path H: {rec.recorded} samples recorded for {dispatches} "
+          f"dispatches")
+    for smp, wall in walls:
+        st = smp.stages
+        check(st.launch_ns > 0 and st.execute_ns > 0,
+              f"path H: a sample without launch or execute time: {st}")
+        check(st.total_ns <= wall, f"path H: stage sum {st.total_ns} ns "
+              f"over the call's wall time {wall} ns")
+        if smp.fastpath_hit:
+            check((st.plan_ns, st.lower_ns, st.schedule_ns, st.compile_ns)
+                  == (0, 0, 0, 0), f"path H: a fast-path hit with setup "
+                  f"time: {st}")
+    hits = sum(smp.fastpath_hit for smp in samples)
+    other = CommSession(CommConfig(profile_dir=profiles.name))
+    loaded = other.topology.calibration
+    check(loaded is not None and loaded.to_payload() == prof.to_payload()
+          and other.stats()["calibration"]["active"],
+          "path H: a second session did not load the fitted profile")
+    files = os.listdir(profiles.name)
+    print(f"path H ({smi}): {dispatches} dispatches, {len(samples)} "
+          f"samples ({hits} fast-path hits, every one with zero setup "
+          f"stages; launch and execute > 0 and the stage sum within the "
+          f"call's wall time in every sample); every message bitwise before "
+          f"and after the profile ({len(fitted_from)} samples fitted in "
+          f"{fit_ms:.1f} ms, persisted as {files}, loaded by a second "
+          f"session); decode step attention max abs err {worst}, KV chunk "
+          f"bitwise; attention node cost_ns {attn_node.cost_ns}, ring node "
+          f"cost_ns {ring_node.cost_ns}", flush=True)
+
+    # what the fitter saw: median launch and execute per node count
+    by_nodes: dict[int, list] = {}
+    for smp in fitted_from:
+        if not smp.compute and smp.fastpath_hit:
+            by_nodes.setdefault(smp.num_nodes, []).append(smp.stages)
+    print(f"path H ({smi}): fast-path pure-comm samples by node count, "
+          f"median launch / execute / staging us: " + ", ".join(
+              f"{nodes} nodes x{len(st)}: "
+              f"{quantile([x.launch_ns for x in st], 0.5) / 1e3:.2f} / "
+              f"{quantile([x.execute_ns for x in st], 0.5) / 1e3:.2f} / "
+              f"{quantile([x.staging_ns for x in st], 0.5) / 1e3:.2f}"
+              for nodes, st in sorted(by_nodes.items())), flush=True)
+    inst = [(smp.num_nodes, smp.stages.compile_ns / 1e6)
+            for smp in fitted_from if smp.stages.compile_ns]
+    # every build is a signature's first dispatch, which the warm-up
+    # drops: the same fitter without warm-up fits the instantiate terms
+    builds = CalibrationFitter(sess.topology, min_samples=3,
+                               warmup=0).fit(fitted_from).launch
+    print(f"path H ({smi}): graph builds (nodes, ms): {inst}; fitted "
+          f"without warm-up: instantiate base "
+          f"{builds.graph_instantiate_base_ns:.1f} ns + "
+          f"{builds.graph_instantiate_per_node_ns:.3f} ns/node", flush=True)
+
+    launch = prof.launch
+    print(f"path H ({smi}): fitted launch terms from "
+          f"{prof.launch_samples} samples: graph launch base "
+          f"{launch.graph_launch_base_ns:.1f} ns + "
+          f"{launch.graph_launch_per_node_ns:.3f} ns/node (nominal "
+          f"{pl.GRAPH_LAUNCH_BASE_NS} + {pl.GRAPH_LAUNCH_PER_NODE_NS}), "
+          f"instantiate base {launch.graph_instantiate_base_ns:.1f} ns + "
+          f"{launch.graph_instantiate_per_node_ns:.3f} ns/node (nominal "
+          f"{pl.GRAPH_INSTANTIATE_BASE_NS} + "
+          f"{pl.GRAPH_INSTANTIATE_PER_NODE_NS}); phase 9's 64 KiB send "
+          f"({launch64['copy_nodes']} copy nodes): graph replay "
+          f"{launch64['replay_us']:.2f} us/dispatch back to back "
+          f"({launch64['replay_synced_us']:.2f} synced), eager kernel "
+          f"launch {launch64['eager_us']:.2f} us "
+          f"({launch64['eager_synced_us']:.2f} synced)", flush=True)
+    nominal = Topology.full_mesh(4, with_host=True).links
+    print(f"path H ({smi}): fitted link bandwidths, GB/s (nominal; every "
+          f"link is the one HBM here, so these describe the multipath_dma "
+          f"kernel): " + ", ".join(
+              f"{a}->{b} {bw} ({nominal[(a, b)].bandwidth_gbps}, "
+              f"{prof.link_samples[(a, b)]} samples)"
+              for (a, b), bw in sorted(prof.link_bandwidth_gbps.items())),
+          flush=True)
+    print(f"path H ({smi}): fitted kernel costs ns: " + ", ".join(
+        f"{name} {ns} ({prof.kernel_samples[name]} samples)"
+        for name, ns in sorted(prof.kernel_cost_ns.items())), flush=True)
+    topo = sess.topology
+    resid = {}
+    for label, p in (("nominal", None), ("fitted", prof)):
+        rel = [abs(modeled_sample_time_s(smp, topo, p) - smp.measured_s)
+               / smp.measured_s for smp in fitted_from]
+        resid[label] = (quantile(rel, 0.5), quantile(rel, 0.9))
+    mvm = modeled_vs_measured(fitted_from, topo, prof)
+    print(f"path H ({smi}): modeled vs measured over the "
+          f"{len(fitted_from)} fitted samples, relative error median / "
+          f"p90: nominal {resid['nominal'][0]:.4f} / "
+          f"{resid['nominal'][1]:.4f}, fitted {resid['fitted'][0]:.4f} / "
+          f"{resid['fitted'][1]:.4f} (modeled_vs_measured: {mvm})",
+          flush=True)
+    del step, ring_step, entry, rentry, q, k, v, q4, k4, v4, kv, want_attn
+    del sess, other, big, quarter, items, rows_ag, samples, fitted_from
+    profiles.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # telemetry's own cost: one session's 64 KiB send with its recorder
+    # on and off, in turns (the same program and graph either way)
+    tsess = CommSession(CommConfig(telemetry=True))
+    msg = torch.randn(16 * 1024, generator=g, device=dev)
+    times = {True: [], False: []}
+    for on in (True, False, False, True, True, False, False, True):
+        tsess.telemetry.enabled = on
+        gc.collect()
+        times[on].append(host_time_ms(lambda: tsess.send(msg, 0, 1), 500,
+                                      warmup=20) * 1e3)
+    tel = tsess.telemetry
+    check(tel.recorded == 4 * 520, f"the recorder kept {tel.recorded} "
+          f"samples of {4 * 520} dispatches with it on")
+    mean_on, mean_off = (sum(times[k]) / 4 for k in (True, False))
+    # the same replay through timed_call alone, on an idle stream and
+    # behind the staging copy a dispatch enqueues first; one record's cost
+    (_, tentry), = tsess.engine._fastpath._store.values()
+    compiled = tentry.compiled
+    split = [compiled.timed_call()[1:] for _ in range(300)]
+    staged = []
+    for _ in range(300):
+        compiled.inputs()[0][:, 0].copy_(msg)
+        staged.append(compiled.timed_call()[1])
+    t0 = time.perf_counter_ns()
+    for _ in range(1000):
+        tsess.engine._record(tentry, StageTimings(), True, 1)
+    record_us = (time.perf_counter_ns() - t0) / 1000 / 1e3
+    print(f"path H ({smi}): 64 KiB send ({tentry.graph.num_nodes} copy "
+          f"node) host time synced, recorder on {mean_on:.3f} us, off "
+          f"{mean_off:.3f} us (one session, in turns, 4 x 500 calls each: "
+          f"on {[round(t, 3) for t in times[True]]}, off "
+          f"{[round(t, 3) for t in times[False]]}): "
+          f"{mean_on - mean_off:.3f} us a dispatch; building and recording "
+          f"one sample alone {record_us:.3f} us; its replay through "
+          f"timed_call alone, median launch "
+          f"{quantile([a for a, _ in split], 0.5) / 1e3:.2f} us, execute "
+          f"{quantile([b for _, b in split], 0.5) / 1e3:.2f} us; launch "
+          f"behind a staging copy_ {quantile(staged, 0.5) / 1e3:.2f} us",
+          flush=True)
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1659,7 +2007,7 @@ def main() -> int:
         print(f"main path {name} launches: {per_path[name]}", flush=True)
 
     del torus, entry
-    kernels = comm_paths(dev, randn, errs, per_path, read_path)
+    kernels, launch64 = comm_paths(dev, randn, errs, per_path, read_path)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1670,11 +2018,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rwkv_path(dev, errs, per_path, read_path)
-    print(f"main-path launches (paths A-G): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calibration_path(dev, errs, per_path, read_path, launch64, smi)
+    print(f"main-path launches (paths A-H): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 13. report --------------------------------------------------------
+    # -- 14. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -7,6 +7,8 @@
 * :mod:`repro_torch.comm.policy`  — pluggable :class:`PathPolicy` strategies
 * :mod:`repro_torch.comm.planner` — route enumeration + plan construction
 * :mod:`repro_torch.comm.cache`   — captured-graph LRU + dispatch fast path
+* :mod:`repro_torch.comm.telemetry` — per-dispatch stage-timing recorder (§4.4c)
+* :mod:`repro_torch.comm.calibration` — §4.4 terms fitted from the samples
 * :mod:`repro_torch.comm.capture` — whole-iteration step capture
 * :mod:`repro_torch.comm.collectives` — bidirectional-ring collectives
 * :mod:`repro_torch.comm.engine`  — the engine on the ``multipath_dma`` kernel
@@ -30,6 +32,11 @@ from repro_torch.comm.planner import PathPlanner  # noqa: F401
 from repro_torch.comm.cache import (  # noqa: F401
     CompiledPlan, FastPathCache, FastPathEntry, PlanLifecycle,
     TransferPlanCache, compile_plan)
+from repro_torch.comm.telemetry import (  # noqa: F401
+    DispatchSample, StageTimings, TimelineRecorder)
+from repro_torch.comm.calibration import (  # noqa: F401
+    PROFILE_VERSION, CalibrationFitter, CalibrationProfile,
+    modeled_sample_time_s, modeled_vs_measured)
 from repro_torch.comm.capture import (  # noqa: F401
     BufferRef, BufferSpec, CapturedStep, StepCapture, StepProgram,
     captured_psum, lower_step)

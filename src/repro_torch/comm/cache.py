@@ -152,6 +152,24 @@ class CompiledPlan:
         self.lifecycle.total_launch_ns += time.perf_counter_ns() - t0
         return self.outputs()
 
+    def timed_call(self, *args) -> tuple[list, int, int]:
+        """:meth:`__call__` with its wall time split into ``(outputs,
+        launch_ns, execute_ns)`` for telemetry (§4.4c): launch is the
+        staging of ``args`` plus ``replay()`` until control returns (on a
+        CUDA device the ``cudaGraphLaunch``), execute the tail until the
+        device synchronize returns. Both are host clock: the fitter
+        regresses wall time. Lifecycle accounting is that of
+        :meth:`__call__` (one launch, total = launch + execute)."""
+        t0 = time.perf_counter_ns()
+        self._stage(args)
+        self.program.replay()
+        t1 = time.perf_counter_ns()
+        self._sync()
+        t2 = time.perf_counter_ns()
+        self.lifecycle.launches += 1
+        self.lifecycle.total_launch_ns += t2 - t0
+        return self.outputs(), t1 - t0, t2 - t1
+
 
 def compile_plan(key: Hashable, build: Callable[[], Any],
                  num_nodes: int = 0) -> CompiledPlan:

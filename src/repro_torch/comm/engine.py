@@ -36,9 +36,17 @@ and ``multipath_dma`` runs over one byte arena) and replays the whole
 iteration as ONE CUDA graph per call, keyed and memoized like a transfer
 group.
 
+With a :class:`~repro_torch.comm.telemetry.TimelineRecorder` enabled,
+every dispatch records one
+:class:`~repro_torch.comm.telemetry.DispatchSample`: its setup stages
+(plan / lower / schedule / compile, zeros on a fast-path hit), the staging
+copies' host enqueue time, and the replay split into launch and execute
+by the host clock (:meth:`~repro_torch.comm.cache.CompiledPlan.timed_call`).
+Disabled, the dispatch pays one boolean check.
+
 On the CPU the same entries run the kernels' plain versions eagerly. The
-degraded-mode ladder and telemetry are later slices: dispatch under fault
-state raises ``NotImplementedError``.
+degraded-mode ladder is a later slice: dispatch under fault state raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ from repro_torch.comm.graph import ComputeNode, TransferGraph, lower
 from repro_torch.comm.passes import AutoSchedule, GraphPass, apply_schedule
 from repro_torch.comm.plan import TransferGroup, TransferPlan, TransferRequest
 from repro_torch.comm.planner import PathPlanner
+from repro_torch.comm.telemetry import (DispatchSample, StageTimings,
+                                        TimelineRecorder)
 from repro_torch.core.pipelining import validate_plan
 from repro_torch.core.topology import HOST, Topology
 from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
@@ -149,7 +159,8 @@ class MultiPathTransfer:
                  schedule: str | GraphPass = "round_robin",
                  fastpath: bool | None = None,
                  validate: str | None = None,
-                 fastpath_cache: FastPathCache | None = None):
+                 fastpath_cache: FastPathCache | None = None,
+                 telemetry: TimelineRecorder | None = None):
         self.device = torch.device(device)
         if topology is None:
             topology = Topology.full_mesh(4, with_host=True)
@@ -176,6 +187,14 @@ class MultiPathTransfer:
                              f"expected one of {VALIDATE_MODES}")
         self._fastpath = (fastpath_cache if fastpath_cache is not None
                           else FastPathCache())
+        #: Optional dispatch-timeline recorder (DESIGN §4.4c). ``None``
+        #: or a disabled recorder keeps the dispatch path at one boolean
+        #: check — the zero-overhead-off telemetry contract.
+        self.telemetry = telemetry
+        # Per-dispatch telemetry carried from _resolve to _launch (the
+        # two halves of one dispatch; the engine is not thread-safe).
+        self._pending_stages: StageTimings | None = None
+        self._pending_hit = False
         #: Cumulative nanoseconds spent staging messages into the static
         #: operands (host-side enqueue of the copies).
         self.staging_ns = 0
@@ -225,23 +244,32 @@ class MultiPathTransfer:
 
     # -- program construction -----------------------------------------------
     def _group_graph(self, plans: Sequence[TransferPlan], window: int,
-                     schedule: str | GraphPass | None = None
+                     schedule: str | GraphPass | None = None,
+                     stages: StageTimings | None = None
                      ) -> tuple[TransferGraph, str]:
         """Lower the fused group and run the scheduler pass (§2.2).
 
         Returns the SCHEDULED graph — the one the work table is built from
         AND the one ``_group_key`` digests — plus the concrete schedule
-        name that was chosen.
+        name that was chosen. ``stages`` (telemetry only) receives the
+        lower/schedule wall time.
         """
         for p in plans:
             _check_executable(p)
+        t0 = time.perf_counter_ns()
         graph = lower(TransferGroup(tuple(plans), self.topology.name),
                       window)
+        t1 = time.perf_counter_ns()
         sched = self.schedule if schedule is None else schedule
         if isinstance(sched, str):
-            return _scheduled_graph(graph, sched, self.topology,
-                                    self.topology.epoch)
-        return apply_schedule(graph, sched, self.topology)
+            out = _scheduled_graph(graph, sched, self.topology,
+                                   self.topology.epoch)
+        else:
+            out = apply_schedule(graph, sched, self.topology)
+        if stages is not None:
+            stages.lower_ns = t1 - t0
+            stages.schedule_ns = time.perf_counter_ns() - t1
+        return out
 
     def _count_schedule(self, chosen: str) -> None:
         self.schedule_counts[chosen] = self.schedule_counts.get(chosen,
@@ -287,10 +315,53 @@ class MultiPathTransfer:
                 window, schedule, max_paths, num_chunks, exclusive,
                 self.num_devices)
 
+    def _take_pending(self) -> tuple[StageTimings | None, bool]:
+        """The stages and fast-path flag ``_resolve`` left for this
+        dispatch (reset for the next one)."""
+        stages, hit = self._pending_stages, self._pending_hit
+        self._pending_stages, self._pending_hit = None, False
+        return stages, hit
+
+    @staticmethod
+    def _replay(compiled: CompiledPlan, stages: StageTimings | None,
+                staging: int, *, block: bool) -> list:
+        """Replay ``compiled`` once. With telemetry on (``stages`` given)
+        also fill in ``staging`` and the launch/execute split of
+        :meth:`CompiledPlan.timed_call` when ``block``, else the replay's
+        host time alone as launch."""
+        if stages is None:
+            return compiled() if block else compiled.dispatch()
+        stages.staging_ns = staging
+        if block:
+            ys, stages.launch_ns, stages.execute_ns = compiled.timed_call()
+        else:
+            t0 = time.perf_counter_ns()
+            ys = compiled.dispatch()
+            stages.launch_ns = time.perf_counter_ns() - t0
+        return ys
+
+    def _record(self, entry, stages: StageTimings, hit: bool, window: int,
+                compute: tuple = ()) -> None:
+        """Record one :class:`DispatchSample` of a finished dispatch, its
+        routes from each path's directional links."""
+        routes = tuple(
+            tuple((pa.route.directional_links(), pa.nbytes, pa.num_chunks)
+                  for pa in p.paths)
+            for p in entry.plans)
+        self.telemetry.record(DispatchSample(
+            routes=routes, nbytes=sum(p.nbytes for p in entry.plans),
+            num_nodes=entry.graph.num_nodes, window=window,
+            schedule=entry.schedule, stages=stages, fastpath_hit=hit,
+            compute=compute))
+
     def _launch(self, entry: FastPathEntry, messages: Sequence[torch.Tensor],
                 *, block: bool) -> list[torch.Tensor]:
         """Stage the messages into the static operands and replay ONCE;
-        returns copies of each message's ``y[0, dst]``."""
+        returns copies of each message's ``y[0, dst]``. Staging only
+        enqueues the copies on a CUDA device: ``staging_ns`` is their host
+        enqueue time and their device time lands in the replay's execute
+        tail."""
+        stages, hit = self._take_pending()
         compiled = entry.compiled
         t0 = time.perf_counter_ns()
         for buf, m, p in zip(compiled.inputs(), messages, entry.plans):
@@ -298,7 +369,9 @@ class MultiPathTransfer:
         staging = time.perf_counter_ns() - t0
         self.staging_ns += staging
         compiled.lifecycle.staging_ns += staging
-        ys = compiled() if block else compiled.dispatch()
+        ys = self._replay(compiled, stages, staging, block=block)
+        if stages is not None:
+            self._record(entry, stages, hit, entry.graph.window)
         self.dispatches += 1
         return [y[0, p.dst].clone() for y, p in zip(ys, entry.plans)]
 
@@ -319,6 +392,7 @@ class MultiPathTransfer:
         sched = self.schedule if schedule is None else schedule
         sched_name = sched if isinstance(sched, str) else None
         use_fast = self.fastpath and sched_name is not None
+        stages = self._new_stages()
         shapes = [(nelems, as_dtype(dtype))
                   for (_, _, nelems, dtype) in specs]
         sig = epoch = None
@@ -334,6 +408,8 @@ class MultiPathTransfer:
                     compiled = self._compile_group(entry.key, entry.graph,
                                                    shapes)
                     self.cache.put(entry.key, compiled)
+                    if stages is not None:
+                        stages.compile_ns = compiled.lifecycle.build_ns
                 entry.compiled = compiled
                 if self.validate == "always":
                     for p in entry.plans:
@@ -343,7 +419,9 @@ class MultiPathTransfer:
                         cross_flow_exclusive=False)
                 compiled.lifecycle.fastpath_hits += 1
                 self._count_schedule(entry.schedule)
+                self._pending_hit = True
                 return entry
+        t0 = time.perf_counter_ns()
         if single:
             (src, dst, nelems, dtype) = specs[0]
             plans: tuple[TransferPlan, ...] = (self.plan_for(
@@ -353,17 +431,46 @@ class MultiPathTransfer:
             plans = self.plan_group_for(specs, max_paths=max_paths,
                                         num_chunks=num_chunks,
                                         exclusive=exclusive).plans
-        graph, chosen = self._group_graph(plans, window, sched)
+        if stages is not None:
+            stages.plan_ns = time.perf_counter_ns() - t0
+        graph, chosen = self._group_graph(plans, window, sched,
+                                          stages=stages)
         self._count_schedule(chosen)
         key = self._group_key(graph, plans, shapes, window)
-        compiled = self.cache.get_or_build(
-            key, lambda: self._compile_group(key, graph, shapes))
+        compiled = self._get_or_build(
+            key, lambda: self._compile_group(key, graph, shapes), stages)
         entry = FastPathEntry(plans=tuple(plans), graph=graph,
                               digest=key.digest, key=key,
                               compiled=compiled, schedule=chosen)
         if use_fast:
             self._fastpath.put(sig, epoch, entry)
         return entry
+
+    def _new_stages(self) -> StageTimings | None:
+        """Open this dispatch's :class:`StageTimings` (``None`` with
+        telemetry off: no object is made) and clear the fast-path flag;
+        ``_launch``/``_launch_step`` take both."""
+        tel = self.telemetry
+        stages = (StageTimings() if tel is not None and tel.enabled
+                  else None)
+        self._pending_stages, self._pending_hit = stages, False
+        return stages
+
+    def _get_or_build(self, key, build, stages: StageTimings | None
+                      ) -> CompiledPlan:
+        """``cache.get_or_build``; with telemetry on, a build this call
+        made sets ``stages.compile_ns`` to its lifecycle's ``build_ns``
+        (table build, warm-up, capture, instantiation, first replay)."""
+        built = []
+
+        def builder() -> CompiledPlan:
+            built.append(build())
+            return built[0]
+
+        compiled = self.cache.get_or_build(key, builder)
+        if stages is not None and built:
+            stages.compile_ns = compiled.lifecycle.build_ns
+        return compiled
 
     def _check_healthy(self) -> None:
         if self.planner.quarantined or self.topology.failed_links:
@@ -532,6 +639,7 @@ class MultiPathTransfer:
         sched = self.schedule if schedule is None else schedule
         sched_name = sched if isinstance(sched, str) else None
         use_fast = self.fastpath and sched_name is not None
+        stages = self._new_stages()
         sig = epoch = None
         if use_fast:
             sig = ("capture_step", program.signature(), step.outputs,
@@ -545,6 +653,8 @@ class MultiPathTransfer:
                         entry.key, entry.graph, entry.program,
                         entry.outputs)
                     self.cache.put(entry.key, compiled)
+                    if stages is not None:
+                        stages.compile_ns = compiled.lifecycle.build_ns
                 entry.compiled = compiled
                 if self.validate == "always":
                     for p in entry.plans:
@@ -554,10 +664,16 @@ class MultiPathTransfer:
                         cross_flow_exclusive=False)
                 compiled.lifecycle.fastpath_hits += 1
                 self._count_schedule(entry.schedule)
+                self._pending_hit = True
                 return entry
+        t0 = time.perf_counter_ns()
         graph, plans = lower_step(program, self.plan_group_for,
                                   self.topology.name)
+        t1 = time.perf_counter_ns()
         scheduled, chosen = apply_schedule(graph, sched, self.topology)
+        if stages is not None:
+            stages.lower_ns = t1 - t0
+            stages.schedule_ns = time.perf_counter_ns() - t1
         self._count_schedule(chosen)
         compute_id = tuple((n.kernel, n.flops, n.cost_ns)
                            for n in scheduled.nodes
@@ -566,9 +682,9 @@ class MultiPathTransfer:
                        entries=(program.signature(), step.outputs)
                        + compute_id,
                        window=1, num_devices=self.num_devices)
-        compiled = self.cache.get_or_build(
+        compiled = self._get_or_build(
             key, lambda: self._compile_step(key, scheduled, program,
-                                            step.outputs))
+                                            step.outputs), stages)
         entry = _StepEntry(plans=plans, graph=scheduled, digest=key.digest,
                            key=key, compiled=compiled, schedule=chosen,
                            program=program, outputs=step.outputs)
@@ -580,7 +696,10 @@ class MultiPathTransfer:
                      tensors: Sequence[torch.Tensor], *,
                      block: bool) -> list[torch.Tensor]:
         """Stage the step inputs into the resident program's static
-        buffers and replay it ONCE; returns copies of the outputs."""
+        buffers and replay it ONCE; returns copies of the outputs. With
+        telemetry on, records one sample whose ``compute`` holds each
+        compute node's ``(kernel, flops, cost_ns)``."""
+        stages, hit = self._take_pending()
         program = entry.program
         if len(tensors) != len(program.inputs):
             raise ValueError(f"captured step takes {len(program.inputs)} "
@@ -601,7 +720,12 @@ class MultiPathTransfer:
         staging = time.perf_counter_ns() - t0
         self.staging_ns += staging
         compiled.lifecycle.staging_ns += staging
-        ys = compiled() if block else compiled.dispatch()
+        ys = self._replay(compiled, stages, staging, block=block)
+        if stages is not None:
+            compute = tuple((n.kernel, n.flops, n.cost_ns)
+                            for n in entry.graph.nodes
+                            if isinstance(n, ComputeNode))
+            self._record(entry, stages, hit, 1, compute)
         self.dispatches += 1
         return [y.clone() for y in ys]
 
@@ -623,9 +747,11 @@ class MultiPathTransfer:
     # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:
         """Engine-level accounting: replays, plan-cache counters, fast-
-        path counters, cumulative staging time, captured graph totals and
-        per-schedule resolution counts. ``reset=True`` returns the
-        snapshot then zeroes every windowed counter."""
+        path counters, cumulative staging time, captured graph totals,
+        per-schedule resolution counts and, with a recorder, its counters
+        (``telemetry``). ``reset=True`` returns the snapshot then zeroes
+        every windowed counter; telemetry samples survive a reset (they
+        feed calibration; ``telemetry.clear()`` drops them)."""
         out = {
             "dispatches": self.dispatches,
             "cache": self.cache.stats(reset=reset),
@@ -641,6 +767,8 @@ class MultiPathTransfer:
             "schedules": dict(self.schedule_counts),
             "schedule_scores": AutoSchedule.score_stats(reset=reset),
         }
+        if self.telemetry is not None:
+            out["telemetry"] = self.telemetry.stats()
         if reset:
             self.dispatches = 0
             self.staging_ns = 0

@@ -25,7 +25,15 @@ handler: it owns one :class:`~repro_torch.core.topology.Topology`, one
 * ``session.capture(build_fn)`` — whole-iteration capture: kernels and
   fused exchanges of one iteration replayed as ONE CUDA graph per call,
 * ``session.plan(...)`` / ``session.tune(...)`` / ``session.plan_group``
-  — planning and the offline tuner (paper §4.4).
+  — planning and the offline tuner (paper §4.4),
+* ``session.telemetry`` / ``session.calibrate()`` — the measured-feedback
+  loop (DESIGN §4.4c): with ``CommConfig.telemetry`` (or
+  ``REPRO_MP_TELEMETRY=1``) every dispatch records a
+  :class:`~repro_torch.comm.telemetry.DispatchSample`, and ``calibrate``
+  fits the §4.4 terms from them into a
+  :class:`~repro_torch.comm.calibration.CalibrationProfile` that the
+  planner and schedulers then read; ``CommConfig.profile_dir`` loads the
+  profile of this topology on init and is where ``persist=True`` writes.
 
 ``device=None`` means ``cuda`` and raises when no GPU is present; pass
 ``device="cpu"`` to run the kernels' plain versions. Logical devices are
@@ -33,18 +41,17 @@ rows of each operand on that one device. Without a topology the session
 models the paper's Beluga node (``Topology.full_mesh(4)``): one card has
 no device count to read the size from.
 
-Options whose subsystems are ported in later slices raise
-``NotImplementedError`` instead of being ignored: ``telemetry``
-(telemetry/calibration slice), ``profile_dir`` (telemetry/calibration)
-and ``faults`` (health slice). ``health`` (on by default) is accepted:
-with no telemetry and no fault state the monitor has nothing to watch,
-and every dispatch under fault state raises ``NotImplementedError``
-naming the health slice.
+``faults``, whose subsystem is ported in a later slice, raises
+``NotImplementedError`` instead of being ignored. ``health`` (on by
+default) is accepted: no monitor watches the telemetry yet, and every
+dispatch under fault state raises ``NotImplementedError`` naming the
+health slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import torch
@@ -52,22 +59,20 @@ import torch
 from repro_torch.comm import collectives as coll
 from repro_torch.comm.cache import (CompiledPlan, FastPathCache,
                                     TransferPlanCache, compile_plan)
+from repro_torch.comm.calibration import (CalibrationFitter,
+                                          CalibrationProfile,
+                                          modeled_vs_measured)
 from repro_torch.comm.capture import CapturedStep, dtype_name
-from repro_torch.comm.config import CommConfig, _env_bool
+from repro_torch.comm.config import CommConfig
 from repro_torch.comm.engine import MultiPathTransfer
 from repro_torch.comm.graph import canonical_digest
 from repro_torch.comm.passes import AutoSchedule, GraphPass
 from repro_torch.comm.plan import TransferPlan
 from repro_torch.comm.planner import PathPlanner
 from repro_torch.comm.policy import PathPolicy, make_policy
+from repro_torch.comm.telemetry import TimelineRecorder
 from repro_torch.core.topology import Topology
 from repro_torch.kernels._graph import GraphProgram
-
-_LATER = {
-    "telemetry": "the telemetry/calibration slice",
-    "profile_dir": "the telemetry/calibration slice",
-    "faults": "the health slice",
-}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -174,15 +179,10 @@ class CommSession:
         self.config = config if config is not None else CommConfig.from_env()
         if schedule is not None:
             self.config = self.config.replace(schedule=schedule)
-        for field, slice_name in _LATER.items():
-            if getattr(self.config, field):
-                raise NotImplementedError(
-                    f"CommConfig.{field} is not ported yet; it comes with "
-                    f"{slice_name}")
-        if _env_bool("REPRO_MP_TELEMETRY", False):
+        if self.config.faults:
             raise NotImplementedError(
-                "REPRO_MP_TELEMETRY is not ported yet; it comes with the "
-                "telemetry/calibration slice")
+                "CommConfig.faults is not ported yet; it comes with the "
+                "health slice")
         self.device = resolve_device(device)
         if topology is None:
             topology = Topology.full_mesh(4, with_host=True)
@@ -195,6 +195,29 @@ class CommSession:
             self.config.cache_capacity)
         self._engine: MultiPathTransfer | None = None
         self.collectives = BoundCollectives(self.config.axis_name)
+        #: Dispatch-timeline recorder (DESIGN §4.4c). ``config.telemetry``
+        #: force-enables it; otherwise ``REPRO_MP_TELEMETRY`` decides
+        #: (default off — one boolean per dispatch).
+        self.telemetry = TimelineRecorder(
+            capacity=self.config.telemetry_capacity,
+            enabled=True if self.config.telemetry else None)
+        if self.config.profile_dir:
+            self._load_calibration(self.config.profile_dir)
+
+    def _load_calibration(self, profiles_dir: str) -> None:
+        """Load-on-init: attach the persisted calibration profile whose
+        digest matches this session's topology, if one exists. A corrupt
+        or version-mismatched file degrades to a warning (the session
+        runs on nominal constants) rather than failing construction."""
+        try:
+            profile = CalibrationProfile.load_for(self.topology,
+                                                  profiles_dir)
+        except (ValueError, OSError) as exc:
+            warnings.warn(f"ignoring calibration profile in "
+                          f"{profiles_dir!r}: {exc}", stacklevel=3)
+            return
+        if profile is not None:
+            self.topology.set_calibration(profile)
 
     @property
     def engine(self) -> MultiPathTransfer:
@@ -207,7 +230,8 @@ class CommSession:
                 cache=self.cache,
                 schedule=self.config.schedule,
                 fastpath=self.config.fastpath,
-                validate=self.config.validate)
+                validate=self.config.validate,
+                telemetry=self.telemetry)
         return self._engine
 
     @property
@@ -455,12 +479,73 @@ class CommSession:
             num_nodes=4 * (n - 1), replicated=True)
         return y[0].clone()
 
+    # -- calibration (DESIGN §4.4c) -----------------------------------------
+    def calibrate(self, *, fitter: CalibrationFitter | None = None,
+                  attach: bool = True, persist: bool | str = False,
+                  **fit_kwargs) -> CalibrationProfile:
+        """Fit a :class:`CalibrationProfile` from the session's recorded
+        telemetry samples and (by default) attach it to the topology.
+
+        Attaching goes through
+        :meth:`~repro_torch.core.topology.Topology.set_calibration`, so
+        the plan epoch bumps and every later estimate, ``auto``
+        arbitration and path split reads the fitted terms.
+        ``persist=True`` saves under ``config.profile_dir`` (a string
+        persists under that directory instead); ``fit_kwargs`` go to
+        :class:`CalibrationFitter` (min_samples / warmup / decay /
+        max_ratio). The recorder's per-kernel execute channel is passed
+        too, so kernels timed into it get a fitted compute term. Raises
+        ``ValueError`` when no samples were recorded (enable
+        ``REPRO_MP_TELEMETRY`` and run traffic first).
+        """
+        samples = self.telemetry.samples()
+        if not samples:
+            raise ValueError(
+                "no telemetry samples recorded — enable REPRO_MP_TELEMETRY "
+                "(or CommConfig.telemetry) and dispatch traffic before "
+                "calibrating")
+        if fitter is None:
+            fitter = CalibrationFitter(self.topology, **fit_kwargs)
+        elif fit_kwargs:
+            raise ValueError("pass fit_kwargs or a fitter, not both")
+        profile = fitter.fit(samples,
+                             kernels=self.telemetry.kernel_samples())
+        if attach:
+            self.topology.set_calibration(profile)
+        if persist:
+            out_dir = (persist if isinstance(persist, str)
+                       else self.config.profile_dir)
+            if not out_dir:
+                raise ValueError("persist=True needs config.profile_dir "
+                                 "(or pass persist=<dir>)")
+            profile.save(out_dir)
+        return profile
+
+    def _calibration_info(self) -> dict:
+        """The calibration section ``describe()`` reports: live-profile
+        summary and modeled-vs-measured residuals (constant vs fitted)
+        over the telemetry ring — the §4.4c drift-visibility contract."""
+        profile = self.topology.calibration
+        info: dict = {"active": profile is not None}
+        if profile is not None:
+            info["profile"] = profile.summary()
+        samples = self.telemetry.samples()
+        if samples:
+            info["residuals"] = modeled_vs_measured(
+                samples, self.topology, profile)
+        return info
+
     # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:
         """Cache hits/misses, replays (``dispatches`` — a fused group is
         ONE dispatch), fast-path counters, captured graph totals,
-        schedule counts, policy and topology. ``reset=True`` returns the
-        snapshot then zeroes every windowed counter."""
+        schedule counts, policy, topology, the telemetry recorder's
+        counters and whether a calibration profile is live. ``fastpath``
+        ``staging_ns`` is the host enqueue time of the staging copies
+        (their device time lands in the replays). ``reset=True`` returns
+        the snapshot then zeroes every windowed counter; telemetry
+        samples survive a reset (they feed :meth:`calibrate`; drop them
+        with ``session.telemetry.clear()``)."""
         eng = self._engine
         if eng is not None:
             es = eng.stats(reset=reset)
@@ -487,6 +572,9 @@ class CommSession:
             "topology": self.topology.name,
             "num_devices": self.topology.num_devices,
             "device": str(self.device),
+            "telemetry": self.telemetry.stats(),
+            "calibration": {
+                "active": self.topology.calibration is not None},
         }
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid

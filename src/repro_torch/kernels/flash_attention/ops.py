@@ -42,16 +42,14 @@ def captured_flash_attention(cap, q, k, v, *, name: str = "flash_attention",
     ``q``/``k``/``v`` are capture refs with local shapes ``(B, H, S, D)``;
     returns the attention output ref (q's shape). The kernel function folds
     the stacked ``(n, B, H, S, D)`` operands into ``(n·B, H, S, D)``, so
-    one launch serves every device. The node is priced with ``flops`` from
-    :func:`attention_flops` and ``cost_ns`` 0; stamping ``cost_ns`` from a
-    telemetry recorder comes with the telemetry slice, so a recorder
-    raises ``NotImplementedError``. ``name`` is the capture's kernel
+    one launch serves every device. The node is priced for the lane
+    model: ``flops`` from :func:`attention_flops`, and — when a
+    :class:`~repro_torch.comm.telemetry.TimelineRecorder` is passed as
+    ``telemetry`` — ``cost_ns`` stamped from its recorded median for
+    ``name`` (0 without one). ``cost_ns`` is part of the compute identity,
+    so it changes the graph's digest. ``name`` is the capture's kernel
     identity: one adopter call per name per capture.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "captured_flash_attention(telemetry=...) is not ported yet; it "
-            "comes with the telemetry/calibration slice")
     from repro_torch.comm.capture import BufferSpec
     q_spec = cap.buffers[cap._resolve(q)]
     k_spec = cap.buffers[cap._resolve(k)]
@@ -63,7 +61,9 @@ def captured_flash_attention(cap, q, k, v, *, name: str = "flash_attention",
                               window=window, scale=scale)
         return out.reshape(q_.shape)
 
+    cost = int(telemetry.kernel_cost_ns(name)) if telemetry is not None \
+        else 0
     return cap.kernel(attn, q, k, v, name=name,
                       out=BufferSpec(q_spec.shape, q_spec.dtype),
                       flops=attention_flops(q_spec.shape, k_spec.shape),
-                      cost_ns=0)
+                      cost_ns=cost)

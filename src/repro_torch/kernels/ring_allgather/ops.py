@@ -35,18 +35,16 @@ def captured_ring_allgather(cap, x, num_devices: int, *,
 
     ``x`` is a capture ref with local shape ``(rows, f)``; returns the
     gathered ``(num_devices * rows, f)`` ref (every device holds the full
-    result). One compute node with the declared result spec, ``flops`` 0
-    (wire work) and ``cost_ns`` 0. Stamping ``cost_ns`` from a telemetry
-    recorder comes with the telemetry slice: a recorder raises
-    ``NotImplementedError``.
+    result). One compute node with the declared result spec and ``flops``
+    0 (wire work); ``cost_ns`` is stamped from ``telemetry``'s recorded
+    median for ``name`` when a recorder is passed (0 without one), so its
+    measured duration occupies the lane model's compute lane.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "captured_ring_allgather(telemetry=...) is not ported yet; it "
-            "comes with the telemetry/calibration slice")
     from repro_torch.comm.capture import BufferSpec
     spec = cap.buffers[cap._resolve(x)]
     rows, f = spec.shape
+    cost = int(telemetry.kernel_cost_ns(name)) if telemetry is not None \
+        else 0
     return cap.kernel(gather_rows, x, name=name,
                       out=BufferSpec((num_devices * rows, f), spec.dtype),
-                      cost_ns=0)
+                      cost_ns=cost)

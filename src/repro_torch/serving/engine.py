@@ -77,7 +77,9 @@ def make_captured_decode_step(comm: "CommSession", *, batch: int,
     ``(num_devices, *local)`` tensors; every call is ONE engine dispatch
     (one CUDA-graph replay on the card). ``new_kv`` equals ``kv``
     everywhere except device ``dst``, which receives device ``src``'s
-    chunk.
+    chunk. The attention node's ``cost_ns`` is stamped from
+    ``comm.telemetry``'s recorded ``flash_attention`` median (0 while it
+    holds none), as the reference's step does.
     """
     n = comm.engine.num_devices
     if not 0 <= src < n or not 0 <= dst < n or src == dst:
@@ -96,7 +98,8 @@ def make_captured_decode_step(comm: "CommSession", *, batch: int,
         k = cap.input((batch, heads, kv_len, head_dim), dtype)
         v = cap.input((batch, heads, kv_len, head_dim), dtype)
         kv = cap.input((kv_chunk,), dtype)
-        attn = captured_flash_attention(cap, q, k, v)
+        attn = captured_flash_attention(cap, q, k, v,
+                                        telemetry=comm.telemetry)
         staged = cap.kernel(kv_stage, kv, name="kv_stage", flops=kv_chunk)
         (moved,) = cap.exchange([(staged, src, dst)], max_paths=max_paths,
                                 num_chunks=num_chunks)

@@ -16,7 +16,9 @@ its plain version at the reference's tolerances (float32 atol 3e-5 /
 rtol 1e-4, bfloat16 max abs 2e-2), its bfloat16 tile products to
 torch.matmul (atol 1e-3 / rtol 1e-4), and the serving path on a reduced
 model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
-orders). ``ServeEngine``'s captured decode step is held bit for bit to
+orders). A send with telemetry on records a launch and an execute time within the
+call's wall time, and sends stay bit for bit under a fitted profile.
+``ServeEngine``'s captured decode step is held bit for bit to
 the eager ``make_serve_step`` (dense, ring and RWKV-6 caches), and its
 programs' call and replay counts to one prefill and ``new - 1`` decode
 steps per ``generate``; a failed capture raises. The RWKV-6 scan is held
@@ -29,6 +31,7 @@ model served against the CPU. ``-k rwkv`` runs the scan's tests alone.
 """
 
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -98,6 +101,35 @@ def test_session_send_replays_one_launch(dev):
     assert torch.equal(sess.send(x, 0, 3, max_paths=3, num_chunks=4), x)
     assert dk.LAUNCHES == before + 1
     assert sess.stats()["fastpath"]["hits"] == 1
+
+
+def test_session_telemetry_times_the_replay_and_calibrates(dev, tmp_path):
+    """Telemetry on the card: each send's sample has a launch and an
+    execute time, with a stage sum within the call's wall time; a profile
+    fitted from 3 sizes attaches, and later sends stay bitwise."""
+    sess = CommSession(CommConfig(telemetry=True, multipath_threshold=0,
+                                  profile_dir=str(tmp_path)), device=dev)
+    sizes = (16 * 1024, 1 << 18, 1 << 22)                # 64 KiB – 16 MiB
+    for n in sizes:
+        x = torch.randn(n, device=dev)
+        for _ in range(5):
+            t0 = time.perf_counter_ns()
+            got = sess.send(x, 0, 1, max_paths=3)
+            wall = time.perf_counter_ns() - t0
+            assert torch.equal(got, x)
+            st = sess.telemetry.samples()[-1].stages
+            assert st.launch_ns > 0 and st.execute_ns > 0
+            assert st.total_ns <= wall
+    assert len(sess.telemetry) == sess.stats()["dispatches"] == 15
+    prof = sess.calibrate(min_samples=3, warmup=1, persist=True)
+    assert sess.topology.calibration is prof
+    assert prof.launch is not None and prof.link_bandwidth_gbps
+    for n in sizes + (12_345,):
+        x = torch.randn(n, device=dev)
+        for _ in range(2):
+            assert torch.equal(sess.send(x, 0, 1, max_paths=3), x)
+    again = CommSession(CommConfig(profile_dir=str(tmp_path)), device=dev)
+    assert again.topology.calibration.to_payload() == prof.to_payload()
 
 
 @pytest.mark.parametrize("n", [1, 4, 8])

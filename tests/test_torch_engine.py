@@ -150,15 +150,13 @@ def test_session_needs_cuda_or_an_explicit_device():
     assert stats["topology"] == "beluga4"
 
 
-@pytest.mark.parametrize("knob", [dict(telemetry=True),
-                                  dict(profile_dir="profiles"),
-                                  dict(faults="fail@1:0-1")])
+@pytest.mark.parametrize("knob", [dict(faults="fail@1:0-1")])
 def test_unported_options_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         CommSession(CommConfig(**knob), device="cpu")
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_unported_paths_raise():
     sess = CommSession(device="cpu")
     step = sess.capture(lambda cap: cap.kernel(
         torch.neg, cap.input((8,), torch.float32), name="neg"))
@@ -167,9 +165,6 @@ def test_unported_paths_raise(monkeypatch):
         sess.send(torch.ones(8), 0, 1)
     with pytest.raises(NotImplementedError, match="health slice"):
         step(torch.ones(4, 8))
-    monkeypatch.setenv("REPRO_MP_TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        CommSession(device="cpu")
 
 
 def test_host_routes_stay_rejected(bridge3):

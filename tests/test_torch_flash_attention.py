@@ -157,13 +157,6 @@ def test_captured_kernel_folds_the_device_axis():
                                                        window=5))
 
 
-def test_telemetry_raises_until_its_slice():
-    cap = StepCapture()
-    q = cap.input((1, 2, 8, 8), torch.float32)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ops.captured_flash_attention(cap, q, q, q, telemetry=object())
-
-
 def test_other_devices_raise_instead_of_running_plain():
     q = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
