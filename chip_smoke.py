@@ -127,8 +127,9 @@ What it does, in order (any failed check exits nonzero):
     the times of path E;
 13. main path H, after path G's tensors are freed, counters set to 0
     before it and read after it: the measured-feedback loop on a
-    ``CommSession(CommConfig(telemetry=True, profile_dir=...))`` on the
-    default 4-device topology (the directory a temporary one under
+    ``CommSession(CommConfig(telemetry=True, health=False,
+    profile_dir=...))`` (the droop monitor is path I's) on the default
+    4-device topology (the directory a temporary one under
     ``build/``): float32 sends 0→1 of 64 KiB, 1, 16, 64 and 256 MiB with
     ``max_paths`` 1, 2 and 3, 10 dispatches each, and a 4-message
     ``exchange`` 10 times; ``flash_attention`` at path F's shape and
@@ -150,7 +151,39 @@ What it does, in order (any failed check exits nonzero):
     64 KiB eager launch, the fitted link bandwidths and kernel costs, the
     residuals' median and p90 with nominal and fitted terms, and a 64 KiB
     send's host time with telemetry on and off, in turns;
-14. one JSON line ``{"kernels": [...]}``, then as the last line
+14. main path I, after path H's tensors are freed, counters set to 0
+    before it and read after it: the §4.6 health ladder on the default
+    4-device topology. (1) A 64 KiB and a 256 MiB float32 send 0→1 with
+    ``max_paths=3`` on a ``health=True`` and a ``health=False`` session,
+    in turns (host clock, CUDA events), every one bitwise, the 256 MiB
+    replay's device time within 5% of path A's; (2) 10 sends of 256 MiB
+    0→1, (0, 1) failed before the 4th and restored before the 7th, then
+    ``probe_links()`` until nothing is quarantined: every message
+    bitwise, no plan over (0, 1) while it is failed, ladder level 1
+    under the fault and 0 after, ``describe``'s digest after the restore
+    the pre-fault one and that send a plan-cache hit; printed per send:
+    host ms, plan and capture ms, captures, cached graphs and their MiB;
+    (3) ``CommConfig(faults="drop@2x2:0-2;degrade@6x4:0-3*0.25;
+    flap@12~2x2:0-1")`` and 20 sends of 16 MiB: bitwise, with the
+    retries, replans and faults seen that the CPU tests pin (1, 1, 7),
+    backoff and plan/capture time printed apart; (4) every device link
+    into 1 failed and 256 MiB sent 0→1: bitwise, ladder level 3, one
+    ``host_relay`` event, its time and GB/s beside a pinned ``copy_``
+    to the host and back; (5) path F's captured decode step called
+    healthy, with (0, 2) failed and after the restore: attention within
+    4e-3 + 8e-3·|want| of the plain version, the KV chunk bitwise, no
+    plan over (0, 2) under the fault; (6) ``ServeEngine`` on
+    ``smollm_360m`` at full width (32 layers, d_model 960, 15/5 heads of
+    64, bfloat16, seeded random weights): 2 prompts of 256 tokens
+    prefilled, their cache migrated 0→1 with (0, 1) failed, bitwise, a
+    ``ladder`` event in ``health_events``; (7) path H's send sweep, its
+    exchange and path F's decode step on a ``CommConfig(telemetry=True,
+    health=True)`` session, ``calibrate``, the same again, every message
+    bitwise: the droop monitor's measured/modeled ratios (median, p90,
+    max, per kind) and its quarantines printed (a report, not a check);
+    and
+    ``multipath_dma`` and ``flash_attention`` each launched;
+15. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -269,8 +302,9 @@ def comm_paths(dev, randn, errs, per_path, read_path
     the paths' shapes and their times (phase 9). Returns the report rows
     of ``multipath_dma``, ``jacobi`` and ``ring_allgather`` (``launches``
     is filled in by the caller) and the 64 KiB send's per-dispatch times
-    in µs (graph replay and eager launch, back to back and synced);
-    everything else is freed on return."""
+    in µs (graph replay and eager launch, back to back and synced) beside
+    the 256 MiB send's replay in ms (``replay256_ms``); everything else
+    is freed on return."""
     from repro_torch.comm import CommConfig, CommSession
     from repro_torch.comm import collectives as coll
     from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
@@ -588,7 +622,8 @@ def comm_paths(dev, randn, errs, per_path, read_path
     launch64 = {"replay_us": rep_dev * 1e3,
                 "replay_synced_us": rep_host * 1e3,
                 "eager_us": eager_dev * 1e3,
-                "eager_synced_us": eager_host * 1e3, "copy_nodes": nodes}
+                "eager_synced_us": eager_host * 1e3, "copy_nodes": nodes,
+                "replay256_ms": replay_ms}
     # send size sweep on the main session: graph replay vs one copy_
     for nbytes in (64 * 1024, MiB, 16 * MiB, 256 * MiB):
         m = big[: nbytes // 4]
@@ -1522,7 +1557,9 @@ def calibration_path(dev, errs, per_path, read_path, launch64: dict,
     profiles = tempfile.TemporaryDirectory(
         dir=os.path.join(HERE, "build"), prefix="profiles-")
     reset_launch_counts()
-    sess = CommSession(CommConfig(telemetry=True,
+    # health off: a probe is a dispatch that records no sample, and the
+    # droop monitor on this traffic is path I's to measure
+    sess = CommSession(CommConfig(telemetry=True, health=False,
                                   profile_dir=profiles.name))
     rec = sess.telemetry
     check(rec.enabled and sess.topology.calibration is None,
@@ -1762,7 +1799,7 @@ def calibration_path(dev, errs, per_path, read_path, launch64: dict,
 
     # telemetry's own cost: one session's 64 KiB send with its recorder
     # on and off, in turns (the same program and graph either way)
-    tsess = CommSession(CommConfig(telemetry=True))
+    tsess = CommSession(CommConfig(telemetry=True, health=False))
     msg = torch.randn(16 * 1024, generator=g, device=dev)
     times = {True: [], False: []}
     for on in (True, False, False, True, True, False, False, True):
@@ -1799,6 +1836,377 @@ def calibration_path(dev, errs, per_path, read_path, launch64: dict,
           f"{quantile([b for _, b in split], 0.5) / 1e3:.2f} us; launch "
           f"behind a staging copy_ {quantile(staged, 0.5) / 1e3:.2f} us",
           flush=True)
+
+def held_mib(sess) -> float:
+    """MiB of device memory that a session's cached send programs hold:
+    each one's byte buffers (operand, output, staging) and its graph's
+    pool."""
+    return sum(c.program.x.numel() + c.program.y.numel()
+               + c.program.stage.numel() + c.program.held_bytes
+               for c in sess.cache.values()) / MiB
+
+
+def health_path(dev, errs, per_path, read_path, smi: str,
+                a_replay_ms: float) -> None:
+    """Main path I (phase 14): the §4.6 health ladder, read with the
+    counters set to 0 just before it. A send's healthy cost with the
+    monitor on and off; a mid-traffic link failure and its recovery; an
+    injected drop/degrade/flap schedule; the host relay; path F's
+    captured decode step through a failed link; a KV migration of
+    SmolLM-360M at full width under a failed link; and the droop
+    monitor's ratios on healthy traffic under a fitted profile."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine, make_captured_decode_step
+
+    # -- 14. main path I: the health ladder ---------------------------------
+    reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn(1 << 26, generator=g, device=dev)      # 256 MiB f32
+    msg64 = big[: 16 * 1024]                                 # 64 KiB f32
+
+    # 1. the healthy path's cost: monitor on and off, in turns
+    sessions = {on: CommSession(CommConfig(health=on, schedule="auto"))
+                for on in (True, False)}
+    host_us = {True: [], False: []}
+    dev_ms = {True: [], False: []}
+    for on in (True, False, False, True, True, False, False, True):
+        sess = sessions[on]
+        check(torch.equal(sess.send(msg64, 0, 1, max_paths=3), msg64)
+              and torch.equal(sess.send(big, 0, 1, max_paths=3), big),
+              f"path I: a healthy send with health={on} not bitwise")
+        gc.collect()
+        host_us[on].append(host_time_ms(
+            lambda: sess.send(msg64, 0, 1, max_paths=3), 300,
+            warmup=20) * 1e3)
+        dev_ms[on].append(cuda_time_ms(
+            lambda: sess.send(big, 0, 1, max_paths=3), 10))
+    replay = {}
+    for on, sess in sessions.items():
+        check(sess.stats()["health"]["ladder_level"] == 0
+              and (sess.monitor is not None) == on,
+              f"path I: health={on} session state wrong")
+        compiled, _ = sess.compiled_for(0, 1, big.numel(), max_paths=3)
+        replay[on] = cuda_time_ms(compiled.program.replay, 20)
+        check(abs(replay[on] / a_replay_ms - 1) <= 0.05,
+              f"path I: 256 MiB replay with health={on} {replay[on]:.4f} "
+              f"ms, not within 5% of path A's {a_replay_ms:.4f} ms")
+    mean = {on: (sum(host_us[on]) / 4, sum(dev_ms[on]) / 4)
+            for on in (True, False)}
+    print(f"path I ({smi}): healthy cost, one call, in turns (4 rounds "
+          f"each): 64 KiB send host time synced, health on "
+          f"{mean[True][0]:.3f} us, off {mean[False][0]:.3f} us (on "
+          f"{[round(t, 3) for t in host_us[True]]}, off "
+          f"{[round(t, 3) for t in host_us[False]]}); 256 MiB send by CUDA "
+          f"events, on {mean[True][1]:.4f} ms, off {mean[False][1]:.4f} ms; "
+          f"its replay's device time on {replay[True]:.4f} ms, off "
+          f"{replay[False]:.4f} ms, path A {a_replay_ms:.4f} ms", flush=True)
+    del sessions, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. a mid-traffic failure of (0, 1), its restore and readmission
+    sess = CommSession(CommConfig(telemetry=True))
+    pre = sess.describe(0, 1, big.numel() * 4, max_paths=3)
+    rows = []
+    for i in range(10):
+        if i == 3:
+            sess.topology.fail_link(0, 1)
+        if i == 6:
+            sess.topology.restore_link(0, 1)
+            probes = 0
+            while sess.planner.quarantined and probes < 10:
+                sess.probe_links()
+                probes += 1
+            check(not sess.planner.quarantined, "path I: (0, 1) was not "
+                  "readmitted")
+            digest = sess.describe(0, 1, big.numel() * 4,
+                                   max_paths=3)["graph"]["digest"]
+            check(digest == pre["graph"]["digest"], "path I: the "
+                  "post-readmit digest is not the pre-fault one")
+        cache0 = sess.stats()["cache"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.send(big, 0, 1, max_paths=3)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(out, big), f"path I: send {i} not bitwise")
+        cache1 = sess.stats()["cache"]
+        # the plan of the graph just launched: compiled_for re-plans the
+        # request and finds its graph in the cache (no new capture)
+        compiled, plan = sess.compiled_for(0, 1, big.numel(), max_paths=3)
+        check(sess.stats()["cache"]["misses"] == cache1["misses"],
+              f"path I: send {i}'s plan is not the one just launched")
+        links = plan.directional_links()
+        failed = 3 <= i < 6
+        check(not (failed and (0, 1) in links), f"path I: send {i} "
+              f"routed over the failed (0, 1)")
+        level = sess.stats()["health"]["ladder_level"]
+        check(level == (1 if failed else 0), f"path I: send {i} at "
+              f"ladder level {level}")
+        st = sess.telemetry.samples()[-1].stages
+        rows.append((i, wall, (st.plan_ns + st.lower_ns + st.schedule_ns)
+                     / 1e6, st.compile_ns / 1e6,
+                     cache1["misses"] - cache0["misses"], cache1["size"],
+                     held_mib(sess)))
+        if i == 5:
+            fault_replay_ms = cuda_time_ms(compiled.program.replay, 20)
+            fault_paths = [pa.route.via for pa in plan.paths]
+        if i == 6:
+            check(cache1["misses"] == cache0["misses"]
+                  and cache1["hits"] == cache0["hits"] + 1,
+                  "path I: the readmitted send was not a plan-cache hit")
+    print(f"path I ({smi}): 256 MiB sends 0->1, 3 paths, (0, 1) failed "
+          f"before send 3 and restored before send 6 (readmitted after "
+          f"{probes} probe sweeps, the pre-fault digest back as a "
+          f"plan-cache hit), all bitwise; per send (i, host ms synced, "
+          f"plan+lower+schedule ms, capture ms, new captures, cached "
+          f"graphs, graph MiB): "
+          + ", ".join(f"({i}, {w:.3f}, {p:.3f}, {c:.3f}, {n}, {k}, "
+                      f"{m:.0f})" for i, w, p, c, n, k, m in rows)
+          + f"; under the fault the paths via {fault_paths} replay in "
+          f"{fault_replay_ms:.4f} ms of device time", flush=True)
+    del sess, out, compiled, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. an injected schedule of drops, a droop and a flap
+    spec = "drop@2x2:0-2;degrade@6x4:0-3*0.25;flap@12~2x2:0-1"
+    sess = CommSession(CommConfig(faults=spec, telemetry=True))
+    m16 = big[: 4 * MiB]                                     # 16 MiB f32
+    slept_ns = []
+    sleep = time.sleep
+
+    def timed_sleep(seconds):         # the engine's backoff sleeps
+        s0 = time.perf_counter_ns()
+        sleep(seconds)
+        slept_ns.append(time.perf_counter_ns() - s0)
+
+    time.sleep = timed_sleep
+    t0 = time.perf_counter()
+    try:
+        for i in range(20):
+            check(torch.equal(sess.send(m16, 0, 1, max_paths=3), m16),
+                  f"path I: injected-schedule send {i} not bitwise")
+        torch.cuda.synchronize()
+    finally:
+        time.sleep = sleep
+    total_ms = (time.perf_counter() - t0) * 1e3
+    h = sess.stats()["health"]
+    got = {k: h[k] for k in ("retries", "replans", "faults_seen")}
+    check(got == {"retries": 1, "replans": 1, "faults_seen": 7},
+          f"path I: the injected schedule gave {got}, not the CPU's "
+          f"retries 1, replans 1, faults_seen 7")
+    samples = sess.telemetry.samples()
+    setup_ms = sum(x.stages.plan_ns + x.stages.lower_ns
+                   + x.stages.schedule_ns for x in samples) / 1e6
+    capture_ms = sum(x.stages.compile_ns for x in samples) / 1e6
+    kinds = [e["kind"] for e in sess.drain_health_events()]
+    print(f"path I ({smi}): {spec!r}, 20 sends of 16 MiB, all bitwise: "
+          f"{got}, {sess.stats()['dispatches']} dispatches (probes "
+          f"included), {sess.stats()['cache']['misses']} captures, graph "
+          f"MiB {held_mib(sess):.0f}; {total_ms:.3f} ms in all, of it "
+          f"backoff {sum(slept_ns) / 1e6:.3f} ms, plan+lower+"
+          f"schedule {setup_ms:.3f} ms, capture {capture_ms:.3f} ms; "
+          f"events {kinds}", flush=True)
+    del sess, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the host relay: every device link into 1 failed
+    sess = CommSession(CommConfig())
+    for src in (0, 2, 3):
+        sess.topology.fail_link(src, 1)
+    out = sess.send(big, 0, 1, max_paths=3)
+    check(torch.equal(out, big), "path I: host relay not bitwise")
+    check(sess.stats()["health"]["ladder_level"] == 3,
+          "path I: the relay did not leave ladder level 3")
+    relays = [e for e in sess.drain_health_events()
+              if e["kind"] == "host_relay"]
+    check(len(relays) == 1, f"path I: {len(relays)} host_relay events")
+    relay_ms = host_time_ms(lambda: sess.send(big, 0, 1, max_paths=3), 5,
+                            warmup=1)
+    pinned = torch.empty(big.shape, dtype=big.dtype, pin_memory=True)
+    back = torch.empty_like(big)
+
+    def round_trip():
+        pinned.copy_(big, non_blocking=True)
+        back.copy_(pinned, non_blocking=True)
+
+    trip_ms = host_time_ms(round_trip, 5, warmup=1)
+    check(torch.equal(back, big), "path I: pinned round trip not bitwise")
+    nbytes = big.numel() * 4
+    print(f"path I ({smi}): host relay of 256 MiB 0->1 (ladder level 3, "
+          f"one host_relay event, bitwise): {relay_ms:.3f} ms synced, "
+          f"{nbytes / relay_ms / 1e6:.2f} GB/s of message; a pinned copy_ "
+          f"to the host and back alone {trip_ms:.3f} ms, "
+          f"{nbytes / trip_ms / 1e6:.2f} GB/s", flush=True)
+    del sess, out, pinned, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. path F's captured decode step through a failure of (0, 2)
+    sess = CommSession(CommConfig())
+    n = sess.num_devices
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd
+    step = make_captured_decode_step(
+        sess, batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+        kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+        schedule="overlap")
+    q, k, v = (torch.randn((n, 1, heads, kv_len, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    kv = torch.randn((n, kv_chunk), generator=g, device=dev).to(
+        torch.bfloat16)
+    q4, k4, v4 = (t.view(n, heads, kv_len, hd) for t in (q, k, v))
+    want = fk.flash_attention_plain(q4, k4, v4)
+    want_kv = kv.clone()
+    want_kv[2] = kv[0]
+    step_ms = []
+    for phase in ("healthy", "failed", "restored"):
+        if phase == "failed":
+            sess.topology.fail_link(0, 2)
+        if phase == "restored":
+            sess.topology.restore_link(0, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attn, new_kv = step(q, k, v, kv)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        err, ok = bf16_err(attn.view(n, heads, kv_len, hd), want)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        check(ok, f"path I: decode step ({phase}) attention max abs err "
+              f"{err}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+        check(torch.equal(new_kv, want_kv), f"path I: decode step "
+              f"({phase}) KV chunk not bitwise")
+        if phase == "failed":
+            for plan in step.resolve().plans:
+                check((0, 2) not in plan.directional_links(),
+                      "path I: the decode step routed over the failed "
+                      "(0, 2)")
+    print(f"path I ({smi}): path F's captured decode step through a "
+          f"failure of (0, 2): attention within {BF16_ATOL} + {BF16_RTOL} "
+          f"* |want| and the KV chunk bitwise in each call; first call "
+          f"healthy / after the failure / after the restore "
+          f"{step_ms[0]:.3f} / {step_ms[1]:.3f} / {step_ms[2]:.3f} ms "
+          f"synced (each a new resolve; the first two capture)", flush=True)
+    del sess, step, q, k, v, q4, k4, v4, kv, want, want_kv, attn, new_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. serving SmolLM-360M at full width: a KV migration under a fault
+    cfg = get_config("smollm_360m")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim_, cfg.dtype)
+          == (32, 960, 15, 5, 64, "bfloat16"),
+          f"smollm_360m is not the full-width config: {cfg}")
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(3),
+        device=dev)
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    sess = CommSession(CommConfig())
+    engine = ServeEngine(cfg, params, max_len=512, kv_chunks=4, comm=sess)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(4))
+    _, cache = engine.prefill(toks)
+    sess.topology.fail_link(0, 1)
+    moved = engine.migrate_kv(cache, 0, 1)
+    check(sorted(moved) == sorted(cache)
+          and all(torch.equal(moved[key], cache[key]) for key in cache),
+          "path I: the KV migration under a failed link not bitwise")
+    kinds = [e["kind"] for e in engine.health_events]
+    check("ladder" in kinds, f"path I: no ladder event in the serving "
+          f"engine's health events {kinds}")
+    cbytes = sum(t.numel() * t.element_size() for t in cache.values())
+    print(f"path I ({smi}): smollm_360m full width ({wbytes / 1e9:.2f} GB "
+          f"of seeded random weights), 2 prompts of 256 tokens, KV cache "
+          f"of {cbytes / MiB:.1f} MiB migrated 0->1 with (0, 1) failed: "
+          f"bitwise; engine.health_events {kinds}", flush=True)
+    del sess, engine, params, cache, moved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the droop monitor on path H's healthy traffic under a fitted
+    #    profile: its send sweep, its exchange and path F's decode step
+    sess = CommSession(CommConfig(telemetry=True, health=True))
+    mon = sess.monitor
+    ratios = {"send": [], "exchange": [], "decode step": []}
+    culprits = []
+
+    def observe(sample):
+        before = mon.quarantines
+        r = mon.observe(sample)
+        if r is None:
+            return
+        kind = ("decode step" if sample.compute
+                else "exchange" if len(sample.routes) > 1 else "send")
+        ratios[kind].append(r)
+        if mon.quarantines > before:
+            culprits.append((kind, round(r, 3),
+                             sorted(map(list, mon.quarantined))))
+
+    sess.telemetry.on_record = observe
+    sweep = [(nbytes, paths)
+             for nbytes in (64 * 1024, MiB, 16 * MiB, 64 * MiB, 256 * MiB)
+             for paths in (1, 2, 3)]
+    quarter = [big[i * 4 * MiB:(i + 1) * 4 * MiB] for i in range(4)]
+    items = [(quarter[i], i, (i + 1) % 4) for i in range(4)]
+    n = sess.num_devices
+    step = make_captured_decode_step(
+        sess, batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+        kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+        schedule="overlap")
+    q, k, v = (torch.randn((n, 1, heads, kv_len, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    kv = torch.randn((n, kv_chunk), generator=g, device=dev).to(
+        torch.bfloat16)
+    want_kv = kv.clone()
+    want_kv[2] = kv[0]
+
+    def traffic(reps: int) -> None:
+        for nbytes, paths in sweep:
+            m = big[: nbytes // 4]
+            for _ in range(reps):
+                check(torch.equal(sess.send(m, 0, 1, max_paths=paths), m),
+                      f"path I: {nbytes} B droop-sweep send not bitwise")
+        for _ in range(reps):
+            got = sess.exchange(items)
+            check(all(torch.equal(a, b) for a, b in zip(got, quarter)),
+                  "path I: droop-sweep exchange not bitwise")
+        for _ in range(3):
+            check(torch.equal(step(q, k, v, kv)[1], want_kv),
+                  "path I: droop-sweep decode step KV chunk not bitwise")
+
+    traffic(10)
+    check(not any(ratios.values()), "path I: the monitor judged samples "
+          "before a calibration")
+    sess.calibrate(min_samples=3, warmup=2)
+    traffic(10)
+    torch.cuda.synchronize()
+    read_path("I")
+    check(ratios["send"], "path I: the monitor judged no send under the "
+          "profile")
+    print(f"path I ({smi}): droop monitor on path H's healthy traffic "
+          f"under the fitted profile (threshold {mon.droop_threshold}, "
+          f"{mon.droop_samples} in a row), measured/modeled by kind: "
+          + "; ".join(
+              f"{kind} x{len(rs)} median {quantile(rs, 0.5):.4f}, p90 "
+              f"{quantile(rs, 0.9):.4f}, max {max(rs):.4f}, "
+              f"{sum(r > mon.droop_threshold for r in rs)} above"
+              for kind, rs in ratios.items() if rs)
+          + f"; quarantines {mon.quarantines} (kind, ratio, quarantined "
+          f"set): {culprits}; readmissions {mon.readmissions}; ladder "
+          f"{sess.stats()['health']}", flush=True)
+    for name in ("multipath_dma", "flash_attention"):
+        check(per_path["I"].get(name, 0) > 0,
+              f"path I did not launch {name}")
+    del sess, step, big, msg64, m16, quarter, items, q, k, v, kv, want_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2022,11 +2430,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     calibration_path(dev, errs, per_path, read_path, launch64, smi)
-    print(f"main-path launches (paths A-H): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    health_path(dev, errs, per_path, read_path, smi,
+                launch64["replay256_ms"])
+    print(f"main-path launches (paths A-I): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 14. report --------------------------------------------------------
+    # -- 15. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

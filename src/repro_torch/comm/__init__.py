@@ -11,6 +11,7 @@
 * :mod:`repro_torch.comm.calibration` — §4.4 terms fitted from the samples
 * :mod:`repro_torch.comm.capture` — whole-iteration step capture
 * :mod:`repro_torch.comm.collectives` — bidirectional-ring collectives
+* :mod:`repro_torch.comm.health`  — link faults, health monitor (§4.6)
 * :mod:`repro_torch.comm.engine`  — the engine on the ``multipath_dma`` kernel
 * :mod:`repro_torch.comm.session` — :class:`CommSession` facade
 """
@@ -44,6 +45,9 @@ from repro_torch.comm.collectives import (  # noqa: F401
     bidir_ring_all_gather, bidir_ring_reduce_scatter, modeled_all_reduce_s,
     multipath_all_reduce, multipath_all_to_all, psum_via_multipath,
     select_all_reduce_strategy, tier_bandwidths_gbps, two_level_all_reduce)
+from repro_torch.comm.health import (  # noqa: F401
+    LADDER, CommFaultError, FaultEvent, FaultInjector, HealthMonitor,
+    HealthStats, LinkFaultError)
 from repro_torch.comm.engine import GroupKey, MultiPathTransfer  # noqa: F401
 from repro_torch.comm.session import (  # noqa: F401
     BoundCollectives, CollectiveKey, CommSession)

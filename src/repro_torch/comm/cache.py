@@ -251,6 +251,11 @@ class TransferPlanCache:
         """Current keys, least-recently-used first (eviction order)."""
         return list(self._store)
 
+    def values(self) -> list[CompiledPlan]:
+        """Current programs in the order of :meth:`keys`; reading them
+        counts no hit and moves nothing."""
+        return list(self._store.values())
+
     def stats(self, reset: bool = False) -> dict[str, int]:
         """Hit/miss/eviction counters plus current size and capacity.
 

@@ -44,9 +44,14 @@ copies' host enqueue time, and the replay split into launch and execute
 by the host clock (:meth:`~repro_torch.comm.cache.CompiledPlan.timed_call`).
 Disabled, the dispatch pays one boolean check.
 
-On the CPU the same entries run the kernels' plain versions eagerly. The
-degraded-mode ladder is a later slice: dispatch under fault state raises
-``NotImplementedError``.
+Under fault state (a live :class:`~repro_torch.comm.health.FaultInjector`,
+quarantined or failed links) a dispatch walks the §4.6 degradation
+ladder (:data:`~repro_torch.comm.health.LADDER`): re-plans over the
+surviving links, then the single best path, each a new captured graph,
+and last a relay through pinned host memory. The healthy path pays the
+few boolean reads of :meth:`MultiPathTransfer._hazard`.
+
+On the CPU the same entries run the kernels' plain versions eagerly.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ from repro_torch.comm.capture import (CapturedStep, StepCapture, StepProgram,
                                       as_dtype, dtype_name, lower_step)
 from repro_torch.comm.config import VALIDATE_MODES, _env_bool
 from repro_torch.comm.graph import ComputeNode, TransferGraph, lower
+from repro_torch.comm.health import (LADDER, CommFaultError, FaultInjector,
+                                     HealthMonitor, HealthStats,
+                                     LinkFaultError)
 from repro_torch.comm.passes import AutoSchedule, GraphPass, apply_schedule
 from repro_torch.comm.plan import TransferGroup, TransferPlan, TransferRequest
 from repro_torch.comm.planner import PathPlanner
@@ -137,6 +145,14 @@ def _scheduled_graph(graph: TransferGraph, schedule: str,
     return apply_schedule(graph, schedule, topology)
 
 
+class NoRouteError(ValueError):
+    """The planner refused a request: no admissible route over the
+    surviving links, or a plan that failed its §4.5 checks. The
+    degradation ladder escalates on this error alone; a ``ValueError``
+    raised while a graph is lowered, a program built or a replay issued
+    propagates to the caller."""
+
+
 def _check_executable(plan: TransferPlan) -> None:
     for pa in plan.paths:
         for link in pa.route.hops:
@@ -160,7 +176,11 @@ class MultiPathTransfer:
                  fastpath: bool | None = None,
                  validate: str | None = None,
                  fastpath_cache: FastPathCache | None = None,
-                 telemetry: TimelineRecorder | None = None):
+                 telemetry: TimelineRecorder | None = None,
+                 monitor: HealthMonitor | None = None,
+                 faults: FaultInjector | None = None,
+                 retry_limit: int = 2,
+                 backoff_base_s: float = 0.001):
         self.device = torch.device(device)
         if topology is None:
             topology = Topology.full_mesh(4, with_host=True)
@@ -208,17 +228,36 @@ class MultiPathTransfer:
         self.edges_compiled = 0
         self.copy_nodes_compiled = 0
         self.compute_nodes_compiled = 0
+        #: Degraded-mode accounting (DESIGN §4.6): retries/replans/ladder
+        #: level, surfaced as the ``health`` stats section. Always
+        #: present so counters exist whether or not a monitor is wired.
+        self.health = HealthStats()
+        #: Optional telemetry-driven link health monitor; when attached,
+        #: dispatch faults quarantine through it (events logged) and the
+        #: degraded loop probes quarantined links on its cadence.
+        self.monitor = monitor
+        #: Optional deterministic chaos injector (``REPRO_MP_FAULTS``);
+        #: fires before each dispatch resolves so epoch bumps always
+        #: precede planning — no stale graph survives an injection.
+        self.faults = faults
+        #: Retries per degradation-ladder rung before escalating, and
+        #: the bounded exponential backoff base between them (§4.6).
+        self.retry_limit = retry_limit
+        self.backoff_base_s = backoff_base_s
 
     # -- planning -----------------------------------------------------------
     def plan_for(self, src: int, dst: int, nelems: int,
                  dtype=torch.float32, **plan_kwargs) -> TransferPlan:
         itemsize = as_dtype(dtype).itemsize
-        plan = self.planner.plan(src, dst, nelems * itemsize,
-                                 granularity=itemsize,
-                                 include_host=plan_kwargs.pop(
-                                     "include_host", False),
-                                 **plan_kwargs)
-        validate_plan(plan)
+        try:
+            plan = self.planner.plan(src, dst, nelems * itemsize,
+                                     granularity=itemsize,
+                                     include_host=plan_kwargs.pop(
+                                         "include_host", False),
+                                     **plan_kwargs)
+            validate_plan(plan)
+        except ValueError as exc:
+            raise NoRouteError(str(exc)) from exc
         return plan
 
     def plan_group_for(self, specs: Sequence[tuple], *,
@@ -233,13 +272,16 @@ class MultiPathTransfer:
             itemsize = as_dtype(dtype).itemsize
             requests.append(TransferRequest(src, dst, nelems * itemsize,
                                             granularity=itemsize))
-        group = self.planner.plan_group(requests, max_paths=max_paths,
-                                        include_host=False,
-                                        num_chunks=num_chunks,
-                                        exclusive=exclusive)
-        for plan in group.plans:
-            validate_plan(plan)
-            _check_executable(plan)
+        try:
+            group = self.planner.plan_group(requests, max_paths=max_paths,
+                                            include_host=False,
+                                            num_chunks=num_chunks,
+                                            exclusive=exclusive)
+            for plan in group.plans:
+                validate_plan(plan)
+                _check_executable(plan)
+        except ValueError as exc:
+            raise NoRouteError(str(exc)) from exc
         return group
 
     # -- program construction -----------------------------------------------
@@ -472,24 +514,228 @@ class MultiPathTransfer:
             stages.compile_ns = compiled.lifecycle.build_ns
         return compiled
 
-    def _check_healthy(self) -> None:
+    # -- degraded-mode dispatch (DESIGN §4.6) -------------------------------
+    def _hazard(self) -> bool:
+        """True while any fault state can affect dispatch: a live
+        injector, quarantined links, or failed topology links. The
+        healthy path costs exactly these boolean reads — the §4.6
+        zero-overhead-off contract."""
+        return ((self.faults is not None and self.faults.active)
+                or bool(self.planner.quarantined)
+                or bool(self.topology.failed_links))
+
+    def _fault_check(self, entry) -> None:
+        """Validate a resolved entry against the live fault state.
+
+        Raises :class:`~repro_torch.comm.health.LinkFaultError` when the
+        entry still routes over a failed or quarantined link (a fault
+        landed between resolve and launch) or when the injector's active
+        drop window blames one of the entry's links — the §4.6 invariant
+        that no replay is ever issued onto a link known to be down.
+        """
+        links = tuple({link for p in entry.plans
+                       for link in p.directional_links()})
+        failed = self.topology.failed_links
+        quarantined = self.planner.quarantined
+        bad = [link for link in links
+               if link in failed or link in quarantined]
+        if bad:
+            raise LinkFaultError(bad, "entry routes over faulted links")
+        if self.faults is not None:
+            link = self.faults.dropped_link(self.dispatches, links)
+            if link is not None:
+                raise LinkFaultError((link,), "injected dispatch drop")
+
+    def _note_fault(self, exc: LinkFaultError, rung: int) -> None:
+        """Account one failed attempt: bump the retry counter, log the
+        event, and quarantine the blamed links (through the monitor when
+        attached, so the event stream stays unified) — the epoch bump
+        this causes is what makes the following re-resolve a re-plan
+        over surviving links."""
+        hs = self.health
+        hs.retries += 1
+        hs.note("retry", rung=LADDER[min(rung, len(LADDER) - 1)],
+                links=list(exc.links), reason=exc.reason,
+                dispatch=self.dispatches)
+        for link in exc.links:
+            if link in self.topology.failed_links:
+                continue  # physically gone; quarantine is for suspects
+            if self.monitor is not None:
+                self.monitor.quarantine_link(link, reason=exc.reason,
+                                             dispatch=self.dispatches)
+            else:
+                self.planner.quarantine(link)
+
+    def _steady_rung(self, rung: int) -> int:
+        """The :data:`~repro_torch.comm.health.LADDER` level to record for
+        a successful dispatch at ``rung``: multipath rungs report
+        ``surviving_multipath`` whenever fault state constrained the
+        route set (the invariant that ``ladder_level == 0`` means the
+        full healthy plan)."""
+        if rung >= 2:
+            return rung
         if self.planner.quarantined or self.topology.failed_links:
-            raise NotImplementedError(
-                "dispatch under link faults (quarantined or failed links) "
-                "needs the degradation ladder, which is ported with the "
-                "health slice")
+            return 1
+        return 0
+
+    def _note_rung(self, rung: int) -> None:
+        """Record a successful dispatch at ``rung``: log a ``ladder``
+        event when the level moved, then let the monitor probe on its
+        cadence."""
+        hs = self.health
+        level = self._steady_rung(rung)
+        if hs.ladder_level != level:
+            hs.note("ladder", level=level, rung=LADDER[level],
+                    dispatch=self.dispatches)
+        hs.ladder_level = level
+        if self.monitor is not None:
+            self.monitor.maybe_probe(self)
+
+    def _backoff(self, delay: float) -> float:
+        """Sleep the bounded exponential backoff; returns the next
+        delay (doubled, capped at 50 ms)."""
+        if delay > 0:
+            time.sleep(delay)
+            delay = min(delay * 2, 0.05)
+        return delay
+
+    def _host_relay(self, specs: Sequence[tuple],
+                    messages: Sequence[torch.Tensor],
+                    history: Sequence[str], *,
+                    block: bool) -> list[torch.Tensor]:
+        """Last ladder rung: deliver each message through a host (PCIe)
+        round trip outside the captured graphs. A message on a CUDA
+        device is copied into a pinned host buffer and from it into a
+        new tensor on the device (``block`` waits for both copies); a
+        message on the CPU is copied on the host.
+
+        Delivery over bandwidth: payloads arrive intact (the §4.5
+        integrity contract still holds) at host-link speed. Requires
+        nominal host links on both endpoints; raises
+        :class:`~repro_torch.comm.health.CommFaultError` (the ladder is
+        exhausted) when any message lacks them.
+        """
+        topo = self.topology
+        for (src, dst, _, _) in specs:
+            if (topo.link(src, HOST) is None
+                    or topo.link(HOST, dst) is None):
+                raise CommFaultError(
+                    f"degradation ladder exhausted for {src}->{dst}: no "
+                    f"surviving device route and no host-staged route",
+                    history)
+        outs = []
+        for m in messages:
+            if m.device.type == "cuda":
+                staged = torch.empty(m.shape, dtype=m.dtype,
+                                     pin_memory=True)
+                staged.copy_(m, non_blocking=True)      # pull to host
+                out = torch.empty_like(m)
+                out.copy_(staged, non_blocking=True)    # push to dst
+            else:
+                out = m.clone()
+            outs.append(out)
+        if block and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        hs = self.health
+        hs.host_relays += 1
+        hs.ladder_level = 3
+        hs.note("host_relay", messages=len(specs),
+                dispatch=self.dispatches)
+        self.dispatches += 1
+        return outs
 
     def _dispatch(self, specs: Sequence[tuple],
                   messages: Sequence[torch.Tensor], *, window: int,
                   max_paths: int | None, num_chunks: int | None,
                   exclusive: bool, schedule: str | GraphPass | None,
                   single: bool, block: bool) -> list[torch.Tensor]:
-        """Resolve + replay one request (the healthy branch)."""
-        self._check_healthy()
-        entry = self._resolve(specs, window=window, max_paths=max_paths,
-                              num_chunks=num_chunks, exclusive=exclusive,
-                              schedule=schedule, single=single)
-        return self._launch(entry, messages, block=block)
+        """Resolve + replay one request, degradation-aware (§4.6).
+
+        Healthy state (no injector activity, no quarantine, no failed
+        links) is the unchanged fast path: resolve, replay, done —
+        exceptions propagate exactly as before, preserving every
+        caller-visible contract (e.g. ``exclusive=True`` starvation
+        raises). Under fault state the request walks
+        :data:`~repro_torch.comm.health.LADDER` instead.
+        """
+        if self.faults is not None:
+            self.faults.on_dispatch(self)
+        if not self._hazard():
+            hs = self.health
+            if hs.ladder_level:
+                hs.ladder_level = 0  # fully recovered
+            entry = self._resolve(specs, window=window,
+                                  max_paths=max_paths,
+                                  num_chunks=num_chunks,
+                                  exclusive=exclusive, schedule=schedule,
+                                  single=single)
+            return self._launch(entry, messages, block=block)
+        return self._dispatch_degraded(
+            specs, messages, window=window, max_paths=max_paths,
+            num_chunks=num_chunks, exclusive=exclusive, schedule=schedule,
+            single=single, block=block)
+
+    def _dispatch_degraded(self, specs: Sequence[tuple],
+                           messages: Sequence[torch.Tensor], *,
+                           window: int, max_paths: int | None,
+                           num_chunks: int | None, exclusive: bool,
+                           schedule: str | GraphPass | None,
+                           single: bool, block: bool) -> list[torch.Tensor]:
+        """Walk the §4.6 degradation ladder until the request delivers.
+
+        Rung 0 resolves the request as asked; each
+        :class:`~repro_torch.comm.health.LinkFaultError` quarantines the
+        blamed links (an epoch bump — the next resolve IS a re-plan over
+        surviving links, and a new captured graph), sleeps the bounded
+        exponential backoff, and retries up to ``retry_limit`` times per
+        rung. A rung with no admissible route (a :class:`NoRouteError`
+        from planning: the planner found none, or a plan failed its
+        checks) escalates immediately: surviving multipath → single best
+        path → host-staged relay. Whatever lowering, the program build or
+        the replay raises propagates as on the healthy path — a fault of
+        the port's own is never delivered through the host instead.
+        Degraded rungs drop the
+        ``exclusive`` guarantee (delivery over exclusivity — DESIGN
+        §4.6); every replayed plan still passes the same §4.5 validation
+        as healthy traffic. Only when every rung is exhausted does
+        :class:`~repro_torch.comm.health.CommFaultError` reach the
+        caller.
+        """
+        hs = self.health
+        delay = self.backoff_base_s
+        history: list[str] = []
+        failed_once = False
+        rungs = ((0, max_paths, 1),
+                 (1, max_paths, self.retry_limit + 1),
+                 (2, 1, self.retry_limit + 1))
+        for rung, rung_paths, attempts in rungs:
+            for _ in range(attempts):
+                if failed_once:
+                    hs.replans += 1
+                try:
+                    entry = self._resolve(
+                        specs, window=window, max_paths=rung_paths,
+                        num_chunks=num_chunks,
+                        exclusive=exclusive and rung == 0,
+                        schedule=schedule, single=single)
+                except NoRouteError as exc:
+                    failed_once = True
+                    history.append(f"{LADDER[rung]}: {exc}")
+                    break  # no admissible route at this rung: escalate
+                try:
+                    self._fault_check(entry)
+                except LinkFaultError as exc:
+                    failed_once = True
+                    history.append(f"{LADDER[rung]}: {exc}")
+                    entry.compiled.lifecycle.retries += 1
+                    self._note_fault(exc, rung)
+                    delay = self._backoff(delay)
+                    continue
+                out = self._launch(entry, messages, block=block)
+                self._note_rung(rung)
+                return out
+        return self._host_relay(specs, messages, history,
+                                block=block)
 
     def _as_message(self, message) -> torch.Tensor:
         m = torch.as_tensor(message)
@@ -736,19 +982,57 @@ class MultiPathTransfer:
 
         Returns the step outputs device-stacked ``(num_devices,
         *local_shape)``, aligned with the capture's declared outputs.
-        Under fault state (quarantined or failed links) it raises
-        ``NotImplementedError``: the captured-step retry ladder comes
-        with the health slice.
+
+        Under fault state (§4.6 hazard: live injector, quarantined or
+        failed links) the captured step retries with bounded backoff —
+        each :class:`~repro_torch.comm.health.LinkFaultError` quarantines
+        the blamed links so the re-resolve re-plans over surviving
+        routes and captures the step anew (``plan_group_for`` naturally
+        narrows the path set; there is no host rung for captured
+        steps). A resolve with no admissible route (a
+        :class:`NoRouteError`), and exhaustion, raise
+        :class:`~repro_torch.comm.health.CommFaultError` with the attempt
+        history; what lowering, the build or the replay raises
+        propagates; the healthy path is unchanged.
         """
-        self._check_healthy()
-        entry = self.resolve_step(step, schedule)
-        return self._launch_step(entry, tensors, block=block)
+        if self.faults is not None:
+            self.faults.on_dispatch(self)
+        if not self._hazard():
+            entry = self.resolve_step(step, schedule)
+            return self._launch_step(entry, tensors, block=block)
+        hs = self.health
+        delay = self.backoff_base_s
+        history: list[str] = []
+        for attempt in range(self.retry_limit + 2):
+            if attempt:
+                hs.replans += 1
+            try:
+                entry = self.resolve_step(step, schedule)
+            except NoRouteError as exc:
+                history.append(f"step: {exc}")
+                raise CommFaultError(
+                    f"captured-step ladder exhausted: {exc}",
+                    history) from exc
+            try:
+                self._fault_check(entry)
+            except LinkFaultError as exc:
+                history.append(f"step: {exc}")
+                self._note_fault(exc, 1)
+                delay = self._backoff(delay)
+                continue
+            out = self._launch_step(entry, tensors, block=block)
+            self._note_rung(0)
+            return out
+        raise CommFaultError(
+            "captured-step dispatch failed after retries", history)
 
     # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:
         """Engine-level accounting: replays, plan-cache counters, fast-
         path counters, cumulative staging time, captured graph totals,
-        per-schedule resolution counts and, with a recorder, its counters
+        per-schedule resolution counts, the §4.6 ``health`` section
+        (windowed retries/replans/faults/host relays; ladder level and
+        quarantine count are state) and, with a recorder, its counters
         (``telemetry``). ``reset=True`` returns the snapshot then zeroes
         every windowed counter; telemetry samples survive a reset (they
         feed calibration; ``telemetry.clear()`` drops them)."""
@@ -766,6 +1050,8 @@ class MultiPathTransfer:
                           self.compute_nodes_compiled},
             "schedules": dict(self.schedule_counts),
             "schedule_scores": AutoSchedule.score_stats(reset=reset),
+            "health": self.health.snapshot(
+                len(self.planner.quarantined), self.monitor is not None),
         }
         if self.telemetry is not None:
             out["telemetry"] = self.telemetry.stats()
@@ -777,4 +1063,5 @@ class MultiPathTransfer:
             self.copy_nodes_compiled = 0
             self.compute_nodes_compiled = 0
             self.schedule_counts = {}
+            self.health.reset_window()
         return out

@@ -41,11 +41,16 @@ rows of each operand on that one device. Without a topology the session
 models the paper's Beluga node (``Topology.full_mesh(4)``): one card has
 no device count to read the size from.
 
-``faults``, whose subsystem is ported in a later slice, raises
-``NotImplementedError`` instead of being ignored. ``health`` (on by
-default) is accepted: no monitor watches the telemetry yet, and every
-dispatch under fault state raises ``NotImplementedError`` naming the
-health slice.
+Link faults (DESIGN §4.6): ``CommConfig.health`` (on by default) attaches
+a :class:`~repro_torch.comm.health.HealthMonitor` that watches the
+telemetry for droop, quarantines suspect links and readmits them after
+healthy probes (``session.probe_links()``); ``CommConfig.faults`` (or
+``REPRO_MP_FAULTS``) attaches a deterministic
+:class:`~repro_torch.comm.health.FaultInjector`. Under fault state every
+dispatch walks the degradation ladder instead of raising;
+``session.drain_health_events()`` returns what happened and
+``session.describe(src, dst, nbytes)`` reports a request's plan, graph,
+modeled costs and the fault state it was planned under.
 """
 
 from __future__ import annotations
@@ -65,12 +70,15 @@ from repro_torch.comm.calibration import (CalibrationFitter,
 from repro_torch.comm.capture import CapturedStep, dtype_name
 from repro_torch.comm.config import CommConfig
 from repro_torch.comm.engine import MultiPathTransfer
-from repro_torch.comm.graph import canonical_digest
-from repro_torch.comm.passes import AutoSchedule, GraphPass
+from repro_torch.comm.graph import canonical_digest, lower
+from repro_torch.comm.health import FaultInjector, HealthMonitor, HealthStats
+from repro_torch.comm.passes import (AutoSchedule, GraphPass, apply_schedule,
+                                     make_schedule)
 from repro_torch.comm.plan import TransferPlan
 from repro_torch.comm.planner import PathPlanner
 from repro_torch.comm.policy import PathPolicy, make_policy
 from repro_torch.comm.telemetry import TimelineRecorder
+from repro_torch.core import pipelining as pl
 from repro_torch.core.topology import Topology
 from repro_torch.kernels._graph import GraphProgram
 
@@ -179,10 +187,6 @@ class CommSession:
         self.config = config if config is not None else CommConfig.from_env()
         if schedule is not None:
             self.config = self.config.replace(schedule=schedule)
-        if self.config.faults:
-            raise NotImplementedError(
-                "CommConfig.faults is not ported yet; it comes with the "
-                "health slice")
         self.device = resolve_device(device)
         if topology is None:
             topology = Topology.full_mesh(4, with_host=True)
@@ -201,6 +205,28 @@ class CommSession:
         self.telemetry = TimelineRecorder(
             capacity=self.config.telemetry_capacity,
             enabled=True if self.config.telemetry else None)
+        #: Link-health monitor (DESIGN §4.6): watches telemetry residuals
+        #: for droop, quarantines suspect links on the planner, and
+        #: re-admits them after healthy probes. ``config.health`` /
+        #: ``REPRO_MP_HEALTH`` gates construction — with it off the
+        #: session carries no monitor and dispatch pays nothing.
+        self.monitor: HealthMonitor | None = None
+        if self.config.health:
+            self.monitor = HealthMonitor(
+                self.topology, self.planner,
+                droop_threshold=self.config.droop_threshold,
+                droop_samples=self.config.droop_samples,
+                probe_healthy=self.config.probe_healthy,
+                recovery_ratio=self.config.recovery_ratio,
+                probe_interval=self.config.probe_interval)
+            # Droop detection rides the telemetry ring's observer hook
+            # (fires only while telemetry is enabled).
+            self.telemetry.on_record = self.monitor.observe
+        #: Deterministic chaos injector parsed from ``config.faults`` /
+        #: ``REPRO_MP_FAULTS`` (empty spec → no injector, no hazard).
+        self.faults: FaultInjector | None = (
+            FaultInjector.from_spec(self.config.faults)
+            if self.config.faults else None)
         if self.config.profile_dir:
             self._load_calibration(self.config.profile_dir)
 
@@ -231,7 +257,11 @@ class CommSession:
                 schedule=self.config.schedule,
                 fastpath=self.config.fastpath,
                 validate=self.config.validate,
-                telemetry=self.telemetry)
+                telemetry=self.telemetry,
+                monitor=self.monitor,
+                faults=self.faults,
+                retry_limit=self.config.retry_limit,
+                backoff_base_s=self.config.backoff_base_s)
         return self._engine
 
     @property
@@ -521,6 +551,203 @@ class CommSession:
             profile.save(out_dir)
         return profile
 
+    # -- introspection ------------------------------------------------------
+    def describe(self, src: int, dst: int, nbytes: int, *,
+                 window: int | None = None,
+                 schedule: str | GraphPass | None = None,
+                 **plan_kwargs) -> dict:
+        """Plan one message and report its transfer graph + model costs.
+
+        Pure planning — no device work, no capture — so it is the dry-run
+        surface. Returns the SCHEDULED graph's shape (copy nodes,
+        dependency edges, critical-path depth, canonical post-pass
+        digest — the cache-key ingredient) and the analytic model's
+        costs, all derived from the SAME lowering + scheduler pass the
+        engine would capture. The ``"schedule"`` section reports the
+        requested scheduler, the concrete order chosen (``auto`` resolves
+        to its winner), its modeled time, and the delta vs the
+        ``round_robin`` baseline (≤ 0 when the chosen order is modeled
+        faster); for ``auto`` it additionally carries the per-candidate
+        ``"candidates"`` scores its selection already computed.
+        """
+        window = self.config.window if window is None else window
+        requested = self.config.schedule if schedule is None else schedule
+        plan = self.plan(src, dst, nbytes, **plan_kwargs)
+        base_graph = lower(plan, window)
+        sched = (make_schedule(requested, self.topology)
+                 if isinstance(requested, str) else requested)
+        candidates = None
+        if isinstance(sched, AutoSchedule):
+            # Reuse the scores auto's selection computes anyway instead
+            # of re-evaluating the winner and the baseline.
+            chosen, graph, candidates = sched.select(base_graph)
+            scheduled_t = candidates[chosen]
+            baseline_t = candidates["round_robin"]
+        else:
+            graph, chosen = apply_schedule(base_graph, sched,
+                                           self.topology)
+            scheduled_t = pl.scheduled_time_s(graph, self.topology)
+            baseline_t = (scheduled_t if graph is base_graph else
+                          pl.scheduled_time_s(base_graph, self.topology))
+        wire = pl.wire_time_s(plan, self.topology)
+        schedule_info = {
+            "requested": (requested if isinstance(requested, str)
+                          else requested.name),
+            "chosen": chosen,
+            "scheduled_time_s": scheduled_t,
+            "round_robin_time_s": baseline_t,
+            "delta_vs_round_robin_s": scheduled_t - baseline_t,
+        }
+        if candidates is not None:
+            schedule_info["candidates"] = candidates
+        return {
+            "src": src, "dst": dst, "nbytes": nbytes, "window": window,
+            "topology": self.topology.name,
+            "num_paths": plan.num_paths,
+            "schedule": schedule_info,
+            # Steady-state dispatch (§2.3): whether repeat traffic for
+            # this request would skip the pipeline just run above, and
+            # the epoch stamp such an entry would be keyed under.
+            "fastpath": {
+                "enabled": self.config.fastpath,
+                "validate": self.config.validate,
+                "epoch": list(self.planner.epoch),
+            },
+            "graph": {
+                "digest": graph.digest(),
+                "nodes": graph.num_nodes,
+                "copy_nodes": graph.num_copy_nodes,
+                "compute_nodes": graph.num_compute_nodes,
+                "edges": graph.num_edges,
+                "critical_path_nodes": graph.critical_path_nodes(),
+            },
+            "model": {
+                "wire_time_s": wire,
+                "time_s": pl.estimate_transfer_time_s(plan, self.topology),
+                "time_first_iter_s": pl.estimate_transfer_time_s(
+                    plan, self.topology, first_iteration=True),
+                "launch_overhead_ns": pl.launch_overhead_ns(
+                    plan, compiled_plan=True, topo=self.topology),
+                "launch_overhead_nograph_ns": pl.launch_overhead_ns(
+                    plan, compiled_plan=False, topo=self.topology),
+                "effective_gbps": pl.effective_bandwidth_gbps(
+                    plan, self.topology),
+            },
+            # Lane-model view (§2.2): how the scheduled order prices
+            # under the resource-lane simulation vs the serialized
+            # chain, and how many modeled copy seconds hide behind
+            # compute. Zero hidden time on a pure-comm describe.
+            "overlap": self._overlap_info(graph),
+            # Measured feedback (§4.4c): which terms the model sections
+            # above actually consumed, plus modeled-vs-measured residuals
+            # over the recorded samples so drift is visible.
+            "calibration": self._calibration_info(),
+            # Island structure (§3.1): whether this request crosses a
+            # node boundary, and the flat-vs-two-level modeled
+            # all-reduce delta for a payload of this size.
+            "hierarchy": self._hierarchy_info(src, dst, nbytes),
+            # Fault state (§4.6): failed / degraded / quarantined links
+            # and the monitor's thresholds, so a dry-run shows whether
+            # this plan was produced under degradation.
+            "health": self._health_info(),
+        }
+
+    def _overlap_info(self, graph) -> dict:
+        """The ``describe()['overlap']`` section: lane vs serialized
+        makespans of the scheduled graph plus modeled hidden-copy
+        seconds and the fraction of total copy time hidden — the
+        §2.2 overlap-visibility contract."""
+        lane = pl.scheduled_time_s(graph, self.topology, mode="lanes")
+        serialized = pl.scheduled_time_s(graph, self.topology,
+                                         mode="serialized")
+        hidden = pl.hidden_copy_time_s(graph, self.topology)
+        weights = pl.graph_node_weights_s(graph, self.topology)
+        copy_s = sum(w for nd, w in zip(graph.nodes, weights)
+                     if not hasattr(nd, "kernel"))
+        return {"lane_makespan_s": lane,
+                "serialized_makespan_s": serialized,
+                "hidden_copy_s": hidden,
+                "hidden_copy_fraction": (hidden / copy_s
+                                         if copy_s > 0 else 0.0)}
+
+    def _hierarchy_info(self, src: int, dst: int, nbytes: int) -> dict:
+        """The ``describe()['hierarchy']`` section: island count, the
+        request's island endpoints, and — on >1-island topologies — the
+        §4.4 tier model's flat vs two-level all-reduce times for this
+        payload plus the layout ``config.collective_strategy`` resolves
+        to."""
+        topo = self.topology
+        info: dict = {"islands": topo.num_islands,
+                      "src_island": topo.node_of(src),
+                      "dst_island": topo.node_of(dst),
+                      "cross_island": topo.is_inter_island(src, dst)}
+        if topo.num_islands > 1:
+            chosen, times = coll.select_all_reduce_strategy(
+                topo, nbytes, self.config.collective_strategy)
+            info["all_reduce"] = {
+                "chosen": chosen,
+                "flat_time_s": times["flat"],
+                "two_level_time_s": times["two_level"],
+                "delta_two_level_vs_flat_s": (times["two_level"]
+                                              - times["flat"]),
+            }
+        return info
+
+    def _health_info(self) -> dict:
+        """The ``describe()['health']`` section: whether monitoring is
+        enabled, the topology's failed/degraded link overlays, the
+        planner's quarantine set, and — when a monitor is attached — its
+        counters and thresholds. Pure state, JSON-able, no side effects:
+        the §4.6 visibility contract for dry-runs and reports."""
+        topo = self.topology
+        info: dict = {
+            "enabled": self.monitor is not None,
+            "failed": sorted(list(k) for k in topo.failed_links),
+            "degraded": {f"{a}-{b}": r
+                         for (a, b), r in sorted(
+                             topo.degraded_links.items())},
+            "quarantined": sorted(list(k)
+                                  for k in self.planner.quarantined),
+        }
+        if self.monitor is not None:
+            info["monitor"] = self.monitor.snapshot()
+        return info
+
+    # -- link health (DESIGN §4.6) ------------------------------------------
+    def probe_links(self, nelems: int = 256) -> dict:
+        """Actively probe every quarantined link (DESIGN §4.6 recovery).
+
+        Each probe checks the link's served bandwidth against the
+        recovery threshold AND sends a payload over exactly that link
+        through a captured ``multipath_dma`` graph, checking it arrives
+        intact (the §4.5 integrity contract applied to re-admission). A
+        link is re-admitted only after ``probe_healthy`` consecutive
+        healthy probes (doubled for flaky-marked links). Returns
+        ``{(src, dst): ok}`` keyed by the probed links; empty when
+        nothing is quarantined or health is off.
+        """
+        if self.monitor is None:
+            return {}
+        return self.monitor.probe_all(self.engine, nelems=nelems)
+
+    def drain_health_events(self) -> list[dict]:
+        """Return and clear the accumulated health event log — injector
+        firings, retries, quarantines, probes, re-admissions, ladder
+        moves — the engine's first, then the monitor's. Draining
+        preserves counters (``stats()['health']`` windows are
+        unaffected); it exists so supervisors like ``ServeEngine`` can
+        fold comm-fault history into their own event stream without
+        double-reporting."""
+        events: list[dict] = []
+        eng = self._engine
+        if eng is not None:
+            events.extend(eng.health.events)
+            eng.health.events.clear()
+        if self.monitor is not None:
+            events.extend(self.monitor.events)
+            self.monitor.events.clear()
+        return events
+
     def _calibration_info(self) -> dict:
         """The calibration section ``describe()`` reports: live-profile
         summary and modeled-vs-measured residuals (constant vs fitted)
@@ -535,12 +762,14 @@ class CommSession:
                 samples, self.topology, profile)
         return info
 
-    # -- introspection ------------------------------------------------------
     def stats(self, reset: bool = False) -> dict:
         """Cache hits/misses, replays (``dispatches`` — a fused group is
         ONE dispatch), fast-path counters, captured graph totals,
-        schedule counts, policy, topology, the telemetry recorder's
-        counters and whether a calibration profile is live. ``fastpath``
+        schedule counts, policy, topology, the §4.6 ``health`` ledger
+        (``retries`` / ``replans`` / ``faults_seen`` / ``host_relays``
+        windowed; ``ladder_level`` and ``quarantined_links`` state that
+        survives a reset), the telemetry recorder's counters and whether
+        a calibration profile is live. ``fastpath``
         ``staging_ns`` is the host enqueue time of the staging copies
         (their device time lands in the replays). ``reset=True`` returns
         the snapshot then zeroes every windowed counter; telemetry
@@ -559,7 +788,10 @@ class CommSession:
                             "copy_nodes_compiled": 0,
                             "compute_nodes_compiled": 0},
                   "schedules": {},
-                  "schedule_scores": AutoSchedule.score_stats(reset=reset)}
+                  "schedule_scores": AutoSchedule.score_stats(reset=reset),
+                  "health": HealthStats().snapshot(
+                      len(self.planner.quarantined),
+                      self.monitor is not None)}
         return {
             "cache": es["cache"],
             "dispatches": es["dispatches"],
@@ -569,6 +801,7 @@ class CommSession:
             "schedule": self.config.schedule,
             "schedules": es["schedules"],
             "schedule_scores": es["schedule_scores"],
+            "health": es["health"],
             "topology": self.topology.name,
             "num_devices": self.topology.num_devices,
             "device": str(self.device),

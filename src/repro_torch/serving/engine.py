@@ -225,13 +225,24 @@ class ServeEngine:
                                    kv_chunks=kv_chunks)
         self.temperature = temperature
         self.comm = comm
-        #: Comm-health events from the session; draining them comes with
-        #: the health slice, so the list stays empty.
+        #: Comm-health events (DESIGN §4.6) drained from the session
+        #: after each migration / generation — link faults, retries,
+        #: quarantines, re-admissions that happened under serving
+        #: traffic. A migration keeps delivering through a link failure
+        #: (the session re-plans on surviving routes); this log is how
+        #: the serving layer surfaces that it happened.
         self.health_events: list[dict] = []
         self.device = params["embed"].device
         self._decodes: dict[int, DecodeProgram] = {}
         self._prefills: collections.OrderedDict[
             tuple[int, int], PrefillProgram] = collections.OrderedDict()
+
+    def _drain_health(self) -> None:
+        """Fold the comm session's pending health events into
+        :attr:`health_events`. Draining clears the session-side log but
+        preserves its windowed counters (``stats()['health']``)."""
+        if self.comm is not None:
+            self.health_events.extend(self.comm.drain_health_events())
 
     def decode_program(self, batch: int) -> DecodeProgram:
         """The decode program of ``batch`` requests, made at first use; its
@@ -285,7 +296,9 @@ class ServeEngine:
         if self.comm is None:
             raise ValueError("ServeEngine was built without a CommSession; "
                              "pass comm= to enable KV migration")
-        return self.comm.send_pytree(cache, src, dst)
+        out = self.comm.send_pytree(cache, src, dst)
+        self._drain_health()
+        return out
 
     def _sample(self, logits: torch.Tensor,
                 generator: torch.Generator | None) -> torch.Tensor:
@@ -333,4 +346,5 @@ class ServeEngine:
         host = torch.stack(drawn).tolist() if drawn else []
         for i, r in enumerate(reqs):
             r.out.extend(host[step][i] for step in taken[i])
+        self._drain_health()
         return reqs

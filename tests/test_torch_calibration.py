@@ -258,8 +258,12 @@ def test_session_calibrate_requires_samples():
 
 def test_session_calibrate_end_to_end(tmp_path):
     """CPU traffic → fitted profile → strictly closer model, attached
-    (plans re-derived) with every later send still bitwise."""
-    sess = _session(telemetry=True)
+    (plans re-derived) with every later send still bitwise. The droop
+    monitor is off: under the fitted profile the larger sends read
+    2.5–4.5× their modeled time on the CPU, so host noise on one more
+    send quarantines every route 0→1, and this host-less mesh has no
+    relay rung left (the monitor is tested in ``test_torch_health.py``)."""
+    sess = _session(telemetry=True, health=False)
     msg = torch.arange(1 << 14, dtype=torch.float32)
     for _ in range(6):
         assert torch.equal(sess.send(msg, 0, 1, max_paths=3,

@@ -243,11 +243,20 @@ def test_replicated_input_and_shape_errors():
 
 
 def test_fault_state_raises_naming_the_health_slice():
+    """A captured step whose exchange rides (0, 1) is re-resolved over
+    the surviving routes when (0, 1) fails, and delivers bitwise."""
     sess = CommSession(device="cpu")
     step = sess.capture(_multipath_build)
     sess.topology.fail_link(0, 1)
-    with pytest.raises(NotImplementedError, match="health"):
-        step(torch.zeros(sess.num_devices, 1 << 20))
+    xs = torch.randn(sess.num_devices, 1 << 20,
+                     generator=torch.Generator().manual_seed(0))
+    (out,) = step(xs)
+    want = torch.ones_like(xs)             # the exchange zeroes other rows
+    want[1] = xs[0] * 2.0 + 1.0
+    assert torch.equal(out, want)
+    assert sess.stats()["health"]["ladder_level"] == 1
+    for plan in step.resolve().plans:
+        assert (0, 1) not in plan.directional_links()
 
 
 # -- capture-surface contracts ------------------------------------------------

@@ -540,3 +540,80 @@ def test_rwkv_serving_reduced_model_matches_cpu(dev):
     b = gpu.generate([Request(list(r.prompt), r.max_new_tokens)
                       for r in reqs])
     assert [r.out for r in a] == [r.out for r in b]
+
+
+def test_health_midtraffic_failure_bitwise_digest_restored(dev):
+    """A send keeps arriving bitwise through a failure of (0, 1), never
+    over it; after the restore the pre-fault digest comes back as a
+    plan-cache hit (no new capture)."""
+    sess = CommSession(device=dev)
+    x = torch.randn(1 << 20, device=dev)
+    pre = sess.describe(0, 1, x.numel() * 4, max_paths=3)["graph"]["digest"]
+    assert torch.equal(sess.send(x, 0, 1, max_paths=3), x)
+    sess.topology.fail_link(0, 1)
+    for _ in range(2):
+        assert torch.equal(sess.send(x, 0, 1, max_paths=3), x)
+        misses = sess.stats()["cache"]["misses"]
+        _, plan = sess.compiled_for(0, 1, x.numel(), max_paths=3)
+        assert sess.stats()["cache"]["misses"] == misses   # the one sent
+        assert (0, 1) not in plan.directional_links()
+        assert sess.stats()["health"]["ladder_level"] == 1
+    sess.topology.restore_link(0, 1)
+    misses = sess.stats()["cache"]["misses"]
+    assert torch.equal(sess.send(x, 0, 1, max_paths=3), x)
+    assert sess.stats()["cache"]["misses"] == misses
+    assert sess.stats()["health"]["ladder_level"] == 0
+    assert sess.describe(0, 1, x.numel() * 4,
+                         max_paths=3)["graph"]["digest"] == pre
+
+
+def test_health_host_relay_bitwise_pinned(dev, monkeypatch):
+    """With no device route left the send goes through a pinned host
+    buffer, bitwise, at ladder level 3."""
+    sess = CommSession(device=dev, topology=Topology.full_mesh(2))
+    x = torch.randn(1 << 20, device=dev)
+    sess.topology.fail_link(0, 1)
+    pinned = []
+    empty = torch.empty
+
+    def spy(*args, **kw):
+        out = empty(*args, **kw)
+        if kw.get("pin_memory"):
+            pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch, "empty", spy)
+    out = sess.send(x, 0, 1)
+    monkeypatch.undo()
+    assert torch.equal(out, x) and out.device == x.device
+    assert pinned == [True]
+    health = sess.stats()["health"]
+    assert health["ladder_level"] == 3 and health["host_relays"] == 1
+
+
+def test_health_captured_decode_step_under_failed_link(dev):
+    sess = CommSession(device=dev)
+    n = sess.num_devices
+    step = make_captured_decode_step(sess, batch=1, heads=4, kv_len=256,
+                                     head_dim=64, kv_chunk=1 << 20, src=0,
+                                     dst=2, dtype=torch.bfloat16,
+                                     schedule="overlap")
+    q, k, v = _qkv(dev, n, 4, 4, 256, 64, dtype=torch.bfloat16)
+    want = fk.flash_attention_plain(q, k, v)
+    q, k, v = (t.view(n, 1, 4, 256, 64) for t in (q, k, v))
+    kv = torch.randn(n, 1 << 20, device=dev).to(torch.bfloat16)
+    expect = kv.clone()
+    expect[2] = kv[0]
+    for fault in (None, "fail", "restore"):
+        if fault == "fail":
+            sess.topology.fail_link(0, 2)
+        elif fault == "restore":
+            sess.topology.restore_link(0, 2)
+        attn, new_kv = step(q, k, v, kv)
+        assert (attn.view(n, 4, 256, 64).float() - want.float()
+                ).abs().max().item() < 2e-2
+        assert torch.equal(new_kv, expect)
+        if fault == "fail":
+            for plan in step.resolve().plans:
+                assert (0, 2) not in plan.directional_links()
+            assert sess.stats()["health"]["ladder_level"] == 1

@@ -152,19 +152,32 @@ def test_session_needs_cuda_or_an_explicit_device():
 
 @pytest.mark.parametrize("knob", [dict(faults="fail@1:0-1")])
 def test_unported_options_raise(knob):
-    with pytest.raises(NotImplementedError, match="slice"):
-        CommSession(CommConfig(**knob), device="cpu")
+    """A ``faults`` session constructs and delivers through the fault it
+    injects: dispatch 1 fails (0, 1) and re-plans around it."""
+    sess = CommSession(CommConfig(**knob), device="cpu")
+    assert sess.faults is not None and sess.faults.active
+    x = torch.arange(8, dtype=torch.float32)
+    for _ in range(3):
+        assert torch.equal(sess.send(x, 0, 1), x)
+    assert (0, 1) in sess.topology.failed_links
+    health = sess.stats()["health"]
+    assert health["faults_seen"] == 1 and health["ladder_level"] == 1
 
 
 def test_unported_paths_raise():
+    """A send and a captured step under a quarantined link deliver
+    bitwise on the surviving routes, at ladder level 1."""
     sess = CommSession(device="cpu")
     step = sess.capture(lambda cap: cap.kernel(
         torch.neg, cap.input((8,), torch.float32), name="neg"))
     sess.planner.quarantine((0, 1))
-    with pytest.raises(NotImplementedError, match="health slice"):
-        sess.send(torch.ones(8), 0, 1)
-    with pytest.raises(NotImplementedError, match="health slice"):
-        step(torch.ones(4, 8))
+    x = torch.arange(8, dtype=torch.float32)
+    assert torch.equal(sess.send(x, 0, 1), x)
+    assert sess.stats()["health"]["ladder_level"] == 1
+    xs = torch.arange(32, dtype=torch.float32).reshape(4, 8)
+    (out,) = step(xs)
+    assert torch.equal(out, -xs)
+    assert sess.stats()["health"]["ladder_level"] == 1
 
 
 def test_host_routes_stay_rejected(bridge3):
