@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100::
 What it does, in order (any failed check exits nonzero):
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   five CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, started together), printing the build seconds;
 2. holds ``multipath_dma`` against its plain version, bit for bit:
    ``Topology.full_mesh(4)`` plans with 1/2/3 paths, 1/4/8 chunks,
@@ -183,7 +183,30 @@ What it does, in order (any failed check exits nonzero):
     max, per kind) and its quarantines printed (a report, not a check);
     and
     ``multipath_dma`` and ``flash_attention`` each launched;
-15. one JSON line ``{"kernels": [...]}``, then as the last line
+15. main path J, after path I's tensors are freed: training SmolLM-360M
+    at full width (``get_config("smollm_360m")``: 32 layers, d_model 960,
+    15/5 heads of 64, d_ff 2560, vocab 49152, bfloat16, ``remat="full"``,
+    float32 moments). First, not counted: the ``flash_attention``
+    backward kernel against its plain version at the training shapes (q
+    ``(8, 15, 512, 64)``, k/v ``(8, 5, 512, 64)``, and ``(2, ...)`` for
+    one DP shard; causal; float32 within 1e-4 and bfloat16 within 2e-2 of
+    the largest |want| on dQ, dK and dV) with the forward's ``lse``, and
+    its time beside its bound, the plain version's and SDPA's forward +
+    backward; ``loss.backward()`` through the dense forward (2 layers,
+    float32) against the plain attention's ``wq``/``wk``/``wv`` gradients;
+    RWKV-6 training raising ``NotImplementedError``. Then, counters set to
+    0 before it and read after it: at full width, 2 layers, float32, TF32
+    off, ``make_dp_train_step`` on the default 4-device session against
+    ``make_train_step`` and ``make_captured_dp_train_step`` against it
+    (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4; the captured step one
+    dispatch); 1 warm-up + 5 timed steps of 8 x 512 tokens in bfloat16 of
+    ``make_train_step`` and ``make_dp_train_step`` at 32 layers and of the
+    captured step at 2 layers (its arena's bytes reckoned first): step ms,
+    tokens/s, losses (finite), peak GiB, dispatches and kernel launches a
+    step; a checkpoint save and restore of the 2-layer state, bitwise;
+    ``flash_attention``, ``flash_attention_bwd`` and ``multipath_dma``
+    each launched;
+16. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -962,12 +985,12 @@ def rwkv_times(randn, rand, errs) -> dict:
             "workspace_bytes": workspace}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for t in tree.values():
-            yield from _leaves(t)
-    else:
-        yield tree
+def _leaves(tree) -> list:
+    """A tree's leaves in sorted-key order (the port's tree order,
+    whatever order its dicts were built in)."""
+    from repro_torch.tree import leaves
+
+    return leaves(tree)
 
 
 def eager_greedy(cfg, params, spec, toks, new) -> list[list[int]]:
@@ -2208,6 +2231,464 @@ def health_path(dev, errs, per_path, read_path, smi: str,
     torch.cuda.empty_cache()
 
 
+#: Path J's attention shape: SmolLM-360M's 15/5 heads of 64 at 512
+#: positions; batch 8 for the single-device step, 2 for one of 4 DP
+#: shards.
+TRAIN_HEADS, TRAIN_SEQ, TRAIN_BATCH = (15, 5, 64), 512, 8
+#: The backward kernel against its plain version: the largest error of
+#: dQ, dK and dV relative to the largest |want| (float32 sums in another
+#: order; bfloat16 outputs rounded once).
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def flash_bwd_checks(randn, errs, smi) -> dict:
+    """Path J (a): the ``flash_attention`` backward kernel against its
+    plain version at the training shapes (single step and one DP shard),
+    causal, float32 and bfloat16, with the forward's ``lse`` against the
+    plain log-sum-exp; then at the single step's bfloat16 shape its time
+    beside its bound, the plain version's and SDPA's forward + backward
+    (the yardstick only; the port never calls it). Returns the kernel
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    hq, hkv, d = TRAIN_HEADS
+    s = TRAIN_SEQ
+    rel = {}
+    for b in (TRAIN_BATCH, TRAIN_BATCH // 4):
+        for dt in (torch.float32, torch.bfloat16):
+            q = (randn(b, hq, s, d) * 0.5).to(dt)
+            k = (randn(b, hkv, s, d) * 0.5).to(dt)
+            v = randn(b, hkv, s, d, dtype=dt)
+            do = randn(b, hq, s, d, dtype=dt)
+            o, lse = fk.flash_attention_cuda(q, k, v, causal=True,
+                                             return_lse=True)
+            lse_err = (lse - fk.attention_lse_ref(q, k, causal=True)
+                       ).abs().max().item()
+            check(lse_err <= 1e-4, f"path J: flash_attention lse at ({b}, "
+                  f"{hq}/{hkv}, {s}, {d}) {dt}: max abs err {lse_err}")
+            got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=True)
+            want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=True)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                top = w.float().abs().max().item()
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                rel[(b, str(dt)[6:], name)] = err / top
+                check(err <= BWD_REL[dt] * top,
+                      f"path J: flash_attention_bwd {name} at ({b}, "
+                      f"{hq}/{hkv}, {s}, {d}) {dt}: max abs err {err} > "
+                      f"{BWD_REL[dt]} * {top}")
+            del q, k, v, do, o, lse, got, want
+    print("path J: flash_attention_bwd vs plain (causal; max abs err / "
+          "max |want|): " + ", ".join(f"B={b} {dt} {n} {r:.3g}"
+                                      for (b, dt, n), r in rel.items())
+          + f" (bounds float32 1e-4, bfloat16 2e-2)", flush=True)
+
+    b = TRAIN_BATCH
+    times = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = (randn(b, hq, s, d) * 0.5).to(dt)
+        k = (randn(b, hkv, s, d) * 0.5).to(dt)
+        v = randn(b, hkv, s, d, dtype=dt)
+        do = randn(b, hq, s, d, dtype=dt)
+        o, lse = fk.flash_attention_cuda(q, k, v, causal=True,
+                                         return_lse=True)
+        ms = cuda_time_ms(lambda: fk.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True), 20)
+        fwd_ms = cuda_time_ms(lambda: fk.flash_attention_cuda(
+            q, k, v, causal=True, return_lse=True), 20)
+        plain_ms = cuda_time_ms(lambda: fk.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True), 5, warmup=1)
+        qq = q.detach().requires_grad_()
+        kk = k.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
+        vv = v.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                 scale=d ** -0.5)
+            return torch.autograd.grad(out, (qq, kk, vv), do)
+
+        lib_ms = cuda_time_ms(sdpa_fwd_bwd, 20)
+        # each input read once (q, k, v, o, dO, lse), each output written
+        # once (dQ, dK, dV); 2.5 × the forward's causal FLOPs
+        nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                  + lse.numel() * 4)
+        flops = 2.5 * 2 * b * hq * s * s * d
+        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        ops_ms = flops / peak * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        times[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "library_ms": lib_ms, "fwd_ms": fwd_ms}
+        print(f"path J ({smi}): flash_attention_bwd ({b}, {hq}/{hkv}, {s}, "
+              f"{d}) {str(dt)[6:]} causal: kernel {ms:.4f} ms (forward with "
+              f"lse {fwd_ms:.4f} ms), bound {bound:.4f} ms ({flops:.4g} "
+              f"FLOPs = 2.5 x the causal forward's at "
+              f"{peak / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at "
+              f"3.35 TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), "
+              f"plain {plain_ms:.4f} ms, SDPA forward + backward on "
+              f"repeat_interleave'd k/v {lib_ms:.4f} ms", flush=True)
+        del q, k, v, do, o, lse, qq, kk, vv
+    row = times[torch.bfloat16]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:143",
+            "replaces_note": "no Pallas site: the reference differentiates "
+                             "its blockwise_attention",
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "library_call": "F.scaled_dot_product_attention(q, "
+                            "k.repeat_interleave(3, 1), "
+                            "v.repeat_interleave(3, 1), is_causal=True) "
+                            "forward + backward",
+            "shape": [b, hq, hkv, s, d], "dtype": "bfloat16",
+            "float32": times[torch.float32]}
+
+
+def attention_grads_check(dev) -> None:
+    """Path J (a): ``loss.backward()`` through the port's dense forward on
+    the card gives ``wq``, ``wk`` and ``wv`` the gradients of the same
+    forward with the plain attention (SmolLM-360M at full width, 2 layers,
+    float32, 2 x 256 tokens): within 1e-4 of the largest gradient."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_config("smollm_360m"), num_layers=2,
+                              dtype="float32")
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(11),
+        device=dev)
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev),
+             "mask": torch.ones((2, 256), device=dev)}
+
+    def grads():
+        for t in _leaves(params):
+            t.grad = None
+            t.requires_grad_(True)
+        tfm.loss_fn(params, cfg, batch).backward()
+        return [params["layers"]["attn"][w].grad.clone()
+                for w in ("wq", "wk", "wv")]
+
+    def plain(q, k, v, *, causal, window, scale):
+        return fk.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, scale=scale)
+
+    bwd0 = fk.LAUNCHES_BWD
+    got = grads()
+    check(fk.LAUNCHES_BWD - bwd0 == cfg.num_layers,
+          f"path J: loss.backward() launched flash_attention_bwd "
+          f"{fk.LAUNCHES_BWD - bwd0} times, not once per layer")
+    kernel_attn = layers.flash_attention
+    layers.flash_attention = plain
+    try:
+        want = grads()
+    finally:
+        layers.flash_attention = kernel_attn
+    errs = []
+    for name, g, w in zip(("wq", "wk", "wv"), got, want):
+        top = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        errs.append(f"{name} {err / top:.3g}")
+        check(top > 0 and err <= 1e-4 * top, f"path J: loss.backward() "
+              f"{name} grad differs from the plain path's: max abs err "
+              f"{err}, max |want| {top}")
+    print(f"path J: loss.backward() through the dense forward (smollm_360m "
+          f"full width, 2 layers, float32) gives wq/wk/wv the plain path's "
+          f"gradients (max abs err / max |g|: {', '.join(errs)}; bound "
+          f"1e-4)", flush=True)
+    del params
+
+
+def rwkv_training_raises(dev) -> None:
+    """Path J (a): RWKV-6 training on the card raises
+    ``NotImplementedError`` (no backward kernel yet), at the wrapper and
+    at the builders."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan.ops import chunked_scan
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import TrainStepConfig, make_train_step
+
+    r = torch.randn(1, 64, 1, 16, device=dev, requires_grad=True)
+    w = torch.rand(1, 64, 1, 16, device=dev) * 0.5 + 0.5
+    u = torch.zeros(1, 1, 16, device=dev)
+    for name, fn in (
+            ("chunked_scan", lambda: chunked_scan(r, r, r, w, u, chunk=64)),
+            ("make_train_step", lambda: make_train_step(
+                get_config("rwkv6_1_6b"), TrainStepConfig(), OptimConfig(),
+                device=dev))):
+        try:
+            fn()
+        except NotImplementedError:
+            continue
+        fail(f"path J: RWKV-6 training through {name} on the card did not "
+             f"raise NotImplementedError")
+    print("path J: RWKV-6 training on the card raises NotImplementedError "
+          "(the scan's wrapper and the builders)", flush=True)
+
+
+#: AdamW's first step moves a parameter by lr · g / (|g| + eps) (the
+#: bias corrections cancel): near g = 0 the slope is 1/eps = 1e8, so a
+#: gradient of ~1e-8 that two summation orders give 1e-8 apart (the DP
+#: step's shard means against the whole batch's) moves it by up to 2·lr.
+#: Where the single-device step's |g| is below 100·eps the parameters are
+#: held to 2·lr instead of the reference's tolerance, and counted.
+EPS_CONDITIONED = 1e-6
+
+
+def state_close(got, want, what: str, grads=None,
+                lr: float = 0.0) -> tuple[float, int]:
+    """Hold a train state's parameters to another's at the reference's
+    tolerance (atol 2e-5, rtol 1e-4), except, given the single-device
+    step's ``grads``, the elements whose |g| < ``EPS_CONDITIONED``, which
+    are held within ``2·lr``. Returns the max abs difference and the
+    number of elements held to ``2·lr`` that the reference's tolerance
+    would not take."""
+    worst, loose = 0.0, 0
+    gl = (_leaves(grads) if grads is not None
+          else [None] * len(_leaves(want["params"])))
+    for a, b, g in zip(_leaves(got["params"]),
+                       _leaves(want["params"]), gl):
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, diff.max().item())
+        ok = diff <= 2e-5 + 1e-4 * b.float().abs()
+        if g is not None:
+            cond = g.float().abs() < EPS_CONDITIONED
+            loose += int((cond & ~ok).sum())
+            ok |= cond & (diff <= 2 * lr)
+        check(bool(ok.all()), f"path J: {what}: params beyond atol 2e-5 / "
+              f"rtol 1e-4 (max abs diff {diff.max().item()})")
+    return worst, loose
+
+
+def arena_bytes(cap) -> int:
+    """The bytes a captured step's arena takes: every buffer of the
+    recording, stacked over the devices, at 256-byte alignment."""
+    import math
+
+    from repro_torch.comm.capture import as_dtype
+
+    total = 0
+    for spec in cap.buffers:
+        nbytes = (cap.num_devices * math.prod(spec.shape)
+                  * as_dtype(spec.dtype).itemsize)
+        total += -(-nbytes // 256) * 256
+    return total
+
+
+def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
+    """Main path J (phase 15): training SmolLM-360M at full width.
+
+    (a), not counted: the backward kernel against its plain version and
+    its times, ``loss.backward()`` through the dense forward against the
+    plain attention's gradients, and RWKV-6 training raising. Then, with
+    every launch counter set to 0 just before and read just after: (b) at
+    full width, 2 layers, float32, TF32 off, one step each,
+    ``make_dp_train_step`` on the default 4-device session against
+    ``make_train_step`` and ``make_captured_dp_train_step`` against it
+    (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4), the captured step one
+    dispatch; (c) 1 warm-up + 5 timed steps of batch 8 x 512 tokens,
+    bfloat16: ``make_train_step`` and ``make_dp_train_step`` at full
+    depth (32 layers) and the captured step at 2 layers, its arena
+    reckoned first; (d) a checkpoint save and restore of the 2-layer
+    state, bitwise. Returns the backward kernel's report row."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, make_train_step)
+    from repro_torch.training.train_step import _make_grad_fn
+
+    dev_gen = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    # -- 15. main path J: training SmolLM-360M -------------------------------
+    row = flash_bwd_checks(randn, errs, smi)
+    attention_grads_check(dev)
+    rwkv_training_raises(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = get_config("smollm_360m")
+    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+           full.head_dim_, full.d_ff, full.vocab_size, full.dtype,
+           full.remat) == (32, 960, 15, 5, 64, 2560, 49152, "bfloat16",
+                           "full"),
+          f"smollm_360m is not the full-width config: {full}")
+    ts = TrainStepConfig()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    reset_launch_counts()
+
+    # (b) correctness at full width, 2 layers, float32
+    cfg32 = dataclasses.replace(full, num_layers=2, dtype="float32")
+    ds32 = SyntheticDataset(cfg32, DataConfig(seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_BATCH))
+    batch = batch_to(ds32.batch_at(0), dev)
+    state = init_state(cfg32, opt, generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    _, grads = _make_grad_fn(cfg32, ts)(state["params"], batch)
+    single, m1 = make_train_step(cfg32, ts, opt, device=dev)(state, batch)
+    sess = CommSession(device=dev)
+    dp, m2 = make_dp_train_step(cfg32, ts, opt, sess)(state, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(abs(l2 - l1) <= 1e-5 * abs(l1), f"path J: DP loss {l2} vs "
+          f"single-device {l1} beyond rtol 1e-5")
+    lr1 = float(m1["lr"])
+    dp_err, loose = state_close(dp, single, "DP step vs single-device step",
+                                grads, lr1)
+    n_cond = sum(int((g.abs() < EPS_CONDITIONED).sum())
+                 for g in _leaves(grads))
+    del single, grads
+    cap_sess = CommSession(device=dev)
+    captured = make_captured_dp_train_step(cfg32, ts, opt, cap_sess, state,
+                                           batch)
+    d0 = cap_sess.stats()["dispatches"]
+    cap, m3 = captured(state, batch)
+    check(cap_sess.stats()["dispatches"] - d0 == 1,
+          "path J: the captured step is not one dispatch a call")
+    l3 = float(m3["loss"])
+    check(abs(l3 - l2) <= 1e-5 * abs(l2), f"path J: captured loss {l3} vs "
+          f"DP {l2} beyond rtol 1e-5")
+    cap_err, _ = state_close(cap, dp, "captured step vs DP step")
+    print(f"path J ({smi}): full width, 2 layers, float32, TF32 off, one "
+          f"step of 8 x 512 tokens: loss single {l1!r}, DP {l2!r}, captured "
+          f"{l3!r}; params max abs diff DP-single {dp_err}, captured-DP "
+          f"{cap_err} (atol 2e-5 / rtol 1e-4; DP-single: {loose} of the "
+          f"{n_cond} elements with |g| < {EPS_CONDITIONED} beyond it, "
+          f"within 2 lr = {2 * lr1}); captured step 1 dispatch",
+          flush=True)
+    del state, dp, cap, captured, cap_sess, sess, m1, m2, m3, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) timed runs, bfloat16, 1 warm-up + 5 steps of 8 x 512 tokens
+    def timed(label, cfg, step_fn, state, sess=None, profile=False):
+        ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_BATCH))
+        batches = [batch_to(ds.batch_at(i), dev) for i in range(6)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step_fn(state, batches[0])
+        warm = float(m["loss"])
+        c0 = launch_counts()
+        d0 = sess.stats()["dispatches"] if sess is not None else 0
+        losses, times = [], []
+        for bt in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, bt)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = {k: (v - c0[k]) / len(times)
+                  for k, v in launch_counts().items() if v != c0[k]}
+        disp = ((sess.stats()["dispatches"] - d0) / len(times)
+                if sess is not None else 0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(x) for x in [warm] + losses),
+              f"path J: {label}: a loss is not finite: {[warm] + losses}")
+        ms = sum(times) / len(times) * 1e3
+        print(f"path J ({smi}): {label}: {ms:.2f} ms a step (steps "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3):.0f} tokens/s, losses "
+              f"{warm!r} (warm-up), {', '.join(repr(x) for x in losses)}; "
+              f"peak {peak:.2f} GiB; {disp:g} dispatches a step; launches a "
+              f"step {counts}", flush=True)
+        if profile:
+            wall, dev_ms, n_ops, rows = profile_device_ms(
+                lambda: step_fn(state, batches[0]), top=8)
+            print(f"path J: {label}: one step under the profiler: wall "
+                  f"{wall:.2f} ms, device {dev_ms:.2f} ms in {n_ops} ops "
+                  f"(idle {1 - dev_ms / wall:.1%}); top: {top_ops(rows)}",
+                  flush=True)
+        return state
+
+    n_params = sum(t.numel() for t in _leaves(param_shapes(full)))
+    state = init_state(full, opt, generator=torch.Generator(
+        device=dev).manual_seed(23), device=dev)
+    state = timed(f"make_train_step, full width, {full.num_layers} layers "
+                  f"({n_params} parameters), bfloat16", full,
+                  make_train_step(full, ts, opt, device=dev), state,
+                  profile=True)
+    sess = CommSession(device=dev)
+    state = timed(f"make_dp_train_step on {sess.num_devices} devices, full "
+                  f"width, {full.num_layers} layers, bfloat16", full,
+                  make_dp_train_step(full, ts, opt, sess), state, sess,
+                  profile=True)
+    del state, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    state = init_state(cfg2, opt, generator=torch.Generator(
+        device=dev).manual_seed(24), device=dev)
+    p2 = sum(t.numel() for t in _leaves(state["params"]))
+    sess = CommSession(device=dev)
+    ds2 = SyntheticDataset(cfg2, DataConfig(seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH))
+    captured = make_captured_dp_train_step(cfg2, ts, opt, sess, state,
+                                           batch_to(ds2.batch_at(0), dev))
+    arena = arena_bytes(captured.capture.capture)
+    print(f"path J: the captured step's arena at full width, 2 layers "
+          f"({p2} parameters), bfloat16 params, float32 moments, "
+          f"{sess.num_devices} devices: {arena} B = {arena / 1e9:.2f} GB, "
+          f"{arena / p2:.1f} B a parameter "
+          f"({len(captured.capture.capture.buffers)} buffers)", flush=True)
+    state = timed(f"make_captured_dp_train_step on {sess.num_devices} "
+                  f"devices, full width, 2 layers, bfloat16", cfg2, captured,
+                  state, sess, profile=True)
+
+    # (d) checkpoint round trip of the 2-layer state
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"),
+                                     prefix="ckpt-") as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, int(state["opt"]["step"]), state)
+        back, step, _ = restore_checkpoint(path, state, device=dev)
+        dt = time.perf_counter() - t0
+        same = all(
+            a.dtype == b.dtype and torch.equal(
+                a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+            for a, b in zip(_leaves(state), _leaves(back)))
+        check(same and step == int(state["opt"]["step"]),
+              "path J: checkpoint save -> restore not bitwise")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(state))
+    print(f"path J: checkpoint of the 2-layer state ({nbytes / 1e9:.2f} GB, "
+          f"step {step}) saved and restored bitwise in {dt:.2f} s",
+          flush=True)
+    del state, back, captured, sess
+    read_path("J")
+    for name in ("flash_attention", "flash_attention_bwd", "multipath_dma"):
+        check(per_path["J"].get(name, 0) > 0,
+              f"path J did not launch {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2435,11 +2916,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     health_path(dev, errs, per_path, read_path, smi,
                 launch64["replay256_ms"])
-    print(f"main-path launches (paths A-I): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.append(training_path(dev, errs, per_path, read_path, smi))
+    print(f"main-path launches (paths A-J): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 15. report --------------------------------------------------------
+    # -- 16. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -11,8 +11,9 @@ The models' state is their weights and decode caches: nested dicts of
 numpy arrays in the reference's layout (``embed``, ``layers/{ln1, ln2,
 attn/{wq, wk, wv, wo}, mlp/{w1, w2, w3}}``, ``final_norm``, ``lm_head``;
 a cache's ``k`` and ``v``) become the port's tensors with
-:func:`params_from_numpy` and :func:`cache_from_numpy`, so both packages
-compute with the same numbers.
+:func:`params_from_numpy` and :func:`cache_from_numpy`, and a train state
+(parameters, AdamW moments and step) with :func:`state_from_numpy`, so
+both packages compute with the same numbers.
 """
 
 from __future__ import annotations
@@ -94,3 +95,15 @@ def params_from_numpy(tree, *, device=None):
 #: A decode cache (``{"k", "v"}`` arrays, ``(L, B, Hkv, ...)``) carries
 #: across the same way.
 cache_from_numpy = params_from_numpy
+
+
+def state_from_numpy(state, *, device=None) -> dict:
+    """A reference train state ``{"params", "opt": {"m", "v", "step"}}``
+    as numpy arrays (int8 moments as ``{"q", "scale"}``) → the port's
+    tensors on ``device``, dtypes kept; ``step`` a 0-d int32 tensor."""
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], device=device),
+            "opt": {"m": params_from_numpy(opt["m"], device=device),
+                    "v": params_from_numpy(opt["v"], device=device),
+                    "step": tensor_from_numpy(
+                        np.asarray(opt["step"], np.int32), device=device)}}

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel's source lives in ``kernels/<name>/csrc/<name>.cu`` and exposes
-a plain C interface. It is compiled for Hopper
+Each kernel's source lives in ``kernels/<name>/csrc/<name>.cu`` (the
+attention backward's beside the forward's, in ``flash_attention/csrc/``)
+and exposes a plain C interface. It is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library at first
 use, under ``build/repro_torch/`` at the root of the checkout (or
 ``$REPRO_TORCH_BUILD_DIR``). The library's file name carries a hash of
@@ -27,7 +28,9 @@ KERNEL_DIR = Path(__file__).resolve().parent
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("multipath_dma", "jacobi", "ring_allgather", "flash_attention",
-           "rwkv6_scan")
+           "flash_attention_bwd", "rwkv6_scan")
+#: A kernel whose source sits in another kernel's ``csrc/``.
+_DIRS = {"flash_attention_bwd": "flash_attention"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -41,8 +44,13 @@ def build_dir() -> Path:
     return KERNEL_DIR.parents[2] / "build" / "repro_torch"
 
 
+def csrc_dir(name: str) -> Path:
+    """The ``csrc/`` directory that holds kernel ``name``'s source."""
+    return KERNEL_DIR / _DIRS.get(name, name) / "csrc"
+
+
 def source_path(name: str) -> Path:
-    return KERNEL_DIR / name / "csrc" / f"{name}.cu"
+    return csrc_dir(name) / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -58,11 +66,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """The library's path: its name carries a hash of every file under
-    ``kernels/<name>/csrc/`` (names and contents, in sorted order) and of
-    the flags, so an edited header or flag is a new build."""
+    """The library's path: its name carries a hash of every file in the
+    kernel's ``csrc/`` (names and contents, in sorted order) and of the
+    flags, so an edited header or flag is a new build."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    csrc = KERNEL_DIR / name / "csrc"
+    csrc = csrc_dir(name)
     for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
         h.update(str(path.relative_to(csrc)).encode() + b"\0")
         h.update(path.read_bytes())

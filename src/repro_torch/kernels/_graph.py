@@ -24,25 +24,33 @@ import torch
 from repro_torch.kernels import _build
 
 
-def _module(name: str):
-    return importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+#: Kernel name → (kernel module, counter) where it is not
+#: ``<name>.kernel.LAUNCHES``.
+_COUNTERS = {"flash_attention_bwd": ("flash_attention", "LAUNCHES_BWD")}
+
+
+def _counter(name: str):
+    module, attr = _COUNTERS.get(name, (name, "LAUNCHES"))
+    return (importlib.import_module(f"repro_torch.kernels.{module}.kernel"),
+            attr)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel name → launches so far, for every kernel of the port."""
-    return {name: _module(name).LAUNCHES for name in _build.KERNELS}
+    return {name: getattr(*_counter(name)) for name in _build.KERNELS}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     for name in _build.KERNELS:
-        _module(name).LAUNCHES = 0
+        setattr(*_counter(name), 0)
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Add ``counts`` (kernel name → launches) to the counters."""
     for name, k in counts.items():
-        _module(name).LAUNCHES += k
+        module, attr = _counter(name)
+        setattr(module, attr, getattr(module, attr) + k)
 
 
 class GraphProgram:

@@ -76,7 +76,10 @@
 // Q, K and V take any element strides over batch, head and position with
 // a contiguous head dim (bf16: 16-byte aligned base and strides, which TMA
 // needs; the wrapper checks). The output is a new contiguous (B, Hq, S, D)
-// tensor in q's type.
+// tensor in q's type. When asked (training), both kernels also write each
+// row's float32 log-sum-exp of scale * q k^T in natural-log units, which
+// the backward (flash_attention_bwd.cu) recomputes P from; serving passes
+// no pointer and writes nothing more.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,6 +104,7 @@ struct Args {
   float scale;
   int causal;
   int64_t group;  // bf16: heads per L2 group of the block order
+  float* lse;     // (B, Hq, S) row log-sum-exp, or nullptr
 };
 
 // The key tiles [*begin, *end) of KEYS keys that rows r0 .. r_last visit:
@@ -280,6 +284,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + 4 * rg + i;
     if (row >= seq) continue;
+    if (a.lse != nullptr && cg == 0)
+      a.lse[bh * seq + row] = l[i] == 0.0f ? -INFINITY : m[i] + logf(l[i]);
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
@@ -776,6 +782,11 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float inv = l[r] == 0.0f ? 0.0f : 1.0f / l[r];
+    // m is in log2 units of scale * q k^T: lse = ln 2 * (m + log2 l)
+    if (a.lse != nullptr && (lane & 3) == 0 && q0 + lr + 8 * r < a.seq)
+      a.lse[bh * a.seq + q0 + lr + 8 * r] =
+          l[r] == 0.0f ? -INFINITY
+                       : (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       __nv_bfloat162 v = __floats2bfloat162_rn(o[4 * c + 2 * r] * inv,
@@ -979,11 +990,14 @@ extern "C" {
 
 // q (B, Hq, S, D), k and v (B, Hkv, S, D) with element strides (batch,
 // head, position) and a contiguous head dim; o a contiguous
-// (B, Hq, S, D). dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the
-// tensor-core kernel; 16-byte aligned bases and strides). window < 0: no
-// window. Returns cudaGetLastError() after the launch.
+// (B, Hq, S, D); lse a contiguous float32 (B, Hq, S) that receives each
+// row's log-sum-exp of scale * q k^T over the keys it attends (-inf for a
+// row with none), or nullptr. dtype: 0 float32 (the CUDA-core kernel),
+// 1 bfloat16 (the tensor-core kernel; 16-byte aligned bases and strides).
+// window < 0: no window. Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int64_t qsb, int64_t qsh, int64_t qss,
+                           void* o, void* lse, int64_t qsb, int64_t qsh,
+                           int64_t qss,
                            int64_t ksb, int64_t ksh, int64_t kss,
                            int64_t vsb, int64_t vsh, int64_t vss,
                            int64_t batch, int64_t hq, int64_t hkv,
@@ -992,7 +1006,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (batch <= 0 || hq <= 0 || seq <= 0) return (int)cudaGetLastError();
   if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-         hq, hq / hkv, seq, window, scale, causal};
+         hq, hq / hkv, seq, window, scale, causal, 0, (float*)lse};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     switch (d) {

@@ -12,10 +12,20 @@ for head dims :data:`HEAD_DIMS`: bfloat16 runs on the tensor cores
 (``wgmma`` products fed by TMA loads, P rounded to bfloat16 before P·V),
 float32 on the CUDA cores. :func:`flash_attention_plain` is the
 materialised attention of :mod:`.ref`, the plain version used for CPU
-tensors and as the check of the kernel on the card.
+tensors and as the check of the kernel on the card. Both can also return
+each row's float32 log-sum-exp of ``scale·q·kᵀ`` (``-inf`` for a row with
+nothing to attend to), which the backward needs.
+
+The backward has no Pallas kernel to replace (the reference differentiates
+its plain attention): :func:`flash_attention_bwd_cuda` launches the
+hand-written ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV from q, k, v, the
+output, its log-sum-exp and dO), and :func:`flash_attention_bwd_plain` is
+the same function in plain PyTorch.
+
 :func:`tile_products_cuda` runs one tile of each bfloat16 product through
 the kernel's loads and ``wgmma`` layouts, for testing them on the card.
-:data:`LAUNCHES` counts kernel launches.
+:data:`LAUNCHES` counts forward launches, :data:`LAUNCHES_BWD` backward
+calls (three CUDA launches each: the row sums of dO·O, dK and dV, dQ).
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_mask,
+                                                     attention_ref)
 
 #: Head dims the kernel is built for.
 HEAD_DIMS = (16, 32, 64, 128)
@@ -34,6 +46,8 @@ _MAX_BATCH_HEADS = 65535
 
 #: Kernel launches so far.
 LAUNCHES = 0
+#: Backward kernel calls so far.
+LAUNCHES_BWD = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,18 +73,70 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None,
+                          return_lse: bool = False):
     """Plain PyTorch version: :func:`~.ref.attention_ref`, the whole
     ``(S, S)`` score matrix with a float32 softmax, after the kernel's
-    shape checks; returns ``(B, Hq, S, D)`` in q's dtype."""
+    shape checks; returns ``(B, Hq, S, D)`` in q's dtype, and with
+    ``return_lse`` also the float32 ``(B, Hq, S)`` row log-sum-exp."""
     check_shapes(q, k, v, window)
-    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    out = attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if not return_lse:
+        return out
+    return out, attention_lse_ref(q, k, causal=causal, window=window,
+                                  scale=scale)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              scale: float | None = None):
+    """Plain PyTorch version of the backward: ``(dq, dk, dv)`` in q's
+    dtype from the materialised formula, in float32. With ``S = scale·q·kᵀ``
+    masked as the forward masks it, ``P = exp(S − lse)`` (0 where masked
+    or where ``lse`` is ``-inf``), ``dV = Pᵀ·dO``, ``dS = P ∘ (dO·Vᵀ −
+    rowsum(dO ∘ O))``, ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``; dK and dV
+    are summed over the query heads that share a kv head."""
+    check_shapes(q, k, v, window)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qpk = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof, of = do.float(), o.float()
+    kk = kf.repeat_interleave(qpk, dim=1)
+    vv = vf.repeat_interleave(qpk, dim=1)
+    mask = attention_mask(s, causal, window, q.device)
+    lse = lse.float()[..., None]
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale - lse)
+    p = torch.where(mask & (lse > -torch.inf), p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dk = dk.reshape(b, hkv, qpk, s, d).sum(2)
+    dv = dv.reshape(b, hkv, qpk, s, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 14
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 14
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 17
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -91,17 +157,11 @@ def check_tma_alignment(name: str, t: torch.Tensor) -> None:
                          f"{t.data_ptr():#x}, strides {t.stride()}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int | None = None,
-                         scale: float | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns a new contiguous
-    ``(B, Hq, S, D)`` tensor in q's dtype. q, k and v may have any strides
-    over batch, head and position but a contiguous head dim (bfloat16:
-    aligned as :func:`check_tma_alignment` says); any other layout, dtype
-    or head dim raises."""
-    global LAUNCHES
-    check_shapes(q, k, v, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_cuda_operands(q, operands) -> None:
+    """Raise ``ValueError`` unless every ``(name, tensor)`` is a CUDA
+    tensor on q's device, of q's dtype (float32 or bfloat16), with a
+    contiguous head dim, in a head dim the kernels are built for."""
+    for name, t in operands:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention kernel needs CUDA tensors on "
                              f"one device, got {name} on {t.device}")
@@ -112,18 +172,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError(f"flash_attention kernel needs a contiguous "
                              f"head dim, got {name} strides {t.stride()}")
-        if t.dtype == torch.bfloat16:
-            check_tma_alignment(name, t)
     b, hq, s, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel supports head dims "
                          f"{HEAD_DIMS}, got {d}")
     if b * hq > _MAX_BATCH_HEADS:
         raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_BATCH_HEADS}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None,
+                         return_lse: bool = False):
+    """Launch the kernel on CUDA tensors; returns a new contiguous
+    ``(B, Hq, S, D)`` tensor in q's dtype, and with ``return_lse`` also a
+    new float32 ``(B, Hq, S)`` of each row's log-sum-exp. q, k and v may
+    have any strides over batch, head and position but a contiguous head
+    dim (bfloat16: aligned as :func:`check_tma_alignment` says); any other
+    layout, dtype or head dim raises."""
+    global LAUNCHES
+    check_shapes(q, k, v, window)
+    _check_cuda_operands(q, (("q", q), ("k", k), ("v", v)))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype == torch.bfloat16:
+            check_tma_alignment(name, t)
+    b, hq, s, d = q.shape
     if scale is None:
         scale = d ** -0.5
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, hq, k.shape[1], s, d, float(scale), int(bool(causal)),
                 -1 if window is None else int(window),
@@ -131,7 +211,51 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             scale: float | None = None):
+    """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv)``, new
+    contiguous tensors in q's dtype. q, k, v and ``do`` may have any
+    strides over batch, head and position but a contiguous head dim; ``o``
+    (the forward's output) must be contiguous and ``lse`` a contiguous
+    float32 ``(B, Hq, S)``. Anything else raises."""
+    global LAUNCHES_BWD
+    check_shapes(q, k, v, window)
+    _check_cuda_operands(q, (("q", q), ("k", k), ("v", v), ("o", o),
+                             ("do", do)))
+    if o.shape != q.shape or do.shape != q.shape or not o.is_contiguous():
+        raise ValueError(f"flash_attention backward needs a contiguous o and "
+                         f"a do of q's shape {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} (contiguous: "
+                         f"{o.is_contiguous()}) and {tuple(do.shape)}")
+    b, hq, s, d = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, s)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention backward needs a contiguous "
+                         f"float32 lse of shape {(b, hq, s)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if scale is None:
+        scale = d ** -0.5
+    dq = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    *do.stride()[:3], b, hq, k.shape[1], s, d, float(scale),
+                    int(bool(causal)), -1 if window is None else int(window),
+                    _DTYPE_CODES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd")
+    LAUNCHES_BWD += 1
+    return dq, dk, dv
 
 
 def tile_products_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

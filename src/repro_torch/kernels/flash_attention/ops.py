@@ -1,12 +1,41 @@
 """Wrappers of flash attention: the kernel on the card, the plain version
-on the CPU, the FLOP count, and the capture adopter."""
+on the CPU, the autograd function whose backward is the backward kernel,
+the FLOP count, and the capture adopter."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
-                                                        flash_attention_plain)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_plain)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention on CUDA tensors with a hand-written backward: the forward
+    kernel also writes each row's log-sum-exp, and the backward kernel
+    recomputes P from it (``flash_attention_bwd_cuda``). dO is made
+    contiguous first if autograd hands over a strided view whose head dim
+    is not contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                              causal=causal, window=window,
+                                              scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -15,9 +44,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``(B, Hq, S, D)`` over k, v ``(B, Hkv, S, D)``
     (``scale`` defaults to ``D ** -0.5``). A CUDA tensor goes through the
     hand-written kernel, which takes head dims 16, 32, 64 and 128 and
-    raises on any other; a CPU tensor goes through the plain version; any
-    other device raises."""
+    raises on any other: through :class:`FlashAttentionFn`, whose backward
+    is the backward kernel, when grad is enabled and q, k or v requires
+    grad, else the forward alone. A CPU tensor goes through the plain
+    version (differentiable by autograd); any other device raises."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale)
     if q.device.type == "cpu":

@@ -18,8 +18,16 @@ def chunked_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B, H, dk)`` (see :mod:`.kernel`). A CUDA tensor goes through the
     hand-written kernel, which takes dk, dv in 8, 16, 32, 64 and chunks up
     to 64 and raises on anything else; a CPU tensor goes through the plain
-    version; any other device raises."""
+    version (differentiable by autograd); any other device raises. The
+    kernel has no backward yet: on a CUDA tensor with grad enabled and an
+    input that requires grad it raises ``NotImplementedError``."""
     if r.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, u)):
+            raise NotImplementedError(
+                "rwkv6_scan has no backward kernel yet; RWKV-6 training on "
+                "the card comes with the slice that ports it (ROADMAP "
+                "queue 1, the RWKV-6 backward kernel)")
         return rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk,
                                out_dtype=out_dtype,
                                return_state=return_state)

@@ -1,4 +1,4 @@
-"""Shared model layers, forward only: norms, RoPE, attention, MLPs.
+"""Shared model layers: norms, RoPE, attention, MLPs.
 
 Attention comes in three flavours, as in the reference:
 
@@ -6,8 +6,9 @@ Attention comes in three flavours, as in the reference:
 * ``blockwise_attention`` — online softmax over KV blocks. On a CUDA
                             tensor with ``Sq == Sk`` it runs the
                             hand-written ``flash_attention`` kernel, the
-                            same function; on the CPU it keeps the plain
-                            blockwise/naive code.
+                            same function (under autograd with its
+                            backward kernel); on the CPU it keeps the
+                            plain blockwise/naive code.
 * ``chunked_decode_attention`` — flash-decoding split-KV for serve steps:
                             the cache carries an explicit chunk dim;
                             partial (m, l, o) statistics merge with a
@@ -34,15 +35,54 @@ NEG_INF = -1e30
 
 
 # -- norms -----------------------------------------------------------------
+def _rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rsqrt(mean(x²) + eps)`` per row, ``(..., 1)`` float32."""
+    xf = x.float()
+    var = torch.einsum("...d,...d->...", xf, xf)[..., None] / x.shape[-1]
+    return torch.rsqrt(var + eps)
+
+
+def _rms_norm_fwd(x, weight, eps):
+    inv = _rms_inv(x, eps)
+    return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype), inv
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with the reference's hand-written VJP (``_rms_norm_fwd`` /
+    ``_rms_norm_bwd`` of its ``models/layers.py``) and its dtype rules: the
+    x-cotangent stays in ``x.dtype`` (autodiff through the float32
+    statistics would promote the residual stream's cotangent to float32),
+    row statistics accumulate in float32, and ``dw`` accumulates in
+    float32 and is cast to the weight's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        y, inv = _rms_norm_fwd(x, weight, eps)
+        ctx.save_for_backward(x, weight, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        w1 = (1.0 + weight).to(x.dtype)
+        t = g * w1                                      # (..., d) x.dtype
+        # rowwise float32 accumulation; per-row scalars only
+        s = torch.einsum("...d,...d->...", t.float(), x.float())[..., None]
+        coef = inv * inv * inv * s / d
+        dx = t * inv.to(x.dtype) - x * coef.to(x.dtype)
+        dw = torch.einsum("...d,...d->d", g.float(),
+                          (x * inv.to(x.dtype)).float())
+        return dx, dw.to(weight.dtype), None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with a zero-centred weight: ``x * rsqrt(mean(x²) + eps) *
     (1 + weight)``. Row statistics accumulate in float32; the products
-    are taken in ``x.dtype``."""
-    xf = x.float()
-    var = torch.einsum("...d,...d->...", xf, xf)[..., None] / x.shape[-1]
-    inv = torch.rsqrt(var + eps)                       # (..., 1) f32
-    return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype)
+    are taken in ``x.dtype``; the backward is the reference's
+    (:class:`RMSNormFn`)."""
+    return RMSNormFn.apply(x, weight, eps)
 
 
 # -- rotary embeddings --------------------------------------------------------

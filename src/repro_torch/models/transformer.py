@@ -1,4 +1,5 @@
-"""Model assembly, forward only: blocks, layer stacks, prefill and decode.
+"""Model assembly: blocks, layer stacks, the training loss, prefill and
+decode.
 
 The dense and SSM subset of the reference's model assembly (``family``
 ``dense``, ``vlm``, whose images arrive as tokens, and ``ssm``, whose
@@ -28,6 +29,14 @@ device (an int is turned into one), and the step reads nothing back to
 the host, so one step can be captured as a CUDA graph and replayed with
 another position. :func:`prefill_forward` can fill a given cache in
 place instead of a new one.
+
+Training: :func:`loss_fn` is the reference's masked float32 NLL plus the
+auxiliary loss, differentiated by autograd (on the card attention's
+backward is the ``flash_attention`` backward kernel and RMSNorm's the
+reference's VJP). ``cfg.remat == "full"`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, non-reentrant, RNG state not
+preserved: the model draws no random numbers, and reading the RNG state
+would break graph capture).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_lib
@@ -132,6 +142,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     return p
 
 
+def param_shapes(cfg: ArchConfig) -> Params:
+    """The parameters' shapes and dtypes, as meta tensors (nothing is
+    allocated or drawn)."""
+    return init_params(cfg, generator=None, device="meta")
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s view of the stacked layer parameters."""
     def take(tree):
@@ -202,13 +218,40 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i, window in enumerate(layer_windows(cfg)):
-        x, a = block_apply(x, layer_params(params, i), cfg, window,
-                           positions)
+        lp = layer_params(params, i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                block_apply, x, lp, cfg, window, positions,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = block_apply(x, lp, cfg, window, positions)
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
     head = params["lm_head"] if cfg.decoder else params["head"]
     return x @ head, aux
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """Mean next-token NLL over the masked positions, from float32
+    log-sum-exps of the logits, plus ``aux_coef`` × the auxiliary loss.
+    batch: tokens, labels (B, S) int and an optional float mask (B, S).
+    Nothing is read back to the host."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = nll.numel()
+    return torch.sum(nll) / denom + aux_coef * aux
 
 
 # ============================ prefill-into-cache ============================

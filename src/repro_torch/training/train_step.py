@@ -1,0 +1,326 @@
+"""Train-step builders: loss → grads → AdamW, with grad accumulation.
+
+The counterpart of the reference's ``repro/training/train_step.py``. State
+is ``{"params": ..., "opt": ...}``, nested dicts of tensors in the
+reference's layout; ``opt["step"]`` is a 0-d int32 tensor, and nothing in a
+step reads a value back to the host, so a step can be captured.
+
+Three builders:
+
+* :func:`make_train_step` — one device, the whole batch.
+* :func:`make_dp_train_step` — data parallelism over a
+  :class:`~repro_torch.comm.session.CommSession`'s logical devices,
+  device-stacked on the session's one ``torch.device``: the global batch
+  is split into ``comm.num_devices`` shards, each shard's loss and grads
+  come from autograd on the one replicated state, the grads are stacked
+  ``(n, ...)`` per leaf and averaged with ``comm.collectives.pmean`` (the
+  multipath ring all-reduce), and so is the loss.
+* :func:`make_captured_dp_train_step` — the same step captured as ONE
+  heterogeneous graph on ``comm.capture``: grad compute, the ``n − 1``
+  rounds of the multipath ring all-reduce (``captured_psum``) and the
+  AdamW update, replayed as one ``torch.cuda.CUDAGraph`` per call.
+
+Attention's backward on the card is the hand-written ``flash_attention``
+backward kernel. RWKV-6's scan has no backward kernel yet, so the builders
+raise ``NotImplementedError`` for an SSM model on a CUDA device (on the
+CPU its plain scan is differentiated by autograd).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import TYPE_CHECKING, Callable
+
+import torch
+
+from repro_torch.comm.capture import BufferSpec, captured_psum, dtype_name
+from repro_torch.comm.session import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import OptimConfig, apply_updates, init_opt_state
+from repro_torch.optim.adamw import opt_state_shapes
+from repro_torch.tree import flatten_up_to, leaves, tree_map, unflatten
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.comm.session import CommSession
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    microbatches: int = 1          # gradient accumulation factor
+    aux_coef: float = 0.01
+
+
+def check_trainable(cfg: ArchConfig, device) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot train on
+    ``device``: an SSM (RWKV-6) model on a CUDA device, whose scan kernel
+    has no backward yet, and every family the port does not run."""
+    tfm.check_supported(cfg)
+    if cfg.family == "ssm" and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"{cfg.name}: training an RWKV-6 model on the card needs the "
+            f"rwkv6_scan backward kernel, which comes with a later slice "
+            f"(ROADMAP queue 1)")
+
+
+def make_loss_fn(cfg: ArchConfig, ts: TrainStepConfig):
+    def loss(params, batch):
+        return tfm.loss_fn(params, cfg, batch, aux_coef=ts.aux_coef)
+    return loss
+
+
+def _value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, batch) -> (loss, grads)``: autograd on fresh leaves over
+    the parameters' storage (``torch.autograd.grad``, so nothing collects
+    in ``.grad``); grads in each parameter's dtype."""
+    def vg(params, batch):
+        with torch.enable_grad():
+            ps = [p.detach().requires_grad_() for p in leaves(params)]
+            loss = loss_fn(unflatten(params, ps), batch)
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(ps, grads)]
+        return loss.detach(), unflatten(params, grads)
+    return vg
+
+
+def _make_grad_fn(cfg: ArchConfig, ts: TrainStepConfig) -> Callable:
+    """``(params, batch) -> (loss, grads)`` with microbatch accumulation:
+    the batch's leading dim is split in ``ts.microbatches`` and the grads
+    are summed in float32 (then float32 grads, as the reference's scan)."""
+    grad_fn = _value_and_grad(make_loss_fn(cfg, ts))
+
+    def grads_of(params, batch):
+        if ts.microbatches == 1:
+            return grad_fn(params, batch)
+        mb = ts.microbatches
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        loss_acc = None
+        for i in range(mb):
+            micro = {k: x.reshape((mb, x.shape[0] // mb) + x.shape[1:])[i]
+                     for k, x in batch.items()}
+            loss, grads = grad_fn(params, micro)
+            acc = tree_map(lambda a, g: a + g.to(torch.float32), acc, grads)
+            loss_acc = loss if loss_acc is None else loss_acc + loss
+        return loss_acc / mb, tree_map(lambda g: g / mb, acc)
+
+    return grads_of
+
+
+def _update(params, grads, opt_state, opt: OptimConfig):
+    with torch.no_grad():
+        return apply_updates(params, grads, opt_state, opt)
+
+
+def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
+                    *, device=None) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)``.
+
+    ``state = {"params": ..., "opt": ...}`` on ``device`` (default: the
+    card); batch: tensors on it. With ``ts.microbatches > 1`` the batch's
+    leading dim is split and gradients are accumulated in float32. Metrics
+    ``loss``, ``grad_norm`` and ``lr`` are 0-d tensors on the device."""
+    check_trainable(cfg, resolve_device(device))
+    grads_of = _make_grad_fn(cfg, ts)
+
+    def step(state, batch):
+        params = state["params"]
+        loss, grads = grads_of(params, batch)
+        new_params, new_opt, metrics = _update(params, grads, state["opt"],
+                                               opt)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return step
+
+
+def _shards(batch: dict, n: int) -> list[dict]:
+    for key, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"global batch dim {x.shape[0]} of {key!r} not "
+                             f"divisible by {n} devices")
+    return [{k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
+                       opt: OptimConfig, comm: "CommSession") -> Callable:
+    """Data-parallel step with manual multipath gradient collectives.
+
+    The returned ``step(state, batch) -> (state, metrics)`` emulates
+    ``comm.num_devices`` data-parallel replicas on the session's device:
+    the replicated state is shared, the batch is split on its leading dim,
+    each shard's grads (and loss) are stacked ``(n, ...)`` per leaf and
+    averaged with ``comm.collectives.pmean`` — the multipath ring
+    all-reduce — and every row of each mean is checked equal before row 0
+    feeds the update. Equal to :func:`make_train_step` within float
+    tolerance (mean of shard means = global mean for equal shards)."""
+    check_trainable(cfg, comm.device)
+    grads_of = _make_grad_fn(cfg, ts)
+    n = comm.num_devices
+
+    def step(state, batch):
+        params = state["params"]
+        per = [grads_of(params, shard) for shard in _shards(batch, n)]
+        rows_equal = []
+
+        def mean(*rows):
+            out = comm.collectives.pmean(torch.stack(rows))
+            rows_equal.append(torch.all(out == out[:1]))
+            return out[0]
+
+        grads = tree_map(lambda _, *rows: mean(*rows), params,
+                         *(g for _, g in per))
+        loss = mean(*(loss for loss, _ in per))
+        if not bool(torch.stack(rows_equal).all()):
+            raise RuntimeError("pmean gave unequal rows: the replicas "
+                               "disagree")
+        new_params, new_opt, metrics = _update(params, grads, state["opt"],
+                                               opt)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return step
+
+
+#: The captured step's metrics vector, in order (the reference's).
+METRIC_KEYS = ("grad_norm", "lr", "loss")
+
+
+def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
+                                opt: OptimConfig, comm: "CommSession",
+                                state, batch, *,
+                                schedule: str | None = None,
+                                max_paths: int | None = None,
+                                num_chunks: int | None = None) -> Callable:
+    """Data-parallel step captured as ONE heterogeneous graph — grad
+    compute, multipath ring all-reduce and the optimizer update inside a
+    single replay (``comm.capture``).
+
+    ``state``/``batch`` are examples (tensors, meta tensors or arrays)
+    fixing the shapes; the returned ``step(state, batch) -> (state,
+    metrics)`` matches :func:`make_dp_train_step` to float tolerance (the
+    captured all-reduce sums in float32 ring order). Every call is ONE
+    engine dispatch: the ``grad`` kernel (each device's shard through
+    autograd on its row of the replicated state, flattened into one
+    float32 vector with the loss last), ``n − 1`` exchange rounds with
+    their combine kernels, and the ``update`` kernel (AdamW on each row)
+    are nodes of one scheduled transfer graph, so
+    ``comm.stats()["dispatches"]`` grows by one per step. The graph's
+    digest is the reference's for the same config, session and shapes.
+    ``step.capture`` is the :class:`~repro_torch.comm.capture.CapturedStep`
+    (its ``capture.buffers`` size the step's arena).
+    """
+    check_trainable(cfg, comm.device)
+    grads_of = _make_grad_fn(cfg, ts)
+    n = comm.engine.num_devices
+    params_ex = state["params"]
+    params_leaves = leaves(params_ex)
+    opt_leaves = leaves(state["opt"])
+    batch_keys = sorted(batch)
+    batch_leaves = [torch.as_tensor(batch[k]) for k in batch_keys]
+    npar, nopt = len(params_leaves), len(opt_leaves)
+    for b in batch_leaves:
+        if b.shape[0] % n:
+            raise ValueError(f"global batch dim {b.shape[0]} not divisible "
+                             f"by {n} devices")
+    grad_sizes = [math.prod(p.shape) for p in params_leaves]
+    total = sum(grad_sizes)
+    opt_tree = state["opt"]
+
+    def grad_kernel(*stacked):
+        out = torch.empty((n, total + 1), dtype=torch.float32,
+                          device=stacked[0].device)
+        for i in range(n):
+            params = unflatten(params_ex, [t[i] for t in stacked[:npar]])
+            bt = dict(zip(batch_keys, (t[i] for t in stacked[npar:])))
+            loss, grads = grads_of(params, bt)
+            off = 0
+            for g, sz in zip(leaves(grads), grad_sizes):
+                out[i, off:off + sz].copy_(g.reshape(-1))
+                off += sz
+            out[i, total].copy_(loss)
+        return out
+
+    def update_kernel(tot_v, *stacked):
+        outs = [torch.empty_like(t) for t in stacked]
+        mvec = torch.empty((n, len(METRIC_KEYS)), dtype=torch.float32,
+                           device=tot_v.device)
+        for i in range(n):
+            params = unflatten(params_ex, [t[i] for t in stacked[:npar]])
+            opt_state = unflatten(opt_tree, [t[i] for t in stacked[npar:]])
+            mean = tot_v[i] / n
+            gleaves, off = [], 0
+            for p, sz in zip(params_leaves, grad_sizes):
+                gleaves.append(mean[off:off + sz].reshape(p.shape)
+                               .to(p.dtype))
+                off += sz
+            new_params, new_opt, metrics = _update(
+                params, unflatten(params_ex, gleaves), opt_state, opt)
+            metrics["loss"] = mean[total]
+            for o, t in zip(outs, leaves(new_params) + leaves(new_opt)):
+                o[i].copy_(t)
+            mvec[i].copy_(torch.stack([metrics[k].to(torch.float32)
+                                       for k in METRIC_KEYS]))
+        return tuple(outs) + (mvec,)
+
+    def spec(t) -> BufferSpec:
+        return BufferSpec(tuple(t.shape), dtype_name(t.dtype))
+
+    def build(cap):
+        p_refs = [cap.input(tuple(p.shape), p.dtype, replicated=True)
+                  for p in params_leaves]
+        o_refs = [cap.input(tuple(o.shape), o.dtype, replicated=True)
+                  for o in opt_leaves]
+        b_refs = [cap.input((b.shape[0] // n,) + tuple(b.shape[1:]),
+                            b.dtype) for b in batch_leaves]
+        gvec = cap.kernel(grad_kernel, *p_refs, *b_refs, name="grad",
+                          out=BufferSpec((total + 1,), "float32"),
+                          flops=6 * total)
+        tot = captured_psum(cap, gvec, n, max_paths=max_paths,
+                            num_chunks=num_chunks, name="gradsum")
+        return cap.kernel(
+            update_kernel, tot, *p_refs, *o_refs, name="update",
+            out=[spec(t) for t in params_leaves + opt_leaves]
+            + [BufferSpec((len(METRIC_KEYS),), "float32")],
+            flops=10 * total)
+
+    captured = comm.capture(build, schedule=schedule)
+
+    def step(st, bt):
+        p_l = flatten_up_to(params_ex, st["params"])
+        o_l = leaves(st["opt"])
+        b_l = []
+        for k in batch_keys:
+            x = torch.as_tensor(bt[k])
+            b_l.append(x.reshape((n, x.shape[0] // n) + x.shape[1:]))
+        outs = captured(*p_l, *o_l, *b_l)
+        outs0 = [o[0] for o in outs]   # replicated results: rows identical
+        new_params = unflatten(params_ex, outs0[:npar])
+        new_opt = unflatten(opt_tree, outs0[npar:npar + nopt])
+        mvec = outs0[-1]
+        metrics = {k: mvec[i] for i, k in enumerate(METRIC_KEYS)}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    step.capture = captured
+    return step
+
+
+def state_shapes(cfg: ArchConfig, opt: OptimConfig):
+    """The train state's shapes and dtypes as meta tensors."""
+    p = tfm.param_shapes(cfg)
+    return {"params": p, "opt": opt_state_shapes(p, opt)}
+
+
+def init_state(cfg: ArchConfig, opt: OptimConfig, *,
+               generator: torch.Generator | None = None, device=None):
+    """A fresh train state on ``device`` (default: the card): random
+    parameters from ``generator`` (:func:`~repro_torch.models.transformer.
+    init_params`) and zero optimizer state."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    params = tfm.init_params(cfg, generator=generator, device=device)
+    return {"params": params, "opt": init_opt_state(params, opt)}

@@ -17,8 +17,10 @@ def kernel_tree(tmp_path, monkeypatch):
     """A copy of the kernels' ``csrc/`` trees under a temporary
     ``KERNEL_DIR``, and a build directory beside it."""
     for name in _build.KERNELS:
-        shutil.copytree(_build.KERNEL_DIR / name / "csrc",
-                        tmp_path / "kernels" / name / "csrc")
+        src = _build.csrc_dir(name)
+        dst = tmp_path / "kernels" / src.parent.name / "csrc"
+        if not dst.exists():
+            shutil.copytree(src, dst)
     monkeypatch.setattr(_build, "KERNEL_DIR", tmp_path / "kernels")
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
     return tmp_path / "kernels"
@@ -29,7 +31,8 @@ def test_target_changes_with_a_header(kernel_tree, name):
     before = _build._target(name)
     assert before.parent == kernel_tree.parent / "build"
     assert _build._target(name) == before
-    header = kernel_tree / name / "csrc" / "extra.cuh"
+    header = _build.csrc_dir(name) / "extra.cuh"
+    assert header.parent.parent.parent == kernel_tree
     header.write_text("// a header beside the source\n")
     added = _build._target(name)
     assert added != before

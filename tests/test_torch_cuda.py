@@ -28,6 +28,12 @@ largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
 beside float32 w, strided inputs, its first pass's chunk-start states
 against the plain first pass at the same bound, and the reduced RWKV-6
 model served against the CPU. ``-k rwkv`` runs the scan's tests alone.
+Training (``-k "backward or train or grad"``): the attention backward
+kernel against its plain version (float32 within 1e-4, bfloat16 within
+2e-2 of the largest |want|) and through autograd, ``loss.backward()``
+through the dense forward against the plain attention's gradients, RWKV-6
+training raising, and the captured DP train step against the eager
+steps at the reference's tolerances.
 """
 
 import dataclasses
@@ -617,3 +623,156 @@ def test_health_captured_decode_step_under_failed_link(dev):
             for plan in step.resolve().plans:
                 assert (0, 2) not in plan.directional_links()
             assert sess.stats()["health"]["ladder_level"] == 1
+
+
+# -- training: the attention backward and the train steps --------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 15, 5, 512, 64),
+                                          (1, 4, 2, 200, 32),
+                                          (1, 2, 1, 130, 128),
+                                          (2, 8, 2, 77, 16)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None), (False, 48)])
+def test_flash_attention_backward_matches_plain(dev, dtype, b, hq, hkv, s, d,
+                                                causal, window):
+    """dQ, dK, dV within 1e-4 (float32) or 2e-2 (bfloat16) of the largest
+    |want|, from the same forward output and lse; the lse within 1e-4 of
+    the plain log-sum-exp."""
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = ((torch.randn(b, h, s, d, generator=g, device=dev) * sc
+                ).to(dtype) for h, sc in ((hq, 0.5), (hkv, 0.5), (hkv, 1.0)))
+    do = torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+    o, lse = fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    want_lse = fk.attention_lse_ref(q, k, causal=causal, window=window)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    before = fk.LAUNCHES_BWD
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    assert fk.LAUNCHES_BWD == before + 1
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        top = y.float().abs().max().item()
+        assert (x.float() - y.float()).abs().max().item() <= tol * top
+
+
+def test_flash_attention_fn_matches_autograd_of_plain(dev):
+    """Through ``ops.flash_attention`` with grad: the kernel's backward,
+    with a strided q and a strided dO, against autograd of the plain
+    version."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = (torch.randn(2, 128, 6, 32, generator=g, device=dev) * 0.5)
+    k = (torch.randn(2, 3, 128, 32, generator=g, device=dev) * 0.5)
+    v = torch.randn(2, 3, 128, 32, generator=g, device=dev)
+    leaves_ = [t.requires_grad_() for t in (q, k, v)]
+    qt = q.transpose(1, 2)                       # (B, H, S, D), strided
+    out = flash_attention(qt, k, v, causal=True)
+    assert out.grad_fn is not None
+    do = torch.randn(2, 128, 6, 32, generator=g, device=dev).transpose(1, 2)
+    before = fk.LAUNCHES_BWD
+    got = torch.autograd.grad(out, leaves_, do)
+    assert fk.LAUNCHES_BWD == before + 1
+    want = torch.autograd.grad(fk.flash_attention_plain(qt, k, v,
+                                                        causal=True),
+                               leaves_, do)
+    for x, y in zip(got, want):
+        top = y.abs().max().item()
+        assert (x - y).abs().max().item() <= 1e-4 * top
+    with torch.no_grad():
+        assert flash_attention(qt, k, v).grad_fn is None
+
+
+def test_dense_backward_gives_attention_the_plain_gradients(dev,
+                                                            monkeypatch):
+    """``loss.backward()`` through the port's dense forward on the card
+    gives wq, wk and wv the gradients of the same forward with the plain
+    attention (no detached kernel output)."""
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              remat="full")
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+
+    def grads():
+        for t in (params["layers"]["attn"][w] for w in ("wq", "wk", "wv")):
+            t.grad = None
+        for t in _tree_leaves(params):
+            t.requires_grad_(True)
+        tfm.loss_fn(params, cfg, batch).backward()
+        return [params["layers"]["attn"][w].grad.clone()
+                for w in ("wq", "wk", "wv")]
+
+    before = fk.LAUNCHES_BWD
+    got = grads()
+    assert fk.LAUNCHES_BWD == before + cfg.num_layers
+    monkeypatch.setattr(layers, "flash_attention",
+                        lambda q, k, v, **kw: fk.flash_attention_plain(
+                            q, k, v, **kw))
+    want = grads()
+    for x, y in zip(got, want):
+        top = y.abs().max().item()
+        assert top > 0 and (x - y).abs().max().item() <= 1e-4 * top
+
+
+def _tree_leaves(tree):
+    from repro_torch.tree import leaves
+    return leaves(tree)
+
+
+def test_rwkv6_training_on_the_card_raises(dev):
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import TrainStepConfig, make_train_step
+    r = torch.randn(1, 64, 1, 16, device=dev, requires_grad=True)
+    w = torch.rand(1, 64, 1, 16, device=dev) * 0.5 + 0.5
+    u = torch.zeros(1, 1, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        sops.chunked_scan(r, r, r, w, u, chunk=64)
+    with torch.no_grad():
+        sops.chunked_scan(r, r, r, w, u, chunk=64)     # serving still runs
+    with pytest.raises(NotImplementedError, match="rwkv6_scan backward"):
+        make_train_step(get_config("rwkv6_1_6b"), TrainStepConfig(),
+                        OptimConfig(), device=dev)
+
+
+def test_captured_train_step_on_the_card_matches_dp(dev):
+    """A reduced SmolLM-360M (float32): the captured step is one dispatch
+    and equals the eager DP step, which equals the single-device step
+    (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4); its replay runs both
+    attention kernels."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              remat="full")
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    ts = TrainStepConfig()
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    batch = batch_to(SyntheticDataset(cfg, DataConfig(64, 8)).batch_at(0),
+                     dev)
+    s1, m1 = make_train_step(cfg, ts, opt, device=dev)(state, batch)
+    s2, m2 = make_dp_train_step(cfg, ts, opt, CommSession(device=dev))(
+        state, batch)
+    sess = CommSession(device=dev)
+    step = make_captured_dp_train_step(cfg, ts, opt, sess, state, batch)
+    s3, m3 = step(state, batch)
+    before = (fk.LAUNCHES, fk.LAUNCHES_BWD)
+    s3, m3 = step(state, batch)
+    assert sess.stats()["dispatches"] == 2
+    assert fk.LAUNCHES > before[0] and fk.LAUNCHES_BWD > before[1]
+    for (a, ma), (b, mb) in (((s2, m2), (s1, m1)), ((s3, m3), (s2, m2))):
+        assert abs(float(ma["loss"]) - float(mb["loss"])) <= 1e-5 * abs(
+            float(mb["loss"]))
+        for x, y in zip(_tree_leaves(a["params"]),
+                        _tree_leaves(b["params"])):
+            assert torch.allclose(x, y, atol=2e-5, rtol=1e-4)

@@ -2,13 +2,17 @@
 
 ``repro_torch`` and every submodule must import with ``jax`` blocked, and
 no source file of the port (nor ``chip_smoke.py``) may name jax or import
-the reference package ``repro``.
+the reference package ``repro``. The training subpackages import with
+both ``jax`` and ``repro`` blocked, and the port's training example names
+neither.
 """
 
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -52,3 +56,34 @@ def test_no_file_names_jax_or_imports_the_reference():
         text = path.read_text()
         assert not names_jax.search(text), path
         assert not imports_ref.search(text), path
+
+
+TRAINING_IMPORT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import importlib
+mod = importlib.import_module("repro_torch." + sys.argv[1])
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "repro" or m.startswith("repro.") or m.split(".")[0] == "jax"))
+assert not bad, bad
+print(mod.__name__)
+"""
+
+
+@pytest.mark.parametrize("name", ["optim", "data", "training", "checkpoint",
+                                  "runtime", "launch.train", "tree"])
+def test_training_subpackages_import_with_jax_and_repro_blocked(name):
+    out = subprocess.run(
+        [sys.executable, "-c", TRAINING_IMPORT, name], capture_output=True,
+        text=True, cwd=ROOT, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == f"repro_torch.{name}"
+
+
+def test_training_example_names_no_jax():
+    text = (ROOT / "examples_torch" / "train_smollm.py").read_text()
+    assert not re.search(r"\bjax\b", text, re.IGNORECASE)
+    assert not re.search(r"^\s*(from|import)\s+repro(\.|\s|$)", text,
+                         re.MULTILINE)

@@ -1,0 +1,365 @@
+"""The port's training path against the reference's, on the CPU.
+
+The same numpy inputs (weights drawn by the reference from its seed and
+carried across with ``state_from_numpy``, batches from the synthetic
+pipeline) go through both packages:
+
+* ``rms_norm``'s backward against ``jax.grad`` of the reference's custom
+  VJP: float32 within 1e-6; bfloat16 within 2e-2 (two bfloat16 steps at
+  the values' scale), the dtype rules kept (dx in x's dtype, dw in the
+  weight's);
+* the attention backward's plain version against ``jax.grad`` of the
+  reference's attention at ragged lengths, causal and windowed, GQA,
+  within 1e-5 (float32 sums in another order);
+* ``loss_fn`` and its grads against ``jax.value_and_grad`` on reduced
+  configs: loss rtol 1e-5, grads within 1e-5 · max|g|;
+* the three builders against the reference's, at the reference's own
+  tolerances for its captured step (``tests/test_capture.py``): loss rtol
+  1e-5, params atol 2e-5 / rtol 1e-4. The data-parallel steps run on 4
+  devices on both sides; the captured step's graph digests equal and one
+  call is one dispatch.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import CommSession as JCommSession
+from repro.configs import get_config as jget_config
+from repro.data import DataConfig as JDataConfig
+from repro.data import SyntheticDataset as JSyntheticDataset
+from repro.models import layers as jl
+from repro.models import transformer as jtfm
+from repro.optim import OptimConfig as JOptimConfig
+from repro.training import TrainStepConfig as JTrainStepConfig
+from repro.training import init_state as jinit_state
+from repro.training import make_captured_dp_train_step as jmake_captured
+from repro.training import make_dp_train_step as jmake_dp
+from repro.training import make_train_step as jmake_train_step
+
+from repro_torch.carry import params_from_numpy, state_from_numpy
+from repro_torch.comm import CommSession
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_plain, flash_attention_plain)
+from repro_torch.models import layers as tl
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import OptimConfig
+from repro_torch.training import (TrainStepConfig, check_trainable,
+                                  init_state, make_captured_dp_train_step,
+                                  make_dp_train_step, make_loss_fn,
+                                  make_train_step, state_shapes)
+from repro_torch.training.train_step import _value_and_grad
+from repro_torch.tree import leaves
+
+OPT = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+
+
+def arr(seed, *shape, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+# -- rms_norm -----------------------------------------------------------------
+
+def test_rms_norm_forward_is_unchanged():
+    """The autograd function's forward is the serving path's formula:
+    bitwise equal outputs, with and without autograd."""
+    x = torch.from_numpy(arr(0, 3, 5, 64))
+    w = torch.from_numpy(arr(1, 64, scale=0.1))
+    plain = tl.rms_norm(x, w)
+    xf = x.float()
+    var = torch.einsum("...d,...d->...", xf, xf)[..., None] / 64
+    before = x * torch.rsqrt(var + 1e-6) * (1.0 + w)
+    assert torch.equal(plain, before)
+    tracked = tl.rms_norm(x.clone().requires_grad_(), w)
+    assert tracked.grad_fn is not None
+    assert torch.equal(tracked.detach(), plain)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6),
+                                       ("bfloat16", 2e-2)])
+def test_rms_norm_grads_match_the_custom_vjp(dtype, tol):
+    x, w, g = arr(2, 4, 6, 64), arr(3, 64, scale=0.1), arr(4, 4, 6, 64)
+    jx, jg = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    _, vjp = jax.vjp(lambda a, b: jl.rms_norm(a, b), jx, jnp.asarray(w))
+    jdx, jdw = vjp(jg)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    y = tl.rms_norm(tx, tw)
+    dx, dw = torch.autograd.grad(y, (tx, tw), torch.from_numpy(g).to(tdt))
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(jdx, np.float32), atol=tol, rtol=0)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw, np.float32),
+                               atol=tol * max(1.0, float(np.abs(
+                                   np.asarray(jdw)).max())), rtol=0)
+
+
+# -- attention backward -------------------------------------------------------
+
+@pytest.mark.parametrize("s,hq,hkv", [(37, 4, 2), (100, 6, 3), (64, 2, 2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 9),
+                                           (False, 13)])
+@pytest.mark.parametrize("ref", ["naive", "blockwise"])
+def test_attention_backward_plain_matches_reference_grad(s, hq, hkv, causal,
+                                                         window, ref):
+    b, d = 2, 16
+    q, k, v = arr(5, b, hq, s, d), arr(6, b, hkv, s, d), arr(7, b, hkv, s, d)
+    do = arr(8, b, hq, s, d)
+    scale = d ** -0.5
+    if ref == "naive":
+        def jf(q_, k_, v_):
+            return jl.naive_attention(q_, k_, v_, causal=causal,
+                                      window=window, scale=scale)
+    else:
+        def jf(q_, k_, v_):
+            return jl.blockwise_attention(q_, k_, v_, causal=causal,
+                                          window=window, scale=scale,
+                                          block_k=32)
+    _, vjp = jax.vjp(jf, *(jnp.asarray(t) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    o, lse = flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(do),
+                                    causal=causal, window=window,
+                                    scale=scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+def test_attention_backward_rows_with_nothing_to_attend_are_zero():
+    q, k, v, do = (torch.from_numpy(arr(i, 1, 2, 5, 16)) for i in range(4))
+    o, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    lse[..., 2] = -torch.inf          # as the kernels write an empty row
+    dq, _, _ = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    assert torch.equal(dq[..., 2, :], torch.zeros_like(dq[..., 2, :]))
+
+
+# -- loss_fn ------------------------------------------------------------------
+
+def reference_and_port(arch, **replace):
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **replace)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    jparams = jtfm.init_params(jax.random.key(0), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jcfg, cfg, jparams, params
+
+
+def batch_np(cfg, seq=12, batch=4, step=0):
+    return JSyntheticDataset(cfg, JDataConfig(seq, batch)).batch_at(step)
+
+
+def tb(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def jb(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "gemma3_27b",
+                                  "rwkv6_1_6b"])
+def test_loss_and_grads_match_value_and_grad(arch):
+    jcfg, cfg, jparams, params = reference_and_port(arch)
+    batch = batch_np(jcfg, seq=20)
+    batch["mask"][1, 5:] = 0.0                      # a masked tail
+    jloss, jgrads = jax.value_and_grad(jtfm.loss_fn)(jparams, jcfg,
+                                                     jb(batch))
+    loss, grads = _value_and_grad(make_loss_fn(cfg, TrainStepConfig(
+        aux_coef=0.01)))(params, tb(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    for (path, jg), g in zip(jax.tree_util.tree_flatten_with_path(jgrads)[0],
+                             leaves(grads)):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(
+            g.numpy(), jg, atol=1e-5 * max(1e-30, np.abs(jg).max()),
+            rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+def test_remat_full_equals_none():
+    _, cfg, _, params = reference_and_port("smollm_360m")
+    batch = tb(batch_np(cfg))
+    plain = _value_and_grad(make_loss_fn(cfg, TrainStepConfig()))(params,
+                                                                   batch)
+    rcfg = dataclasses.replace(cfg, remat="full")
+    remat = _value_and_grad(make_loss_fn(rcfg, TrainStepConfig()))(params,
+                                                                   batch)
+    assert torch.equal(plain[0], remat[0])
+    for a, b in zip(leaves(plain[1]), leaves(remat[1])):
+        assert torch.equal(a, b)
+
+
+def test_param_shapes_are_meta_and_match_the_reference():
+    cfg = get_config("smollm_360m")
+    shapes = tfm.param_shapes(cfg)
+    jshapes = jtfm.param_shapes(jget_config("smollm_360m"))
+    got = [(tuple(t.shape), str(t.dtype)[6:]) for t in leaves(shapes)]
+    want = [(tuple(a.shape), str(a.dtype)) for a in jax.tree.leaves(jshapes)]
+    assert got == want
+    assert sum(t.numel() for t in leaves(shapes)) == 409_007_040
+    assert all(t.device.type == "meta" for t in leaves(shapes))
+    st = state_shapes(cfg, OptimConfig())
+    assert all(t.device.type == "meta" for t in leaves(st))
+
+
+# -- the builders -------------------------------------------------------------
+
+def states(arch="smollm_360m", **replace):
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **replace)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    jopt, opt = JOptimConfig(**OPT), OptimConfig(**OPT)
+    jstate = jinit_state(jcfg, jopt)
+    state = state_from_numpy(jax.tree.map(np.asarray, jstate))
+    return jcfg, cfg, jopt, opt, jstate, state
+
+
+def assert_states_close(jstate, state):
+    for a, b in zip(jax.tree.leaves(jstate["params"]),
+                    leaves(state["params"])):
+        np.testing.assert_allclose(b.float().numpy(),
+                                   np.asarray(a, np.float32), atol=2e-5,
+                                   rtol=1e-4)
+    assert int(state["opt"]["step"]) == int(jstate["opt"]["step"])
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_three_steps(microbatches):
+    jcfg, cfg, jopt, opt, jstate, state = states()
+    jstep = jax.jit(jmake_train_step(jcfg, JTrainStepConfig(microbatches),
+                                     jopt))
+    step = make_train_step(cfg, TrainStepConfig(microbatches), opt,
+                           device="cpu")
+    for s in range(3):
+        batch = batch_np(jcfg, step=s)
+        jstate, jm = jstep(jstate, jb(batch))
+        state, m = step(state, tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert_states_close(jstate, state)
+
+
+def jsession4():
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("dev",))
+    return JCommSession(mesh=mesh)
+
+
+def test_dp_train_step_matches_the_reference_on_4_devices():
+    jcfg, cfg, jopt, opt, jstate, state = states()
+    batch = batch_np(jcfg, batch=8)
+    jstate, jm = jax.jit(jmake_dp(jcfg, JTrainStepConfig(), jopt,
+                                  jsession4()))(jstate, jb(batch))
+    sess = CommSession(device="cpu")
+    assert sess.num_devices == 4
+    state, m = make_dp_train_step(cfg, TrainStepConfig(), opt, sess)(
+        state, tb(batch))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-5)
+    assert_states_close(jstate, state)
+
+
+def test_dp_train_step_equals_the_single_device_step():
+    _, cfg, _, opt, _, state = states()
+    batch = tb(batch_np(cfg, batch=8))
+    sess = CommSession(device="cpu")
+    s1, m1 = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")(
+        state, batch)
+    s2, m2 = make_dp_train_step(cfg, TrainStepConfig(), opt, sess)(state,
+                                                                   batch)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(leaves(s1["params"]), leaves(s2["params"])):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+
+
+def fastpath_entry(engine):
+    return next(iter(engine._fastpath._store.values()))[1]
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "int8"])
+def test_captured_dp_train_step_matches_the_reference(moment_dtype):
+    """One step, then (float32 moments) a second one. With int8 moments
+    a code may land one apart where the float32 moment sits on a rounding
+    boundary (``tests/test_torch_optim.py``), which moves the second
+    step's update of that element by up to a learning rate: the second
+    step is compared for float32 moments only."""
+    jcfg, cfg, _, _, _, _ = states()
+    kw = dict(OPT, moment_dtype=moment_dtype)
+    jopt, opt = JOptimConfig(**kw), OptimConfig(**kw)
+    jstate = jinit_state(jcfg, jopt)
+    state = state_from_numpy(jax.tree.map(np.asarray, jstate))
+    batch = batch_np(jcfg, batch=8)
+    jsess, sess = jsession4(), CommSession(device="cpu")
+    jstep = jmake_captured(jcfg, JTrainStepConfig(), jopt, jsess, jstate,
+                           jb(batch))
+    step = make_captured_dp_train_step(cfg, TrainStepConfig(), opt, sess,
+                                       state, tb(batch))
+    jstate, jm = jstep(jstate, jb(batch))
+    state, m = step(state, tb(batch))
+    assert sess.stats()["dispatches"] == 1
+    assert (fastpath_entry(sess.engine).graph.digest()
+            == fastpath_entry(jsess.engine).graph.digest())
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    assert_states_close(jstate, state)
+    if moment_dtype == "int8":
+        return
+    batch = batch_np(jcfg, batch=8, step=1)
+    jstate, jm = jstep(jstate, jb(batch))
+    state, m = step(state, tb(batch))
+    assert sess.stats()["dispatches"] == 2
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]), rtol=1e-6)
+    assert_states_close(jstate, state)
+
+
+def test_captured_step_equals_the_dp_step():
+    _, cfg, _, opt, _, state = states()
+    batch = tb(batch_np(cfg, batch=8))
+    sess = CommSession(device="cpu")
+    eager = make_dp_train_step(cfg, TrainStepConfig(), opt,
+                               CommSession(device="cpu"))
+    captured = make_captured_dp_train_step(cfg, TrainStepConfig(), opt, sess,
+                                           state, batch)
+    s1, m1 = eager(state, batch)
+    s2, m2 = captured(state, batch)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(leaves(s1), leaves(s2)):
+        np.testing.assert_allclose(b.float().numpy(), a.float().numpy(),
+                                   atol=2e-5, rtol=1e-4)
+    graph = fastpath_entry(sess.engine).graph
+    names = [n.kernel for n in graph.nodes if hasattr(n, "kernel")]
+    assert names[0] == "grad" and names[-1] == "update"
+    assert names[1:-1] == [f"gradsum_r{r}" for r in range(3)]
+
+
+def test_init_state_uses_the_generator():
+    _, cfg, _, opt, _, _ = states()
+    a = init_state(cfg, opt, generator=torch.Generator().manual_seed(3),
+                   device="cpu")
+    b = init_state(cfg, opt, generator=torch.Generator().manual_seed(3),
+                   device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    assert int(a["opt"]["step"]) == 0
+
+
+def test_ssm_training_on_the_card_raises():
+    rwkv = get_config("rwkv6_1_6b")
+    with pytest.raises(NotImplementedError, match="rwkv6_scan backward"):
+        check_trainable(rwkv, "cuda")
+    check_trainable(rwkv, "cpu")
+    check_trainable(get_config("smollm_360m"), "cuda")
