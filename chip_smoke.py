@@ -180,8 +180,9 @@ What it does, in order (any failed check exits nonzero):
     exchange and path F's decode step on a ``CommConfig(telemetry=True,
     health=True)`` session, ``calibrate``, the same again, every message
     bitwise: the droop monitor's measured/modeled ratios (median, p90,
-    max, per kind) and its quarantines printed (a report, not a check);
-    and
+    max, per kind; the decode step's too, which the monitor does not
+    judge) and its quarantines and readmissions printed (a report, not a
+    check); and
     ``multipath_dma`` and ``flash_attention`` each launched;
 15. main path J, after path I's tensors are freed: training SmolLM-360M
     at full width (``get_config("smollm_360m")``: 32 layers, d_model 960,
@@ -191,8 +192,12 @@ What it does, in order (any failed check exits nonzero):
     ``(8, 15, 512, 64)``, k/v ``(8, 5, 512, 64)``, and ``(2, ...)`` for
     one DP shard; causal; float32 within 1e-4 and bfloat16 within 2e-2 of
     the largest |want| on dQ, dK and dV) with the forward's ``lse``, and
-    its time beside its bound, the plain version's and SDPA's forward +
-    backward; ``loss.backward()`` through the dense forward (2 layers,
+    in bfloat16 at head dims 16/32/64/128 at (1, 4/2, 200, D), causal,
+    windowed and unmasked; its time (back to back, and one call replayed
+    as a CUDA graph) beside its bound, the plain version's, its three
+    kernels' device times, SDPA's backward alone and
+    forward + backward, and SDPA's backend; ``loss.backward()`` through
+    the dense forward (2 layers,
     float32) against the plain attention's ``wq``/``wk``/``wv`` gradients;
     RWKV-6 training raising ``NotImplementedError``. Then, counters set to
     0 before it and read after it: at full width, 2 layers, float32, TF32
@@ -1878,7 +1883,8 @@ def health_path(dev, errs, per_path, read_path, smi: str,
     captured decode step through a failed link; a KV migration of
     SmolLM-360M at full width under a failed link; and the droop
     monitor's ratios on healthy traffic under a fitted profile."""
-    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.comm import (CommConfig, CommSession,
+                                  modeled_sample_time_s)
     from repro_torch.configs import get_config
     from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2156,16 +2162,19 @@ def health_path(dev, errs, per_path, read_path, smi: str,
     #    profile: its send sweep, its exchange and path F's decode step
     sess = CommSession(CommConfig(telemetry=True, health=True))
     mon = sess.monitor
-    ratios = {"send": [], "exchange": [], "decode step": []}
-    culprits = []
+    ratios = {"send": [], "exchange": []}
+    unjudged, culprits = [], []
 
     def observe(sample):
         before = mon.quarantines
         r = mon.observe(sample)
+        if sample.compute and sess.topology.calibration is not None:
+            # not judged (the model prices no compute): reported only
+            unjudged.append(sample.measured_s / modeled_sample_time_s(
+                sample, sess.topology, sess.topology.calibration))
         if r is None:
             return
-        kind = ("decode step" if sample.compute
-                else "exchange" if len(sample.routes) > 1 else "send")
+        kind = "exchange" if len(sample.routes) > 1 else "send"
         ratios[kind].append(r)
         if mon.quarantines > before:
             culprits.append((kind, round(r, 3),
@@ -2212,6 +2221,7 @@ def health_path(dev, errs, per_path, read_path, smi: str,
     read_path("I")
     check(ratios["send"], "path I: the monitor judged no send under the "
           "profile")
+    check(unjudged, "path I: no decode step ran under the profile")
     print(f"path I ({smi}): droop monitor on path H's healthy traffic "
           f"under the fitted profile (threshold {mon.droop_threshold}, "
           f"{mon.droop_samples} in a row), measured/modeled by kind: "
@@ -2220,6 +2230,8 @@ def health_path(dev, errs, per_path, read_path, smi: str,
               f"{quantile(rs, 0.9):.4f}, max {max(rs):.4f}, "
               f"{sum(r > mon.droop_threshold for r in rs)} above"
               for kind, rs in ratios.items() if rs)
+          + f"; decode step (not judged: the model prices no compute) "
+          f"x{len(unjudged)} median {quantile(unjudged, 0.5):.4f}"
           + f"; quarantines {mon.quarantines} (kind, ratio, quarantined "
           f"set): {culprits}; readmissions {mon.readmissions}; ladder "
           f"{sess.stats()['health']}", flush=True)
@@ -2241,14 +2253,63 @@ TRAIN_HEADS, TRAIN_SEQ, TRAIN_BATCH = (15, 5, 64), 512, 8
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+#: Path J (a)'s small bfloat16 cases of the backward kernel: every head
+#: dim (each swizzle of the tensor-core kernels), a ragged length (the
+#: sequence-end mask), GQA 4/2; causal, windowed and unmasked.
+BWD_SWEEP = [(1, 4, 2, 200, d) for d in (16, 32, 64, 128)]
+BWD_MASKS = [(True, None), (True, 64), (False, None), (False, 48)]
+
+
+def bwd_case_err(fk, q, k, v, do, causal, window) -> dict:
+    """The backward kernel against its plain version on one input, from
+    the forward's ``o`` and ``lse``: each gradient's max abs error and
+    max |want|."""
+    o, lse = fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    lse_err = (lse - fk.attention_lse_ref(q, k, causal=causal,
+                                          window=window)).abs().max().item()
+    check(lse_err <= 1e-4, f"path J: flash_attention lse at "
+          f"{tuple(q.shape)} {q.dtype} causal={causal} window={window}: "
+          f"max abs err {lse_err}")
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    return {name: ((g.float() - w.float()).abs().max().item(),
+                   w.float().abs().max().item())
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, anonymous namespace
+    and argument list: ``dkdv_wgmma_kernel<64>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
+
+
+def sdpa_backend(names) -> str:
+    """Which SDPA backend ran, from the CUDA kernel names it launched."""
+    low = " ".join(names).lower()
+    if "cudnn" in low:
+        return "cuDNN"
+    if "flash" in low:
+        return "flash"
+    if "fmha" in low or "efficient" in low or "cutlass" in low:
+        return "memory-efficient"
+    return "math"
+
+
 def flash_bwd_checks(randn, errs, smi) -> dict:
     """Path J (a): the ``flash_attention`` backward kernel against its
     plain version at the training shapes (single step and one DP shard),
-    causal, float32 and bfloat16, with the forward's ``lse`` against the
-    plain log-sum-exp; then at the single step's bfloat16 shape its time
-    beside its bound, the plain version's and SDPA's forward + backward
-    (the yardstick only; the port never calls it). Returns the kernel
-    row."""
+    causal, float32 and bfloat16, and in bfloat16 at every head dim,
+    causal, windowed and unmasked (``BWD_SWEEP`` x ``BWD_MASKS``), with the
+    forward's ``lse`` against the plain log-sum-exp; then at the single
+    step's shape its time (back-to-back calls, and one call captured in a
+    CUDA graph and replayed) beside its bound, the plain version's, each
+    of its three kernels' device time (profiler), SDPA's backward alone and
+    its forward + backward, and the backend SDPA picked (the yardstick
+    only; the port never calls it). Returns the kernel row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2262,19 +2323,8 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
             k = (randn(b, hkv, s, d) * 0.5).to(dt)
             v = randn(b, hkv, s, d, dtype=dt)
             do = randn(b, hq, s, d, dtype=dt)
-            o, lse = fk.flash_attention_cuda(q, k, v, causal=True,
-                                             return_lse=True)
-            lse_err = (lse - fk.attention_lse_ref(q, k, causal=True)
-                       ).abs().max().item()
-            check(lse_err <= 1e-4, f"path J: flash_attention lse at ({b}, "
-                  f"{hq}/{hkv}, {s}, {d}) {dt}: max abs err {lse_err}")
-            got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                              causal=True)
-            want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                causal=True)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                err = (g.float() - w.float()).abs().max().item()
-                top = w.float().abs().max().item()
+            for name, (err, top) in bwd_case_err(fk, q, k, v, do, True,
+                                                 None).items():
                 errs["flash_attention_bwd"] = max(
                     errs["flash_attention_bwd"], err)
                 rel[(b, str(dt)[6:], name)] = err / top
@@ -2282,11 +2332,32 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
                       f"path J: flash_attention_bwd {name} at ({b}, "
                       f"{hq}/{hkv}, {s}, {d}) {dt}: max abs err {err} > "
                       f"{BWD_REL[dt]} * {top}")
-            del q, k, v, do, o, lse, got, want
+            del q, k, v, do
     print("path J: flash_attention_bwd vs plain (causal; max abs err / "
           "max |want|): " + ", ".join(f"B={b} {dt} {n} {r:.3g}"
                                       for (b, dt, n), r in rel.items())
           + f" (bounds float32 1e-4, bfloat16 2e-2)", flush=True)
+    worst = 0.0
+    for shape in BWD_SWEEP:
+        bb, h1, h2, sl, dd = shape
+        for causal, window in BWD_MASKS:
+            q = (randn(bb, h1, sl, dd) * 0.5).to(torch.bfloat16)
+            k = (randn(bb, h2, sl, dd) * 0.5).to(torch.bfloat16)
+            v = randn(bb, h2, sl, dd, dtype=torch.bfloat16)
+            do = randn(bb, h1, sl, dd, dtype=torch.bfloat16)
+            for name, (err, top) in bwd_case_err(fk, q, k, v, do, causal,
+                                                 window).items():
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                worst = max(worst, err / top)
+                check(err <= BWD_REL[torch.bfloat16] * top,
+                      f"path J: flash_attention_bwd {name} at {shape} "
+                      f"bfloat16 causal={causal} window={window}: max abs "
+                      f"err {err} > 2e-2 * {top}")
+    print(f"path J: flash_attention_bwd bfloat16 vs plain at "
+          f"{len(BWD_SWEEP) * len(BWD_MASKS)} cases, head dims 16/32/64/128 "
+          f"at (1, 4/2, 200, D), (causal, window) in {BWD_MASKS}: largest "
+          f"max abs err / max |want| {worst:.3g} (bound 2e-2)", flush=True)
 
     b = TRAIN_BATCH
     times = {}
@@ -2297,8 +2368,23 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
         do = randn(b, hq, s, d, dtype=dt)
         o, lse = fk.flash_attention_cuda(q, k, v, causal=True,
                                          return_lse=True)
-        ms = cuda_time_ms(lambda: fk.flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=True), 20)
+
+        def bwd():
+            return fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=True)
+
+        ms = cuda_time_ms(bwd, 20)
+        _, _, _, rows = profile_device_ms(
+            lambda: [bwd() for _ in range(10)], top=None)
+        split = {kernel_name(name): ms_ / n for name, ms_, n in rows}
+        # back-to-back calls can wait on the wrapper's host work; one call
+        # captured and replayed shows the device's time for the three
+        # launches alone
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            bwd()
+        graph_ms = cuda_time_ms(graph.replay, 20)
+        del graph
         fwd_ms = cuda_time_ms(lambda: fk.flash_attention_cuda(
             q, k, v, causal=True, return_lse=True), 20)
         plain_ms = cuda_time_ms(lambda: fk.flash_attention_bwd_plain(
@@ -2307,12 +2393,21 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
         kk = k.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
         vv = v.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
 
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                                 scale=d ** -0.5)
-            return torch.autograd.grad(out, (qq, kk, vv), do)
+        def sdpa():
+            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                  scale=d ** -0.5)
 
-        lib_ms = cuda_time_ms(sdpa_fwd_bwd, 20)
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qq, kk, vv), do)
+
+        out = sdpa()    # the forward, outside the timed backward
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out, (qq, kk, vv), do, retain_graph=True), 20)
+        lib_fb_ms = cuda_time_ms(sdpa_fwd_bwd, 20)
+        _, _, _, lib_rows = profile_device_ms(lambda: torch.autograd.grad(
+            out, (qq, kk, vv), do, retain_graph=True), top=None)
+        backend = sdpa_backend(name for name, _, _ in lib_rows)
+        lib_top = ", ".join(kernel_name(n)[:48] for n, _, _ in lib_rows[:3])
         # each input read once (q, k, v, o, dO, lse), each output written
         # once (dQ, dK, dV); 2.5 × the forward's causal FLOPs
         nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
@@ -2324,16 +2419,25 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
         bound = max(ops_ms, bytes_ms)
         times[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "library_ms": lib_ms, "fwd_ms": fwd_ms}
+                     else "bytes", "library_ms": lib_ms,
+                     "library_fwd_bwd_ms": lib_fb_ms,
+                     "library_backend": backend, "kernels_ms": split,
+                     "graph_ms": graph_ms, "fwd_ms": fwd_ms}
         print(f"path J ({smi}): flash_attention_bwd ({b}, {hq}/{hkv}, {s}, "
               f"{d}) {str(dt)[6:]} causal: kernel {ms:.4f} ms (forward with "
               f"lse {fwd_ms:.4f} ms), bound {bound:.4f} ms ({flops:.4g} "
               f"FLOPs = 2.5 x the causal forward's at "
               f"{peak / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at "
               f"3.35 TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), "
-              f"plain {plain_ms:.4f} ms, SDPA forward + backward on "
-              f"repeat_interleave'd k/v {lib_ms:.4f} ms", flush=True)
-        del q, k, v, do, o, lse, qq, kk, vv
+              f"plain {plain_ms:.4f} ms; one call captured and replayed "
+              f"{graph_ms:.4f} ms ({bound / graph_ms:.1%} of bound); its "
+              f"kernels under the profiler (device ms a call): "
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items())
+              + f"; SDPA on repeat_interleave'd k/v ({backend} backend; "
+              f"kernels {lib_top}): "
+              f"backward alone {lib_ms:.4f} ms, forward + backward "
+              f"{lib_fb_ms:.4f} ms", flush=True)
+        del q, k, v, do, o, lse, qq, kk, vv, out
     row = times[torch.bfloat16]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2342,11 +2446,16 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
             "replaces_note": "no Pallas site: the reference differentiates "
                              "its blockwise_attention",
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
-            "library_call": "F.scaled_dot_product_attention(q, "
+                                         "bound_by", "library_ms",
+                                         "library_fwd_bwd_ms",
+                                         "kernels_ms", "graph_ms")},
+            "library_call": "torch.autograd.grad of "
+                            "F.scaled_dot_product_attention(q, "
                             "k.repeat_interleave(3, 1), "
-                            "v.repeat_interleave(3, 1), is_causal=True) "
-                            "forward + backward",
+                            "v.repeat_interleave(3, 1), is_causal=True), "
+                            "the backward alone (forward run outside the "
+                            f"timed region), {row['library_backend']} "
+                            "backend",
             "shape": [b, hq, hkv, s, d], "dtype": "bfloat16",
             "float32": times[torch.float32]}
 

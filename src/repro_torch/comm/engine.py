@@ -613,7 +613,11 @@ class MultiPathTransfer:
         integrity contract still holds) at host-link speed. Requires
         nominal host links on both endpoints; raises
         :class:`~repro_torch.comm.health.CommFaultError` (the ladder is
-        exhausted) when any message lacks them.
+        exhausted) when any message lacks them. Then the monitor probes
+        on its cadence, as after a device rung: while every device route
+        is quarantined all traffic relays, and without probes here no
+        quarantined link would ever be readmitted (the reference does not
+        probe here).
         """
         topo = self.topology
         for (src, dst, _, _) in specs:
@@ -642,6 +646,8 @@ class MultiPathTransfer:
         hs.note("host_relay", messages=len(specs),
                 dispatch=self.dispatches)
         self.dispatches += 1
+        if self.monitor is not None:
+            self.monitor.maybe_probe(self)
         return outs
 
     def _dispatch(self, specs: Sequence[tuple],

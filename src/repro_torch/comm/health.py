@@ -437,13 +437,20 @@ class HealthMonitor:
 
         Returns the measured/modeled ratio, or ``None`` when the sample
         cannot be judged (no calibration while ``require_calibration``,
-        or a degenerate modeled time). A ratio above ``droop_threshold``
+        a captured step that runs kernels, or a degenerate modeled time).
+        A step's measured time includes its kernels, which the model does
+        not price: on healthy links it reads 12-16x (path I of
+        ``chip_smoke.py``), so judging it quarantined every link of its
+        routes and the next replay found no route. The reference judges
+        it. A ratio above ``droop_threshold``
         bumps the streak of every link the sample crossed; hitting
         ``droop_samples`` consecutive breaches quarantines the link. A
         healthy sample resets its links' streaks — the M-*consecutive*
         contract, not M-cumulative.
         """
         if self.require_calibration and self.topology.calibration is None:
+            return None
+        if sample.compute:
             return None
         modeled = modeled_sample_time_s(sample, self.topology,
                                         self.topology.calibration)

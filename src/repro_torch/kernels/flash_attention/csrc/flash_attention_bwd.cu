@@ -17,40 +17,85 @@
 // A row with nothing to attend to has lse = -inf and P = 0, so its
 // gradient is exactly 0.
 //
-// Three launches:
+// Three launches, for either type:
 // 1. `delta_kernel`: D = rowsum(dO * O), one warp per row, float32.
-// 2. `dkdv_kernel`: one block per (batch * kv head, 64-key tile). K and V
+// 2. dK and dV: one block per (batch * kv head, 64-key tile). K and V
 //    stay in shared memory; the block walks every query tile that sees the
 //    key tile, for each of the Hq / Hkv query heads that share the kv
 //    head, so grouped heads need no atomics and the sums run in one fixed
 //    order (deterministic).
-// 3. `dq_kernel`: one block per (batch * q head, 64-query tile), walking
-//    the key tiles the forward walks (`key_tiles`).
+// 3. dQ: one block per (batch * q head, 64-query tile), walking the key
+//    tiles the forward walks (`key_tiles`). It recomputes S and dP rather
+//    than receive dS from step 2, so dQ needs no atomics either: 7
+//    products a tile pair where the least is 5. The bound stays the least
+//    work, 2.5 times the forward's products.
 // Tiles wholly masked are skipped as in the forward: causal query tiles
 // above a key tile, and tiles outside every row's window.
 //
 // What bounds it: operations. The backward does about 2.5 times the
 // forward's products (Q K^T again, dO V^T, P^T dO, dS^T Q, dS K against
-// Q K^T and P V), all here on the CUDA cores in float32 (67 TFLOP/s of
-// the card's 989 bf16 on the tensor cores). A first, simple kernel: each
-// product is a 64 x 64 tile per block, each of 256 threads holding a
-// 4 x 4 register tile (and 4 rows x D / 16 columns of each accumulator),
-// operands staged in shared memory as float32, transposed to [d][row]
-// with rows padded to 68 floats so that a thread reads four rows with one
-// 16-byte load. `wgmma` and TMA are later work.
+// Q K^T and P V); the card's bf16 tensor cores do 989 TFLOP/s against 67
+// TFLOP/s of float32 on the CUDA cores. Two pairs of kernels, by dtype:
+//
+// bfloat16: `dkdv_wgmma_kernel` and `dq_wgmma_kernel`, on the tensor cores
+// through the forward's building blocks (hopper_tiles.cuh). One warpgroup
+// (128 threads) per block; every product is one of the forward's two
+// `wgmma` forms:
+// * dK/dV computes the transposed tiles, so no shared-memory transpose of
+//   P or dS is needed: S^T = K Q^T and dP^T = V dO^T as m64n64k16 from
+//   shared memory, both K-major (the forward's Q K^T); then dV += P^T dO
+//   and dK += dS^T Q as m64nDk16 with P^T and dS^T from registers (the
+//   accumulator fragment is the A fragment, rounded to bf16, as P in the
+//   forward) and the dO and Q tiles as the MN-major B (the forward's V).
+//   The K and V tiles load once; the (Q, dO) tiles of the query tiles it
+//   walks go through a ring of two stages. lse and D belong to the
+//   accumulator's columns (queries): the threads stage them per query
+//   tile in shared memory, loading the next stage's under the products.
+// * dQ: S = Q K^T and dP = dO V^T as m64n64k16, then dQ += dS K with dS
+//   from registers and the K tile as MN-major B. The Q and dO tiles load
+//   once; the (K, V) tiles go through the ring.
+// * Loads are TMA copies over 4-D tensor maps (D, S, heads, batch) built
+//   on the host per call and passed as __grid_constant__, so a launch
+//   recorded into a CUDA graph carries them by value; rows past S arrive
+//   as zeros. Thread 0 issues every load; a stage is refilled once every
+//   warp is done with it.
+// * P = exp2(S * scale * log2 e - lse * log2 e), with lse read in natural
+//   log units as the forward writes it (+inf in place of -inf, so P = 0).
+//   P and dS are rounded to bf16 before the products that take them as A,
+//   the one deliberate difference from the reference, as in the forward;
+//   accumulators, lse, D and the exp stay float32. The element mask runs
+//   only on tiles that straddle the diagonal, a window edge or the
+//   sequence end.
+// * The longest causal walks start first (key tile 0 for dK/dV, the last
+//   query tile for dQ), heads innermost, as the forward orders its grid.
+// * dQ, dK and dV go out through shared memory as 16-byte stores.
+// * What holds it below the tensor-core rate: each block waits on each
+//   product group before the next (the elementwise step between them does
+//   not overlap its own products), and at D = 128 the dK and dV
+//   accumulators take 128 of a thread's registers.
+//
+// float32: `dkdv_kernel` and `dq_kernel`, on the CUDA cores (the
+// reference's float32 tolerance rules out TF32). Each product is a 64 x 64
+// tile per block, each of 256 threads holding a 4 x 4 register tile (and
+// 4 rows x D / 16 columns of each accumulator), operands staged in shared
+// memory as float32, transposed to [d][row] with rows padded to 68 floats
+// so that a thread reads four rows with one 16-byte load.
 //
 // Inputs: q (B, Hq, S, D), k and v (B, Hkv, S, D), dO (B, Hq, S, D), each
 // with element strides over batch, head and position and a contiguous head
-// dim; O a contiguous (B, Hq, S, D); lse a contiguous float32 (B, Hq, S).
-// Float32 or bfloat16, all of one type; head dims 16, 32, 64, 128.
-// Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in the
-// input type, each written once (no atomics), and the float32 workspace D
-// (B, Hq, S).
+// dim (bf16: 16-byte aligned bases and strides, which TMA needs; the
+// wrapper checks); O a contiguous (B, Hq, S, D); lse a contiguous float32
+// (B, Hq, S). Float32 or bfloat16, all of one type; head dims 16, 32, 64,
+// 128. Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in
+// the input type, each written once (no atomics), and the float32
+// workspace D (B, Hq, S).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -84,9 +129,6 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Whether query row `row` attends key `col`, as the forward masks.
 __device__ __forceinline__ bool attends(const Args& a, int64_t row,
@@ -370,12 +412,6 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, int D>
 int launch(const Args& a, int64_t batch, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
@@ -402,14 +438,482 @@ int launch(const Args& a, int64_t batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dims(const Args& a, int64_t batch, int64_t d, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, batch, s);
-    case 32: return launch<T, 32>(a, batch, s);
-    case 64: return launch<T, 64>(a, batch, s);
-    case 128: return launch<T, 128>(a, batch, s);
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernels.
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of a tensor-core block: two resident 64-row tiles and a
+// ring of STAGES stages of two tiles, from a 1024-byte boundary (the
+// swizzle's period). The outputs are staged over the tiles at the end, in
+// rows padded to D + 8 values.
+template <int D>
+struct Bwd {
+  static constexpr int TILE = Tiles<D>::Q_TILE;  // 64 rows x D bf16
+  static constexpr int STAGES = 2;
+  static constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * (size_t)TILE;
+  static constexpr int OUT_ROW = (D + 8) * 2;
+  static_assert(2 * 64 * OUT_ROW <= (2 + 2 * STAGES) * TILE,
+                "dK and dV staging fits over the tiles");
+};
+
+// Row `row`'s lse in log2 units, +inf where it has nothing to attend to
+// (lse = -inf) or lies past the sequence: exp2(s - inf) = 0, so P = 0.
+__device__ __forceinline__ float lse_log2(const Args& a, int64_t base,
+                                          int64_t row) {
+  if (row >= a.seq) return INFINITY;
+  const float l = a.lse[base + row];
+  return l == -INFINITY ? INFINITY : l * LOG2E;
+}
+
+// P and dS of one 64 x 64 tile in this thread's accumulator fragments, in
+// place: s (scores) becomes P, dp becomes dS = P (dP - D). Fragment
+// element i is (row r0 + 8 * ((i >> 1) & 1), column c0 + 8 * (i >> 2) +
+// (i & 1)). KEY_ROWS (dK/dV): rows are keys and columns queries, whose
+// lse2 and D are read at column offset 8 * (i >> 2) + (i & 1) of `lse2`
+// and `del`; else rows are queries, with lse2[r] and del[r] for r = 0, 1.
+template <bool KEY_ROWS, bool MASK>
+__device__ __forceinline__ void frag_probs_and_dscores(
+    const Args& a, float* s, float* dp, int64_t r0, int64_t c0,
+    const float* lse2, const float* del, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hi = (i >> 1) & 1;
+    const int cc = 8 * (i >> 2) + (i & 1);
+    const float l = KEY_ROWS ? lse2[cc] : lse2[hi];
+    const float dd = KEY_ROWS ? del[cc] : del[hi];
+    float p = exp2f(s[i] * scale_log2 - l);
+    if (MASK) {
+      const int64_t row = r0 + 8 * hi;
+      const int64_t col = c0 + cc;
+      if (!(KEY_ROWS ? attends(a, col, row) : attends(a, row, col)))
+        p = 0.0f;
+    }
+    s[i] = p;
+    dp[i] = p * (dp[i] - dd);
   }
+}
+
+// Packs a 64 x 64 accumulator fragment into the bf16 A-operand fragments
+// of the next product (pair by pair, as the forward packs P).
+__device__ __forceinline__ void pack_frags(const float* x, uint32_t (*f)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// Writes this thread's rows of a 64 x D accumulator, times `mul`, as bf16
+// into the padded staging rows at `out_s` (row lr + 8 r, its columns).
+template <int D>
+__device__ __forceinline__ void stage_out(uint8_t* out_s, const float* acc,
+                                          float mul, int lr, int c_lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out_s + (lr + 8 * r) * Bwd<D>::OUT_ROW + (8 * c + c_lane) * 2) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul,
+                                acc[4 * c + 2 * r + 1] * mul);
+}
+
+// Copies the staged 64-row outputs (one at out_s for out0, and with out1
+// a second after it) to rows row0 .. row0 + 63 (those below `seq`) of
+// contiguous (S, D) bf16 matrices, 16 bytes at a time.
+template <int D>
+__device__ __forceinline__ void store_out(const uint8_t* out_s,
+                                          __nv_bfloat16* out0,
+                                          __nv_bfloat16* out1, int64_t row0,
+                                          int64_t seq) {
+  constexpr int CHUNKS = D / 8;  // 16-byte pieces per row
+  const int n_out = out1 == nullptr ? 1 : 2;
+  for (int idx = threadIdx.x; idx < n_out * 64 * CHUNKS; idx += 128) {
+    const int which = idx / (64 * CHUNKS);
+    const int row = idx / CHUNKS % 64;
+    const int c = idx % CHUNKS;
+    __nv_bfloat16* dst = which ? out1 : out0;
+    if (row0 + row < seq)
+      *reinterpret_cast<uint4*>(
+          reinterpret_cast<uint8_t*>(dst + (row0 + row) * D) + c * 16) =
+          *reinterpret_cast<const uint4*>(
+              out_s + (which * 64 + row) * Bwd<D>::OUT_ROW + c * 16);
+  }
+}
+
+// 2. dK and dV of one 64-key tile of kv head (b, hk), on the tensor
+// cores. A 1-D grid: key tile 0 (the longest causal walk) of every
+// (batch, kv head) first. Iteration j of the walk is query tile
+// qt_begin + j % n_q of query head hk * qpk + j / n_q; its Q and dO tiles
+// sit in ring stage j % 2, its lse2 and D in stats[j % 2], which thread t
+// fills (t < 64: lse2 of query t, else D of query t - 64) for iteration
+// j + 2 once every warp is done with iteration j.
+template <int D>
+__global__ void __launch_bounds__(128)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, Args a) {
+  using B = Bwd<D>;
+  constexpr int TILE = B::TILE;
+  constexpr int STAGES = B::STAGES;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];
+  __shared__ __align__(16) float stats[STAGES][2][64];
+  const uint32_t k_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t v_tile = k_tile + TILE;
+  auto q_tile = [&](int st) { return v_tile + TILE + 2 * st * TILE; };
+  const uint32_t kv_bar = smem_u32(&bars[0]);
+  auto bar = [&](int st) { return smem_u32(&bars[1 + st]); };
+
+  const int64_t n_kt = (a.seq + 63) / 64;
+  const int64_t bhkv = gridDim.x / n_kt;
+  const int64_t bk = blockIdx.x % bhkv;
+  const int64_t k0 = blockIdx.x / bhkv * 64;
+  const int b = (int)(bk / a.hkv);
+  const int hk = (int)(bk % a.hkv);
+  const int64_t k_last = (k0 + 64 < a.seq ? k0 + 64 : a.seq) - 1;
+  // the query tiles that see a key of this tile
+  const int64_t qt_begin = a.causal ? k0 / 64 : 0;
+  int64_t qt_end = n_kt;
+  if (a.window >= 0) {
+    const int64_t last = (k_last + a.window - 1) / 64 + 1;
+    qt_end = last < n_kt ? last : n_kt;
+  }
+  const int64_t n_q = qt_end > qt_begin ? qt_end - qt_begin : 0;
+  const int n = (int)(a.qpk * n_q);
+  auto head = [&](int j) { return (int)(hk * a.qpk + j / n_q); };
+  auto q0_of = [&](int j) { return (qt_begin + j % n_q) * 64; };
+  auto stat = [&](int j, int t) {
+    const int64_t base = ((int64_t)b * a.hq + head(j)) * a.seq;
+    const int64_t row = q0_of(j) + (t & 63);
+    if (t < 64) return lse_log2(a, base, row);
+    return row < a.seq ? a.delta[base + row] : 0.0f;
+  };
+
+  const int tid = threadIdx.x;
+  for (int j = 0; j < STAGES && j < n; ++j)
+    stats[j][tid >> 6][tid & 63] = stat(j, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * TILE);
+    load_tile<D>(k_tile, &tk, (int)k0, hk, b, kv_bar);
+    load_tile<D>(v_tile, &tv, (int)k0, hk, b, kv_bar);
+    for (int j = 0; j < STAGES && j < n; ++j) {
+      mbar_expect_tx(bar(j), 2 * TILE);
+      load_tile<D>(q_tile(j), &tq, (int)q0_of(j), head(j), b, bar(j));
+      load_tile<D>(q_tile(j) + TILE, &tdo, (int)q0_of(j), head(j), b,
+                   bar(j));
+    }
+  }
+
+  const int lane = tid & 31;
+  const int lr = 16 * (tid >> 5) + (lane >> 2);  // key rows lr, lr + 8
+  const int c_lane = 2 * (lane & 3);
+  const float scale_log2 = a.scale * LOG2E;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t pf[4][4], dsf[4][4];
+
+  mbar_wait(kv_bar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int st = j % STAGES;
+    const uint32_t parity = (uint32_t)(j / STAGES) & 1u;
+    const int64_t q0 = q0_of(j);
+    const bool refill = j + STAGES < n;
+    const float next = refill ? stat(j + STAGES, tid) : 0.0f;
+    const uint32_t qs = q_tile(st);
+    mbar_wait(bar(st), parity);
+    issue_scores<D>(s, k_tile, qs);          // S^T = K Q^T
+    issue_scores<D>(dp, v_tile, qs + TILE);  // dP^T = V dO^T
+    wgmma_wait_all();
+    reg_fence<32>(s);
+    reg_fence<32>(dp);
+    const int64_t q_hi = (q0 + 64 < a.seq ? q0 + 64 : a.seq) - 1;
+    const float* l2 = &stats[st][0][c_lane];
+    const float* dl = &stats[st][1][c_lane];
+    if (q0 + 64 > a.seq || k0 + 64 > a.seq || (a.causal && k0 + 63 > q0) ||
+        (a.window >= 0 && k0 <= q_hi - a.window))
+      frag_probs_and_dscores<true, true>(a, s, dp, k0 + lr, q0 + c_lane, l2,
+                                         dl, scale_log2);
+    else
+      frag_probs_and_dscores<true, false>(a, s, dp, k0 + lr, q0 + c_lane,
+                                          l2, dl, scale_log2);
+    pack_frags(s, pf);
+    pack_frags(dp, dsf);
+    issue_values<D>(dv, pf, qs + TILE);  // dV += P^T dO
+    issue_values<D>(dk, dsf, qs);        // dK += dS^T Q
+    wgmma_wait_all();
+    reg_fence<D / 2>(dv);
+    reg_fence<D / 2>(dk);
+    __syncthreads();  // every warp is done with stage st and its stats
+    if (refill) {
+      stats[st][tid >> 6][tid & 63] = next;
+      if (tid == 0) {
+        const int jn = j + STAGES;
+        mbar_expect_tx(bar(st), 2 * TILE);
+        load_tile<D>(qs, &tq, (int)q0_of(jn), head(jn), b, bar(st));
+        load_tile<D>(qs + TILE, &tdo, (int)q0_of(jn), head(jn), b, bar(st));
+      }
+    }
+  }
+
+  // dK = scale * dS^T Q, dV as summed, through padded rows over the tiles
+  // (every load has landed and every product has read its tiles).
+  uint8_t* out_s = dyn + (k_tile - smem_u32(dyn));
+  __syncthreads();
+  stage_out<D>(out_s, dk, a.scale, lr, c_lane);
+  stage_out<D>(out_s + 64 * B::OUT_ROW, dv, 1.0f, lr, c_lane);
+  __syncthreads();
+  store_out<D>(out_s, (__nv_bfloat16*)a.dk + bk * a.seq * D,
+               (__nv_bfloat16*)a.dv + bk * a.seq * D, k0, a.seq);
+}
+
+// 3. dQ of one 64-query tile of head (b, h), on the tensor cores. A 1-D
+// grid: the last query tile (the longest causal walk) of every (batch,
+// head) first. The K and V tiles of the key tiles it walks go through the
+// ring.
+template <int D>
+__global__ void __launch_bounds__(128)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, Args a) {
+  using B = Bwd<D>;
+  constexpr int TILE = B::TILE;
+  constexpr int STAGES = B::STAGES;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];
+  const uint32_t q_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t do_tile = q_tile + TILE;
+  auto k_tile = [&](int st) { return do_tile + TILE + 2 * st * TILE; };
+  const uint32_t qd_bar = smem_u32(&bars[0]);
+  auto bar = [&](int st) { return smem_u32(&bars[1 + st]); };
+
+  const int64_t n_qt = (a.seq + 63) / 64;
+  const int64_t bhq = gridDim.x / n_qt;
+  const int64_t bh = blockIdx.x % bhq;
+  const int64_t q0 = (n_qt - 1 - blockIdx.x / bhq) * 64;
+  const int b = (int)(bh / a.hq);
+  const int h = (int)(bh % a.hq);
+  const int hk = (int)(h / a.qpk);
+  const int64_t q_last = (q0 + 64 < a.seq ? q0 + 64 : a.seq) - 1;
+  // the key tiles the forward visits (flash_attention.cu, key_tiles)
+  const int64_t kt_end = a.causal ? q_last / 64 + 1 : (a.seq + 63) / 64;
+  int64_t kt_begin = 0;
+  if (a.window >= 0) {
+    const int64_t first = q0 - a.window + 1;  // least key row q0 keeps
+    kt_begin = first > 0 ? first / 64 : 0;
+  }
+  const int n = (int)(kt_end - kt_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qd_bar, 2 * TILE);
+    load_tile<D>(q_tile, &tq, (int)q0, h, b, qd_bar);
+    load_tile<D>(do_tile, &tdo, (int)q0, h, b, qd_bar);
+    for (int j = 0; j < STAGES && j < n; ++j) {
+      const int kn = (int)((kt_begin + j) * 64);
+      mbar_expect_tx(bar(j), 2 * TILE);
+      load_tile<D>(k_tile(j), &tk, kn, hk, b, bar(j));
+      load_tile<D>(k_tile(j) + TILE, &tv, kn, hk, b, bar(j));
+    }
+  }
+
+  const int lane = tid & 31;
+  const int lr = 16 * (tid >> 5) + (lane >> 2);  // query rows lr, lr + 8
+  const int c_lane = 2 * (lane & 3);
+  const float scale_log2 = a.scale * LOG2E;
+  const int64_t base = bh * a.seq;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = q0 + lr + 8 * r;
+    lse2[r] = lse_log2(a, base, row);
+    del[r] = row < a.seq ? a.delta[base + row] : 0.0f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t dsf[4][4];
+
+  mbar_wait(qd_bar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int st = j % STAGES;
+    const uint32_t parity = (uint32_t)(j / STAGES) & 1u;
+    const int64_t k0 = (kt_begin + j) * 64;
+    const uint32_t ks = k_tile(st);
+    mbar_wait(bar(st), parity);
+    issue_scores<D>(s, q_tile, ks);          // S = Q K^T
+    issue_scores<D>(dp, do_tile, ks + TILE);  // dP = dO V^T
+    wgmma_wait_all();
+    reg_fence<32>(s);
+    reg_fence<32>(dp);
+    if (k0 + 64 > a.seq || (a.causal && k0 + 63 > q0) ||
+        (a.window >= 0 && k0 <= q_last - a.window))
+      frag_probs_and_dscores<false, true>(a, s, dp, q0 + lr, k0 + c_lane,
+                                          lse2, del, scale_log2);
+    else
+      frag_probs_and_dscores<false, false>(a, s, dp, q0 + lr, k0 + c_lane,
+                                           lse2, del, scale_log2);
+    pack_frags(dp, dsf);
+    issue_values<D>(dq, dsf, ks);  // dQ += dS K
+    wgmma_wait_all();
+    reg_fence<D / 2>(dq);
+    if (j + STAGES < n) {
+      __syncthreads();  // every warp is done with stage st
+      if (tid == 0) {
+        const int kn = (int)(k0 + STAGES * 64);
+        mbar_expect_tx(bar(st), 2 * TILE);
+        load_tile<D>(ks, &tk, kn, hk, b, bar(st));
+        load_tile<D>(ks + TILE, &tv, kn, hk, b, bar(st));
+      }
+    }
+  }
+
+  // dQ = scale * dS K through padded rows over the tiles, once every warp
+  // is done with them.
+  uint8_t* out_s = dyn + (q_tile - smem_u32(dyn));
+  __syncthreads();
+  stage_out<D>(out_s, dq, a.scale, lr, c_lane);
+  __syncthreads();
+  store_out<D>(out_s, (__nv_bfloat16*)a.dq + bh * a.seq * D, nullptr, q0,
+               a.seq);
+}
+
+// One 64-row tile of each product of the dK/dV kernel, through the same
+// loads, descriptors and fragments: st = k q^T (64 x 64: K as A, Q as
+// K-major B), then with P = st rounded to bf16 and packed from the
+// accumulator as the A operand, pd = P do and pq = P q (64 x D: dO and Q
+// as MN-major B); float32, row-major. For testing the layouts on the card.
+template <int D>
+__global__ void __launch_bounds__(128)
+    bwd_tile_products_kernel(const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             float* st_out, float* pd_out, float* pq_out) {
+  constexpr int TILE = Bwd<D>::TILE;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bar_mem;
+  const uint32_t k_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t q_tile = k_tile + TILE;
+  const uint32_t do_tile = q_tile + TILE;
+  const uint32_t bar = smem_u32(&bar_mem);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 3 * TILE);
+    load_tile<D>(k_tile, &tk, 0, 0, 0, bar);
+    load_tile<D>(q_tile, &tq, 0, 0, 0, bar);
+    load_tile<D>(do_tile, &tdo, 0, 0, 0, bar);
+  }
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);
+  const int c_lane = 2 * (lane & 3);
+  mbar_wait(bar, 0);
+  float s[32];
+  issue_scores<D>(s, k_tile, q_tile);
+  wgmma_wait_all();
+  reg_fence<32>(s);
+  uint32_t pf[4][4];
+  pack_frags(s, pf);
+  float pd[D / 2], pq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) pd[i] = pq[i] = 0.0f;
+  issue_values<D>(pd, pf, do_tile);
+  issue_values<D>(pq, pf, q_tile);
+  wgmma_wait_all();
+  reg_fence<D / 2>(pd);
+  reg_fence<D / 2>(pq);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    st_out[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + c_lane + (i & 1)] =
+        s[i];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    const int at = (r0 + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c_lane +
+                   (i & 1);
+    pd_out[at] = pd[i];
+    pq_out[at] = pq[i];
+  }
+}
+
+template <int D>
+int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
+  using B = Bwd<D>;
+  static bool configured = false;
+  if (!configured) {
+    int err = set_smem(dkdv_wgmma_kernel<D>, B::SMEM);
+    if (!err) err = set_smem(dq_wgmma_kernel<D>, B::SMEM);
+    if (err) return err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map<D>(&tq, a.q, a.seq, a.hq, batch, a.qss, a.qsh, a.qsb) ||
+      !make_map<D>(&tk, a.k, a.seq, a.hkv, batch, a.kss, a.ksh, a.ksb) ||
+      !make_map<D>(&tv, a.v, a.seq, a.hkv, batch, a.vss, a.vsh, a.vsb) ||
+      !make_map<D>(&tdo, a.dout, a.seq, a.hq, batch, a.dss, a.dsh, a.dsb))
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows = batch * a.hq * a.seq;
+  const unsigned warps = THREADS / 32;
+  delta_kernel<__nv_bfloat16><<<(unsigned)((rows + warps - 1) / warps),
+                                THREADS, 0, stream>>>(a, rows, D);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t tiles = (a.seq + 63) / 64;
+  dkdv_wgmma_kernel<D><<<(unsigned)(tiles * batch * a.hkv), 128, B::SMEM,
+                         stream>>>(tq, tk, tv, tdo, a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  dq_wgmma_kernel<D><<<(unsigned)(tiles * batch * a.hq), 128, B::SMEM,
+                       stream>>>(tq, tk, tv, tdo, a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tile_products(const void* k, const void* q, const void* dout,
+                         void* st_out, void* pd_out, void* pq_out,
+                         cudaStream_t stream) {
+  constexpr size_t bytes = 1024 + 3 * (size_t)Bwd<D>::TILE;
+  static bool configured = false;
+  if (!configured) {
+    const int err = set_smem(bwd_tile_products_kernel<D>, bytes);
+    if (err) return err;
+    configured = true;
+  }
+  CUtensorMap tk, tq, tdo;
+  if (!make_map<D>(&tk, k, 64, 1, 1, D, 0, 0) ||
+      !make_map<D>(&tq, q, 64, 1, 1, D, 0, 0) ||
+      !make_map<D>(&tdo, dout, 64, 1, 1, D, 0, 0))
+    return (int)cudaErrorInvalidValue;
+  bwd_tile_products_kernel<D><<<1, 128, bytes, stream>>>(
+      tk, tq, tdo, (float*)st_out, (float*)pd_out, (float*)pq_out);
+  return (int)cudaGetLastError();
+}
+
+// Float32 through the CUDA-core kernels, bfloat16 through the tensor-core
+// ones.
+template <int D>
+int launch_type(const Args& a, int64_t batch, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch<float, D>(a, batch, s);
+  if (dtype == 1) return launch_bf16<D>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -438,8 +942,35 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
          qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, dsb, dsh, dss,
          hq, hkv, hq / hkv, seq, window, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dims<float>(a, batch, d, s);
-  if (dtype == 1) return launch_dims<__nv_bfloat16>(a, batch, d, s);
+  switch (d) {
+    case 16: return launch_type<16>(a, batch, dtype, s);
+    case 32: return launch_type<32>(a, batch, dtype, s);
+    case 64: return launch_type<64>(a, batch, dtype, s);
+    case 128: return launch_type<128>(a, batch, dtype, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One tile of each bf16 product of the dK/dV kernel through its loads and
+// wgmma layouts: k, q, dout contiguous (64, d) bf16; st_out = k q^T
+// (64, 64), pd_out = bf16(st) dout and pq_out = bf16(st) q (64, d),
+// float32.
+int flash_attention_bwd_tile_products(const void* k, const void* q,
+                                      const void* dout, void* st_out,
+                                      void* pd_out, void* pq_out, int64_t d,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 16:
+      return launch_tile_products<16>(k, q, dout, st_out, pd_out, pq_out, s);
+    case 32:
+      return launch_tile_products<32>(k, q, dout, st_out, pd_out, pq_out, s);
+    case 64:
+      return launch_tile_products<64>(k, q, dout, st_out, pd_out, pq_out, s);
+    case 128:
+      return launch_tile_products<128>(k, q, dout, st_out, pd_out, pq_out,
+                                       s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,11 +19,16 @@ nothing to attend to), which the backward needs.
 The backward has no Pallas kernel to replace (the reference differentiates
 its plain attention): :func:`flash_attention_bwd_cuda` launches the
 hand-written ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV from q, k, v, the
-output, its log-sum-exp and dO), and :func:`flash_attention_bwd_plain` is
-the same function in plain PyTorch.
+output, its log-sum-exp and dO; bfloat16 on the tensor cores through the
+forward's ``wgmma`` and TMA building blocks in ``csrc/hopper_tiles.cuh``,
+P and dS rounded to bfloat16 before the products that take them, float32
+on the CUDA cores), and :func:`flash_attention_bwd_plain` is the same
+function in plain PyTorch.
 
-:func:`tile_products_cuda` runs one tile of each bfloat16 product through
-the kernel's loads and ``wgmma`` layouts, for testing them on the card.
+:func:`tile_products_cuda` runs one tile of each bfloat16 product of the
+forward through its loads and ``wgmma`` layouts, and
+:func:`bwd_tile_products_cuda` those of the backward's dK/dV kernel, for
+testing them on the card.
 :data:`LAUNCHES` counts forward launches, :data:`LAUNCHES_BWD` backward
 calls (three CUDA launches each: the row sums of dO·O, dK and dV, dQ).
 """
@@ -143,14 +148,18 @@ def _bwd_lib():
     return fn
 
 
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether bfloat16 ``t`` suits the tensor-core kernels' TMA loads: a
+    16-byte aligned base, and batch, head and position strides in multiples
+    of 8 elements (16 bytes) wherever that dimension has more than one
+    entry."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 def check_tma_alignment(name: str, t: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless bfloat16 ``t`` suits the tensor-core
-    kernel's TMA loads: a 16-byte aligned base, and batch, head and
-    position strides in multiples of 8 elements (16 bytes) wherever that
-    dimension has more than one entry."""
-    bad = [st for st, n in zip(t.stride()[:3], t.shape[:3])
-           if n > 1 and st % 8]
-    if t.data_ptr() % 16 or bad:
+    """Raise ``ValueError`` unless bfloat16 ``t`` is :func:`tma_aligned`."""
+    if not tma_aligned(t):
         raise ValueError(f"flash_attention kernel needs bfloat16 {name} "
                          f"with a 16-byte aligned base and strides in "
                          f"multiples of 8 elements, got base "
@@ -223,7 +232,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     contiguous tensors in q's dtype. q, k, v and ``do`` may have any
     strides over batch, head and position but a contiguous head dim; ``o``
     (the forward's output) must be contiguous and ``lse`` a contiguous
-    float32 ``(B, Hq, S)``. Anything else raises."""
+    float32 ``(B, Hq, S)``. bfloat16 q, k, v, o and ``do`` must be aligned
+    as :func:`check_tma_alignment` says. Anything else raises."""
     global LAUNCHES_BWD
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v), ("o", o),
@@ -233,6 +243,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"a do of q's shape {tuple(q.shape)}, got "
                          f"{tuple(o.shape)} (contiguous: "
                          f"{o.is_contiguous()}) and {tuple(do.shape)}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            check_tma_alignment(name, t)
     b, hq, s, d = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, s)
             or not lse.is_contiguous() or lse.device != q.device):
@@ -285,3 +298,37 @@ def tile_products_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention tile products")
     return s, o
+
+
+def bwd_tile_products_cuda(k: torch.Tensor, q: torch.Tensor,
+                           do: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """One 64-row tile of each bfloat16 product of the backward's dK/dV
+    kernel, through its TMA loads, shared-memory layouts and ``wgmma``
+    fragments: ``st = k @ q.T`` (K as A, Q as K-major B), then with ``p``
+    = st rounded to bfloat16 and packed from the accumulator as the A
+    operand, ``(st, p @ do, p @ q)`` (dO and Q as MN-major B), in float32,
+    for contiguous bfloat16 CUDA tensors k, q, do ``(64, D)``. A test of
+    the layouts on the card; it does not count in :data:`LAUNCHES_BWD`."""
+    d = q.shape[-1]
+    for name, t in (("k", k), ("q", q), ("do", do)):
+        if (tuple(t.shape) != (64, d) or t.dtype != torch.bfloat16
+                or t.device.type != "cuda" or not t.is_contiguous()):
+            raise ValueError(f"bwd_tile_products_cuda needs contiguous "
+                             f"bfloat16 CUDA {name} of shape {(64, d)}, "
+                             f"got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dims {HEAD_DIMS}, got {d}")
+    st = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    pd = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    pq = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_tile_products
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(k.data_ptr(), q.data_ptr(), do.data_ptr(), st.data_ptr(),
+            pd.data_ptr(), pq.data_ptr(), d,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd tile products")
+    return st, pd, pq

@@ -7,15 +7,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_plain)
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_plain,
+    tma_aligned)
+
+
+def backward_operand(do: torch.Tensor) -> torch.Tensor:
+    """``do`` as the backward kernel takes it: ``do`` itself when its head
+    dim is contiguous and, in bfloat16, it is :func:`~.kernel.tma_aligned`;
+    else a new contiguous copy (whose base the allocator aligns)."""
+    if do.stride(-1) == 1 and (do.dtype != torch.bfloat16
+                               or tma_aligned(do)):
+        return do
+    return do.clone(memory_format=torch.contiguous_format)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention on CUDA tensors with a hand-written backward: the forward
     kernel also writes each row's log-sum-exp, and the backward kernel
-    recomputes P from it (``flash_attention_bwd_cuda``). dO is made
-    contiguous first if autograd hands over a strided view whose head dim
-    is not contiguous."""
+    recomputes P from it (``flash_attention_bwd_cuda``). dO goes through
+    :func:`backward_operand` first, since autograd may hand over a view
+    the kernel cannot load as it lies."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -30,9 +41,8 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.attrs
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                              backward_operand(do),
                                               causal=causal, window=window,
                                               scale=scale)
         return dq, dk, dv, None, None, None

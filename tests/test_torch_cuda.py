@@ -28,9 +28,11 @@ largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
 beside float32 w, strided inputs, its first pass's chunk-start states
 against the plain first pass at the same bound, and the reduced RWKV-6
 model served against the CPU. ``-k rwkv`` runs the scan's tests alone.
-Training (``-k "backward or train or grad"``): the attention backward
-kernel against its plain version (float32 within 1e-4, bfloat16 within
-2e-2 of the largest |want|) and through autograd, ``loss.backward()``
+Training (``-k "backward or train or grad or bwd"``): the attention
+backward kernel against its plain version (float32 within 1e-4, bfloat16
+within 2e-2 of the largest |want|) and through autograd, its bfloat16
+tile products against torch.matmul (as the forward's), its alignment
+checks, ``loss.backward()``
 through the dense forward against the plain attention's gradients, RWKV-6
 training raising, and the captured DP train step against the eager
 steps at the reference's tolerances.
@@ -631,7 +633,9 @@ def test_health_captured_decode_step_under_failed_link(dev):
 @pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 15, 5, 512, 64),
                                           (1, 4, 2, 200, 32),
                                           (1, 2, 1, 130, 128),
-                                          (2, 8, 2, 77, 16)])
+                                          (2, 8, 2, 77, 16),
+                                          (1, 4, 4, 64, 32),
+                                          (1, 4, 2, 65, 128)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
                                            (False, None), (False, 48)])
 def test_flash_attention_backward_matches_plain(dev, dtype, b, hq, hkv, s, d,
@@ -660,6 +664,35 @@ def test_flash_attention_backward_matches_plain(dev, dtype, b, hq, hkv, s, d,
         assert (x.float() - y.float()).abs().max().item() <= tol * top
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 2, 1, 1, 64, True, None), (1, 2, 1, 1, 64, False, None),
+    (1, 4, 2, 65, 128, True, 1), (2, 8, 2, 77, 16, True, 1)])
+def test_flash_attention_backward_rows_that_attend_one_key(dev, dtype, b,
+                                                           hq, hkv, s, d,
+                                                           causal, window):
+    """Every row attends only its own key (one position, or a causal
+    window of 1): P = 1, so dV = dO summed over the grouped heads, held
+    to the plain version within 1e-4 (float32) or 2e-2 (bfloat16) of
+    the largest |want|, and dS = dO·v − dO·o = 0, so dQ and dK are zero
+    up to the rounding of dP against D (within 1e-5 absolute)."""
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = ((torch.randn(b, h, s, d, generator=g, device=dev) * sc
+                ).to(dtype) for h, sc in ((hq, 0.5), (hkv, 0.5), (hkv, 1.0)))
+    do = torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+    o, lse = fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    dq, dk, dv = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window)[2]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    top = want.float().abs().max().item()
+    assert (dv.float() - want.float()).abs().max().item() <= tol * top
+    for x in (dq, dk):
+        assert x.float().abs().max().item() <= 1e-5
+
+
 def test_flash_attention_fn_matches_autograd_of_plain(dev):
     """Through ``ops.flash_attention`` with grad: the kernel's backward,
     with a strided q and a strided dO, against autograd of the plain
@@ -685,6 +718,53 @@ def test_flash_attention_fn_matches_autograd_of_plain(dev):
         assert (x - y).abs().max().item() <= 1e-4 * top
     with torch.no_grad():
         assert flash_attention(qt, k, v).grad_fn is None
+
+
+@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+def test_flash_attention_bwd_tile_products_match_matmul(dev, d):
+    """One tile of each operand role of the backward's dK/dV kernel through
+    its TMA loads, swizzled layouts and wgmma fragments against
+    torch.matmul in float32: Sᵀ = K·Qᵀ (K as A, Q as K-major B), then Sᵀ
+    rounded to bfloat16 from the accumulator as the A operand of Sᵀ·dO and
+    Sᵀ·Q (dO and Q as MN-major B). Products of bfloat16 values are exact,
+    so only the order of the float32 sums differs; a layout fault gives
+    errors of order 1."""
+    g = torch.Generator(device=dev).manual_seed(100 + d)
+    k, q, do = (torch.randn(64, d, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(3))
+    st, pd, pq = fk.bwd_tile_products_cuda(k, q, do)
+    torch.testing.assert_close(st, k.float() @ q.float().T, atol=1e-3,
+                               rtol=1e-4)
+    p = st.to(torch.bfloat16).float()    # the kernel rounds the same floats
+    torch.testing.assert_close(pd, p @ do.float(), atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(pq, p @ q.float(), atol=1e-3, rtol=1e-4)
+
+
+def test_flash_attention_bwd_bf16_alignment(dev):
+    """The bfloat16 backward raises on a misaligned do or o (TMA needs
+    16-byte aligned bases and strides) and never falls back; through
+    ``FlashAttentionFn`` a misaligned dO is copied first and the gradients
+    equal those of an aligned copy."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = ((torch.randn(1, h, 128, 64, generator=g, device=dev) * 0.5
+                ).to(torch.bfloat16) for h in (4, 2, 2))
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True)
+    flat = torch.randn(q.numel() + 1, generator=g, device=dev).to(
+        torch.bfloat16)
+    odd = flat[1:].view(q.shape)
+    before = fk.LAUNCHES_BWD
+    for name, args in (("do", (q, k, v, o, lse, odd)),
+                       ("o", (q, k, v, odd, lse, o))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fk.flash_attention_bwd_cuda(*args)
+    assert fk.LAUNCHES_BWD == before
+    leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves_)
+    got = torch.autograd.grad(out, leaves_, odd, retain_graph=True)
+    want = torch.autograd.grad(out, leaves_, odd.clone())
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def test_dense_backward_gives_attention_the_plain_gradients(dev,

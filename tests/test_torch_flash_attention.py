@@ -8,8 +8,14 @@ numpy from a seed, on both sides. Tolerances are the reference's own
 (``tests/test_kernels.py``): float32 atol 3e-5 / rtol 1e-4 (sums in
 another order), bfloat16 max abs 2e-2 (one rounding of the output). The
 CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+
+The backward's tensor-core kernel rounds P and dS to bfloat16 before the
+products that take them; an emulation of that arithmetic, written here,
+is held to ``jax.vjp`` of the reference's ``blockwise_attention`` within
+the kernel's bound on the card (2e-2 of the largest |want|).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,12 +24,14 @@ import torch
 from repro.comm import StepCapture as JStepCapture
 from repro.kernels.flash_attention import ops as jops
 from repro.kernels.flash_attention import ref as jref
+from repro.models import layers as jl
 
 from repro_torch.carry import tensor_from_numpy
 from repro_torch.comm import StepCapture
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     attention_ref)
 
 SWEEP = [(1, 4, 2, 256, 64), (2, 4, 4, 128, 32), (1, 8, 2, 200, 64),
          (1, 2, 1, 384, 128)]
@@ -207,3 +215,114 @@ def test_tile_products_need_cuda_tensors():
     t = _bf16(64, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fk.tile_products_cuda(t, t, t, t)
+
+
+def test_bwd_tile_products_need_cuda_tensors():
+    t = _bf16(64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.bwd_tile_products_cuda(t, t, t)
+
+
+def test_backward_rejects_cpu_tensors():
+    t = torch.zeros((1, 2, 64, 16), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_bwd_cuda(t, t, t, t, lse, t)
+
+
+@pytest.mark.parametrize("name,make,copied", [
+    ("contiguous bf16", lambda: _bf16(2, 4, 64, 64), False),
+    ("heads-inner bf16 view", lambda: _bf16(2, 64, 4, 32).transpose(1, 2),
+     False),
+    ("bf16 base off by one element",
+     lambda: _bf16(2 * 64 * 64 + 1)[1:].view(1, 2, 64, 64), True),
+    ("bf16 position stride 68", lambda: _bf16(1, 2, 64, 68)[..., :64], True),
+    ("bf16 strided head dim", lambda: _bf16(1, 2, 16, 64).transpose(2, 3),
+     True),
+    ("float32 base off by one element",
+     lambda: torch.zeros(2 * 64 * 64 + 1)[1:].view(1, 2, 64, 64), False),
+    ("float32 strided head dim",
+     lambda: torch.zeros(1, 2, 16, 64).transpose(2, 3), True),
+])
+def test_backward_operand_copies_what_the_kernel_cannot_load(name, make,
+                                                             copied):
+    """``FlashAttentionFn.backward`` hands the kernel ``backward_operand(dO)``:
+    dO itself where the kernel loads it as it lies, else a contiguous copy
+    with the same values, which bfloat16's TMA alignment then accepts."""
+    do = make()
+    do.copy_(torch.arange(do.numel()).reshape(do.shape).to(do.dtype))
+    got = ops.backward_operand(do)
+    assert (got is not do) == copied
+    assert torch.equal(got, do)
+    assert got.stride(-1) == 1
+    if do.dtype == torch.bfloat16:
+        fk.check_tma_alignment("do", got)
+
+
+def _bf16_values(a: np.ndarray) -> torch.Tensor:
+    """float32 holding ``a`` rounded to bfloat16, as the kernel reads it."""
+    return torch.from_numpy(a).to(torch.bfloat16).float()
+
+
+def _kernel_rounding_backward(q, k, v, o, lse, do, *, causal, window,
+                              scale):
+    """The tensor-core backward's arithmetic on float32 tensors that hold
+    bfloat16 values: S, dP, lse, D and the exp in float32, P and dS rounded
+    to bfloat16 before the products that take them as A (P·dO, dS·Q,
+    dS·K), float32 sums, outputs rounded to bfloat16."""
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
+    qpk = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(qpk, dim=1)
+    vv = v.repeat_interleave(qpk, dim=1)
+    log2e = 1.4426950408889634
+    mask = attention_mask(q.shape[2], causal, window)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vv)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    pb, dsb = bf16(p), bf16(ds)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, do)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, q) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kk) * scale
+    b, hkv, sl, d = k.shape
+    dk = dk.reshape(b, hkv, qpk, sl, d).sum(2)
+    dv = dv.reshape(b, hkv, qpk, sl, d).sum(2)
+    return bf16(dq), bf16(dk), bf16(dv)
+
+
+def test_kernel_rounding_within_bound_of_reference_grads():
+    """At path J's heads and length, (2, 15/5, 512, 64) causal: the
+    backward with the kernel's bfloat16 rounding of P and dS stays within
+    2e-2 of the largest |want| of ``jax.vjp`` of the reference's
+    ``blockwise_attention`` (float32, on the same bfloat16 values), the
+    bound the card holds the kernel to."""
+    b, hq, hkv, s, d = 2, 15, 5, 512, 64
+    rng = np.random.RandomState(22)
+    q, k = (_bf16_values(rng.randn(b, h, s, d).astype(np.float32) * 0.5)
+            for h in (hq, hkv))
+    v, do = (_bf16_values(rng.randn(b, h, s, d).astype(np.float32))
+             for h in (hkv, hq))
+    scale = d ** -0.5
+
+    def jf(q_, k_, v_):
+        return jl.blockwise_attention(q_, k_, v_, causal=True, window=None,
+                                      scale=scale, block_k=128)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.numpy()))
+    o, lse = fk.flash_attention_plain(q, k, v, causal=True, scale=scale,
+                                      return_lse=True)
+    o = o.to(torch.bfloat16).float()      # the forward writes bfloat16
+    got = _kernel_rounding_backward(q, k, v, o, lse, do, causal=True,
+                                    window=None, scale=scale)
+    exact = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                         scale=scale)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+        w = torch.from_numpy(np.array(w))
+        top = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        assert top > 0 and err <= 2e-2 * top, (name, err, top)
+        assert not torch.equal(g, x.to(torch.bfloat16).float()), name

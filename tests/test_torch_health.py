@@ -373,6 +373,33 @@ def test_droop_needs_a_calibration_by_default():
         assert mon.observed == 0
 
 
+def test_droop_does_not_judge_captured_steps_with_kernels():
+    """A captured step that runs kernels is not judged: its measured time
+    includes compute the comm model does not price (healthy steps read
+    12-16x on the card), so the port's monitor returns None and keeps no
+    streak, where the reference's quarantines the step's links after
+    ``droop_samples`` such samples. Pure-comm samples over the same link
+    are still judged and quarantine it."""
+    (mon, mod), (jmon, jmod) = _monitors(droop_threshold=2.0,
+                                         droop_samples=3,
+                                         require_calibration=False)
+    routes = _sample(mod, [(0, 1)], 1).routes
+    for m, md in ((mon, mod), (jmon, jmod)):
+        step = md.DispatchSample(routes=routes, nbytes=MiB, num_nodes=1,
+                                 window=1, schedule="round_robin",
+                                 stages=md.StageTimings(execute_ns=int(1e9)),
+                                 fastpath_hit=True,
+                                 compute=(("flash_attention", 1, 0),))
+        for _ in range(3):
+            m.observe(step)
+    assert jmon.planner.quarantined == {(0, 1)}
+    assert mon.observed == 0 and mon.planner.quarantined == frozenset()
+    assert mon.events == []
+    slow = _sample(mod, [(0, 1)], int(1e9))
+    assert all(mon.observe(slow) > 2.0 for _ in range(3))
+    assert mon.planner.quarantined == {(0, 1)}
+
+
 def test_session_droop_rides_the_telemetry_hook():
     """On a session the recorder's ``on_record`` feeds the monitor: with
     calibration required and none attached, healthy traffic is observed
@@ -404,6 +431,32 @@ def test_host_relay_delivers_when_no_device_route():
     assert s["host_relays"] == 1 and s["ladder_level"] == 3
     assert [e["kind"] for e in pair.events][-1] == "host_relay"
     pair.exchange(5, 64, [(0, 1), (1, 0)])             # (1, 0) survives
+
+
+def test_host_relay_probes_so_quarantined_links_come_back():
+    """While every device route is quarantined, sends relay through the
+    host and the monitor still probes on its cadence: after
+    ``probe_healthy`` sweeps the healthy link is readmitted and sends take
+    the device again. The reference's relay does not probe, so its link
+    stays quarantined and every send keeps relaying."""
+    pair = Pair(JTopology.full_mesh(2))
+    for sess in (pair.t, pair.j):
+        sess.monitor.quarantine_link((0, 1), reason="droop")
+    x = np.arange(64, dtype=np.float32)
+    mon = pair.t.monitor
+    rounds = mon.probe_interval * mon.probe_healthy + 1
+    for _ in range(rounds):
+        assert torch.equal(pair.t.send(torch.from_numpy(x), 0, 1),
+                           torch.from_numpy(x))
+        pair.j.send(jnp.asarray(x), 0, 1)
+    assert pair.t.planner.quarantined == frozenset()
+    assert mon.readmissions == 1
+    assert pair.j.planner.quarantined == {(0, 1)}
+    relays = pair.t.stats()["health"]["host_relays"]
+    assert relays < rounds == pair.j.stats()["health"]["host_relays"]
+    pair.t.send(torch.from_numpy(x), 0, 1)
+    assert pair.t.stats()["health"]["host_relays"] == relays
+    assert pair.t.stats()["health"]["ladder_level"] == 0
 
 
 def test_exhausted_ladder_raises_with_history():
