@@ -65,10 +65,12 @@ What it does, in order (any failed check exits nonzero):
    collective's graph replay and ``session.all_gather`` per call, the
    captured Jacobi iteration against the eager one, and
    ``flash_attention`` (bfloat16, causal) at path E's prefill shape (4,
-   32/8, 512, 128) and at path F's (4, 32, 2048, 128), each against its
-   plain version and beside its bound, its plain version and
+   32/8, 512, 128), at path F's (4, 32, 2048, 128), at path K's (4,
+   25/5, 1536, 64, a window of 1024) and at path L's (4, 48/8, 512, 128),
+   each against its plain version (K's and L's also within 2e-2) and
+   beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (the yardstick only; the port never
-   calls it), and ``rwkv6_scan`` at path G's prefill shape (4, 1024, 32,
+   calls it; for K with an explicit boolean window mask), and ``rwkv6_scan`` at path G's prefill shape (4, 1024, 32,
    64, 64) beside its bound and its plain version, with each of its two
    kernels' times and the workspace's bytes (no one PyTorch call
    computes this scan); then everything of paths A–D is freed;
@@ -211,7 +213,41 @@ What it does, in order (any failed check exits nonzero):
     step; a checkpoint save and restore of the 2-layer state, bitwise;
     ``flash_attention``, ``flash_attention_bwd`` and ``multipath_dma``
     each launched;
-16. one JSON line ``{"kernels": [...]}``, then as the last line
+16. main path K, after path J's tensors are freed, counters set to 0
+    before it and read after it: serving Hymba-1.5B at full width and
+    depth (``get_config("hymba_1_5b")``: 32 layers, each attention
+    beside a Mamba mixer, d_model 1600, 25/5 heads of 64, a sliding
+    window of 1024, SSM state 16, d_ff 5504, vocab 32001, bfloat16, about
+    2.8 GB of seeded random weights) with ``ServeEngine(max_len=1568,
+    comm=CommSession())``: 4 requests of 1536/1024/768/512 seeded prompt
+    tokens and 32 new tokens each, greedily, twice, so that the prompt
+    overflows the ring cache of 1024 in prefill and decode wraps it; then
+    a prefill whose cache (keys, values, the float32 SSM state, the conv
+    inputs) ``migrate_kv(cache, 0, 2)`` moves, twice (bitwise, one
+    dispatch each, the second a fast-path hit); ``flash_attention``
+    launched once per layer per prefill; the token and logit checks of
+    path E; the kernel at layer 0's real q/k/v (window 1024) within 4e-3
+    + 8e-3·|want| of its plain version; the Mamba mixer's and its
+    associative scan's time at the prefill's shape beside the prefill
+    replay (their share); a prefill of all but the last 8 positions and 8
+    decode steps (eager, and through the captured programs) against the
+    full prefill's logits within ``HYMBA_DECODE_ATOL``, which a zeroed SSM
+    state and zeroed conv inputs must each exceed; the times of path E;
+17. main path L, after path K's tensors are freed, counters set to 0
+    before it and read after it: serving Mixtral-8x22B at full width
+    over 8 of its 56 layers (d_model 6144, 48/8 heads of 128, 8 experts
+    of d_ff 16384 top-2, a window of 4096, vocab 32768, bfloat16, 40.9 GB
+    of seeded random weights) with ``ServeEngine(max_len=1024,
+    kv_chunks=4)``: path E's 4 requests of 512/384/256/128 tokens, 32 new
+    each, twice, and a prefill; ``flash_attention`` once per layer per
+    prefill; the token and logit checks of path E; the kernel at layer
+    0's real q/k/v; one eager prefill and 8 decode steps with every MoE
+    call's routes counted: each expert's pairs per layer, no pair dropped
+    (dropless); the MoE layer's and its expert products' time at the
+    prefill's shape beside the prefill replay; the tail decode check
+    within ``MIXTRAL_DECODE_ATOL``, which zeroed keys and values must
+    exceed; the times of path E;
+18. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -755,11 +791,13 @@ def comm_paths(dev, randn, errs, per_path, read_path
     return kernels, launch64
 
 
-def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters) -> dict:
-    """``flash_attention`` at one bfloat16 causal shape: the kernel against
-    its plain version (within ``BF16_ATOL + BF16_RTOL * |want|``), then its
-    time beside its bound, the plain version's and SDPA's (the yardstick
-    only; the port never calls it)."""
+def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters,
+                     window: int | None = None) -> dict:
+    """``flash_attention`` at one bfloat16 causal shape, optionally with a
+    sliding ``window``: the kernel against its plain version (within
+    ``BF16_ATOL + BF16_RTOL * |want|``), then its time beside its bound, the plain version's and SDPA's
+    (the yardstick only; the port never calls it; with a window it gets
+    an explicit boolean mask)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -767,51 +805,78 @@ def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters) -> dict:
     q = randn(b, hq, s, d, dtype=torch.bfloat16)
     k = randn(b, hkv, s, d, dtype=torch.bfloat16)
     v = randn(b, hkv, s, d, dtype=torch.bfloat16)
-    want = fk.flash_attention_plain(q, k, v)
-    err, ok = bf16_err(fk.flash_attention_cuda(q, k, v), want)
+    want = fk.flash_attention_plain(q, k, v, window=window)
+    err, ok = bf16_err(fk.flash_attention_cuda(q, k, v, window=window),
+                       want)
     errs["flash_attention"] = max(errs["flash_attention"], err)
-    check(ok, f"flash_attention at ({b}, {hq}/{hkv}, {s}, {d}): max abs err "
-          f"{err}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    check(ok, f"flash_attention at ({b}, {hq}/{hkv}, {s}, {d}) window "
+          f"{window}: max abs err {err}, beyond {BF16_ATOL} + {BF16_RTOL} * "
+          f"|want|")
     kk = k.repeat_interleave(hq // hkv, dim=1)
     vv = v.repeat_interleave(hq // hkv, dim=1)
+    rows = torch.arange(s, device=q.device)
+    if window is None:
+        mask = None
+        flops = 2 * b * hq * s * s * d    # causal: half of 4·B·H·S²·D
+    else:
+        mask = ((rows[None, :] <= rows[:, None])
+                & (rows[None, :] > rows[:, None] - window))
+        # every (query, key) pair the window keeps, 4·D FLOPs each
+        flops = 4 * b * hq * d * int(torch.clamp(rows + 1, max=window).sum())
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+        if mask is None:
+            return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                  scale=d ** -0.5)
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
                                               scale=d ** -0.5)
 
     sdpa_err = (sdpa().float() - want.float()).abs().max().item()
     del want
-    ms = cuda_time_ms(lambda: fk.flash_attention_cuda(q, k, v), 20)
-    plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(q, k, v),
-                            plain_iters, warmup=1)
+    ms = cuda_time_ms(lambda: fk.flash_attention_cuda(q, k, v,
+                                                      window=window), 20)
+    plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(
+        q, k, v, window=window), plain_iters, warmup=1)
     lib_ms = cuda_time_ms(sdpa, 20)
-    flops = 2 * b * hq * s * s * d        # causal: half of 4·B·H·S²·D
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
     rep = "repeat_interleave'd " if hq != hkv else ""
-    print(f"flash_attention ({b}, {hq}/{hkv}, {s}, {d}) bf16 causal: kernel "
-          f"{ms:.4f} ms, bound {bound:.4f} ms ({flops} causal FLOPs at "
-          f"989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = "
-          f"{bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
-          f"{plain_ms:.4f} ms, SDPA on {rep}k/v {lib_ms:.4f} ms "
+    masked = "causal" if window is None else f"causal window {window}"
+    lib = ("" if window is None else
+           ", an explicit boolean window mask")
+    print(f"flash_attention ({b}, {hq}/{hkv}, {s}, {d}) bf16 {masked}: "
+          f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({flops} {masked} "
+          f"FLOPs at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 "
+          f"TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
+          f"{plain_ms:.4f} ms, SDPA on {rep}k/v{lib} {lib_ms:.4f} ms "
           f"({bound / lib_ms:.1%} of bound; max abs diff to plain "
           f"{sdpa_err}); kernel max abs err vs plain {err}", flush=True)
-    return {"shape": [b, hq, hkv, s, d], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
+    return {"shape": [b, hq, hkv, s, d], "window": window, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "max_abs_err": err}
 
 
 def flash_times(randn, errs) -> dict:
     """Phase 9's ``flash_attention`` row: at path E's prefill shape (4
     requests of 512 positions, Llama-3 8B's 32/8 heads of 128, bfloat16,
     causal), and under ``shapes`` also at path F's (4 devices x 32 heads x
-    2048 positions of 128, one KV head per query head)."""
+    2048 positions of 128, one KV head per query head), path K's prefill
+    (Hymba-1.5B: 4 requests of 1536 positions, 25/5 heads of 64, a window
+    of 1024) and path L's (Mixtral-8x22B: 4 of 512, 48/8 heads of 128,
+    causal; its window of 4096 does not bite)."""
     at_e = flash_case_times(randn, errs, 4, 32, 8, 512, 128, plain_iters=5)
     at_f = flash_case_times(randn, errs, 4, 32, 32, 2048, 128,
                             plain_iters=2)
+    at_k = flash_case_times(randn, errs, 4, 25, 5, 1536, 64, plain_iters=2,
+                            window=1024)
+    at_l = flash_case_times(randn, errs, 4, 48, 8, 512, 128, plain_iters=5)
+    for path, case in (("K", at_k), ("L", at_l)):
+        check(case["max_abs_err"] <= 2e-2, f"flash_attention at path "
+              f"{path}'s prefill shape: max abs err {case['max_abs_err']} "
+              f"vs plain, beyond the reference's bf16 2e-2")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -821,7 +886,7 @@ def flash_times(randn, errs) -> dict:
             "library_call": "F.scaled_dot_product_attention(q, "
                             "k.repeat_interleave(4, 1), "
                             "v.repeat_interleave(4, 1), is_causal=True)",
-            "shapes": {"E": at_e, "F": at_f}}
+            "shapes": {"E": at_e, "F": at_f, "K": at_k, "L": at_l}}
 
 
 #: The reference's bound for the RWKV-6 scan: max error relative to the
@@ -1056,7 +1121,8 @@ def program_checks(cfg, engine, toks, outs, path: str) -> None:
 
 
 def serving_times(cfg, engine, sess, toks, logits, cache, new,
-                  gen_s: tuple[float, float], path: str) -> None:
+                  gen_s: tuple[float, float], path: str,
+                  dst: int = 1) -> None:
     """Print a served model's times, in one call: the prefill program's
     replay against the eager ``prefill_forward``; the decode step (``new -
     1`` greedy steps from the end of ``toks``, the argmax included) as the
@@ -1064,8 +1130,8 @@ def serving_times(cfg, engine, sess, toks, logits, cache, new,
     each in turns (CUDA events); each one's device time, op count and idle
     share under the profiler; tokens/s of the second ``generate`` (host
     clock, ``gen_s`` = first and second call); the device memory that the
-    engine's graphs hold; and the migration of ``cache`` (graph replay,
-    whole ``migrate_kv``)."""
+    engine's graphs hold; and, with a session ``sess``, the migration of
+    ``cache`` (graph replay, whole ``migrate_kv``) to device ``dst``."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import make_serve_step
 
@@ -1135,9 +1201,15 @@ def serving_times(cfg, engine, sess, toks, logits, cache, new,
               f"of device time in {n_ops} device ops, {wall:.2f} ms wall; "
               f"idle share vs the unprofiled {ms:.2f} ms: {idle}; top ms: "
               f"{top_ops(rows)}", flush=True)
-    mig = next(iter(sess.engine._fastpath._store.values()))[1]
-    mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
-    mig_call_ms = host_time_ms(lambda: engine.migrate_kv(cache, 0, 1), 5)
+    migration = "no migration"
+    if sess is not None:
+        mig = next(iter(sess.engine._fastpath._store.values()))[1]
+        mig_ms = cuda_time_ms(mig.compiled.program.replay, 10)
+        mig_call_ms = host_time_ms(
+            lambda: engine.migrate_kv(cache, 0, dst), 5)
+        migration = (f"migration of the cache 0->{dst}: graph replay "
+                     f"{mig_ms:.4f} "
+                     f"ms, whole migrate_kv {mig_call_ms:.4f} ms synced")
     gen1_s, gen2_s = gen_s
     held = {f"prefill {key}": p.held_bytes
             for key, p in engine._prefills.items()}
@@ -1155,8 +1227,7 @@ def serving_times(cfg, engine, sess, toks, logits, cache, new,
           f"second call; first {gen1_s:.3f} s, with the captures); the "
           f"engine's graphs hold {engine.graph_bytes() / 2**20:.1f} MiB ("
           f"{', '.join(f'{k} {v / 2**20:.1f}' for k, v in held.items())}); "
-          f"migration of the cache: graph replay {mig_ms:.4f} ms, whole "
-          f"migrate_kv {mig_call_ms:.4f} ms synced", flush=True)
+          f"{migration}", flush=True)
     print(f"peak device memory, path {path}: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
@@ -1170,10 +1241,8 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
     from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.models import layers
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import (Request, ServeEngine,
-                                     make_captured_decode_step)
+    from repro_torch.serving import ServeEngine, make_captured_decode_step
 
     # -- 10. main path E: serving -------------------------------------------
     cfg = get_config("llama3_8b")
@@ -1181,17 +1250,7 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
            cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.dtype)
           == (32, 4096, 32, 8, 128, 14336, 128256, "bfloat16"),
           f"llama3_8b is not the full-width config: {cfg}")
-    t0 = time.perf_counter()
-    params = tfm.init_params(
-        cfg, generator=torch.Generator(device=dev).manual_seed(0),
-        device=dev)
-    torch.cuda.synchronize()
-    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"llama3_8b full width: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}: {wbytes / 1e9:.2f} GB of seeded random weights in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    params = init_model(cfg, dev, "E")
     sess = CommSession()
     engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4, comm=sess)
     tok_gen = torch.Generator().manual_seed(1)
@@ -1199,72 +1258,14 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
                              generator=tok_gen).tolist()
                for n in (512, 384, 256, 128)]
     new = 32
-    plen = max(len(p) for p in prompts)
-    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
-                        device=dev)
-
-    def requests():
-        return [Request(list(p), new) for p in prompts]
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    first = engine.generate(requests())
-    torch.cuda.synchronize()
-    gen1_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    second = engine.generate(requests())
-    torch.cuda.synchronize()
-    gen2_s = time.perf_counter() - t0
-    logits, cache = engine.prefill(toks)
-    moved = engine.migrate_kv(cache, 0, 1)
-    s1 = sess.stats()
-    moved2 = engine.migrate_kv(cache, 0, 1)
-    s2 = sess.stats()
-    torch.cuda.synchronize()
-    read_path("E")
-    outs = [r.out for r in first]
-    check(all(len(o) == new for o in outs)
-          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
-          "generate returned a wrong count or an out-of-range token")
-    check([r.out for r in second] == outs, "a second generate gave other "
-          "tokens")
-    check(per_path["E"].get("flash_attention", 0) == 3 * cfg.num_layers,
-          f"path E launched flash_attention "
-          f"{per_path['E'].get('flash_attention', 0)} times, not once per "
-          f"layer per prefill ({3 * cfg.num_layers})")
-    check(per_path["E"].get("multipath_dma", 0) > 0,
-          "path E did not launch multipath_dma")
-    check(all(torch.equal(moved[k], cache[k])
-              and torch.equal(moved2[k], cache[k]) for k in cache),
-          "migrate_kv is not bitwise equal to the cache")
-    check(s1["dispatches"] == 1 and s2["dispatches"] == 2,
-          f"migrations took {s1['dispatches']}, {s2['dispatches']} "
-          f"dispatches, not one each")
-    check(s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1,
-          "the second migration was not one fast-path hit")
-    cbytes = sum(t.numel() * t.element_size() for t in cache.values())
-    print(f"served {len(prompts)} requests (prompts "
-          f"{[len(p) for p in prompts]}, {new} new tokens each, greedy): "
-          f"tokens in range, a second generate gives the same tokens; "
-          f"first outputs {[o[:4] for o in outs]}; migrate_kv of the "
-          f"{cbytes / 1e6:.1f} MB cache 0->1 bitwise, one dispatch, second "
-          f"one fast-path hit", flush=True)
-    del moved, moved2
+    toks, outs, logits, cache, (gen1_s, gen2_s) = serve_requests(
+        cfg, engine, prompts, new, "E", per_path, read_path, migrate_to=1)
+    plen = toks.shape[1]
     program_checks(cfg, engine, toks, outs, "E")
 
     # the kernel at layer 0's real prefill q/k/v, and the whole prefill on
     # the plain version
-    lp = tfm.layer_params(params, 0)
-    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
-    q, k, v = tfm.attention_qkv(x, lp["attn"], cfg,
-                                torch.arange(plen, device=dev))
-    scale = cfg.head_dim_ ** -0.5
-    err0, ok = bf16_err(fk.flash_attention_cuda(q, k, v, scale=scale),
-                        fk.flash_attention_plain(q, k, v, scale=scale))
-    errs["flash_attention"] = max(errs["flash_attention"], err0)
-    check(ok, f"flash_attention at layer 0's prefill q/k/v: max abs err "
-          f"{err0}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
-    del x, q, k, v
+    layer0_attention_check(cfg, params, toks, errs, "E")
 
     def plain_attention(q, k, v, *, causal, window, scale, block_k=1024):
         return fk.flash_attention_plain(
@@ -1281,8 +1282,7 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
     logit_diff = (logits.float() - plain_logits.float()).abs().max().item()
     same_next = (logits[:, -1].argmax(-1) == plain_logits[:, -1].argmax(-1)
                  ).tolist()
-    print(f"layer 0 prefill q/k/v {tuple(toks.shape)}: kernel vs plain max "
-          f"abs err {err0} (limit {BF16_ATOL} + {BF16_RTOL} * |want|); whole prefill, kernel vs plain "
+    print(f"path E: whole prefill {tuple(toks.shape)}, kernel vs plain "
           f"attention: logits max abs diff {logit_diff} (|logits| max "
           f"{logits.float().abs().max().item():.3f}), same next token "
           f"{same_next}", flush=True)
@@ -1290,7 +1290,7 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
 
     serving_times(cfg, engine, sess, toks, logits, cache, new,
                   (gen1_s, gen2_s), "E")
-    del logits, cache, engine, params, first, second
+    del logits, cache, engine, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1373,11 +1373,10 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
     times."""
     from repro_torch.comm import CommSession
     from repro_torch.configs import get_config
-    from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.kernels.rwkv6_scan import kernel as sk
     from repro_torch.models import layers, ssm
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import Request, ServeEngine, make_serve_step
+    from repro_torch.serving import ServeEngine
 
     # -- 12. main path G: serving RWKV-6 ------------------------------------
     cfg = get_config("rwkv6_1_6b")
@@ -1386,19 +1385,7 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
            cfg.d_ff, cfg.mlp, cfg.vocab_size, cfg.dtype)
           == ("ssm", 24, 2048, 32, 64, 7168, "relu2", 65536, "bfloat16"),
           f"rwkv6_1_6b is not the full-width config: {cfg}")
-    t0 = time.perf_counter()
-    params = tfm.init_params(
-        cfg, generator=torch.Generator(device=dev).manual_seed(0),
-        device=dev)
-    torch.cuda.synchronize()
-    leaves = list(_leaves(params))
-    wbytes = sum(t.numel() * t.element_size() for t in leaves)
-    print(f"rwkv6_1_6b full width: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.d_model // hd} heads of {hd}, d_ff "
-          f"{cfg.d_ff} ({cfg.mlp}), vocab {cfg.vocab_size}, {cfg.dtype}: "
-          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
-          f"{wbytes / 1e9:.2f} GB of seeded random weights in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    params = init_model(cfg, dev, "G")
     sess = CommSession()
     engine = ServeEngine(cfg, params, comm=sess)
     tok_gen = torch.Generator().manual_seed(1)
@@ -1406,62 +1393,14 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
                              generator=tok_gen).tolist()
                for n in (1024, 768, 512, 256)]
     new = 32
-    plen = max(len(p) for p in prompts)
-    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
-                        device=dev)
-
-    def requests():
-        return [Request(list(p), new) for p in prompts]
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    first = engine.generate(requests())
-    torch.cuda.synchronize()
-    gen1_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    second = engine.generate(requests())
-    torch.cuda.synchronize()
-    gen2_s = time.perf_counter() - t0
-    logits, cache = engine.prefill(toks)
-    moved = engine.migrate_kv(cache, 0, 1)
-    s1 = sess.stats()
-    moved2 = engine.migrate_kv(cache, 0, 1)
-    s2 = sess.stats()
-    torch.cuda.synchronize()
-    read_path("G")
-    outs = [r.out for r in first]
-    check(all(len(o) == new for o in outs)
-          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
-          "path G: a wrong count or an out-of-range token")
-    check([r.out for r in second] == outs, "path G: a second generate gave "
-          "other tokens")
-    check(per_path["G"].get("rwkv6_scan", 0) == 3 * cfg.num_layers,
-          f"path G launched rwkv6_scan {per_path['G'].get('rwkv6_scan', 0)}"
-          f" times, not once per layer per prefill ({3 * cfg.num_layers})")
-    check(per_path["G"].get("multipath_dma", 0) > 0,
-          "path G did not launch multipath_dma")
+    toks, outs, logits, cache, (gen1_s, gen2_s) = serve_requests(
+        cfg, engine, prompts, new, "G", per_path, read_path,
+        kernel="rwkv6_scan", migrate_to=1)
+    plen = toks.shape[1]
     check(sorted(cache) == ["rwkv_shift", "rwkv_state"]
           and cache["rwkv_state"].dtype == torch.float32
           and cache["rwkv_shift"].dtype == torch.bfloat16,
           f"path G cache {[(k, t.dtype) for k, t in cache.items()]}")
-    check(all(moved[k].dtype == cache[k].dtype
-              and torch.equal(moved[k], cache[k])
-              and torch.equal(moved2[k], cache[k]) for k in cache),
-          "path G: migrate_kv is not bitwise equal to the state cache")
-    check(s1["dispatches"] == 1 and s2["dispatches"] == 2,
-          f"path G migrations took {s1['dispatches']}, {s2['dispatches']} "
-          f"dispatches, not one each")
-    check(s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1,
-          "path G: the second migration was not one fast-path hit")
-    sizes = {k: t.numel() * t.element_size() / 1e6 for k, t in cache.items()}
-    print(f"served {len(prompts)} requests (prompts "
-          f"{[len(p) for p in prompts]}, {new} new tokens each, greedy): "
-          f"tokens in range, a second generate gives the same tokens; "
-          f"first outputs {[o[:4] for o in outs]}; migrate_kv of the state "
-          f"cache ({', '.join(f'{k} {mb:.2f} MB' for k, mb in sizes.items())}"
-          f") 0->1 bitwise, one dispatch, second one fast-path hit",
-          flush=True)
-    del moved, moved2
     program_checks(cfg, engine, toks, outs, "G")
 
     # the kernel at layer 0's real prefill r/k/v/w, and the decay range
@@ -1492,57 +1431,18 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
     # prefill of all but the last 8 tokens, then 8 decode steps, against
     # the full prefill's logits; then the same with a state planted wrong,
     # each of which the limit must catch
-    serve_step = make_serve_step(cfg, engine.spec)
-    tail = 8
-    start = plen - tail
+    start = plen - 8
 
-    def decode_diff(state_from=None, zero=False):
-        _, pcache = engine.prefill(toks[:, :start])
-        if state_from is not None:
-            _, other = engine.prefill(toks[:, :state_from])
-            pcache["rwkv_state"].copy_(other["rwkv_state"])
-        if zero:
-            pcache["rwkv_state"].zero_()
-        worst = 0.0
-        for t in range(start, plen):
-            lg, pcache = serve_step(params, pcache, toks[:, t:t + 1], t)
-            worst = max(worst, (lg.float() - logits[:, t].float()).abs()
-                        .max().item())
-        return worst
+    def state_of(n):
+        def plant(c):
+            c["rwkv_state"].copy_(engine.prefill(toks[:, :n])[1]["rwkv_state"])
+        return plant
 
-    def captured_decode_diff():
-        prefill = engine.prefill_program(len(prompts), start)
-        prefill.tokens.copy_(toks[:, :start])
-        prefill()
-        decode = engine.decode_program(len(prompts))
-        worst = 0.0
-        for t in range(start, plen):
-            decode.tokens.copy_(toks[:, t:t + 1])
-            decode.cur_len.fill_(t)
-            worst = max(worst, (decode().float() - logits[:, t].float())
-                        .abs().max().item())
-        return worst
-
-    worst = decode_diff()
-    worst_captured = captured_decode_diff()
-    top = logits[:, start:].float().abs().max().item()
-    faults = {"zeroed state": decode_diff(zero=True),
-              f"state one chunk ({sk.MAX_CHUNK}) early":
-                  decode_diff(state_from=start - sk.MAX_CHUNK),
-              "state one position early": decode_diff(state_from=start - 1)}
-    limit = RWKV_DECODE_ATOL
-    check(worst <= limit, f"path G: prefill + {tail} decode steps differ"
-          f" from the full prefill by {worst} (limit {limit})")
-    check(worst_captured <= limit, f"path G: the captured prefill + {tail} "
-          f"captured decode steps differ from the full prefill by "
-          f"{worst_captured} (limit {limit})")
-    check(all(d > limit for d in faults.values()),
-          f"path G: a planted fault passes the decode check: {faults}")
-    print(f"prefill of {start} tokens + {tail} decode steps vs the full "
-          f"prefill: logits max abs diff {worst} eager steps, "
-          f"{worst_captured} captured prefill and steps (largest logit "
-          f"{top:.3f}, limit {limit}); planted faults: "
-          + ", ".join(f"{k} {d}" for k, d in faults.items()), flush=True)
+    tail_checks(cfg, engine, toks, logits, RWKV_DECODE_ATOL, {
+        "zeroed state": lambda c: c["rwkv_state"].zero_(),
+        f"state one chunk ({sk.MAX_CHUNK}) early":
+            state_of(start - sk.MAX_CHUNK),
+        "state one position early": state_of(start - 1)}, "G")
 
     serving_times(cfg, engine, sess, toks, logits, cache, new,
                   (gen1_s, gen2_s), "G")
@@ -2798,6 +2698,418 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
     return row
 
 
+#: Path K's bound on a prefill of all but the last 8 prompt positions and
+#: 8 decode steps against the full prefill's logits, the largest logit
+#: difference: 3× the sound reading (0.180 on an H100, bfloat16 computed
+#: in two orders through 32 layers of attention and Mamba, eager and
+#: captured alike), as path G's; a zeroed SSM state reads 1.84, zeroed
+#: conv inputs 4.98.
+HYMBA_DECODE_ATOL = 0.54
+#: Path L's bound, the same check: 3× the sound reading (0.797 on an
+#: H100, bfloat16 computed in two orders through 8 MoE layers, whose
+#: top-2 choice jumps where two router probabilities tie); zeroed keys
+#: and values read 6.73.
+MIXTRAL_DECODE_ATOL = 2.4
+#: Path L's depth: 8 of Mixtral-8x22B's 56 layers (5.01 GB each in
+#: bfloat16; 56 would be 281 GB).
+MIXTRAL_LAYERS = 8
+
+
+def tail_decode_diffs(cfg, engine, toks, logits, tail, faults: dict
+                      ) -> tuple[float, float, dict]:
+    """The last ``tail`` positions of ``toks`` decoded one at a time after
+    a prefill of the others, against the full prefill's ``logits`` there:
+    the largest absolute logit difference with eager steps
+    (``make_serve_step`` after the engine's prefill program), with the
+    engine's captured prefill and decode programs, and with each planted
+    fault of ``faults`` (name → a function that alters the eager run's
+    cache after the prefill), each of which the bound must catch."""
+    from repro_torch.serving import make_serve_step
+
+    b, plen = toks.shape
+    start = plen - tail
+    serve_step = make_serve_step(cfg, engine.spec)
+
+    def eager(plant=None):
+        _, cache = engine.prefill(toks[:, :start])
+        if plant is not None:
+            plant(cache)
+        worst = 0.0
+        for t in range(start, plen):
+            lg, cache = serve_step(engine.params, cache, toks[:, t:t + 1], t)
+            worst = max(worst, (lg.float() - logits[:, t].float()).abs()
+                        .max().item())
+        return worst
+
+    def captured():
+        prefill = engine.prefill_program(b, start)
+        prefill.tokens.copy_(toks[:, :start])
+        prefill()
+        decode = engine.decode_program(b)
+        worst = 0.0
+        for t in range(start, plen):
+            decode.tokens.copy_(toks[:, t:t + 1])
+            decode.cur_len.fill_(t)
+            worst = max(worst, (decode().float() - logits[:, t].float())
+                        .abs().max().item())
+        return worst
+
+    return eager(), captured(), {k: eager(f) for k, f in faults.items()}
+
+
+def tail_checks(cfg, engine, toks, logits, limit: float, faults: dict,
+                path: str) -> None:
+    """:func:`tail_decode_diffs` over the last 8 positions, held to
+    ``limit``: eager and captured within it, every planted fault past
+    it."""
+    tail = 8
+    worst, worst_captured, planted = tail_decode_diffs(
+        cfg, engine, toks, logits, tail, faults)
+    start = toks.shape[1] - tail
+    top = logits[:, start:].float().abs().max().item()
+    print(f"path {path}: prefill of {start} tokens + {tail} decode steps vs "
+          f"the full prefill: logits max abs diff {worst} eager steps, "
+          f"{worst_captured} captured prefill and steps (largest logit "
+          f"{top:.3f}, limit {limit}); planted faults: "
+          + ", ".join(f"{k} {d}" for k, d in planted.items()), flush=True)
+    check(worst <= limit, f"path {path}: prefill + {tail} decode steps "
+          f"differ from the full prefill by {worst} (limit {limit})")
+    check(worst_captured <= limit, f"path {path}: the captured prefill + "
+          f"{tail} captured decode steps differ from the full prefill by "
+          f"{worst_captured} (limit {limit})")
+    check(all(d > limit for d in planted.values()),
+          f"path {path}: a planted fault passes the decode check: {planted}")
+
+
+def layer0_attention_check(cfg, params, toks, errs, path: str) -> None:
+    """The kernel at layer 0's real prefill q/k/v (the model's window)
+    against its plain version, within ``BF16_ATOL + BF16_RTOL * |want|``."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    lp = tfm.layer_params(params, 0)
+    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
+    q, k, v = tfm.attention_qkv(x, lp["attn"], cfg,
+                                torch.arange(toks.shape[1],
+                                             device=toks.device))
+    window = tfm.layer_windows(cfg)[0]
+    window = window if window >= 0 else None
+    scale = cfg.head_dim_ ** -0.5
+    err, ok = bf16_err(
+        fk.flash_attention_cuda(q, k, v, window=window, scale=scale),
+        fk.flash_attention_plain(q, k, v, window=window, scale=scale))
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    check(ok, f"path {path}: flash_attention at layer 0's prefill q/k/v: max"
+          f" abs err {err}, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    print(f"path {path}: layer 0 prefill q/k/v {tuple(q.shape)}/"
+          f"{tuple(k.shape)} window {window}: kernel vs plain max abs err "
+          f"{err} (limit {BF16_ATOL} + {BF16_RTOL} * |want|)", flush=True)
+
+
+def serve_requests(cfg, engine, prompts, new, path: str, per_path,
+                   read_path, kernel: str = "flash_attention",
+                   migrate_to: int | None = None):
+    """Main path ``path``'s counted run: every launch counter set to 0,
+    ``generate`` of ``prompts`` (``new`` tokens each, greedy) twice, a
+    prefill of the left-padded prompts, with ``migrate_to`` its cache
+    moved there twice, then the counters read. Checks the tokens (in
+    range, the same twice), one launch of the mixer's ``kernel`` per
+    layer per prefill and the migrations (bitwise, one dispatch each, the
+    second a fast-path hit). Returns (toks, outs, logits, cache, generate
+    seconds (first, second))."""
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.serving import Request
+
+    dev = engine.device
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
+                        device=dev)
+
+    def requests():
+        return [Request(list(p), new) for p in prompts]
+
+    sess = engine.comm
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = engine.generate(requests())
+    torch.cuda.synchronize()
+    gen2_s = time.perf_counter() - t0
+    logits, cache = engine.prefill(toks)
+    if migrate_to is not None:
+        moved = engine.migrate_kv(cache, 0, migrate_to)
+        s1 = sess.stats()
+        moved2 = engine.migrate_kv(cache, 0, migrate_to)
+        s2 = sess.stats()
+    torch.cuda.synchronize()
+    read_path(path)
+    outs = [r.out for r in first]
+    check(all(len(o) == new for o in outs)
+          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          f"path {path}: a wrong count or an out-of-range token")
+    check([r.out for r in second] == outs, f"path {path}: a second "
+          f"generate gave other tokens")
+    launched = per_path[path].get(kernel, 0)
+    check(launched == 3 * cfg.num_layers, f"path {path} launched {kernel} "
+          f"{launched} times, not once per layer per prefill "
+          f"({3 * cfg.num_layers})")
+    sizes = ", ".join(f"{k} {tuple(t.shape)} {str(t.dtype)[6:]} "
+                      f"{t.numel() * t.element_size() / 1e6:.2f} MB"
+                      for k, t in cache.items())
+    moved_note = ""
+    if migrate_to is not None:
+        check(per_path[path].get("multipath_dma", 0) > 0,
+              f"path {path} did not launch multipath_dma")
+        check(all(moved[k].dtype == cache[k].dtype
+                  and torch.equal(moved[k], cache[k])
+                  and torch.equal(moved2[k], cache[k]) for k in cache),
+              f"path {path}: migrate_kv 0->{migrate_to} is not bitwise "
+              f"equal to the cache")
+        check(s1["dispatches"] == 1 and s2["dispatches"] == 2,
+              f"path {path} migrations took {s1['dispatches']}, "
+              f"{s2['dispatches']} dispatches, not one each")
+        check(s2["fastpath"]["hits"] == s1["fastpath"]["hits"] + 1,
+              f"path {path}: the second migration was not one fast-path "
+              f"hit")
+        moved_note = (f"; migrate_kv of the cache 0->{migrate_to} bitwise, "
+                      f"one dispatch, second one fast-path hit")
+    print(f"path {path}: served {len(prompts)} requests (prompts "
+          f"{[len(p) for p in prompts]}, {new} new tokens each, greedy): "
+          f"tokens in range, a second generate gives the same tokens; "
+          f"first outputs {[o[:4] for o in outs]}; cache {sizes}"
+          f"{moved_note}", flush=True)
+    return toks, outs, logits, cache, (gen1_s, gen2_s)
+
+
+def init_model(cfg, dev, path: str):
+    """Seeded random weights of ``cfg`` on the card, their count and
+    bytes printed beside ``param_count``."""
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    count = sum(t.numel() for t in leaves)
+    wbytes = sum(t.numel() * t.element_size() for t in leaves)
+    layer = sum(t.numel() * t.element_size()
+                for t in _leaves(params["layers"])) / cfg.num_layers
+    if cfg.attention_free:
+        mixer = (f"{cfg.d_model // cfg.rwkv_head_dim} RWKV-6 heads of "
+                 f"{cfg.rwkv_head_dim}")
+    else:
+        mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.head_dim_}, {cfg.attention} attention"
+                 + (f" window {cfg.window}" if cfg.window else ""))
+    print(f"path {path}: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {mixer}, d_ff {cfg.d_ff} ({cfg.mlp}), vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {count} "
+          f"parameters drawn (param_count() {cfg.param_count()}), "
+          f"{wbytes / 1e9:.2f} GB of seeded random weights "
+          f"({layer / 1e9:.3f} GB a layer) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params
+
+
+def hymba_path(dev, errs, per_path, read_path) -> None:
+    """Main path K (phase 16): serving Hymba-1.5B at full width and depth
+    (attention beside Mamba in every layer), read with the counters set to
+    0 just before it; then the kernel at layer 0's real prefill, the Mamba
+    mixer's and its scan's share of the prefill, prefill-then-decode
+    against the full prefill, and the times."""
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+
+    # -- 16. main path K: serving Hymba-1.5B --------------------------------
+    cfg = get_config("hymba_1_5b")
+    check((cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.num_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+           cfg.attention, cfg.window, cfg.ssm_state, cfg.dtype)
+          == ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001, "swa", 1024, 16,
+              "bfloat16"), f"hymba_1_5b is not the full config: {cfg}")
+    params = init_model(cfg, dev, "K")
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist()
+               for n in (1536, 1024, 768, 512)]
+    new = 32
+    engine = ServeEngine(cfg, params, max_len=1536 + new,
+                         comm=CommSession())
+    check(engine.spec == tfm.CacheSpec("ring", 1024),
+          f"path K: cache {engine.spec}, not a ring of the window")
+    toks, outs, logits, cache, gen_s = serve_requests(
+        cfg, engine, prompts, new, "K", per_path, read_path, migrate_to=2)
+    b, plen = toks.shape
+    check(sorted(cache) == ["conv", "k", "ssm", "v"]
+          and cache["ssm"].dtype == torch.float32
+          and tuple(cache["ssm"].shape) == (32, b, 1600, 16)
+          and tuple(cache["conv"].shape) == (32, b, ssm.CONV_K - 1, 1600)
+          and all(cache[k].dtype == torch.bfloat16
+                  for k in ("k", "v", "conv")),
+          f"path K cache {[(k, t.dtype) for k, t in cache.items()]}")
+    program_checks(cfg, engine, toks, outs, "K")
+    layer0_attention_check(cfg, params, toks, errs, "K")
+
+    # the Mamba mixer and its scan at layer 0's real prefill input
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    replay_ms = cuda_time_ms(prefill, 3, warmup=1)
+    lp = tfm.layer_params(params, 0)
+    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
+    mamba_ms = cuda_time_ms(lambda: ssm.mamba_apply(x, lp["ssm"]), 3,
+                            warmup=1)
+    shape = (b, plen, cfg.d_model, cfg.ssm_state)
+    a = torch.rand(shape, device=dev) * 0.5 + 0.5
+    drive = torch.randn(shape, device=dev)
+    scan_ms = cuda_time_ms(lambda: ssm.associative_scan(a, drive), 3,
+                           warmup=1)
+    scan_bytes = 3 * a.numel() * a.element_size()
+    del x, a, drive
+    n = cfg.num_layers
+    print(f"path K: prefill replay {replay_ms:.2f} ms; the Mamba mixer at "
+          f"layer 0's input {mamba_ms:.3f} ms x {n} layers = "
+          f"{n * mamba_ms / replay_ms:.1%} of it; its associative scan on "
+          f"{shape} float32 {scan_ms:.3f} ms x {n} = "
+          f"{n * scan_ms / replay_ms:.1%} (reads a and the drive and writes "
+          f"h, {scan_bytes / 1e6:.0f} MB: {scan_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms at 3.35 TB/s)", flush=True)
+
+    tail_checks(cfg, engine, toks, logits, HYMBA_DECODE_ATOL, {
+        "zeroed SSM state": lambda c: c["ssm"].zero_(),
+        "zeroed conv inputs": lambda c: c["conv"].zero_()}, "K")
+    serving_times(cfg, engine, engine.comm, toks, logits, cache, new, gen_s,
+                  "K", dst=2)
+
+
+def mixtral_path(dev, errs, per_path, read_path) -> None:
+    """Main path L (phase 17): serving Mixtral-8x22B at full width over 8
+    of its 56 layers (MoE, 8 experts top-2, dropless in prefill and
+    decode), read with the counters set to 0 just before it; then the
+    kernel at layer 0's real prefill, each expert's token count and the
+    dropped pairs in one eager prefill and 8 decode steps, the expert
+    products' share of the prefill, prefill-then-decode against the full
+    prefill, and the times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine, make_serve_step
+
+    # -- 17. main path L: serving Mixtral-8x22B ------------------------------
+    full = get_config("mixtral_8x22b")
+    check((full.family, full.num_layers, full.d_model, full.num_heads,
+           full.num_kv_heads, full.head_dim_, full.d_ff, full.vocab_size,
+           full.num_experts, full.top_k, full.attention, full.window,
+           full.dtype)
+          == ("moe", 56, 6144, 48, 8, 128, 16384, 32768, 8, 2, "swa", 4096,
+              "bfloat16"), f"mixtral_8x22b is not the full config: {full}")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    params = init_model(cfg, dev, "L")
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist()
+               for n in (512, 384, 256, 128)]
+    new = 32
+    engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+    toks, outs, logits, cache, gen_s = serve_requests(
+        cfg, engine, prompts, new, "L", per_path, read_path)
+    b, plen = toks.shape
+    program_checks(cfg, engine, toks, outs, "L")
+    layer0_attention_check(cfg, params, toks, errs, "L")
+
+    # routing of one eager prefill and 8 eager decode steps
+    e = cfg.num_experts
+    routed: list[tuple[torch.Tensor, torch.Tensor]] = []
+    real = moe_lib.moe_apply
+
+    def counting(x, p, *, top_k, kind, capacity_factor=1.25,
+                 dropless=False):
+        r = moe_lib.route(x, p["router"], top_k=top_k,
+                          capacity=moe_lib.capacity_of(
+                              x.shape[0], e, top_k, capacity_factor,
+                              dropless))
+        routed.append((torch.zeros(e, device=x.device).index_add_(
+            0, r.expert, r.keep.float()), (~r.keep).sum()))
+        return real(x, p, top_k=top_k, kind=kind,
+                    capacity_factor=capacity_factor, dropless=dropless)
+
+    moe_lib.moe_apply = counting
+    try:
+        lg, pcache = tfm.prefill_forward(params, cfg, {"tokens": toks},
+                                         engine.spec)
+        step = make_serve_step(cfg, engine.spec)
+        tok = lg[:, -1].argmax(-1)
+        for i in range(8):
+            lg, pcache = step(params, pcache, tok[:, None], plen + i)
+            tok = lg.argmax(-1)
+    finally:
+        moe_lib.moe_apply = real
+    del lg, pcache
+    counts = [c.long().tolist() for c, _ in routed]
+    dropped = [int(d) for _, d in routed]
+    nl = cfg.num_layers
+    check(len(counts) == 9 * nl, f"path L: {len(counts)} MoE calls, not "
+          f"{9 * nl}")
+    check(all(sum(c) == b * plen * cfg.top_k for c in counts[:nl])
+          and all(sum(c) == b * cfg.top_k for c in counts[nl:]),
+          "path L: routed pairs do not add up to tokens x top_k")
+    check(not any(dropped), f"path L: dropless prefill or decode dropped "
+          f"{sum(dropped)} pairs")
+    print(f"path L: one eager prefill of {tuple(toks.shape)} tokens, each "
+          f"expert's pairs per layer (dropless, capacity {b * plen}): "
+          f"{counts[:nl]}; 8 decode steps, per expert over all layers and "
+          f"steps: {[sum(c[i] for c in counts[nl:]) for i in range(e)]}; "
+          f"dropped pairs: {sum(dropped)}", flush=True)
+
+    # the expert products' share of the prefill
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    replay_ms = cuda_time_ms(prefill, 3, warmup=1)
+    lp = tfm.layer_params(params, 0)
+    x = layers.rms_norm(params["embed"][toks], lp["ln2"]).reshape(
+        b * plen, cfg.d_model)
+    moe_ms = cuda_time_ms(lambda: moe_lib.moe_apply(
+        x, lp["moe"], top_k=cfg.top_k, kind=cfg.mlp, dropless=True), 3,
+        warmup=1)
+    buf = moe_lib.dispatch(x, moe_lib.route(x, lp["moe"]["router"],
+                                             top_k=cfg.top_k,
+                                             capacity=b * plen), e)
+    experts_ms = cuda_time_ms(
+        lambda: moe_lib.expert_ffn(buf, lp["moe"], cfg.mlp), 3, warmup=1)
+    flops = 2 * 3 * e * b * plen * cfg.d_model * cfg.d_ff
+    useful = flops * cfg.top_k / e
+    del x, buf
+    print(f"path L: prefill replay {replay_ms:.2f} ms; the MoE layer on "
+          f"layer 0's normed embeddings {moe_ms:.2f} ms x {nl} layers = "
+          f"{nl * moe_ms / replay_ms:.1%} of it; its expert products on "
+          f"that layer's dropless ({e}, {b * plen}, {cfg.d_model}) buffer "
+          f"(its {b * plen * cfg.top_k} pairs' rows filled, the rest 0) "
+          f"{experts_ms:.2f} ms x {nl} = {nl * experts_ms / replay_ms:.1%} "
+          f"({flops / experts_ms / 1e9:.0f} TFLOP/s: {flops} FLOPs a "
+          f"layer, of which the routed pairs need {useful:.0f}; "
+          f"{flops / BF16_FLOPS_PER_S * 1e3:.2f} ms at 989 TFLOP/s)",
+          flush=True)
+
+    def zero_positions(c):
+        c["k"].zero_()
+        c["v"].zero_()
+
+    tail_checks(cfg, engine, toks, logits, MIXTRAL_DECODE_ATOL, {
+        "zeroed keys and values": zero_positions}, "L")
+    serving_times(cfg, engine, None, toks, logits, cache, new, gen_s, "L")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3029,11 +3341,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.append(training_path(dev, errs, per_path, read_path, smi))
-    print(f"main-path launches (paths A-J): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hymba_path(dev, errs, per_path, read_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mixtral_path(dev, errs, per_path, read_path)
+    print(f"main-path launches (paths A-L): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 16. report --------------------------------------------------------
+    # -- 18. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

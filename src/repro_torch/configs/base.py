@@ -151,8 +151,13 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 REGISTRY: dict[str, ArchConfig] = {}
 
-#: The architectures ported so far (the reference registers ten).
-ARCH_IDS = ("gemma3_27b", "llama3_8b", "rwkv6_1_6b", "smollm_360m")
+#: The architectures ported so far: the reference's ten but the audio
+#: model (``hubert_xlarge``), in the reference's order.
+ARCH_IDS = (
+    "gemma3_27b", "nemotron_4_340b", "llama3_8b", "smollm_360m",
+    "mixtral_8x22b", "kimi_k2_1t_a32b", "chameleon_34b", "hymba_1_5b",
+    "rwkv6_1_6b",
+)
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -5,6 +5,11 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --requests 4 --new-tokens 16            # on cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
+        --device cpu                            # hybrid; mixtral_8x22b: MoE
+
+Every architecture id of ``repro_torch.configs.ARCH_IDS`` is served at
+its reduced size.
 """
 
 from __future__ import annotations

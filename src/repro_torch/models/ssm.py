@@ -1,19 +1,29 @@
-"""The RWKV-6 (Finch) time-mix: the full-sequence path and one decode step.
+"""State-space mixers: Mamba (Hymba's parallel SSM heads) and RWKV-6.
 
-The reference's ``models/ssm.py`` holds two mixers; this module ports its
-RWKV-6 half (Mamba comes with the hybrid slice). The full-sequence path
-(prefill) runs the chunked scan of :mod:`repro_torch.kernels.rwkv6_scan`:
-on a CUDA tensor the hand-written kernel, on a CPU tensor its plain
-version. The decode step is a few plain tensor ops on the O(1) state, as
-in the reference. States are returned explicitly so the serving cache can
-carry them.
+Both expose a full-sequence path (prefill) and a single-step path
+(decode, O(1) state). States are returned explicitly so the serving cache
+can carry them.
 
-Deliberate difference from the reference: the scan runs in chunks of
-:data:`~repro_torch.kernels.rwkv6_scan.kernel.MAX_CHUNK` (64) positions
-on every device instead of 128, since the kernel's shared-memory tiles
-hold 64 rows. The chunked form is exact for any chunk length; only
-float32 rounding differs. The scan's output stays float32 into the group
-norm, as the reference's does.
+Mamba has no hand-written kernel in the reference, and none here: its
+full-sequence path is plain tensor ops on every device. The reference's
+associative scan is transcribed as :func:`associative_scan`, the same
+odd/even recursion on strided slices (about 2·log2 L elementwise levels,
+O(L) work, the reference's association order), so a captured prefill
+holds a few hundred graph nodes a layer rather than one per token. A
+fused chunked kernel is later speed work, as the reference's docstring
+says.
+
+RWKV-6's full-sequence path runs the chunked scan of
+:mod:`repro_torch.kernels.rwkv6_scan`: on a CUDA tensor the hand-written
+kernel, on a CPU tensor its plain version. Its decode step is a few plain
+tensor ops on the O(1) state, as in the reference.
+
+Deliberate difference from the reference: the RWKV-6 scan runs in chunks
+of :data:`~repro_torch.kernels.rwkv6_scan.kernel.MAX_CHUNK` (64)
+positions on every device instead of 128, since the kernel's
+shared-memory tiles hold 64 rows. The chunked form is exact for any chunk
+length; only float32 rounding differs. The scan's output stays float32
+into the group norm, as the reference's does.
 """
 
 from __future__ import annotations
@@ -24,6 +34,142 @@ import torch.nn.functional as F
 from repro_torch.kernels.rwkv6_scan.kernel import MAX_CHUNK
 from repro_torch.kernels.rwkv6_scan.ops import chunked_scan
 
+#: The causal depthwise convolution's width in the Mamba mixer.
+CONV_K = 4
+
+
+# =========================== Mamba (diagonal SSM) ===========================
+def mamba_init(d: int, state: int, dtype: torch.dtype, *,
+               generator: torch.Generator, device=None,
+               lead: tuple = ()) -> dict:
+    """One Mamba mixer's parameters (``lead``-stacked), with the
+    reference's distributions: the projections normal × ``d**-0.5``
+    (``w_dt2`` × ``r**-0.5``, ``r = max(8, d // 64)``), ``conv_w`` normal
+    × 0.3, ``conv_b`` zero; ``dt_bias`` −1, ``A_log`` 0 and ``D`` 1 in
+    float32."""
+    d_i = d
+    r = max(8, d // 64)
+    s = d ** -0.5
+
+    def normal(shape, scale):
+        return torch.randn(lead + shape, generator=generator, device=device,
+                           dtype=dtype).mul_(scale)
+
+    def const(shape, value, dt=torch.float32):
+        return torch.full(lead + shape, value, dtype=dt, device=device)
+
+    return {
+        "w_in": normal((d, 2 * d_i), s),
+        "conv_w": normal((CONV_K, d_i), 0.3),
+        "conv_b": const((d_i,), 0.0, dtype),
+        "w_dt1": normal((d_i, r), s),
+        "w_dt2": normal((r, d_i), r ** -0.5),
+        "dt_bias": const((d_i,), -1.0),
+        "w_B": normal((d_i, state), s),
+        "w_C": normal((d_i, state), s),
+        "A_log": const((d_i, state), 0.0),
+        "D": const((d_i,), 1.0),
+        "w_out": normal((d_i, d), s),
+    }
+
+
+def _mamba_gates(x1: torch.Tensor, p: dict):
+    """Shared projections: (dt, B, C) from the conv'd float32 activation;
+    the weights are taken in float32, as the reference's mixed product
+    promotes them."""
+    dt = F.softplus((x1 @ p["w_dt1"].float()) @ p["w_dt2"].float()
+                    + p["dt_bias"])                           # (..., d_i)
+    bmat = x1 @ p["w_B"].float()                              # (..., N)
+    cmat = x1 @ p["w_C"].float()
+    return dt, bmat, cmat
+
+
+def _mamba_drive(x1: torch.Tensor, p: dict):
+    """The recurrence's decay ``a`` and input ``dt·x·B`` ``(..., d_i, N)``
+    (float32), and ``C`` and the float32 activation."""
+    x1f = x1.float()
+    dt, bmat, cmat = _mamba_gates(x1f, p)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt[..., None])
+    drive = (dt * x1f)[..., None] * bmat[..., None, :]
+    return a, drive, cmat, x1f
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor, *,
+                     need_a: bool = False):
+    """Prefix of the linear recurrence ``h_t = a_t·h_{t-1} + b_t`` along
+    dim 1, as the reference's associative scan computes it with the
+    combine ``(a1, b1), (a2, b2) → (a1·a2, b1·a2 + b2)``: pairs of
+    neighbours are combined, the half-length sequence is scanned
+    recursively (the odd positions' prefixes), and each even position
+    combines its left neighbour's prefix with itself. Returns ``h`` (and
+    the cumulative ``a`` with ``need_a``, which every level but the top
+    one needs)."""
+    n = a.shape[1]
+    if n < 2:
+        return (a, b) if need_a else b
+    a0, a1 = a[:, 0:n - 1:2], a[:, 1::2]
+    ra, rb = associative_scan(a0 * a1, b[:, 0:n - 1:2] * a1 + b[:, 1::2],
+                              need_a=True)
+    left_a, left_b = (ra, rb) if n % 2 else (ra[:, :-1], rb[:, :-1])
+    a2 = a[:, 2::2]
+    hb = torch.empty_like(b)
+    hb[:, :1] = b[:, :1]
+    hb[:, 2::2] = left_b * a2 + b[:, 2::2]
+    hb[:, 1::2] = rb
+    if not need_a:
+        return hb
+    ha = torch.empty_like(a)
+    ha[:, :1] = a[:, :1]
+    ha[:, 2::2] = left_a * a2
+    ha[:, 1::2] = ra
+    return ha, hb
+
+
+def mamba_apply(x: torch.Tensor, p: dict, return_state: bool = False):
+    """Full-sequence Mamba mixer. x: (B, L, d) → (B, L, d).
+
+    With ``return_state`` also returns ``(ssm_state, conv_state)`` for
+    prefill-into-cache: the float32 ``(B, d_i, N)`` state after the last
+    position and the last ``CONV_K − 1`` raw conv inputs ``(B, K−1,
+    d_i)`` (zero where the sequence is shorter)."""
+    _, l, _ = x.shape
+    x1_raw, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    # causal depthwise conv, kernel CONV_K
+    xp = F.pad(x1_raw, (0, 0, CONV_K - 1, 0))
+    x1 = sum(xp[:, i:i + l] * p["conv_w"][i] for i in range(CONV_K))
+    x1 = F.silu(x1 + p["conv_b"])
+
+    a, drive, cmat, x1f = _mamba_drive(x1, p)
+    h = associative_scan(a, drive)                           # (B,L,d_i,N)
+    del a, drive
+    y = torch.einsum("blds,bls->bld", h, cmat)
+    y = y + p["D"] * x1f
+    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    if not return_state:
+        return out
+    return out, (h[:, -1], xp[:, l:l + CONV_K - 1])
+
+
+def mamba_decode(x: torch.Tensor, p: dict, state: torch.Tensor,
+                 conv_state: torch.Tensor,
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step. x: (B, d); state: (B, d_i, N); conv_state: (B, K-1, d_i).
+    Returns (out, new state, new conv state), new tensors (the inputs are
+    not written, so a caller may ``copy_`` the new states over them)."""
+    x1, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    hist = torch.cat([conv_state, x1[:, None]], dim=1)       # (B, K, d_i)
+    x1 = sum(hist[:, i] * p["conv_w"][i] for i in range(CONV_K))
+    x1 = F.silu(x1 + p["conv_b"])
+
+    a, drive, cmat, x1f = _mamba_drive(x1, p)
+    state = state * a + drive
+    y = torch.einsum("bds,bs->bd", state, cmat)
+    y = y + p["D"] * x1f
+    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return out, state, hist[:, 1:]
+
+
+# ================================ RWKV-6 ====================================
 
 def rwkv6_init(d: int, head_dim: int, dtype: torch.dtype, *,
                generator: torch.Generator, device=None,

@@ -1,13 +1,17 @@
 """Model assembly: blocks, layer stacks, the training loss, prefill and
 decode.
 
-The dense and SSM subset of the reference's model assembly (``family``
-``dense``, ``vlm``, whose images arrive as tokens, and ``ssm``, whose
-blocks mix with RWKV-6 instead of attention): ``ArchConfig`` selects the
-mixer, the attention pattern and the MLP kind. Each per-layer parameter
-is stacked on a leading ``L`` axis, as in the reference, and the layer
-stack is a Python loop over ``L``. MoE, hybrid and audio models raise
-``NotImplementedError`` naming the slice that ports them.
+The reference's model assembly but its audio family (``family``
+``dense``; ``vlm``, whose images arrive as tokens; ``moe``, whose FFN is a
+mixture of experts; ``hybrid``, whose blocks mix attention and Mamba in
+parallel; ``ssm``, whose blocks mix with RWKV-6 instead of attention):
+``ArchConfig`` selects the mixer, the FFN (dense MLP or MoE), the
+attention pattern and the MLP kind. Each per-layer parameter is stacked
+on a leading ``L`` axis, as in the reference, and the layer stack is a
+Python loop over ``L``. Audio models raise ``NotImplementedError`` naming
+the slice that ports them. The MoE FFN has no mesh here: it always runs
+the reference's single-shard ``moe_apply`` (its ``moe_apply_dist`` runs
+only under a mesh with a model axis).
 
 Decode caches (serve path):
 
@@ -17,9 +21,16 @@ Decode caches (serve path):
   memory),
 * gemma3's 5:1 local:global stack walks a per-layer window list with a
   single code path (window = −1 ⇒ global),
+* hybrid (Mamba beside attention) → the attention cache, plus the
+  float32 SSM state ``ssm`` ``(L, B, d, N)`` and the last ``K − 1`` conv
+  inputs ``conv`` ``(L, B, K − 1, d)``,
 * RWKV-6 (SSM) → no key/value cache: the float32 recurrent state
   ``rwkv_state`` ``(L, B, h, hd, hd)`` and the token-shift input
   ``rwkv_shift`` ``(L, B, d)``.
+
+MoE prefill and decode run dropless (every token reaches its experts), as
+in the reference; ``forward`` uses the capacity factor and returns the
+summed auxiliary loss.
 
 Unlike the reference, whose arrays are immutable, :func:`decode_step`
 writes the new token's key and value (or the new SSM state) into the cache
@@ -48,6 +59,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        blockwise_attention,
@@ -57,24 +69,17 @@ from repro_torch.models.layers import (NEG_INF, apply_rope,
 Params = dict
 Cache = dict
 
-_LATER = {"moe": "the MoE slice", "hybrid": "the hybrid (Mamba) slice",
-          "audio": "the audio slice"}
-
-
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a model family the port does not
-    run yet (MoE, hybrid, audio)."""
-    kind = ("moe" if cfg.num_experts else
-            cfg.family if cfg.family in _LATER else
-            "audio" if cfg.frontend == "audio" else None)
-    if kind is not None:
+    run yet (audio)."""
+    if cfg.family == "audio" or cfg.frontend == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: {kind} models are not ported yet; they come with "
-            f"{_LATER[kind]}")
+            f"{cfg.name}: audio models are not ported yet; they come with "
+            f"the audio slice")
 
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
@@ -120,8 +125,20 @@ def block_init(cfg: ArchConfig, *, generator: torch.Generator, device,
     else:
         p["attn"] = _attn_init(cfg, generator=generator, device=device,
                                lead=lead)
-    p["mlp"] = mlp_init(d, cfg.d_ff, cfg.mlp, _dtype(cfg),
-                        generator=generator, device=device, lead=lead)
+        if cfg.family == "hybrid":
+            p["ssm"] = ssm_lib.mamba_init(d, cfg.ssm_state, _dtype(cfg),
+                                          generator=generator,
+                                          device=device, lead=lead)
+            p["ln_a"] = torch.zeros(lead + (d,), device=device)
+            p["ln_s"] = torch.zeros(lead + (d,), device=device)
+    if cfg.num_experts:
+        p["moe"] = moe_lib.moe_init(d, cfg.d_ff, cfg.num_experts, cfg.mlp,
+                                    cfg.num_shared_experts, _dtype(cfg),
+                                    generator=generator, device=device,
+                                    lead=lead)
+    else:
+        p["mlp"] = mlp_init(d, cfg.d_ff, cfg.mlp, _dtype(cfg),
+                            generator=generator, device=device, lead=lead)
     return p
 
 
@@ -129,8 +146,9 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 device=None) -> Params:
     """Random weights from ``generator`` with the reference's
     distributions: normal × ``d**-0.5`` (``wo``: × ``(h·hd)**-0.5``; MLP
-    out: × ``ff**-0.5``; RWKV-6 as :func:`~.ssm.rwkv6_init`), zero norm
-    weights; layers stacked on ``L``."""
+    out: × ``ff**-0.5``; RWKV-6 and Mamba as :mod:`.ssm`, MoE as
+    :func:`~.moe.moe_init`), zero norm weights; layers stacked on
+    ``L``."""
     check_supported(cfg)
     d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
     p = {"embed": _normal((v, d), d ** -0.5, dt, generator, device),
@@ -185,23 +203,40 @@ def _attention_full(x, ap, cfg: ArchConfig, window: int, positions,
     return out
 
 
-def _ffn(x, lp, cfg: ArchConfig):
-    """The dense MLP (MoE models raise before they get here, so there is
-    no auxiliary loss)."""
-    return mlp_apply(x, lp["mlp"], cfg.mlp)
+def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
+    """The FFN of a block on ``(..., d)``: the dense MLP, or the MoE over
+    the flattened tokens. Returns (out, aux); aux is 0 for a dense MLP."""
+    if cfg.num_experts:
+        out, aux = moe_lib.moe_apply(
+            x.reshape(-1, x.shape[-1]), lp["moe"], top_k=cfg.top_k,
+            kind=cfg.mlp, capacity_factor=cfg.capacity_factor,
+            dropless=dropless)
+        return out.reshape(x.shape), aux
+    return (mlp_apply(x, lp["mlp"], cfg.mlp),
+            torch.zeros((), device=x.device))
+
+
+def _mix_hybrid(a, s, lp):
+    """Hymba's parallel heads: the mean of the normed attention and SSM
+    outputs."""
+    return 0.5 * (rms_norm(a, lp["ln_a"]) + rms_norm(s, lp["ln_s"]))
 
 
 def block_apply(x, lp, cfg: ArchConfig, window: int, positions):
-    """Full-sequence block. x: (B, S, d) → (x', aux); aux is 0 for dense
-    and SSM models."""
+    """Full-sequence block. x: (B, S, d) → (x', aux); aux is 0 but for
+    MoE models."""
     xin = rms_norm(x, lp["ln1"])
     if cfg.family == "ssm":
-        x = x + ssm_lib.rwkv6_apply(xin, lp["rwkv"],
-                                    head_dim=cfg.rwkv_head_dim)
+        mix = ssm_lib.rwkv6_apply(xin, lp["rwkv"],
+                                  head_dim=cfg.rwkv_head_dim)
+    elif cfg.family == "hybrid":
+        a = _attention_full(xin, lp["attn"], cfg, window, positions)
+        mix = _mix_hybrid(a, ssm_lib.mamba_apply(xin, lp["ssm"]), lp)
     else:
-        x = x + _attention_full(xin, lp["attn"], cfg, window, positions)
-    x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
-    return x, torch.zeros((), device=x.device)
+        mix = _attention_full(xin, lp["attn"], cfg, window, positions)
+    x = x + mix
+    ff, aux = _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+    return x + ff, aux
 
 
 def embed_inputs(params: Params, cfg: ArchConfig,
@@ -309,8 +344,15 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
             else:
                 cache["k"][i] = _kv_to_ring(k, spec, s)
                 cache["v"][i] = _kv_to_ring(v, spec, s)
+            if cfg.family == "hybrid":
+                sm, (st, conv) = ssm_lib.mamba_apply(xin, lp["ssm"],
+                                                     return_state=True)
+                cache["ssm"][i] = st
+                cache["conv"][i] = conv
+                a = _mix_hybrid(a, sm, lp)
         x = x + a
-        x = x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+        ff, _ = _ffn(rms_norm(x, lp["ln2"]), lp, cfg, dropless=True)
+        x = x + ff
     x = rms_norm(x, params["final_norm"])
     return x @ params["lm_head"], cache
 
@@ -339,23 +381,30 @@ def cache_spec(cfg: ArchConfig, max_len: int, kv_chunks: int = 16,
 
 def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
                device=None) -> Cache:
-    """A zero decode cache: keys and values for attention models, the
+    """A zero decode cache: keys and values for attention models (beside
+    the float32 SSM state and the conv inputs for hybrid ones), the
     recurrent state and the token-shift input for SSM models."""
     check_supported(cfg)
     l, kv, hd, d = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
                     cfg.d_model)
+    dt = _dtype(cfg)
     if cfg.family == "ssm":
         rh = cfg.rwkv_head_dim
         return {"rwkv_state": torch.zeros((l, batch, d // rh, rh, rh),
                                           device=device),
-                "rwkv_shift": torch.zeros((l, batch, d), dtype=_dtype(cfg),
+                "rwkv_shift": torch.zeros((l, batch, d), dtype=dt,
                                           device=device)}
     if spec.kind == "chunked":
         shape = (l, batch, kv, spec.kv_chunks, spec.chunk_len, hd)
     else:
         shape = (l, batch, kv, spec.max_len, hd)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+    c = {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.family == "hybrid":
+        c["ssm"] = torch.zeros((l, batch, d, cfg.ssm_state), device=device)
+        c["conv"] = torch.zeros((l, batch, ssm_lib.CONV_K - 1, d), dtype=dt,
+                                device=device)
+    return c
 
 
 def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
@@ -414,8 +463,16 @@ def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
     else:
         mix = _attention_decode(xin, lp["attn"], cfg, window, cache_l["k"],
                                 cache_l["v"], cur_len, spec)
+        if cfg.family == "hybrid":
+            s, st, conv = ssm_lib.mamba_decode(xin, lp["ssm"],
+                                               cache_l["ssm"],
+                                               cache_l["conv"])
+            cache_l["ssm"].copy_(st)
+            cache_l["conv"].copy_(conv)
+            mix = _mix_hybrid(mix, s, lp)
     x = x + mix
-    return x + _ffn(rms_norm(x, lp["ln2"]), lp, cfg)
+    ff, _ = _ffn(rms_norm(x, lp["ln2"]), lp, cfg, dropless=True)
+    return x + ff
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,

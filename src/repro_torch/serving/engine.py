@@ -20,8 +20,10 @@ Communication goes through an optional
 :class:`~repro_torch.comm.session.CommSession`: ``ServeEngine.migrate_kv``
 moves a populated KV cache between logical devices over the session's
 captured multi-path graphs (the prefill→decode disaggregation
-primitive). All leaves are fused into ONE transfer group — one captured
-graph and one replay per migration, regardless of leaf count.
+primitive). All leaves (keys and values; beside them a hybrid model's
+float32 SSM state and conv inputs; or RWKV-6's state and shift) are
+fused into ONE transfer group — one captured graph and one replay per
+migration, regardless of leaf count or dtype.
 
 ``make_captured_decode_step`` captures one decode step — the
 ``flash_attention`` kernel beside a KV-chunk migration — as ONE CUDA

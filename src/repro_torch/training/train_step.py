@@ -23,7 +23,9 @@ Three builders:
 Attention's backward on the card is the hand-written ``flash_attention``
 backward kernel. RWKV-6's scan has no backward kernel yet, so the builders
 raise ``NotImplementedError`` for an SSM model on a CUDA device (on the
-CPU its plain scan is differentiated by autograd).
+CPU its plain scan is differentiated by autograd). Training the MoE and
+hybrid (Mamba) families comes with a later slice: the builders raise
+``NotImplementedError`` for them on every device.
 """
 
 from __future__ import annotations
@@ -54,9 +56,16 @@ class TrainStepConfig:
 
 def check_trainable(cfg: ArchConfig, device) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot train on
-    ``device``: an SSM (RWKV-6) model on a CUDA device, whose scan kernel
-    has no backward yet, and every family the port does not run."""
+    ``device``: an MoE or hybrid (Mamba) model on any device, an SSM
+    (RWKV-6) model on a CUDA device, whose scan kernel has no backward
+    yet, and every family the port does not run."""
     tfm.check_supported(cfg)
+    if cfg.num_experts or cfg.family == "hybrid":
+        kind = "an MoE" if cfg.num_experts else "a hybrid (Mamba)"
+        raise NotImplementedError(
+            f"{cfg.name}: training {kind} model comes with the slice that "
+            f"ports the MoE and hybrid training path (ROADMAP queue 1); the "
+            f"port serves these families only")
     if cfg.family == "ssm" and torch.device(device).type == "cuda":
         raise NotImplementedError(
             f"{cfg.name}: training an RWKV-6 model on the card needs the "

@@ -19,7 +19,9 @@ model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
 orders). A send with telemetry on records a launch and an execute time within the
 call's wall time, and sends stay bit for bit under a fitted profile.
 ``ServeEngine``'s captured decode step is held bit for bit to
-the eager ``make_serve_step`` (dense, ring and RWKV-6 caches), and its
+the eager ``make_serve_step`` (dense, ring, RWKV-6, hybrid (Mamba) and MoE
+caches), the reduced Hymba, Mixtral and Kimi K2 served on the card
+against the CPU, and its
 programs' call and replay counts to one prefill and ``new - 1`` decode
 steps per ``generate``; a failed capture raises. The RWKV-6 scan is held
 to its plain version and to the literal
@@ -324,9 +326,13 @@ def _served(dev, arch, swa=False):
 @pytest.mark.parametrize("arch,swa", [("llama3_8b", False),
                                       ("llama3_8b", True),
                                       ("gemma3_27b", False),
-                                      ("rwkv6_1_6b", False)],
+                                      ("rwkv6_1_6b", False),
+                                      ("hymba_1_5b", False),
+                                      ("mixtral_8x22b", False),
+                                      ("kimi_k2_1t_a32b", False)],
                          ids=["llama3_8b", "llama3_8b-swa", "gemma3_27b",
-                              "rwkv6_1_6b"])
+                              "rwkv6_1_6b", "hymba_1_5b", "mixtral_8x22b",
+                              "kimi_k2_1t_a32b"])
 def test_captured_decode_logits_equal_the_eager_step(dev, arch, swa):
     """Three calls of the decode program (a capture, then two replays)
     against ``make_serve_step`` on a copy of the same cache, token and
@@ -347,6 +353,44 @@ def test_captured_decode_logits_equal_the_eager_step(dev, arch, swa):
         assert all(torch.equal(decode.cache[k], eager[k]) for k in eager)
         tok = got.argmax(-1)[:, None]
     assert (decode.calls, decode.replays) == (3, 2)
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "mixtral_8x22b",
+                                  "kimi_k2_1t_a32b"])
+def test_hybrid_and_moe_serving_reduced_model_matches_cpu(dev, arch):
+    """The reduced model's prefill on the card (attention through the
+    kernel, one launch a layer) against the CPU's logits and cache within
+    atol 1e-3 (cuBLAS and the CPU sum in other orders); captured
+    ``generate`` twice gives the same tokens, and its greedy tokens equal
+    an eager loop of ``make_serve_step`` on the card."""
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    toks = [list(range(1, 13)), [5, 6, 7] * 4]
+    cpu = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    gpu = ServeEngine(cfg, _on(params, dev), max_len=32, kv_chunks=4)
+    lc, cc = cpu.prefill(toks)
+    before = fk.LAUNCHES
+    lg, cg = gpu.prefill(toks)
+    assert fk.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=0)
+    for key in cc:
+        torch.testing.assert_close(cg[key].cpu(), cc[key], atol=1e-3,
+                                   rtol=0)
+    new = 6
+    a = gpu.generate([Request(list(p), new) for p in toks])
+    b = gpu.generate([Request(list(p), new) for p in toks])
+    assert [r.out for r in a] == [r.out for r in b]
+    logits, cache = tfm.prefill_forward(
+        gpu.params, cfg, {"tokens": torch.tensor(toks, device=dev)},
+        gpu.spec)
+    step = make_serve_step(cfg, gpu.spec)
+    tok = logits[:, -1].argmax(-1)
+    eager = [tok]
+    for i in range(new - 1):
+        lg, cache = step(gpu.params, cache, tok[:, None], 12 + i)
+        tok = lg.argmax(-1)
+        eager.append(tok)
+    assert [r.out for r in a] == torch.stack(eager, 1).tolist()
 
 
 def test_generate_runs_through_the_programs(dev):

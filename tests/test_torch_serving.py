@@ -1,11 +1,14 @@
 """The port's serving engine against the reference's.
 
 * ``ServeEngine.generate`` on reduced SmolLM (the reference's serve-test
-  config) and reduced RWKV-6 with the reference's weights carried by
+  config), reduced RWKV-6, Hymba (hybrid, a window-8 ring cache that
+  decode wraps and a 12-token prompt overflows), Mixtral and Kimi K2
+  (MoE, dropless) with the reference's weights carried by
   ``params_from_numpy``: greedy tokens equal to the reference engine's on
   its own requests.
-* ``migrate_kv``: the migrated cache (keys and values, or RWKV-6's
-  float32 state beside its token-shift input, also in bfloat16) is
+* ``migrate_kv``: the migrated cache (keys and values; RWKV-6's float32
+  state beside its token-shift input, also in bfloat16; Hymba's keys,
+  values, float32 SSM state and conv inputs, also in bfloat16) is
   bit-equal to the cache (and to the reference's migration), one dispatch
   per migration, the second one a fast-path hit.
 * The engine's programs (run eagerly here, captured on the card): one
@@ -72,9 +75,26 @@ def rwkv():
     return reduced_model("rwkv6_1_6b")
 
 
+@pytest.fixture(scope="module")
+def hymba():
+    return reduced_model("hymba_1_5b")
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    return reduced_model("mixtral_8x22b")
+
+
+@pytest.fixture(scope="module")
+def kimi():
+    return reduced_model("kimi_k2_1t_a32b")
+
+
 REQUESTS = {
     "two": (48, [([1, 2, 3], 5), ([7, 8, 9, 10], 8)]),
     "one": (32, [([5, 6, 7], 6)]),
+    # a prompt longer than the reduced models' window of 8
+    "long": (48, [(list(range(3, 15)), 6), ([9, 8, 7], 4)]),
 }
 
 
@@ -102,6 +122,13 @@ def test_rwkv_generate_greedy_equals_reference(rwkv, case):
     check_greedy_equals_reference(rwkv, case)
 
 
+@pytest.mark.parametrize("case", sorted(REQUESTS))
+@pytest.mark.parametrize("name", ["hymba", "mixtral", "kimi"])
+def test_hybrid_and_moe_generate_greedy_equals_reference(request, name,
+                                                         case):
+    check_greedy_equals_reference(request.getfixturevalue(name), case)
+
+
 # -- the engine's programs -------------------------------------------------
 
 #: Batches one engine serves in turn: (max new tokens, prompts).
@@ -110,7 +137,7 @@ BATCHES = [(5, [[1, 2, 3], [7, 8, 9, 10]]),
            (6, [[2, 3, 4], [9, 9]])]
 
 
-@pytest.mark.parametrize("name", ["smollm", "rwkv"])
+@pytest.mark.parametrize("name", ["smollm", "rwkv", "hymba", "mixtral"])
 def test_one_engine_serves_batches_of_other_shapes(request, name):
     """Batches of other sizes and prompt lengths in turn through one
     engine (per-shape programs, decode caches shared by batch size) give
@@ -191,7 +218,8 @@ def test_prefill_returns_new_tensors(smollm):
     assert [r.out for r in engine.generate(reqs())] == first
 
 
-@pytest.mark.parametrize("name", ["smollm", "rwkv"])
+@pytest.mark.parametrize("name", ["smollm", "rwkv", "hymba", "mixtral",
+                                  "kimi"])
 def test_decode_program_step_is_serve_step(request, name):
     """One call of the decode program gives ``make_serve_step``'s logits
     and cache on the same cache, token and position, bit for bit."""
@@ -288,6 +316,30 @@ def test_migrate_kv_exact_one_dispatch_fast_path(smollm, dev_mesh):
 
 def test_rwkv_migrate_kv_exact_one_dispatch_fast_path(rwkv, dev_mesh):
     check_migrate_matches_reference(rwkv, dev_mesh)
+
+
+def test_hybrid_migrate_kv_exact_one_dispatch_fast_path(hymba, dev_mesh):
+    check_migrate_matches_reference(hymba, dev_mesh)
+
+
+def test_hybrid_bf16_cache_migrates_bitwise():
+    """A bfloat16 Hymba cache mixes dtypes: bfloat16 keys, values and conv
+    inputs beside the float32 SSM state ride one transfer group, to a
+    device other than the next one."""
+    cfg = dataclasses.replace(get_config("hymba_1_5b").reduced(),
+                              dtype="bfloat16")
+    params = tfm_port.init_params(
+        cfg, generator=torch.Generator().manual_seed(0))
+    engine = ServeEngine(cfg, params, max_len=32,
+                         comm=CommSession(device="cpu"))
+    _, cache = engine.prefill([list(range(1, 13)), list(range(20, 32))])
+    assert sorted(cache) == ["conv", "k", "ssm", "v"]
+    assert cache["ssm"].dtype == torch.float32
+    assert {cache[k].dtype for k in ("k", "v", "conv")} == {torch.bfloat16}
+    moved = engine.migrate_kv(cache, 0, 2)
+    assert all(moved[k].dtype == cache[k].dtype
+               and torch.equal(moved[k], cache[k]) for k in cache)
+    assert engine.comm.stats()["dispatches"] == 1
 
 
 def test_rwkv_bf16_state_cache_migrates_bitwise():
@@ -391,5 +443,13 @@ def test_cli_serves_on_the_cpu(capsys):
 def test_cli_serves_rwkv_on_the_cpu(capsys):
     serve_cli.main(["--device", "cpu", "--arch", "rwkv6_1_6b",
                     "--requests", "2", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "6 tokens in" in out
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "mixtral_8x22b"])
+def test_cli_serves_hybrid_and_moe_on_the_cpu(capsys, arch):
+    serve_cli.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                    "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "req1:" in out and "6 tokens in" in out
