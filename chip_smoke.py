@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100::
 What it does, in order (any failed check exits nonzero):
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   seven CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, started together), printing the build seconds;
 2. holds ``multipath_dma`` against its plain version, bit for bit:
    ``Topology.full_mesh(4)`` plans with 1/2/3 paths, 1/4/8 chunks,
@@ -201,7 +201,7 @@ What it does, in order (any failed check exits nonzero):
     forward + backward, and SDPA's backend; ``loss.backward()`` through
     the dense forward (2 layers,
     float32) against the plain attention's ``wq``/``wk``/``wv`` gradients;
-    RWKV-6 training raising ``NotImplementedError``. Then, counters set to
+    RWKV-6 training running on the card. Then, counters set to
     0 before it and read after it: at full width, 2 layers, float32, TF32
     off, ``make_dp_train_step`` on the default 4-device session against
     ``make_train_step`` and ``make_captured_dp_train_step`` against it
@@ -247,7 +247,35 @@ What it does, in order (any failed check exits nonzero):
     prefill's shape beside the prefill replay; the tail decode check
     within ``MIXTRAL_DECODE_ATOL``, which zeroed keys and values must
     exceed; the times of path E;
-18. one JSON line ``{"kernels": [...]}``, then as the last line
+18. main path M, after path L's tensors are freed: training every family
+    the port serves. First, not counted: the ``rwkv6_scan`` backward
+    kernel against its plain version at (8, 512, 32, 64, 64) with
+    bfloat16 r/k/v and float32 w/u/dO, decays down to 0.3, and at small
+    shapes (a sequence padded to the chunk, dk/dv 16/32 and 8, a nonzero
+    dState) in float32 and bfloat16 (each gradient within 1e-4 / 2e-2 of
+    its largest |want|); its time back to back and replayed as a CUDA
+    graph, each of its three passes' device ms, its bound and the plain
+    version's time. Then, counters set to 0 before it and read after it:
+    RWKV-6 1.6B (``loss.backward()`` through 2 layers in float32 against
+    the plain scan's gradients of the time-mix projections within 1e-4;
+    at 2 layers, float32, the vocabulary cut to 4096, the DP step against
+    the single step and the captured DP step against the DP step, one
+    dispatch, path J's tolerances with elements whose |g| lies within
+    the measured difference of the two steps' gradients held to 2·lr;
+    then 1 warm-up and 3 timed steps of 8 x 512 tokens at full width and
+    depth, bfloat16, float32 moments), Hymba-1.5B (the DP step against
+    the single step at 2 layers in float32; 3 timed steps of 4 x 1536
+    tokens at 32 layers, so that the window of 1024 bites), Mixtral-8x22B
+    at full width over the layers its reckoned bytes leave 15 GB free for
+    (2 or 1 of 56; bfloat16 moments; 3 timed steps of 8 x 512 tokens, the
+    routed pairs per expert and the dropped pairs, and a nonzero weight
+    gradient for exactly the experts that kept pairs): for each, step ms,
+    tokens/s, finite losses, peak GiB, launches a step of every kernel
+    and the idle share of one profiled step; then
+    ``examples_torch/quickstart.py``, ``jacobi_multipath.py --captured``
+    and ``serve_batched.py``, each once with ``--device cuda``; path M's
+    seconds;
+19. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -2160,7 +2188,7 @@ BWD_SWEEP = [(1, 4, 2, 200, d) for d in (16, 32, 64, 128)]
 BWD_MASKS = [(True, None), (True, 64), (False, None), (False, 48)]
 
 
-def bwd_case_err(fk, q, k, v, do, causal, window) -> dict:
+def bwd_case_err(fk, q, k, v, do, causal, window, path: str = "J") -> dict:
     """The backward kernel against its plain version on one input, from
     the forward's ``o`` and ``lse``: each gradient's max abs error and
     max |want|."""
@@ -2168,7 +2196,7 @@ def bwd_case_err(fk, q, k, v, do, causal, window) -> dict:
                                      return_lse=True)
     lse_err = (lse - fk.attention_lse_ref(q, k, causal=causal,
                                           window=window)).abs().max().item()
-    check(lse_err <= 1e-4, f"path J: flash_attention lse at "
+    check(lse_err <= 1e-4, f"path {path}: flash_attention lse at "
           f"{tuple(q.shape)} {q.dtype} causal={causal} window={window}: "
           f"max abs err {lse_err}")
     got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
@@ -2420,11 +2448,12 @@ def attention_grads_check(dev) -> None:
     del params
 
 
-def rwkv_training_raises(dev) -> None:
-    """Path J (a): RWKV-6 training on the card raises
-    ``NotImplementedError`` (no backward kernel yet), at the wrapper and
-    at the builders."""
+def rwkv_training_runs(dev) -> None:
+    """Path J (a): RWKV-6 training on the card runs: the scan's wrapper
+    with grad goes through the backward kernel (one launch), and the
+    builders take the config."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
     from repro_torch.kernels.rwkv6_scan.ops import chunked_scan
     from repro_torch.optim import OptimConfig
     from repro_torch.training import TrainStepConfig, make_train_step
@@ -2432,19 +2461,17 @@ def rwkv_training_raises(dev) -> None:
     r = torch.randn(1, 64, 1, 16, device=dev, requires_grad=True)
     w = torch.rand(1, 64, 1, 16, device=dev) * 0.5 + 0.5
     u = torch.zeros(1, 1, 16, device=dev)
-    for name, fn in (
-            ("chunked_scan", lambda: chunked_scan(r, r, r, w, u, chunk=64)),
-            ("make_train_step", lambda: make_train_step(
-                get_config("rwkv6_1_6b"), TrainStepConfig(), OptimConfig(),
-                device=dev))):
-        try:
-            fn()
-        except NotImplementedError:
-            continue
-        fail(f"path J: RWKV-6 training through {name} on the card did not "
-             f"raise NotImplementedError")
-    print("path J: RWKV-6 training on the card raises NotImplementedError "
-          "(the scan's wrapper and the builders)", flush=True)
+    before = sk.LAUNCHES_BWD
+    (grad,) = torch.autograd.grad(chunked_scan(r, r, r, w, u, chunk=64)
+                                  .sum(), r)
+    check(sk.LAUNCHES_BWD == before + 1 and bool(grad.isfinite().all()),
+          "path J: RWKV-6 training through chunked_scan on the card did not "
+          "run the backward kernel once")
+    make_train_step(get_config("rwkv6_1_6b"), TrainStepConfig(),
+                    OptimConfig(), device=dev)
+    print("path J: RWKV-6 training on the card runs (the scan's wrapper "
+          "through the backward kernel; the builders take the config)",
+          flush=True)
 
 
 #: AdamW's first step moves a parameter by lr · g / (|g| + eps) (the
@@ -2456,8 +2483,8 @@ def rwkv_training_raises(dev) -> None:
 EPS_CONDITIONED = 1e-6
 
 
-def state_close(got, want, what: str, grads=None,
-                lr: float = 0.0) -> tuple[float, int]:
+def state_close(got, want, what: str, grads=None, lr: float = 0.0,
+                path: str = "J") -> tuple[float, int]:
     """Hold a train state's parameters to another's at the reference's
     tolerance (atol 2e-5, rtol 1e-4), except, given the single-device
     step's ``grads``, the elements whose |g| < ``EPS_CONDITIONED``, which
@@ -2476,8 +2503,8 @@ def state_close(got, want, what: str, grads=None,
             cond = g.float().abs() < EPS_CONDITIONED
             loose += int((cond & ~ok).sum())
             ok |= cond & (diff <= 2 * lr)
-        check(bool(ok.all()), f"path J: {what}: params beyond atol 2e-5 / "
-              f"rtol 1e-4 (max abs diff {diff.max().item()})")
+        check(bool(ok.all()), f"path {path}: {what}: params beyond atol "
+              f"2e-5 / rtol 1e-4 (max abs diff {diff.max().item()})")
     return worst, loose
 
 
@@ -2496,12 +2523,62 @@ def arena_bytes(cap) -> int:
     return total
 
 
+def train_timed(path: str, label: str, step_fn, state, batches: list,
+                sess=None, profile: bool = False):
+    """Steps of ``step_fn`` over ``batches``, the first a warm-up and the
+    rest timed (host clock around each synced step): prints the step ms,
+    tokens/s, the losses (each must be finite), the peak GiB, the
+    dispatches and every kernel's launches a step, and with ``profile``
+    the wall and device time, op count and idle share of one more step
+    under the profiler. Returns the last state and the mean step ms."""
+    import math
+
+    from repro_torch.kernels._graph import launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step_fn(state, batches[0])
+    warm = float(m["loss"])
+    c0 = launch_counts()
+    d0 = sess.stats()["dispatches"] if sess is not None else 0
+    losses, times = [], []
+    for bt in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, bt)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = {k: (v - c0[k]) / len(times)
+              for k, v in launch_counts().items() if v != c0[k]}
+    disp = ((sess.stats()["dispatches"] - d0) / len(times)
+            if sess is not None else 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in [warm] + losses),
+          f"path {path}: {label}: a loss is not finite: {[warm] + losses}")
+    ms = sum(times) / len(times) * 1e3
+    tokens = batches[0]["tokens"].numel()
+    print(f"path {path}: {label}: {ms:.2f} ms a step (steps "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, losses "
+          f"{warm!r} (warm-up), {', '.join(repr(x) for x in losses)}; "
+          f"peak {peak:.2f} GiB; {disp:g} dispatches a step; launches a "
+          f"step {counts}", flush=True)
+    if profile:
+        wall, dev_ms, n_ops, rows = profile_device_ms(
+            lambda: step_fn(state, batches[0]), top=8)
+        print(f"path {path}: {label}: one step under the profiler: wall "
+              f"{wall:.2f} ms, device {dev_ms:.2f} ms in {n_ops} ops "
+              f"(idle {1 - dev_ms / wall:.1%}); top: {top_ops(rows)}",
+              flush=True)
+    return state, ms
+
+
 def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
     """Main path J (phase 15): training SmolLM-360M at full width.
 
     (a), not counted: the backward kernel against its plain version and
     its times, ``loss.backward()`` through the dense forward against the
-    plain attention's gradients, and RWKV-6 training raising. Then, with
+    plain attention's gradients, and RWKV-6 training running. Then, with
     every launch counter set to 0 just before and read just after: (b) at
     full width, 2 layers, float32, TF32 off, one step each,
     ``make_dp_train_step`` on the default 4-device session against
@@ -2536,7 +2613,7 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
     # -- 15. main path J: training SmolLM-360M -------------------------------
     row = flash_bwd_checks(randn, errs, smi)
     attention_grads_check(dev)
-    rwkv_training_raises(dev)
+    rwkv_training_runs(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2597,54 +2674,21 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
         ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ,
                                               global_batch=TRAIN_BATCH))
         batches = [batch_to(ds.batch_at(i), dev) for i in range(6)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        state, m = step_fn(state, batches[0])
-        warm = float(m["loss"])
-        c0 = launch_counts()
-        d0 = sess.stats()["dispatches"] if sess is not None else 0
-        losses, times = [], []
-        for bt in batches[1:]:
-            t0 = time.perf_counter()
-            state, m = step_fn(state, bt)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        counts = {k: (v - c0[k]) / len(times)
-                  for k, v in launch_counts().items() if v != c0[k]}
-        disp = ((sess.stats()["dispatches"] - d0) / len(times)
-                if sess is not None else 0)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        check(all(math.isfinite(x) for x in [warm] + losses),
-              f"path J: {label}: a loss is not finite: {[warm] + losses}")
-        ms = sum(times) / len(times) * 1e3
-        print(f"path J ({smi}): {label}: {ms:.2f} ms a step (steps "
-              f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
-              f"{TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3):.0f} tokens/s, losses "
-              f"{warm!r} (warm-up), {', '.join(repr(x) for x in losses)}; "
-              f"peak {peak:.2f} GiB; {disp:g} dispatches a step; launches a "
-              f"step {counts}", flush=True)
-        if profile:
-            wall, dev_ms, n_ops, rows = profile_device_ms(
-                lambda: step_fn(state, batches[0]), top=8)
-            print(f"path J: {label}: one step under the profiler: wall "
-                  f"{wall:.2f} ms, device {dev_ms:.2f} ms in {n_ops} ops "
-                  f"(idle {1 - dev_ms / wall:.1%}); top: {top_ops(rows)}",
-                  flush=True)
-        return state
+        return train_timed("J", label, step_fn, state, batches, sess,
+                           profile)
 
     n_params = sum(t.numel() for t in _leaves(param_shapes(full)))
     state = init_state(full, opt, generator=torch.Generator(
         device=dev).manual_seed(23), device=dev)
-    state = timed(f"make_train_step, full width, {full.num_layers} layers "
-                  f"({n_params} parameters), bfloat16", full,
-                  make_train_step(full, ts, opt, device=dev), state,
-                  profile=True)
+    state, _ = timed(f"make_train_step, full width, {full.num_layers} "
+                     f"layers ({n_params} parameters), bfloat16", full,
+                     make_train_step(full, ts, opt, device=dev), state,
+                     profile=True)
     sess = CommSession(device=dev)
-    state = timed(f"make_dp_train_step on {sess.num_devices} devices, full "
-                  f"width, {full.num_layers} layers, bfloat16", full,
-                  make_dp_train_step(full, ts, opt, sess), state, sess,
-                  profile=True)
+    state, _ = timed(f"make_dp_train_step on {sess.num_devices} devices, "
+                     f"full width, {full.num_layers} layers, bfloat16", full,
+                     make_dp_train_step(full, ts, opt, sess), state, sess,
+                     profile=True)
     del state, sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -2664,9 +2708,9 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
           f"{sess.num_devices} devices: {arena} B = {arena / 1e9:.2f} GB, "
           f"{arena / p2:.1f} B a parameter "
           f"({len(captured.capture.capture.buffers)} buffers)", flush=True)
-    state = timed(f"make_captured_dp_train_step on {sess.num_devices} "
-                  f"devices, full width, 2 layers, bfloat16", cfg2, captured,
-                  state, sess, profile=True)
+    state, _ = timed(f"make_captured_dp_train_step on {sess.num_devices} "
+                     f"devices, full width, 2 layers, bfloat16", cfg2,
+                     captured, state, sess, profile=True)
 
     # (d) checkpoint round trip of the 2-layer state
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -3110,6 +3154,683 @@ def mixtral_path(dev, errs, per_path, read_path) -> None:
     serving_times(cfg, engine, None, toks, logits, cache, new, gen_s, "L")
 
 
+#: Path M's shape of the RWKV-6 scan's backward kernel: one step of
+#: 8 x 512 tokens through RWKV-6 1.6B's 32 heads of 64, chunks of 64.
+RWKV_BWD_SHAPE = (8, 512, 32, 64, 64)
+#: Path M's small cases of the backward kernel, (B, S, H, dk, dv, chunk,
+#: dState): a sequence padded to the chunk (w = 1, zeros), dk/dv 16/32,
+#: a nonzero final-state gradient.
+RWKV_BWD_SMALL = [(2, 100, 3, 16, 32, 32, True), (1, 96, 2, 32, 16, 16, True),
+                  (3, 40, 2, 8, 8, 8, False)]
+#: The backward kernel against its plain version: each gradient's largest
+#: error relative to its largest |want| (float32 sums in another order;
+#: bfloat16 gradients rounded once).
+RWKV_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: Path M's lowest decay: a chunk of 64 then spans the decay range path G
+#: prints for a real prefill.
+RWKV_BWD_LOW = 0.3
+#: Path M's RWKV-6 correctness checks cut the vocabulary to this (the
+#: captured DP step's arena takes ~400 B a float32 parameter at 4
+#: devices, and the full vocabulary's embedding and head are 268 M
+#: parameters); the width, heads and layers' shapes stay the config's.
+RWKV_CHECK_VOCAB = 4096
+
+
+#: Path M's attention shapes: each family's (batch, sequence) of its
+#: timed steps; heads, head dim and windows are the config's.
+FAMILY_ATTN = {"hymba_1_5b": (4, 1536), "mixtral_8x22b": (8, 512)}
+
+
+def family_attention_bwd_checks(randn, errs) -> None:
+    """Path M (a), not counted: the ``flash_attention`` backward kernel
+    against its plain version in bfloat16 at each ``FAMILY_ATTN`` shape,
+    causal, at every window the config's layers use, each of dQ, dK, dV
+    within ``BWD_REL`` of its largest |want|."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.transformer import layer_windows
+
+    t0 = time.perf_counter()
+    out = []
+    for cfg_name, (b, s) in FAMILY_ATTN.items():
+        cfg = get_config(cfg_name)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for window in sorted(set(layer_windows(cfg))):
+            window = None if window < 0 else window
+            q = (randn(b, hq, s, d) * 0.5).to(torch.bfloat16)
+            k = (randn(b, hkv, s, d) * 0.5).to(torch.bfloat16)
+            v = randn(b, hkv, s, d, dtype=torch.bfloat16)
+            do = randn(b, hq, s, d, dtype=torch.bfloat16)
+            rel = {}
+            for name, (err, top) in bwd_case_err(fk, q, k, v, do, True,
+                                                 window, "M").items():
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                rel[name] = err / top
+                check(err <= BWD_REL[torch.bfloat16] * top,
+                      f"path M: flash_attention_bwd {name} at ({b}, "
+                      f"{hq}/{hkv}, {s}, {d}) bfloat16 causal window "
+                      f"{window}: max abs err {err} > 2e-2 * {top}")
+            out.append(f"{cfg_name} ({b}, {hq}/{hkv}, {s}, {d}) window "
+                       f"{window}: " + ", ".join(f"{n} {r:.3g}"
+                                                 for n, r in rel.items()))
+            del q, k, v, do
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"path M: flash_attention_bwd bfloat16 vs plain at the families' "
+          f"training shapes, causal (max abs err / max |want|): "
+          f"{'; '.join(out)} (bound 2e-2; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv, chunk, dtype):
+    """Backward inputs in the model's layout: ``rwkv_inputs`` with decays
+    from [RWKV_BWD_LOW, 0.999), one bonus row per head, a float32 output
+    gradient; a sequence padded as the model pads it (r, k, v and dO 0
+    and w 1 past S)."""
+    pad = (-s) % chunk
+    r, k, v, _, u = rwkv_inputs(randn, rand, b, s + pad, h, dk, dv, dtype)
+    w = rand(b, s + pad, h, dk) * (0.999 - RWKV_BWD_LOW) + RWKV_BWD_LOW
+    do = randn(b, s + pad, h, dv)
+    if pad:
+        for t in (r, k, v, do):
+            t[:, s:] = 0
+        w[:, s:] = 1
+    return r, k, v, w, u[:1].expand(b, -1, -1), do
+
+
+def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
+    """Path M (a), not counted: the ``rwkv6_scan`` backward kernel against
+    its plain version at ``RWKV_BWD_SHAPE`` (bfloat16 r/k/v, float32
+    w/u/dO, from the forward kernel's chunk-start states) and at
+    ``RWKV_BWD_SMALL`` in float32 and bfloat16, each of dr, dk, dv, dw, du
+    within ``RWKV_BWD_REL``; then at the main shape its time back to back
+    and as one call captured and replayed, each pass's device ms (from
+    the profiler, by kernel name), its bound and the plain version's time.
+    Returns the kernel row."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+
+    names = ("dr", "dk", "dv", "dw", "du")
+
+    def case(b, s, h, dk, dv, chunk, dtype, with_dstate):
+        r, k, v, w, u, do = rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv,
+                                            chunk, dtype)
+        dstate = randn(b, h, dk, dv) if with_dstate else None
+        _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=chunk,
+                                              out_dtype=torch.float32)
+        got = sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, dstate,
+                                     states=states, chunk=chunk)
+        want = sk.rwkv6_scan_bwd_plain(r, k, v, w, u, do, dstate,
+                                       chunk=chunk)
+        rel = {}
+        for name, g, wv in zip(names, got, want):
+            err = (g.float() - wv.float()).abs().max().item()
+            top = wv.float().abs().max().item()
+            errs["rwkv6_scan_bwd"] = max(errs["rwkv6_scan_bwd"], err)
+            rel[name] = err / top
+            check(g.dtype == wv.dtype and err <= RWKV_BWD_REL[g.dtype] * top,
+                  f"path M: rwkv6_scan_bwd {name} at {(b, s, h, dk, dv)} "
+                  f"chunk {chunk} {dtype} dState={with_dstate}: max abs err "
+                  f"{err} > {RWKV_BWD_REL[g.dtype]} * {top}")
+        return rel
+
+    t0 = time.perf_counter()
+    b, s, h, dk, dv = RWKV_BWD_SHAPE
+    chunk = sk.MAX_CHUNK
+    main_rel = case(b, s, h, dk, dv, chunk, torch.bfloat16, False)
+    small = {}
+    for shape in RWKV_BWD_SMALL:
+        for dt in (torch.float32, torch.bfloat16):
+            small[(shape, str(dt)[6:])] = max(case(*shape[:6], dt,
+                                                   shape[6]).values())
+    print(f"path M: rwkv6_scan_bwd vs plain (max abs err / max |want|) at "
+          f"{RWKV_BWD_SHAPE} bf16 r/k/v, f32 w/u/dO, w in [{RWKV_BWD_LOW}, "
+          f"0.999): " + ", ".join(f"{n} {r:.3g}" for n, r in main_rel.items())
+          + "; small cases (B, S, H, dk, dv, chunk, dState): "
+          + ", ".join(f"{k_[0]} {k_[1]} {r:.3g}" for k_, r in small.items())
+          + f" (bounds float32 1e-4, bfloat16 2e-2; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    r, k, v, w, u, do = rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv, chunk,
+                                        torch.bfloat16)
+    _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=chunk,
+                                          out_dtype=torch.float32)
+
+    def bwd():
+        return sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states=states,
+                                      chunk=chunk)
+
+    # each (batch, head, chunk) is its own block: a DP shard's gradients
+    # are bitwise the whole batch's rows
+    part = slice(2, 4)
+    _, _, pstates = sk.rwkv6_scan_fwd_cuda(
+        r[part], k[part], v[part], w[part], u[part], chunk=chunk,
+        out_dtype=torch.float32)
+    shard = sk.rwkv6_scan_bwd_cuda(r[part], k[part], v[part], w[part],
+                                   u[part], do[part], states=pstates,
+                                   chunk=chunk)
+    check(all(torch.equal(a[part], b_) for a, b_ in zip(bwd(), shard)),
+          "path M: rwkv6_scan_bwd on a batch shard differs from the whole "
+          "batch's rows")
+    ms = cuda_time_ms(bwd, 20)
+    fwd_ms = cuda_time_ms(lambda: sk.rwkv6_scan_fwd_cuda(
+        r, k, v, w, u, chunk=chunk, out_dtype=torch.float32), 20)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bwd()
+    graph_ms = cuda_time_ms(graph.replay, 20)
+    del graph
+    plain_ms = cuda_time_ms(lambda: sk.rwkv6_scan_bwd_plain(
+        r, k, v, w, u, do, chunk=chunk, states=states), 3, warmup=1)
+    # each pass's device ms from the profiler, by kernel name
+    _, _, _, rows = profile_device_ms(lambda: [bwd() for _ in range(10)],
+                                      top=None)
+    passes = {name: ms_ / n for name, ms_, n in
+              ((kernel_name(key), ms_, n) for key, ms_, n in rows)
+              if name.startswith("rwkv6_bwd_")}
+    check(len(passes) == 3, f"path M: the profiler did not see "
+          f"rwkv6_scan_bwd's three kernels: {rows}")
+    # each input read once (r, k, v bfloat16; w, dO and the chunk-start
+    # states float32; one u row per head), each output written once (dr,
+    # dk, dv bfloat16, dw float32, du)
+    nbytes = ((2 * dk + dv) * 2 * 2 + dk * 4 * 2 + dv * 4) * b * s * h \
+        + states.numel() * 4 + h * dk * 4 + b * h * dk * 4
+
+    # FMAs per position in chunks of c: the four dk x dv products (dO Sᵀ,
+    # V Gᵀ, k̂ G and the reverse pass's q̃ᵀ dO), the strictly causal A,
+    # dA k̃, dAᵀ q̃ ((c - 1) / 2 each over dk) and dA ((c - 1) / 2 over
+    # dv), Aᵀ dO with its diagonal ((c + 1) / 2 over dv) and G's decay
+    # once a chunk; at the c that needs least
+    def per_position(c):
+        return (4 * dk * dv + (c - 1) / 2 * (3 * dk + dv)
+                + (c + 1) / 2 * dv + dk * dv / c)
+
+    best = min(range(1, s + 1), key=per_position)
+    flops = round(2 * b * h * s * per_position(best))
+    kernel_flops = round(2 * b * h * s * per_position(chunk))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"path M ({smi}): rwkv6_scan_bwd {RWKV_BWD_SHAPE} bf16 r/k/v, f32 "
+          f"w/u/dO, chunk {chunk}: kernel {ms:.4f} ms back to back, one "
+          f"call captured and replayed {graph_ms:.4f} ms (the forward "
+          f"{fwd_ms:.4f} ms); its kernels' device ms: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in passes.items())
+          + f"; bound {bound:.4f} ms ({flops} float32 FLOPs in chunks of "
+          f"{best} at 67 TFLOP/s = {ops_ms:.4f} ms, the kernel's chunks of "
+          f"{chunk} do {kernel_flops}; {nbytes} B at 3.35 TB/s = "
+          f"{bytes_ms:.4f} ms; {bound / ms:.1%} of bound back to back, "
+          f"{bound / graph_ms:.1%} replayed), plain {plain_ms:.4f} ms; a "
+          f"shard of 2 of the 8 rows gives those rows' gradients bitwise",
+          flush=True)
+    return {"name": "rwkv6_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
+                      "rwkv6_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:158",
+            "replaces_note": "no Pallas site: the reference differentiates "
+                             "its rwkv6_apply chunk math",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "graph_ms": graph_ms, "fwd_ms": fwd_ms,
+            "passes_ms": passes, "shape": list(RWKV_BWD_SHAPE)}
+
+
+#: Path M's RWKV-6 DP step against its single-device step: the largest
+#: difference of the gradients each hands its AdamW update (the DP step's
+#: after the multipath all-reduce), per leaf, as a share of the leaf's
+#: largest |g|; float32, TF32 off, 2 layers at the family's timed batch.
+#: Set from the readings recorded on an H100 80GB HBM3 at 700 W, the
+#: whole batch's gradients against the mean of its 4 shards': RWKV-6 1.6B
+#: 8.04e-3 (6.85e-3 with the plain scan: the per-head group norm's
+#: conditioning, whose input mean square spans 5.57e-6 to 2.69e3, not the
+#: kernel), Hymba-1.5B 9.44e-6. The control, a DP gradient that lost one
+#: of the 4 shards, must exceed it. The RWKV-6 bound also holds the
+#: scan kernel's ``loss.backward()`` against the plain scan's on the DP
+#: check's own parameters and batch, where a difference within it is one
+#: float32 summation order against another.
+DP_GRAD_REL = {"ssm": 2e-2, "hybrid": 1e-4}
+def scan_grads_check(dev, cfg, params, batch, bound: float,
+                     what: str) -> None:
+    """Path M: ``loss.backward()`` through ``cfg`` (RWKV-6, float32) on
+    the card from ``params`` on ``batch`` gives every leaf the gradient of
+    the same forward with the plain scan, within ``bound`` of the leaf's
+    largest |g|; the backward kernel launched once a layer. Prints the
+    time-mix projections' and the bonus's readings, the worst other
+    leaf's and the group norm's input spread."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+
+    leaves = _leaves(params)
+    names = ("w_r", "w_k", "w_v", "w_w", "w_g", "u")
+    named = {id(params["layers"]["rwkv"][n]): n for n in names}
+
+    def grads():
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        tfm.loss_fn(params, cfg, batch).backward()
+        out = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        return out
+
+    def plain(r, k, v, w, u, *, chunk, out_dtype=None, return_state=False):
+        return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
+                                   out_dtype=out_dtype,
+                                   return_state=return_state)
+
+    spread = []
+    finish = ssm._rwkv6_finish
+
+    def recording(o, g, p, dtype):
+        var = o.float().square().mean(-1)
+        spread.append((var.min().item(), var.median().item(),
+                       var.max().item()))
+        return finish(o, g, p, dtype)
+
+    ssm._rwkv6_finish = recording
+    bwd0 = sk.LAUNCHES_BWD
+    try:
+        got = grads()
+    finally:
+        ssm._rwkv6_finish = finish
+    check(sk.LAUNCHES_BWD - bwd0 == cfg.num_layers,
+          f"path M: loss.backward() launched rwkv6_scan_bwd "
+          f"{sk.LAUNCHES_BWD - bwd0} times, not once per layer")
+    kernel_scan = ssm.chunked_scan
+    ssm.chunked_scan = plain
+    try:
+        want = grads()
+    finally:
+        ssm.chunked_scan = kernel_scan
+    rels, other = [], (0.0, "")
+    for i, (t, g, w) in enumerate(zip(leaves, got, want)):
+        name = named.get(id(t))
+        top = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        if name:
+            rels.append(f"{name} {err / top:.3g}")
+        else:
+            other = max(other, (err / max(top, 1e-30),
+                                f"leaf {i} {tuple(w.shape)}"))
+        check(err <= bound * top, f"path M: loss.backward() ({what}): leaf "
+              f"{i} {name or tuple(w.shape)} grad differs from the plain "
+              f"scan's: max abs err {err}, max |want| {top}, bound {bound}")
+    print(f"path M: loss.backward() through {cfg.name} ({cfg.num_layers} "
+          f"layers, float32, vocab {cfg.vocab_size}), {what}, "
+          f"{tuple(batch['tokens'].shape)} tokens, against the plain scan's "
+          f"gradients, max abs err / max |g|: {', '.join(rels)}, every other "
+          f"leaf up to {other[0]:.3g} ({other[1]}) (bound {bound}); the "
+          f"group norm's input, mean square per (position, head), min / "
+          f"median / max per call: "
+          + ", ".join(f"{x:.3g} / {y:.3g} / {z:.3g}" for x, y, z in spread),
+          flush=True)
+
+
+def _worst_rel(got, want) -> tuple[float, str]:
+    """The largest of each leaf's max |got - want| over its max |want|,
+    and which leaf."""
+    top = (0.0, "")
+    for i, (a, b) in enumerate(zip(got, want)):
+        rel = ((a - b).abs().max().item()
+               / max(b.abs().max().item(), 1e-30))
+        top = max(top, (rel, f"leaf {i} {tuple(b.shape)}"))
+    return top
+
+
+def dp_against_single(path, cfg, ts, opt, dev, batch, seed,
+                      captured=False) -> None:
+    """Path M's correctness check for ``cfg`` (float32, TF32 off): one
+    ``make_dp_train_step`` on the default 4-device session against one
+    ``make_train_step``: the losses within rtol 1e-5, and the gradients
+    each hands its AdamW update (the DP step's after the multipath
+    all-reduce) within ``DP_GRAD_REL`` of each leaf's largest |g|, a
+    bound the control (the mean of 3 of the 4 shards' gradients, one
+    replica's lost) must exceed. RWKV-6 also prints, unchecked, the whole
+    batch's gradients against its shards' mean with the plain scan. With
+    ``captured``, ``make_captured_dp_train_step`` against the DP step (one
+    dispatch, loss rtol 1e-5, params as path J holds them), its arena
+    reckoned first."""
+    from repro_torch.comm import CommSession
+    from repro_torch.training import (init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, make_train_step)
+    from repro_torch.training import train_step as tsm
+    from repro_torch.training.train_step import _make_grad_fn, _shards
+
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    seen = []
+    update = tsm._update
+
+    def recording(params, grads, opt_state, opt_):
+        seen.append(grads)
+        return update(params, grads, opt_state, opt_)
+
+    tsm._update = recording
+    try:
+        single, m1 = make_train_step(cfg, ts, opt, device=dev)(state, batch)
+        dp, m2 = make_dp_train_step(cfg, ts, opt, CommSession(device=dev))(
+            state, batch)
+    finally:
+        tsm._update = update
+    grads, dp_grads = seen
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(abs(l2 - l1) <= 1e-5 * abs(l1), f"path {path}: DP loss {l2} vs "
+          f"single-device {l1} beyond rtol 1e-5")
+    bound = DP_GRAD_REL[cfg.family]
+    dp_rel = _worst_rel(_leaves(dp_grads), _leaves(grads))
+    check(dp_rel[0] <= bound, f"path {path}: {cfg.name} DP step's gradients "
+          f"differ from the single step's by {dp_rel[0]} of a leaf's max "
+          f"|g| ({dp_rel[1]}), beyond {bound}")
+    grad_fn = _make_grad_fn(cfg, ts)
+
+    def shard_grads():
+        return [_leaves(grad_fn(state["params"], sh)[1])
+                for sh in _shards(batch, 4)]
+
+    lost = [sum(per[:3]) / 3 for per in zip(*shard_grads())]
+    ctl_rel = _worst_rel(lost, _leaves(grads))
+    check(ctl_rel[0] > bound, f"path {path}: {cfg.name}: the control (one "
+          f"of 4 shards' gradients lost) is within the bound {bound} "
+          f"({ctl_rel[0]}): the check cannot tell")
+    del lost, dp_grads
+    plain_note = ""
+    if cfg.family == "ssm":     # the same with the plain scan on the card
+        from repro_torch.kernels.rwkv6_scan import kernel as sk
+        from repro_torch.models import ssm
+
+        def plain(r, k, v, w, u, *, chunk, out_dtype=None,
+                  return_state=False):
+            return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
+                                       out_dtype=out_dtype,
+                                       return_state=return_state)
+
+        kernel_scan = ssm.chunked_scan
+        ssm.chunked_scan = plain
+        try:
+            whole = _leaves(grad_fn(state["params"], batch)[1])
+            mean = [sum(per) / len(per) for per in zip(*shard_grads())]
+            plain_rel = _worst_rel(mean, whole)
+        finally:
+            ssm.chunked_scan = kernel_scan
+        plain_note = (f"; with the plain scan the whole batch's against "
+                      f"its 4 shards' mean: {plain_rel[0]:.3g} "
+                      f"({plain_rel[1]})")
+        del whole, mean
+    lr1 = float(m1["lr"])
+    note = ""
+    if captured:
+        sess = CommSession(device=dev)
+        step = make_captured_dp_train_step(cfg, ts, opt, sess, state, batch)
+        arena = arena_bytes(step.capture.capture)
+        d0 = sess.stats()["dispatches"]
+        cap, m3 = step(state, batch)
+        check(sess.stats()["dispatches"] - d0 == 1,
+              f"path {path}: the captured step is not one dispatch a call")
+        l3 = float(m3["loss"])
+        check(abs(l3 - l2) <= 1e-5 * abs(l2), f"path {path}: captured loss "
+              f"{l3} vs DP {l2} beyond rtol 1e-5")
+        cap_err, cap_loose = state_close(
+            cap, dp, f"{cfg.name} captured step vs DP step", grads, lr1,
+            path=path)
+        note = (f"; captured loss {l3!r} (1 dispatch, arena "
+                f"{arena / 1e9:.2f} GB), params max abs diff captured-DP "
+                f"{cap_err} (atol 2e-5 / rtol 1e-4; {cap_loose} elements "
+                f"with |g| < {EPS_CONDITIONED} beyond it, within 2 lr)")
+        del step, cap, sess
+    n = sum(t.numel() for t in _leaves(state["params"]))
+    print(f"path {path}: {cfg.name} {cfg.num_layers} layers ({n} "
+          f"parameters, vocab {cfg.vocab_size}), float32, TF32 off, one step "
+          f"of {tuple(batch['tokens'].shape)} tokens: loss single {l1!r}, DP "
+          f"{l2!r}; the gradients each step hands AdamW, DP (after the "
+          f"multipath all-reduce) against single, max abs diff / leaf max "
+          f"|g|: {dp_rel[0]:.3g} ({dp_rel[1]}; bound {bound}); the control, "
+          f"one of 4 shards lost: {ctl_rel[0]:.3g} ({ctl_rel[1]}; must "
+          f"exceed the bound){plain_note}{note}", flush=True)
+    del state, dp, single, grads, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_batches(cfg, dev, batch: int, seq: int, n: int) -> list:
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=seq, global_batch=batch))
+    return [batch_to(ds.batch_at(i), dev) for i in range(n)]
+
+
+def update_bytes(cfg, opt) -> tuple[int, int]:
+    """The bytes a train step holds for ``cfg``'s state: parameters,
+    gradients and moments, the update's new parameters and moments (made
+    before the old are freed) and nine float32 temporaries of the largest
+    leaf or of its slice (AdamW's per-leaf arithmetic, ``UPDATE_SLICE``
+    elements at a time); and the first three alone."""
+    import math
+
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim.adamw import UPDATE_SLICE
+
+    shapes = _leaves(param_shapes(cfg))
+    pbytes = sum(t.numel() * t.element_size() for t in shapes)
+    msize = torch.empty((), dtype=getattr(torch, opt.moment_dtype)
+                        ).element_size()
+    n = sum(t.numel() for t in shapes)
+    state = 2 * pbytes + 2 * n * msize
+    largest = max(math.prod(t.shape) for t in shapes)
+    if opt.moment_dtype != "int8":
+        largest = min(largest, UPDATE_SLICE)
+    return state + pbytes + 2 * n * msize + 9 * 4 * largest, state
+
+
+def families_training_path(dev, errs, per_path, read_path, smi) -> dict:
+    """Main path M (phase 18): training every family the port serves on
+    the card. (a), not counted: the ``rwkv6_scan`` backward kernel's
+    checks and times, and the ``flash_attention`` backward kernel against
+    its plain version at Hymba's and Mixtral's training shapes. Then,
+    counters set to 0 just before and read just after: RWKV-6 1.6B at
+    full width and depth (``loss.backward()`` with the kernel against the
+    plain scan's gradients, the DP step's gradients against the single
+    step's and the captured DP step against the DP step, at 2 layers in
+    float32; 1 warm-up and 3 timed steps of 8 x 512 tokens in
+    bfloat16 at 24), Hymba-1.5B at full width and depth (the DP step's
+    gradients against the single step's at 2 layers in float32; 3 timed
+    steps of 4 x 1536 tokens at 32), Mixtral-8x22B at full width over the layers its
+    reckoned bytes allow (2, or 1 when 2 would leave under 15 GB free;
+    3 timed steps of 8 x 512 tokens, bfloat16 moments; each expert's
+    routed pairs, the dropped pairs, and a nonzero weight gradient for
+    exactly the experts that kept pairs), and each of the three port
+    examples once with ``--device cuda``. Returns the backward kernel's
+    row."""
+    import dataclasses
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.train_step import _make_grad_fn
+
+    # -- 18. main path M: training every family ------------------------------
+    t_path = time.perf_counter()
+    dev_gen = torch.Generator(device=dev).manual_seed(41)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=dev_gen, device=dev)
+
+    row = rwkv_bwd_checks(randn, rand, errs, smi)
+    family_attention_bwd_checks(randn, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ts = TrainStepConfig()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    reset_launch_counts()
+
+    # RWKV-6 1.6B
+    full = get_config("rwkv6_1_6b")
+    check((full.num_layers, full.d_model, full.d_model // full.rwkv_head_dim,
+           full.rwkv_head_dim, full.vocab_size, full.dtype, full.remat)
+          == (24, 2048, 32, 64, 65536, "bfloat16", "full"),
+          f"rwkv6_1_6b is not the full config: {full}")
+    cfg32 = dataclasses.replace(full, num_layers=2, dtype="float32",
+                                vocab_size=RWKV_CHECK_VOCAB)
+    params = tfm.init_params(
+        cfg32, generator=torch.Generator(device=dev).manual_seed(31),
+        device=dev)
+    for bsz, seq in ((2, 256), (8, 512)):
+        toks = torch.randint(0, cfg32.vocab_size, (bsz, seq + 1),
+                             generator=torch.Generator().manual_seed(32))
+        scan_grads_check(dev, cfg32, params, {
+            "tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)},
+            1e-4, "random weights and tokens")
+    batch = family_batches(cfg32, dev, 8, 512, 1)[0]
+    params = init_state(cfg32, opt, generator=torch.Generator(
+        device=dev).manual_seed(42), device=dev)["params"]
+    scan_grads_check(dev, cfg32, params, batch, DP_GRAD_REL["ssm"],
+                     "the DP check's weights and batch")
+    del params
+    dp_against_single("M", cfg32, ts, opt, dev, batch, 42, captured=True)
+    state = init_state(full, opt, generator=torch.Generator(
+        device=dev).manual_seed(43), device=dev)
+    n = sum(t.numel() for t in _leaves(state["params"]))
+    state, rwkv_ms = train_timed(
+        "M", f"RWKV-6 1.6B make_train_step, full width, {full.num_layers} "
+        f"layers ({n} parameters), bfloat16, float32 moments, 8 x 512 "
+        f"tokens", make_train_step(full, ts, opt, device=dev), state,
+        family_batches(full, dev, 8, 512, 4), profile=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Hymba-1.5B
+    full = get_config("hymba_1_5b")
+    check((full.family, full.num_layers, full.d_model, full.window,
+           full.dtype, full.remat) == ("hybrid", 32, 1600, 1024, "bfloat16",
+                                       "full"),
+          f"hymba_1_5b is not the full config: {full}")
+    cfg32 = dataclasses.replace(full, num_layers=2, dtype="float32")
+    dp_against_single("M", cfg32, ts, opt, dev,
+                      family_batches(cfg32, dev, 4, 1536, 1)[0], 44)
+    state = init_state(full, opt, generator=torch.Generator(
+        device=dev).manual_seed(45), device=dev)
+    n = sum(t.numel() for t in _leaves(state["params"]))
+    state, hymba_ms = train_timed(
+        "M", f"Hymba-1.5B make_train_step, full width, {full.num_layers} "
+        f"layers ({n} parameters), bfloat16, float32 moments, 4 x 1536 "
+        f"tokens (window {full.window})",
+        make_train_step(full, ts, opt, device=dev), state,
+        family_batches(full, dev, 4, 1536, 4), profile=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x22B
+    full = get_config("mixtral_8x22b")
+    check((full.num_layers, full.d_model, full.num_experts, full.top_k,
+           full.d_ff, full.optimizer_dtype) == (56, 6144, 8, 2, 16384,
+                                                "bfloat16"),
+          f"mixtral_8x22b is not the full config: {full}")
+    mopt = dataclasses.replace(opt, moment_dtype=full.optimizer_dtype)
+    free = torch.cuda.mem_get_info()[0]
+    need, held = update_bytes(dataclasses.replace(full, num_layers=2), mopt)
+    layers = 2 if free - need >= 15e9 else 1
+    cfg = dataclasses.replace(full, num_layers=layers)
+    need1, held1 = update_bytes(cfg, mopt)
+    print(f"path M: Mixtral-8x22B training bytes at 2 layers: params, grads "
+          f"and bfloat16 moments {held / 1e9:.2f} GB, with the update's new "
+          f"state and float32 temporaries {need / 1e9:.2f} GB, of "
+          f"{free / 1e9:.2f} GB free: {layers} layer(s) ({held1 / 1e9:.2f} "
+          f"GB, {need1 / 1e9:.2f} GB at the update)", flush=True)
+    state = init_state(cfg, mopt, generator=torch.Generator(
+        device=dev).manual_seed(46), device=dev)
+    batches = family_batches(cfg, dev, 8, 512, 4)
+    n = sum(t.numel() for t in _leaves(state["params"]))
+    state, mixtral_ms = train_timed(
+        "M", f"Mixtral-8x22B make_train_step, full width, {layers} of 56 "
+        f"layers ({n} parameters), bfloat16, bfloat16 moments, 8 x 512 "
+        f"tokens, capacity factor {cfg.capacity_factor}",
+        make_train_step(cfg, ts, mopt, device=dev), state, batches,
+        profile=True)
+    e = cfg.num_experts
+    routed = []
+    real = moe_lib.moe_apply
+
+    def counting(x, p, *, top_k, kind, capacity_factor=1.25,
+                 dropless=False):
+        r = moe_lib.route(x, p["router"], top_k=top_k,
+                          capacity=moe_lib.capacity_of(
+                              x.shape[0], e, top_k, capacity_factor,
+                              dropless))
+        routed.append((torch.zeros(e, device=x.device).index_add_(
+            0, r.expert, r.keep.float()), (~r.keep).sum(), r.capacity))
+        return real(x, p, top_k=top_k, kind=kind,
+                    capacity_factor=capacity_factor, dropless=dropless)
+
+    moe_lib.moe_apply = counting
+    try:
+        _, grads = _make_grad_fn(cfg, ts)(state["params"], batches[0])
+    finally:
+        moe_lib.moe_apply = real
+    kept = [c.long().tolist() for c, _, _ in routed[:layers]]
+    dropped = [int(d) for _, d, _ in routed[:layers]]
+    moe_g = grads["layers"]["moe"]
+    nonzero = [[bool(any(moe_g[w][li, j].abs().max() > 0
+                         for w in ("w1", "w2", "w3"))) for j in range(e)]
+               for li in range(layers)]
+    check(all(nonzero[li][j] == (kept[li][j] > 0)
+              for li in range(layers) for j in range(e)),
+          f"path M: experts with a nonzero weight gradient {nonzero} are not "
+          f"those that kept pairs {kept}")
+    tokens = batches[0]["tokens"].numel()
+    check(all(sum(kept[li]) + dropped[li] == tokens * cfg.top_k
+              for li in range(layers)),
+          "path M: kept and dropped pairs do not add up to tokens x top_k")
+    print(f"path M: Mixtral-8x22B one step's routing ({tokens} tokens, "
+          f"top-{cfg.top_k}, capacity {routed[0][2]} a expert): kept pairs "
+          f"per expert per layer {kept}, dropped {dropped}; experts with a "
+          f"nonzero w1/w2/w3 gradient are exactly those that kept pairs",
+          flush=True)
+    del state, grads, moe_g, routed, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the port's examples, each once on the card
+    for name, args in (("quickstart", []),
+                       ("jacobi_multipath", ["--captured"]),
+                       ("serve_batched", [])):
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(HERE, "examples_torch",
+                                            f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        print(f"path M: examples_torch/{name}.py "
+              f"{' '.join(['--device', 'cuda', *args])}:", flush=True)
+        mod.main(["--device", "cuda", *args])
+        torch.cuda.synchronize()
+        print(f"path M: {name} ran in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    read_path("M")
+    for name in ("rwkv6_scan", "rwkv6_scan_bwd", "flash_attention",
+                 "flash_attention_bwd", "multipath_dma", "jacobi",
+                 "ring_allgather"):
+        check(per_path["M"].get(name, 0) > 0,
+              f"path M did not launch {name}")
+    print(f"path M ({smi}): step ms RWKV-6 {rwkv_ms:.2f}, Hymba "
+          f"{hymba_ms:.2f}, Mixtral ({layers} layers) {mixtral_ms:.2f}; "
+          f"path M took {time.perf_counter() - t_path:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3349,11 +4070,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mixtral_path(dev, errs, per_path, read_path)
-    print(f"main-path launches (paths A-L): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.append(families_training_path(dev, errs, per_path, read_path,
+                                          smi))
+    print(f"main-path launches (paths A-M): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 18. report --------------------------------------------------------
+    # -- 19. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

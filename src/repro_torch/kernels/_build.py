@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel's source lives in ``kernels/<name>/csrc/<name>.cu`` (the
-attention backward's beside the forward's, in ``flash_attention/csrc/``)
+Each kernel's source lives in ``kernels/<name>/csrc/<name>.cu`` (each
+backward's beside its forward's, in ``flash_attention/csrc/`` and
+``rwkv6_scan/csrc/``)
 and exposes a plain C interface. It is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library at first
 use, under ``build/repro_torch/`` at the root of the checkout (or
@@ -28,9 +29,10 @@ KERNEL_DIR = Path(__file__).resolve().parent
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("multipath_dma", "jacobi", "ring_allgather", "flash_attention",
-           "flash_attention_bwd", "rwkv6_scan")
+           "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 #: A kernel whose source sits in another kernel's ``csrc/``.
-_DIRS = {"flash_attention_bwd": "flash_attention"}
+_DIRS = {"flash_attention_bwd": "flash_attention",
+         "rwkv6_scan_bwd": "rwkv6_scan"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -26,7 +26,8 @@ from repro_torch.kernels import _build
 
 #: Kernel name → (kernel module, counter) where it is not
 #: ``<name>.kernel.LAUNCHES``.
-_COUNTERS = {"flash_attention_bwd": ("flash_attention", "LAUNCHES_BWD")}
+_COUNTERS = {"flash_attention_bwd": ("flash_attention", "LAUNCHES_BWD"),
+             "rwkv6_scan_bwd": ("rwkv6_scan", "LAUNCHES_BWD")}
 
 
 def _counter(name: str):

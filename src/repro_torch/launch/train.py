@@ -8,6 +8,10 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
         --reduced --steps 200 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1_6b \
+        --reduced --device cpu      # or hymba_1_5b, mixtral_8x22b
+
+Every family the port serves trains (``--arch``); only audio is refused.
 """
 
 from __future__ import annotations

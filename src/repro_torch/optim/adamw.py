@@ -113,9 +113,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+#: A leaf of more elements is updated a slice of this many at a time
+#: (float32 and bfloat16 moments; int8 moments need the whole leaf's
+#: absmax): AdamW's float32 temporaries then take a few slices' bytes
+#: rather than a few copies of the leaf (an expert weight of Mixtral-8x22B
+#: is 805 M elements, 3.2 GB in float32).
+UPDATE_SLICE = 1 << 26
+
+
 def apply_updates(params, grads, state, cfg: OptimConfig):
     """One AdamW step. Returns (new_params, new_state, metrics); metrics
-    ``grad_norm`` and ``lr`` are 0-d float32 tensors."""
+    ``grad_norm`` and ``lr`` are 0-d float32 tensors. A leaf larger than
+    :data:`UPDATE_SLICE` is updated slice by slice (the same bits)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -126,7 +135,7 @@ def apply_updates(params, grads, state, cfg: OptimConfig):
     bc2 = 1 - torch.pow(b2, stepf)
     md = cfg.moment_dtype
 
-    def upd(p, g, m, v):
+    def upd_whole(p, g, m, v):
         g = g.to(torch.float32) * clip
         m_f = b1 * _moment_read(m, md) + (1 - b1) * g
         v_f = b2 * _moment_read(v, md) + (1 - b2) * torch.square(g)
@@ -136,6 +145,19 @@ def apply_updates(params, grads, state, cfg: OptimConfig):
             p.to(torch.float32)
         new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
         return new_p, _moment_write(m_f, md), _moment_write(v_f, md)
+
+    def upd(p, g, m, v):
+        if md == "int8" or p.numel() <= UPDATE_SLICE:
+            return upd_whole(p, g, m, v)
+        # elementwise, so slice by slice gives the same bits
+        outs = (torch.empty_like(p), torch.empty_like(m),
+                torch.empty_like(v))
+        ins = [t.reshape(-1) for t in (p, g, m, v)]
+        for at in range(0, p.numel(), UPDATE_SLICE):
+            part = slice(at, at + UPDATE_SLICE)
+            for out, new in zip(outs, upd_whole(*(t[part] for t in ins))):
+                out.view(-1)[part].copy_(new)
+        return outs
 
     out = [upd(p, g, m, v) for p, g, m, v in zip(
         leaves(params), flatten_up_to(params, grads),

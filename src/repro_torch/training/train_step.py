@@ -20,12 +20,13 @@ Three builders:
   rounds of the multipath ring all-reduce (``captured_psum``) and the
   AdamW update, replayed as one ``torch.cuda.CUDAGraph`` per call.
 
-Attention's backward on the card is the hand-written ``flash_attention``
-backward kernel. RWKV-6's scan has no backward kernel yet, so the builders
-raise ``NotImplementedError`` for an SSM model on a CUDA device (on the
-CPU its plain scan is differentiated by autograd). Training the MoE and
-hybrid (Mamba) families comes with a later slice: the builders raise
-``NotImplementedError`` for them on every device.
+On the card attention's backward is the hand-written ``flash_attention``
+backward kernel and RWKV-6's the ``rwkv6_scan`` backward kernel; the
+Mamba scan (plain torch ops) and the MoE's routing, dispatch and expert
+products (with the capacity factor, dropping past it, and the aux loss)
+are differentiated by autograd. On the CPU every kernel's plain version
+is differentiated by autograd. Only the audio family raises
+``NotImplementedError`` (:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -54,23 +55,12 @@ class TrainStepConfig:
     aux_coef: float = 0.01
 
 
-def check_trainable(cfg: ArchConfig, device) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot train on
-    ``device``: an MoE or hybrid (Mamba) model on any device, an SSM
-    (RWKV-6) model on a CUDA device, whose scan kernel has no backward
-    yet, and every family the port does not run."""
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot train:
+    a family it does not run at all (audio, :func:`~repro_torch.models.
+    transformer.check_supported`). Every other family trains on every
+    device."""
     tfm.check_supported(cfg)
-    if cfg.num_experts or cfg.family == "hybrid":
-        kind = "an MoE" if cfg.num_experts else "a hybrid (Mamba)"
-        raise NotImplementedError(
-            f"{cfg.name}: training {kind} model comes with the slice that "
-            f"ports the MoE and hybrid training path (ROADMAP queue 1); the "
-            f"port serves these families only")
-    if cfg.family == "ssm" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: training an RWKV-6 model on the card needs the "
-            f"rwkv6_scan backward kernel, which comes with a later slice "
-            f"(ROADMAP queue 1)")
 
 
 def make_loss_fn(cfg: ArchConfig, ts: TrainStepConfig):
@@ -131,7 +121,8 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
     card); batch: tensors on it. With ``ts.microbatches > 1`` the batch's
     leading dim is split and gradients are accumulated in float32. Metrics
     ``loss``, ``grad_norm`` and ``lr`` are 0-d tensors on the device."""
-    check_trainable(cfg, resolve_device(device))
+    resolve_device(device)
+    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
 
     def step(state, batch):
@@ -166,7 +157,7 @@ def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     all-reduce — and every row of each mean is checked equal before row 0
     feeds the update. Equal to :func:`make_train_step` within float
     tolerance (mean of shard means = global mean for equal shards)."""
-    check_trainable(cfg, comm.device)
+    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.num_devices
 
@@ -222,7 +213,7 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     ``step.capture`` is the :class:`~repro_torch.comm.capture.CapturedStep`
     (its ``capture.buffers`` size the step's arena).
     """
-    check_trainable(cfg, comm.device)
+    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.engine.num_devices
     params_ex = state["params"]

@@ -35,9 +35,12 @@ backward kernel against its plain version (float32 within 1e-4, bfloat16
 within 2e-2 of the largest |want|) and through autograd, its bfloat16
 tile products against torch.matmul (as the forward's), its alignment
 checks, ``loss.backward()``
-through the dense forward against the plain attention's gradients, RWKV-6
-training raising, and the captured DP train step against the eager
-steps at the reference's tolerances.
+through the dense forward against the plain attention's gradients, the
+RWKV-6 scan's backward kernel against its plain version (float32 within
+1e-4, bfloat16 within 2e-2 of the largest |want|) and through autograd,
+reduced RWKV-6, Hymba and Mixtral gradients against the CPU's, and the
+captured DP train step (dense and RWKV-6) against the eager steps at the
+reference's tolerances.
 """
 
 import dataclasses
@@ -850,34 +853,140 @@ def _tree_leaves(tree):
     return leaves(tree)
 
 
-def test_rwkv6_training_on_the_card_raises(dev):
-    from repro_torch.optim import OptimConfig
-    from repro_torch.training import TrainStepConfig, make_train_step
-    r = torch.randn(1, 64, 1, 16, device=dev, requires_grad=True)
-    w = torch.rand(1, 64, 1, 16, device=dev) * 0.5 + 0.5
-    u = torch.zeros(1, 1, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        sops.chunked_scan(r, r, r, w, u, chunk=64)
+#: The RWKV-6 backward kernel against its plain version: the largest error
+#: of each gradient relative to its largest |want| (float32 sums in
+#: another order; bfloat16 gradients rounded once).
+RWKV_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    r, k = (randn(b, s, h, dk, scale=0.5).to(dtype) for _ in range(2))
+    v = randn(b, s, h, dv).to(dtype)
+    w = low + (0.999 - low) * torch.rand(b, s, h, dk, generator=g,
+                                         device=dev)
+    u = randn(h, dk, scale=0.3).expand(b, h, dk)
+    return r, k, v, w, u, randn(b, s, h, dv)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,dtype,with_dstate,low", [
+    (2, 256, 4, 64, 64, 64, torch.float32, False, 0.3),
+    (2, 256, 4, 64, 64, 64, torch.bfloat16, True, 0.3),
+    (1, 96, 3, 16, 32, 32, torch.float32, True, 0.3),
+    (3, 64, 2, 32, 16, 16, torch.float32, True, 0.85),
+    (1, 40, 2, 8, 8, 8, torch.bfloat16, False, 0.5)])
+def test_rwkv6_scan_backward_matches_plain(dev, b, s, h, dk, dv, chunk,
+                                           dtype, with_dstate, low):
+    """The backward kernel against its plain version from the forward
+    kernel's chunk-start states (float32 within 1e-4, bfloat16 within 2e-2
+    of each gradient's largest |want|), with decays down to 0.3 and a
+    nonzero dState; its end-state gradients against the plain reverse
+    pass's; one count a call."""
+    r, k, v, w, u, do = _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low,
+                                         s + dk)
+    dstate = (torch.randn(b, h, dk, dv, device=dev) if with_dstate
+              else None)
+    _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=chunk,
+                                          out_dtype=torch.float32)
+    before = sk.LAUNCHES_BWD
+    got = sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, dstate, states=states,
+                                 chunk=chunk)
+    assert sk.LAUNCHES_BWD == before + 1
+    want = sk.rwkv6_scan_bwd_plain(r, k, v, w, u, do, dstate, chunk=chunk)
+    for name, x, y in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        top = y.float().abs().max().item()
+        tol = RWKV_BWD_REL[x.dtype]
+        assert (x.float() - y.float()).abs().max().item() <= tol * top, name
+    bufs = sk._bwd_buffers(r, v, chunk)
+    sk._launch_bwd(r, k, v, w, u, do, dstate, states, bufs, chunk)
+    ends = bufs[4]
+    pends = sk.rwkv6_chunk_state_grads_plain(r, w, do, dstate, chunk=chunk)
+    assert _rel(ends, pends) < 1e-4
+
+
+def test_rwkv6_scan_fn_matches_autograd_of_plain(dev):
+    """Through ``ops.rwkv6_scan`` with grad (a sequence the wrapper pads,
+    the backward kernel inside autograd): the gradients of r, k, v, w, u
+    against autograd of the plain version within 1e-4 of the largest,
+    one backward launch; without grad nothing is recorded."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    bh, s, d = 6, 100, 32
+    leaves_ = [(torch.randn(bh, s, d, generator=g, device=dev) * 0.5)
+               .requires_grad_() for _ in range(3)]
+    w = (0.3 + 0.69 * torch.rand(bh, s, d, generator=g, device=dev)
+         ).requires_grad_()
+    u = (torch.randn(bh, d, generator=g, device=dev) * 0.3).requires_grad_()
+    do = torch.randn(bh, s, d, generator=g, device=dev)
+    before = sk.LAUNCHES_BWD
+    out = sops.rwkv6_scan(*leaves_, w, u, chunk=32)
+    got = torch.autograd.grad(out, leaves_ + [w, u], do)
+    assert sk.LAUNCHES_BWD == before + 1
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves_ + [w, u]]
+    want = torch.autograd.grad(sops.rwkv6_scan(*cpu, chunk=32), cpu,
+                               do.cpu())
+    for x, y in zip(got, want):
+        assert _rel(x.cpu(), y) < 1e-4
     with torch.no_grad():
-        sops.chunked_scan(r, r, r, w, u, chunk=64)     # serving still runs
-    with pytest.raises(NotImplementedError, match="rwkv6_scan backward"):
-        make_train_step(get_config("rwkv6_1_6b"), TrainStepConfig(),
-                        OptimConfig(), device=dev)
+        assert sops.rwkv6_scan(*leaves_, w, u, chunk=32).grad_fn is None
 
 
-def test_captured_train_step_on_the_card_matches_dp(dev):
-    """A reduced SmolLM-360M (float32): the captured step is one dispatch
-    and equals the eager DP step, which equals the single-device step
-    (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4); its replay runs both
-    attention kernels."""
+@pytest.mark.parametrize("arch", ["rwkv6_1_6b", "hymba_1_5b",
+                                  "mixtral_8x22b"])
+def test_reduced_model_grads_on_the_card_match_cpu(dev, arch):
+    """``loss_fn``'s gradients of a reduced model (float32, TF32 off,
+    ``remat="full"``) on the card against the same weights on the CPU
+    (plain versions), within 1e-4 of each leaf's largest gradient: the
+    scan's and the attention's backward kernels, the Mamba scan and the
+    MoE routing under autograd; ``make_train_step`` takes a step."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_loss_fn, make_train_step)
+    from repro_torch.training.train_step import _value_and_grad
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    batch = SyntheticDataset(cfg, DataConfig(64, 4)).batch_at(0)
+    vg = _value_and_grad(make_loss_fn(cfg, TrainStepConfig()))
+    before = (sk.LAUNCHES_BWD, fk.LAUNCHES_BWD)
+    loss, grads = vg(tree_map(lambda t: t.to(dev), params),
+                     batch_to(batch, dev))
+    if arch == "rwkv6_1_6b":
+        assert sk.LAUNCHES_BWD == before[0] + cfg.num_layers
+    else:
+        assert fk.LAUNCHES_BWD == before[1] + cfg.num_layers
+    closs, cgrads = vg(params, batch_to(batch, "cpu"))
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for x, y in zip(_tree_leaves(grads), _tree_leaves(cgrads)):
+        top = y.abs().max().item()
+        assert (x.cpu() - y).abs().max().item() <= 1e-4 * max(top, 1e-30)
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    state = init_state(cfg, opt, device=dev)
+    state, m = make_train_step(cfg, TrainStepConfig(), opt, device=dev)(
+        state, batch_to(batch, dev))
+    assert torch.isfinite(m["loss"]).item()
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "rwkv6_1_6b"])
+def test_captured_train_step_on_the_card_matches_dp(dev, arch):
+    """A reduced SmolLM-360M or RWKV-6 (float32): the captured step is one
+    dispatch and equals the eager DP step, which equals the single-device
+    step (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4); its replay runs
+    the model's backward kernel (the attention's or the scan's)."""
     from repro_torch.data import DataConfig, SyntheticDataset, batch_to
     from repro_torch.optim import OptimConfig
     from repro_torch.training import (TrainStepConfig, init_state,
                                       make_captured_dp_train_step,
                                       make_dp_train_step, make_train_step)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
-                              remat="full")
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
     opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
     ts = TrainStepConfig()
     state = init_state(cfg, opt, generator=torch.Generator(
@@ -890,10 +999,11 @@ def test_captured_train_step_on_the_card_matches_dp(dev):
     sess = CommSession(device=dev)
     step = make_captured_dp_train_step(cfg, ts, opt, sess, state, batch)
     s3, m3 = step(state, batch)
-    before = (fk.LAUNCHES, fk.LAUNCHES_BWD)
+    mod = fk if arch == "smollm_360m" else sk
+    before = (mod.LAUNCHES, mod.LAUNCHES_BWD)
     s3, m3 = step(state, batch)
     assert sess.stats()["dispatches"] == 2
-    assert fk.LAUNCHES > before[0] and fk.LAUNCHES_BWD > before[1]
+    assert mod.LAUNCHES > before[0] and mod.LAUNCHES_BWD > before[1]
     for (a, ma), (b, mb) in (((s2, m2), (s1, m1)), ((s3, m3), (s2, m2))):
         assert abs(float(ma["loss"]) - float(mb["loss"])) <= 1e-5 * abs(
             float(mb["loss"]))

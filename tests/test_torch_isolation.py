@@ -87,3 +87,31 @@ def test_training_example_names_no_jax():
     assert not re.search(r"\bjax\b", text, re.IGNORECASE)
     assert not re.search(r"^\s*(from|import)\s+repro(\.|\s|$)", text,
                          re.MULTILINE)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "jacobi_multipath",
+                                  "serve_batched"])
+def test_examples_import_with_jax_and_repro_blocked(name):
+    """Each of the port's examples names no jax and imports nothing of the
+    reference package: loaded (not run) with both blocked."""
+    path = ROOT / "examples_torch" / f"{name}.py"
+    text = path.read_text()
+    assert not re.search(r"\bjax\b", text, re.IGNORECASE)
+    code = f"""
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+spec = importlib.util.spec_from_file_location("ex", {str(path)!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+bad = sorted(m for m, x in sys.modules.items() if x is not None and (
+    m == "repro" or m.startswith("repro.") or m.split(".")[0] == "jax"))
+assert not bad, bad
+print(callable(mod.main))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "True"

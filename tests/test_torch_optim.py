@@ -156,3 +156,35 @@ def test_state_from_numpy_carries_a_reference_state():
     for a, b in zip(jax.tree.leaves({"params": jp, "opt": jst}),
                     leaves(st)):
         assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_large_leaves_update_slice_by_slice_bitwise(moment_dtype,
+                                                    monkeypatch):
+    """A leaf larger than ``UPDATE_SLICE`` is updated a slice at a time
+    (float32 and bfloat16 moments; int8 keeps the whole leaf for its
+    absmax): the new parameters and moments are bitwise those of the
+    whole-leaf update."""
+    from repro_torch.optim import adamw
+    rng = np.random.RandomState(7)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dtype)
+
+    params = {"a": t(3, 1000, dtype=torch.bfloat16), "b": t(77)}
+    grads = {"a": t(3, 1000, dtype=torch.bfloat16), "b": t(77)}
+    cfg = OptimConfig(moment_dtype=moment_dtype, warmup_steps=1)
+    state = init_opt_state(params, cfg)
+    for key in ("m", "v"):
+        state[key] = {k: adamw._moment_write(t(*p.shape).abs(),
+                                             moment_dtype)
+                      for k, p in params.items()}
+    whole = apply_updates(params, grads, state, cfg)
+    monkeypatch.setattr(adamw, "UPDATE_SLICE", 128)
+    sliced = apply_updates(params, grads, state, cfg)
+    def flat(out):
+        return leaves({"params": out[0], "opt": out[1]})
+
+    for x, y in zip(flat(whole), flat(sliced)):
+        assert x.dtype == y.dtype and torch.equal(x, y)

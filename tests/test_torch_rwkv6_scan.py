@@ -13,6 +13,7 @@ its first pass writes, are held against the literal recurrence's.
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +179,133 @@ def test_inputs_off_the_16_byte_grid_are_copied(dtype):
         got = rk.aligned16(t)
         assert got.data_ptr() != t.data_ptr() and got.is_contiguous()
         assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+
+
+# -- the backward -------------------------------------------------------------
+
+def bwd_inputs(seed, bh, s, dk, dv, low):
+    """The sweep's inputs with decays drawn from [low, 0.999) and an output
+    gradient; ``low = 0.3`` lets a chunk of 64 span the decay range the
+    model's prefill reaches."""
+    rng = np.random.RandomState(seed)
+    r, k, v, _, u = inputs(seed, bh, s, dk, dv)
+    w = rng.uniform(low, 0.999, (bh, s, dk)).astype(np.float32)
+    do = rng.randn(bh, s, dv).astype(np.float32)
+    return r, k, v, w, u, do
+
+
+def padded_bwd(r, k, v, w, u, do, dstate, chunk):
+    """The port's plain backward in the model's layout (one head), on the
+    sequence padded as the forward pads it; gradients cut back to S."""
+    s = r.shape[1]
+    pad = (-s) % chunk
+    f = torch.nn.functional.pad
+    r, k, v, do = (f(t, (0, 0, 0, pad)) for t in (r, k, v, do))
+    w = f(w, (0, 0, 0, pad), value=1.0)
+    got = rk.rwkv6_scan_bwd_plain(
+        *(t[:, :, None] for t in (r, k, v, w)), u[:, None], do[:, :, None],
+        None if dstate is None else dstate[:, None], chunk=chunk)
+    return [g[:, :s, 0] for g in got[:4]] + [got[4][:, 0]]
+
+
+@pytest.mark.parametrize("low", [0.3, 0.85])
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", SWEEP + PADDED[:2])
+def test_backward_plain_matches_reference_grad(bh, s, dk, dv, chunk, low):
+    """``rwkv6_scan_bwd_plain`` (padded as the forward pads) against
+    ``jax.grad`` of the reference's literal recurrence ``rwkv6_scan_ref``
+    and against autograd of the port's plain scan: each of dr, dk, dv, dw,
+    du within 1e-4 of its largest |want| (the reference's scan tolerance:
+    float32 sums in another order)."""
+    arrays = bwd_inputs(11, bh, s, dk, dv, low)
+    *ins, do = arrays
+
+    def loss(*xs):
+        return jnp.sum(r_ref.rwkv6_scan_ref(*xs) * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in ins))
+    got = padded_bwd(*(torch.from_numpy(a) for a in arrays), None, chunk)
+    for name, g, wv in zip("rkvwu", got, want):
+        assert g.shape == wv.shape, name
+        assert rel_err(g.numpy(), wv) < 1e-4, name
+    leaves_ = [torch.from_numpy(a).requires_grad_() for a in ins]
+    auto = torch.autograd.grad(
+        ops.rwkv6_scan(*leaves_, chunk=chunk), leaves_,
+        torch.from_numpy(do))
+    for name, g, wv in zip("rkvwu", got, auto):
+        assert rel_err(g.numpy(), wv.numpy()) < 1e-4, name
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [(2, 128, 32, 32, 32),
+                                              (1, 100, 16, 16, 32),
+                                              (3, 64, 8, 16, 16),
+                                              (1, 70, 64, 64, 64)])
+def test_backward_plain_with_a_final_state_gradient(bh, s, dk, dv, chunk):
+    """With a nonzero ``dState`` (the final state's gradient, the reverse
+    pass's starting value): the plain backward against autograd of the
+    plain scan's output and final state, w down to 0.3, within 1e-4."""
+    arrays = bwd_inputs(12, bh, s, dk, dv, 0.3)
+    *ins, do = (torch.from_numpy(a) for a in arrays)
+    dstate = torch.from_numpy(np.random.RandomState(13).randn(
+        bh, dk, dv).astype(np.float32))
+    got = padded_bwd(*ins, do, dstate, chunk)
+    leaves_ = [t.clone().requires_grad_() for t in ins]
+    pad = (-s) % chunk
+    f = torch.nn.functional.pad
+    r, k, v = (f(t, (0, 0, 0, pad)) for t in leaves_[:3])
+    w = f(leaves_[3], (0, 0, 0, pad), value=1.0)
+    o, state = ops.chunked_scan(r[:, :, None], k[:, :, None], v[:, :, None],
+                                w[:, :, None], leaves_[4][:, None],
+                                chunk=chunk, return_state=True)
+    loss = (o[:, :s, 0] * do).sum() + (state[:, 0] * dstate).sum()
+    want = torch.autograd.grad(loss, leaves_)
+    for name, g, wv in zip("rkvwu", got, want):
+        assert rel_err(g.numpy(), wv.numpy()) < 1e-4, name
+
+
+def test_backward_passes_compose_in_the_model_layout():
+    """The backward's two plain passes in the model's layout ((B, S, H, d),
+    bfloat16 r/k/v, a bonus row per head expanded over the batch): the
+    reverse pass's end-state gradients equal autograd's gradient of a
+    perturbation added to each chunk's end state in the state chain (the
+    last chunk's is 0 without a dState), within 1e-5 of the largest; and
+    du, summed over the batch as autograd sums an expanded u, equals
+    autograd's."""
+    b, s, h, d, chunk = 2, 96, 3, 16, 32
+    nc = s // chunk
+    rng = np.random.RandomState(14)
+    r, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.3, 0.999, (b, s, h, d))
+                         .astype(np.float32))
+    u = torch.from_numpy(rng.randn(h, d).astype(np.float32) * 0.3)
+    do = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+    ends = rk.rwkv6_chunk_state_grads_plain(r, w, do, chunk=chunk)
+    assert ends.shape == (b, h, nc, d, d)
+    assert not ends[:, :, -1].any()
+
+    kc, vc = (t.float().reshape(b, nc, chunk, h, d) for t in (k, v))
+    cum = torch.cumsum(torch.log(w.reshape(b, nc, chunk, h, d)), 2)
+    last = cum[:, :, -1]
+    upd = torch.einsum("bclhd,bclhe->bchde",
+                       kc * torch.exp(last[:, :, None] - cum), vc)
+    inject = torch.zeros((b, h, nc, d, d), requires_grad=True)
+    state, starts = torch.zeros((b, h, d, d)), []
+    for c in range(nc):
+        starts.append(state)
+        state = (state * torch.exp(last[:, c])[..., None] + upd[:, c]
+                 + inject[:, :, c])
+    o = rk.rwkv6_chunk_output_plain(r, k, v, w, u.expand(b, h, d),
+                                    torch.stack(starts, 2), chunk=chunk,
+                                    out_dtype=torch.float32)
+    (want,) = torch.autograd.grad((o * do).sum(), inject)
+    assert rel_err(ends.numpy(), want.numpy()) < 1e-5
+
+    leaf = u.clone().requires_grad_()
+    out = ops.chunked_scan(r, k, v, w, leaf.expand(b, h, d), chunk=chunk,
+                           out_dtype=torch.float32)
+    (want_u,) = torch.autograd.grad(out, leaf, do)
+    du = rk.rwkv6_scan_bwd_plain(r, k, v, w, u.expand(b, h, d), do,
+                                 chunk=chunk)[4]
+    assert du.shape == (b, h, d)
+    assert rel_err(du.sum(0).numpy(), want_u.numpy()) < 1e-5

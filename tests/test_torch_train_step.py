@@ -12,12 +12,15 @@ pipeline) go through both packages:
   reference's attention at ragged lengths, causal and windowed, GQA,
   within 1e-5 (float32 sums in another order);
 * ``loss_fn`` and its grads against ``jax.value_and_grad`` on reduced
-  configs: loss rtol 1e-5, grads within 1e-5 · max|g|;
+  configs of every trainable family (dense, RWKV-6, MoE with capacity
+  dropping and the aux loss, hybrid Mamba): loss rtol 1e-5, grads within
+  1e-5 · max|g|;
 * the three builders against the reference's, at the reference's own
   tolerances for its captured step (``tests/test_capture.py``): loss rtol
   1e-5, params atol 2e-5 / rtol 1e-4. The data-parallel steps run on 4
   devices on both sides; the captured step's graph digests equal and one
-  call is one dispatch.
+  call is one dispatch. The single-device and DP steps also run the
+  RWKV-6, hybrid and MoE families; only the audio family is refused.
 """
 
 import dataclasses
@@ -166,7 +169,8 @@ def jb(batch):
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "gemma3_27b",
-                                  "rwkv6_1_6b"])
+                                  "rwkv6_1_6b", "mixtral_8x22b",
+                                  "kimi_k2_1t_a32b", "hymba_1_5b"])
 def test_loss_and_grads_match_value_and_grad(arch):
     jcfg, cfg, jparams, params = reference_and_port(arch)
     batch = batch_np(jcfg, seq=20)
@@ -357,24 +361,122 @@ def test_init_state_uses_the_generator():
     assert int(a["opt"]["step"]) == 0
 
 
-def test_ssm_training_on_the_card_raises():
-    rwkv = get_config("rwkv6_1_6b")
-    with pytest.raises(NotImplementedError, match="rwkv6_scan backward"):
-        check_trainable(rwkv, "cuda")
-    check_trainable(rwkv, "cpu")
-    check_trainable(get_config("smollm_360m"), "cuda")
+FAMILIES = ["rwkv6_1_6b", "hymba_1_5b", "mixtral_8x22b"]
 
 
-@pytest.mark.parametrize("name", ["mixtral_8x22b", "kimi_k2_1t_a32b",
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_remat_full_equals_none_per_family(arch):
+    """``remat="full"`` recomputes each block in the backward: the RWKV-6,
+    hybrid (Mamba) and MoE blocks give the same loss and gradients, bit
+    for bit, as without it."""
+    _, cfg, _, params = reference_and_port(arch)
+    batch = tb(batch_np(cfg))
+    plain = _value_and_grad(make_loss_fn(cfg, TrainStepConfig()))(params,
+                                                                   batch)
+    rcfg = dataclasses.replace(cfg, remat="full")
+    remat = _value_and_grad(make_loss_fn(rcfg, TrainStepConfig()))(params,
+                                                                   batch)
+    assert torch.equal(plain[0], remat[0])
+    for a, b in zip(leaves(plain[1]), leaves(remat[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "kimi_k2_1t_a32b",
                                   "hymba_1_5b"])
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_moe_and_hybrid_training_raises_naming_the_later_slice(name,
-                                                               device):
-    """The port serves the MoE and hybrid families but does not train
-    them yet: every builder's check refuses them on every device, naming
-    the slice that brings their training."""
-    for cfg in (get_config(name), get_config(name).reduced()):
-        with pytest.raises(NotImplementedError,
-                           match="MoE and hybrid training path"):
-            check_trainable(cfg, device)
-    tfm.check_supported(get_config(name))        # serving is supported
+def test_train_step_three_steps_per_family(arch):
+    """Three steps of the MoE (with and without a shared expert) and hybrid
+    families (reduced, float32) against the reference's jitted step: loss
+    rtol 1e-5, lr rtol 1e-6, params atol 2e-5 / rtol 1e-4."""
+    jcfg, cfg, jopt, opt, jstate, state = states(arch)
+    jstep = jax.jit(jmake_train_step(jcfg, JTrainStepConfig(), jopt))
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    for s in range(3):
+        batch = batch_np(jcfg, step=s)
+        jstate, jm = jstep(jstate, jb(batch))
+        state, m = step(state, tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert_states_close(jstate, state)
+
+
+#: RWKV-6's three-step bound on the parameters' max abs difference. Its
+#: float32 trajectory is not fixed to atol 2e-5 / rtol 1e-4 by its
+#: inputs: the reference itself, started from parameters moved by a
+#: relative 1e-7 (float32 rounding), ends three steps later beyond that
+#: tolerance (a head whose group-norm input nearly cancels amplifies
+#: rounding), which the test asserts beside the port's bound.
+RWKV6_THREE_STEP_ATOL = 5e-4
+
+
+def test_rwkv6_train_step_three_steps():
+    """Three steps of RWKV-6 (reduced, float32) against the reference's
+    jitted step: loss rtol 1e-5 and lr rtol 1e-6 at each step, params
+    within ``RWKV6_THREE_STEP_ATOL``; and the reference from parameters
+    moved by a relative 1e-7 parts from itself beyond atol 2e-5 / rtol
+    1e-4."""
+    jcfg, cfg, jopt, opt, jstate, state = states("rwkv6_1_6b")
+    rng = np.random.default_rng(0)
+    moved = dict(jstate, params=jax.tree.map(
+        lambda a: (a * (1 + 1e-7 * rng.standard_normal(a.shape))).astype(
+            a.dtype), jstate["params"]))
+    jstep = jax.jit(jmake_train_step(jcfg, JTrainStepConfig(), jopt))
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    for s in range(3):
+        batch = batch_np(jcfg, step=s)
+        jstate, jm = jstep(jstate, jb(batch))
+        moved, _ = jstep(moved, jb(batch))
+        state, m = step(state, tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    want = [np.asarray(a, np.float32) for a in jax.tree.leaves(
+        jstate["params"])]
+    got = [b.float().numpy() for b in leaves(state["params"])]
+    assert max(np.abs(a - b).max() for a, b in zip(got, want)) \
+        <= RWKV6_THREE_STEP_ATOL
+    spread = [np.asarray(a, np.float32) for a in jax.tree.leaves(
+        moved["params"])]
+    assert any((np.abs(a - b) > 2e-5 + 1e-4 * np.abs(b)).any()
+               for a, b in zip(spread, want))
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "hymba_1_5b"])
+def test_dp_train_step_matches_the_reference_per_family(arch):
+    """The data-parallel step of a reduced MoE and a reduced hybrid model
+    on 4 devices against the reference's (each shard routes its own
+    tokens with its own capacity and aux loss, on both sides): loss and
+    grad norm rtol 1e-5, params atol 2e-5 / rtol 1e-4."""
+    jcfg, cfg, jopt, opt, jstate, state = states(arch)
+    batch = batch_np(jcfg, batch=8)
+    jstate, jm = jax.jit(jmake_dp(jcfg, JTrainStepConfig(), jopt,
+                                  jsession4()))(jstate, jb(batch))
+    state, m = make_dp_train_step(cfg, TrainStepConfig(), opt,
+                                  CommSession(device="cpu"))(state,
+                                                             tb(batch))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-5)
+    assert_states_close(jstate, state)
+
+
+def test_check_trainable_raises_only_for_audio():
+    """Every family the port runs trains (on either device); an audio-family
+    config (built with ``dataclasses.replace``, since the port registers
+    no ``hubert_xlarge``) is refused by the builders, as ``check_supported``
+    refuses it."""
+    for name in ("smollm_360m", "rwkv6_1_6b", "hymba_1_5b",
+                 "mixtral_8x22b", "kimi_k2_1t_a32b"):
+        check_trainable(get_config(name))
+    audio = dataclasses.replace(get_config("smollm_360m").reduced(),
+                                family="audio")
+    with pytest.raises(NotImplementedError, match="audio"):
+        tfm.check_supported(audio)
+    with pytest.raises(NotImplementedError, match="audio"):
+        check_trainable(audio)
+    with pytest.raises(NotImplementedError, match="audio"):
+        make_train_step(audio, TrainStepConfig(), OptimConfig(**OPT),
+                        device="cpu")
