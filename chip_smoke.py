@@ -251,9 +251,11 @@ What it does, in order (any failed check exits nonzero):
     the port serves. First, not counted: the ``rwkv6_scan`` backward
     kernel against its plain version at (8, 512, 32, 64, 64) with
     bfloat16 r/k/v and float32 w/u/dO, decays down to 0.3, and at small
-    shapes (a sequence padded to the chunk, dk/dv 16/32 and 8, a nonzero
-    dState) in float32 and bfloat16 (each gradient within 1e-4 / 2e-2 of
-    its largest |want|); its time back to back and replayed as a CUDA
+    shapes (a sequence padded to the chunk, chunks of 40 and 24, dk/dv
+    16/32, 8 and 8 beside 64, a nonzero dState) in float32 and bfloat16
+    (each gradient within 1e-4 / 2e-2 of its largest |want|; at (2, 256,
+    4, 64, 64) in float32, dw and du within 1e-5); its time back to back
+    and replayed as a CUDA
     graph, each of its three passes' device ms, its bound and the plain
     version's time. Then, counters set to 0 before it and read after it:
     RWKV-6 1.6B (``loss.backward()`` through 2 layers in float32 against
@@ -3159,9 +3161,16 @@ def mixtral_path(dev, errs, per_path, read_path) -> None:
 RWKV_BWD_SHAPE = (8, 512, 32, 64, 64)
 #: Path M's small cases of the backward kernel, (B, S, H, dk, dv, chunk,
 #: dState): a sequence padded to the chunk (w = 1, zeros), dk/dv 16/32,
-#: a nonzero final-state gradient.
+#: a nonzero final-state gradient; chunks of 40 and 24, off the kernel's
+#: 16-row mma tile, and a dk or dv of 8 (one 8-wide tile) beside 64.
 RWKV_BWD_SMALL = [(2, 100, 3, 16, 32, 32, True), (1, 96, 2, 32, 16, 16, True),
-                  (3, 40, 2, 8, 8, 8, False)]
+                  (3, 40, 2, 8, 8, 8, False), (2, 100, 3, 64, 64, 40, True),
+                  (1, 70, 2, 64, 8, 24, True), (2, 50, 2, 8, 64, 24, True)]
+#: Path M's float32 case whose dw and du are held to ``RWKV_BWD_F32_REL``
+#: of their largest |want|: float32 accuracy, which a product in one TF32
+#: pass misses.
+RWKV_BWD_F32_CASE = (2, 256, 4, 64, 64, 64, True)
+RWKV_BWD_F32_REL = 1e-5
 #: The backward kernel against its plain version: each gradient's largest
 #: error relative to its largest |want| (float32 sums in another order;
 #: bfloat16 gradients rounded once).
@@ -3244,7 +3253,8 @@ def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
     its plain version at ``RWKV_BWD_SHAPE`` (bfloat16 r/k/v, float32
     w/u/dO, from the forward kernel's chunk-start states) and at
     ``RWKV_BWD_SMALL`` in float32 and bfloat16, each of dr, dk, dv, dw, du
-    within ``RWKV_BWD_REL``; then at the main shape its time back to back
+    within ``RWKV_BWD_REL``, and ``RWKV_BWD_F32_CASE``'s float32 dw and du
+    within ``RWKV_BWD_F32_REL``; then at the main shape its time back to back
     and as one call captured and replayed, each pass's device ms (from
     the profiler, by kernel name), its bound and the plain version's time.
     Returns the kernel row."""
@@ -3252,7 +3262,7 @@ def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
 
     names = ("dr", "dk", "dv", "dw", "du")
 
-    def case(b, s, h, dk, dv, chunk, dtype, with_dstate):
+    def case(b, s, h, dk, dv, chunk, dtype, with_dstate, tight=()):
         r, k, v, w, u, do = rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv,
                                             chunk, dtype)
         dstate = randn(b, h, dk, dv) if with_dstate else None
@@ -3268,10 +3278,12 @@ def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
             top = wv.float().abs().max().item()
             errs["rwkv6_scan_bwd"] = max(errs["rwkv6_scan_bwd"], err)
             rel[name] = err / top
-            check(g.dtype == wv.dtype and err <= RWKV_BWD_REL[g.dtype] * top,
+            bound = RWKV_BWD_F32_REL if name in tight else RWKV_BWD_REL[
+                g.dtype]
+            check(g.dtype == wv.dtype and err <= bound * top,
                   f"path M: rwkv6_scan_bwd {name} at {(b, s, h, dk, dv)} "
                   f"chunk {chunk} {dtype} dState={with_dstate}: max abs err "
-                  f"{err} > {RWKV_BWD_REL[g.dtype]} * {top}")
+                  f"{err} > {bound} * {top}")
         return rel
 
     t0 = time.perf_counter()
@@ -3283,11 +3295,15 @@ def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             small[(shape, str(dt)[6:])] = max(case(*shape[:6], dt,
                                                    shape[6]).values())
+    f32_rel = case(*RWKV_BWD_F32_CASE[:6], torch.float32,
+                   RWKV_BWD_F32_CASE[6], tight=("dw", "du"))
     print(f"path M: rwkv6_scan_bwd vs plain (max abs err / max |want|) at "
           f"{RWKV_BWD_SHAPE} bf16 r/k/v, f32 w/u/dO, w in [{RWKV_BWD_LOW}, "
           f"0.999): " + ", ".join(f"{n} {r:.3g}" for n, r in main_rel.items())
           + "; small cases (B, S, H, dk, dv, chunk, dState): "
           + ", ".join(f"{k_[0]} {k_[1]} {r:.3g}" for k_, r in small.items())
+          + f"; {RWKV_BWD_F32_CASE} float32: dw {f32_rel['dw']:.3g}, du "
+          f"{f32_rel['du']:.3g} (bound {RWKV_BWD_F32_REL})"
           + f" (bounds float32 1e-4, bfloat16 2e-2; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
 

@@ -438,6 +438,15 @@ def _check_bwd(r, k, v, w, u, do, dstate, states, chunk) -> None:
                          f"{tuple(dstate.shape)} {dstate.dtype}")
 
 
+def bwd_operands(r, k, v, w, do, dstate, states):
+    """The backward kernels' tensor operands on the 16-byte grid their
+    loads need: each of r, k, v, w, ``do``, ``dstate`` (None stays None)
+    and ``states`` through :func:`aligned16`, so an operand off the grid
+    is copied and one on it passes through as it is."""
+    return (*(aligned16(t) for t in (r, k, v, w, do)),
+            None if dstate is None else aligned16(dstate), aligned16(states))
+
+
 def _bwd_buffers(r, v, chunk):
     """dr, dk, dv in r's dtype, dw, the end-state gradients, du's
     per-chunk terms and du."""
@@ -484,11 +493,15 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`rwkv6_scan_cuda` takes them; ``do`` the float32 output
     gradient ``(B, S, H, dv)`` with a contiguous last dim; ``dstate`` a
     contiguous float32 ``(B, H, dk, dv)`` or None (zeros); ``states`` the
-    forward's chunk-start workspace (:func:`rwkv6_scan_fwd_cuda`). Returns
+    forward's chunk-start workspace (:func:`rwkv6_scan_fwd_cuda`). The
+    kernels load 16 bytes at a time, so an operand off that grid is
+    copied first (:func:`bwd_operands`). Returns
     ``(dr, dk, dv, dw, du)`` as :func:`rwkv6_scan_bwd_plain` does;
     anything else raises."""
     global LAUNCHES_BWD
     _check_bwd(r, k, v, w, u, do, dstate, states, chunk)
+    r, k, v, w, do, dstate, states = bwd_operands(r, k, v, w, do, dstate,
+                                                  states)
     bufs = _bwd_buffers(r, v, chunk)
     _launch_bwd(r, k, v, w, u, do, dstate, states, bufs, chunk)
     LAUNCHES_BWD += 1

@@ -37,7 +37,8 @@ tile products against torch.matmul (as the forward's), its alignment
 checks, ``loss.backward()``
 through the dense forward against the plain attention's gradients, the
 RWKV-6 scan's backward kernel against its plain version (float32 within
-1e-4, bfloat16 within 2e-2 of the largest |want|) and through autograd,
+1e-4, bfloat16 within 2e-2 of the largest |want|; float32 dw and du
+within 1e-5) and through autograd,
 reduced RWKV-6, Hymba and Mixtral gradients against the CPU's, and the
 captured DP train step (dense and RWKV-6) against the eager steps at the
 reference's tolerances.
@@ -859,18 +860,26 @@ def _tree_leaves(tree):
 RWKV_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low, seed):
+def _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low, seed, chunk=1):
+    """Random backward inputs; a sequence padded to a multiple of
+    ``chunk`` as the model pads it (r, k, v and dO 0, w 1 past S)."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    pad = (-s) % chunk
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    r, k = (randn(b, s, h, dk, scale=0.5).to(dtype) for _ in range(2))
-    v = randn(b, s, h, dv).to(dtype)
-    w = low + (0.999 - low) * torch.rand(b, s, h, dk, generator=g,
+    r, k = (randn(b, s + pad, h, dk, scale=0.5).to(dtype) for _ in range(2))
+    v = randn(b, s + pad, h, dv).to(dtype)
+    w = low + (0.999 - low) * torch.rand(b, s + pad, h, dk, generator=g,
                                          device=dev)
     u = randn(h, dk, scale=0.3).expand(b, h, dk)
-    return r, k, v, w, u, randn(b, s, h, dv)
+    do = randn(b, s + pad, h, dv)
+    if pad:
+        for t in (r, k, v, do):
+            t[:, s:] = 0
+        w[:, s:] = 1
+    return r, k, v, w, u, do
 
 
 @pytest.mark.parametrize("b,s,h,dk,dv,chunk,dtype,with_dstate,low", [
@@ -878,16 +887,23 @@ def _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low, seed):
     (2, 256, 4, 64, 64, 64, torch.bfloat16, True, 0.3),
     (1, 96, 3, 16, 32, 32, torch.float32, True, 0.3),
     (3, 64, 2, 32, 16, 16, torch.float32, True, 0.85),
-    (1, 40, 2, 8, 8, 8, torch.bfloat16, False, 0.5)])
+    (1, 40, 2, 8, 8, 8, torch.bfloat16, False, 0.5),
+    # chunks off the 16-row mma tile, on padded sequences; a dk or dv of 8
+    # (one 8-wide mma tile, partly empty rows) beside 64
+    (2, 100, 3, 64, 64, 40, torch.float32, True, 0.3),
+    (2, 100, 3, 64, 64, 40, torch.bfloat16, True, 0.3),
+    (1, 70, 2, 64, 8, 24, torch.float32, True, 0.3),
+    (2, 50, 2, 8, 64, 24, torch.bfloat16, True, 0.3)])
 def test_rwkv6_scan_backward_matches_plain(dev, b, s, h, dk, dv, chunk,
                                            dtype, with_dstate, low):
     """The backward kernel against its plain version from the forward
     kernel's chunk-start states (float32 within 1e-4, bfloat16 within 2e-2
     of each gradient's largest |want|), with decays down to 0.3 and a
-    nonzero dState; its end-state gradients against the plain reverse
-    pass's; one count a call."""
+    nonzero dState, chunks of 40 and 24 on padded sequences, dk or dv of
+    8; its end-state gradients against the plain reverse pass's; one count
+    a call."""
     r, k, v, w, u, do = _rwkv_bwd_inputs(dev, b, s, h, dk, dv, dtype, low,
-                                         s + dk)
+                                         s + dk, chunk)
     dstate = (torch.randn(b, h, dk, dv, device=dev) if with_dstate
               else None)
     _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=chunk,
@@ -907,6 +923,24 @@ def test_rwkv6_scan_backward_matches_plain(dev, b, s, h, dk, dv, chunk,
     ends = bufs[4]
     pends = sk.rwkv6_chunk_state_grads_plain(r, w, do, dstate, chunk=chunk)
     assert _rel(ends, pends) < 1e-4
+
+
+def test_rwkv6_scan_backward_float32_dw_du_within_1e5(dev):
+    """The kernel's float32 dw and du at (2, 256, 4, 64, 64), chunks of
+    64, within 1e-5 of their largest |want| (the plain version's):
+    float32 accuracy, which a product in one TF32 pass (10-bit mantissa)
+    misses."""
+    r, k, v, w, u, do = _rwkv_bwd_inputs(dev, 2, 256, 4, 64, 64,
+                                         torch.float32, 0.3, 11)
+    dstate = torch.randn(2, 4, 64, 64, device=dev)
+    _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=64,
+                                          out_dtype=torch.float32)
+    got = sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, dstate, states=states,
+                                 chunk=64)
+    want = sk.rwkv6_scan_bwd_plain(r, k, v, w, u, do, dstate, chunk=64)
+    for name, x, y in (("dw", got[3], want[3]), ("du", got[4], want[4])):
+        top = y.abs().max().item()
+        assert (x - y).abs().max().item() <= 1e-5 * top, name
 
 
 def test_rwkv6_scan_fn_matches_autograd_of_plain(dev):

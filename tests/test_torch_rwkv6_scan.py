@@ -181,6 +181,43 @@ def test_inputs_off_the_16_byte_grid_are_copied(dtype):
         assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
 
 
+def _off_grid(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values in a tensor whose base is one element off the
+    16-byte grid."""
+    t = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    return t.copy_(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_operands_off_the_16_byte_grid_are_copied(dtype):
+    """The backward kernels load r, k, v, w, dO, dState and the
+    chunk-start states 16 bytes at a time: ``bwd_operands`` passes each
+    operand on that grid through as it is and copies one off it (a
+    shifted base, or dO's position stride of 9 floats), with the same
+    values; a None dState stays None."""
+    b, s, h, dk, dv, nc = 2, 16, 3, 8, 8, 2
+    r, k, v = (torch.randn(b, s, h, d).to(dtype) for d in (dk, dk, dv))
+    w = torch.rand(b, s, h, dk)
+    do = torch.randn(b, s, h, dv)
+    dstate = torch.randn(b, h, dk, dv)
+    states = torch.randn(b, h, nc, dk, dv)
+    ins = (r, k, v, w, do, dstate, states)
+    got = rk.bwd_operands(*ins)
+    assert all(x is y for x, y in zip(got, ins))
+    assert rk.bwd_operands(r, k, v, w, do, None, states)[5] is None
+    narrow_do = torch.empty(b, s, h, dv + 1)[..., :dv].copy_(do)
+    for off in ([_off_grid(t) for t in ins],
+                [r, k, v, w, narrow_do, dstate, states]):
+        got = rk.bwd_operands(*off)
+        for x, y, want in zip(got, off, ins):
+            if y.data_ptr() % 16 == 0 and y.is_contiguous():
+                assert x is y
+            else:
+                assert x.data_ptr() != y.data_ptr() and x.is_contiguous()
+                assert x.data_ptr() % 16 == 0
+            assert torch.equal(x, want)
+
+
 # -- the backward -------------------------------------------------------------
 
 def bwd_inputs(seed, bh, s, dk, dv, low):
