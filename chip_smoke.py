@@ -25,7 +25,12 @@ What it does, in order (any failed check exits nonzero):
    float32 at atol 3e-5 / rtol 1e-4, bfloat16 at max abs 2e-2 (also at
    D = 16, 32, 64 with S = 200 and at (2, 32, 8, 300, 128), each mask), a
    Gemma-style window of 64 at (1, 32, 16, 512, 128) and D = 128 with
-   Hq/Hkv = 32/8; and ``rwkv6_scan`` against its plain version and the
+   Hq/Hkv = 32/8; at the registered configs' head dims 80, 112 and 192
+   (HuBERT-XLarge, Kimi K2, Nemotron-4) at (1, 4/2, 200, D) and (2, 8/8,
+   130, D), each mask, float32 and bfloat16 at the same tolerances, the
+   backward at 80 and 112 against its plain version (float32 within 1e-4,
+   bfloat16 within 2e-2 of the largest |want|), and at 192 the backward
+   raising; and ``rwkv6_scan`` against its plain version and the
    literal per-step recurrence at the reference's sweep (``(BH, S, dk, dv,
    chunk)`` = (2, 128, 32, 32, 32), (1, 200, 64, 64, 64), (4, 64, 16, 32,
    16), (1, 96, 8, 8, 32), float32, max error relative to the largest
@@ -277,7 +282,45 @@ What it does, in order (any failed check exits nonzero):
     ``examples_torch/quickstart.py``, ``jacobi_multipath.py --captured``
     and ``serve_batched.py``, each once with ``--device cuda``; path M's
     seconds;
-19. one JSON line ``{"kernels": [...]}``, then as the last line
+19. main path N, after path M's tensors are freed: training the audio
+    encoder HuBERT-XLarge at full width and depth (48 layers, d_model
+    1280, 16/16 heads of 80, non-causal, d_ff 5120 GELU, vocab 504,
+    bfloat16, ``remat="full"``, float32 moments, about 945 M parameters)
+    on 8 x 512 seeded frames of 512 features (about 10 s of audio each at
+    20 ms a frame). First, not counted: ``flash_attention`` and its
+    backward at (8, 16/16, 512, 80), full mask, against their plain
+    versions (and the backward at one DP shard's batch of 2), each timed
+    beside its bound, its plain version and SDPA (forward; backward alone
+    and forward + backward); ``loss.backward()`` through 2 float32 layers
+    against the plain attention's gradients within 1e-4. Then, counters
+    set to 0 before it and read after it: the DP and captured DP steps
+    against the single step at 2 layers in float32 (path J's
+    tolerances); one step's launches (the forward kernel twice a layer,
+    remat, the backward once); 1 warm-up + 3 timed steps of
+    ``make_train_step`` and ``make_dp_train_step`` (4 devices) at 48
+    layers and of the captured DP step at 2 (its arena reckoned first):
+    step ms, frames/s, finite losses, peak GiB, and one step's device
+    ms, ops and idle share under the profiler;
+20. main path O, after path N's tensors are freed: serving at head dims
+    112 and 192, each model freed before the next, each counted on its
+    own (counters set to 0 before its ``generate`` and read after its
+    prefill): Kimi K2 at full width over 1 of 61 layers (d_model 7168,
+    64/8 heads of 112, 384 experts of d_ff 2048 top-8 and a shared
+    expert, vocab 163840, bfloat16, 38.8 GB of seeded random weights) on
+    4 requests of 256/192/128/64 tokens, 16 new each, halved while the
+    reckoned peak (weights, twice a dropless prefill's dispatch buffers,
+    logits) passes 70 GB; Nemotron-4 340B at full width over 4 of 96
+    layers (d_model 18432, 96/8 heads of 192, squared-ReLU d_ff 73728,
+    vocab 256000, 46.5 GB) on path E's 4 requests, 32 new each. For each:
+    ``generate`` twice (the same tokens), tokens equal to an eager loop of
+    ``prefill_forward`` + ``make_serve_step``, one captured decode step
+    bitwise equal to the eager step, ``flash_attention`` once a layer a
+    prefill, layer 0's real prefill q/k/v through the kernel within 4e-3
+    + 8e-3·|want| of its plain version, path E's times (prefill replay
+    and captured decode against eager, the memory the graphs hold), and
+    the kernel at the prefill's shape beside its bound, its plain version
+    and SDPA;
+21. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -822,12 +865,13 @@ def comm_paths(dev, randn, errs, per_path, read_path
 
 
 def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters,
-                     window: int | None = None) -> dict:
-    """``flash_attention`` at one bfloat16 causal shape, optionally with a
-    sliding ``window``: the kernel against its plain version (within
-    ``BF16_ATOL + BF16_RTOL * |want|``), then its time beside its bound, the plain version's and SDPA's
-    (the yardstick only; the port never calls it; with a window it gets
-    an explicit boolean mask)."""
+                     window: int | None = None, causal: bool = True,
+                     smi: str = "") -> dict:
+    """``flash_attention`` at one bfloat16 shape, causal (optionally with a
+    sliding ``window``) or unmasked: the kernel against its plain version
+    (within ``BF16_ATOL + BF16_RTOL * |want|``), then its time beside its
+    bound, the plain version's and SDPA's (the yardstick only; the port
+    never calls it; with a window it gets an explicit boolean mask)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -835,9 +879,9 @@ def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters,
     q = randn(b, hq, s, d, dtype=torch.bfloat16)
     k = randn(b, hkv, s, d, dtype=torch.bfloat16)
     v = randn(b, hkv, s, d, dtype=torch.bfloat16)
-    want = fk.flash_attention_plain(q, k, v, window=window)
-    err, ok = bf16_err(fk.flash_attention_cuda(q, k, v, window=window),
-                       want)
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    err, ok = bf16_err(fk.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window), want)
     errs["flash_attention"] = max(errs["flash_attention"], err)
     check(ok, f"flash_attention at ({b}, {hq}/{hkv}, {s}, {d}) window "
           f"{window}: max abs err {err}, beyond {BF16_ATOL} + {BF16_RTOL} * "
@@ -845,7 +889,10 @@ def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters,
     kk = k.repeat_interleave(hq // hkv, dim=1)
     vv = v.repeat_interleave(hq // hkv, dim=1)
     rows = torch.arange(s, device=q.device)
-    if window is None:
+    if not causal:
+        mask = None
+        flops = 4 * b * hq * s * s * d    # every (query, key) pair
+    elif window is None:
         mask = None
         flops = 2 * b * hq * s * s * d    # causal: half of 4·B·H·S²·D
     else:
@@ -856,34 +903,38 @@ def flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters,
 
     def sdpa():
         if mask is None:
-            return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+            return F.scaled_dot_product_attention(q, kk, vv,
+                                                  is_causal=causal,
                                                   scale=d ** -0.5)
         return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
                                               scale=d ** -0.5)
 
     sdpa_err = (sdpa().float() - want.float()).abs().max().item()
     del want
-    ms = cuda_time_ms(lambda: fk.flash_attention_cuda(q, k, v,
-                                                      window=window), 20)
+    ms = cuda_time_ms(lambda: fk.flash_attention_cuda(
+        q, k, v, causal=causal, window=window), 20)
     plain_ms = cuda_time_ms(lambda: fk.flash_attention_plain(
-        q, k, v, window=window), plain_iters, warmup=1)
+        q, k, v, causal=causal, window=window), plain_iters, warmup=1)
     lib_ms = cuda_time_ms(sdpa, 20)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
     rep = "repeat_interleave'd " if hq != hkv else ""
-    masked = "causal" if window is None else f"causal window {window}"
+    masked = ("full" if not causal else "causal" if window is None
+              else f"causal window {window}")
     lib = ("" if window is None else
            ", an explicit boolean window mask")
-    print(f"flash_attention ({b}, {hq}/{hkv}, {s}, {d}) bf16 {masked}: "
+    card = f" ({smi})" if smi else ""
+    print(f"flash_attention{card} ({b}, {hq}/{hkv}, {s}, {d}) bf16 {masked}: "
           f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({flops} {masked} "
           f"FLOPs at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 "
           f"TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), plain "
           f"{plain_ms:.4f} ms, SDPA on {rep}k/v{lib} {lib_ms:.4f} ms "
           f"({bound / lib_ms:.1%} of bound; max abs diff to plain "
           f"{sdpa_err}); kernel max abs err vs plain {err}", flush=True)
-    return {"shape": [b, hq, hkv, s, d], "window": window, "ms": ms,
+    return {"shape": [b, hq, hkv, s, d], "causal": causal, "window": window,
+            "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": lib_ms, "max_abs_err": err}
@@ -2229,6 +2280,130 @@ def sdpa_backend(names) -> str:
     return "math"
 
 
+def bwd_case_times(randn, b, hq, hkv, s, d, causal: bool, dt, smi: str,
+                   path: str) -> dict:
+    """The backward kernel's time at one shape, causal or unmasked, in
+    ``dt``: back-to-back calls, and one call captured in a CUDA graph and
+    replayed, beside its bound, the plain version's time, its three
+    kernels' device times (profiler), the forward with ``lse``, SDPA's
+    backward alone and its forward + backward, and the backend SDPA
+    picked (the yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    q = (randn(b, hq, s, d) * 0.5).to(dt)
+    k = (randn(b, hkv, s, d) * 0.5).to(dt)
+    v = randn(b, hkv, s, d, dtype=dt)
+    do = randn(b, hq, s, d, dtype=dt)
+    o, lse = fk.flash_attention_cuda(q, k, v, causal=causal,
+                                     return_lse=True)
+
+    def bwd():
+        return fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                           causal=causal)
+
+    ms = cuda_time_ms(bwd, 20)
+    _, _, _, rows = profile_device_ms(
+        lambda: [bwd() for _ in range(10)], top=None)
+    split = {kernel_name(name): ms_ / n for name, ms_, n in rows}
+    # back-to-back calls can wait on the wrapper's host work; one call
+    # captured and replayed shows the device's time for the three
+    # launches alone
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bwd()
+    graph_ms = cuda_time_ms(graph.replay, 20)
+    del graph
+    fwd_ms = cuda_time_ms(lambda: fk.flash_attention_cuda(
+        q, k, v, causal=causal, return_lse=True), 20)
+    plain_ms = cuda_time_ms(lambda: fk.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal), 5, warmup=1)
+    qq = q.detach().requires_grad_()
+    kk = k.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
+    vv = v.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                              scale=d ** -0.5)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qq, kk, vv), do)
+
+    out = sdpa()    # the forward, outside the timed backward
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qq, kk, vv), do, retain_graph=True), 20)
+    lib_fb_ms = cuda_time_ms(sdpa_fwd_bwd, 20)
+    _, _, _, lib_rows = profile_device_ms(lambda: torch.autograd.grad(
+        out, (qq, kk, vv), do, retain_graph=True), top=None)
+    backend = sdpa_backend(name for name, _, _ in lib_rows)
+    lib_top = ", ".join(kernel_name(n)[:48] for n, _, _ in lib_rows[:3])
+    # each input read once (q, k, v, o, dO, lse), each output written
+    # once (dQ, dK, dV); 2.5 × the forward's FLOPs (half of 4·B·H·S²·D
+    # under the causal mask)
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + lse.numel() * 4)
+    flops = 2.5 * (2 if causal else 4) * b * hq * s * s * d
+    peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+    ops_ms = flops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    masked = "causal" if causal else "full"
+    print(f"path {path} ({smi}): flash_attention_bwd ({b}, {hq}/{hkv}, {s}, "
+          f"{d}) {str(dt)[6:]} {masked}: kernel {ms:.4f} ms (forward with "
+          f"lse {fwd_ms:.4f} ms), bound {bound:.4f} ms ({flops:.4g} "
+          f"FLOPs = 2.5 x the {masked} forward's at "
+          f"{peak / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at "
+          f"3.35 TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), "
+          f"plain {plain_ms:.4f} ms; one call captured and replayed "
+          f"{graph_ms:.4f} ms ({bound / graph_ms:.1%} of bound); its "
+          f"kernels under the profiler (device ms a call): "
+          + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items())
+          + f"; SDPA on repeat_interleave'd k/v ({backend} backend; "
+          f"kernels {lib_top}): "
+          f"backward alone {lib_ms:.4f} ms, forward + backward "
+          f"{lib_fb_ms:.4f} ms", flush=True)
+    return {"shape": [b, hq, hkv, s, d], "causal": causal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms, "library_fwd_bwd_ms": lib_fb_ms,
+            "library_backend": backend, "kernels_ms": split,
+            "graph_ms": graph_ms, "fwd_ms": fwd_ms}
+
+
+def train_bwd_checks(randn, errs, path: str, b, hq, hkv, s, d,
+                     causal: bool) -> None:
+    """The backward kernel against its plain version at a training shape
+    and at one DP shard's (a quarter of the batch), float32 within 1e-4
+    and bfloat16 within 2e-2 of each gradient's largest |want|, the
+    forward's ``lse`` against the plain log-sum-exp."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    rel = {}
+    for bb in (b, b // 4):
+        for dt in (torch.float32, torch.bfloat16):
+            q = (randn(bb, hq, s, d) * 0.5).to(dt)
+            k = (randn(bb, hkv, s, d) * 0.5).to(dt)
+            v = randn(bb, hkv, s, d, dtype=dt)
+            do = randn(bb, hq, s, d, dtype=dt)
+            for name, (err, top) in bwd_case_err(fk, q, k, v, do, causal,
+                                                 None, path).items():
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                rel[(bb, str(dt)[6:], name)] = err / top
+                check(err <= BWD_REL[dt] * top,
+                      f"path {path}: flash_attention_bwd {name} at ({bb}, "
+                      f"{hq}/{hkv}, {s}, {d}) {dt} causal={causal}: max "
+                      f"abs err {err} > {BWD_REL[dt]} * {top}")
+            del q, k, v, do
+    masked = "causal" if causal else "full mask"
+    print(f"path {path}: flash_attention_bwd vs plain at ({b}, {hq}/{hkv}, "
+          f"{s}, {d}) ({masked}; max abs err / max |want|): "
+          + ", ".join(f"B={bb} {dt} {n} {r:.3g}"
+                      for (bb, dt, n), r in rel.items())
+          + " (bounds float32 1e-4, bfloat16 2e-2)", flush=True)
+
+
 def flash_bwd_checks(randn, errs, smi) -> dict:
     """Path J (a): the ``flash_attention`` backward kernel against its
     plain version at the training shapes (single step and one DP shard),
@@ -2240,33 +2415,11 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
     of its three kernels' device time (profiler), SDPA's backward alone and
     its forward + backward, and the backend SDPA picked (the yardstick
     only; the port never calls it). Returns the kernel row."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import kernel as fk
 
     hq, hkv, d = TRAIN_HEADS
     s = TRAIN_SEQ
-    rel = {}
-    for b in (TRAIN_BATCH, TRAIN_BATCH // 4):
-        for dt in (torch.float32, torch.bfloat16):
-            q = (randn(b, hq, s, d) * 0.5).to(dt)
-            k = (randn(b, hkv, s, d) * 0.5).to(dt)
-            v = randn(b, hkv, s, d, dtype=dt)
-            do = randn(b, hq, s, d, dtype=dt)
-            for name, (err, top) in bwd_case_err(fk, q, k, v, do, True,
-                                                 None).items():
-                errs["flash_attention_bwd"] = max(
-                    errs["flash_attention_bwd"], err)
-                rel[(b, str(dt)[6:], name)] = err / top
-                check(err <= BWD_REL[dt] * top,
-                      f"path J: flash_attention_bwd {name} at ({b}, "
-                      f"{hq}/{hkv}, {s}, {d}) {dt}: max abs err {err} > "
-                      f"{BWD_REL[dt]} * {top}")
-            del q, k, v, do
-    print("path J: flash_attention_bwd vs plain (causal; max abs err / "
-          "max |want|): " + ", ".join(f"B={b} {dt} {n} {r:.3g}"
-                                      for (b, dt, n), r in rel.items())
-          + f" (bounds float32 1e-4, bfloat16 2e-2)", flush=True)
+    train_bwd_checks(randn, errs, "J", TRAIN_BATCH, hq, hkv, s, d, True)
     worst = 0.0
     for shape in BWD_SWEEP:
         bb, h1, h2, sl, dd = shape
@@ -2290,84 +2443,8 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
           f"max abs err / max |want| {worst:.3g} (bound 2e-2)", flush=True)
 
     b = TRAIN_BATCH
-    times = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q = (randn(b, hq, s, d) * 0.5).to(dt)
-        k = (randn(b, hkv, s, d) * 0.5).to(dt)
-        v = randn(b, hkv, s, d, dtype=dt)
-        do = randn(b, hq, s, d, dtype=dt)
-        o, lse = fk.flash_attention_cuda(q, k, v, causal=True,
-                                         return_lse=True)
-
-        def bwd():
-            return fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                               causal=True)
-
-        ms = cuda_time_ms(bwd, 20)
-        _, _, _, rows = profile_device_ms(
-            lambda: [bwd() for _ in range(10)], top=None)
-        split = {kernel_name(name): ms_ / n for name, ms_, n in rows}
-        # back-to-back calls can wait on the wrapper's host work; one call
-        # captured and replayed shows the device's time for the three
-        # launches alone
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            bwd()
-        graph_ms = cuda_time_ms(graph.replay, 20)
-        del graph
-        fwd_ms = cuda_time_ms(lambda: fk.flash_attention_cuda(
-            q, k, v, causal=True, return_lse=True), 20)
-        plain_ms = cuda_time_ms(lambda: fk.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=True), 5, warmup=1)
-        qq = q.detach().requires_grad_()
-        kk = k.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
-        vv = v.repeat_interleave(hq // hkv, dim=1).detach().requires_grad_()
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                                  scale=d ** -0.5)
-
-        def sdpa_fwd_bwd():
-            return torch.autograd.grad(sdpa(), (qq, kk, vv), do)
-
-        out = sdpa()    # the forward, outside the timed backward
-        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            out, (qq, kk, vv), do, retain_graph=True), 20)
-        lib_fb_ms = cuda_time_ms(sdpa_fwd_bwd, 20)
-        _, _, _, lib_rows = profile_device_ms(lambda: torch.autograd.grad(
-            out, (qq, kk, vv), do, retain_graph=True), top=None)
-        backend = sdpa_backend(name for name, _, _ in lib_rows)
-        lib_top = ", ".join(kernel_name(n)[:48] for n, _, _ in lib_rows[:3])
-        # each input read once (q, k, v, o, dO, lse), each output written
-        # once (dQ, dK, dV); 2.5 × the forward's causal FLOPs
-        nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
-                  + lse.numel() * 4)
-        flops = 2.5 * 2 * b * hq * s * s * d
-        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
-        ops_ms = flops / peak * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(ops_ms, bytes_ms)
-        times[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "library_ms": lib_ms,
-                     "library_fwd_bwd_ms": lib_fb_ms,
-                     "library_backend": backend, "kernels_ms": split,
-                     "graph_ms": graph_ms, "fwd_ms": fwd_ms}
-        print(f"path J ({smi}): flash_attention_bwd ({b}, {hq}/{hkv}, {s}, "
-              f"{d}) {str(dt)[6:]} causal: kernel {ms:.4f} ms (forward with "
-              f"lse {fwd_ms:.4f} ms), bound {bound:.4f} ms ({flops:.4g} "
-              f"FLOPs = 2.5 x the causal forward's at "
-              f"{peak / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at "
-              f"3.35 TB/s = {bytes_ms:.4f} ms; {bound / ms:.1%} of bound), "
-              f"plain {plain_ms:.4f} ms; one call captured and replayed "
-              f"{graph_ms:.4f} ms ({bound / graph_ms:.1%} of bound); its "
-              f"kernels under the profiler (device ms a call): "
-              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items())
-              + f"; SDPA on repeat_interleave'd k/v ({backend} backend; "
-              f"kernels {lib_top}): "
-              f"backward alone {lib_ms:.4f} ms, forward + backward "
-              f"{lib_fb_ms:.4f} ms", flush=True)
-        del q, k, v, do, o, lse, qq, kk, vv, out
+    times = {dt: bwd_case_times(randn, b, hq, hkv, s, d, True, dt, smi, "J")
+             for dt in (torch.bfloat16, torch.float32)}
     row = times[torch.bfloat16]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2390,11 +2467,13 @@ def flash_bwd_checks(randn, errs, smi) -> dict:
             "float32": times[torch.float32]}
 
 
-def attention_grads_check(dev) -> None:
-    """Path J (a): ``loss.backward()`` through the port's dense forward on
-    the card gives ``wq``, ``wk`` and ``wv`` the gradients of the same
-    forward with the plain attention (SmolLM-360M at full width, 2 layers,
-    float32, 2 x 256 tokens): within 1e-4 of the largest gradient."""
+def attention_grads_check(dev, name: str = "smollm_360m",
+                          path: str = "J") -> None:
+    """Path J (a) (SmolLM-360M) and path N (a) (HuBERT-XLarge):
+    ``loss.backward()`` through the port's forward on the card gives
+    ``wq``, ``wk`` and ``wv`` the gradients of the same forward with the
+    plain attention (full width, 2 layers, float32, 2 x 256 tokens or
+    frames): within 1e-4 of the largest gradient."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2402,7 +2481,7 @@ def attention_grads_check(dev) -> None:
     from repro_torch.models import layers
     from repro_torch.models import transformer as tfm
 
-    cfg = dataclasses.replace(get_config("smollm_360m"), num_layers=2,
+    cfg = dataclasses.replace(get_config(name), num_layers=2,
                               dtype="float32")
     params = tfm.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(11),
@@ -2411,6 +2490,10 @@ def attention_grads_check(dev) -> None:
     toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen)
     batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev),
              "mask": torch.ones((2, 256), device=dev)}
+    if cfg.frontend == "audio":
+        batch["features"] = torch.randn((2, 256, cfg.frontend_dim),
+                                        generator=gen).to(dev)
+        del batch["tokens"]
 
     def grads():
         for t in _leaves(params):
@@ -2427,7 +2510,7 @@ def attention_grads_check(dev) -> None:
     bwd0 = fk.LAUNCHES_BWD
     got = grads()
     check(fk.LAUNCHES_BWD - bwd0 == cfg.num_layers,
-          f"path J: loss.backward() launched flash_attention_bwd "
+          f"path {path}: loss.backward() launched flash_attention_bwd "
           f"{fk.LAUNCHES_BWD - bwd0} times, not once per layer")
     kernel_attn = layers.flash_attention
     layers.flash_attention = plain
@@ -2436,17 +2519,18 @@ def attention_grads_check(dev) -> None:
     finally:
         layers.flash_attention = kernel_attn
     errs = []
-    for name, g, w in zip(("wq", "wk", "wv"), got, want):
+    for leaf, g, w in zip(("wq", "wk", "wv"), got, want):
         top = w.abs().max().item()
         err = (g - w).abs().max().item()
-        errs.append(f"{name} {err / top:.3g}")
-        check(top > 0 and err <= 1e-4 * top, f"path J: loss.backward() "
-              f"{name} grad differs from the plain path's: max abs err "
+        errs.append(f"{leaf} {err / top:.3g}")
+        check(top > 0 and err <= 1e-4 * top, f"path {path}: loss.backward() "
+              f"{leaf} grad differs from the plain path's: max abs err "
               f"{err}, max |want| {top}")
-    print(f"path J: loss.backward() through the dense forward (smollm_360m "
-          f"full width, 2 layers, float32) gives wq/wk/wv the plain path's "
-          f"gradients (max abs err / max |g|: {', '.join(errs)}; bound "
-          f"1e-4)", flush=True)
+    print(f"path {path}: loss.backward() through the forward ({cfg.name} "
+          f"full width, head dim {cfg.head_dim_}, "
+          f"{'causal' if cfg.causal else 'non-causal'}, 2 layers, float32) "
+          f"gives wq/wk/wv the plain path's gradients (max abs err / max "
+          f"|g|: {', '.join(errs)}; bound 1e-4)", flush=True)
     del params
 
 
@@ -2558,10 +2642,11 @@ def train_timed(path: str, label: str, step_fn, state, batches: list,
     check(all(math.isfinite(x) for x in [warm] + losses),
           f"path {path}: {label}: a loss is not finite: {[warm] + losses}")
     ms = sum(times) / len(times) * 1e3
-    tokens = batches[0]["tokens"].numel()
+    tokens = batches[0]["labels"].numel()
+    unit = "frames" if "features" in batches[0] else "tokens"
     print(f"path {path}: {label}: {ms:.2f} ms a step (steps "
           f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
-          f"{tokens / (ms / 1e3):.0f} tokens/s, losses "
+          f"{tokens / (ms / 1e3):.0f} {unit}/s, losses "
           f"{warm!r} (warm-up), {', '.join(repr(x) for x in losses)}; "
           f"peak {peak:.2f} GiB; {disp:g} dispatches a step; launches a "
           f"step {counts}", flush=True)
@@ -2573,6 +2658,64 @@ def train_timed(path: str, label: str, step_fn, state, batches: list,
               f"(idle {1 - dev_ms / wall:.1%}); top: {top_ops(rows)}",
               flush=True)
     return state, ms
+
+
+def steps_agree(path: str, cfg32, ts, opt, dev, smi: str,
+                seed: int) -> None:
+    """Path J's (b) and path N's (b), float32 (TF32 off): one
+    ``make_dp_train_step`` on the default 4-device session against one
+    ``make_train_step`` (loss rtol 1e-5, params atol 2e-5 / rtol 1e-4,
+    elements whose |g| < ``EPS_CONDITIONED`` within 2·lr) and one
+    ``make_captured_dp_train_step`` against it (one dispatch, the same
+    tolerances), on a batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ``."""
+    from repro_torch.comm import CommSession
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.training import (init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, make_train_step)
+    from repro_torch.training.train_step import _make_grad_fn
+
+    ds32 = SyntheticDataset(cfg32, DataConfig(seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_BATCH))
+    batch = batch_to(ds32.batch_at(0), dev)
+    state = init_state(cfg32, opt, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    _, grads = _make_grad_fn(cfg32, ts)(state["params"], batch)
+    single, m1 = make_train_step(cfg32, ts, opt, device=dev)(state, batch)
+    sess = CommSession(device=dev)
+    dp, m2 = make_dp_train_step(cfg32, ts, opt, sess)(state, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(abs(l2 - l1) <= 1e-5 * abs(l1), f"path {path}: DP loss {l2} vs "
+          f"single-device {l1} beyond rtol 1e-5")
+    lr1 = float(m1["lr"])
+    dp_err, loose = state_close(dp, single, "DP step vs single-device step",
+                                grads, lr1, path=path)
+    n_cond = sum(int((g.abs() < EPS_CONDITIONED).sum())
+                 for g in _leaves(grads))
+    del single, grads
+    cap_sess = CommSession(device=dev)
+    captured = make_captured_dp_train_step(cfg32, ts, opt, cap_sess, state,
+                                           batch)
+    d0 = cap_sess.stats()["dispatches"]
+    cap, m3 = captured(state, batch)
+    check(cap_sess.stats()["dispatches"] - d0 == 1,
+          f"path {path}: the captured step is not one dispatch a call")
+    l3 = float(m3["loss"])
+    check(abs(l3 - l2) <= 1e-5 * abs(l2), f"path {path}: captured loss "
+          f"{l3} vs DP {l2} beyond rtol 1e-5")
+    cap_err, _ = state_close(cap, dp, "captured step vs DP step", path=path)
+    unit = "frames" if "features" in batch else "tokens"
+    print(f"path {path} ({smi}): full width, 2 layers, float32, TF32 off, "
+          f"one step of {TRAIN_BATCH} x {TRAIN_SEQ} {unit}: loss single "
+          f"{l1!r}, DP {l2!r}, captured "
+          f"{l3!r}; params max abs diff DP-single {dp_err}, captured-DP "
+          f"{cap_err} (atol 2e-5 / rtol 1e-4; DP-single: {loose} of the "
+          f"{n_cond} elements with |g| < {EPS_CONDITIONED} beyond it, "
+          f"within 2 lr = {2 * lr1}); captured step 1 dispatch",
+          flush=True)
+    del state, dp, cap, captured, cap_sess, sess, m1, m2, m3, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
@@ -2592,20 +2735,18 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
     reckoned first; (d) a checkpoint save and restore of the 2-layer
     state, bitwise. Returns the backward kernel's report row."""
     import dataclasses
-    import math
     import tempfile
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.comm import CommSession
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticDataset, batch_to
-    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim import OptimConfig
     from repro_torch.training import (TrainStepConfig, init_state,
                                       make_captured_dp_train_step,
                                       make_dp_train_step, make_train_step)
-    from repro_torch.training.train_step import _make_grad_fn
 
     dev_gen = torch.Generator(device=dev).manual_seed(21)
 
@@ -2630,46 +2771,9 @@ def training_path(dev, errs, per_path, read_path, smi: str) -> dict:
     reset_launch_counts()
 
     # (b) correctness at full width, 2 layers, float32
-    cfg32 = dataclasses.replace(full, num_layers=2, dtype="float32")
-    ds32 = SyntheticDataset(cfg32, DataConfig(seq_len=TRAIN_SEQ,
-                                              global_batch=TRAIN_BATCH))
-    batch = batch_to(ds32.batch_at(0), dev)
-    state = init_state(cfg32, opt, generator=torch.Generator(
-        device=dev).manual_seed(22), device=dev)
-    _, grads = _make_grad_fn(cfg32, ts)(state["params"], batch)
-    single, m1 = make_train_step(cfg32, ts, opt, device=dev)(state, batch)
-    sess = CommSession(device=dev)
-    dp, m2 = make_dp_train_step(cfg32, ts, opt, sess)(state, batch)
-    l1, l2 = float(m1["loss"]), float(m2["loss"])
-    check(abs(l2 - l1) <= 1e-5 * abs(l1), f"path J: DP loss {l2} vs "
-          f"single-device {l1} beyond rtol 1e-5")
-    lr1 = float(m1["lr"])
-    dp_err, loose = state_close(dp, single, "DP step vs single-device step",
-                                grads, lr1)
-    n_cond = sum(int((g.abs() < EPS_CONDITIONED).sum())
-                 for g in _leaves(grads))
-    del single, grads
-    cap_sess = CommSession(device=dev)
-    captured = make_captured_dp_train_step(cfg32, ts, opt, cap_sess, state,
-                                           batch)
-    d0 = cap_sess.stats()["dispatches"]
-    cap, m3 = captured(state, batch)
-    check(cap_sess.stats()["dispatches"] - d0 == 1,
-          "path J: the captured step is not one dispatch a call")
-    l3 = float(m3["loss"])
-    check(abs(l3 - l2) <= 1e-5 * abs(l2), f"path J: captured loss {l3} vs "
-          f"DP {l2} beyond rtol 1e-5")
-    cap_err, _ = state_close(cap, dp, "captured step vs DP step")
-    print(f"path J ({smi}): full width, 2 layers, float32, TF32 off, one "
-          f"step of 8 x 512 tokens: loss single {l1!r}, DP {l2!r}, captured "
-          f"{l3!r}; params max abs diff DP-single {dp_err}, captured-DP "
-          f"{cap_err} (atol 2e-5 / rtol 1e-4; DP-single: {loose} of the "
-          f"{n_cond} elements with |g| < {EPS_CONDITIONED} beyond it, "
-          f"within 2 lr = {2 * lr1}); captured step 1 dispatch",
-          flush=True)
-    del state, dp, cap, captured, cap_sess, sess, m1, m2, m3, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    steps_agree("J", dataclasses.replace(full, num_layers=2,
+                                         dtype="float32"), ts, opt, dev,
+                smi, seed=22)
 
     # (c) timed runs, bfloat16, 1 warm-up + 5 steps of 8 x 512 tokens
     def timed(label, cfg, step_fn, state, sess=None, profile=False):
@@ -3847,6 +3951,340 @@ def families_training_path(dev, errs, per_path, read_path, smi) -> dict:
     return row
 
 
+#: Path N's attention shape: one HuBERT-XLarge step of 8 x 512 frames,
+#: 16/16 heads of 80, unmasked (an encoder).
+HUBERT_ATTN = (8, 16, 16, 512, 80)
+
+
+def hubert_attention_checks(randn, errs, smi) -> tuple[dict, dict]:
+    """Path N (a): ``flash_attention`` and its backward at HuBERT-XLarge's
+    training shape (``HUBERT_ATTN``, full mask) against their plain
+    versions (forward bfloat16 within ``BF16_ATOL + BF16_RTOL * |want|``;
+    backward float32 within 1e-4 and bfloat16 within 2e-2 of the largest
+    |want|, also at one DP shard's batch of 2), then both timed beside
+    their bounds, the plain versions and SDPA (the yardstick only).
+    Returns the forward's and the backward's times."""
+    b, hq, hkv, s, d = HUBERT_ATTN
+    train_bwd_checks(randn, errs, "N", b, hq, hkv, s, d, False)
+    fwd = flash_case_times(randn, errs, b, hq, hkv, s, d, plain_iters=3,
+                           causal=False, smi=smi)
+    bwd = bwd_case_times(randn, b, hq, hkv, s, d, False, torch.bfloat16,
+                         smi, "N")
+    return fwd, bwd
+
+
+def hubert_training_path(dev, errs, per_path, read_path, smi) -> tuple:
+    """Main path N (phase 19): training HuBERT-XLarge, the audio encoder,
+    at full width and depth (48 layers, d_model 1280, 16/16 heads of 80,
+    non-causal, d_ff 5120 GELU, vocab 504, bfloat16, ``remat="full"``,
+    float32 moments) on batches of 8 x 512 seeded 512-dim frame features.
+
+    (a), not counted: the attention kernels at its shape
+    (:func:`hubert_attention_checks`) and ``loss.backward()`` through 2
+    float32 layers against the plain attention's gradients. Then, with
+    every launch counter set to 0 just before and read just after: (b) the
+    DP and captured DP steps against the single step at 2 layers in
+    float32 (:func:`steps_agree`); (c) 1 warm-up + 3 timed steps of
+    ``make_train_step`` and of ``make_dp_train_step`` on 4 devices at 48
+    layers, and of the captured DP step at 2 layers (its arena reckoned
+    first), each with one step under the profiler; the forward kernel
+    launched twice a layer a step (remat) and the backward once. Returns
+    the forward's and the backward's times at the attention shape."""
+    import dataclasses
+
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, make_train_step)
+
+    dev_gen = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    # -- 19. main path N: training HuBERT-XLarge -----------------------------
+    t_path = time.perf_counter()
+    full = get_config("hubert_xlarge")
+    check((full.family, full.num_layers, full.d_model, full.num_heads,
+           full.num_kv_heads, full.head_dim_, full.d_ff, full.mlp,
+           full.causal, full.vocab_size, full.frontend_dim, full.dtype,
+           full.remat)
+          == ("audio", 48, 1280, 16, 16, 80, 5120, "gelu", False, 504, 512,
+              "bfloat16", "full"),
+          f"hubert_xlarge is not the full config: {full}")
+    times = hubert_attention_checks(randn, errs, smi)
+    attention_grads_check(dev, "hubert_xlarge", "N")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ts = TrainStepConfig()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    reset_launch_counts()
+    # (b) correctness at full width, 2 layers, float32
+    steps_agree("N", dataclasses.replace(full, num_layers=2,
+                                         dtype="float32"), ts, opt, dev,
+                smi, seed=27)
+
+    # (c) timed runs, bfloat16, 1 warm-up + 3 steps of 8 x 512 frames
+    def batches(cfg):
+        return family_batches(cfg, dev, TRAIN_BATCH, TRAIN_SEQ, 4)
+
+    n_params = sum(t.numel() for t in _leaves(param_shapes(full)))
+    state = init_state(full, opt, generator=torch.Generator(
+        device=dev).manual_seed(28), device=dev)
+    bt = batches(full)
+    step = make_train_step(full, ts, opt, device=dev)
+    state, _ = step(state, bt[0])
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    state, _ = step(state, bt[1])
+    torch.cuda.synchronize()
+    one = {k: v - c0[k] for k, v in launch_counts().items() if v != c0[k]}
+    nl = full.num_layers
+    check(one.get("flash_attention") == 2 * nl
+          and one.get("flash_attention_bwd") == nl,
+          f"path N: a step launched {one}, not flash_attention twice a "
+          f"layer (remat) and flash_attention_bwd once ({2 * nl}, {nl})")
+    print(f"path N: one make_train_step step at {nl} layers launched "
+          f"{one}: flash_attention twice a layer (forward and remat), "
+          f"flash_attention_bwd once", flush=True)
+    state, _ = train_timed(
+        "N", f"make_train_step, full width, {nl} layers ({n_params} "
+        f"parameters), bfloat16", step, state, bt, profile=True)
+    sess = CommSession(device=dev)
+    state, _ = train_timed(
+        "N", f"make_dp_train_step on {sess.num_devices} devices, full "
+        f"width, {nl} layers, bfloat16", make_dp_train_step(
+            full, ts, opt, sess), state, bt, sess, profile=True)
+    del state, sess, step, bt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    state = init_state(cfg2, opt, generator=torch.Generator(
+        device=dev).manual_seed(29), device=dev)
+    p2 = sum(t.numel() for t in _leaves(state["params"]))
+    sess = CommSession(device=dev)
+    bt = batches(cfg2)
+    captured = make_captured_dp_train_step(cfg2, ts, opt, sess, state, bt[0])
+    arena = arena_bytes(captured.capture.capture)
+    print(f"path N: the captured step's arena at full width, 2 layers "
+          f"({p2} parameters), bfloat16 params, float32 moments, "
+          f"{sess.num_devices} devices: {arena} B = {arena / 1e9:.2f} GB, "
+          f"{arena / p2:.1f} B a parameter "
+          f"({len(captured.capture.capture.buffers)} buffers)", flush=True)
+    state, _ = train_timed(
+        "N", f"make_captured_dp_train_step on {sess.num_devices} devices, "
+        f"full width, 2 layers, bfloat16", captured, state, bt, sess,
+        profile=True)
+    del state, captured, sess, bt
+    read_path("N")
+    for name in ("flash_attention", "flash_attention_bwd", "multipath_dma"):
+        check(per_path["N"].get(name, 0) > 0,
+              f"path N did not launch {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path N: {time.perf_counter() - t_path:.1f} s", flush=True)
+    return times
+
+
+#: Path O's depths: Kimi K2 over 1 of its 61 layers (38.8 GB at full
+#: width, 33.9 GB of it the 384 experts), Nemotron-4 340B over 4 of 96
+#: (6.9 GB a layer beside 18.9 GB of embedding and head).
+KIMI_LAYERS, NEMOTRON_LAYERS = 1, 4
+#: The most device memory path O reckons a model's serving may take
+#: before its prompts are halved (the card has 80 GB).
+SERVE_BYTES_LIMIT = 70e9
+
+
+def moe_prefill_bytes(cfg, tokens: int) -> int:
+    """The bytes one dropless MoE layer holds at once over ``tokens``
+    prompt tokens (capacity = tokens for each of the E experts): the
+    dispatch buffer and the experts' output, ``(E, T, d)`` each, and three
+    ``(E, T, d_ff)`` intermediates of the gated product, bfloat16."""
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return 2 * e * tokens * (2 * d + 3 * ff)
+
+
+def serve_reckoning(cfg, prompts: list[int], new: int) -> int:
+    """The bytes a model's serving in path O reckons at its peak: the
+    weights, twice a prefill's largest transient (the prefill graph's
+    private pool and an eager prefill beside it) and the full-sequence
+    logits."""
+    from repro_torch.models.transformer import param_shapes
+
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(param_shapes(cfg)))
+    tokens = len(prompts) * max(prompts)
+    transient = (moe_prefill_bytes(cfg, tokens) if cfg.num_experts
+                 else 2 * tokens * 2 * cfg.d_ff)
+    logits = tokens * cfg.vocab_size * 2
+    return weights + 2 * transient + 2 * logits
+
+
+def serve_config_path(dev, errs, per_path, read_path, name: str, layers: int,
+                      want: tuple, prompt_lens: list[int], new: int,
+                      path: str, smi: str) -> dict:
+    """One model of main path O: ``name`` at full width over ``layers``
+    layers, served with ``ServeEngine(max_len=1024, kv_chunks=4)`` on
+    seeded random weights (its prompts halved while
+    :func:`serve_reckoning` passes ``SERVE_BYTES_LIMIT``): the counted run
+    of :func:`serve_requests` (every counter set to 0 just before), the
+    token and captured-decode checks of :func:`program_checks`, the kernel
+    at layer 0's real prefill q/k/v, :func:`serving_times`, and the kernel
+    at the prefill's shape beside its bound and SDPA. Returns that
+    shape's times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeEngine
+
+    full = get_config(name)
+    fields = ("family", "d_model", "num_heads", "num_kv_heads", "head_dim_",
+              "d_ff", "mlp", "num_experts", "top_k", "num_shared_experts",
+              "vocab_size", "attention", "dtype")
+    check(tuple(getattr(full, f) for f in fields) == want,
+          f"{name} is not the full config: {full}")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    lens = list(prompt_lens)
+    reckoned = serve_reckoning(cfg, lens, new)
+    while reckoned > SERVE_BYTES_LIMIT:
+        lens = [n // 2 for n in lens]
+        reckoned = serve_reckoning(cfg, lens, new)
+    print(f"path {path}: {name} over {layers} of {full.num_layers} layers: "
+          f"reckoned peak {reckoned / 1e9:.1f} GB (weights, twice a "
+          f"prefill's transient, logits) at prompts {lens}"
+          + (f" (halved from {prompt_lens}: {serve_reckoning(cfg, prompt_lens, new) / 1e9:.1f} GB "
+             f"passes {SERVE_BYTES_LIMIT / 1e9:.0f} GB)"
+             if lens != prompt_lens else ""), flush=True)
+    params = init_model(cfg, dev, path)
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist() for n in lens]
+    engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+    toks, outs, logits, cache, gen_s = serve_requests(
+        cfg, engine, prompts, new, path, per_path, read_path)
+    b, plen = toks.shape
+    program_checks(cfg, engine, toks, outs, path)
+    layer0_attention_check(cfg, params, toks, errs, path)
+    serving_times(cfg, engine, None, toks, logits, cache, new, gen_s, path)
+    del engine, params, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    case = flash_case_times(randn, errs, b, cfg.num_heads, cfg.num_kv_heads,
+                            plen, cfg.head_dim_, plain_iters=3, smi=smi)
+    if plen != max(prompt_lens):
+        # the requests' own length too, where the reckoning halved them
+        case["unhalved"] = flash_case_times(
+            randn, errs, b, cfg.num_heads, cfg.num_kv_heads,
+            max(prompt_lens), cfg.head_dim_, plain_iters=3, smi=smi)
+    for c in (case, case.get("unhalved", case)):
+        check(c["max_abs_err"] <= 2e-2, f"flash_attention at path {path}'s "
+              f"prefill shape: max abs err {c['max_abs_err']} vs plain, "
+              f"beyond the reference's bf16 2e-2")
+    return case
+
+
+def serving_head_dims_path(dev, errs, per_path, read_path, smi) -> dict:
+    """Main path O (phase 20): serving at head dims 112 and 192, each
+    model freed before the next: Kimi K2 (MoE, 384 experts of d_ff 2048
+    top-8 and one shared expert, 64/8 heads of 112, vocab 163840) over 1
+    of its 61 layers, 4 requests of 256/192/128/64 tokens and 16 new
+    each; Nemotron-4 340B (dense, 96/8 heads of 192, squared-ReLU d_ff
+    73728, vocab 256000) over 4 of its 96 layers, path E's 4 requests of
+    512/384/256/128 tokens and 32 new each. Returns the kernel's times at
+    each prefill shape (Kimi K2's also at its requests' unhalved
+    length)."""
+    t_path = time.perf_counter()
+    kimi = serve_config_path(
+        dev, errs, per_path, read_path, "kimi_k2_1t_a32b", KIMI_LAYERS,
+        ("moe", 7168, 64, 8, 112, 2048, "swiglu", 384, 8, 1, 163840, "full",
+         "bfloat16"), [256, 192, 128, 64], 16, "O-kimi", smi)
+    nemotron = serve_config_path(
+        dev, errs, per_path, read_path, "nemotron_4_340b", NEMOTRON_LAYERS,
+        ("dense", 18432, 96, 8, 192, 73728, "relu2", 0, 0, 0, 256000, "full",
+         "bfloat16"), [512, 384, 256, 128], 32, "O-nemotron", smi)
+    print(f"path O: {time.perf_counter() - t_path:.1f} s", flush=True)
+    return {"O-kimi": kimi, "O-nemotron": nemotron}
+
+
+#: Phase 3's head dims of the registered configs beyond 16/32/64/128:
+#: HuBERT-XLarge's 80, Kimi K2's 112, Nemotron-4 340B's 192 (the forward
+#: only: the backward raises there), at two shapes each.
+WIDE_DIMS = (80, 112, 192)
+WIDE_SHAPES = ((1, 4, 2, 200), (2, 8, 8, 130))
+
+
+def wide_head_dim_checks(randn, errs, flash_case) -> None:
+    """Phase 3 at the configs' head dims: the forward at ``WIDE_DIMS`` x
+    ``WIDE_SHAPES`` under each mask (causal, causal with a window of 64,
+    full), float32 at atol 3e-5 / rtol 1e-4 and bfloat16 at max abs 2e-2;
+    the backward at 80 and 112 against its plain version, float32 within
+    1e-4 and bfloat16 within 2e-2 of the largest |want|; at 192 the
+    backward raises on a CUDA tensor."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    t0 = time.perf_counter()
+    masks = ((True, None), (True, 64), (False, None))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for d in WIDE_DIMS:
+        for b, hq, hkv, s in WIDE_SHAPES:
+            for causal, window in masks:
+                worst[torch.float32] = max(worst[torch.float32], flash_case(
+                    (b, hq, hkv, s, d), torch.float32, causal, window, 3e-5,
+                    1e-4))
+                worst[torch.bfloat16] = max(worst[torch.bfloat16],
+                                            flash_case((b, hq, hkv, s, d),
+                                                       torch.bfloat16, causal,
+                                                       window, 2e-2, 0.0))
+    rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for d in (80, 112):
+        for b, hq, hkv, s in WIDE_SHAPES:
+            for causal, window in masks:
+                for dt in (torch.float32, torch.bfloat16):
+                    q = (randn(b, hq, s, d) * 0.5).to(dt)
+                    k = (randn(b, hkv, s, d) * 0.5).to(dt)
+                    v = randn(b, hkv, s, d, dtype=dt)
+                    do = randn(b, hq, s, d, dtype=dt)
+                    for name, (err, top) in bwd_case_err(
+                            fk, q, k, v, do, causal, window, "3").items():
+                        errs["flash_attention_bwd"] = max(
+                            errs["flash_attention_bwd"], err)
+                        rel[dt] = max(rel[dt], err / top)
+                        check(err <= BWD_REL[dt] * top,
+                              f"flash_attention_bwd {name} at ({b}, "
+                              f"{hq}/{hkv}, {s}, {d}) {dt} causal={causal} "
+                              f"window={window}: max abs err {err} > "
+                              f"{BWD_REL[dt]} * {top}")
+    q = randn(1, 2, 64, 192, dtype=torch.bfloat16)
+    o, lse = fk.flash_attention_cuda(q, q, q, return_lse=True)
+    before = fk.LAUNCHES_BWD
+    try:
+        fk.flash_attention_bwd_cuda(q, q, q, o, lse, q)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and fk.LAUNCHES_BWD == before,
+          "flash_attention_bwd at head dim 192 did not raise")
+    print(f"flash_attention vs plain at head dims {WIDE_DIMS}, shapes "
+          f"{WIDE_SHAPES}, (causal, window) in {masks}: float32 max abs err "
+          f"{worst[torch.float32]} (atol 3e-5, rtol 1e-4), bfloat16 "
+          f"{worst[torch.bfloat16]} (max abs 2e-2); flash_attention_bwd "
+          f"at 80 and 112: largest max abs err / max |want| float32 "
+          f"{rel[torch.float32]:.3g} (1e-4), bfloat16 "
+          f"{rel[torch.bfloat16]:.3g} (2e-2); at 192 it raises "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4039,6 +4477,7 @@ def main() -> int:
           f"Gemma-style window 64 at (1, 32/16, 512, 128) + 32/8 heads (max "
           f"abs 2e-2; max abs err {bf16_err}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    wide_head_dim_checks(randn, errs, flash_case)
     rwkv_checks(randn, rand, errs)
 
     main_launches = {name: 0 for name in _build.KERNELS}
@@ -4091,11 +4530,24 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kernels.append(families_training_path(dev, errs, per_path, read_path,
                                           smi))
-    print(f"main-path launches (paths A-M): {main_launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_n, bwd_n = hubert_training_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_o = serving_head_dims_path(dev, errs, per_path, read_path, smi)
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["shapes"].update({"N": fwd_n, **at_o})
+        if row["name"] == "flash_attention_bwd":
+            row["shapes"] = {"N": bwd_n}
+    print(f"main-path launches (paths A-O): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 19. report --------------------------------------------------------
+    # -- 21. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -81,8 +81,9 @@ def tensor_from_numpy(a, *, device=None) -> torch.Tensor:
 
 def params_from_numpy(tree, *, device=None):
     """A model's parameters — nested dicts (and lists) of arrays in the
-    reference's layout, layers stacked on a leading ``L`` axis — as the
-    same structure of tensors on ``device``, dtypes kept (bfloat16
+    reference's layout, layers stacked on a leading ``L`` axis, an audio
+    model's ``frontend_proj`` and ``head`` beside them — as the same
+    structure of tensors on ``device``, dtypes kept (bfloat16
     included)."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device=device)

@@ -151,12 +151,12 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 REGISTRY: dict[str, ArchConfig] = {}
 
-#: The architectures ported so far: the reference's ten but the audio
-#: model (``hubert_xlarge``), in the reference's order.
+#: The architectures the port registers: the reference's ten, in its
+#: order.
 ARCH_IDS = (
     "gemma3_27b", "nemotron_4_340b", "llama3_8b", "smollm_360m",
     "mixtral_8x22b", "kimi_k2_1t_a32b", "chameleon_34b", "hymba_1_5b",
-    "rwkv6_1_6b",
+    "rwkv6_1_6b", "hubert_xlarge",
 )
 
 

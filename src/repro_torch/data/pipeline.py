@@ -69,8 +69,9 @@ class SyntheticDataset:
 
 def batch_to(batch: dict, device) -> dict:
     """A numpy batch as tensors on ``device``, dtypes kept (tokens and
-    labels int32, as the reference's). On a CUDA device the copies leave
-    pinned host memory without blocking."""
+    labels int32, as the reference's; an audio batch's features float32).
+    On a CUDA device the copies leave pinned host memory without
+    blocking."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     out = {}

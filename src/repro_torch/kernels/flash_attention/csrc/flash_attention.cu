@@ -18,16 +18,21 @@
 // bfloat16: `flash_wgmma_kernel`, on the tensor cores.
 // * One warpgroup (128 threads) per block owns 64 query rows. Two blocks
 //   share an SM at D = 128 (82,944 bytes of shared memory each), so one
-//   block's softmax runs under the other's products. Both products are
-//   warpgroup `wgmma.mma_async` with float32 accumulators in registers:
-//   S = Q K^T as m64n64k16 with Q and the K tile read from shared memory
-//   (both K-major, as loaded), then O += P V as m64nDk16 with P from
-//   registers and the V tile from shared memory as the transposed
-//   ("MN-major") B operand.
+//   block's softmax runs under the other's products; at D = 192 (123,904
+//   bytes) one block does. Both products are warpgroup `wgmma.mma_async`
+//   with float32 accumulators in registers: S = Q K^T as m64n64k16 with Q
+//   and the K tile read from shared memory (both K-major, as loaded), then
+//   O += P V as m64nDPk16 with P from registers and the V tile from shared
+//   memory as the transposed ("MN-major") B operand.
+// * Head dims other than 16, 32, 64, 128 and 192 run at the padded width
+//   DP of hopper_tiles.cuh: d = 80 and 112 in tiles of 128 columns whose
+//   last 48 or 16 TMA fills with zeros. Q K^T takes ceil(d / 16) k-steps
+//   (no waste); P V runs at N = 128, 128 / d of its work (1.6x at 80,
+//   1.14x at 112); the output stores write d columns.
 // * Loads are TMA copies over 4-D tensor maps (D, S, heads, batch) built
 //   on the host per call and passed as __grid_constant__ parameters, so a
 //   launch recorded into a CUDA graph carries them by value. Tiles land in
-//   shared memory in the 128-byte swizzle (64- or 32-byte for D = 32, 16)
+//   shared memory in the 128-byte swizzle (64- or 32-byte for DP = 32, 16)
 //   that the wgmma descriptors name; rows past S arrive as zeros. K and V
 //   tiles of 64 keys go through a ring of two stages with one barrier for
 //   each K and each V: thread 0 reloads a stage's K as soon as every
@@ -61,6 +66,9 @@
 //   per d); for the output it owns dims t % 16 + 16 * i. The 16 threads
 //   of a row group are 16 lanes of one warp, so row max and row sum are
 //   warp shuffles.
+// * Built at DP = 16, 32, 64, 80, 112, 128 and 192 (hopper_tiles.cuh,
+//   `f32_head_dims`); a head dim between two of them is staged with zero
+//   columns up to the next.
 //
 // Both, per key tile, exactly what the Pallas body does: scores in
 // float32, scaled, masked to -1e30 (col < S, col <= row if causal,
@@ -107,6 +115,7 @@ struct Args {
   int causal;
   int64_t group;  // bf16: heads per L2 group of the block order
   float* lse;     // (B, Hq, S) row log-sum-exp, or nullptr
+  int64_t d;      // head dim (the kernels' padded width DP >= d)
 };
 
 // The key tiles [*begin, *end) of KEYS keys that rows r0 .. r_last visit:
@@ -136,8 +145,9 @@ constexpr size_t smem_bytes(int d) {
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 192), "head dim");
   constexpr int DPT = D / 16;  // output dims per thread
+  const int64_t hd = a.d;      // the true head dim, <= D
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;            // [D][BQ]
   float* kt = qt + D * BQ;     // [D][BK]
@@ -162,7 +172,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     const int row = idx & (BQ - 1);
     const int d = idx / BQ;
     const int64_t r = q0 + row;
-    qt[d * BQ + row] = r < seq ? qp[r * a.qss + d] : 0.0f;
+    qt[d * BQ + row] = r < seq && d < hd ? qp[r * a.qss + d] : 0.0f;
   }
 
   float m[4], l[4], acc[4][DPT];
@@ -185,13 +195,13 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
       const int key = idx & (BK - 1);
       const int d = idx / BK;
       const int64_t c = k0 + key;
-      kt[d * BK + key] = c < seq ? kp[c * a.kss + d] : 0.0f;
+      kt[d * BK + key] = c < seq && d < hd ? kp[c * a.kss + d] : 0.0f;
     }
     for (int idx = t; idx < BK * D; idx += THREADS) {
       const int key = idx / D;
       const int d = idx % D;
       const int64_t c = k0 + key;
-      vs[key * D + d] = c < seq ? vp[c * a.vss + d] : 0.0f;
+      vs[key * D + d] = c < seq && d < hd ? vp[c * a.vss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -281,7 +291,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     }
   }
 
-  float* op = (float*)a.o + bh * seq * D;
+  float* op = (float*)a.o + bh * seq * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + 4 * rg + i;
@@ -291,7 +301,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      op[row * D + cg + 16 * j] = acc[i][j] / denom;
+      if (cg + 16 * j < hd) op[row * hd + cg + 16 * j] = acc[i][j] / denom;
   }
 }
 
@@ -362,12 +372,12 @@ __device__ __forceinline__ void softmax_step(const Args& a, float* s,
 // probabilities in s into P's A-operand fragments: the m64nK accumulator
 // fragment of a thread is, pair by pair, its A fragment of the next
 // product.
-template <int D, int KEYS>
+template <int DP, int KEYS>
 __device__ __forceinline__ void rescale_and_pack(float* o, const float* alpha,
                                                  const float* s,
                                                  uint32_t (*p)[4]) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
     p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -383,12 +393,12 @@ __device__ __forceinline__ void rescale_and_pack(float* o, const float* alpha,
 // 0 issues every TMA load. Barriers: one for Q, and per stage one for K
 // and one for V, so a tile's Q K^T starts once its K has landed and K's
 // stage is refilled as soon as every warp's Q K^T has read it.
-template <int D>
-__global__ void __launch_bounds__(Tiles<D>::THREADS)
+template <int DP, int KS>
+__global__ void __launch_bounds__(Tiles<DP>::THREADS)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, Args a) {
-  using T = Tiles<D>;
+  using T = Tiles<DP>;
   constexpr int KEYS = T::KEYS;
   constexpr int STAGES = T::STAGES;
   extern __shared__ uint8_t dyn[];
@@ -424,13 +434,13 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(q_bar, T::Q_TILE);
-    load_tile<D>(q_tile, &tq, (int)q0, h, b, q_bar);
+    load_tile<DP>(q_tile, &tq, (int)q0, h, b, q_bar);
     for (int j = 0; j < STAGES && j < n_tiles; ++j) {
       const int k0 = (int)((kt_begin + j) * KEYS);
       mbar_expect_tx(k_bar(j), T::KV_TILE);
-      load_tile<D>(k_tile(j), &tk, k0, hk, b, k_bar(j));
+      load_tile<DP>(k_tile(j), &tk, k0, hk, b, k_bar(j));
       mbar_expect_tx(v_bar(j), T::KV_TILE);
-      load_tile<D>(k_tile(j) + T::KV_TILE, &tv, k0, hk, b, v_bar(j));
+      load_tile<DP>(k_tile(j) + T::KV_TILE, &tv, k0, hk, b, v_bar(j));
     }
   }
 
@@ -438,9 +448,9 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
   const int64_t r0 = q0 + 16 * (tid >> 5) + (lane >> 2);
   const int64_t c_lane = 2 * (lane & 3);
   const float scale_log2 = a.scale * 1.4426950408889634f;
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.0f, 0.0f};
   float alpha[2];
@@ -455,14 +465,14 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
     const bool refill = j + STAGES < n_tiles;
     const int kn = (int)(k0 + STAGES * KEYS);
     mbar_wait(k_bar(st), parity);
-    issue_scores<D>(s, q_tile, k_tile(st));
+    issue_scores<DP, KS>(s, q_tile, k_tile(st));
     wgmma_wait_all();
     reg_fence<KEYS / 2>(s);
     if (refill) {
       __syncthreads();  // every warp's Q K^T has read this K tile
       if (tid == 0) {
         mbar_expect_tx(k_bar(st), T::KV_TILE);
-        load_tile<D>(k_tile(st), &tk, kn, hk, b, k_bar(st));
+        load_tile<DP>(k_tile(st), &tk, kn, hk, b, k_bar(st));
       }
     }
     // The element mask matters only on tiles that cross the sequence end,
@@ -474,16 +484,16 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
     else
       softmax_step<KEYS, false>(a, s, m, l, alpha, r0, k0 + c_lane,
                                 scale_log2);
-    rescale_and_pack<D, KEYS>(o, alpha, s, p);
+    rescale_and_pack<DP, KEYS>(o, alpha, s, p);
     mbar_wait(v_bar(st), parity);
-    issue_values<D>(o, p, k_tile(st) + T::KV_TILE);
+    issue_values<DP>(o, p, k_tile(st) + T::KV_TILE);
     wgmma_wait_all();
-    reg_fence<D / 2>(o);
+    reg_fence<DP / 2>(o);
     if (refill) {
       __syncthreads();  // every warp's P V has read this V tile
       if (tid == 0) {
         mbar_expect_tx(v_bar(st), T::KV_TILE);
-        load_tile<D>(k_tile(st) + T::KV_TILE, &tv, kn, hk, b,
+        load_tile<DP>(k_tile(st) + T::KV_TILE, &tv, kn, hk, b,
                            v_bar(st));
       }
     }
@@ -491,7 +501,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
 
   // acc / l (exact zeros where l == 0) as bf16 into padded rows over the Q
   // tile and stage 0's K, once every warp is done with them, then 16-byte
-  // stores.
+  // stores of the first a.d columns.
   uint8_t* out_s = dyn + (q_tile - smem_u32(dyn));
   __syncthreads();
   const int lr = 16 * (tid >> 5) + (lane >> 2);
@@ -506,7 +516,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
           l[r] == 0.0f ? -INFINITY
                        : (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DP / 8; ++c) {
       __nv_bfloat162 v = __floats2bfloat162_rn(o[4 * c + 2 * r] * inv,
                                                o[4 * c + 2 * r + 1] * inv);
       *reinterpret_cast<__nv_bfloat162*>(
@@ -515,28 +525,29 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS)
   }
   __syncthreads();
   uint8_t* out_g =
-      (uint8_t*)a.o + ((size_t)bh * a.seq + q0) * D * sizeof(__nv_bfloat16);
-  constexpr int CHUNKS = D / 8;  // 16-byte pieces per row
-  for (int idx = tid; idx < T::ROWS * CHUNKS; idx += T::THREADS) {
-    const int row = idx / CHUNKS;
-    const int c = idx % CHUNKS;
+      (uint8_t*)a.o + ((size_t)bh * a.seq + q0) * a.d * sizeof(__nv_bfloat16);
+  const int chunks = (int)(a.d / 8);  // 16-byte pieces per row
+  for (int idx = tid; idx < T::ROWS * chunks; idx += T::THREADS) {
+    const int row = idx / chunks;
+    const int c = idx % chunks;
     if (q0 + row < a.seq)
-      *reinterpret_cast<uint4*>(out_g + (size_t)row * D * 2 + c * 16) =
+      *reinterpret_cast<uint4*>(out_g + (size_t)row * a.d * 2 + c * 16) =
           *reinterpret_cast<const uint4*>(out_s + row * T::OUT_ROW + c * 16);
   }
 }
 
 // One 64-row tile of each product, through the same loads, descriptors
-// and fragments as the kernel: s = q k^T (64 x 64) and o = p v (64 x D),
+// and fragments as the kernel: s = q k^T (64 x 64) and o = p v (64 x d),
 // float32, row-major; p is a row-major 64 x 64 bf16 matrix. For testing
 // the layouts on the card.
-template <int D>
+template <int DP, int KS>
 __global__ void __launch_bounds__(128)
     tile_products_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
-                         const __nv_bfloat16* p, float* s_out, float* o_out) {
-  using T = Tiles<D>;
+                         const __nv_bfloat16* p, float* s_out, float* o_out,
+                         int d) {
+  using T = Tiles<DP>;
   constexpr int KEYS = T::KEYS;
   extern __shared__ uint8_t dyn[];
   __shared__ __align__(8) uint64_t bar_mem;
@@ -552,9 +563,9 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar, T::Q_TILE + 2 * T::KV_TILE);
-    load_tile<D>(q_tile, &tq, 0, 0, 0, bar);
-    load_tile<D>(k_tile, &tk, 0, 0, 0, bar);
-    load_tile<D>(v_tile, &tv, 0, 0, 0, bar);
+    load_tile<DP>(q_tile, &tq, 0, 0, 0, bar);
+    load_tile<DP>(k_tile, &tk, 0, 0, 0, bar);
+    load_tile<DP>(v_tile, &tv, 0, 0, 0, bar);
   }
   const int lane = tid & 31;
   const int r0 = 16 * (tid >> 5) + (lane >> 2);
@@ -570,72 +581,75 @@ __global__ void __launch_bounds__(128)
     }
   mbar_wait(bar, 0);
   float s[KEYS / 2];
-  issue_scores<D>(s, q_tile, k_tile);
+  issue_scores<DP, KS>(s, q_tile, k_tile);
   wgmma_wait_all();
   reg_fence<KEYS / 2>(s);
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-  issue_values<D>(o, pf, v_tile);
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+  issue_values<DP>(o, pf, v_tile);
   wgmma_wait_all();
-  reg_fence<D / 2>(o);
+  reg_fence<DP / 2>(o);
 #pragma unroll
   for (int i = 0; i < KEYS / 2; ++i)
     s_out[(r0 + 8 * ((i >> 1) & 1)) * KEYS + 8 * (i >> 2) + c_lane + (i & 1)] =
         s[i];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i)
-    o_out[(r0 + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c_lane + (i & 1)] =
-        o[i];
+  for (int i = 0; i < DP / 2; ++i) {
+    const int col = 8 * (i >> 2) + c_lane + (i & 1);
+    if (col < d) o_out[(r0 + 8 * ((i >> 1) & 1)) * d + col] = o[i];
+  }
 }
 
-template <int D>
+template <int DP, int KS>
 int launch_bf16(const Args& a, int64_t batch, int64_t hkv,
                 cudaStream_t stream) {
-  using T = Tiles<D>;
+  using T = Tiles<DP>;
   static bool configured = false;
   if (!configured) {
-    const int err = set_smem(flash_wgmma_kernel<D>, T::SMEM);
+    const int err = set_smem(flash_wgmma_kernel<DP, KS>, T::SMEM);
     if (err) return err;
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, a.q, a.seq, a.hq, batch, a.qss, a.qsh, a.qsb) ||
-      !make_map<D>(&tk, a.k, a.seq, hkv, batch, a.kss, a.ksh, a.ksb) ||
-      !make_map<D>(&tv, a.v, a.seq, hkv, batch, a.vss, a.vsh, a.vsb))
+  if (!make_map<DP>(&tq, a.q, a.d, a.seq, a.hq, batch, a.qss, a.qsh,
+                   a.qsb) ||
+      !make_map<DP>(&tk, a.k, a.d, a.seq, hkv, batch, a.kss, a.ksh, a.ksb) ||
+      !make_map<DP>(&tv, a.v, a.d, a.seq, hkv, batch, a.vss, a.vsh, a.vsb))
     return (int)cudaErrorInvalidValue;
   // Heads per L2 group: as many as keep their K and V (shared by the
   // Hq / Hkv query heads of a group) within 16 MB, a third of the L2.
-  const int64_t kv_bytes = 4 * a.seq * D / a.qpk;  // K and V per query head
+  const int64_t kv_bytes = 4 * a.seq * a.d / a.qpk;  // K, V per query head
   Args g = a;
   g.group = (int64_t)(16 << 20) / kv_bytes;
   if (g.group < 1) g.group = 1;
   if (g.group > batch * a.hq) g.group = batch * a.hq;
   const int64_t blocks = (a.seq + T::ROWS - 1) / T::ROWS * batch * a.hq;
-  flash_wgmma_kernel<D>
+  flash_wgmma_kernel<DP, KS>
       <<<(unsigned)blocks, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, g);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP, int KS>
 int launch_tile_products(const void* q, const void* k, const void* v,
-                         const void* p, void* s_out, void* o_out,
+                         const void* p, void* s_out, void* o_out, int64_t d,
                          cudaStream_t stream) {
-  using T = Tiles<D>;
+  using T = Tiles<DP>;
   constexpr size_t bytes = 1024 + T::Q_TILE + 2 * (size_t)T::KV_TILE;
   static bool configured = false;
   if (!configured) {
-    const int err = set_smem(tile_products_kernel<D>, bytes);
+    const int err = set_smem(tile_products_kernel<DP, KS>, bytes);
     if (err) return err;
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, q, 64, 1, 1, D, 0, 0) ||
-      !make_map<D>(&tk, k, 64, 1, 1, D, 0, 0) ||
-      !make_map<D>(&tv, v, 64, 1, 1, D, 0, 0))
+  if (!make_map<DP>(&tq, q, d, 64, 1, 1, d, 0, 0) ||
+      !make_map<DP>(&tk, k, d, 64, 1, 1, d, 0, 0) ||
+      !make_map<DP>(&tv, v, d, 64, 1, 1, d, 0, 0))
     return (int)cudaErrorInvalidValue;
-  tile_products_kernel<D><<<1, 128, bytes, stream>>>(
-      tq, tk, tv, (const __nv_bfloat16*)p, (float*)s_out, (float*)o_out);
+  tile_products_kernel<DP, KS><<<1, 128, bytes, stream>>>(
+      tq, tk, tv, (const __nv_bfloat16*)p, (float*)s_out, (float*)o_out,
+      (int)d);
   return (int)cudaGetLastError();
 }
 
@@ -649,7 +663,9 @@ extern "C" {
 // row's log-sum-exp of scale * q k^T over the keys it attends (-inf for a
 // row with none), or nullptr. dtype: 0 float32 (the CUDA-core kernel),
 // 1 bfloat16 (the tensor-core kernel; 16-byte aligned bases and strides).
-// window < 0: no window. Returns cudaGetLastError() after the launch.
+// d: a multiple of 8 up to 128, or 192. window < 0: no window. Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for another
+// head dim.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse, int64_t qsb, int64_t qsh,
                            int64_t qss,
@@ -661,23 +677,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (batch <= 0 || hq <= 0 || seq <= 0) return (int)cudaGetLastError();
   if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-         hq, hq / hkv, seq, window, scale, causal, 0, (float*)lse};
+         hq, hq / hkv, seq, window, scale, causal, 0, (float*)lse, d};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    switch (d) {
-      case 16: return launch_f32<16>(a, batch, s);
-      case 32: return launch_f32<32>(a, batch, s);
-      case 64: return launch_f32<64>(a, batch, s);
-      case 128: return launch_f32<128>(a, batch, s);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      case 16: return launch_bf16<16>(a, batch, hkv, s);
-      case 32: return launch_bf16<32>(a, batch, hkv, s);
-      case 64: return launch_bf16<64>(a, batch, hkv, s);
-      case 128: return launch_bf16<128>(a, batch, hkv, s);
-    }
-  }
+  if (dtype == 0)
+    return f32_head_dims<true>(d, [&](auto dp) {
+      return launch_f32<decltype(dp)::value>(a, batch, s);
+    });
+  if (dtype == 1)
+    return head_dims<true>(d, [&](auto dp, auto ks) {
+      return launch_bf16<decltype(dp)::value, decltype(ks)::value>(
+          a, batch, hkv, s);
+    });
   return (int)cudaErrorInvalidValue;
 }
 
@@ -688,13 +698,10 @@ int flash_attention_tile_products(const void* q, const void* k,
                                   const void* v, const void* p, void* s_out,
                                   void* o_out, int64_t d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-    case 16: return launch_tile_products<16>(q, k, v, p, s_out, o_out, s);
-    case 32: return launch_tile_products<32>(q, k, v, p, s_out, o_out, s);
-    case 64: return launch_tile_products<64>(q, k, v, p, s_out, o_out, s);
-    case 128: return launch_tile_products<128>(q, k, v, p, s_out, o_out, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return head_dims<true>(d, [&](auto dp, auto ks) {
+    return launch_tile_products<decltype(dp)::value, decltype(ks)::value>(
+        q, k, v, p, s_out, o_out, d, s);
+  });
 }
 
 }  // extern "C"

@@ -69,9 +69,15 @@
 // * The longest causal walks start first (key tile 0 for dK/dV, the last
 //   query tile for dQ), heads innermost, as the forward orders its grid.
 // * dQ, dK and dV go out through shared memory as 16-byte stores.
+// * Head dims other than 16, 32, 64 and 128 run at the padded width DP of
+//   hopper_tiles.cuh: d = 80 and 112 in tiles of 128 columns whose last
+//   48 or 16 TMA fills with zeros. S^T, dP^T, S and dP contract over d in
+//   ceil(d / 16) k-steps (no waste); dV += P^T dO, dK += dS^T Q and
+//   dQ += dS K run at N = 128, 128 / d of their work (1.6x at 80, 1.14x
+//   at 112); the stores write d columns.
 // * What holds it below the tensor-core rate: each block waits on each
 //   product group before the next (the elementwise step between them does
-//   not overlap its own products), and at D = 128 the dK and dV
+//   not overlap its own products), and at DP = 128 the dK and dV
 //   accumulators take 128 of a thread's registers.
 //
 // float32: `dkdv_kernel` and `dq_kernel`, on the CUDA cores (the
@@ -79,14 +85,17 @@
 // tile per block, each of 256 threads holding a 4 x 4 register tile (and
 // 4 rows x D / 16 columns of each accumulator), operands staged in shared
 // memory as float32, transposed to [d][row] with rows padded to 68 floats
-// so that a thread reads four rows with one 16-byte load.
+// so that a thread reads four rows with one 16-byte load. Built at D = 16,
+// 32, 64, 80, 112 and 128 (`f32_head_dims`), a head dim between two of
+// them staged with zero columns up to the next; the shared memory (122 KB
+// at 80, 157 KB at 112) is set per instantiation.
 //
 // Inputs: q (B, Hq, S, D), k and v (B, Hkv, S, D), dO (B, Hq, S, D), each
 // with element strides over batch, head and position and a contiguous head
 // dim (bf16: 16-byte aligned bases and strides, which TMA needs; the
 // wrapper checks); O a contiguous (B, Hq, S, D); lse a contiguous float32
-// (B, Hq, S). Float32 or bfloat16, all of one type; head dims 16, 32, 64,
-// 128. Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in
+// (B, Hq, S). Float32 or bfloat16, all of one type; head dims a multiple
+// of 8 up to 128 (192 is the forward's only). Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in
 // the input type, each written once (no atomics), and the float32
 // workspace D (B, Hq, S).
 
@@ -122,6 +131,7 @@ struct Args {
   int64_t hq, hkv, qpk, seq, window;  // window < 0: no window
   float scale;
   int causal;
+  int64_t d;  // head dim (the kernels' padded width >= d)
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -160,17 +170,18 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) a.delta[row] = s;
 }
 
-// Stages rows r0 .. r0 + 63 of a (S, D) matrix with row stride `stride`
-// into `dst` as float32 [d][row] (rows padded to LD); rows past the
-// sequence end load as zeros. Consecutive threads read consecutive values.
+// Stages rows r0 .. r0 + 63 of a (S, hd) matrix with row stride `stride`
+// into `dst` as float32 [d][row] for d < D (rows padded to LD); rows past
+// the sequence end and columns past hd load as zeros. Consecutive threads
+// read consecutive values.
 template <typename T, int D>
 __device__ __forceinline__ void stage(float* dst, const T* src, int64_t stride,
-                                      int64_t r0, int64_t seq) {
+                                      int64_t r0, int64_t seq, int64_t hd) {
   for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
     const int d = idx % D;
     const int row = idx / D;
     const int64_t r = r0 + row;
-    dst[d * LD + row] = r < seq ? load(src + r * stride + d) : 0.0f;
+    dst[d * LD + row] = r < seq && d < hd ? load(src + r * stride + d) : 0.0f;
   }
 }
 
@@ -228,9 +239,10 @@ __device__ __forceinline__ void stage_queries(const Args& a, int64_t b,
                                               int64_t h, int64_t q0,
                                               float* qt, float* dot,
                                               float* lse_s, float* del_s) {
-  stage<T, D>(qt, (const T*)a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.seq);
+  stage<T, D>(qt, (const T*)a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.seq,
+              a.d);
   stage<T, D>(dot, (const T*)a.dout + b * a.dsb + h * a.dsh, a.dss, q0,
-              a.seq);
+              a.seq, a.d);
   const int64_t base = (b * a.hq + h) * a.seq;
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
     const bool in = q0 + r < a.seq;
@@ -267,8 +279,10 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
   const int64_t k0 = (int64_t)blockIdx.x * BK;
   const int64_t k_last = (k0 + BK < a.seq ? k0 + BK : a.seq) - 1;
 
-  stage<T, D>(kt, (const T*)a.k + b * a.ksb + hk * a.ksh, a.kss, k0, a.seq);
-  stage<T, D>(vt, (const T*)a.v + b * a.vsb + hk * a.vsh, a.vss, k0, a.seq);
+  stage<T, D>(kt, (const T*)a.k + b * a.ksb + hk * a.ksh, a.kss, k0, a.seq,
+              a.d);
+  stage<T, D>(vt, (const T*)a.v + b * a.vsb + hk * a.vsh, a.vss, k0, a.seq,
+              a.d);
 
   // the query tiles that see a key of this tile
   const int64_t n_qt = (a.seq + BQ - 1) / BQ;
@@ -322,16 +336,18 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
     }
   }
 
-  T* dk = (T*)a.dk + (bk * a.seq) * D;
-  T* dv = (T*)a.dv + (bk * a.seq) * D;
+  const int64_t hd = a.d;
+  T* dk = (T*)a.dk + (bk * a.seq) * hd;
+  T* dv = (T*)a.dv + (bk * a.seq) * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t key = k0 + 4 * rg + i;
     if (key >= a.seq) continue;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
-      store(dk + key * D + cg + 16 * j, acc_k[i][j]);
-      store(dv + key * D + cg + 16 * j, acc_v[i][j]);
+      if (cg + 16 * j >= hd) continue;
+      store(dk + key * hd + cg + 16 * j, acc_k[i][j]);
+      store(dv + key * hd + cg + 16 * j, acc_v[i][j]);
     }
   }
 }
@@ -378,8 +394,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
   for (int64_t tile = kt_begin; tile < kt_end; ++tile) {
     const int64_t k0 = tile * BK;
     __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(kt, (const T*)a.k + b * a.ksb + hk * a.ksh, a.kss, k0, a.seq);
-    stage<T, D>(vt, (const T*)a.v + b * a.vsb + hk * a.vsh, a.vss, k0, a.seq);
+    stage<T, D>(kt, (const T*)a.k + b * a.ksb + hk * a.ksh, a.kss, k0,
+                a.seq, a.d);
+    stage<T, D>(vt, (const T*)a.v + b * a.vsb + hk * a.vsh, a.vss, k0,
+                a.seq, a.d);
     __syncthreads();
     float p[4][4], ds[4][4];
     probs_and_dscores<D>(a, qt, kt, dot, vt, lse_s, del_s, q0, k0, rg, cg, p,
@@ -402,13 +420,15 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
     }
   }
 
-  T* dq = (T*)a.dq + (bh * a.seq) * D;
+  const int64_t hd = a.d;
+  T* dq = (T*)a.dq + (bh * a.seq) * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + 4 * rg + i;
     if (row >= a.seq) continue;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) store(dq + row * D + cg + 16 * j, acc[i][j]);
+    for (int j = 0; j < DPT; ++j)
+      if (cg + 16 * j < hd) store(dq + row * hd + cg + 16 * j, acc[i][j]);
   }
 }
 
@@ -425,7 +445,7 @@ int launch(const Args& a, int64_t batch, cudaStream_t stream) {
   const int64_t rows = batch * a.hq * a.seq;
   const unsigned warps = THREADS / 32;
   delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), THREADS, 0,
-                    stream>>>(a, rows, D);
+                    stream>>>(a, rows, (int)a.d);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const unsigned tiles = (unsigned)((a.seq + BK - 1) / BK);
@@ -446,13 +466,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shared memory of a tensor-core block: two resident 64-row tiles and a
 // ring of STAGES stages of two tiles, from a 1024-byte boundary (the
 // swizzle's period). The outputs are staged over the tiles at the end, in
-// rows padded to D + 8 values.
-template <int D>
+// rows padded to DP + 8 values.
+template <int DP>
 struct Bwd {
-  static constexpr int TILE = Tiles<D>::Q_TILE;  // 64 rows x D bf16
+  static constexpr int TILE = Tiles<DP>::Q_TILE;  // 64 rows x DP bf16
   static constexpr int STAGES = 2;
   static constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * (size_t)TILE;
-  static constexpr int OUT_ROW = (D + 8) * 2;
+  static constexpr int OUT_ROW = (DP + 8) * 2;
   static_assert(2 * 64 * OUT_ROW <= (2 + 2 * STAGES) * TILE,
                 "dK and dV staging fits over the tiles");
 };
@@ -504,41 +524,42 @@ __device__ __forceinline__ void pack_frags(const float* x, uint32_t (*f)[4]) {
       f[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
 }
 
-// Writes this thread's rows of a 64 x D accumulator, times `mul`, as bf16
+// Writes this thread's rows of a 64 x DP accumulator, times `mul`, as bf16
 // into the padded staging rows at `out_s` (row lr + 8 r, its columns).
-template <int D>
+template <int DP>
 __device__ __forceinline__ void stage_out(uint8_t* out_s, const float* acc,
                                           float mul, int lr, int c_lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DP / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(
-          out_s + (lr + 8 * r) * Bwd<D>::OUT_ROW + (8 * c + c_lane) * 2) =
+          out_s + (lr + 8 * r) * Bwd<DP>::OUT_ROW + (8 * c + c_lane) * 2) =
           __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul,
                                 acc[4 * c + 2 * r + 1] * mul);
 }
 
-// Copies the staged 64-row outputs (one at out_s for out0, and with out1
-// a second after it) to rows row0 .. row0 + 63 (those below `seq`) of
-// contiguous (S, D) bf16 matrices, 16 bytes at a time.
-template <int D>
+// Copies the first d columns of the staged 64-row outputs (one at out_s
+// for out0, and with out1 a second after it) to rows row0 .. row0 + 63
+// (those below `seq`) of contiguous (S, d) bf16 matrices, 16 bytes at a
+// time.
+template <int DP>
 __device__ __forceinline__ void store_out(const uint8_t* out_s,
                                           __nv_bfloat16* out0,
                                           __nv_bfloat16* out1, int64_t row0,
-                                          int64_t seq) {
-  constexpr int CHUNKS = D / 8;  // 16-byte pieces per row
+                                          int64_t seq, int64_t d) {
+  const int chunks = (int)(d / 8);  // 16-byte pieces per row
   const int n_out = out1 == nullptr ? 1 : 2;
-  for (int idx = threadIdx.x; idx < n_out * 64 * CHUNKS; idx += 128) {
-    const int which = idx / (64 * CHUNKS);
-    const int row = idx / CHUNKS % 64;
-    const int c = idx % CHUNKS;
+  for (int idx = threadIdx.x; idx < n_out * 64 * chunks; idx += 128) {
+    const int which = idx / (64 * chunks);
+    const int row = idx / chunks % 64;
+    const int c = idx % chunks;
     __nv_bfloat16* dst = which ? out1 : out0;
     if (row0 + row < seq)
       *reinterpret_cast<uint4*>(
-          reinterpret_cast<uint8_t*>(dst + (row0 + row) * D) + c * 16) =
+          reinterpret_cast<uint8_t*>(dst + (row0 + row) * d) + c * 16) =
           *reinterpret_cast<const uint4*>(
-              out_s + (which * 64 + row) * Bwd<D>::OUT_ROW + c * 16);
+              out_s + (which * 64 + row) * Bwd<DP>::OUT_ROW + c * 16);
   }
 }
 
@@ -549,13 +570,13 @@ __device__ __forceinline__ void store_out(const uint8_t* out_s,
 // sit in ring stage j % 2, its lse2 and D in stats[j % 2], which thread t
 // fills (t < 64: lse2 of query t, else D of query t - 64) for iteration
 // j + 2 once every warp is done with iteration j.
-template <int D>
+template <int DP, int KS>
 __global__ void __launch_bounds__(128)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo, Args a) {
-  using B = Bwd<D>;
+  using B = Bwd<DP>;
   constexpr int TILE = B::TILE;
   constexpr int STAGES = B::STAGES;
   extern __shared__ uint8_t dyn[];
@@ -602,12 +623,12 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(kv_bar, 2 * TILE);
-    load_tile<D>(k_tile, &tk, (int)k0, hk, b, kv_bar);
-    load_tile<D>(v_tile, &tv, (int)k0, hk, b, kv_bar);
+    load_tile<DP>(k_tile, &tk, (int)k0, hk, b, kv_bar);
+    load_tile<DP>(v_tile, &tv, (int)k0, hk, b, kv_bar);
     for (int j = 0; j < STAGES && j < n; ++j) {
       mbar_expect_tx(bar(j), 2 * TILE);
-      load_tile<D>(q_tile(j), &tq, (int)q0_of(j), head(j), b, bar(j));
-      load_tile<D>(q_tile(j) + TILE, &tdo, (int)q0_of(j), head(j), b,
+      load_tile<DP>(q_tile(j), &tq, (int)q0_of(j), head(j), b, bar(j));
+      load_tile<DP>(q_tile(j) + TILE, &tdo, (int)q0_of(j), head(j), b,
                    bar(j));
     }
   }
@@ -616,9 +637,9 @@ __global__ void __launch_bounds__(128)
   const int lr = 16 * (tid >> 5) + (lane >> 2);  // key rows lr, lr + 8
   const int c_lane = 2 * (lane & 3);
   const float scale_log2 = a.scale * LOG2E;
-  float dk[D / 2], dv[D / 2];
+  float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
   float s[32], dp[32];
   uint32_t pf[4][4], dsf[4][4];
 
@@ -631,8 +652,8 @@ __global__ void __launch_bounds__(128)
     const float next = refill ? stat(j + STAGES, tid) : 0.0f;
     const uint32_t qs = q_tile(st);
     mbar_wait(bar(st), parity);
-    issue_scores<D>(s, k_tile, qs);          // S^T = K Q^T
-    issue_scores<D>(dp, v_tile, qs + TILE);  // dP^T = V dO^T
+    issue_scores<DP, KS>(s, k_tile, qs);          // S^T = K Q^T
+    issue_scores<DP, KS>(dp, v_tile, qs + TILE);  // dP^T = V dO^T
     wgmma_wait_all();
     reg_fence<32>(s);
     reg_fence<32>(dp);
@@ -648,19 +669,19 @@ __global__ void __launch_bounds__(128)
                                           l2, dl, scale_log2);
     pack_frags(s, pf);
     pack_frags(dp, dsf);
-    issue_values<D>(dv, pf, qs + TILE);  // dV += P^T dO
-    issue_values<D>(dk, dsf, qs);        // dK += dS^T Q
+    issue_values<DP>(dv, pf, qs + TILE);  // dV += P^T dO
+    issue_values<DP>(dk, dsf, qs);        // dK += dS^T Q
     wgmma_wait_all();
-    reg_fence<D / 2>(dv);
-    reg_fence<D / 2>(dk);
+    reg_fence<DP / 2>(dv);
+    reg_fence<DP / 2>(dk);
     __syncthreads();  // every warp is done with stage st and its stats
     if (refill) {
       stats[st][tid >> 6][tid & 63] = next;
       if (tid == 0) {
         const int jn = j + STAGES;
         mbar_expect_tx(bar(st), 2 * TILE);
-        load_tile<D>(qs, &tq, (int)q0_of(jn), head(jn), b, bar(st));
-        load_tile<D>(qs + TILE, &tdo, (int)q0_of(jn), head(jn), b, bar(st));
+        load_tile<DP>(qs, &tq, (int)q0_of(jn), head(jn), b, bar(st));
+        load_tile<DP>(qs + TILE, &tdo, (int)q0_of(jn), head(jn), b, bar(st));
       }
     }
   }
@@ -669,24 +690,24 @@ __global__ void __launch_bounds__(128)
   // (every load has landed and every product has read its tiles).
   uint8_t* out_s = dyn + (k_tile - smem_u32(dyn));
   __syncthreads();
-  stage_out<D>(out_s, dk, a.scale, lr, c_lane);
-  stage_out<D>(out_s + 64 * B::OUT_ROW, dv, 1.0f, lr, c_lane);
+  stage_out<DP>(out_s, dk, a.scale, lr, c_lane);
+  stage_out<DP>(out_s + 64 * B::OUT_ROW, dv, 1.0f, lr, c_lane);
   __syncthreads();
-  store_out<D>(out_s, (__nv_bfloat16*)a.dk + bk * a.seq * D,
-               (__nv_bfloat16*)a.dv + bk * a.seq * D, k0, a.seq);
+  store_out<DP>(out_s, (__nv_bfloat16*)a.dk + bk * a.seq * a.d,
+                (__nv_bfloat16*)a.dv + bk * a.seq * a.d, k0, a.seq, a.d);
 }
 
 // 3. dQ of one 64-query tile of head (b, h), on the tensor cores. A 1-D
 // grid: the last query tile (the longest causal walk) of every (batch,
 // head) first. The K and V tiles of the key tiles it walks go through the
 // ring.
-template <int D>
+template <int DP, int KS>
 __global__ void __launch_bounds__(128)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo, Args a) {
-  using B = Bwd<D>;
+  using B = Bwd<DP>;
   constexpr int TILE = B::TILE;
   constexpr int STAGES = B::STAGES;
   extern __shared__ uint8_t dyn[];
@@ -722,13 +743,13 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(qd_bar, 2 * TILE);
-    load_tile<D>(q_tile, &tq, (int)q0, h, b, qd_bar);
-    load_tile<D>(do_tile, &tdo, (int)q0, h, b, qd_bar);
+    load_tile<DP>(q_tile, &tq, (int)q0, h, b, qd_bar);
+    load_tile<DP>(do_tile, &tdo, (int)q0, h, b, qd_bar);
     for (int j = 0; j < STAGES && j < n; ++j) {
       const int kn = (int)((kt_begin + j) * 64);
       mbar_expect_tx(bar(j), 2 * TILE);
-      load_tile<D>(k_tile(j), &tk, kn, hk, b, bar(j));
-      load_tile<D>(k_tile(j) + TILE, &tv, kn, hk, b, bar(j));
+      load_tile<DP>(k_tile(j), &tk, kn, hk, b, bar(j));
+      load_tile<DP>(k_tile(j) + TILE, &tv, kn, hk, b, bar(j));
     }
   }
 
@@ -744,9 +765,9 @@ __global__ void __launch_bounds__(128)
     lse2[r] = lse_log2(a, base, row);
     del[r] = row < a.seq ? a.delta[base + row] : 0.0f;
   }
-  float dq[D / 2];
+  float dq[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
   float s[32], dp[32];
   uint32_t dsf[4][4];
 
@@ -757,8 +778,8 @@ __global__ void __launch_bounds__(128)
     const int64_t k0 = (kt_begin + j) * 64;
     const uint32_t ks = k_tile(st);
     mbar_wait(bar(st), parity);
-    issue_scores<D>(s, q_tile, ks);          // S = Q K^T
-    issue_scores<D>(dp, do_tile, ks + TILE);  // dP = dO V^T
+    issue_scores<DP, KS>(s, q_tile, ks);           // S = Q K^T
+    issue_scores<DP, KS>(dp, do_tile, ks + TILE);  // dP = dO V^T
     wgmma_wait_all();
     reg_fence<32>(s);
     reg_fence<32>(dp);
@@ -770,16 +791,16 @@ __global__ void __launch_bounds__(128)
       frag_probs_and_dscores<false, false>(a, s, dp, q0 + lr, k0 + c_lane,
                                            lse2, del, scale_log2);
     pack_frags(dp, dsf);
-    issue_values<D>(dq, dsf, ks);  // dQ += dS K
+    issue_values<DP>(dq, dsf, ks);  // dQ += dS K
     wgmma_wait_all();
-    reg_fence<D / 2>(dq);
+    reg_fence<DP / 2>(dq);
     if (j + STAGES < n) {
       __syncthreads();  // every warp is done with stage st
       if (tid == 0) {
         const int kn = (int)(k0 + STAGES * 64);
         mbar_expect_tx(bar(st), 2 * TILE);
-        load_tile<D>(ks, &tk, kn, hk, b, bar(st));
-        load_tile<D>(ks + TILE, &tv, kn, hk, b, bar(st));
+        load_tile<DP>(ks, &tk, kn, hk, b, bar(st));
+        load_tile<DP>(ks + TILE, &tv, kn, hk, b, bar(st));
       }
     }
   }
@@ -788,24 +809,25 @@ __global__ void __launch_bounds__(128)
   // is done with them.
   uint8_t* out_s = dyn + (q_tile - smem_u32(dyn));
   __syncthreads();
-  stage_out<D>(out_s, dq, a.scale, lr, c_lane);
+  stage_out<DP>(out_s, dq, a.scale, lr, c_lane);
   __syncthreads();
-  store_out<D>(out_s, (__nv_bfloat16*)a.dq + bh * a.seq * D, nullptr, q0,
-               a.seq);
+  store_out<DP>(out_s, (__nv_bfloat16*)a.dq + bh * a.seq * a.d, nullptr, q0,
+                a.seq, a.d);
 }
 
 // One 64-row tile of each product of the dK/dV kernel, through the same
 // loads, descriptors and fragments: st = k q^T (64 x 64: K as A, Q as
 // K-major B), then with P = st rounded to bf16 and packed from the
-// accumulator as the A operand, pd = P do and pq = P q (64 x D: dO and Q
+// accumulator as the A operand, pd = P do and pq = P q (64 x d: dO and Q
 // as MN-major B); float32, row-major. For testing the layouts on the card.
-template <int D>
+template <int DP, int KS>
 __global__ void __launch_bounds__(128)
     bwd_tile_products_kernel(const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tdo,
-                             float* st_out, float* pd_out, float* pq_out) {
-  constexpr int TILE = Bwd<D>::TILE;
+                             float* st_out, float* pd_out, float* pq_out,
+                             int d) {
+  constexpr int TILE = Bwd<DP>::TILE;
   extern __shared__ uint8_t dyn[];
   __shared__ __align__(8) uint64_t bar_mem;
   const uint32_t k_tile = (smem_u32(dyn) + 1023u) & ~1023u;
@@ -820,101 +842,97 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar, 3 * TILE);
-    load_tile<D>(k_tile, &tk, 0, 0, 0, bar);
-    load_tile<D>(q_tile, &tq, 0, 0, 0, bar);
-    load_tile<D>(do_tile, &tdo, 0, 0, 0, bar);
+    load_tile<DP>(k_tile, &tk, 0, 0, 0, bar);
+    load_tile<DP>(q_tile, &tq, 0, 0, 0, bar);
+    load_tile<DP>(do_tile, &tdo, 0, 0, 0, bar);
   }
   const int lane = tid & 31;
   const int r0 = 16 * (tid >> 5) + (lane >> 2);
   const int c_lane = 2 * (lane & 3);
   mbar_wait(bar, 0);
   float s[32];
-  issue_scores<D>(s, k_tile, q_tile);
+  issue_scores<DP, KS>(s, k_tile, q_tile);
   wgmma_wait_all();
   reg_fence<32>(s);
   uint32_t pf[4][4];
   pack_frags(s, pf);
-  float pd[D / 2], pq[D / 2];
+  float pd[DP / 2], pq[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) pd[i] = pq[i] = 0.0f;
-  issue_values<D>(pd, pf, do_tile);
-  issue_values<D>(pq, pf, q_tile);
+  for (int i = 0; i < DP / 2; ++i) pd[i] = pq[i] = 0.0f;
+  issue_values<DP>(pd, pf, do_tile);
+  issue_values<DP>(pq, pf, q_tile);
   wgmma_wait_all();
-  reg_fence<D / 2>(pd);
-  reg_fence<D / 2>(pq);
+  reg_fence<DP / 2>(pd);
+  reg_fence<DP / 2>(pq);
 #pragma unroll
   for (int i = 0; i < 32; ++i)
     st_out[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + c_lane + (i & 1)] =
         s[i];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    const int at = (r0 + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c_lane +
-                   (i & 1);
+  for (int i = 0; i < DP / 2; ++i) {
+    const int col = 8 * (i >> 2) + c_lane + (i & 1);
+    if (col >= d) continue;
+    const int at = (r0 + 8 * ((i >> 1) & 1)) * d + col;
     pd_out[at] = pd[i];
     pq_out[at] = pq[i];
   }
 }
 
-template <int D>
+template <int DP, int KS>
 int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
-  using B = Bwd<D>;
+  using B = Bwd<DP>;
   static bool configured = false;
   if (!configured) {
-    int err = set_smem(dkdv_wgmma_kernel<D>, B::SMEM);
-    if (!err) err = set_smem(dq_wgmma_kernel<D>, B::SMEM);
+    int err = set_smem(dkdv_wgmma_kernel<DP, KS>, B::SMEM);
+    if (!err) err = set_smem(dq_wgmma_kernel<DP, KS>, B::SMEM);
     if (err) return err;
     configured = true;
   }
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map<D>(&tq, a.q, a.seq, a.hq, batch, a.qss, a.qsh, a.qsb) ||
-      !make_map<D>(&tk, a.k, a.seq, a.hkv, batch, a.kss, a.ksh, a.ksb) ||
-      !make_map<D>(&tv, a.v, a.seq, a.hkv, batch, a.vss, a.vsh, a.vsb) ||
-      !make_map<D>(&tdo, a.dout, a.seq, a.hq, batch, a.dss, a.dsh, a.dsb))
+  const int64_t d = a.d;
+  if (!make_map<DP>(&tq, a.q, d, a.seq, a.hq, batch, a.qss, a.qsh, a.qsb) ||
+      !make_map<DP>(&tk, a.k, d, a.seq, a.hkv, batch, a.kss, a.ksh,
+                    a.ksb) ||
+      !make_map<DP>(&tv, a.v, d, a.seq, a.hkv, batch, a.vss, a.vsh,
+                    a.vsb) ||
+      !make_map<DP>(&tdo, a.dout, d, a.seq, a.hq, batch, a.dss, a.dsh,
+                    a.dsb))
     return (int)cudaErrorInvalidValue;
   const int64_t rows = batch * a.hq * a.seq;
   const unsigned warps = THREADS / 32;
   delta_kernel<__nv_bfloat16><<<(unsigned)((rows + warps - 1) / warps),
-                                THREADS, 0, stream>>>(a, rows, D);
+                                THREADS, 0, stream>>>(a, rows, (int)d);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int64_t tiles = (a.seq + 63) / 64;
-  dkdv_wgmma_kernel<D><<<(unsigned)(tiles * batch * a.hkv), 128, B::SMEM,
-                         stream>>>(tq, tk, tv, tdo, a);
+  dkdv_wgmma_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hkv), 128,
+                             B::SMEM, stream>>>(tq, tk, tv, tdo, a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  dq_wgmma_kernel<D><<<(unsigned)(tiles * batch * a.hq), 128, B::SMEM,
-                       stream>>>(tq, tk, tv, tdo, a);
+  dq_wgmma_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hq), 128,
+                           B::SMEM, stream>>>(tq, tk, tv, tdo, a);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP, int KS>
 int launch_tile_products(const void* k, const void* q, const void* dout,
-                         void* st_out, void* pd_out, void* pq_out,
+                         void* st_out, void* pd_out, void* pq_out, int64_t d,
                          cudaStream_t stream) {
-  constexpr size_t bytes = 1024 + 3 * (size_t)Bwd<D>::TILE;
+  constexpr size_t bytes = 1024 + 3 * (size_t)Bwd<DP>::TILE;
   static bool configured = false;
   if (!configured) {
-    const int err = set_smem(bwd_tile_products_kernel<D>, bytes);
+    const int err = set_smem(bwd_tile_products_kernel<DP, KS>, bytes);
     if (err) return err;
     configured = true;
   }
   CUtensorMap tk, tq, tdo;
-  if (!make_map<D>(&tk, k, 64, 1, 1, D, 0, 0) ||
-      !make_map<D>(&tq, q, 64, 1, 1, D, 0, 0) ||
-      !make_map<D>(&tdo, dout, 64, 1, 1, D, 0, 0))
+  if (!make_map<DP>(&tk, k, d, 64, 1, 1, d, 0, 0) ||
+      !make_map<DP>(&tq, q, d, 64, 1, 1, d, 0, 0) ||
+      !make_map<DP>(&tdo, dout, d, 64, 1, 1, d, 0, 0))
     return (int)cudaErrorInvalidValue;
-  bwd_tile_products_kernel<D><<<1, 128, bytes, stream>>>(
-      tk, tq, tdo, (float*)st_out, (float*)pd_out, (float*)pq_out);
+  bwd_tile_products_kernel<DP, KS><<<1, 128, bytes, stream>>>(
+      tk, tq, tdo, (float*)st_out, (float*)pd_out, (float*)pq_out, (int)d);
   return (int)cudaGetLastError();
-}
-
-// Float32 through the CUDA-core kernels, bfloat16 through the tensor-core
-// ones.
-template <int D>
-int launch_type(const Args& a, int64_t batch, int dtype, cudaStream_t s) {
-  if (dtype == 0) return launch<float, D>(a, batch, s);
-  if (dtype == 1) return launch_bf16<D>(a, batch, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -923,8 +941,10 @@ extern "C" {
 
 // The three launches of the backward on `stream`. Strides are in
 // elements over (batch, head, position) for q, k, v and dout; o, lse,
-// delta, dq, dk and dv are contiguous. dtype: 0 float32, 1 bfloat16.
-// window < 0: no window. Returns the first launch error, else 0.
+// delta, dq, dk and dv are contiguous. dtype: 0 float32 (the CUDA-core
+// kernels), 1 bfloat16 (the tensor-core ones). d: a multiple of 8 up to
+// 128. window < 0: no window. Returns the first launch error, else 0;
+// cudaErrorInvalidValue for another head dim.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const void* lse, void* delta, void* dq,
@@ -940,14 +960,17 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, dout, (const float*)lse, (float*)delta, dq, dk, dv,
          qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, dsb, dsh, dss,
-         hq, hkv, hq / hkv, seq, window, scale, causal};
+         hq, hkv, hq / hkv, seq, window, scale, causal, d};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-    case 16: return launch_type<16>(a, batch, dtype, s);
-    case 32: return launch_type<32>(a, batch, dtype, s);
-    case 64: return launch_type<64>(a, batch, dtype, s);
-    case 128: return launch_type<128>(a, batch, dtype, s);
-  }
+  if (dtype == 0)
+    return f32_head_dims<false>(d, [&](auto dp) {
+      return launch<float, decltype(dp)::value>(a, batch, s);
+    });
+  if (dtype == 1)
+    return head_dims<false>(d, [&](auto dp, auto ks) {
+      return launch_bf16<decltype(dp)::value, decltype(ks)::value>(a, batch,
+                                                                   s);
+    });
   return (int)cudaErrorInvalidValue;
 }
 
@@ -960,18 +983,10 @@ int flash_attention_bwd_tile_products(const void* k, const void* q,
                                       void* pd_out, void* pq_out, int64_t d,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-    case 16:
-      return launch_tile_products<16>(k, q, dout, st_out, pd_out, pq_out, s);
-    case 32:
-      return launch_tile_products<32>(k, q, dout, st_out, pd_out, pq_out, s);
-    case 64:
-      return launch_tile_products<64>(k, q, dout, st_out, pd_out, pq_out, s);
-    case 128:
-      return launch_tile_products<128>(k, q, dout, st_out, pd_out, pq_out,
-                                       s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return head_dims<false>(d, [&](auto dp, auto ks) {
+    return launch_tile_products<decltype(dp)::value, decltype(ks)::value>(
+        k, q, dout, st_out, pd_out, pq_out, d, s);
+  });
 }
 
 }  // extern "C"

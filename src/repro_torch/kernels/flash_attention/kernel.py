@@ -8,9 +8,9 @@ sliding-window masks, exact zeros for a row with nothing to attend to.
 
 :func:`flash_attention_cuda` launches the hand-written kernel
 (``csrc/flash_attention.cu``, built by :mod:`repro_torch.kernels._build`)
-for head dims :data:`HEAD_DIMS`: bfloat16 runs on the tensor cores
-(``wgmma`` products fed by TMA loads, P rounded to bfloat16 before P·V),
-float32 on the CUDA cores. :func:`flash_attention_plain` is the
+for the head dims :func:`check_head_dim` admits: bfloat16 runs on the
+tensor cores (``wgmma`` products fed by TMA loads, P rounded to bfloat16
+before P·V), float32 on the CUDA cores. :func:`flash_attention_plain` is the
 materialised attention of :mod:`.ref`, the plain version used for CPU
 tensors and as the check of the kernel on the card. Both can also return
 each row's float32 log-sum-exp of ``scale·q·kᵀ`` (``-inf`` for a row with
@@ -44,8 +44,12 @@ from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_mask,
                                                      attention_ref)
 
-#: Head dims the kernel is built for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: The widest head dim the kernels take (the forward also takes
+#: :data:`WIDE_HEAD_DIM`).
+MAX_HEAD_DIM = 128
+#: The one head dim past :data:`MAX_HEAD_DIM` the forward takes (the
+#: backward does not).
+WIDE_HEAD_DIM = 192
 #: The kernel's grid puts ``B * Hq`` in its second dimension.
 _MAX_BATCH_HEADS = 65535
 
@@ -128,6 +132,23 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def check_head_dim(d: int, *, backward: bool = False) -> None:
+    """The kernels' head-dim rule: ``d % 8 == 0`` and ``8 <= d <= 128``,
+    or ``d == 192`` for the forward. The bfloat16 kernels are built at a
+    padded width (16, 32, 64, 128 or 192) whose columns past ``d`` the TMA
+    loads fill with zeros; the float32 ones at 16, 32, 64, 80, 112, 128 or
+    192. Raise ``ValueError`` for any other ``d``."""
+    if d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM:
+        return
+    if d == WIDE_HEAD_DIM and not backward:
+        return
+    kind = "backward" if backward else "forward"
+    raise ValueError(f"flash_attention {kind} kernel takes head dims that "
+                     f"are multiples of 8 up to {MAX_HEAD_DIM}"
+                     + ("" if backward else f", or {WIDE_HEAD_DIM}")
+                     + f"; got {d}")
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
@@ -166,10 +187,10 @@ def check_tma_alignment(name: str, t: torch.Tensor) -> None:
                          f"{t.data_ptr():#x}, strides {t.stride()}")
 
 
-def _check_cuda_operands(q, operands) -> None:
+def _check_cuda_operands(q, operands, *, backward: bool = False) -> None:
     """Raise ``ValueError`` unless every ``(name, tensor)`` is a CUDA
     tensor on q's device, of q's dtype (float32 or bfloat16), with a
-    contiguous head dim, in a head dim the kernels are built for."""
+    contiguous head dim, in a head dim :func:`check_head_dim` admits."""
     for name, t in operands:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention kernel needs CUDA tensors on "
@@ -182,9 +203,7 @@ def _check_cuda_operands(q, operands) -> None:
             raise ValueError(f"flash_attention kernel needs a contiguous "
                              f"head dim, got {name} strides {t.stride()}")
     b, hq, s, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head dims "
-                         f"{HEAD_DIMS}, got {d}")
+    check_head_dim(d, backward=backward)
     if b * hq > _MAX_BATCH_HEADS:
         raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_BATCH_HEADS}")
 
@@ -198,7 +217,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     new float32 ``(B, Hq, S)`` of each row's log-sum-exp. q, k and v may
     have any strides over batch, head and position but a contiguous head
     dim (bfloat16: aligned as :func:`check_tma_alignment` says); any other
-    layout, dtype or head dim raises."""
+    layout, dtype or head dim (:func:`check_head_dim`) raises."""
     global LAUNCHES
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v)))
@@ -233,11 +252,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     strides over batch, head and position but a contiguous head dim; ``o``
     (the forward's output) must be contiguous and ``lse`` a contiguous
     float32 ``(B, Hq, S)``. bfloat16 q, k, v, o and ``do`` must be aligned
-    as :func:`check_tma_alignment` says. Anything else raises."""
+    as :func:`check_tma_alignment` says. The head dim is one
+    :func:`check_head_dim` admits for the backward: 192 raises. Anything
+    else raises."""
     global LAUNCHES_BWD
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v), ("o", o),
-                             ("do", do)))
+                             ("do", do)), backward=True)
     if o.shape != q.shape or do.shape != q.shape or not o.is_contiguous():
         raise ValueError(f"flash_attention backward needs a contiguous o and "
                          f"a do of q's shape {tuple(q.shape)}, got "
@@ -286,8 +307,7 @@ def tile_products_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"tile_products_cuda needs contiguous "
                              f"bfloat16 CUDA {name} of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dims {HEAD_DIMS}, got {d}")
+    check_head_dim(d)
     s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
     o = torch.empty((64, d), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention").flash_attention_tile_products
@@ -319,8 +339,7 @@ def bwd_tile_products_cuda(k: torch.Tensor, q: torch.Tensor,
                              f"bfloat16 CUDA {name} of shape {(64, d)}, "
                              f"got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dims {HEAD_DIMS}, got {d}")
+    check_head_dim(d, backward=True)
     st = torch.empty((64, 64), dtype=torch.float32, device=q.device)
     pd = torch.empty((64, d), dtype=torch.float32, device=q.device)
     pq = torch.empty((64, d), dtype=torch.float32, device=q.device)

@@ -10,8 +10,12 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1_6b \
         --reduced --device cpu      # or hymba_1_5b, mixtral_8x22b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert_xlarge \
+        --reduced --device cpu      # the audio encoder: feature batches
 
-Every family the port serves trains (``--arch``); only audio is refused.
+Every registered architecture trains (``--arch``), the audio encoder
+``hubert_xlarge`` too: its batches are float32 frame features with a unit
+label per frame.
 """
 
 from __future__ import annotations

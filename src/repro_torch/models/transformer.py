@@ -1,15 +1,20 @@
 """Model assembly: blocks, layer stacks, the training loss, prefill and
 decode.
 
-The reference's model assembly but its audio family (``family``
-``dense``; ``vlm``, whose images arrive as tokens; ``moe``, whose FFN is a
-mixture of experts; ``hybrid``, whose blocks mix attention and Mamba in
-parallel; ``ssm``, whose blocks mix with RWKV-6 instead of attention):
+The reference's model assembly, every family (``family`` ``dense``;
+``vlm``, whose images arrive as tokens; ``moe``, whose FFN is a mixture
+of experts; ``hybrid``, whose blocks mix attention and Mamba in parallel;
+``ssm``, whose blocks mix with RWKV-6 instead of attention; ``audio``, an
+encoder whose frames arrive as precomputed ``(B, T, frontend_dim)``
+features, projected into ``d_model`` by ``frontend_proj``):
 ``ArchConfig`` selects the mixer, the FFN (dense MLP or MoE), the
 attention pattern and the MLP kind. Each per-layer parameter is stacked
 on a leading ``L`` axis, as in the reference, and the layer stack is a
-Python loop over ``L``. Audio models raise ``NotImplementedError`` naming
-the slice that ports them. The MoE FFN has no mesh here: it always runs
+Python loop over ``L``. An encoder (``causal=False``, the audio model)
+runs ``forward`` and ``loss_fn`` with non-causal attention and its
+``head``; it has no decode step, so :func:`init_cache`,
+:func:`prefill_forward` and :func:`decode_step` refuse it
+(:func:`check_decoder`). The MoE FFN has no mesh here: it always runs
 the reference's single-shard ``moe_apply`` (its ``moe_apply_dist`` runs
 only under a mesh with a model axis).
 
@@ -73,13 +78,13 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a model family the port does not
-    run yet (audio)."""
-    if cfg.family == "audio" or cfg.frontend == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: audio models are not ported yet; they come with "
-            f"the audio slice")
+def check_decoder(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for an encoder-only model (``causal=False``),
+    which has no autoregressive decode step: the reference's reason for
+    skipping its decode shapes."""
+    if not cfg.decoder:
+        raise ValueError(f"{cfg.name}: encoder-only: no autoregressive "
+                         f"decode step")
 
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
@@ -146,10 +151,10 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 device=None) -> Params:
     """Random weights from ``generator`` with the reference's
     distributions: normal × ``d**-0.5`` (``wo``: × ``(h·hd)**-0.5``; MLP
-    out: × ``ff**-0.5``; RWKV-6 and Mamba as :mod:`.ssm`, MoE as
-    :func:`~.moe.moe_init`), zero norm weights; layers stacked on
-    ``L``."""
-    check_supported(cfg)
+    out: × ``ff**-0.5``; an audio model's ``frontend_proj`` ``(frontend_dim,
+    d)``: × ``frontend_dim**-0.5``; RWKV-6 and Mamba as :mod:`.ssm`, MoE as
+    :func:`~.moe.moe_init`), zero norm weights; layers stacked on ``L``; an
+    encoder's output projection is ``head``, a decoder's ``lm_head``."""
     d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
     p = {"embed": _normal((v, d), d ** -0.5, dt, generator, device),
          "layers": block_init(cfg, generator=generator, device=device,
@@ -157,6 +162,10 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
          "final_norm": torch.zeros((d,), device=device)}
     head = "lm_head" if cfg.decoder else "head"
     p[head] = _normal((d, v), d ** -0.5, dt, generator, device)
+    if cfg.frontend == "audio":
+        p["frontend_proj"] = _normal((cfg.frontend_dim, d),
+                                     cfg.frontend_dim ** -0.5, dt, generator,
+                                     device)
     return p
 
 
@@ -241,13 +250,19 @@ def block_apply(x, lp, cfg: ArchConfig, window: int, positions):
 
 def embed_inputs(params: Params, cfg: ArchConfig,
                  batch: dict) -> torch.Tensor:
-    check_supported(cfg)
+    """The first layer's input ``(B, S, d)``: an audio model's float32
+    ``features`` ``(B, S, frontend_dim)`` in the model's dtype times
+    ``frontend_proj``, else the embeddings of ``tokens``."""
+    if cfg.frontend == "audio":
+        return (batch["features"].to(_dtype(cfg))
+                @ params["frontend_proj"])
     return params["embed"][batch["tokens"]]
 
 
 def forward(params: Params, cfg: ArchConfig, batch: dict,
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: tokens (B, S).
+    """Full-sequence forward. batch: tokens (B, S), or an audio model's
+    features (B, S, frontend_dim).
 
     Returns (logits (B, S, V), aux_loss)."""
     x = embed_inputs(params, cfg, batch)
@@ -270,9 +285,10 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
             aux_coef: float = 0.01) -> torch.Tensor:
-    """Mean next-token NLL over the masked positions, from float32
-    log-sum-exps of the logits, plus ``aux_coef`` × the auxiliary loss.
-    batch: tokens, labels (B, S) int and an optional float mask (B, S).
+    """Mean NLL of ``labels`` over the masked positions (the next token for
+    a decoder, the frame's unit for an encoder), from float32 log-sum-exps
+    of the logits, plus ``aux_coef`` × the auxiliary loss. batch: tokens
+    (or features), labels (B, S) int and an optional float mask (B, S).
     Nothing is read back to the host."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"]
@@ -320,7 +336,8 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
     last prompt token (``cur_len = S`` for the subsequent decode_step).
     Every entry of the cache is written: a given ``cache`` (of
     :func:`init_cache`'s shapes) is filled in place and returned, else a
-    new one is made."""
+    new one is made. An encoder raises (:func:`check_decoder`)."""
+    check_decoder(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)
@@ -383,8 +400,9 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
                device=None) -> Cache:
     """A zero decode cache: keys and values for attention models (beside
     the float32 SSM state and the conv inputs for hybrid ones), the
-    recurrent state and the token-shift input for SSM models."""
-    check_supported(cfg)
+    recurrent state and the token-shift input for SSM models. An encoder
+    raises (:func:`check_decoder`)."""
+    check_decoder(cfg)
     l, kv, hd, d = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
                     cfg.d_model)
     dt = _dtype(cfg)
@@ -481,7 +499,8 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     """One serve step: tokens (B, 1) int → (logits (B, V), cache), the
     cache updated in place at position ``cur_len``: a 0-d int64 tensor on
     the cache's device, or an int, which becomes one. Nothing is read back
-    to the host."""
+    to the host. An encoder raises (:func:`check_decoder`)."""
+    check_decoder(cfg)
     x = params["embed"][tokens[:, 0]]
     cur_len = torch.as_tensor(cur_len, dtype=torch.int64, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):

@@ -211,7 +211,8 @@ class ServeEngine:
 
     Runs on the device the parameters live on, through its
     :class:`PrefillProgram` and :class:`DecodeProgram` (captured CUDA
-    graphs on the card). Greedy sampling is ``argmax``; with
+    graphs on the card). An encoder-only model (``causal=False``) has no
+    decode step and raises ``ValueError``. Greedy sampling is ``argmax``; with
     ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded
     by ``generate``'s ``seed`` (the reference draws from its own
     generator, so sampled tokens differ between the two packages; greedy
@@ -221,6 +222,7 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256,
                  kv_chunks: int = 4, temperature: float = 0.0,
                  comm: "CommSession | None" = None):
+        tfm.check_decoder(cfg)
         self.cfg = cfg
         self.params = params
         self.spec = tfm.cache_spec(cfg, max_len=max_len,

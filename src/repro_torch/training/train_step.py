@@ -20,13 +20,16 @@ Three builders:
   rounds of the multipath ring all-reduce (``captured_psum``) and the
   AdamW update, replayed as one ``torch.cuda.CUDAGraph`` per call.
 
-On the card attention's backward is the hand-written ``flash_attention``
-backward kernel and RWKV-6's the ``rwkv6_scan`` backward kernel; the
+Every family trains, the audio encoder too (a batch of float32
+``features`` and ``labels`` in place of ``tokens``; the captured step's
+static batch buffers take the features as they come). On the card
+attention's backward is the hand-written ``flash_attention`` backward
+kernel (head dims that are multiples of 8 up to 128: HuBERT's 80 and Kimi
+K2's 112 among them) and RWKV-6's the ``rwkv6_scan`` backward kernel; the
 Mamba scan (plain torch ops) and the MoE's routing, dispatch and expert
 products (with the capacity factor, dropping past it, and the aux loss)
 are differentiated by autograd. On the CPU every kernel's plain version
-is differentiated by autograd. Only the audio family raises
-``NotImplementedError`` (:func:`check_trainable`).
+is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -53,14 +56,6 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 class TrainStepConfig:
     microbatches: int = 1          # gradient accumulation factor
     aux_coef: float = 0.01
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot train:
-    a family it does not run at all (audio, :func:`~repro_torch.models.
-    transformer.check_supported`). Every other family trains on every
-    device."""
-    tfm.check_supported(cfg)
 
 
 def make_loss_fn(cfg: ArchConfig, ts: TrainStepConfig):
@@ -122,7 +117,6 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
     leading dim is split and gradients are accumulated in float32. Metrics
     ``loss``, ``grad_norm`` and ``lr`` are 0-d tensors on the device."""
     resolve_device(device)
-    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
 
     def step(state, batch):
@@ -157,7 +151,6 @@ def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     all-reduce — and every row of each mean is checked equal before row 0
     feeds the update. Equal to :func:`make_train_step` within float
     tolerance (mean of shard means = global mean for equal shards)."""
-    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.num_devices
 
@@ -213,7 +206,6 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     ``step.capture`` is the :class:`~repro_torch.comm.capture.CapturedStep`
     (its ``capture.buffers`` size the step's arena).
     """
-    check_trainable(cfg)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.engine.num_devices
     params_ex = state["params"]

@@ -23,7 +23,12 @@ the eager ``make_serve_step`` (dense, ring, RWKV-6, hybrid (Mamba) and MoE
 caches), the reduced Hymba, Mixtral and Kimi K2 served on the card
 against the CPU, and its
 programs' call and replay counts to one prefill and ``new - 1`` decode
-steps per ``generate``; a failed capture raises. The RWKV-6 scan is held
+steps per ``generate``; a failed capture raises. Flash attention runs at
+the registered configs' head dims (80, 112, 192) and other widths the
+rule admits (``-k "config_head_dims or wide_head_dim or hubert"``), its
+backward at 80 and 112 through ``FlashAttentionFn``, reduced HuBERT's
+gradients on the card against the CPU's, and reduced Kimi K2 (112) and
+Nemotron-4 (192) served against the CPU. The RWKV-6 scan is held
 to its plain version and to the literal
 recurrence at the reference's tolerance (max error relative to the
 largest output below 1e-4), outputs and final state, with bfloat16 r/k/v
@@ -207,10 +212,16 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, s, d, causal,
     torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
 
 
+#: Head dims the tensor-core kernels are built at without padding.
+HEAD_DIMS = (16, 32, 64, 128)
+#: The registered configs' head dims the kernels take padded (80: HuBERT,
+#: 112: Kimi K2) or at their widest (192: Nemotron-4, forward only).
+WIDE_DIMS = (80, 112, 192)
+
 #: bfloat16 cases: every head dim, ragged lengths, GQA 32/8 and MHA.
 FLASH_BF16 = ([(1, 4, 2, 128, 64), (1, 32, 8, 300, 128)]
-              + [(1, 32, 8, 200, d) for d in fk.HEAD_DIMS]
-              + [(2, 4, 4, 300, d) for d in fk.HEAD_DIMS])
+              + [(1, 32, 8, 200, d) for d in HEAD_DIMS]
+              + [(2, 4, 4, 300, d) for d in HEAD_DIMS])
 
 
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
@@ -223,7 +234,27 @@ def test_flash_attention_bf16_matches_plain(dev, causal, window, shape):
     assert (got.float() - want.float()).abs().max().item() < 2e-2
 
 
-@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("shape", [(1, 4, 2, 200), (2, 8, 8, 130)])
+@pytest.mark.parametrize("d", WIDE_DIMS + (8, 40, 72, 96, 120))
+def test_flash_attention_config_head_dims_match_plain(dev, d, shape, causal,
+                                                      window, dtype):
+    """At the configs' head dims and other widths the rule admits (a
+    multiple of 8 up to 128: the bfloat16 kernel pads the tile to 16, 32,
+    64 or 128 columns; 192), the kernel against its plain version: float32
+    atol 3e-5 / rtol 1e-4, bfloat16 max abs 2e-2."""
+    q, k, v = _qkv(dev, *shape, d, dtype=dtype)
+    got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape and got.dtype == dtype
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    else:
+        assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS + WIDE_DIMS)
 def test_flash_attention_tile_products_match_matmul(dev, d):
     """One tile of Q·Kᵀ and P·V through the kernel's TMA loads, swizzled
     layouts and wgmma fragments against torch.matmul in float32: the
@@ -266,7 +297,7 @@ def test_flash_attention_strided_and_rejects(dev):
     want = fk.flash_attention_plain(q.contiguous(), k.contiguous(),
                                     k.contiguous(), window=40)
     torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
-    for d in (8, 96):
+    for d in (4, 100, 136, 256):       # outside the head-dim rule
         t = torch.zeros(1, 2, 8, d, device=dev)
         with pytest.raises(ValueError, match="head dims"):
             fk.flash_attention_cuda(t, t, t)
@@ -768,7 +799,41 @@ def test_flash_attention_fn_matches_autograd_of_plain(dev):
         assert flash_attention(qt, k, v).grad_fn is None
 
 
-@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 112])
+def test_flash_attention_fn_at_config_head_dims(dev, d, dtype):
+    """``FlashAttentionFn`` at HuBERT's and Kimi K2's head dims, unmasked
+    and causal: the backward kernel against autograd of the plain version
+    (float32 within 1e-4, bfloat16 within 2e-2 of the largest |want|),
+    one backward launch a call; at 192 the backward raises."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=dev).manual_seed(d)
+    bound = 1e-4 if dtype == torch.float32 else 2e-2
+    for causal in (False, True):
+        q = (torch.randn(2, 4, 130, d, generator=g, device=dev) * 0.5).to(
+            dtype).requires_grad_()
+        k = (torch.randn(2, 2, 130, d, generator=g, device=dev) * 0.5).to(
+            dtype).requires_grad_()
+        v = torch.randn(2, 2, 130, d, generator=g, device=dev).to(
+            dtype).requires_grad_()
+        do = torch.randn(2, 4, 130, d, generator=g, device=dev).to(dtype)
+        before = fk.LAUNCHES_BWD
+        got = torch.autograd.grad(flash_attention(q, k, v, causal=causal),
+                                  (q, k, v), do)
+        assert fk.LAUNCHES_BWD == before + 1
+        want = torch.autograd.grad(fk.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal), (q, k, v),
+            do.float())
+        for x, y in zip(got, want):
+            top = y.float().abs().max().item()
+            assert (x.float() - y.float()).abs().max().item() <= bound * top
+    wide = torch.randn(1, 2, 64, 192, device=dev, requires_grad=True)
+    out = flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS + (80, 112))
 def test_flash_attention_bwd_tile_products_match_matmul(dev, d):
     """One tile of each operand role of the backward's dK/dV kernel through
     its TMA loads, swizzled layouts and wgmma fragments against
@@ -1006,6 +1071,75 @@ def test_reduced_model_grads_on_the_card_match_cpu(dev, arch):
     state, m = make_train_step(cfg, TrainStepConfig(), opt, device=dev)(
         state, batch_to(batch, dev))
     assert torch.isfinite(m["loss"]).item()
+
+
+def test_reduced_hubert_grads_on_the_card_match_cpu(dev):
+    """The audio encoder (reduced HuBERT-XLarge with its head dim of 80 put
+    back, float32, TF32 off, ``remat="full"``): ``loss_fn``'s gradients on
+    the card (non-causal attention through the padded kernels, one
+    backward launch a layer) against the same weights and feature batch
+    on the CPU, within 1e-4 of each leaf's largest gradient; the loss
+    within rtol 1e-5; ``make_train_step`` takes a step."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_loss_fn, make_train_step)
+    from repro_torch.training.train_step import _value_and_grad
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("hubert_xlarge").reduced(),
+                              head_dim=80, remat="full")
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    batch = SyntheticDataset(cfg, DataConfig(64, 4)).batch_at(0)
+    vg = _value_and_grad(make_loss_fn(cfg, TrainStepConfig()))
+    before = fk.LAUNCHES_BWD
+    loss, grads = vg(tree_map(lambda t: t.to(dev), params),
+                     batch_to(batch, dev))
+    assert fk.LAUNCHES_BWD == before + cfg.num_layers
+    closs, cgrads = vg(params, batch_to(batch, "cpu"))
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for x, y in zip(_tree_leaves(grads), _tree_leaves(cgrads)):
+        top = y.abs().max().item()
+        assert (x.cpu() - y).abs().max().item() <= 1e-4 * max(top, 1e-30)
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    state = init_state(cfg, opt, device=dev)
+    state, m = make_train_step(cfg, TrainStepConfig(), opt, device=dev)(
+        state, batch_to(batch, dev))
+    assert torch.isfinite(m["loss"]).item()
+
+
+@pytest.mark.parametrize("arch,head_dim", [("kimi_k2_1t_a32b", 112),
+                                           ("nemotron_4_340b", 192)])
+def test_wide_head_dim_serving_reduced_model_matches_cpu(dev, arch,
+                                                         head_dim):
+    """Reduced Kimi K2 with its head dim of 112 and Nemotron-4 with 192 put
+    back, served on the card: the prefill (one kernel launch a layer)
+    against the CPU's logits and cache within atol 1e-3, and the captured
+    decode step bit for bit against the eager step."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=head_dim)
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    toks = [list(range(1, 13)), [5, 6, 7] * 4]
+    cpu = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+    gpu = ServeEngine(cfg, _on(params, dev), max_len=32, kv_chunks=4)
+    lc, cc = cpu.prefill(toks)
+    before = fk.LAUNCHES
+    lg, cg = gpu.prefill(toks)
+    assert fk.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=0)
+    for key in cc:
+        torch.testing.assert_close(cg[key].cpu(), cc[key], atol=1e-3,
+                                   rtol=0)
+    prefill = gpu.prefill_program(2, 12)
+    prefill.tokens.copy_(torch.tensor(toks))
+    tok = prefill()[:, -1].argmax(-1)[:, None]
+    decode = gpu.decode_program(2)
+    eager = {k: t.clone() for k, t in decode.cache.items()}
+    want, _ = make_serve_step(cfg, gpu.spec)(gpu.params, eager, tok, 12)
+    decode.tokens.copy_(tok)
+    decode.cur_len.fill_(12)
+    assert torch.equal(decode(), want)
+    assert all(torch.equal(decode.cache[k], eager[k]) for k in eager)
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "rwkv6_1_6b"])

@@ -80,3 +80,31 @@ def test_batch_to_keeps_dtypes():
     assert b["tokens"].dtype == torch.int32
     assert b["labels"].dtype == torch.int32
     assert b["mask"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_hubert_batches_bitwise(seed):
+    """The registered audio encoder's own batches (HuBERT-XLarge: 512-dim
+    frame features, a unit label in 504 per frame) equal the reference's
+    bit for bit, and the prefetching loader hands its features over as
+    float32 tensors on its device."""
+    jds = JSyntheticDataset(jget_config("hubert_xlarge"),
+                            JDataConfig(40, 2, seed))
+    ds = SyntheticDataset(get_config("hubert_xlarge"),
+                          DataConfig(40, 2, seed))
+    for step in (0, 3):
+        want, got = jds.batch_at(step), ds.batch_at(step)
+        assert sorted(got) == sorted(want) == ["features", "labels", "mask"]
+        assert got["features"].shape == (2, 40, 512)
+        assert got["labels"].max() < 504
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert np.array_equal(got[k], want[k]), (k, step)
+    loader = PrefetchLoader(ds, device="cpu", start_step=3, prefetch=1)
+    try:
+        step, batch = next(loader)
+    finally:
+        loader.close()
+    assert step == 3 and batch["features"].dtype == torch.float32
+    assert np.array_equal(batch["features"].numpy(),
+                          jds.batch_at(3)["features"])

@@ -326,3 +326,95 @@ def test_kernel_rounding_within_bound_of_reference_grads():
         err = (g - w).abs().max().item()
         assert top > 0 and err <= 2e-2 * top, (name, err, top)
         assert not torch.equal(g, x.to(torch.bfloat16).float()), name
+
+
+#: The registered configs' head dims beyond 16/32/64/128: HuBERT-XLarge's
+#: 80 (non-causal), Kimi K2's 112 and Nemotron-4 340B's 192 (forward only
+#: on the card).
+CONFIG_DIMS = [80, 112, 192]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("d", CONFIG_DIMS)
+def test_config_head_dims_match_reference_kernel(d, causal, window, dtype):
+    """At the configs' head dims the port's ``flash_attention`` (its plain
+    version on the CPU, the card kernel's check) against the reference's
+    Pallas kernel in interpret mode and its oracle, at the reference's
+    tolerances: float32 atol 3e-5 / rtol 1e-4, bfloat16 max abs 2e-2."""
+    q, k, v = inputs(26, 1, 4, 2, 130, d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           window=window), np.float32)
+    oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal,
+                                           window=window), np.float32)
+    tq, tk, tv = (tensor_from_numpy(np.asarray(a)) for a in (jq, jk, jv))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (1, 4, 130, d) and got.dtype == tq.dtype
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-4)
+        np.testing.assert_allclose(got, oracle, atol=3e-5, rtol=1e-4)
+    else:
+        assert np.max(np.abs(got - want)) < 2e-2
+        assert np.max(np.abs(got - oracle)) < 2e-2
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("d", [80, 112])
+def test_backward_at_config_head_dims_matches_reference_grads(d, causal,
+                                                              window):
+    """The backward at HuBERT's and Kimi K2's head dims against ``jax.vjp``
+    of the reference's ``blockwise_attention``: the plain backward in
+    float32 within 1e-4 of the largest |want| (the card kernel's float32
+    bound), and the tensor-core kernel's arithmetic (P and dS rounded to
+    bfloat16) on bfloat16 values within 2e-2 of it."""
+    b, hq, hkv, s = 1, 4, 2, 130
+    rng = np.random.RandomState(27)
+    q, k = (_bf16_values(rng.randn(b, h, s, d).astype(np.float32) * 0.5)
+            for h in (hq, hkv))
+    v, do = (_bf16_values(rng.randn(b, h, s, d).astype(np.float32))
+             for h in (hkv, hq))
+    scale = d ** -0.5
+
+    def jf(q_, k_, v_):
+        return jl.blockwise_attention(q_, k_, v_, causal=causal,
+                                      window=window, scale=scale,
+                                      block_k=64)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = [torch.from_numpy(np.array(w))
+            for w in vjp(jnp.asarray(do.numpy()))]
+    o, lse = fk.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      scale=scale, return_lse=True)
+    exact = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale)
+    ob = o.to(torch.bfloat16).float()     # the forward writes bfloat16
+    rounded = _kernel_rounding_backward(q, k, v, ob, lse, do, causal=causal,
+                                        window=window, scale=scale)
+    for name, x, r, w in zip(("dq", "dk", "dv"), exact, rounded, want):
+        assert x.shape == w.shape == (b, hq if name == "dq" else hkv, s, d)
+        top = w.abs().max().item()
+        assert top > 0
+        assert (x - w).abs().max().item() <= 1e-4 * top, name
+        assert (r - w).abs().max().item() <= 2e-2 * top, name
+
+
+@pytest.mark.parametrize("d,backward,admitted", [
+    (8, False, True), (16, False, True), (24, False, True),
+    (40, False, True), (80, False, True), (96, False, True),
+    (112, False, True), (128, False, True), (192, False, True),
+    (8, True, True), (80, True, True), (112, True, True), (128, True, True),
+    (0, False, False), (4, False, False), (12, False, False),
+    (100, False, False), (136, False, False), (176, False, False),
+    (256, False, False), (192, True, False), (100, True, False),
+    (136, True, False)])
+def test_head_dim_rule(d, backward, admitted):
+    """The kernels' head-dim rule, which the wrappers check before any
+    launch: a multiple of 8 up to 128, or 192 for the forward alone."""
+    if admitted:
+        fk.check_head_dim(d, backward=backward)
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fk.check_head_dim(d, backward=backward)

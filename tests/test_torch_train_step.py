@@ -20,7 +20,8 @@ pipeline) go through both packages:
   1e-5, params atol 2e-5 / rtol 1e-4. The data-parallel steps run on 4
   devices on both sides; the captured step's graph digests equal and one
   call is one dispatch. The single-device and DP steps also run the
-  RWKV-6, hybrid and MoE families; only the audio family is refused.
+  RWKV-6, hybrid and MoE families and the audio encoder (reduced
+  HuBERT-XLarge with its head dim of 80 put back, on feature batches).
 """
 
 import dataclasses
@@ -52,7 +53,8 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import OptimConfig
-from repro_torch.training import (TrainStepConfig, check_trainable,
+from repro_torch.serving import ServeEngine
+from repro_torch.training import (TrainStepConfig,
                                   init_state, make_captured_dp_train_step,
                                   make_dp_train_step, make_loss_fn,
                                   make_train_step, state_shapes)
@@ -464,19 +466,104 @@ def test_dp_train_step_matches_the_reference_per_family(arch):
 
 
 def test_check_trainable_raises_only_for_audio():
-    """Every family the port runs trains (on either device); an audio-family
-    config (built with ``dataclasses.replace``, since the port registers
-    no ``hubert_xlarge``) is refused by the builders, as ``check_supported``
-    refuses it."""
+    """Every registered architecture trains now, the audio encoder too:
+    each builder takes reduced HuBERT-XLarge (float32 ``features``, a unit
+    label per frame) and one step on the CPU gives a finite loss. What an
+    encoder cannot do is decode, so ``ServeEngine`` and the decode path
+    refuse it with the reference's reason."""
     for name in ("smollm_360m", "rwkv6_1_6b", "hymba_1_5b",
-                 "mixtral_8x22b", "kimi_k2_1t_a32b"):
-        check_trainable(get_config(name))
-    audio = dataclasses.replace(get_config("smollm_360m").reduced(),
-                                family="audio")
-    with pytest.raises(NotImplementedError, match="audio"):
-        tfm.check_supported(audio)
-    with pytest.raises(NotImplementedError, match="audio"):
-        check_trainable(audio)
-    with pytest.raises(NotImplementedError, match="audio"):
-        make_train_step(audio, TrainStepConfig(), OptimConfig(**OPT),
+                 "mixtral_8x22b", "kimi_k2_1t_a32b", "hubert_xlarge"):
+        cfg = get_config(name).reduced()
+        make_train_step(cfg, TrainStepConfig(), OptimConfig(**OPT),
                         device="cpu")
+        make_dp_train_step(cfg, TrainStepConfig(), OptimConfig(**OPT),
+                           CommSession(device="cpu"))
+    _, cfg, _, opt, _, state = states("hubert_xlarge", head_dim=80)
+    batch = tb(batch_np(cfg))
+    assert batch["features"].dtype == torch.float32
+    _, m = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")(
+        state, batch)
+    assert np.isfinite(float(m["loss"]))
+    with pytest.raises(ValueError, match="encoder-only"):
+        ServeEngine(cfg, state["params"])
+    with pytest.raises(ValueError, match="encoder-only"):
+        tfm.init_cache(cfg, 1, tfm.CacheSpec("chunked", 8, 2))
+
+
+#: Reduced HuBERT-XLarge with its own head dim (80) put back, so that the
+#: attention runs at the width the card's kernels take padded.
+HUBERT = dict(head_dim=80)
+
+
+def test_hubert_loss_and_grads_match_value_and_grad():
+    """The audio encoder's loss and gradients (``frontend_proj``, ``head``,
+    non-causal attention at head dim 80) against ``jax.value_and_grad`` of
+    the reference's ``loss_fn`` on the same feature batch: loss rtol 1e-5,
+    grads within 1e-5 · max|g|."""
+    jcfg, cfg, jparams, params = reference_and_port("hubert_xlarge",
+                                                    **HUBERT)
+    assert cfg.head_dim_ == 80 and not cfg.causal
+    assert params["frontend_proj"].shape == (cfg.frontend_dim, cfg.d_model)
+    batch = batch_np(jcfg, seq=20)
+    batch["mask"][1, 5:] = 0.0
+    jloss, jgrads = jax.value_and_grad(jtfm.loss_fn)(jparams, jcfg,
+                                                     jb(batch))
+    loss, grads = _value_and_grad(make_loss_fn(cfg, TrainStepConfig()))(
+        params, tb(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    for (path, jg), g in zip(jax.tree_util.tree_flatten_with_path(jgrads)[0],
+                             leaves(grads)):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(
+            g.numpy(), jg, atol=1e-5 * max(1e-30, np.abs(jg).max()),
+            rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+def test_hubert_train_step_three_steps():
+    """Three steps of the audio encoder (reduced, float32, head dim 80)
+    against the reference's jitted step: loss rtol 1e-5, lr rtol 1e-6,
+    params atol 2e-5 / rtol 1e-4."""
+    jcfg, cfg, jopt, opt, jstate, state = states("hubert_xlarge", **HUBERT)
+    jstep = jax.jit(jmake_train_step(jcfg, JTrainStepConfig(), jopt))
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    for s in range(3):
+        batch = batch_np(jcfg, step=s)
+        jstate, jm = jstep(jstate, jb(batch))
+        state, m = step(state, tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert_states_close(jstate, state)
+
+
+def test_hubert_dp_and_captured_steps_match_the_reference():
+    """The audio encoder's data-parallel step on 4 devices and its captured
+    step (static float32 ``features`` buffers in place of ``tokens``)
+    against the reference's: loss and grad norm rtol 1e-5, params atol
+    2e-5 / rtol 1e-4, the captured step one dispatch with the reference's
+    graph digest."""
+    jcfg, cfg, jopt, opt, jstate0, state0 = states("hubert_xlarge", **HUBERT)
+    batch = batch_np(jcfg, batch=8)
+    jstate, jm = jax.jit(jmake_dp(jcfg, JTrainStepConfig(), jopt,
+                                  jsession4()))(jstate0, jb(batch))
+    state, m = make_dp_train_step(cfg, TrainStepConfig(), opt, CommSession(
+        device="cpu"))(state0, tb(batch))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-5)
+    assert_states_close(jstate, state)
+    jsess, sess = jsession4(), CommSession(device="cpu")
+    jstep = jmake_captured(jcfg, JTrainStepConfig(), jopt, jsess, jstate0,
+                           jb(batch))
+    step = make_captured_dp_train_step(cfg, TrainStepConfig(), opt, sess,
+                                       state0, tb(batch))
+    jstate, jm = jstep(jstate0, jb(batch))
+    state, m = step(state0, tb(batch))
+    assert sess.stats()["dispatches"] == 1
+    assert (fastpath_entry(sess.engine).graph.digest()
+            == fastpath_entry(jsess.engine).graph.digest())
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    assert_states_close(jstate, state)

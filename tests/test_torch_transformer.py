@@ -15,8 +15,12 @@ arithmetic, summed in another order. A sliding-window variant exercises
 the ring cache; the window-8 models' 10-token prompts overflow it. ``decode_step``
 takes its position as an int or a 0-d tensor, bit-equal, and the jitted
 reference step agrees. On the CPU the RWKV-6 scan is the kernel's plain
-version, in the reference's chunks of 128. All nine configurations equal
-the reference's; the audio family raises.
+version, in the reference's chunks of 128. All ten configurations equal
+the reference's. The audio encoder (reduced ``hubert_xlarge`` with its
+head dim of 80 put back: ``frontend_proj`` on float32 features,
+non-causal attention, ``head``) agrees with the reference's ``forward``
+and ``loss_fn`` within the same atol; it has no decode step, and the
+decode path refuses it with the reference's reason.
 """
 
 import dataclasses
@@ -34,15 +38,15 @@ from repro.models import transformer as jtfm
 from repro_torch.carry import cache_from_numpy, params_from_numpy
 from repro_torch.configs import REGISTRY, get_config, load_all
 from repro_torch.models import transformer as tfm
+from repro_torch.tree import leaves
 
 jload_all()
 load_all()
 
 NAMES = ["llama3_8b", "smollm_360m", "gemma3_27b", "rwkv6_1_6b",
          "hymba_1_5b", "mixtral_8x22b", "kimi_k2_1t_a32b"]
-#: Every configuration the port registers: the reference's but the audio
-#: model's.
-CONFIGS = NAMES + ["nemotron_4_340b", "chameleon_34b"]
+#: Every configuration the port registers: the reference's ten.
+CONFIGS = NAMES + ["nemotron_4_340b", "chameleon_34b", "hubert_xlarge"]
 ATOL = 1e-4
 
 
@@ -91,8 +95,9 @@ def test_configs_equal_the_reference():
         assert tfm.layer_windows(ours) == list(
             np.asarray(jtfm.layer_windows(ref)))
     assert get_config("llama3-8b") is REGISTRY["llama3_8b"]
+    assert get_config("hubert-xlarge") is REGISTRY["hubert_xlarge"]
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("hubert_xlarge")
+        get_config("hubert_large")
 
 
 def test_forward(model):
@@ -223,14 +228,27 @@ def test_init_params_shapes_dtypes_and_scales():
 
 
 @pytest.mark.parametrize("arch,change,match", [
-    pytest.param("llama3_8b", {"family": "audio", "frontend": "audio"},
-                 "audio", id="change3-audio")])
+    pytest.param("llama3_8b", {"family": "audio", "frontend": "audio",
+                               "causal": False},
+                 "encoder-only", id="change3-audio")])
 def test_unported_families_raise(arch, change, match):
+    """The audio family is ported: its parameters draw, with
+    ``frontend_proj`` and ``head``. What an encoder lacks is a decode step:
+    the cache, prefill and decode refuse it, with the reference's reason
+    (``configs/shapes.py``'s skip rule)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=match):
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    assert "frontend_proj" in params and "head" in params
+    assert "lm_head" not in params
+    with pytest.raises(ValueError, match=match):
         tfm.init_cache(cfg, 1, tfm.CacheSpec("chunked", 8, 2))
+    feats = {"features": torch.zeros((1, 4, cfg.frontend_dim))}
+    with pytest.raises(ValueError, match=match):
+        tfm.prefill_forward(params, cfg, feats, tfm.CacheSpec("chunked", 8,
+                                                              2))
+    with pytest.raises(ValueError, match=match):
+        tfm.decode_step(params, cfg, {}, torch.zeros((1, 1), dtype=torch.long),
+                        0, tfm.CacheSpec("chunked", 8, 2))
 
 
 @pytest.mark.parametrize("name", ["hymba_1_5b", "mixtral_8x22b",
@@ -262,3 +280,77 @@ def test_new_families_init_like_the_reference(name):
         assert layers["moe"]["w1"].dtype == torch.bfloat16
         assert ("shared" in layers["moe"]) == bool(cfg.num_shared_experts)
     assert tfm.param_shapes(cfg)["layers"].keys() == layers.keys()
+
+
+def hubert():
+    """Reduced HuBERT-XLarge with its head dim of 80 put back, its
+    reference twin, and the reference's weights carried across."""
+    jcfg = dataclasses.replace(JREGISTRY["hubert_xlarge"].reduced(),
+                               head_dim=80)
+    cfg = dataclasses.replace(get_config("hubert_xlarge").reduced(),
+                              head_dim=80)
+    jparams = jtfm.init_params(jax.random.key(4), jcfg)
+    return jcfg, cfg, jparams, params_from_numpy(to_numpy(jparams))
+
+
+def features(seed, b, s, dim):
+    return np.random.RandomState(seed).randn(b, s, dim).astype(np.float32)
+
+
+def test_hubert_forward_and_loss_match_the_reference():
+    """The audio encoder's ``forward`` (features through ``frontend_proj``,
+    non-causal attention at head dim 80, ``head``) and ``loss_fn`` against
+    the reference's on the same features: logits within atol 1e-4, the
+    loss within rtol 1e-5, no auxiliary loss."""
+    jcfg, cfg, jparams, params = hubert()
+    assert (cfg.family, cfg.frontend, cfg.causal, cfg.head_dim_) == (
+        "audio", "audio", False, 80)
+    feats = features(5, 2, 12, cfg.frontend_dim)
+    labels = np.random.RandomState(6).randint(0, cfg.vocab_size, (2, 12))
+    want, jaux = jtfm.forward(jparams, jcfg,
+                              {"features": jnp.asarray(feats)})
+    got, aux = tfm.forward(params, cfg, {"features": torch.from_numpy(feats)})
+    assert got.shape == (2, 12, cfg.vocab_size)
+    close(got, want)
+    assert float(aux) == float(jaux) == 0.0
+    mask = np.ones((2, 12), np.float32)
+    mask[0, 7:] = 0.0
+    jbatch = {"features": jnp.asarray(feats), "labels": jnp.asarray(labels),
+              "mask": jnp.asarray(mask)}
+    batch = {"features": torch.from_numpy(feats),
+             "labels": torch.from_numpy(labels),
+             "mask": torch.from_numpy(mask)}
+    np.testing.assert_allclose(float(tfm.loss_fn(params, cfg, batch)),
+                               float(jtfm.loss_fn(jparams, jcfg, jbatch)),
+                               rtol=1e-5)
+
+
+def test_hubert_init_params_like_the_reference():
+    """The audio encoder's parameters have the reference's tree, shapes
+    and dtypes in bfloat16 (``frontend_proj`` ``(frontend_dim, d)`` and
+    ``head``, no ``lm_head``), ``frontend_proj`` drawn at
+    ``frontend_dim**-0.5``; the full config draws the reference's
+    ``param_count`` (945,788,160 in all) beside ``frontend_proj`` and the
+    encoder's ``head``, which ``param_count`` leaves out."""
+    cfg = dataclasses.replace(get_config("hubert_xlarge").reduced(),
+                              dtype="bfloat16", frontend_dim=256)
+    jcfg = dataclasses.replace(JREGISTRY["hubert_xlarge"].reduced(),
+                               dtype="bfloat16", frontend_dim=256)
+    ours = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    ref = jax.eval_shape(lambda k: jtfm.init_params(k, jcfg),
+                         jax.random.key(0))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+        t = ours
+        for p in path:
+            t = t[p.key]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).removeprefix("torch.") == str(leaf.dtype), path
+    assert sorted(ours) == sorted(ref) == [
+        "embed", "final_norm", "frontend_proj", "head", "layers"]
+    proj = ours["frontend_proj"].float()
+    assert abs(proj.std().item() - 256 ** -0.5) < 0.1 * 256 ** -0.5
+    full = get_config("hubert_xlarge")
+    shapes = tfm.param_shapes(full)
+    count = sum(t.numel() for t in leaves(shapes))
+    assert count == (full.param_count() + full.frontend_dim * full.d_model
+                     + full.d_model * full.vocab_size) == 945_788_160
