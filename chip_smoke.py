@@ -320,7 +320,49 @@ What it does, in order (any failed check exits nonzero):
     and captured decode against eager, the memory the graphs hold), and
     the kernel at the prefill's shape beside its bound, its plain version
     and SDPA;
-21. one JSON line ``{"kernels": [...]}``, then as the last line
+21. main path P, after path O's tensors are freed, counters set to 0
+    before it and read after it: the GPipe forward of Llama-3 8B at full
+    width and depth (32 layers, d_model 4096, 32/8 heads of 128, SwiGLU
+    d_ff 14336, bfloat16) in 4 stages of 8 layers (13.96 GB of seeded
+    block weights), 8 microbatches of ``(1, 2048, 4096)`` hidden states
+    from a seeded embedding table, on ``CommSession`` over
+    ``Topology.full_mesh(4)``: ``pipeline_apply`` with ``multipath=False``
+    and ``True``, each bitwise equal to sequential ``block_apply`` over
+    the 32 layers microbatch by microbatch, every surfaced row equal, 11
+    handoff dispatches a call (one ``session.exchange`` of the 4 stage
+    rows a tick, fast-path hits after the first), ``flash_attention``
+    launched 352 times a call (every stage every tick, bubbles included),
+    ``multipath_dma`` once a handoff (and twice for each handoff
+    program's build) and ``ring_allgather`` by the surfacing psum; ms a
+    call for both settings and for sequential, medians of 3 in turns,
+    each one's device ms and idle share under the profiler (one card
+    runs the stages one after another: (M + P − 1)/M = 1.375× the layer
+    work), one handoff's replay beside two bounds (its own bytes, and
+    the table's, which add the zero fill of each message's other rows),
+    peak GiB, and the kernel at the microbatch's attention shape
+    (1, 32/8, 2048, 128) beside its bound, its plain version and SDPA;
+22. main path Q, counters set to 0 before it and read after it: the int8
+    compressed gradient mean at SmolLM-360M's full-width leaf shapes, 4
+    replicas of seeded float32 gradients (6.54 GB stacked):
+    ``compressed_psum_tree`` against the plain mean ``g.mean(0)`` of the
+    same device tensors, every row equal and every leaf's max abs error
+    within 0.02 of its max |mean|; ``comm.collectives.pmean`` (the ring
+    the compressed mean runs, ``ring_allgather``) against the same plain
+    mean within a 4-term sum's float32 rounding; 30 steps of
+    ``compressed_psum_with_feedback`` against ``compressed_psum`` at
+    (8, 128) and at the (4, 49152, 960) embedding leaf, the accumulated
+    error against the plain mean smaller with feedback; ms a tree
+    against ``pmean``'s;
+23. a captured step of ``captured_multipath_dma``, ``cap.exchange`` and a
+    compute node: bitwise equal to the eager composition, one dispatch a
+    call, ``multipath_dma`` launched once for the DMA node and once for
+    each copy run;
+24. ``python -m repro_torch.launch.dryrun --comm --fail-link 0:1`` and
+    ``python -m repro_torch.launch.report`` in subprocesses under ``-X
+    importtime``, both exit 0, importing nothing beyond the standard
+    library and what importing ``torch`` and ``repro_torch.comm``
+    imports;
+25. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -4285,6 +4327,462 @@ def wide_head_dim_checks(randn, errs, flash_case) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+#: Path P: Llama-3 8B's 32 layers in 4 stages of 8, 8 microbatches of one
+#: sequence of 2048 positions.
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 2048
+
+
+def pipeline_path(dev, errs, per_path, read_path, smi) -> dict:
+    """Main path P (phase 21): the GPipe forward of Llama-3 8B at full
+    width and depth (32 layers, d_model 4096, 32/8 heads of 128, SwiGLU
+    d_ff 14336, bfloat16) in 4 stages of 8 layers (13.96 GB of seeded
+    block weights) over 8 microbatches of ``(1, 2048, 4096)`` hidden
+    states drawn from a seeded embedding table, on a ``CommSession`` over
+    ``Topology.full_mesh(4)``: every stage handoff one ``session.exchange``
+    of the 4 stage rows (``multipath_dma``), the last stage's outputs
+    surfaced by the session's ring psum (``ring_allgather``). With every
+    counter set to 0 just before and read just after: ``pipeline_apply``
+    with ``multipath=False`` and ``True``, each bit for bit as sequential
+    ``block_apply`` over the 32 layers microbatch by microbatch, every
+    surfaced row equal (checked outside the counted run), 11 handoff
+    dispatches a call (their fast-path hits
+    after the first tick), ``flash_attention`` launched 352 times a call
+    (every stage every tick, bubbles included) and ``multipath_dma`` once
+    a handoff and twice for each handoff program's build. Then times: ms
+    a call for both settings and sequential (medians of 3 in turns), each
+    one's device ms, op count and idle share under the profiler, one
+    handoff's replay beside its own bytes' bound and its table's, peak
+    GiB, and the kernel at the
+    microbatch's attention shape beside its bound, its plain version and
+    SDPA. Returns that shape's times."""
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.pipeline import (_pipeline_apply_stacked,
+                                               block_stages,
+                                               make_block_stage_fn,
+                                               pipeline_apply,
+                                               send_next_stage)
+
+    # -- 21. main path P: the pipeline ----------------------------------------
+    t_path = time.perf_counter()
+    p, m, s = PIPE_STAGES, PIPE_MICRO, PIPE_SEQ
+    cfg = get_config("llama3_8b")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim_, cfg.d_ff, cfg.mlp, cfg.dtype)
+          == (32, 4096, 32, 8, 128, 14336, "swiglu", "bfloat16"),
+          f"llama3_8b is not the full config: {cfg}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"layers": tfm.block_init(cfg, generator=gen, device=dev,
+                                       lead=(cfg.num_layers,))}
+    embed = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                        device=dev).mul_(cfg.d_model ** -0.5).to(
+                            torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (m, 1, s),
+                           generator=torch.Generator().manual_seed(1))
+    x = embed[tokens.to(dev)]
+    del embed
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"path P: {cfg.name} {cfg.num_layers} layers in {p} stages of "
+          f"{cfg.num_layers // p}: {wbytes / 1e9:.2f} GB of seeded block "
+          f"weights, {m} microbatches of {tuple(x.shape[1:])} bf16 hidden "
+          f"states from a seeded embedding table "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    positions = torch.arange(s, device=dev)
+    stage_fn = make_block_stage_fn(cfg, p, positions)
+    stages = block_stages(params, p)
+    sess = CommSession(device=dev, topology=Topology.full_mesh(4))
+
+    def sequential():
+        out = []
+        for mb in range(m):
+            h = x[mb]
+            for i in range(cfg.num_layers):
+                h, _ = tfm.block_apply(h, tfm.layer_params(params, i), cfg,
+                                       -1, positions)
+            out.append(h)
+        return torch.stack(out)
+
+    def piped(multipath):
+        return pipeline_apply(stage_fn, stages, x, microbatches=m,
+                              multipath=multipath, session=sess)
+
+    with torch.no_grad():
+        seq = sequential()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        calls = {}
+        for multipath in (False, True):
+            st0 = sess.stats()
+            out = piped(multipath)
+            torch.cuda.synchronize()
+            st1 = sess.stats()
+            calls[multipath] = (
+                out, st1["dispatches"] - st0["dispatches"],
+                st1["fastpath"]["hits"] - st0["fastpath"]["hits"])
+        read_path("P")
+        ticks = m + p - 1
+        for multipath, (out, disp, hits) in calls.items():
+            check(tuple(out.shape) == (m, 1, s, cfg.d_model),
+                  f"path P: output shape {tuple(out.shape)}")
+            check(torch.equal(out, seq), f"path P (multipath="
+                  f"{multipath}): pipeline differs from sequential "
+                  f"block_apply (max abs diff "
+                  f"{(out.float() - seq.float()).abs().max().item()})")
+            check(disp == ticks, f"path P (multipath={multipath}): {disp} "
+                  f"handoff dispatches, want {ticks}")
+            check(hits == ticks - 1, f"path P (multipath={multipath}): "
+                  f"{hits} fast-path hits, want {ticks - 1}")
+        launches = per_path["P"]
+        check(launches.get("flash_attention", 0)
+              == 2 * ticks * cfg.num_layers,
+              f"path P: flash_attention launched "
+              f"{launches.get('flash_attention', 0)} times, want "
+              f"{2 * ticks * cfg.num_layers} (two calls of {ticks} ticks x "
+              f"{cfg.num_layers} layers)")
+        paths = {}
+        for _, entry in sess.engine._fastpath._store.values():
+            paths[max(len(pl.paths) for pl in entry.plans)] = entry
+        check(sorted(paths)[0] == 1 and len(paths) == 2,
+              f"path P: handoff plans with {sorted(paths)} paths, want a "
+              f"direct one and a striped one")
+        replays = [e.compiled.lifecycle.launches for e in paths.values()]
+        check(replays == [ticks, ticks], f"path P: handoff programs "
+              f"replayed {replays} times, want {ticks} each")
+        # one launch a handoff, and each program's build warms it up and
+        # replays it once before its first dispatch (compile_plan)
+        check(launches.get("multipath_dma", 0) == 2 * (ticks + 2),
+              f"path P: multipath_dma launched "
+              f"{launches.get('multipath_dma', 0)} times, want one a "
+              f"handoff and two a build ({2 * (ticks + 2)})")
+        check(launches.get("ring_allgather", 0) > 0,
+              "path P: the surfacing psum launched no ring_allgather")
+        # every stage's row of the surfaced outputs, outside the counted
+        # run: the stacked result that pipeline_apply returns row 0 of
+        for multipath, (out, _, _) in calls.items():
+            rows = _pipeline_apply_stacked(stage_fn, stages, x,
+                                           microbatches=m,
+                                           multipath=multipath,
+                                           session=sess)
+            check(all(torch.equal(rows[i], out) for i in range(p)),
+                  f"path P (multipath={multipath}): surfaced rows differ")
+            del rows
+        print(f"path P: pipeline_apply, multipath False and True: bitwise "
+              f"equal to sequential block_apply over {cfg.num_layers} "
+              f"layers for all {m} microbatches, every surfaced row equal, "
+              f"{ticks} handoff dispatches a call ({ticks - 1} fast-path "
+              f"hits), launches {launches} (flash_attention {ticks} ticks x "
+              f"{cfg.num_layers} layers a call, bubbles included; "
+              f"multipath_dma one a handoff, two a program build); handoff "
+              f"paths per message: direct 1, multipath {max(paths)}",
+              flush=True)
+
+        # times: one card runs the four stages one after another; three
+        # rounds in turns, then one profiled call of each
+        calls_ms = {"sequential": [], "direct": [], "multipath": []}
+        fns = {"sequential": sequential, "direct": lambda: piped(False),
+               "multipath": lambda: piped(True)}
+        for _ in range(3):
+            for name, fn in fns.items():
+                calls_ms[name].append(host_time_ms(fn, 1, warmup=0))
+        seq_ms, direct_ms, mp_ms = (sorted(calls_ms[k])[1] for k in fns)
+        profiled = {name: profile_device_ms(fn, top=4)
+                    for name, fn in fns.items()}
+        h_out = torch.randn(p, 1, s, cfg.d_model, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        handoff = {}
+        # the handoff itself reads each stage row once and writes it once;
+        # the table's bytes add the exchange's zero fill of every
+        # message's other rows, which the pipeline throws away
+        own_ms = 2 * h_out.numel() * h_out.element_size() \
+            / HBM_BYTES_PER_S * 1e3
+        for npaths, entry in sorted(paths.items()):
+            prog = entry.compiled.program
+            reads, writes = prog.table.bytes_moved()
+            handoff[npaths] = (
+                cuda_time_ms(prog.replay, 20),
+                (reads + writes) / HBM_BYTES_PER_S * 1e3,
+                host_time_ms(lambda mp=npaths > 1: send_next_stage(
+                    h_out, p, multipath=mp, session=sess), 10))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path P ({smi}): ms a call (host clock, synced): sequential "
+          f"{seq_ms:.2f}, pipeline direct {direct_ms:.2f} "
+          f"({direct_ms / seq_ms:.3f}x), multipath {mp_ms:.2f} "
+          f"({mp_ms / seq_ms:.3f}x). One card runs the {p} stages one "
+          f"after another, so pipelining cannot beat sequential here: "
+          f"every tick runs all {p} stages, {ticks} ticks for {m} "
+          f"microbatches, (M + P - 1)/M = {ticks / m:.3f}x the layer work "
+          f"(the bubble's share); medians of 3 in turns, each call "
+          f"{ {k: [round(v, 2) for v in vs] for k, vs in calls_ms.items()} }",
+          flush=True)
+    for (name, (wall, dev_ms, n_ops, top)), ms in zip(
+            profiled.items(), (seq_ms, direct_ms, mp_ms)):
+        idle = (f"{1 - dev_ms / ms:.1%}" if dev_ms else
+                "not measured: the profiler recorded no device time")
+        print(f"path P ({smi}): {name} under the profiler: wall "
+              f"{wall:.2f} ms, device {dev_ms:.2f} ms in {n_ops} ops, idle "
+              f"share vs the unprofiled {ms:.2f} ms: {idle}; top ms: "
+              f"{top_ops(top)}", flush=True)
+    for npaths, (replay, bound, call) in handoff.items():
+        print(f"path P ({smi}): one handoff ({p} x "
+              f"{s * cfg.d_model * 2 / MiB:.0f} MiB, {npaths} path(s) a "
+              f"message): replay {replay:.4f} ms; bound of the handoff's "
+              f"own bytes (each row read and written once) {own_ms:.4f} ms "
+              f"({own_ms / replay:.1%}), of the table's bytes (with the "
+              f"zero fill of each message's {p - 1} other rows) "
+              f"{bound:.4f} ms ({bound / replay:.1%}); send_next_stage "
+              f"{call:.4f} ms (host clock: staging, replay, copies out)",
+              flush=True)
+    print(f"path P: peak {peak:.2f} GiB; {time.perf_counter() - t_path:.1f} "
+          f"s", flush=True)
+    del params, stages, x, seq, calls, out, h_out, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    case = flash_case_times(randn, errs, 1, cfg.num_heads, cfg.num_kv_heads,
+                            s, cfg.head_dim_, plain_iters=3, smi=smi)
+    check(case["max_abs_err"] <= 2e-2, f"flash_attention at path P's "
+          f"microbatch shape: max abs err {case['max_abs_err']} vs plain, "
+          f"beyond the reference's bf16 2e-2")
+    return case
+
+
+#: Path Q's bound: the reference's int8 error bound, max abs error over
+#: the max |mean| of a leaf.
+COMPRESS_REL = 0.02
+
+
+def mean_sum_tol(g: torch.Tensor) -> float:
+    """How far two float32 means of ``g: (n, ...)`` over dim 0 may differ
+    when they sum in different orders: each n-term sum is within
+    ``(n - 1) · 2**-24 · n · max|g|`` of the exact one, so their means
+    are within ``2 (n - 1) · 2**-24 · max|g|``, under ``n · 2**-23 ·
+    max|g|``."""
+    return g.shape[0] * 2.0 ** -23 * g.abs().max().item()
+
+
+def compression_path(dev, errs, per_path, read_path, smi) -> None:
+    """Main path Q (phase 22): the int8 compressed gradient mean at
+    SmolLM-360M's full-width leaf shapes (32 layers, d_model 960, 15/5
+    heads of 64, d_ff 2560, vocab 49152): 4 replicas of seeded float32
+    gradients that differ per replica (6.54 GB stacked). With every
+    counter set to 0 just before and read just after:
+    ``compressed_psum_tree`` and ``comm.collectives.pmean`` against the
+    plain mean ``g.mean(0)`` of the same device tensors (every row
+    equal; every leaf of the compressed mean within 0.02 of its max
+    |mean|, of ``pmean`` within :func:`mean_sum_tol`, which holds the
+    ring and its ``ring_allgather`` to the plain sum at the path's
+    shapes), then 30 steps of ``compressed_psum_with_feedback`` against
+    30 of ``compressed_psum`` at the reference's (8, 128) and at the
+    full-width (49152, 960) embedding leaf with 4 replicas (the
+    accumulated error against the plain mean with feedback below that
+    without). Then ms a tree against ``pmean``'s."""
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import compression as comp
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    # -- 22. main path Q: compressed gradient mean ----------------------------
+    t_path = time.perf_counter()
+    cfg = get_config("smollm_360m")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.d_ff, cfg.vocab_size) == (32, 960, 15, 5, 2560, 49152),
+          f"smollm_360m is not the full config: {cfg}")
+    n = 4
+    gen = torch.Generator(device=dev).manual_seed(41)
+    grads = tree_map(lambda t: torch.randn((n,) + tuple(t.shape),
+                                           generator=gen, device=dev)
+                     .mul_(0.01), param_shapes(cfg))
+    gbytes = sum(g.numel() * 4 for _, g in leaves_with_paths(grads))
+    sess = CommSession(device=dev, topology=Topology.full_mesh(n))
+    sess8 = CommSession(device=dev, topology=Topology.full_mesh(
+        8, name="mesh8"))
+    reset_launch_counts()
+    got = comp.compressed_psum_tree(grads, sess)
+    mean = tree_map(sess.collectives.pmean, grads)
+    torch.cuda.synchronize()
+    # both against the plain mean of the same device tensors: pmean runs
+    # the ring (ring_allgather) that the compressed mean runs
+    worst, worst_leaf, rows_equal = 0.0, "", True
+    pmean_worst, pmean_leaf, pmean_ok = 0.0, "", True
+    for (path, g), (_, c), (_, w) in zip(leaves_with_paths(grads),
+                                         leaves_with_paths(got),
+                                         leaves_with_paths(mean)):
+        plain = g.mean(0)
+        scale = plain.abs().max().item() + 1e-9
+        rows_equal &= all(torch.equal(c[i], c[0]) for i in range(1, n))
+        rows_equal &= all(torch.equal(w[i], w[0]) for i in range(1, n))
+        rel = (c[0] - plain).abs().max().item() / scale
+        if rel >= worst:
+            worst, worst_leaf = rel, "/".join(path)
+        err = (w[0] - plain).abs().max().item()
+        pmean_ok &= err <= mean_sum_tol(g)
+        if err / scale >= pmean_worst:
+            pmean_worst, pmean_leaf = err / scale, "/".join(path)
+        del plain
+    del got, mean
+
+    def feedback_gap(g, comm, steps=30):
+        """Accumulated mean error of ``steps`` compressed means, with and
+        without error feedback, against the plain mean."""
+        exact = g.mean(0)
+        res = torch.zeros_like(g)
+        acc_fb = torch.zeros_like(exact)
+        acc = torch.zeros_like(exact)
+        for _ in range(steps):
+            out, res = comp.compressed_psum_with_feedback(g, res, comm)
+            acc_fb += out[0]
+            acc += comp.compressed_psum(g, comm)[0]
+        return ((acc_fb / steps - exact).abs().mean().item(),
+                (acc / steps - exact).abs().mean().item())
+
+    small = feedback_gap(torch.randn(8, 128, generator=gen, device=dev)
+                         * 0.1, sess8)
+    embed = tuple(grads["embed"].shape)
+    wide = feedback_gap(torch.randn(embed, generator=gen, device=dev) * 0.1,
+                        sess)
+    torch.cuda.synchronize()
+    read_path("Q")
+    check(rows_equal, "path Q: compressed mean or pmean rows differ")
+    check(pmean_ok, f"path Q: pmean differs from the plain mean beyond "
+          f"the float32 rounding of a {n}-term sum (worst leaf "
+          f"{pmean_leaf}, {pmean_worst:.3g} of its max |mean|)")
+    check(worst < COMPRESS_REL, f"path Q: leaf {worst_leaf} max abs err "
+          f"{worst} of its max |mean|, beyond {COMPRESS_REL}")
+    for shape, (fb, nofb) in (((8, 128), small), (embed, wide)):
+        check(fb < nofb, f"path Q: error feedback at {shape} does not beat "
+              f"no feedback ({fb} >= {nofb})")
+    check(per_path["Q"].get("ring_allgather", 0) > 0,
+          "path Q: the compressed mean launched no ring_allgather")
+    print(f"path Q: compressed_psum_tree over {len(_leaves(grads))} leaves "
+          f"of smollm_360m x {n} replicas ({gbytes / 1e9:.2f} GB float32) "
+          f"against the plain mean g.mean(0): every row equal, worst leaf "
+          f"{worst_leaf} max abs err / max |mean| {worst:.5f} (bound "
+          f"{COMPRESS_REL}); pmean (the same ring) within a {n}-term "
+          f"sum's float32 rounding on every leaf, worst {pmean_leaf} "
+          f"{pmean_worst:.3g} of its max |mean|; 30 steps' mean "
+          f"error with / without feedback: (8, 128) {small[0]:.3e} / "
+          f"{small[1]:.3e}, {embed} {wide[0]:.3e} / {wide[1]:.3e}; "
+          f"launches {per_path['Q']}", flush=True)
+    tree_ms = host_time_ms(lambda: comp.compressed_psum_tree(grads, sess),
+                           3, warmup=1)
+    pmean_ms = host_time_ms(lambda: tree_map(sess.collectives.pmean, grads),
+                            3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path Q ({smi}): compressed_psum_tree {tree_ms:.2f} ms a tree, "
+          f"pmean {pmean_ms:.2f} ms ({tree_ms / pmean_ms:.2f}x; both "
+          f"all-reduce float32 through the session's ring: the int8 "
+          f"payload is not what crosses); peak {peak:.2f} GiB; "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+
+
+def captured_dma_check(dev) -> None:
+    """Phase 23: a captured step of ``captured_multipath_dma``, then
+    ``cap.exchange``, then a compute node, on the default session: each
+    call one dispatch, ``multipath_dma`` launched once for the DMA node
+    and once for each copy run, the result bit for bit as the eager
+    composition (``multipath_dma_transfer``, ``session.send``, the
+    kernel)."""
+    from repro_torch.comm import CommSession
+    from repro_torch.kernels.multipath_dma import kernel as dk
+    from repro_torch.kernels.multipath_dma.ops import (
+        captured_multipath_dma, multipath_dma_transfer)
+
+    # -- 23. the captured multipath_dma step ----------------------------------
+    sess = CommSession(device=dev)
+    n, nelems = sess.num_devices, 1 << 22            # 16 MiB float32 rows
+    plan = sess.plan(0, 2, nelems * 4, max_paths=3, num_chunks=4,
+                     granularity=4)
+
+    def build(cap):
+        y = captured_multipath_dma(cap, cap.input((nelems,), torch.float32),
+                                   plan, n)
+        (r,) = cap.exchange([(y, 2, 1)])
+        return cap.kernel(lambda v: v * 0.5 - 1.0, r, name="affine")
+
+    step = sess.capture(build)
+    runs = len(step.resolve().compiled.program.copy_runs)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    xs = torch.randn(n, nelems, generator=gen, device=dev)
+    d0, l0 = sess.stats()["dispatches"], dk.LAUNCHES
+    (out,) = step(xs)
+    (out,) = step(xs)
+    torch.cuda.synchronize()
+    disp, launched = sess.stats()["dispatches"] - d0, dk.LAUNCHES - l0
+    moved = multipath_dma_transfer(xs, plan)
+    want = torch.zeros_like(xs)
+    want[1] = sess.send(moved[2], 2, 1)
+    want = want * 0.5 - 1.0
+    check(torch.equal(out, want), "captured multipath_dma step differs from "
+          "the eager composition")
+    check(disp == 2 and launched == 2 * (1 + runs),
+          f"captured multipath_dma step: {disp} dispatches and {launched} "
+          f"multipath_dma launches for 2 calls, want 2 and {2 * (1 + runs)}")
+    print(f"captured multipath_dma ({len(plan.paths)} paths) + exchange + "
+          f"compute node: bitwise equal to the eager composition, one "
+          f"dispatch a call, multipath_dma 1 + {runs} copy run(s) a call",
+          flush=True)
+
+
+def dryrun_cli_check() -> None:
+    """Phase 24: the port's dry-run and report CLIs, each in a subprocess
+    from the checkout's ``src`` under ``-X importtime``: ``python -m
+    repro_torch.launch.dryrun --comm --fail-link 0:1 --out <tmp>`` and
+    ``python -m repro_torch.launch.report <tmp>`` exit 0, and import no
+    module of the reference package and no top-level package beyond the
+    standard library and what importing ``torch`` and ``repro_torch.comm``
+    imports."""
+    import tempfile
+
+    # -- 24. the dry-run and report CLIs --------------------------------------
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+    def run(*args):
+        """Run ``python -X importtime *args``; returns the process and the
+        top-level names of the modules it imported."""
+        proc = subprocess.run([sys.executable, "-X", "importtime", *args],
+                              capture_output=True, text=True, env=env,
+                              timeout=300)
+        check(proc.returncode == 0, f"{' '.join(args)}: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        names = {line.rsplit("|", 1)[1].strip().split(".")[0]
+                 for line in proc.stderr.splitlines()
+                 if line.startswith("import time:") and "|" in line}
+        return proc, names - {"imported package"}
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"),
+                                     prefix="dryrun-") as tmp:
+        rows = os.path.join(tmp, "rows.json")
+        dry, dry_names = run("-m", "repro_torch.launch.dryrun", "--comm",
+                             "--fail-link", "0:1", "--out", rows)
+        rep, rep_names = run("-m", "repro_torch.launch.report", rows)
+    _, base = run("-c", "import torch, repro_torch.comm")
+    loaded = dry_names | rep_names
+    extra = sorted(loaded - base - set(sys.stdlib_module_names))
+    check("repro" not in loaded and not extra and "repro_torch" in loaded,
+          f"the dry-run CLIs imported {extra} beyond the port's own imports "
+          f"(reference package imported: {'repro' in loaded})")
+    table_rows = sum(line.startswith("| ") for line in rep.stdout.splitlines())
+    print(f"dryrun CLI --comm --fail-link 0:1: exit 0, "
+          f"{dry.stdout.strip().splitlines()[-1]}; report CLI: exit 0, "
+          f"{table_rows} table lines; {len(loaded)} top-level packages "
+          f"imported, none beyond the port's own imports and the standard "
+          f"library ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4538,16 +5036,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     at_o = serving_head_dims_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_p = pipeline_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    compression_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    captured_dma_check(dev)
+    dryrun_cli_check()
     for row in kernels:
         if row["name"] == "flash_attention":
-            row["shapes"].update({"N": fwd_n, **at_o})
+            row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n}
-    print(f"main-path launches (paths A-O): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-Q): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 21. report --------------------------------------------------------
+    # -- 25. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -130,6 +130,21 @@ class _StepEntry:
     outputs: tuple
 
 
+def plan_signature(plan: TransferPlan) -> tuple:
+    """Human-readable per-path summary ((links, chunks, bytes), ...).
+
+    Informational/diagnostic — cache keys use the graph digest instead.
+    """
+    return tuple((p.route.directional_links(), p.num_chunks, p.nbytes)
+                 for p in plan.paths)
+
+
+def group_signature(group: TransferGroup) -> tuple:
+    """Per-plan (src, dst, nbytes, plan signature) for the whole group."""
+    return tuple((p.src, p.dst, p.nbytes, plan_signature(p))
+                 for p in group.plans)
+
+
 @lru_cache(maxsize=256)
 def _scheduled_graph(graph: TransferGraph, schedule: str,
                      topology: Topology,

@@ -311,21 +311,24 @@ class DmaProgram(GraphProgram):
 
     ``inputs()``/``outputs()`` are typed ``(window, num_devices, nelems)``
     views of the operand and output byte buffers, one per message. The
-    operand starts as zeros. :meth:`run` executes the table once: the
-    kernel on a CUDA device (state words zeroed on the same stream first),
-    the plain version on the CPU. :meth:`capture` records one run into a
-    CUDA graph; :meth:`replay` launches it.
+    operand starts as zeros; with ``operand=False`` the program holds
+    none, and every :meth:`run` is given the caller's. :meth:`run`
+    executes the table once: the kernel on a CUDA device (state words
+    zeroed on the same stream first), the plain version on the CPU.
+    :meth:`capture` records one run into a CUDA graph; :meth:`replay`
+    launches it.
     """
 
     def __init__(self, table: NodeTable, dtypes: Sequence[torch.dtype],
-                 device: torch.device | str):
+                 device: torch.device | str, *, operand: bool = True):
         self.table = table
         self.dtypes = tuple(dtypes)
         self.device = torch.device(device)
         dev = self.device
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {dev}")
-        self.x = torch.zeros(table.io_bytes, dtype=torch.uint8, device=dev)
+        self.x = torch.zeros(table.io_bytes, dtype=torch.uint8,
+                             device=dev) if operand else None
         self.y = torch.zeros(table.io_bytes, dtype=torch.uint8, device=dev)
         self.stage = torch.empty(max(table.stage_bytes, 16),
                                  dtype=torch.uint8, device=dev)
@@ -350,14 +353,16 @@ class DmaProgram(GraphProgram):
     def outputs(self) -> list[torch.Tensor]:
         return self._views(self.y)
 
-    def run(self) -> None:
-        """Execute the table once (no graph)."""
+    def run(self, x: torch.Tensor | None = None) -> None:
+        """Execute the table once (no graph) on the operand byte buffer
+        ``x``, the program's own by default."""
+        x = self.x if x is None else x
         if self.device.type == "cuda":
-            launch_table(self.items, self.x, self.y, self.stage, self.state,
+            launch_table(self.items, x, self.y, self.stage, self.state,
                          self._grid)
         else:
             self._completed = run_node_table_plain(
-                self.table.items, self.x, self.y, self.stage)
+                self.table.items, x, self.y, self.stage)
 
     def completed_nodes(self) -> int:
         """Copy nodes the last execution completed (synchronises)."""

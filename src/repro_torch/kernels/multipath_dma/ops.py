@@ -2,8 +2,10 @@
 
 ``multipath_dma_transfer`` is the kernel-backed counterpart of the
 reference package's ``kernels/multipath_dma/ops.multipath_dma_transfer``:
-same plans, same contract (``y[dst] = x[src]``, identity elsewhere). The
-engine (:mod:`repro_torch.comm.engine`) drives the same kernel through
+same plans, same contract (``y[dst] = x[src]``, identity elsewhere), and
+``captured_multipath_dma`` records that kernel as one compute node of a
+captured step. The engine (:mod:`repro_torch.comm.engine`) drives the
+same kernel through
 :class:`~repro_torch.kernels.multipath_dma.kernel.DmaProgram` with the
 zero-fill contract instead, inside a captured CUDA graph.
 """
@@ -54,3 +56,62 @@ def multipath_dma_transfer(x: torch.Tensor, plan: TransferPlan
     xin[0].copy_(x)
     prog.run()
     return prog.outputs()[0][0].clone()
+
+
+class PlanKernel:
+    """``plan`` on a stacked ``(num_devices, nelems)`` tensor, as the
+    kernel function of :func:`captured_multipath_dma`.
+
+    The work table is built once, here, with the identity contract
+    (``fill="copy"``). The first call on a device makes it resident there
+    as a :class:`DmaProgram` without an operand buffer of its own; that
+    call is a step program's warm-up, so recording the step's CUDA graph
+    captures launches only. A call runs the program once on the
+    operand's bytes (one kernel launch on a CUDA tensor, the plain
+    version on a CPU tensor) and returns the program's output, which the
+    next call overwrites.
+    """
+
+    def __init__(self, plan: TransferPlan, nelems: int, dtype: torch.dtype,
+                 num_devices: int):
+        check_plan(plan)
+        self.shape = (int(num_devices), int(nelems))
+        self.dtype = dtype
+        self.table = build_node_table(lower(plan), (nelems,),
+                                      (dtype.itemsize,), num_devices,
+                                      fill="copy")
+        self._programs: dict[torch.device, DmaProgram] = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.shape or x.dtype != self.dtype:
+            raise ValueError(f"expected {self.shape} {self.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        prog = self._programs.get(x.device)
+        if prog is None:
+            prog = self._programs[x.device] = DmaProgram(
+                self.table, (self.dtype,), x.device, operand=False)
+        prog.run(x.contiguous().reshape(-1).view(torch.uint8))
+        return prog.outputs()[0][0]
+
+
+def captured_multipath_dma(cap, x, plan: TransferPlan, num_devices: int, *,
+                           name: str = "multipath_dma", telemetry=None):
+    """Record the ``multipath_dma`` kernel on a ``session.capture`` step.
+
+    ``x`` is a capture ref with local shape ``(nelems,)``; returns the
+    same-shape ref with ``y[dst] = x[src]`` (identity elsewhere),
+    executing ``plan``'s copy schedule as one kernel launch inside the
+    captured program (:class:`PlanKernel`). One compute node with the
+    declared result spec and ``flops`` 0; ``cost_ns`` is stamped from
+    ``telemetry``'s recorded median for ``name`` when a recorder is
+    passed (0 without one), so the lane model prices the kernel's
+    measured duration.
+    """
+    from repro_torch.comm.capture import BufferSpec, as_dtype
+    spec = cap.buffers[cap._resolve(x)]
+    (nelems,) = spec.shape
+    fn = PlanKernel(plan, nelems, as_dtype(spec.dtype), num_devices)
+    cost = int(telemetry.kernel_cost_ns(name)) if telemetry is not None \
+        else 0
+    return cap.kernel(fn, x, name=name, out=BufferSpec((nelems,), spec.dtype),
+                      cost_ns=cost)

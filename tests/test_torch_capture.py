@@ -10,7 +10,16 @@ captured Jacobi step must be bit-equal to the reference captured step
 (the same adds in the same order) and to the port's eager ``jacobi_step``;
 copies move bits and are held equal. One call is one dispatch, repeats
 are fast-path hits, and two schedules never cross-serve.
+
+``captured_multipath_dma`` is recorded on both packages (its graph
+digests equal under every scheduler) and its captured step held bit for
+bit to the eager composition. The §2.2 overlap contract runs on a seeded
+sweep of the reference's mixed-graph generator: ``check_pass``, a
+lane-model makespan no worse than ``round_robin``'s, and digests equal to
+the reference's.
 """
+
+import random
 
 import jax.numpy as jnp
 import numpy as np
@@ -413,3 +422,226 @@ def test_node_table_runs_compose_to_the_whole_table(cut):
                for t in (first, second))
     assert done == graph.num_copy_nodes
     assert torch.equal(y, y_whole)
+
+
+# -- captured_multipath_dma ---------------------------------------------------
+
+def _dma_planners(threshold=64):
+    """Reference and port planners on the 4-GPU full mesh, and the
+    ``plan_group_fn`` of each (the reference test's)."""
+    from repro.comm import PathPlanner as JPathPlanner
+    from repro.comm import TransferRequest as JRequest
+    from repro.core import Topology as JTopology
+    from repro_torch.comm import PathPlanner, TransferRequest
+
+    out = []
+    for planner_cls, req_cls, topo in (
+            (JPathPlanner, JRequest, JTopology.full_mesh(4)),
+            (PathPlanner, TransferRequest, Topology.full_mesh(4))):
+        planner = planner_cls(topo, multipath_threshold=threshold)
+
+        def plan_group_fn(specs, *, max_paths=None, num_chunks=None,
+                          planner=planner, req_cls=req_cls):
+            reqs = [req_cls(s, d, ne * 4, granularity=4)
+                    for (s, d, ne, _) in specs]
+            return planner.plan_group(reqs, max_paths=max_paths,
+                                      include_host=False,
+                                      num_chunks=num_chunks)
+        out.append((topo, planner, plan_group_fn))
+    return out
+
+
+def test_captured_multipath_dma_lowers_into_mixed_graph():
+    """The reference's test on the port: the DMA adopter's compute node
+    coexists with ``cap.exchange`` copies in one lowered graph, the lane
+    model prices its recorded duration, ``overlap`` keeps the node
+    multiset; and the lowered and every scheduled digest equal the
+    reference's."""
+    from repro.comm.telemetry import TimelineRecorder as JRecorder
+    from repro.kernels.multipath_dma.ops import (
+        captured_multipath_dma as jcaptured_multipath_dma)
+    from repro_torch.comm.telemetry import TimelineRecorder
+    from repro_torch.core.pipelining import compute_time_s
+    from repro_torch.kernels.multipath_dma.ops import captured_multipath_dma
+
+    (jtopo, jplanner, jfn), (topo, planner, fn) = _dma_planners()
+    nelems = 256
+    graphs = []
+    for cap, rec, adopt, pl, dt, plan_fn, name in (
+            (JStepCapture(), JRecorder(enabled=True),
+             jcaptured_multipath_dma, jplanner, jnp.float32, jfn, jtopo.name),
+            (StepCapture(4), TimelineRecorder(enabled=True),
+             captured_multipath_dma, planner, torch.float32, fn, topo.name)):
+        rec.record_kernel("multipath_dma", 25_000.0)
+        plan = pl.plan(0, 2, nelems * 4, max_paths=2, num_chunks=2,
+                       granularity=4)
+        x = cap.input((nelems,), dt)
+        y = adopt(cap, x, plan, 4, telemetry=rec)
+        assert cap.buffers[y.buf_id].shape == (nelems,)
+        cap.exchange([(y, 0, 1)], num_chunks=2)
+        graphs.append((jlower_step if cap.__class__ is JStepCapture
+                       else lower_step)(cap, plan_fn, name)[0])
+    jgraph, graph = graphs
+    assert graph.num_compute_nodes == 1 and graph.num_copy_nodes > 0
+    (node,) = [nd for nd in graph.nodes if hasattr(nd, "kernel")]
+    assert node.kernel == "multipath_dma" and node.cost_ns == 25_000
+    assert node.flops == 0
+    assert compute_time_s(node, topo) == pytest.approx(25e-6)
+    scheduled, chosen = apply_schedule(graph, "overlap", topo)
+    assert chosen == "overlap"
+    assert scheduled.num_nodes == graph.num_nodes
+    assert sorted(map(repr, scheduled.nodes)) == \
+        sorted(map(repr, graph.nodes))
+    assert graph.digest() == jgraph.digest()
+    for sched in SCHEDULE_NAMES:
+        jsched, jchosen = japply_schedule(jgraph, sched, jtopo)
+        ours, chosen = apply_schedule(graph, sched, topo)
+        assert (ours.digest(), chosen) == (jsched.digest(), jchosen), sched
+
+
+def test_captured_multipath_dma_without_recorder_costs_zero():
+    from repro_torch.kernels.multipath_dma.ops import captured_multipath_dma
+
+    _, (_, planner, _) = _dma_planners()
+    cap = StepCapture(4)
+    plan = planner.plan(0, 3, 64 * 4, granularity=4)
+    y = captured_multipath_dma(cap, cap.input((64,), torch.float32), plan, 4)
+    (op,) = [o for o in cap.ops if o[0] == "kernel"]
+    assert op[1] == "multipath_dma" and op[4:] == (0, 0)
+    assert cap.buffers[y.buf_id].dtype == "float32"
+    from repro_torch.comm import PathPlanner
+    host = PathPlanner(Topology.full_mesh(4, with_host=True),
+                       multipath_threshold=64).plan(
+        0, 1, 1 << 22, include_host=True, max_paths=16, granularity=4)
+    with pytest.raises(ValueError, match="host-staged"):
+        captured_multipath_dma(cap, cap.input((1 << 20,), torch.float32),
+                               host, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paths,chunks", [(1, 1), (2, 2), (3, 4)])
+def test_captured_multipath_dma_step_equals_eager(paths, chunks, dtype):
+    """``captured_multipath_dma`` → ``cap.exchange`` → a compute node, one
+    dispatch a call, bit for bit as the eager composition: the plan's
+    ``multipath_dma_transfer``, then ``session.send``, then the
+    kernel."""
+    from repro_torch.kernels.multipath_dma.ops import (
+        PlanKernel, captured_multipath_dma, multipath_dma_transfer)
+
+    sess = CommSession(CommConfig(multipath_threshold=64), device="cpu")
+    n, nelems = sess.num_devices, 3000
+    plan = sess.plan(0, 2, nelems * dtype.itemsize, max_paths=paths,
+                     num_chunks=chunks, granularity=dtype.itemsize)
+
+    def build(cap):
+        x = cap.input((nelems,), dtype)
+        y = captured_multipath_dma(cap, x, plan, n)
+        (r,) = cap.exchange([(y, 2, 1)], num_chunks=2)
+        return cap.kernel(lambda v: v * 2.0, r, name="dbl")
+
+    step = sess.capture(build)
+    gen = torch.Generator().manual_seed(paths * 10 + chunks)
+    for _ in range(2):
+        xs = torch.randn(n, nelems, generator=gen).to(dtype)
+        before = sess.stats()["dispatches"]
+        (out,) = step(xs)
+        assert sess.stats()["dispatches"] == before + 1
+        moved = multipath_dma_transfer(xs, plan)
+        want = torch.zeros_like(xs)
+        want[1] = sess.send(moved[2], 2, 1)
+        assert torch.equal(out, want * 2.0)
+    walk = step.resolve().compiled.program.walk
+    kern = [w for w in walk if type(w).__name__ == "ComputeNode"
+            and w.kernel == "multipath_dma"]
+    assert len(kern) == 1
+    fn = step.resolve().compiled.program.kernels["multipath_dma"]
+    assert isinstance(fn, PlanKernel)
+    with pytest.raises(ValueError, match="expected"):
+        fn(torch.zeros(n, nelems + 1, dtype=dtype))
+
+
+# -- the §2.2 overlap contract on seeded mixed graphs ------------------------
+
+#: The reference's Hypothesis generator (``tests/test_passes.py``) drawn
+#: from ``random.Random(seed)``: 48 cases at its 2 MiB multipath threshold,
+#: 16 more at 4 KiB, where larger payloads stripe over several paths.
+OVERLAP_SEEDS = range(64)
+
+
+def _mixed_case(seed):
+    rnd = random.Random(seed)
+    depth = rnd.randint(0, 3)
+    nelems = rnd.randint(8, 1 << 14)
+    n_msgs = rnd.randint(1, 3)
+    chunks = rnd.randint(1, 3)
+    flops = rnd.randint(0, 10_000_000)
+    kflops = [rnd.randrange(0, 1_000_000) for _ in range(depth)]
+    pairs = []
+    while len(pairs) < n_msgs:
+        s, d = rnd.randrange(8), rnd.randrange(8)
+        if s != d:
+            pairs.append((s, d))
+    threshold = 2 * (1 << 20) if seed < 48 else 4096
+    return depth, nelems, chunks, flops, kflops, pairs, threshold
+
+
+def _lower_mixed(cap, dtype, planner_cls, req_cls, topo, lower_fn, case):
+    depth, nelems, chunks, flops, kflops, pairs, threshold = case
+    planner = planner_cls(topo, multipath_threshold=threshold)
+
+    def plan_group_fn(specs, *, max_paths=None, num_chunks=None):
+        reqs = [req_cls(s, d, ne * 4, granularity=4)
+                for (s, d, ne, _) in specs]
+        return planner.plan_group(reqs, max_paths=max_paths,
+                                  include_host=False, num_chunks=num_chunks)
+
+    x = cap.input((nelems,), dtype)
+    y = cap.kernel(lambda v: v + 1.0, x, name="k0", flops=flops)
+    for i in range(depth):
+        y = cap.kernel(lambda v: v * 2.0, y, name=f"k{i + 1}",
+                       flops=kflops[i])
+    recvs = cap.exchange([(y, s, d) for s, d in pairs], num_chunks=chunks)
+    cap.kernel(lambda *rs: sum(rs), *recvs, name="sink", flops=0)
+    graph, _ = lower_fn(cap, plan_group_fn, topo.name)
+    return graph
+
+
+@pytest.mark.parametrize("seed", OVERLAP_SEEDS)
+def test_overlap_contract_on_seeded_mixed_graphs(seed):
+    """``OverlapSchedule`` passes ``check_pass`` on the mixed graph, its
+    lane-model makespan is never worse than ``round_robin``'s, and the
+    lowered and scheduled digests equal the reference's."""
+    from repro.comm import PathPlanner as JPathPlanner
+    from repro.comm import TransferRequest as JRequest
+    from repro.comm.passes import OverlapSchedule as JOverlapSchedule
+    from repro.core import Topology as JTopology
+    from repro_torch.comm import PathPlanner, TransferRequest
+    from repro_torch.comm.passes import OverlapSchedule, check_pass
+    from repro_torch.core.pipelining import scheduled_time_s
+
+    case = _mixed_case(seed)
+    jtopo = JTopology.full_mesh(8, with_host=False, name="mesh8")
+    topo = Topology.full_mesh(8, with_host=False, name="mesh8")
+    jgraph = _lower_mixed(JStepCapture(), jnp.float32, JPathPlanner,
+                          JRequest, jtopo, jlower_step, case)
+    graph = _lower_mixed(StepCapture(), torch.float32, PathPlanner,
+                         TransferRequest, topo, lower_step, case)
+    assert graph.digest() == jgraph.digest()
+    out = OverlapSchedule(topo)(graph)
+    check_pass(graph, out)                              # §2.2 contract
+    rr, _ = apply_schedule(graph, "round_robin", topo)
+    assert (scheduled_time_s(out, topo, mode="lanes")
+            <= scheduled_time_s(rr, topo, mode="lanes"))
+    assert out.digest() == JOverlapSchedule(jtopo)(jgraph).digest()
+    jsched, jchosen = japply_schedule(jgraph, "overlap", jtopo)
+    ours, chosen = apply_schedule(graph, "overlap", topo)
+    assert (ours.digest(), chosen) == (jsched.digest(), jchosen)
+
+
+def test_overlap_sweep_covers_the_generator():
+    cases = [_mixed_case(s) for s in OVERLAP_SEEDS]
+    assert {c[0] for c in cases} == {0, 1, 2, 3}
+    assert {len(c[5]) for c in cases} == {1, 2, 3}
+    assert {c[2] for c in cases} == {1, 2, 3}
+    assert sum(c[6] == 2 * (1 << 20) for c in cases) >= 48
+    assert min(c[1] for c in cases) < 1024 < 8192 < max(c[1] for c in cases)

@@ -46,7 +46,12 @@ RWKV-6 scan's backward kernel against its plain version (float32 within
 within 1e-5) and through autograd,
 reduced RWKV-6, Hymba and Mixtral gradients against the CPU's, and the
 captured DP train step (dense and RWKV-6) against the eager steps at the
-reference's tolerances.
+reference's tolerances. The pipeline and compression slice (``-k
+"captured_multipath_dma or block_pipeline or compressed_psum"``): the
+captured ``multipath_dma`` step bit for bit, a 4-stage pipeline of
+reduced Llama-3 blocks through a CUDA session bit for bit as sequential
+``block_apply``, and ``compressed_psum`` on the card against the CPU
+within 1e-6.
 """
 
 import dataclasses
@@ -1178,3 +1183,95 @@ def test_captured_train_step_on_the_card_matches_dp(dev, arch):
         for x, y in zip(_tree_leaves(a["params"]),
                         _tree_leaves(b["params"])):
             assert torch.allclose(x, y, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_multipath_dma_bitwise_on_the_card(dev, dtype):
+    """``captured_multipath_dma`` → ``cap.exchange`` → a compute node,
+    replayed as one CUDA graph: bit for bit as the eager composition,
+    one dispatch a call, ``multipath_dma`` launched once for the DMA node
+    and once for each copy run."""
+    from repro_torch.kernels.multipath_dma.ops import (
+        captured_multipath_dma, multipath_dma_transfer)
+
+    sess = CommSession(CommConfig(multipath_threshold=64), device=dev)
+    n, nelems = sess.num_devices, 1 << 18
+    plan = sess.plan(0, 2, nelems * dtype.itemsize, max_paths=3,
+                     num_chunks=4, granularity=dtype.itemsize)
+
+    def build(cap):
+        y = captured_multipath_dma(cap, cap.input((nelems,), dtype), plan, n)
+        (r,) = cap.exchange([(y, 2, 1)], max_paths=2, num_chunks=2)
+        return cap.kernel(lambda v: v * 2.0, r, name="dbl")
+
+    step = sess.capture(build)
+    runs = len(step.resolve().compiled.program.copy_runs)
+    xs = torch.randn(n, nelems, device=dev).to(dtype)
+    before = dk.LAUNCHES
+    (out,) = step(xs)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES - before == 1 + runs
+    assert sess.stats()["dispatches"] == 1
+    moved = multipath_dma_transfer(xs, plan)
+    want = torch.zeros_like(xs)
+    want[1] = sess.send(moved[2], 2, 1)
+    assert torch.equal(out, want * 2.0)
+
+
+def test_block_pipeline_through_the_session_bitwise(dev):
+    """A 4-stage pipeline over 2 reduced Llama-3 blocks a stage, through a
+    CUDA session (one exchange a tick): bit for bit as sequential
+    ``block_apply``, with and without multipath."""
+    from repro_torch.training.pipeline import (block_stages,
+                                               make_block_stage_fn,
+                                               pipeline_apply)
+
+    cfg = dataclasses.replace(get_config("llama3_8b").reduced(),
+                              num_layers=8, dtype="bfloat16")
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    m, s = 3, 64
+    x = torch.randn(m, 1, s, cfg.d_model, device=dev).to(torch.bfloat16)
+    positions = torch.arange(s, device=dev)
+    with torch.no_grad():
+        seq = []
+        for mb in range(m):
+            h = x[mb]
+            for i in range(cfg.num_layers):
+                h, _ = tfm.block_apply(h, tfm.layer_params(params, i), cfg,
+                                       -1, positions)
+            seq.append(h)
+        seq = torch.stack(seq)
+        stage_fn = make_block_stage_fn(cfg, 4, positions)
+        for multipath in (False, True):
+            sess = CommSession(CommConfig(multipath_threshold=64),
+                               device=dev, topology=Topology.full_mesh(4))
+            before = fk.LAUNCHES
+            got = pipeline_apply(stage_fn, block_stages(params, 4), x,
+                                 microbatches=m, multipath=multipath,
+                                 session=sess)
+            assert torch.equal(got, seq)
+            assert sess.stats()["dispatches"] == m + 4 - 1
+            assert fk.LAUNCHES - before == (m + 4 - 1) * cfg.num_layers
+
+
+def test_compressed_psum_on_the_card_matches_cpu(dev):
+    """``compressed_psum`` on a CUDA session (the ring through the
+    ``ring_allgather`` kernel) against the plain CPU result within 1e-6,
+    and the int8 payloads equal."""
+    from repro_torch.optim import compression as comp
+
+    g = torch.randn(8, 37, 129, generator=torch.Generator().manual_seed(0))
+    cpu = comp.compressed_psum(g, CommSession(
+        device="cpu", topology=Topology.full_mesh(8)))
+    before = rk.LAUNCHES
+    got = comp.compressed_psum(g.to(dev), CommSession(
+        device=dev, topology=Topology.full_mesh(8)))
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES > before
+    assert torch.allclose(got.cpu(), cpu, rtol=0,
+                          atol=1e-6 * cpu.abs().max().item())
+    q, scale = comp._quantize(g.to(dev))
+    qc, sc = comp._quantize(g)
+    assert torch.equal(q.cpu(), qc) and torch.equal(scale.cpu(), sc)
