@@ -27,10 +27,10 @@ What it does, in order (any failed check exits nonzero):
    Gemma-style window of 64 at (1, 32, 16, 512, 128) and D = 128 with
    Hq/Hkv = 32/8; at the registered configs' head dims 80, 112 and 192
    (HuBERT-XLarge, Kimi K2, Nemotron-4) at (1, 4/2, 200, D) and (2, 8/8,
-   130, D), each mask, float32 and bfloat16 at the same tolerances, the
-   backward at 80 and 112 against its plain version (float32 within 1e-4,
-   bfloat16 within 2e-2 of the largest |want|), and at 192 the backward
-   raising; and ``rwkv6_scan`` against its plain version and the
+   130, D), each mask, float32 and bfloat16 at the same tolerances, and
+   the backward at 80, 112 and 192 against its plain version (float32
+   within 1e-4, bfloat16 within 2e-2 of the largest |want|); and
+   ``rwkv6_scan`` against its plain version and the
    literal per-step recurrence at the reference's sweep (``(BH, S, dk, dv,
    chunk)`` = (2, 128, 32, 32, 32), (1, 200, 64, 64, 64), (4, 64, 16, 32,
    16), (1, 96, 8, 8, 32), float32, max error relative to the largest
@@ -356,13 +356,38 @@ What it does, in order (any failed check exits nonzero):
 23. a captured step of ``captured_multipath_dma``, ``cap.exchange`` and a
     compute node: bitwise equal to the eager composition, one dispatch a
     call, ``multipath_dma`` launched once for the DMA node and once for
-    each copy run;
+    each copy run; ``multipath_send_local`` of the same plan, one launch,
+    its destination row bitwise as ``session.send``'s and zeros
+    elsewhere, eagerly and replayed from a CUDA graph that recorded it;
 24. ``python -m repro_torch.launch.dryrun --comm --fail-link 0:1`` and
     ``python -m repro_torch.launch.report`` in subprocesses under ``-X
     importtime``, both exit 0, importing nothing beyond the standard
     library and what importing ``torch`` and ``repro_torch.comm``
     imports;
-25. one JSON line ``{"kernels": [...]}``, then as the last line
+25. main path R, counters set to 0 before it and read after it (the
+    kernel checks first, not counted): training Nemotron-4 340B at full
+    width (d_model 18432, 96/8 heads of 192, squared-ReLU d_ff 73728,
+    bfloat16, bfloat16 moments, ``remat="full"``) over 1 of its 96 layers
+    with its vocabulary cut to 32,768 (both cuts forced: about 37 GB of
+    weights, gradients and moments), on 8 x 512 tokens. The attention
+    backward at head dim 192 against its plain version at (8, 96/8, 512,
+    192) and at one DP shard's batch of 2, float32 and bfloat16, and its
+    time beside its bound, the plain version and SDPA's backward; one
+    step keeping layer 0's real q/k/v/O/dO, the backward kernel's outputs
+    on them within 2e-2 of the plain backward's largest |want|, the
+    forward kernel launched twice a layer and the backward once; 1
+    warm-up + 3 timed steps and one under the profiler: step ms,
+    tokens/s, finite losses, peak GiB;
+26. main path S, counters set to 0 before it and read after it:
+    Mixtral-8x22B served expert-parallel, path L's config, weights and
+    requests, under ``make_host_mesh((1, 4))`` on
+    ``Topology.full_mesh(4)`` (2 experts a row, the rows' weights views
+    of the whole): ``generate`` twice, ``ring_allgather`` launched once a
+    MoE layer a forward (every combine one session psum), the token and
+    captured-decode checks of path E under the mesh, layer 0's MoE
+    output within 2e-2 of ``moe_apply``'s largest |want|, the combine's
+    ms a layer, path E's times and the peak beside path L's;
+27. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -1245,7 +1270,7 @@ def program_checks(cfg, engine, toks, outs, path: str) -> None:
 
 def serving_times(cfg, engine, sess, toks, logits, cache, new,
                   gen_s: tuple[float, float], path: str,
-                  dst: int = 1) -> None:
+                  dst: int = 1) -> dict:
     """Print a served model's times, in one call: the prefill program's
     replay against the eager ``prefill_forward``; the decode step (``new -
     1`` greedy steps from the end of ``toks``, the argmax included) as the
@@ -1254,7 +1279,9 @@ def serving_times(cfg, engine, sess, toks, logits, cache, new,
     share under the profiler; tokens/s of the second ``generate`` (host
     clock, ``gen_s`` = first and second call); the device memory that the
     engine's graphs hold; and, with a session ``sess``, the migration of
-    ``cache`` (graph replay, whole ``migrate_kv``) to device ``dst``."""
+    ``cache`` (graph replay, whole ``migrate_kv``) to device ``dst``.
+    Returns the prefill replay's, the captured and the eager decode
+    step's ms and the peak GiB."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import make_serve_step
 
@@ -1351,8 +1378,10 @@ def serving_times(cfg, engine, sess, toks, logits, cache, new,
           f"engine's graphs hold {engine.graph_bytes() / 2**20:.1f} MiB ("
           f"{', '.join(f'{k} {v / 2**20:.1f}' for k, v in held.items())}); "
           f"{migration}", flush=True)
-    print(f"peak device memory, path {path}: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory, path {path}: {peak:.2f} GiB", flush=True)
+    return {"prefill_ms": replay_ms, "decode_ms": cap_ms,
+            "eager_decode_ms": eager_ms, "peak_gib": peak}
 
 
 def serving_paths(dev, errs, per_path, read_path) -> None:
@@ -3182,14 +3211,15 @@ def hymba_path(dev, errs, per_path, read_path) -> None:
                   "K", dst=2)
 
 
-def mixtral_path(dev, errs, per_path, read_path) -> None:
+def mixtral_path(dev, errs, per_path, read_path) -> dict:
     """Main path L (phase 17): serving Mixtral-8x22B at full width over 8
     of its 56 layers (MoE, 8 experts top-2, dropless in prefill and
     decode), read with the counters set to 0 just before it; then the
     kernel at layer 0's real prefill, each expert's token count and the
     dropped pairs in one eager prefill and 8 decode steps, the expert
     products' share of the prefill, prefill-then-decode against the full
-    prefill, and the times."""
+    prefill, and the times (returned, :func:`serving_times`'s, for path
+    S)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3299,7 +3329,8 @@ def mixtral_path(dev, errs, per_path, read_path) -> None:
 
     tail_checks(cfg, engine, toks, logits, MIXTRAL_DECODE_ATOL, {
         "zeroed keys and values": zero_positions}, "L")
-    serving_times(cfg, engine, None, toks, logits, cache, new, gen_s, "L")
+    return serving_times(cfg, engine, None, toks, logits, cache, new, gen_s,
+                         "L")
 
 
 #: Path M's shape of the RWKV-6 scan's backward kernel: one step of
@@ -4270,9 +4301,8 @@ def wide_head_dim_checks(randn, errs, flash_case) -> None:
     """Phase 3 at the configs' head dims: the forward at ``WIDE_DIMS`` x
     ``WIDE_SHAPES`` under each mask (causal, causal with a window of 64,
     full), float32 at atol 3e-5 / rtol 1e-4 and bfloat16 at max abs 2e-2;
-    the backward at 80 and 112 against its plain version, float32 within
-    1e-4 and bfloat16 within 2e-2 of the largest |want|; at 192 the
-    backward raises on a CUDA tensor."""
+    the backward at 80, 112 and 192 against its plain version, float32
+    within 1e-4 and bfloat16 within 2e-2 of the largest |want|."""
     from repro_torch.kernels.flash_attention import kernel as fk
 
     t0 = time.perf_counter()
@@ -4289,7 +4319,7 @@ def wide_head_dim_checks(randn, errs, flash_case) -> None:
                                                        torch.bfloat16, causal,
                                                        window, 2e-2, 0.0))
     rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for d in (80, 112):
+    for d in WIDE_DIMS:
         for b, hq, hkv, s in WIDE_SHAPES:
             for causal, window in masks:
                 for dt in (torch.float32, torch.bfloat16):
@@ -4307,23 +4337,13 @@ def wide_head_dim_checks(randn, errs, flash_case) -> None:
                               f"{hq}/{hkv}, {s}, {d}) {dt} causal={causal} "
                               f"window={window}: max abs err {err} > "
                               f"{BWD_REL[dt]} * {top}")
-    q = randn(1, 2, 64, 192, dtype=torch.bfloat16)
-    o, lse = fk.flash_attention_cuda(q, q, q, return_lse=True)
-    before = fk.LAUNCHES_BWD
-    try:
-        fk.flash_attention_bwd_cuda(q, q, q, o, lse, q)
-        raised = False
-    except ValueError:
-        raised = True
-    check(raised and fk.LAUNCHES_BWD == before,
-          "flash_attention_bwd at head dim 192 did not raise")
     print(f"flash_attention vs plain at head dims {WIDE_DIMS}, shapes "
           f"{WIDE_SHAPES}, (causal, window) in {masks}: float32 max abs err "
           f"{worst[torch.float32]} (atol 3e-5, rtol 1e-4), bfloat16 "
           f"{worst[torch.bfloat16]} (max abs 2e-2); flash_attention_bwd "
-          f"at 80 and 112: largest max abs err / max |want| float32 "
+          f"at {WIDE_DIMS}: largest max abs err / max |want| float32 "
           f"{rel[torch.float32]:.3g} (1e-4), bfloat16 "
-          f"{rel[torch.bfloat16]:.3g} (2e-2); at 192 it raises "
+          f"{rel[torch.bfloat16]:.3g} (2e-2) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -4693,8 +4713,11 @@ def captured_dma_check(dev) -> None:
     call one dispatch, ``multipath_dma`` launched once for the DMA node
     and once for each copy run, the result bit for bit as the eager
     composition (``multipath_dma_transfer``, ``session.send``, the
-    kernel)."""
-    from repro_torch.comm import CommSession
+    kernel). Then ``multipath_send_local`` of the same plan on the stacked
+    operand: one ``multipath_dma`` launch, the message bit for bit as
+    ``session.send``'s on row 2 and zeros elsewhere, eagerly and replayed
+    from a CUDA graph that recorded it."""
+    from repro_torch.comm import CommSession, multipath_send_local
     from repro_torch.kernels.multipath_dma import kernel as dk
     from repro_torch.kernels.multipath_dma.ops import (
         captured_multipath_dma, multipath_dma_transfer)
@@ -4733,6 +4756,27 @@ def captured_dma_check(dev) -> None:
           f"compute node: bitwise equal to the eager composition, one "
           f"dispatch a call, multipath_dma 1 + {runs} copy run(s) a call",
           flush=True)
+
+    sent = sess.send(xs[0], 0, 2, max_paths=3, num_chunks=4)
+    l0 = dk.LAUNCHES
+    local = multipath_send_local(xs, plan, topology=sess.topology)
+    launched = dk.LAUNCHES - l0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        recorded = multipath_send_local(xs, plan, topology=sess.topology)
+    graph.replay()
+    torch.cuda.synchronize()
+    others = [0, 1, 3]
+    check(launched == 1 and torch.equal(local[2], sent)
+          and not local[others].any() and torch.equal(recorded, local),
+          f"multipath_send_local: {launched} launches, row 2 bitwise "
+          f"{torch.equal(local[2], sent)}, other rows zero "
+          f"{not local[others].any()}, replay bitwise "
+          f"{torch.equal(recorded, local)}")
+    print(f"multipath_send_local of the same plan on the stacked ({n}, "
+          f"{nelems}) operand: one multipath_dma launch, row 2 bitwise as "
+          f"session.send's, zeros elsewhere; recorded in a CUDA graph and "
+          f"replayed: bitwise the same", flush=True)
 
 
 def dryrun_cli_check() -> None:
@@ -4781,6 +4825,281 @@ def dryrun_cli_check() -> None:
           f"{table_rows} table lines; {len(loaded)} top-level packages "
           f"imported, none beyond the port's own imports and the standard "
           f"library ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+#: Path R: Nemotron-4 340B trained at full width over 1 of its 96 layers,
+#: its vocabulary cut to 32,768. Reckoned at 8 B a parameter (bfloat16
+#: weights, gradients and two bfloat16 moments): a layer is 3.454 B
+#: parameters, 27.6 GB; the untied embedding and head at the full 256,000
+#: would be 9.44 B parameters, 75.5 GB, and do not fit beside it; at
+#: 32,768 they are 1.21 B, 9.7 GB.
+NEMOTRON_TRAIN_LAYERS, NEMOTRON_TRAIN_VOCAB = 1, 32768
+#: Path R's attention shape: (batch, q heads, kv heads, sequence, head dim).
+NEMOTRON_ATTN = (8, 96, 8, 512, 192)
+
+
+def nemotron_training_path(dev, errs, per_path, read_path, smi) -> dict:
+    """Main path R (phase 25): training Nemotron-4 340B at full width
+    (d_model 18432, 96/8 heads of 192, squared-ReLU d_ff 73728, bfloat16,
+    bfloat16 moments as the config says, ``remat="full"``) over
+    ``NEMOTRON_TRAIN_LAYERS`` layer, its vocabulary cut to
+    ``NEMOTRON_TRAIN_VOCAB``, on batches of 8 x 512 tokens.
+
+    (a), not counted: the attention backward kernel at head dim 192 at
+    the training shape (``NEMOTRON_ATTN``, causal) and at one DP shard's,
+    float32 and bfloat16, against its plain version, then its time beside
+    its bound, the plain version and SDPA's backward. Then, with every
+    launch counter set to 0 just before and read just after: one step of
+    ``make_train_step`` whose attention backward's inputs (layer 0's real
+    q, k, v, O and dO) are kept, its kernels' outputs held to the plain
+    backward on them within 2e-2 of the largest |want|, the forward
+    kernel launched twice a layer (remat) and the backward once; then 1
+    warm-up + 3 timed steps and one under the profiler. Returns the
+    backward's times at the attention shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+
+    dev_gen = torch.Generator(device=dev).manual_seed(41)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    # -- 25. main path R: training Nemotron-4 340B ---------------------------
+    t_path = time.perf_counter()
+    full = get_config("nemotron_4_340b")
+    check((full.family, full.num_layers, full.d_model, full.num_heads,
+           full.num_kv_heads, full.head_dim_, full.d_ff, full.mlp,
+           full.vocab_size, full.dtype, full.remat, full.optimizer_dtype)
+          == ("dense", 96, 18432, 96, 8, 192, 73728, "relu2", 256000,
+              "bfloat16", "full", "bfloat16"),
+          f"nemotron_4_340b is not the full config: {full}")
+    cfg = dataclasses.replace(full, num_layers=NEMOTRON_TRAIN_LAYERS,
+                              vocab_size=NEMOTRON_TRAIN_VOCAB)
+    layer_p = sum(t.numel() for t in _leaves(param_shapes(cfg)["layers"]))
+    vocab_p = 2 * cfg.d_model * cfg.vocab_size
+    print(f"path R: {cfg.name} at full width over {cfg.num_layers} of "
+          f"{full.num_layers} layers, vocabulary {cfg.vocab_size} of "
+          f"{full.vocab_size}: reckoned at 8 B a parameter (bf16 weights, "
+          f"grads, two bf16 moments): a layer {layer_p / 1e9:.3f} B "
+          f"parameters, {8 * layer_p / 1e9:.1f} GB; embedding and head "
+          f"{vocab_p / 1e9:.3f} B, {8 * vocab_p / 1e9:.1f} GB (at the full "
+          f"vocabulary {2 * cfg.d_model * full.vocab_size / 1e9:.2f} B, "
+          f"{16 * cfg.d_model * full.vocab_size / 1e9:.1f} GB)", flush=True)
+    b, hq, hkv, s, d = NEMOTRON_ATTN
+    check((hq, hkv, d) == (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+          and (b, s) == (TRAIN_BATCH, TRAIN_SEQ),
+          f"path R's attention shape {NEMOTRON_ATTN} is not the model's")
+    train_bwd_checks(randn, errs, "R", b, hq, hkv, s, d, True)
+    times = bwd_case_times(randn, b, hq, hkv, s, d, True, torch.bfloat16,
+                           smi, "R")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                      moment_dtype=cfg.optimizer_dtype)
+    ts = TrainStepConfig()
+    total, held = update_bytes(cfg, opt)
+    print(f"path R: the step holds {held / 1e9:.1f} GB of weights, grads "
+          f"and moments, {total / 1e9:.1f} GB at the update (new weights "
+          f"and moments beside the old, AdamW's slice temporaries)",
+          flush=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(42), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(state)) / 1e9
+    print(f"path R: {n_params} parameters drawn, {state_gb:.2f} GB of "
+          f"weights and moments in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    bt = family_batches(cfg, dev, TRAIN_BATCH, TRAIN_SEQ, 4)
+    step = make_train_step(cfg, ts, opt, device=dev)
+
+    # one step, keeping layer 0's attention backward's real inputs
+    kept = {}
+    real_bwd = fops.flash_attention_bwd_cuda
+
+    def keeping(q, k, v, o, lse, do, **kw):
+        out = real_bwd(q, k, v, o, lse, do, **kw)
+        if not kept:
+            kept.update(args=(q, k, v, o, lse, do), kw=kw, out=out)
+        return out
+
+    fops.flash_attention_bwd_cuda = keeping
+    try:
+        c0 = launch_counts()
+        state, m = step(state, bt[0])
+        torch.cuda.synchronize()
+    finally:
+        fops.flash_attention_bwd_cuda = real_bwd
+    one = {k: v - c0[k] for k, v in launch_counts().items() if v != c0[k]}
+    nl = cfg.num_layers
+    check(one.get("flash_attention") == 2 * nl
+          and one.get("flash_attention_bwd") == nl,
+          f"path R: a step launched {one}, not flash_attention twice a "
+          f"layer (remat) and flash_attention_bwd once ({2 * nl}, {nl})")
+    want = fk.flash_attention_bwd_plain(*kept["args"], **kept["kw"])
+    rel = {}
+    for name, g, w in zip(("dq", "dk", "dv"), kept["out"], want):
+        err = (g.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        rel[name] = err / top
+        check(err <= BWD_REL[torch.bfloat16] * top,
+              f"path R: layer 0's attention backward {name}: max abs err "
+              f"{err} > 2e-2 * {top}")
+    shape = tuple(kept["args"][0].shape)
+    del kept, want
+    print(f"path R: one make_train_step step launched {one}: "
+          f"flash_attention twice a layer (forward and remat), "
+          f"flash_attention_bwd once; loss {float(m['loss'])!r}; layer 0's "
+          f"real q/k/v/O/dO {shape} through the backward kernel vs its "
+          f"plain version, max abs err / max |want|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + " (bound 2e-2)", flush=True)
+    # the state goes in through a box: a name of this frame holding the
+    # old state would keep 28 GB alive beside the next step's two
+    box = [state]
+    del state
+    state, step_ms = train_timed(
+        "R", f"make_train_step, full width, {nl} layer ({n_params} "
+        f"parameters), vocabulary {cfg.vocab_size}, bfloat16, bf16 moments",
+        step, box.pop(), bt, profile=True)
+    del state, step, bt
+    read_path("R")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(per_path["R"].get(name, 0) > 0, f"path R did not launch "
+              f"{name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path R: {time.perf_counter() - t_path:.1f} s", flush=True)
+    return times
+
+
+def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
+                      at_l: dict) -> None:
+    """Main path S (phase 26): Mixtral-8x22B served expert-parallel, path
+    L's config and requests (full width, ``MIXTRAL_LAYERS`` layers, the
+    same seeded weights; 4 requests of 512/384/256/128 tokens, 32 new)
+    under ``make_host_mesh((1, 4))`` on ``Topology.full_mesh(4)``: each
+    of the 4 model rows runs its 2 experts on views of the weights, and
+    each MoE layer's combine is one psum through the mesh's session
+    (``ring_allgather`` once a layer a prefill and a decode step). The
+    counted run of :func:`serve_requests` (every counter set to 0 just
+    before), the token and captured-decode checks of
+    :func:`program_checks` under the mesh, layer 0's expert-parallel MoE
+    output against ``moe_apply``'s within 2e-2 of the largest |want|, the
+    combine's ms a layer, and :func:`serving_times` beside path L's
+    ``at_l``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import moe_dist
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+
+    # -- 26. main path S: Mixtral-8x22B served expert-parallel ---------------
+    t_path = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"),
+                              num_layers=MIXTRAL_LAYERS)
+    params = init_model(cfg, dev, "S")
+    mesh = make_host_mesh((1, 4), device=dev)
+    topo = mesh.session.topology
+    model = mesh.shape["model"]
+    check(topo.num_devices == 4 and len(topo.links) == len(
+        type(topo).full_mesh(4).links) and cfg.num_experts % model == 0,
+          f"path S: {mesh} is not expert parallel on full_mesh(4)")
+    views, shared = 0, True
+    for i in range(cfg.num_layers):
+        mp = tfm.layer_params(params, i)["moe"]
+        for r in range(model):
+            for name, w in moe_dist._row_weights(mp, r, ep=True,
+                                                 model=model).items():
+                views += w.numel() * w.element_size()
+                shared &= (w.untyped_storage().data_ptr()
+                           == mp[name].untyped_storage().data_ptr())
+    check(shared, "path S: a row's expert weights are not views")
+    tok_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=tok_gen).tolist()
+               for n in (512, 384, 256, 128)]
+    new = 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with set_mesh(mesh):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        toks, outs, logits, cache, gen_s = serve_requests(
+            cfg, engine, prompts, new, "S", per_path, read_path)
+        nl = cfg.num_layers
+        rings = per_path["S"].get("ring_allgather", 0)
+        check(rings == nl * (2 * new + 1), f"path S launched "
+              f"ring_allgather {rings} times, not once a MoE layer a "
+              f"forward ({nl} x {2 * new + 1})")
+        program_checks(cfg, engine, toks, outs, "S")
+        b, plen = toks.shape
+        lp = tfm.layer_params(params, 0)
+        x = layers.rms_norm(params["embed"][toks], lp["ln2"]).reshape(
+            b * plen, cfg.d_model)
+        kw = dict(top_k=cfg.top_k, kind=cfg.mlp, dropless=True)
+        got, _ = moe_dist.moe_apply_dist(x, lp["moe"], **kw)
+        want, _ = moe_lib.moe_apply(x, lp["moe"], **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        check(err <= 2e-2 * top, f"path S: layer 0's expert-parallel MoE "
+              f"output: max abs err {err} > 2e-2 * {top}")
+        dist_ms = cuda_time_ms(lambda: moe_dist.moe_apply_dist(
+            x, lp["moe"], **kw), 3, warmup=1)
+        one_ms = cuda_time_ms(lambda: moe_lib.moe_apply(
+            x, lp["moe"], **kw), 3, warmup=1)
+        coll = mesh.session.collectives
+        rows_p = torch.randn(model, b * plen, cfg.d_model, device=dev).to(
+            x.dtype)
+        rows_d = torch.randn(model, b, cfg.d_model, device=dev).to(x.dtype)
+        comb_p = cuda_time_ms(lambda: coll.psum(rows_p), 10)
+        comb_d = cuda_time_ms(lambda: coll.psum(rows_d), 10)
+        dt = str(x.dtype)[6:]
+        del x, got, want, rows_p, rows_d
+        print(f"path S: under {mesh} (session on {topo.name}), expert "
+              f"parallel, {cfg.num_experts // model} experts a row: layer "
+              f"0's MoE on its prefill's normed embeddings "
+              f"({b * plen} tokens) vs moe_apply: max abs err {err} (max "
+              f"|want| {top}, bound 2e-2 of it); the layer {dist_ms:.2f} ms "
+              f"against moe_apply's {one_ms:.2f} ms; the combine (one "
+              f"session psum of ({model}, {b * plen}, {cfg.d_model}) "
+              f"{dt}) {comb_p:.4f} ms "
+              f"a layer in prefill, of ({model}, {b}, {cfg.d_model}) "
+              f"{comb_d:.4f} ms a layer a decode step; ring_allgather "
+              f"launched {rings} times in the counted run; the rows' "
+              f"expert weights are views: 0 B copied (copies would take "
+              f"{views / 1e9:.2f} GB)", flush=True)
+        at_s = serving_times(cfg, engine, None, toks, logits, cache, new,
+                             gen_s, "S")
+    del engine, params, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path S vs path L (no mesh), Mixtral-8x22B over {nl} layers: "
+          f"prefill replay {at_s['prefill_ms']:.2f} ms vs "
+          f"{at_l['prefill_ms']:.2f}; captured decode step "
+          f"{at_s['decode_ms']:.2f} ms vs {at_l['decode_ms']:.2f} (eager "
+          f"{at_s['eager_decode_ms']:.2f} vs "
+          f"{at_l['eager_decode_ms']:.2f}); peak {at_s['peak_gib']:.2f} GiB "
+          f"vs {at_l['peak_gib']:.2f} ({time.perf_counter() - t_path:.1f} "
+          f"s)", flush=True)
 
 
 def main() -> int:
@@ -5022,7 +5341,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    mixtral_path(dev, errs, per_path, read_path)
+    at_l = mixtral_path(dev, errs, per_path, read_path)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5048,16 +5367,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     captured_dma_check(dev)
     dryrun_cli_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_r = nemotron_training_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_mesh_path(dev, errs, per_path, read_path, smi, at_l)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
-            row["shapes"] = {"N": bwd_n}
-    print(f"main-path launches (paths A-Q): {main_launches}", flush=True)
+            row["shapes"] = {"N": bwd_n, "R": bwd_r}
+    print(f"main-path launches (paths A-S): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 25. report --------------------------------------------------------
+    # -- 27. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

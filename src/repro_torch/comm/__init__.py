@@ -49,6 +49,7 @@ from repro_torch.comm.health import (  # noqa: F401
     LADDER, CommFaultError, FaultEvent, FaultInjector, HealthMonitor,
     HealthStats, LinkFaultError)
 from repro_torch.comm.engine import (  # noqa: F401
-    GroupKey, MultiPathTransfer, group_signature, plan_signature)
+    GroupKey, MultiPathTransfer, group_signature, multipath_send_local,
+    plan_signature)
 from repro_torch.comm.session import (  # noqa: F401
     BoundCollectives, CollectiveKey, CommSession)

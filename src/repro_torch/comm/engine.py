@@ -51,6 +51,11 @@ surviving links, then the single best path, each a new captured graph,
 and last a relay through pinned host memory. The healthy path pays the
 few boolean reads of :meth:`MultiPathTransfer._hazard`.
 
+:func:`multipath_send_local` runs one plan's scheduled graph on a
+stacked operand outside the engine: one ``multipath_dma`` launch, no
+fast-path entry and no graph of its own, so a caller's capture records
+it (the reference runs it inside its own ``shard_map`` program).
+
 On the CPU the same entries run the kernels' plain versions eagerly.
 """
 
@@ -82,7 +87,9 @@ from repro_torch.comm.telemetry import (DispatchSample, StageTimings,
 from repro_torch.core.pipelining import validate_plan
 from repro_torch.core.topology import HOST, Topology
 from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
-                                                      build_node_table)
+                                                      build_node_table,
+                                                      launch_table,
+                                                      run_node_table_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +185,51 @@ def _check_executable(plan: TransferPlan) -> None:
                 raise ValueError(
                     "host-staged path is not executable on the device "
                     "(DESIGN.md §2); plan with include_host=False")
+
+
+#: Work tables of :func:`multipath_send_local` made resident, keyed on
+#: (scheduled graph digest, row length, dtype, device count, device): the
+#: upload of a table cannot be recorded into a caller's CUDA graph, so it
+#: happens at the first call (a capture's warm-up) and never again.
+_LOCAL_PROGRAMS: dict[tuple, DmaProgram] = {}
+
+
+def multipath_send_local(x: torch.Tensor, plan: TransferPlan, *,
+                         schedule: str | GraphPass = "round_robin",
+                         topology: Topology | None = None) -> torch.Tensor:
+    """Execute ``plan`` on the stacked operand ``x: (num_devices,
+    nelems)``, its ``src`` row holding the message (the other rows are
+    not read). Returns a new ``(num_devices, nelems)`` tensor holding the
+    message on the ``dst`` row and zeros elsewhere.
+
+    The plan is lowered, put through the ``schedule`` pass (§2.2; pass
+    ``topology`` beside a model-weighted scheduler) and run as ONE
+    ``multipath_dma`` launch of its work table, the plain version on a
+    CPU tensor. Nothing goes through the engine's caches and no CUDA
+    graph is made, so a caller's capture records the launch; the table
+    is made resident once per (graph, shape, dtype, device)."""
+    _check_executable(plan)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (num_devices, nelems), got "
+                         f"{tuple(x.shape)}")
+    ndev, nelems = x.shape
+    graph, _ = apply_schedule(lower(plan), schedule, topology)
+    key = (graph.digest(), nelems, x.dtype, ndev, x.device)
+    prog = _LOCAL_PROGRAMS.get(key)
+    if prog is None:
+        table = build_node_table(graph, (nelems,), (x.element_size(),),
+                                 ndev, fill="zero")
+        prog = _LOCAL_PROGRAMS[key] = DmaProgram(table, (x.dtype,),
+                                                 x.device, operand=False)
+    y = torch.empty_like(prog.y)
+    operand = x.contiguous().reshape(-1).view(torch.uint8)
+    if x.device.type == "cuda":
+        launch_table(prog.items, operand, y, prog.stage, prog.state,
+                     prog._grid)
+    else:
+        run_node_table_plain(prog.table.items, operand, y, prog.stage)
+    (out,) = prog._views(y)
+    return out[0]
 
 
 class MultiPathTransfer:

@@ -680,11 +680,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
          hq, hq / hkv, seq, window, scale, causal, 0, (float*)lse, d};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return f32_head_dims<true>(d, [&](auto dp) {
+    return f32_head_dims(d, [&](auto dp) {
       return launch_f32<decltype(dp)::value>(a, batch, s);
     });
   if (dtype == 1)
-    return head_dims<true>(d, [&](auto dp, auto ks) {
+    return head_dims(d, [&](auto dp, auto ks) {
       return launch_bf16<decltype(dp)::value, decltype(ks)::value>(
           a, batch, hkv, s);
     });
@@ -698,7 +698,7 @@ int flash_attention_tile_products(const void* q, const void* k,
                                   const void* v, const void* p, void* s_out,
                                   void* o_out, int64_t d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return head_dims<true>(d, [&](auto dp, auto ks) {
+  return head_dims(d, [&](auto dp, auto ks) {
     return launch_tile_products<decltype(dp)::value, decltype(ks)::value>(
         q, k, v, p, s_out, o_out, d, s);
   });

@@ -79,6 +79,14 @@
 //   product group before the next (the elementwise step between them does
 //   not overlap its own products), and at DP = 128 the dK and dV
 //   accumulators take 128 of a thread's registers.
+// * Head dim 192 (Nemotron-4 340B): one warpgroup's two m64n192 float32
+//   accumulators would take 192 registers a thread before S^T and dP^T,
+//   so `dkdv_split_kernel` runs two warpgroups a block: warpgroup 0 holds
+//   dV (S^T, P, dV += P^T dO) and warpgroup 1 dK (S^T, dP^T, dS, dK +=
+//   dS^T Q). Both compute S^T: 5 products a tile pair where one warpgroup
+//   does 4. They share the tiles and the ring, six 64 x 192 bf16 tiles,
+//   148,480 bytes with the alignment pad: one block an SM. The dQ kernel
+//   keeps one warpgroup and one m64n192 accumulator.
 //
 // float32: `dkdv_kernel` and `dq_kernel`, on the CUDA cores (the
 // reference's float32 tolerance rules out TF32). Each product is a 64 x 64
@@ -86,16 +94,18 @@
 // 4 rows x D / 16 columns of each accumulator), operands staged in shared
 // memory as float32, transposed to [d][row] with rows padded to 68 floats
 // so that a thread reads four rows with one 16-byte load. Built at D = 16,
-// 32, 64, 80, 112 and 128 (`f32_head_dims`), a head dim between two of
-// them staged with zero columns up to the next; the shared memory (122 KB
-// at 80, 157 KB at 112) is set per instantiation.
+// 32, 64, 80, 112, 128 and 192 (`f32_head_dims`), a head dim between two
+// of them staged with zero columns up to the next; the shared memory (122
+// KB at 80, 157 KB at 112) is set per instantiation. At 192 the four
+// staged tiles take 209 KB, so P and dS share one [query][LD] buffer in
+// turn (dV's sum, then dK's), 226,816 bytes in all.
 //
 // Inputs: q (B, Hq, S, D), k and v (B, Hkv, S, D), dO (B, Hq, S, D), each
 // with element strides over batch, head and position and a contiguous head
 // dim (bf16: 16-byte aligned bases and strides, which TMA needs; the
 // wrapper checks); O a contiguous (B, Hq, S, D); lse a contiguous float32
 // (B, Hq, S). Float32 or bfloat16, all of one type; head dims a multiple
-// of 8 up to 128 (192 is the forward's only). Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in
+// of 8 up to 128, or 192. Outputs: contiguous dQ (B, Hq, S, D), dK and dV (B, Hkv, S, D) in
 // the input type, each written once (no atomics), and the float32
 // workspace D (B, Hq, S).
 
@@ -251,9 +261,33 @@ __device__ __forceinline__ void stage_queries(const Args& a, int64_t b,
   }
 }
 
+// [query][LD] buffers for P and dS: two, or at D = 192 (where two would
+// pass the 227 KB a block may take) one, which holds P then dS.
+template <int D>
+constexpr int PBUFS = D > 128 ? 1 : 2;
+
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * (size_t)D * LD + 2 * (size_t)BQ * LD + 2 * BQ);
+  return sizeof(float) *
+         (4 * (size_t)D * LD + PBUFS<D> * (size_t)BQ * LD + 2 * BQ);
+}
+
+// acc[i][j] += sum over the tile's 64 queries of at[query][4 rg + i] *
+// bt[cg + 16 j][query]: dV += P^T dO or dK += dS^T Q.
+template <int DPT>
+__device__ __forceinline__ void accumulate_keys(const float* at,
+                                                const float* bt, int rg,
+                                                int cg, float acc[4][DPT]) {
+  for (int qr = 0; qr < BQ; ++qr) {
+    const float4 x = reinterpret_cast<const float4*>(at + qr * LD)[rg];
+    const float xa[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const float y = bt[(cg + 16 * j) * LD + qr];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(xa[i], y, acc[i][j]);
+    }
+  }
 }
 
 // 2. dK and dV of one 64-key tile of kv head (b, hk).
@@ -266,8 +300,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
   float* qt = vt + D * LD;      // [D][LD]
   float* dot = qt + D * LD;     // [D][LD]
   float* ps = dot + D * LD;     // [query][LD]: P
-  float* dss = ps + BQ * LD;    // [query][LD]: dS
-  float* lse_s = dss + BQ * LD;
+  float* dss = ps + (PBUFS<D> - 1) * BQ * LD;  // [query][LD]: dS
+  float* lse_s = ps + PBUFS<D> * BQ * LD;
   float* del_s = lse_s + BQ;
 
   const int t = threadIdx.x;
@@ -308,6 +342,22 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
       float p[4][4], ds[4][4];
       probs_and_dscores<D>(a, qt, kt, dot, vt, lse_s, del_s, q0, k0, rg, cg,
                            p, ds);
+      if constexpr (PBUFS<D> == 1) {  // P, then dS, in the one buffer
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          reinterpret_cast<float4*>(ps + (4 * rg + i) * LD)[cg] =
+              make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
+        __syncthreads();
+        accumulate_keys<DPT>(ps, dot, rg, cg, acc_v);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          reinterpret_cast<float4*>(dss + (4 * rg + i) * LD)[cg] =
+              make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
+        __syncthreads();
+        accumulate_keys<DPT>(dss, qt, rg, cg, acc_k);
+        continue;
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         reinterpret_cast<float4*>(ps + (4 * rg + i) * LD)[cg] =
@@ -362,7 +412,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
   float* kt = dot + D * LD;     // [D][LD]
   float* vt = kt + D * LD;      // [D][LD]
   float* dst = vt + D * LD;     // [key][LD]: dS transposed
-  float* lse_s = dst + 2 * BQ * LD;
+  float* lse_s = dst + PBUFS<D> * BQ * LD;
   float* del_s = lse_s + BQ;
 
   const int t = threadIdx.x;
@@ -471,6 +521,8 @@ template <int DP>
 struct Bwd {
   static constexpr int TILE = Tiles<DP>::Q_TILE;  // 64 rows x DP bf16
   static constexpr int STAGES = 2;
+  // dK and dV on two warpgroups (`dkdv_split_kernel`) past DP = 128
+  static constexpr bool SPLIT = DP > 128;
   static constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * (size_t)TILE;
   static constexpr int OUT_ROW = (DP + 8) * 2;
   static_assert(2 * 64 * OUT_ROW <= (2 + 2 * STAGES) * TILE,
@@ -492,7 +544,8 @@ __device__ __forceinline__ float lse_log2(const Args& a, int64_t base,
 // (i & 1)). KEY_ROWS (dK/dV): rows are keys and columns queries, whose
 // lse2 and D are read at column offset 8 * (i >> 2) + (i & 1) of `lse2`
 // and `del`; else rows are queries, with lse2[r] and del[r] for r = 0, 1.
-template <bool KEY_ROWS, bool MASK>
+// Without DS only s becomes P (dp is neither read nor written).
+template <bool KEY_ROWS, bool MASK, bool DS = true>
 __device__ __forceinline__ void frag_probs_and_dscores(
     const Args& a, float* s, float* dp, int64_t r0, int64_t c0,
     const float* lse2, const float* del, float scale_log2) {
@@ -510,7 +563,7 @@ __device__ __forceinline__ void frag_probs_and_dscores(
         p = 0.0f;
     }
     s[i] = p;
-    dp[i] = p * (dp[i] - dd);
+    if (DS) dp[i] = p * (dp[i] - dd);
   }
 }
 
@@ -542,15 +595,15 @@ __device__ __forceinline__ void stage_out(uint8_t* out_s, const float* acc,
 // Copies the first d columns of the staged 64-row outputs (one at out_s
 // for out0, and with out1 a second after it) to rows row0 .. row0 + 63
 // (those below `seq`) of contiguous (S, d) bf16 matrices, 16 bytes at a
-// time.
-template <int DP>
+// time, over the block's NT threads.
+template <int DP, int NT = 128>
 __device__ __forceinline__ void store_out(const uint8_t* out_s,
                                           __nv_bfloat16* out0,
                                           __nv_bfloat16* out1, int64_t row0,
                                           int64_t seq, int64_t d) {
   const int chunks = (int)(d / 8);  // 16-byte pieces per row
   const int n_out = out1 == nullptr ? 1 : 2;
-  for (int idx = threadIdx.x; idx < n_out * 64 * chunks; idx += 128) {
+  for (int idx = threadIdx.x; idx < n_out * 64 * chunks; idx += NT) {
     const int which = idx / (64 * chunks);
     const int row = idx / chunks % 64;
     const int c = idx % chunks;
@@ -695,6 +748,159 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   store_out<DP>(out_s, (__nv_bfloat16*)a.dk + bk * a.seq * a.d,
                 (__nv_bfloat16*)a.dv + bk * a.seq * a.d, k0, a.seq, a.d);
+}
+
+// 2, past DP = 128. dK and dV of one 64-key tile of kv head (b, hk) on two
+// warpgroups: warpgroup 0 computes S^T, P and dV += P^T dO, warpgroup 1
+// S^T, dP^T, dS and dK += dS^T Q, so each holds one m64nDP accumulator.
+// The grid, the walk, the ring and the stats are dkdv_wgmma_kernel's; the
+// first 128 threads stage the stats, and a stage is refilled once both
+// warpgroups are done with it.
+template <int DP, int KS>
+__global__ void __launch_bounds__(256, 1)
+    dkdv_split_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, Args a) {
+  using B = Bwd<DP>;
+  constexpr int TILE = B::TILE;
+  constexpr int STAGES = B::STAGES;
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];
+  __shared__ __align__(16) float stats[STAGES][2][64];
+  const uint32_t k_tile = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t v_tile = k_tile + TILE;
+  auto q_tile = [&](int st) { return v_tile + TILE + 2 * st * TILE; };
+  const uint32_t kv_bar = smem_u32(&bars[0]);
+  auto bar = [&](int st) { return smem_u32(&bars[1 + st]); };
+
+  const int64_t n_kt = (a.seq + 63) / 64;
+  const int64_t bhkv = gridDim.x / n_kt;
+  const int64_t bk = blockIdx.x % bhkv;
+  const int64_t k0 = blockIdx.x / bhkv * 64;
+  const int b = (int)(bk / a.hkv);
+  const int hk = (int)(bk % a.hkv);
+  const int64_t k_last = (k0 + 64 < a.seq ? k0 + 64 : a.seq) - 1;
+  const int64_t qt_begin = a.causal ? k0 / 64 : 0;
+  int64_t qt_end = n_kt;
+  if (a.window >= 0) {
+    const int64_t last = (k_last + a.window - 1) / 64 + 1;
+    qt_end = last < n_kt ? last : n_kt;
+  }
+  const int64_t n_q = qt_end > qt_begin ? qt_end - qt_begin : 0;
+  const int n = (int)(a.qpk * n_q);
+  auto head = [&](int j) { return (int)(hk * a.qpk + j / n_q); };
+  auto q0_of = [&](int j) { return (qt_begin + j % n_q) * 64; };
+  auto stat = [&](int j, int t) {
+    const int64_t base = ((int64_t)b * a.hq + head(j)) * a.seq;
+    const int64_t row = q0_of(j) + (t & 63);
+    if (t < 64) return lse_log2(a, base, row);
+    return row < a.seq ? a.delta[base + row] : 0.0f;
+  };
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: dV, 1: dK
+  const int wt = tid & 127;
+  if (tid < 128)
+    for (int j = 0; j < STAGES && j < n; ++j)
+      stats[j][tid >> 6][tid & 63] = stat(j, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * TILE);
+    load_tile<DP>(k_tile, &tk, (int)k0, hk, b, kv_bar);
+    load_tile<DP>(v_tile, &tv, (int)k0, hk, b, kv_bar);
+    for (int j = 0; j < STAGES && j < n; ++j) {
+      mbar_expect_tx(bar(j), 2 * TILE);
+      load_tile<DP>(q_tile(j), &tq, (int)q0_of(j), head(j), b, bar(j));
+      load_tile<DP>(q_tile(j) + TILE, &tdo, (int)q0_of(j), head(j), b,
+                   bar(j));
+    }
+  }
+
+  const int lane = wt & 31;
+  const int lr = 16 * (wt >> 5) + (lane >> 2);  // key rows lr, lr + 8
+  const int c_lane = 2 * (lane & 3);
+  const float scale_log2 = a.scale * LOG2E;
+  float acc[DP / 2];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t af[4][4];
+
+  mbar_wait(kv_bar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int st = j % STAGES;
+    const uint32_t parity = (uint32_t)(j / STAGES) & 1u;
+    const int64_t q0 = q0_of(j);
+    const bool refill = j + STAGES < n;
+    const float next = refill && tid < 128 ? stat(j + STAGES, tid) : 0.0f;
+    const uint32_t qs = q_tile(st);
+    mbar_wait(bar(st), parity);
+    const int64_t q_hi = (q0 + 64 < a.seq ? q0 + 64 : a.seq) - 1;
+    const float* l2 = &stats[st][0][c_lane];
+    const float* dl = &stats[st][1][c_lane];
+    const bool mask = q0 + 64 > a.seq || k0 + 64 > a.seq ||
+                      (a.causal && k0 + 63 > q0) ||
+                      (a.window >= 0 && k0 <= q_hi - a.window);
+    if (wg == 0) {
+      issue_scores<DP, KS>(s, k_tile, qs);  // S^T = K Q^T
+      wgmma_wait_all();
+      reg_fence<32>(s);
+      if (mask)
+        frag_probs_and_dscores<true, true, false>(a, s, dp, k0 + lr,
+                                                  q0 + c_lane, l2, dl,
+                                                  scale_log2);
+      else
+        frag_probs_and_dscores<true, false, false>(a, s, dp, k0 + lr,
+                                                   q0 + c_lane, l2, dl,
+                                                   scale_log2);
+      pack_frags(s, af);
+      issue_values<DP>(acc, af, qs + TILE);  // dV += P^T dO
+    } else {
+      issue_scores<DP, KS>(s, k_tile, qs);          // S^T = K Q^T
+      issue_scores<DP, KS>(dp, v_tile, qs + TILE);  // dP^T = V dO^T
+      wgmma_wait_all();
+      reg_fence<32>(s);
+      reg_fence<32>(dp);
+      if (mask)
+        frag_probs_and_dscores<true, true>(a, s, dp, k0 + lr, q0 + c_lane,
+                                           l2, dl, scale_log2);
+      else
+        frag_probs_and_dscores<true, false>(a, s, dp, k0 + lr, q0 + c_lane,
+                                            l2, dl, scale_log2);
+      pack_frags(dp, af);
+      issue_values<DP>(acc, af, qs);  // dK += dS^T Q
+    }
+    wgmma_wait_all();
+    reg_fence<DP / 2>(acc);
+    __syncthreads();  // both warpgroups are done with stage st and its stats
+    if (refill) {
+      if (tid < 128) stats[st][tid >> 6][tid & 63] = next;
+      if (tid == 0) {
+        const int jn = j + STAGES;
+        mbar_expect_tx(bar(st), 2 * TILE);
+        load_tile<DP>(qs, &tq, (int)q0_of(jn), head(jn), b, bar(st));
+        load_tile<DP>(qs + TILE, &tdo, (int)q0_of(jn), head(jn), b, bar(st));
+      }
+    }
+  }
+
+  // dK = scale * dS^T Q (first), dV as summed, through padded rows over
+  // the tiles.
+  uint8_t* out_s = dyn + (k_tile - smem_u32(dyn));
+  __syncthreads();
+  if (wg == 1)
+    stage_out<DP>(out_s, acc, a.scale, lr, c_lane);
+  else
+    stage_out<DP>(out_s + 64 * B::OUT_ROW, acc, 1.0f, lr, c_lane);
+  __syncthreads();
+  store_out<DP, 256>(out_s, (__nv_bfloat16*)a.dk + bk * a.seq * a.d,
+                     (__nv_bfloat16*)a.dv + bk * a.seq * a.d, k0, a.seq,
+                     a.d);
 }
 
 // 3. dQ of one 64-query tile of head (b, h), on the tensor cores. A 1-D
@@ -883,7 +1089,11 @@ int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
   using B = Bwd<DP>;
   static bool configured = false;
   if (!configured) {
-    int err = set_smem(dkdv_wgmma_kernel<DP, KS>, B::SMEM);
+    int err;
+    if constexpr (B::SPLIT)
+      err = set_smem(dkdv_split_kernel<DP, KS>, B::SMEM);
+    else
+      err = set_smem(dkdv_wgmma_kernel<DP, KS>, B::SMEM);
     if (!err) err = set_smem(dq_wgmma_kernel<DP, KS>, B::SMEM);
     if (err) return err;
     configured = true;
@@ -905,8 +1115,12 @@ int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int64_t tiles = (a.seq + 63) / 64;
-  dkdv_wgmma_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hkv), 128,
-                             B::SMEM, stream>>>(tq, tk, tv, tdo, a);
+  if constexpr (B::SPLIT)
+    dkdv_split_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hkv), 256,
+                               B::SMEM, stream>>>(tq, tk, tv, tdo, a);
+  else
+    dkdv_wgmma_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hkv), 128,
+                               B::SMEM, stream>>>(tq, tk, tv, tdo, a);
   err = (int)cudaGetLastError();
   if (err) return err;
   dq_wgmma_kernel<DP, KS><<<(unsigned)(tiles * batch * a.hq), 128,
@@ -943,7 +1157,7 @@ extern "C" {
 // elements over (batch, head, position) for q, k, v and dout; o, lse,
 // delta, dq, dk and dv are contiguous. dtype: 0 float32 (the CUDA-core
 // kernels), 1 bfloat16 (the tensor-core ones). d: a multiple of 8 up to
-// 128. window < 0: no window. Returns the first launch error, else 0;
+// 128, or 192. window < 0: no window. Returns the first launch error, else 0;
 // cudaErrorInvalidValue for another head dim.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
@@ -963,11 +1177,11 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
          hq, hkv, hq / hkv, seq, window, scale, causal, d};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return f32_head_dims<false>(d, [&](auto dp) {
+    return f32_head_dims(d, [&](auto dp) {
       return launch<float, decltype(dp)::value>(a, batch, s);
     });
   if (dtype == 1)
-    return head_dims<false>(d, [&](auto dp, auto ks) {
+    return head_dims(d, [&](auto dp, auto ks) {
       return launch_bf16<decltype(dp)::value, decltype(ks)::value>(a, batch,
                                                                    s);
     });
@@ -983,7 +1197,7 @@ int flash_attention_bwd_tile_products(const void* k, const void* q,
                                       void* pd_out, void* pq_out, int64_t d,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return head_dims<false>(d, [&](auto dp, auto ks) {
+  return head_dims(d, [&](auto dp, auto ks) {
     return launch_tile_products<decltype(dp)::value, decltype(ks)::value>(
         k, q, dout, st_out, pd_out, pq_out, d, s);
   });

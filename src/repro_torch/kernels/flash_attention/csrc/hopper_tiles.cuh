@@ -5,7 +5,7 @@
 // load, and the host-side tensor-map encoder.
 //
 // Head dims. The kernels are built at a padded width DP (16, 32, 64, 128,
-// or 192 for the forward) and take the true head dim d at run time: a
+// or 192) and take the true head dim d at run time: a
 // tile holds 64 rows x DP bf16, of which TMA fills the first d columns
 // from device memory (the tensor map's extent is d) and writes zeros into
 // the rest. A product that contracts over d runs KS = ceil(d / 16) k-steps
@@ -305,9 +305,9 @@ using Int = std::integral_constant<int, V>;
 
 // Calls fn(Int<DP>(), Int<KS>()) for head dim d: DP the padded width a
 // tensor-core kernel is built at, KS = ceil(d / 16) the k-steps of a
-// product that contracts over d. d is a multiple of 8 up to 128, or 192
-// where WIDE (the forward); any other d returns cudaErrorInvalidValue.
-template <bool WIDE, typename Fn>
+// product that contracts over d. d is a multiple of 8 up to 128, or 192;
+// any other d returns cudaErrorInvalidValue.
+template <typename Fn>
 int head_dims(int64_t d, Fn fn) {
   if (d >= 8 && d % 8 == 0) {
     switch ((d + 15) / 16) {
@@ -320,8 +320,7 @@ int head_dims(int64_t d, Fn fn) {
       case 7: return fn(Int<128>(), Int<7>());
       case 8: return fn(Int<128>(), Int<8>());
       case 12:
-        if constexpr (WIDE)
-          if (d == 192) return fn(Int<192>(), Int<12>());
+        if (d == 192) return fn(Int<192>(), Int<12>());
         break;
     }
   }
@@ -329,9 +328,9 @@ int head_dims(int64_t d, Fn fn) {
 }
 
 // The same for the float32 kernels on the CUDA cores: fn(Int<DP>()) with
-// DP the least of 16, 32, 64, 80, 112, 128 (and 192 where WIDE) that
-// holds d; the columns past d are staged as zeros.
-template <bool WIDE, typename Fn>
+// DP the least of 16, 32, 64, 80, 112, 128 and 192 that holds d (192
+// only for d = 192); the columns past d are staged as zeros.
+template <typename Fn>
 int f32_head_dims(int64_t d, Fn fn) {
   if (d < 8 || d % 8) return (int)cudaErrorInvalidValue;
   if (d <= 16) return fn(Int<16>());
@@ -340,8 +339,7 @@ int f32_head_dims(int64_t d, Fn fn) {
   if (d <= 80) return fn(Int<80>());
   if (d <= 112) return fn(Int<112>());
   if (d <= 128) return fn(Int<128>());
-  if constexpr (WIDE)
-    if (d == 192) return fn(Int<192>());
+  if (d == 192) return fn(Int<192>());
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,11 +44,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_mask,
                                                      attention_ref)
 
-#: The widest head dim the kernels take (the forward also takes
-#: :data:`WIDE_HEAD_DIM`).
+#: The widest head dim of the multiples of 8 the kernels take.
 MAX_HEAD_DIM = 128
-#: The one head dim past :data:`MAX_HEAD_DIM` the forward takes (the
-#: backward does not).
+#: The one head dim past :data:`MAX_HEAD_DIM` the kernels take
+#: (Nemotron-4 340B's).
 WIDE_HEAD_DIM = 192
 #: The kernel's grid puts ``B * Hq`` in its second dimension.
 _MAX_BATCH_HEADS = 65535
@@ -133,20 +132,18 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def check_head_dim(d: int, *, backward: bool = False) -> None:
-    """The kernels' head-dim rule: ``d % 8 == 0`` and ``8 <= d <= 128``,
-    or ``d == 192`` for the forward. The bfloat16 kernels are built at a
-    padded width (16, 32, 64, 128 or 192) whose columns past ``d`` the TMA
-    loads fill with zeros; the float32 ones at 16, 32, 64, 80, 112, 128 or
-    192. Raise ``ValueError`` for any other ``d``."""
-    if d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM:
-        return
-    if d == WIDE_HEAD_DIM and not backward:
+    """The kernels' head-dim rule, the forward's and the backward's:
+    ``d % 8 == 0`` and ``8 <= d <= 128``, or ``d == 192``. The bfloat16
+    kernels are built at a padded width (16, 32, 64, 128 or 192) whose
+    columns past ``d`` the TMA loads fill with zeros; the float32 ones at
+    16, 32, 64, 80, 112, 128 or 192. Raise ``ValueError`` for any other
+    ``d``, naming the ``backward`` kernel or the forward."""
+    if (d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM) or d == WIDE_HEAD_DIM:
         return
     kind = "backward" if backward else "forward"
     raise ValueError(f"flash_attention {kind} kernel takes head dims that "
-                     f"are multiples of 8 up to {MAX_HEAD_DIM}"
-                     + ("" if backward else f", or {WIDE_HEAD_DIM}")
-                     + f"; got {d}")
+                     f"are multiples of 8 up to {MAX_HEAD_DIM}, or "
+                     f"{WIDE_HEAD_DIM}; got {d}")
 
 
 def _lib():
@@ -253,8 +250,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     (the forward's output) must be contiguous and ``lse`` a contiguous
     float32 ``(B, Hq, S)``. bfloat16 q, k, v, o and ``do`` must be aligned
     as :func:`check_tma_alignment` says. The head dim is one
-    :func:`check_head_dim` admits for the backward: 192 raises. Anything
-    else raises."""
+    :func:`check_head_dim` admits (at 192 the bfloat16 dK/dV kernel runs
+    two warpgroups a block, one for dK and one for dV). Anything else
+    raises."""
     global LAUNCHES_BWD
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v), ("o", o),

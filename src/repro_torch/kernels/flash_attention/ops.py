@@ -54,8 +54,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``(B, Hq, S, D)`` over k, v ``(B, Hkv, S, D)``
     (``scale`` defaults to ``D ** -0.5``). A CUDA tensor goes through the
     hand-written kernel, which takes head dims that are multiples of 8 up
-    to 128, and 192 without grad (:func:`~.kernel.check_head_dim`), and
-    raises on any other: through :class:`FlashAttentionFn`, whose backward
+    to 128, and 192 (:func:`~.kernel.check_head_dim`), and raises on any
+    other: through :class:`FlashAttentionFn`, whose backward
     is the backward kernel, when grad is enabled and q, k or v requires
     grad, else the forward alone. A CPU tensor goes through the plain
     version (differentiable by autograd); any other device raises."""

@@ -9,8 +9,10 @@ the dry-run touches no device. ``repro_torch.launch.report`` renders the
 rows.
 
 The reference package's model-cell dry-run (compiling every arch × shape
-cell on the production meshes) waits for the port's mesh modules
-(ROADMAP queue 1, peer GPUs); without ``--comm`` :func:`main` says so.
+cell on the production meshes and reading the compiler's cost analysis)
+waits for a cost analysis of the port's steps (ROADMAP queue 1: the
+launch specs, the model cells and the roofline); without ``--comm``
+:func:`main` says so.
 
 Usage::
 
@@ -173,8 +175,8 @@ def main() -> None:
     args = parser.parse_args()
     if not args.comm:
         parser.error("only the --comm dry-run is ported; the model-cell "
-                     "dry-run waits for the mesh modules (ROADMAP queue 1, "
-                     "peer GPUs)")
+                     "dry-run waits for a cost analysis of the port's "
+                     "steps (ROADMAP queue 1)")
     fail = None
     if args.fail_link:
         try:

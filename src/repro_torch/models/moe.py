@@ -1,13 +1,13 @@
 """Mixture-of-Experts block: top-k routing with a static capacity buffer.
 
-The reference's ``models/moe.py`` on one shard (the port has no mesh, so
-its shard count is 1): a softmax router picks each token's ``top_k``
-experts; the ``T·k`` (token, expert) pairs are sorted by expert, stably,
-and each pair's position within its expert comes from a searchsorted over
-the sorted ids (O(T·k) memory, no ``(T, E)`` one-hots); pairs past the
-expert's ``capacity`` are dropped; every expert's FFN runs as one batched
-product over its ``(E, capacity, d)`` buffer; each token sums its pairs'
-gated outputs. Includes the Switch-style load-balancing auxiliary loss
+The reference's ``models/moe.py`` on one shard (the expert-parallel
+layer under a mesh is :mod:`.moe_dist`): a softmax router picks each
+token's ``top_k`` experts; the ``T·k`` (token, expert) pairs are sorted
+by expert, stably, and each pair's position within its expert comes from
+a searchsorted over the sorted ids (O(T·k) memory, no ``(T, E)``
+one-hots); pairs past the expert's ``capacity`` are dropped; every
+expert's FFN runs as one batched product over its ``(E, capacity, d)``
+buffer; each token sums its pairs' gated outputs. Includes the Switch-style load-balancing auxiliary loss
 and optional shared experts (kimi/DeepSeek recipe).
 
 Nothing reads back to the host (no ``.item()``, ``nonzero`` or boolean
@@ -79,6 +79,16 @@ class Routes:
     capacity: int
 
 
+def aux_loss(probs: torch.Tensor, expert_ids: torch.Tensor) -> torch.Tensor:
+    """The load-balancing loss ``E · Σ_e f_e · p_e`` of router
+    probabilities ``(T, E)`` and each token's top-k experts ``(T, k)``."""
+    e = probs.shape[-1]
+    experts = torch.arange(e, device=probs.device)
+    one_hot = (expert_ids[..., None] == experts).float()        # (T, k, E)
+    density = one_hot.sum(1).mean(0)
+    return e * torch.sum(density * probs.mean(0))
+
+
 def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int,
           capacity: int) -> Routes:
     """Route the ``(T, d)`` tokens ``x``: float32 router softmax, top-k
@@ -91,11 +101,8 @@ def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int,
     gate_vals, expert_ids = torch.topk(probs, top_k, dim=-1)   # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
-    # load-balance aux loss: E · Σ_e f_e · p_e
+    aux = aux_loss(probs, expert_ids)
     experts = torch.arange(e, device=x.device)
-    one_hot = (expert_ids[..., None] == experts).float()        # (T, k, E)
-    density = one_hot.sum(1).mean(0)
-    aux = e * torch.sum(density * probs.mean(0))
 
     flat_ids = expert_ids.reshape(t * top_k)
     order = torch.argsort(flat_ids, stable=True)
@@ -138,6 +145,21 @@ def expert_ffn(buf: torch.Tensor, params: dict, kind: str) -> torch.Tensor:
     return torch.bmm(h, params["w2"])
 
 
+def combine(back: torch.Tensor, keep: torch.Tensor, r: Routes,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Each token's sum of its pairs' gated outputs ``(T, d)`` in
+    ``dtype``: ``back`` holds every pair's expert output in sorted order,
+    ``keep`` says which pairs count (the others add zeros), and a token
+    adds its pairs in ascending expert order (ascending sorted rank)."""
+    back = torch.where(keep[:, None], back, 0)
+    contrib = (back * (r.gate * keep)[:, None]).to(dtype)
+    ranks = torch.sort(r.rank, dim=1).values                   # (T, k)
+    out = contrib[ranks[:, 0]]
+    for j in range(1, ranks.shape[1]):
+        out = out + contrib[ranks[:, j]]
+    return out
+
+
 def moe_apply(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
               capacity_factor: float = 1.25, dropless: bool = False,
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -153,13 +175,7 @@ def moe_apply(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
     rows = e * r.capacity
     y = expert_ffn(dispatch(x, r, e), params, kind)
     back = y.view(rows, d)[r.row.clamp(max=rows - 1)]          # (T·k, d)
-    back = torch.where(r.keep[:, None], back, 0)
-    contrib = (back * (r.gate * r.keep)[:, None]).to(x.dtype)
-    # each token's pairs in ascending expert order (ascending sorted rank)
-    ranks = torch.sort(r.rank, dim=1).values                   # (T, k)
-    out = contrib[ranks[:, 0]]
-    for j in range(1, top_k):
-        out = out + contrib[ranks[:, j]]
+    out = combine(back, r.keep, r, x.dtype)
     if "shared" in params:
         out = out + mlp_apply(x, params["shared"], kind)
     return out, r.aux

@@ -14,9 +14,11 @@ Python loop over ``L``. An encoder (``causal=False``, the audio model)
 runs ``forward`` and ``loss_fn`` with non-causal attention and its
 ``head``; it has no decode step, so :func:`init_cache`,
 :func:`prefill_forward` and :func:`decode_step` refuse it
-(:func:`check_decoder`). The MoE FFN has no mesh here: it always runs
-the reference's single-shard ``moe_apply`` (its ``moe_apply_dist`` runs
-only under a mesh with a model axis).
+(:func:`check_decoder`). The MoE FFN runs the single-shard
+:func:`~.moe.moe_apply`, or, under an ambient mesh with a model axis
+(:func:`~repro_torch.launch.mesh.set_mesh`), the expert-parallel
+:func:`~.moe_dist.moe_apply_dist`, as the reference does.
+:func:`cache_shapes` gives a cache's shapes as meta tensors.
 
 Decode caches (serve path):
 
@@ -65,6 +67,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import moe_dist
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        blockwise_attention,
@@ -214,12 +217,24 @@ def _attention_full(x, ap, cfg: ArchConfig, window: int, positions,
 
 def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
     """The FFN of a block on ``(..., d)``: the dense MLP, or the MoE over
-    the flattened tokens. Returns (out, aux); aux is 0 for a dense MLP."""
+    the flattened tokens — expert-parallel (:mod:`.moe_dist`, its combine
+    one psum through the mesh's session) when a mesh with a model axis
+    over 1 is ambient, else :func:`~.moe.moe_apply`. Returns (out, aux);
+    aux is 0 for a dense MLP."""
     if cfg.num_experts:
-        out, aux = moe_lib.moe_apply(
-            x.reshape(-1, x.shape[-1]), lp["moe"], top_k=cfg.top_k,
-            kind=cfg.mlp, capacity_factor=cfg.capacity_factor,
-            dropless=dropless)
+        flat = x.reshape(-1, x.shape[-1])
+        res = moe_dist.moe_apply_dist(
+            flat, lp["moe"], top_k=cfg.top_k, kind=cfg.mlp,
+            capacity_factor=cfg.capacity_factor, dropless=dropless,
+            fsdp=cfg.fsdp)
+        if res is not None:
+            out, aux = res
+            if "shared" in lp["moe"]:
+                out = out + mlp_apply(flat, lp["moe"]["shared"], cfg.mlp)
+        else:
+            out, aux = moe_lib.moe_apply(
+                flat, lp["moe"], top_k=cfg.top_k, kind=cfg.mlp,
+                capacity_factor=cfg.capacity_factor, dropless=dropless)
         return out.reshape(x.shape), aux
     return (mlp_apply(x, lp["mlp"], cfg.mlp),
             torch.zeros((), device=x.device))
@@ -423,6 +438,12 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
         c["conv"] = torch.zeros((l, batch, ssm_lib.CONV_K - 1, d), dtype=dt,
                                 device=device)
     return c
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, spec: CacheSpec) -> Cache:
+    """:func:`init_cache`'s shapes and dtypes as meta tensors (nothing is
+    allocated)."""
+    return init_cache(cfg, batch, spec, device="meta")
 
 
 def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,

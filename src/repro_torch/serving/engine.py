@@ -25,6 +25,13 @@ float32 SSM state and conv inputs; or RWKV-6's state and shift) are
 fused into ONE transfer group — one captured graph and one replay per
 migration, regardless of leaf count or dtype.
 
+Under an ambient :class:`~repro_torch.launch.mesh.LogicalMesh` with a
+model axis the engine runs unchanged: an MoE model's layers are expert
+parallel (:mod:`~repro_torch.models.moe_dist`), and each layer's combine,
+one psum through the mesh's session, is recorded into the programs'
+graphs as the ring's own kernel launches. :func:`pick_kv_chunks` picks
+the split-KV chunk count for a mesh.
+
 ``make_captured_decode_step`` captures one decode step — the
 ``flash_attention`` kernel beside a KV-chunk migration — as ONE CUDA
 graph per call.
@@ -43,10 +50,25 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.flash_attention.ops import captured_flash_attention
 from repro_torch.models import transformer as tfm
+from repro_torch.training import sharding as shd
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.comm.capture import CapturedStep
     from repro_torch.comm.session import CommSession
+    from repro_torch.launch.mesh import LogicalMesh
+
+
+def pick_kv_chunks(cfg: ArchConfig, mesh: "LogicalMesh", batch: int,
+                   max_len: int) -> int:
+    """Chunk count for the split-KV decode cache: the model axis when the
+    batch carries the DP axes, every mesh axis when batch is unshardable
+    (long-context batch=1)."""
+    model = mesh.shape.get("model", 1)
+    dp = shd.axis_size(mesh, shd.dp_axes(mesh))
+    chunks = model if (batch % dp == 0 and batch > 1) else model * dp
+    while chunks > 1 and max_len % chunks:
+        chunks //= 2
+    return max(1, chunks)
 
 
 def make_serve_step(cfg: ArchConfig, spec: tfm.CacheSpec) -> Callable:

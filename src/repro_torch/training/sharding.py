@@ -1,0 +1,307 @@
+"""Logical sharding rules with divisibility fallback (MaxText-style).
+
+The port of the reference's ``training/sharding.py``. Rules are keyed on
+parameter path + dim semantics. Every rule is filtered through
+:func:`safe_spec`: an axis that does not divide its dim is dropped for
+that tensor (partial replication), so all ten architectures — with head
+counts 0/15/16/25/32/48/64/96 and kv heads 5/8/16 — shard without
+special-casing.
+
+Layout summary (mesh axes ``pod``/``data``/``model``):
+
+* batch dims            → (pod, data)          [pure DP across pods]
+* vocab / embed rows    → model
+* attention q-projection cols (H·hd) and MLP hidden → model   [TP]
+* MoE expert dim        → model                 [EP]
+* param non-TP dim      → data when cfg.fsdp    [FSDP/ZeRO-3]
+* decode KV chunk dim   → model (batch-shardable case) or every axis
+                          (batch=1 long-context case)
+* optimizer moments mirror their parameter specs (int8 scales replicated)
+
+Specs are :class:`~repro_torch.models.pspec.PartitionSpec` tuples over a
+:class:`~repro_torch.launch.mesh.LogicalMesh`. Sharding in the port is
+device-stacked, so in place of the reference's placement of arrays on
+devices, :func:`shard_tree` lays each leaf out as the ``(n, ...)`` stack
+of the mesh's ``n`` logical devices' local shards (row-major over the
+mesh axes) and :func:`unshard_tree` puts the whole back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import LogicalMesh
+from repro_torch.models.pspec import P, PartitionSpec
+
+
+def dp_axes(mesh: LogicalMesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def axis_size(mesh: LogicalMesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def safe_spec(shape, spec, mesh: LogicalMesh) -> PartitionSpec:
+    """Drop axis names that do not evenly divide their dimension."""
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        axes = tuple(a for a in axes if a in mesh.axis_names)
+        keep = []
+        size = shape[i] if i < len(shape) else 1
+        for a in axes:
+            n = mesh.shape[a]
+            if size % n == 0 and n > 1:
+                keep.append(a)
+                size //= n
+        out.append(tuple(keep) if len(keep) > 1 else
+                   (keep[0] if keep else None))
+    return P(*out)
+
+
+def _param_rule(path: str, ndim: int, cfg: ArchConfig,
+                model_size: int = 1) -> PartitionSpec:
+    """Logical spec before divisibility filtering. Paths are '/'-joined."""
+    fs = "data" if cfg.fsdp else None
+    leaf = path.split("/")[-1]
+    if "moe" in path and "shared" not in path:
+        # E % model == 0 → expert parallelism over the model axis;
+        # otherwise (mixtral: 8 experts on a 16-wide axis) fall back to
+        # per-expert tensor parallelism: shard the expert FFN hidden dim.
+        ep = cfg.num_experts % max(1, model_size) == 0
+        if leaf == "router":
+            return P(None, None, "model") if ep else P(None, None, None)
+        if leaf in ("w1", "w3"):
+            return (P(None, "model", fs, None) if ep
+                    else P(None, None, fs, "model"))
+        if leaf == "w2":
+            return (P(None, "model", None, fs) if ep
+                    else P(None, None, "model", fs))
+    if leaf == "embed":
+        return P("model", fs)
+    if leaf in ("lm_head", "head"):
+        return P(fs, "model")
+    if leaf == "wq":
+        return P(None, fs, "model")
+    if leaf in ("wk", "wv"):
+        # column-sharding GQA k/v projections whose kv_heads don't divide
+        # the model axis splits heads mid-boundary; replicate the (small)
+        # weights so k/v activations stay model-replicated.
+        if cfg.num_kv_heads % max(1, model_size) == 0:
+            return P(None, fs, "model")
+        return P(None, fs, None)
+    if leaf == "wo":
+        return P(None, "model", fs)
+    if "shared" in path and leaf in ("w1", "w3"):
+        return P(None, fs, "model")
+    if "shared" in path and leaf == "w2":
+        return P(None, "model", fs)
+    if leaf in ("w1", "w3"):            # dense mlp (L, d, ff)
+        return P(None, fs, "model")
+    if leaf == "w2":                    # (L, ff, d)
+        return P(None, "model", fs)
+    if leaf in ("w_in",):               # mamba (L, d, 2d_i)
+        return P(None, fs, "model")
+    if leaf in ("w_out",):              # (L, d_i, d)
+        return P(None, "model", fs)
+    if leaf in ("w_r", "w_k", "w_v", "w_w", "w_g"):   # rwkv (L, d, d)
+        return P(None, fs, "model")
+    if leaf == "frontend_proj":
+        return P(None, None)
+    return P(*([None] * ndim))          # norms, biases, small projections
+
+
+def _path_str(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over a nested dict's leaves, path a key tuple."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_specs(cfg: ArchConfig, mesh: LogicalMesh, abstract_params) -> Any:
+    """Tree of :class:`PartitionSpec` matching ``abstract_params`` (meta
+    tensors, :func:`~repro_torch.models.transformer.param_shapes`)."""
+    model_size = mesh.shape.get("model", 1)
+
+    def spec_of(path, leaf):
+        raw = _param_rule(_path_str(path), leaf.dim(), cfg, model_size)
+        # pad/truncate to leaf rank
+        entries = list(raw) + [None] * leaf.dim()
+        return safe_spec(leaf.shape, P(*entries[:leaf.dim()]), mesh)
+
+    return _map_with_path(spec_of, abstract_params)
+
+
+def opt_state_specs(cfg: ArchConfig, mesh: LogicalMesh, abstract_opt_state,
+                    p_specs) -> Any:
+    """Moments mirror param specs; int8 scale scalars replicate."""
+    def lookup(path, leaf):
+        # path may have trailing 'q'/'scale' for int8 moments
+        node = p_specs
+        for key in path:
+            if isinstance(node, dict) and key in node:
+                node = node[key]
+            else:
+                break
+        if isinstance(node, PartitionSpec) and leaf.dim() == len(node):
+            return node
+        return P(*([None] * leaf.dim()))
+
+    def mirror(moments):
+        return _map_with_path(
+            lambda path, leaf: safe_spec(leaf.shape, lookup(path, leaf),
+                                         mesh), moments)
+
+    return {"m": mirror(abstract_opt_state["m"]),
+            "v": mirror(abstract_opt_state["v"]),
+            "step": P()}
+
+
+def batch_specs(cfg: ArchConfig, mesh: LogicalMesh, batch_shapes) -> Any:
+    dp = dp_axes(mesh)
+    return _map_with_path(
+        lambda path, leaf: safe_spec(
+            leaf.shape, P(dp, *([None] * (leaf.dim() - 1))), mesh),
+        batch_shapes)
+
+
+def cache_specs(cfg: ArchConfig, mesh: LogicalMesh, cache_shapes,
+                batch: int):
+    """Decode-cache layout (DESIGN.md §5): batch→DP; chunk dim C→model
+    (or every axis when batch is unshardable); ring window→model;
+    SSM/RWKV states: batch→DP, feature dims→model."""
+    dp = dp_axes(mesh)
+    batch_shardable = batch % axis_size(mesh, dp) == 0 and batch > 1
+    chunk_axes = "model" if batch_shardable else tuple(
+        list(dp) + ["model"])
+    bspec = dp if batch_shardable else None
+
+    def spec_of(path, leaf):
+        name = _path_str(path).split("/")[-1]
+        if name in ("k", "v"):
+            if leaf.dim() == 6:    # chunked (L,B,Hkv,C,Sc,hd)
+                raw = P(None, bspec, None, chunk_axes, None, None)
+            else:                  # ring (L,B,Hkv,W,hd)
+                raw = P(None, bspec, None, "model", None)
+        elif name == "ssm":        # (L,B,d_i,N)
+            raw = P(None, bspec, "model", None)
+        elif name == "conv":       # (L,B,K-1,d_i)
+            raw = P(None, bspec, None, "model")
+        elif name == "rwkv_state":  # (L,B,h,dk,dv)
+            raw = P(None, bspec, "model", None, None)
+        elif name == "rwkv_shift":  # (L,B,d)
+            raw = P(None, bspec, "model")
+        else:
+            raw = P(*([None] * leaf.dim()))
+        return safe_spec(leaf.shape, raw, mesh)
+
+    return _map_with_path(spec_of, cache_shapes)
+
+
+# -- device-stacked layout ----------------------------------------------------
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _check_spec(shape, spec: PartitionSpec, mesh: LogicalMesh) -> None:
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} does not match shape {tuple(shape)}")
+    used = [a for e in spec for a in _entry_axes(e)]
+    if len(set(used)) != len(used) or any(a not in mesh.axis_names
+                                          for a in used):
+        raise ValueError(f"spec {spec} is not a layout over {mesh}")
+    for n, e in zip(shape, spec):
+        if n % axis_size(mesh, _entry_axes(e) or None):
+            raise ValueError(f"spec {spec} does not divide {tuple(shape)}")
+
+
+def shard_leaf(x: torch.Tensor, spec: PartitionSpec,
+               mesh: LogicalMesh) -> torch.Tensor:
+    """``x`` as its ``(n, ...)`` stack of local shards, row ``d`` the
+    logical device whose mesh coordinates are ``d`` in row-major order
+    over ``mesh.axis_names``: a dim of entry ``(a1, a2, ...)`` is cut into
+    ``|a1|·|a2|·...`` blocks, indexed row-major by the device's
+    coordinates on those axes; axes a leaf does not use replicate it. A
+    view of ``x`` where one can be (the split dims and the replication
+    stride-0 expand), else a copy."""
+    _check_spec(x.shape, spec, mesh)
+    sizes = mesh.shape
+    split_shape, axis_dims, local = [], {}, []
+    for n, e in zip(x.shape, spec):
+        axes = _entry_axes(e)
+        for a in axes:
+            axis_dims[a] = len(split_shape)
+            split_shape.append(sizes[a])
+        local.append(n // axis_size(mesh, axes or None))
+        split_shape.append(local[-1])
+    y = x.reshape(split_shape)
+    # mesh axes first (in mesh order), replicated axes as stride-0 dims
+    for a in mesh.axis_names:
+        if a not in axis_dims:
+            y = y.unsqueeze(0)
+            axis_dims = {k: v + 1 for k, v in axis_dims.items()}
+            axis_dims[a] = 0
+    order = [axis_dims[a] for a in mesh.axis_names]
+    rest = [i for i in range(y.dim()) if i not in order]
+    y = y.permute(order + rest)
+    y = y.expand(tuple(sizes[a] for a in mesh.axis_names) + y.shape[
+        len(order):])
+    return y.reshape((mesh.size,) + tuple(local))
+
+
+def unshard_leaf(stack: torch.Tensor, spec: PartitionSpec,
+                 mesh: LogicalMesh) -> torch.Tensor:
+    """The whole tensor back from its :func:`shard_leaf` stack: the
+    shards of the first device along every axis the spec does not use."""
+    local = stack.shape[1:]
+    y = stack.reshape(tuple(mesh.shape[a] for a in mesh.axis_names)
+                      + tuple(local))
+    index = tuple(slice(None) if any(a in _entry_axes(e) for e in spec)
+                  else 0 for a in mesh.axis_names)
+    y = y[index]
+    kept = [a for a in mesh.axis_names
+            if any(a in _entry_axes(e) for e in spec)]
+    # y: (kept axes..., local...) → interleave each dim's axes before it
+    pos = {a: i for i, a in enumerate(kept)}
+    order, shape = [], []
+    for i, (n, e) in enumerate(zip(local, spec)):
+        axes = _entry_axes(e)
+        order += [pos[a] for a in axes] + [len(kept) + i]
+        shape.append(n * math.prod(mesh.shape[a] for a in axes))
+    return y.permute(order).reshape(shape)
+
+
+def shard_tree(tree, specs, mesh: LogicalMesh):
+    """:func:`shard_leaf` over a tree of tensors and its specs."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh)
+
+
+def unshard_tree(tree, specs, mesh: LogicalMesh):
+    """:func:`unshard_leaf` over a tree of stacks and its specs."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return unshard_leaf(tree, specs, mesh)

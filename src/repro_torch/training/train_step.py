@@ -46,10 +46,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import OptimConfig, apply_updates, init_opt_state
 from repro_torch.optim.adamw import opt_state_shapes
+from repro_torch.training import sharding as shd
 from repro_torch.tree import flatten_up_to, leaves, tree_map, unflatten
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.comm.session import CommSession
+    from repro_torch.launch.mesh import LogicalMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,13 +308,34 @@ def state_shapes(cfg: ArchConfig, opt: OptimConfig):
     return {"params": p, "opt": opt_state_shapes(p, opt)}
 
 
+def state_shardings(cfg: ArchConfig, mesh: "LogicalMesh", opt: OptimConfig):
+    """The train state's partition specs on ``mesh`` (``{"params",
+    "opt"}``, :mod:`~repro_torch.training.sharding`'s rules) and its
+    shapes as meta tensors (:func:`state_shapes`). The reference returns
+    placements on devices in place of the specs; the port lays a state
+    out by them with :func:`~repro_torch.training.sharding.shard_tree`."""
+    abstract = state_shapes(cfg, opt)
+    p_specs = shd.param_specs(cfg, mesh, abstract["params"])
+    o_specs = shd.opt_state_specs(cfg, mesh, abstract["opt"], p_specs)
+    return {"params": p_specs, "opt": o_specs}, abstract
+
+
 def init_state(cfg: ArchConfig, opt: OptimConfig, *,
-               generator: torch.Generator | None = None, device=None):
+               generator: torch.Generator | None = None, device=None,
+               mesh: "LogicalMesh | None" = None):
     """A fresh train state on ``device`` (default: the card): random
     parameters from ``generator`` (:func:`~repro_torch.models.transformer.
-    init_params`) and zero optimizer state."""
+    init_params`) and zero optimizer state. With ``mesh``, the state laid
+    out by :func:`state_shardings`' specs: every leaf the ``(n, ...)``
+    stack of the mesh's logical devices' shards
+    (:func:`~repro_torch.training.sharding.shard_tree`; views where the
+    split allows)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_params(cfg, generator=generator, device=device)
-    return {"params": params, "opt": init_opt_state(params, opt)}
+    state = {"params": params, "opt": init_opt_state(params, opt)}
+    if mesh is not None:
+        specs, _ = state_shardings(cfg, mesh, opt)
+        state = shd.shard_tree(state, specs, mesh)
+    return state

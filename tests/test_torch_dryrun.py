@@ -239,7 +239,7 @@ def test_report_renders_like_reference(tmp_path, fail_link, capsys,
 def test_clis_run_as_modules(tmp_path):
     """``python -m repro_torch.launch.dryrun --comm --fail-link 0:1`` and
     ``python -m repro_torch.launch.report`` exit 0; without ``--comm`` the
-    dry-run stops with a usage error naming the mesh modules."""
+    dry-run stops with a usage error naming what it waits for."""
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     out = tmp_path / "rows.json"
     run = subprocess.run(
@@ -258,7 +258,7 @@ def test_clis_run_as_modules(tmp_path):
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun"],
         capture_output=True, text=True, env=env, timeout=120)
-    assert bad.returncode == 2 and "mesh modules" in bad.stderr
+    assert bad.returncode == 2 and "cost analysis" in bad.stderr
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--comm",
          "--fail-link", "0-1"], capture_output=True, text=True, env=env,

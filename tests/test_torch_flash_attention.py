@@ -362,10 +362,11 @@ def test_config_head_dims_match_reference_kernel(d, causal, window, dtype):
 
 
 @pytest.mark.parametrize("causal,window", MASKS)
-@pytest.mark.parametrize("d", [80, 112])
+@pytest.mark.parametrize("d", [80, 112, 192])
 def test_backward_at_config_head_dims_matches_reference_grads(d, causal,
                                                               window):
-    """The backward at HuBERT's and Kimi K2's head dims against ``jax.vjp``
+    """The backward at HuBERT's, Kimi K2's and Nemotron-4's head dims
+    (80, 112, 192) against ``jax.vjp``
     of the reference's ``blockwise_attention``: the plain backward in
     float32 within 1e-4 of the largest |want| (the card kernel's float32
     bound), and the tensor-core kernel's arithmetic (P and dS rounded to
@@ -408,11 +409,12 @@ def test_backward_at_config_head_dims_matches_reference_grads(d, causal,
     (8, True, True), (80, True, True), (112, True, True), (128, True, True),
     (0, False, False), (4, False, False), (12, False, False),
     (100, False, False), (136, False, False), (176, False, False),
-    (256, False, False), (192, True, False), (100, True, False),
+    (256, False, False), (192, True, True), (100, True, False),
     (136, True, False)])
 def test_head_dim_rule(d, backward, admitted):
     """The kernels' head-dim rule, which the wrappers check before any
-    launch: a multiple of 8 up to 128, or 192 for the forward alone."""
+    launch, the forward's and the backward's: a multiple of 8 up to 128,
+    or 192."""
     if admitted:
         fk.check_head_dim(d, backward=backward)
     else:
