@@ -359,11 +359,13 @@ What it does, in order (any failed check exits nonzero):
     each copy run; ``multipath_send_local`` of the same plan, one launch,
     its destination row bitwise as ``session.send``'s and zeros
     elsewhere, eagerly and replayed from a CUDA graph that recorded it;
-24. ``python -m repro_torch.launch.dryrun --comm --fail-link 0:1`` and
-    ``python -m repro_torch.launch.report`` in subprocesses under ``-X
-    importtime``, both exit 0, importing nothing beyond the standard
-    library and what importing ``torch`` and ``repro_torch.comm``
-    imports;
+24. ``python -m repro_torch.launch.dryrun --comm --fail-link 0:1``, the
+    model-cell dry-run of SmolLM-360M's ``decode_32k`` on both
+    production meshes, and ``python -m repro_torch.launch.report`` in
+    subprocesses under ``-X importtime``, all exit 0, the ``--comm``
+    dry-run and the report importing nothing beyond the standard library
+    and what importing ``torch`` and ``repro_torch.comm`` imports, the
+    model cells nothing of the reference package;
 25. main path R, counters set to 0 before it and read after it (the
     kernel checks first, not counted): training Nemotron-4 340B at full
     width (d_model 18432, 96/8 heads of 192, squared-ReLU d_ff 73728,
@@ -387,7 +389,24 @@ What it does, in order (any failed check exits nonzero):
     captured-decode checks of path E under the mesh, layer 0's MoE
     output within 2e-2 of ``moe_apply``'s largest |want|, the combine's
     ms a layer, path E's times and the peak beside path L's;
-27. one JSON line ``{"kernels": [...]}``, then as the last line
+27. main path T, counters set to 0 before it and read after it: the
+    dry-run's probes at full width (``launch.specs.input_specs`` cells,
+    ``launch.cost`` counts), each at L = 0 and L = 1: T1 Llama-3 8B
+    prefill of 4 x 512 (``flash_attention``), T2 Nemotron-4 340B's train
+    step of 8 x 512 with path R's vocabulary of 32,768 (the attention and
+    its backward at head dim 192), T3 RWKV-6 1.6B's train step of 8 x 512
+    (``rwkv6_scan`` and its backward), T4 Mixtral-8x22B prefill of 4 x 512
+    under ``make_host_mesh((1, 4))`` (``flash_attention``,
+    ``ring_allgather`` in the combine psum). Each step counted on meta
+    tensors and on the card's (FLOPs, bytes, collective records, kernel
+    calls and peak live bytes all equal; the card's kernel calls equal to
+    the launch counters' rise), timed without the counter (one warm-up,
+    then 3 calls, host clock ending in a synchronize) against the count's
+    bound (the larger of FLOPs at 989 TFLOP/s and bytes at 3.35 TB/s; the
+    share at most 100%), ``max_memory_allocated`` within 0.9x to 1.2x of
+    the predicted peak (arguments + the count's peak live bytes) plus 1
+    GiB, and the layer's increment counted and measured;
+28. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -4782,10 +4801,12 @@ def captured_dma_check(dev) -> None:
 def dryrun_cli_check() -> None:
     """Phase 24: the port's dry-run and report CLIs, each in a subprocess
     from the checkout's ``src`` under ``-X importtime``: ``python -m
-    repro_torch.launch.dryrun --comm --fail-link 0:1 --out <tmp>`` and
-    ``python -m repro_torch.launch.report <tmp>`` exit 0, and import no
-    module of the reference package and no top-level package beyond the
-    standard library and what importing ``torch`` and ``repro_torch.comm``
+    repro_torch.launch.dryrun --comm --fail-link 0:1 --out <tmp>``, the
+    model-cell dry-run of one arch and shape into the same file (counted
+    on meta tensors) and ``python -m repro_torch.launch.report <tmp>``
+    exit 0 and import no module of the reference package; the ``--comm``
+    dry-run and the report no top-level package beyond the standard
+    library and what importing ``torch`` and ``repro_torch.comm``
     imports."""
     import tempfile
 
@@ -4812,6 +4833,9 @@ def dryrun_cli_check() -> None:
         rows = os.path.join(tmp, "rows.json")
         dry, dry_names = run("-m", "repro_torch.launch.dryrun", "--comm",
                              "--fail-link", "0:1", "--out", rows)
+        cells, cell_names = run("-m", "repro_torch.launch.dryrun", "--arch",
+                                "smollm_360m", "--shape", "decode_32k",
+                                "--out", rows)
         rep, rep_names = run("-m", "repro_torch.launch.report", rows)
     _, base = run("-c", "import torch, repro_torch.comm")
     loaded = dry_names | rep_names
@@ -4820,8 +4844,14 @@ def dryrun_cli_check() -> None:
           f"the dry-run CLIs imported {extra} beyond the port's own imports "
           f"(reference package imported: {'repro' in loaded})")
     table_rows = sum(line.startswith("| ") for line in rep.stdout.splitlines())
+    # a meta count also loads what torch's meta kernels import lazily
+    check("ok=2 skipped=0 error=0" in cells.stdout
+          and "repro" not in cell_names,
+          f"the model-cell dry-run: {cells.stdout[-500:]}")
     print(f"dryrun CLI --comm --fail-link 0:1: exit 0, "
-          f"{dry.stdout.strip().splitlines()[-1]}; report CLI: exit 0, "
+          f"{dry.stdout.strip().splitlines()[-1]}; the model cells of "
+          f"smollm_360m decode_32k: {cells.stdout.strip().splitlines()[-1]}"
+          f"; report CLI: exit 0, "
           f"{table_rows} table lines; {len(loaded)} top-level packages "
           f"imported, none beyond the port's own imports and the standard "
           f"library ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -5102,6 +5132,191 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
           f"s)", flush=True)
 
 
+#: Phase T's probes: (name, arch, kind, batch, seq, vocabulary cut or
+#: None, host mesh shape or None, the kernels it must launch). Each runs
+#: at L = 0 and L = 1 at full width, in a shape and cut an earlier path
+#: uses: T1 path E's longest prompt, T2 path R, T3 path M's RWKV-6 step
+#: (its full vocabulary), T4 path S's mesh.
+PROBES = (
+    ("T1", "llama3_8b", "prefill", 4, 512, None, None,
+     ("flash_attention",)),
+    ("T2", "nemotron_4_340b", "train", TRAIN_BATCH, TRAIN_SEQ,
+     NEMOTRON_TRAIN_VOCAB, None, ("flash_attention", "flash_attention_bwd")),
+    ("T3", "rwkv6_1_6b", "train", TRAIN_BATCH, TRAIN_SEQ, None, None,
+     ("rwkv6_scan", "rwkv6_scan_bwd")),
+    ("T4", "mixtral_8x22b", "prefill", 4, 512, None, (1, 4),
+     ("flash_attention", "ring_allgather")),
+)
+#: Calls timed a probe (after one warm-up call).
+PROBE_CALLS = 3
+#: The measured peak must lie within this band of the meta count's
+#: (arguments + peak live bytes), plus :data:`PROBE_PEAK_SLACK` for the
+#: allocator's rounding and the libraries' workspaces.
+PROBE_PEAK_BAND = (0.9, 1.2)
+PROBE_PEAK_SLACK = 1 << 30
+
+
+def probe_args(cfg, kind: str, batch: int, seq: int, dev, seed: int):
+    """Seeded arguments on the card for a probe's step, the shapes and
+    dtypes of its meta arguments: a train state and a batch, or the
+    parameters and the prompt tokens."""
+    from repro_torch.launch.specs import optim_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_state
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if kind == "prefill":
+        return [tfm.init_params(cfg, generator=gen, device=dev),
+                {"tokens": tokens}]
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    state = init_state(cfg, optim_for(cfg), generator=gen, device=dev)
+    return [state, {"tokens": tokens, "labels": labels,
+                    "mask": torch.ones((batch, seq), device=dev)}]
+
+
+def probe_step(cell, args: list, kind: str):
+    """One call of the cell's step on ``args``; a train step's new state
+    replaces the old in ``args`` (the caller holds no other name on it,
+    so the old is freed as the next step makes its own)."""
+    if kind == "train":
+        state = args.pop(0)
+        new, _ = cell.fn(state, *args)
+        del state
+        args.insert(0, new)
+        return None
+    return cell.fn(*args)
+
+
+def dryrun_probes_path(dev, errs, per_path, read_path, smi) -> None:
+    """Main path T (phase 27): the dry-run's probes measured at full
+    width. For each probe of :data:`PROBES` at L = 0 and L = 1: its cell
+    (``launch.specs.input_specs``) counted once on meta tensors and once
+    on the card's (``launch.cost``), which must agree in FLOPs, bytes,
+    collective records, kernel calls and peak live bytes; the kernel
+    calls the card's count records equal to the launch counters' rise;
+    the step timed without the counter (one warm-up call, then
+    :data:`PROBE_CALLS` calls on the host clock ending in a synchronize);
+    the count's bound (the larger of FLOPs at 989 TFLOP/s and bytes at
+    3.35 TB/s) against the measured ms, at most 100%; the measured peak
+    within :data:`PROBE_PEAK_BAND` of the meta count's, plus
+    :data:`PROBE_PEAK_SLACK`; the layer's increment (L1 − L0) counted and
+    measured. Every launch counter is set to 0 before the path and read
+    after it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import (LogicalMesh, make_host_mesh,
+                                         set_mesh)
+    from repro_torch.launch.specs import input_specs
+
+    # -- 27. main path T: the dry-run's probes on the card ---------------
+    t_path = time.perf_counter()
+    reset_launch_counts()
+    for (name, arch, kind, batch, seq, vocab, mesh_shape,
+         want_kernels) in PROBES:
+        full = get_config(arch)
+        mesh = (make_host_mesh(mesh_shape, device=dev) if mesh_shape
+                else LogicalMesh(("data", "model"), (1, 1)))
+        ambient = mesh if mesh_shape else None
+        shape = ShapeConfig(name, seq, batch, kind)
+        at = {}
+        for layers in (0, 1):
+            cfg = dataclasses.replace(full, num_layers=layers)
+            if vocab:
+                cfg = dataclasses.replace(cfg, vocab_size=vocab)
+            cell = input_specs(cfg, shape, mesh)
+            with set_mesh(ambient):
+                _, on_meta = cost.count(cell.fn, *cell.abstract_args)
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            args = probe_args(cfg, kind, batch, seq, dev, 27 + layers)
+            # one card holds every logical device's rows: whole arguments
+            argument = sum(t.numel() * t.element_size()
+                           for a in args for t in _leaves(a))
+            with set_mesh(ambient):
+                c0 = launch_counts()
+                with cost.CostCounter() as counter:
+                    probe_step(cell, args, kind)
+                torch.cuda.synchronize()
+                launched = {k: v - c0[k] for k, v in launch_counts().items()
+                            if v != c0[k]}
+                on_card = counter.cost
+                probe_step(cell, args, kind)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(PROBE_CALLS):
+                    probe_step(cell, args, kind)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / PROBE_CALLS
+            peak = torch.cuda.max_memory_allocated() - base
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(on_meta.key() == on_card.key(),
+                  f"path {name} L={layers}: the meta count {on_meta} "
+                  f"differs from the card's {on_card}")
+            check(launched == on_card.kernels,
+                  f"path {name} L={layers}: the count's kernel calls "
+                  f"{on_card.kernels} are not the launches {launched}")
+            if layers:
+                for k in want_kernels:
+                    check(launched.get(k, 0) > 0, f"path {name} L=1 did "
+                          f"not launch {k}: {launched}")
+            flops_ms = on_meta.flops / BF16_FLOPS_PER_S * 1e3
+            bytes_ms = on_meta.bytes / HBM_BYTES_PER_S * 1e3
+            bound = max(flops_ms, bytes_ms)
+            share = bound / ms
+            check(share <= 1.0, f"path {name} L={layers}: the count's "
+                  f"bound {bound:.4f} ms exceeds the measured {ms:.4f} ms: "
+                  f"the count left out work")
+            predicted = argument + on_meta.peak_bytes
+            lo, hi = PROBE_PEAK_BAND
+            check(lo * predicted <= peak <= hi * predicted
+                  + PROBE_PEAK_SLACK,
+                  f"path {name} L={layers}: measured peak {peak} B outside "
+                  f"[{lo}, {hi}] x the predicted {predicted} B (+ "
+                  f"{PROBE_PEAK_SLACK} B)")
+            at[layers] = (on_meta, ms)
+            coll = ", ".join(f"{op} {rb} B over {n}" for op, rb, n in
+                             sorted(set(on_meta.collectives))) or "none"
+            print(f"path {name} ({smi}): {cfg.name} {kind} "
+                  f"({batch} x {seq}) at L={layers}"
+                  + (f", vocabulary {cfg.vocab_size}" if vocab else "")
+                  + (f", under {mesh}" if mesh_shape else "")
+                  + f": counted {on_meta.flops} FLOPs, {on_meta.bytes} B "
+                  f"(meta = card: FLOPs, bytes, {len(on_meta.collectives)} "
+                  f"collective records ({coll}), kernel calls "
+                  f"{on_meta.kernels}, peak live bytes); bound "
+                  f"{bound:.4f} ms by "
+                  f"{'operations' if flops_ms >= bytes_ms else 'bytes'} "
+                  f"(FLOPs {flops_ms:.4f} ms, bytes {bytes_ms:.4f} ms); "
+                  f"measured {ms:.4f} ms a call ({PROBE_CALLS} calls, host "
+                  f"clock): {share:.1%} of bound; peak {peak / 2**30:.3f} "
+                  f"GiB measured (max_memory_allocated) vs "
+                  f"{predicted / 2**30:.3f} GiB predicted (arguments "
+                  f"{argument / 2**30:.3f} + the count's peak live "
+                  f"{on_meta.peak_bytes / 2**30:.3f})", flush=True)
+        (c0_, ms0), (c1_, ms1) = at[0], at[1]
+        df, db = c1_.flops - c0_.flops, c1_.bytes - c0_.bytes
+        dbound = max(df / BF16_FLOPS_PER_S, db / HBM_BYTES_PER_S) * 1e3
+        print(f"path {name}: the layer's increment (L1 - L0): counted {df} "
+              f"FLOPs, {db} B, bound {dbound:.4f} ms; measured "
+              f"{ms1 - ms0:.4f} ms"
+              + (f" ({dbound / (ms1 - ms0):.1%} of bound)"
+                 if ms1 > ms0 else ""), flush=True)
+        del mesh, ambient
+    read_path("T")
+    print(f"path T: {time.perf_counter() - t_path:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5376,16 +5591,19 @@ def main() -> int:
     mixtral_mesh_path(dev, errs, per_path, read_path, smi, at_l)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_probes_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-S): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-T): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 27. report --------------------------------------------------------
+    # -- 28. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -81,10 +81,14 @@ from repro_torch.comm.telemetry import TimelineRecorder
 from repro_torch.core import pipelining as pl
 from repro_torch.core.topology import Topology
 from repro_torch.kernels._graph import GraphProgram
+from repro_torch.launch import cost
 
 
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """``None`` → ``cuda`` (raises when no GPU is present)."""
+def resolve_device(device: torch.device | str | None, *,
+                   allow_meta: bool = False) -> torch.device:
+    """``None`` → ``cuda`` (raises when no GPU is present). ``meta`` is
+    accepted only where the caller allows it (a step built to be counted,
+    :mod:`repro_torch.launch.cost`), and only when asked for by name."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -92,6 +96,8 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
                 "available; pass device='cpu' for the plain versions")
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
+    if device.type == "meta" and allow_meta:
+        return device
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     if device.type == "cuda" and device.index is None:
@@ -127,23 +133,31 @@ class BoundCollectives:
     """Multipath collectives over device-stacked tensors ``(n, ...)``,
     bound to a session's axis name (part of the collective keys). For use
     inside a captured step's kernels; the driver-level captured
-    counterparts over global tensors live on :class:`CommSession`."""
+    counterparts over global tensors live on :class:`CommSession`. Each
+    call is one collective record of a cost count
+    (:func:`~repro_torch.launch.cost.stacked_collective`); the eager
+    compositions run on meta tensors too."""
 
     axis_name: str
 
     def all_gather(self, xs: torch.Tensor) -> torch.Tensor:
+        cost.stacked_collective("all-gather", xs)
         return coll.bidir_ring_all_gather(xs)
 
     def reduce_scatter(self, xs: torch.Tensor) -> torch.Tensor:
+        cost.stacked_collective("reduce-scatter", xs)
         return coll.bidir_ring_reduce_scatter(xs)
 
     def all_reduce(self, xs: torch.Tensor) -> torch.Tensor:
+        cost.stacked_collective("all-reduce", xs)
         return coll.multipath_all_reduce(xs)
 
     def all_to_all(self, xs: torch.Tensor) -> torch.Tensor:
+        cost.stacked_collective("all-to-all", xs)
         return coll.multipath_all_to_all(xs)
 
     def psum(self, xs: torch.Tensor) -> torch.Tensor:
+        cost.stacked_collective("all-reduce", xs)
         return coll.psum_via_multipath(xs)
 
     def pmean(self, xs: torch.Tensor) -> torch.Tensor:
@@ -295,7 +309,11 @@ class CommSession:
              block: bool = True) -> torch.Tensor:
         """Send 1-D ``x`` from logical device ``src`` to ``dst``; returns
         the received message. Captured graphs are cached per (src, dst,
-        size, config, dispatch schedule)."""
+        size, config, dispatch schedule). A cost count records it as one
+        collective-permute of the message's bytes."""
+        cost.record_collective("collective-permute",
+                               x.numel() * x.element_size(),
+                               self.num_devices)
         return self.engine.transfer(
             x, src, dst, window=self.config.window if window is None
             else window, max_paths=max_paths, num_chunks=num_chunks,
@@ -327,7 +345,9 @@ class CommSession:
         Tensors may be any shape/dtype (flattened on the wire, restored on
         return). ``src == dst`` and empty tensors are per-item no-ops
         returned unchanged. ``exclusive=True`` demands group-level link
-        exclusivity and raises if the topology cannot provide it.
+        exclusivity and raises if the topology cannot provide it. A cost
+        count records each moved message as one collective-permute of its
+        bytes.
         """
         items = list(items)
         results: list[torch.Tensor | None] = [None] * len(items)
@@ -338,6 +358,9 @@ class CommSession:
                 results[i] = x
                 continue
             live.append((i, x, src, dst))
+            cost.record_collective("collective-permute",
+                                   x.numel() * x.element_size(),
+                                   self.num_devices)
         if live:
             outs = self.engine.transfer_group(
                 [x.reshape(-1) for _, x, _, _ in live],

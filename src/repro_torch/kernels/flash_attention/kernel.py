@@ -31,6 +31,9 @@ forward through its loads and ``wgmma`` layouts, and
 testing them on the card.
 :data:`LAUNCHES` counts forward launches, :data:`LAUNCHES_BWD` backward
 calls (three CUDA launches each: the row sums of dO·O, dK and dV, dQ).
+A meta tensor, which a cost count (:mod:`repro_torch.launch.cost`)
+passes, takes the CUDA wrappers' checks and gets empty outputs, launching
+nothing; on both the wrappers report the kernel's formula to the counter.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_mask,
                                                      attention_ref)
@@ -166,12 +170,20 @@ def _bwd_lib():
     return fn
 
 
+def base_address(t: torch.Tensor) -> int:
+    """``t``'s data pointer; for a meta tensor, which has none, its offset
+    into its storage in bytes (a storage's base is aligned on the card)."""
+    if t.device.type == "meta":
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def tma_aligned(t: torch.Tensor) -> bool:
     """Whether bfloat16 ``t`` suits the tensor-core kernels' TMA loads: a
     16-byte aligned base, and batch, head and position strides in multiples
     of 8 elements (16 bytes) wherever that dimension has more than one
     entry."""
-    return t.data_ptr() % 16 == 0 and all(
+    return base_address(t) % 16 == 0 and all(
         st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
@@ -185,11 +197,12 @@ def check_tma_alignment(name: str, t: torch.Tensor) -> None:
 
 
 def _check_cuda_operands(q, operands, *, backward: bool = False) -> None:
-    """Raise ``ValueError`` unless every ``(name, tensor)`` is a CUDA
-    tensor on q's device, of q's dtype (float32 or bfloat16), with a
-    contiguous head dim, in a head dim :func:`check_head_dim` admits."""
+    """Raise ``ValueError`` unless every ``(name, tensor)`` is a CUDA (or,
+    to be counted, meta) tensor on q's device, of q's dtype (float32 or
+    bfloat16), with a contiguous head dim, in a head dim
+    :func:`check_head_dim` admits."""
     for name, t in operands:
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type not in ("cuda", "meta") or t.device != q.device:
             raise ValueError(f"flash_attention kernel needs CUDA tensors on "
                              f"one device, got {name} on {t.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
@@ -214,7 +227,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     new float32 ``(B, Hq, S)`` of each row's log-sum-exp. q, k and v may
     have any strides over batch, head and position but a contiguous head
     dim (bfloat16: aligned as :func:`check_tma_alignment` says); any other
-    layout, dtype or head dim (:func:`check_head_dim`) raises."""
+    layout, dtype or head dim (:func:`check_head_dim`) raises. Meta
+    tensors get the same checks and empty outputs, and launch nothing;
+    both report the kernel's formula to the cost counter
+    (:func:`~repro_torch.launch.cost.record_kernel`)."""
     global LAUNCHES
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v)))
@@ -227,15 +243,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                b, hq, k.shape[1], s, d, float(scale), int(bool(causal)),
-                -1 if window is None else int(window),
-                _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_attention")
-    LAUNCHES += 1
+    if q.device.type == "cuda":
+        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), None if lse is None else lse.data_ptr(),
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    b, hq, k.shape[1], s, d, float(scale),
+                    int(bool(causal)), -1 if window is None else int(window),
+                    _DTYPE_CODES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(rc, "flash_attention")
+        LAUNCHES += 1
+    cost.record_kernel("flash_attention",
+                       cost.attention_flops(b, hq, s, d, causal, window),
+                       (q, k, v), (out, lse))
     return (out, lse) if return_lse else out
 
 
@@ -252,7 +272,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     as :func:`check_tma_alignment` says. The head dim is one
     :func:`check_head_dim` admits (at 192 the bfloat16 dK/dV kernel runs
     two warpgroups a block, one for dK and one for dV). Anything else
-    raises."""
+    raises. Meta tensors as :func:`flash_attention_cuda` takes them."""
     global LAUNCHES_BWD
     check_shapes(q, k, v, window)
     _check_cuda_operands(q, (("q", q), ("k", k), ("v", v), ("o", o),
@@ -277,16 +297,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    *do.stride()[:3], b, hq, k.shape[1], s, d, float(scale),
-                    int(bool(causal)), -1 if window is None else int(window),
-                    _DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_attention_bwd")
-    LAUNCHES_BWD += 1
+    if q.device.type == "cuda":
+        rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                        *v.stride()[:3], *do.stride()[:3], b, hq, k.shape[1],
+                        s, d, float(scale), int(bool(causal)),
+                        -1 if window is None else int(window),
+                        _DTYPE_CODES[q.dtype],
+                        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(rc, "flash_attention_bwd")
+        LAUNCHES_BWD += 1
+    cost.record_kernel("flash_attention_bwd",
+                       cost.attention_bwd_flops(b, hq, s, d, causal, window),
+                       (q, k, v, o, lse, do), (dq, dk, dv, delta))
     return dq, dk, dv
 
 

@@ -57,9 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to 128, and 192 (:func:`~.kernel.check_head_dim`), and raises on any
     other: through :class:`FlashAttentionFn`, whose backward
     is the backward kernel, when grad is enabled and q, k or v requires
-    grad, else the forward alone. A CPU tensor goes through the plain
+    grad, else the forward alone. A meta tensor, which a cost count
+    passes, takes the card's branch. A CPU tensor goes through the plain
     version (differentiable by autograd); any other device raises."""
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttentionFn.apply(q, k, v, causal, window, scale)
@@ -72,8 +73,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_flops(q_shape, k_shape) -> int:
-    """Nominal FLOP count of one attention call: ``2·B·H·Sq·Sk·D`` for
-    QKᵀ plus the same again for the value matmul."""
+    """Nominal FLOP count of one attention call, the lane model's price of
+    a capture's node (the reference's): ``2·B·H·Sq·Sk·D`` for QKᵀ plus the
+    same again for the value matmul, whatever the mask keeps (the cost
+    count's formula is :func:`repro_torch.launch.cost.attention_flops`)."""
     b, h, sq, d = q_shape
     sk = k_shape[2]
     return 4 * b * h * sq * sk * d

@@ -13,7 +13,9 @@ is ``out[d]: (n, rows, f)``; the ring's copies run between replicas.
 :func:`ring_allgather_plain` replays the same ring step by step with
 ``torch.roll`` and slice writes, the plain PyTorch version used for CPU
 tensors and as the check of the kernel on the card. :data:`LAUNCHES` counts
-kernel launches.
+kernel launches. A meta tensor, which a cost count
+(:mod:`repro_torch.launch.cost`) passes, gets the CUDA wrapper's checks
+and an empty output, launching nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 
 #: Largest tile, in bytes, that one block copies in one work item.
 TILE_BYTES = 128 << 10
@@ -116,9 +119,12 @@ def ring_allgather_cuda(xs: torch.Tensor, *,
     """Launch the kernel on a CUDA tensor ``xs: (n, rows, f)``; returns a
     new ``(n, n, rows, f)`` tensor. ``state``, when given, receives the
     kernel's state words (``state[1]`` = completed items after the run);
-    it must hold at least ``2 + num_items`` int32 words."""
+    it must hold at least ``2 + num_items`` int32 words. A meta tensor
+    gets the same checks and an empty output, and launches nothing; both
+    report the kernel's bytes to the cost counter
+    (:func:`~repro_torch.launch.cost.record_kernel`)."""
     global LAUNCHES
-    if xs.device.type != "cuda":
+    if xs.device.type not in ("cuda", "meta"):
         raise ValueError(f"ring_allgather kernel needs a CUDA tensor, got "
                          f"{xs.device}")
     if xs.dim() != 3 or xs.numel() == 0:
@@ -136,12 +142,15 @@ def ring_allgather_cuda(xs: torch.Tensor, *,
         raise ValueError("state must be int32 on the input's device with "
                          f"at least {2 + g.num_items} words")
     state.zero_()
-    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
-    grid = max(1, min(g.num_items, _BLOCKS_PER_SM * sms))
-    rc = _lib()(xs.data_ptr(), out.data_ptr(), state.data_ptr(), g.n,
-                g.rows, g.f, g.itemsize, g.half, g.ndir, g.rpt, g.cc,
-                g.rtiles, g.ctiles, g.num_items, grid,
-                torch.cuda.current_stream(xs.device).cuda_stream)
-    _build.check(rc, "ring_allgather")
-    LAUNCHES += 1
+    if xs.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(
+            xs.device).multi_processor_count
+        grid = max(1, min(g.num_items, _BLOCKS_PER_SM * sms))
+        rc = _lib()(xs.data_ptr(), out.data_ptr(), state.data_ptr(), g.n,
+                    g.rows, g.f, g.itemsize, g.half, g.ndir, g.rpt, g.cc,
+                    g.rtiles, g.ctiles, g.num_items, grid,
+                    torch.cuda.current_stream(xs.device).cuda_stream)
+        _build.check(rc, "ring_allgather")
+        LAUNCHES += 1
+    cost.record_kernel("ring_allgather", 0, (xs,), (out,))
     return out

@@ -13,8 +13,9 @@ def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
     """Bidirectional-ring all-gather of the stacked shards
     ``xs: (n, rows, f)`` → ``(n, n, rows, f)``; ``out[d]`` is device
     ``d``'s replica. A CUDA tensor goes through the hand-written kernel
-    (or raises); a CPU tensor through the plain version."""
-    if xs.device.type == "cuda":
+    (or raises), and so does a meta tensor, which a cost count passes; a
+    CPU tensor through the plain version."""
+    if xs.device.type in ("cuda", "meta"):
         return ring_allgather_cuda(xs)
     if xs.device.type == "cpu":
         return ring_allgather_plain(xs)

@@ -48,7 +48,10 @@ chunk at once gives dr, dk, dv, the bonus's du and the log-decay gradient,
 cumsum of the ``exp(±c)`` factors' gradients (``r·dr`` and ``−k·dk`` of
 the decayed paths) plus the chunk's state-decay term. Kernel source
 ``csrc/rwkv6_scan_bwd.cu``; :data:`LAUNCHES_BWD` counts calls of
-:func:`rwkv6_scan_bwd_cuda`.
+:func:`rwkv6_scan_bwd_cuda`. A meta tensor, which a cost count
+(:mod:`repro_torch.launch.cost`) passes, takes the CUDA wrappers' checks
+and gets empty outputs, launching nothing; on both the wrappers report
+the kernels' formula to the counter.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 
 #: dk and dv the kernel is built for.
 DIMS = (8, 16, 32, 64)
@@ -290,7 +294,7 @@ def _check_cuda(r, k, v, w, u, chunk, out_dtype) -> torch.dtype:
     the output dtype."""
     check_shapes(r, k, v, w, u, chunk)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        if t.device.type != "cuda" or t.device != r.device:
+        if t.device.type not in ("cuda", "meta") or t.device != r.device:
             raise ValueError(f"rwkv6_scan kernel needs CUDA tensors on one "
                              f"device, got {name} on {t.device}")
         if t.stride(-1) != 1 and t.shape[-1] > 1:
@@ -319,7 +323,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     keep 16-byte loads aligned, else a contiguous copy (whose rows are
     16-byte multiples for every dim in :data:`DIMS`)."""
     n = 16 // t.element_size()
-    if t.data_ptr() % 16 == 0 and all(
+    base = (t.storage_offset() * t.element_size() if t.device.type == "meta"
+            else t.data_ptr())
+    if base % 16 == 0 and all(
             st % n == 0 for st, size in zip(t.stride()[:3], t.shape[:3])
             if size > 1):
         return t
@@ -365,13 +371,20 @@ def rwkv6_scan_fwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     most :data:`MAX_CHUNK`; ``out_dtype`` float32 or bfloat16. Returns
     ``(o, state, states)``: the output, the final state and the ``(B, H,
     S / chunk, dk, dv)`` chunk-start workspace the backward kernel starts
-    from; anything else raises."""
+    from; anything else raises. Meta tensors get the same checks and
+    empty outputs, and launch nothing; both report the kernels' formula
+    to the cost counter (:func:`~repro_torch.launch.cost.record_kernel`)."""
     global LAUNCHES
     out_dtype = _check_cuda(r, k, v, w, u, chunk, out_dtype)
     r, k, v, w = (aligned16(t) for t in (r, k, v, w))
     o, state, ws = _buffers(r, v, chunk, out_dtype)
-    _launch("rwkv6_scan_launch", r, k, v, w, u, o, state, ws, chunk)
-    LAUNCHES += 1
+    if r.device.type == "cuda":
+        _launch("rwkv6_scan_launch", r, k, v, w, u, o, state, ws, chunk)
+        LAUNCHES += 1
+    b, s, h, dk = r.shape
+    cost.record_kernel("rwkv6_scan",
+                       cost.rwkv6_scan_flops(b, s, h, dk, v.shape[-1]),
+                       (r, k, v, w, u), (o, state, ws))
     return o, state, ws
 
 
@@ -497,13 +510,19 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels load 16 bytes at a time, so an operand off that grid is
     copied first (:func:`bwd_operands`). Returns
     ``(dr, dk, dv, dw, du)`` as :func:`rwkv6_scan_bwd_plain` does;
-    anything else raises."""
+    anything else raises. Meta tensors as :func:`rwkv6_scan_fwd_cuda`
+    takes them."""
     global LAUNCHES_BWD
     _check_bwd(r, k, v, w, u, do, dstate, states, chunk)
     r, k, v, w, do, dstate, states = bwd_operands(r, k, v, w, do, dstate,
                                                   states)
     bufs = _bwd_buffers(r, v, chunk)
-    _launch_bwd(r, k, v, w, u, do, dstate, states, bufs, chunk)
-    LAUNCHES_BWD += 1
+    if r.device.type == "cuda":
+        _launch_bwd(r, k, v, w, u, do, dstate, states, bufs, chunk)
+        LAUNCHES_BWD += 1
+    b, s, h, ndk = r.shape
+    cost.record_kernel("rwkv6_scan_bwd",
+                       cost.rwkv6_scan_bwd_flops(b, s, h, ndk, v.shape[-1]),
+                       (r, k, v, w, u, do, dstate, states), bufs)
     dr, dk, dv, dw, _, _, du = bufs
     return dr, dk, dv, dw, du

@@ -57,10 +57,11 @@ def chunked_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hand-written kernel, which takes dk, dv in 8, 16, 32, 64 and chunks up
     to 64 and raises on anything else: through :class:`RWKV6ScanFn`,
     whose backward is the backward kernel, when grad is enabled and an
-    input requires grad, else the forward alone. A CPU tensor goes
-    through the plain version (differentiable by autograd); any other
-    device raises."""
-    if r.device.type == "cuda":
+    input requires grad, else the forward alone. A meta tensor, which a
+    cost count passes, takes the card's branch. A CPU tensor goes through
+    the plain version (differentiable by autograd); any other device
+    raises."""
+    if r.device.type in ("cuda", "meta"):
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (r, k, v, w, u)):
             o, state = RWKV6ScanFn.apply(r, k, v, w, u, chunk, out_dtype)

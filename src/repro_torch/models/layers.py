@@ -4,7 +4,7 @@ Attention comes in three flavours, as in the reference:
 
 * ``naive_attention``     — materialises (Sq, Sk); used for short sequences.
 * ``blockwise_attention`` — online softmax over KV blocks. On a CUDA
-                            tensor with ``Sq == Sk`` it runs the
+                            (or meta) tensor with ``Sq == Sk`` it runs the
                             hand-written ``flash_attention`` kernel, the
                             same function (under autograd with its
                             backward kernel); on the CPU it keeps the
@@ -151,14 +151,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On a CUDA tensor this is the ``flash_attention`` kernel (``Sq == Sk``
     only: the kernel's rows and columns are the same positions; other
-    shapes raise). On the CPU: the naive version when ``Sk <= block_k``,
-    else the plain blockwise loop, which never holds more than
-    (..., Sq, block_k) scores.
+    shapes raise), and so on a meta tensor, which a cost count passes. On
+    the CPU: the naive version when ``Sk <= block_k``, else the plain
+    blockwise loop, which never holds more than (..., Sq, block_k)
+    scores.
     """
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     window = _window(window)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if sq != sk:
             raise ValueError(f"the flash_attention kernel takes Sq == Sk, "
                              f"got Sq={sq}, Sk={sk}")

@@ -21,7 +21,9 @@ emulation of a mesh (every logical device a row on one ``torch.device``,
   at most k rows and the others add zeros; under expert-TP the psum adds
   the ff-shards' partial sums. Under autograd the combine's backward is
   the psum of the cotangent rows, through the same ring
-  (:class:`CombineFn`).
+  (:class:`CombineFn`). A cost count of meta tensors on a mesh with no
+  session (the production shape) records each collective call in place
+  of running it (:class:`~repro_torch.launch.cost.CountingCollectives`).
 
 Every call of the ring records its own kernel launches, so a layer under
 a mesh can be captured in a CUDA graph (the serving programs, a captured
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.models.moe import (Routes, aux_loss, capacity_of, combine,
                                     expert_ffn, route)
@@ -61,11 +64,19 @@ def _mesh_info():
     model = mesh.shape.get("model", 1)
     if model <= 1:
         return None
-    if mesh.session is None:
-        raise ValueError(f"{mesh} has no session to run its model-axis "
-                         f"psum on")
     dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     return mesh, dp, model
+
+
+def _collectives(mesh, x: torch.Tensor):
+    """The mesh session's collectives; for a mesh with no session (the
+    production shape), while a cost count of meta tensors is in force, its
+    counting stand-in, which records each call and runs nothing."""
+    if mesh.session is not None:
+        return mesh.session.collectives
+    if x.device.type == "meta" and cost.active() is not None:
+        return cost.CountingCollectives()
+    raise ValueError(f"{mesh} has no session to run its model-axis psum on")
 
 
 def _gather_data_shards(w: torch.Tensor, dim: int, data: int,
@@ -134,6 +145,7 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
     if info is None:
         return None
     mesh, dp, model = info
+    coll = _collectives(mesh, x)
     t, d = x.shape
     e = params["router"].shape[-1]
     ndp = 1
@@ -144,7 +156,6 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
     tl = t // ndp
     capacity = capacity_of(tl, e, top_k, capacity_factor, dropless)
     ep = e % model == 0
-    coll = mesh.session.collectives
     probs = torch.softmax(x.float() @ params["router"], dim=-1)
     aux = aux_loss(probs, torch.topk(probs, top_k, dim=-1).indices)
 

@@ -73,6 +73,7 @@ from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        blockwise_attention,
                                        chunked_decode_attention, mlp_apply,
                                        mlp_init, rms_norm)
+from repro_torch.tree import leaves
 
 Params = dict
 Cache = dict
@@ -178,13 +179,34 @@ def param_shapes(cfg: ArchConfig) -> Params:
     return init_params(cfg, generator=None, device="meta")
 
 
+# module-level recursion: a recursive closure is a reference cycle, which
+# would hold the views it makes (so the parameters) until the cyclic
+# collector runs
+def _pick(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _pick(t, i) for k, t in tree.items()}
+    return tree[i]
+
+
+def _unbind(tree):
+    if isinstance(tree, dict):
+        return {k: _unbind(t) for k, t in tree.items()}
+    return torch.unbind(tree)
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s view of the stacked layer parameters."""
-    def take(tree):
-        if isinstance(tree, dict):
-            return {k: take(t) for k, t in tree.items()}
-        return tree[i]
-    return take(params["layers"])
+    return _pick(params["layers"], i)
+
+
+def unstacked_layers(params: Params) -> list[Params]:
+    """Every layer's views of the stacked layer parameters, from one
+    ``torch.unbind`` a leaf. Under autograd a leaf's gradient is then ONE
+    stack of the layers' gradients; indexing the stack once a layer
+    (:func:`layer_params`) would give each layer a zero-filled gradient of
+    the whole stack, summed: traffic and memory quadratic in ``L``."""
+    cols = _unbind(params["layers"])
+    return [_pick(cols, i) for i in range(len(leaves(cols)[0]))]
 
 
 # ============================ full-sequence path =============================
@@ -284,8 +306,8 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for i, window in enumerate(layer_windows(cfg)):
-        lp = layer_params(params, i)
+    layers = unstacked_layers(params)
+    for lp, window in zip(layers, layer_windows(cfg)):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 block_apply, x, lp, cfg, window, positions,

@@ -115,10 +115,12 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     ``state = {"params": ..., "opt": ...}`` on ``device`` (default: the
-    card); batch: tensors on it. With ``ts.microbatches > 1`` the batch's
-    leading dim is split and gradients are accumulated in float32. Metrics
-    ``loss``, ``grad_norm`` and ``lr`` are 0-d tensors on the device."""
-    resolve_device(device)
+    card; ``"meta"`` for a step that is only counted,
+    :mod:`repro_torch.launch.cost`); batch: tensors on it. With
+    ``ts.microbatches > 1`` the batch's leading dim is split and gradients
+    are accumulated in float32. Metrics ``loss``, ``grad_norm`` and ``lr``
+    are 0-d tensors on the device."""
+    resolve_device(device, allow_meta=True)
     grads_of = _make_grad_fn(cfg, ts)
 
     def step(state, batch):

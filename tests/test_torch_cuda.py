@@ -1346,3 +1346,48 @@ def test_multipath_send_local_on_the_card(dev, dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out[2], xs[0]) and not out[[0, 1, 3]].any()
+
+
+@pytest.mark.parametrize("arch,kind", [("llama3_8b", "train"),
+                                       ("rwkv6_1_6b", "train"),
+                                       ("nemotron_4_340b", "prefill"),
+                                       ("mixtral_8x22b", "prefill")])
+def test_cost_count_on_meta_equals_the_cards(dev, arch, kind):
+    """A reduced cell's step (bfloat16, so the tensor-core kernels run)
+    counted on meta tensors and on the card's (``launch.cost``): equal
+    FLOPs, bytes, collective records, kernel calls and peak live bytes;
+    the card's kernel calls equal the launch counters' rise. Mixtral runs
+    under a ``(1, 4)`` mesh, its combine through the session's ring."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import LogicalMesh, make_host_mesh, set_mesh
+    from repro_torch.launch.specs import input_specs, optim_for
+    from repro_torch.training import init_state
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
+                              num_layers=2)
+    moe = bool(cfg.num_experts)
+    mesh = (make_host_mesh((1, 4), device=dev) if moe
+            else LogicalMesh(("data", "model"), (1, 1)))
+    cell = input_specs(cfg, ShapeConfig("c", 64, 4, kind), mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if kind == "train":
+        args = (init_state(cfg, optim_for(cfg), generator=gen, device=dev),
+                {"tokens": tokens, "labels": tokens,
+                 "mask": torch.ones((4, 64), device=dev)})
+    else:
+        args = (tfm.init_params(cfg, generator=gen, device=dev),
+                {"tokens": tokens})
+    with set_mesh(mesh if moe else None):
+        _, on_meta = cost.count(cell.fn, *cell.abstract_args)
+        c0 = launch_counts()
+        _, on_card = cost.count(cell.fn, *args)
+        torch.cuda.synchronize()
+    launched = {k: v - c0[k] for k, v in launch_counts().items()
+                if v != c0[k]}
+    assert on_meta.key() == on_card.key()
+    assert launched == on_card.kernels and launched
+    assert bool(on_card.collectives) == moe

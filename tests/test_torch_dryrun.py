@@ -1,4 +1,5 @@
-"""The comm layer's mesh-free pieces against the reference.
+"""The comm layer's mesh-free pieces and the dry-run's model cells against
+the reference.
 
 ``plan_signature``/``group_signature``, ``configs.shapes``, the topology
 half of ``launch.mesh``, the ``--comm`` dry-run and ``launch.report``:
@@ -6,11 +7,20 @@ each runs on both packages with the same inputs and must give EQUAL
 results — signatures, skip reasons, launch specs and topology digests,
 dry-run rows key for key (floats included), and rendered markdown.
 
+The model cells: ``body_probes`` and ``_merge_by_op`` equal the
+reference's; the cost count (``launch.cost``) of a reduced Llama's
+forward is its products' FLOPs exactly; the L=0/L=1 extrapolation equals
+the full-depth count for every reduced arch and step kind; ``run_cell``
+on reduced configs keeps the reference's keys and agrees with its rows
+where a count of the port's program can (identity, model FLOPs,
+argument bytes, FLOPs within 0.5× to 2×).
+
 Importing the reference's ``launch.dryrun`` sets ``XLA_FLAGS`` for 512
 placeholder devices (its first lines); the fixture restores the variable,
 so later subprocesses of the worker keep the test harness's setting.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -34,6 +44,7 @@ from repro_torch.comm import (PathPlanner, TransferRequest, group_signature,
                               plan_signature)
 from repro_torch.configs import load_all
 from repro_torch.configs import shapes
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.topology import Topology
 from repro_torch.launch import dryrun, mesh, report
 
@@ -237,9 +248,10 @@ def test_report_renders_like_reference(tmp_path, fail_link, capsys,
 
 
 def test_clis_run_as_modules(tmp_path):
-    """``python -m repro_torch.launch.dryrun --comm --fail-link 0:1`` and
-    ``python -m repro_torch.launch.report`` exit 0; without ``--comm`` the
-    dry-run stops with a usage error naming what it waits for."""
+    """``python -m repro_torch.launch.dryrun --comm --fail-link 0:1``, the
+    model-cell sweep of one arch and shape, and ``python -m
+    repro_torch.launch.report`` over both exit 0; the report renders the
+    model rows beside the comm rows; bad arguments are usage errors."""
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     out = tmp_path / "rows.json"
     run = subprocess.run(
@@ -255,12 +267,197 @@ def test_clis_run_as_modules(tmp_path):
     assert rep.stdout.startswith("Cells: 0 compiled, 0 skipped, 0 errors; "
                                  "24 transfer graphs; 40 schedule cells; "
                                  "4 fault cells.")
-    bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun"],
+    # the model cells: one arch and shape on both production meshes, into
+    # the same JSON, then the report renders them beside the comm rows
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-360m", "--shape", "decode_32k", "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert "dry-run complete: ok=2 skipped=0 error=0" in run.stdout
+    rows = json.loads(out.read_text())
+    cells = [r for r in rows if r.get("arch") == "smollm_360m"]
+    assert [r["mesh"] for r in cells] == ["single_pod_16x16",
+                                          "multi_pod_2x16x16"]
+    assert all(r["status"] == "ok" and r["chips"] in (256, 512)
+               and r["note"] == dryrun.NOTE for r in cells)
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", str(out)],
         capture_output=True, text=True, env=env, timeout=120)
-    assert bad.returncode == 2 and "cost analysis" in bad.stderr
+    assert rep.returncode == 0, rep.stderr
+    assert rep.stdout.startswith("Cells: 2 compiled, 0 skipped, 0 errors; "
+                                 "24 transfer graphs;")
+    assert "| smollm_360m | decode_32k | decode |" in rep.stdout
+    assert "### Mesh `multi_pod_2x16x16`" in rep.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--fail-link",
+         "0:1"], capture_output=True, text=True, env=env, timeout=120)
+    assert bad.returncode == 2 and "--comm" in bad.stderr
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--comm",
          "--fail-link", "0-1"], capture_output=True, text=True, env=env,
         timeout=120)
     assert bad.returncode == 2 and "SRC:DST" in bad.stderr
+
+
+# -- the model cells: specs, cost counts, probes, rows ----------------------
+
+REDUCED = sorted(jload_all())
+KINDS = {"train": ShapeConfig("train", 128, 8, "train"),
+         "prefill": ShapeConfig("prefill", 128, 8, "prefill"),
+         "decode": ShapeConfig("decode", 128, 8, "decode")}
+#: Bytes the L=0/L=1 extrapolation adds a layer past the first: 0-d terms
+#: that a non-empty layer stack brings once a step, which the L=1 probe's
+#: increment carries into every layer. Mixtral: the aux loss's scale in
+#: the backward (a float32 read and write); Kimi K2 also its int8 moments'
+#: absmax scales (the empty stack of the L=0 probe takes the codec's
+#: empty-leaf branch).
+ONCE_A_STEP = {("mixtral_8x22b", "train"): 8,
+               ("kimi_k2_1t_a32b", "train"): 528}
+
+
+def small_mesh():
+    return mesh.LogicalMesh(("data", "model"), (2, 4))
+
+
+@pytest.mark.parametrize("name", REDUCED)
+def test_body_probes_equal_the_reference(jdryrun, name):
+    from repro_torch.configs import get_config
+
+    got = dryrun.body_probes(get_config(name))
+    want = jdryrun.body_probes(jload_all()[name])
+    assert [(n, dataclasses.asdict(c)) for n, c in got] == \
+        [(n, dataclasses.asdict(c)) for n, c in want]
+    assert sum(n for n, _ in got) == get_config(name).num_layers
+
+
+def test_merge_by_op_equals_the_reference(jdryrun):
+    base = {"all-reduce": {"count": 2, "wire_bytes": 10.0}}
+    body = {"all-reduce": {"count": 1, "wire_bytes": 3.0},
+            "all-gather": {"count": 4, "wire_bytes": 1.5}}
+    assert dryrun._merge_by_op(base, body, 7) == \
+        jdryrun._merge_by_op(base, body, 7)
+    assert base == {"all-reduce": {"count": 2, "wire_bytes": 10.0}}
+
+
+def test_forward_flops_of_a_reduced_llama_are_its_products():
+    """The prefill cell's FLOPs on meta are the products' ``2·m·n·k``
+    (projections, the MLP, RMSNorm's row sums, the head) plus the
+    attention kernel's ``4·D`` a pair its causal mask keeps, exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost
+
+    cfg = get_config("llama3_8b").reduced()
+    b, s = 8, 128
+    _, (_, counted) = dryrun.lower_and_compile(cfg, KINDS["prefill"],
+                                               small_mesh())
+    t, d, h, kv, hd = b * s, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim_
+    layer = (2 * t * d * h * hd + 2 * 2 * t * d * kv * hd
+             + 2 * t * h * hd * d + 3 * 2 * t * d * cfg.d_ff
+             + 4 * b * h * hd * s * (s + 1) // 2 + 2 * 2 * t * d)
+    want = (cfg.num_layers * layer + 2 * t * d
+            + 2 * t * d * cfg.vocab_size)
+    assert counted.flops == want
+    assert counted.kernels == {"flash_attention": cfg.num_layers}
+    assert cost.attention_flops(b, h, s, hd, True, None) == \
+        4 * b * h * hd * s * (s + 1) // 2
+
+
+@pytest.mark.parametrize("name,kind", [
+    (a, k) for a in REDUCED for k in sorted(KINDS)
+    if k != "decode" or jload_all()[a].causal])      # an encoder: no decode
+def test_extrapolated_cost_equals_the_full_depth_count(name, kind):
+    """The L=0/L=1 probes extrapolate to the full-depth count of every
+    reduced arch: FLOPs, collective records and their wire bytes exactly;
+    HBM bytes exactly but for :data:`ONCE_A_STEP`."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    m = small_mesh()
+    flops, hbm, wire, by_op = dryrun.extrapolated_cost(cfg, KINDS[kind], m)
+    _, (_, full) = dryrun.lower_and_compile(cfg, KINDS[kind], m)
+    f, b, w, ops = dryrun._cost_tuple(full)
+    assert (flops, wire, by_op) == (f, w, ops)
+    extra = ONCE_A_STEP.get((name, kind), 0)
+    assert hbm - b == (cfg.num_layers - 1) * extra
+    assert flops > 0 and b > 0 and full.peak_bytes > 0
+    assert bool(wire) == bool(cfg.num_experts)
+
+
+RUN_CELLS = [(a, k) for a in ("llama3_8b", "mixtral_8x22b", "rwkv6_1_6b")
+             for k in ("train", "prefill", "decode")]
+
+
+@pytest.mark.parametrize("name,kind", RUN_CELLS)
+def test_run_cell_against_the_reference(jdryrun, name, kind):
+    """``run_cell`` of a reduced config on a ``(2, 4)`` mesh (the port's
+    with a CPU session, so an MoE layer's combine runs the ring on meta)
+    against the reference's on the test harness's 8 CPU devices: the same
+    keys; equal identity, kind, chips, description and model FLOPs;
+    argument bytes to 1e-9 (the reference's compiled decode step of
+    RWKV-6 drops its unused position, 4 bytes); FLOPs × chips within 0.5×
+    to 2× of the compiler's count (which counts elementwise work too)."""
+    from repro.compat import make_mesh
+    from repro.configs.shapes import ShapeConfig as JShapeConfig
+    from repro_torch.configs import get_config
+
+    sh = KINDS[kind]
+    want = jdryrun.run_cell(jload_all()[name].reduced(),
+                            JShapeConfig(sh.name, sh.seq_len,
+                                         sh.global_batch, sh.kind),
+                            make_mesh((2, 4), ("data", "model")), "m")
+    got = dryrun.run_cell(get_config(name).reduced(), sh,
+                          mesh.make_host_mesh((2, 4), device="cpu"), "m")
+    assert got.keys() == want.keys()
+    for key in ("arch", "shape", "mesh", "status", "kind", "chips",
+                "description", "model_flops"):
+        assert got[key] == want[key], key
+    unused = 4 / 2**30 if (name, kind) == ("rwkv6_1_6b", "decode") else 0
+    assert got["argument_gb"] - unused == pytest.approx(want["argument_gb"],
+                                                        rel=1e-9)
+    ratio = got["flops"] * got["chips"] / (want["flops"] * want["chips"])
+    print(f"{name} {kind}: FLOPs x chips {ratio:.3f} of the reference's")
+    assert 0.5 <= ratio <= 2.0, ratio
+    assert got["bottleneck"] in ("compute", "memory", "collective")
+    assert got["memory_per_device_gb"] == pytest.approx(
+        got["argument_gb"] + got["output_gb"] - got["alias_gb"]
+        + got["temp_gb"], rel=1e-12)
+    # the combine: one psum a MoE layer a forward (and one in the
+    # backward), every device in one group of the model axis
+    if name == "mixtral_8x22b":
+        layers = jload_all()[name].reduced().num_layers
+        calls = {"train": 2 * layers, "prefill": layers,
+                 "decode": layers}[kind]
+        assert got["collective_by_op"]["all-reduce"]["count"] == calls
+    else:
+        assert got["collective_by_op"] == {}
+
+
+def test_a_sessionless_mesh_counts_its_collectives_on_meta_only():
+    """The production mesh has no session: an MoE layer under it raises
+    outside a count, and inside a count of meta tensors records its
+    combine and runs nothing."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("mixtral_8x22b").reduced()
+    params = tfm.param_shapes(cfg)
+    lp = tfm.layer_params(params, 0)
+    x = torch.empty((16, 4, cfg.d_model), device="meta")
+    m = mesh.LogicalMesh(("data", "model"), (2, 4))
+    with mesh.set_mesh(m):
+        with pytest.raises(ValueError, match="no session"):
+            tfm._ffn(x, lp, cfg)
+        (out, _), c = cost.count(tfm._ffn, x, lp, cfg)
+        with pytest.raises(ValueError, match="no session"):
+            cost.count(tfm._ffn, torch.zeros((16, 4, cfg.d_model)),
+                       tfm.layer_params(tfm.init_params(
+                           cfg, generator=torch.Generator().manual_seed(0)),
+                           0), cfg)
+    assert out.shape == x.shape and out.device.type == "meta"
+    row = 32 * cfg.d_model * 4
+    assert c.collectives == [("all-reduce", row, 4)] * 2

@@ -15,6 +15,8 @@ is held to ``jax.vjp`` of the reference's ``blockwise_attention`` within
 the kernel's bound on the card (2e-2 of the largest |want|).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,9 +168,17 @@ def test_captured_kernel_folds_the_device_axis():
 
 
 def test_other_devices_raise_instead_of_running_plain():
-    q = torch.empty((1, 2, 8, 16), device="meta")
+    """A device other than the card, the CPU and meta raises; a meta
+    tensor (a cost count's) takes the card's branch and launches
+    nothing; a CPU tensor into the kernel's wrapper raises."""
+    other = types.SimpleNamespace(device=torch.device("xla", 0))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_attention(q, q, q)
+        ops.flash_attention(other, other, other)
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    launches = fk.LAUNCHES
+    out = ops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert fk.LAUNCHES == launches
     cpu = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         fk.flash_attention_cuda(cpu, cpu, cpu)

@@ -74,7 +74,9 @@ print(mod.__name__)
 @pytest.mark.parametrize("name", ["optim", "data", "training", "checkpoint",
                                   "runtime", "launch.train", "tree",
                                   "launch.mesh", "models.pspec",
-                                  "models.moe_dist", "training.sharding"])
+                                  "models.moe_dist", "training.sharding",
+                                  "launch.specs", "launch.roofline",
+                                  "launch.cost", "launch.dryrun"])
 def test_training_subpackages_import_with_jax_and_repro_blocked(name):
     out = subprocess.run(
         [sys.executable, "-c", TRAINING_IMPORT, name], capture_output=True,

@@ -9,6 +9,8 @@ its work decomposition is replayed in index order by a Python model of
 the item decode in ``csrc/ring_allgather.cu``.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,11 +116,19 @@ def test_geometry_of_the_main_path_shape():
 
 
 def test_wrappers_raise_instead_of_falling_back():
+    """A CPU tensor into the kernel's wrapper raises, and so does a device
+    other than the card, the CPU and meta; a meta tensor (a cost
+    count's) takes the card's branch and launches nothing."""
     xs = torch.zeros(4, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rk.ring_allgather_cuda(xs)
+    other = types.SimpleNamespace(device=torch.device("xla", 0))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.ring_allgather(xs.to("meta"))
+        ops.ring_allgather(other)
+    launches = rk.LAUNCHES
+    out = ops.ring_allgather(xs.to("meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (4, 4, 2, 8)
+    assert rk.LAUNCHES == launches
 
 
 def test_captured_ring_allgather_records_one_node():
