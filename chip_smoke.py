@@ -406,7 +406,21 @@ What it does, in order (any failed check exits nonzero):
     share at most 100%), ``max_memory_allocated`` within 0.9x to 1.2x of
     the predicted peak (arguments + the count's peak live bytes) plus 1
     GiB, and the layer's increment counted and measured;
-28. one JSON line ``{"kernels": [...]}``, then as the last line
+28. main path U, counters set to 0 before it and read after it: a peer
+    session, ``CommSession(schedule="auto", devices=["cuda:0"] * 4)``
+    (each logical device its own buffers on the one card, the
+    ``multipath_dma`` kernel over its per-device table with a pointer
+    table): the sends of path A (256 MiB float32 0→1 with 3 paths, twice,
+    the second a fast-path hit; 64 KiB with the planner's default), a
+    64 MiB ``bidirectional`` and a 4-message ``exchange``, then 10
+    iterations of path A's Jacobi, 4 blocks of (8, 2**22), on per-device
+    blocks; each result bitwise equal to the stacked session's (run
+    before the counters are zeroed) and every program's output to the
+    plain table's on the same operands, completed copy nodes equal to
+    each graph's, one ``multipath_dma`` launch a replay (one card); the
+    256 MiB replay, the 64 KiB send and a Jacobi iteration timed against
+    the stacked session's, in turns;
+29. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -5317,6 +5331,126 @@ def dryrun_probes_path(dev, errs, per_path, read_path, smi) -> None:
     print(f"path T: {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+def peer_path(dev, per_path, read_path, at_a: dict) -> None:
+    """Main path U (phase 28): a peer session on the one card, four
+    logical devices each with its own buffers, held bit for bit to the
+    stacked session and to the plain table, timed against it. ``at_a``:
+    path A's times (``replay256_ms``)."""
+    from repro_torch.comm import CommSession
+    from repro_torch.core.halo import jacobi_step
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    big = randn(1 << 26)                                  # 256 MiB f32
+    small = randn(16 * 1024)                              # 64 KiB
+    mid = big[: 16 * MiB]                                 # 64 MiB
+    quarter = [randn(4 * MiB) for _ in range(4)]          # 16 MiB each
+    ranks, rows, cols, iters = 4, 8, 1 << 22, 10
+    u0 = randn(ranks, rows, cols)
+
+    def traffic(sess, blocks):
+        out = [sess.send(big, 0, 1, max_paths=3),
+               sess.send(big, 0, 1, max_paths=3), sess.send(small, 0, 1)]
+        out += sess.bidirectional(mid, 0, 2, max_paths=3)
+        out += sess.exchange([(quarter[i], i, (i + 1) % 4)
+                              for i in range(4)], max_paths=3)
+        for _ in range(iters):
+            blocks = jacobi_step(blocks, session=sess)
+        return out, blocks
+
+    stacked = CommSession(schedule="auto", device=dev)
+    want, want_u = traffic(stacked, u0)
+    torch.cuda.synchronize()
+    peer = CommSession(schedule="auto", devices=[dev] * 4)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got, got_u = traffic(peer, list(u0.unbind(0)))
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    read_path("U")
+    check(per_path["U"].get("multipath_dma", 0) > 0
+          and per_path["U"].get("jacobi", 0) > 0,
+          "path U did not launch multipath_dma and jacobi")
+    check(peer.stats()["devices"] == [str(dev)] * 4,
+          "peer session does not list its devices")
+    names = ("send 256 MiB", "send 256 MiB again", "send 64 KiB",
+             "bidirectional fwd", "bidirectional rev") + tuple(
+                 f"exchange {i}->{(i + 1) % 4}" for i in range(4))
+    msgs = [big, big, small, mid, mid] + quarter
+    for name, g, w, m in zip(names, got, want, msgs):
+        check(torch.equal(g, w) and torch.equal(g, m),
+              f"path U {name} differs from the stacked session's")
+    check(all(torch.equal(a, b) for a, b in zip(got_u, want_u.unbind(0))),
+          "path U Jacobi differs from the stacked jacobi_step")
+    pentries = [e for _, e in peer.engine._fastpath._store.values()]
+    for e in pentries:
+        prog = e.compiled.program
+        check(isinstance(prog, dk.PeerDmaProgram),
+              "path U program is not a PeerDmaProgram")
+        check(prog.completed_nodes() == e.graph.num_copy_nodes,
+              f"path U completed {prog.completed_nodes()} of "
+              f"{e.graph.num_copy_nodes} copy nodes")
+        check(prog.replay_launches == {"multipath_dma": 1},
+              f"path U replay launches {prog.replay_launches}")
+        plain_y = [torch.zeros_like(y) for y in prog.y]
+        plain_stage = [torch.empty_like(st) for st in prog.stage]
+        prog.replay()
+        dk.run_node_table_plain(prog.table.items, prog.x, plain_y,
+                                plain_stage)
+        check(all(torch.equal(a, b) for a, b in zip(prog.y, plain_y)),
+              f"path U program {e.key.entries} differs from the plain "
+              f"table")
+        del plain_y, plain_stage
+    print(f"path U: {len(pentries)} programs (256 MiB and 64 KiB sends, "
+          f"bidirectional, 4-message exchange, Jacobi halos) bitwise equal "
+          f"to the stacked session's and to the plain table, completed = "
+          f"copy nodes, 1 multipath_dma launch a replay; Jacobi "
+          f"{ranks}x({rows},{cols}) {iters} iterations bitwise the stacked "
+          f"jacobi_step; drive {drive_s:.2f} s (first calls capture)",
+          flush=True)
+
+    def program(sess, nelems):
+        return next(e.compiled.program
+                    for _, e in sess.engine._fastpath._store.values()
+                    if e.key.entries == ((0, 1, nelems, "float32"),))
+
+    sp, pp = program(stacked, big.numel()), program(peer, big.numel())
+    reads, writes = pp.table.bytes_moved()
+    bound = (reads + writes) / HBM_BYTES_PER_S * 1e3
+    times = {}
+    for label, prog in (("stacked", sp), ("peer", pp), ("peer", pp),
+                        ("stacked", sp)):
+        times.setdefault(label, []).append(cuda_time_ms(prog.replay, 20))
+    small_t = {}
+    for label, sess in (("stacked", stacked), ("peer", peer),
+                        ("peer", peer), ("stacked", stacked)):
+        small_t.setdefault(label, []).append(host_time_ms(
+            lambda: sess.send(small, 0, 1), 100, warmup=5))
+    blocks = list(u0.unbind(0))
+    jac_t = {}
+    for label, sess, u in (("stacked", stacked, u0), ("peer", peer, blocks),
+                           ("peer", peer, blocks),
+                           ("stacked", stacked, u0)):
+        jac_t.setdefault(label, []).append(host_time_ms(
+            lambda: jacobi_step(u, session=sess), 10))
+    print(f"path U 256 MiB send 0->1 3 paths: peer replay "
+          f"{times['peer'][0]:.4f} / {times['peer'][1]:.4f} ms, stacked "
+          f"{times['stacked'][0]:.4f} / {times['stacked'][1]:.4f} ms "
+          f"(in turns; path A's {at_a['replay256_ms']:.4f}), bound "
+          f"{bound:.4f} ms ({reads} B read + {writes} B written at 3.35 "
+          f"TB/s); 64 KiB session.send synced: peer {small_t['peer'][0]:.2f}"
+          f" / {small_t['peer'][1]:.2f} ms, stacked "
+          f"{small_t['stacked'][0]:.2f} / {small_t['stacked'][1]:.2f} ms; "
+          f"Jacobi iteration synced: peer {jac_t['peer'][0]:.4f} / "
+          f"{jac_t['peer'][1]:.4f} ms, stacked {jac_t['stacked'][0]:.4f} / "
+          f"{jac_t['stacked'][1]:.4f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5594,16 +5728,19 @@ def main() -> int:
     dryrun_probes_path(dev, errs, per_path, read_path, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    peer_path(dev, per_path, read_path, launch64)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-T): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-U): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 28. report --------------------------------------------------------
+    # -- 29. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

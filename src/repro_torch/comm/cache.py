@@ -4,7 +4,9 @@ The paper caches instantiated ``cudaGraphExec_t`` objects in a fixed-size
 LRU hash table keyed on (src, dst, size, path config). The port does the
 same: a :class:`CompiledPlan` holds one scheduled transfer graph made
 resident as a :class:`~repro_torch.kernels.multipath_dma.kernel.DmaProgram`
-and, on a CUDA device, its one-kernel ``torch.cuda.CUDAGraph``:
+(a :class:`~repro_torch.kernels.multipath_dma.kernel.PeerDmaProgram` over
+peer cards) and, on CUDA, its one-kernel ``torch.cuda.CUDAGraph`` (one a
+card over peers):
 
 =================  ==============================================
 paper (CUDA)       this port
@@ -31,8 +33,6 @@ import dataclasses
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Hashable
-
-import torch
 
 from repro_torch.comm.config import _env_int
 
@@ -103,9 +103,11 @@ class CompiledPlan:
     CUDA graph (on a CUDA device), and lifecycle stats.
 
     The ``cudaGraphExec_t`` analogue. ``key`` must be digest-derived
-    (:class:`~repro_torch.comm.engine.GroupKey`) so the graph can never
-    outlive the graph identity it was captured for. ``program`` is a
-    :class:`~repro_torch.kernels.multipath_dma.kernel.DmaProgram`; its
+    (:class:`~repro_torch.comm.engine.GroupKey`, placed on its cards over
+    peers) so the graph can never outlive the graph identity it was
+    captured for. ``program`` is a
+    :class:`~repro_torch.kernels.multipath_dma.kernel.DmaProgram` (a
+    ``PeerDmaProgram`` over peer cards: every call spans its cards); its
     operand and output buffers are static — every replay reads and
     overwrites the same memory, so callers copy results out before the
     next replay.
@@ -116,7 +118,9 @@ class CompiledPlan:
     lifecycle: PlanLifecycle
 
     def inputs(self) -> list:
-        """The static operand views, ``(window, num_devices, nelems)``."""
+        """The static operand views, ``(window, num_devices, nelems)``
+        (over peer cards, one ``(window, nelems)`` view a logical device
+        for each message)."""
         return self.program.inputs()
 
     def outputs(self) -> list:
@@ -124,12 +128,14 @@ class CompiledPlan:
         return self.program.outputs()
 
     def _sync(self) -> None:
-        if self.program.device.type == "cuda":
-            torch.cuda.synchronize(self.program.device)
+        self.program.synchronize()
 
     def _stage(self, args) -> None:
-        if args:
-            for buf, arg in zip(self.inputs(), args):
+        for buf, arg in zip(self.inputs(), args):
+            if isinstance(buf, list):
+                for b, a in zip(buf, arg):
+                    b.copy_(a)
+            else:
                 buf.copy_(arg)
 
     def __call__(self, *args):
@@ -184,7 +190,7 @@ def compile_plan(key: Hashable, build: Callable[[], Any],
         life.lower_ns, inst_ns = program.capture()
         t1 = time.perf_counter_ns()
         program.replay()
-        torch.cuda.synchronize(program.device)
+        program.synchronize()
         life.compile_ns = inst_ns + time.perf_counter_ns() - t1
     return CompiledPlan(key, program, life)
 

@@ -60,6 +60,7 @@ from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.multipath_dma.kernel import (NodeTable,
                                                       build_node_table,
                                                       grid_size, launch_table,
+                                                      new_state,
                                                       run_node_table_plain)
 
 #: Alignment of each buffer in a step's arena.
@@ -451,8 +452,7 @@ class StepProgram(GraphProgram):
             stage_end = table.stage_bytes
             self.walk.append(CopyRun(
                 run, table, torch.from_numpy(table.items).to(dev),
-                torch.zeros(2 + table.num_items + table.num_copy_nodes,
-                            dtype=torch.int32, device=dev),
+                new_state(table.items, table.num_copy_nodes, dev),
                 grid_size(table.num_items, dev) if dev.type == "cuda"
                 else 0))
             idx = end

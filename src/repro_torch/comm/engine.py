@@ -1,4 +1,4 @@
-"""MultiPathTransfer — executable multi-path transfers on one CUDA device.
+"""MultiPathTransfer — executable multi-path transfers on CUDA devices.
 
 The port of the reference engine's main path. One or more
 :class:`~repro_torch.comm.plan.TransferPlan` objects lower to ONE
@@ -12,15 +12,22 @@ cached in a :class:`~repro_torch.comm.cache.TransferPlanCache` keyed on the
 scheduled graph's canonical digest: the paper's graph cache.
 
 Logical devices are the rows of each message's operand
-``(window, num_devices, nelems)``, all on one ``torch.device``. One
-dispatch is one graph replay:
+``(window, num_devices, nelems)``, all on one ``torch.device`` (stacked),
+or with ``devices=[...]`` each its own ``torch.device``, the reference's
+devices of a mesh: a message then occupies ``(window, nelems)`` of every
+logical device's own buffers, each card launches the kernel over its own
+share of the table (a
+:class:`~repro_torch.kernels.multipath_dma.kernel.PeerDmaProgram`, peer
+pointers into the other cards) and the result lands in ``devices[dst]``'s
+memory. One dispatch is one graph replay:
 
-1. stage each message into its operand's ``src`` row, for every window;
+1. stage each message into its operand's ``src`` row (``src``'s own
+   operand), for every window;
 2. replay the captured graph (the kernel writes the message into each
    window's ``dst`` row of the output and zeros into every other row — the
    reference ``emit_graph`` contract);
-3. return *copies* of ``y[0, dst]``: the output is a static graph buffer
-   that the next replay overwrites.
+3. return *copies* of ``y[0, dst]`` (on ``devices[dst]``): the output is a
+   static graph buffer that the next replay overwrites.
 
 A **transfer group** (:meth:`MultiPathTransfer.transfer_group`) fuses a
 set of concurrent messages into one graph, one cache entry and one
@@ -87,9 +94,17 @@ from repro_torch.comm.telemetry import (DispatchSample, StageTimings,
 from repro_torch.core.pipelining import validate_plan
 from repro_torch.core.topology import HOST, Topology
 from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
+                                                      PeerDmaProgram,
                                                       build_node_table,
                                                       launch_table,
                                                       run_node_table_plain)
+
+#: What a peer engine (``devices=``) does not run yet, and where it comes.
+PEER_CAPTURE_SLICE = ("whole-iteration capture across peer cards "
+                      "(session.capture, StepProgram, the captured Jacobi "
+                      "step) comes with a later slice of the port; a peer "
+                      "session runs send, bidirectional, exchange and "
+                      "send_pytree")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +130,19 @@ class GroupKey:
     entries: tuple   # ((src, dst, nelems, dtype_str), ...) per message
     window: int = 1
     num_devices: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacedKey:
+    """Plan-cache key of a program whose logical devices live on
+    ``devices`` (one ``torch.device`` name each): a :class:`GroupKey`
+    identifies the graph, the placement the buffers. The digest and the
+    group key stay the reference's; only the program lookup carries the
+    placement, so a cache shared by a stacked and a peer engine never
+    serves one the other's program."""
+
+    key: GroupKey
+    devices: tuple[str, ...]
 
 
 @dataclasses.dataclass
@@ -235,7 +263,8 @@ def multipath_send_local(x: torch.Tensor, plan: TransferPlan, *,
 class MultiPathTransfer:
     """Build, cache, and replay captured multi-path transfer graphs."""
 
-    def __init__(self, device: torch.device | str, *,
+    def __init__(self, device: torch.device | str | None = None, *,
+                 devices: Sequence[torch.device | str] | None = None,
                  topology: Topology | None = None,
                  planner: PathPlanner | None = None,
                  cache: TransferPlanCache | None = None,
@@ -248,11 +277,23 @@ class MultiPathTransfer:
                  faults: FaultInjector | None = None,
                  retry_limit: int = 2,
                  backoff_base_s: float = 0.001):
-        self.device = torch.device(device)
+        if (device is None) == (devices is None):
+            raise ValueError("pass one of device= (stacked) or devices= "
+                             "(one device a logical device)")
+        #: One ``torch.device`` a logical device (``None``: stacked rows on
+        #: ``device``).
+        self.devices = (None if devices is None
+                        else tuple(torch.device(d) for d in devices))
+        self.device = (torch.device(device) if devices is None
+                       else self.devices[0])
         if topology is None:
-            topology = Topology.full_mesh(4, with_host=True)
+            topology = Topology.full_mesh(
+                4 if devices is None else len(self.devices), with_host=True)
         self.topology = topology
         self.num_devices = topology.num_devices
+        if devices is not None and len(self.devices) != self.num_devices:
+            raise ValueError(f"{len(self.devices)} devices for a topology "
+                             f"of {self.num_devices}")
         # `if ... is None` (not `or`): an *empty* TransferPlanCache is falsy
         # via __len__, and `or` would silently replace a caller's cache.
         self.planner = planner if planner is not None else PathPlanner(
@@ -384,23 +425,35 @@ class MultiPathTransfer:
         self.schedule_counts[chosen] = self.schedule_counts.get(chosen,
                                                                 0) + 1
 
+    def _placed(self, key: GroupKey):
+        """The plan-cache key of ``key``'s program on this engine: the key
+        itself when stacked, with the placement over peer devices."""
+        if self.devices is None:
+            return key
+        return PlacedKey(key, tuple(str(d) for d in self.devices))
+
     def _compile_group(self, key: GroupKey, graph: TransferGraph,
                        shapes: Sequence[tuple[int, torch.dtype]]
                        ) -> CompiledPlan:
         nelems = [n for n, _ in shapes]
         dtypes = [d for _, d in shapes]
         itemsizes = [d.itemsize for d in dtypes]
+        peer = self.devices is not None
 
-        def build() -> DmaProgram:
+        def build() -> DmaProgram | PeerDmaProgram:
             table = build_node_table(graph, nelems, itemsizes,
-                                     self.num_devices, fill="zero")
+                                     self.num_devices, fill="zero",
+                                     per_device=peer)
+            if peer:
+                return PeerDmaProgram(table, dtypes, self.devices)
             return DmaProgram(table, dtypes, self.device)
 
         self.nodes_compiled += graph.num_nodes
         self.edges_compiled += graph.num_edges
         self.copy_nodes_compiled += graph.num_copy_nodes
         self.compute_nodes_compiled += graph.num_compute_nodes
-        return compile_plan(key, build, num_nodes=graph.num_nodes)
+        return compile_plan(self._placed(key), build,
+                            num_nodes=graph.num_nodes)
 
     def _group_key(self, graph: TransferGraph, plans: Sequence[TransferPlan],
                    shapes: Sequence[tuple[int, torch.dtype]],
@@ -466,15 +519,16 @@ class MultiPathTransfer:
     def _launch(self, entry: FastPathEntry, messages: Sequence[torch.Tensor],
                 *, block: bool) -> list[torch.Tensor]:
         """Stage the messages into the static operands and replay ONCE;
-        returns copies of each message's ``y[0, dst]``. Staging only
-        enqueues the copies on a CUDA device: ``staging_ns`` is their host
-        enqueue time and their device time lands in the replay's execute
-        tail."""
+        returns copies of each message's ``y[0, dst]`` (over peers, of
+        ``devices[dst]``'s output, on that device). Staging only enqueues
+        the copies on a CUDA device: ``staging_ns`` is their host enqueue
+        time and their device time lands in the replay's execute tail."""
         stages, hit = self._take_pending()
         compiled = entry.compiled
+        peer = self.devices is not None
         t0 = time.perf_counter_ns()
         for buf, m, p in zip(compiled.inputs(), messages, entry.plans):
-            buf[:, p.src].copy_(m)
+            (buf[p.src] if peer else buf[:, p.src]).copy_(m)
         staging = time.perf_counter_ns() - t0
         self.staging_ns += staging
         compiled.lifecycle.staging_ns += staging
@@ -482,6 +536,8 @@ class MultiPathTransfer:
         if stages is not None:
             self._record(entry, stages, hit, entry.graph.window)
         self.dispatches += 1
+        if peer:
+            return [y[p.dst][0].clone() for y, p in zip(ys, entry.plans)]
         return [y[0, p.dst].clone() for y, p in zip(ys, entry.plans)]
 
     def _resolve(self, specs: Sequence[tuple], *, window: int,
@@ -512,11 +568,11 @@ class MultiPathTransfer:
             epoch = self.planner.epoch
             entry = self._fastpath.get(sig, epoch)
             if entry is not None:
-                compiled = self.cache.get(entry.key)
+                compiled = self.cache.get(self._placed(entry.key))
                 if compiled is None:   # evicted under us: recapture only
                     compiled = self._compile_group(entry.key, entry.graph,
                                                    shapes)
-                    self.cache.put(entry.key, compiled)
+                    self.cache.put(compiled.key, compiled)
                     if stages is not None:
                         stages.compile_ns = compiled.lifecycle.build_ns
                 entry.compiled = compiled
@@ -547,7 +603,8 @@ class MultiPathTransfer:
         self._count_schedule(chosen)
         key = self._group_key(graph, plans, shapes, window)
         compiled = self._get_or_build(
-            key, lambda: self._compile_group(key, graph, shapes), stages)
+            self._placed(key), lambda: self._compile_group(key, graph,
+                                                           shapes), stages)
         entry = FastPathEntry(plans=tuple(plans), graph=graph,
                               digest=key.digest, key=key,
                               compiled=compiled, schedule=chosen)
@@ -673,8 +730,8 @@ class MultiPathTransfer:
         """Last ladder rung: deliver each message through a host (PCIe)
         round trip outside the captured graphs. A message on a CUDA
         device is copied into a pinned host buffer and from it into a
-        new tensor on the device (``block`` waits for both copies); a
-        message on the CPU is copied on the host.
+        new tensor on the destination's device (``block`` waits for both
+        copies); a message on the CPU is copied on the host.
 
         Delivery over bandwidth: payloads arrive intact (the §4.5
         integrity contract still holds) at host-link speed. Requires
@@ -695,18 +752,25 @@ class MultiPathTransfer:
                     f"surviving device route and no host-staged route",
                     history)
         outs = []
-        for m in messages:
+        for (_, dst, _, _), m in zip(specs, messages):
+            target = self._home(dst)
             if m.device.type == "cuda":
                 staged = torch.empty(m.shape, dtype=m.dtype,
                                      pin_memory=True)
                 staged.copy_(m, non_blocking=True)      # pull to host
-                out = torch.empty_like(m)
+                if target != m.device:                  # push after pull
+                    pulled = torch.cuda.Event()
+                    pulled.record(torch.cuda.current_stream(m.device))
+                    torch.cuda.current_stream(target).wait_event(pulled)
+                out = torch.empty(m.shape, dtype=m.dtype, device=target)
                 out.copy_(staged, non_blocking=True)    # push to dst
             else:
                 out = m.clone()
             outs.append(out)
-        if block and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if block:
+            for card in dict.fromkeys(self.devices or (self.device,)):
+                if card.type == "cuda":
+                    torch.cuda.synchronize(card)
         hs = self.health
         hs.host_relays += 1
         hs.ladder_level = 3
@@ -810,10 +874,16 @@ class MultiPathTransfer:
         return self._host_relay(specs, messages, history,
                                 block=block)
 
-    def _as_message(self, message) -> torch.Tensor:
+    def _home(self, rank: int) -> torch.device:
+        """The ``torch.device`` that holds logical device ``rank``."""
+        return self.device if self.devices is None else self.devices[rank]
+
+    def _as_message(self, message, src: int) -> torch.Tensor:
+        """``message`` on the device of its source ``src``."""
         m = torch.as_tensor(message)
-        if m.device != self.device:
-            m = m.to(self.device)
+        home = self._home(src)
+        if m.device != home:
+            m = m.to(home)
         return m
 
     # -- public API ---------------------------------------------------------
@@ -825,7 +895,7 @@ class MultiPathTransfer:
         """Move ``message`` (1-D tensor) from logical device ``src`` to
         ``dst``; returns the received message (a fresh tensor).
         ``block=False`` replays without waiting; the caller syncs."""
-        message = self._as_message(message)
+        message = self._as_message(message, src)
         if message.dim() != 1:
             raise ValueError("message must be 1-D; reshape first")
         return self._dispatch(
@@ -850,9 +920,11 @@ class MultiPathTransfer:
         permuted twins share one entry; results come back in the
         caller's order.
         """
-        msgs = [self._as_message(m) for m in messages]
-        if len(msgs) != len(pairs):
-            raise ValueError(f"{len(msgs)} messages vs {len(pairs)} pairs")
+        if len(messages) != len(pairs):
+            raise ValueError(f"{len(messages)} messages vs {len(pairs)} "
+                             f"pairs")
+        msgs = [self._as_message(m, src)
+                for m, (src, _) in zip(messages, pairs)]
         if not msgs:
             return []
         for m in msgs:
@@ -887,7 +959,8 @@ class MultiPathTransfer:
         shapes = ((nelems, as_dtype(dtype)),)
         key = self._group_key(graph, (plan,), shapes, window)
         compiled = self.cache.get_or_build(
-            key, lambda: self._compile_group(key, graph, shapes))
+            self._placed(key), lambda: self._compile_group(key, graph,
+                                                           shapes))
         return compiled, plan
 
     def compiled_for_group(self, specs: Sequence[tuple], *,
@@ -908,7 +981,8 @@ class MultiPathTransfer:
                   for (_, _, nelems, dtype) in specs]
         key = self._group_key(graph, group.plans, shapes, window)
         compiled = self.cache.get_or_build(
-            key, lambda: self._compile_group(key, graph, shapes))
+            self._placed(key), lambda: self._compile_group(key, graph,
+                                                           shapes))
         return compiled, group
 
     # -- whole-iteration capture (heterogeneous graphs) ---------------------
@@ -921,8 +995,11 @@ class MultiPathTransfer:
         :class:`~repro_torch.comm.capture.StepCapture` and returns the
         output ref(s). Nothing is planned or captured here — resolution
         happens on first launch (or :meth:`CapturedStep.resolve`) and is
-        memoized on the fast path.
+        memoized on the fast path. Raises ``NotImplementedError`` on a
+        peer engine (:data:`PEER_CAPTURE_SLICE`).
         """
+        if self.devices is not None:
+            raise NotImplementedError(PEER_CAPTURE_SLICE)
         cap = StepCapture(self.num_devices)
         outputs = build_fn(cap)
         if not isinstance(outputs, (tuple, list)):
@@ -954,6 +1031,8 @@ class MultiPathTransfer:
         identity, then memoizes. Two schedules of the same capture digest
         apart and never cross-serve programs.
         """
+        if self.devices is not None:
+            raise NotImplementedError(PEER_CAPTURE_SLICE)
         program = step.capture
         sched = self.schedule if schedule is None else schedule
         sched_name = sched if isinstance(sched, str) else None

@@ -6,7 +6,8 @@ handler: it owns one :class:`~repro_torch.core.topology.Topology`, one
 :class:`~repro_torch.comm.planner.PathPlanner` (with its pluggable
 :class:`~repro_torch.comm.policy.PathPolicy`), one
 :class:`~repro_torch.comm.cache.TransferPlanCache`, and the engine on one
-``torch.device``:
+``torch.device`` or, with ``devices=[...]``, one ``torch.device`` a
+logical device:
 
 * ``session.send(x, src, dst)`` / ``session.bidirectional(...)`` —
   multi-path P2P through the ``multipath_dma`` kernel in a captured CUDA
@@ -37,9 +38,22 @@ handler: it owns one :class:`~repro_torch.core.topology.Topology`, one
 
 ``device=None`` means ``cuda`` and raises when no GPU is present; pass
 ``device="cpu"`` to run the kernels' plain versions. Logical devices are
-rows of each operand on that one device. Without a topology the session
-models the paper's Beluga node (``Topology.full_mesh(4)``): one card has
-no device count to read the size from.
+then rows of each operand on that one device, and without a topology the
+session models the paper's Beluga node (``Topology.full_mesh(4)``): one
+card has no device count to read the size from.
+
+``devices=[...]`` (the counterpart of the reference's ``mesh=``; not
+beside ``device=``) puts logical device *i* on ``devices[i]``: each holds
+its own buffers, a send lands in ``devices[dst]``'s memory, and without a
+topology the session builds ``Topology.full_mesh(len(devices))``. Distinct
+CUDA cards must reach each other (peer access), else the session raises;
+the ``multipath_dma`` kernel then runs one launch a card with peer
+pointers, and nothing falls back to the plain table on CUDA. A card may
+be named more than once: its logical devices are distinct allocations on
+it (one card checks this code). ``devices=["cpu"] * n`` runs the plain
+version. ``send``, ``bidirectional``, ``exchange`` and ``send_pytree``
+run over peers; the collectives and ``capture`` raise
+``NotImplementedError`` (later slices of the port).
 
 Link faults (DESIGN §4.6): ``CommConfig.health`` (on by default) attaches
 a :class:`~repro_torch.comm.health.HealthMonitor` that watches the
@@ -57,7 +71,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -128,6 +142,37 @@ class CollectiveKey:
             ("collective", op, tuple(shape), dtype, axis, num_devices)))
 
 
+#: What a peer session (``devices=``) does not run yet, and where it comes.
+PEER_COLLECTIVES_SLICE = (
+    "collectives across peer cards (the session's collectives, with "
+    "ring_allgather over peer pointers) come with the next slice of the "
+    "port; a peer session runs send, bidirectional, exchange and "
+    "send_pytree")
+
+
+def resolve_devices(devices: Sequence[torch.device | str]
+                    ) -> tuple[torch.device, ...]:
+    """Each of ``devices`` resolved (:func:`resolve_device`): all CUDA or
+    all CPU. Distinct CUDA cards must have peer access to each other,
+    else ``RuntimeError``."""
+    out = tuple(resolve_device(d) for d in devices)
+    if not out:
+        raise ValueError("devices= needs at least one device")
+    kinds = {d.type for d in out}
+    if len(kinds) != 1:
+        raise ValueError(f"devices must be all CUDA or all CPU, got "
+                         f"{[str(d) for d in out]}")
+    cards = list(dict.fromkeys(out))
+    if out[0].type == "cuda":
+        for a in cards:
+            for b in cards:
+                if a != b and not torch.cuda.can_device_access_peer(a, b):
+                    raise RuntimeError(
+                        f"{a} cannot access {b} (no peer access): a peer "
+                        f"session needs every pair of its cards joined")
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class BoundCollectives:
     """Multipath collectives over device-stacked tensors ``(n, ...)``,
@@ -189,11 +234,23 @@ class CollectiveProgram(GraphProgram):
         return [self.y]
 
 
+class PeerCollectives(BoundCollectives):
+    """``session.collectives`` of a peer session: every collective raises
+    ``NotImplementedError`` (:data:`PEER_COLLECTIVES_SLICE`)."""
+
+    def _refuse(self, xs: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(PEER_COLLECTIVES_SLICE)
+
+    all_gather = reduce_scatter = all_reduce = all_to_all = psum = \
+        pmean = _refuse
+
+
 class CommSession:
     """Facade owning topology, planner, policy, engine, and plan cache."""
 
     def __init__(self, config: CommConfig | None = None, *,
                  device: torch.device | str | None = None,
+                 devices: Sequence[torch.device | str] | None = None,
                  topology: Topology | None = None,
                  policy: PathPolicy | None = None,
                  cache: TransferPlanCache | None = None,
@@ -201,9 +258,22 @@ class CommSession:
         self.config = config if config is not None else CommConfig.from_env()
         if schedule is not None:
             self.config = self.config.replace(schedule=schedule)
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device= (stacked rows on one device) or "
+                             "devices= (one device a logical device), not "
+                             "both")
+        #: One ``torch.device`` a logical device, or ``None`` (stacked).
+        self.devices = (None if devices is None
+                        else resolve_devices(devices))
+        self.device = (resolve_device(device) if devices is None
+                       else self.devices[0])
         if topology is None:
-            topology = Topology.full_mesh(4, with_host=True)
+            topology = Topology.full_mesh(
+                4 if devices is None else len(self.devices), with_host=True)
+        elif devices is not None and topology.num_devices != len(
+                self.devices):
+            raise ValueError(f"topology has {topology.num_devices} devices, "
+                             f"got {len(self.devices)}")
         self.topology = topology
         self.policy = policy if policy is not None else make_policy(
             self.config.policy)
@@ -212,7 +282,9 @@ class CommSession:
         self.cache = cache if cache is not None else TransferPlanCache(
             self.config.cache_capacity)
         self._engine: MultiPathTransfer | None = None
-        self.collectives = BoundCollectives(self.config.axis_name)
+        self.collectives = (BoundCollectives(self.config.axis_name)
+                            if devices is None
+                            else PeerCollectives(self.config.axis_name))
         #: Dispatch-timeline recorder (DESIGN §4.4c). ``config.telemetry``
         #: force-enables it; otherwise ``REPRO_MP_TELEMETRY`` decides
         #: (default off — one boolean per dispatch).
@@ -264,7 +336,8 @@ class CommSession:
         """The executable transfer engine (built on first use)."""
         if self._engine is None:
             self._engine = MultiPathTransfer(
-                self.device,
+                None if self.devices is not None else self.device,
+                devices=self.devices,
                 topology=self.topology,
                 planner=self.planner,
                 cache=self.cache,
@@ -393,7 +466,8 @@ class CommSession:
         ``stats()["dispatches"]`` increments by exactly one per captured
         iteration, however many kernels and messages it carries.
         Resolution rides the §2.3 fast path (memoized per capture
-        signature + schedule + planner epoch).
+        signature + schedule + planner epoch). A peer session raises
+        ``NotImplementedError`` (a later slice).
         """
         return self.engine.capture(build_fn, schedule=schedule)
 
@@ -456,6 +530,8 @@ class CommSession:
 
     def _as_input(self, x) -> torch.Tensor:
         x = torch.as_tensor(x)
+        if self.devices is not None:
+            raise NotImplementedError(PEER_COLLECTIVES_SLICE)
         return x if x.device == self.device else x.to(self.device)
 
     def _check_ring_divisible(self, op: str, x: torch.Tensor,
@@ -623,7 +699,7 @@ class CommSession:
         }
         if candidates is not None:
             schedule_info["candidates"] = candidates
-        return {
+        out = {
             "src": src, "dst": dst, "nbytes": nbytes, "window": window,
             "topology": self.topology.name,
             "num_paths": plan.num_paths,
@@ -674,6 +750,10 @@ class CommSession:
             # this plan was produced under degradation.
             "health": self._health_info(),
         }
+        if self.devices is not None:
+            # Over peers: the physical device of every logical device.
+            out["devices"] = [str(d) for d in self.devices]
+        return out
 
     def _overlap_info(self, graph) -> dict:
         """The ``describe()['overlap']`` section: lane vs serialized
@@ -815,7 +895,7 @@ class CommSession:
                   "health": HealthStats().snapshot(
                       len(self.planner.quarantined),
                       self.monitor is not None)}
-        return {
+        out = {
             "cache": es["cache"],
             "dispatches": es["dispatches"],
             "fastpath": es["fastpath"],
@@ -832,9 +912,13 @@ class CommSession:
             "calibration": {
                 "active": self.topology.calibration is not None},
         }
+        if self.devices is not None:
+            out["devices"] = [str(d) for d in self.devices]
+        return out
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
+        where = (f"device={self.device}" if self.devices is None else
+                 f"devices={[str(d) for d in self.devices]}")
         return (f"CommSession(topology={self.topology.name!r}, "
                 f"policy={self.policy.name!r}, "
-                f"devices={self.topology.num_devices}, "
-                f"device={self.device})")
+                f"devices={self.topology.num_devices}, {where})")

@@ -3,7 +3,11 @@
 A 1-D ring decomposition (the paper uses 4 ranks, each exchanging boundary
 columns with its two neighbours). The domain is device-stacked: one
 tensor ``(n, rows, cols)`` whose leading index is the rank, on one
-``torch.device``. Rank *i*'s halos come either from the session's fused
+``torch.device``; or, on a peer session (``CommSession(devices=...)``), a
+list of ``n`` blocks ``(rows, cols)``, block *i* on ``devices[i]``, where
+:func:`halo_exchange_group` and :func:`jacobi_step` take and return lists
+(one fused exchange a step, then the ``jacobi`` kernel on each card's own
+block). Rank *i*'s halos come either from the session's fused
 exchange (:func:`halo_exchange_group`, through the ``multipath_dma``
 kernel) or from row shifts of the stacked tensor (:func:`halo_exchange_ring`,
 the counterpart of the reference's ``ppermute`` shifts, with the same
@@ -11,7 +15,8 @@ direct/staged split of each boundary). :func:`jacobi_step` masks the
 global edge with Dirichlet zeros and sweeps with the ``jacobi`` kernel.
 :func:`make_captured_jacobi_step` records one whole iteration (boundary
 slices, the fused ring exchange, the sweep) with ``session.capture`` and
-replays it as ONE CUDA graph per call.
+replays it as ONE CUDA graph per call (stacked sessions only: capture
+across peer cards is a later slice).
 """
 
 from __future__ import annotations
@@ -66,30 +71,36 @@ def halo_exchange_ring(left_bnd: torch.Tensor, right_bnd: torch.Tensor, *,
     return left_halo, right_halo
 
 
-def halo_exchange_group(session: "CommSession", blocks: torch.Tensor
+def halo_exchange_group(session: "CommSession", blocks
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Driver-level ring halo exchange as ONE fused transfer group.
 
-    ``blocks`` is the column-decomposed domain ``(n, rows, cols)``. Every
-    rank's two boundary columns ride a single ``2n``-message group through
-    ``session.exchange`` — one graph replay. Returns ``(left_halos,
-    right_halos)``, ``(n, rows, 1)`` each: rank *i*'s left halo is rank
-    *i-1*'s right boundary and vice versa (periodic; :func:`jacobi_step`
-    applies the Dirichlet mask).
+    ``blocks`` is the column-decomposed domain ``(n, rows, cols)``, or a
+    list of ``n`` per-device blocks ``(rows, cols)`` on a peer session.
+    Every rank's two boundary columns ride a single ``2n``-message group
+    through ``session.exchange`` — one graph replay. Returns
+    ``(left_halos, right_halos)``, ``(n, rows, 1)`` each (lists of ``(rows,
+    1)`` per device for a list): rank *i*'s left halo is rank *i-1*'s
+    right boundary and vice versa (periodic; :func:`jacobi_step` applies
+    the Dirichlet mask). Over peers each halo arrives on its rank's own
+    device.
     """
-    n = blocks.shape[0]
+    per_device = isinstance(blocks, (list, tuple))
+    n = len(blocks) if per_device else blocks.shape[0]
     if n == 1:
+        if per_device:
+            return [blocks[0][:, -1:]], [blocks[0][:, :1]]
         return blocks[:, :, -1:], blocks[:, :, :1]
     items = []
     for i in range(n):
-        items.append((blocks[i, :, -1:], i, (i + 1) % n))  # → right nbr
-        items.append((blocks[i, :, :1], i, (i - 1) % n))   # → left nbr
+        items.append((blocks[i][:, -1:], i, (i + 1) % n))  # → right nbr
+        items.append((blocks[i][:, :1], i, (i - 1) % n))   # → left nbr
     received = session.exchange(items)
-    left_halos = torch.stack([received[2 * ((i - 1) % n)]
-                              for i in range(n)])
-    right_halos = torch.stack([received[2 * ((i + 1) % n) + 1]
-                               for i in range(n)])
-    return left_halos, right_halos
+    left_halos = [received[2 * ((i - 1) % n)] for i in range(n)]
+    right_halos = [received[2 * ((i + 1) % n) + 1] for i in range(n)]
+    if per_device:
+        return left_halos, right_halos
+    return torch.stack(left_halos), torch.stack(right_halos)
 
 
 def make_captured_jacobi_step(session: "CommSession", rows: int, cols: int,
@@ -155,18 +166,33 @@ def make_captured_jacobi_step(session: "CommSession", rows: int, cols: int,
     return session.capture(build, schedule=schedule)
 
 
-def jacobi_step(u: torch.Tensor, *, session: "CommSession | None" = None,
+def jacobi_step(u, *, session: "CommSession | None" = None,
                 multipath: bool = False,
-                use_kernel: bool = True) -> torch.Tensor:
+                use_kernel: bool = True):
     """One Jacobi sweep of the stacked column-partitioned domain
-    ``u: (n, rows, cols)``.
+    ``u: (n, rows, cols)``, or of a list of per-device blocks ``(rows,
+    cols)`` on a peer session (returns a list, block *i* on its device).
 
     Halos come from ``session``'s fused exchange when one is given,
     otherwise from row shifts (:func:`halo_exchange_ring`, optionally
-    multi-path). The global edge gets Dirichlet zeros, then the 5-point
-    stencil averages the four neighbours: the ``jacobi`` kernel on a CUDA
-    tensor (``use_kernel=True``), else the plain version.
+    multi-path; stacked only). The global edge gets Dirichlet zeros, then
+    the 5-point stencil averages the four neighbours: the ``jacobi`` kernel
+    on a CUDA tensor (``use_kernel=True``; one launch a block over peers),
+    else the plain version.
     """
+    sweep = jacobi_ops.jacobi_sweep if use_kernel else jacobi_sweep_plain
+    if isinstance(u, (list, tuple)):
+        if session is None:
+            raise ValueError("per-device blocks take their halos from a "
+                             "session's exchange; pass session=")
+        left, right = halo_exchange_group(session, u)
+        n = len(u)
+        out = []
+        for i, block in enumerate(u):
+            lh = torch.zeros_like(left[i]) if i == 0 else left[i]
+            rh = torch.zeros_like(right[i]) if i == n - 1 else right[i]
+            out.append(sweep(torch.cat([lh, block, rh], dim=1)))
+        return out
     if session is not None:
         left_halo, right_halo = halo_exchange_group(session, u)
     else:
@@ -176,7 +202,4 @@ def jacobi_step(u: torch.Tensor, *, session: "CommSession | None" = None,
     right_halo = right_halo.clone()
     left_halo[0] = 0       # global edge → Dirichlet zeros
     right_halo[-1] = 0
-    ext = torch.cat([left_halo, u, right_halo], dim=2)
-    if use_kernel:
-        return jacobi_ops.jacobi_sweep(ext)
-    return jacobi_sweep_plain(ext)
+    return sweep(torch.cat([left_halo, u, right_halo], dim=2))

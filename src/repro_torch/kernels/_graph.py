@@ -3,9 +3,10 @@
 Every executable that :class:`~repro_torch.comm.cache.CompiledPlan` serves
 is a :class:`GraphProgram`: static buffers plus a body (:meth:`run`) that
 executes once. On a CUDA device :meth:`GraphProgram.capture` records one
-run into a ``torch.cuda.CUDAGraph`` and :meth:`GraphProgram.replay`
-launches it; on the CPU :meth:`~GraphProgram.replay` runs the body
-eagerly, with the kernels' plain versions.
+run into a ``torch.cuda.CUDAGraph`` (one a card for a program over peer
+cards) and :meth:`GraphProgram.replay` launches it; on the CPU
+:meth:`~GraphProgram.replay` runs the body eagerly, with the kernels'
+plain versions.
 
 Each kernel module counts its launches in ``LAUNCHES``, where its wrapper
 launches the kernel. A launch made while a graph is being captured is only
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import importlib
 import time
+from typing import Callable
 
 import torch
 
@@ -58,20 +60,45 @@ class GraphProgram:
     """Static buffers and a body run once per execution.
 
     Subclasses set ``device`` and implement :meth:`run`, :meth:`inputs`
-    and :meth:`outputs`. ``replay_launches`` holds the kernel launches one
-    replay of the captured graph makes (empty before :meth:`capture`), and
-    ``held_bytes`` the device memory that the graph's pool keeps (0 before
-    it, and on the CPU).
+    and :meth:`outputs`. A program whose executions span several cards
+    lists them in :attr:`cards`, gives one body a card (:meth:`bodies`,
+    recorded as one graph each) and orders the cards before each
+    execution (:meth:`order`). ``replay_launches`` holds the kernel
+    launches one replay makes (empty before :meth:`capture`), and
+    ``held_bytes`` the device memory that the graphs' pools keep (0
+    before it, and on the CPU).
     """
 
     device: torch.device
-    _graph: torch.cuda.CUDAGraph | None = None
+    #: (card, instantiated graph), one a body (empty before recording).
+    _graphs: list[tuple[torch.device, torch.cuda.CUDAGraph]] = []
     replay_launches: dict[str, int] = {}
     held_bytes: int = 0
+
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The devices an execution runs on: the program's one device by
+        default."""
+        return (self.device,)
+
+    def synchronize(self) -> None:
+        """Wait for every CUDA card of the program."""
+        for card in self.cards:
+            if card.type == "cuda":
+                torch.cuda.synchronize(card)
 
     def run(self) -> None:
         """Execute the body once, without a graph."""
         raise NotImplementedError
+
+    def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
+        """(card, body) pairs, each recorded into one graph of its card:
+        the whole :meth:`run` on the program's device by default."""
+        return [(self.device, self.run)]
+
+    def order(self) -> None:
+        """Order one execution's graphs across the cards before they are
+        replayed (nothing to do on one card)."""
 
     def inputs(self) -> list[torch.Tensor]:
         raise NotImplementedError
@@ -80,8 +107,8 @@ class GraphProgram:
         raise NotImplementedError
 
     def capture(self) -> tuple[int, int]:
-        """Warm up once, record one run into a CUDA graph and instantiate
-        it. Returns ``(warm-up + capture ns, instantiation ns)``."""
+        """Warm up once, record one run into CUDA graphs and instantiate
+        them. Returns ``(warm-up + capture ns, instantiation ns)``."""
         t0 = time.perf_counter_ns()
         self.run()
         warm_ns = time.perf_counter_ns() - t0
@@ -89,35 +116,51 @@ class GraphProgram:
         return warm_ns + capture_ns, instantiate_ns
 
     def record(self) -> tuple[int, int]:
-        """Record one run into a CUDA graph and instantiate it; the body
-        must have run once before, as the warm-up. Recording runs nothing,
-        and a body that cannot be captured raises. Sets ``held_bytes``,
-        the device memory of the graph's private pool. Returns ``(capture
-        ns, instantiation ns)``."""
+        """Record each of :meth:`bodies` into a CUDA graph of its card and
+        instantiate them; the body must have run once before, as the
+        warm-up. Recording runs nothing, and a body that cannot be
+        captured raises. A program over several cards records each body
+        on a stream of its own card. Sets ``held_bytes``, the device
+        memory of the graphs' private pools. Returns ``(capture ns,
+        instantiation ns)``."""
         t0 = time.perf_counter_ns()
-        torch.cuda.synchronize(self.device)
+        cards = self.cards
+        for card in cards:
+            torch.cuda.synchronize(card)
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        reserved = sum(torch.cuda.memory_reserved(c) for c in cards)
         before = launch_counts()
-        with torch.cuda.graph(graph):
-            self.run()
+        graphs = []
+        for card, body in self.bodies():
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            stream = torch.cuda.Stream(card) if len(cards) > 1 else None
+            with torch.cuda.device(card), torch.cuda.graph(graph,
+                                                           stream=stream):
+                body()
+            graphs.append((card, graph))
         recorded = {name: k - before[name]
                     for name, k in launch_counts().items()
                     if k != before[name]}
         add_launches({name: -k for name, k in recorded.items()})
         t1 = time.perf_counter_ns()
-        graph.instantiate()
-        self._graph = graph
+        for card, graph in graphs:
+            with torch.cuda.device(card):
+                graph.instantiate()
+        self._graphs = graphs
         self.replay_launches = recorded
-        self.held_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.held_bytes = sum(torch.cuda.memory_reserved(c)
+                              for c in cards) - reserved
         return t1 - t0, time.perf_counter_ns() - t1
 
     def replay(self) -> None:
-        """One execution: replay the captured graph (CUDA) or run the body
-        (CPU, or before :meth:`capture`)."""
-        if self._graph is None:
+        """One execution: replay the captured graphs (CUDA; ordered
+        across cards first) or run the body (CPU, or before
+        :meth:`capture`)."""
+        if not self._graphs:
             self.run()
             return
-        self._graph.replay()
+        self.order()
+        for card, graph in self._graphs:
+            with torch.cuda.device(card):
+                graph.replay()
         add_launches(self.replay_launches)

@@ -64,9 +64,10 @@ def jacobi_sweep_cuda(ext: torch.Tensor) -> torch.Tensor:
     for d in lead:
         batch *= d
     out = torch.empty((*lead, rows, w), dtype=ext.dtype, device=ext.device)
-    rc = _lib()(ext.data_ptr(), out.data_ptr(), batch, rows, w,
-                _DTYPE_CODES[ext.dtype],
-                torch.cuda.current_stream(ext.device).cuda_stream)
+    with torch.cuda.device(ext.device):     # the stream's own card
+        rc = _lib()(ext.data_ptr(), out.data_ptr(), batch, rows, w,
+                    _DTYPE_CODES[ext.dtype],
+                    torch.cuda.current_stream(ext.device).cuda_stream)
     _build.check(rc, "jacobi")
     LAUNCHES += 1
     return out

@@ -1,37 +1,55 @@
-"""The ``multipath_dma`` kernel: one transfer graph, one launch.
+"""The ``multipath_dma`` kernel: one transfer graph, one launch a card.
 
 Replaces the Pallas kernel ``build_multipath_dma`` of the reference package
 (``src/repro/kernels/multipath_dma/kernel.py``). There, each copy node of a
-plan is a remote DMA between chips. Here the logical devices are rows of
-one operand ``(window, num_devices, nelems)`` on one card, so each copy node
-moves bytes from one row (or staging slot) to another.
+plan is a remote DMA between chips. Here the logical devices are laid out
+one of two ways:
+
+* **stacked**: the rows of one operand ``(window, num_devices, nelems)`` on
+  one card, so each copy node moves bytes from one row (or staging slot)
+  to another (:class:`DmaProgram`);
+* **per device**: each logical device holds its own operand, output and
+  staging buffer, ``(window, nelems)`` a message, on its own
+  ``torch.device`` (:class:`PeerDmaProgram`). With peer access between the
+  cards, a copy node is a store from one card into another card's memory;
+  logical devices that share a card are distinct allocations on it.
 
 The host side builds a **work table** from a scheduled
 :class:`~repro_torch.comm.graph.TransferGraph` (:func:`build_node_table`):
 
-* *fill* items cover every output row that is not a destination: zeros
-  (the engine's contract, every non-destination row reads zero) or a copy
-  of the input row (the identity contract of :func:`ops.multipath_dma_transfer
+* *fill* items cover every output that is not a destination: zeros
+  (the engine's contract, every non-destination output reads zero) or a
+  copy of the input (the identity contract of
+  :func:`ops.multipath_dma_transfer
   <repro_torch.kernels.multipath_dma.ops.multipath_dma_transfer>`);
 * *copy* items are the graph's copy nodes in index (dispatch) order, each
   cut into tiles of at most :data:`TILE_BYTES`; a staged hop's tile names
   the previous hop's tile as its predecessor, and every non-terminal node
-  owns one staging slot.
+  owns one staging slot (per device: on the hop's via, as the reference's
+  VMEM slots are).
 
-:class:`DmaProgram` holds the table and the byte buffers it addresses.
-On a CUDA device it launches the hand-written kernel
+Every item names the logical device that executes it, the reference's
+push roles: a fill on its own device, a direct or hop-1 tile on the
+message's src, a hop-2 tile on its via. :func:`card_tables` splits a
+per-device table into one table a card, with the flags that carry hop
+edges across cards and a wait item on the destination's card for every
+terminal tile another card writes.
+
+:class:`DmaProgram` and :class:`PeerDmaProgram` hold the tables and the
+byte buffers they address. On CUDA they launch the hand-written kernel
 (``csrc/multipath_dma.cu``, built by :mod:`repro_torch.kernels._build`),
-directly or as one node of a captured ``torch.cuda.CUDAGraph``; on the CPU
-it runs :func:`run_node_table_plain`, the plain PyTorch version, a loop of
-slice copies over the same table. :data:`LAUNCHES` counts kernel launches,
-direct and replayed.
+directly or as one captured ``torch.cuda.CUDAGraph`` a card; on the CPU
+they run :func:`run_node_table_plain`, the plain PyTorch version, a loop
+of slice copies over the whole table in order. :data:`LAUNCHES` counts
+kernel launches (one a card that runs items), direct and replayed.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence
+import functools
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -41,12 +59,18 @@ from repro_torch.core.topology import HOST
 from repro_torch.kernels import _build
 from repro_torch.kernels._graph import GraphProgram
 
-#: Item columns (must match ``csrc/multipath_dma.cu``).
-ITEM_COLS = 8
-C_SRC_SPACE, C_SRC_OFF, C_DST_SPACE, C_DST_OFF, C_NBYTES, C_PRED, C_NODE, \
-    C_NODE_TILES = range(ITEM_COLS)
+#: Item columns (must match ``csrc/multipath_dma.cu``). ``C_PRED`` and
+#: ``C_EXEC`` are read on the host only: the predecessor item in the whole
+#: table and the logical device that executes the item.
+ITEM_COLS = 14
+(C_SRC_SPACE, C_SRC_OFF, C_DST_SPACE, C_DST_OFF, C_NBYTES, C_PRED, C_NODE,
+ C_NODE_TILES, C_SRC_DEV, C_DST_DEV, C_EXEC, C_WAIT, C_SIG_CARD,
+ C_SIG_IDX) = range(ITEM_COLS)
 #: Byte spaces an item reads or writes.
 SPACE_ZERO, SPACE_IN, SPACE_OUT, SPACE_STAGE = range(4)
+#: State words of a card before its flags: ticket, completed copy nodes,
+#: replay epoch, flag count (``csrc/multipath_dma.cu``).
+STATE_HEADER = 4
 #: Largest tile of one copy node or fill region taken by one block.
 TILE_BYTES = 256 << 10
 #: Alignment of each message's region in the operand buffers.
@@ -67,7 +91,8 @@ class MessageLayout:
     """Where one message lives in the operand and output byte buffers:
     ``(window, num_devices, nelems)`` elements of ``itemsize`` bytes,
     row-major, starting at byte ``base`` of the operand and ``out_base``
-    of the output."""
+    of the output; with ``per_device`` ``(window, nelems)`` at those bytes
+    of every logical device's own buffers."""
 
     src: int
     dst: int
@@ -77,32 +102,44 @@ class MessageLayout:
     itemsize: int
     base: int
     out_base: int
+    per_device: bool = False
 
     @property
     def row_bytes(self) -> int:
         return self.nelems * self.itemsize
 
     @property
+    def rows(self) -> int:
+        """Rows of the message in one buffer."""
+        return 1 if self.per_device else self.num_devices
+
+    @property
     def nbytes(self) -> int:
-        return self.window * self.num_devices * self.row_bytes
+        return self.window * self.rows * self.row_bytes
+
+    def _row(self, window: int, row: int) -> int:
+        return (window * self.rows + (0 if self.per_device else row)) \
+            * self.row_bytes
 
     def row_offset(self, window: int, row: int) -> int:
-        return self.base + (window * self.num_devices + row) * self.row_bytes
+        return self.base + self._row(window, row)
 
     def out_row_offset(self, window: int, row: int) -> int:
-        return (self.out_base
-                + (window * self.num_devices + row) * self.row_bytes)
+        return self.out_base + self._row(window, row)
 
 
 @dataclasses.dataclass(frozen=True)
 class NodeTable:
-    """The kernel's work table and the buffer sizes it addresses."""
+    """The kernel's work table and the buffer sizes it addresses (per
+    logical device when ``per_device``)."""
 
     items: np.ndarray            # (nitems, ITEM_COLS) int64
     messages: tuple[MessageLayout, ...]
     num_copy_nodes: int
     io_bytes: int                # size of the operand and output buffers
     stage_bytes: int
+    per_device: bool = False
+    num_devices: int = 1
 
     @property
     def num_items(self) -> int:
@@ -127,7 +164,8 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                      nodes: Sequence[int] | None = None,
                      bases: Sequence[tuple[int, int]] | None = None,
                      slots: dict[int, int] | None = None,
-                     stage_base: int = 0) -> NodeTable:
+                     stage_base: int = 0,
+                     per_device: bool = False) -> NodeTable:
     """Turn a scheduled transfer graph into the kernel's work table.
 
     ``nelems[m]``/``itemsizes[m]`` give message *m*'s row length and
@@ -135,10 +173,14 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     nelems[m])`` elements of the operand and output buffers, packed one
     after the other unless ``bases[m] = (operand byte, output byte)``
     places them (a captured step's arena, where both buffers are one).
-    ``fill`` is ``"zero"`` (every non-destination row of the output reads
-    zero, the engine's contract) or ``"copy"`` (it keeps the input row,
-    the identity contract). Copy nodes keep the graph's index order, which
-    is topological.
+    With ``per_device`` it occupies ``(graph.window, nelems[m])`` at the
+    same bytes of every logical device's own buffers instead, and staging
+    slots are allocated on each hop's via. ``fill`` is ``"zero"`` (every
+    non-destination output reads zero, the engine's contract) or
+    ``"copy"`` (it keeps the input, the identity contract). Copy nodes
+    keep the graph's index order, which is topological. Every item names
+    the logical device that executes it (``C_EXEC``: a fill its own
+    device, a copy its link's source).
 
     ``nodes`` restricts the table to those copy nodes (one run of a
     captured step, default: every node). A message's fill goes in the
@@ -146,11 +188,15 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     ``stage_base`` on and recorded in ``slots`` (node index → staging
     byte), which runs of one step share: a hop whose predecessor sits in
     an earlier table reads that slot with no predecessor item, because
-    stream order already orders the two launches. Raises ``ValueError``
-    for host hops, compute nodes and chunks that are not element-aligned.
+    stream order already orders the two launches. A stacked table's flags
+    are set for its one card (:func:`card_tables`). Raises ``ValueError``
+    for host hops, compute nodes, chunks that are not element-aligned and
+    ``per_device`` beside ``nodes``.
     """
     if fill not in ("zero", "copy"):
         raise ValueError(f"fill must be 'zero' or 'copy', got {fill!r}")
+    if per_device and (nodes is not None or bases is not None):
+        raise ValueError("a per-device table covers one whole graph")
     flows = graph.flows()
     if len(flows) != graph.num_messages or len(nelems) != len(flows):
         raise ValueError(f"graph has {graph.num_messages} messages, got "
@@ -160,7 +206,7 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     for m, ((src, dst), n, isz) in enumerate(zip(flows, nelems, itemsizes)):
         if bases is None:
             lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
-                                int(isz), base, base)
+                                int(isz), base, base, per_device)
             base = _align(base + lay.nbytes, _ALIGN)
         else:
             lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
@@ -178,30 +224,38 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     rows: list[list[int]] = []
 
     def add(src_space, src_off, dst_space, dst_off, nbytes, pred=-1,
-            node=-1, node_tiles=0):
+            node=-1, node_tiles=0, src_dev=0, dst_dev=0, exe=0):
         rows.append([src_space, src_off, dst_space, dst_off, nbytes, pred,
-                     node, node_tiles])
+                     node, node_tiles, src_dev, dst_dev, exe, -1, -1, -1])
 
     src_fill = SPACE_ZERO if fill == "zero" else SPACE_IN
     for m, lay in enumerate(messages):
         if first_node.get(m) not in run:
             continue
         for w in range(lay.window):
-            for lo, hi in ((0, lay.dst), (lay.dst + 1, num_devices)):
+            if per_device:
+                spans = [(d, d + 1) for d in range(num_devices)
+                         if d != lay.dst]
+            else:
+                spans = [(0, lay.dst), (lay.dst + 1, num_devices)]
+            for lo, hi in spans:
                 if hi <= lo:
                     continue
+                dev = lo if per_device else 0
                 start = lay.row_offset(w, lo)
                 out_start = lay.out_row_offset(w, lo)
                 for off, size in _tiles((hi - lo) * lay.row_bytes,
                                         tile_bytes):
                     add(src_fill, start + off if fill == "copy" else 0,
-                        SPACE_OUT, out_start + off, size)
+                        SPACE_OUT, out_start + off, size, src_dev=dev,
+                        dst_dev=dev, exe=dev)
 
     preds = graph.hop_predecessor
     terminals = graph.terminal_nodes
     first_item: dict[int, int] = {}
     slot = {} if slots is None else slots
     stage = stage_base
+    stage_at = [stage_base] * num_devices       # per device
     count = 0
     for idx in nodes:
         node = graph.nodes[idx]
@@ -218,50 +272,121 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
         if node.offset % isz or node.nbytes % isz:
             raise ValueError("chunk bounds not element-aligned; pass "
                              "granularity=itemsize to planner.plan()")
+        here, there = node.link
+        dev_src, dev_dst = (here, there) if per_device else (0, 0)
         pred = preds.get(idx)
         if pred is None:
             src_space = SPACE_IN
-            src_off = lay.row_offset(node.window, node.link[0]) + node.offset
+            src_off = lay.row_offset(node.window, here) + node.offset
         else:
             src_space, src_off = SPACE_STAGE, slot[pred]
         if idx in terminals:
             dst_space = SPACE_OUT
-            dst_off = (lay.out_row_offset(node.window, node.link[1])
+            dst_off = (lay.out_row_offset(node.window, there)
                        + node.offset)
         else:
             # Keep the slot congruent to the source mod 16 so the 16-byte
             # path applies to every hop of the chain.
             dst_space = SPACE_STAGE
-            dst_off = _align(stage, 16) + src_off % 16
+            cursor = stage_at[there] if per_device else stage
+            dst_off = _align(cursor, 16) + src_off % 16
             slot[idx] = dst_off
-            stage = dst_off + node.nbytes
+            if per_device:
+                stage_at[there] = dst_off + node.nbytes
+            else:
+                stage = dst_off + node.nbytes
         tiles = _tiles(node.nbytes, tile_bytes)
         first_item[idx] = len(rows)
         pred_item = first_item.get(pred)
         for t, (off, size) in enumerate(tiles):
             add(src_space, src_off + off, dst_space, dst_off + off, size,
                 -1 if pred_item is None else pred_item + t, count,
-                len(tiles))
+                len(tiles), dev_src, dev_dst, here if per_device else 0)
         count += 1
     items = np.asarray(rows, dtype=np.int64).reshape(-1, ITEM_COLS)
-    return NodeTable(items, tuple(messages), count, io_bytes, stage)
+    if not per_device:
+        (items,) = card_tables(items, [0])
+    return NodeTable(items, tuple(messages), count, io_bytes,
+                     max(stage_at) if per_device else stage, per_device,
+                     num_devices)
 
 
-def run_node_table_plain(items: np.ndarray, x: torch.Tensor, y: torch.Tensor,
-                         stage: torch.Tensor) -> int:
-    """Plain PyTorch version of the kernel: execute the table in order
-    with slice copies on the byte buffers. Returns the number of copy
-    nodes completed (the kernel's completion counter)."""
+def card_tables(items: np.ndarray, card_of: Sequence[int]
+                ) -> list[np.ndarray]:
+    """Split a table over the cards its logical devices live on
+    (``card_of[d]``: the card of logical device *d*, cards numbered from
+    0): one table a card, its rows in the whole table's order, with the
+    flags set.
+
+    An item with a predecessor waits on a flag of its own card
+    (``C_WAIT``) that the predecessor sets (``C_SIG_CARD``,
+    ``C_SIG_IDX``). A terminal tile whose destination lives on another
+    card than the one executing it sets a flag of the destination's card,
+    and that card's table ends with a wait item on it (no bytes), so the
+    destination card's launch ends only once its output is complete.
+    """
+    items = items.copy()
+    items[:, C_WAIT:] = -1
+    cards = np.asarray(card_of, dtype=np.int64)
+    exec_card = cards[items[:, C_EXEC]]
+    dst_card = cards[items[:, C_DST_DEV]]
+    waiter = items[:, C_PRED] >= 0
+    remote_terminal = ((items[:, C_NODE] >= 0)
+                       & (items[:, C_DST_SPACE] == SPACE_OUT)
+                       & (dst_card != exec_card))
+    ncards = int(cards.max()) + 1
+    waits = []
+    for card in range(ncards):
+        hops = np.flatnonzero(waiter & (exec_card == card))
+        flags = np.arange(len(hops))
+        items[hops, C_WAIT] = flags
+        items[items[hops, C_PRED], C_SIG_CARD] = card
+        items[items[hops, C_PRED], C_SIG_IDX] = flags
+        landing = np.flatnonzero(remote_terminal & (dst_card == card))
+        flags = len(hops) + np.arange(len(landing))
+        items[landing, C_SIG_CARD] = card
+        items[landing, C_SIG_IDX] = flags
+        rows = np.zeros((len(landing), ITEM_COLS), dtype=np.int64)
+        rows[:, [C_SRC_SPACE, C_DST_SPACE]] = SPACE_ZERO
+        rows[:, C_PRED] = landing
+        rows[:, C_NODE] = -1
+        rows[:, [C_SRC_DEV, C_DST_DEV, C_EXEC]] = \
+            items[landing, C_DST_DEV][:, None]
+        rows[:, C_WAIT] = flags
+        rows[:, [C_SIG_CARD, C_SIG_IDX]] = -1
+        waits.append(rows)
+    # every card's flags are set before any table is cut
+    return [np.concatenate([items[exec_card == card], waits[card]])
+            for card in range(ncards)]
+
+
+def num_flags(items: np.ndarray) -> int:
+    """Flag words a card's table waits on."""
+    return int(items[:, C_WAIT].max()) + 1 if len(items) else 0
+
+
+def run_node_table_plain(items: np.ndarray, x, y, stage) -> int:
+    """Plain PyTorch version of the kernel: execute the whole table in
+    order with slice copies on the byte buffers. ``x``, ``y`` and
+    ``stage`` are one buffer each (stacked) or one per logical device
+    (indexed by an item's ``C_SRC_DEV``/``C_DST_DEV``). Returns the number
+    of copy nodes completed (the kernel's completion counters, summed)."""
     spaces = {SPACE_IN: x, SPACE_OUT: y, SPACE_STAGE: stage}
+
+    def buf(space, dev):
+        b = spaces[space]
+        return b[dev] if isinstance(b, (list, tuple)) else b
+
     done: dict[int, int] = {}
     completed = 0
     for row in items.tolist():
-        s_space, s_off, d_space, d_off, nb, _, node, node_tiles = row
-        dst = spaces[d_space][d_off:d_off + nb]
+        (s_space, s_off, d_space, d_off, nb, _, node, node_tiles, s_dev,
+         d_dev) = row[:C_EXEC]
+        dst = buf(d_space, d_dev)[d_off:d_off + nb]
         if s_space == SPACE_ZERO:
             dst.zero_()
         else:
-            dst.copy_(spaces[s_space][s_off:s_off + nb])
+            dst.copy_(buf(s_space, s_dev)[s_off:s_off + nb])
         if node >= 0:
             done[node] = done.get(node, 0) + 1
             completed += done[node] == node_tiles
@@ -273,8 +398,12 @@ def _lib():
     fn = lib.multipath_dma_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    peers = lib.multipath_dma_enable_peers
+    peers.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    peers.restype = ctypes.c_int
     if lib.multipath_dma_item_cols() != ITEM_COLS:
         raise RuntimeError("multipath_dma item layout mismatch")
     return lib
@@ -286,41 +415,70 @@ def grid_size(num_items: int, device: torch.device) -> int:
     return max(1, min(num_items, _BLOCKS_PER_SM * sms))
 
 
-def launch_table(items: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                 stage: torch.Tensor, state: torch.Tensor, grid: int) -> None:
-    """Zero the state words and launch the kernel over the work table
-    ``items`` (int64, on the card) on the current stream. ``x`` and ``y``
-    are the operand and output byte buffers (they may be one buffer, the
-    arena of a captured step); ``state`` holds ``2 + items + copy nodes``
-    int32 words."""
+def new_state(items: np.ndarray, num_copy_nodes: int,
+              device: torch.device | str) -> torch.Tensor:
+    """The state words of one card's table: the header (epoch 0, the
+    flag count), the flags and a finished-tile count a copy node."""
+    nflags = num_flags(items)
+    state = torch.zeros(STATE_HEADER + nflags + num_copy_nodes,
+                        dtype=torch.int32)
+    state[3] = nflags
+    return state.to(device)
+
+
+def enable_peers(devices: Sequence[torch.device]) -> None:
+    """Enable peer access between every pair of the distinct CUDA
+    ``devices``; raises when a pair cannot reach each other."""
+    idx = [torch.device(d).index for d in devices]
+    arr = (ctypes.c_int * len(idx))(*idx)
+    rc = _lib().multipath_dma_enable_peers(len(idx), arr)
+    if rc != 0:
+        raise RuntimeError(f"peer access between cards {idx} failed: CUDA "
+                           f"error {rc}")
+
+
+def _launch(items: torch.Tensor, x, y, stage, peer, ndev: int, card: int,
+            state: torch.Tensor, grid: int) -> None:
     global LAUNCHES
     if items.device.type != "cuda":
         raise ValueError(f"multipath_dma kernel needs CUDA tensors, got "
                          f"{items.device}")
-    state.zero_()
-    rc = _lib().multipath_dma_launch(
-        items.data_ptr(), items.shape[0], x.data_ptr(), y.data_ptr(),
-        stage.data_ptr(), state.data_ptr(), grid,
-        torch.cuda.current_stream(items.device).cuda_stream)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    with torch.cuda.device(items.device):   # the stream's own card
+        rc = _lib().multipath_dma_launch(
+            items.data_ptr(), items.shape[0], ptr(x), ptr(y), ptr(stage),
+            ptr(peer), ndev, card, state.data_ptr(), state.numel(), grid,
+            torch.cuda.current_stream(items.device).cuda_stream)
     _build.check(rc, "multipath_dma")
     LAUNCHES += 1
 
 
+def launch_table(items: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 stage: torch.Tensor, state: torch.Tensor, grid: int) -> None:
+    """Launch the kernel over the stacked work table ``items`` (int64, on
+    the card) on the current stream, its prologue first (a new epoch,
+    counters zeroed). ``x`` and ``y`` are the operand and output byte
+    buffers (they may be one buffer, the arena of a captured step);
+    ``state`` comes from :func:`new_state`."""
+    _launch(items, x, y, stage, None, 0, 0, state, grid)
+
+
 class DmaProgram(GraphProgram):
-    """One node table made resident on a device, with its buffers.
+    """One stacked node table made resident on a device, with its buffers.
 
     ``inputs()``/``outputs()`` are typed ``(window, num_devices, nelems)``
     views of the operand and output byte buffers, one per message. The
     operand starts as zeros; with ``operand=False`` the program holds
     none, and every :meth:`run` is given the caller's. :meth:`run`
-    executes the table once: the kernel on a CUDA device (state words
-    zeroed on the same stream first), the plain version on the CPU.
-    :meth:`capture` records one run into a CUDA graph; :meth:`replay`
-    launches it.
+    executes the table once: the kernel on a CUDA device, the plain
+    version on the CPU. :meth:`capture` records one run into a CUDA graph;
+    :meth:`replay` launches it.
     """
 
     def __init__(self, table: NodeTable, dtypes: Sequence[torch.dtype],
                  device: torch.device | str, *, operand: bool = True):
+        if table.per_device:
+            raise ValueError("a per-device table runs in a PeerDmaProgram")
         self.table = table
         self.dtypes = tuple(dtypes)
         self.device = torch.device(device)
@@ -333,8 +491,7 @@ class DmaProgram(GraphProgram):
         self.stage = torch.empty(max(table.stage_bytes, 16),
                                  dtype=torch.uint8, device=dev)
         self.items = torch.from_numpy(table.items).to(dev)
-        self.state = torch.zeros(2 + table.num_items + table.num_copy_nodes,
-                                 dtype=torch.int32, device=dev)
+        self.state = new_state(table.items, table.num_copy_nodes, dev)
         self._completed = 0
         self._grid = grid_size(table.num_items, dev) \
             if dev.type == "cuda" else 0
@@ -369,3 +526,145 @@ class DmaProgram(GraphProgram):
         if self.device.type == "cuda":
             return int(self.state[1].item())
         return self._completed
+
+
+class CardLaunch(NamedTuple):
+    """One card's share of a per-device program: its index among the
+    program's cards, its table, state words, space table and grid."""
+
+    card: int
+    items: torch.Tensor
+    state: torch.Tensor
+    space: torch.Tensor
+    grid: int
+
+
+class PeerDmaProgram(GraphProgram):
+    """One per-device node table made resident on its logical devices.
+
+    ``devices[d]`` is logical device *d*'s ``torch.device``; a card may
+    hold several. Every logical device gets its own operand, output and
+    staging buffer on its card. ``inputs()``/``outputs()`` give, per
+    message, one ``(window, nelems)`` view a logical device.
+
+    On CUDA every card runs its share of the table (:func:`card_tables`)
+    as one launch, with a space table of every logical device's buffers
+    and every card's state words; distinct cards get peer access first
+    (:func:`enable_peers`, which raises when a pair has none). One
+    execution first orders the cards (every card's stream waits for what
+    every other card has enqueued so far: the previous execution, its
+    result copies and this one's staging), then launches each card's
+    share; :meth:`~GraphProgram.record` captures one graph a card and
+    :meth:`~GraphProgram.replay` replays them after the same ordering. On
+    the CPU the plain version runs the whole table in order.
+    """
+
+    def __init__(self, table: NodeTable, dtypes: Sequence[torch.dtype],
+                 devices: Sequence[torch.device | str]):
+        if not table.per_device:
+            raise ValueError("a stacked table runs in a DmaProgram")
+        self.table = table
+        self.dtypes = tuple(dtypes)
+        self.devices = tuple(torch.device(d) for d in devices)
+        if len(self.devices) != table.num_devices:
+            raise ValueError(f"table has {table.num_devices} logical "
+                             f"devices, got {len(self.devices)} devices")
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
+            raise ValueError(f"devices must be all CUDA or all CPU, got "
+                             f"{[str(d) for d in self.devices]}")
+        self._cards = tuple(dict.fromkeys(self.devices))
+        self.device = self._cards[0]
+        card_of = [self._cards.index(d) for d in self.devices]
+        on_cuda = self.device.type == "cuda"
+        if on_cuda and len(self.cards) > 1:
+            enable_peers(self.cards)
+        self.x = [torch.zeros(table.io_bytes, dtype=torch.uint8, device=d)
+                  for d in self.devices]
+        self.y = [torch.zeros(table.io_bytes, dtype=torch.uint8, device=d)
+                  for d in self.devices]
+        self.stage = [torch.empty(max(table.stage_bytes, 16),
+                                  dtype=torch.uint8, device=d)
+                      for d in self.devices]
+        self._completed = 0
+        #: One launch a card that runs items.
+        self.launches: list[CardLaunch] = []
+        self._events: list[torch.cuda.Event] = []
+        if not on_cuda:
+            return
+        ptrs = []
+        for d in range(len(self.devices)):
+            ptrs += [self.x[d].data_ptr(), self.y[d].data_ptr(),
+                     self.stage[d].data_ptr()]
+        tables = card_tables(table.items, card_of)
+        states = [new_state(t, table.num_copy_nodes, card)
+                  for t, card in zip(tables, self.cards)]
+        ptrs += [s.data_ptr() for s in states]
+        for c, (card, items, state) in enumerate(zip(self.cards, tables,
+                                                     states)):
+            if not len(items):
+                continue
+            space = torch.tensor(ptrs, dtype=torch.int64).to(card)
+            self.launches.append(CardLaunch(
+                c, torch.from_numpy(items).to(card), state, space,
+                grid_size(len(items), card)))
+        self._events = [torch.cuda.Event() for _ in self.cards]
+
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The distinct devices of the logical devices, in first-use
+        order."""
+        return self._cards
+
+    def _views(self, bufs: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+        out = []
+        for lay, dt in zip(self.table.messages, self.dtypes):
+            out.append([b[lay.base:lay.base + lay.nbytes].view(dt).view(
+                lay.window, lay.nelems) for b in bufs])
+        return out
+
+    def inputs(self) -> list[list[torch.Tensor]]:
+        return self._views(self.x)
+
+    def outputs(self) -> list[list[torch.Tensor]]:
+        return self._views(self.y)
+
+    def order(self) -> None:
+        """Make every card's stream wait for everything every other card
+        has enqueued so far (nothing to do on one card)."""
+        if len(self._cards) < 2:
+            return
+        streams = [torch.cuda.current_stream(c) for c in self._cards]
+        for ev, s in zip(self._events, streams):
+            ev.record(s)
+        for i, s in enumerate(streams):
+            for j, ev in enumerate(self._events):
+                if i != j:
+                    s.wait_event(ev)
+
+    def _run_card(self, launch: CardLaunch) -> None:
+        _launch(launch.items, None, None, None, launch.space,
+                len(self.devices), launch.card, launch.state, launch.grid)
+
+    def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
+        """One body a card that runs items: its launch."""
+        return [(self._cards[launch.card],
+                 functools.partial(self._run_card, launch))
+                for launch in self.launches]
+
+    def run(self) -> None:
+        """Execute the table once (no graph)."""
+        if self.device.type != "cuda":
+            self._completed = run_node_table_plain(
+                self.table.items, self.x, self.y, self.stage)
+            return
+        self.order()
+        for launch in self.launches:
+            self._run_card(launch)
+
+    def completed_nodes(self) -> int:
+        """Copy nodes the last execution completed, summed over the cards
+        (synchronises)."""
+        if self.device.type != "cuda":
+            return self._completed
+        return sum(int(launch.state[1].item()) for launch in self.launches)

@@ -173,7 +173,7 @@ class _ServeProgram(GraphProgram):
         """One execution; returns the logits (the graph's static buffer
         after a replay: read it before the next call)."""
         self.calls += 1
-        if self._graph is not None:
+        if self._graphs:
             self.replay()
             self.replays += 1
             return self.logits

@@ -51,7 +51,11 @@ reference's tolerances. The pipeline and compression slice (``-k
 captured ``multipath_dma`` step bit for bit, a 4-stage pipeline of
 reduced Llama-3 blocks through a CUDA session bit for bit as sequential
 ``block_apply``, and ``compressed_psum`` on the card against the CPU
-within 1e-6.
+within 1e-6. Peer sessions (``-k peer``): four logical devices on one
+card, then on four cards (skipped below four cards that reach each
+other), sends, a bidirectional, an exchange and Jacobi bit for bit as
+the stacked session's, every result on its destination's device, one
+``multipath_dma`` launch a replay a card.
 """
 
 import dataclasses
@@ -476,7 +480,7 @@ def test_a_failed_capture_raises(dev, monkeypatch):
         with pytest.raises(RuntimeError, match="cannot be captured"):
             engine.generate([Request([1, 2, 3], 3)])
     decode = engine._decodes[1]
-    assert decode._graph is None and decode.replays == 0
+    assert not decode._graphs and decode.replays == 0
     assert decode.calls == 2
 
 
@@ -1391,3 +1395,108 @@ def test_cost_count_on_meta_equals_the_cards(dev, arch, kind):
     assert on_meta.key() == on_card.key()
     assert launched == on_card.kernels and launched
     assert bool(on_card.collectives) == moe
+
+
+# -- peer sessions: logical devices on distinct cards -----------------------
+
+
+def peer_cards(count: int) -> list:
+    """``count`` cards that all reach each other, or a skip."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < count:
+        pytest.skip(f"needs {count} CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(count)]
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                pytest.skip(f"{a} has no peer access to {b}")
+    return cards
+
+
+def peer_traffic(sess, stacked, dev):
+    """A send over 3 paths (twice), a bidirectional and a 4-message
+    exchange on a peer session, each bitwise the stacked session's and
+    landing on its destination's device; returns the peer entries."""
+    x = torch.randn(1 << 20, device=dev)
+    for _ in range(2):
+        got = sess.send(x, 0, 1, max_paths=3)
+        assert got.device == sess.devices[1]
+        assert torch.equal(got.to(dev), stacked.send(x, 0, 1, max_paths=3))
+    fwd, rev = sess.bidirectional(x, 2, 3, max_paths=3)
+    sfwd, srev = stacked.bidirectional(x, 2, 3, max_paths=3)
+    assert torch.equal(fwd.to(dev), sfwd) and torch.equal(rev.to(dev), srev)
+    msgs = [torch.randn(300_000 + 7 * i, device=dev) for i in range(4)]
+    items = [(m, i, (i + 1) % 4) for i, m in enumerate(msgs)]
+    got = sess.exchange(items, max_paths=3)
+    want = stacked.exchange(items, max_paths=3)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.device == sess.devices[(i + 1) % 4]
+        assert torch.equal(g.to(dev), w) and torch.equal(w, msgs[i])
+    return [e for _, e in sess.engine._fastpath._store.values()]
+
+
+def test_peer_session_on_one_card_bitwise_stacked(dev):
+    """Four logical devices on one card: distinct allocations, one launch
+    a replay (one card), every path bitwise as the stacked session's."""
+    cfg = CommConfig(multipath_threshold=0)
+    sess = CommSession(cfg, devices=[dev] * 4)
+    stacked = CommSession(cfg, device=dev)
+    entries = peer_traffic(sess, stacked, dev)
+    for e in entries:
+        prog = e.compiled.program
+        assert isinstance(prog, dk.PeerDmaProgram) and len(prog.cards) == 1
+        assert prog.replay_launches == {"multipath_dma": 1}
+        assert prog.completed_nodes() == e.graph.num_copy_nodes
+        plain_y = [torch.zeros_like(y) for y in prog.y]
+        plain_stage = [torch.empty_like(s) for s in prog.stage]
+        prog.replay()
+        dk.run_node_table_plain(prog.table.items, prog.x, plain_y,
+                                plain_stage)
+        assert all(torch.equal(a, b) for a, b in zip(prog.y, plain_y))
+    before = dk.LAUNCHES
+    x = torch.randn(1 << 20, device=dev)
+    assert torch.equal(sess.send(x, 0, 1, max_paths=3), x)
+    assert dk.LAUNCHES == before + 1
+
+
+def test_peer_jacobi_on_one_card_bitwise_stacked(dev):
+    sess = CommSession(devices=[dev] * 4)
+    stacked = CommSession(device=dev)
+    u = torch.randn(4, 8, 1000, device=dev)
+    blocks = list(u.clone().unbind(0))
+    j0 = jk.LAUNCHES
+    for _ in range(3):
+        blocks = jacobi_step(blocks, session=sess)
+        u = jacobi_step(u, session=stacked)
+    assert jk.LAUNCHES - j0 == 3 * 4 + 3
+    assert torch.equal(torch.stack(blocks), u)
+
+
+def test_peer_session_across_four_cards(dev):
+    cards = peer_cards(4)
+    cfg = CommConfig(multipath_threshold=0)
+    sess = CommSession(cfg, devices=cards)
+    stacked = CommSession(cfg, device=cards[0])
+    entries = peer_traffic(sess, stacked, cards[0])
+    for e in entries:
+        prog = e.compiled.program
+        assert prog.cards == tuple(cards)
+        assert prog.replay_launches == {"multipath_dma": 4}
+        assert prog.completed_nodes() == e.graph.num_copy_nodes
+    x = torch.randn(1 << 22, device=cards[0])
+    for _ in range(20):                       # replays back to back
+        sess.send(x, 0, 1, max_paths=3, block=False)
+    out = sess.send(x, 0, 1, max_paths=3)
+    assert torch.equal(out.to(cards[0]), x)
+
+
+def test_peer_jacobi_across_four_cards(dev):
+    cards = peer_cards(4)
+    sess = CommSession(devices=cards)
+    stacked = CommSession(device=cards[0])
+    u = torch.randn(4, 8, 1000, device=cards[0])
+    blocks = [u[i].to(cards[i]) for i in range(4)]
+    for _ in range(3):
+        blocks = jacobi_step(blocks, session=sess)
+        u = jacobi_step(u, session=stacked)
+    assert all(b.device == c for b, c in zip(blocks, cards))
+    assert torch.equal(torch.stack([b.to(cards[0]) for b in blocks]), u)

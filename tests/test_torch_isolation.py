@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and no reference package at run time.
 
 ``repro_torch`` and every submodule must import with ``jax`` blocked, and
-no source file of the port (nor ``chip_smoke.py``) may name jax or import
-the reference package ``repro``. The training subpackages import with
+no source file of the port (nor ``chip_smoke.py`` or
+``tools/peer_smoke.py``) may name jax or import the reference package
+``repro``; ``tools/peer_smoke.py`` also loads with both blocked. The training subpackages import with
 both ``jax`` and ``repro`` blocked, and the port's training example names
 neither.
 """
@@ -43,7 +44,7 @@ def test_imports_with_jax_blocked():
 
 def port_files():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "peer_smoke.py"]
 
 
 def test_no_file_names_jax_or_imports_the_reference():
@@ -108,6 +109,31 @@ sys.modules["repro"] = None
 spec = importlib.util.spec_from_file_location("ex", {str(path)!r})
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
+bad = sorted(m for m, x in sys.modules.items() if x is not None and (
+    m == "repro" or m.startswith("repro.") or m.split(".")[0] == "jax"))
+assert not bad, bad
+print(callable(mod.main))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "True"
+
+
+def test_peer_smoke_loads_with_jax_and_repro_blocked():
+    """``tools/peer_smoke.py`` names no jax and imports nothing of the
+    reference: loaded (not run) with both blocked."""
+    path = ROOT / "tools" / "peer_smoke.py"
+    code = f"""
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+spec = importlib.util.spec_from_file_location("peer", {str(path)!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+import repro_torch.comm, repro_torch.core.halo
 bad = sorted(m for m, x in sys.modules.items() if x is not None and (
     m == "repro" or m.startswith("repro.") or m.split(".")[0] == "jax"))
 assert not bad, bad

@@ -1,0 +1,309 @@
+"""Multi-path transfers across four peer cards, against single path.
+
+Run from the root of a checkout on a machine with at least four CUDA cards
+that reach each other (peer access; NVLink on an H100 host)::
+
+    python3 tools/peer_smoke.py
+
+It raises unless it sees four such cards. It builds the ``multipath_dma``
+and ``jacobi`` kernels, prints ``nvidia-smi topo -m`` (where that fails,
+``topo -p2p n`` and then ``nvlink -s``) and every card's name and power
+limit, then drives a peer session,
+``CommSession(devices=["cuda:0", ..., "cuda:3"])`` (telemetry on, health
+monitor off so that no plan changes mid-sweep), and prints:
+
+* float32 sends 0→1 of 64 KiB, 1, 16, 64, 256 and 512 MiB (the OMB range
+  of the paper), each with ``max_paths=1`` (the direct link) and the
+  planner's default (several paths above its threshold: direct, and
+  staged through cards 2 and 3), each received message bitwise the sent
+  one; GB/s from the replay (CUDA events, replays back to back, every
+  card's stream joined before the end event), the whole ``session.send``
+  on the host clock, and one ``y.copy_(x)`` across the two cards (torch's
+  peer copy) as the yardstick, beside the bound B / 450 GB/s (dst's NVLink
+  ingress, data sheet);
+* the same for ``bidirectional`` (0→1 and 1→0 at once; the bound 2B /
+  900 GB/s, the yardstick two peer copies, one each way);
+* a 4-message ``exchange``, each card to the next, 64 MiB each;
+* path A's Jacobi application, 4 blocks of (8, 2**22) float32, one block
+  a card, 10 iterations, bitwise against one card's stacked run, with the
+  time of an iteration on both;
+* ``calibrate()`` on the sends' telemetry: the fitted bandwidth of every
+  link that carried traffic, and the launch terms;
+* a JSON line of every reading, then ``{"ok": true, "device": {...,
+  "count": 4}}`` as the last line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+
+#: H100 NVLink: 900 GB/s to the other cards of the host, 450 GB/s each way
+#: (NVIDIA data sheet).
+NVLINK_BYTES_PER_S = 450e9
+MiB = 1 << 20
+SIZES = (64 * 1024, MiB, 16 * MiB, 64 * MiB, 256 * MiB, 512 * MiB)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        print(f"FAIL: {msg}", flush=True)
+        sys.exit(1)
+
+
+def peer_cards(count: int = 4) -> list[torch.device]:
+    """The first ``count`` cards; raises unless each reaches every other."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("peer_smoke needs CUDA cards; none is available")
+    if torch.cuda.device_count() < count:
+        raise RuntimeError(f"peer_smoke needs {count} CUDA cards, found "
+                           f"{torch.cuda.device_count()}")
+    cards = [torch.device("cuda", i) for i in range(count)]
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(f"{a} has no peer access to {b}")
+    return cards
+
+
+def sync_all(cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def device_ms(fn, cards, iters: int, warmup: int = 2) -> float:
+    """Mean ms of ``fn()`` over ``iters`` back-to-back calls: CUDA events
+    on card 0's stream, every other card's stream joined to it before the
+    end event."""
+    for _ in range(warmup):
+        fn()
+    sync_all(cards)
+    s0 = torch.cuda.current_stream(cards[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(s0)
+    for _ in range(iters):
+        fn()
+    for c in cards[1:]:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(c))
+        s0.wait_event(ev)
+    end.record(s0)
+    sync_all(cards)
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, cards, iters: int, warmup: int = 2) -> float:
+    """Mean wall ms of ``fn()`` followed by a synchronize of every card."""
+    for _ in range(warmup):
+        fn()
+        sync_all(cards)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        sync_all(cards)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def iters_for(nbytes: int) -> int:
+    return max(5, min(200, (2 << 30) // max(nbytes, 1)))
+
+
+def entry_for(sess, specs: tuple, max_paths):
+    """The fast-path entry of a request (its signature's specs and
+    ``max_paths``)."""
+    for sig, (_, entry) in sess.engine._fastpath._store.items():
+        if sig[1] == specs and sig[4] == max_paths:
+            return entry
+    raise KeyError(specs)
+
+
+def routes(entry) -> list:
+    return [[pa.route.via for pa in p.paths] for p in entry.plans]
+
+
+def main() -> int:
+    cards = peer_cards(4)
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.core.halo import jacobi_step
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    for cmd in (["topo", "-m"], ["topo", "-p2p", "n"], ["nvlink", "-s"]):
+        out = subprocess.run(["nvidia-smi", *cmd], capture_output=True,
+                             text=True)
+        print(f"nvidia-smi {' '.join(cmd)} (exit {out.returncode}):\n"
+              f"{out.stdout}{out.stderr}", flush=True)
+        if out.returncode == 0 and "Failed" not in out.stdout:
+            break
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    for i, line in enumerate(smi):
+        print(f"card {i}: {line}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(("multipath_dma", "jacobi"))
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    sess = CommSession(CommConfig(telemetry=True, health=False),
+                       devices=cards)
+    check(sess.stats()["devices"] == [str(c) for c in cards],
+          "session does not list its cards")
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    results: dict[str, list] = {"send": [], "bidirectional": []}
+    launches = dk.LAUNCHES
+
+    for nbytes in SIZES:
+        n = nbytes // 4
+        x = torch.randn(n, generator=gen, device=cards[0])
+        x1 = x.to(cards[1])
+        y = torch.empty_like(x1)
+        copy_ms = device_ms(lambda: y.copy_(x), cards, iters_for(nbytes))
+        for mp in (1, None):
+            for _ in range(2):
+                out = sess.send(x, 0, 1, max_paths=mp)
+                check(out.device == cards[1] and torch.equal(out, x1),
+                      f"send {nbytes} B max_paths={mp} not bitwise")
+            e = entry_for(sess, ((0, 1, n, "float32"),), mp)
+            prog = e.compiled.program
+            check(prog.completed_nodes() == e.graph.num_copy_nodes,
+                  f"send {nbytes} B: completed != copy nodes")
+            rep = device_ms(prog.replay, cards, iters_for(nbytes))
+            host = host_ms(lambda: sess.send(x, 0, 1, max_paths=mp), cards,
+                           min(50, iters_for(nbytes)))
+            row = {"nbytes": nbytes, "max_paths": mp,
+                   "paths": routes(e)[0], "copy_nodes":
+                       e.graph.num_copy_nodes,
+                   "replay_ms": rep, "replay_gbps": nbytes / rep / 1e6,
+                   "send_ms": host, "send_gbps": nbytes / host / 1e6,
+                   "copy_ms": copy_ms, "copy_gbps": nbytes / copy_ms / 1e6,
+                   "bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3,
+                   "launches": prog.replay_launches}
+            results["send"].append(row)
+            print(f"send {nbytes} B 0->1 max_paths={mp}: paths "
+                  f"{row['paths']}, {row['copy_nodes']} copy nodes, bitwise;"
+                  f" replay {rep:.4f} ms = {row['replay_gbps']:.1f} GB/s, "
+                  f"session.send {host:.4f} ms = {row['send_gbps']:.1f} GB/s"
+                  f" (host clock, synced), peer y.copy_(x) {copy_ms:.4f} ms ="
+                  f" {row['copy_gbps']:.1f} GB/s, bound "
+                  f"{row['bound_ms']:.4f} ms (450 GB/s); launches a replay "
+                  f"{prog.replay_launches}", flush=True)
+        del x, x1, y
+
+    for nbytes in SIZES:
+        n = nbytes // 4
+        x = torch.randn(n, generator=gen, device=cards[0])
+        x1 = x.to(cards[1])
+        ya, yb = torch.empty_like(x1), torch.empty_like(x)
+
+        def both():
+            ya.copy_(x)
+            yb.copy_(x1)
+
+        copy_ms = device_ms(both, cards, iters_for(2 * nbytes))
+        for mp in (1, None):
+            fwd, rev = sess.bidirectional(x, 0, 1, max_paths=mp)
+            check(fwd.device == cards[1] and torch.equal(fwd, x1)
+                  and rev.device == cards[0] and torch.equal(rev, x),
+                  f"bidirectional {nbytes} B max_paths={mp} not bitwise")
+            e = entry_for(sess, ((0, 1, n, "float32"), (1, 0, n, "float32")),
+                          mp)
+            prog = e.compiled.program
+            rep = device_ms(prog.replay, cards, iters_for(2 * nbytes))
+            host = host_ms(lambda: sess.bidirectional(x, 0, 1, max_paths=mp),
+                           cards, min(50, iters_for(2 * nbytes)))
+            row = {"nbytes": nbytes, "max_paths": mp, "paths": routes(e),
+                   "replay_ms": rep, "replay_gbps": 2 * nbytes / rep / 1e6,
+                   "call_ms": host, "copy_ms": copy_ms,
+                   "copy_gbps": 2 * nbytes / copy_ms / 1e6,
+                   "bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3}
+            results["bidirectional"].append(row)
+            print(f"bidirectional {nbytes} B 0<->1 max_paths={mp}: paths "
+                  f"{row['paths']}, bitwise; replay {rep:.4f} ms = "
+                  f"{row['replay_gbps']:.1f} GB/s both ways, call "
+                  f"{host:.4f} ms, two peer copy_ {copy_ms:.4f} ms = "
+                  f"{row['copy_gbps']:.1f} GB/s, bound {row['bound_ms']:.4f}"
+                  f" ms", flush=True)
+        del x, x1, ya, yb
+
+    n = 16 * MiB                                          # 64 MiB each
+    msgs = [torch.randn(n, generator=gen, device=cards[0]).to(cards[i])
+            for i in range(4)]
+    items = [(msgs[i], i, (i + 1) % 4) for i in range(4)]
+    got = sess.exchange(items)
+    for i, g in enumerate(got):
+        check(g.device == cards[(i + 1) % 4]
+              and torch.equal(g, msgs[i].to(g.device)),
+              f"exchange message {i} not bitwise")
+    e = entry_for(sess, tuple((i, (i + 1) % 4, n, "float32")
+                              for i in range(4)), None)
+    rep = device_ms(e.compiled.program.replay, cards, 20)
+    host = host_ms(lambda: sess.exchange(items), cards, 20)
+    results["exchange"] = {"nbytes_each": 4 * n, "paths": routes(e),
+                           "replay_ms": rep,
+                           "replay_gbps": 4 * 4 * n / rep / 1e6,
+                           "call_ms": host}
+    print(f"exchange 4 x 64 MiB, card i -> i+1: paths {routes(e)}, bitwise; "
+          f"replay {rep:.4f} ms = {results['exchange']['replay_gbps']:.1f} "
+          f"GB/s in all, call {host:.4f} ms", flush=True)
+    del msgs, items, got
+
+    ranks, rows, cols, iters = 4, 8, 1 << 22, 10
+    u0 = torch.randn(ranks, rows, cols, generator=gen, device=cards[0])
+    stacked = CommSession(device=cards[0])
+    u = u0
+    for _ in range(iters):
+        u = jacobi_step(u, session=stacked)
+    blocks = [u0[i].to(cards[i]) for i in range(4)]
+    for _ in range(iters):
+        blocks = jacobi_step(blocks, session=sess)
+    sync_all(cards)
+    check(all(b.device == c for b, c in zip(blocks, cards)),
+          "Jacobi blocks left their cards")
+    check(torch.equal(torch.stack([b.to(cards[0]) for b in blocks]), u),
+          "peer Jacobi differs from one card's stacked run")
+    peer_it = host_ms(lambda: jacobi_step(blocks, session=sess), cards, 10)
+    one_it = host_ms(lambda: jacobi_step(u, session=stacked), cards, 10)
+    results["jacobi"] = {"shape": [ranks, rows, cols], "iters": iters,
+                         "peer_iter_ms": peer_it, "one_card_iter_ms": one_it}
+    print(f"Jacobi {ranks}x({rows},{cols}) f32, {iters} iterations on 4 "
+          f"cards: bitwise the one-card stacked run; an iteration {peer_it:.4f}"
+          f" ms on 4 cards, {one_it:.4f} ms on one (host clock, synced)",
+          flush=True)
+    del u0, u, blocks, stacked
+
+    t0 = time.perf_counter()
+    prof = sess.calibrate(min_samples=2, warmup=1)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    links = {f"{a}->{b}": round(g, 3)
+             for (a, b), g in sorted(prof.link_bandwidth_gbps.items())}
+    samples = {f"{a}->{b}": k
+               for (a, b), k in sorted(prof.link_samples.items())}
+    results["calibration"] = {"link_gbps": links, "link_samples": samples,
+                              "launch": str(prof.launch),
+                              "fit_ms": fit_ms}
+    print(f"calibrate() on {len(sess.telemetry.samples())} samples "
+          f"({fit_ms:.1f} ms): fitted GB/s per link {links} (samples "
+          f"{samples}); launch terms {prof.launch}", flush=True)
+    results["launches"] = dk.LAUNCHES - launches
+    results["cards"] = smi
+    print(json.dumps({"peer_smoke": results}), flush=True)
+    print(f"cards: {smi[0]}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": len(cards)}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
