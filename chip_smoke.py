@@ -420,7 +420,24 @@ What it does, in order (any failed check exits nonzero):
     each graph's, one ``multipath_dma`` launch a replay (one card); the
     256 MiB replay, the 64 KiB send and a Jacobi iteration timed against
     the stacked session's, in turns;
-29. one JSON line ``{"kernels": [...]}``, then as the last line
+29. main path V, counters set to 0 before it and read after it: the
+    collectives of a peer session on the one card,
+    ``CommSession(schedule="auto", devices=["cuda:0"] * 4)``: a 256 MiB
+    float32 ``all_gather`` twice (the second a cache hit), 64 MiB
+    ``reduce_scatter``, ``all_reduce``, ``psum`` of an odd (4097, 4095)
+    that pads and ``all_to_all``, bfloat16 ``all_gather`` at f = 7 and
+    f = 1, and ``session.collectives`` (``all_gather``,
+    ``reduce_scatter``, ``all_reduce``, ``psum``, ``pmean``,
+    ``all_to_all``) on per-device lists of 8 MiB rows; each result bitwise
+    equal to the stacked session's (run before the counters are zeroed),
+    one dispatch a call (a list call runs its driver-level counterpart's
+    program from the plan cache), every peer ``ring_allgather``
+    program's replicas bitwise ``ring_allgather_peer_plain`` on its shards
+    (completed items = items), ``ring_allgather`` launched once a card a
+    gather and ``multipath_dma`` once a card a ring shift, as counted from
+    the programs; the 256 MiB all-gather and the 64 MiB all-reduce replays
+    timed against the stacked session's, in turns;
+30. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -893,6 +910,7 @@ def comm_paths(dev, randn, errs, per_path, read_path
     yard_ms = cuda_time_ms(lambda: rows_ag.reshape(1, nd * 2048, 8192)
                            .expand(nd, -1, -1).contiguous(), 20)
     ag_replay_ms = cuda_time_ms(ag_prog.replay, 20)
+    launch64["ag_replay256_ms"] = ag_replay_ms
     ag_call_ms = host_time_ms(lambda: sess.all_gather(ag_x), 10)
     print(f"ring_allgather (4, 2048, 8192) f32: kernel {ring_ms:.4f} ms, "
           f"floor {ring_floor:.4f} ms ((n + n^2) S at 3.35 TB/s, "
@@ -5451,6 +5469,161 @@ def peer_path(dev, per_path, read_path, at_a: dict) -> None:
           f"{jac_t['stacked'][1]:.4f} ms", flush=True)
 
 
+def peer_collectives_path(dev, per_path, read_path, at_b: dict) -> None:
+    """Main path V (phase 29): the collectives of a peer session on the
+    one card, four logical devices each with its own buffers, held bit for
+    bit to the stacked session and every peer ring program to its plain
+    version, launches counted, timed against the stacked session. ``at_b``:
+    path B's times (``ag_replay256_ms``)."""
+    from repro_torch.comm import CommSession
+    from repro_torch.comm.session import PeerCollectiveProgram
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.multipath_dma import kernel as dk
+    from repro_torch.kernels.ring_allgather import kernel as rk
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    nd = 4
+    big = randn(nd * 2048, 8192)                          # 256 MiB f32
+    mid = randn(nd * 512, 8192)                           # 64 MiB f32
+    odd = randn(4097, 4095)                               # 64 MiB, pads
+    a2a = randn(nd * nd, 1 << 20)                         # 64 MiB f32
+    calls = [("all_gather", big), ("all_gather", big),
+             ("reduce_scatter", mid), ("all_reduce", mid), ("psum", odd),
+             ("all_to_all", a2a),
+             ("all_gather", randn(nd * 4096, 7, dtype=torch.bfloat16)),
+             ("all_gather", randn(nd * 4096, 1, dtype=torch.bfloat16))]
+    rows = randn(nd, 1024, 2048)                          # 8 MiB a row
+    lists = [("all_gather", rows), ("reduce_scatter", rows),
+             ("all_reduce", rows), ("psum", rows[:, :999, :7]),
+             ("pmean", rows), ("all_to_all", rows[:, :nd])]
+    stacked = CommSession(schedule="auto", device=dev)
+    want = [getattr(stacked, op)(x) for op, x in calls]
+    want_c = [getattr(stacked.collectives, op)(x) for op, x in lists]
+    torch.cuda.synchronize()
+    peer = CommSession(schedule="auto", devices=[dev] * nd)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [getattr(peer, op)(x) for op, x in calls]
+    got_c = [getattr(peer.collectives, op)(list(x.unbind(0)))
+             for op, x in lists]
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    read_path("V")
+    for (op, x), g, w in zip(calls, got, want):
+        check(g.device == dev and torch.equal(g, w),
+              f"path V session.{op} {tuple(x.shape)} {x.dtype} differs from "
+              f"the stacked session's")
+    for (op, x), g, w in zip(lists, got_c, want_c):
+        check(len(g) == nd and torch.equal(torch.stack(g), w),
+              f"path V session.collectives.{op} {tuple(x.shape)} differs "
+              f"from the stacked session's")
+    stats = peer.stats()
+    check(stats["dispatches"] == len(calls) + len(lists)
+          and stats["cache"]["hits"] == 1,
+          f"path V: {stats['dispatches']} dispatches, "
+          f"{stats['cache']['hits']} cache hits for {len(calls)} "
+          f"driver-level calls (one repeat) and {len(lists)} list calls")
+    # Launches, one a card (here one card) a ring shift or gather: a
+    # program (driver-level or a list call's; pmean runs psum's) runs at
+    # its warm-up, at compile_plan's first replay and once a call.
+    expect = {"multipath_dma": 0, "ring_allgather": 0}
+    rings = []
+    for compiled in peer.cache.values():
+        prog = compiled.program
+        check(isinstance(prog, PeerCollectiveProgram),
+              "path V program is not a PeerCollectiveProgram")
+        for name, k in prog.replay_launches.items():
+            expect[name] += k * (2 + compiled.lifecycle.launches)
+        shifts = sum(isinstance(p, dk.PeerDmaProgram)
+                     for p in prog.ring.programs)
+        check(prog.replay_launches.get("multipath_dma", 0) == shifts
+              and prog.replay_launches.get("ring_allgather", 0)
+              == len(prog.ring.programs) - shifts,
+              f"path V program launches {prog.replay_launches} a replay, "
+              f"not one a ring shift or gather")
+        rings.append(prog.ring)
+    check(per_path["V"] == expect,
+          f"path V launches {per_path['V']}, expected {expect} (one a card "
+          f"a ring shift or gather)")
+    gathers = 0
+    for ring in rings:
+        for p in ring.programs:
+            if isinstance(p, rk.PeerRingProgram):
+                plain = rk.ring_allgather_peer_plain(p.x)
+                check(all(torch.equal(a, b) for a, b in zip(p.out, plain)),
+                      f"path V peer ring {p.geometry} differs from "
+                      f"ring_allgather_peer_plain")
+                check(p.completed_items() == p.geometry.num_items,
+                      f"path V peer ring completed {p.completed_items()} of "
+                      f"{p.geometry.num_items} items")
+                gathers += 1
+    print(f"path V: {len(calls)} driver-level calls (256 MiB all_gather "
+          f"twice, the second a cache hit; 64 MiB reduce_scatter, "
+          f"all_reduce, psum of (4097, 4095), all_to_all; bf16 all_gather "
+          f"f = 7 and f = 1) and {len(lists)} session.collectives calls on "
+          f"lists bitwise the stacked session's; {gathers} peer ring "
+          f"programs bitwise ring_allgather_peer_plain, completed = items; "
+          f"launches {per_path['V']} as counted (one a card a shift or a "
+          f"gather); drive {drive_s:.2f} s (first calls capture)",
+          flush=True)
+
+    def program(sess, op, shape):
+        for key, compiled in zip(sess.cache.keys(), sess.cache.values()):
+            k = getattr(key, "key", key)
+            if k.op == op and compiled.program.inputs():
+                x = compiled.program.inputs()[0]
+                local = tuple((x[0] if isinstance(x, list) else x).shape)
+                if local[-1] == shape[-1]:
+                    return compiled.program
+        raise KeyError(op)
+
+    shard = 2048 * 8192 * 4
+    ag_bound = (nd + nd * nd) * shard / HBM_BYTES_PER_S * 1e3
+    ring = program(peer, "all_gather", big.shape).ring.programs[0]
+    kernel_ms = cuda_time_ms(ring.run, 20)
+    plain_ms = cuda_time_ms(lambda: rk.ring_allgather_peer_plain(ring.x), 5,
+                            warmup=1)
+    print(f"path V peer ring_allgather (4 x (2048, 8192) f32 on one card, "
+          f"its resident program): kernel {kernel_ms:.4f} ms, bound "
+          f"{ag_bound:.4f} ms ((n + n^2) S at 3.35 TB/s, "
+          f"{ag_bound / kernel_ms:.1%} of it), ring_allgather_peer_plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    def resident_mib(prog, d):
+        # logical device d's static buffers: the input and every step's
+        bufs = [prog.x]
+        for p in prog.ring.programs:
+            bufs += ([p.x, p.y, p.stage] if isinstance(p, dk.PeerDmaProgram)
+                     else [p.x, p.out])
+        return sum(b[d].numel() * b[d].element_size() for b in bufs) / MiB
+
+    ar = program(peer, "all_reduce", mid.shape)
+    print(f"path V 64 MiB all_reduce program: static buffers a logical "
+          f"device {[round(resident_mib(ar, d), 2) for d in range(nd)]} MiB "
+          f"(input, 3 ring shifts, the gather)", flush=True)
+    times = {}
+    for op, shape in (("all_gather", big.shape), ("all_reduce", mid.shape)):
+        sp, pp = program(stacked, op, shape), program(peer, op, shape)
+        for label, prog in (("stacked", sp), ("peer", pp), ("peer", pp),
+                            ("stacked", sp)):
+            times.setdefault((op, label), []).append(
+                cuda_time_ms(prog.replay, 20))
+    print(f"path V 256 MiB all_gather replay: peer "
+          f"{times['all_gather', 'peer'][0]:.4f} / "
+          f"{times['all_gather', 'peer'][1]:.4f} ms, stacked "
+          f"{times['all_gather', 'stacked'][0]:.4f} / "
+          f"{times['all_gather', 'stacked'][1]:.4f} ms (in turns; path B's "
+          f"{at_b['ag_replay256_ms']:.4f}), one-card bound {ag_bound:.4f} ms "
+          f"((n + n^2) S at 3.35 TB/s); 64 MiB all_reduce replay: peer "
+          f"{times['all_reduce', 'peer'][0]:.4f} / "
+          f"{times['all_reduce', 'peer'][1]:.4f} ms, stacked "
+          f"{times['all_reduce', 'stacked'][0]:.4f} / "
+          f"{times['all_reduce', 'stacked'][1]:.4f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5731,16 +5904,19 @@ def main() -> int:
     peer_path(dev, per_path, read_path, launch64)
     gc.collect()
     torch.cuda.empty_cache()
+    peer_collectives_path(dev, per_path, read_path, launch64)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-U): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-V): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 29. report --------------------------------------------------------
+    # -- 30. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

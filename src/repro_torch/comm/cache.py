@@ -120,7 +120,7 @@ class CompiledPlan:
     def inputs(self) -> list:
         """The static operand views, ``(window, num_devices, nelems)``
         (over peer cards, one ``(window, nelems)`` view a logical device
-        for each message)."""
+        for each message, ``None`` where the table reads none)."""
         return self.program.inputs()
 
     def outputs(self) -> list:
@@ -134,7 +134,8 @@ class CompiledPlan:
         for buf, arg in zip(self.inputs(), args):
             if isinstance(buf, list):
                 for b, a in zip(buf, arg):
-                    b.copy_(a)
+                    if b is not None:     # else the table reads none there
+                        b.copy_(a)
             else:
                 buf.copy_(arg)
 

@@ -1,18 +1,31 @@
-"""Multipath-striped collectives over device-stacked tensors.
+"""Multipath-striped collectives over device-stacked tensors or per-device lists.
 
 The port of the reference's bidirectional-ring collectives (the paper's §6
 future work: stripe a collective across both ring directions, as a
-point-to-point message is striped across idle links). Every function takes
-a **device-stacked** tensor whose dim 0 is the logical device, where the
-reference takes one device's local value inside ``shard_map``: a
-``ppermute`` by ``+s`` becomes ``torch.roll(x, s, dims=0)`` and
-``axis_index`` becomes ``torch.arange(n)``.
+point-to-point message is striped across idle links). Each collective is
+written once, over a **ring**: where the reference takes one device's
+local value inside ``shard_map``, a ring holds every logical device's part
+and gives the steps that reach across devices — a ``ppermute`` by ``+s``
+is :meth:`shift`, the all-gather half :meth:`gather`, and a device's
+block picked by ``axis_index`` :meth:`pick`/:meth:`put`. Shape-only and
+elementwise work runs through :meth:`each` on dims counted from the end,
+which are one device's whatever lies before them.
 
-The all-gather runs on the hand-written ``ring_allgather`` kernel on a CUDA
-tensor (:mod:`repro_torch.kernels.ring_allgather`), on its plain version on
-the CPU. The reductions keep the reference's order of additions —
-``acc = roll(acc) + blk(...)`` step by step — so float32 sums are bit-equal
-to the reference ring, not just close.
+* :class:`StackedRing` (the default): a **device-stacked** tensor whose
+  dim 0 is the logical device; a shift is ``torch.roll``, a pick batched
+  indexing, the gather the hand-written ``ring_allgather`` kernel on a
+  CUDA tensor (:mod:`repro_torch.kernels.ring_allgather`), its plain
+  version on the CPU.
+* :class:`PeerRing`: a peer session's logical devices
+  (``CommSession(devices=[...])``), a **list** of ``n`` tensors, ``xs[d]``
+  on device *d*'s ``torch.device``; a shift is one per-device
+  ``multipath_dma`` table of the ring's messages ``d → d + s``, the gather
+  the peer ``ring_allgather``, and the adds run on each device after its
+  launch.
+
+The reductions keep the reference's order of additions —
+``acc = shift(acc) + blk(...)`` step by step — so float32 and bfloat16
+sums are bit-equal to the reference ring, not just close, in both forms.
 
 Hierarchy (DESIGN §3.1): :func:`two_level_all_reduce` decomposes an
 all-reduce over ``(islands, per_island, ...)`` into an intra-island
@@ -25,119 +38,314 @@ numbers.
 
 from __future__ import annotations
 
+import functools
+import math
+import weakref
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.topology import HOST, Topology
+from repro_torch.kernels.ring_allgather.kernel import PeerRingProgram
 from repro_torch.kernels.ring_allgather.ops import ring_allgather
 
 
-def _devices(xs: torch.Tensor) -> torch.Tensor:
-    return torch.arange(xs.shape[0], device=xs.device)
+def _local(x: torch.Tensor, k: int, shape: tuple) -> torch.Tensor:
+    """``x`` with its last ``k`` dims (one device's part) reshaped to
+    ``shape``, and any device dim before them kept."""
+    return x.reshape(tuple(x.shape[:x.dim() - k]) + tuple(shape))
 
 
-def bidir_ring_all_gather(xs: torch.Tensor) -> torch.Tensor:
-    """All-gather of the stacked shards ``xs: (n, s, ...)`` using both ring
-    directions; returns ``(n, n*s, ...)``, every row holding the tiled
-    gather in device order.
+def _first(parts: list) -> torch.Tensor:
+    return next(p for p in parts if p is not None)
+
+
+class StackedRing:
+    """The ring of a device-stacked operand ``(n, ...)``: a part is one
+    tensor whose dim 0 is the logical device."""
+
+    def __init__(self, xs: torch.Tensor):
+        self.n = xs.shape[0]
+        self.device = xs.device
+
+    @functools.cached_property
+    def _dev(self) -> torch.Tensor:
+        return torch.arange(self.n, device=self.device)
+
+    def local_shape(self, xs: torch.Tensor) -> tuple:
+        return tuple(xs.shape[1:])
+
+    def each(self, fn: Callable, *parts):
+        """``fn`` on every device's part at once."""
+        return fn(*parts)
+
+    def pick(self, xs: torch.Tensor, offset: int) -> torch.Tensor:
+        """Device *d*'s block ``(d + offset) mod n`` of its part."""
+        return xs[self._dev, (self._dev + offset) % self.n]
+
+    def put(self, xs: torch.Tensor, offset: int, values) -> None:
+        """Write ``values`` into device *d*'s block ``(d + offset) mod n``."""
+        xs[self._dev, (self._dev + offset) % self.n] = values
+
+    def shift(self, *sends: tuple) -> list:
+        """Each ``(parts, s)``: device *d*'s part goes to *d* + *s*."""
+        return [torch.roll(parts, s, dims=0) for parts, s in sends]
+
+    def gather(self, shards: torch.Tensor) -> torch.Tensor:
+        """The ring all-gather of ``(n, rows, f)``: ``(n, n, rows, f)``."""
+        return ring_allgather(shards)
+
+
+class ListRing:
+    """A ring whose parts are lists of ``n`` tensors, one a logical device
+    (``None`` where a run does not hold the device: the devices of other
+    cards, in a one-card run of :class:`PeerRing`). Subclasses give
+    ``n``, :meth:`shift` and :meth:`gather`."""
+
+    n: int
+
+    def held(self, d: int) -> bool:
+        return True
+
+    def local_shape(self, xs: list) -> tuple:
+        return tuple(_first(xs).shape)
+
+    def each(self, fn: Callable, *parts) -> list:
+        """``fn`` device by device."""
+        return [None if any(a is None for a in args) else fn(*args)
+                for args in zip(*parts)]
+
+    def pick(self, xs: list, offset: int) -> list:
+        return [None if x is None else x[(d + offset) % self.n]
+                for d, x in enumerate(xs)]
+
+    def put(self, xs: list, offset: int, values: list) -> None:
+        for d, (x, v) in enumerate(zip(xs, values)):
+            if x is not None:
+                x[(d + offset) % self.n] = v
+
+
+class PeerRing(ListRing):
+    """The ring steps over a peer engine's logical devices
+    (``engine.devices``; a card may hold several).
+
+    * :meth:`shift` moves its sends, each one part a device going
+      ``d → d + s``, as the messages of ONE per-device ``multipath_dma``
+      table (:meth:`~repro_torch.comm.engine.MultiPathTransfer.step_program`),
+      one launch a card;
+    * :meth:`gather` is one peer ``ring_allgather``
+      (:class:`~repro_torch.kernels.ring_allgather.kernel.PeerRingProgram`).
+
+    Programs are made resident at their first use and taken in call order
+    on every later run, so each step of a collective has buffers of its
+    own: no buffer is written twice in one execution, although a sender
+    may run several steps ahead of its receiver. Results are views of the
+    programs' buffers, which the next run overwrites. :meth:`begin` starts
+    a run over every card (``card=None``: each program orders the cards
+    and launches on all of them, or runs its plain version on the CPU) or
+    over one card alone (``card=c``: stage and launch card ``c``'s share
+    only, the body of one CUDA graph a card, whose caller orders the
+    cards once an execution; the parts of other cards' devices are
+    ``None``). The ring holds its engine weakly: it lives in the engine's
+    plan cache."""
+
+    def __init__(self, engine):
+        self._engine = weakref.ref(engine)
+        self.devices = engine.devices
+        self.n = len(self.devices)
+        self.cards = tuple(dict.fromkeys(self.devices))
+        self.card_of = [self.cards.index(d) for d in self.devices]
+        self.card: int | None = None
+        self.programs: list = []
+        self._next = 0
+
+    def begin(self, card: int | None = None) -> None:
+        """Start a run of the collective: over every card, or one."""
+        self.card = card
+        self._next = 0
+
+    def held(self, d: int) -> bool:
+        """Whether this run computes logical device ``d``'s parts."""
+        return self.card is None or self.card_of[d] == self.card
+
+    def _program(self, build: Callable):
+        if self._next == len(self.programs):
+            if self.card is not None:
+                raise RuntimeError("a one-card run replays the programs of "
+                                   "a run over every card")
+            self.programs.append(build())
+        prog = self.programs[self._next]
+        self._next += 1
+        if self.card is None:
+            return prog, prog.run
+        return prog, functools.partial(prog.run_card, self.card)
+
+    def shift(self, *sends: tuple[list, int]) -> list[list]:
+        """Move every ``(parts, s)`` send one ring shift: ``parts[d]`` (one
+        shape and dtype for all ``d``) goes from device ``d`` to ``d + s``.
+        Returns, per send, the parts received: device ``d``'s is the part
+        of ``d - s``."""
+        n = self.n
+        refs = [_first(parts) for parts, _ in sends]
+        prog, execute = self._program(lambda: self._engine().step_program(
+            [(d, (d + s) % n, ref.numel(), ref.dtype)
+             for (_, s), ref in zip(sends, refs) for d in range(n)]))
+        bufs = prog.inputs()
+        for k, ((parts, _), ref) in enumerate(zip(sends, refs)):
+            for d, part in enumerate(parts):
+                if part is not None:
+                    bufs[k * n + d][d].view(ref.shape).copy_(part)
+        execute()
+        outs = prog.outputs()
+        return [[outs[k * n + (d - s) % n][d].view(ref.shape)
+                 if self.held(d) else None for d in range(n)]
+                for k, ((_, s), ref) in enumerate(zip(sends, refs))]
+
+    def gather(self, shards: list) -> list:
+        """The peer ring all-gather of ``shards[d]: (rows, f)``: each
+        device's replica ``(n, rows, f)``."""
+        ref = _first(shards)
+        prog, execute = self._program(lambda: PeerRingProgram(
+            *ref.shape, ref.dtype, self.devices))
+        for d, x in enumerate(shards):
+            if x is not None:
+                prog.x[d].copy_(x)
+        execute()
+        return [out if self.held(d) else None
+                for d, out in enumerate(prog.out)]
+
+
+def _ring(xs, ring):
+    return StackedRing(xs) if ring is None else ring
+
+
+def bidir_ring_all_gather(xs, ring=None):
+    """All-gather of the shards ``(s, ...)`` of ``ring``'s devices using
+    both ring directions: every device gets the tiled gather in device
+    order, ``(n*s, ...)``. Stacked (the default ring): ``xs: (n, s, ...)``
+    → ``(n, n*s, ...)``.
 
     The first half of the last axis travels clockwise and the second half
     counter-clockwise (one direction when the last axis has one element),
-    through the ``ring_allgather`` kernel on a CUDA tensor.
+    through the ``ring_allgather`` kernel on CUDA tensors.
     """
-    n = xs.shape[0]
+    ring = _ring(xs, ring)
+    n = ring.n
     if n == 1:
         return xs
-    local = xs.shape[1:]
-    f = local[-1]
-    gathered = ring_allgather(xs.reshape(n, -1, f))
-    return gathered.reshape((n, n * local[0]) + tuple(local[1:]))
+    local = ring.local_shape(xs)
+    k, f = len(local), local[-1]
+    replicas = ring.gather(ring.each(lambda x: _local(x, k, (-1, f)), xs))
+    return ring.each(
+        lambda r: _local(r, 3, (n * local[0],) + local[1:]), replicas)
 
 
-def bidir_ring_reduce_scatter(xs: torch.Tensor) -> torch.Tensor:
-    """Reduce-scatter (sum) of ``xs: (n, n*s, ...)`` using both ring
-    directions; returns ``(n, s, ...)``, row *i* holding the sum over
-    devices of block *i*.
+def bidir_ring_reduce_scatter(xs, ring=None):
+    """Reduce-scatter (sum) of the operands ``(n*s, ...)`` of ``ring``'s
+    devices using both ring directions: device *i* gets the sum over
+    devices of block *i*, ``(s, ...)``. Stacked: ``xs: (n, n*s, ...)`` →
+    ``(n, s, ...)``.
 
     The first half of the last axis accumulates clockwise, the second
     counter-clockwise; a 1-D local operand, or one whose last axis has one
     element, takes the single-direction ring.
     """
-    n = xs.shape[0]
+    ring = _ring(xs, ring)
+    n = ring.n
     if n == 1:
         return xs
-    s = xs.shape[1] // n
-    local_ndim = xs.dim() - 1
-    blocks = xs.reshape((n, n, s) + tuple(xs.shape[2:]))
-    dev = _devices(xs)
-    f = xs.shape[-1] if local_ndim > 1 else 1
-    f0 = f // 2 if local_ndim > 1 else 0
+    local = ring.local_shape(xs)
+    k = len(local)
+    s = local[0] // n
+    f = local[-1] if k > 1 else 1
+    f0 = f // 2 if k > 1 else 0
+    blocks = ring.each(lambda x: _local(x, k, (n, s) + local[1:]), xs)
 
     def blk(offset: int, lo: int | None = None, hi: int | None = None):
-        # device i's block (i + offset) mod n, optionally a feature range
-        b = blocks[dev, (dev + offset) % n]
-        return b if lo is None else b[..., lo:hi]
+        # device d's block (d + offset) mod n, optionally a feature range
+        b = ring.pick(blocks, offset)
+        return b if lo is None else ring.each(lambda v: v[..., lo:hi], b)
 
     if f0 == 0:
         # Single-direction ring (narrow features).
         acc = blk(-1)
         for t in range(1, n):
-            acc = torch.roll(acc, 1, dims=0) + blk(-t - 1)
+            (recv,) = ring.shift((acc, 1))
+            acc = ring.each(torch.add, recv, blk(-t - 1))
         return acc
 
     acc0 = blk(-1, 0, f0)
     acc1 = blk(1, f0, None)
     for t in range(1, n):
-        acc0 = torch.roll(acc0, 1, dims=0) + blk(-t - 1, 0, f0)
-        acc1 = torch.roll(acc1, -1, dims=0) + blk(t + 1, f0, None)
-    return torch.cat([acc0, acc1], dim=-1)
+        recv0, recv1 = ring.shift((acc0, 1), (acc1, -1))
+        acc0 = ring.each(torch.add, recv0, blk(-t - 1, 0, f0))
+        acc1 = ring.each(torch.add, recv1, blk(t + 1, f0, None))
+    return ring.each(lambda a, b: torch.cat([a, b], dim=-1), acc0, acc1)
 
 
-def multipath_all_reduce(xs: torch.Tensor) -> torch.Tensor:
+def multipath_all_reduce(xs, ring=None):
     """All-reduce = bidirectional reduce-scatter + bidirectional
-    all-gather of ``xs: (n, n*s, ...)``; returns the same shape, every row
-    the sum over devices. The local dim 0 must be divisible by ``n``."""
-    n = xs.shape[0]
-    if n == 1:
+    all-gather: every device gets the sum over devices, in its operand's
+    shape, whose dim 0 must be divisible by ``n`` (stacked: ``xs: (n,
+    n*s, ...)``)."""
+    ring = _ring(xs, ring)
+    if ring.n == 1:
         return xs
-    return bidir_ring_all_gather(bidir_ring_reduce_scatter(xs))
+    return bidir_ring_all_gather(bidir_ring_reduce_scatter(xs, ring), ring)
 
 
-def multipath_all_to_all(xs: torch.Tensor) -> torch.Tensor:
-    """All-to-all of ``xs: (n, n, ...)`` (device *i*'s block *j* is bound
-    for device *j*); returns the same shape with ``out[i, j]`` = device
-    *j*'s block *i*. Shifts ``+s`` and ``+(n - s)`` travel opposite ring
-    directions, as in the reference's step pairing."""
-    n = xs.shape[0]
+def multipath_all_to_all(xs, ring=None):
+    """All-to-all of the operands ``(n, ...)`` of ``ring``'s devices
+    (device *i*'s block *j* is bound for device *j*): device *i* gets
+    ``out[j]`` = device *j*'s block *i* (stacked: ``xs: (n, n, ...)``, the
+    same shape out). Shifts ``+s`` and ``+(n - s)`` travel opposite ring
+    directions, as in the reference's step pairing; over peers step *s*'s
+    ``n`` blocks ``d → d + s`` are one table."""
+    ring = _ring(xs, ring)
+    n = ring.n
     if n == 1:
         return xs
-    dev = _devices(xs)
-    out = torch.zeros_like(xs)
-    out[dev, dev] = xs[dev, dev]
+    out = ring.each(torch.zeros_like, xs)
+    ring.put(out, 0, ring.pick(xs, 0))
     for s in range(1, n):
-        block = xs[dev, (dev + s) % n]
-        out[dev, (dev - s) % n] = torch.roll(block, s, dims=0)
+        (recv,) = ring.shift((ring.pick(xs, s), s))
+        ring.put(out, -s, recv)
     return out
 
 
-def psum_via_multipath(xs: torch.Tensor) -> torch.Tensor:
-    """Sum of arbitrary-shape operands ``xs: (n, *shape)`` over devices;
-    returns ``(n, *shape)``.
+def psum_via_multipath(xs, ring=None):
+    """Sum of arbitrary-shape operands over ``ring``'s devices, each
+    device's in its own shape (stacked: ``xs: (n, *shape)``).
 
     Flattens, pads to a multiple of ``2n``, all-reduces as two feature
     columns (``(-1, 2)``: a single column would fall back to the
     one-directional ring) and restores the shape.
     """
-    n = xs.shape[0]
+    ring = _ring(xs, ring)
+    n = ring.n
     if n == 1:
         return xs
-    size = xs[0].numel()
-    flat = xs.reshape(n, -1)
+    local = ring.local_shape(xs)
+    k = len(local)
+    size = math.prod(local)
     pad = (-size) % (2 * n)
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    red = multipath_all_reduce(flat.reshape(n, -1, 2))
-    return red.reshape(n, -1)[:, :size].reshape(xs.shape)
+
+    def flat(x):
+        x = _local(x, k, (-1,))
+        return _local(F.pad(x, (0, pad)) if pad else x, 1, (-1, 2))
+
+    red = multipath_all_reduce(ring.each(flat, xs), ring)
+    return ring.each(
+        lambda r: _local(_local(r, 2, (-1,))[..., :size], 1, local), red)
+
+
+#: Each collective by its session name.
+FORMS = {"all_gather": bidir_ring_all_gather,
+         "reduce_scatter": bidir_ring_reduce_scatter,
+         "all_reduce": multipath_all_reduce,
+         "all_to_all": multipath_all_to_all,
+         "psum": psum_via_multipath}
 
 
 def two_level_all_reduce(xs: torch.Tensor) -> torch.Tensor:

@@ -72,7 +72,7 @@ import dataclasses
 import os
 import time
 from functools import lru_cache
-from typing import Sequence
+from typing import Hashable, Sequence
 
 import torch
 
@@ -103,8 +103,8 @@ from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
 PEER_CAPTURE_SLICE = ("whole-iteration capture across peer cards "
                       "(session.capture, StepProgram, the captured Jacobi "
                       "step) comes with a later slice of the port; a peer "
-                      "session runs send, bidirectional, exchange and "
-                      "send_pytree")
+                      "session runs send, bidirectional, exchange, "
+                      "send_pytree and the collectives")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,13 +135,13 @@ class GroupKey:
 @dataclasses.dataclass(frozen=True)
 class PlacedKey:
     """Plan-cache key of a program whose logical devices live on
-    ``devices`` (one ``torch.device`` name each): a :class:`GroupKey`
-    identifies the graph, the placement the buffers. The digest and the
-    group key stay the reference's; only the program lookup carries the
-    placement, so a cache shared by a stacked and a peer engine never
-    serves one the other's program."""
+    ``devices`` (one ``torch.device`` name each): a :class:`GroupKey` (or
+    a session's ``CollectiveKey``) identifies the graph, the placement the
+    buffers. The digest and the key stay the reference's; only the
+    program lookup carries the placement, so a cache shared by a stacked
+    and a peer session never serves one the other's program."""
 
-    key: GroupKey
+    key: Hashable
     devices: tuple[str, ...]
 
 
@@ -454,6 +454,27 @@ class MultiPathTransfer:
         self.compute_nodes_compiled += graph.num_compute_nodes
         return compile_plan(self._placed(key), build,
                             num_nodes=graph.num_nodes)
+
+    def step_program(self, specs: Sequence[tuple]) -> PeerDmaProgram:
+        """A resident per-device program of one concurrent group of
+        messages (``specs`` as in :meth:`plan_group_for`), each on one path
+        (``max_paths=1``: the direct link unless faults reroute it):
+        planned, lowered and scheduled as a transfer group, built with no
+        fill (its caller reads destinations only) and kept out of the plan
+        cache and the dispatch counters. A ring step of the peer
+        collectives runs on one
+        (:class:`~repro_torch.comm.collectives.PeerRing`)."""
+        if self.devices is None:
+            raise ValueError("step programs hold per-device buffers; this "
+                             "engine is stacked")
+        group = self.plan_group_for(specs, max_paths=1)
+        graph, _ = self._group_graph(group.plans, 1)
+        dtypes = [as_dtype(dtype) for *_, dtype in specs]
+        table = build_node_table(graph, [nelems for _, _, nelems, _ in specs],
+                                 [d.itemsize for d in dtypes],
+                                 self.num_devices, fill="none",
+                                 per_device=True)
+        return PeerDmaProgram(table, dtypes, self.devices)
 
     def _group_key(self, graph: TransferGraph, plans: Sequence[TransferPlan],
                    shapes: Sequence[tuple[int, torch.dtype]],

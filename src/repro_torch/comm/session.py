@@ -22,7 +22,8 @@ logical device:
   the *same* plan cache (the all-gather runs the ``ring_allgather``
   kernel),
 * ``session.collectives`` — the same collectives over device-stacked
-  tensors, for use inside a captured step's kernels,
+  tensors (over a peer session, per-device lists), for use inside a
+  captured step's kernels,
 * ``session.capture(build_fn)`` — whole-iteration capture: kernels and
   fused exchanges of one iteration replayed as ONE CUDA graph per call,
 * ``session.plan(...)`` / ``session.tune(...)`` / ``session.plan_group``
@@ -51,9 +52,14 @@ the ``multipath_dma`` kernel then runs one launch a card with peer
 pointers, and nothing falls back to the plain table on CUDA. A card may
 be named more than once: its logical devices are distinct allocations on
 it (one card checks this code). ``devices=["cpu"] * n`` runs the plain
-version. ``send``, ``bidirectional``, ``exchange`` and ``send_pytree``
-run over peers; the collectives and ``capture`` raise
-``NotImplementedError`` (later slices of the port).
+version. ``send``, ``bidirectional``, ``exchange``, ``send_pytree`` and
+the collectives run over peers: a driver-level collective takes the
+stacked session's global tensor and returns its result on
+``devices[0]``, through one program over the cards (the ring's shifts
+per-device ``multipath_dma`` tables, its all-gather the peer
+``ring_allgather``, one CUDA graph a card); ``session.collectives`` takes
+and returns per-device lists. ``capture`` raises ``NotImplementedError``
+(a later slice of the port).
 
 Link faults (DESIGN §4.6): ``CommConfig.health`` (on by default) attaches
 a :class:`~repro_torch.comm.health.HealthMonitor` that watches the
@@ -70,7 +76,9 @@ modeled costs and the fault state it was planned under.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
+import weakref
 from typing import Callable, Sequence
 
 import torch
@@ -83,7 +91,7 @@ from repro_torch.comm.calibration import (CalibrationFitter,
                                           modeled_vs_measured)
 from repro_torch.comm.capture import CapturedStep, dtype_name
 from repro_torch.comm.config import CommConfig
-from repro_torch.comm.engine import MultiPathTransfer
+from repro_torch.comm.engine import MultiPathTransfer, PlacedKey
 from repro_torch.comm.graph import canonical_digest, lower
 from repro_torch.comm.health import FaultInjector, HealthMonitor, HealthStats
 from repro_torch.comm.passes import (AutoSchedule, GraphPass, apply_schedule,
@@ -142,12 +150,23 @@ class CollectiveKey:
             ("collective", op, tuple(shape), dtype, axis, num_devices)))
 
 
-#: What a peer session (``devices=``) does not run yet, and where it comes.
+#: What a peer session's ``collectives`` refuse, and where it comes: a
+#: stacked operand, which the steps built over stacked rows pass.
 PEER_COLLECTIVES_SLICE = (
-    "collectives across peer cards (the session's collectives, with "
-    "ring_allgather over peer pointers) come with the next slice of the "
-    "port; a peer session runs send, bidirectional, exchange and "
-    "send_pytree")
+    "a peer session's collectives take one tensor a logical device (a "
+    "list, xs[d] on devices[d]); the steps that pass stacked (n, ...) "
+    "operands (the DP train steps, the pipeline, the compressed mean, the "
+    "mesh's MoE combine) come over peer cards with a later slice of the "
+    "port")
+
+#: Per collective: the kind a cost count records it as, whether its
+#: driver-level operand is replicated (else cut along dim 0 into the
+#: devices' rows), and its graph's nodes a ring step (times n − 1).
+_COLLECTIVES = {"all_gather": ("all-gather", False, 2),
+                "reduce_scatter": ("reduce-scatter", True, 2),
+                "all_reduce": ("all-reduce", True, 4),
+                "all_to_all": ("all-to-all", False, 1),
+                "psum": ("all-reduce", True, 4)}
 
 
 def resolve_devices(devices: Sequence[torch.device | str]
@@ -185,27 +204,26 @@ class BoundCollectives:
 
     axis_name: str
 
-    def all_gather(self, xs: torch.Tensor) -> torch.Tensor:
-        cost.stacked_collective("all-gather", xs)
-        return coll.bidir_ring_all_gather(xs)
+    def _run(self, op: str, xs):
+        cost.stacked_collective(_COLLECTIVES[op][0], xs)
+        return coll.FORMS[op](xs)
 
-    def reduce_scatter(self, xs: torch.Tensor) -> torch.Tensor:
-        cost.stacked_collective("reduce-scatter", xs)
-        return coll.bidir_ring_reduce_scatter(xs)
+    def all_gather(self, xs):
+        return self._run("all_gather", xs)
 
-    def all_reduce(self, xs: torch.Tensor) -> torch.Tensor:
-        cost.stacked_collective("all-reduce", xs)
-        return coll.multipath_all_reduce(xs)
+    def reduce_scatter(self, xs):
+        return self._run("reduce_scatter", xs)
 
-    def all_to_all(self, xs: torch.Tensor) -> torch.Tensor:
-        cost.stacked_collective("all-to-all", xs)
-        return coll.multipath_all_to_all(xs)
+    def all_reduce(self, xs):
+        return self._run("all_reduce", xs)
 
-    def psum(self, xs: torch.Tensor) -> torch.Tensor:
-        cost.stacked_collective("all-reduce", xs)
-        return coll.psum_via_multipath(xs)
+    def all_to_all(self, xs):
+        return self._run("all_to_all", xs)
 
-    def pmean(self, xs: torch.Tensor) -> torch.Tensor:
+    def psum(self, xs):
+        return self._run("psum", xs)
+
+    def pmean(self, xs):
         return self.psum(xs) / xs.shape[0]
 
 
@@ -234,15 +252,81 @@ class CollectiveProgram(GraphProgram):
         return [self.y]
 
 
+class PeerCollectiveProgram(GraphProgram):
+    """One collective over a peer session's logical devices made
+    resident: one static input a logical device on its own device, and
+    the collective's per-device form run through the program's own
+    :class:`~repro_torch.comm.collectives.PeerRing`. On CUDA one graph a
+    card, each card's body staging, launching and adding for the devices
+    it holds, the cards ordered by events before each replay; on the CPU
+    the form runs eagerly. Outputs: one list of per-device results."""
+
+    def __init__(self, form: Callable, local_shape: tuple,
+                 dtype: torch.dtype, ring: coll.PeerRing):
+        self.form = form
+        self.ring = ring
+        self._cards = ring.cards
+        self.device = ring.cards[0]
+        self.x = [torch.zeros(local_shape, dtype=dtype, device=d)
+                  for d in ring.devices]
+        self.y: list = [None] * len(ring.devices)
+
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        return self._cards
+
+    def run(self) -> None:
+        self.y = [None] * len(self.y)     # free the last result first
+        self.ring.begin()
+        self.y = list(self.form(self.x, self.ring))
+
+    def _run_card(self, card: int) -> None:
+        self.ring.begin(card)
+        xs = [x if self.ring.held(d) else None
+              for d, x in enumerate(self.x)]
+        for d, y in enumerate(self.form(xs, self.ring)):
+            if y is not None:
+                self.y[d] = y
+
+    def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
+        return [(card, functools.partial(self._run_card, c))
+                for c, card in enumerate(self._cards)]
+
+    def inputs(self) -> list[list[torch.Tensor]]:
+        return [self.x]
+
+    def outputs(self) -> list[list[torch.Tensor]]:
+        return [self.y]
+
+
+@dataclasses.dataclass(frozen=True)
 class PeerCollectives(BoundCollectives):
-    """``session.collectives`` of a peer session: every collective raises
-    ``NotImplementedError`` (:data:`PEER_COLLECTIVES_SLICE`)."""
+    """``session.collectives`` of a peer session: the same collectives
+    over per-device lists, ``xs[d]`` on ``devices[d]``, each returning a
+    new list in the same placement whose rows are bit for bit the stacked
+    forms'. A call runs the session's program of its driver-level
+    counterpart on the list's tensors (:meth:`CommSession._run_rows`: one
+    plan-cache entry a signature, one dispatch a call). A stacked operand
+    raises ``NotImplementedError`` (:data:`PEER_COLLECTIVES_SLICE`). Each
+    call is one collective record of a cost count, as the stacked form's.
+    The session, which holds its collectives, is held weakly."""
 
-    def _refuse(self, xs: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(PEER_COLLECTIVES_SLICE)
+    session: weakref.ref = dataclasses.field(repr=False, compare=False)
 
-    all_gather = reduce_scatter = all_reduce = all_to_all = psum = \
-        pmean = _refuse
+    def _run(self, op: str, xs) -> list[torch.Tensor]:
+        session = self.session()
+        if not isinstance(xs, (list, tuple)):
+            raise NotImplementedError(PEER_COLLECTIVES_SLICE)
+        devices = session.devices
+        if len(xs) != len(devices) or any(
+                x.device != d for x, d in zip(xs, devices)):
+            raise ValueError(f"{op} on a peer session takes one tensor on "
+                             f"each of {[str(d) for d in devices]}")
+        cost.stacked_collective(_COLLECTIVES[op][0], xs)
+        return [y.clone() for y in session._run_rows(op, list(xs))]
+
+    def pmean(self, xs) -> list[torch.Tensor]:
+        return [y / len(xs) for y in self.psum(xs)]
 
 
 class CommSession:
@@ -284,7 +368,8 @@ class CommSession:
         self._engine: MultiPathTransfer | None = None
         self.collectives = (BoundCollectives(self.config.axis_name)
                             if devices is None
-                            else PeerCollectives(self.config.axis_name))
+                            else PeerCollectives(self.config.axis_name,
+                                                 weakref.ref(self)))
         #: Dispatch-timeline recorder (DESIGN §4.4c). ``config.telemetry``
         #: force-enables it; otherwise ``REPRO_MP_TELEMETRY`` decides
         #: (default off — one boolean per dispatch).
@@ -467,7 +552,9 @@ class CommSession:
         iteration, however many kernels and messages it carries.
         Resolution rides the §2.3 fast path (memoized per capture
         signature + schedule + planner epoch). A peer session raises
-        ``NotImplementedError`` (a later slice).
+        ``NotImplementedError``: capture across cards (one arena and one
+        graph a card) is a later slice of the port
+        (:data:`~repro_torch.comm.engine.PEER_CAPTURE_SLICE`).
         """
         return self.engine.capture(build_fn, schedule=schedule)
 
@@ -505,33 +592,66 @@ class CommSession:
         return unflatten(skeleton)
 
     # -- driver-level collectives ------------------------------------------
-    def _run_collective(self, op: str, x: torch.Tensor,
-                        body: Callable[[torch.Tensor], torch.Tensor],
-                        stacked: tuple, num_nodes: int, *,
-                        replicated: bool) -> torch.Tensor:
-        """Stage ``x`` into the cached program of ``(op, shape, dtype)``
-        (built and captured on a miss) as the stacked operand of shape
-        ``stacked`` — every device's row a copy of ``x`` when
-        ``replicated``, else ``x`` cut along dim 0 — replay once, and
-        return the stacked result (a static buffer: callers copy out)."""
-        key = CollectiveKey.for_collective(
-            op, tuple(x.shape), dtype_name(x.dtype), self.config.axis_name,
+    def _collective_key(self, op: str, shape: tuple,
+                        dtype: torch.dtype) -> CollectiveKey:
+        return CollectiveKey.for_collective(
+            op, tuple(shape), dtype_name(dtype), self.config.axis_name,
             self.num_devices)
 
-        def build() -> CompiledPlan:
-            return compile_plan(
-                key, lambda: CollectiveProgram(body, stacked, x.dtype,
-                                               self.device),
-                num_nodes=num_nodes)
-
-        compiled = self.cache.get_or_build(key, build)
+    def _run_collective(self, op: str, x: torch.Tensor):
+        """Stage ``x`` into the cached program of ``(op, shape, dtype)``
+        (built and captured on a miss) as the stacked operand — every
+        device's row a copy of ``x`` when the collective's operand is
+        replicated, else ``x`` cut along dim 0 — replay once, and return
+        the stacked result (a static buffer: callers copy out). On a peer
+        session the rows go through :meth:`_run_rows`, and the result is
+        one list of per-device rows."""
+        n = self.num_devices
+        _, replicated, per_step = _COLLECTIVES[op]
+        stacked = ((n,) + tuple(x.shape) if replicated
+                   else (n, x.shape[0] // n) + tuple(x.shape[1:]))
+        if self.devices is not None:
+            return self._run_rows(op, [x] * n if replicated
+                                  else list(x.reshape(stacked).unbind(0)))
+        key = self._collective_key(op, x.shape, x.dtype)
+        compiled = self.cache.get_or_build(key, lambda: compile_plan(
+            key, lambda: CollectiveProgram(getattr(self.collectives, op),
+                                           stacked, x.dtype, self.device),
+            num_nodes=per_step * (n - 1)))
         (y,) = compiled(x if replicated else x.reshape(stacked))
         return y
 
+    def _run_rows(self, op: str, rows: list[torch.Tensor]) -> list:
+        """One call of a peer session's program of ``op`` on the logical
+        devices' operands ``rows`` (one shape and dtype): looked up under
+        the driver-level key of the global operand they make, placed on
+        the session's devices (a :class:`PeerCollectiveProgram`, built and
+        captured on a miss), staged, replayed over the cards, one
+        dispatch. Returns the per-device results (static buffers: callers
+        copy out)."""
+        n = self.num_devices
+        _, replicated, per_step = _COLLECTIVES[op]
+        local, dtype = tuple(rows[0].shape), rows[0].dtype
+        shape = local if replicated else (n * local[0],) + local[1:]
+        key = PlacedKey(self._collective_key(op, shape, dtype),
+                        tuple(str(d) for d in self.devices))
+        compiled = self.cache.get_or_build(key, lambda: compile_plan(
+            key, lambda: PeerCollectiveProgram(
+                coll.FORMS[op], local, dtype, coll.PeerRing(self.engine)),
+            num_nodes=per_step * (n - 1)))
+        (ys,) = compiled(rows)
+        self.engine.dispatches += 1
+        return ys
+
+    def _joined(self, y, shape: tuple) -> torch.Tensor:
+        """A collective's per-device rows as one new global tensor of
+        ``shape`` on the session's device."""
+        if isinstance(y, list):
+            return torch.cat([t.to(self.device) for t in y]).reshape(shape)
+        return y.reshape(shape).clone()
+
     def _as_input(self, x) -> torch.Tensor:
         x = torch.as_tensor(x)
-        if self.devices is not None:
-            raise NotImplementedError(PEER_COLLECTIVES_SLICE)
         return x if x.device == self.device else x.to(self.device)
 
     def _check_ring_divisible(self, op: str, x: torch.Tensor,
@@ -551,36 +671,24 @@ class CommSession:
         through the ``ring_allgather`` kernel on a CUDA device.
         """
         x = self._as_input(x)
-        n = self.num_devices
-        self._check_ring_divisible("all_gather", x, n)
-        y = self._run_collective(
-            "all_gather", x, self.collectives.all_gather,
-            (n, x.shape[0] // n) + tuple(x.shape[1:]),
-            num_nodes=2 * (n - 1), replicated=False)
-        return y[0].clone()
+        self._check_ring_divisible("all_gather", x, self.num_devices)
+        return self._run_collective("all_gather", x)[0].clone()
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """Bidirectional-ring reduce-scatter of a replicated operand; the
         result is sharded on dim 0 (device i owns the reduced block i)."""
         x = self._as_input(x)
-        n = self.num_devices
-        self._check_ring_divisible("reduce_scatter", x, n)
-        y = self._run_collective(
-            "reduce_scatter", x, self.collectives.reduce_scatter,
-            (n,) + tuple(x.shape), num_nodes=2 * (n - 1), replicated=True)
-        return y.reshape(x.shape).clone()
+        self._check_ring_divisible("reduce_scatter", x, self.num_devices)
+        return self._joined(self._run_collective("reduce_scatter", x),
+                            x.shape)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (sum over the devices) of a replicated operand whose
         dim 0 is divisible by the device count; use :meth:`psum`
         otherwise."""
         x = self._as_input(x)
-        n = self.num_devices
-        self._check_ring_divisible("all_reduce", x, n)
-        y = self._run_collective(
-            "all_reduce", x, self.collectives.all_reduce,
-            (n,) + tuple(x.shape), num_nodes=4 * (n - 1), replicated=True)
-        return y[0].clone()
+        self._check_ring_divisible("all_reduce", x, self.num_devices)
+        return self._run_collective("all_reduce", x)[0].clone()
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """All-to-all: ``x`` sharded on dim 0, one destination block per
@@ -593,20 +701,12 @@ class CommSession:
                 f"all_to_all needs global dim 0 == n²={n * n} (one block "
                 f"per device pair), got {tuple(x.shape)[:1]}; put "
                 f"multi-row block payloads in the trailing dims")
-        y = self._run_collective(
-            "all_to_all", x, self.collectives.all_to_all,
-            (n, n) + tuple(x.shape[1:]), num_nodes=n - 1, replicated=False)
-        return y.reshape(x.shape).clone()
+        return self._joined(self._run_collective("all_to_all", x), x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum a replicated arbitrary-shape operand over the devices (pads
         and stripes through the bidirectional ring)."""
-        x = self._as_input(x)
-        n = self.num_devices
-        y = self._run_collective(
-            "psum", x, self.collectives.psum, (n,) + tuple(x.shape),
-            num_nodes=4 * (n - 1), replicated=True)
-        return y[0].clone()
+        return self._run_collective("psum", self._as_input(x))[0].clone()
 
     # -- calibration (DESIGN §4.4c) -----------------------------------------
     def calibrate(self, *, fitter: CalibrationFitter | None = None,

@@ -97,8 +97,22 @@ class GraphProgram:
         return [(self.device, self.run)]
 
     def order(self) -> None:
-        """Order one execution's graphs across the cards before they are
-        replayed (nothing to do on one card)."""
+        """Order one execution across the program's cards before it runs
+        or is replayed: every card's stream waits for what every other
+        card has enqueued so far (the previous execution, its result
+        copies and this one's staging); nothing to do on one card."""
+        cards = self.cards
+        if len(cards) < 2:
+            return
+        if not getattr(self, "_order_events", None):
+            self._order_events = [torch.cuda.Event() for _ in cards]
+        streams = [torch.cuda.current_stream(c) for c in cards]
+        for ev, s in zip(self._order_events, streams):
+            ev.record(s)
+        for i, s in enumerate(streams):
+            for j, ev in enumerate(self._order_events):
+                if i != j:
+                    s.wait_event(ev)
 
     def inputs(self) -> list[torch.Tensor]:
         raise NotImplementedError

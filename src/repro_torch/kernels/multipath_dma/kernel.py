@@ -91,8 +91,9 @@ class MessageLayout:
     """Where one message lives in the operand and output byte buffers:
     ``(window, num_devices, nelems)`` elements of ``itemsize`` bytes,
     row-major, starting at byte ``base`` of the operand and ``out_base``
-    of the output; with ``per_device`` ``(window, nelems)`` at those bytes
-    of every logical device's own buffers."""
+    of the output; with ``per_device`` ``(window, nelems)`` at byte
+    ``at[d] = (operand, output)`` of logical device *d*'s own buffers, −1
+    where *d* holds no such buffer (``base`` and ``out_base`` are −1)."""
 
     src: int
     dst: int
@@ -103,6 +104,7 @@ class MessageLayout:
     base: int
     out_base: int
     per_device: bool = False
+    at: tuple[tuple[int, int], ...] = ()
 
     @property
     def row_bytes(self) -> int:
@@ -122,16 +124,19 @@ class MessageLayout:
             * self.row_bytes
 
     def row_offset(self, window: int, row: int) -> int:
-        return self.base + self._row(window, row)
+        base = self.at[row][0] if self.per_device else self.base
+        return base + self._row(window, row)
 
     def out_row_offset(self, window: int, row: int) -> int:
-        return self.out_base + self._row(window, row)
+        base = self.at[row][1] if self.per_device else self.out_base
+        return base + self._row(window, row)
 
 
 @dataclasses.dataclass(frozen=True)
 class NodeTable:
-    """The kernel's work table and the buffer sizes it addresses (per
-    logical device when ``per_device``)."""
+    """The kernel's work table and the buffer sizes it addresses (when
+    ``per_device``, the largest of any logical device's, and each
+    device's own in ``device_bytes``)."""
 
     items: np.ndarray            # (nitems, ITEM_COLS) int64
     messages: tuple[MessageLayout, ...]
@@ -140,6 +145,8 @@ class NodeTable:
     stage_bytes: int
     per_device: bool = False
     num_devices: int = 1
+    #: Per logical device: (operand, output, staging) bytes.
+    device_bytes: tuple[tuple[int, int, int], ...] = ()
 
     @property
     def num_items(self) -> int:
@@ -173,11 +180,16 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     nelems[m])`` elements of the operand and output buffers, packed one
     after the other unless ``bases[m] = (operand byte, output byte)``
     places them (a captured step's arena, where both buffers are one).
-    With ``per_device`` it occupies ``(graph.window, nelems[m])`` at the
-    same bytes of every logical device's own buffers instead, and staging
+    With ``per_device`` it occupies ``(graph.window, nelems[m])`` of the
+    buffers of the logical devices the table reads or writes it on
+    instead, each device's packed on their own (``MessageLayout.at``):
+    the operand of its src (of every device when the fill copies), the
+    output of its dst (of every device when there is a fill); staging
     slots are allocated on each hop's via. ``fill`` is ``"zero"`` (every
-    non-destination output reads zero, the engine's contract) or
-    ``"copy"`` (it keeps the input, the identity contract). Copy nodes
+    non-destination output reads zero, the engine's contract),
+    ``"copy"`` (it keeps the input, the identity contract) or ``"none"``
+    (no fill items: non-destination outputs keep what they held, for a
+    caller that reads destinations only). Copy nodes
     keep the graph's index order, which is topological. Every item names
     the logical device that executes it (``C_EXEC``: a fill its own
     device, a copy its link's source).
@@ -193,8 +205,9 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     for host hops, compute nodes, chunks that are not element-aligned and
     ``per_device`` beside ``nodes``.
     """
-    if fill not in ("zero", "copy"):
-        raise ValueError(f"fill must be 'zero' or 'copy', got {fill!r}")
+    if fill not in ("zero", "copy", "none"):
+        raise ValueError(f"fill must be 'zero', 'copy' or 'none', got "
+                         f"{fill!r}")
     if per_device and (nodes is not None or bases is not None):
         raise ValueError("a per-device table covers one whole graph")
     flows = graph.flows()
@@ -203,17 +216,30 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                          f"{len(nelems)} sizes")
     messages = []
     base = 0
+    ends = [[0, 0] for _ in range(num_devices)]    # per device: in, out
     for m, ((src, dst), n, isz) in enumerate(zip(flows, nelems, itemsizes)):
-        if bases is None:
+        if per_device:
+            nbytes = graph.window * int(n) * int(isz)
+            at = []
+            for d, end in enumerate(ends):
+                held = (d == src or fill == "copy", d == dst or fill != "none")
+                at.append(tuple(end[k] if h else -1
+                                for k, h in enumerate(held)))
+                for k, h in enumerate(held):
+                    if h:
+                        end[k] = _align(end[k] + nbytes, _ALIGN)
             lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
-                                int(isz), base, base, per_device)
+                                int(isz), -1, -1, True, tuple(at))
+        elif bases is None:
+            lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
+                                int(isz), base, base)
             base = _align(base + lay.nbytes, _ALIGN)
         else:
             lay = MessageLayout(src, dst, graph.window, num_devices, int(n),
                                 int(isz), *bases[m])
             base = max(base, lay.base + lay.nbytes, lay.out_base + lay.nbytes)
         messages.append(lay)
-    io_bytes = base
+    io_bytes = max(max(e) for e in ends) if per_device else base
     if nodes is None:
         nodes = range(graph.num_nodes)
     run = set(nodes)
@@ -230,7 +256,7 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
 
     src_fill = SPACE_ZERO if fill == "zero" else SPACE_IN
     for m, lay in enumerate(messages):
-        if first_node.get(m) not in run:
+        if fill == "none" or first_node.get(m) not in run:
             continue
         for w in range(lay.window):
             if per_device:
@@ -242,7 +268,7 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                 if hi <= lo:
                     continue
                 dev = lo if per_device else 0
-                start = lay.row_offset(w, lo)
+                start = lay.row_offset(w, lo) if fill == "copy" else 0
                 out_start = lay.out_row_offset(w, lo)
                 for off, size in _tiles((hi - lo) * lay.row_bytes,
                                         tile_bytes):
@@ -306,9 +332,11 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     items = np.asarray(rows, dtype=np.int64).reshape(-1, ITEM_COLS)
     if not per_device:
         (items,) = card_tables(items, [0])
+    device_bytes = (tuple((i, o, st) for (i, o), st in zip(ends, stage_at))
+                    if per_device else ())
     return NodeTable(items, tuple(messages), count, io_bytes,
                      max(stage_at) if per_device else stage, per_device,
-                     num_devices)
+                     num_devices, device_bytes)
 
 
 def card_tables(items: np.ndarray, card_of: Sequence[int]
@@ -544,8 +572,10 @@ class PeerDmaProgram(GraphProgram):
 
     ``devices[d]`` is logical device *d*'s ``torch.device``; a card may
     hold several. Every logical device gets its own operand, output and
-    staging buffer on its card. ``inputs()``/``outputs()`` give, per
-    message, one ``(window, nelems)`` view a logical device.
+    staging buffer on its card, sized to the messages the table reads or
+    writes there (``NodeTable.device_bytes``). ``inputs()``/``outputs()``
+    give, per message, one ``(window, nelems)`` view a logical device,
+    ``None`` where that device holds no such buffer.
 
     On CUDA every card runs its share of the table (:func:`card_tables`)
     as one launch, with a space table of every logical device's buffers
@@ -579,17 +609,16 @@ class PeerDmaProgram(GraphProgram):
         on_cuda = self.device.type == "cuda"
         if on_cuda and len(self.cards) > 1:
             enable_peers(self.cards)
-        self.x = [torch.zeros(table.io_bytes, dtype=torch.uint8, device=d)
-                  for d in self.devices]
-        self.y = [torch.zeros(table.io_bytes, dtype=torch.uint8, device=d)
-                  for d in self.devices]
-        self.stage = [torch.empty(max(table.stage_bytes, 16),
-                                  dtype=torch.uint8, device=d)
-                      for d in self.devices]
+        sizes = [[max(b, 16) for b in own] for own in table.device_bytes]
+        self.x = [torch.zeros(own[0], dtype=torch.uint8, device=d)
+                  for own, d in zip(sizes, self.devices)]
+        self.y = [torch.zeros(own[1], dtype=torch.uint8, device=d)
+                  for own, d in zip(sizes, self.devices)]
+        self.stage = [torch.empty(own[2], dtype=torch.uint8, device=d)
+                      for own, d in zip(sizes, self.devices)]
         self._completed = 0
         #: One launch a card that runs items.
         self.launches: list[CardLaunch] = []
-        self._events: list[torch.cuda.Event] = []
         if not on_cuda:
             return
         ptrs = []
@@ -608,7 +637,6 @@ class PeerDmaProgram(GraphProgram):
             self.launches.append(CardLaunch(
                 c, torch.from_numpy(items).to(card), state, space,
                 grid_size(len(items), card)))
-        self._events = [torch.cuda.Event() for _ in self.cards]
 
     @property
     def cards(self) -> tuple[torch.device, ...]:
@@ -616,35 +644,31 @@ class PeerDmaProgram(GraphProgram):
         order."""
         return self._cards
 
-    def _views(self, bufs: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    def _views(self, bufs: list[torch.Tensor], k: int) -> list[list]:
         out = []
         for lay, dt in zip(self.table.messages, self.dtypes):
-            out.append([b[lay.base:lay.base + lay.nbytes].view(dt).view(
-                lay.window, lay.nelems) for b in bufs])
+            out.append([None if at[k] < 0 else b[at[k]:at[k] + lay.nbytes]
+                        .view(dt).view(lay.window, lay.nelems)
+                        for at, b in zip(lay.at, bufs)])
         return out
 
-    def inputs(self) -> list[list[torch.Tensor]]:
-        return self._views(self.x)
+    def inputs(self) -> list[list[torch.Tensor | None]]:
+        return self._views(self.x, 0)
 
-    def outputs(self) -> list[list[torch.Tensor]]:
-        return self._views(self.y)
-
-    def order(self) -> None:
-        """Make every card's stream wait for everything every other card
-        has enqueued so far (nothing to do on one card)."""
-        if len(self._cards) < 2:
-            return
-        streams = [torch.cuda.current_stream(c) for c in self._cards]
-        for ev, s in zip(self._events, streams):
-            ev.record(s)
-        for i, s in enumerate(streams):
-            for j, ev in enumerate(self._events):
-                if i != j:
-                    s.wait_event(ev)
+    def outputs(self) -> list[list[torch.Tensor | None]]:
+        return self._views(self.y, 1)
 
     def _run_card(self, launch: CardLaunch) -> None:
         _launch(launch.items, None, None, None, launch.space,
                 len(self.devices), launch.card, launch.state, launch.grid)
+
+    def run_card(self, card: int) -> None:
+        """Launch card ``card``'s share alone (nothing if it runs no
+        items), for a caller that orders the cards itself: a program of
+        several steps, recorded one graph a card."""
+        for launch in self.launches:
+            if launch.card == card:
+                self._run_card(launch)
 
     def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
         """One body a card that runs items: its launch."""

@@ -5,16 +5,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ring_allgather.kernel import (ring_allgather_cuda,
-                                                       ring_allgather_plain)
+from repro_torch.kernels.ring_allgather.kernel import (
+    ring_allgather_cuda, ring_allgather_peer_cuda, ring_allgather_peer_plain,
+    ring_allgather_plain)
 
 
-def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
+def ring_allgather(xs):
     """Bidirectional-ring all-gather of the stacked shards
     ``xs: (n, rows, f)`` → ``(n, n, rows, f)``; ``out[d]`` is device
-    ``d``'s replica. A CUDA tensor goes through the hand-written kernel
-    (or raises), and so does a meta tensor, which a cost count passes; a
-    CPU tensor through the plain version."""
+    ``d``'s replica. A list of per-device shards ``(rows, f)`` takes the
+    peer form and returns one replica ``(n, rows, f)`` a shard, on its
+    device. A CUDA tensor goes through the hand-written kernel (or
+    raises), and so does a meta tensor, which a cost count passes; a CPU
+    tensor through the plain version."""
+    if isinstance(xs, (list, tuple)):
+        kinds = {x.device.type for x in xs}
+        if kinds == {"cpu"}:
+            return ring_allgather_peer_plain(xs)
+        return ring_allgather_peer_cuda(xs)
     if xs.device.type in ("cuda", "meta"):
         return ring_allgather_cuda(xs)
     if xs.device.type == "cpu":

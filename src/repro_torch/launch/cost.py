@@ -229,12 +229,13 @@ def record_collective(op: str, result_bytes: int, group: int) -> None:
         c.cost.collectives.append((op, int(result_bytes), int(group)))
 
 
-def stacked_collective(op: str, xs: torch.Tensor) -> None:
+def stacked_collective(op: str, xs) -> None:
     """:func:`record_collective` of a collective over a device-stacked
-    ``(n, ...)`` operand: all-gather's result per row is ``n`` rows,
+    ``(n, ...)`` operand, or a per-device list of ``n`` rows (a peer
+    session's): all-gather's result per row is ``n`` rows,
     reduce-scatter's ``1 / n`` of one, the others one row."""
-    n = xs.shape[0]
-    row = xs[0].numel() * xs.element_size() if n else 0
+    n = len(xs)
+    row = xs[0].numel() * xs[0].element_size() if n else 0
     if op == "all-gather":
         row *= n
     elif op == "reduce-scatter":

@@ -55,7 +55,11 @@ within 1e-6. Peer sessions (``-k peer``): four logical devices on one
 card, then on four cards (skipped below four cards that reach each
 other), sends, a bidirectional, an exchange and Jacobi bit for bit as
 the stacked session's, every result on its destination's device, one
-``multipath_dma`` launch a replay a card.
+``multipath_dma`` launch a replay a card; the peer ``ring_allgather``
+(eager and replayed from a graph a card) bit for bit as its plain
+version, every driver-level collective and every ``session.collectives``
+op bit for bit as the stacked session's, one ``ring_allgather`` launch a
+card a replay and one ``multipath_dma`` launch a card a ring shift.
 """
 
 import dataclasses
@@ -1500,3 +1504,113 @@ def test_peer_jacobi_across_four_cards(dev):
         u = jacobi_step(u, session=stacked)
     assert all(b.device == c for b, c in zip(blocks, cards))
     assert torch.equal(torch.stack([b.to(cards[0]) for b in blocks]), u)
+
+
+# -- peer collectives: ring_allgather across cards ---------------------------
+
+PEER_RING_SHAPES = [(8, 128, torch.float32), (8, 7, torch.bfloat16),
+                    (3, 1, torch.float32), (2048, 8192, torch.float32),
+                    (33, 17, torch.bfloat16)]
+
+
+def peer_ring_checks(devices):
+    """The peer ring eagerly and as a program replayed three times (the
+    epochs advance, flags are never zeroed), each bitwise its plain
+    version; one launch a card a call."""
+    cards = tuple(dict.fromkeys(devices))
+    for rows, f, dt in PEER_RING_SHAPES:
+        shards = [torch.randn(rows, f, device=d).to(dt) for d in devices]
+        want = rk.ring_allgather_peer_plain(shards)
+        before = rk.LAUNCHES
+        got = rk.ring_allgather_peer_cuda(shards)
+        assert rk.LAUNCHES == before + len(cards)
+        for g, w, d in zip(got, want, devices):
+            assert g.device == d and torch.equal(g, w)
+        prog = rk.PeerRingProgram(rows, f, dt, devices)
+        for buf, x in zip(prog.x, shards):
+            buf.copy_(x)
+        prog.capture()
+        assert prog.replay_launches == {"ring_allgather": len(cards)}
+        for _ in range(3):
+            for buf in prog.out:
+                buf.fill_(0)
+            prog.replay()
+            prog.synchronize()
+            assert prog.completed_items() == prog.geometry.num_items
+            assert all(torch.equal(o, w) for o, w in zip(prog.out, want))
+
+
+PEER_CALLS = [("all_gather", (4 * 64, 96), torch.float32),
+              ("all_gather", (4 * 5, 7), torch.bfloat16),
+              ("all_gather", (4 * 8, 1), torch.float32),
+              ("reduce_scatter", (4 * 64, 96), torch.float32),
+              ("all_reduce", (4 * 64, 96), torch.bfloat16),
+              ("all_to_all", (16, 1000), torch.float32),
+              ("psum", (37, 11), torch.float32)]
+
+
+def peer_collective_checks(devices, dev):
+    """Every driver-level collective (twice: the second a cache hit) and
+    every ``session.collectives`` op of a peer session bitwise as the
+    stacked session's; launches a replay: one ``ring_allgather`` a card a
+    gather, one ``multipath_dma`` a card a ring shift."""
+    cards = tuple(dict.fromkeys(devices))
+    sess = CommSession(devices=devices)
+    stacked = CommSession(device=dev)
+    for op, shape, dt in PEER_CALLS:
+        x = torch.randn(*shape, device=dev).to(dt)
+        want = getattr(stacked, op)(x)
+        for _ in range(2):
+            got = getattr(sess, op)(x)
+            assert got.device == dev and torch.equal(got, want), op
+    assert sess.stats()["dispatches"] == 2 * len(PEER_CALLS)
+    assert sess.stats()["cache"]["hits"] == len(PEER_CALLS)
+    for compiled in sess.cache.values():
+        prog = compiled.program
+        shifts = sum(isinstance(p, dk.PeerDmaProgram)
+                     for p in prog.ring.programs)
+        rings = len(prog.ring.programs) - shifts
+        want_launches = {"multipath_dma": shifts * len(cards),
+                         "ring_allgather": rings * len(cards)}
+        assert prog.replay_launches == {k: v for k, v in
+                                        want_launches.items() if v}
+    xs = torch.randn(4, 64, 96, device=dev)
+    parts = [x.to(d) for x, d in zip(xs.unbind(0), devices)]
+    for op in ("all_gather", "reduce_scatter", "all_reduce", "psum",
+               "pmean"):
+        want = getattr(stacked.collectives, op)(xs)
+        got = getattr(sess.collectives, op)(parts)
+        assert all(g.device == d for g, d in zip(got, devices))
+        assert torch.equal(torch.stack([g.to(dev) for g in got]), want), op
+    blocks = xs[:, :4]
+    got = sess.collectives.all_to_all([b.to(d) for b, d in
+                                       zip(blocks.unbind(0), devices)])
+    assert torch.equal(torch.stack([g.to(dev) for g in got]),
+                       stacked.collectives.all_to_all(blocks))
+    # a list call is one dispatch of its driver-level counterpart's
+    # program: hits for the all_gather of PEER_CALLS[0]'s shape and for
+    # pmean, which runs psum's
+    stats = sess.stats()
+    assert stats["dispatches"] == 2 * len(PEER_CALLS) + 6
+    assert stats["cache"]["hits"] == len(PEER_CALLS) + 2
+
+
+def test_peer_ring_allgather_on_one_card(dev):
+    peer_ring_checks([dev] * 4)
+
+
+def test_peer_collectives_on_one_card_bitwise_stacked(dev):
+    peer_collective_checks([dev] * 4, dev)
+
+
+def test_peer_ring_allgather_across_four_cards(dev):
+    cards = peer_cards(4)
+    peer_ring_checks(cards)
+    peer_ring_checks([cards[0], cards[0], cards[1], cards[1]])
+
+
+def test_peer_collectives_across_four_cards(dev):
+    cards = peer_cards(4)
+    peer_collective_checks(cards, cards[0])
+    peer_collective_checks([cards[0], cards[0], cards[1], cards[1]],
+                           cards[0])

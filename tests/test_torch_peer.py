@@ -32,7 +32,7 @@ from repro.core import halo as jhalo
 from repro_torch.comm import CommConfig, CommSession, TransferPlanCache
 from repro_torch.comm.engine import PEER_CAPTURE_SLICE, PlacedKey
 from repro_torch.comm.graph import CopyNode
-from repro_torch.comm.session import PEER_COLLECTIVES_SLICE, resolve_devices
+from repro_torch.comm.session import resolve_devices
 from repro_torch.core import halo
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.multipath_dma import kernel as dk
@@ -199,8 +199,9 @@ def test_items_execute_on_the_reference_kernels_roles(jmesh4, window,
     for i, row in enumerate(table.items):
         exe = row[dk.C_EXEC]
         if row[dk.C_NODE] < 0:
-            msg = next(m for m in table.messages
-                       if m.base <= row[dk.C_DST_OFF] < m.base + m.nbytes)
+            out = [m.at[row[dk.C_DST_DEV]][1] for m in table.messages]
+            msg = next(m for m, o in zip(table.messages, out)
+                       if o <= row[dk.C_DST_OFF] < o + m.nbytes)
             assert exe == row[dk.C_DST_DEV] != msg.dst
             continue
         node = copies[row[dk.C_NODE]]
@@ -213,6 +214,56 @@ def test_items_execute_on_the_reference_kernels_roles(jmesh4, window,
             assert row[dk.C_SRC_SPACE] == dk.SPACE_STAGE
             assert row[dk.C_SRC_DEV] == exe          # the via's own slot
     assert staged > 0
+
+
+@pytest.mark.parametrize("fill", ["zero", "copy", "none"])
+def test_per_device_buffers_hold_what_the_table_touches(fill):
+    """A logical device holds a message's operand only where the table
+    reads it (its src; every device when the fill copies) and its output
+    only where the table writes it (its dst; every device when there is a
+    fill); every item stays inside its device's buffers, and the program
+    delivers each message under each fill."""
+    sess = CommSession(CommConfig(multipath_threshold=0,
+                                  chunk_bytes=4 * KiB), devices=CPU4)
+    specs = [(0, 1, 3000, torch.float32), (2, 0, 3001, torch.float32),
+             (1, 3, 500, torch.float32)]
+    graph, _ = graph_of(sess, specs, 1, 3)
+    table = dk.build_node_table(graph, [s[2] for s in specs], [4] * 3, 4,
+                                fill=fill, per_device=True)
+    for m in table.messages:
+        for d in range(4):
+            assert (m.at[d][0] >= 0) == (d == m.src or fill == "copy")
+            assert (m.at[d][1] >= 0) == (d == m.dst or fill != "none")
+    space_of = {dk.SPACE_IN: 0, dk.SPACE_OUT: 1, dk.SPACE_STAGE: 2}
+    for row in table.items:
+        nb = row[dk.C_NBYTES]
+        for space, off, dev in ((row[dk.C_SRC_SPACE], row[dk.C_SRC_OFF],
+                                 row[dk.C_SRC_DEV]),
+                                (row[dk.C_DST_SPACE], row[dk.C_DST_OFF],
+                                 row[dk.C_DST_DEV])):
+            if space != dk.SPACE_ZERO:
+                assert 0 <= off and off + nb <= \
+                    table.device_bytes[dev][space_of[space]]
+    prog = dk.PeerDmaProgram(table, [torch.float32] * 3, CPU4)
+    payloads = []
+    for k, views in enumerate(prog.inputs()):
+        for d, v in enumerate(views):
+            assert (v is None) == (table.messages[k].at[d][0] < 0)
+            if v is not None:
+                v.copy_(torch.randn(v.shape))
+        payloads.append(views[table.messages[k].src].clone())
+    prog.run()
+    for k, (m, views) in enumerate(zip(table.messages, prog.outputs())):
+        assert torch.equal(views[m.dst], payloads[k])
+        for d, v in enumerate(views):
+            if d == m.dst:
+                continue
+            if fill == "none":
+                assert v is None
+            elif fill == "zero":
+                assert not v.any()
+            else:
+                assert torch.equal(v, prog.inputs()[k][d])
 
 
 def emulate_cards(tables, card_of, x, y, stage, executions, seed):
@@ -411,17 +462,6 @@ def test_per_device_halo_exchange_equals_reference(jmesh4):
 def test_per_device_jacobi_needs_a_session():
     with pytest.raises(ValueError, match="session"):
         halo.jacobi_step([torch.zeros(4, 6)] * 4)
-
-
-@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter",
-                                "all_reduce", "all_to_all", "psum"])
-def test_collectives_on_a_peer_session_raise(op):
-    sess = CommSession(devices=CPU4)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        getattr(sess, op)(torch.randn(16, 4))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        getattr(sess.collectives, op)(torch.randn(4, 16))
-    assert "ring_allgather" in PEER_COLLECTIVES_SLICE
 
 
 def test_capture_on_a_peer_session_raises():

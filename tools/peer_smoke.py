@@ -5,10 +5,11 @@ that reach each other (peer access; NVLink on an H100 host)::
 
     python3 tools/peer_smoke.py
 
-It raises unless it sees four such cards. It builds the ``multipath_dma``
-and ``jacobi`` kernels, prints ``nvidia-smi topo -m`` (where that fails,
-``topo -p2p n`` and then ``nvlink -s``) and every card's name and power
-limit, then drives a peer session,
+It raises unless it sees four such cards. It builds the
+``multipath_dma``, ``jacobi`` and ``ring_allgather`` kernels, prints
+``nvidia-smi topo -m`` (where that fails, ``topo -p2p n`` and then
+``nvlink -s``) and every card's name and power limit, then drives a peer
+session,
 ``CommSession(devices=["cuda:0", ..., "cuda:3"])`` (telemetry on, health
 monitor off so that no plan changes mid-sweep), and prints:
 
@@ -24,6 +25,19 @@ monitor off so that no plan changes mid-sweep), and prints:
 * the same for ``bidirectional`` (0→1 and 1→0 at once; the bound 2B /
   900 GB/s, the yardstick two peer copies, one each way);
 * a 4-message ``exchange``, each card to the next, 64 MiB each;
+* the session's collectives across the cards (a health-free
+  ``CommSession(devices=cards)``): ``all_gather`` of 256 MiB float32,
+  ``reduce_scatter``, ``all_reduce``, ``psum`` (an odd shape that pads)
+  and ``all_to_all`` of 64 MiB, each twice (the second a cache hit), its
+  result bitwise one card's stacked session's, one ``ring_allgather``
+  launch a card a gather and one ``multipath_dma`` launch a card a ring
+  shift; each program's replay timed by CUDA events (every card's stream
+  joined before the end event) beside its bound, the bytes each card
+  receives over its 450 GB/s ingress, the same collective through
+  ``torch.cuda.nccl`` on per-card lists (``all_gather``,
+  ``reduce_scatter``, ``all_reduce``; the all-to-all, which it lacks,
+  as the 12 peer ``copy_`` of its blocks) and the stacked session's
+  replay on one card;
 * path A's Jacobi application, 4 blocks of (8, 2**22) float32, one block
   a card, 10 iterations, bitwise against one card's stacked run, with the
   time of an iteration on both;
@@ -45,6 +59,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+
+from repro_torch.comm import collectives as coll  # noqa: E402
 
 #: H100 NVLink: 900 GB/s to the other cards of the host, 450 GB/s each way
 #: (NVIDIA data sheet).
@@ -130,6 +146,145 @@ def routes(entry) -> list:
     return [[pa.route.via for pa in p.paths] for p in entry.plans]
 
 
+def program_of(sess, op: str):
+    """The cached program of the session's one collective ``op``."""
+    (compiled,) = [c for k, c in zip(sess.cache.keys(), sess.cache.values())
+                   if getattr(k, "key", k).op == op]
+    return compiled.program
+
+
+class TorchRing(coll.ListRing):
+    """The ring steps of the per-device collectives as torch's peer
+    ``copy_``s (the yardstick where NCCL is missing): a shift copies each
+    part to its receiver's card, a gather every shard to every card."""
+
+    def __init__(self, devices):
+        self.devices = devices
+        self.n = len(devices)
+
+    def shift(self, *sends):
+        n = self.n
+        return [[parts[(d - s) % n].to(self.devices[d]) for d in range(n)]
+                for parts, s in sends]
+
+    def gather(self, shards):
+        return [torch.stack([x.to(dev) for x in shards])
+                for dev in self.devices]
+
+
+def nccl_ms(op: str, parts: list, cards) -> float | None:
+    """``torch.cuda.nccl``'s ``op`` on per-card operands, replays back to
+    back (None when NCCL cannot take them)."""
+    from torch.cuda import nccl
+
+    if not nccl.is_available(parts):
+        return None
+    n = len(parts)
+    if op == "all_gather":
+        outs = [p.new_empty((n,) + tuple(p.shape)) for p in parts]
+        return device_ms(lambda: nccl.all_gather(parts, outs), cards, 20)
+    if op == "reduce_scatter":
+        outs = [p.new_empty((p.shape[0] // n,) + tuple(p.shape[1:]))
+                for p in parts]
+        return device_ms(lambda: nccl.reduce_scatter(parts, outs), cards, 20)
+    outs = [torch.empty_like(p) for p in parts]
+    return device_ms(lambda: nccl.all_reduce(parts, outs), cards, 20)
+
+
+def collectives(cards, gen) -> list[dict]:
+    """The session's collectives across the cards against one card's
+    stacked session, NCCL and their ingress bound; prints and returns a
+    row a collective."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.kernels import _graph
+
+    n = len(cards)
+    sess = CommSession(CommConfig(health=False), devices=cards)
+    stacked = CommSession(CommConfig(health=False), device=cards[0])
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cards[0])
+
+    calls = [("all_gather", randn(n * 2048, 8192), (n - 1) * 64 * MiB),
+             ("reduce_scatter", randn(n * 512, 8192), 48 * MiB),
+             ("all_reduce", randn(n * 512, 8192), 96 * MiB),
+             ("psum", randn(4097, 4095), 96 * MiB),
+             ("all_to_all", randn(n * n, 1 << 20), 12 * MiB)]
+    rows = []
+    for op, x, received in calls:
+        want = getattr(stacked, op)(x)
+        for _ in range(2):
+            got = getattr(sess, op)(x)
+            check(got.device == cards[0] and torch.equal(got, want),
+                  f"{op} {tuple(x.shape)} across the cards differs from one "
+                  f"card's stacked session")
+        prog = program_of(sess, op)
+        shifts = len(prog.ring.programs) - sum(
+            type(p).__name__ == "PeerRingProgram" for p in prog.ring.programs)
+        expect = {"multipath_dma": shifts * n,
+                  "ring_allgather": (len(prog.ring.programs) - shifts) * n}
+        check(prog.replay_launches == {k: v for k, v in expect.items() if v},
+              f"{op}: launches a replay {prog.replay_launches}, expected "
+              f"{expect}")
+        before = _graph.launch_counts()
+        rep = device_ms(prog.replay, cards, 20)
+        after = _graph.launch_counts()
+        check(all(after[k] - before[k] == 22 * v
+                  for k, v in prog.replay_launches.items()),
+              f"{op}: launch counters do not match 22 replays")
+        one = device_ms(program_of(stacked, op).replay, cards[:1], 20)
+        if op == "all_to_all":
+            blocks = [[x.view(n, n, -1)[i, j].to(cards[i]) for j in range(n)]
+                      for i in range(n)]
+            dst = [[torch.empty(blocks[i][j].shape, device=cards[j])
+                    for j in range(n)] for i in range(n)]
+
+            def peer_copies():
+                for i in range(n):
+                    for j in range(n):
+                        if i != j:
+                            dst[i][j].copy_(blocks[i][j])
+
+            library = None
+            yard = device_ms(peer_copies, cards, 20)
+        else:
+            local = (x.view(n, -1, *x.shape[1:])
+                     if op == "all_gather" else x)
+            parts = [(local[i] if op == "all_gather" else local).to(c)
+                     for i, c in enumerate(cards)]
+            if op == "psum":
+                parts = [p.reshape(-1) for p in parts]
+            library = nccl_ms("all_reduce" if op == "psum" else op, parts,
+                              cards)
+            yard = None
+            if library is None:
+                print(f"{op}: torch.cuda.nccl cannot take the cards' "
+                      f"tensors; timing the ring's peer copy_ and adds "
+                      f"instead", flush=True)
+                form = coll.FORMS[op]
+                rows_ = ([local[i].to(c) for i, c in enumerate(cards)]
+                         if op == "all_gather"
+                         else [x.to(c) for c in cards])
+                yard = device_ms(lambda: form(rows_, TorchRing(cards)),
+                                 cards, 20)
+        bound = received / NVLINK_BYTES_PER_S * 1e3
+        row = {"op": op, "shape": list(x.shape), "received_bytes": received,
+               "replay_ms": rep, "bound_ms": bound, "nccl_ms": library,
+               "peer_copies_ms": yard, "one_card_stacked_ms": one,
+               "launches": prog.replay_launches}
+        rows.append(row)
+        print(f"collective {op} {tuple(x.shape)} f32 on {n} cards: bitwise "
+              f"one card's stacked; replay {rep:.4f} ms, bound {bound:.4f} "
+              f"ms ({received} B into each card at 450 GB/s, "
+              f"{bound / rep:.1%}), NCCL "
+              f"{'n/a' if library is None else f'{library:.4f} ms'}"
+              f"{'' if yard is None else f', peer copy_ {yard:.4f} ms'}"
+              f", one card's stacked replay {one:.4f} ms; launches a "
+              f"replay {prog.replay_launches}", flush=True)
+        del want, got
+    return rows
+
+
 def main() -> int:
     cards = peer_cards(4)
     from repro_torch.comm import CommConfig, CommSession
@@ -152,7 +307,7 @@ def main() -> int:
         print(f"card {i}: {line}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(("multipath_dma", "jacobi"))
+    _build.build_all(("multipath_dma", "jacobi", "ring_allgather"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     sess = CommSession(CommConfig(telemetry=True, health=False),
@@ -257,6 +412,8 @@ def main() -> int:
           f"replay {rep:.4f} ms = {results['exchange']['replay_gbps']:.1f} "
           f"GB/s in all, call {host:.4f} ms", flush=True)
     del msgs, items, got
+
+    results["collectives"] = collectives(cards, gen)
 
     ranks, rows, cols, iters = 4, 8, 1 << 22, 10
     u0 = torch.randn(ranks, rows, cols, generator=gen, device=cards[0])
