@@ -825,7 +825,8 @@ def comm_paths(dev, randn, errs, per_path, read_path
     print(f"multipath_dma 256 MiB send: kernel {dma_ms:.4f} ms, graph "
           f"replay {replay_ms:.4f} ms, bound {dma_bound:.4f} ms "
           f"({reads} B read + {writes} B written incl. fills at 3.35 TB/s, "
-          f"{dma_bound / dma_ms:.1%} of bound), plain {dma_plain_ms:.4f} ms, "
+          f"{dma_bound / dma_ms:.1%} of bound, {dma_ms / copy_ms:.3f}x "
+          f"out[dst].copy_(x[src])), plain {dma_plain_ms:.4f} ms, "
           f"torch.where into the (4, n) output {where_ms:.4f} ms, "
           f"out[dst].copy_(x[src]) of the message alone {copy_ms:.4f} ms "
           f"(its bound {copy_bound:.4f} ms)", flush=True)

@@ -21,8 +21,21 @@
 //
 // What bounds it: bytes. Every byte of the node table is read once and
 // written once (fills write only): on one card (bytes read + written) /
-// 3.35 TB/s; across cards the bytes dst receives over NVLink / 450 GB/s.
-// There is no arithmetic.
+// 3.35 TB/s of HBM; across cards the bytes dst receives over NVLink /
+// 450 GB/s, dst's ingress, which every path into dst shares. There is no
+// arithmetic.
+//
+// Why registers and not the Tensor Memory Accelerator: every item's bytes
+// go through registers (16-byte vectors when source and destination agree
+// mod 16; else 4-byte words or single bytes; the head and tail by bytes).
+// A design that moved each item's 16-byte-aligned body through a ring of
+// shared-memory stages with bulk loads and bulk stores, one thread issuing
+// them, was measured on four H100s (PERF.md §6 has the design, its fences
+// and its readings): it tied on a single-path send, where both push dst's
+// ingress as far as SM stores go, short of the copy engines' rate; it
+// gained little on one card; and it lost on the planner's three-path plan,
+// whatever its ring, grid and tiles, most of it in the bulk-stored
+// cross-card tiles. So the payload stays in registers.
 //
 // Design:
 // * The host builds a work table (int64, ITEM_COLS columns per row) from
@@ -30,7 +43,10 @@
 //   zeroed or copied from the input), then every copy node cut into tiles
 //   of at most a few hundred KiB, in the graph's index order. Index order
 //   is topological: every hop edge points forward. A card's table keeps
-//   that order and ends with its wait items.
+//   its copies in that order, spreads its fills evenly among its copy
+//   tiles into other cards (so a src's fill of its own output, HBM writes,
+//   runs under its NVLink-bound sends instead of before them; on one card
+//   the fills stay first), and ends with its wait items.
 // * A persistent grid of blocks takes items one at a time from a global
 //   atomic ticket, in table order. An item is claimed only by a block that
 //   is already running, and its predecessor has a lower index, so the
@@ -44,7 +60,14 @@
 //   store: at gpu scope when the flag is on its own card, at system scope
 //   (`__threadfence_system` + `st.release.sys`) when it is on another.
 //   A waiter spins with `__nanosleep` and traps after 10 s: a lost flag is
-//   an error, not a hang.
+//   an error, not a hang. Why each fence: every thread of the block wrote
+//   part of the tile, and only thread 0 stores the flag, so every thread
+//   fences at the flag's scope (its own stores ordered before anything it
+//   does next, at a scope that reaches the waiter's card) and the barrier
+//   after it hands that order to thread 0, whose release store then
+//   follows every thread's bytes. On the waiter's side thread 0's acquire
+//   load orders its reads after the flag, and the barrier after the wait
+//   hands that order to the block's other threads before they read.
 // * Flags are never zeroed. A one-block prologue launched before the main
 //   kernel zeroes the card's ticket and counters and adds one to its
 //   replay epoch; writers store their epoch and waiters wait for their

@@ -33,7 +33,10 @@ push roles: a fill on its own device, a direct or hop-1 tile on the
 message's src, a hop-2 tile on its via. :func:`card_tables` splits a
 per-device table into one table a card, with the flags that carry hop
 edges across cards and a wait item on the destination's card for every
-terminal tile another card writes.
+terminal tile another card writes, and it spreads each card's fills
+among the card's copy tiles into another card, so that a src's fill of
+its own output (HBM writes) runs under its sends (bound by NVLink) rather
+than before them.
 
 :class:`DmaProgram` and :class:`PeerDmaProgram` hold the tables and the
 byte buffers they address. On CUDA they launch the hand-written kernel
@@ -42,6 +45,17 @@ directly or as one captured ``torch.cuda.CUDAGraph`` a card; on the CPU
 they run :func:`run_node_table_plain`, the plain PyTorch version, a loop
 of slice copies over the whole table in order. :data:`LAUNCHES` counts
 kernel launches (one a card that runs items), direct and replayed.
+
+The kernel (its source note has the details) is a persistent grid of
+:func:`grid_size` blocks taking items by ticket, each item's bytes copied
+by the block's threads in 16-byte vectors through registers (4-byte or
+single-byte copies where source and destination disagree mod 16, and for
+the head and tail). What bounds it is bytes: on one card HBM (bytes read
++ written at 3.35 TB/s), across cards dst's NVLink ingress (the bytes dst
+receives at 450 GB/s, shared by every path into dst). A design that moved
+the payload through shared memory with TMA bulk copies was measured on
+four H100s and not taken: it tied on a single-path send and lost on the
+three-path plan (``PERF.md`` §6).
 """
 
 from __future__ import annotations
@@ -49,15 +63,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, NamedTuple, Sequence
+from typing import TYPE_CHECKING, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.comm.graph import CopyNode, TransferGraph
 from repro_torch.core.topology import HOST
 from repro_torch.kernels import _build
 from repro_torch.kernels._graph import GraphProgram
+
+if TYPE_CHECKING:
+    from repro_torch.comm.graph import TransferGraph
 
 #: Item columns (must match ``csrc/multipath_dma.cu``). ``C_PRED`` and
 #: ``C_EXEC`` are read on the host only: the predecessor item in the whole
@@ -75,7 +91,7 @@ STATE_HEADER = 4
 TILE_BYTES = 256 << 10
 #: Alignment of each message's region in the operand buffers.
 _ALIGN = 256
-#: Blocks per SM of the persistent grid.
+#: Blocks per SM of the persistent grid (``tools/peer_smoke.py --sweep``).
 _BLOCKS_PER_SM = 2
 
 #: Kernel launches so far: direct launches and replays of captured graphs.
@@ -196,7 +212,7 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
 
     ``nodes`` restricts the table to those copy nodes (one run of a
     captured step, default: every node). A message's fill goes in the
-    table that holds its first node. Staging slots are allocated from
+    table that holds its first node, before the copies. Staging slots are allocated from
     ``stage_base`` on and recorded in ``slots`` (node index → staging
     byte), which runs of one step share: a hop whose predecessor sits in
     an earlier table reads that slot with no predecessor item, because
@@ -205,6 +221,10 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     for host hops, compute nodes, chunks that are not element-aligned and
     ``per_device`` beside ``nodes``.
     """
+    # imported here, not with the module: repro_torch.comm imports this
+    # module, so importing it first must not import comm
+    from repro_torch.comm.graph import CopyNode
+
     if fill not in ("zero", "copy", "none"):
         raise ValueError(f"fill must be 'zero', 'copy' or 'none', got "
                          f"{fill!r}")
@@ -339,12 +359,33 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                      num_devices, device_bytes)
 
 
+def _spread_fills(rows: np.ndarray, remote: np.ndarray) -> np.ndarray:
+    """A card's rows with its fill items spread evenly among its copy
+    tiles into another card (``remote``): fill *i* of *F* just before
+    remote copy *i·R // F* of *R*, every copy's order kept. Where the card
+    sends nothing to another card (one card's tables), the fills stay
+    first: there every item shares the card's HBM, and the fill first
+    measured faster. Fill and copy regions are disjoint, so any order is
+    correct, and no row index changes meaning (``C_PRED`` indexes the
+    whole table, host-side only)."""
+    fill = rows[:, C_NODE] < 0
+    anchors = np.flatnonzero(~fill & remote)
+    fills = np.flatnonzero(fill)
+    if not len(anchors) or not len(fills):
+        return rows
+    key = np.arange(len(rows), dtype=np.float64)
+    key[fills] = anchors[np.arange(len(fills)) * len(anchors)
+                         // len(fills)] - 0.5
+    return rows[np.argsort(key, kind="stable")]
+
+
 def card_tables(items: np.ndarray, card_of: Sequence[int]
                 ) -> list[np.ndarray]:
     """Split a table over the cards its logical devices live on
     (``card_of[d]``: the card of logical device *d*, cards numbered from
-    0): one table a card, its rows in the whole table's order, with the
-    flags set.
+    0): one table a card, its copies in the whole table's order, its
+    fills spread among its copies into other cards
+    (:func:`_spread_fills`), with the flags set.
 
     An item with a predecessor waits on a flag of its own card
     (``C_WAIT``) that the predecessor sets (``C_SIG_CARD``,
@@ -384,8 +425,10 @@ def card_tables(items: np.ndarray, card_of: Sequence[int]
         rows[:, [C_SIG_CARD, C_SIG_IDX]] = -1
         waits.append(rows)
     # every card's flags are set before any table is cut
-    return [np.concatenate([items[exec_card == card], waits[card]])
-            for card in range(ncards)]
+    return [np.concatenate([
+        _spread_fills(items[exec_card == card],
+                      dst_card[exec_card == card] != card), waits[card]])
+        for card in range(ncards)]
 
 
 def num_flags(items: np.ndarray) -> int:

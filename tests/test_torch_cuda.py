@@ -60,6 +60,11 @@ the stacked session's, every result on its destination's device, one
 version, every driver-level collective and every ``session.collectives``
 op bit for bit as the stacked session's, one ``ring_allgather`` launch a
 card a replay and one ``multipath_dma`` launch a card a ring shift.
+``multipath_dma`` at the edges of its copy paths (``-k edges``): tiles
+whose ends differ mod 16, short items, tiles that are not multiples of 16
+bytes, a 1-byte dtype of odd length, a window of 2 and a three-path plan,
+each per-device table bit for bit as ``run_node_table_plain``'s, eagerly
+and replayed, as four logical devices on one card and on four cards.
 """
 
 import dataclasses
@@ -1614,3 +1619,113 @@ def test_peer_collectives_across_four_cards(dev):
     peer_collective_checks(cards, cards[0])
     peer_collective_checks([cards[0], cards[0], cards[1], cards[1]],
                            cards[0])
+
+
+# -- multipath_dma at the edges of its copy paths -----------------------------
+
+#: (name, messages (src, dst, nelems, dtype), window, max_paths, tile
+#: bytes, byte shift of the terminal tiles' destinations). A tile's body
+#: moves in 16-byte vectors when its source and destination agree mod 16,
+#: its head and tail by bytes; else in 4-byte words or single bytes.
+MULTIPATH_EDGES = [
+    # destinations 4 bytes (1 byte) off their sources mod 16: the register
+    # path's 4-byte (single-byte) copies
+    ("offsets_differ_mod_16", [(0, 1, 300_001, torch.float32)], 1, 3,
+     256 << 10, 4),
+    ("offsets_differ_by_a_byte", [(2, 0, 70_001, torch.float32)], 1, 2,
+     256 << 10, 1),
+    # items of a few bytes to 12 KB, and tiles of 40,004 bytes, not a
+    # multiple of 16 (a head and a tail on every tile)
+    ("short_items", [(0, 1, 3_001, torch.float32),
+                     (3, 2, 5, torch.float32)], 1, 3, 256 << 10, 0),
+    ("tiles_not_multiples_of_16", [(0, 1, 1_000_000, torch.float32)], 1, 3,
+     40_004, 0),
+    ("one_byte_dtype_odd_length", [(1, 3, 1_000_003, torch.uint8)], 1, 3,
+     256 << 10, 0),
+    ("window_of_2", [(0, 1, 500_001, torch.float32),
+                     (1, 0, 77_777, torch.bfloat16)], 2, 3, 96 << 10, 0),
+    # direct + via 2 + via 3: every hop-2 tile reads what its hop-1 tile
+    # wrote into the via's staging buffer
+    ("three_paths_hop2_after_hop1", [(0, 1, 4_000_000, torch.float32)],
+     1, 3, 256 << 10, 0),
+]
+
+
+def edge_program(devices, messages, window, max_paths, tile, shift):
+    """A per-device ``multipath_dma`` program of ``messages`` planned on
+    the 4-device full mesh (no fill), its terminal tiles' destinations
+    moved ``shift`` bytes on (into the slack every output region keeps up
+    to its next 256-byte boundary); inputs random bytes, outputs 7s."""
+    topo = Topology.full_mesh(4)
+    pp = PathPlanner(topo, multipath_threshold=0, chunk_bytes=64 << 10)
+    group = pp.plan_group(
+        [(s, d, n * dt.itemsize, dt.itemsize) for s, d, n, dt in messages],
+        max_paths=max_paths)
+    graph, _ = apply_schedule(lower(group, window), "critical_path", topo)
+    table = dk.build_node_table(
+        graph, [n for *_, n, _ in messages],
+        [dt.itemsize for *_, dt in messages], 4, fill="none",
+        per_device=True, tile_bytes=tile)
+    if shift:
+        items = table.items.copy()
+        terminal = (items[:, dk.C_NODE] >= 0) & (
+            items[:, dk.C_DST_SPACE] == dk.SPACE_OUT)
+        items[terminal, dk.C_DST_OFF] += shift
+        for lay in table.messages:
+            assert 0 < lay.nbytes % 256 <= 256 - shift
+        table = dataclasses.replace(table, items=items)
+    prog = dk.PeerDmaProgram(table, [dt for *_, dt in messages], devices)
+    gen = torch.Generator(device="cpu").manual_seed(len(messages) + shift)
+    for buf in prog.x:
+        buf.copy_(torch.randint(0, 256, buf.shape, generator=gen,
+                                dtype=torch.uint8))
+    return graph, prog
+
+
+def edge_checks(devices, messages, window, max_paths, tile, shift):
+    """Eagerly and replayed three times (epochs advance), every output
+    and staging byte bitwise ``run_node_table_plain``'s on the same
+    inputs, every copy node completed; one launch a card a replay."""
+    graph, prog = edge_program(devices, messages, window, max_paths,
+                                    tile, shift)
+    assert graph.num_copy_nodes == prog.table.num_copy_nodes
+    plain_y = [torch.full_like(y, 7) for y in prog.y]
+    plain_stage = [torch.zeros_like(s) for s in prog.stage]
+    assert dk.run_node_table_plain(prog.table.items, prog.x, plain_y,
+                                   plain_stage) == graph.num_copy_nodes
+    for y, s in zip(prog.y, prog.stage):
+        y.fill_(7)
+        s.zero_()
+    prog.run()
+    prog.synchronize()
+    assert prog.completed_nodes() == graph.num_copy_nodes
+    assert all(torch.equal(a, b) for a, b in zip(prog.y, plain_y))
+    assert all(torch.equal(a, b) for a, b in zip(prog.stage, plain_stage))
+    prog.record()
+    assert prog.replay_launches == {"multipath_dma": len(prog.launches)}
+    for _ in range(3):
+        for y in prog.y:
+            y.fill_(7)
+        prog.replay()
+        prog.synchronize()
+        assert prog.completed_nodes() == graph.num_copy_nodes
+        assert all(torch.equal(a, b) for a, b in zip(prog.y, plain_y))
+    return prog
+
+
+@pytest.mark.parametrize("case", MULTIPATH_EDGES,
+                         ids=[c[0] for c in MULTIPATH_EDGES])
+def test_multipath_dma_edges_on_one_card(dev, case):
+    prog = edge_checks([dev] * 4, *case[1:])
+    if case[0] == "three_paths_hop2_after_hop1":
+        items = prog.table.items
+        hop2 = items[items[:, dk.C_PRED] >= 0]
+        assert len(hop2) and set(hop2[:, dk.C_EXEC].tolist()) == {2, 3}
+
+
+@pytest.mark.parametrize("case", MULTIPATH_EDGES,
+                         ids=[c[0] for c in MULTIPATH_EDGES])
+def test_multipath_dma_edges_across_four_cards(dev, case):
+    cards = peer_cards(4)
+    edge_checks(cards, *case[1:])
+    edge_checks([cards[0], cards[0], cards[1], cards[1]], *case[1:])

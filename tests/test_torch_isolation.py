@@ -42,6 +42,22 @@ def test_imports_with_jax_blocked():
     assert int(out.stdout.split()[-1]) >= 20     # every module was visited
 
 
+KERNEL_MODULES = sorted(
+    f"repro_torch.kernels.{p.parent.name}.{p.stem}"
+    for p in (PORT / "kernels").glob("*/*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_a_kernel_module_imports_first(name):
+    """Each kernel module imports as a caller's first import, in a fresh
+    interpreter: no import cycle through ``repro_torch.comm``."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import {name}"], capture_output=True,
+        text=True, cwd=ROOT, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
 def port_files():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
     return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "peer_smoke.py"]

@@ -379,6 +379,78 @@ def test_stacked_table_keeps_its_flags_on_one_card():
             == dk.num_flags(it) == len(staged))
 
 
+def runs(flags: list[bool], value: bool) -> int:
+    """The longest run of ``value`` in ``flags``."""
+    best = cur = 0
+    for f in flags:
+        cur = cur + 1 if f == value else 0
+        best = max(best, cur)
+    return best
+
+
+#: Cards that run fills beside copies into another card, by placement and
+#: paths of a 0 -> 1 send: src's card, and each via's when it is not src's.
+SPREAD_CARDS = {((0, 1, 2, 3), 1): 1, ((0, 1, 2, 3), 3): 3,
+                ((0, 0, 1, 1), 1): 0, ((0, 0, 1, 1), 3): 2,
+                ((0, 0, 0, 0), 1): 0, ((0, 0, 0, 0), 3): 0}
+
+
+@pytest.mark.parametrize("fill", ["zero", "copy"])
+@pytest.mark.parametrize("card_of", [(0, 1, 2, 3), (0, 0, 1, 1),
+                                     (0, 0, 0, 0)])
+@pytest.mark.parametrize("max_paths,window", [(1, 1), (3, 1), (3, 2)])
+def test_card_tables_spread_fills_under_sends_to_other_cards(
+        fill, card_of, max_paths, window):
+    """A card's fill items sit evenly among its copy tiles into another
+    card (no run of fills longer than ceil(F / R), of such copies longer
+    than ceil(R / F)), so that src's fill of its own output goes out under
+    its sends; a card that sends to no other card keeps its fills first,
+    as the whole table has them; every card keeps the whole table's order
+    of its copies, and the cards' tables write the whole table's bytes."""
+    sess = CommSession(CommConfig(multipath_threshold=0,
+                                  chunk_bytes=64 * KiB), devices=CPU4)
+    graph, _ = graph_of(sess, [(0, 1, 300_000, torch.float32)], window,
+                        max_paths)
+    table = dk.build_node_table(graph, [300_000], [4], 4, fill=fill,
+                                per_device=True, tile_bytes=16 * KiB)
+    whole = table.items
+    nfill = int((whole[:, dk.C_NODE] < 0).sum())
+    assert nfill and (whole[:nfill, dk.C_NODE] < 0).all()
+    cards = np.asarray(card_of)
+    tables = dk.card_tables(whole, card_of)
+    spread = 0
+    for c, t in enumerate(tables):
+        own = t[t[:, dk.C_NBYTES] > 0]                  # no wait items
+        is_fill = own[:, dk.C_NODE] < 0
+        mine = whole[(whole[:, dk.C_NODE] >= 0)
+                     & (cards[whole[:, dk.C_EXEC]] == c)]
+        cols = [dk.C_NODE, dk.C_SRC_OFF, dk.C_DST_OFF]
+        assert np.array_equal(own[~is_fill][:, cols], mine[:, cols])
+        remote = ~is_fill & (cards[own[:, dk.C_DST_DEV]] != c)
+        f, r = int(is_fill.sum()), int(remote.sum())
+        if f and not r:
+            assert is_fill[:f].all()
+        elif f:
+            spread += 1
+            seq = (own[is_fill | remote, dk.C_NODE] < 0).tolist()
+            assert runs(seq, True) <= -(-f // r)
+            assert runs(seq, False) <= -(-r // f)
+    assert spread == SPREAD_CARDS[card_of, max_paths]
+    rng = torch.Generator().manual_seed(3)
+    x = [torch.randint(0, 256, (table.io_bytes,), generator=rng,
+                       dtype=torch.uint8) for _ in range(4)]
+    stage = [torch.zeros(max(table.stage_bytes, 16), dtype=torch.uint8)
+             for _ in range(4)]
+    y, want = ([torch.full((table.io_bytes,), 7, dtype=torch.uint8)
+                for _ in range(4)] for _ in range(2))
+    rows = np.concatenate(tables)
+    assert dk.run_node_table_plain(rows[rows[:, dk.C_NBYTES] > 0], x, y,
+                                   stage) == \
+        dk.run_node_table_plain(whole, x, want, stage) == \
+        graph.num_copy_nodes
+    assert all(map(torch.equal, y, want))
+
+
 def test_non_destination_outputs_read_zero():
     sess = CommSession(CommConfig(multipath_threshold=0), devices=CPU4)
     x = torch.randn(3000)

@@ -21,7 +21,9 @@ monitor off so that no plan changes mid-sweep), and prints:
   card's stream joined before the end event), the whole ``session.send``
   on the host clock, and one ``y.copy_(x)`` across the two cards (torch's
   peer copy) as the yardstick, beside the bound B / 450 GB/s (dst's NVLink
-  ingress, data sheet);
+  ingress, data sheet), and a line a size: the single-path replay, its
+  share of that bound, its ratio to the peer ``copy_``, and the
+  multi-path replay with the multi/single ratio (of throughputs);
 * the same for ``bidirectional`` (0→1 and 1→0 at once; the bound 2B /
   900 GB/s, the yardstick two peer copies, one each way);
 * a 4-message ``exchange``, each card to the next, 64 MiB each;
@@ -45,10 +47,24 @@ monitor off so that no plan changes mid-sweep), and prints:
   link that carried traffic, and the launch terms;
 * a JSON line of every reading, then ``{"ok": true, "device": {...,
   "count": 4}}`` as the last line.
+
+With ``--sweep`` it times the ``multipath_dma`` kernel's grid and tiles
+instead (after the topology and the cards' names and power limits):
+
+    python3 tools/peer_smoke.py --sweep            # about half a minute
+
+The package's kernel runs the SWEEP_CASES tables (float32 0->1 sends: 64,
+256 and 512 MiB single path, 512 MiB three paths, 512 MiB single path with
+no fill, on the four cards; phase 9b's stacked 256 MiB send on card 0),
+cut into tiles of each of SWEEP_TILES, on each of SWEEP_BLOCKS blocks a
+card: each run bitwise (eager, then replayed), then timed as replays of
+its graphs. One line a (case, tile), the best of each case, and every
+reading in ``chiprun_out/peer_sweep.jsonl``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -58,15 +74,32 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.comm import collectives as coll  # noqa: E402
 
 #: H100 NVLink: 900 GB/s to the other cards of the host, 450 GB/s each way
 #: (NVIDIA data sheet).
 NVLINK_BYTES_PER_S = 450e9
+KiB = 1 << 10
 MiB = 1 << 20
 SIZES = (64 * 1024, MiB, 16 * MiB, 64 * MiB, 256 * MiB, 512 * MiB)
+#: H100 HBM3 (NVIDIA data sheet), the stacked table's bound.
+HBM_BYTES_PER_S = 3.35e12
+
+#: The sweep (``--sweep``): the blocks of the persistent grid a card and
+#: the work table's tile bytes.
+SWEEP_BLOCKS = (66, 132, 264)
+SWEEP_TILES = (256 * KiB, MiB)
+#: The sweep's tables, float32 0->1: (layout, bytes, max_paths, fill).
+#: "peer" runs on the four cards, "stacked" on card 0 alone (phase 9b's
+#: send).
+SWEEP_CASES = (("peer", 64 * MiB, 1, "zero"), ("peer", 256 * MiB, 1, "zero"),
+               ("peer", 512 * MiB, 1, "zero"),
+               ("peer", 512 * MiB, None, "zero"),
+               ("peer", 512 * MiB, 1, "none"),
+               ("stacked", 256 * MiB, None, "zero"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -285,7 +318,129 @@ def collectives(cards, gen) -> list[dict]:
     return rows
 
 
+def sweep_program(case, tile: int, cards, peer_sess, stacked_sess, gen):
+    """The program of one sweep case at ``tile`` bytes a tile, its input
+    set, and a check that its outputs hold the message at dst and zeros
+    (or nothing) elsewhere."""
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    layout, nbytes, mp, fill = case
+    n = nbytes // 4
+    x = torch.randn(n, generator=gen, device=cards[0])
+    spec = ((0, 1, n, "float32"),)
+    if layout == "peer":
+        peer_sess.send(x, 0, 1, max_paths=mp)
+        graph = entry_for(peer_sess, spec, mp).graph
+        table = dk.build_node_table(graph, [n], [4], 4, fill=fill,
+                                    per_device=True, tile_bytes=tile)
+        prog = dk.PeerDmaProgram(table, [torch.float32], cards)
+        prog.inputs()[0][0][0].copy_(x)
+        want = x.to(cards[1])
+
+        def check() -> bool:
+            outs = prog.outputs()[0]
+            return torch.equal(outs[1][0], want) and all(
+                o is None or not o.any() for d, o in enumerate(outs)
+                if d != 1)
+    else:
+        stacked_sess.send(x, 0, 1, max_paths=mp)
+        graph = entry_for(stacked_sess, spec, mp).graph
+        table = dk.build_node_table(graph, [n], [4], 4, fill=fill,
+                                    tile_bytes=tile)
+        prog = dk.DmaProgram(table, [torch.float32], cards[0])
+        prog.inputs()[0][0, 0].copy_(x)
+
+        def check() -> bool:
+            out = prog.outputs()[0][0]
+            return torch.equal(out[1], x) and not out[[0, 2, 3]].any()
+    return prog, graph, check
+
+
+def time_grid(prog, blocks: int, cards, check, iters: int) -> float:
+    """Replay ms of ``prog`` on ``blocks`` blocks a card; raises unless
+    the eager run and a replay both pass ``check``."""
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    peer = isinstance(prog, dk.PeerDmaProgram)
+    if peer:
+        prog.launches = [ln._replace(grid=max(1, min(blocks, len(ln.items))))
+                         for ln in prog.launches]
+    else:
+        prog._grid = max(1, min(blocks, prog.table.num_items))
+    run_cards = prog.cards
+    ys = prog.y if peer else [prog.y]
+    for attempt in ("run", "replay"):
+        for y in ys:
+            y.fill_(255)
+        if attempt == "run":
+            prog.run()
+        else:
+            prog.record()
+            prog.replay()
+        sync_all(run_cards)
+        if not check():
+            raise RuntimeError(f"sweep: {attempt} on {blocks} blocks is "
+                               f"not bitwise the message")
+    return device_ms(prog.replay, list(run_cards), iters)
+
+
+def sweep(cards) -> int:
+    """Time the kernel on SWEEP_BLOCKS blocks a card over the SWEEP_CASES
+    tables cut at each of SWEEP_TILES, every result bitwise; prints a
+    line a (case, tile) and writes every reading to
+    ``chiprun_out/peer_sweep.jsonl``."""
+    from repro_torch.comm import CommConfig, CommSession
+
+    peer_sess = CommSession(CommConfig(health=False), devices=cards)
+    stacked_sess = CommSession(CommConfig(health=False), device=cards[0])
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    out_path = os.path.join(ROOT, "chiprun_out", "peer_sweep.jsonl")
+    best = {}
+    with open(out_path, "w") as out:
+        for case in SWEEP_CASES:
+            layout, nbytes, mp, fill = case
+            for tile in SWEEP_TILES:
+                prog, graph, check = sweep_program(case, tile, cards,
+                                                   peer_sess, stacked_sess,
+                                                   gen)
+                if layout == "peer":
+                    bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+                else:
+                    reads, writes = prog.table.bytes_moved()
+                    bound = (reads + writes) / HBM_BYTES_PER_S * 1e3
+                iters = max(10, min(50, (4 << 30) // nbytes))
+                times = [time_grid(prog, b, cards, check, iters)
+                         for b in SWEEP_BLOCKS]
+                for b, ms in zip(SWEEP_BLOCKS, times):
+                    rec = {"layout": layout, "nbytes": nbytes,
+                           "max_paths": mp, "fill": fill, "tile": tile,
+                           "blocks": b, "ms": ms, "bound_ms": bound,
+                           "copy_nodes": graph.num_copy_nodes}
+                    out.write(json.dumps(rec) + "\n")
+                    key = (layout, nbytes, mp, fill)
+                    if key not in best or ms < best[key]["ms"]:
+                        best[key] = rec
+                print(f"sweep {layout} {nbytes >> 20} MiB max_paths={mp}"
+                      f" fill={fill} tile {tile // KiB} KiB | "
+                      + " ".join(f"{b} blocks {ms:.4f}"
+                                 for b, ms in zip(SWEEP_BLOCKS, times))
+                      + f" ms | bound {bound:.4f} ms", flush=True)
+                del prog
+                torch.cuda.empty_cache()
+    for key, rec in best.items():
+        print(f"sweep best {key}: tile {rec['tile'] // KiB} KiB, "
+              f"{rec['blocks']} blocks: {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%} of bound)", flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the kernel's grid and tiles instead of the "
+                         "session's traffic")
+    args = ap.parse_args()
     cards = peer_cards(4)
     from repro_torch.comm import CommConfig, CommSession
     from repro_torch.core.halo import jacobi_step
@@ -309,6 +464,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(("multipath_dma", "jacobi", "ring_allgather"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    if args.sweep:
+        sweep(cards)
+        print(f"cards: {smi[0]}", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": len(cards)}}), flush=True)
+        return 0
 
     sess = CommSession(CommConfig(telemetry=True, health=False),
                        devices=cards)
@@ -324,6 +486,7 @@ def main() -> int:
         x1 = x.to(cards[1])
         y = torch.empty_like(x1)
         copy_ms = device_ms(lambda: y.copy_(x), cards, iters_for(nbytes))
+        pair = []
         for mp in (1, None):
             for _ in range(2):
                 out = sess.send(x, 0, 1, max_paths=mp)
@@ -345,6 +508,7 @@ def main() -> int:
                    "bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3,
                    "launches": prog.replay_launches}
             results["send"].append(row)
+            pair.append(row)
             print(f"send {nbytes} B 0->1 max_paths={mp}: paths "
                   f"{row['paths']}, {row['copy_nodes']} copy nodes, bitwise;"
                   f" replay {rep:.4f} ms = {row['replay_gbps']:.1f} GB/s, "
@@ -353,6 +517,14 @@ def main() -> int:
                   f" {row['copy_gbps']:.1f} GB/s, bound "
                   f"{row['bound_ms']:.4f} ms (450 GB/s); launches a replay "
                   f"{prog.replay_launches}", flush=True)
+        single, multi = pair
+        print(f"size {nbytes} B: single-path replay "
+              f"{single['replay_ms']:.4f} ms, "
+              f"{single['bound_ms'] / single['replay_ms']:.1%} of dst's "
+              f"ingress bound, {single['replay_ms'] / copy_ms:.3f}x the peer "
+              f"copy_ ({copy_ms:.4f} ms); multi-path {multi['replay_ms']:.4f}"
+              f" ms, multi/single {single['replay_ms'] / multi['replay_ms']:.3f}"
+              f" (throughput)", flush=True)
         del x, x1, y
 
     for nbytes in SIZES:
