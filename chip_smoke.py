@@ -65,8 +65,11 @@ What it does, in order (any failed check exits nonzero):
    versions, then times from CUDA events: each kernel beside its bound,
    its plain version and a one-call PyTorch yardstick, a captured-graph
    replay against eager launches per dispatch at 64 KiB, sends of 64 KiB
-   to 256 MiB (replay against one ``copy_`` of the message), the ring
-   also at (8, 2048, 8192) float32 and (4, 2048, 8192) bfloat16, each
+   to 256 MiB (replay against one ``copy_`` of the message),
+   ``ring_allgather`` also at (8, 2048, 8192) float32, (4, 2048, 8192)
+   bfloat16 and psum's (rows, 2) gathers (path S's combine, (4, 1572864,
+   2) bfloat16, and path V's psum, (4, 2097152, 2) float32, each bitwise
+   and beside its plain version), each
    collective's graph replay and ``session.all_gather`` per call, the
    captured Jacobi iteration against the eager one, and
    ``flash_attention`` (bfloat16, causal) at path E's prefill shape (4,
@@ -897,10 +900,10 @@ def comm_paths(dev, randn, errs, per_path, read_path
               f"copy_ of the message {cp * 1e3:.2f} us (bound "
               f"{2 * nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)", flush=True)
 
-    # ring_allgather at the all-gather's shape: (4, 2048, 8192) f32 shards
-    shard = 2048 * 8192 * 4
-    ring_floor = (nd + nd * nd) * shard / HBM_BYTES_PER_S * 1e3
-    ring_bytes = sum(rk.RingGeometry.for_shape(nd, 2048, 8192, 4)
+    # ring_allgather at the all-gather's shape: (4, 2048, 8192) f32 shards;
+    # the kernel moves each shard once in and into every replica, the
+    # function's own bytes (n + n^2) S
+    ring_floor = sum(rk.RingGeometry.for_shape(nd, 2048, 8192, 4)
                      .bytes_moved()) / HBM_BYTES_PER_S * 1e3
     ring_ms = cuda_time_ms(lambda: rk.ring_allgather_cuda(rows_ag), 20)
     ring_plain_ms = cuda_time_ms(lambda: rk.ring_allgather_plain(rows_ag), 5,
@@ -914,27 +917,41 @@ def comm_paths(dev, randn, errs, per_path, read_path
     launch64["ag_replay256_ms"] = ag_replay_ms
     ag_call_ms = host_time_ms(lambda: sess.all_gather(ag_x), 10)
     print(f"ring_allgather (4, 2048, 8192) f32: kernel {ring_ms:.4f} ms, "
-          f"floor {ring_floor:.4f} ms ((n + n^2) S at 3.35 TB/s, "
-          f"{ring_floor / ring_ms:.1%} of it), ring bytes {ring_bytes:.4f} "
-          f"ms (2 n^2 S), plain {ring_plain_ms:.4f} ms, "
+          f"bound {ring_floor:.4f} ms ((n + n^2) S at 3.35 TB/s, "
+          f"{ring_floor / ring_ms:.1%} of it), plain {ring_plain_ms:.4f} ms, "
           f"reshape.expand.contiguous {yard_ms:.4f} ms; session.all_gather "
           f"256 MiB: graph replay {ag_replay_ms:.4f} ms, whole call "
           f"{ag_call_ms:.4f} ms synced (staging + replay + replica clone)",
           flush=True)
 
-    # the ring at its other sizes, and each collective's graph replay
-    for n_dev, dt in ((8, torch.float32), (4, torch.bfloat16)):
-        xs = randn(n_dev, 2048, 8192, dtype=dt)
-        s_bytes = 2048 * 8192 * dt.itemsize
-        k_ms = cuda_time_ms(lambda: rk.ring_allgather_cuda(xs), 10)
-        y_ms = cuda_time_ms(lambda: xs.reshape(1, -1, 8192)
-                            .expand(n_dev, -1, -1).contiguous(), 10)
-        print(f"ring_allgather ({n_dev}, 2048, 8192) {str(dt)[6:]}: kernel "
-              f"{k_ms:.4f} ms, floor "
-              f"{(n_dev + n_dev ** 2) * s_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
-              f" ms, ring bytes "
-              f"{2 * n_dev ** 2 * s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-              f"reshape.expand.contiguous {y_ms:.4f} ms", flush=True)
+    # the kernel at its other sizes: 8 devices, bf16, and the (rows, 2)
+    # shards of psum's gather: path S's combine ((4, 2048, 6144) bf16 rows)
+    # and path V's psum of (4097, 4095) f32, each bitwise its plain version
+    # and timed beside it (psum shapes) and the library call
+    for n_dev, rows_, f_, dt, plain in (
+            (8, 2048, 8192, torch.float32, False),
+            (4, 2048, 8192, torch.bfloat16, False),
+            (4, 1_572_864, 2, torch.bfloat16, True),
+            (4, 2_097_152, 2, torch.float32, True)):
+        xs = randn(n_dev, rows_, f_, dtype=dt)
+        bound = sum(rk.RingGeometry.for_shape(n_dev, rows_, f_, dt.itemsize)
+                    .bytes_moved()) / HBM_BYTES_PER_S * 1e3
+        k_ms = cuda_time_ms(lambda: rk.ring_allgather_cuda(xs), 20)
+        y_ms = cuda_time_ms(lambda: xs.reshape(1, -1, f_)
+                            .expand(n_dev, -1, -1).contiguous(), 20)
+        p_txt = ""
+        if plain:
+            check(torch.equal(rk.ring_allgather_cuda(xs),
+                              rk.ring_allgather_plain(xs)),
+                  f"ring_allgather ({n_dev}, {rows_}, {f_}) {dt} differs "
+                  f"from plain")
+            p_ms = cuda_time_ms(lambda: rk.ring_allgather_plain(xs), 5,
+                                warmup=1)
+            p_txt = f"bitwise plain, plain {p_ms:.4f} ms, "
+        print(f"ring_allgather ({n_dev}, {rows_}, {f_}) {str(dt)[6:]}: "
+              f"kernel {k_ms:.4f} ms, bound {bound:.4f} ms ((n + n^2) S, "
+              f"{bound / k_ms:.1%} of it), {p_txt}reshape.expand.contiguous"
+              f" {y_ms:.4f} ms", flush=True)
         del xs
     for op, x in inputs.items():
         rep = cuda_time_ms(coll_program(op).program.replay, 10)
@@ -976,7 +993,6 @@ def comm_paths(dev, randn, errs, per_path, read_path
          "replaces": "src/repro/kernels/ring_allgather/kernel.py:87",
          "ms": ring_ms, "plain_ms": ring_plain_ms, "bound_ms": ring_floor,
          "bound_by": "bytes", "library_ms": yard_ms,
-         "ring_bytes_ms": ring_bytes,
          "library_call": "xs.reshape(1, n*rows, f).expand(n, -1, -1)"
                          ".contiguous()"},
     ]
@@ -5063,8 +5079,8 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
     before), the token and captured-decode checks of
     :func:`program_checks` under the mesh, layer 0's expert-parallel MoE
     output against ``moe_apply``'s within 2e-2 of the largest |want|, the
-    combine's ms a layer, and :func:`serving_times` beside path L's
-    ``at_l``."""
+    combine's ms a layer and its device ms by kernel (profiler), and
+    :func:`serving_times` beside path L's ``at_l``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5135,6 +5151,8 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
         rows_d = torch.randn(model, b, cfg.d_model, device=dev).to(x.dtype)
         comb_p = cuda_time_ms(lambda: coll.psum(rows_p), 10)
         comb_d = cuda_time_ms(lambda: coll.psum(rows_d), 10)
+        _, comb_dev, _, comb_rows = profile_device_ms(
+            lambda: coll.psum(rows_p), top=None)
         dt = str(x.dtype)[6:]
         del x, got, want, rows_p, rows_d
         print(f"path S: under {mesh} (session on {topo.name}), expert "
@@ -5150,6 +5168,10 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
               f"launched {rings} times in the counted run; the rows' "
               f"expert weights are views: 0 B copied (copies would take "
               f"{views / 1e9:.2f} GB)", flush=True)
+        print(f"path S: the prefill combine's device ms by kernel "
+              f"(profiler, one psum): {comb_dev:.4f} ms in all; "
+              + top_ops([(kernel_name(k), ms, c) for k, ms, c in comb_rows]),
+              flush=True)
         at_s = serving_times(cfg, engine, None, toks, logits, cache, new,
                              gen_s, "S")
     del engine, params, logits, cache
@@ -5747,11 +5769,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = 0
     for n_dev in (4, 8):
-        for rows_, f_ in ((8, 128), (4, 64), (8, 7), (2048, 8192)):
+        for rows_, f_ in ((8, 128), (4, 64), (8, 7), (5, 3), (2048, 8192),
+                          (1_572_864, 2)):
             for dt in (torch.float32, torch.bfloat16):
                 xs = randn(n_dev, rows_, f_, dtype=dt)
                 geo = rk.RingGeometry.for_shape(n_dev, rows_, f_, dt.itemsize)
-                state = torch.empty(2 + geo.num_items, dtype=torch.int32,
+                state = torch.empty(rk.STATE_WORDS, dtype=torch.int32,
                                     device=dev)
                 got = rk.ring_allgather_cuda(xs, state=state)
                 ref = rk.ring_allgather_plain(xs)

@@ -93,7 +93,9 @@ class StackedRing:
         return [torch.roll(parts, s, dims=0) for parts, s in sends]
 
     def gather(self, shards: torch.Tensor) -> torch.Tensor:
-        """The ring all-gather of ``(n, rows, f)``: ``(n, n, rows, f)``."""
+        """The all-gather of ``(n, rows, f)``: ``(n, n, rows, f)``, through
+        the ``ring_allgather`` kernel (each shard read once and stored into
+        every replica) on a CUDA tensor."""
         return ring_allgather(shards)
 
 
@@ -135,7 +137,9 @@ class PeerRing(ListRing):
       table (:meth:`~repro_torch.comm.engine.MultiPathTransfer.step_program`),
       one launch a card;
     * :meth:`gather` is one peer ``ring_allgather``
-      (:class:`~repro_torch.kernels.ring_allgather.kernel.PeerRingProgram`).
+      (:class:`~repro_torch.kernels.ring_allgather.kernel.PeerRingProgram`):
+      each device's shard pushed into every device's replica, one launch
+      a card.
 
     Programs are made resident at their first use and taken in call order
     on every later run, so each step of a collective has buffers of its
@@ -203,8 +207,8 @@ class PeerRing(ListRing):
                 for k, ((_, s), ref) in enumerate(zip(sends, refs))]
 
     def gather(self, shards: list) -> list:
-        """The peer ring all-gather of ``shards[d]: (rows, f)``: each
-        device's replica ``(n, rows, f)``."""
+        """The peer all-gather of ``shards[d]: (rows, f)``: each device's
+        replica ``(n, rows, f)``, every shard pushed into every replica."""
         ref = _first(shards)
         prog, execute = self._program(lambda: PeerRingProgram(
             *ref.shape, ref.dtype, self.devices))
@@ -226,9 +230,10 @@ def bidir_ring_all_gather(xs, ring=None):
     order, ``(n*s, ...)``. Stacked (the default ring): ``xs: (n, s, ...)``
     → ``(n, n*s, ...)``.
 
-    The first half of the last axis travels clockwise and the second half
-    counter-clockwise (one direction when the last axis has one element),
-    through the ``ring_allgather`` kernel on CUDA tensors.
+    The result is the reference's, whose ring carries the first half of
+    the last axis clockwise and the second half counter-clockwise. The
+    gather runs through the ``ring_allgather`` kernel on CUDA tensors,
+    which reads each shard once and stores it into every replica.
     """
     ring = _ring(xs, ring)
     n = ring.n

@@ -1,2 +1,2 @@
-"""The ``ring_allgather`` kernel: a bidirectional-ring all-gather in one
-launch."""
+"""The ``ring_allgather`` kernel: an all-gather in one launch, each shard
+read once and pushed into every replica."""

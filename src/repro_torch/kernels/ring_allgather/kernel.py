@@ -1,32 +1,36 @@
-"""The ``ring_allgather`` kernel: a bidirectional-ring all-gather in one launch.
+"""The ``ring_allgather`` kernel: an all-gather in one launch, each shard read
+once and pushed straight into every replica.
 
 Replaces the Pallas kernel ``build_ring_allgather`` of the reference package
 (``src/repro/kernels/ring_allgather/kernel.py``). There, each chip holds one
 shard ``(rows, f)`` and, over ``N - 1`` ring steps, forwards the first half
 of the features clockwise and the second half counter-clockwise with remote
-DMAs. Here the logical devices are rows of one stacked tensor
-``xs: (n, rows, f)`` on one card, and device ``d``'s replica of the gather
-is ``out[d]: (n, rows, f)``; the ring's copies run between replicas.
+DMAs, a schedule for a TPU torus. Here the logical devices are rows of one
+stacked tensor ``xs: (n, rows, f)`` on one card, and device ``d``'s replica
+of the gather is ``out[d]: (n, rows, f)``. The kernel computes the same
+function without the ring: its work items are (shard, chunk), a chunk a
+contiguous range of the shard, loaded once and stored into every replica
+(:class:`RingGeometry`), so it reads ``n·S`` and writes ``n²·S`` bytes.
 
 :func:`ring_allgather_cuda` launches the hand-written kernel
 (``csrc/ring_allgather.cu``, built by :mod:`repro_torch.kernels._build`);
-:func:`ring_allgather_plain` replays the same ring step by step with
+:func:`ring_allgather_plain` replays the reference's ring step by step with
 ``torch.roll`` and slice writes, the plain PyTorch version used for CPU
 tensors and as the check of the kernel on the card. :data:`LAUNCHES` counts
 kernel launches. A meta tensor, which a cost count
 (:mod:`repro_torch.launch.cost`) passes, gets the CUDA wrapper's checks
 and an empty output, launching nothing.
 
-The peer form runs the reference's ring across cards: logical device *d*
-holds its shard ``(rows, f)`` and its replica ``(n, rows, f)`` on its own
-``torch.device``, and each card launches once over the items it executes
-(the sender pushes each tile into the receiver's memory, under
-epoch-stamped flags on the receiver's card; :func:`peer_card_items` is
-the kernel's decode). :class:`PeerRingProgram` keeps its buffers,
-pointer tables and state words resident (one body a card for a CUDA
-graph), :func:`ring_allgather_peer_cuda` runs one made for the call on
-per-device CUDA tensors, and :func:`ring_allgather_peer_plain` is its
-plain version.
+The peer form runs across cards: logical device *d* holds its shard
+``(rows, f)`` and its replica ``(n, rows, f)`` on its own ``torch.device``,
+and each card launches once over the items of its own logical devices,
+each chunk pushed into every receiver's memory, then waits on the
+epoch-stamped flags that every sender sets on its card
+(:func:`peer_card_items` is the kernel's decode). :class:`PeerRingProgram`
+keeps its buffers, pointer tables and state words resident (one body a
+card for a CUDA graph), :func:`ring_allgather_peer_cuda` runs one made for
+the call on per-device CUDA tensors, and :func:`ring_allgather_peer_plain`
+is its plain version.
 """
 
 from __future__ import annotations
@@ -43,10 +47,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._graph import GraphProgram
 from repro_torch.launch import cost
 
-#: Largest tile, in bytes, that one block copies in one work item.
+#: Largest chunk, in bytes, of a shard that one block pushes in one item.
 TILE_BYTES = 128 << 10
+#: Smallest chunk the default geometry halves its chunks down to.
+MIN_TILE_BYTES = 16 << 10
+#: Items the default geometry halves its chunks to reach: about three for
+#: each block of the persistent grid on a 132-SM card (264 blocks), so
+#: that blocks end within a chunk of each other.
+TARGET_ITEMS = 768
 #: Blocks per SM of the persistent grid.
 _BLOCKS_PER_SM = 2
+#: Threads of a block (``csrc/ring_allgather.cu``): a wait ticket of the
+#: peer form covers this many flags, one a thread.
+THREADS = 512
+#: State words of the stacked kernel: ticket, completed items.
+STATE_WORDS = 2
 #: State words of a card before its flags in the peer form: ticket,
 #: completed copy items, replay epoch, one spare (``csrc/ring_allgather.cu``).
 PEER_STATE_HEADER = 4
@@ -85,55 +100,66 @@ def ring_allgather_plain(xs: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class RingGeometry:
-    """The kernel's work decomposition for one ``(n, rows, f)`` shape:
-    items are ``(phase, device, direction, tile)`` with ``rtiles × ctiles``
-    tiles of at most ``rpt`` rows by ``cc`` columns per direction."""
+    """The kernel's work decomposition for ``n`` shards of ``shard_bytes``:
+    items are (shard, chunk), ``chunks`` contiguous chunks of at most
+    ``chunk_bytes`` a shard, each read once and stored into all ``n``
+    replicas."""
 
     n: int
-    rows: int
-    f: int
-    itemsize: int
-    half: int
-    ndir: int
-    rpt: int
-    cc: int
-    rtiles: int
-    ctiles: int
+    shard_bytes: int
+    chunk_bytes: int
 
     @classmethod
     def for_shape(cls, n: int, rows: int, f: int, itemsize: int,
-                  tile_bytes: int = TILE_BYTES) -> "RingGeometry":
-        half = ring_half(f)
-        ndir = 2 if half < f else 1
-        widest = max(half, f - half)
-        cc = max(1, min(widest, tile_bytes // itemsize))
-        rpt = max(1, tile_bytes // (cc * itemsize))
-        return cls(n, rows, f, itemsize, half, ndir, rpt, cc,
-                   -(-rows // rpt), -(-widest // cc))
+                  tile_bytes: int | None = None) -> "RingGeometry":
+        """Chunks of ``tile_bytes``, or by default of :data:`TILE_BYTES`
+        halved while the items number fewer than :data:`TARGET_ITEMS`
+        (down to :data:`MIN_TILE_BYTES`)."""
+        shard = rows * f * itemsize
+        if tile_bytes is None:
+            tile_bytes = TILE_BYTES
+            while (tile_bytes > MIN_TILE_BYTES
+                   and n * -(-shard // tile_bytes) < TARGET_ITEMS):
+                tile_bytes //= 2
+        return cls(n, shard, tile_bytes)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.shard_bytes // self.chunk_bytes)
 
     @property
     def num_items(self) -> int:
-        return self.n * self.n * self.ndir * self.rtiles * self.ctiles
+        return self.n * self.chunks
+
+    def chunk(self, c: int) -> tuple[int, int]:
+        """(byte offset, bytes) of chunk ``c`` within a shard."""
+        off = c * self.chunk_bytes
+        return off, min(self.chunk_bytes, self.shard_bytes - off)
 
     def bytes_moved(self) -> tuple[int, int]:
-        """(bytes read, bytes written) by the ring: every block of every
-        replica is written once and read once (from the input shard or a
-        neighbour's replica)."""
-        block = self.rows * self.f * self.itemsize
-        return self.n * self.n * block, self.n * self.n * block
+        """(bytes read, bytes written): each shard is read once and
+        written into every replica."""
+        return (self.n * self.shard_bytes,
+                self.n * self.n * self.shard_bytes)
 
 
+@functools.cache
 def _lib():
     lib = _build.load("ring_allgather")
     fn = lib.ring_allgather_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     peer = lib.ring_allgather_peer_launch
-    peer.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 13
+    peer.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 7
                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     peer.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ring_allgather_cuda(xs: torch.Tensor, *,
@@ -141,7 +167,7 @@ def ring_allgather_cuda(xs: torch.Tensor, *,
     """Launch the kernel on a CUDA tensor ``xs: (n, rows, f)``; returns a
     new ``(n, n, rows, f)`` tensor. ``state``, when given, receives the
     kernel's state words (``state[1]`` = completed items after the run);
-    it must hold at least ``2 + num_items`` int32 words. A meta tensor
+    it must hold at least :data:`STATE_WORDS` int32 words. A meta tensor
     gets the same checks and an empty output, and launches nothing; both
     report the kernel's bytes to the cost counter
     (:func:`~repro_torch.launch.cost.record_kernel`)."""
@@ -157,22 +183,19 @@ def ring_allgather_cuda(xs: torch.Tensor, *,
     g = RingGeometry.for_shape(n, rows, f, xs.element_size())
     out = torch.empty((n, n, rows, f), dtype=xs.dtype, device=xs.device)
     if state is None:
-        state = torch.empty(2 + g.num_items, dtype=torch.int32,
+        state = torch.empty(STATE_WORDS, dtype=torch.int32,
                             device=xs.device)
     elif (state.dtype != torch.int32 or state.device != xs.device
-          or state.numel() < 2 + g.num_items):
+          or state.numel() < STATE_WORDS):
         raise ValueError("state must be int32 on the input's device with "
-                         f"at least {2 + g.num_items} words")
+                         f"at least {STATE_WORDS} words")
     state.zero_()
     if xs.device.type == "cuda":
-        sms = torch.cuda.get_device_properties(
-            xs.device).multi_processor_count
-        grid = max(1, min(g.num_items, _BLOCKS_PER_SM * sms))
+        grid = max(1, min(g.num_items, _BLOCKS_PER_SM * _sms(xs.device)))
         rc = _lib().ring_allgather_launch(
-                    xs.data_ptr(), out.data_ptr(), state.data_ptr(), g.n,
-                    g.rows, g.f, g.itemsize, g.half, g.ndir, g.rpt, g.cc,
-                    g.rtiles, g.ctiles, g.num_items, grid,
-                    torch.cuda.current_stream(xs.device).cuda_stream)
+            xs.data_ptr(), out.data_ptr(), state.data_ptr(), g.n,
+            g.shard_bytes, g.chunk_bytes, g.chunks, grid,
+            torch.cuda.current_stream(xs.device).cuda_stream)
         _build.check(rc, "ring_allgather")
         LAUNCHES += 1
     cost.record_kernel("ring_allgather", 0, (xs,), (out,))
@@ -206,37 +229,30 @@ def ring_allgather_peer_plain(shards: Sequence[torch.Tensor]
     return outs
 
 
-def peer_card_items(g: RingGeometry, mine: Sequence[int]) -> np.ndarray:
+class CardTickets(NamedTuple):
+    """One card's tickets in the peer form, in ticket order: ``copies``
+    first, rows of ``(sender, chunk, flag)``, then ``waits``, rows of
+    ``(first flag, end flag)``."""
+
+    copies: np.ndarray
+    waits: np.ndarray
+
+
+def peer_card_items(g: RingGeometry, mine: Sequence[int]) -> CardTickets:
     """One card's tickets in the peer form, as ``csrc/ring_allgather.cu``
-    decodes them, for the card that holds logical devices ``mine``: rows
-    of ``(phase, sender, receiver, direction, tile, item, wait)``.
+    decodes them, for the card that holds logical devices ``mine``.
 
-    Phases run 0..n−1 and then a wait-only phase n; within a phase the
-    card's own devices, directions and tiles. ``item`` is the global
-    index ``((phase·n + receiver)·ndir + direction)·tiles + tile`` whose
-    flag the item sets on the receiver's card (−1 for phase n's waits);
-    ``wait`` the global index of the flag it waits on, on its own card
-    (−1: phase 0 waits on nothing). Phase 0 copies the shard of its own
-    device, a later phase's sender pushes into its neighbour."""
-    n = g.n
-    tiles = g.rtiles * g.ctiles
-
-    def index(p, d, dr, t):
-        return ((p * n + d) * g.ndir + dr) * tiles + t
-
-    rows = []
-    for p in range(n + 1):
-        for e in mine:
-            for dr in range(g.ndir):
-                for t in range(tiles):
-                    if p == n:
-                        rows.append((p, e, e, dr, t, -1,
-                                     index(n - 1, e, dr, t)))
-                        continue
-                    d = e if p == 0 else ((e - 1) % n if dr else (e + 1) % n)
-                    wait = -1 if p == 0 else index(p - 1, e, dr, t)
-                    rows.append((p, e, d, dr, t, index(p, d, dr, t), wait))
-    return np.asarray(rows, dtype=np.int64).reshape(-1, 7)
+    A copy ticket pushes chunk ``chunk`` of ``sender``'s shard into every
+    logical device's replica, then sets flag ``sender·chunks + chunk`` on
+    every card; it waits on nothing. A wait ticket waits on the card's
+    flags ``[first, end)``, :data:`THREADS` of the ``n·chunks`` at most,
+    one a thread."""
+    copies = [(e, c, e * g.chunks + c)
+              for e in mine for c in range(g.chunks)]
+    nflags = g.n * g.chunks
+    waits = [(f, min(f + THREADS, nflags)) for f in range(0, nflags, THREADS)]
+    return CardTickets(np.asarray(copies, dtype=np.int64).reshape(-1, 3),
+                       np.asarray(waits, dtype=np.int64).reshape(-1, 2))
 
 
 class CardLaunch(NamedTuple):
@@ -260,21 +276,21 @@ def _placement(devices: Sequence[torch.device]
 def _card_launches(g: RingGeometry, xs: Sequence[torch.Tensor],
                    outs: Sequence[torch.Tensor]) -> list[CardLaunch]:
     """Every card's space table (``x`` and ``out`` pointers, every card's
-    state words, each device's card, the card's own devices) and fresh
-    state words (epoch 0, flags 0), one launch a card."""
+    state words, the card's own devices) and fresh state words (epoch 0,
+    flags 0), one launch a card."""
     cards, card_of = _placement([x.device for x in xs])
     states = [torch.zeros(PEER_STATE_HEADER + g.num_items,
                           dtype=torch.int32, device=c) for c in cards]
     common = ([x.data_ptr() for x in xs] + [o.data_ptr() for o in outs]
-              + [s.data_ptr() for s in states] + card_of)
+              + [s.data_ptr() for s in states])
     launches = []
     for c, card in enumerate(cards):
         mine = [d for d, k in enumerate(card_of) if k == c]
-        tickets = (g.n + 1) * len(mine) * g.ndir * g.rtiles * g.ctiles
-        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        tickets = sum(map(len, peer_card_items(g, mine)))
         launches.append(CardLaunch(
             c, torch.tensor(common + mine, dtype=torch.int64).to(card),
-            states[c], len(mine), max(1, min(tickets, _BLOCKS_PER_SM * sms))))
+            states[c], len(mine),
+            max(1, min(tickets, _BLOCKS_PER_SM * _sms(card)))))
     return launches
 
 
@@ -284,8 +300,8 @@ def _launch_card(g: RingGeometry, launch: CardLaunch, ncards: int) -> None:
     with torch.cuda.device(card):        # the stream's own card
         rc = _lib().ring_allgather_peer_launch(
             launch.table.data_ptr(), ncards, launch.num_devices, launch.card,
-            g.n, g.rows, g.f, g.itemsize, g.half, g.ndir, g.rpt, g.cc,
-            g.rtiles, g.ctiles, launch.state.data_ptr(), launch.grid,
+            g.n, g.shard_bytes, g.chunk_bytes, g.chunks,
+            launch.state.data_ptr(), launch.grid,
             torch.cuda.current_stream(card).cuda_stream)
     _build.check(rc, "ring_allgather")
     LAUNCHES += 1

@@ -11,13 +11,14 @@ from repro_torch.kernels.ring_allgather.kernel import (
 
 
 def ring_allgather(xs):
-    """Bidirectional-ring all-gather of the stacked shards
-    ``xs: (n, rows, f)`` → ``(n, n, rows, f)``; ``out[d]`` is device
-    ``d``'s replica. A list of per-device shards ``(rows, f)`` takes the
-    peer form and returns one replica ``(n, rows, f)`` a shard, on its
-    device. A CUDA tensor goes through the hand-written kernel (or
-    raises), and so does a meta tensor, which a cost count passes; a CPU
-    tensor through the plain version."""
+    """All-gather of the stacked shards ``xs: (n, rows, f)`` →
+    ``(n, n, rows, f)``; ``out[d]`` is device ``d``'s replica (the
+    reference's bidirectional ring's result; the kernel reads each shard
+    once and stores it into every replica). A list of per-device shards
+    ``(rows, f)`` takes the peer form and returns one replica
+    ``(n, rows, f)`` a shard, on its device. A CUDA tensor goes through
+    the hand-written kernel (or raises), and so does a meta tensor, which
+    a cost count passes; a CPU tensor through the plain version."""
     if isinstance(xs, (list, tuple)):
         kinds = {x.device.type for x in xs}
         if kinds == {"cpu"}:

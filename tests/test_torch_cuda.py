@@ -10,8 +10,10 @@ package, which the card's machine need not have.)
 
 Copies are held bit for bit; the Jacobi sweep to float32 atol 1e-6 and
 bfloat16 atol 2e-2 (the kernel rounds once, the plain version per add).
-The ring all-gather and the captured Jacobi step (float32) are held bit
-for bit against their plain or eager versions. Flash attention is held to
+The all-gather (``-k ring_allgather``: the stacked kernel at path S's
+combine shape and at shards that are not multiples of 16 bytes too) and
+the captured Jacobi step (float32) are held bit for bit against their
+plain or eager versions. Flash attention is held to
 its plain version at the reference's tolerances (float32 atol 3e-5 /
 rtol 1e-4, bfloat16 max abs 2e-2), its bfloat16 tile products to
 torch.matmul (atol 1e-3 / rtol 1e-4), and the serving path on a reduced
@@ -171,12 +173,15 @@ def test_session_telemetry_times_the_replay_and_calibrates(dev, tmp_path):
 
 @pytest.mark.parametrize("n", [1, 4, 8])
 @pytest.mark.parametrize("rows,f", [(8, 128), (4, 64), (8, 7), (3, 1),
-                                    (300, 1000)])
+                                    (300, 1000), (1_572_864, 2), (5, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ring_allgather_matches_plain(dev, n, rows, f, dtype):
+    """(1572864, 2) bf16 is path S's combine gather; (5, 3) shards (60 and
+    30 bytes) and (3, 1) are not multiples of 16 bytes, so the replicas'
+    blocks sit at offsets that take narrower vectors."""
     xs = torch.randn(n, rows, f, device=dev).to(dtype)
     g = rk.RingGeometry.for_shape(n, rows, f, xs.element_size())
-    state = torch.empty(2 + g.num_items, dtype=torch.int32, device=dev)
+    state = torch.empty(rk.STATE_WORDS, dtype=torch.int32, device=dev)
     got = rk.ring_allgather_cuda(xs, state=state)
     assert int(state[1].item()) == g.num_items
     assert torch.equal(got, rk.ring_allgather_plain(xs))
@@ -1515,7 +1520,8 @@ def test_peer_jacobi_across_four_cards(dev):
 
 PEER_RING_SHAPES = [(8, 128, torch.float32), (8, 7, torch.bfloat16),
                     (3, 1, torch.float32), (2048, 8192, torch.float32),
-                    (33, 17, torch.bfloat16)]
+                    (33, 17, torch.bfloat16), (1_572_864, 2, torch.bfloat16),
+                    (5, 3, torch.bfloat16)]
 
 
 def peer_ring_checks(devices):

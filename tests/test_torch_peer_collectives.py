@@ -13,10 +13,11 @@ cache keys, digests and hit/miss counters are held to the reference's.
 The peer ring kernel runs only on the card (``tests/test_torch_cuda.py``,
 ``-k peer``); here each card's tickets, as ``csrc/ring_allgather.cu``
 decodes them (:func:`peer_card_items`), run through an emulation of a
-persistent grid a card with random interleavings: every wait is met,
-every flag is written once an execution, and the replicas equal the plain
-version. The per-card bodies of a driver-level program (one CUDA graph a
-card, the other cards' parts ``None``) run on threads, one a card, over a
+persistent grid a card with random interleavings: no copy waits, every
+wait is met, every flag is written once an execution, a card's replicas
+are complete when its launch ends, and they equal the plain version.
+The per-card bodies of a driver-level program (one CUDA graph a card,
+the other cards' parts ``None``) run on threads, one a card, over a
 ring that exchanges their parts, and give the all-card run's rows.
 """
 
@@ -372,92 +373,118 @@ def test_ops_take_a_list_of_shards_to_the_peer_form():
 def emulate_peer_ring(x: np.ndarray, card_of, tile_bytes, blocks, runs,
                       seed):
     """Run every card's tickets (:func:`peer_card_items`) as the kernel
-    does: ``blocks`` persistent blocks a card claim tickets in order from
-    the card's counter; a block whose wait is unmet stays blocked; a
-    random block that can move moves. Flags live on the waiter's card and
-    are never zeroed; each card's epoch is one more an execution. Returns
-    each execution's replicas and completed copy items."""
-    n, rows, f = x.shape
-    g = rk.RingGeometry.for_shape(n, rows, f, x.itemsize, tile_bytes)
-    tiles = g.rtiles * g.ctiles
-    per_phase = n * g.ndir * tiles
+    does, on the bytes of ``x: (n, rows, f)``: ``blocks`` persistent blocks
+    a card claim tickets in order from the card's counter. A copy ticket
+    stores its chunk into one receiver a move (receivers ``e, e + 1, ...``)
+    and, in a move after its last store, sets its flag on every card; it
+    never waits. A wait ticket holds its block until every flag it covers
+    reaches the card's epoch; then each such chunk must be in every replica
+    on the card. A random block that can move moves. Flags are never
+    zeroed, a flag is written once an execution, each card's epoch is one
+    more an execution, and when a card's last block ends, every replica on
+    the card is complete. Returns each execution's replicas (bytes) and
+    completed copy items."""
+    n = x.shape[0]
+    g = rk.RingGeometry.for_shape(n, *x.shape[1:], x.itemsize, tile_bytes)
+    size, nflags = g.shard_bytes, g.n * g.chunks
+    src = np.ascontiguousarray(x).view(np.uint8).reshape(n, size)
     ncards = max(card_of) + 1
     mine = [[d for d in range(n) if card_of[d] == c] for c in range(ncards)]
-    tables = [rk.peer_card_items(g, m) for m in mine]
-    for c, table in enumerate(tables):
-        assert len(table) == (n + 1) * len(mine[c]) * g.ndir * tiles
-        for p, e, d, dr, t, item, wait in table:
-            assert card_of[e] == c
-            if wait >= 0:
-                # the flag waited on is of a lower phase, on this card
-                assert wait // per_phase < p
-                assert card_of[(wait % per_phase) // (g.ndir * tiles)] == c
-    flags = [np.zeros(g.num_items, np.int64) for _ in range(ncards)]
+    tables = []
+    for c in range(ncards):
+        copies, waits = rk.peer_card_items(g, mine[c])
+        assert copies.shape == (len(mine[c]) * g.chunks, 3)
+        for e, ch, flag in copies:
+            assert card_of[e] == c and flag == e * g.chunks + ch
+        # the waits cover every flag of the card once, THREADS at most each
+        assert waits[0, 0] == 0 and waits[-1, 1] == nflags
+        assert (waits[1:, 0] == waits[:-1, 1]).all()
+        assert (waits[:, 1] - waits[:, 0] <= rk.THREADS).all()
+        tables.append([("copy", *r) for r in copies]
+                      + [("wait", *r) for r in waits])
+    flags = [np.zeros(nflags, np.int64) for _ in range(ncards)]
     rng = np.random.RandomState(seed)
     results = []
     for epoch in range(1, runs + 1):
-        out = [np.full((n, rows, f), np.nan, x.dtype) for _ in range(n)]
+        out = np.zeros((n, n * size), np.uint8)
+        have = np.zeros((n, n * size), bool)
         ticket = [0] * ncards
         held = [[None] * blocks for _ in range(ncards)]
+        done = [False] * ncards
         completed = 0
         while True:
+            for c in range(ncards):
+                if not done[c] and ticket[c] == len(tables[c]) and all(
+                        h is None for h in held[c]):
+                    done[c] = True          # the card's launch has ended
+                    assert have[mine[c]].all(), "replica incomplete"
             moves = []
             for c in range(ncards):
                 for b in range(blocks):
                     row = held[c][b]
-                    if row is None and ticket[c] < len(tables[c]):
-                        moves.append((c, b))
-                    elif row is not None and (
-                            row[6] < 0 or flags[c][row[6]] >= epoch):
+                    if row is None:
+                        if ticket[c] < len(tables[c]):
+                            moves.append((c, b))
+                    elif row[0] == "copy" or (
+                            flags[c][row[1]:row[2]] >= epoch).all():
                         moves.append((c, b))
             if not moves:
-                assert all(t == len(tb) for t, tb in zip(ticket, tables))
-                assert all(h is None for hs in held for h in hs), "deadlock"
+                assert all(done), "deadlock"
                 break
             c, b = moves[rng.randint(len(moves))]
-            if held[c][b] is None:
-                held[c][b] = tables[c][ticket[c]]
+            row = held[c][b]
+            if row is None:
+                held[c][b] = tables[c][ticket[c]] + (0,)
                 ticket[c] += 1
-                continue
-            p, e, d, dr, t, item, wait = held[c][b]
-            held[c][b] = None
-            if item < 0:
-                continue                        # the final wait, met
-            rt, ct = t // g.ctiles, t % g.ctiles
-            lo = g.half if dr else 0
-            width = g.f - g.half if dr else g.half
-            c0, r0 = ct * g.cc, rt * g.rpt
-            nr = min(g.rpt, rows - r0)
-            w = 0 if c0 >= width else min(width - c0, g.cc)
-            blk = d if p == 0 else ((d + p) % n if dr else (d - p) % n)
-            src = x[d] if p == 0 else out[e][blk]
-            tile = src[r0:r0 + nr, lo + c0:lo + c0 + w]
-            assert not np.isnan(tile).any()
-            out[d][blk, r0:r0 + nr, lo + c0:lo + c0 + w] = tile
-            flag = flags[card_of[d]]            # on the receiver's card
-            assert flag[item] == epoch - 1      # written once a run
-            flag[item] = epoch
-            completed += 1
+            elif row[0] == "wait":
+                for f in range(row[1], row[2]):
+                    s_, ch = divmod(f, g.chunks)
+                    off, length = g.chunk(ch)
+                    lo = s_ * size + off
+                    assert have[mine[c], lo:lo + length].all()
+                held[c][b] = None
+            else:
+                _, e, ch, flag, j = row
+                off, length = g.chunk(ch)
+                if j < n:                       # one receiver's store
+                    d, lo = (e + j) % n, e * size + off
+                    out[d, lo:lo + length] = src[e, off:off + length]
+                    have[d, lo:lo + length] = True
+                    held[c][b] = row[:-1] + (j + 1,)
+                    continue
+                for fl in flags:                # one flag on every card
+                    assert fl[flag] == epoch - 1, "flag written twice"
+                    fl[flag] = epoch
+                completed += 1
+                held[c][b] = None
         results.append((out, completed))
     return results
 
 
 @pytest.mark.parametrize("card_of", [[0, 1, 2, 3], [0, 0, 1, 1],
                                      [0, 0, 0, 0]])
-@pytest.mark.parametrize("rows,f,tile_bytes", [(8, 12, 16), (5, 7, 24),
-                                               (3, 1, 4), (6, 9, 4096)])
+@pytest.mark.parametrize("rows,f,tile_bytes,dtype", [
+    (8, 12, 16, "float32"), (5, 7, 24, "float32"), (3, 1, 4, "float32"),
+    (6, 9, 4096, "float32"), (65, 2, 4, "float32"), (64, 2, 48, "bfloat16"),
+    (5, 3, 16, "bfloat16")])
 def test_peer_ring_card_items_run_the_flag_protocol(card_of, rows, f,
-                                                    tile_bytes):
-    x = np.random.RandomState(rows * f).randn(N, rows, f).astype(np.float32)
-    want = rk.ring_allgather_peer_plain(
-        [torch.from_numpy(a) for a in x])
-    g = rk.RingGeometry.for_shape(N, rows, f, 4, tile_bytes)
+                                                    tile_bytes, dtype):
+    """(65, 2) at 4-byte chunks has 520 flags, two wait tickets a card;
+    (rows, 2) shards are psum's; (5, 3) bf16 is 30 bytes, not a multiple
+    of 16."""
+    x, _ = payload(rows * f, (N * rows, f), dtype)
+    x = x.view(N, rows, f)
+    want = rk.ring_allgather_peer_plain(list(x.unbind(0)))
+    xb = (x.view(torch.int16) if dtype == "bfloat16" else x).numpy()
+    g = rk.RingGeometry.for_shape(N, rows, f, xb.itemsize, tile_bytes)
     for blocks in (1, 3):
-        for out, completed in emulate_peer_ring(x, card_of, tile_bytes,
+        for out, completed in emulate_peer_ring(xb, card_of, tile_bytes,
                                                 blocks, 3, seed=blocks):
             assert completed == g.num_items
             for d in range(N):
-                np.testing.assert_array_equal(out[d], want[d].numpy())
+                assert np.array_equal(
+                    out[d], want[d].contiguous().view(torch.uint8).numpy()
+                    .reshape(-1))
 
 
 # -- one CUDA graph a card: the per-card bodies ------------------------------

@@ -5,8 +5,8 @@ mode) on n CPU devices; the port runs ``ring_allgather`` on the stacked
 shards ``(n, rows, f)``, its plain version on the CPU. A gather does no
 arithmetic, so every replica must equal the reference bit for bit. The
 kernel itself runs only on the card (``tests/test_torch_cuda.py``); here
-its work decomposition is replayed in index order by a Python model of
-the item decode in ``csrc/ring_allgather.cu``.
+its work decomposition is replayed in a random order by a Python model of
+the item decode in ``csrc/ring_allgather.cu``, byte by byte.
 """
 
 import types
@@ -65,54 +65,110 @@ def test_plain_equals_numpy_oracle(n, rows, f):
     np.testing.assert_array_equal(got.numpy(), ring_allgather_ref(x))
 
 
-def kernel_model(x: np.ndarray, tile_bytes: int) -> np.ndarray:
-    """Execute the kernel's items in ticket order, as ``ring_allgather.cu``
-    decodes them; every predecessor must be done before its item."""
-    n, rows, f = x.shape
-    g = rk.RingGeometry.for_shape(n, rows, f, x.itemsize, tile_bytes)
-    out = np.full((n, n, rows, f), np.nan, x.dtype)
-    tiles = g.rtiles * g.ctiles
-    done = np.zeros(g.num_items, bool)
-    for it in range(g.num_items):
-        t, q = it % tiles, it // tiles
-        dr, q = q % g.ndir, q // g.ndir
-        d, p = q % n, q // n
-        rt, ct = t // g.ctiles, t % g.ctiles
-        lo = g.half if dr else 0
-        width = g.f - g.half if dr else g.half
-        c0, r0 = ct * g.cc, rt * g.rpt
-        nr = min(g.rpt, rows - r0)
-        w = 0 if c0 >= width else min(width - c0, g.cc)
-        sd = (d + 1) % n if dr else (d + n - 1) % n
-        b = d if p == 0 else ((d + p) % n if dr else (d + n - p) % n)
-        if p > 0:
-            pred = (((p - 1) * n + sd) * g.ndir + dr) * tiles + t
-            assert pred < it and done[pred]
-        src = x[d] if p == 0 else out[sd, b]
-        tile = src[r0:r0 + nr, lo + c0:lo + c0 + w]
-        assert not np.isnan(tile).any()
-        out[d, b, r0:r0 + nr, lo + c0:lo + c0 + w] = tile
-        done[it] = True
-    return out
+#: ``UNROLL`` of ``csrc/ring_allgather.cu``: vectors a thread loads before
+#: its stores.
+UNROLL = 4
+
+
+def vector_bytes(*addresses: int) -> int:
+    """The kernel's vector width for an item: 16 bytes when every address
+    (and the length) is a multiple of 16, else 4, else 1."""
+    a = 0
+    for v in addresses:
+        a |= v
+    return 16 if a % 16 == 0 else 4 if a % 4 == 0 else 1
+
+
+def thread_vectors(nv: int) -> np.ndarray:
+    """Every vector index the block's threads touch in ``push_vec``:
+    thread t, turn k, unrolled load u takes t + (k·UNROLL + u)·THREADS."""
+    t = rk.THREADS
+    turns = np.arange(0, nv, UNROLL * t)
+    i = (turns[:, None, None] + np.arange(UNROLL)[None, :, None] * t
+         + np.arange(t)[None, None, :]).ravel()
+    return i[i < nv]
+
+
+def kernel_model(x: np.ndarray, tile_bytes, seed: int = 0):
+    """Execute the kernel's items as ``ring_allgather.cu`` decodes them,
+    in a random order of completion, on the bytes of ``x: (n, rows, f)``
+    (input and output bases 16-byte aligned, as torch allocates them).
+    Returns the replicas ``(n, n, rows, f)``, how often each input byte
+    was read and each output byte written, and each item's vector
+    width."""
+    n = x.shape[0]
+    g = rk.RingGeometry.for_shape(n, *x.shape[1:], x.itemsize, tile_bytes)
+    size = g.shard_bytes
+    src = np.ascontiguousarray(x).view(np.uint8).reshape(-1)
+    out = np.zeros(n * n * size, np.uint8)
+    reads = np.zeros(n * size, np.int64)
+    writes = np.zeros(n * n * size, np.int64)
+    widths = []
+    for it in np.random.RandomState(seed).permutation(g.num_items):
+        b, c = divmod(int(it), g.chunks)
+        off, length = g.chunk(c)
+        s0 = b * size + off
+        # receivers b, b + 1, ... (mod n): block b of each replica
+        dsts = [(((b + j) % n) * n + b) * size + off for j in range(n)]
+        w = vector_bytes(s0, length, *dsts)
+        widths.append(w)
+        assert length % w == 0
+        vec = thread_vectors(length // w)
+        assert np.array_equal(np.sort(vec), np.arange(length // w))
+        byte = (vec[:, None] * w + np.arange(w)).ravel()
+        reads[s0 + byte] += 1
+        for d0 in dsts:
+            out[d0 + byte] = src[s0 + byte]
+            writes[d0 + byte] += 1
+    return (out.view(x.dtype).reshape((n,) + x.shape), reads, writes,
+            widths)
+
+
+def payload(seed, shape, dtype) -> np.ndarray:
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    if dtype == "bfloat16":
+        return (x.view(np.uint32) >> 16).astype(np.uint16)
+    return x
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
-@pytest.mark.parametrize("rows,f", [(8, 128), (8, 7), (33, 17), (3, 1)])
-@pytest.mark.parametrize("tile_bytes", [16, 4096, rk.TILE_BYTES])
-def test_kernel_work_decomposition(n, rows, f, tile_bytes):
-    x = np.random.RandomState(1).randn(n, rows, f).astype(np.float32)
-    np.testing.assert_array_equal(kernel_model(x, tile_bytes),
-                                  ring_allgather_ref(x))
+@pytest.mark.parametrize("rows,f", [(8, 128), (8, 7), (33, 17), (3, 1),
+                                    (1024, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile_bytes", [16, 4096, None])
+def test_kernel_work_decomposition(n, rows, f, dtype, tile_bytes):
+    """Each shard byte is read once and each replica byte written once, so
+    the kernel moves (n·S, n²·S) bytes; the replicas equal the oracle's;
+    (rows, 2) shards (psum's) take 16-byte vectors, a shard whose size is
+    not a multiple of 16 narrower ones, which still cover it."""
+    x = payload(1, (n, rows, f), dtype)
+    got, reads, writes, widths = kernel_model(x, tile_bytes)
+    np.testing.assert_array_equal(got, ring_allgather_ref(x))
+    assert (reads == 1).all() and (writes == 1).all()
+    g = rk.RingGeometry.for_shape(n, rows, f, x.itemsize, tile_bytes)
+    assert g.bytes_moved() == (reads.sum(), writes.sum())
+    size = g.shard_bytes
+    if size % 16 == 0 and g.chunk_bytes % 16 == 0:
+        assert set(widths) == {16}
+    else:
+        assert min(widths) < 16
 
 
 def test_geometry_of_the_main_path_shape():
     g = rk.RingGeometry.for_shape(4, 2048, 8192, 4)
-    assert (g.half, g.ndir, g.cc, g.rpt) == (4096, 2, 4096, 8)
-    assert g.num_items == 4 * 4 * 2 * 256
-    # every one of the n² blocks of every replica is read and written once
-    assert g.bytes_moved() == (16 * 2048 * 8192 * 4,) * 2
-    narrow = rk.RingGeometry.for_shape(8, 8, 1, 2)
-    assert (narrow.half, narrow.ndir) == (1, 1)
+    assert (g.chunk_bytes, g.chunks, g.num_items) == (128 << 10, 512, 2048)
+    # each shard read once, written into all four replicas
+    shard = 2048 * 8192 * 4
+    assert g.bytes_moved() == (4 * shard, 16 * shard)
+    # path S's combine gather, (rows, 2) bf16: chunks halved to 32 KiB for
+    # enough items (768), and the psum of path V's (4097, 4095) to 64 KiB
+    s = rk.RingGeometry.for_shape(4, 1_572_864, 2, 2)
+    assert (s.chunk_bytes, s.num_items) == (32 << 10, 768)
+    v = rk.RingGeometry.for_shape(4, 2_097_152, 2, 4)
+    assert (v.chunk_bytes, v.num_items) == (64 << 10, 1024)
+    tiny = rk.RingGeometry.for_shape(8, 8, 1, 2)
+    assert (tiny.chunk_bytes, tiny.chunks, tiny.chunk(0)) == (
+        rk.MIN_TILE_BYTES, 1, (0, 16))
 
 
 def test_wrappers_raise_instead_of_falling_back():

@@ -59,7 +59,20 @@ no fill, on the four cards; phase 9b's stacked 256 MiB send on card 0),
 cut into tiles of each of SWEEP_TILES, on each of SWEEP_BLOCKS blocks a
 card: each run bitwise (eager, then replayed), then timed as replays of
 its graphs. One line a (case, tile), the best of each case, and every
-reading in ``chiprun_out/peer_sweep.jsonl``.
+reading in ``chiprun_out/peer_sweep.jsonl``. Then the peer
+``ring_allgather`` of SWEEP_GATHERS (the 256 MiB all-gather's float32
+shards, path S's combine gather's (1572864, 2) bfloat16 ones), one shard
+a card, on each of SWEEP_BLOCKS blocks a card, bitwise its plain version,
+timed as replays beside its ingress bound.
+
+With ``--collectives`` it runs only the session's collectives (after the
+topology, names and power limits), and ``--src DIR`` imports the package
+from another checkout's ``src/`` (a parent commit unpacked by ``git
+archive`` into a git-ignored directory), so that two versions run in
+turns in one call::
+
+    for s in .chip_work/parent/src src src .chip_work/parent/src; do
+        python3 tools/peer_smoke.py --collectives --src $s; done
 """
 
 from __future__ import annotations
@@ -75,7 +88,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-sys.path.insert(0, os.path.join(ROOT, "src"))
+#: The package's ``src/``: this checkout's, or another's with ``--src``
+#: (read before the package is imported).
+SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]
+                      if "--src" in sys.argv[:-1] else
+                      os.path.join(ROOT, "src"))
+sys.path.insert(0, SRC)
 
 from repro_torch.comm import collectives as coll  # noqa: E402
 
@@ -100,6 +118,11 @@ SWEEP_CASES = (("peer", 64 * MiB, 1, "zero"), ("peer", 256 * MiB, 1, "zero"),
                ("peer", 512 * MiB, None, "zero"),
                ("peer", 512 * MiB, 1, "none"),
                ("stacked", 256 * MiB, None, "zero"))
+#: The sweep's peer gathers, one shard a card: (rows, f, dtype) — the 256
+#: MiB all-gather's float32 shards and path S's combine gather's (rows, 2)
+#: bfloat16 ones.
+SWEEP_GATHERS = ((2048, 8192, torch.float32),
+                 (1_572_864, 2, torch.bfloat16))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -148,6 +171,26 @@ def device_ms(fn, cards, iters: int, warmup: int = 2) -> float:
     end.record(s0)
     sync_all(cards)
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, name: str, cards, iters: int = 10) -> float:
+    """Mean device ms a launch of the kernels whose name holds ``name``
+    over ``iters`` calls of ``fn`` under ``torch.profiler`` (every card's
+    launches; a peer kernel's time includes its waits on other cards)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all(cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync_all(cards)
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / max(count, 1)
 
 
 def host_ms(fn, cards, iters: int, warmup: int = 2) -> float:
@@ -384,10 +427,68 @@ def time_grid(prog, blocks: int, cards, check, iters: int) -> float:
     return device_ms(prog.replay, list(run_cards), iters)
 
 
+def sweep_gathers(cards, out) -> None:
+    """The peer ``ring_allgather`` of each of SWEEP_GATHERS on the four
+    cards at SWEEP_BLOCKS blocks a card (each card's launch grid
+    overridden), bitwise its plain version run and replayed, timed as
+    replays of its graphs beside its ingress bound and the kernel's own
+    device ms a card (profiler); a line a gather, every reading into
+    ``out``."""
+    from repro_torch.kernels.ring_allgather import kernel as rk
+
+    gen = torch.Generator(device=cards[0]).manual_seed(1)
+    n = len(cards)
+    for rows, f, dt in SWEEP_GATHERS:
+        shards = [torch.randn(rows, f, generator=gen, device=cards[0])
+                  .to(dt).to(c) for c in cards]
+        want = rk.ring_allgather_peer_plain(shards)
+        size = rows * f * shards[0].element_size()
+        bound = (n - 1) * size / NVLINK_BYTES_PER_S * 1e3
+        times = []
+        for blocks in SWEEP_BLOCKS:
+            prog = rk.PeerRingProgram(rows, f, dt, cards)
+            prog.launches = [ln._replace(grid=blocks)
+                             for ln in prog.launches]
+            for buf, x in zip(prog.x, shards):
+                buf.copy_(x)
+            for attempt in ("run", "replay"):
+                for o in prog.out:
+                    o.fill_(0)
+                if attempt == "run":
+                    prog.run()
+                else:
+                    prog.record()
+                    prog.replay()
+                sync_all(cards)
+                check(all(torch.equal(o, w) for o, w in zip(prog.out, want))
+                      and prog.completed_items() == prog.geometry.num_items,
+                      f"sweep gather ({rows}, {f}) {dt} on {blocks} blocks:"
+                      f" {attempt} not bitwise the plain version")
+            ms = device_ms(prog.replay, cards, 20)
+            kernel = kernel_device_ms(prog.replay, "ring_allgather_peer",
+                                      cards)
+            times.append((ms, kernel))
+            out.write(json.dumps({
+                "layout": "peer_gather", "shard": [rows, f],
+                "dtype": str(dt), "blocks": blocks, "ms": ms,
+                "kernel_device_ms": kernel, "bound_ms": bound,
+                "chunk_bytes": prog.geometry.chunk_bytes}) + "\n")
+            del prog
+        print(f"sweep gather {n} x ({rows}, {f}) {str(dt)[6:]} on {n} "
+              f"cards | " + " ".join(f"{b} blocks {ms:.4f} (kernel {k:.4f})"
+                                     for b, (ms, k) in
+                                     zip(SWEEP_BLOCKS, times))
+              + f" ms | bound {bound:.4f} ms ({(n - 1) * size} B into each "
+              f"card at 450 GB/s)", flush=True)
+        del shards, want
+        torch.cuda.empty_cache()
+
+
 def sweep(cards) -> int:
-    """Time the kernel on SWEEP_BLOCKS blocks a card over the SWEEP_CASES
-    tables cut at each of SWEEP_TILES, every result bitwise; prints a
-    line a (case, tile) and writes every reading to
+    """Time the ``multipath_dma`` kernel on SWEEP_BLOCKS blocks a card
+    over the SWEEP_CASES tables cut at each of SWEEP_TILES, every result
+    bitwise, then the peer gathers (:func:`sweep_gathers`); prints a line
+    a (case, tile) and writes every reading to
     ``chiprun_out/peer_sweep.jsonl``."""
     from repro_torch.comm import CommConfig, CommSession
 
@@ -428,6 +529,7 @@ def sweep(cards) -> int:
                       + f" ms | bound {bound:.4f} ms", flush=True)
                 del prog
                 torch.cuda.empty_cache()
+        sweep_gathers(cards, out)
     for key, rec in best.items():
         print(f"sweep best {key}: tile {rec['tile'] // KiB} KiB, "
               f"{rec['blocks']} blocks: {rec['ms']:.4f} ms "
@@ -438,8 +540,12 @@ def sweep(cards) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="time the kernel's grid and tiles instead of the "
+                    help="time the kernels' grid and tiles instead of the "
                          "session's traffic")
+    ap.add_argument("--collectives", action="store_true",
+                    help="time the session's collectives alone")
+    ap.add_argument("--src", help="another checkout's src/ directory to "
+                                  "import the package from")
     args = ap.parse_args()
     cards = peer_cards(4)
     from repro_torch.comm import CommConfig, CommSession
@@ -460,12 +566,18 @@ def main() -> int:
         check=True).stdout.strip().splitlines()
     for i, line in enumerate(smi):
         print(f"card {i}: {line}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; package "
+          f"from {SRC}", flush=True)
     t0 = time.perf_counter()
     _build.build_all(("multipath_dma", "jacobi", "ring_allgather"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    if args.sweep:
-        sweep(cards)
+    if args.sweep or args.collectives:
+        if args.sweep:
+            sweep(cards)
+        else:
+            gen = torch.Generator(device=cards[0]).manual_seed(0)
+            print(json.dumps({"collectives": collectives(cards, gen),
+                              "src": SRC}), flush=True)
         print(f"cards: {smi[0]}", flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
