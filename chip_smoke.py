@@ -440,7 +440,26 @@ What it does, in order (any failed check exits nonzero):
     gather and ``multipath_dma`` once a card a ring shift, as counted from
     the programs; the 256 MiB all-gather and the 64 MiB all-reduce replays
     timed against the stacked session's, in turns;
-30. one JSON line ``{"kernels": [...]}``, then as the last line
+30. main path W, counters set to 0 before it and read after it:
+    whole-iteration capture on a peer session on the one card,
+    ``CommSession(schedule="auto", devices=["cuda:0"] * 4)`` (one arena a
+    logical device, one CUDA graph): path C's captured Jacobi (4 x (8,
+    2**22) float32, 10 iterations), path D's captured all-gather + compute
+    node, a ``captured_psum`` step of 4 x 2**22 float32, path F's
+    migrating decode step (batch 1, 32 heads, 2048 positions, head dim
+    128, an 8 MiB bfloat16 KV chunk 0→2, schedule ``overlap``) and phase
+    23's captured ``multipath_dma`` step; each result bitwise the same
+    step's on the stacked session (run before the counters are zeroed;
+    attention within path F's tolerance of it and of the plain version),
+    digests and ``GroupKey`` equal, one dispatch a call, every copy-run
+    table's output and every collective node's (the peer
+    ``ring_allgather``, the plan's per-device ``multipath_dma`` table)
+    equal to its plain version on the same operands, the launches read
+    equal to the programs' replay launches times the calls (the Jacobi
+    step: 4 ``jacobi``, one a logical device, and one ``multipath_dma`` a
+    copy run); the Jacobi and decode replays timed by CUDA events against
+    the stacked session's, in turns;
+31. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -560,8 +579,9 @@ def comm_paths(dev, randn, errs, per_path, read_path
     of ``multipath_dma``, ``jacobi`` and ``ring_allgather`` (``launches``
     is filled in by the caller) and the 64 KiB send's per-dispatch times
     in µs (graph replay and eager launch, back to back and synced) beside
-    the 256 MiB send's replay in ms (``replay256_ms``); everything else
-    is freed on return."""
+    the 256 MiB send's and the captured Jacobi iteration's replays in ms
+    (``replay256_ms``, ``jacobi_replay_ms``); everything else is freed on
+    return."""
     from repro_torch.comm import CommConfig, CommSession
     from repro_torch.comm import collectives as coll
     from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
@@ -970,6 +990,7 @@ def comm_paths(dev, randn, errs, per_path, read_path
           f"events), {eager_host_ms:.4f} ms synced", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
+    launch64["jacobi_replay_ms"] = cap_replay_ms
 
     kernels = [
         {"name": "multipath_dma", "route": "cuda",
@@ -5647,6 +5668,220 @@ def peer_collectives_path(dev, per_path, read_path, at_b: dict) -> None:
           f"{times['all_reduce', 'stacked'][1]:.4f} ms", flush=True)
 
 
+def plain_run_matches(items, xs, ys, stage) -> bool:
+    """A per-device table's output against its plain version on the same
+    operands: every byte range the table writes is zeroed in a copy of
+    ``ys`` (one byte buffer a logical device; ``xs`` may be the same
+    buffers), the plain version runs on that copy (reading ``xs``, or the
+    copy where the operand is the output) with fresh staging, and the
+    copy must equal ``ys``."""
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    same = all(x is y for x, y in zip(xs, ys))
+    want = [y.clone() for y in ys]
+    for row in items[items[:, dk.C_DST_SPACE] == dk.SPACE_OUT].tolist():
+        off, nb = row[dk.C_DST_OFF], row[dk.C_NBYTES]
+        want[row[dk.C_DST_DEV]][off:off + nb].zero_()
+    dk.run_node_table_plain(items, want if same else xs, want,
+                            [torch.empty_like(st) for st in stage])
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(want, ys))
+
+
+def peer_capture_path(dev, errs, per_path, read_path, at_c: dict) -> None:
+    """Main path W (phase 30): whole-iteration capture on a peer session
+    on the one card, each step held to the same step on the stacked
+    session (bitwise, attention at path F's tolerance), one dispatch a
+    call, every copy-run table and collective node against its plain
+    version, launches as the programs count them, the Jacobi and decode
+    replays timed against the stacked ones. ``at_c``: path C's captured
+    Jacobi (``jacobi_replay_ms``)."""
+    from repro_torch.comm import CommSession, captured_psum
+    from repro_torch.comm.capture import PeerCopyRun, PeerNode
+    from repro_torch.core.halo import make_captured_jacobi_step
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.multipath_dma.ops import (
+        captured_multipath_dma, multipath_dma_transfer)
+    from repro_torch.kernels.ring_allgather import kernel as rk
+    from repro_torch.kernels.ring_allgather import ops as rops
+    from repro_torch.serving.engine import make_captured_decode_step
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    n, rows, cols, iters = 4, 8, 1 << 22, 10
+    g_rows, p_elems, d_elems = 512, 1 << 22, 1 << 22
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd                        # 8 MiB bf16
+    u0 = randn(n, rows, cols)                             # path C's
+    gx = randn(n, g_rows, 8192)                           # path D's
+    px = randn(n, p_elems)                                # 16 MiB rows
+    dx = randn(n, d_elems)                                # phase 23's
+    q, k, v = (randn(n, 1, heads, kv_len, hd).to(torch.bfloat16)
+               for _ in range(3))
+    kv = randn(n, kv_chunk).to(torch.bfloat16)
+
+    def gather_scale(cap):
+        g = rops.captured_ring_allgather(
+            cap, cap.input((g_rows, 8192), torch.float32), n)
+        return cap.kernel(lambda t: t * 0.5 + 1.0, g, name="scale")
+
+    def psum(cap):
+        return captured_psum(cap, cap.input((p_elems,), torch.float32), n,
+                             name="psum")
+
+    def steps(sess):
+        plan = sess.plan(0, 2, d_elems * 4, max_paths=3, num_chunks=4,
+                         granularity=4)
+
+        def dma(cap):
+            y = captured_multipath_dma(
+                cap, cap.input((d_elems,), torch.float32), plan, n)
+            (r,) = cap.exchange([(y, 2, 1)])
+            return cap.kernel(lambda t: t * 0.5 - 1.0, r, name="affine")
+
+        return {"jacobi": make_captured_jacobi_step(sess, rows, cols),
+                "gather": sess.capture(gather_scale),
+                "psum": sess.capture(psum),
+                "decode": make_captured_decode_step(
+                    sess, batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+                    kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+                    schedule="overlap"),
+                "dma": sess.capture(dma)}, plan
+
+    def drive(st, split) -> dict:
+        u = split(u0)
+        for _ in range(iters):
+            (u,) = st["jacobi"](u)
+        (g,) = st["gather"](split(gx))
+        (ps,) = st["psum"](split(px))
+        attn, new_kv = st["decode"](*(split(t) for t in (q, k, v, kv)))
+        (y,) = st["dma"](split(dx))
+        return {"jacobi": u, "gather": g, "psum": ps, "attn": attn,
+                "kv": new_kv, "dma": y}
+
+    stacked = CommSession(schedule="auto", device=dev)
+    sst, plan = steps(stacked)
+    want = drive(sst, lambda t: t)
+    torch.cuda.synchronize()
+    peer = CommSession(schedule="auto", devices=[dev] * n)
+    pst, _ = steps(peer)
+    t0 = time.perf_counter()
+    entries = {name: step.resolve() for name, step in pst.items()}
+    torch.cuda.synchronize()
+    resolve_s = time.perf_counter() - t0
+    for name, step in pst.items():
+        a, b = sst[name].resolve(), entries[name]
+        check((a.digest, a.key) == (b.digest, b.key),
+              f"path W {name}: digest or GroupKey differs from the stacked "
+              f"session's")
+    d0 = peer.stats()["dispatches"]
+    reset_launch_counts()
+    got = drive(pst, lambda t: list(t.unbind(0)))
+    torch.cuda.synchronize()
+    read_path("W")
+    calls = {"jacobi": iters, "gather": 1, "psum": 1, "decode": 1, "dma": 1}
+    check(peer.stats()["dispatches"] - d0 == sum(calls.values()),
+          f"path W took {peer.stats()['dispatches'] - d0} dispatches for "
+          f"{sum(calls.values())} calls")
+    expect: dict[str, int] = {}
+    for name, e in entries.items():
+        prog = e.compiled.program
+        for kname, count in prog.replay_launches.items():
+            expect[kname] = expect.get(kname, 0) + count * calls[name]
+    check(per_path["W"] == expect, f"path W launches {per_path['W']}, "
+          f"expected {expect} from the programs' replays")
+    jprog = entries["jacobi"].compiled.program
+    druns = len(jprog.copy_runs)
+    check(jprog.replay_launches == {"jacobi": n, "multipath_dma": druns},
+          f"path W Jacobi replay launches {jprog.replay_launches}, expected "
+          f"{n} jacobi (one a logical device) and {druns} multipath_dma "
+          f"(one a copy run on the one card)")
+    for name in ("jacobi", "gather", "psum", "kv", "dma"):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got[name], want[name].unbind(0))),
+              f"path W {name} differs from the stacked session's")
+    errw, ok = bf16_err(torch.stack(got["attn"]), want["attn"])
+    check(ok, f"path W attention: max abs err {errw} against the stacked "
+          f"step, beyond {BF16_ATOL} + {BF16_RTOL} * |want|")
+    q4, k4, v4 = (t.view(n, heads, kv_len, hd) for t in (q, k, v))
+    errp, ok = bf16_err(torch.stack(got["attn"]).view(n, heads, kv_len, hd),
+                        fk.flash_attention_plain(q4, k4, v4))
+    errs["flash_attention"] = max(errs["flash_attention"], errp)
+    check(ok, f"path W attention: max abs err {errp} against the plain "
+          f"version")
+    expect_kv = kv.clone()
+    expect_kv[2] = kv[0]
+    check(torch.equal(torch.stack(got["kv"]), expect_kv),
+          "path W: the KV chunk did not land bitwise on device 2")
+    moved = multipath_dma_transfer(dx, plan)
+    check(torch.equal(torch.stack(got["dma"])[1], moved[2] * 0.5 - 1.0),
+          "path W captured multipath_dma step differs from the eager "
+          "composition")
+    tables = nodes = 0
+    for name, e in entries.items():
+        prog = e.compiled.program
+        for w in prog.walk:
+            if isinstance(w, PeerCopyRun):
+                check(plain_run_matches(w.table.items, prog.arenas,
+                                        prog.arenas, prog.stages),
+                      f"path W {name}: a copy run differs from its plain "
+                      f"table")
+                tables += 1
+            elif isinstance(w, PeerNode):
+                wp = w.program
+                if isinstance(wp, rk.PeerRingProgram):
+                    ok = all(torch.equal(a, b) for a, b in zip(
+                        wp.out, rk.ring_allgather_peer_plain(wp.x)))
+                else:
+                    ok = plain_run_matches(wp.table.items, wp.x, wp.y,
+                                           wp.stage)
+                check(ok, f"path W {name}: the {w.node.kernel} node differs "
+                      f"from its plain version")
+                nodes += 1
+    print(f"path W: captured Jacobi (10 iterations of {n}x({rows},{cols}) "
+          f"f32), captured all-gather + compute, captured_psum of {n}x"
+          f"{p_elems} f32, the decode step ({n}x(1, {heads}, {kv_len}, {hd}) "
+          f"bf16 + {kv_chunk * 2 / MiB:.0f} MiB KV chunk 0->2, overlap) and "
+          f"the captured multipath_dma step on CommSession(devices=[{dev}] "
+          f"* {n}): bitwise the stacked session's (attention max abs err "
+          f"{errw} against it, {errp} against plain), digests and keys "
+          f"equal, one dispatch a call, {tables} copy-run tables and "
+          f"{nodes} collective nodes equal to their plain versions; replay "
+          f"launches: " + ", ".join(
+              f"{name} {e.compiled.program.replay_launches}"
+              for name, e in entries.items())
+          + f"; resolve (build + capture) {resolve_s:.2f} s", flush=True)
+
+    times: dict[str, list] = {}
+    for label, e in (("stacked", sst["jacobi"].resolve()),
+                     ("peer", entries["jacobi"]),
+                     ("peer", entries["jacobi"]),
+                     ("stacked", sst["jacobi"].resolve())):
+        times.setdefault(label, []).append(
+            cuda_time_ms(e.compiled.program.replay, 20))
+    dtimes: dict[str, list] = {}
+    for label, e in (("stacked", sst["decode"].resolve()),
+                     ("peer", entries["decode"]),
+                     ("peer", entries["decode"]),
+                     ("stacked", sst["decode"].resolve())):
+        dtimes.setdefault(label, []).append(
+            cuda_time_ms(e.compiled.program.replay, 10))
+    print(f"path W captured Jacobi iteration replay (CUDA events): peer "
+          f"{times['peer'][0]:.4f} / {times['peer'][1]:.4f} ms, stacked "
+          f"{times['stacked'][0]:.4f} / {times['stacked'][1]:.4f} ms (in "
+          f"turns; path C's replay {at_c['jacobi_replay_ms']:.4f}); "
+          f"decode step replay: peer {dtimes['peer'][0]:.4f} / "
+          f"{dtimes['peer'][1]:.4f} ms, stacked {dtimes['stacked'][0]:.4f} "
+          f"/ {dtimes['stacked'][1]:.4f} ms; walks: Jacobi "
+          f"{[type(w).__name__ for w in jprog.walk]}, decode "
+          f"{[type(w).__name__ for w in entries['decode'].compiled.program.walk]}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5931,16 +6166,19 @@ def main() -> int:
     peer_collectives_path(dev, per_path, read_path, launch64)
     gc.collect()
     torch.cuda.empty_cache()
+    peer_capture_path(dev, errs, per_path, read_path, launch64)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-V): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-W): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 30. report --------------------------------------------------------
+    # -- 31. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -41,14 +41,29 @@ the cache layer rely on):
   can never cross-serve.
 
 Every buffer is **device-stacked**: a kernel function takes and returns
-``(num_devices, *local)`` tensors, one row per logical device, so it
-needs no device index. Result specs come from running the function on
-``device="meta"`` tensors unless ``out=`` is given.
+``(num_devices, *local)`` tensors, one row per logical device, and finds
+each row's logical device with :func:`axis_index` (the counterpart of
+the reference's ``lax.axis_index``). Result specs come from running the
+function on ``device="meta"`` tensors unless ``out=`` is given.
+
+On a peer session (``CommSession(devices=[...])``) the same recording
+runs as a :class:`PeerStepProgram`: every logical device holds its own
+arena on its own ``torch.device`` with a ``(1, *local)`` view of every
+buffer, a kernel function is called once a logical device on its views
+(``axis_index`` gives ``[d]``), each run of copy nodes is one per-device
+``multipath_dma`` table launched once a card, and on CUDA each card
+records one graph. A kernel function that needs every device's operand
+(a collective: ``captured_ring_allgather``, ``captured_multipath_dma``)
+carries a peer form, an attribute ``peer_program(devices, operands,
+results)`` that makes one program over the per-device views whose
+``run_card(card)`` launches one card's share.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Callable, Sequence
 
@@ -58,6 +73,7 @@ from repro_torch.comm.graph import (BUFFER_EDGE, HOP_EDGE, ComputeNode,
                                     CopyNode, DepEdge, TransferGraph)
 from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.multipath_dma.kernel import (NodeTable,
+                                                      PeerDmaProgram,
                                                       build_node_table,
                                                       grid_size, launch_table,
                                                       new_state,
@@ -65,6 +81,32 @@ from repro_torch.kernels.multipath_dma.kernel import (NodeTable,
 
 #: Alignment of each buffer in a step's arena.
 _ALIGN = 256
+
+#: The logical index of the current kernel call's rows in a peer program
+#: (``None``: a stacked call, rows ``0 .. n-1``).
+_AXIS_INDEX: torch.Tensor | None = None
+
+
+def axis_index(like: torch.Tensor) -> torch.Tensor:
+    """The logical device of each row of ``like``, a kernel function's
+    stacked operand: an int64 ``(k,)`` tensor. ``arange(n)`` in a stacked
+    program (and on meta tensors, while result specs are inferred);
+    ``[d]`` in a :class:`PeerStepProgram`'s call for logical device *d*,
+    a resident tensor on *d*'s device that the program sets around the
+    call, so a CUDA graph records its address."""
+    if _AXIS_INDEX is not None:
+        return _AXIS_INDEX
+    return torch.arange(like.shape[0], device=like.device)
+
+
+@contextlib.contextmanager
+def _indexed(index: torch.Tensor):
+    global _AXIS_INDEX
+    _AXIS_INDEX = index
+    try:
+        yield
+    finally:
+        _AXIS_INDEX = None
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -383,6 +425,67 @@ class CopyRun:
     grid: int
 
 
+def _arena_layout(capture: StepCapture, rows: int
+                  ) -> tuple[list[int], int]:
+    """Each buffer's byte offset in an arena of ``rows`` logical devices'
+    rows, and the arena's size."""
+    bases, off = [], 0
+    for spec in capture.buffers:
+        bases.append(off)
+        nbytes = rows * math.prod(spec.shape) * as_dtype(spec.dtype).itemsize
+        off = -(-(off + nbytes) // _ALIGN) * _ALIGN
+    return bases, max(off, 16)
+
+
+def _arena_views(arena: torch.Tensor, capture: StepCapture,
+                 bases: Sequence[int], rows: int) -> list[torch.Tensor]:
+    """Buffer id → its ``(rows, *local)`` view of ``arena``."""
+    return [arena[base:].view(as_dtype(spec.dtype))
+            [:rows * math.prod(spec.shape)].view((rows,) + spec.shape)
+            for spec, base in zip(capture.buffers, bases)]
+
+
+def _message_sizes(graph: TransferGraph, capture: StepCapture
+                   ) -> tuple[list[int], list[int]]:
+    """Each message's element count and element size."""
+    specs = [capture.buffers[payload] for payload, _ in graph.messages]
+    return ([spec.shape[0] for spec in specs],
+            [as_dtype(spec.dtype).itemsize for spec in specs])
+
+
+def _segments(graph: TransferGraph):
+    """The scheduled graph in index order: each compute node, and each
+    maximal run of consecutive copy nodes as a ``range`` of indices."""
+    idx = 0
+    while idx < graph.num_nodes:
+        if isinstance(graph.nodes[idx], ComputeNode):
+            yield graph.nodes[idx]
+            idx += 1
+            continue
+        end = idx
+        while (end < graph.num_nodes
+               and isinstance(graph.nodes[end], CopyNode)):
+            end += 1
+        yield range(idx, end)
+        idx = end
+
+
+def _store(node: ComputeNode, res, views: Sequence[torch.Tensor]) -> None:
+    """Copy a kernel function's result(s) into the node's result views,
+    checking their count and shapes."""
+    res = res if isinstance(res, (tuple, list)) else (res,)
+    if len(res) != len(node.results):
+        raise ValueError(f"kernel {node.kernel!r} returned {len(res)} "
+                         f"results, declared {len(node.results)}")
+    for b, value, view in zip(node.results, res, views):
+        if tuple(value.shape) != tuple(view.shape):
+            raise ValueError(
+                f"kernel {node.kernel!r} returned shape "
+                f"{tuple(value.shape)} for buffer {b}, declared "
+                f"{tuple(view.shape)}")
+        view.copy_(value)
+
+
 class StepProgram(GraphProgram):
     """One scheduled step graph made resident on a device — the executor
     of a captured step, with ``DmaProgram``'s interface (``device``,
@@ -414,48 +517,29 @@ class StepProgram(GraphProgram):
         self.input_ids = tuple(capture.inputs)
         self.output_ids = tuple(outputs)
         n = num_devices
-        bases, off = [], 0
-        for spec in capture.buffers:
-            bases.append(off)
-            nbytes = (n * math.prod(spec.shape)
-                      * as_dtype(spec.dtype).itemsize)
-            off = -(-(off + nbytes) // _ALIGN) * _ALIGN
-        self.arena = torch.zeros(max(off, 16), dtype=torch.uint8, device=dev)
+        bases, size = _arena_layout(capture, n)
+        self.arena = torch.zeros(size, dtype=torch.uint8, device=dev)
         #: buffer id → its stacked ``(n, *local)`` view of the arena
-        self.views = [self.arena[base:].view(as_dtype(spec.dtype))
-                      [:n * math.prod(spec.shape)].view((n,) + spec.shape)
-                      for spec, base in zip(capture.buffers, bases)]
-        nelems, itemsizes, msg_bases = [], [], []
-        for payload, reception in graph.messages:
-            spec = capture.buffers[payload]
-            nelems.append(spec.shape[0])
-            itemsizes.append(as_dtype(spec.dtype).itemsize)
-            msg_bases.append((bases[payload], bases[reception]))
+        self.views = _arena_views(self.arena, capture, bases, n)
+        nelems, itemsizes = _message_sizes(graph, capture)
+        msg_bases = [(bases[payload], bases[reception])
+                     for payload, reception in graph.messages]
         slots: dict[int, int] = {}
         stage_end = 0
         self.walk: list[ComputeNode | CopyRun] = []
-        idx = 0
-        while idx < graph.num_nodes:
-            node = graph.nodes[idx]
-            if isinstance(node, ComputeNode):
-                self.walk.append(node)
-                idx += 1
+        for seg in _segments(graph):
+            if isinstance(seg, ComputeNode):
+                self.walk.append(seg)
                 continue
-            end = idx
-            while (end < graph.num_nodes
-                   and isinstance(graph.nodes[end], CopyNode)):
-                end += 1
-            run = tuple(range(idx, end))
             table = build_node_table(graph, nelems, itemsizes, n,
-                                     nodes=run, bases=msg_bases,
+                                     nodes=seg, bases=msg_bases,
                                      slots=slots, stage_base=stage_end)
             stage_end = table.stage_bytes
             self.walk.append(CopyRun(
-                run, table, torch.from_numpy(table.items).to(dev),
+                tuple(seg), table, torch.from_numpy(table.items).to(dev),
                 new_state(table.items, table.num_copy_nodes, dev),
                 grid_size(table.num_items, dev) if dev.type == "cuda"
                 else 0))
-            idx = end
         self.stage = torch.empty(max(stage_end, 16), dtype=torch.uint8,
                                  device=dev)
 
@@ -473,18 +557,7 @@ class StepProgram(GraphProgram):
     def _compute(self, node: ComputeNode) -> None:
         res = self.kernels[node.kernel](*[self.views[b]
                                           for b in node.operands])
-        res = res if isinstance(res, (tuple, list)) else (res,)
-        if len(res) != len(node.results):
-            raise ValueError(f"kernel {node.kernel!r} returned {len(res)} "
-                             f"results, declared {len(node.results)}")
-        for b, value in zip(node.results, res):
-            view = self.views[b]
-            if tuple(value.shape) != tuple(view.shape):
-                raise ValueError(
-                    f"kernel {node.kernel!r} returned shape "
-                    f"{tuple(value.shape)} for buffer {b}, declared "
-                    f"{tuple(view.shape)}")
-            view.copy_(value)
+        _store(node, res, [self.views[b] for b in node.results])
 
     def run(self) -> None:
         """Execute the walk once (no graph)."""
@@ -499,13 +572,191 @@ class StepProgram(GraphProgram):
                                      self.arena, self.stage)
 
 
+@dataclasses.dataclass(frozen=True)
+class PeerCopyRun:
+    """One maximal run of consecutive copy nodes of a peer step: one
+    per-device ``multipath_dma`` table over the step's arenas, launched
+    once a card per execution."""
+
+    nodes: tuple[int, ...]
+    table: NodeTable
+    program: PeerDmaProgram
+
+
+@dataclasses.dataclass(frozen=True)
+class PeerNode:
+    """A compute node of a peer step whose kernel function has a peer
+    form: one program over every logical device's views, launched once a
+    card."""
+
+    node: ComputeNode
+    program: GraphProgram
+
+
+class PeerStepProgram(GraphProgram):
+    """One scheduled step graph made resident on a peer session's logical
+    devices, ``devices[d]`` for device *d* (a card may hold several), with
+    :class:`StepProgram`'s interface: ``inputs()`` and ``outputs()`` give,
+    per buffer, one ``(1, *local)`` view a logical device.
+
+    Every logical device holds its own arena on its device, zeroed once
+    when it is made: the copy tables have no fill (buffers are SSA, so no
+    other write reaches a reception), and a reception keeps exact zeros on
+    every device but its destination, the summable-receptions contract.
+    The walk is the scheduled graph's, in index order: a compute node
+    calls its kernel function once a logical device on that device's
+    views (:func:`axis_index` gives ``[d]``), or, for a function with a
+    peer form, runs that form's program; each maximal run of copy nodes
+    is one per-device table (payload on its src's arena → reception on
+    its dst's, staging slots on each hop's via, unique across the step's
+    runs), a :class:`~repro_torch.kernels.multipath_dma.kernel.PeerDmaProgram`
+    over the arenas. A stage that lands on another card for a hop 2 of a
+    later run is awaited by the via card's launch of its own run
+    (:func:`~repro_torch.kernels.multipath_dma.kernel.card_tables`).
+
+    On CUDA :meth:`bodies` gives one body a card (its devices' compute,
+    its share of each table and of each peer form, in walk order),
+    recorded as one graph each; :meth:`~GraphProgram.order` runs before
+    every execution. On the CPU the walk runs eagerly with the plain
+    versions.
+    """
+
+    def __init__(self, graph: TransferGraph, capture: StepCapture,
+                 outputs: Sequence[int],
+                 devices: Sequence[torch.device | str]):
+        self.devices = tuple(torch.device(d) for d in devices)
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
+            raise ValueError(f"devices must be all CUDA or all CPU, got "
+                             f"{[str(d) for d in self.devices]}")
+        self._cards = tuple(dict.fromkeys(self.devices))
+        self.device = self._cards[0]
+        #: card index → the logical devices it holds
+        self.held = [[d for d, dev in enumerate(self.devices) if dev == card]
+                     for card in self._cards]
+        self.graph = graph
+        self.kernels = dict(capture.kernels)
+        self.input_ids = tuple(capture.inputs)
+        self.output_ids = tuple(outputs)
+        n = len(self.devices)
+        bases, size = _arena_layout(capture, 1)
+        self.arenas = [torch.zeros(size, dtype=torch.uint8, device=d)
+                       for d in self.devices]
+        per_device = [_arena_views(a, capture, bases, 1)
+                      for a in self.arenas]
+        #: buffer id → its ``(1, *local)`` view on each logical device
+        self.views = [list(vs) for vs in zip(*per_device)]
+        self._index = [torch.tensor([d], dtype=torch.int64, device=dev)
+                       for d, dev in enumerate(self.devices)]
+        nelems, itemsizes = _message_sizes(graph, capture)
+        msg_bases = [((bases[payload], bases[reception]),) * n
+                     for payload, reception in graph.messages]
+        dtypes = [as_dtype(capture.buffers[payload].dtype)
+                  for payload, _ in graph.messages]
+        slots: dict[int, int] = {}
+        stage_at = [0] * n
+        runs = []
+        for seg in _segments(graph):
+            if isinstance(seg, ComputeNode):
+                runs.append(seg)
+                continue
+            table = build_node_table(graph, nelems, itemsizes, n,
+                                     fill="none", nodes=seg,
+                                     bases=msg_bases, slots=slots,
+                                     stage_base=stage_at, per_device=True)
+            stage_at = [own[2] for own in table.device_bytes]
+            runs.append((tuple(seg), table))
+        self.stages = [torch.empty(max(nb, 16), dtype=torch.uint8, device=d)
+                       for nb, d in zip(stage_at, self.devices)]
+        self.walk: list[ComputeNode | PeerNode | PeerCopyRun] = []
+        for step in runs:
+            if isinstance(step, ComputeNode):
+                form = getattr(self.kernels[step.kernel], "peer_program",
+                               None)
+                self.walk.append(step if form is None else PeerNode(
+                    step, form(self.devices,
+                               [self.views[b] for b in step.operands],
+                               [self.views[b] for b in step.results])))
+                continue
+            nodes, table = step
+            self.walk.append(PeerCopyRun(nodes, table, PeerDmaProgram(
+                table, dtypes, self.devices,
+                buffers=(self.arenas, self.arenas, self.stages))))
+
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The distinct devices of the logical devices, in first-use
+        order."""
+        return self._cards
+
+    @property
+    def copy_runs(self) -> list[PeerCopyRun]:
+        """The step's per-device ``multipath_dma`` tables, in walk
+        order."""
+        return [w for w in self.walk if isinstance(w, PeerCopyRun)]
+
+    def inputs(self) -> list[list[torch.Tensor]]:
+        return [self.views[b] for b in self.input_ids]
+
+    def outputs(self) -> list[list[torch.Tensor]]:
+        return [self.views[b] for b in self.output_ids]
+
+    def _compute(self, node: ComputeNode, d: int) -> None:
+        with _indexed(self._index[d]):
+            res = self.kernels[node.kernel](*[self.views[b][d]
+                                              for b in node.operands])
+        _store(node, res, [self.views[b][d] for b in node.results])
+
+    def _run_step(self, step, card: int) -> None:
+        """Card ``card``'s part of one walk step."""
+        if isinstance(step, ComputeNode):
+            for d in self.held[card]:
+                self._compute(step, d)
+        else:
+            step.program.run_card(card)
+
+    def _run_card(self, card: int) -> None:
+        for step in self.walk:
+            self._run_step(step, card)
+
+    def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
+        """One body a card: its part of the walk."""
+        return [(card, functools.partial(self._run_card, c))
+                for c, card in enumerate(self._cards)]
+
+    def run(self) -> None:
+        """Execute the walk once (no graph). On CUDA, ordered across the
+        cards, each walk step enqueued on every card before the next
+        (a launch that waits on another card's launch of the same table
+        never sits ahead of a host-blocking call of its own card); on the
+        CPU in walk order with the plain versions."""
+        if self.device.type == "cuda":
+            self.order()
+            for step in self.walk:
+                for c, card in enumerate(self._cards):
+                    with torch.cuda.device(card):
+                        self._run_step(step, c)
+            return
+        for step in self.walk:
+            if isinstance(step, ComputeNode):
+                for d in range(len(self.devices)):
+                    self._compute(step, d)
+            elif isinstance(step, PeerNode):
+                step.program.run()
+            else:
+                run_node_table_plain(step.table.items, self.arenas,
+                                     self.arenas, self.stages)
+
+
 class CapturedStep:
     """Launchable handle for one captured iteration.
 
     Calling it stages the inputs and launches the resident program ONCE —
     ``session.stats()["dispatches"]`` increments by exactly one per call,
     the acceptance invariant of whole-iteration capture. Outputs come back
-    device-stacked ``(num_devices, *local_shape)``, as fresh tensors.
+    device-stacked ``(num_devices, *local_shape)``, as fresh tensors; on a
+    peer session as one list a declared output, ``local_shape`` tensor
+    *d* on ``devices[d]``.
     Resolution rides the engine's fast path: the capture
     :meth:`~StepCapture.signature` + schedule name + planner epoch memoize
     the lowered/scheduled/resident entry, and the scheduled graph digest
@@ -532,8 +783,9 @@ class CapturedStep:
                  block: bool = True) -> list[torch.Tensor]:
         """Run one captured iteration as ONE dispatch; ``tensors`` align
         with the capture's declared inputs (stacked inputs are
-        ``(num_devices, *local)``; replicated inputs are bare local
-        tensors)."""
+        ``(num_devices, *local)``, on a peer session lists of
+        ``num_devices`` local tensors, tensor *d* for ``devices[d]``;
+        replicated inputs are bare local tensors)."""
         return self.engine.run_step(
             self, tensors,
             schedule=schedule if schedule is not None else self.schedule,

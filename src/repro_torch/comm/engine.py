@@ -41,7 +41,10 @@ recorded step of kernels and exchanges to ONE heterogeneous graph, makes
 it resident as a :class:`~repro_torch.comm.capture.StepProgram` (kernels
 and ``multipath_dma`` runs over one byte arena) and replays the whole
 iteration as ONE CUDA graph per call, keyed and memoized like a transfer
-group.
+group. Over peers it is a
+:class:`~repro_torch.comm.capture.PeerStepProgram` (one arena a logical
+device, one graph a card) under a :class:`PlacedKey`, with the same
+digest and ``GroupKey``.
 
 With a :class:`~repro_torch.comm.telemetry.TimelineRecorder` enabled,
 every dispatch records one
@@ -79,8 +82,9 @@ import torch
 from repro_torch.comm.cache import (CompiledPlan, FastPathCache,
                                     FastPathEntry, TransferPlanCache,
                                     compile_plan)
-from repro_torch.comm.capture import (CapturedStep, StepCapture, StepProgram,
-                                      as_dtype, dtype_name, lower_step)
+from repro_torch.comm.capture import (CapturedStep, PeerStepProgram,
+                                      StepCapture, StepProgram, as_dtype,
+                                      dtype_name, lower_step)
 from repro_torch.comm.config import VALIDATE_MODES, _env_bool
 from repro_torch.comm.graph import ComputeNode, TransferGraph, lower
 from repro_torch.comm.health import (LADDER, CommFaultError, FaultInjector,
@@ -98,14 +102,6 @@ from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
                                                       build_node_table,
                                                       launch_table,
                                                       run_node_table_plain)
-
-#: What a peer engine (``devices=``) does not run yet, and where it comes.
-PEER_CAPTURE_SLICE = ("whole-iteration capture across peer cards "
-                      "(session.capture, StepProgram, the captured Jacobi "
-                      "step) comes with a later slice of the port; a peer "
-                      "session runs send, bidirectional, exchange, "
-                      "send_pytree and the collectives")
-
 
 @dataclasses.dataclass(frozen=True)
 class GroupKey:
@@ -1016,11 +1012,10 @@ class MultiPathTransfer:
         :class:`~repro_torch.comm.capture.StepCapture` and returns the
         output ref(s). Nothing is planned or captured here — resolution
         happens on first launch (or :meth:`CapturedStep.resolve`) and is
-        memoized on the fast path. Raises ``NotImplementedError`` on a
-        peer engine (:data:`PEER_CAPTURE_SLICE`).
+        memoized on the fast path. On a peer engine the step runs as a
+        :class:`~repro_torch.comm.capture.PeerStepProgram`, taking and
+        returning per-device lists.
         """
-        if self.devices is not None:
-            raise NotImplementedError(PEER_CAPTURE_SLICE)
         cap = StepCapture(self.num_devices)
         outputs = build_fn(cap)
         if not isinstance(outputs, (tuple, list)):
@@ -1030,15 +1025,22 @@ class MultiPathTransfer:
     def _compile_step(self, key: GroupKey, graph: TransferGraph,
                       program: StepCapture, outputs: tuple) -> CompiledPlan:
         """Make one scheduled step resident (and captured, on a CUDA
-        device) as a :class:`~repro_torch.comm.capture.StepProgram`."""
+        device) as a :class:`~repro_torch.comm.capture.StepProgram`, or
+        over peers a :class:`~repro_torch.comm.capture.PeerStepProgram`
+        (placed under ``key``'s :class:`PlacedKey`)."""
         self.nodes_compiled += graph.num_nodes
         self.edges_compiled += graph.num_edges
         self.copy_nodes_compiled += graph.num_copy_nodes
         self.compute_nodes_compiled += graph.num_compute_nodes
-        return compile_plan(
-            key, lambda: StepProgram(graph, program, outputs,
-                                     self.num_devices, self.device),
-            num_nodes=graph.num_nodes)
+
+        def build() -> StepProgram | PeerStepProgram:
+            if self.devices is not None:
+                return PeerStepProgram(graph, program, outputs, self.devices)
+            return StepProgram(graph, program, outputs, self.num_devices,
+                               self.device)
+
+        return compile_plan(self._placed(key), build,
+                            num_nodes=graph.num_nodes)
 
     def resolve_step(self, step: CapturedStep,
                      schedule: str | GraphPass | None = None) -> _StepEntry:
@@ -1050,10 +1052,9 @@ class MultiPathTransfer:
         validation (inside lowering) → resident program, keyed on the
         scheduled graph digest + capture signature + per-kernel compute
         identity, then memoizes. Two schedules of the same capture digest
-        apart and never cross-serve programs.
+        apart and never cross-serve programs. Over peers the program is
+        looked up under the key's :class:`PlacedKey`.
         """
-        if self.devices is not None:
-            raise NotImplementedError(PEER_CAPTURE_SLICE)
         program = step.capture
         sched = self.schedule if schedule is None else schedule
         sched_name = sched if isinstance(sched, str) else None
@@ -1066,12 +1067,12 @@ class MultiPathTransfer:
             epoch = self.planner.epoch
             entry = self._fastpath.get(sig, epoch)
             if entry is not None:
-                compiled = self.cache.get(entry.key)
+                compiled = self.cache.get(self._placed(entry.key))
                 if compiled is None:   # evicted under us: rebuild only
                     compiled = self._compile_step(
                         entry.key, entry.graph, entry.program,
                         entry.outputs)
-                    self.cache.put(entry.key, compiled)
+                    self.cache.put(self._placed(entry.key), compiled)
                     if stages is not None:
                         stages.compile_ns = compiled.lifecycle.build_ns
                 entry.compiled = compiled
@@ -1102,8 +1103,8 @@ class MultiPathTransfer:
                        + compute_id,
                        window=1, num_devices=self.num_devices)
         compiled = self._get_or_build(
-            key, lambda: self._compile_step(key, scheduled, program,
-                                            step.outputs), stages)
+            self._placed(key), lambda: self._compile_step(
+                key, scheduled, program, step.outputs), stages)
         entry = _StepEntry(plans=plans, graph=scheduled, digest=key.digest,
                            key=key, compiled=compiled, schedule=chosen,
                            program=program, outputs=step.outputs)
@@ -1115,7 +1116,8 @@ class MultiPathTransfer:
                      tensors: Sequence[torch.Tensor], *,
                      block: bool) -> list[torch.Tensor]:
         """Stage the step inputs into the resident program's static
-        buffers and replay it ONCE; returns copies of the outputs. With
+        buffers and replay it ONCE; returns copies of the outputs (over
+        peers, one list an output, each device's on its device). With
         telemetry on, records one sample whose ``compute`` holds each
         compute node's ``(kernel, flops, cost_ns)``."""
         stages, hit = self._take_pending()
@@ -1124,9 +1126,21 @@ class MultiPathTransfer:
             raise ValueError(f"captured step takes {len(program.inputs)} "
                              f"input tensors, got {len(tensors)}")
         compiled = entry.compiled
+        peer = self.devices is not None
         t0 = time.perf_counter_ns()
         for bid, t, buf in zip(program.inputs, tensors, compiled.inputs()):
             spec = program.buffers[bid]
+            if peer and not spec.replicated:
+                if (not isinstance(t, (list, tuple))
+                        or len(t) != self.num_devices
+                        or any(tuple(td.shape) != spec.shape for td in t)):
+                    raise ValueError(
+                        f"input for buffer {bid} must be a list of "
+                        f"{self.num_devices} tensors of shape {spec.shape} "
+                        f"(one a logical device)")
+                for view, td in zip(buf, t):
+                    view[0].copy_(td)
+                continue
             t = torch.as_tensor(t)
             want = (spec.shape if spec.replicated
                     else (self.num_devices,) + spec.shape)
@@ -1135,7 +1149,11 @@ class MultiPathTransfer:
                     f"input for buffer {bid} must have shape {want} "
                     f"({'replicated' if spec.replicated else 'stacked'}), "
                     f"got {tuple(t.shape)}")
-            buf.copy_(t)
+            if peer:
+                for view in buf:
+                    view[0].copy_(t)
+            else:
+                buf.copy_(t)
         staging = time.perf_counter_ns() - t0
         self.staging_ns += staging
         compiled.lifecycle.staging_ns += staging
@@ -1146,6 +1164,8 @@ class MultiPathTransfer:
                             if isinstance(n, ComputeNode))
             self._record(entry, stages, hit, 1, compute)
         self.dispatches += 1
+        if peer:
+            return [[view[0].clone() for view in y] for y in ys]
         return [y.clone() for y in ys]
 
     def run_step(self, step: CapturedStep, tensors: Sequence[torch.Tensor],
@@ -1154,7 +1174,8 @@ class MultiPathTransfer:
         """Resolve + launch one captured iteration as ONE dispatch.
 
         Returns the step outputs device-stacked ``(num_devices,
-        *local_shape)``, aligned with the capture's declared outputs.
+        *local_shape)``, aligned with the capture's declared outputs (over
+        peers, one list of ``num_devices`` local tensors an output).
 
         Under fault state (§4.6 hazard: live injector, quarantined or
         failed links) the captured step retries with bounded backoff —

@@ -58,8 +58,12 @@ stacked session's global tensor and returns its result on
 ``devices[0]``, through one program over the cards (the ring's shifts
 per-device ``multipath_dma`` tables, its all-gather the peer
 ``ring_allgather``, one CUDA graph a card); ``session.collectives`` takes
-and returns per-device lists. ``capture`` raises ``NotImplementedError``
-(a later slice of the port).
+and returns per-device lists. ``capture`` records the same step as on a stacked
+session (the same digest and ``GroupKey``) and runs it with one arena a
+logical device and one CUDA graph a card: a non-replicated input is a
+list of ``n`` local tensors, tensor *d* on ``devices[d]``, a replicated
+one a single tensor staged to every device, and each declared output
+comes back as such a list.
 
 Link faults (DESIGN §4.6): ``CommConfig.health`` (on by default) attaches
 a :class:`~repro_torch.comm.health.HealthMonitor` that watches the
@@ -551,10 +555,13 @@ class CommSession:
         ``stats()["dispatches"]`` increments by exactly one per captured
         iteration, however many kernels and messages it carries.
         Resolution rides the §2.3 fast path (memoized per capture
-        signature + schedule + planner epoch). A peer session raises
-        ``NotImplementedError``: capture across cards (one arena and one
-        graph a card) is a later slice of the port
-        (:data:`~repro_torch.comm.engine.PEER_CAPTURE_SLICE`).
+        signature + schedule + planner epoch). A peer session runs the
+        same recording as a
+        :class:`~repro_torch.comm.capture.PeerStepProgram` (one arena a
+        logical device on its device, one graph a card): its step takes a
+        list of ``num_devices`` local tensors for each non-replicated
+        input (tensor *d* on ``devices[d]``), one tensor for a replicated
+        one, and returns one such list a declared output.
         """
         return self.engine.capture(build_fn, schedule=schedule)
 

@@ -15,8 +15,9 @@ direct/staged split of each boundary). :func:`jacobi_step` masks the
 global edge with Dirichlet zeros and sweeps with the ``jacobi`` kernel.
 :func:`make_captured_jacobi_step` records one whole iteration (boundary
 slices, the fused ring exchange, the sweep) with ``session.capture`` and
-replays it as ONE CUDA graph per call (stacked sessions only: capture
-across peer cards is a later slice).
+replays it as ONE dispatch per call: one CUDA graph on a stacked session,
+one a card on a peer session, where the step takes and returns a list of
+``n`` blocks ``(rows, cols)``, block *i* on ``devices[i]``.
 """
 
 from __future__ import annotations
@@ -113,16 +114,19 @@ def make_captured_jacobi_step(session: "CommSession", rows: int, cols: int,
 
     The returned :class:`~repro_torch.comm.capture.CapturedStep` takes the
     stacked domain ``(n, rows, cols)`` and returns the swept domain, same
-    shape, in ONE dispatch: boundary extraction and the 5-point stencil are
+    shape (on a peer session: a list of ``n`` blocks ``(rows, cols)``,
+    block *i* on ``devices[i]``, in and out), in ONE dispatch: boundary
+    extraction and the 5-point stencil are
     compute nodes, the ``2n``-message ring exchange is planned jointly
     (``max_paths``/``num_chunks`` as in :meth:`CommSession.exchange`), and
     the scheduler pass orders the graph. Each halo is joined from the
     exchange's reception buffers by exact zero-sum, the global edge gets
     Dirichlet zeros, and the sweep is ``jacobi_ops.jacobi_sweep`` — the
-    ``jacobi`` kernel on a CUDA device — so the result is bitwise the
-    eager :func:`jacobi_step` with the same session.
+    ``jacobi`` kernel on a CUDA device, one launch a logical device over
+    peers — so the result is bitwise the eager :func:`jacobi_step` with
+    the same session.
     """
-    from repro_torch.comm.capture import BufferSpec, dtype_name
+    from repro_torch.comm.capture import BufferSpec, axis_index, dtype_name
 
     n = session.engine.num_devices
     if n < 2:
@@ -141,9 +145,9 @@ def make_captured_jacobi_step(session: "CommSession", rows: int, cols: int,
         right_halo = halos[n]
         for h in halos[n + 1:]:
             right_halo = right_halo + h
-        left_halo = left_halo.reshape(n, rows, 1)
-        right_halo = right_halo.reshape(n, rows, 1)
-        dev = torch.arange(n, device=u_.device).view(n, 1, 1)
+        left_halo = left_halo.reshape(-1, rows, 1)
+        right_halo = right_halo.reshape(-1, rows, 1)
+        dev = axis_index(u_).view(-1, 1, 1)
         left_halo = torch.where(dev == 0, torch.zeros_like(left_halo),
                                 left_halo)
         right_halo = torch.where(dev == n - 1,

@@ -308,13 +308,14 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
 template <int D>
 int launch_f32(const Args& a, int64_t batch, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes(D);
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured |= dev_bit;
   }
   dim3 grid((unsigned)((a.seq + BQ - 1) / BQ), (unsigned)(batch * a.hq));
   flash_kernel<D><<<grid, THREADS, bytes, stream>>>(a);
@@ -605,11 +606,12 @@ template <int DP, int KS>
 int launch_bf16(const Args& a, int64_t batch, int64_t hkv,
                 cudaStream_t stream) {
   using T = Tiles<DP>;
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     const int err = set_smem(flash_wgmma_kernel<DP, KS>, T::SMEM);
     if (err) return err;
-    configured = true;
+    configured |= dev_bit;
   }
   CUtensorMap tq, tk, tv;
   if (!make_map<DP>(&tq, a.q, a.d, a.seq, a.hq, batch, a.qss, a.qsh,
@@ -636,11 +638,12 @@ int launch_tile_products(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   using T = Tiles<DP>;
   constexpr size_t bytes = 1024 + T::Q_TILE + 2 * (size_t)T::KV_TILE;
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     const int err = set_smem(tile_products_kernel<DP, KS>, bytes);
     if (err) return err;
-    configured = true;
+    configured |= dev_bit;
   }
   CUtensorMap tq, tk, tv;
   if (!make_map<DP>(&tq, q, d, 64, 1, 1, d, 0, 0) ||

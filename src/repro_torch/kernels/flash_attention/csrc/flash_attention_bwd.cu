@@ -485,12 +485,13 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
 template <typename T, int D>
 int launch(const Args& a, int64_t batch, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     int err = set_smem(dkdv_kernel<T, D>, bytes);
     if (!err) err = set_smem(dq_kernel<T, D>, bytes);
     if (err) return err;
-    configured = true;
+    configured |= dev_bit;
   }
   const int64_t rows = batch * a.hq * a.seq;
   const unsigned warps = THREADS / 32;
@@ -1087,8 +1088,9 @@ __global__ void __launch_bounds__(128)
 template <int DP, int KS>
 int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
   using B = Bwd<DP>;
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     int err;
     if constexpr (B::SPLIT)
       err = set_smem(dkdv_split_kernel<DP, KS>, B::SMEM);
@@ -1096,7 +1098,7 @@ int launch_bf16(const Args& a, int64_t batch, cudaStream_t stream) {
       err = set_smem(dkdv_wgmma_kernel<DP, KS>, B::SMEM);
     if (!err) err = set_smem(dq_wgmma_kernel<DP, KS>, B::SMEM);
     if (err) return err;
-    configured = true;
+    configured |= dev_bit;
   }
   CUtensorMap tq, tk, tv, tdo;
   const int64_t d = a.d;
@@ -1133,11 +1135,12 @@ int launch_tile_products(const void* k, const void* q, const void* dout,
                          void* st_out, void* pd_out, void* pq_out, int64_t d,
                          cudaStream_t stream) {
   constexpr size_t bytes = 1024 + 3 * (size_t)Bwd<DP>::TILE;
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     const int err = set_smem(bwd_tile_products_kernel<DP, KS>, bytes);
     if (err) return err;
-    configured = true;
+    configured |= dev_bit;
   }
   CUtensorMap tk, tq, tdo;
   if (!make_map<DP>(&tk, k, d, 64, 1, 1, d, 0, 0) ||

@@ -469,4 +469,13 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The bit of the calling thread's current device (devices 0-63). A
+// kernel's shared-memory attribute holds on the device it was set on, so
+// each launcher sets it once a device, recording the devices in a mask.
+inline unsigned long long device_bit() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return 1ull << (dev & 63);
+}
+
 }  // namespace

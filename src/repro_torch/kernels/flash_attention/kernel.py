@@ -244,13 +244,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if q.device.type == "cuda":
-        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), None if lse is None else lse.data_ptr(),
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    b, hq, k.shape[1], s, d, float(scale),
-                    int(bool(causal)), -1 if window is None else int(window),
-                    _DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream)
+        with torch.cuda.device(q.device):   # the stream's own card
+            rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        b, hq, k.shape[1], s, d, float(scale),
+                        int(bool(causal)),
+                        -1 if window is None else int(window),
+                        _DTYPE_CODES[q.dtype],
+                        torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_attention")
         LAUNCHES += 1
     cost.record_kernel("flash_attention",
@@ -298,15 +301,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     if q.device.type == "cuda":
-        rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], *do.stride()[:3], b, hq, k.shape[1],
-                        s, d, float(scale), int(bool(causal)),
-                        -1 if window is None else int(window),
-                        _DTYPE_CODES[q.dtype],
-                        torch.cuda.current_stream(q.device).cuda_stream)
+        with torch.cuda.device(q.device):   # the stream's own card
+            rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], *do.stride()[:3], b, hq,
+                            k.shape[1], s, d, float(scale),
+                            int(bool(causal)),
+                            -1 if window is None else int(window),
+                            _DTYPE_CODES[q.dtype],
+                            torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_attention_bwd")
         LAUNCHES_BWD += 1
     cost.record_kernel("flash_attention_bwd",

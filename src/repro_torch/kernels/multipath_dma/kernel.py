@@ -32,8 +32,10 @@ Every item names the logical device that executes it, the reference's
 push roles: a fill on its own device, a direct or hop-1 tile on the
 message's src, a hop-2 tile on its via. :func:`card_tables` splits a
 per-device table into one table a card, with the flags that carry hop
-edges across cards and a wait item on the destination's card for every
-terminal tile another card writes, and it spreads each card's fills
+edges across cards and a wait item on the landing card for every tile
+another card writes that no item of the table waits on (a terminal tile,
+or a stage whose hop 2 a later run of a captured step reads), and it
+spreads each card's fills
 among the card's copy tiles into another card, so that a src's fill of
 its own output (HBM writes) runs under its sends (bound by NVLink) rather
 than before them.
@@ -185,9 +187,9 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
                      fill: str = "zero",
                      tile_bytes: int = TILE_BYTES,
                      nodes: Sequence[int] | None = None,
-                     bases: Sequence[tuple[int, int]] | None = None,
+                     bases: Sequence | None = None,
                      slots: dict[int, int] | None = None,
-                     stage_base: int = 0,
+                     stage_base: int | Sequence[int] = 0,
                      per_device: bool = False) -> NodeTable:
     """Turn a scheduled transfer graph into the kernel's work table.
 
@@ -200,8 +202,10 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     buffers of the logical devices the table reads or writes it on
     instead, each device's packed on their own (``MessageLayout.at``):
     the operand of its src (of every device when the fill copies), the
-    output of its dst (of every device when there is a fill); staging
-    slots are allocated on each hop's via. ``fill`` is ``"zero"`` (every
+    output of its dst (of every device when there is a fill), unless
+    ``bases[m]`` gives one ``(operand byte, output byte)`` pair a logical
+    device (a peer step's arenas, each device's its own); staging slots
+    are allocated on each hop's via. ``fill`` is ``"zero"`` (every
     non-destination output reads zero, the engine's contract),
     ``"copy"`` (it keeps the input, the identity contract) or ``"none"``
     (no fill items: non-destination outputs keep what they held, for a
@@ -212,14 +216,16 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
 
     ``nodes`` restricts the table to those copy nodes (one run of a
     captured step, default: every node). A message's fill goes in the
-    table that holds its first node, before the copies. Staging slots are allocated from
-    ``stage_base`` on and recorded in ``slots`` (node index → staging
-    byte), which runs of one step share: a hop whose predecessor sits in
-    an earlier table reads that slot with no predecessor item, because
-    stream order already orders the two launches. A stacked table's flags
-    are set for its one card (:func:`card_tables`). Raises ``ValueError``
-    for host hops, compute nodes, chunks that are not element-aligned and
-    ``per_device`` beside ``nodes``.
+    table that holds its first node, before the copies. Staging slots are
+    allocated from ``stage_base`` on (per device: one base a logical
+    device, or one for all) and recorded in ``slots`` (node index →
+    staging byte), which runs of one step share: a hop whose predecessor
+    sits in an earlier table reads that slot with no predecessor item.
+    On one card stream order orders the two launches; across cards
+    :func:`card_tables` makes the via's launch of the earlier run wait
+    for the stage to land. A stacked table's flags are set for its one
+    card (:func:`card_tables`). Raises ``ValueError`` for host hops,
+    compute nodes and chunks that are not element-aligned.
     """
     # imported here, not with the module: repro_torch.comm imports this
     # module, so importing it first must not import comm
@@ -228,8 +234,6 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     if fill not in ("zero", "copy", "none"):
         raise ValueError(f"fill must be 'zero', 'copy' or 'none', got "
                          f"{fill!r}")
-    if per_device and (nodes is not None or bases is not None):
-        raise ValueError("a per-device table covers one whole graph")
     flows = graph.flows()
     if len(flows) != graph.num_messages or len(nelems) != len(flows):
         raise ValueError(f"graph has {graph.num_messages} messages, got "
@@ -242,6 +246,11 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
             nbytes = graph.window * int(n) * int(isz)
             at = []
             for d, end in enumerate(ends):
+                if bases is not None:
+                    at.append(tuple(int(b) for b in bases[m][d]))
+                    for k in range(2):
+                        end[k] = max(end[k], at[-1][k] + nbytes)
+                    continue
                 held = (d == src or fill == "copy", d == dst or fill != "none")
                 at.append(tuple(end[k] if h else -1
                                 for k, h in enumerate(held)))
@@ -300,8 +309,15 @@ def build_node_table(graph: TransferGraph, nelems: Sequence[int],
     terminals = graph.terminal_nodes
     first_item: dict[int, int] = {}
     slot = {} if slots is None else slots
-    stage = stage_base
-    stage_at = [stage_base] * num_devices       # per device
+    if isinstance(stage_base, int):
+        stage = stage_base
+        stage_at = [stage_base] * num_devices   # per device
+    elif per_device and len(stage_base) == num_devices:
+        stage = max(stage_base, default=0)
+        stage_at = [int(b) for b in stage_base]
+    else:
+        raise ValueError("stage_base is one int, or one a logical device "
+                         "of a per-device table")
     count = 0
     for idx in nodes:
         node = graph.nodes[idx]
@@ -389,10 +405,14 @@ def card_tables(items: np.ndarray, card_of: Sequence[int]
 
     An item with a predecessor waits on a flag of its own card
     (``C_WAIT``) that the predecessor sets (``C_SIG_CARD``,
-    ``C_SIG_IDX``). A terminal tile whose destination lives on another
-    card than the one executing it sets a flag of the destination's card,
-    and that card's table ends with a wait item on it (no bytes), so the
-    destination card's launch ends only once its output is complete.
+    ``C_SIG_IDX``). A tile that lands on another card than the one
+    executing it, and that no item of this table waits on, sets a flag of
+    the landing card, and that card's table ends with a wait item on it
+    (no bytes), so the landing card's launch ends only once the tile is
+    there: a terminal tile into its destination's output, and a hop-1
+    tile into its via's staging whose hop 2 sits in a later run of a
+    captured step (:func:`build_node_table` with ``nodes``), which the
+    via's launch of that run then reads in stream order.
     """
     items = items.copy()
     items[:, C_WAIT:] = -1
@@ -400,8 +420,12 @@ def card_tables(items: np.ndarray, card_of: Sequence[int]
     exec_card = cards[items[:, C_EXEC]]
     dst_card = cards[items[:, C_DST_DEV]]
     waiter = items[:, C_PRED] >= 0
-    remote_terminal = ((items[:, C_NODE] >= 0)
-                       & (items[:, C_DST_SPACE] == SPACE_OUT)
+    awaited = np.zeros(len(items), dtype=bool)
+    awaited[items[waiter, C_PRED]] = True
+    lands_remote = ((items[:, C_NODE] >= 0)
+                       & ((items[:, C_DST_SPACE] == SPACE_OUT)
+                          | ((items[:, C_DST_SPACE] == SPACE_STAGE)
+                             & ~awaited))
                        & (dst_card != exec_card))
     ncards = int(cards.max()) + 1
     waits = []
@@ -411,7 +435,7 @@ def card_tables(items: np.ndarray, card_of: Sequence[int]
         items[hops, C_WAIT] = flags
         items[items[hops, C_PRED], C_SIG_CARD] = card
         items[items[hops, C_PRED], C_SIG_IDX] = flags
-        landing = np.flatnonzero(remote_terminal & (dst_card == card))
+        landing = np.flatnonzero(lands_remote & (dst_card == card))
         flags = len(hops) + np.arange(len(landing))
         items[landing, C_SIG_CARD] = card
         items[landing, C_SIG_IDX] = flags
@@ -618,7 +642,10 @@ class PeerDmaProgram(GraphProgram):
     staging buffer on its card, sized to the messages the table reads or
     writes there (``NodeTable.device_bytes``). ``inputs()``/``outputs()``
     give, per message, one ``(window, nelems)`` view a logical device,
-    ``None`` where that device holds no such buffer.
+    ``None`` where that device holds no such buffer. ``buffers``, when
+    given, are the ``(operand, output, staging)`` byte buffers, one a
+    logical device on its device, at least ``table.device_bytes`` long
+    (a peer step's arenas): the program then allocates none.
 
     On CUDA every card runs its share of the table (:func:`card_tables`)
     as one launch, with a space table of every logical device's buffers
@@ -633,7 +660,8 @@ class PeerDmaProgram(GraphProgram):
     """
 
     def __init__(self, table: NodeTable, dtypes: Sequence[torch.dtype],
-                 devices: Sequence[torch.device | str]):
+                 devices: Sequence[torch.device | str], *,
+                 buffers: tuple[Sequence, Sequence, Sequence] | None = None):
         if not table.per_device:
             raise ValueError("a stacked table runs in a DmaProgram")
         self.table = table
@@ -652,13 +680,17 @@ class PeerDmaProgram(GraphProgram):
         on_cuda = self.device.type == "cuda"
         if on_cuda and len(self.cards) > 1:
             enable_peers(self.cards)
-        sizes = [[max(b, 16) for b in own] for own in table.device_bytes]
-        self.x = [torch.zeros(own[0], dtype=torch.uint8, device=d)
-                  for own, d in zip(sizes, self.devices)]
-        self.y = [torch.zeros(own[1], dtype=torch.uint8, device=d)
-                  for own, d in zip(sizes, self.devices)]
-        self.stage = [torch.empty(own[2], dtype=torch.uint8, device=d)
-                      for own, d in zip(sizes, self.devices)]
+        if buffers is None:
+            sizes = [[max(b, 16) for b in own]
+                     for own in table.device_bytes]
+            buffers = (
+                [torch.zeros(own[0], dtype=torch.uint8, device=d)
+                 for own, d in zip(sizes, self.devices)],
+                [torch.zeros(own[1], dtype=torch.uint8, device=d)
+                 for own, d in zip(sizes, self.devices)],
+                [torch.empty(own[2], dtype=torch.uint8, device=d)
+                 for own, d in zip(sizes, self.devices)])
+        self.x, self.y, self.stage = (list(b) for b in buffers)
         self._completed = 0
         #: One launch a card that runs items.
         self.launches: list[CardLaunch] = []

@@ -18,6 +18,7 @@ from repro_torch.comm.graph import lower
 from repro_torch.comm.plan import TransferPlan
 from repro_torch.core.topology import HOST
 from repro_torch.kernels.multipath_dma.kernel import (DmaProgram,
+                                                      PeerDmaProgram,
                                                       build_node_table)
 
 
@@ -70,17 +71,40 @@ class PlanKernel:
     operand's bytes (one kernel launch on a CUDA tensor, the plain
     version on a CPU tensor) and returns the program's output, which the
     next call overwrites.
+
+    In a peer step the node runs in its peer form (:meth:`peer_program`):
+    the plan's per-device table with the same identity fill over each
+    logical device's operand and result views, one launch a card.
     """
 
     def __init__(self, plan: TransferPlan, nelems: int, dtype: torch.dtype,
                  num_devices: int):
         check_plan(plan)
+        self.plan = plan
         self.shape = (int(num_devices), int(nelems))
         self.dtype = dtype
         self.table = build_node_table(lower(plan), (nelems,),
                                       (dtype.itemsize,), num_devices,
                                       fill="copy")
         self._programs: dict[torch.device, DmaProgram] = {}
+
+    def peer_program(self, devices, operands, results) -> PeerDmaProgram:
+        """The peer form in a peer step: ``operands[0][d]`` and
+        ``results[0][d]`` are logical device *d*'s ``(1, nelems)`` views;
+        returns the program that writes ``y[dst] = x[src]`` and ``y[d] =
+        x[d]`` elsewhere into the result views (fill ``"copy"``), its
+        staging its own."""
+        (xs,), (ys,) = operands, results
+        n = len(devices)
+        table = build_node_table(lower(self.plan), (self.shape[1],),
+                                 (self.dtype.itemsize,), n, fill="copy",
+                                 bases=[((0, 0),) * n], per_device=True)
+        stages = [torch.empty(max(own[2], 16), dtype=torch.uint8,
+                              device=d)
+                  for own, d in zip(table.device_bytes, devices)]
+        return PeerDmaProgram(table, (self.dtype,), devices, buffers=(
+            [x.reshape(-1).view(torch.uint8) for x in xs],
+            [y.reshape(-1).view(torch.uint8) for y in ys], stages))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.shape or x.dtype != self.dtype:
@@ -102,7 +126,8 @@ def captured_multipath_dma(cap, x, plan: TransferPlan, num_devices: int, *,
     same-shape ref with ``y[dst] = x[src]`` (identity elsewhere),
     executing ``plan``'s copy schedule as one kernel launch inside the
     captured program (:class:`PlanKernel`). One compute node with the
-    declared result spec and ``flops`` 0; ``cost_ns`` is stamped from
+    declared result spec and ``flops`` 0 (on a peer session its per-device
+    table, one launch a card); ``cost_ns`` is stamped from
     ``telemetry``'s recorded median for ``name`` when a recorder is
     passed (0 without one), so the lane model prices the kernel's
     measured duration.

@@ -364,10 +364,15 @@ class PeerRingProgram(GraphProgram):
     alone, for a caller that orders the cards itself (a program of
     several steps, recorded one graph a card); :meth:`bodies` gives one
     such launch a card to :meth:`~GraphProgram.record`. The state words'
-    epochs persist, so every execution must run on every card."""
+    epochs persist, so every execution must run on every card. ``x`` and
+    ``out``, when given, are the shards and replicas (contiguous, one a
+    logical device on its device: a peer step's arena views), and the
+    program allocates none."""
 
     def __init__(self, rows: int, f: int, dtype: torch.dtype,
-                 devices: Sequence[torch.device | str]):
+                 devices: Sequence[torch.device | str], *,
+                 x: Sequence[torch.Tensor] | None = None,
+                 out: Sequence[torch.Tensor] | None = None):
         self.devices = tuple(torch.device(d) for d in devices)
         self._cards, _ = _placement(self.devices)
         self.device = self._cards[0]
@@ -375,10 +380,16 @@ class PeerRingProgram(GraphProgram):
             raise ValueError(f"unsupported device {self.device}")
         n = len(self.devices)
         self.geometry = RingGeometry.for_shape(n, rows, f, dtype.itemsize)
-        self.x = [torch.zeros((rows, f), dtype=dtype, device=d)
-                  for d in self.devices]
-        self.out = [torch.zeros((n, rows, f), dtype=dtype, device=d)
-                    for d in self.devices]
+        self.x = list(x) if x is not None else [
+            torch.zeros((rows, f), dtype=dtype, device=d)
+            for d in self.devices]
+        self.out = list(out) if out is not None else [
+            torch.zeros((n, rows, f), dtype=dtype, device=d)
+            for d in self.devices]
+        for t, shape in ((self.x[0], (rows, f)), (self.out[0], (n, rows, f))):
+            if tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"buffers must be contiguous {shape}, got "
+                                 f"{tuple(t.shape)}")
         self.launches: list[CardLaunch] = []
         if self.device.type == "cuda":
             _enable_peers(self._cards)

@@ -6,8 +6,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ring_allgather.kernel import (
-    ring_allgather_cuda, ring_allgather_peer_cuda, ring_allgather_peer_plain,
-    ring_allgather_plain)
+    PeerRingProgram, ring_allgather_cuda, ring_allgather_peer_cuda,
+    ring_allgather_peer_plain, ring_allgather_plain)
 
 
 def ring_allgather(xs):
@@ -39,6 +39,22 @@ def gather_rows(xs: torch.Tensor) -> torch.Tensor:
     return ring_allgather(xs).reshape(n, n * rows, f)
 
 
+def _gather_rows_peer(devices, operands, results) -> PeerRingProgram:
+    """The peer form of :func:`gather_rows` in a peer step: one
+    :class:`PeerRingProgram` over each logical device's ``(1, rows, f)``
+    operand view and ``(1, n·rows, f)`` result view, one launch a card,
+    each shard pushed into every replica."""
+    (xs,), (outs,) = operands, results
+    _, rows, f = xs[0].shape
+    n = len(devices)
+    return PeerRingProgram(rows, f, xs[0].dtype, devices,
+                           x=[x[0] for x in xs],
+                           out=[o.view(n, rows, f) for o in outs])
+
+
+gather_rows.peer_program = _gather_rows_peer
+
+
 def captured_ring_allgather(cap, x, num_devices: int, *,
                             name: str = "ring_allgather", telemetry=None):
     """Record the ring all-gather kernel on a ``session.capture`` step.
@@ -46,7 +62,8 @@ def captured_ring_allgather(cap, x, num_devices: int, *,
     ``x`` is a capture ref with local shape ``(rows, f)``; returns the
     gathered ``(num_devices * rows, f)`` ref (every device holds the full
     result). One compute node with the declared result spec and ``flops``
-    0 (wire work); ``cost_ns`` is stamped from ``telemetry``'s recorded
+    0 (wire work); on a peer session its kernel runs in its peer form, one
+    ``ring_allgather`` launch a card; ``cost_ns`` is stamped from ``telemetry``'s recorded
     median for ``name`` when a recorder is passed (0 without one), so its
     measured duration occupies the lane model's compute lane.
     """

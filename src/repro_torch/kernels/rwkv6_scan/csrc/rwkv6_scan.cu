@@ -69,6 +69,19 @@
 
 namespace {
 
+// The bit of the calling thread's current device (devices 0-63). A
+// kernel's shared-memory attribute holds on the device it was set on, so
+// the launcher sets it once a device, recording the devices in a mask.
+inline unsigned long long device_bit() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return 1ull << (dev & 63);
+}
+
+}  // namespace
+
+namespace {
+
 constexpr int CH = 64;    // longest chunk: rows of a tile
 constexpr int DMAX = 64;  // largest dk and dv
 
@@ -554,13 +567,14 @@ int launch_states(const Args& a, int64_t nbh, cudaStream_t stream) {
 
 template <typename T, typename O>
 int launch_output(const Args& a, int64_t nbh, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     cudaError_t err = cudaFuncSetAttribute(
         rwkv6_output_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM2_BYTES);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured |= dev_bit;
   }
   if (a.nc == 0) return (int)cudaGetLastError();
   rwkv6_output_kernel<T, O>

@@ -93,6 +93,19 @@
 
 namespace {
 
+// The bit of the calling thread's current device (devices 0-63). A
+// kernel's shared-memory attribute holds on the device it was set on, so
+// the launcher sets it once a device, recording the devices in a mask.
+inline unsigned long long device_bit() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return 1ull << (dev & 63);
+}
+
+}  // namespace
+
+namespace {
+
 constexpr int CH = 64;     // longest chunk
 constexpr int DMAX = 64;   // largest dk and dv
 
@@ -1031,13 +1044,14 @@ int run(const Args& a, int64_t nbh, cudaStream_t stream) {
   rwkv6_bwd_states_kernel<T><<<(unsigned)(nbh * ntiles), NT1, 0, stream>>>(a);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  static bool configured = false;
-  if (!configured) {
+  static unsigned long long configured = 0;  // one bit a device
+  const unsigned long long dev_bit = device_bit();
+  if (!(configured & dev_bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
         rwkv6_bwd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM2_BYTES);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured |= dev_bit;
   }
   if (a.nc > 0)
     rwkv6_bwd_chunk_kernel<T>

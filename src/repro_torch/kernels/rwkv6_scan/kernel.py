@@ -352,13 +352,14 @@ def _launch(entry: str, r, k, v, w, u, o, state, ws, chunk) -> None:
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     b, s, h, dk = r.shape
-    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), o.data_ptr(), state.data_ptr(), ws.data_ptr(),
-            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], *o.stride()[:3], *u.stride()[:2],
-            b, h, s, dk, v.shape[-1], chunk, _DTYPE_CODES[r.dtype],
-            _DTYPE_CODES[o.dtype],
-            torch.cuda.current_stream(r.device).cuda_stream)
+    with torch.cuda.device(r.device):       # the stream's own card
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), o.data_ptr(), state.data_ptr(), ws.data_ptr(),
+                *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *w.stride()[:3], *o.stride()[:3], *u.stride()[:2],
+                b, h, s, dk, v.shape[-1], chunk, _DTYPE_CODES[r.dtype],
+                _DTYPE_CODES[o.dtype],
+                torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(rc, f"rwkv6_scan ({entry})")
 
 
@@ -484,15 +485,17 @@ def _launch_bwd(r, k, v, w, u, do, dstate, states, bufs, chunk) -> None:
     fn.restype = ctypes.c_int
     dr, dk, dv, dw, gws, dupart, du = bufs
     b, s, h, ndk = r.shape
-    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), do.data_ptr(),
-            None if dstate is None else dstate.data_ptr(),
-            states.data_ptr(), gws.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), dupart.data_ptr(), du.data_ptr(),
-            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], *do.stride()[:3], *u.stride()[:2],
-            b, h, s, ndk, v.shape[-1], chunk, _DTYPE_CODES[r.dtype],
-            torch.cuda.current_stream(r.device).cuda_stream)
+    with torch.cuda.device(r.device):       # the stream's own card
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), do.data_ptr(),
+                None if dstate is None else dstate.data_ptr(),
+                states.data_ptr(), gws.data_ptr(), dr.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                dupart.data_ptr(), du.data_ptr(),
+                *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *w.stride()[:3], *do.stride()[:3], *u.stride()[:2],
+                b, h, s, ndk, v.shape[-1], chunk, _DTYPE_CODES[r.dtype],
+                torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(rc, "rwkv6_scan_bwd")
 
 

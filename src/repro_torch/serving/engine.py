@@ -45,7 +45,7 @@ from typing import TYPE_CHECKING, Callable, Sequence
 
 import torch
 
-from repro_torch.comm.capture import BufferSpec, dtype_name
+from repro_torch.comm.capture import BufferSpec, axis_index, dtype_name
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.flash_attention.ops import captured_flash_attention
@@ -98,8 +98,10 @@ def make_captured_decode_step(comm: "CommSession", *, batch: int,
     attention.
 
     Returns ``step(q, k, v, kv) -> (attn, new_kv)`` over device-stacked
-    ``(num_devices, *local)`` tensors; every call is ONE engine dispatch
-    (one CUDA-graph replay on the card). ``new_kv`` equals ``kv``
+    ``(num_devices, *local)`` tensors (on a peer session, lists of
+    ``num_devices`` local tensors, tensor *d* on ``devices[d]``, in and
+    out); every call is ONE engine dispatch (one CUDA-graph replay on the
+    card, one a card over peers). ``new_kv`` equals ``kv``
     everywhere except device ``dst``, which receives device ``src``'s
     chunk. The attention node's ``cost_ns`` is stamped from
     ``comm.telemetry``'s recorded ``flash_attention`` median (0 while it
@@ -114,7 +116,7 @@ def make_captured_decode_step(comm: "CommSession", *, batch: int,
         return c * torch.ones((), dtype=c.dtype, device=c.device)
 
     def kv_install(cur, mig):
-        dev = torch.arange(cur.shape[0], device=cur.device)[:, None]
+        dev = axis_index(cur)[:, None]
         return torch.where(dev == dst, mig, cur)
 
     def build(cap):

@@ -185,6 +185,13 @@ def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
 #: The captured step's metrics vector, in order (the reference's).
 METRIC_KEYS = ("grad_norm", "lr", "loss")
 
+#: What the captured DP step does not run yet on a peer session, and where
+#: it comes (ROADMAP.md, queue 1 item 1.3).
+PEER_DP_STEP_SLICE = ("the captured DP step over a peer session "
+                      "(CommSession(devices=[...])) comes with queue 1 item "
+                      "1.3 of the port, the DP steps over peers, held to "
+                      "its stacked run; pass a stacked session")
+
 
 def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
                                 opt: OptimConfig, comm: "CommSession",
@@ -208,8 +215,11 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     ``comm.stats()["dispatches"]`` grows by one per step. The graph's
     digest is the reference's for the same config, session and shapes.
     ``step.capture`` is the :class:`~repro_torch.comm.capture.CapturedStep`
-    (its ``capture.buffers`` size the step's arena).
+    (its ``capture.buffers`` size the step's arena). A peer session
+    raises ``NotImplementedError`` (:data:`PEER_DP_STEP_SLICE`).
     """
+    if getattr(comm, "devices", None) is not None:
+        raise NotImplementedError(PEER_DP_STEP_SLICE)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.engine.num_devices
     params_ex = state["params"]

@@ -62,6 +62,13 @@ the stacked session's, every result on its destination's device, one
 version, every driver-level collective and every ``session.collectives``
 op bit for bit as the stacked session's, one ``ring_allgather`` launch a
 card a replay and one ``multipath_dma`` launch a card a ring shift.
+Whole-iteration capture on a peer session (``-k peer_capture``): the
+captured Jacobi step, ``captured_psum``, ``captured_ring_allgather`` with
+a compute node, a migrating decode step and ``captured_multipath_dma``,
+each bit for bit as the stacked session's (attention at path F's
+tolerance), and a step whose hop-1 and hop-2 copies fall in different
+runs, replayed three times bit for bit as the stacked program; on one
+card, on four and on two cards holding two logical devices each.
 ``multipath_dma`` at the edges of its copy paths (``-k edges``): tiles
 whose ends differ mod 16, short items, tiles that are not multiples of 16
 bytes, a 1-byte dtype of odd length, a window of 2 and a three-path plan,
@@ -1625,6 +1632,168 @@ def test_peer_collectives_across_four_cards(dev):
     peer_collective_checks(cards, cards[0])
     peer_collective_checks([cards[0], cards[0], cards[1], cards[1]],
                            cards[0])
+
+
+# -- whole-iteration capture on a peer session -------------------------------
+
+def peer_capture_checks(devices, dev):
+    """Every captured step of the port on a peer session over
+    ``devices``, bitwise (attention within 4e-3 + 8e-3·|want|) the same
+    step on a stacked session on ``dev``, one dispatch a call, each
+    output on its logical device."""
+    from repro_torch.comm import captured_psum
+    from repro_torch.kernels.multipath_dma.ops import captured_multipath_dma
+    from repro_torch.kernels.ring_allgather.ops import (
+        captured_ring_allgather)
+
+    n = len(devices)
+    cfg = CommConfig(multipath_threshold=64)
+    peer = CommSession(cfg, devices=devices)
+    stacked = CommSession(cfg, device=dev)
+    plan = stacked.plan(0, 2, 4 * 300_001, max_paths=3, num_chunks=2,
+                        granularity=4)
+
+    def gather(cap):
+        g = captured_ring_allgather(cap, cap.input((6, 40), torch.float32),
+                                    n)
+        return cap.kernel(lambda t: t * 2.0 + 1.0, g, name="affine")
+
+    def psum(cap):
+        return captured_psum(cap, cap.input((50_001,), torch.float32), n,
+                             name="ps")
+
+    def dma(cap):
+        y = captured_multipath_dma(cap, cap.input((300_001,), torch.float32),
+                                   plan, n)
+        (r,) = cap.exchange([(y, 2, 1)], num_chunks=2)
+        return cap.kernel(lambda t: t * 0.5, r, name="half")
+
+    def decode(sess):
+        return make_captured_decode_step(
+            sess, batch=1, heads=4, kv_len=128, head_dim=128,
+            kv_chunk=1 << 19, src=0, dst=2, dtype=torch.bfloat16,
+            schedule="overlap", max_paths=3)
+
+    cases = [
+        (make_captured_jacobi_step(stacked, 8, 1000),
+         make_captured_jacobi_step(peer, 8, 1000), [(n, 8, 1000)]),
+        (stacked.capture(gather), peer.capture(gather), [(n, 6, 40)]),
+        (stacked.capture(psum), peer.capture(psum), [(n, 50_001)]),
+        (stacked.capture(dma), peer.capture(dma), [(n, 300_001)]),
+        (decode(stacked), decode(peer),
+         [(n, 1, 4, 128, 128)] * 3 + [(n, 1 << 19)])]
+    for k, (sstep, pstep, shapes) in enumerate(cases):
+        args = [torch.randn(sh, device=dev) for sh in shapes]
+        if k == 4:
+            args = [a.to(torch.bfloat16) for a in args]
+        want = sstep(*args)
+        per = [[a[d].to(devices[d]) for d in range(n)] for a in args]
+        d0 = peer.stats()["dispatches"]
+        for _ in range(3):
+            got = pstep(*per)
+        assert peer.stats()["dispatches"] == d0 + 3
+        assert sstep.resolve().digest == pstep.resolve().digest
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert all(t.device == torch.device(d)
+                       for t, d in zip(g, devices))
+            g = torch.stack([t.to(dev) for t in g])
+            if k == 4 and i == 0:
+                diff = (g.float() - w.float()).abs()
+                assert bool((diff <= 4e-3 + 8e-3 * w.float().abs()).all())
+            else:
+                assert torch.equal(g, w), (k, i)
+
+
+def peer_split_checks(devices, dev):
+    """A step whose hop-1 and hop-2 copies fall in different copy runs,
+    as a peer program over ``devices``, bit for bit as the stacked
+    program on ``dev`` over three replays."""
+    from repro_torch.comm import StepCapture, lower_step
+    from repro_torch.comm.capture import PeerStepProgram, StepProgram
+    from repro_torch.comm.passes import reindex
+
+    sess = CommSession(CommConfig(multipath_threshold=64), device=dev)
+    cap = StepCapture(4)
+    x = cap.input((1 << 20,), torch.float32)
+    z = cap.input((5,), torch.float32)
+    y = cap.kernel(lambda v: v * 2.0, x, name="double")
+    (r,) = cap.exchange([(y, 0, 1)], max_paths=3, num_chunks=2)
+    w = cap.kernel(lambda v: v - 1.0, z, name="side")
+    out = cap.kernel(lambda v: v + 1.0, r, name="inc")
+    graph, _ = lower_step(cap, sess.engine.plan_group_for,
+                          sess.topology.name)
+    chain = next(e for e in graph.edges if e.kind == "hop")
+    side = next(i for i, nd in enumerate(graph.nodes)
+                if getattr(nd, "kernel", None) == "side")
+    order = [i for i in range(graph.num_nodes) if i != side]
+    order.insert(order.index(chain.dst), side)
+    split = reindex(graph, order)
+    outputs = (out.buf_id, w.buf_id)
+    stacked = StepProgram(split, cap, outputs, 4, dev)
+    peer = PeerStepProgram(split, cap, outputs, devices)
+    assert len(peer.copy_runs) == 2
+    stacked.capture()
+    peer.capture()
+    for _ in range(3):
+        xs = torch.randn(4, 1 << 20, device=dev)
+        zs = torch.randn(4, 5, device=dev)
+        for buf, v in zip(stacked.inputs(), (xs, zs)):
+            buf.copy_(v)
+        for bufs, v in zip(peer.inputs(), (xs, zs)):
+            for view, row in zip(bufs, v.unbind(0)):
+                view[0].copy_(row)
+        stacked.replay()
+        peer.replay()
+        peer.synchronize()
+        for s_out, p_out in zip(stacked.outputs(), peer.outputs()):
+            assert torch.equal(torch.stack([v[0].to(dev) for v in p_out]),
+                               s_out)
+
+
+def test_peer_capture_on_one_card_bitwise_stacked(dev):
+    peer_capture_checks([dev] * 4, dev)
+    peer_split_checks([dev] * 4, dev)
+
+
+def test_kernels_with_large_shared_memory_on_every_peer_card(dev):
+    """Kernels that raise their shared-memory limit do so on each card
+    they run on, whichever ran first: flash attention (bfloat16 and
+    float32 at head dim 128, and its backward) and the RWKV-6 scan on
+    every card, each against its plain version, with the current device
+    left at card 0."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA cards")
+    for i in range(count):
+        card = torch.device("cuda", i)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 3e-5)):
+            q, k, v = (torch.randn(1, 8, 256, 128, device=card) * 0.3
+                       for _ in range(3))
+            q, k, v = (t.to(dt) for t in (q, k, v))
+            got = fk.flash_attention_cuda(q, k, v, causal=True)
+            want = fk.flash_attention_plain(q, k, v, causal=True)
+            assert got.device == card
+            assert (got.float() - want.float()).abs().max().item() <= tol
+        q, k, v = (torch.randn(1, 8, 256, 128, device=card,
+                               requires_grad=True) for _ in range(3))
+        out = flash_attention(q, k, v)
+        out.sum().backward()
+        assert q.grad.device == card and torch.isfinite(q.grad).all()
+        *rkvw, u = _rwkv(card, 2, 256, 1, 64, 64)
+        r, k, v, w = (t[:, :, 0] for t in rkvw)
+        got = sops.rwkv6_scan(r, k, v, w, u[:, 0], chunk=64)
+        plain = sops.rwkv6_scan(r.cpu(), k.cpu(), v.cpu(), w.cpu(),
+                                u[:, 0].cpu(), chunk=64)
+        assert _rel(got.cpu(), plain) < 1e-4
+
+
+def test_peer_capture_across_four_cards(dev):
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_capture_checks(devices, cards[0])
+        peer_split_checks(devices, cards[0])
 
 
 # -- multipath_dma at the edges of its copy paths -----------------------------

@@ -30,12 +30,14 @@ from repro.compat import shard_map
 from repro.core import halo as jhalo
 
 from repro_torch.comm import CommConfig, CommSession, TransferPlanCache
-from repro_torch.comm.engine import PEER_CAPTURE_SLICE, PlacedKey
+from repro_torch.comm.engine import PlacedKey
 from repro_torch.comm.graph import CopyNode
 from repro_torch.comm.session import resolve_devices
 from repro_torch.core import halo
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.multipath_dma import kernel as dk
+from repro_torch.training.train_step import (PEER_DP_STEP_SLICE,
+                                             make_captured_dp_train_step)
 
 KiB = 1 << 10
 CPU4 = ["cpu"] * 4
@@ -537,12 +539,16 @@ def test_per_device_jacobi_needs_a_session():
 
 
 def test_capture_on_a_peer_session_raises():
+    """Capture runs on a peer session (``tests/test_torch_peer_capture.py``
+    holds it to the stacked session); the captured DP step over peers
+    still raises, naming the slice that brings it."""
     sess = CommSession(devices=CPU4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sess.capture(lambda cap: cap.input((4,), torch.float32))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        halo.make_captured_jacobi_step(sess, 8, 12)
-    assert "StepProgram" in PEER_CAPTURE_SLICE
+    step = sess.capture(lambda cap: cap.input((4,), torch.float32))
+    (out,) = step([torch.full((4,), float(d)) for d in range(4)])
+    assert [o.tolist() for o in out] == [[float(d)] * 4 for d in range(4)]
+    with pytest.raises(NotImplementedError, match="item 1.3"):
+        make_captured_dp_train_step(None, None, None, sess, None, None)
+    assert "peer session" in PEER_DP_STEP_SLICE
 
 
 def test_compiled_for_stages_one_view_a_device():

@@ -6,7 +6,8 @@ that reach each other (peer access; NVLink on an H100 host)::
     python3 tools/peer_smoke.py
 
 It raises unless it sees four such cards. It builds the
-``multipath_dma``, ``jacobi`` and ``ring_allgather`` kernels, prints
+``multipath_dma``, ``jacobi``, ``ring_allgather`` and ``flash_attention``
+kernels, prints
 ``nvidia-smi topo -m`` (where that fails, ``topo -p2p n`` and then
 ``nvlink -s``) and every card's name and power limit, then drives a peer
 session,
@@ -41,8 +42,19 @@ monitor off so that no plan changes mid-sweep), and prints:
   as the 12 peer ``copy_`` of its blocks) and the stacked session's
   replay on one card;
 * path A's Jacobi application, 4 blocks of (8, 2**22) float32, one block
-  a card, 10 iterations, bitwise against one card's stacked run, with the
-  time of an iteration on both;
+  a card, 10 iterations, eagerly (``jacobi_step``) and as the captured
+  step (``make_captured_jacobi_step`` on the peer session: one arena and
+  one CUDA graph a card), each bitwise against one card's stacked run;
+  an iteration timed by CUDA events: the captured step's replay on every
+  card (events recorded after the replay's cross-card ordering, the
+  slowest card's elapsed time), the eager peer iteration and the one-card
+  captured step's replay;
+* path F's migrating decode step across the cards (batch 1, 32 heads,
+  2048 positions, head dim 128 bfloat16, an 8 MiB bfloat16 KV chunk
+  0→2, schedule ``overlap``, whose copies fall in two runs with hop-1
+  stages awaited across them): the KV chunk bitwise, attention within
+  4e-3 + 8e-3·|want| of one card's stacked step, the replay timed the
+  same way against the one-card step's;
 * ``calibrate()`` on the sends' telemetry: the fitted bandwidth of every
   link that carried traffic, and the launch terms;
 * a JSON line of every reading, then ``{"ok": true, "device": {...,
@@ -203,6 +215,137 @@ def host_ms(fn, cards, iters: int, warmup: int = 2) -> float:
         fn()
         sync_all(cards)
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def replay_cards_ms(prog, iters: int, warmup: int = 2
+                    ) -> tuple[float, list[float]]:
+    """Mean ms of a replay of a program over several cards by CUDA events
+    on every card: a start event on each card's stream once the first
+    replay's cross-card ordering is enqueued, an end event after the last
+    replay; returns the slowest card's elapsed time and each card's."""
+    cards = prog.cards
+    for _ in range(warmup):
+        prog.replay()
+    sync_all(cards)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    for i in range(iters):
+        prog.order()
+        if i == 0:
+            for ev, c in zip(starts, cards):
+                ev.record(torch.cuda.current_stream(c))
+        for card, graph in prog._graphs:
+            with torch.cuda.device(card):
+                graph.replay()
+    for ev, c in zip(ends, cards):
+        ev.record(torch.cuda.current_stream(c))
+    sync_all(cards)
+    per = [a.elapsed_time(b) / iters for a, b in zip(starts, ends)]
+    return max(per), per
+
+
+def captured_steps(cards, stacked, u0, rows: int, cols: int, iters: int,
+                   u_eager, gen) -> dict:
+    """The captured Jacobi step and the migrating decode step on a peer
+    session over ``cards`` (health off, no telemetry, so the sends'
+    calibration samples stay the sends'), held to one card's stacked
+    session and timed (module docstring)."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
+    from repro_torch.serving.engine import make_captured_decode_step
+
+    n = len(cards)
+    sess = CommSession(CommConfig(health=False), devices=cards)
+    one = make_captured_jacobi_step(stacked, rows, cols)
+    step = make_captured_jacobi_step(sess, rows, cols)
+    uc = u0
+    for _ in range(iters):
+        (uc,) = one(uc)
+    blocks = [u0[i].to(cards[i]) for i in range(n)]
+    for _ in range(iters):
+        (blocks,) = step(blocks)
+    sync_all(cards)
+    check(all(b.device == c for b, c in zip(blocks, cards)),
+          "captured Jacobi blocks left their cards")
+    got = torch.stack([b.to(cards[0]) for b in blocks])
+    check(torch.equal(got, uc) and torch.equal(got, u_eager),
+          "captured peer Jacobi differs from one card's stacked run")
+    prog = step.resolve().compiled.program
+    runs = sum(len(r.program.launches) for r in prog.copy_runs)
+    check(prog.replay_launches == {"jacobi": n, "multipath_dma": runs},
+          f"captured peer Jacobi replay launches {prog.replay_launches}, "
+          f"expected {n} jacobi and {runs} multipath_dma")
+    cap_ms, per_card = replay_cards_ms(prog, 20)
+    one_ms = device_ms(one.resolve().compiled.program.replay, cards[:1], 20)
+    eager_ms = device_ms(lambda: jacobi_step(blocks, session=sess), cards,
+                         10)
+    out = {"jacobi": {
+        "shape": [n, rows, cols], "iters": iters,
+        "walk": [type(w).__name__ for w in prog.walk],
+        "replay_launches": prog.replay_launches,
+        "captured_replay_ms": cap_ms, "captured_replay_ms_per_card": per_card,
+        "eager_iter_ms": eager_ms, "one_card_captured_replay_ms": one_ms}}
+    print(f"captured Jacobi {n}x({rows},{cols}) f32, {iters} iterations on "
+          f"{n} cards: bitwise the one-card stacked run (eager and "
+          f"captured), per replay {prog.replay_launches}; an iteration "
+          f"(CUDA events): captured replay {cap_ms:.4f} ms (slowest card; "
+          f"each {[round(t, 4) for t in per_card]}), eager peer "
+          f"jacobi_step {eager_ms:.4f} ms, one-card captured replay "
+          f"{one_ms:.4f} ms", flush=True)
+    del blocks, got, uc
+
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd
+    kw = dict(batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+              kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+              schedule="overlap")
+    q, k, v = (torch.randn(n, 1, heads, kv_len, hd, generator=gen,
+                           device=cards[0]).to(torch.bfloat16)
+               for _ in range(3))
+    kv = torch.randn(n, kv_chunk, generator=gen, device=cards[0]).to(
+        torch.bfloat16)
+    one = make_captured_decode_step(stacked, **kw)
+    want_attn, want_kv = one(q, k, v, kv)
+    step = make_captured_decode_step(sess, **kw)
+    per = [[t[i].to(cards[i]) for i in range(n)] for t in (q, k, v, kv)]
+    for _ in range(2):
+        attn, new_kv = step(*per)
+    sync_all(cards)
+    got_kv = torch.stack([t.to(cards[0]) for t in new_kv])
+    check(torch.equal(got_kv, want_kv), "peer decode step: the KV chunk "
+          "differs from one card's stacked step")
+    expect = kv.clone()
+    expect[2] = kv[0]
+    check(torch.equal(got_kv, expect), "peer decode step: the KV chunk did "
+          "not land bitwise on card 2")
+    got_attn = torch.stack([t.to(cards[0]) for t in attn]).float()
+    diff = (got_attn - want_attn.float()).abs()
+    err = diff.max().item()
+    check(bool((diff <= 4e-3 + 8e-3 * want_attn.float().abs()).all()),
+          f"peer decode step attention: max abs err {err} against one "
+          f"card's stacked step")
+    entry = step.resolve()
+    prog = entry.compiled.program
+    run_of = {i: r for r, run in enumerate(prog.copy_runs)
+              for i in run.nodes}
+    cross = sum(1 for e in entry.graph.edges
+                if e.kind == "hop" and run_of[e.src] != run_of[e.dst])
+    cap_ms, per_card = replay_cards_ms(prog, 10)
+    one_ms = device_ms(one.resolve().compiled.program.replay, cards[:1], 10)
+    out["decode"] = {
+        "walk": [type(w).__name__ for w in prog.walk],
+        "cross_run_hops": cross, "replay_launches": prog.replay_launches,
+        "attn_max_abs_err": err, "captured_replay_ms": cap_ms,
+        "captured_replay_ms_per_card": per_card,
+        "one_card_captured_replay_ms": one_ms}
+    print(f"captured decode step across {n} cards (8 MiB bf16 KV chunk "
+          f"0->2, overlap; walk {out['decode']['walk']}, {cross} hop "
+          f"edges across copy runs): KV chunk bitwise, attention max abs "
+          f"err {err} against one card's stacked step, per replay "
+          f"{prog.replay_launches}; replay (CUDA events) {cap_ms:.4f} ms "
+          f"(slowest card; each {[round(t, 4) for t in per_card]}), one-card "
+          f"replay {one_ms:.4f} ms", flush=True)
+    return out
 
 
 def iters_for(nbytes: int) -> int:
@@ -569,7 +712,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; package "
           f"from {SRC}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(("multipath_dma", "jacobi", "ring_allgather"))
+    _build.build_all(("multipath_dma", "jacobi", "ring_allgather",
+                      "flash_attention"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     if args.sweep or args.collectives:
         if args.sweep:
@@ -713,15 +857,12 @@ def main() -> int:
           "Jacobi blocks left their cards")
     check(torch.equal(torch.stack([b.to(cards[0]) for b in blocks]), u),
           "peer Jacobi differs from one card's stacked run")
-    peer_it = host_ms(lambda: jacobi_step(blocks, session=sess), cards, 10)
-    one_it = host_ms(lambda: jacobi_step(u, session=stacked), cards, 10)
-    results["jacobi"] = {"shape": [ranks, rows, cols], "iters": iters,
-                         "peer_iter_ms": peer_it, "one_card_iter_ms": one_it}
     print(f"Jacobi {ranks}x({rows},{cols}) f32, {iters} iterations on 4 "
-          f"cards: bitwise the one-card stacked run; an iteration {peer_it:.4f}"
-          f" ms on 4 cards, {one_it:.4f} ms on one (host clock, synced)",
-          flush=True)
-    del u0, u, blocks, stacked
+          f"cards: bitwise the one-card stacked run", flush=True)
+    del blocks
+    results.update(captured_steps(cards, stacked, u0, rows, cols, iters, u,
+                                  gen))
+    del u0, u, stacked
 
     t0 = time.perf_counter()
     prof = sess.calibrate(min_samples=2, warmup=1)
