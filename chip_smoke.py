@@ -459,7 +459,21 @@ What it does, in order (any failed check exits nonzero):
     step: 4 ``jacobi``, one a logical device, and one ``multipath_dma`` a
     copy run); the Jacobi and decode replays timed by CUDA events against
     the stacked session's, in turns;
-31. one JSON line ``{"kernels": [...]}``, then as the last line
+31. main path X, each part's counters set to 0 just before its peer run
+    and read just after it (X1-X4): the training side on a peer session
+    on the one card, ``CommSession(devices=["cuda:0"] * 4)``, each part
+    bitwise the same call on the stacked session, run first: X1 path J's
+    DP step and captured DP step at full width, 2 layers, float32 (the
+    captured step's replica d against row d of the stacked program, its
+    digest and ``GroupKey`` the stacked step's, one dispatch a call, a
+    call's launches its program's replay launches); X2 the eager DP step
+    at 32 layers in bfloat16; X3 path Q's compressed mean and its
+    feedback variant on per-device lists; X4 path P's pipeline of
+    Llama-3 8B, a stage a logical device, one exchange dispatch a tick.
+    Then, in turns against the stacked session's: the eager step at 32
+    layers, the captured step at 2 layers in bfloat16 and the pipeline
+    call;
+32. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -4469,7 +4483,7 @@ def pipeline_path(dev, errs, per_path, read_path, smi) -> dict:
     from repro_torch.core.topology import Topology
     from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.models import transformer as tfm
-    from repro_torch.training.pipeline import (_pipeline_apply_stacked,
+    from repro_torch.training.pipeline import (_pipeline_surfaced,
                                                block_stages,
                                                make_block_stage_fn,
                                                pipeline_apply,
@@ -4573,10 +4587,9 @@ def pipeline_path(dev, errs, per_path, read_path, smi) -> dict:
         # every stage's row of the surfaced outputs, outside the counted
         # run: the stacked result that pipeline_apply returns row 0 of
         for multipath, (out, _, _) in calls.items():
-            rows = _pipeline_apply_stacked(stage_fn, stages, x,
-                                           microbatches=m,
-                                           multipath=multipath,
-                                           session=sess)
+            rows = _pipeline_surfaced(stage_fn, stages, x,
+                                      microbatches=m, multipath=multipath,
+                                      session=sess)
             check(all(torch.equal(rows[i], out) for i in range(p)),
                   f"path P (multipath={multipath}): surfaced rows differ")
             del rows
@@ -5882,6 +5895,317 @@ def peer_capture_path(dev, errs, per_path, read_path, at_c: dict) -> None:
           flush=True)
 
 
+def same_tree(a, b) -> bool:
+    """Every leaf of ``a`` bit for bit the leaf of ``b`` (dtypes equal)."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def in_turns(fns: dict, order: tuple, time_fn) -> dict:
+    """``time_fn(fns[label])`` for each label of ``order`` (stacked, peer,
+    peer, stacked): label -> its readings in call order."""
+    out: dict[str, list] = {}
+    for label in order:
+        out.setdefault(label, []).append(time_fn(fns[label]))
+    return out
+
+
+def turns_text(times: dict) -> str:
+    return ", ".join(f"{k} " + " / ".join(f"{v:.2f}" for v in vs)
+                     for k, vs in times.items())
+
+
+#: Path X's order of timed runs: the stacked session, the peer session
+#: twice, the stacked session again.
+TURNS = ("stacked", "peer", "peer", "stacked")
+
+
+def peer_training_path(dev, errs, per_path, read_path, smi) -> None:
+    """Main path X (phase 31): the training side on a peer session on the
+    one card, ``CommSession(devices=["cuda:0"] * 4)``, each part held bit
+    for bit to the same call on the stacked session, run first (and not
+    counted), then with every counter set to 0 just before the peer run
+    and read just after it: X1 path J's DP step and captured DP step at
+    full width, 2 layers, float32 (TF32 off), one step from one tree (the
+    captured step's every replica against the stacked step's state; one
+    dispatch; the launches of a call its program's replay launches), and
+    one more captured call from the per-device replicas against the
+    stacked step fed its own state; X2 the eager
+    DP step at 32 layers in bfloat16, one step from ``replicate_state``;
+    X3 path Q's ``compressed_psum_tree`` over SmolLM-360M's leaves and
+    ``compressed_psum_with_feedback`` at its embedding leaf, on per-device
+    lists; X4 path P's pipeline of Llama-3 8B (4 stages placed one a
+    logical device, 8 microbatches of (1, 2048), the planner's split),
+    one exchange dispatch a tick and one for the surfacing psum. Then
+    times in turns against the stacked session's (host clock, synced):
+    the eager step at 32 layers, the captured step at 2 layers in
+    bfloat16 (the two arenas do not fit the card together: each built,
+    timed and freed in turn, its arena printed) and the pipeline call."""
+    import dataclasses
+    import math
+
+    from repro_torch.comm import CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.kernels._graph import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import OptimConfig
+    from repro_torch.optim import compression as comp
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, replicate_state)
+    from repro_torch.training.pipeline import (block_stages,
+                                               make_block_stage_fn,
+                                               pipeline_apply, place_stages)
+    from repro_torch.tree import tree_map
+
+    # -- 31. main path X: training on a peer session --------------------------
+    t_path = time.perf_counter()
+    n = 4
+    full = get_config("smollm_360m")
+    ts = TrainStepConfig()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+
+    def batches(cfg, count):
+        ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_BATCH))
+        return [batch_to(ds.batch_at(i), dev) for i in range(count)]
+
+    def fresh(cfg, seed):
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # X1: the DP steps at full width, 2 layers, float32
+    cfg32 = dataclasses.replace(full, num_layers=2, dtype="float32")
+    (batch,) = batches(cfg32, 1)
+    state = fresh(cfg32, 51)
+    stacked = CommSession(device=dev)
+    want_eager, want_em = make_dp_train_step(cfg32, ts, opt, stacked)(
+        state, batch)
+    scap = make_captured_dp_train_step(cfg32, ts, opt, stacked, state, batch)
+    want_one, want_cm = scap(state, batch)
+    want_two, _ = scap(want_one, batch)
+    s_entry = scap.capture.resolve()
+    s_key = (s_entry.digest, s_entry.key)
+    s_arena = arena_bytes(scap.capture.capture)
+    del scap, s_entry, stacked
+    free()
+    peer = CommSession(devices=[dev] * n)
+    reset_launch_counts()
+    reps, em = make_dp_train_step(cfg32, ts, opt, peer)(state, batch)
+    check(all(same_tree(r, want_eager) for r in reps)
+          and all(torch.equal(em[k], want_em[k]) for k in want_em),
+          "path X1: the peer eager DP step differs from the stacked one")
+    del reps, want_eager
+    pcap = make_captured_dp_train_step(cfg32, ts, opt, peer, state, batch)
+    entry = pcap.capture.resolve()
+    c0, d0 = launch_counts(), peer.stats()["dispatches"]
+    rows, cm = pcap(state, batch)
+    torch.cuda.synchronize()
+    call_launches = {k: v - c0[k] for k, v in launch_counts().items()
+                     if v != c0[k]}
+    one_dispatch = peer.stats()["dispatches"] - d0 == 1
+    again, _ = pcap(rows, batch)                 # each replica fed back
+    torch.cuda.synchronize()
+    read_path("X1")
+    check(all(math.isfinite(float(r["params"]["final_norm"].sum()))
+              for r in again), "path X1: a fed-back replica is not finite")
+    check(all(same_tree(r, want_two) for r in again),
+          "path X1: a fed-back captured replica differs from the stacked "
+          "step fed its own state")
+    del again, want_two
+    check(all(same_tree(r, want_one) for r in rows),
+          "path X1: a captured replica differs from the stacked step")
+    check(all(torch.equal(cm[k], want_cm[k]) for k in want_cm),
+          "path X1: the captured step's metrics differ from the stacked "
+          "step's")
+    check((entry.digest, entry.key) == s_key,
+          "path X1: digest or GroupKey differs from the stacked step's")
+    check(one_dispatch, "path X1: the captured call is not one dispatch")
+    prog = entry.compiled.program
+    check(call_launches == prog.replay_launches,
+          f"path X1: a captured call launched {call_launches}, its program "
+          f"replays {prog.replay_launches}")
+    print(f"path X1 ({smi}): SmolLM-360M full width, 2 layers, float32, "
+          f"TF32 off, {TRAIN_BATCH} x {TRAIN_SEQ} tokens on "
+          f"CommSession(devices=[{dev}] * {n}): the eager DP step's {n} "
+          f"replicas bitwise the stacked step's state, metrics equal; the "
+          f"captured step's {n} replicas bitwise the stacked step's state "
+          f"(a tree-ordered psum), metrics equal, digest and GroupKey the "
+          f"stacked step's, one dispatch a call, launches a call "
+          f"{call_launches} = its program's replay launches; arena "
+          f"{s_arena / 1e9:.2f} GB, over {n} logical devices; a second "
+          f"call fed the {n} replicas back bitwise the stacked step fed "
+          f"its own state; launches {per_path['X1']}",
+          flush=True)
+    del state, pcap, entry, prog, rows, want_one, peer, batch
+    free()
+
+    # X2: the eager DP step at 32 layers, bfloat16
+    bts = batches(full, 3)
+    state = fresh(full, 52)
+    stacked = CommSession(device=dev)
+    sstep = make_dp_train_step(full, ts, opt, stacked)
+    want, want_m = sstep(state, bts[0])
+    peer = CommSession(devices=[dev] * n)
+    pstep = make_dp_train_step(full, ts, opt, peer)
+    reps = replicate_state(state, peer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got, m = pstep(reps, bts[0])
+    torch.cuda.synchronize()
+    read_path("X2")
+    check(all(same_tree(r, want) for r in got)
+          and all(torch.equal(m[k], want_m[k]) for k in want_m),
+          "path X2: the peer eager DP step at 32 layers differs from the "
+          "stacked one")
+    del got, want
+    eager_ms = in_turns(
+        {"stacked": lambda: sstep(state, bts[1]),
+         "peer": lambda: pstep(reps, bts[1])},
+        TURNS, lambda fn: host_time_ms(fn, 2, warmup=1))
+    print(f"path X2 ({smi}): the eager DP step, SmolLM-360M full width, "
+          f"32 layers, bfloat16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: the "
+          f"{n} replicas bitwise the stacked step's; ms a step in turns "
+          f"(host clock, synced, mean of 2): {turns_text(eager_ms)}; "
+          f"launches {per_path['X2']}", flush=True)
+    del state, reps, sstep, pstep, stacked, peer
+    free()
+
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    state = fresh(cfg2, 53)
+    bts2 = batches(cfg2, 3)
+
+    def captured_ms(label):
+        sess = (CommSession(device=dev) if label == "stacked"
+                else CommSession(devices=[dev] * n))
+        step = make_captured_dp_train_step(cfg2, ts, opt, sess, state,
+                                           bts2[0])
+        t0 = time.perf_counter()
+        step.capture.resolve()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ms = host_time_ms(lambda: step(state, bts2[1]), 3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del step, sess
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        return ms, build_s, peak
+
+    cap_ms = in_turns({k: k for k in ("stacked", "peer")}, TURNS,
+                      captured_ms)
+    print(f"path X2 ({smi}): the captured DP step, full width, 2 layers, "
+          f"bfloat16 (each arena built, timed and freed in turn: they do "
+          f"not fit the card together): ms a step (host clock, synced, "
+          f"mean of 3), build s, peak GiB: " + "; ".join(
+              f"{k} " + " / ".join(f"{ms:.2f} ms, {b:.1f} s, {p:.1f} GiB"
+                                   for ms, b, p in vs)
+              for k, vs in cap_ms.items()), flush=True)
+    del state, bts2, bts
+    free()
+
+    # X3: the compressed mean on per-device lists
+    gen = torch.Generator(device=dev).manual_seed(54)
+    grads = tree_map(lambda t: torch.randn((n,) + tuple(t.shape),
+                                           generator=gen, device=dev)
+                     .mul_(0.01), param_shapes(full))
+    stacked = CommSession(device=dev, topology=Topology.full_mesh(n))
+    peer = CommSession(devices=[dev] * n)
+    want = comp.compressed_psum_tree(grads, stacked)
+    eg = grads["embed"]
+    res = torch.randn(eg.shape, generator=gen, device=dev) * 1e-3
+    want_fb = comp.compressed_psum_with_feedback(eg, res, stacked)
+    members = [tree_map(lambda g, d=d: g[d].clone(), grads)
+               for d in range(n)]
+    del grads
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = comp.compressed_psum_tree(members, peer)
+    got_fb = comp.compressed_psum_with_feedback(
+        [m["embed"] for m in members], list(res.unbind(0)), peer)
+    torch.cuda.synchronize()
+    read_path("X3")
+    check(all(same_tree(g, tree_map(lambda t, d=d: t[d], want))
+              for d, g in enumerate(got)),
+          "path X3: the peer compressed mean differs from the stacked one")
+    check(all(torch.equal(a, b) for out, w in zip(got_fb, want_fb)
+              for a, b in zip(out, w.unbind(0))),
+          "path X3: the peer feedback variant differs from the stacked one")
+    tree_ms = host_time_ms(lambda: comp.compressed_psum_tree(members, peer),
+                           2, warmup=1)
+    pmean_ms = host_time_ms(lambda: [peer.collectives.pmean(list(r))
+                                     for r in zip(*map(_leaves, members))],
+                            2, warmup=1)
+    print(f"path X3 ({smi}): compressed_psum_tree over "
+          f"{len(_leaves(members[0]))} leaves of smollm_360m x {n} members "
+          f"and compressed_psum_with_feedback at the {tuple(eg.shape[1:])} "
+          f"embedding leaf on per-device lists: bitwise the stacked forms' "
+          f"rows; {tree_ms:.2f} ms a tree, the peer pmean of the same "
+          f"lists {pmean_ms:.2f} ms; launches {per_path['X3']}", flush=True)
+    del want, want_fb, members, got, got_fb, eg, res, stacked, peer
+    free()
+
+    # X4: the pipeline of Llama-3 8B, a stage a logical device
+    p, m, s = PIPE_STAGES, PIPE_MICRO, PIPE_SEQ
+    cfg = get_config("llama3_8b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"layers": tfm.block_init(cfg, generator=gen, device=dev,
+                                       lead=(cfg.num_layers,))}
+    x = torch.randn(m, 1, s, cfg.d_model, generator=gen, device=dev).mul_(
+        cfg.d_model ** -0.5).to(torch.bfloat16)
+    positions = torch.arange(s, device=dev)
+    stage_fn = make_block_stage_fn(cfg, p, positions)
+    stages = block_stages(params, p)
+    stacked = CommSession(device=dev, topology=Topology.full_mesh(p))
+    peer = CommSession(devices=[dev] * p)
+    placed = place_stages(stages, peer)
+    ticks = m + p - 1
+    with torch.no_grad():
+        want = pipeline_apply(stage_fn, stages, x, microbatches=m,
+                              multipath=True, session=stacked)
+        torch.cuda.synchronize()
+        d0 = peer.stats()["dispatches"]
+        reset_launch_counts()
+        got = pipeline_apply(stage_fn, placed, x, microbatches=m,
+                             multipath=True, session=peer)
+        torch.cuda.synchronize()
+        read_path("X4")
+        disp = peer.stats()["dispatches"] - d0
+        check(torch.equal(got, want), "path X4: the peer pipeline differs "
+              "from the stacked one")
+        check(disp == ticks + 1, f"path X4: {disp} dispatches, want {ticks} "
+              f"handoffs and the surfacing psum")
+        check(per_path["X4"].get("flash_attention", 0)
+              == ticks * cfg.num_layers,
+              f"path X4: flash_attention launched "
+              f"{per_path['X4'].get('flash_attention', 0)} times, want "
+              f"{ticks * cfg.num_layers}")
+        pipe_ms = in_turns(
+            {"stacked": lambda: pipeline_apply(
+                stage_fn, stages, x, microbatches=m, multipath=True,
+                session=stacked),
+             "peer": lambda: pipeline_apply(
+                 stage_fn, placed, x, microbatches=m, multipath=True,
+                 session=peer)},
+            TURNS, lambda fn: host_time_ms(fn, 1, warmup=0))
+    print(f"path X4 ({smi}): Llama-3 8B, {cfg.num_layers} layers in {p} "
+          f"stages placed a logical device, {m} microbatches of (1, {s}), "
+          f"the planner's split: bitwise the stacked session's pipeline, "
+          f"{disp} dispatches ({ticks} handoffs and the surfacing psum); ms "
+          f"a call in turns (host clock, synced): {turns_text(pipe_ms)}; "
+          f"launches {per_path['X4']}; path X "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    del params, stages, placed, x, want, got, stacked, peer
+    free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6169,16 +6493,20 @@ def main() -> int:
     peer_capture_path(dev, errs, per_path, read_path, launch64)
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peer_training_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-W): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-X): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 31. report --------------------------------------------------------
+    # -- 32. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -785,17 +785,57 @@ class CapturedStep:
         with the capture's declared inputs (stacked inputs are
         ``(num_devices, *local)``, on a peer session lists of
         ``num_devices`` local tensors, tensor *d* for ``devices[d]``;
-        replicated inputs are bare local tensors)."""
+        replicated inputs are bare local tensors, copied to every device,
+        or on a peer session also a list of ``num_devices`` local tensors,
+        tensor *d* on ``devices[d]``, each staged by a copy on its own
+        device; a list with a wrong device or shape raises
+        ``ValueError``). Each device's kernels read their own copy of a
+        replicated list (the captured DP step's replicas, fed back)."""
         return self.engine.run_step(
             self, tensors,
             schedule=schedule if schedule is not None else self.schedule,
             block=block)
 
 
+def _joined(received) -> torch.Tensor:
+    """A device's received value: the exact zero-sum of the receptions."""
+    got = received[0]
+    for x in received[1:]:
+        got = got + x
+    return got
+
+
+def _ring_round(acc_v, *received):
+    got = _joined(received)
+    return acc_v + got, got
+
+
+def _tree_forward(acc_v, *received):
+    return acc_v, _joined(received)
+
+
+def _tree_close(acc_v, *received):
+    total = acc_v + _joined(received)
+    return total, total
+
+
+def _tree_closes(n: int) -> set[int]:
+    """The rounds of a tree psum over ``n`` devices (a power of two) that
+    close a level: level *l* forwards for ``n / 2**(l+1)`` rounds and
+    adds what the last of them brings."""
+    closes, r, span = set(), -1, n // 2
+    while span:
+        r += span
+        closes.add(r)
+        span //= 2
+    return closes
+
+
 def captured_psum(cap: StepCapture, ref: BufferRef, num_devices: int, *,
                   max_paths: int | None = None,
                   num_chunks: int | None = None,
-                  name: str | None = None) -> BufferRef:
+                  name: str | None = None,
+                  tree: bool = False) -> BufferRef:
     """Express a ring all-reduce *sum* of a 1-D buffer as capture ops.
 
     ``num_devices - 1`` rounds; each round is one fused multipath
@@ -804,23 +844,33 @@ def captured_psum(cap: StepCapture, ref: BufferRef, num_devices: int, *,
     module-docstring contract) and accumulates. The whole collective
     therefore lives inside the SAME step graph as the compute that
     produced ``ref``. Divide by ``num_devices`` afterwards for a pmean.
+
+    By default every device adds the others' values in its own ring
+    order, so the devices' sums may differ in their last bits. With
+    ``tree=True`` (``num_devices`` a power of two) the same exchanges and
+    kernels add in one halving-tree order instead: a level of distance
+    *D* forwards what it receives for *D* rounds, and its last round adds
+    the value *D* devices to the left, ``((x0 + x2) + (x1 + x3))`` at 4
+    devices. Every device's sum then has the same bits. The rounds'
+    kernels are named ``{name}_r{r}`` either way (the names the digest
+    keys): a tree sum and a ring sum in one session take different names.
     """
     n = int(num_devices)
     if n < 2:
         return ref
-    prefix = name if name is not None else f"psum{len(cap.ops)}"
+    if tree and n & (n - 1):
+        raise ValueError(f"a tree psum needs a power-of-two device count, "
+                         f"got {n}")
+    prefix = name if name is not None else (
+        f"{'treesum' if tree else 'psum'}{len(cap.ops)}")
     nelems = cap.buffers[cap._resolve(ref)].shape[0]
+    closes = _tree_closes(n) if tree else set()
     acc, cur = ref, ref
     for r in range(n - 1):
         recvs = cap.exchange([(cur, i, (i + 1) % n) for i in range(n)],
                              max_paths=max_paths, num_chunks=num_chunks)
-
-        def combine(acc_v, *received):
-            got = received[0]
-            for x in received[1:]:
-                got = got + x
-            return acc_v + got, got
-
+        combine = (_ring_round if not tree else
+                   _tree_close if r in closes else _tree_forward)
         acc, cur = cap.kernel(combine, acc, *recvs,
                               name=f"{prefix}_r{r}",
                               flops=(n + 1) * nelems)

@@ -1112,6 +1112,26 @@ class MultiPathTransfer:
             self._fastpath.put(sig, epoch, entry)
         return entry
 
+    def _check_rows(self, bid: int, spec, t) -> None:
+        """A peer step's per-device input for buffer ``bid``: a list of
+        ``num_devices`` tensors of the local shape, else ``ValueError``. A
+        replicated buffer's list must also place tensor *d* on
+        ``devices[d]``, so that staging it copies on each device and
+        nothing crosses a card."""
+        if (not isinstance(t, (list, tuple)) or len(t) != self.num_devices
+                or any(tuple(td.shape) != spec.shape for td in t)):
+            raise ValueError(
+                f"input for buffer {bid} must be a list of "
+                f"{self.num_devices} tensors of shape {spec.shape} (one a "
+                f"logical device)")
+        if spec.replicated and any(td.device != d
+                                   for td, d in zip(t, self.devices)):
+            raise ValueError(
+                f"replicated input for buffer {bid} given as a list must "
+                f"hold tensor d on devices[d] "
+                f"({[str(d) for d in self.devices]}), got "
+                f"{[str(td.device) for td in t]}")
+
     def _launch_step(self, entry: _StepEntry,
                      tensors: Sequence[torch.Tensor], *,
                      block: bool) -> list[torch.Tensor]:
@@ -1130,14 +1150,9 @@ class MultiPathTransfer:
         t0 = time.perf_counter_ns()
         for bid, t, buf in zip(program.inputs, tensors, compiled.inputs()):
             spec = program.buffers[bid]
-            if peer and not spec.replicated:
-                if (not isinstance(t, (list, tuple))
-                        or len(t) != self.num_devices
-                        or any(tuple(td.shape) != spec.shape for td in t)):
-                    raise ValueError(
-                        f"input for buffer {bid} must be a list of "
-                        f"{self.num_devices} tensors of shape {spec.shape} "
-                        f"(one a logical device)")
+            if peer and (not spec.replicated
+                         or isinstance(t, (list, tuple))):
+                self._check_rows(bid, spec, t)
                 for view, td in zip(buf, t):
                     view[0].copy_(td)
                 continue

@@ -62,8 +62,10 @@ and returns per-device lists. ``capture`` records the same step as on a stacked
 session (the same digest and ``GroupKey``) and runs it with one arena a
 logical device and one CUDA graph a card: a non-replicated input is a
 list of ``n`` local tensors, tensor *d* on ``devices[d]``, a replicated
-one a single tensor staged to every device, and each declared output
-comes back as such a list.
+one a single tensor staged to every device or such a list, and each
+declared output comes back as such a list. The training side passes
+lists: the DP steps (``make_dp_train_step``,
+``make_captured_dp_train_step``), the pipeline and the compressed mean.
 
 Link faults (DESIGN §4.6): ``CommConfig.health`` (on by default) attaches
 a :class:`~repro_torch.comm.health.HealthMonitor` that watches the
@@ -79,6 +81,7 @@ modeled costs and the fault state it was planned under.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import warnings
@@ -131,6 +134,14 @@ def resolve_device(device: torch.device | str | None, *,
     return device
 
 
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current card (its stream takes
+    the launches); nothing for a CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 @dataclasses.dataclass(frozen=True)
 class CollectiveKey:
     """Plan-cache key for a captured collective.
@@ -155,13 +166,12 @@ class CollectiveKey:
 
 
 #: What a peer session's ``collectives`` refuse, and where it comes: a
-#: stacked operand, which the steps built over stacked rows pass.
+#: stacked operand, which the mesh's MoE combine still passes.
 PEER_COLLECTIVES_SLICE = (
     "a peer session's collectives take one tensor a logical device (a "
-    "list, xs[d] on devices[d]); the steps that pass stacked (n, ...) "
-    "operands (the DP train steps, the pipeline, the compressed mean, the "
-    "mesh's MoE combine) come over peer cards with a later slice of the "
-    "port")
+    "list, xs[d] on devices[d]); the mesh's MoE combine, which passes "
+    "stacked (n, ...) operands, comes over peer cards with a later slice "
+    "of the port")
 
 #: Per collective: the kind a cost count records it as, whether its
 #: driver-level operand is replicated (else cut along dim 0 into the
@@ -561,7 +571,8 @@ class CommSession:
         logical device on its device, one graph a card): its step takes a
         list of ``num_devices`` local tensors for each non-replicated
         input (tensor *d* on ``devices[d]``), one tensor for a replicated
-        one, and returns one such list a declared output.
+        one (copied to every device) or such a list (each tensor on its
+        own device already), and returns one such list a declared output.
         """
         return self.engine.capture(build_fn, schedule=schedule)
 

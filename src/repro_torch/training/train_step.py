@@ -20,6 +20,11 @@ Three builders:
   rounds of the multipath ring all-reduce (``captured_psum``) and the
   AdamW update, replayed as one ``torch.cuda.CUDAGraph`` per call.
 
+Both DP steps also run on a peer session (``CommSession(devices=[...])``,
+one logical device a card): the state is then one replica a device
+(:func:`replicate_state`), each device's grads and update run on its own
+card, and the results are the stacked session's bit for bit.
+
 Every family trains, the audio encoder too (a batch of float32
 ``features`` and ``labels`` in place of ``tokens``; the captured step's
 static batch buffers take the features as they come). On the card
@@ -39,9 +44,10 @@ import math
 from typing import TYPE_CHECKING, Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.comm.capture import BufferSpec, captured_psum, dtype_name
-from repro_torch.comm.session import resolve_device
+from repro_torch.comm.session import on_device, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import OptimConfig, apply_updates, init_opt_state
@@ -143,6 +149,46 @@ def _shards(batch: dict, n: int) -> list[dict]:
              for k, x in batch.items()} for i in range(n)]
 
 
+def replicate_state(state, comm: "CommSession") -> list:
+    """One replica of ``state`` a logical device of the peer session
+    ``comm``: a list of ``comm.num_devices`` trees, tree *d* a copy of
+    every leaf on ``devices[d]`` (the peer DP steps' state)."""
+    return [tree_map(lambda t, d=d: t.to(d, copy=True), state)
+            for d in comm.devices]
+
+
+def _replicas(state, comm: "CommSession") -> list:
+    """A peer step's state as per-device replicas: ``state`` itself when
+    it is a list of them, else :func:`replicate_state` of the one tree."""
+    if isinstance(state, dict):
+        return replicate_state(state, comm)
+    if len(state) != comm.num_devices:
+        raise ValueError(f"a peer step takes one state a logical device "
+                         f"({comm.num_devices}), got {len(state)}")
+    return list(state)
+
+
+#: A signed integer dtype of each element size, to digest a tensor's bits.
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+#: The prime whose residues weight :func:`_bits_digest`'s second sum.
+_DIGEST_PRIME = 65521
+
+
+def _bits_digest(x: torch.Tensor) -> torch.Tensor:
+    """Two sums of ``x``'s elements read as integers of their size, the
+    second with element *i* weighted by ``i mod 65521 + 1``, so that
+    changes which cancel in the plain sum (+1 ulp in one element, -1 in
+    another) show: an int64 ``(2,)`` on ``x``'s device, equal for tensors
+    of equal bits."""
+    v = x.reshape(-1).view(_INT_OF_SIZE[x.element_size()]).to(torch.int64)
+    cols = F.pad(v, (0, -v.numel() % _DIGEST_PRIME)).view(
+        -1, _DIGEST_PRIME).sum(0)
+    w = torch.arange(1, _DIGEST_PRIME + 1, device=v.device)
+    return torch.stack([cols.sum(), (cols * w).sum()])
+
+
 def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
                        opt: OptimConfig, comm: "CommSession") -> Callable:
     """Data-parallel step with manual multipath gradient collectives.
@@ -154,43 +200,75 @@ def make_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     averaged with ``comm.collectives.pmean`` — the multipath ring
     all-reduce — and every row of each mean is checked equal before row 0
     feeds the update. Equal to :func:`make_train_step` within float
-    tolerance (mean of shard means = global mean for equal shards)."""
+    tolerance (mean of shard means = global mean for equal shards).
+
+    On a peer session (``CommSession(devices=[...])``) every logical
+    device is a replica on its own device: ``state`` is the list of
+    :func:`replicate_state` (one tree is replicated first), shard *d* of
+    the batch goes to ``devices[d]``, its grads come from autograd on
+    replica *d* launched on that device, and each leaf and the loss are
+    averaged by ``comm.collectives.pmean`` on the per-device list, leaf by
+    leaf as above, so every replica's mean is the stacked step's row bit
+    for bit. Each replica takes its own AdamW update; the means' bits are
+    digested on each device (:func:`_bits_digest`) and compared on the
+    host once a step. Returns the list of new replicas and device 0's
+    metrics."""
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.num_devices
+    peer = comm.devices is not None
+    devices = comm.devices if peer else [comm.device] * n
 
     def step(state, batch):
-        params = state["params"]
-        per = [grads_of(params, shard) for shard in _shards(batch, n)]
-        rows_equal = []
+        replicas = _replicas(state, comm) if peer else [state] * n
+        per = []
+        for dev, rep, shard in zip(devices, replicas, _shards(batch, n)):
+            with on_device(dev):
+                per.append(grads_of(rep["params"],
+                                    {k: x.to(dev) for k, x in shard.items()}))
+        # what shows each mean's rows equal: a 0-d bool (stacked), or one
+        # digest a device (peer)
+        checks = []
 
-        def mean(*rows):
+        def mean(rows: list) -> list:
+            if peer:
+                out = comm.collectives.pmean(rows)
+                checks.append([_bits_digest(m) for m in out])
+                return out
             out = comm.collectives.pmean(torch.stack(rows))
-            rows_equal.append(torch.all(out == out[:1]))
-            return out[0]
+            checks.append(torch.all(out == out[:1]))
+            return list(out.unbind(0))
 
-        grads = tree_map(lambda _, *rows: mean(*rows), params,
-                         *(g for _, g in per))
-        loss = mean(*(loss for loss, _ in per))
-        if not bool(torch.stack(rows_equal).all()):
-            raise RuntimeError("pmean gave unequal rows: the replicas "
-                               "disagree")
-        new_params, new_opt, metrics = _update(params, grads, state["opt"],
-                                               opt)
-        metrics["loss"] = loss
-        return {"params": new_params, "opt": new_opt}, metrics
+        means = [mean(list(rows))
+                 for rows in zip(*(leaves(g) for _, g in per))]
+        loss = mean([loss for loss, _ in per])
+        if peer:
+            seen = [torch.stack(got).cpu() for got in zip(*checks)]
+            agreed = all(torch.equal(s, seen[0]) for s in seen[1:])
+        else:
+            agreed = bool(torch.stack(checks).all())
+        if not agreed:
+            raise RuntimeError(_UNEQUAL)
+        new_states = []
+        for d in range(n if peer else 1):
+            grads = unflatten(replicas[0]["params"], [m[d] for m in means])
+            with on_device(devices[d]):
+                new_params, new_opt, mets = _update(
+                    replicas[d]["params"], grads, replicas[d]["opt"], opt)
+            new_states.append({"params": new_params, "opt": new_opt})
+            if d == 0:
+                metrics = mets
+                metrics["loss"] = loss[0]
+        return (new_states if peer else new_states[0]), metrics
 
     return step
 
 
+#: What a DP step raises when the replicas' means differ.
+_UNEQUAL = "pmean gave unequal rows: the replicas disagree"
+
+
 #: The captured step's metrics vector, in order (the reference's).
 METRIC_KEYS = ("grad_norm", "lr", "loss")
-
-#: What the captured DP step does not run yet on a peer session, and where
-#: it comes (ROADMAP.md, queue 1 item 1.3).
-PEER_DP_STEP_SLICE = ("the captured DP step over a peer session "
-                      "(CommSession(devices=[...])) comes with queue 1 item "
-                      "1.3 of the port, the DP steps over peers, held to "
-                      "its stacked run; pass a stacked session")
 
 
 def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
@@ -206,7 +284,8 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     ``state``/``batch`` are examples (tensors, meta tensors or arrays)
     fixing the shapes; the returned ``step(state, batch) -> (state,
     metrics)`` matches :func:`make_dp_train_step` to float tolerance (the
-    captured all-reduce sums in float32 ring order). Every call is ONE
+    captured all-reduce sums in float32 in an order of its own). Every
+    call is ONE
     engine dispatch: the ``grad`` kernel (each device's shard through
     autograd on its row of the replicated state, flattened into one
     float32 vector with the loss last), ``n − 1`` exchange rounds with
@@ -215,13 +294,33 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     ``comm.stats()["dispatches"]`` grows by one per step. The graph's
     digest is the reference's for the same config, session and shapes.
     ``step.capture`` is the :class:`~repro_torch.comm.capture.CapturedStep`
-    (its ``capture.buffers`` size the step's arena). A peer session
-    raises ``NotImplementedError`` (:data:`PEER_DP_STEP_SLICE`).
+    (its ``capture.buffers`` size the step's arena).
+
+    Where ``n`` is a power of two the ring all-reduce adds in one tree
+    order (``captured_psum(..., tree=True)``), so every device's mean,
+    and so every row's new state, has the same bits; at other counts each
+    row adds in its own ring order and the step keeps row 0.
+
+    On a peer session (``n`` a power of two) the same recording (the
+    stacked step's digest and ``GroupKey``) runs with one arena a logical
+    device and one CUDA graph a card: the ``grad`` kernel, the
+    ``captured_psum`` rounds and the ``update`` of logical device *d* all
+    run on ``devices[d]``, each kernel over the rows it is given (one
+    there, its ``mean`` still over the global ``n``). ``step(state,
+    batch)`` takes the state as one tree (copied to every device) or as
+    the list of :func:`replicate_state` (each replica staged on its own
+    device), splits the global batch into per-device shards, and returns
+    the list of the ``n`` new replicas, each the stacked step's state bit
+    for bit, and device 0's metrics, one dispatch a call.
     """
-    if getattr(comm, "devices", None) is not None:
-        raise NotImplementedError(PEER_DP_STEP_SLICE)
     grads_of = _make_grad_fn(cfg, ts)
     n = comm.engine.num_devices
+    peer = comm.devices is not None
+    tree = n & (n - 1) == 0
+    if peer and not tree:
+        raise ValueError(f"a captured DP step on a peer session needs a "
+                         f"power-of-two device count, so that every "
+                         f"replica applies the same mean; got {n}")
     params_ex = state["params"]
     params_leaves = leaves(params_ex)
     opt_leaves = leaves(state["opt"])
@@ -237,9 +336,10 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
     opt_tree = state["opt"]
 
     def grad_kernel(*stacked):
-        out = torch.empty((n, total + 1), dtype=torch.float32,
+        rows = stacked[0].shape[0]
+        out = torch.empty((rows, total + 1), dtype=torch.float32,
                           device=stacked[0].device)
-        for i in range(n):
+        for i in range(rows):
             params = unflatten(params_ex, [t[i] for t in stacked[:npar]])
             bt = dict(zip(batch_keys, (t[i] for t in stacked[npar:])))
             loss, grads = grads_of(params, bt)
@@ -251,10 +351,11 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
         return out
 
     def update_kernel(tot_v, *stacked):
+        rows = tot_v.shape[0]
         outs = [torch.empty_like(t) for t in stacked]
-        mvec = torch.empty((n, len(METRIC_KEYS)), dtype=torch.float32,
+        mvec = torch.empty((rows, len(METRIC_KEYS)), dtype=torch.float32,
                            device=tot_v.device)
-        for i in range(n):
+        for i in range(rows):
             params = unflatten(params_ex, [t[i] for t in stacked[:npar]])
             opt_state = unflatten(opt_tree, [t[i] for t in stacked[npar:]])
             mean = tot_v[i] / n
@@ -286,7 +387,8 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
                           out=BufferSpec((total + 1,), "float32"),
                           flops=6 * total)
         tot = captured_psum(cap, gvec, n, max_paths=max_paths,
-                            num_chunks=num_chunks, name="gradsum")
+                            num_chunks=num_chunks, name="gradsum",
+                            tree=tree)
         return cap.kernel(
             update_kernel, tot, *p_refs, *o_refs, name="update",
             out=[spec(t) for t in params_leaves + opt_leaves]
@@ -295,20 +397,39 @@ def make_captured_dp_train_step(cfg: ArchConfig, ts: TrainStepConfig,
 
     captured = comm.capture(build, schedule=schedule)
 
+    def split(bt) -> list[torch.Tensor]:
+        """The global batch's leaves stacked ``(n, ...)`` by shard."""
+        xs = [torch.as_tensor(bt[k]) for k in batch_keys]
+        return [x.reshape((n, x.shape[0] // n) + x.shape[1:]) for x in xs]
+
+    def results(part):
+        """One logical device's state and metrics from its part of each
+        of the step's outputs."""
+        mvec = part[-1]
+        return ({"params": unflatten(params_ex, part[:npar]),
+                 "opt": unflatten(opt_tree, part[npar:npar + nopt])},
+                {k: mvec[i] for i, k in enumerate(METRIC_KEYS)})
+
     def step(st, bt):
-        p_l = flatten_up_to(params_ex, st["params"])
-        o_l = leaves(st["opt"])
-        b_l = []
-        for k in batch_keys:
-            x = torch.as_tensor(bt[k])
-            b_l.append(x.reshape((n, x.shape[0] // n) + x.shape[1:]))
+        if isinstance(st, dict):
+            p_l = flatten_up_to(params_ex, st["params"])
+            o_l = leaves(st["opt"])
+        else:                             # replicas, one a logical device
+            reps = _replicas(st, comm)
+            p_l = [list(r) for r in zip(*(flatten_up_to(
+                params_ex, rep["params"]) for rep in reps))]
+            o_l = [list(r) for r in zip(*(leaves(rep["opt"])
+                                          for rep in reps))]
+        b_l = split(bt)
+        if peer:
+            b_l = [list(x.unbind(0)) for x in b_l]
         outs = captured(*p_l, *o_l, *b_l)
-        outs0 = [o[0] for o in outs]   # replicated results: rows identical
-        new_params = unflatten(params_ex, outs0[:npar])
-        new_opt = unflatten(opt_tree, outs0[npar:npar + nopt])
-        mvec = outs0[-1]
-        metrics = {k: mvec[i] for i, k in enumerate(METRIC_KEYS)}
-        return {"params": new_params, "opt": new_opt}, metrics
+        if not peer:
+            # every row equal where n is a power of two, else row 0's;
+            # row 0 copied out, so that the n stacked rows are freed
+            return results([o[0].clone() for o in outs])
+        parts = [[o[d] for o in outs] for d in range(n)]
+        return [results(part)[0] for part in parts], results(parts[0])[1]
 
     step.capture = captured
     return step

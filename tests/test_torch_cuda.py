@@ -68,7 +68,14 @@ a compute node, a migrating decode step and ``captured_multipath_dma``,
 each bit for bit as the stacked session's (attention at path F's
 tolerance), and a step whose hop-1 and hop-2 copies fall in different
 runs, replayed three times bit for bit as the stacked program; on one
-card, on four and on two cards holding two logical devices each.
+card, on four and on two cards holding two logical devices each. The
+training side on a peer session (``-k peer_training``): the eager and
+captured DP steps of a reduced SmolLM-360M (every replica on its own
+device, bit for bit the stacked step's state, the captured replica d
+row d of the stacked program over two chained calls), the compressed
+mean on a per-device list and a reduced Llama-3 pipelined a stage a
+device, each bit for bit as the stacked session's; on one card, on four
+and on two cards holding two logical devices each.
 ``multipath_dma`` at the edges of its copy paths (``-k edges``): tiles
 whose ends differ mod 16, short items, tiles that are not multiples of 16
 bytes, a 1-byte dtype of odd length, a window of 2 and a three-path plan,
@@ -1794,6 +1801,86 @@ def test_peer_capture_across_four_cards(dev):
     for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
         peer_capture_checks(devices, cards[0])
         peer_split_checks(devices, cards[0])
+
+
+# -- the training side on a peer session -------------------------------------
+
+def peer_training_checks(devices, dev):
+    """The training side on ``CommSession(devices=devices)`` against the
+    stacked session on ``dev``: a reduced SmolLM-360M (2 narrow layers,
+    float32, TF32 off) through the eager DP step (every replica bitwise
+    the stacked state) and the captured DP step (every replica bitwise
+    the stacked step's state over two chained calls, each replica fed
+    back its own outputs and the stacked step its own state; one dispatch
+    a call; the stacked step's key), each
+    replica on its own device; ``compressed_psum`` on a per-device list
+    bitwise the stacked rows; a reduced Llama-3's 8 layers in 4 stages
+    placed one a device, bfloat16, bitwise the stacked pipeline."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.optim import OptimConfig
+    from repro_torch.optim import compression as comp
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step)
+    from repro_torch.training.pipeline import (block_stages,
+                                               make_block_stage_fn,
+                                               pipeline_apply)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = len(devices)
+    cfg = get_config("smollm_360m").reduced()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    ts = TrainStepConfig()
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    ds = SyntheticDataset(cfg, DataConfig(64, 8))
+    batch = batch_to(ds.batch_at(0), dev)
+    stacked, peer = CommSession(device=dev), CommSession(devices=devices)
+    want, _ = make_dp_train_step(cfg, ts, opt, stacked)(state, batch)
+    reps, _ = make_dp_train_step(cfg, ts, opt, peer)(state, batch)
+    for rep, d in zip(reps, devices):
+        for a, b in zip(_tree_leaves(rep), _tree_leaves(want)):
+            assert a.device == d and torch.equal(a.to(dev), b)
+    scap = make_captured_dp_train_step(cfg, ts, opt, stacked, state, batch)
+    pcap = make_captured_dp_train_step(cfg, ts, opt, peer, state, batch)
+    assert pcap.capture.resolve().key == scap.capture.resolve().key
+    one, reps = state, state
+    for s in range(2):
+        bt = batch_to(ds.batch_at(s), dev)
+        d0 = peer.stats()["dispatches"]
+        reps, _ = pcap(reps, bt)
+        assert peer.stats()["dispatches"] == d0 + 1
+        one, _ = scap(one, bt)
+        for rep, d in zip(reps, devices):
+            for a, b in zip(_tree_leaves(rep), _tree_leaves(one)):
+                assert a.device == d and torch.equal(a.to(dev), b)
+    g = torch.randn(n, 3000, device=dev)
+    got = comp.compressed_psum([g[i].to(d) for i, d in enumerate(devices)],
+                               peer)
+    assert all(torch.equal(a.to(dev), b) for a, b in
+               zip(got, comp.compressed_psum(g, stacked).unbind(0)))
+    lcfg = dataclasses.replace(get_config("llama3_8b").reduced(),
+                               num_layers=8, dtype="bfloat16")
+    params = tfm.init_params(lcfg, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    x = torch.randn(3, 1, 64, lcfg.d_model, device=dev).to(torch.bfloat16)
+    stage_fn = make_block_stage_fn(lcfg, 4, torch.arange(64, device=dev))
+    stages = block_stages(params, 4)
+    with torch.no_grad():
+        a = pipeline_apply(stage_fn, stages, x, microbatches=3,
+                           multipath=True, session=stacked)
+        b = pipeline_apply(stage_fn, stages, x, microbatches=3,
+                           multipath=True, session=peer)
+    assert b.device == devices[0] and torch.equal(b.to(dev), a)
+
+
+def test_peer_training_on_one_card_bitwise_stacked(dev):
+    peer_training_checks([dev] * 4, dev)
+
+
+def test_peer_training_across_four_cards(dev):
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_training_checks(devices, cards[0])
 
 
 # -- multipath_dma at the edges of its copy paths -----------------------------

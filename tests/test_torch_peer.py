@@ -32,12 +32,14 @@ from repro.core import halo as jhalo
 from repro_torch.comm import CommConfig, CommSession, TransferPlanCache
 from repro_torch.comm.engine import PlacedKey
 from repro_torch.comm.graph import CopyNode
-from repro_torch.comm.session import resolve_devices
+from repro_torch.comm.session import PEER_COLLECTIVES_SLICE, resolve_devices
+from repro_torch.configs import get_config
 from repro_torch.core import halo
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.multipath_dma import kernel as dk
-from repro_torch.training.train_step import (PEER_DP_STEP_SLICE,
-                                             make_captured_dp_train_step)
+from repro_torch.optim import OptimConfig
+from repro_torch.training import (TrainStepConfig, init_state,
+                                  make_captured_dp_train_step)
 
 KiB = 1 << 10
 CPU4 = ["cpu"] * 4
@@ -540,15 +542,34 @@ def test_per_device_jacobi_needs_a_session():
 
 def test_capture_on_a_peer_session_raises():
     """Capture runs on a peer session (``tests/test_torch_peer_capture.py``
-    holds it to the stacked session); the captured DP step over peers
-    still raises, naming the slice that brings it."""
+    holds it to the stacked session), and so does the captured DP step
+    (``tests/test_torch_peer_training.py``): it builds with the stacked
+    step's key and returns one replica a device. What still raises is a
+    stacked operand to the peer collectives, naming the slice that brings
+    the last caller of that form, the mesh's MoE combine."""
     sess = CommSession(devices=CPU4)
     step = sess.capture(lambda cap: cap.input((4,), torch.float32))
     (out,) = step([torch.full((4,), float(d)) for d in range(4)])
     assert [o.tolist() for o in out] == [[float(d)] * 4 for d in range(4)]
-    with pytest.raises(NotImplementedError, match="item 1.3"):
-        make_captured_dp_train_step(None, None, None, sess, None, None)
-    assert "peer session" in PEER_DP_STEP_SLICE
+    cfg = get_config("smollm_360m").reduced()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    state = init_state(cfg, opt, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (8, 9),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones(8, 8)}
+    stacked = make_captured_dp_train_step(
+        cfg, TrainStepConfig(), opt, CommSession(device="cpu"), state,
+        batch)
+    peer = make_captured_dp_train_step(cfg, TrainStepConfig(), opt, sess,
+                                       state, batch)
+    assert peer.capture.resolve().key == stacked.capture.resolve().key
+    reps, metrics = peer(state, batch)
+    assert len(reps) == 4 and all(r["opt"]["step"] == 1 for r in reps)
+    assert torch.isfinite(metrics["loss"])
+    with pytest.raises(NotImplementedError, match="MoE combine"):
+        sess.collectives.psum(torch.randn(4, 5))
+    assert "later slice" in PEER_COLLECTIVES_SLICE
 
 
 def test_compiled_for_stages_one_view_a_device():

@@ -26,7 +26,7 @@ from repro_torch.comm import CommConfig, CommSession
 from repro_torch.configs import get_config
 from repro_torch.core.topology import Topology
 from repro_torch.models import transformer as tfm
-from repro_torch.training.pipeline import (_pipeline_apply_stacked,
+from repro_torch.training.pipeline import (_pipeline_surfaced,
                                            block_stages,
                                            make_block_stage_fn,
                                            pipeline_apply,
@@ -122,10 +122,9 @@ def test_session_handoff_takes_the_planners_split():
 def test_surfaced_rows_equal_and_validation():
     w, x = tanh_case(4)
     sess = session()
-    out = _pipeline_apply_stacked(lambda wl, h: torch.tanh(h @ wl),
-                                  torch.from_numpy(w), torch.from_numpy(x),
-                                  microbatches=M, multipath=True,
-                                  session=sess)
+    out = _pipeline_surfaced(lambda wl, h: torch.tanh(h @ wl),
+                             torch.from_numpy(w), torch.from_numpy(x),
+                             microbatches=M, multipath=True, session=sess)
     assert out.shape == (4, M, MB, D)
     for i in range(1, 4):
         assert torch.equal(out[i], out[0])

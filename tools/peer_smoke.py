@@ -77,6 +77,41 @@ shards, path S's combine gather's (1572864, 2) bfloat16 ones), one shard
 a card, on each of SWEEP_BLOCKS blocks a card, bitwise its plain version,
 timed as replays beside its ingress bound.
 
+With ``--training`` it runs the training side a card instead (after the
+topology, names and power limits; TF32 off)::
+
+    python3 tools/peer_smoke.py --training         # a few minutes
+
+On ``CommSession(devices=["cuda:0", ..., "cuda:3"])`` (health off), each
+result held bit for bit to one card's stacked session where that fits,
+each card's peak GiB printed:
+
+* the captured DP step's arena a card for SmolLM-360M at full width and
+  all 32 layers (reckoned from the recording on meta tensors), which
+  must fit a card's memory;
+* the eager DP step at 32 layers, bfloat16, 8 x 512 tokens (a replica a
+  card, ``replicate_state``) against one card's eager DP step: every
+  replica bitwise its state, ms a step in turns (host clock, synced) and
+  by CUDA events on every card (the slowest card), tokens/s;
+* the captured DP step at 2 layers against one card's stacked captured
+  step, two steps chained: every replica bitwise its state after each,
+  the same key, one dispatch; the replay and a call (fed the replicas)
+  by CUDA events on every card against one card's replay and call;
+* the captured DP step at 32 layers: its first call with the
+  build, the replay and a call fed the replicas by CUDA events (the
+  slowest card), tokens/s;
+* path P's pipeline of Llama-3 8B (32 layers, 4 stages a card,
+  ``place_stages``; 8 microbatches of (1, 2048), the planner's split):
+  bitwise one card's stacked pipeline, one dispatch a handoff and one
+  for the surfacing psum, ms a call in turns against one card's and one
+  card's sequential ``block_apply``, a handoff's replay against a card's
+  16 MiB at 450 GB/s;
+* ``compressed_psum_tree`` over SmolLM-360M's leaves, a member a card,
+  bitwise one card's stacked form, against the peer ``pmean`` of the
+  same lists.
+
+Every reading also goes to ``chiprun_out/peer_training.json``.
+
 With ``--collectives`` it runs only the session's collectives (after the
 topology, names and power limits), and ``--src DIR`` imports the package
 from another checkout's ``src/`` (a parent commit unpacked by ``git
@@ -108,6 +143,7 @@ SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]
 sys.path.insert(0, SRC)
 
 from repro_torch.comm import collectives as coll  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 #: H100 NVLink: 900 GB/s to the other cards of the host, 450 GB/s each way
 #: (NVIDIA data sheet).
@@ -680,6 +716,372 @@ def sweep(cards) -> int:
     return 0
 
 
+#: ``--training``: the tokens of a step (SmolLM-360M, bfloat16).
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+#: ``--training``: the pipeline, path P's (Llama-3 8B in 4 stages, 8
+#: microbatches of (1, 2048)).
+PIPE_MICRO, PIPE_SEQ = 8, 2048
+
+
+def same_tree(a, b, on) -> bool:
+    """Every leaf of ``a`` bit for bit the leaf of ``b``, compared on the
+    device ``on``, one leaf at a time."""
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.to(on), y.to(on))
+        for x, y in zip(la, lb))
+
+
+def cards_call_ms(fn, cards, iters: int, warmup: int = 1
+                  ) -> tuple[float, list[float]]:
+    """Mean ms of ``fn()`` by CUDA events on every card (a start event on
+    each card's stream before the first call, an end event after the
+    last): the slowest card's and each card's."""
+    for _ in range(warmup):
+        fn()
+    sync_all(cards)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
+    for ev, c in zip(starts, cards):
+        ev.record(torch.cuda.current_stream(c))
+    for _ in range(iters):
+        fn()
+    for ev, c in zip(ends, cards):
+        ev.record(torch.cuda.current_stream(c))
+    sync_all(cards)
+    per = [a.elapsed_time(b) / iters for a, b in zip(starts, ends)]
+    return max(per), per
+
+
+def peaks_gib(cards) -> list[float]:
+    return [round(torch.cuda.max_memory_allocated(c) / 2**30, 2)
+            for c in cards]
+
+
+def reset_peaks(cards) -> None:
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def free(cards) -> None:
+    import gc
+    gc.collect()
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+    reset_peaks(cards)
+
+
+def arena_a_card(cfg, ts, opt, sess) -> int:
+    """The bytes of one logical device's arena of the captured DP step of
+    ``cfg`` on the peer session ``sess``, reckoned from its recording on
+    meta tensors (nothing allocated)."""
+    from repro_torch.comm.capture import _arena_layout
+    from repro_torch.training import make_captured_dp_train_step
+    from repro_torch.training.train_step import state_shapes
+
+    state = state_shapes(cfg, opt)
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    batch["mask"] = torch.empty((TRAIN_BATCH, TRAIN_SEQ), device="meta")
+    step = make_captured_dp_train_step(cfg, ts, opt, sess, state, batch)
+    return _arena_layout(step.capture.capture, 1)[1]
+
+
+def training(cards, smi) -> dict:
+    """``--training``: the DP steps, the pipeline and the compressed mean
+    on a peer session a card (module docstring)."""
+    import dataclasses
+
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import OptimConfig
+    from repro_torch.optim import compression as comp
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_captured_dp_train_step,
+                                      make_dp_train_step, replicate_state)
+    from repro_torch.training.pipeline import (block_stages,
+                                               make_block_stage_fn,
+                                               pipeline_apply, place_stages)
+    from repro_torch.tree import tree_map
+
+    n, c0 = len(cards), cards[0]
+    out: dict = {}
+    full = get_config("smollm_360m")
+    ts = TrainStepConfig()
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def peer_session():
+        return CommSession(CommConfig(health=False), devices=cards)
+
+    def batches(cfg, count):
+        ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_BATCH))
+        return [batch_to(ds.batch_at(i), c0) for i in range(count)]
+
+    def fresh(cfg, seed):
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=c0).manual_seed(seed), device=c0)
+
+    # the captured step's arena a card at all 32 layers
+    depth = full.num_layers
+    arena = arena_a_card(full, ts, opt, peer_session())
+    card_bytes = torch.cuda.get_device_properties(c0).total_memory
+    out["arena_bytes_a_card"] = arena
+    print(f"training: the captured DP step's arena a card (SmolLM-360M "
+          f"full width, {depth} layers, bf16 params, float32 moments, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens over {n} cards): "
+          f"{arena / 1e9:.2f} GB of the card's {card_bytes / 1e9:.2f} GB",
+          flush=True)
+    check(arena < card_bytes, f"the captured DP step's arena at {depth} "
+          f"layers ({arena} B) does not fit a card ({card_bytes} B)")
+
+    # the eager DP step at 32 layers against one card's
+    bts = batches(full, 3)
+    state = fresh(full, 61)
+    stacked = CommSession(device=c0)
+    sstep = make_dp_train_step(full, ts, opt, stacked)
+    want, _ = sstep(state, bts[0])
+    peer = peer_session()
+    pstep = make_dp_train_step(full, ts, opt, peer)
+    reps = replicate_state(state, peer)
+    got, _ = pstep(reps, bts[0])
+    sync_all(cards)
+    check(all(r is not None and leaves(r)[0].device == c
+              for r, c in zip(got, cards)), "eager DP: a replica left its "
+          "card")
+    check(all(same_tree(r, want, c0) for r in got),
+          "eager DP at 32 layers: a replica differs from one card's step")
+    del got, want
+    turns: dict[str, list] = {}
+    for label in ("one card", "peer", "peer", "one card"):
+        fn = ((lambda: sstep(state, bts[1])) if label == "one card"
+              else (lambda: pstep(reps, bts[1])))
+        turns.setdefault(label, []).append(host_ms(fn, cards, 2, warmup=1))
+    ev_ms, ev_per = cards_call_ms(lambda: pstep(reps, bts[1]), cards, 2)
+    out["eager_dp_32"] = {"ms": turns, "events_ms": ev_ms,
+                          "events_ms_per_card": ev_per,
+                          "peak_gib": peaks_gib(cards)}
+    print(f"training: eager DP step, SmolLM-360M full width, 32 layers, "
+          f"bf16, {TRAIN_BATCH} x {TRAIN_SEQ}: {n} replicas a card, each "
+          f"bitwise one card's eager DP step; ms a step in turns (host "
+          f"clock, synced, mean of 2): {turns}; peer step by CUDA events "
+          f"{ev_ms:.2f} ms (slowest card; each "
+          f"{[round(t, 2) for t in ev_per]}), {tokens / ev_ms * 1e3:.0f} "
+          f"tokens/s; peak GiB a card {out['eager_dp_32']['peak_gib']}",
+          flush=True)
+    del state, reps, sstep, pstep, stacked, peer, bts
+    free(cards)
+
+    # the captured DP step at 2 layers against one card's
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    bts = batches(cfg2, 3)
+    state = fresh(cfg2, 62)
+    stacked = CommSession(device=c0)
+    scap = make_captured_dp_train_step(cfg2, ts, opt, stacked, state,
+                                       bts[0])
+    want = [scap(state, bts[0])[0]]
+    want.append(scap(want[0], bts[1])[0])
+    one_prog = scap.capture.resolve().compiled.program
+    one_ms = device_ms(one_prog.replay, cards[:1], 5)
+    one_call = host_ms(lambda: scap(state, bts[1]), cards[:1], 3)
+    s_key = scap.capture.resolve().key
+    del scap, one_prog, stacked
+    free(cards)
+    peer = peer_session()
+    pcap = make_captured_dp_train_step(cfg2, ts, opt, peer, state, bts[0])
+    d0 = peer.stats()["dispatches"]
+    reps, _ = pcap(state, bts[0])
+    check(peer.stats()["dispatches"] == d0 + 1, "captured DP: not one "
+          "dispatch a call")
+    entry = pcap.capture.resolve()
+    check(entry.key == s_key, "captured DP: key differs from one card's")
+    check(all(same_tree(r, want[0], c0) for r in reps),
+          "captured DP at 2 layers: a replica differs from one card's "
+          "stacked step")
+    reps, _ = pcap(reps, bts[1])
+    check(all(same_tree(r, want[1], c0) for r in reps),
+          "captured DP at 2 layers: a replica fed back differs from one "
+          "card's stacked step fed its own state")
+    del want
+    rep_ms, rep_per = replay_cards_ms(entry.compiled.program, 5)
+    ev_ms, ev_per = cards_call_ms(lambda: pcap(reps, bts[1]), cards, 3)
+    out["captured_dp_2"] = {
+        "one_card_replay_ms": one_ms, "one_card_call_ms": one_call,
+        "replay_ms": rep_ms, "replay_ms_per_card": rep_per,
+        "call_ms": ev_ms, "call_ms_per_card": ev_per,
+        "replay_launches": entry.compiled.program.replay_launches,
+        "peak_gib": peaks_gib(cards)}
+    print(f"training: captured DP step, full width, 2 layers, bf16: "
+          f"every replica bitwise one card's stacked step over two chained "
+          f"steps, the same key, one dispatch a call; replay (CUDA events) "
+          f"{rep_ms:.2f} ms (slowest card; each "
+          f"{[round(t, 2) for t in rep_per]}) against one card's "
+          f"{one_ms:.2f} ms; a call fed the replicas {ev_ms:.2f} ms "
+          f"({tokens / ev_ms * 1e3:.0f} tokens/s) against one card's "
+          f"{one_call:.2f} ms (host clock, synced); replay launches "
+          f"{entry.compiled.program.replay_launches}; peak GiB a card "
+          f"{out['captured_dp_2']['peak_gib']}", flush=True)
+    del pcap, entry, reps, peer, state, bts
+    free(cards)
+
+    # the captured DP step at all 32 layers
+    bts = batches(full, 3)
+    state = fresh(full, 63)
+    peer = peer_session()
+    t0 = time.perf_counter()
+    pcap = make_captured_dp_train_step(full, ts, opt, peer, state, bts[0])
+    reps, m = pcap(state, bts[0])
+    sync_all(cards)
+    build_s = time.perf_counter() - t0
+    check(torch.isfinite(m["loss"]).item(), "captured DP: loss not finite")
+    del state
+    prog = pcap.capture.resolve().compiled.program
+    rep_ms, rep_per = replay_cards_ms(prog, 3)
+    ev_ms, ev_per = cards_call_ms(lambda: pcap(reps, bts[1]), cards, 3)
+    reps, m = pcap(reps, bts[2])
+    check(torch.isfinite(m["loss"]).item(), "captured DP: loss not finite")
+    out["captured_dp"] = {
+        "layers": depth, "arena_bytes_a_card": arena,
+        "build_s": build_s, "replay_ms": rep_ms,
+        "replay_ms_per_card": rep_per, "call_ms": ev_ms,
+        "call_ms_per_card": ev_per, "tokens_per_s": tokens / ev_ms * 1e3,
+        "replay_launches": prog.replay_launches,
+        "peak_gib": peaks_gib(cards)}
+    print(f"training: captured DP step, full width, {depth} layers, bf16, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, one arena of "
+          f"{arena / 1e9:.2f} GB a card (first call {build_s:.1f} "
+          f"s with the build): replay (CUDA events) {rep_ms:.2f} ms "
+          f"(slowest card; each {[round(t, 2) for t in rep_per]}); a call "
+          f"fed the replicas {ev_ms:.2f} ms (slowest card; each "
+          f"{[round(t, 2) for t in ev_per]}) = "
+          f"{out['captured_dp']['tokens_per_s']:.0f} tokens/s; loss "
+          f"{float(m['loss'])!r}; replay launches {prog.replay_launches}; "
+          f"peak GiB a card {out['captured_dp']['peak_gib']}", flush=True)
+    del pcap, prog, reps, peer, bts, m
+    free(cards)
+
+    # the pipeline of Llama-3 8B, a stage a card
+    cfg = get_config("llama3_8b")
+    p, mb, s = n, PIPE_MICRO, PIPE_SEQ
+    gen = torch.Generator(device=c0).manual_seed(0)
+    params = {"layers": tfm.block_init(cfg, generator=gen, device=c0,
+                                       lead=(cfg.num_layers,))}
+    x = torch.randn(mb, 1, s, cfg.d_model, generator=gen, device=c0).mul_(
+        cfg.d_model ** -0.5).to(torch.bfloat16)
+    positions = torch.arange(s, device=c0)
+    stage_fn = make_block_stage_fn(cfg, p, positions)
+    stages = block_stages(params, p)
+    stacked = CommSession(device=c0, topology=Topology.full_mesh(p))
+    peer = peer_session()
+    placed = place_stages(stages, peer)
+
+    def sequential():
+        hs = []
+        for i in range(mb):
+            h = x[i]
+            for j in range(cfg.num_layers):
+                h, _ = tfm.block_apply(h, tfm.layer_params(params, j), cfg,
+                                       -1, positions)
+            hs.append(h)
+        return torch.stack(hs)
+
+    def piped(sess, st):
+        return pipeline_apply(stage_fn, st, x, microbatches=mb,
+                              multipath=True, session=sess)
+
+    ticks = mb + p - 1
+    with torch.no_grad():
+        want = piped(stacked, stages)
+        d0 = peer.stats()["dispatches"]
+        got = piped(peer, placed)
+        sync_all(cards)
+        disp = peer.stats()["dispatches"] - d0
+        check(torch.equal(got, want), "pipeline: a stage a card differs "
+              "from one card's stacked pipeline")
+        check(disp == ticks + 1, f"pipeline: {disp} dispatches, want "
+              f"{ticks + 1}")
+        turns = {}
+        for label in ("one card", "peer", "peer", "one card"):
+            fn = ((lambda: piped(stacked, stages)) if label == "one card"
+                  else (lambda: piped(peer, placed)))
+            turns.setdefault(label, []).append(host_ms(fn, cards, 1,
+                                                       warmup=0))
+        seq_ms = host_ms(sequential, cards[:1], 1, warmup=0)
+        ev_ms, ev_per = cards_call_ms(lambda: piped(peer, placed), cards, 1,
+                                      warmup=0)
+        handoffs = [e for _, e in peer.engine._fastpath._store.values()
+                    if getattr(e, "plans", None) and len(e.plans) == p]
+        hand = handoffs[0].compiled.program
+        nbytes = s * cfg.d_model * 2
+        hand_ms, hand_per = replay_cards_ms(hand, 20)
+    bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+    out["pipeline"] = {
+        "ms": turns, "sequential_ms": seq_ms, "events_ms": ev_ms,
+        "events_ms_per_card": ev_per, "dispatches": disp,
+        "handoff_replay_ms": hand_ms, "handoff_replay_ms_per_card":
+            hand_per, "handoff_bytes_a_card": nbytes,
+        "handoff_bound_ms": bound,
+        "handoff_paths": [len(pl.paths) for pl in handoffs[0].plans],
+        "peak_gib": peaks_gib(cards)}
+    print(f"training: pipeline of Llama-3 8B, {cfg.num_layers} layers in "
+          f"{p} stages a card, {mb} microbatches of (1, {s}), the planner's "
+          f"split: bitwise one card's stacked pipeline, {disp} dispatches; "
+          f"ms a call in turns (host clock, synced): {turns}; by CUDA "
+          f"events {ev_ms:.2f} ms (slowest card; each "
+          f"{[round(t, 2) for t in ev_per]}); one card's sequential "
+          f"block_apply {seq_ms:.2f} ms; a handoff ({p} x "
+          f"{nbytes / MiB:.0f} MiB, paths {out['pipeline']['handoff_paths']}"
+          f") replay {hand_ms:.4f} ms (slowest card) against {bound:.4f} ms "
+          f"for a card's {nbytes / MiB:.0f} MiB at 450 GB/s "
+          f"({bound / hand_ms:.1%}); peak GiB a card "
+          f"{out['pipeline']['peak_gib']}", flush=True)
+    del params, stages, placed, x, want, got, stacked, peer, hand, handoffs
+    free(cards)
+
+    # the compressed mean against the peer pmean of the same tree
+    peer = peer_session()
+    members = []
+    for i, c in enumerate(cards):
+        g = torch.Generator(device=c).manual_seed(70 + i)
+        members.append(tree_map(lambda t: torch.randn(
+            tuple(t.shape), generator=g, device=c).mul_(0.01),
+            param_shapes(full)))
+    got = comp.compressed_psum_tree(members, peer)
+    stacked = CommSession(device=c0, topology=Topology.full_mesh(n))
+    want = comp.compressed_psum_tree(tree_map(
+        lambda *rows: torch.stack([r.to(c0) for r in rows]), *members),
+        stacked)
+    check(all(leaves(g)[0].device == c for g, c in zip(got, cards))
+          and all(same_tree(g, tree_map(lambda t, d=d: t[d], want), c0)
+                  for d, g in enumerate(got)),
+          "compressed mean: a member's mean differs from its row of one "
+          "card's stacked form")
+    del want
+    tree_ms = host_ms(lambda: comp.compressed_psum_tree(members, peer),
+                      cards, 3)
+    pmean_ms = host_ms(lambda: [peer.collectives.pmean(list(r)) for r in
+                                zip(*map(leaves, members))], cards, 3)
+    nbytes = sum(t.numel() * 4 for t in leaves(members[0]))
+    out["compressed"] = {"tree_ms": tree_ms, "pmean_ms": pmean_ms,
+                         "bytes_a_member": nbytes}
+    print(f"training: compressed_psum_tree over SmolLM-360M's "
+          f"{len(leaves(members[0]))} leaves, a member a card "
+          f"({nbytes / 1e9:.2f} GB float32 each): bitwise one card's "
+          f"stacked form; {tree_ms:.2f} ms a tree against the peer pmean "
+          f"of the same lists {pmean_ms:.2f} ms (host clock, synced)",
+          flush=True)
+    del members, got, peer, stacked
+    free(cards)
+    out["cards"] = smi
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -687,6 +1089,9 @@ def main() -> int:
                          "session's traffic")
     ap.add_argument("--collectives", action="store_true",
                     help="time the session's collectives alone")
+    ap.add_argument("--training", action="store_true",
+                    help="run the DP steps, the pipeline and the compressed "
+                         "mean a card instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
     args = ap.parse_args()
@@ -713,11 +1118,19 @@ def main() -> int:
           f"from {SRC}", flush=True)
     t0 = time.perf_counter()
     _build.build_all(("multipath_dma", "jacobi", "ring_allgather",
-                      "flash_attention"))
+                      "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    if args.sweep or args.collectives:
+    if args.sweep or args.collectives or args.training:
         if args.sweep:
             sweep(cards)
+        elif args.training:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            results = training(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out",
+                                   "peer_training.json"), "w") as f:
+                json.dump(results, f, indent=1)
+            print(json.dumps({"training": results}), flush=True)
         else:
             gen = torch.Generator(device=cards[0]).manual_seed(0)
             print(json.dumps({"collectives": collectives(cards, gen),
