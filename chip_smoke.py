@@ -473,7 +473,19 @@ What it does, in order (any failed check exits nonzero):
     Then, in turns against the stacked session's: the eager step at 32
     layers, the captured step at 2 layers in bfloat16 and the pipeline
     call;
-32. one JSON line ``{"kernels": [...]}``, then as the last line
+32. main path Y, run right after path S on its weights (counters set to
+    0 before it and read after it): Mixtral-8x22B served expert parallel
+    on a peer mesh on the one card, ``make_host_mesh((1, 4),
+    devices=["cuda:0"] * 4)``: the engine places path S's weights (views:
+    the card holds all four logical devices' experts), each program one
+    CUDA graph, each MoE combine one peer psum over the program's ring
+    (three ``multipath_dma`` ring shifts and one ``ring_allgather``
+    launch); ``generate`` twice, its tokens and the prefill's and one
+    decode step's logits bit for bit path S's, ``ring_allgather`` once a
+    MoE layer a forward, path E's token and captured-decode checks under
+    the peer mesh, the prefill replay and the captured decode step beside
+    path S's, and the peak GiB;
+33. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -5208,7 +5220,9 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
               flush=True)
         at_s = serving_times(cfg, engine, None, toks, logits, cache, new,
                              gen_s, "S")
-    del engine, params, logits, cache
+        at_s["decode_step_ms"] = replay_times(engine, toks, logits, new)[1]
+        dec = decode_logits(engine, toks, logits)
+    del engine, cache
     gc.collect()
     torch.cuda.empty_cache()
     print(f"path S vs path L (no mesh), Mixtral-8x22B over {nl} layers: "
@@ -5219,6 +5233,116 @@ def mixtral_mesh_path(dev, errs, per_path, read_path, smi,
           f"{at_l['eager_decode_ms']:.2f}); peak {at_s['peak_gib']:.2f} GiB "
           f"vs {at_l['peak_gib']:.2f} ({time.perf_counter() - t_path:.1f} "
           f"s)", flush=True)
+    peer_mesh_path(dev, per_path, read_path, cfg, params, prompts, new,
+                   (toks, outs, logits, dec), at_s)
+    del params, logits, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_logits(engine, toks, logits) -> torch.Tensor:
+    """A copy of the logits of one decode program step after the prefill
+    program's run on ``toks``, its token the argmax of the prefill's last
+    ``logits``."""
+    b, plen = toks.shape
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    prefill()
+    decode = engine.decode_program(b)
+    decode.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
+    decode.cur_len.fill_(plen)
+    return decode().clone()
+
+
+def replay_times(engine, toks, logits, new) -> tuple[float, float]:
+    """The prefill program's replay ms on ``toks`` and the captured decode
+    step's (``new - 1`` greedy steps after it, the argmax included, the
+    better of two runs), by CUDA events."""
+    b, plen = toks.shape
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    prefill_ms = cuda_time_ms(prefill, 3, warmup=1)
+    decode = engine.decode_program(b)
+    runs = []
+    for _ in range(2):
+        prefill()
+        tok = logits[:, -1].argmax(-1)[:, None]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for i in range(new - 1):
+            decode.tokens.copy_(tok)
+            decode.cur_len.fill_(plen + i)
+            tok = decode().argmax(-1)[:, None]
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / (new - 1))
+    return prefill_ms, min(runs)
+
+
+def peer_mesh_path(dev, per_path, read_path, cfg, params, prompts, new,
+                   at_s_out: tuple, at_s: dict) -> None:
+    """Main path Y (phase 32, run right after path S on its weights):
+    Mixtral-8x22B served expert parallel on a peer mesh on the one card
+    (module docstring). ``at_s_out`` is path S's (tokens, generate's
+    outputs, prefill logits, decode logits), ``at_s`` its times."""
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.serving import ServeEngine
+
+    # -- 32. main path Y: Mixtral-8x22B expert parallel on a peer mesh ------
+    t_path = time.perf_counter()
+    toks_s, outs_s, logits_s, dec_s = at_s_out
+    nl = cfg.num_layers
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with set_mesh(mesh):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        (tree,) = engine.trees
+        views = all(a.untyped_storage().data_ptr()
+                    == b.untyped_storage().data_ptr()
+                    for a, b in zip(_leaves(tree), _leaves(params)))
+        check(views and engine.cards == (dev,), "path Y: the placed tree "
+              "is not views of path S's weights on the one card")
+        toks, outs, logits, _, gen_s = serve_requests(
+            cfg, engine, prompts, new, "Y", per_path, read_path)
+        rings = per_path["Y"].get("ring_allgather", 0)
+        shifts = per_path["Y"].get("multipath_dma", 0)
+        check(rings == nl * (2 * new + 1), f"path Y launched "
+              f"ring_allgather {rings} times, not once a MoE layer a "
+              f"forward ({nl} x {2 * new + 1})")
+        check(shifts == 3 * rings, f"path Y launched multipath_dma "
+              f"{shifts} times, not three ring shifts a combine")
+        dec = decode_logits(engine, toks, logits)
+        same = {"tokens": outs == outs_s and torch.equal(toks, toks_s),
+                "prefill logits": torch.equal(logits, logits_s),
+                "decode logits": torch.equal(dec, dec_s)}
+        print(f"path Y: under {mesh} on a peer session of 4 logical "
+              f"devices on {dev} (one graph a program), the tree views of "
+              f"path S's weights; bit for bit path S's: {same}; "
+              f"ring_allgather {rings} launches (one a MoE layer a "
+              f"forward), multipath_dma {shifts} (three ring shifts a "
+              f"combine)", flush=True)
+        check(all(same.values()), f"path Y differs from path S: {same}")
+        program_checks(cfg, engine, toks, outs, "Y")
+        prefill_ms, decode_ms = replay_times(engine, toks, logits, new)
+        graphs = engine.graph_bytes()
+        del engine, tree
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen1_s, gen2_s = gen_s
+    b = toks.shape[0]
+    print(f"path Y vs path S (stacked mesh), Mixtral-8x22B over {nl} "
+          f"layers: prefill replay {prefill_ms:.2f} ms vs "
+          f"{at_s['prefill_ms']:.2f}; captured decode step "
+          f"{decode_ms:.2f} ms vs {at_s['decode_step_ms']:.2f} (CUDA "
+          f"events, {new - 1} steps, the better of two runs each); "
+          f"generate of {b} x {new} tokens {gen2_s:.3f} s = "
+          f"{b * new / gen2_s:.1f} tokens/s (second call; first "
+          f"{gen1_s:.3f} s); the graphs hold {graphs / 2**30:.2f} GiB; "
+          f"peak {peak:.2f} GiB vs {at_s['peak_gib']:.2f} "
+          f"({time.perf_counter() - t_path:.1f} s)", flush=True)
 
 
 #: Phase T's probes: (name, arch, kind, batch, seq, vocabulary cut or
@@ -6502,11 +6626,11 @@ def main() -> int:
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-X): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-Y): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 32. report --------------------------------------------------------
+    # -- 33. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -21,7 +21,8 @@ which are one device's whatever lies before them.
   on device *d*'s ``torch.device``; a shift is one per-device
   ``multipath_dma`` table of the ring's messages ``d → d + s``, the gather
   the peer ``ring_allgather``, and the adds run on each device after its
-  launch.
+  launch. :class:`LockstepRing` drives a peer ring's run over every card
+  from one host thread a card (:func:`run_in_lockstep`).
 
 The reductions keep the reference's order of additions —
 ``acc = shift(acc) + blk(...)`` step by step — so float32 and bfloat16
@@ -38,8 +39,10 @@ numbers.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 import weakref
 from typing import Callable
 
@@ -218,6 +221,107 @@ class PeerRing(ListRing):
         execute()
         return [out if self.held(d) else None
                 for d, out in enumerate(prog.out)]
+
+
+#: Seconds a card's thread waits at a :class:`LockstepRing` step for the
+#: others before the run fails (a body that stopped short of a step).
+LOCKSTEP_TIMEOUT_S = 120.0
+
+
+class LockstepRing(ListRing):
+    """A :class:`PeerRing`'s run over every card, driven by one host thread
+    a card (:func:`run_in_lockstep`): each card's thread computes its own
+    logical devices' parts, and at every shift or gather the threads meet
+    at a barrier, where one of them runs the peer ring's step over every
+    card at once on the parts they brought. No card's launch then waits on
+    a card whose host thread is blocked (a caching allocator's retry, a
+    read back), as one thread enqueueing each card's whole share in turn
+    would risk. The peer ring must have begun a run over every card
+    (``ring.begin()``); the programs it builds are those a one-card run of
+    each card then replays."""
+
+    def __init__(self, ring: PeerRing):
+        self.ring = ring
+        self.n = ring.n
+        self.card_of = ring.card_of
+        self.cards = len(ring.cards)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._pending: tuple | None = None
+        self._result: list | None = None
+        self.barrier = threading.Barrier(self.cards, action=self._act,
+                                         timeout=LOCKSTEP_TIMEOUT_S)
+
+    def enter(self, card: int) -> None:
+        """Make this thread card ``card``'s."""
+        self._local.card = card
+
+    def held(self, d: int) -> bool:
+        return self.card_of[d] == self._local.card
+
+    def _meet(self, step: Callable, parts: list[list]) -> list:
+        """Bring this card's parts (None elsewhere) to the barrier; one
+        thread runs ``step`` on every card's, and each gets its result."""
+        with self._lock:
+            if self._pending is None:
+                self._pending = (step, [[None] * self.n for _ in parts])
+            merged = self._pending[1]
+            for k, row in enumerate(parts):
+                for d, part in enumerate(row):
+                    if part is not None:
+                        merged[k][d] = part
+        self.barrier.wait()
+        return self._result
+
+    def _act(self) -> None:
+        step, merged = self._pending
+        self._pending = None
+        self._result = step(merged)
+
+    def _mine(self, full: list) -> list:
+        return [full[d] if self.held(d) else None for d in range(self.n)]
+
+    def shift(self, *sends: tuple[list, int]) -> list[list]:
+        offsets = [s for _, s in sends]
+        full = self._meet(lambda merged: self.ring.shift(
+            *zip(merged, offsets)), [parts for parts, _ in sends])
+        return [self._mine(recv) for recv in full]
+
+    def gather(self, shards: list) -> list:
+        (full,) = self._meet(lambda merged: [self.ring.gather(merged[0])],
+                             [shards])
+        return self._mine(full)
+
+
+def run_in_lockstep(ring: LockstepRing, bodies: list) -> None:
+    """Run ``bodies``, one ``(device, fn)`` a card (``fn(card)``), each on
+    a host thread of its own with ``device`` current, meeting at
+    ``ring``'s steps; the first error of any body is raised once every
+    thread has ended (a failed body breaks the barrier the others wait
+    at)."""
+    errors: list[BaseException] = []
+
+    def work(card: int, device: torch.device, fn: Callable) -> None:
+        try:
+            ring.enter(card)
+            ctx = (torch.cuda.device(device) if device.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                fn(card)
+        except BaseException as exc:    # noqa: BLE001 - re-raised below
+            errors.append(exc)
+            ring.barrier.abort()
+
+    threads = [threading.Thread(target=work, args=(c, dev, fn))
+               for c, (dev, fn) in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
 
 
 def _ring(xs, ring):

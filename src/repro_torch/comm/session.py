@@ -165,14 +165,6 @@ class CollectiveKey:
             ("collective", op, tuple(shape), dtype, axis, num_devices)))
 
 
-#: What a peer session's ``collectives`` refuse, and where it comes: a
-#: stacked operand, which the mesh's MoE combine still passes.
-PEER_COLLECTIVES_SLICE = (
-    "a peer session's collectives take one tensor a logical device (a "
-    "list, xs[d] on devices[d]); the mesh's MoE combine, which passes "
-    "stacked (n, ...) operands, comes over peer cards with a later slice "
-    "of the port")
-
 #: Per collective: the kind a cost count records it as, whether its
 #: driver-level operand is replicated (else cut along dim 0 into the
 #: devices' rows), and its graph's nodes a ring step (times n − 1).
@@ -321,17 +313,20 @@ class PeerCollectives(BoundCollectives):
     forms'. A call runs the session's program of its driver-level
     counterpart on the list's tensors (:meth:`CommSession._run_rows`: one
     plan-cache entry a signature, one dispatch a call). A stacked operand
-    raises ``NotImplementedError`` (:data:`PEER_COLLECTIVES_SLICE`). Each
-    call is one collective record of a cost count, as the stacked form's.
+    raises ``ValueError``: the list form is the only one. Each call is one
+    collective record of a cost count, as the stacked form's.
     The session, which holds its collectives, is held weakly."""
 
     session: weakref.ref = dataclasses.field(repr=False, compare=False)
 
     def _run(self, op: str, xs) -> list[torch.Tensor]:
         session = self.session()
-        if not isinstance(xs, (list, tuple)):
-            raise NotImplementedError(PEER_COLLECTIVES_SLICE)
         devices = session.devices
+        if not isinstance(xs, (list, tuple)):
+            raise ValueError(
+                f"{op} on a peer session takes a list of one tensor a "
+                f"logical device (xs[d] on devices[d]), not a stacked "
+                f"{tuple(getattr(xs, 'shape', ()))} operand")
         if len(xs) != len(devices) or any(
                 x.device != d for x, d in zip(xs, devices)):
             raise ValueError(f"{op} on a peer session takes one tensor on "

@@ -16,7 +16,10 @@ logical device is a row of one ``(n, ...)`` tensor on one
 holds the :class:`~repro_torch.comm.session.CommSession` whose rows are
 the model axis, so a model-axis reduction is one session collective per
 index of the other axes (the session's collectives run over all of its
-rows). :func:`make_host_mesh` builds one over a session (the reference
+rows). A *peer mesh* has a peer session instead
+(``CommSession(devices=[...])``, :func:`is_peer`): its model axis's
+logical devices are tensors on devices of their own, one or several a
+card. :func:`make_host_mesh` builds either over a session (the reference
 builds its mesh over whatever devices exist), :func:`make_production_mesh`
 the production shape with no session (its specs only), and
 :func:`set_mesh` makes a mesh ambient for the code that reads it
@@ -129,11 +132,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
 
 
 def make_host_mesh(shape=None, axes=("data", "model"), *,
-                   device=None) -> LogicalMesh:
-    """A mesh for tests and runs on one card: ``shape`` over ``axes``
-    (default ``(1, 4)``: every row on the model axis), with a new session
-    on ``device`` over ``Topology.full_mesh(model)`` (the model axis's
-    rows are its devices)."""
+                   device=None, devices=None) -> LogicalMesh:
+    """A mesh for tests and runs: ``shape`` over ``axes`` (default ``(1,
+    4)``: every row on the model axis), with a new session over
+    ``Topology.full_mesh(model)`` whose devices are the model axis. With
+    ``device`` (or neither) the session is stacked on that one device;
+    with ``devices`` (one a model index) it is a peer session,
+    ``CommSession(devices=devices)``: a *peer mesh*, on which each card
+    holds its own logical devices' experts (:func:`~repro_torch.training.
+    sharding.place_params`). Passing both raises."""
     from repro_torch.comm.session import CommSession
 
     if shape is None:
@@ -141,7 +148,14 @@ def make_host_mesh(shape=None, axes=("data", "model"), *,
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     model = dict(zip(axes, shape)).get("model", 1)
     return LogicalMesh(axes, shape, CommSession(
-        device=device, topology=Topology.full_mesh(model)))
+        device=device, devices=devices, topology=Topology.full_mesh(model)))
+
+
+def is_peer(mesh: LogicalMesh | None) -> bool:
+    """Whether ``mesh``'s session puts its logical devices on devices of
+    their own (``CommSession(devices=[...])``)."""
+    return (mesh is not None and mesh.session is not None
+            and mesh.session.devices is not None)
 
 
 #: The ambient mesh. Process-wide, not per thread: autograd runs a CUDA

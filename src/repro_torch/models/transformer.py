@@ -376,11 +376,22 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
     new one is made. An encoder raises (:func:`check_decoder`)."""
     check_decoder(cfg)
     x = embed_inputs(params, cfg, batch)
-    b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=x.device)
     if cache is None:
-        cache = init_cache(cfg, b, spec, device=x.device)
-    for i, window in enumerate(layer_windows(cfg)):
+        cache = init_cache(cfg, x.shape[0], spec, device=x.device)
+    x = prefill_blocks(params, cfg, x, spec, cache, range(cfg.num_layers))
+    return head_logits(params, x), cache
+
+
+def prefill_blocks(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                   spec: "CacheSpec", cache: Cache,
+                   layers: range) -> torch.Tensor:
+    """The prefill's ``layers`` on ``x`` (B, S, d), each writing its cache
+    entries in place; returns the last one's output."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    windows = layer_windows(cfg)
+    for i in layers:
+        window = windows[i]
         lp = layer_params(params, i)
         xin = rms_norm(x, lp["ln1"])
         if cfg.family == "ssm":
@@ -407,8 +418,12 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
         x = x + a
         ff, _ = _ffn(rms_norm(x, lp["ln2"]), lp, cfg, dropless=True)
         x = x + ff
-    x = rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"], cache
+    return x
+
+
+def head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the output projection: a decoder's logits."""
+    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
 
 
 # ================================ decode path ================================
@@ -546,9 +561,19 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     check_decoder(cfg)
     x = params["embed"][tokens[:, 0]]
     cur_len = torch.as_tensor(cur_len, dtype=torch.int64, device=x.device)
-    for i, window in enumerate(layer_windows(cfg)):
-        x = decode_block_apply(x, layer_params(params, i), cfg, window,
+    x = decode_blocks(params, cfg, cache, x, cur_len, spec,
+                      range(cfg.num_layers))
+    return head_logits(params, x), cache
+
+
+def decode_blocks(params: Params, cfg: ArchConfig, cache: Cache,
+                  x: torch.Tensor, cur_len: torch.Tensor, spec: CacheSpec,
+                  layers: range) -> torch.Tensor:
+    """One token through ``layers``: x (B, d) → (B, d), each layer's cache
+    entries updated in place at ``cur_len`` (a 0-d int64 tensor)."""
+    windows = layer_windows(cfg)
+    for i in layers:
+        x = decode_block_apply(x, layer_params(params, i), cfg, windows[i],
                                {key: t[i] for key, t in cache.items()},
                                cur_len, spec)
-    x = rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"], cache
+    return x

@@ -32,6 +32,27 @@ one psum through the mesh's session, is recorded into the programs'
 graphs as the ring's own kernel launches. :func:`pick_kv_chunks` picks
 the split-KV chunk count for a mesh.
 
+Under an ambient **peer mesh** (``make_host_mesh(..., devices=[...])``)
+the engine serves expert parallel across the session's cards: it takes
+whole parameters, which it places
+(:func:`~repro_torch.training.sharding.place_params`: a card's own
+experts and a replica of the rest), or trees already placed, one a card.
+Each program spans the cards: a static tokens buffer, position and cache
+a card, and one body a card, that card's prefill or decode step
+(``prefill_blocks`` / ``decode_blocks``) on its own tree
+(:func:`~repro_torch.models.moe_dist.card_share`), whose every MoE
+combine is the card's share of one peer
+psum over the program's own :class:`~repro_torch.comm.collectives.
+PeerRing`. On a CUDA card each body is recorded as graphs of its card,
+one a segment of at most :data:`GRAPH_LAYERS` layers, and the cards are
+ordered before every replay; the first run, the capture's warm-up, runs
+one host thread a card in lockstep at the ring's steps
+(:func:`~repro_torch.comm.collectives.run_in_lockstep`) when there are
+several. Callers write card 0's inputs (``tokens``, ``cur_len``); a
+call stages them to every other card, and the logits are card 0's
+(``devices[0]``'s), where ``generate`` samples. On the CPU the same
+bodies run eagerly with the plain versions.
+
 ``make_captured_decode_step`` captures one decode step — the
 ``flash_attention`` kernel beside a KV-chunk migration — as ONE CUDA
 graph per call.
@@ -40,15 +61,20 @@ graph per call.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Callable, Sequence
 
 import torch
 
+from repro_torch.comm import collectives as coll
 from repro_torch.comm.capture import BufferSpec, axis_index, dtype_name
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._graph import GraphProgram
 from repro_torch.kernels.flash_attention.ops import captured_flash_attention
+from repro_torch.launch.mesh import ambient_mesh, is_peer, set_mesh
+from repro_torch.models import moe_dist
 from repro_torch.models import transformer as tfm
 from repro_torch.training import sharding as shd
 
@@ -150,82 +176,210 @@ class Request:
 PREFILL_PROGRAMS = 4
 
 
+#: Layers a graph records under a peer mesh: each program is cut into
+#: segments of at most this many layers, one CUDA graph a card a segment,
+#: replayed segment by segment over the cards. On four H100s a prefill
+#: graph of 8 or 12 Mixtral-8x22B layers a card replayed, and one of 24
+#: or more crashed the process inside the graph launch (a segmentation
+#: fault; the decode graph of 50 layers replayed). The cause is not
+#: established; cut this way, 50 layers replay.
+GRAPH_LAYERS = 8
+
+
 class _ServeProgram(GraphProgram):
     """A serving step over static buffers. Calling it runs the body on
     the CPU; on a CUDA device the first call runs the body once as the
     capture's warm-up, records it into a CUDA graph and returns the
     warm-up's results, and every later call replays the graph. A capture
     that fails raises and leaves the program uncaptured. ``calls`` counts
-    the calls and ``replays`` the graph replays among them."""
+    the calls and ``replays`` the graph replays among them.
 
-    def __init__(self, engine: "ServeEngine", cache: dict):
+    Under the engine's peer mesh the program spans its cards (the module
+    docstring): per card ``c`` its inputs (:meth:`card_inputs`), cache
+    ``caches[c]`` and tree; its layers cut into :attr:`segments` of at
+    most :data:`GRAPH_LAYERS`, each with a :class:`~repro_torch.comm.
+    collectives.PeerRing` of its own, one body a card a segment
+    (:meth:`bodies`; a segment hands its output to the next through a
+    static buffer a card). ``tokens``, ``cache`` and ``logits`` are card
+    0's."""
+
+    def __init__(self, engine: "ServeEngine", caches: list[dict]):
         self.cfg = engine.cfg
-        self.params = engine.params
         self.spec = engine.spec
-        self.device = engine.device
-        self.cache = cache
+        self.mesh = engine.mesh
+        self.trees = engine.trees
+        self.params = self.trees[0]
+        self._cards = engine.cards
+        self.device = self._cards[0]
+        self.caches = caches
+        self.cache = caches[0]
+        n = self.cfg.num_layers
+        step = n if self.mesh is None else GRAPH_LAYERS
+        #: ``range`` of layers of each segment.
+        self.segments = [range(lo, min(lo + step, n))
+                         for lo in range(0, max(n, 1), step)]
+        self.rings = ([] if self.mesh is None else
+                      [coll.PeerRing(self.mesh.session.engine)
+                       for _ in self.segments])
+        #: Each card's static hand-over between segments (None for one).
+        self._x: list[torch.Tensor | None] = [None] * len(self._cards)
         self.logits: torch.Tensor | None = None
+        #: Every card's logits (card 0's are :attr:`logits`).
+        self.card_logits: list[torch.Tensor | None] = [None] * len(
+            self._cards)
         self.calls = 0
         self.replays = 0
 
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        return self._cards
+
+    def _handover(self, shape: tuple) -> None:
+        """The static buffers a card between segments, ``shape`` each."""
+        if len(self.segments) > 1:
+            dt = tfm._dtype(self.cfg)
+            self._x = [torch.zeros(shape, dtype=dt, device=card)
+                       for card in self._cards]
+
+    def card_inputs(self, card: int) -> list[torch.Tensor]:
+        raise NotImplementedError
+
+    def inputs(self) -> list[torch.Tensor]:
+        return self.card_inputs(0)
+
     def outputs(self) -> list[torch.Tensor]:
         return [self.logits, *self.cache.values()]
+
+    def embed(self, card: int) -> torch.Tensor:
+        """Card ``card``'s first layer input."""
+        raise NotImplementedError
+
+    def blocks(self, card: int, x: torch.Tensor,
+               layers: range) -> torch.Tensor:
+        """``layers`` of card ``card``'s step on ``x``, its cache written
+        in place."""
+        raise NotImplementedError
+
+    def body(self, card: int, seg: int = 0) -> None:
+        """Segment ``seg`` of card ``card``'s step on its own tree, inputs
+        and cache: the embeddings first, the logits last."""
+        last = seg == len(self.segments) - 1
+        x = self.embed(card) if seg == 0 else self._x[card]
+        x = self.blocks(card, x, self.segments[seg])
+        if not last:
+            self._x[card].copy_(x)
+            return
+        logits = tfm.head_logits(self.trees[card], x)
+        self.card_logits[card] = logits
+        if card == 0:
+            self.logits = logits
+
+    def _share(self, seg: int, ring, card: int) -> None:
+        with moe_dist.card_share(ring, card):
+            self.body(card, seg)
+
+    def _run_card(self, card: int, seg: int) -> None:
+        self.rings[seg].begin(card)
+        self._share(seg, self.rings[seg], card)
+
+    def run(self) -> None:
+        """One execution without a graph: over every card, segment by
+        segment, in lockstep on host threads a card when there are
+        several."""
+        if self.mesh is None:
+            self.body(0)
+            return
+        for seg, ring in enumerate(self.rings):
+            ring.begin()
+            if len(self._cards) == 1:
+                self._share(seg, ring, 0)
+                continue
+            lockstep = coll.LockstepRing(ring)
+            coll.run_in_lockstep(lockstep, [
+                (card, functools.partial(self._share, seg, lockstep))
+                for card in self._cards])
+
+    def bodies(self) -> list[tuple[torch.device, Callable[[], None]]]:
+        if self.mesh is None:
+            return [(self.device, self.run)]
+        return [(card, functools.partial(self._run_card, c, seg))
+                for seg in range(len(self.segments))
+                for c, card in enumerate(self._cards)]
 
     def __call__(self) -> torch.Tensor:
         """One execution; returns the logits (the graph's static buffer
         after a replay: read it before the next call)."""
         self.calls += 1
+        for c in range(1, len(self._cards)):
+            for dst, src in zip(self.card_inputs(c), self.card_inputs(0)):
+                dst.copy_(src)
         if self._graphs:
             self.replay()
             self.replays += 1
             return self.logits
-        self.run()
-        first = self.logits
-        if self.device.type == "cuda":
-            self.record()
+        with (set_mesh(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()):
+            self.run()
+            first = self.logits
+            if self.device.type == "cuda":
+                self.record()
         return first
 
 
 class PrefillProgram(_ServeProgram):
-    """``prefill_forward`` of one (batch, prompt length) into a given
-    cache: static tokens ``(B, S)`` in, logits ``(B, S, V)`` out, every
-    entry of ``cache`` written in place."""
+    """``prefill_forward`` of one (batch, prompt length) into given
+    caches (one a card): static tokens ``(B, S)`` in, logits ``(B, S,
+    V)`` out, every entry of each cache written in place."""
 
-    def __init__(self, engine: "ServeEngine", cache: dict, batch: int,
-                 length: int):
-        super().__init__(engine, cache)
-        self.tokens = torch.zeros((batch, length), dtype=torch.long,
-                                  device=self.device)
+    def __init__(self, engine: "ServeEngine", caches: list[dict],
+                 batch: int, length: int):
+        super().__init__(engine, caches)
+        self._tokens = [torch.zeros((batch, length), dtype=torch.long,
+                                    device=card) for card in self._cards]
+        self.tokens = self._tokens[0]
+        self._handover((batch, length, self.cfg.d_model))
 
-    def inputs(self) -> list[torch.Tensor]:
-        return [self.tokens]
+    def card_inputs(self, card: int) -> list[torch.Tensor]:
+        return [self._tokens[card]]
 
-    def run(self) -> None:
-        self.logits, _ = tfm.prefill_forward(
-            self.params, self.cfg, {"tokens": self.tokens}, self.spec,
-            cache=self.cache)
+    def embed(self, card: int) -> torch.Tensor:
+        return tfm.embed_inputs(self.trees[card], self.cfg,
+                                {"tokens": self._tokens[card]})
+
+    def blocks(self, card: int, x: torch.Tensor,
+               layers: range) -> torch.Tensor:
+        return tfm.prefill_blocks(self.trees[card], self.cfg, x, self.spec,
+                                  self.caches[card], layers)
 
 
 class DecodeProgram(_ServeProgram):
-    """``decode_step`` of one batch size on its own cache: static tokens
-    ``(B, 1)`` and position ``cur_len`` (0-d int64) in, logits ``(B, V)``
-    out, the cache written in place at ``cur_len``."""
+    """``decode_step`` of one batch size on its own caches (one a card):
+    static tokens ``(B, 1)`` and position ``cur_len`` (0-d int64) in,
+    logits ``(B, V)`` out, each cache written in place at ``cur_len``."""
 
     def __init__(self, engine: "ServeEngine", batch: int):
-        super().__init__(engine, tfm.init_cache(engine.cfg, batch,
-                                                engine.spec,
-                                                device=engine.device))
-        self.tokens = torch.zeros((batch, 1), dtype=torch.long,
-                                  device=self.device)
-        self.cur_len = torch.zeros((), dtype=torch.long, device=self.device)
+        super().__init__(engine, [
+            tfm.init_cache(engine.cfg, batch, engine.spec, device=card)
+            for card in engine.cards])
+        self._tokens = [torch.zeros((batch, 1), dtype=torch.long,
+                                    device=card) for card in self._cards]
+        self._cur_len = [torch.zeros((), dtype=torch.long, device=card)
+                         for card in self._cards]
+        self.tokens = self._tokens[0]
+        self.cur_len = self._cur_len[0]
+        self._handover((batch, self.cfg.d_model))
 
-    def inputs(self) -> list[torch.Tensor]:
-        return [self.tokens, self.cur_len]
+    def card_inputs(self, card: int) -> list[torch.Tensor]:
+        return [self._tokens[card], self._cur_len[card]]
 
-    def run(self) -> None:
-        self.logits, _ = tfm.decode_step(self.params, self.cfg, self.cache,
-                                         self.tokens, self.cur_len,
-                                         self.spec)
+    def embed(self, card: int) -> torch.Tensor:
+        return self.trees[card]["embed"][self._tokens[card][:, 0]]
+
+    def blocks(self, card: int, x: torch.Tensor,
+               layers: range) -> torch.Tensor:
+        return tfm.decode_blocks(self.trees[card], self.cfg,
+                                 self.caches[card], x, self._cur_len[card],
+                                 self.spec, layers)
 
 
 class ServeEngine:
@@ -235,9 +389,12 @@ class ServeEngine:
 
     Runs on the device the parameters live on, through its
     :class:`PrefillProgram` and :class:`DecodeProgram` (captured CUDA
-    graphs on the card). An encoder-only model (``causal=False``) has no
-    decode step and raises ``ValueError``. Greedy sampling is ``argmax``; with
-    ``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded
+    graphs on the card); under an ambient peer mesh on the mesh's cards,
+    from ``params`` placed there (whole parameters, which it places, or
+    one placed tree a card; the module docstring). An encoder-only model
+    (``causal=False``) has no decode step and raises ``ValueError``.
+    Greedy sampling is ``argmax``; with ``temperature > 0`` tokens are
+    drawn from a ``torch.Generator`` seeded
     by ``generate``'s ``seed`` (the reference draws from its own
     generator, so sampled tokens differ between the two packages; greedy
     ones agree). Sampling runs outside the programs, on their logits.
@@ -248,7 +405,6 @@ class ServeEngine:
                  comm: "CommSession | None" = None):
         tfm.check_decoder(cfg)
         self.cfg = cfg
-        self.params = params
         self.spec = tfm.cache_spec(cfg, max_len=max_len,
                                    kv_chunks=kv_chunks)
         self.temperature = temperature
@@ -260,7 +416,23 @@ class ServeEngine:
         #: (the session re-plans on surviving routes); this log is how
         #: the serving layer surfaces that it happened.
         self.health_events: list[dict] = []
-        self.device = params["embed"].device
+        #: The ambient peer mesh the engine serves on, or None; its cards
+        #: (one device for any other engine) and one tree a card.
+        mesh = ambient_mesh()
+        self.mesh = mesh if is_peer(mesh) else None
+        if self.mesh is None:
+            self.trees = [params]
+            self.cards = (params["embed"].device,)
+        else:
+            self.cards = tuple(dict.fromkeys(mesh.session.devices))
+            self.trees = (list(params) if isinstance(params, (list, tuple))
+                          else shd.place_params(params, mesh))
+            held = [str(t["embed"].device) for t in self.trees]
+            if held != [str(c) for c in self.cards]:
+                raise ValueError(f"placed trees on {held}, not one on each "
+                                 f"of the peer mesh's cards")
+        self.params = self.trees[0]
+        self.device = self.cards[0]
         self._decodes: dict[int, DecodeProgram] = {}
         self._prefills: collections.OrderedDict[
             tuple[int, int], PrefillProgram] = collections.OrderedDict()
@@ -288,7 +460,7 @@ class ServeEngine:
         key = (batch, length)
         prog = self._prefills.pop(key, None)
         if prog is None:
-            prog = PrefillProgram(self, self.decode_program(batch).cache,
+            prog = PrefillProgram(self, self.decode_program(batch).caches,
                                   batch, length)
         self._prefills[key] = prog
         while len(self._prefills) > PREFILL_PROGRAMS:
@@ -296,7 +468,8 @@ class ServeEngine:
         return prog
 
     def graph_bytes(self) -> int:
-        """Device memory that the programs' captured graphs hold."""
+        """Device memory that the programs' captured graphs hold (on every
+        card)."""
         return sum(p.held_bytes for p in (*self._decodes.values(),
                                           *self._prefills.values()))
 

@@ -23,7 +23,9 @@ Specs are :class:`~repro_torch.models.pspec.PartitionSpec` tuples over a
 device-stacked, so in place of the reference's placement of arrays on
 devices, :func:`shard_tree` lays each leaf out as the ``(n, ...)`` stack
 of the mesh's ``n`` logical devices' local shards (row-major over the
-mesh axes) and :func:`unshard_tree` puts the whole back.
+mesh axes) and :func:`unshard_tree` puts the whole back. On a peer mesh
+(``make_host_mesh(..., devices=[...])``), :func:`place_params` gives one
+tree a card: its logical devices' experts, and a replica of the rest.
 """
 
 from __future__ import annotations
@@ -305,3 +307,80 @@ def unshard_tree(tree, specs, mesh: LogicalMesh):
     if isinstance(tree, dict):
         return {k: unshard_tree(v, specs[k], mesh) for k, v in tree.items()}
     return unshard_leaf(tree, specs, mesh)
+
+
+def _held_runs(held: list[int]) -> list[tuple[int, int]]:
+    """``held`` (ascending) as ``[start, stop)`` runs of consecutive
+    indices."""
+    runs: list[list[int]] = []
+    for d in held:
+        if runs and runs[-1][1] == d:
+            runs[-1][1] = d + 1
+        else:
+            runs.append([d, d + 1])
+    return [(a, b) for a, b in runs]
+
+
+def cut_experts(w: torch.Tensor, name: str, held: list[int],
+                model: int) -> torch.Tensor:
+    """The part of the expert weight ``w`` (``w1``/``w3``: ``(..., E, d,
+    ff)``, ``w2``: ``(..., E, ff, d)``) that the model-axis devices
+    ``held`` own, in device order: their ``E / model`` experts each (EP),
+    or, when ``model`` does not divide ``E``, their ff-shards of every
+    expert (expert-TP; ``ff`` must divide), as
+    :func:`~repro_torch.models.moe_dist._row_weights` cuts a row. A view
+    of ``w`` where ``held`` is one run of consecutive devices."""
+    e = w.shape[-3]
+    if e % model == 0:
+        dim, size = w.dim() - 3, e // model
+    else:
+        dim = w.dim() - (2 if name == "w2" else 1)
+        if w.shape[dim] % model:
+            raise ValueError(f"expert-TP over {model} devices needs the ff "
+                             f"dim {w.shape[dim]} of {name} to divide")
+        size = w.shape[dim] // model
+    parts = [w.narrow(dim, a * size, (b - a) * size)
+             for a, b in _held_runs(sorted(held))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def _is_expert(path: tuple) -> bool:
+    return ("moe" in path and "shared" not in path
+            and path[-1] in ("w1", "w3", "w2"))
+
+
+def place_card(params, held: list[int], model: int, device):
+    """One card's tree of ``params``: the expert leaves (``w1``, ``w3``,
+    ``w2`` under ``moe``, not ``shared``) cut to the model-axis devices
+    ``held`` (:func:`cut_experts`), every other leaf a replica, all on
+    ``device``; a leaf already there stays a view."""
+    def place(path, x):
+        if _is_expert(path):
+            x = cut_experts(x, path[-1], held, model)
+        return x.to(device)
+
+    return _map_with_path(place, params)
+
+
+def place_params(params, mesh: LogicalMesh) -> list:
+    """Expert parallelism placed on a peer mesh: one tree a card of the
+    mesh's session (its distinct devices, in first-use order), each
+    :func:`place_card` of the logical devices that card holds.
+
+    Only the experts are cut. Dense tensor parallelism is not placed: the
+    reference gets it from GSPMD, the port has no collectives for it, and
+    the pspec constraints are not ported, so every card holds the whole of
+    the embeddings, attention, norms, router and shared experts, and runs
+    them on its own replica. The weights are read-only: on the card that
+    already holds a leaf, the leaf (or its expert cut, for one run of
+    devices) stays a view."""
+    session = mesh.session
+    if session is None or session.devices is None:
+        raise ValueError(f"place_params needs a peer mesh (make_host_mesh("
+                         f"..., devices=[...])), got {mesh}")
+    model = mesh.shape.get("model", 1)
+    devices = session.devices
+    cards = tuple(dict.fromkeys(devices))
+    return [place_card(params, [d for d, dev in enumerate(devices)
+                                if dev == card], model, card)
+            for card in cards]

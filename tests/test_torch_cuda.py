@@ -76,6 +76,12 @@ row d of the stacked program over two chained calls), the compressed
 mean on a per-device list and a reduced Llama-3 pipelined a stage a
 device, each bit for bit as the stacked session's; on one card, on four
 and on two cards holding two logical devices each.
+Expert-parallel serving on a peer mesh (``-k peer_moe``): reduced
+Mixtral served by ``ServeEngine`` under ``make_host_mesh((1, 4),
+devices=...)``, tokens and prefill and decode logits bit for bit the
+stacked mesh's, one graph a card a program and one ``ring_allgather``
+launch a card a MoE layer a replay; on one card, on four and on two
+cards holding two logical devices each.
 ``multipath_dma`` at the edges of its copy paths (``-k edges``): tiles
 whose ends differ mod 16, short items, tiles that are not multiples of 16
 bytes, a 1-byte dtype of odd length, a window of 2 and a three-path plan,
@@ -1881,6 +1887,57 @@ def test_peer_training_across_four_cards(dev):
     cards = peer_cards(4)
     for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
         peer_training_checks(devices, cards[0])
+
+
+def peer_moe_serving_checks(devices, dev):
+    """Reduced Mixtral served on a ``(1, 4)`` peer mesh over ``devices``
+    (its whole parameters placed by the engine) against the stacked mesh
+    on ``dev``: ``generate``'s tokens, the prefill's logits and three
+    decode steps' logits bit for bit; each program one graph a card, and
+    ``ring_allgather`` launched once a card a MoE layer a replay."""
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+
+    cfg, params, _ = _served(dev, "mixtral_8x22b")
+    toks = [list(range(1, 13)), [5, 6, 7] * 4]
+
+    def serve(mesh):
+        with set_mesh(mesh):
+            engine = ServeEngine(cfg, params, max_len=32, kv_chunks=4)
+            res = engine.generate([Request(list(p), 5) for p in toks])
+            logits, _ = engine.prefill(toks)
+            decode = engine.decode_program(2)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps, launched = [], []
+            for pos in range(12, 15):
+                decode.tokens.copy_(tok)
+                decode.cur_len.fill_(pos)
+                before = rk.LAUNCHES
+                steps.append(decode().clone())
+                launched.append(rk.LAUNCHES - before)
+                tok = steps[-1].argmax(-1)[:, None]
+        return engine, [r.out for r in res], logits, steps, launched
+
+    _, souts, slogits, ssteps, _ = serve(make_host_mesh((1, 4), device=dev))
+    engine, outs, logits, steps, launched = serve(
+        make_host_mesh((1, 4), devices=devices))
+    cards = tuple(dict.fromkeys(torch.device(d) for d in devices))
+    assert engine.cards == cards and logits.device == cards[0]
+    assert outs == souts and torch.equal(logits.to(dev), slogits)
+    assert all(torch.equal(a.to(dev), b) for a, b in zip(steps, ssteps))
+    for prog in (engine.decode_program(2), engine.prefill_program(2, 12)):
+        assert len(prog._graphs) == len(cards) * len(prog.segments)
+        assert prog.replays >= 1
+    assert launched == [cfg.num_layers * len(cards)] * 3
+
+
+def test_peer_moe_serving_on_one_card_bitwise_stacked(dev):
+    peer_moe_serving_checks([dev] * 4, dev)
+
+
+def test_peer_moe_serving_across_four_cards(dev):
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_moe_serving_checks(devices, cards[0])
 
 
 # -- multipath_dma at the edges of its copy paths -----------------------------

@@ -32,7 +32,7 @@ from repro.core import halo as jhalo
 from repro_torch.comm import CommConfig, CommSession, TransferPlanCache
 from repro_torch.comm.engine import PlacedKey
 from repro_torch.comm.graph import CopyNode
-from repro_torch.comm.session import PEER_COLLECTIVES_SLICE, resolve_devices
+from repro_torch.comm.session import resolve_devices
 from repro_torch.configs import get_config
 from repro_torch.core import halo
 from repro_torch.core.topology import Topology
@@ -544,9 +544,9 @@ def test_capture_on_a_peer_session_raises():
     """Capture runs on a peer session (``tests/test_torch_peer_capture.py``
     holds it to the stacked session), and so does the captured DP step
     (``tests/test_torch_peer_training.py``): it builds with the stacked
-    step's key and returns one replica a device. What still raises is a
-    stacked operand to the peer collectives, naming the slice that brings
-    the last caller of that form, the mesh's MoE combine."""
+    step's key and returns one replica a device. What raises is a stacked
+    operand to the peer collectives, which take lists only (the mesh's MoE
+    combine passes one tensor a logical device)."""
     sess = CommSession(devices=CPU4)
     step = sess.capture(lambda cap: cap.input((4,), torch.float32))
     (out,) = step([torch.full((4,), float(d)) for d in range(4)])
@@ -567,9 +567,8 @@ def test_capture_on_a_peer_session_raises():
     reps, metrics = peer(state, batch)
     assert len(reps) == 4 and all(r["opt"]["step"] == 1 for r in reps)
     assert torch.isfinite(metrics["loss"])
-    with pytest.raises(NotImplementedError, match="MoE combine"):
+    with pytest.raises(ValueError, match="takes a list"):
         sess.collectives.psum(torch.randn(4, 5))
-    assert "later slice" in PEER_COLLECTIVES_SLICE
 
 
 def test_compiled_for_stages_one_view_a_device():

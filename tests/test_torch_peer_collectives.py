@@ -41,9 +41,7 @@ from repro.kernels.ring_allgather import ops as jops
 from repro_torch.comm import CollectiveKey, CommSession, TransferPlanCache
 from repro_torch.comm import collectives as coll
 from repro_torch.comm.engine import PlacedKey
-from repro_torch.comm.session import (PEER_COLLECTIVES_SLICE,
-                                      CollectiveProgram,
-                                      PeerCollectiveProgram)
+from repro_torch.comm.session import CollectiveProgram, PeerCollectiveProgram
 from repro_torch.kernels.multipath_dma import kernel as dk
 from repro_torch.kernels.ring_allgather import kernel as rk
 from repro_torch.kernels.ring_allgather import ops as rops
@@ -288,9 +286,8 @@ def test_dropping_a_peer_session_frees_its_programs():
 
 def test_peer_collectives_refuse_stacked_and_misplaced_operands():
     sess = CommSession(devices=CPU4)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="takes a list"):
         sess.collectives.psum(torch.randn(N, 5))
-    assert "list" in PEER_COLLECTIVES_SLICE
     with pytest.raises(ValueError, match="one tensor on each"):
         sess.collectives.psum([torch.randn(5)] * (N - 1))
 

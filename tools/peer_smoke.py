@@ -112,6 +112,38 @@ each card's peak GiB printed:
 
 Every reading also goes to ``chiprun_out/peer_training.json``.
 
+With ``--moe`` it serves Mixtral-8x22B expert parallel on a peer mesh
+instead (after the topology, names and power limits; TF32 off)::
+
+    python3 tools/peer_smoke.py --moe              # a few minutes
+
+``make_host_mesh((1, 4), devices=cards)``: each card holds its logical
+device's 2 experts a layer and a replica of the rest, and each MoE
+combine is one peer psum a forward a layer, one ``ring_allgather``
+launch a card. Path S's requests (4 prompts of 512/384/256/128 tokens,
+32 new, greedy), full width:
+
+* at 8 layers, from path S's seeded weights (drawn whole on card 0 and
+  placed by the engine): ``generate``'s tokens, the prefill's logits and
+  one decode step's bit for bit one card's stacked path S
+  (``make_host_mesh((1, 4), device=cards[0])`` in the same process),
+  every card's logits the same bits;
+* at the deepest depth the meta reckoning admits (each card's placed
+  weights, its KV cache and its combines' buffers, with MOE_HEADROOM
+  left for graphs and activations; at most 56 layers), the trees drawn
+  layer by layer and placed without a whole model on any card:
+  ``generate`` twice (the same tokens), every card's prefill and decode
+  logits the same bits, the prefill replay and the captured decode step
+  by CUDA events on every card (the slowest), tokens/s of the second
+  ``generate``, ``ring_allgather`` launches a decode replay, each card's
+  peak GiB, and one prefill and one decode replay under the profiler
+  (device ms by kernel over the cards);
+* one combine, a peer psum of path S's prefill rows (2048, 6144) and of
+  a decode step's (4, 6144) bfloat16 a card: the call and its program's
+  replay, against path S's 1.1031-1.4110 ms a layer.
+
+Every reading also goes to ``chiprun_out/peer_moe.json``.
+
 With ``--collectives`` it runs only the session's collectives (after the
 topology, names and power limits), and ``--src DIR`` imports the package
 from another checkout's ``src/`` (a parent commit unpacked by ``git
@@ -1082,6 +1114,361 @@ def training(cards, smi) -> dict:
     return out
 
 
+#: ``--moe``: the depth at which one card's stacked path S runs beside
+#: the peer mesh, path S's prompt lengths and new tokens, and the device
+#: memory a card keeps beyond the reckoned weights, KV cache and combine
+#: buffers (graphs, activations, the allocator's slack).
+MOE_CHECK_LAYERS = 8
+MOE_PROMPTS = (512, 384, 256, 128)
+MOE_NEW = 32
+MOE_HEADROOM = 10e9
+
+
+def moe_prompts(cfg) -> list[list[int]]:
+    """Path S's prompts: seeded token ids of MOE_PROMPTS lengths."""
+    gen = torch.Generator().manual_seed(1)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in MOE_PROMPTS]
+
+
+def moe_serve(engine, prompts, cards) -> dict:
+    """``generate`` twice (host clock, every card synced), then one prefill
+    program call on the padded prompts and one decode step after it:
+    tokens, seconds, the two calls' logits and every card's."""
+    from repro_torch.serving import Request
+
+    times, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = engine.generate([Request(list(p), MOE_NEW) for p in prompts])
+        sync_all(cards)
+        times.append(time.perf_counter() - t0)
+        outs.append([r.out for r in res])
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
+                        device=engine.device)
+    prefill = engine.prefill_program(*toks.shape)
+    prefill.tokens.copy_(toks)
+    logits = prefill().clone()
+    prefill_cards = [t.clone() for t in prefill.card_logits]
+    decode = engine.decode_program(toks.shape[0])
+    decode.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
+    decode.cur_len.fill_(plen)
+    step = decode().clone()
+    decode_cards = [t.clone() for t in decode.card_logits]
+    return {"outs": outs, "gen_s": times, "toks": toks, "logits": logits,
+            "step": step, "prefill_cards": prefill_cards,
+            "decode_cards": decode_cards}
+
+
+def moe_times(engine, got: dict, cards) -> dict:
+    """The prefill replay and the captured decode step (MOE_NEW - 1 greedy
+    steps, the argmax and the staging included) by CUDA events on every
+    card (the slowest card's), and the ``ring_allgather`` launches of one
+    decode replay."""
+    from repro_torch.kernels.ring_allgather import kernel as rk
+
+    toks, logits = got["toks"], got["logits"]
+    b, plen = toks.shape
+    prefill = engine.prefill_program(b, plen)
+    prefill.tokens.copy_(toks)
+    prefill_ms, prefill_per = cards_call_ms(prefill, cards, 3)
+    decode = engine.decode_program(b)
+
+    def steps():
+        tok = logits[:, -1].argmax(-1)[:, None]
+        for i in range(MOE_NEW - 1):
+            decode.tokens.copy_(tok)
+            decode.cur_len.fill_(plen + i)
+            tok = decode().argmax(-1)[:, None]
+
+    prefill()
+    steps_ms, steps_per = cards_call_ms(steps, cards, 2)
+    before = rk.LAUNCHES
+    decode()
+    sync_all(cards)
+    return {"prefill_ms": prefill_ms, "prefill_ms_cards": prefill_per,
+            "decode_ms": steps_ms / (MOE_NEW - 1),
+            "decode_ms_cards": [t / (MOE_NEW - 1) for t in steps_per],
+            "gather_launches_a_decode": rk.LAUNCHES - before,
+            "graph_gb": engine.graph_bytes() / 1e9,
+            "prefill_profile": moe_profile(prefill, cards),
+            "decode_profile": moe_profile(decode, cards)}
+
+
+def moe_profile(fn, cards, top: int = 6) -> dict:
+    """One call of ``fn`` (after one unprofiled) under ``torch.profiler``:
+    the device ms of every card's kernels summed, their count, and the
+    ``top`` kernels by device ms (a peer kernel's time includes its waits
+    on the other cards)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all(cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all(cards)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"device_ms_all_cards": sum(ms for _, ms, _ in rows),
+            "kernels": sum(c for *_, c in rows),
+            "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:top]]}
+
+
+def moe_reckoning(cfg, cards) -> dict:
+    """Card 0's bytes at ``L`` layers on the peer mesh, reckoned on meta
+    tensors: its placed weights and KV cache (path S's requests, max_len
+    1024), and its combines' buffers, three times a prefill combine's
+    operand (2048 x 6144 bfloat16) a layer (a ring shift's send and
+    receipt and the gather's replicas); the deepest ``L`` of at most the
+    config's whose bytes leave MOE_HEADROOM of the card."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.sharding import place_card
+
+    def card_bytes(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        tree = place_card(tfm.param_shapes(c), [0], len(cards), "meta")
+        spec = tfm.cache_spec(c, max_len=1024, kv_chunks=4)
+        cache = tfm.cache_shapes(c, len(MOE_PROMPTS), spec)
+        weights = sum(t.numel() * t.element_size() for t in leaves(tree))
+        kv = sum(t.numel() * t.element_size() for t in cache.values())
+        combine = 3 * layers * sum(MOE_PROMPTS[:1]) * len(MOE_PROMPTS) \
+            * cfg.d_model * 2
+        return weights, kv, combine
+
+    w0, k0, c0 = card_bytes(0)
+    w1, k1, c1 = card_bytes(1)
+    total = torch.cuda.mem_get_info(cards[0])[1]
+    per_layer = (w1 - w0) + (k1 - k0) + (c1 - c0)
+    fixed = w0 + k0 + c0
+    depth = min(cfg.num_layers,
+                int((total - MOE_HEADROOM - fixed) // per_layer))
+    return {"card_bytes": total, "fixed_bytes": fixed,
+            "weight_bytes_a_layer": w1 - w0, "kv_bytes_a_layer": k1 - k0,
+            "combine_bytes_a_layer": c1 - c0, "layers": depth,
+            "reckoned_bytes": fixed + depth * per_layer}
+
+
+def moe_trees(cfg, cards, seed: int) -> list:
+    """One placed tree a card of ``cfg`` on the peer mesh of ``cards`` (a
+    logical device a card), drawn layer by layer on card 0 from ``seed``
+    (the top-level leaves first, then each layer's block) and copied into
+    each card's part, so no card ever holds the whole model."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.sharding import place_card
+    from repro_torch.tree import tree_map
+
+    n, c0 = len(cards), cards[0]
+    trees = [tree_map(lambda t, card=card: torch.empty(
+        t.shape, dtype=t.dtype, device=card), place_card(
+        tfm.param_shapes(cfg), [c], n, "meta"))
+        for c, card in enumerate(cards)]
+    gen = torch.Generator(device=c0).manual_seed(seed)
+    top = tfm.init_params(dataclasses.replace(cfg, num_layers=0),
+                          generator=gen, device=c0)
+    for tree in trees:
+        for key, t in top.items():
+            if key != "layers":
+                tree[key].copy_(t)
+    del top
+    for i in range(cfg.num_layers):
+        layer = tfm.block_init(cfg, generator=gen, device=c0)
+        for c, tree in enumerate(trees):
+            part = place_card(layer, [c], n, c0)     # views on card 0
+            for dst, src in zip(leaves(tree["layers"]), leaves(part)):
+                dst[i].copy_(src)
+        del layer, part
+    sync_all(cards)
+    return trees
+
+
+def moe_combine(sess, cards, rows: int, d: int) -> dict:
+    """One combine of ``rows x d`` bfloat16 a card through the peer
+    session's ``collectives.psum``: the call and its program's replay by
+    CUDA events on every card (the slowest)."""
+    gen = torch.Generator(device=cards[0]).manual_seed(3)
+    parts = [torch.randn(rows, d, generator=gen, device=cards[0]).to(
+        torch.bfloat16).to(c) for c in cards]
+    want = sum(p.to(cards[0]).float() for p in parts)
+    got = sess.collectives.psum(parts)
+    err = max((g.to(cards[0]).float() - want).abs().max().item()
+              for g in got)
+    check(all(torch.equal(g.to(cards[0]), got[0].to(cards[0]))
+              for g in got), "the combine's results differ between cards")
+    call_ms, _ = cards_call_ms(lambda: sess.collectives.psum(parts), cards,
+                               10)
+    replay_ms, _ = replay_cards_ms(program_of_shape(sess, (rows, d)), 10)
+    return {"rows": rows, "d": d, "call_ms": call_ms,
+            "replay_ms": replay_ms, "max_abs_vs_float_sum": err}
+
+
+def program_of_shape(sess, local: tuple):
+    """The cached peer psum program whose per-device input is ``local``."""
+    for compiled in sess.cache.values():
+        prog = getattr(compiled, "program", None)
+        if getattr(prog, "x", None) and tuple(prog.x[0].shape) == local:
+            return prog
+    raise KeyError(local)
+
+
+def moe_bitwise(cards, peer) -> dict:
+    """``--moe`` at MOE_CHECK_LAYERS layers: the peer mesh ``peer`` against
+    one card's stacked path S on path S's seeded weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+
+    c0 = cards[0]
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"),
+                              num_layers=MOE_CHECK_LAYERS)
+    prompts = moe_prompts(cfg)
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=c0).manual_seed(0), device=c0)
+    with set_mesh(make_host_mesh((1, 4), device=c0)):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        want = moe_serve(engine, prompts, [c0])
+        stacked = moe_times(engine, want, [c0])
+        del engine
+    free(cards)
+    with set_mesh(peer):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        got = moe_serve(engine, prompts, cards)
+        out = moe_times(engine, got, cards)
+        out["peak_gib"] = peaks_gib(cards)
+        del engine
+    same = {"tokens": got["outs"] == want["outs"],
+            "prefill logits": torch.equal(got["logits"], want["logits"]),
+            "decode logits": torch.equal(got["step"], want["step"]),
+            "every card's logits": all(
+                torch.equal(t.to(c0), got["logits"])
+                for t in got["prefill_cards"]) and all(
+                torch.equal(t.to(c0), got["step"])
+                for t in got["decode_cards"])}
+    out.update({"bitwise": same, "stacked": stacked})
+    print(f"moe at {MOE_CHECK_LAYERS} layers on {peer} a card: bit for bit "
+          f"one card's stacked path S: {same}; prefill replay "
+          f"{out['prefill_ms']:.2f} ms (one card's "
+          f"{stacked['prefill_ms']:.2f}), captured decode step "
+          f"{out['decode_ms']:.2f} ms ({stacked['decode_ms']:.2f}); "
+          f"ring_allgather {out['gather_launches_a_decode']} launches a "
+          f"decode replay; peak GiB a card {out['peak_gib']}", flush=True)
+    check(all(same.values()), f"moe at {MOE_CHECK_LAYERS} layers differs "
+          f"from one card's stacked path S: {same}")
+    del params, want, got
+    free(cards)
+    return out
+
+
+def moe_deep(cards, peer) -> dict:
+    """``--moe`` at the deepest depth the meta reckoning admits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.serving import ServeEngine
+
+    c0 = cards[0]
+    full = get_config("mixtral_8x22b")
+    reck = moe_reckoning(full, cards)
+    depth = reck["layers"]
+    print(f"moe reckoning (meta tensors, card 0 of 4): "
+          f"{reck['fixed_bytes'] / 1e9:.3f} GB fixed, a layer "
+          f"{reck['weight_bytes_a_layer'] / 1e9:.3f} GB of weights + "
+          f"{reck['kv_bytes_a_layer'] / 1e6:.1f} MB of KV cache + "
+          f"{reck['combine_bytes_a_layer'] / 1e6:.1f} MB of combine "
+          f"buffers; the card {reck['card_bytes'] / 1e9:.2f} GB less "
+          f"{MOE_HEADROOM / 1e9:.0f} GB: {depth} of {full.num_layers} "
+          f"layers ({reck['reckoned_bytes'] / 1e9:.2f} GB reckoned)",
+          flush=True)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    prompts = moe_prompts(cfg)
+    t0 = time.perf_counter()
+    trees = moe_trees(cfg, cards, seed=0)
+    build_s = time.perf_counter() - t0
+    print(f"moe: {depth} layers drawn and placed a card in {build_s:.1f} "
+          f"s; GiB a card {peaks_gib(cards)}", flush=True)
+    reset_peaks(cards)
+    with set_mesh(peer):
+        engine = ServeEngine(cfg, trees, max_len=1024, kv_chunks=4)
+        got = moe_serve(engine, prompts, cards)
+        deep = moe_times(engine, got, cards)
+        del engine
+    gen1, gen2 = got["gen_s"]
+    tokens = len(prompts) * MOE_NEW
+    deep.update({
+        "reckoning": reck, "layers": depth, "build_s": build_s,
+        "generate_s": got["gen_s"], "tokens_per_s": tokens / gen2,
+        "peak_gib": peaks_gib(cards),
+        "same_tokens_twice": got["outs"][0] == got["outs"][1],
+        "every_card_same_logits": all(
+            torch.equal(t.to(c0), got["logits"])
+            for t in got["prefill_cards"]) and all(
+            torch.equal(t.to(c0), got["step"])
+            for t in got["decode_cards"]),
+        "logits_finite": bool(torch.isfinite(got["logits"]).all())})
+    print(f"moe at {depth} layers on 4 cards: prefill replay "
+          f"{deep['prefill_ms']:.2f} ms (cards "
+          f"{[round(x, 2) for x in deep['prefill_ms_cards']]}), captured "
+          f"decode step {deep['decode_ms']:.2f} ms (CUDA events, slowest "
+          f"card), generate of {tokens} tokens {gen2:.3f} s = "
+          f"{deep['tokens_per_s']:.1f} tokens/s (first {gen1:.3f} s, with "
+          f"the captures); ring_allgather "
+          f"{deep['gather_launches_a_decode']} launches a decode replay; "
+          f"graphs {deep['graph_gb']:.2f} GB; peak GiB a card "
+          f"{deep['peak_gib']}; same tokens twice "
+          f"{deep['same_tokens_twice']}, every card's logits the same "
+          f"bits {deep['every_card_same_logits']}", flush=True)
+    for name in ("prefill", "decode"):
+        prof = deep[f"{name}_profile"]
+        print(f"moe at {depth} layers, profiler, one {name} replay: "
+              f"{prof['device_ms_all_cards']:.2f} ms of device time over "
+              f"the 4 cards in {prof['kernels']} kernels; top (name, ms, "
+              f"count): {prof['top']}", flush=True)
+    check(deep["same_tokens_twice"] and deep["every_card_same_logits"]
+          and deep["logits_finite"], f"moe at {depth} layers: {deep}")
+    check(deep["gather_launches_a_decode"] == depth * len(cards),
+          f"moe: {deep['gather_launches_a_decode']} ring_allgather "
+          f"launches a decode replay, not one a card a layer")
+    del trees, got
+    free(cards)
+    return deep
+
+
+def moe(cards, smi) -> dict:
+    """``--moe``: Mixtral-8x22B served expert parallel on a peer mesh a
+    card (module docstring)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    peer = make_host_mesh((1, 4), devices=cards)
+    d = 6144                                   # Mixtral-8x22B's d_model
+    out = {"cards": smi, "peer_8": moe_bitwise(cards, peer),
+           "deep": moe_deep(cards, peer),
+           "combine": [moe_combine(peer.session, cards, rows, d)
+                       for rows in (MOE_PROMPTS[0] * len(MOE_PROMPTS),
+                                    len(MOE_PROMPTS))]}
+    for row in out["combine"]:
+        print(f"moe combine, a peer psum of ({row['rows']}, {row['d']}) "
+              f"bfloat16 a card on 4 cards: the call {row['call_ms']:.4f} "
+              f"ms, its program's replay {row['replay_ms']:.4f} ms (CUDA "
+              f"events, slowest card; path S's combine on one card "
+              f"1.1031-1.4110 ms a layer); every card the same bits, max "
+              f"abs vs the float sum {row['max_abs_vs_float_sum']}",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -1092,6 +1479,9 @@ def main() -> int:
     ap.add_argument("--training", action="store_true",
                     help="run the DP steps, the pipeline and the compressed "
                          "mean a card instead")
+    ap.add_argument("--moe", action="store_true",
+                    help="serve Mixtral-8x22B expert parallel on a peer "
+                         "mesh a card instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
     args = ap.parse_args()
@@ -1120,9 +1510,17 @@ def main() -> int:
     _build.build_all(("multipath_dma", "jacobi", "ring_allgather",
                       "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    if args.sweep or args.collectives or args.training:
+    if args.sweep or args.collectives or args.training or args.moe:
         if args.sweep:
             sweep(cards)
+        elif args.moe:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            results = moe(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out", "peer_moe.json"),
+                      "w") as f:
+                json.dump(results, f, indent=1)
+            print(json.dumps({"moe": results}), flush=True)
         elif args.training:
             torch.backends.cuda.matmul.allow_tf32 = False
             results = training(cards, smi)
