@@ -485,7 +485,19 @@ What it does, in order (any failed check exits nonzero):
     MoE layer a forward, path E's token and captured-decode checks under
     the peer mesh, the prefill replay and the captured decode step beside
     path S's, and the peak GiB;
-33. one JSON line ``{"kernels": [...]}``, then as the last line
+33. main path Z, counters set to 0 before it and read after it:
+    Mixtral-8x22B trained expert parallel on a peer mesh of four logical
+    devices on the one card, ``make_host_mesh((1, 4), devices=["cuda:0"]
+    * 4)``: full width, ``remat="full"``, bfloat16 with bfloat16 moments,
+    path M's depth and tokens (8 x 512), 2 steps of ``make_train_step``
+    from ``place_state``, every MoE combine and its backward a peer psum
+    over the card's ring (``multipath_dma`` ring shifts and one
+    ``ring_allgather`` each); held against the stacked mesh's step from
+    the same seed and batches, run first and not counted: losses within
+    rtol 1e-3, every updated parameter within 2e-2 of the stacked
+    update's largest |change|; the largest errors, the step ms, the peak
+    GiB and the launches a step, and the whole run's seconds;
+34. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -6330,7 +6342,154 @@ def peer_training_path(dev, errs, per_path, read_path, smi) -> None:
     free()
 
 
+#: Path Z's limits against the stacked mesh's step: the losses' relative
+#: difference, and a parameter's largest difference over the stacked
+#: update's largest |change| (over every leaf).
+PEER_TRAIN_LOSS_RTOL = 1e-3
+PEER_TRAIN_DELTA_SHARE = 2e-2
+
+
+def peer_moe_training_path(dev, per_path, read_path, smi) -> dict:
+    """Main path Z (phase 33): Mixtral-8x22B trained expert parallel on a
+    peer mesh of four logical devices on the one card,
+    ``make_host_mesh((1, 4), devices=["cuda:0"] * 4)``: full width,
+    ``remat="full"``, bfloat16 with bfloat16 moments, at path M's depth
+    and tokens (8 x 512), 2 steps of ``make_train_step`` from
+    ``place_state`` (the card's tree views of the whole state), each MoE
+    combine the card's share of one peer psum and its backward another
+    (f and g), the clip norm one scalar psum a step. Held against the
+    stacked mesh's ``make_train_step`` from the same seed and batches, run
+    first (not counted; only its updated parameters and the largest
+    |change| kept): losses within rtol 1e-3, every updated parameter
+    within 2e-2 of the stacked update's largest |change|. Counters set to
+    0 just before the peer steps and read just after them. Prints the
+    largest errors, the step ms (host clock, synced), the peak GiB and the
+    launches a step."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.sharding import place_state, unplace_state
+
+    # -- 33. main path Z: Mixtral-8x22B trained on a peer mesh --------------
+    t_path = time.perf_counter()
+    full = get_config("mixtral_8x22b")
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                      moment_dtype=full.optimizer_dtype)
+    free = torch.cuda.mem_get_info()[0]
+    need, _ = update_bytes(dataclasses.replace(full, num_layers=2), opt)
+    layers = 2 if free - need >= 15e9 else 1         # path M's depth
+    cfg = dataclasses.replace(full, num_layers=layers)
+    check((cfg.remat, cfg.dtype, cfg.d_model, cfg.num_experts)
+          == ("full", "bfloat16", 6144, 8), f"path Z: not Mixtral-8x22B "
+          f"at full width: {cfg}")
+    ts = TrainStepConfig()
+    batches = family_batches(cfg, dev, 8, 512, 2)
+
+    def fresh():
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(61), device=dev)
+
+    def run(mesh, start) -> tuple[list, list, object]:
+        """2 steps under ``mesh`` from ``start()``'s state (made here, so
+        that each step's old state is freed as it is replaced)."""
+        step = make_train_step(cfg, ts, opt, device=dev)
+        losses, times = [], []
+        state = start()
+        with set_mesh(mesh):
+            for bt in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, bt)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                del m
+        return losses, times, state
+
+    # the stacked mesh's step, its update kept as parameters and |change|
+    first = []
+
+    def stacked_start():
+        state = fresh()
+        first.append(state["params"])
+        return state
+
+    want_losses, want_ms, got = run(make_host_mesh((1, 4), device=dev),
+                                    stacked_start)
+    want = got["params"]
+    delta = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(_leaves(want), _leaves(first[0])))
+    del got, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the peer mesh's step, counted
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+
+    def peer_start():
+        state = fresh()
+        trees = place_state(state, mesh)
+        views = all(a.untyped_storage().data_ptr()
+                    == b.untyped_storage().data_ptr()
+                    for a, b in zip(_leaves(trees[0]), _leaves(state)))
+        check(len(trees) == 1 and views, "path Z: the placed state is not "
+              "one tree of views of the whole on the one card")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        return trees
+
+    losses, step_ms, trees = run(mesh, peer_start)
+    read_path("Z")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = unplace_state(trees, mesh)["params"]
+    del trees
+    worst, where = 0.0, ""
+    for i, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+        err = (a.float() - b.float()).abs().max().item()
+        if err >= worst:
+            worst, where = err, f"leaf {i} {tuple(b.shape)}"
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    bitwise = all(torch.equal(a, b) for a, b in zip(_leaves(got),
+                                                    _leaves(want)))
+    del got, want
+    counts = {k: v / len(batches) for k, v in per_path["Z"].items()}
+    print(f"path Z ({smi}): Mixtral-8x22B make_train_step under {mesh} on "
+          f"a peer session of 4 logical devices on {dev}, full width, "
+          f"{layers} of 56 layers, remat full, bfloat16, bfloat16 moments, "
+          f"8 x 512 tokens, 2 steps from place_state: losses {losses} "
+          f"(stacked mesh {want_losses}; largest relative difference "
+          f"{loss_rel:.3g}, limit {PEER_TRAIN_LOSS_RTOL}); parameters' "
+          f"largest difference {worst} ({where}) against the stacked "
+          f"update's largest |change| {delta} (limit "
+          f"{PEER_TRAIN_DELTA_SHARE} of it; bit for bit: {bitwise}); step "
+          f"ms {[round(t, 2) for t in step_ms]} (stacked "
+          f"{[round(t, 2) for t in want_ms]}; host clock, synced, the "
+          f"first with the ring's programs built); peak {peak:.2f} GiB; "
+          f"launches a step {counts} ({time.perf_counter() - t_path:.1f} "
+          f"s)", flush=True)
+    check(loss_rel <= PEER_TRAIN_LOSS_RTOL and all(
+        math.isfinite(x) for x in losses), f"path Z: losses {losses} vs "
+          f"the stacked mesh's {want_losses}")
+    check(worst <= PEER_TRAIN_DELTA_SHARE * delta, f"path Z: parameters "
+          f"differ by {worst} ({where}), beyond {PEER_TRAIN_DELTA_SHARE} "
+          f"of the stacked update's largest |change| {delta}")
+    for name in ("multipath_dma", "ring_allgather", "flash_attention",
+                 "flash_attention_bwd"):
+        check(per_path["Z"].get(name, 0) > 0,
+              f"path Z did not launch {name}")
+    return {"layers": layers, "step_ms": step_ms, "peak_gib": peak,
+            "launches_a_step": counts}
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -6621,19 +6780,25 @@ def main() -> int:
     peer_training_path(dev, errs, per_path, read_path, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peer_moe_training_path(dev, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-Y): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-Z): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 33. report --------------------------------------------------------
+    # -- 34. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all, the "
+          f"build included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

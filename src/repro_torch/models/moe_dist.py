@@ -47,13 +47,27 @@ every device receives the same bits, those of the stacked mesh's row 0):
   and moved to its device, and the combine is
   ``session.collectives.psum(list)``: one dispatch a data index.
 
-Training under a peer mesh (the combine's backward across cards) is not
-ported: a call under autograd raises.
+Under autograd on a peer mesh every card computes the whole loss on its
+replica, so the combine's backward is Megatron's conjugate pair
+(:class:`PeerCombineFn`, :class:`PeerGatherFn`): around the combine, g
+(forward the card's share of the psum, backward the identity: each of
+the card's rows gets the combine output's cotangent, the same on every
+card), and on what the rows read (the tokens and the router as the gates
+use it), f (forward the identity, backward ONE peer psum of the card's
+cotangents, so that each card's ``dx`` and router gradient hold every
+card's experts' share). The aux loss stays outside f: each card computes
+it whole. Both keep their ring and card and re-enter the card on the
+thread that runs their backward (on CUDA autograd's own thread a device),
+and :func:`in_this_share` does the same for a checkpointed layer's
+recompute. The eager form's backward (:class:`PeerEagerCombineFn`) is
+the peer psum of the cotangent list, ``g`` at device 0 and zeros
+elsewhere, as :class:`CombineFn`'s is over the stacked rows.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -81,10 +95,26 @@ class CombineFn(torch.autograd.Function):
         return ctx.collectives.psum(grad.contiguous()), None
 
 
-#: What a call under autograd on a peer mesh raises.
-PEER_TRAINING = ("training under a peer mesh (the MoE combine's backward "
-                 "across cards) comes with a later slice of the port; "
-                 "train under a stacked mesh (make_host_mesh(device=...))")
+class PeerEagerCombineFn(torch.autograd.Function):
+    """The eager form's combine on a peer mesh: ``collectives.psum`` of
+    the rows (one on each logical device), device 0's sum. Its backward
+    is the peer psum of the cotangent list, ``g`` at device 0 and zeros
+    elsewhere (adding zeros is exact): each row's gradient ``g``, on its
+    device."""
+
+    @staticmethod
+    def forward(ctx, collectives, *rows: torch.Tensor) -> torch.Tensor:
+        ctx.collectives = collectives
+        ctx.devices = [y.device for y in rows]
+        return collectives.psum(list(rows))[0]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        cot = [grad.contiguous()] + [
+            torch.zeros(grad.shape, dtype=grad.dtype, device=dev)
+            for dev in ctx.devices[1:]]
+        return (None, *ctx.collectives.psum(cot))
+
 
 _SHARE = threading.local()
 
@@ -104,6 +134,99 @@ def card_share(ring, card: int):
         yield
     finally:
         _SHARE.run = prev
+
+
+@contextlib.contextmanager
+def _entered(ring, card: int):
+    """Card ``card``'s share over ``ring`` on this thread: the lockstep
+    ring's card (:meth:`~repro_torch.comm.collectives.LockstepRing.enter`)
+    and :func:`card_share`."""
+    enter = getattr(ring, "enter", None)
+    if enter is not None:
+        enter(card)
+    with card_share(ring, card):
+        yield
+
+
+def in_this_share(fn):
+    """``fn``, run under the card share in force on this thread now on
+    whatever thread calls it later: a checkpointed layer's recompute runs
+    in the backward, on CUDA on autograd's thread, where no share is in
+    force. ``fn`` itself outside a share."""
+    run = getattr(_SHARE, "run", None)
+    if run is None:
+        return fn
+
+    @functools.wraps(fn)
+    def bound(*args, **kwargs):
+        with _entered(*run):
+            return fn(*args, **kwargs)
+    return bound
+
+
+def _held(ring, card: int) -> list[int]:
+    return [d for d, c in enumerate(ring.card_of) if c == card]
+
+
+def _share_of_psum(ring, card: int, rows) -> torch.Tensor:
+    """Card ``card``'s share of ONE peer psum over ``ring``, ``rows`` the
+    parts of its held devices: the sum over every device, the same bits
+    on every card, a view of the ring's buffers."""
+    held = _held(ring, card)
+    parts = [None] * ring.n
+    for d, y in zip(held, rows):
+        parts[d] = y
+    return coll_lib.FORMS["psum"](parts, ring)[held[0]]
+
+
+def share_psum(ring, card: int, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_share_of_psum` of ``x`` from card ``card`` (at its first
+    held device, zeros at its others; adding zeros is exact): the sum of
+    the cards' ``x``."""
+    zeros = [torch.zeros_like(x)] * (len(_held(ring, card)) - 1)
+    return _share_of_psum(ring, card, [x] + zeros)
+
+
+class PeerCombineFn(torch.autograd.Function):
+    """g: the combine of a card's share, ``rows`` its held devices'
+    contributions. Forward: the card's share of ONE peer psum over
+    ``ring``. Backward: the identity, each row the combine output's
+    cotangent (everything after the combine is replicated, so the
+    cotangent is the same on every card)."""
+
+    @staticmethod
+    def forward(ctx, ring, card: int, *rows: torch.Tensor) -> torch.Tensor:
+        ctx.count = len(rows)
+        return _share_of_psum(ring, card, rows)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (None, None) + (grad,) * ctx.count
+
+
+class PeerGatherFn(torch.autograd.Function):
+    """f: on what a card's rows read, the tokens ``x`` and the ``router``
+    as the gates use it. Forward: the identity. Backward: the card's share
+    of ONE peer psum over ``ring`` of its two cotangents (in float32, one
+    flat operand; adding the other cards' shares and zeros), so that each
+    card's gradients hold every card's experts' share. Re-enters the card
+    on the thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, ring, card: int, x: torch.Tensor,
+                router: torch.Tensor):
+        ctx.run = (ring, card)
+        return x.view_as(x), router.view_as(router)
+
+    @staticmethod
+    def backward(ctx, dx: torch.Tensor, drouter: torch.Tensor):
+        flat = torch.cat([dx.reshape(-1).float(),
+                          drouter.reshape(-1).float()])
+        with _entered(*ctx.run):
+            total = share_psum(*ctx.run, flat).clone()
+        n = dx.numel()
+        return (None, None, total[:n].view(dx.shape).to(dx.dtype),
+                total[n:].view(drouter.shape).to(drouter.dtype))
 
 
 def _mesh_info():
@@ -182,12 +305,6 @@ def _row_contribution(x: torch.Tensor, r: Routes, w: dict, row: int, *,
     return combine(back, mine, r, x.dtype)
 
 
-def _requires_grad(x: torch.Tensor, params: dict) -> bool:
-    return torch.is_grad_enabled() and (x.requires_grad or any(
-        w.requires_grad for w in params.values()
-        if isinstance(w, torch.Tensor)))
-
-
 def _local_collectives(mesh):
     """Collectives over device-stacked rows on one device, for a peer
     mesh's FSDP gather, whose data shards all lie on one card."""
@@ -211,8 +328,6 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
         return None
     mesh, dp, model = info
     peer = is_peer(mesh)
-    if peer and _requires_grad(x, params):
-        raise NotImplementedError(PEER_TRAINING)
     coll = _collectives(mesh, x)
     share = getattr(_SHARE, "run", None) if peer else None
     t, d = x.shape
@@ -239,7 +354,7 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
                 f"placed tree runs inside moe_dist.card_share")
     else:
         ring, card = share
-        held = [r for r, c in enumerate(ring.card_of) if c == card]
+        held = _held(ring, card)
     weights = [_row_weights(params, j, ep=ep, model=len(held))
                for j in range(len(held))]
     data = mesh.shape.get("data", 1)
@@ -254,8 +369,10 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
 
     outs = []
     for i in range(ndp):
-        xl = x[i * tl:(i + 1) * tl]
-        r = route(xl, params["router"], top_k=top_k, capacity=capacity)
+        xl, router = x[i * tl:(i + 1) * tl], params["router"]
+        if share is not None:
+            xl, router = PeerGatherFn.apply(ring, card, xl, router)
+        r = route(xl, router, top_k=top_k, capacity=capacity)
         rows = [_row_contribution(xl, r, w, row, ep=ep, num_experts=e,
                                   model=model, kind=kind)
                 for row, w in zip(held, weights)]
@@ -263,12 +380,9 @@ def moe_apply_dist(x: torch.Tensor, params: dict, *, top_k: int, kind: str,
             outs.append(CombineFn.apply(torch.stack(rows), coll)[0])
         elif share is None:
             devices = mesh.session.devices
-            outs.append(coll.psum([y.to(dev) for y, dev in zip(
-                rows, devices)])[0].to(x.device))
+            outs.append(PeerEagerCombineFn.apply(coll, *(
+                y.to(dev) for y, dev in zip(rows, devices))).to(x.device))
         else:
-            parts = [None] * model
-            for row, y in zip(held, rows):
-                parts[row] = y
-            outs.append(coll_lib.FORMS["psum"](parts, ring)[held[0]])
+            outs.append(PeerCombineFn.apply(ring, card, *rows))
     out = outs[0] if ndp == 1 else torch.cat(outs)
     return out, aux

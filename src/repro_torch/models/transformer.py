@@ -54,7 +54,8 @@ backward is the ``flash_attention`` backward kernel and RMSNorm's the
 reference's VJP). ``cfg.remat == "full"`` recomputes each layer in the
 backward (``torch.utils.checkpoint``, non-reentrant, RNG state not
 preserved: the model draws no random numbers, and reading the RNG state
-would break graph capture).
+would break graph capture); inside a card's share of a peer mesh's step
+the recompute runs in that share too (:func:`~.moe_dist.in_this_share`).
 """
 
 from __future__ import annotations
@@ -307,10 +308,12 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     layers = unstacked_layers(params)
+    # a card's share of a peer mesh's step also in the recompute
+    block = moe_dist.in_this_share(block_apply) if remat else block_apply
     for lp, window in zip(layers, layer_windows(cfg)):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                block_apply, x, lp, cfg, window, positions,
+                block, x, lp, cfg, window, positions,
                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = block_apply(x, lp, cfg, window, positions)

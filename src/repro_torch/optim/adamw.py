@@ -121,12 +121,18 @@ def global_norm(tree) -> torch.Tensor:
 UPDATE_SLICE = 1 << 26
 
 
-def apply_updates(params, grads, state, cfg: OptimConfig):
+def apply_updates(params, grads, state, cfg: OptimConfig, *,
+                  gnorm: torch.Tensor | None = None):
     """One AdamW step. Returns (new_params, new_state, metrics); metrics
     ``grad_norm`` and ``lr`` are 0-d float32 tensors. A leaf larger than
-    :data:`UPDATE_SLICE` is updated slice by slice (the same bits)."""
+    :data:`UPDATE_SLICE` is updated slice by slice (the same bits).
+
+    ``gnorm``, the norm to clip by and report, defaults to
+    :func:`global_norm` of ``grads``; a card of a peer mesh, whose tree
+    holds only its own experts, passes the norm over every card's."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

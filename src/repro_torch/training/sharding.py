@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import LogicalMesh
 from repro_torch.models.pspec import P, PartitionSpec
+from repro_torch.tree import leaves_with_paths
 
 
 def dp_axes(mesh: LogicalMesh) -> tuple[str, ...]:
@@ -344,7 +345,9 @@ def cut_experts(w: torch.Tensor, name: str, held: list[int],
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
-def _is_expert(path: tuple) -> bool:
+def is_expert(path: tuple) -> bool:
+    """Whether the leaf at ``path`` (a key tuple) is an expert weight or
+    its moment: ``w1``, ``w3`` or ``w2`` under ``moe``, not ``shared``."""
     return ("moe" in path and "shared" not in path
             and path[-1] in ("w1", "w3", "w2"))
 
@@ -355,11 +358,24 @@ def place_card(params, held: list[int], model: int, device):
     ``held`` (:func:`cut_experts`), every other leaf a replica, all on
     ``device``; a leaf already there stays a view."""
     def place(path, x):
-        if _is_expert(path):
+        if is_expert(path):
             x = cut_experts(x, path[-1], held, model)
         return x.to(device)
 
     return _map_with_path(place, params)
+
+
+def _card_layout(mesh: LogicalMesh, what: str):
+    """A peer mesh's cards (its session's distinct devices, in first-use
+    order) and the model-axis devices each holds."""
+    session = mesh.session
+    if session is None or session.devices is None:
+        raise ValueError(f"{what} needs a peer mesh (make_host_mesh("
+                         f"..., devices=[...])), got {mesh}")
+    devices = session.devices
+    cards = tuple(dict.fromkeys(devices))
+    return cards, [[d for d, dev in enumerate(devices) if dev == card]
+                   for card in cards]
 
 
 def place_params(params, mesh: LogicalMesh) -> list:
@@ -371,16 +387,70 @@ def place_params(params, mesh: LogicalMesh) -> list:
     reference gets it from GSPMD, the port has no collectives for it, and
     the pspec constraints are not ported, so every card holds the whole of
     the embeddings, attention, norms, router and shared experts, and runs
-    them on its own replica. The weights are read-only: on the card that
-    already holds a leaf, the leaf (or its expert cut, for one run of
-    devices) stays a view."""
-    session = mesh.session
-    if session is None or session.devices is None:
-        raise ValueError(f"place_params needs a peer mesh (make_host_mesh("
-                         f"..., devices=[...])), got {mesh}")
+    them on its own replica. On the card that already holds a leaf, the
+    leaf (or its expert cut, for one run of devices) stays a view: the
+    serving engine only reads it, and a train step's update is functional
+    (new tensors), so neither writes the caller's."""
+    cards, helds = _card_layout(mesh, "place_params")
     model = mesh.shape.get("model", 1)
-    devices = session.devices
-    cards = tuple(dict.fromkeys(devices))
-    return [place_card(params, [d for d, dev in enumerate(devices)
-                                if dev == card], model, card)
-            for card in cards]
+    return [place_card(params, held, model, card)
+            for card, held in zip(cards, helds)]
+
+
+def place_state(state, mesh: LogicalMesh) -> list:
+    """A train state (``{"params", "opt"}``) placed on a peer mesh: one
+    tree a card, as :func:`place_params` places the parameters, with the
+    AdamW moments ``m`` and ``v`` cut exactly as their parameters
+    (:func:`place_card`: a card's own experts' moments, a replica of the
+    rest) and ``step`` replicated. int8 moments raise ``ValueError``: each
+    is quantized with one absmax scale over the whole tensor, which a
+    card's cut would not share, so the cards' updates would leave the
+    stacked step's."""
+    if any(path[-1] in ("q", "scale")
+           for path, _ in leaves_with_paths(state["opt"])):
+        raise ValueError(
+            "int8 moments cannot be placed on a peer mesh: each is "
+            "quantized with one absmax scale over the whole tensor, and a "
+            "card's cut of it would need a scale of its own; use float32 "
+            "or bfloat16 moments")
+    cards, helds = _card_layout(mesh, "place_state")
+    model = mesh.shape.get("model", 1)
+    return [place_card(state, held, model, card)
+            for card, held in zip(cards, helds)]
+
+
+def unplace_state(trees: list, mesh: LogicalMesh):
+    """The whole tree back from one tree a card of ``mesh`` (the inverse
+    of :func:`place_state`, or of :func:`place_params` for parameters):
+    each expert leaf the cards' cuts put back in device order, every other
+    leaf card 0's replica; all on card 0's device."""
+    cards, helds = _card_layout(mesh, "unplace_state")
+    if len(trees) != len(cards):
+        raise ValueError(f"{mesh} has {len(cards)} cards, got "
+                         f"{len(trees)} trees")
+    model = mesh.shape.get("model", 1)
+    return _uncut_tree(trees, helds, model, cards[0], ())
+
+
+def _uncut_tree(parts: list, helds: list, model: int, device,
+                path: tuple, experts: int | None = None):
+    """:func:`unplace_state` over the subtrees ``parts`` (one a card) at
+    ``path``; ``experts`` the expert count of the MoE block above (its
+    router's last dim)."""
+    first = parts[0]
+    if isinstance(first, dict):
+        if "router" in first:
+            experts = first["router"].shape[-1]
+        return {k: _uncut_tree([p[k] for p in parts], helds, model, device,
+                               path + (k,), experts)
+                for k in first}
+    if not is_expert(path):
+        return first.to(device)
+    dim = (first.dim() - 3 if experts % model == 0
+           else first.dim() - (2 if path[-1] == "w2" else 1))
+    blocks = {}
+    for part, held in zip(parts, helds):
+        size = part.shape[dim] // len(held)
+        for j, d in enumerate(sorted(held)):
+            blocks[d] = part.narrow(dim, j * size, size).to(device)
+    return torch.cat([blocks[d] for d in range(model)], dim)

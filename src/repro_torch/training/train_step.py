@@ -25,6 +25,14 @@ one logical device a card): the state is then one replica a device
 (:func:`replicate_state`), each device's grads and update run on its own
 card, and the results are the stacked session's bit for bit.
 
+Under an ambient peer mesh (``make_host_mesh(..., devices=[...])``)
+:func:`make_train_step` trains a MoE model expert parallel: each card
+holds its own experts, their gradients and AdamW moments, and a replica
+of every other leaf (:func:`~repro_torch.training.sharding.place_state`),
+and runs its replica of the loss inside its card share
+(:func:`~repro_torch.models.moe_dist.card_share`), every MoE combine and
+its backward a peer psum over the cards; one host thread a card.
+
 Every family trains, the audio encoder too (a batch of float32
 ``features`` and ``labels`` in place of ``tokens``; the captured step's
 static batch buffers take the features as they come). On the card
@@ -40,20 +48,26 @@ is differentiated by autograd.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import weakref
 from typing import TYPE_CHECKING, Callable
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import collectives as coll
 from repro_torch.comm.capture import BufferSpec, captured_psum, dtype_name
 from repro_torch.comm.session import on_device, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import ambient_mesh, is_peer
+from repro_torch.models import moe_dist
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import OptimConfig, apply_updates, init_opt_state
 from repro_torch.optim.adamw import opt_state_shapes
 from repro_torch.training import sharding as shd
-from repro_torch.tree import flatten_up_to, leaves, tree_map, unflatten
+from repro_torch.tree import (flatten_up_to, leaves, leaves_with_paths,
+                              tree_map, unflatten)
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.comm.session import CommSession
@@ -111,9 +125,74 @@ def _make_grad_fn(cfg: ArchConfig, ts: TrainStepConfig) -> Callable:
     return grads_of
 
 
-def _update(params, grads, opt_state, opt: OptimConfig):
+def _update(params, grads, opt_state, opt: OptimConfig, **kw):
     with torch.no_grad():
-        return apply_updates(params, grads, opt_state, opt)
+        return apply_updates(params, grads, opt_state, opt, **kw)
+
+
+def _peer_norm(grads, ring, card: int) -> torch.Tensor:
+    """The global gradient norm of a peer mesh's step, from card ``card``'s
+    tree: each leaf's float32 sum of squares, its experts' summed over the
+    cards by ONE peer psum over ``ring`` (of one element a leaf: the same
+    bits on every card), then every leaf's added in leaf order, as
+    :func:`~repro_torch.optim.adamw.global_norm` adds them (on one card,
+    its bits)."""
+    sqs = [(shd.is_expert(path), torch.sum(torch.square(g.to(torch.float32))))
+           for path, g in leaves_with_paths(grads)]
+    own = [sq for mine, sq in sqs if mine]
+    summed = iter(moe_dist.share_psum(ring, card, torch.stack(own)).unbind(0)
+                  if own else ())
+    total = None
+    for mine, sq in sqs:
+        term = next(summed) if mine else sq
+        total = term if total is None else total + term
+    return torch.sqrt(total)
+
+
+def _make_peer_step(grads_of: Callable, opt: OptimConfig) -> Callable:
+    """``step(trees, batch, mesh)``: :func:`make_train_step`'s step on the
+    peer mesh ``mesh``. Each card's share runs its forward and backward
+    (``grads_of``) inside :func:`~repro_torch.models.moe_dist.card_share`,
+    then the norm over the cards (:func:`_peer_norm`) and AdamW on its own
+    tree; one card directly, several one host thread a card in lockstep
+    over the session's ring (:class:`~repro_torch.comm.collectives.
+    LockstepRing`), begun once a step."""
+    rings: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    def step(trees, batch, mesh):
+        session = mesh.session
+        ring = rings.get(session)
+        if ring is None:
+            ring = rings[session] = coll.PeerRing(session.engine)
+        if isinstance(trees, dict):
+            trees = shd.place_state(trees, mesh)
+        cards = ring.cards
+        if len(trees) != len(cards):
+            raise ValueError(f"a peer mesh's step takes one tree a card "
+                             f"({len(cards)}), got {len(trees)}")
+        out: list = [None] * len(cards)
+
+        def share(run, card: int) -> None:
+            dev, tree = cards[card], trees[card]
+            with moe_dist.card_share(run, card), on_device(dev):
+                loss, grads = grads_of(tree["params"], {
+                    k: x.to(dev) for k, x in batch.items()})
+                new_params, new_opt, metrics = _update(
+                    tree["params"], grads, tree["opt"], opt,
+                    gnorm=_peer_norm(grads, run, card))
+            metrics["loss"] = loss
+            out[card] = ({"params": new_params, "opt": new_opt}, metrics)
+
+        ring.begin()
+        if len(cards) == 1:
+            share(ring, 0)
+        else:
+            lockstep = coll.LockstepRing(ring)
+            coll.run_in_lockstep(lockstep, [
+                (dev, functools.partial(share, lockstep)) for dev in cards])
+        return [tree for tree, _ in out], out[0][1]
+
+    return step
 
 
 def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
@@ -125,11 +204,23 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
     :mod:`repro_torch.launch.cost`); batch: tensors on it. With
     ``ts.microbatches > 1`` the batch's leading dim is split and gradients
     are accumulated in float32. Metrics ``loss``, ``grad_norm`` and ``lr``
-    are 0-d tensors on the device."""
+    are 0-d tensors on the device.
+
+    Under an ambient peer mesh the step trains expert parallel
+    (:func:`_make_peer_step`): ``state`` is the list of
+    :func:`~repro_torch.training.sharding.place_state` (one tree is placed
+    first), the batch is staged to every card, and the step returns the
+    list of new trees and card 0's metrics, ``grad_norm`` the norm over
+    every card's gradients. Its replicated leaves are the same bits on
+    every card."""
     resolve_device(device, allow_meta=True)
     grads_of = _make_grad_fn(cfg, ts)
+    peer_step = _make_peer_step(grads_of, opt)
 
     def step(state, batch):
+        mesh = ambient_mesh()
+        if is_peer(mesh):
+            return peer_step(state, batch, mesh)
         params = state["params"]
         loss, grads = grads_of(params, batch)
         new_params, new_opt, metrics = _update(params, grads, state["opt"],

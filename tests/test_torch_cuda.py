@@ -82,6 +82,14 @@ devices=...)``, tokens and prefill and decode logits bit for bit the
 stacked mesh's, one graph a card a program and one ``ring_allgather``
 launch a card a MoE layer a replay; on one card, on four and on two
 cards holding two logical devices each.
+Expert-parallel training on a peer mesh (``-k peer_moe_training``):
+reduced Mixtral (``remat="full"``) trained two steps by
+``make_train_step`` from ``place_state`` under ``make_host_mesh((1, 4),
+devices=...)`` against the stacked mesh's step, at path Z's limits
+(losses rtol 1e-3, parameters within 2e-2 of the stacked update's
+largest |change|), every card's replicated leaves the same bits; on one
+card in bfloat16, and in float32 on four cards and on two cards holding
+two logical devices each.
 ``multipath_dma`` at the edges of its copy paths (``-k edges``): tiles
 whose ends differ mod 16, short items, tiles that are not multiples of 16
 bytes, a 1-byte dtype of odd length, a window of 2 and a three-path plan,
@@ -1938,6 +1946,82 @@ def test_peer_moe_serving_across_four_cards(dev):
     cards = peer_cards(4)
     for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
         peer_moe_serving_checks(devices, cards[0])
+
+
+def peer_moe_training_checks(devices, dev, dtype: str):
+    """Reduced Mixtral (``remat="full"``, ``dtype``) trained 2 steps by
+    ``make_train_step`` under ``make_host_mesh((1, 4), devices=devices)``
+    from ``place_state``, against the stacked mesh's step on ``dev`` from
+    the same state and batches, at path Z's limits: losses within rtol
+    1e-3, every updated parameter within 2e-2 of the stacked update's
+    largest |change|; every card's replicated leaves the same bits, and
+    the ring's kernels and attention's backward launched."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.sharding import (is_expert, place_state,
+                                               unplace_state)
+    from repro_torch.tree import leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mixtral_8x22b").reduced(),
+                              remat="full", dtype=dtype)
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                      moment_dtype="bfloat16")
+    ds = SyntheticDataset(cfg, DataConfig(64, 8))
+    batches = [batch_to(ds.batch_at(i), dev) for i in range(2)]
+
+    def fresh():
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+
+    def train(mesh, state):
+        step = make_train_step(cfg, TrainStepConfig(), opt, device=dev)
+        losses = []
+        with set_mesh(mesh):
+            for bt in batches:
+                state, m = step(state, bt)
+                losses.append(float(m["loss"]))
+        return state, losses
+
+    first = fresh()
+    want, want_losses = train(make_host_mesh((1, 4), device=dev), first)
+    peer = make_host_mesh((1, 4), devices=devices)
+    before = launch_counts()
+    trees, losses = train(peer, place_state(fresh(), peer))
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    cards = tuple(dict.fromkeys(torch.device(d) for d in devices))
+    assert len(trees) == len(cards)
+    assert all(t.device == card for tree, card in zip(trees, cards)
+               for t in _tree_leaves(tree))
+    rep = [[t.to(dev) for path, t in leaves_with_paths(tree)
+            if not is_expert(path)] for tree in trees]
+    assert all(torch.equal(a, b) for other in rep[1:]
+               for a, b in zip(rep[0], other))
+    assert all(abs(a - b) <= 1e-3 * abs(b)
+               for a, b in zip(losses, want_losses)), (losses, want_losses)
+    got = unplace_state(trees, peer)["params"]
+    delta = max((a.float() - b.float()).abs().max().item() for a, b in
+                zip(_tree_leaves(want["params"]),
+                    _tree_leaves(first["params"])))
+    worst = max((a.float() - b.float()).abs().max().item() for a, b in
+                zip(_tree_leaves(got), _tree_leaves(want["params"])))
+    assert worst <= 2e-2 * delta, (worst, delta)
+    for name in ("multipath_dma", "ring_allgather", "flash_attention_bwd"):
+        assert launched[name] > 0, name
+
+
+def test_peer_moe_training_on_one_card(dev):
+    peer_moe_training_checks([dev] * 4, dev, "bfloat16")
+
+
+def test_peer_moe_training_across_four_cards(dev):
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_moe_training_checks(devices, cards[0], "float32")
 
 
 # -- multipath_dma at the edges of its copy paths -----------------------------

@@ -18,7 +18,8 @@ CPU devices:
   the cards emulated by host threads in lockstep over the session's peer
   ring (``LockstepRing``) for card layouts of one, two and four cards and
   a split one: every card's output bit for bit the stacked mesh's;
-* under autograd the peer mesh raises (training there is a later slice);
+* under autograd the peer mesh gives gradients (the eager form; the card
+  shares are ``tests/test_torch_peer_moe_training.py``'s);
 * ``place_params`` / ``place_card``: each card holds only its devices'
   experts (EP: whole experts; expert-TP: ff-shards), every other leaf a
   replica, views on the card that holds the source;
@@ -184,16 +185,31 @@ def test_card_shares_under_expert_tp_give_the_stacked_output():
 
 
 def test_training_under_a_peer_mesh_raises():
+    """The calls that raised before training on a peer mesh was ported
+    (the name is theirs) now return gradients: of x, and of the whole
+    parameters, each the stacked mesh's; without grad the output."""
     cfg, _, p = expert_weights()
     x = torch.from_numpy(tokens(5, 64, cfg.d_model))
     kw = dict(top_k=2, kind=cfg.mlp, dropless=True)
     mesh = peer_mesh((1, 4))
-    with pytest.raises(NotImplementedError, match="training under a peer "
-                                                  "mesh"):
-        run_dist(mesh, x.clone().requires_grad_(), p, **kw)
+    stacked = make_host_mesh((1, 4), device="cpu")
+
+    def x_grad(on):
+        xs = x.clone().requires_grad_()
+        out, aux = run_dist(on, xs, p, **kw)
+        return torch.autograd.grad(out.sum() + aux, xs)[0]
+
+    assert torch.equal(x_grad(mesh), x_grad(stacked))
+
+    def p_grads(on):
+        grad_p = {k: v.clone().requires_grad_() for k, v in p.items()}
+        out, aux = run_dist(on, x, grad_p, **kw)
+        return torch.autograd.grad(out.sum() + aux, list(grad_p.values()))
+
+    got = p_grads(mesh)
+    assert all(torch.equal(a, b) for a, b in zip(got, p_grads(stacked)))
+    assert all(g.abs().max() > 0 for g in got)
     grad_p = {k: v.clone().requires_grad_() for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_dist(mesh, x, grad_p, **kw)
     with torch.no_grad():
         out, _ = run_dist(mesh, x, grad_p, **kw)
     assert out.shape == x.shape

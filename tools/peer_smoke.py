@@ -144,6 +144,39 @@ launch a card. Path S's requests (4 prompts of 512/384/256/128 tokens,
 
 Every reading also goes to ``chiprun_out/peer_moe.json``.
 
+With ``--moe-train`` it trains Mixtral-8x22B expert parallel on a peer
+mesh instead (after the topology, names and power limits; TF32 off)::
+
+    python3 tools/peer_smoke.py --moe-train        # a few minutes
+
+``make_train_step`` under ``make_host_mesh((1, 4), devices=cards)`` from
+``place_state``: each card holds its logical device's 2 experts a layer,
+their gradients and AdamW moments, and a replica of the rest; each MoE
+combine is one peer psum a forward, and its backward another. Path Z's
+tokens (8 x 512), full width:
+
+* (a) at 1 layer in float32 (TF32 off; bfloat16 moments), 3 steps
+  against one card's stacked mesh step from the same seed and batches
+  (in the same process; float32, where bfloat16's rounding of the
+  parameters would make path Z's limits a bit-for-bit test): losses
+  within rtol 1e-3; step 1's gradients, each card's against the stacked
+  step's, within 1e-5 of each leaf's largest |g|; every updated
+  parameter within 2e-2 of the stacked update's largest |change|, but
+  the elements whose stacked |g| fell under 1e-6 at some step (AdamW's
+  eps region, where the order of the cross-card sums moves an update by
+  up to its lr) held within twice the steps' summed lr and counted;
+  every card's replicated leaves the same bits;
+* (b) at the deepest depth the meta reckoning admits (each card's placed
+  state, its gradients, the update's new state and temporaries and the
+  psums' buffers, with MOE_TRAIN_HEADROOM left; the trees drawn layer by
+  layer), bfloat16 with bfloat16 moments, ``remat="full"``: a step by
+  CUDA events on every card (the slowest), tokens/s, each card's peak
+  GiB, one step under the profiler, and one backward psum (float32 (T +
+  E, d) a card, one a layer) and one forward combine, each as a call and
+  its program's replay, beside the step's ms a layer.
+
+Every reading also goes to ``chiprun_out/peer_moe_train.json``.
+
 With ``--collectives`` it runs only the session's collectives (after the
 topology, names and power limits), and ``--src DIR`` imports the package
 from another checkout's ``src/`` (a parent commit unpacked by ``git
@@ -1291,13 +1324,14 @@ def moe_trees(cfg, cards, seed: int) -> list:
     return trees
 
 
-def moe_combine(sess, cards, rows: int, d: int) -> dict:
-    """One combine of ``rows x d`` bfloat16 a card through the peer
+def moe_combine(sess, cards, rows: int, d: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One combine of ``rows x d`` ``dtype`` a card through the peer
     session's ``collectives.psum``: the call and its program's replay by
     CUDA events on every card (the slowest)."""
     gen = torch.Generator(device=cards[0]).manual_seed(3)
     parts = [torch.randn(rows, d, generator=gen, device=cards[0]).to(
-        torch.bfloat16).to(c) for c in cards]
+        dtype).to(c) for c in cards]
     want = sum(p.to(cards[0]).float() for p in parts)
     got = sess.collectives.psum(parts)
     err = max((g.to(cards[0]).float() - want).abs().max().item()
@@ -1469,6 +1503,362 @@ def moe(cards, smi) -> dict:
     return out
 
 
+#: ``--moe-train``: path Z's tokens (8 x 512), the steps of the check
+#: against one card's stacked step, the steps timed at depth (after one
+#: warm-up that builds the ring's programs), and the device memory a card
+#: keeps beyond the reckoned state, update and psum buffers (a layer's
+#: recompute and backward, the logits, the allocator's slack).
+MOE_TRAIN_TOKENS = (8, 512)
+MOE_TRAIN_CHECK_STEPS = 3
+MOE_TRAIN_TIMED = 2
+MOE_TRAIN_HEADROOM = 8e9
+#: Path Z's limits: the losses' relative difference, and a parameter's
+#: largest difference over the stacked update's largest |change|.
+MOE_TRAIN_LOSS_RTOL = 1e-3
+MOE_TRAIN_DELTA_SHARE = 2e-2
+#: (a)'s gradients at the first step: a card's largest difference from
+#: the stacked step's over the leaf's largest |g| (float32, where only the
+#: cross-card sums' order differs).
+MOE_TRAIN_GRAD_REL = 1e-5
+#: AdamW moves a parameter by lr · m / (sqrt(v) + eps): where |g| is near
+#: eps = 1e-8 the slope is ~1/eps, so two summation orders a few 1e-9
+#: apart move it by up to lr (chip_smoke.py's EPS_CONDITIONED, path J).
+#: Where the stacked step's |g| fell below 100·eps at some step, (a) holds
+#: a parameter within 2 x the steps' summed lr, and counts it.
+MOE_TRAIN_EPS_CONDITIONED = 1e-6
+
+
+def moe_train_opt(cfg):
+    from repro_torch.optim import OptimConfig
+    return OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       moment_dtype=cfg.optimizer_dtype)
+
+
+def moe_train_batches(cfg, dev, count: int) -> list[dict]:
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    b, s = MOE_TRAIN_TOKENS
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=s, global_batch=b))
+    return [batch_to(ds.batch_at(i), dev) for i in range(count)]
+
+
+def moe_train_reckoning(cfg, cards) -> dict:
+    """Card 0's bytes training ``L`` layers on the peer mesh of ``cards``
+    (a logical device a card), reckoned on meta tensors: its placed state
+    (parameters and AdamW moments, ``place_card`` of ``state_shapes``),
+    the gradients (the parameters' bytes), the update's new parameters and
+    moments and its float32 temporaries (nine of the largest leaf's or of
+    ``UPDATE_SLICE`` elements), and three times each psum's operand a
+    layer (a ring shift's send and receipt and the gather's replicas): the
+    forward combine's ``(T, d)`` in the model's dtype and the backward's
+    float32 ``(T + E, d)``. The deepest ``L`` of at most the config's whose
+    bytes leave MOE_TRAIN_HEADROOM of the card."""
+    import dataclasses
+    import math
+
+    from repro_torch.optim.adamw import UPDATE_SLICE
+    from repro_torch.training.sharding import place_card
+    from repro_torch.training.train_step import state_shapes
+
+    opt = moe_train_opt(cfg)
+    tokens = math.prod(MOE_TRAIN_TOKENS)
+    elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+    def card_bytes(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        tree = place_card(state_shapes(c, opt), [0], len(cards), "meta")
+        params = sum(t.numel() * t.element_size()
+                     for t in leaves(tree["params"]))
+        moments = sum(t.numel() * t.element_size()
+                      for t in leaves(tree["opt"]))
+        largest = max(t.numel() for t in leaves(tree["params"]))
+        temps = 9 * 4 * min(largest, UPDATE_SLICE)
+        psums = 3 * layers * cfg.d_model * (
+            tokens * elt + (tokens + cfg.num_experts) * 4)
+        return 3 * params + 2 * moments, temps, psums
+
+    s0, t0, p0 = card_bytes(0)
+    s1, t1, p1 = card_bytes(1)
+    total = torch.cuda.mem_get_info(cards[0])[1]
+    per_layer = (s1 - s0) + (p1 - p0)
+    fixed = s0 + t1 + p0
+    depth = min(cfg.num_layers,
+                int((total - MOE_TRAIN_HEADROOM - fixed) // per_layer))
+    return {"card_bytes": total, "fixed_bytes": fixed,
+            "state_bytes_a_layer": s1 - s0, "psum_bytes_a_layer": p1 - p0,
+            "update_temps_bytes": t1, "layers": depth,
+            "reckoned_bytes": fixed + depth * per_layer}
+
+
+def moe_train_steps(step, trees, batches) -> tuple[list, list[float]]:
+    """``step`` over ``batches`` from ``trees``: the last trees and each
+    step's card-0 loss."""
+    losses = []
+    for bt in batches:
+        trees, m = step(trees, bt)
+        losses.append(float(m["loss"]))
+    return trees, losses
+
+
+def moe_train_check(cards, peer) -> dict:
+    """``--moe-train`` (a): one layer at full width in float32 (TF32 off;
+    bfloat16 moments), MOE_TRAIN_CHECK_STEPS steps on the four cards from
+    ``place_state`` against one card's stacked mesh step from the same
+    seed and batches: the losses, and every card's gradients at the first
+    step (the combine's backward across cards) against the stacked step's
+    (each card's expert cut against the same cut of the whole) within
+    MOE_TRAIN_GRAD_ATOL of each leaf's largest |g|; the parameters at path
+    Z's limit, but for the elements whose stacked |g| fell under
+    MOE_TRAIN_EPS_CONDITIONED at some step (AdamW's ε region, where the
+    cross-card sums' order moves an update by up to its lr), held within
+    twice the steps' summed lr and counted; every card's replicated leaves
+    the same bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import moe_dist
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training import train_step as tsm
+    from repro_torch.training.sharding import (cut_experts, is_expert,
+                                               place_state, unplace_state)
+    from repro_torch.tree import leaves_with_paths
+
+    c0 = cards[0]
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"), num_layers=1,
+                              dtype="float32")
+    opt = moe_train_opt(cfg)
+    batches = moe_train_batches(cfg, c0, MOE_TRAIN_CHECK_STEPS)
+    update = tsm._update
+    seen: dict = {"cond": None, "grads": None, "lrs": [], "cards": {}}
+
+    def stacked_update(params, grads, opt_state, opt_, **kw):
+        small = [g.abs() < MOE_TRAIN_EPS_CONDITIONED for g in leaves(grads)]
+        seen["cond"] = small if seen["cond"] is None else [
+            a | b for a, b in zip(seen["cond"], small)]
+        if seen["grads"] is None:
+            seen["grads"] = [(path, g.cpu())
+                             for path, g in leaves_with_paths(grads)]
+        out = update(params, grads, opt_state, opt_, **kw)
+        seen["lrs"].append(float(out[2]["lr"]))
+        return out
+
+    def peer_update(params, grads, opt_state, opt_, **kw):
+        _, card = moe_dist._SHARE.run           # this thread's card share
+        if card not in seen["cards"]:
+            seen["cards"][card] = [g.cpu() for g in leaves(grads)]
+        return update(params, grads, opt_state, opt_, **kw)
+
+    def fresh():
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=c0).manual_seed(71), device=c0)
+
+    def step():
+        return make_train_step(cfg, TrainStepConfig(), opt, device=c0)
+
+    tsm._update = stacked_update
+    try:
+        with set_mesh(make_host_mesh((1, 4), device=c0)):
+            want, want_losses = moe_train_steps(step(), fresh(), batches)
+    finally:
+        tsm._update = update
+    want = want["params"]
+    free(cards)
+    state = fresh()
+    delta = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(leaves(want), leaves(state["params"])))
+    trees = place_state(state, peer)
+    del state
+    before = launch_counts()
+    tsm._update = peer_update
+    try:
+        with set_mesh(peer):
+            trees, losses = moe_train_steps(step(), trees, batches)
+    finally:
+        tsm._update = update
+    sync_all(cards)
+    launched = {k: (v - before[k]) / len(batches)
+                for k, v in launch_counts().items() if v != before[k]}
+    rep = [[t for path, t in leaves_with_paths(tree) if not is_expert(path)]
+           for tree in trees]
+    replicas = all(torch.equal(a.to(c0), b)
+                   for other in rep[1:] for a, b in zip(other, rep[0]))
+    grad_rel = (0.0, "")
+    for c in range(len(cards)):
+        for (path, g), mine in zip(seen["grads"], seen["cards"][c]):
+            ref = cut_experts(g, path[-1], [c], len(cards)) \
+                if is_expert(path) else g
+            rel = ((mine - ref).abs().max().item()
+                   / max(ref.abs().max().item(), 1e-30))
+            grad_rel = max(grad_rel, (rel, f"card {c} {'/'.join(path)}"))
+    got = unplace_state(trees, peer)["params"]
+    bound, held = MOE_TRAIN_DELTA_SHARE * delta, 2 * sum(seen["lrs"])
+    worst, where, beyond, cond_worst = 0.0, "", 0, 0.0
+    for i, (a, b, cond) in enumerate(zip(leaves(got), leaves(want),
+                                         seen["cond"])):
+        diff = (a - b).abs()
+        err = diff.max().item()
+        if err >= worst:
+            worst, where = err, f"leaf {i} {tuple(b.shape)}"
+        out_ = diff > bound
+        beyond += int(out_.sum())
+        check(not bool((out_ & ~cond).any()), f"moe-train: leaf {i} "
+              f"{tuple(b.shape)} differs beyond {bound} where the stacked "
+              f"|g| stayed above {MOE_TRAIN_EPS_CONDITIONED}")
+        if bool(out_.any()):
+            cond_worst = max(cond_worst, diff[out_].max().item())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    out = {"layers": 1, "dtype": "float32", "steps": len(batches),
+           "losses": losses, "stacked_losses": want_losses,
+           "loss_rel": loss_rel, "grad_rel_step1": grad_rel[0],
+           "grad_rel_where": grad_rel[1], "worst_param_diff": worst,
+           "worst_leaf": where, "stacked_delta": delta,
+           "param_bound": bound, "elements_beyond_bound": beyond,
+           "their_worst_diff": cond_worst, "conditioned_bound": held,
+           "replicas_bitwise": replicas, "launches_a_step": launched,
+           "peak_gib": peaks_gib(cards)}
+    print(f"moe-train at 1 layer, float32 (TF32 off), bfloat16 moments, "
+          f"{len(batches)} steps of {MOE_TRAIN_TOKENS[0]} x "
+          f"{MOE_TRAIN_TOKENS[1]} tokens on {peer} a card, from "
+          f"place_state: losses {losses} (one card's stacked mesh "
+          f"{want_losses}; largest relative difference {loss_rel:.3g}, "
+          f"limit {MOE_TRAIN_LOSS_RTOL}); step 1's gradients, every card's "
+          f"against the stacked step's: largest difference / the leaf's "
+          f"largest |g| {grad_rel[0]:.3g} ({grad_rel[1]}; limit "
+          f"{MOE_TRAIN_GRAD_REL}); parameters' largest difference {worst} "
+          f"({where}) against the stacked update's largest |change| "
+          f"{delta} (limit {MOE_TRAIN_DELTA_SHARE} of it, {bound:.4g}): "
+          f"{beyond} elements beyond it, each with a stacked |g| under "
+          f"{MOE_TRAIN_EPS_CONDITIONED} at some step, the largest "
+          f"{cond_worst:.4g} (held within 2 x the summed lr, {held:.4g}); "
+          f"every card's replicated leaves the same bits: {replicas}; "
+          f"launches a step {launched}; peak GiB a card "
+          f"{out['peak_gib']}", flush=True)
+    check(replicas, "moe-train: the cards' replicated leaves differ")
+    check(loss_rel <= MOE_TRAIN_LOSS_RTOL, f"moe-train: losses {losses} "
+          f"vs one card's stacked step {want_losses}")
+    check(grad_rel[0] <= MOE_TRAIN_GRAD_REL, f"moe-train: step 1's "
+          f"gradients differ from the stacked step's by {grad_rel[0]} of "
+          f"the leaf's largest |g| ({grad_rel[1]})")
+    check(cond_worst <= held, f"moe-train: an element in AdamW's ε region "
+          f"differs by {cond_worst}, beyond 2 x the summed lr {held}")
+    del trees, got, want, rep, seen
+    free(cards)
+    return out
+
+
+def moe_train_deep(cards, peer) -> dict:
+    """``--moe-train`` (b): the deepest depth the meta reckoning admits,
+    bfloat16 with bfloat16 moments and ``remat="full"`` (the config's),
+    the trees drawn layer by layer (no whole model on any card) with zero
+    moments: the step by CUDA events on every card (the slowest), tokens/s,
+    the peak GiB a card, one step under the profiler, and one backward
+    psum (float32 ``(T + E, d)`` a card, one a layer) beside the step's
+    ms a layer."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.optim import init_opt_state
+    from repro_torch.training import TrainStepConfig, make_train_step
+
+    full = get_config("mixtral_8x22b")
+    reck = moe_train_reckoning(full, cards)
+    depth = reck["layers"]
+    print(f"moe-train reckoning (meta tensors, card 0 of 4): "
+          f"{reck['fixed_bytes'] / 1e9:.3f} GB fixed (embeddings, head and "
+          f"norms with gradients, moments and the update; the update's "
+          f"temporaries), a layer {reck['state_bytes_a_layer'] / 1e9:.3f} "
+          f"GB of state (parameters, gradients, moments, the update's new "
+          f"ones) + {reck['psum_bytes_a_layer'] / 1e6:.1f} MB of psum "
+          f"buffers; the card {reck['card_bytes'] / 1e9:.2f} GB less "
+          f"{MOE_TRAIN_HEADROOM / 1e9:.0f} GB: {depth} of "
+          f"{full.num_layers} layers ({reck['reckoned_bytes'] / 1e9:.2f} "
+          f"GB reckoned)", flush=True)
+    check(depth >= 1, "moe-train: no layer fits a card")
+    cfg = dataclasses.replace(full, num_layers=depth)
+    opt = moe_train_opt(cfg)
+    t0 = time.perf_counter()
+    trees = [{"params": p, "opt": init_opt_state(p, opt)}
+             for p in moe_trees(cfg, cards, seed=0)]
+    build_s = time.perf_counter() - t0
+    batches = moe_train_batches(cfg, cards[0], 1 + MOE_TRAIN_TIMED)
+    step = make_train_step(cfg, TrainStepConfig(), opt, device=cards[0])
+    reset_peaks(cards)
+    state = {"trees": trees, "i": 0, "losses": []}
+    del trees
+
+    def one():
+        bt = batches[state["i"] % len(batches)]
+        state["trees"], m = step(state["trees"], bt)
+        state["losses"].append(m["loss"])
+        state["i"] += 1
+
+    with set_mesh(peer):
+        t0 = time.perf_counter()
+        one()                                 # builds the ring's programs
+        sync_all(cards)
+        first_s = time.perf_counter() - t0
+        before = launch_counts()
+        step_ms, step_per = cards_call_ms(one, cards, MOE_TRAIN_TIMED,
+                                          warmup=0)
+        launched = {k: (v - before[k]) / MOE_TRAIN_TIMED
+                    for k, v in launch_counts().items() if v != before[k]}
+        peak = peaks_gib(cards)
+        prof = moe_profile(one, cards)
+    losses = [float(x) for x in state["losses"]]
+    del state
+    free(cards)
+    d = cfg.d_model
+    tokens = math.prod(MOE_TRAIN_TOKENS)
+    bwd = moe_combine(peer.session, cards, tokens + cfg.num_experts, d,
+                      torch.float32)
+    fwd = moe_combine(peer.session, cards, tokens, d)
+    out = {"reckoning": reck, "layers": depth, "build_s": build_s,
+           "first_step_s": first_s, "step_ms": step_ms,
+           "step_ms_cards": step_per, "step_ms_a_layer": step_ms / depth,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+           "losses": losses, "launches_a_step": launched, "profile": prof,
+           "backward_psum": bwd, "forward_combine": fwd}
+    print(f"moe-train at {depth} layers on 4 cards (bfloat16, bfloat16 "
+          f"moments, remat full, {MOE_TRAIN_TOKENS[0]} x "
+          f"{MOE_TRAIN_TOKENS[1]} tokens): a step {step_ms:.2f} ms (CUDA "
+          f"events, slowest card; cards "
+          f"{[round(x, 2) for x in step_per]}) = {step_ms / depth:.2f} ms "
+          f"a layer, {out['tokens_per_s']:.0f} tokens/s; the first step "
+          f"(the ring's programs built) {first_s:.2f} s; drawn and placed "
+          f"in {build_s:.1f} s; losses {losses}; peak GiB a card {peak}; "
+          f"launches a step {launched}", flush=True)
+    print(f"moe-train at {depth} layers, profiler, one step: "
+          f"{prof['device_ms_all_cards']:.2f} ms of device time over the 4 "
+          f"cards in {prof['kernels']} kernels; top (name, ms, count): "
+          f"{prof['top']}", flush=True)
+    print(f"moe-train: a backward psum (float32 ({bwd['rows']}, "
+          f"{bwd['d']}) a card, one a layer): the call {bwd['call_ms']:.4f} "
+          f"ms, its program's replay {bwd['replay_ms']:.4f} ms; a forward "
+          f"combine (bfloat16 ({fwd['rows']}, {fwd['d']})): "
+          f"{fwd['call_ms']:.4f} / {fwd['replay_ms']:.4f} ms; the step "
+          f"{step_ms / depth:.2f} ms a layer (CUDA events, slowest card)",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"moe-train: a loss is not finite: {losses}")
+    free(cards)
+    return out
+
+
+def moe_train(cards, smi) -> dict:
+    """``--moe-train``: Mixtral-8x22B trained expert parallel on a peer
+    mesh a card (module docstring)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    peer = make_host_mesh((1, 4), devices=cards)
+    return {"cards": smi, "check_1_layer": moe_train_check(cards, peer),
+            "deep": moe_train_deep(cards, peer)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -1481,6 +1871,9 @@ def main() -> int:
                          "mean a card instead")
     ap.add_argument("--moe", action="store_true",
                     help="serve Mixtral-8x22B expert parallel on a peer "
+                         "mesh a card instead")
+    ap.add_argument("--moe-train", action="store_true",
+                    help="train Mixtral-8x22B expert parallel on a peer "
                          "mesh a card instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
@@ -1510,9 +1903,18 @@ def main() -> int:
     _build.build_all(("multipath_dma", "jacobi", "ring_allgather",
                       "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    if args.sweep or args.collectives or args.training or args.moe:
+    if (args.sweep or args.collectives or args.training or args.moe
+            or args.moe_train):
         if args.sweep:
             sweep(cards)
+        elif args.moe_train:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            results = moe_train(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out",
+                                   "peer_moe_train.json"), "w") as f:
+                json.dump(results, f, indent=1)
+            print(json.dumps({"moe_train": results}), flush=True)
         elif args.moe:
             torch.backends.cuda.matmul.allow_tf32 = False
             results = moe(cards, smi)
