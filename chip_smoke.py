@@ -497,7 +497,24 @@ What it does, in order (any failed check exits nonzero):
     rtol 1e-3, every updated parameter within 2e-2 of the stacked
     update's largest |change|; the largest errors, the step ms, the peak
     GiB and the launches a step, and the whole run's seconds;
-34. one JSON line ``{"kernels": [...]}``, then as the last line
+34. main path AA, counters set to 0 before it and read after it: the
+    §4.6 health ladder on a peer session of four logical devices on the
+    one card, ``CommSession(CommConfig(telemetry=True), devices=["cuda:0"]
+    * 4)``, in lockstep with a stacked session on the card running the
+    same operations: path I's mid-traffic failure of (0, 1) over 256 MiB
+    sends 0->1 (3 paths), its restore, a quarantine of (0, 1) readmitted
+    by probes and the pre-fault digest back as a plan-cache hit; path I's
+    injected schedule over 20 sends of 16 MiB (its pinned counts); the
+    host relay with every device link into 1 failed; path F's captured
+    decode step through a failure of (0, 2). After every operation the
+    two sessions' outputs are bitwise equal, and so are their
+    ``stats()["health"]``, drained events, launched digests (probes
+    included) and cache statistics; every key of the peer plan cache is a
+    ``PlacedKey``. Prints the first send after the fault split into
+    plan + lower + schedule, capture and backoff on each layout, the
+    replay under the fault against the healthy one, and the relay's ms
+    and GB/s;
+35. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -6488,6 +6505,385 @@ def peer_moe_training_path(dev, per_path, read_path, smi) -> dict:
             "launches_a_step": counts}
 
 
+def launched_digests(engine) -> list:
+    """Record the digest of every entry ``engine`` launches (sends,
+    groups, probes and captured steps) into the returned list."""
+    log = []
+    launch, launch_step = engine._launch, engine._launch_step
+
+    def rec(entry, messages, *, block):
+        log.append(entry.digest)
+        return launch(entry, messages, block=block)
+
+    def rec_step(entry, arrays, *, block):
+        log.append(entry.digest)
+        return launch_step(entry, arrays, block=block)
+
+    engine._launch, engine._launch_step = rec, rec_step
+    return log
+
+
+class LockstepPair:
+    """A peer session of four logical devices on the one card and a
+    stacked session on it, the same configuration, driven in lockstep by
+    path AA and compared after every operation."""
+
+    def __init__(self, dev, **cfg):
+        from repro_torch.comm import CommConfig, CommSession
+
+        self.peer = CommSession(CommConfig(**cfg), devices=[dev] * 4)
+        self.stacked = CommSession(CommConfig(**cfg), device=dev)
+        self.logs = [launched_digests(s.engine)
+                     for s in (self.peer, self.stacked)]
+        self.events: list = []
+
+    @property
+    def both(self):
+        return (self.peer, self.stacked)
+
+    def mutate(self, method: str, *args) -> None:
+        for sess in self.both:
+            getattr(sess.topology, method)(*args)
+
+    def compare(self, what: str) -> None:
+        """The two sessions' health, events, launched digests, quarantine
+        and cache statistics equal; every peer cache key placed."""
+        from repro_torch.comm.engine import PlacedKey
+
+        p, s = (sess.stats() for sess in self.both)
+        check(p["health"] == s["health"], f"path AA {what}: health "
+              f"{p['health']} on peers, {s['health']} stacked")
+        check(p["cache"] == s["cache"], f"path AA {what}: cache "
+              f"{p['cache']} on peers, {s['cache']} stacked")
+        pev, sev = (sess.drain_health_events() for sess in self.both)
+        check(pev == sev, f"path AA {what}: events {pev} on peers, {sev} "
+              f"stacked")
+        self.events += pev
+        check(self.logs[0] == self.logs[1], f"path AA {what}: launched "
+              f"digests differ")
+        check(self.peer.planner.quarantined
+              == self.stacked.planner.quarantined,
+              f"path AA {what}: quarantine sets differ")
+        check(all(isinstance(k, PlacedKey)
+                  for k in self.peer.engine.cache._store),
+              f"path AA {what}: a peer plan-cache key is not a PlacedKey")
+
+    def send(self, x, src: int, dst: int, what: str, **kw) -> list:
+        outs = [sess.send(x, src, dst, **kw) for sess in self.both]
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, x) for o in outs),
+              f"path AA {what}: a send not bitwise")
+        self.compare(what)
+        return outs
+
+
+def timed_sends(pair, x, what: str, **kw) -> list:
+    """One lockstep send of ``x`` 0->1, each layout's own: host ms
+    (synced), its sample's plan + lower + schedule and capture ms, and
+    the backoff it slept."""
+    rows = []
+    sleep = time.sleep
+    outs = []
+    for sess in pair.both:
+        slept = []
+
+        def timed_sleep(seconds):         # the engine's backoff sleeps
+            s0 = time.perf_counter_ns()
+            sleep(seconds)
+            slept.append(time.perf_counter_ns() - s0)
+
+        torch.cuda.synchronize()
+        time.sleep = timed_sleep
+        try:
+            t0 = time.perf_counter()
+            outs.append(sess.send(x, 0, 1, **kw))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            time.sleep = sleep
+        st = sess.telemetry.samples()[-1].stages
+        rows.append({"host_ms": wall,
+                     "plan_ms": (st.plan_ns + st.lower_ns
+                                 + st.schedule_ns) / 1e6,
+                     "capture_ms": st.compile_ns / 1e6,
+                     "backoff_ms": sum(slept) / 1e6})
+    check(all(torch.equal(o, x) for o in outs),
+          f"path AA {what}: a send not bitwise")
+    pair.compare(what)
+    return rows
+
+
+def send_entry(sess, nelems: int, max_paths):
+    """The fast-path entry of the session's float32 send of ``nelems``
+    0->1 with ``max_paths`` (read without touching its counters)."""
+    for sig, (_, entry) in sess.engine._fastpath._store.items():
+        if sig[1] == ((0, 1, nelems, "float32"),) and sig[4] == max_paths:
+            return entry
+    raise KeyError((nelems, max_paths))
+
+
+def split_text(rows) -> str:
+    return " / ".join(f"{r['host_ms']:.3f} ms ({r['plan_ms']:.3f} + "
+                      f"{r['capture_ms']:.3f} + {r['backoff_ms']:.3f})"
+                      for r in rows)
+
+
+def peer_health_path(dev, errs, per_path, read_path, smi: str) -> dict:
+    """Main path AA (phase 34): the §4.6 ladder on a peer session of four
+    logical devices on the one card, in lockstep with a stacked session,
+    read with the counters set to 0 just before it. Returns its
+    readings."""
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.serving import make_captured_decode_step
+
+    # -- 34. main path AA: the health ladder on a peer session ----------------
+    reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(34)
+    big = torch.randn(1 << 26, generator=g, device=dev)      # 256 MiB f32
+    nbytes = big.numel() * 4
+    out: dict = {}
+
+    # 1. a mid-traffic failure of (0, 1), its restore and readmission
+    pair = LockstepPair(dev, telemetry=True)
+    pre = [s.describe(0, 1, nbytes, max_paths=3)["graph"]["digest"]
+           for s in pair.both]
+    check(pre[0] == pre[1], "path AA: pre-fault digests differ")
+    rows = []
+    for i in range(10):
+        if i == 3:
+            pair.mutate("fail_link", 0, 1)
+        if i == 6:
+            pair.mutate("restore_link", 0, 1)
+            links = [(0, 1), (2, 1), (3, 0)]
+            for sess in pair.both:
+                for link in links:
+                    sess.monitor.quarantine_link(link, reason="droop")
+            pair.compare("quarantine")
+            sweeps = 0
+            while pair.peer.planner.quarantined and sweeps < 10:
+                verdicts = [s.probe_links() for s in pair.both]
+                torch.cuda.synchronize()
+                check(verdicts[0] == verdicts[1], f"path AA: probe "
+                      f"verdicts {verdicts[0]} on peers, {verdicts[1]} "
+                      f"stacked")
+                pair.compare(f"probe sweep {sweeps}")
+                sweeps += 1
+            check(not pair.peer.planner.quarantined, "path AA: the "
+                  "quarantined links were not readmitted")
+            post = [s.describe(0, 1, nbytes, max_paths=3)["graph"]["digest"]
+                    for s in pair.both]
+            check(post == pre, "path AA: the post-readmit digest is not "
+                  "the pre-fault one")
+        cache0 = pair.peer.stats()["cache"]
+        row = timed_sends(pair, big, f"send {i}", max_paths=3)
+        cache1 = pair.peer.stats()["cache"]
+        rows.append((i, row, cache1["misses"] - cache0["misses"]))
+        level = pair.peer.stats()["health"]["ladder_level"]
+        check(level == (1 if 3 <= i < 6 else 0),
+              f"path AA: send {i} at ladder level {level}")
+        entry = send_entry(pair.peer, big.numel(), 3)
+        if 3 <= i < 6:
+            check(all((0, 1) not in p.directional_links()
+                      for p in entry.plans),
+                  f"path AA: send {i} routed over the failed (0, 1)")
+        if i in (2, 5):
+            sentry = send_entry(pair.stacked, big.numel(), 3)
+            times = {}
+            for label, e in (("peer", entry), ("stacked", sentry),
+                             ("stacked", sentry), ("peer", entry)):
+                times.setdefault(label, []).append(
+                    cuda_time_ms(e.compiled.program.replay, 20))
+            out["healthy" if i == 2 else "fault"] = {
+                "paths": [pa.route.via for pa in entry.plans[0].paths],
+                "replay_ms": times}
+        if i == 6:
+            check(cache1["misses"] == cache0["misses"]
+                  and cache1["hits"] == cache0["hits"] + 1,
+                  "path AA: the readmitted send was not a plan-cache hit")
+    small = big[:256]
+    cache0 = pair.peer.stats()["cache"]
+    pair.send(small, 0, 1, "the probed plan's send", max_paths=1)
+    cache1 = pair.peer.stats()["cache"]
+    check(cache1["misses"] == cache0["misses"]
+          and cache1["hits"] == cache0["hits"] + 1,
+          "path AA: the send of the probed plan was not a plan-cache hit")
+    out["midtraffic"] = [{"send": i, "peer": r[0], "stacked": r[1],
+                          "new_captures": n} for i, r, n in rows]
+    out["probe_sweeps"] = sweeps
+    h, f = out["healthy"], out["fault"]
+    print(f"path AA ({smi}): 256 MiB sends 0->1, 3 paths, on a peer "
+          f"session of 4 logical devices and a stacked session in "
+          f"lockstep, (0, 1) failed before send 3 and restored before send "
+          f"6, then (0, 1), (2, 1), (3, 0) quarantined and readmitted after "
+          f"{sweeps} probe sweeps (a probe of each, peer and stacked "
+          f"verdicts equal), the pre-fault digest back as a plan-cache hit "
+          f"and the probed 1 KiB plan's send a hit: every output bitwise, "
+          f"health, events, launched digests and cache statistics equal, "
+          f"every peer cache key a PlacedKey; per send, peer / stacked, "
+          f"host ms synced (plan+lower+schedule + capture + backoff): "
+          + "; ".join(f"{i}: {split_text(r)}, {n} new" for i, r, n in rows)
+          + f"; replay (CUDA events, in turns) healthy via {h['paths']} "
+          f"peer {h['replay_ms']['peer']} stacked "
+          f"{h['replay_ms']['stacked']} ms, under the fault via "
+          f"{f['paths']} peer {f['replay_ms']['peer']} stacked "
+          f"{f['replay_ms']['stacked']} ms", flush=True)
+    del pair, entry, sentry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the injected schedule, on both layouts
+    spec = "drop@2x2:0-2;degrade@6x4:0-3*0.25;flap@12~2x2:0-1"
+    pair = LockstepPair(dev, faults=spec, telemetry=True)
+    m16 = big[: 4 * MiB]                                     # 16 MiB f32
+    backoff = []
+    for i in range(20):
+        backoff.append(timed_sends(pair, m16, f"injected send {i}",
+                                   max_paths=3))
+    counts = []
+    for sess in pair.both:
+        h = sess.stats()["health"]
+        counts.append({k: h[k] for k in ("retries", "replans",
+                                         "faults_seen")})
+    check(counts[0] == counts[1] == {"retries": 1, "replans": 1,
+                                     "faults_seen": 7},
+          f"path AA: the injected schedule gave {counts}, not the CPU's "
+          f"retries 1, replans 1, faults_seen 7")
+    kinds = [e["kind"] for e in pair.events]
+    total = [sum(r[k]["host_ms"] for r in backoff) for k in (0, 1)]
+    slept = [sum(r[k]["backoff_ms"] for r in backoff) for k in (0, 1)]
+    setup = [sum(r[k]["plan_ms"] for r in backoff) for k in (0, 1)]
+    capture = [sum(r[k]["capture_ms"] for r in backoff) for k in (0, 1)]
+    out["injected"] = {"spec": spec, "counts": counts[0],
+                       "host_ms": total, "backoff_ms": slept,
+                       "plan_ms": setup, "capture_ms": capture,
+                       "captures": pair.peer.stats()["cache"]["misses"]}
+    print(f"path AA ({smi}): {spec!r}, 20 sends of 16 MiB in lockstep, all "
+          f"bitwise, health, events, digests and caches equal: "
+          f"{counts[0]}, {pair.peer.stats()['cache']['misses']} captures; "
+          f"peer / stacked ms in all {total[0]:.3f} / {total[1]:.3f}, of it "
+          f"backoff {slept[0]:.3f} / {slept[1]:.3f}, plan+lower+schedule "
+          f"{setup[0]:.3f} / {setup[1]:.3f}, capture {capture[0]:.3f} / "
+          f"{capture[1]:.3f}; events {kinds}", flush=True)
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the host relay: every device link into 1 failed
+    pair = LockstepPair(dev)
+    for src in (0, 2, 3):
+        pair.mutate("fail_link", src, 1)
+    pair.send(big, 0, 1, "the host relay", max_paths=3)
+    check(pair.peer.stats()["health"]["ladder_level"] == 3,
+          "path AA: the relay did not leave ladder level 3")
+    check([e["kind"] for e in pair.events].count("host_relay") == 1,
+          "path AA: not one host_relay event a layout")
+    relay = {}
+    for label, sess in (("peer", pair.peer), ("stacked", pair.stacked),
+                        ("stacked", pair.stacked), ("peer", pair.peer)):
+        relay.setdefault(label, []).append(host_time_ms(
+            lambda: sess.send(big, 0, 1, max_paths=3), 5, warmup=1))
+    pair.compare("relays")
+    out["relay"] = {"ms": relay, "gbps": {
+        k: [nbytes / t / 1e6 for t in v] for k, v in relay.items()}}
+    print(f"path AA ({smi}): host relay of 256 MiB 0->1, bitwise, one "
+          f"host_relay event a layout, equal health: ms synced in turns "
+          f"peer {[round(t, 3) for t in relay['peer']]}, stacked "
+          f"{[round(t, 3) for t in relay['stacked']]}; GB/s of message "
+          f"peer {[round(x, 2) for x in out['relay']['gbps']['peer']]}, "
+          f"stacked {[round(x, 2) for x in out['relay']['gbps']['stacked']]}",
+          flush=True)
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. path F's captured decode step through a failure of (0, 2)
+    pair = LockstepPair(dev)
+    n = 4
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd
+    kw = dict(batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+              kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+              schedule="overlap")
+    steps = [make_captured_decode_step(s, **kw) for s in pair.both]
+    q, k, v = (torch.randn((n, 1, heads, kv_len, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    kv = torch.randn((n, kv_chunk), generator=g, device=dev).to(
+        torch.bfloat16)
+    q4, k4, v4 = (t.view(n, heads, kv_len, hd) for t in (q, k, v))
+    want = fk.flash_attention_plain(q4, k4, v4)
+    want_kv = kv.clone()
+    want_kv[2] = kv[0]
+    step_ms = {"peer": [], "stacked": []}
+    for phase in ("healthy", "failed", "restored"):
+        if phase == "failed":
+            pair.mutate("fail_link", 0, 2)
+        if phase == "restored":
+            pair.mutate("restore_link", 0, 2)
+        got = []
+        for label, step, args in (
+                ("peer", steps[0], [list(t.unbind(0))
+                                    for t in (q, k, v, kv)]),
+                ("stacked", steps[1], [q, k, v, kv])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            attn, new_kv = step(*args)
+            torch.cuda.synchronize()
+            step_ms[label].append((time.perf_counter() - t0) * 1e3)
+            if label == "peer":
+                attn, new_kv = torch.stack(attn), torch.stack(new_kv)
+            got.append((attn, new_kv))
+        (pa, pkv), (sa, skv) = got
+        check(torch.equal(pkv, skv) and torch.equal(pkv, want_kv),
+              f"path AA: decode step ({phase}) KV chunk not bitwise")
+        check(torch.equal(pa, sa), f"path AA: decode step ({phase}) "
+              f"attention on peers not bitwise the stacked step's")
+        for label, attn in (("peer", pa), ("stacked", sa)):
+            err, ok = bf16_err(attn.view(n, heads, kv_len, hd), want)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            check(ok, f"path AA: decode step ({phase}, {label}) attention "
+                  f"max abs err {err}, beyond {BF16_ATOL} + {BF16_RTOL} * "
+                  f"|want|")
+        pair.compare(f"decode step ({phase})")
+        entries = [s.resolve() for s in steps]
+        check(entries[0].digest == entries[1].digest,
+              f"path AA: decode step ({phase}) digests differ")
+        if phase == "failed":
+            for plan in entries[0].plans:
+                check((0, 2) not in plan.directional_links(),
+                      "path AA: the decode step routed over the failed "
+                      "(0, 2)")
+            fault_ms = cuda_time_ms(entries[0].compiled.program.replay, 10)
+        if phase == "healthy":
+            healthy_ms = cuda_time_ms(entries[0].compiled.program.replay,
+                                      10)
+    check(pair.peer.stats()["health"]["ladder_level"] == 1,
+          "path AA: the decode step under the fault left no ladder level 1")
+    out["decode"] = {"first_call_ms": step_ms,
+                     "replay_ms": {"healthy": healthy_ms,
+                                   "fault": fault_ms}}
+    print(f"path AA ({smi}): path F's captured decode step through a "
+          f"failure of (0, 2), peer (per-device lists) and stacked in "
+          f"lockstep: KV chunk and attention bitwise the stacked step's, "
+          f"attention within {BF16_ATOL} + {BF16_RTOL} * |want| of the "
+          f"plain version, equal health, events, digests and caches; "
+          f"first call healthy / failed / restored, peer "
+          f"{[round(t, 3) for t in step_ms['peer']]} ms, stacked "
+          f"{[round(t, 3) for t in step_ms['stacked']]} ms synced; the peer "
+          f"replay (CUDA events) healthy {healthy_ms:.4f} ms, under the "
+          f"fault {fault_ms:.4f} ms", flush=True)
+    torch.cuda.synchronize()
+    read_path("AA")
+    for name in ("multipath_dma", "flash_attention"):
+        check(per_path["AA"].get(name, 0) > 0,
+              f"path AA did not launch {name}")
+    out["launches"] = per_path["AA"]
+    del pair, steps, q, k, v, q4, k4, v4, kv, want, want_kv, big, m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6784,16 +7180,19 @@ def main() -> int:
     peer_moe_training_path(dev, per_path, read_path, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    peer_health_path(dev, errs, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-Z): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-AA): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 34. report --------------------------------------------------------
+    # -- 35. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -503,7 +503,10 @@ class HealthMonitor:
                         link: tuple[int, int], nelems: int) -> bool:
         """One captured single-path send over exactly ``link`` with the
         quarantine exclusion lifted; healthy iff the payload arrives
-        intact (compared element-wise)."""
+        intact (compared element-wise). The program is looked up under the
+        engine's placed key, so a later send of the same plan is a cache
+        hit on either layout; the payload starts on ``src``'s device and is
+        compared on the device the copy arrived on."""
         src, dst = link
         dtype = torch.float32
         plan = engine.planner.plan(
@@ -519,13 +522,14 @@ class HealthMonitor:
         shapes = ((nelems, dtype),)
         key = engine._group_key(graph, (plan,), shapes, 1)
         compiled = engine.cache.get_or_build(
-            key, lambda: engine._compile_group(key, graph, shapes))
+            engine._placed(key),
+            lambda: engine._compile_group(key, graph, shapes))
         entry = FastPathEntry(plans=(plan,), graph=graph,
                               digest=key.digest, key=key,
                               compiled=compiled, schedule=chosen)
-        msg = torch.arange(nelems, dtype=dtype, device=engine.device)
+        msg = torch.arange(nelems, dtype=dtype, device=engine._home(src))
         out = engine._launch(entry, [msg], block=True)[0]
-        return bool(torch.equal(out, msg))
+        return bool(torch.equal(out, msg.to(out.device)))
 
     def note_probe(self, link: tuple[int, int], ok: bool) -> None:
         """Fold one probe verdict into the re-admission streak.

@@ -20,6 +20,9 @@ torch.matmul (atol 1e-3 / rtol 1e-4), and the serving path on a reduced
 model to the CPU's logits (atol 1e-3: cuBLAS and the CPU sum in other
 orders). A send with telemetry on records a launch and an execute time within the
 call's wall time, and sends stay bit for bit under a fitted profile.
+The §4.6 ladder (``-k health``) on a stacked session, and on a peer
+session of four logical devices in lockstep with a stacked one through a
+failed link, a probe readmission and a host relay.
 ``ServeEngine``'s captured decode step is held bit for bit to
 the eager ``make_serve_step`` (dense, ring, RWKV-6, hybrid (Mamba) and MoE
 caches), the reduced Hymba, Mixtral and Kimi K2 served on the card
@@ -104,6 +107,7 @@ import pytest
 import torch
 
 from repro_torch.comm import CommConfig, CommSession, PathPlanner, lower
+from repro_torch.comm.engine import PlacedKey
 from repro_torch.comm.passes import apply_schedule
 from repro_torch.core.halo import jacobi_step, make_captured_jacobi_step
 from repro_torch.configs import get_config
@@ -755,6 +759,44 @@ def test_health_captured_decode_step_under_failed_link(dev):
             for plan in step.resolve().plans:
                 assert (0, 2) not in plan.directional_links()
             assert sess.stats()["health"]["ladder_level"] == 1
+
+
+def test_health_ladder_on_a_peer_session_bitwise_stacked(dev):
+    """Four logical devices on the card and a stacked session, in
+    lockstep, through a failure of (0, 1), a quarantine of it readmitted
+    by probes and a host relay: every send bitwise the stacked one's,
+    equal health counters, events and cache statistics, every key of the
+    peer plan cache a ``PlacedKey``."""
+    peer = CommSession(devices=[dev] * 4)
+    stacked = CommSession(device=dev)
+    both = (peer, stacked)
+    x = torch.randn(1 << 20, device=dev)
+
+    def send():
+        outs = [s.send(x, 0, 1, max_paths=3) for s in both]
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], x)
+        a, b = (s.stats() for s in both)
+        assert a["health"] == b["health"] and a["cache"] == b["cache"]
+        assert peer.drain_health_events() == stacked.drain_health_events()
+        return a["health"]
+
+    assert send()["ladder_level"] == 0
+    for s in both:
+        s.topology.fail_link(0, 1)
+    assert send()["ladder_level"] == 1
+    for s in both:
+        s.topology.restore_link(0, 1)
+        s.monitor.quarantine_link((0, 1), reason="droop")
+    for _ in range(peer.monitor.probe_healthy):
+        assert peer.probe_links() == stacked.probe_links() == {(0, 1): True}
+    assert not peer.planner.quarantined and not stacked.planner.quarantined
+    assert send()["ladder_level"] == 0
+    for s in both:
+        for src in (0, 2, 3):
+            s.topology.fail_link(src, 1)
+    health = send()
+    assert health["ladder_level"] == 3 and health["host_relays"] == 1
+    assert all(isinstance(k, PlacedKey) for k in peer.engine.cache._store)
 
 
 # -- training: the attention backward and the train steps --------------------

@@ -92,17 +92,29 @@ def launched_digests(engine):
 
 class Pair:
     """A reference session and a port session on copies of one topology,
-    driven in lockstep and compared after every operation."""
+    driven in lockstep and compared after every operation.
 
-    def __init__(self, jtopo, *, defaults: bool = False, **cfg):
+    ``layout`` places the port session's logical devices: ``"stacked"``
+    (``device="cpu"``, rows of one operand) or ``"peer"``
+    (``devices=["cpu"] * n``, one device a logical device). The class
+    attribute is the default, so a module can run these cases on peers.
+    """
+
+    layout = "stacked"
+
+    def __init__(self, jtopo, *, defaults: bool = False,
+                 layout: str | None = None, **cfg):
         if not defaults:
             cfg.setdefault("multipath_threshold", 1)
             cfg.setdefault("max_paths", 3)
         self.j = JCommSession(JCommConfig(**cfg),
                               mesh=jmesh(jtopo.num_devices),
                               topology=jtopo)
-        self.t = CommSession(CommConfig(**cfg), device="cpu",
-                             topology=port_topology(jtopo))
+        layout = layout or self.layout
+        place = ({"device": "cpu"} if layout == "stacked"
+                 else {"devices": ["cpu"] * jtopo.num_devices})
+        self.t = CommSession(CommConfig(**cfg), topology=port_topology(jtopo),
+                             **place)
         self.jlog = launched_digests(self.j.engine)
         self.tlog = launched_digests(self.t.engine)
         self.events = []
@@ -122,11 +134,16 @@ class Pair:
         assert self.tlog == self.jlog
         assert self.t.planner.quarantined == self.j.planner.quarantined
 
+    def placed(self, out, dst):
+        """``out`` was delivered on the port device holding ``dst``."""
+        assert out.device == self.t.engine._home(dst)
+
     def send(self, seed, n, src, dst, **kw):
         x, tx, jx = payload(seed, n)
         tout = self.t.send(tx, src, dst, **kw)
         jout = self.j.send(jx, src, dst, **kw)
         np.testing.assert_array_equal(as_numpy(tout), x)
+        self.placed(tout, dst)
         self.check([jout], [tout])
 
     def exchange(self, seed, n, pairs, **kw):
@@ -135,16 +152,18 @@ class Pair:
                                 for m, (s, d) in zip(msgs, pairs)], **kw)
         jout = self.j.exchange([(m[2], s, d)
                                 for m, (s, d) in zip(msgs, pairs)], **kw)
-        for m, o in zip(msgs, tout):
+        for m, o, (_, d) in zip(msgs, tout, pairs):
             np.testing.assert_array_equal(as_numpy(o), m[0])
+            self.placed(o, d)
         self.check(jout, tout)
 
     def bidirectional(self, seed, n, src, dst, **kw):
         x, tx, jx = payload(seed, n)
         tout = self.t.bidirectional(tx, src, dst, **kw)
         jout = self.j.bidirectional(jx, src, dst, **kw)
-        for o in tout:
+        for o, d in zip(tout, (dst, src)):
             np.testing.assert_array_equal(as_numpy(o), x)
+            self.placed(o, d)
         self.check(jout, tout)
 
     def probe(self):

@@ -177,6 +177,42 @@ tokens (8 x 512), full width:
 
 Every reading also goes to ``chiprun_out/peer_moe_train.json``.
 
+With ``--health`` it runs the §4.6 health ladder across the cards
+instead (after the topology, names and power limits)::
+
+    python3 tools/peer_smoke.py --health           # a few minutes
+
+On ``CommSession(CommConfig(telemetry=True), devices=cards)`` (the
+other modes keep the monitor off, so that no plan changes mid-sweep),
+device times by CUDA events on every card (the slowest card):
+
+* the healthy cost: 64 KiB sends 0->1 (host clock, synced) and 512 MiB
+  sends (CUDA events) with the monitor on and off, in turns;
+* a mid-traffic failure of (0, 1) over 512 MiB float32 sends 0->1 with
+  the planner's paths: failed before send 3, restored before send 6,
+  then (0, 1), (2, 1) and (3, 0) quarantined and readmitted by probes
+  (each a captured send over exactly its link, across two cards), the
+  pre-fault digest back as a plan-cache hit and a send of each probed
+  plan a hit; every send bitwise on card 1 and split into plan + lower +
+  schedule, capture (one graph a card) and backoff; the replay under
+  the fault beside the healthy one and B / 450 GB/s (dst's ingress);
+* path I's injected schedule over 20 sends of 16 MiB (its pinned
+  counts, the CPU's);
+* the host relay with every device link into card 1 failed, 512 MiB
+  float32 0->1: the first call (pinned allocation included) and steady
+  calls, GB/s, beside a plain ``x.to("cpu", non_blocking=True)`` on to
+  card 1 (the yardstick; the relay as a ratio of it) and the bound, the
+  bytes twice over PCIe Gen5 x16 at 64 GB/s a direction (data sheet);
+* path F's migrating decode step through a failure of (0, 2): the
+  re-captured ``PeerStepProgram`` (one graph a card), the KV chunk
+  bitwise, attention against one card's stacked step, the replay healthy
+  and under the fault;
+* the droop monitor on healthy four-card traffic under a profile
+  ``calibrate()`` fitted there: its measured/modeled ratios and any
+  quarantine of a healthy link (reported; no threshold changes).
+
+Every reading also goes to ``chiprun_out/peer_health.json``.
+
 With ``--collectives`` it runs only the session's collectives (after the
 topology, names and power limits), and ``--src DIR`` imports the package
 from another checkout's ``src/`` (a parent commit unpacked by ``git
@@ -1859,6 +1895,401 @@ def moe_train(cards, smi) -> dict:
             "deep": moe_train_deep(cards, peer)}
 
 
+#: PCIe Gen5 x16, one direction (data sheet): the host relay's link.
+PCIE_BYTES_PER_S = 64e9
+#: path I's injected schedule and the counts the CPU pins for it
+#: (``tests/test_torch_health.py::test_chip_schedule_counts``).
+HEALTH_SPEC = "drop@2x2:0-2;degrade@6x4:0-3*0.25;flap@12~2x2:0-1"
+HEALTH_COUNTS = {"retries": 1, "replans": 1, "faults_seen": 7}
+
+
+def timed_send(sess, x, src: int, dst: int, cards, **kw):
+    """One ``sess.send`` synced on every card: (received, host ms, its
+    sample's plan + lower + schedule ms, capture ms, backoff slept ms)."""
+    slept = []
+    sleep = time.sleep
+
+    def timed_sleep(seconds):             # the engine's backoff sleeps
+        s0 = time.perf_counter_ns()
+        sleep(seconds)
+        slept.append(time.perf_counter_ns() - s0)
+
+    sync_all(cards)
+    time.sleep = timed_sleep
+    try:
+        t0 = time.perf_counter()
+        got = sess.send(x, src, dst, **kw)
+        sync_all(cards)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        time.sleep = sleep
+    st = sess.telemetry.samples()[-1].stages
+    return (got, wall, (st.plan_ns + st.lower_ns + st.schedule_ns) / 1e6,
+            st.compile_ns / 1e6, sum(slept) / 1e6)
+
+
+def health_midtraffic(cards, big, want) -> dict:
+    """The mid-traffic failure of (0, 1), its restore and readmission by
+    probes across the cards (module docstring)."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.comm.engine import PlacedKey
+
+    n = big.numel()
+    nbytes = n * 4
+    sess = CommSession(CommConfig(telemetry=True), devices=cards)
+    pre = sess.describe(0, 1, nbytes)["graph"]["digest"]
+    rows, out = [], {}
+    for i in range(10):
+        if i == 3:
+            sess.topology.fail_link(0, 1)
+        if i == 6:
+            sess.topology.restore_link(0, 1)
+            probed = [(0, 1), (2, 1), (3, 0)]
+            for link in probed:
+                sess.monitor.quarantine_link(link, reason="droop")
+            sweeps, verdicts = 0, []
+            while sess.planner.quarantined and sweeps < 10:
+                verdicts.append({f"{a}->{b}": ok for (a, b), ok in
+                                 sess.probe_links().items()})
+                sweeps += 1
+            check(not sess.planner.quarantined, f"the probed links were "
+                  f"not readmitted: {verdicts}")
+            check(sess.describe(0, 1, nbytes)["graph"]["digest"] == pre,
+                  "the post-readmit digest is not the pre-fault one")
+            out["probes"] = {"links": [list(x) for x in probed],
+                             "sweeps": sweeps, "verdicts": verdicts}
+        cache0 = sess.stats()["cache"]
+        got, wall, plan_ms, cap_ms, back_ms = timed_send(sess, big, 0, 1,
+                                                         cards)
+        check(got.device == cards[1] and torch.equal(got, want),
+              f"send {i} not bitwise on card 1")
+        cache1 = sess.stats()["cache"]
+        level = sess.stats()["health"]["ladder_level"]
+        check(level == (1 if 3 <= i < 6 else 0),
+              f"send {i} at ladder level {level}")
+        e = entry_for(sess, ((0, 1, n, "float32"),), None)
+        prog = e.compiled.program
+        if 3 <= i < 6:
+            check(all((0, 1) not in p.directional_links() for p in e.plans),
+                  f"send {i} routed over the failed (0, 1)")
+        rows.append({"send": i, "host_ms": wall, "plan_ms": plan_ms,
+                     "capture_ms": cap_ms, "backoff_ms": back_ms,
+                     "new_captures": cache1["misses"] - cache0["misses"],
+                     "graphs": len(prog._graphs)})
+        if i in (2, 5):
+            rep, per = replay_cards_ms(prog, 20)
+            out["healthy" if i == 2 else "fault"] = {
+                "paths": routes(e)[0], "replay_ms": rep,
+                "replay_ms_per_card": per,
+                "replay_gbps": nbytes / rep / 1e6}
+        if i == 6:
+            check(cache1["misses"] == cache0["misses"]
+                  and cache1["hits"] == cache0["hits"] + 1,
+                  "the readmitted send was not a plan-cache hit")
+    small = big[:256]
+    for (a, b) in out["probes"]["links"]:
+        cache0 = sess.stats()["cache"]
+        got = sess.send(small, a, b, max_paths=1)
+        cache1 = sess.stats()["cache"]
+        check(got.device == cards[b] and torch.equal(got.cpu(), small.cpu()),
+              f"the probed plan's send {a}->{b} not bitwise")
+        check(cache1["misses"] == cache0["misses"]
+              and cache1["hits"] == cache0["hits"] + 1,
+              f"the send of the probed plan {a}->{b} was not a cache hit")
+    check(all(isinstance(k, PlacedKey) for k in sess.engine.cache._store),
+          "a plan-cache key is not a PlacedKey")
+    out["sends"] = rows
+    out["bound_ms"] = nbytes / NVLINK_BYTES_PER_S * 1e3
+    h, f = out["healthy"], out["fault"]
+    print(f"mid-traffic failure of (0, 1), 512 MiB f32 sends 0->1 with the "
+          f"planner's paths, failed before send 3, restored before send 6, "
+          f"then {out['probes']['links']} quarantined and readmitted after "
+          f"{out['probes']['sweeps']} probe sweeps across the cards "
+          f"(verdicts {out['probes']['verdicts']}), the pre-fault digest "
+          f"back as a cache hit, each probed plan's send a hit, every key "
+          f"a PlacedKey; per send (i, host ms synced, plan+lower+schedule "
+          f"ms, capture ms, backoff ms, new captures, graphs): "
+          + ", ".join(f"({r['send']}, {r['host_ms']:.3f}, "
+                      f"{r['plan_ms']:.3f}, {r['capture_ms']:.3f}, "
+                      f"{r['backoff_ms']:.3f}, {r['new_captures']}, "
+                      f"{r['graphs']})" for r in rows)
+          + f"; replay (CUDA events, slowest card) healthy via {h['paths']} "
+          f"{h['replay_ms']:.4f} ms ({h['replay_gbps']:.1f} GB/s), under "
+          f"the fault via {f['paths']} {f['replay_ms']:.4f} ms "
+          f"({f['replay_gbps']:.1f} GB/s; each card "
+          f"{[round(t, 4) for t in f['replay_ms_per_card']]}); bound "
+          f"{out['bound_ms']:.4f} ms (450 GB/s)", flush=True)
+    return out
+
+
+def health_relay(cards, big, want) -> dict:
+    """The host relay across the cards against a plain pinned copy."""
+    from repro_torch.comm import CommConfig, CommSession
+
+    nbytes = big.numel() * 4
+    sess = CommSession(CommConfig(), devices=cards)
+    for src in (0, 2, 3):
+        sess.topology.fail_link(src, 1)
+    sync_all(cards)
+    t0 = time.perf_counter()
+    got = sess.send(big, 0, 1)
+    sync_all(cards)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(got.device == cards[1] and torch.equal(got, want),
+          "the host relay not bitwise on card 1")
+    h = sess.stats()["health"]
+    check(h["ladder_level"] == 3 and h["host_relays"] == 1,
+          f"the relay left health {h}")
+    del got
+    steady = host_ms(lambda: sess.send(big, 0, 1), cards, 5, warmup=1)
+    pinned = []
+
+    def plain():
+        staged = big.to("cpu", non_blocking=True)
+        pinned.append(staged.is_pinned())
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(cards[0]))
+        torch.cuda.current_stream(cards[1]).wait_event(ev)
+        return staged.to(cards[1], non_blocking=True)
+
+    check(torch.equal(plain(), want), "the plain pinned copy not bitwise")
+    plain_ms = host_ms(plain, cards, 5, warmup=1)
+    again = host_ms(lambda: sess.send(big, 0, 1), cards, 5, warmup=1)
+    bound_ms = 2 * nbytes / PCIE_BYTES_PER_S * 1e3
+    out = {"first_ms": first_ms, "steady_ms": [steady, again],
+           "gbps": [nbytes / t / 1e6 for t in (steady, again)],
+           "plain_ms": plain_ms, "plain_gbps": nbytes / plain_ms / 1e6,
+           "plain_pinned": all(pinned), "bound_ms": bound_ms,
+           "ratio_to_plain": [t / plain_ms for t in (steady, again)],
+           "relays": sess.stats()["health"]["host_relays"]}
+    print(f"host relay across cards, every device link into card 1 failed, "
+          f"512 MiB f32 0->1 (ladder level 3, bitwise on card 1): first "
+          f"call {first_ms:.3f} ms (pinned allocation included), steady "
+          f"{steady:.3f} / {again:.3f} ms synced = "
+          f"{out['gbps'][0]:.2f} / {out['gbps'][1]:.2f} GB/s; plain "
+          f"x.to('cpu', non_blocking=True) (pinned: {all(pinned)}) on to "
+          f"card 1 {plain_ms:.3f} ms = {out['plain_gbps']:.2f} GB/s; relay "
+          f"/ plain {out['ratio_to_plain'][0]:.3f} / "
+          f"{out['ratio_to_plain'][1]:.3f}; bound {bound_ms:.3f} ms (twice "
+          f"over PCIe Gen5 x16, 64 GB/s a direction)", flush=True)
+    return out
+
+
+def health_decode(cards, gen) -> dict:
+    """Path F's migrating decode step through a failure of (0, 2)."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.comm.capture import PeerStepProgram
+    from repro_torch.serving.engine import make_captured_decode_step
+
+    n = len(cards)
+    heads, kv_len, hd = 32, 2048, 128
+    kv_chunk = 2 * 8 * kv_len * hd
+    kw = dict(batch=1, heads=heads, kv_len=kv_len, head_dim=hd,
+              kv_chunk=kv_chunk, src=0, dst=2, dtype=torch.bfloat16,
+              schedule="overlap")
+    q, k, v = (torch.randn(n, 1, heads, kv_len, hd, generator=gen,
+                           device=cards[0]).to(torch.bfloat16)
+               for _ in range(3))
+    kv = torch.randn(n, kv_chunk, generator=gen, device=cards[0]).to(
+        torch.bfloat16)
+    stacked = CommSession(CommConfig(), device=cards[0])
+    want_attn, want_kv = make_captured_decode_step(stacked, **kw)(q, k, v,
+                                                                  kv)
+    expect = kv.clone()
+    expect[2] = kv[0]
+    check(torch.equal(want_kv, expect), "the stacked decode step's KV chunk")
+    sess = CommSession(CommConfig(), devices=cards)
+    step = make_captured_decode_step(sess, **kw)
+    per = [[t[i].to(cards[i]) for i in range(n)] for t in (q, k, v, kv)]
+    out = {"first_call_ms": [], "replay_ms": {}, "graphs": [],
+           "attn_max_abs_err": 0.0}
+    for phase in ("healthy", "failed", "restored"):
+        if phase == "failed":
+            sess.topology.fail_link(0, 2)
+        if phase == "restored":
+            sess.topology.restore_link(0, 2)
+        sync_all(cards)
+        t0 = time.perf_counter()
+        attn, new_kv = step(*per)
+        sync_all(cards)
+        out["first_call_ms"].append((time.perf_counter() - t0) * 1e3)
+        got_kv = torch.stack([t.to(cards[0]) for t in new_kv])
+        check(torch.equal(got_kv, expect), f"decode step ({phase}): the KV "
+              f"chunk not bitwise")
+        got = torch.stack([t.to(cards[0]) for t in attn]).float()
+        diff = (got - want_attn.float()).abs()
+        out["attn_max_abs_err"] = max(out["attn_max_abs_err"],
+                                      diff.max().item())
+        check(bool((diff <= 4e-3 + 8e-3 * want_attn.float().abs()).all()),
+              f"decode step ({phase}) attention: max abs err "
+              f"{diff.max().item()} against one card's stacked step")
+        entry = step.resolve()
+        prog = entry.compiled.program
+        check(isinstance(prog, PeerStepProgram),
+              "the decode step's program is not a PeerStepProgram")
+        out["graphs"].append(len(prog._graphs))
+        if phase == "failed":
+            check(all((0, 2) not in p.directional_links()
+                      for p in entry.plans),
+                  "the decode step routed over the failed (0, 2)")
+        if phase != "restored":
+            out["replay_ms"][phase] = replay_cards_ms(prog, 10)[0]
+    out["ladder_level"] = sess.stats()["health"]["ladder_level"]
+    print(f"path F's captured decode step across {n} cards through a "
+          f"failure of (0, 2): KV chunk bitwise in each call, attention max "
+          f"abs err {out['attn_max_abs_err']} against one card's stacked "
+          f"step; graphs a program {out['graphs']}; first call healthy / "
+          f"failed / restored "
+          f"{[round(t, 3) for t in out['first_call_ms']]} ms synced; "
+          f"replay (CUDA events, slowest card) healthy "
+          f"{out['replay_ms']['healthy']:.4f} ms, under the fault "
+          f"{out['replay_ms']['failed']:.4f} ms", flush=True)
+    return out
+
+
+def health_droop(cards, gen) -> dict:
+    """The droop monitor on healthy four-card traffic under a profile
+    ``calibrate()`` fitted there: ratios and quarantines, reported."""
+    from repro_torch.comm import CommConfig, CommSession
+
+    sess = CommSession(CommConfig(telemetry=True), devices=cards)
+    mon = sess.monitor
+    ratios: dict[str, list] = {}
+    culprits = []
+
+    def observe(sample):
+        before = mon.quarantines
+        r = mon.observe(sample)
+        if r is None:
+            return
+        ratios.setdefault(str(sample.nbytes), []).append(r)
+        if mon.quarantines > before:
+            culprits.append((sample.nbytes, round(r, 3),
+                             sorted(map(list, mon.quarantined))))
+
+    sess.telemetry.on_record = observe
+    sizes = (64 * KiB, MiB, 16 * MiB, 64 * MiB, 256 * MiB)
+    xs = {b: torch.randn(b // 4, generator=gen, device=cards[0])
+          for b in sizes}
+    wants = {b: x.to(cards[1]) for b, x in xs.items()}
+
+    def traffic(reps: int) -> None:
+        for b, x in xs.items():
+            for mp in (1, None):
+                for _ in range(reps):
+                    check(torch.equal(sess.send(x, 0, 1, max_paths=mp),
+                                      wants[b]),
+                          f"droop traffic {b} B not bitwise")
+
+    traffic(10)
+    check(not ratios, "the monitor judged samples before a calibration")
+    sess.calibrate(min_samples=3, warmup=2)
+    traffic(10)
+    sync_all(cards)
+    out = {"threshold": mon.droop_threshold, "samples": mon.droop_samples,
+           "ratios": {b: {"n": len(rs), "median": sorted(rs)[len(rs) // 2],
+                          "max": max(rs),
+                          "above": sum(r > mon.droop_threshold for r in rs)}
+                      for b, rs in ratios.items()},
+           "quarantines": mon.quarantines, "culprits": culprits,
+           "readmissions": mon.readmissions,
+           "health": sess.stats()["health"]}
+    print(f"droop monitor on healthy 4-card sends under the fitted profile "
+          f"(threshold {mon.droop_threshold}, {mon.droop_samples} in a row), "
+          f"measured/modeled by bytes: "
+          + "; ".join(f"{b} x{r['n']} median {r['median']:.4f} max "
+                      f"{r['max']:.4f}, {r['above']} above"
+                      for b, r in out["ratios"].items())
+          + f"; quarantines {mon.quarantines} (bytes, ratio, set): "
+          f"{culprits}; readmissions {mon.readmissions}; health "
+          f"{out['health']}", flush=True)
+    return out
+
+
+def health(cards, smi) -> dict:
+    """``--health``: the §4.6 ladder across the cards (module docstring)."""
+    from repro_torch.comm import CommConfig, CommSession
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.multipath_dma import kernel as dk
+
+    gen = torch.Generator(device=cards[0]).manual_seed(38)
+    launches = (dk.LAUNCHES, fk.LAUNCHES)
+    out: dict = {"cards": smi}
+    big = torch.randn(128 * MiB, generator=gen, device=cards[0])  # 512 MiB
+    want = big.to(cards[1])
+    small, small1 = big[:16 * KiB], want[:16 * KiB]              # 64 KiB
+
+    sessions = {on: CommSession(CommConfig(telemetry=True, health=on),
+                                devices=cards) for on in (True, False)}
+    cost = {True: {"small_us": [], "big_ms": []},
+            False: {"small_us": [], "big_ms": []}}
+    for on in (True, False, False, True, True, False):
+        sess = sessions[on]
+        check(torch.equal(sess.send(small, 0, 1), small1)
+              and torch.equal(sess.send(big, 0, 1), want),
+              f"a healthy send with health={on} not bitwise")
+        cost[on]["small_us"].append(
+            host_ms(lambda: sess.send(small, 0, 1), cards, 200) * 1e3)
+        cost[on]["big_ms"].append(
+            device_ms(lambda: sess.send(big, 0, 1), cards, 10))
+    for on, sess in sessions.items():
+        check(sess.stats()["health"]["ladder_level"] == 0
+              and (sess.monitor is not None) == on,
+              f"health={on} session state wrong")
+    out["healthy_cost"] = {("on" if on else "off"): c
+                           for on, c in cost.items()}
+    print(f"healthy cost, in turns: 64 KiB send 0->1 host us synced, on "
+          f"{[round(t, 3) for t in cost[True]['small_us']]}, off "
+          f"{[round(t, 3) for t in cost[False]['small_us']]}; 512 MiB send "
+          f"(CUDA events) on {[round(t, 4) for t in cost[True]['big_ms']]}, "
+          f"off {[round(t, 4) for t in cost[False]['big_ms']]} ms",
+          flush=True)
+    del sessions, sess
+    free(cards)
+
+    out["midtraffic"] = health_midtraffic(cards, big, want)
+    free(cards)
+
+    sess = CommSession(CommConfig(faults=HEALTH_SPEC, telemetry=True),
+                       devices=cards)
+    m16, w16 = big[:4 * MiB], want[:4 * MiB]
+    rows = [timed_send(sess, m16, 0, 1, cards, max_paths=3)
+            for _ in range(20)]
+    check(all(torch.equal(r[0], w16) for r in rows),
+          "an injected-schedule send not bitwise")
+    h = sess.stats()["health"]
+    got = {k: h[k] for k in HEALTH_COUNTS}
+    check(got == HEALTH_COUNTS, f"the injected schedule gave {got}, not the "
+          f"CPU's {HEALTH_COUNTS}")
+    kinds = [e["kind"] for e in sess.drain_health_events()]
+    out["injected"] = {
+        "spec": HEALTH_SPEC, "counts": got,
+        "host_ms": sum(r[1] for r in rows), "plan_ms": sum(r[2] for r in rows),
+        "capture_ms": sum(r[3] for r in rows),
+        "backoff_ms": sum(r[4] for r in rows),
+        "captures": sess.stats()["cache"]["misses"], "events": kinds}
+    i = out["injected"]
+    print(f"injected {HEALTH_SPEC!r}, 20 sends of 16 MiB across the cards, "
+          f"all bitwise: {got}, {i['captures']} captures; {i['host_ms']:.3f} "
+          f"ms in all, of it backoff {i['backoff_ms']:.3f}, plan+lower+"
+          f"schedule {i['plan_ms']:.3f}, capture {i['capture_ms']:.3f}; "
+          f"events {kinds}", flush=True)
+    del sess, rows
+    free(cards)
+
+    out["relay"] = health_relay(cards, big, want)
+    free(cards)
+    del big, want, small, small1, m16, w16
+    free(cards)
+    out["decode"] = health_decode(cards, gen)
+    free(cards)
+    out["droop"] = health_droop(cards, gen)
+    free(cards)
+    out["launches"] = {"multipath_dma": dk.LAUNCHES - launches[0],
+                       "flash_attention": fk.LAUNCHES - launches[1]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -1875,6 +2306,8 @@ def main() -> int:
     ap.add_argument("--moe-train", action="store_true",
                     help="train Mixtral-8x22B expert parallel on a peer "
                          "mesh a card instead")
+    ap.add_argument("--health", action="store_true",
+                    help="run the health ladder across the cards instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
     args = ap.parse_args()
@@ -1904,9 +2337,16 @@ def main() -> int:
                       "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     if (args.sweep or args.collectives or args.training or args.moe
-            or args.moe_train):
+            or args.moe_train or args.health):
         if args.sweep:
             sweep(cards)
+        elif args.health:
+            results = health(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out", "peer_health.json"),
+                      "w") as f:
+                json.dump(results, f, indent=1)
+            print(json.dumps({"health": results}), flush=True)
         elif args.moe_train:
             torch.backends.cuda.matmul.allow_tf32 = False
             results = moe_train(cards, smi)
