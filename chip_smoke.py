@@ -514,7 +514,25 @@ What it does, in order (any failed check exits nonzero):
     plan + lower + schedule, capture and backoff on each layout, the
     replay under the fault against the healthy one, and the relay's ms
     and GB/s;
-35. one JSON line ``{"kernels": [...]}``, then as the last line
+35. main path AB, counters set to 0 before each of its two runs and read
+    after it: dense tensor parallelism on a peer mesh, Nemotron-4 340B at
+    path O's full width, 4 layers, seeded weights and requests. Four
+    logical devices on the one card (``make_host_mesh((1, 4),
+    devices=["cuda:0"] * 4)``): the card holds every device, so
+    ``place_params`` cuts nothing (its tree the weights' views, its bytes
+    as reckoned from the config) and ``generate``'s tokens, the prefill's
+    logits and one decode step's are path O's bit for bit; the prefill
+    replay and the captured decode step timed. Then the two-card layout
+    ``[0, 0, 1, 1]`` emulated on the card (the placement's and the ring's
+    layout): each card's tree its 48 heads, 4 kv heads, 36864 hidden
+    units and 128000 vocabulary rows (bytes as reckoned), its cache its kv
+    heads; one eager lockstep prefill and decode step whose every psum
+    (the embedding, attention's and the MLP's, a layer) is three
+    ``multipath_dma`` ring shifts and one ``ring_allgather`` launch and
+    whose logits are gathered by one more (launches counted exactly);
+    every card's logits the same bits and within 2e-2 of path O's largest
+    |logit|;
+36. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -4345,7 +4363,7 @@ def serve_reckoning(cfg, prompts: list[int], new: int) -> int:
 
 def serve_config_path(dev, errs, per_path, read_path, name: str, layers: int,
                       want: tuple, prompt_lens: list[int], new: int,
-                      path: str, smi: str) -> dict:
+                      path: str, smi: str, keep: dict | None = None) -> dict:
     """One model of main path O: ``name`` at full width over ``layers``
     layers, served with ``ServeEngine(max_len=1024, kv_chunks=4)`` on
     seeded random weights (its prompts halved while
@@ -4354,7 +4372,8 @@ def serve_config_path(dev, errs, per_path, read_path, name: str, layers: int,
     token and captured-decode checks of :func:`program_checks`, the kernel
     at layer 0's real prefill q/k/v, :func:`serving_times`, and the kernel
     at the prefill's shape beside its bound and SDPA. Returns that
-    shape's times."""
+    shape's times; with ``keep``, puts the run's prompts, tokens, prefill
+    logits and one decode step's logits there (on the host)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4389,6 +4408,10 @@ def serve_config_path(dev, errs, per_path, read_path, name: str, layers: int,
     program_checks(cfg, engine, toks, outs, path)
     layer0_attention_check(cfg, params, toks, errs, path)
     serving_times(cfg, engine, None, toks, logits, cache, new, gen_s, path)
+    if keep is not None:
+        keep.update(prompts=prompts, toks=toks.cpu(), outs=outs,
+                    logits=logits.cpu(),
+                    dec=decode_logits(engine, toks, logits).cpu())
     del engine, params, logits, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -4411,7 +4434,8 @@ def serve_config_path(dev, errs, per_path, read_path, name: str, layers: int,
     return case
 
 
-def serving_head_dims_path(dev, errs, per_path, read_path, smi) -> dict:
+def serving_head_dims_path(dev, errs, per_path, read_path, smi,
+                           keep: dict) -> dict:
     """Main path O (phase 20): serving at head dims 112 and 192, each
     model freed before the next: Kimi K2 (MoE, 384 experts of d_ff 2048
     top-8 and one shared expert, 64/8 heads of 112, vocab 163840) over 1
@@ -4420,7 +4444,7 @@ def serving_head_dims_path(dev, errs, per_path, read_path, smi) -> dict:
     73728, vocab 256000) over 4 of its 96 layers, path E's 4 requests of
     512/384/256/128 tokens and 32 new each. Returns the kernel's times at
     each prefill shape (Kimi K2's also at its requests' unhalved
-    length)."""
+    length); Nemotron-4's readings go into ``keep`` for path AB."""
     t_path = time.perf_counter()
     kimi = serve_config_path(
         dev, errs, per_path, read_path, "kimi_k2_1t_a32b", KIMI_LAYERS,
@@ -4429,7 +4453,8 @@ def serving_head_dims_path(dev, errs, per_path, read_path, smi) -> dict:
     nemotron = serve_config_path(
         dev, errs, per_path, read_path, "nemotron_4_340b", NEMOTRON_LAYERS,
         ("dense", 18432, 96, 8, 192, 73728, "relu2", 0, 0, 0, 256000, "full",
-         "bfloat16"), [512, 384, 256, 128], 32, "O-nemotron", smi)
+         "bfloat16"), [512, 384, 256, 128], 32, "O-nemotron", smi,
+        keep=keep)
     print(f"path O: {time.perf_counter() - t_path:.1f} s", flush=True)
     return {"O-kimi": kimi, "O-nemotron": nemotron}
 
@@ -6884,6 +6909,227 @@ def peer_health_path(dev, errs, per_path, read_path, smi: str) -> dict:
     return out
 
 
+#: Path AB's emulated two-card layout on the one card: model-axis devices
+#: 0 and 1 on one "card", 2 and 3 on the other.
+AB_CARD_OF = (0, 0, 1, 1)
+
+
+def tp_reckoning(cfg, cut) -> int:
+    """The bytes of a dense decoder's serving tree under ``cut`` (a card's
+    :class:`~repro_torch.models.tensor_parallel.DenseCut`), reckoned from
+    the config alone: each cut dim at ``cut.part`` of its length."""
+    def part(n: int, on: bool) -> int:
+        return cut.part(n) if on else n
+
+    d, hd, isz = cfg.d_model, cfg.head_dim_, 2
+    vocab = 2 * part(cfg.vocab_size, cut.vocab) * d * isz
+    mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    layer = (2 * d * part(cfg.num_heads, cut.heads) * hd * isz
+             + 2 * d * part(cfg.num_kv_heads, cut.kv) * hd * isz
+             + mats * d * part(cfg.d_ff, cut.ff) * isz
+             + 2 * d * 4)                                 # ln1, ln2
+    return vocab + d * 4 + cfg.num_layers * layer
+
+
+class emulated_cards:
+    """Inside: a peer mesh's cards are those of ``card_of`` (a card a
+    model-axis device), all of them the one real card: the placement's
+    layout (``sharding._card_layout``) and the session ring's
+    (``PeerRing``'s ``card_of``), so each emulated card holds its own tree,
+    cache and inputs and runs its share on a host thread of its own. The
+    ring's steps run the real card's programs (its kernels) over every
+    logical device at once; a one-card program cannot record a graph for
+    a second card, so an emulated program runs eagerly
+    (:func:`run_emulated`)."""
+
+    def __init__(self, card_of, dev):
+        self.card_of, self.dev = list(card_of), dev
+
+    def __enter__(self):
+        from repro_torch.comm import collectives as coll
+        from repro_torch.training import sharding as shd
+
+        n, dev, card_of = max(self.card_of) + 1, self.dev, self.card_of
+        self.saved = coll.PeerRing, shd._card_layout
+        base = coll.PeerRing
+
+        class Cards(base):
+            def __init__(self, engine):
+                super().__init__(engine)
+                self.card_of, self.cards = list(card_of), (dev,) * n
+
+        coll.PeerRing = Cards
+        shd._card_layout = lambda mesh, what: ((dev,) * n, [
+            [d for d, c in enumerate(card_of) if c == k] for k in range(n)])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.comm import collectives as coll
+        from repro_torch.training import sharding as shd
+
+        coll.PeerRing, shd._card_layout = self.saved
+        return False
+
+
+def run_emulated(prog, mesh) -> list:
+    """One eager run of a serving program over emulated cards (its first
+    run: one host thread a card in lockstep at the ring's steps), card 0's
+    inputs staged to the others first: every card's logits, copied."""
+    from repro_torch.launch.mesh import set_mesh
+
+    for c in range(1, len(prog.cards)):
+        for dst, src in zip(prog.card_inputs(c), prog.card_inputs(0)):
+            dst.copy_(src)
+    with set_mesh(mesh):
+        prog.run()
+    torch.cuda.synchronize()
+    return [t.clone() for t in prog.card_logits]
+
+
+def tensor_parallel_path(dev, per_path, read_path, smi: str,
+                         at_o: dict) -> None:
+    """Main path AB (phase 35): dense tensor parallelism on a peer mesh on
+    the one card, Nemotron-4 340B at path O's full width and 4 layers on
+    path O's seeded weights and requests (``at_o``: path O's prompts,
+    tokens, prefill and decode logits). (1) Four logical devices on the
+    card, ``make_host_mesh((1, 4), devices=["cuda:0"] * 4)``: the card
+    holds every device, so its cut is every whole leaf (views of the
+    weights, bytes as reckoned) and tokens, prefill and decode logits are
+    path O's bit for bit (counted run). (2) The two-card layout
+    ``AB_CARD_OF`` emulated on the card (:class:`emulated_cards`): each
+    card's tree its heads, hidden units and vocabulary blocks (bytes as
+    :func:`tp_reckoning`), its cache its kv heads; one eager prefill and
+    one decode step (counted), every psum and the logits' gather through
+    the ring's kernels on the card (``multipath_dma`` three ring shifts a
+    psum, ``ring_allgather`` one a psum and one for the logits); every
+    card's logits the same bits and within 2e-2 of path O's largest
+    |logit| (the bfloat16 bound of ``tests/test_torch_peer_tp.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.serving import ServeEngine
+
+    # -- 35. main path AB: dense tensor parallelism on a peer mesh ---------
+    t_path = time.perf_counter()
+    cfg = dataclasses.replace(get_config("nemotron_4_340b"),
+                              num_layers=NEMOTRON_LAYERS)
+    params = init_model(cfg, dev, "AB")
+    prompts, new = at_o["prompts"], len(at_o["outs"][0])
+    nl = cfg.num_layers
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with set_mesh(mesh):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        (tree,) = engine.trees
+        (cut,) = engine.cuts
+        views = all(a.untyped_storage().data_ptr()
+                    == b.untyped_storage().data_ptr()
+                    for a, b in zip(_leaves(tree), _leaves(params)))
+        placed = sum(t.numel() * t.element_size() for t in _leaves(tree))
+        check(views and not cut.cuts and placed == tp_reckoning(cfg, cut),
+              f"path AB: the one card's tree is not the whole weights' "
+              f"views ({cut}, {placed} B against "
+              f"{tp_reckoning(cfg, cut)})")
+        toks, outs, logits, _, gen_s = serve_requests(
+            cfg, engine, prompts, new, "AB", per_path, read_path)
+        dec = decode_logits(engine, toks, logits)
+        same = {"tokens": outs == at_o["outs"]
+                and torch.equal(toks.cpu(), at_o["toks"]),
+                "prefill logits": torch.equal(logits.cpu(), at_o["logits"]),
+                "decode logits": torch.equal(dec.cpu(), at_o["dec"])}
+        print(f"path AB: Nemotron-4 340B over {nl} layers under {mesh} on "
+              f"a peer session of 4 logical devices on {dev}: the card "
+              f"holds every device, so nothing is cut ({placed / 1e9:.3f} "
+              f"GB placed, as reckoned, views of the weights); bit for bit "
+              f"path O's: {same}", flush=True)
+        check(all(same.values()), f"path AB differs from path O: {same}")
+        prefill_ms, decode_ms = replay_times(engine, toks, logits, new)
+        del engine, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, plen = toks.shape
+    with emulated_cards(AB_CARD_OF, dev), set_mesh(mesh):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        cuts = engine.cuts
+        placed = [sum(t.numel() * t.element_size() for t in _leaves(tree))
+                  for tree in engine.trees]
+        reck = [tp_reckoning(cfg, c) for c in cuts]
+        check(len(cuts) == 2 and all(c.heads and c.kv and c.ff and c.vocab
+                                     for c in cuts) and placed == reck,
+              f"path AB: the two-card layout's cuts {cuts} or bytes "
+              f"{placed} (reckoned {reck})")
+        prefill = engine.prefill_program(b, plen)
+        decode = engine.decode_program(b)
+        kv_heads = [c["k"].shape[2] for c in decode.caches]
+        prefill.tokens.copy_(toks)
+        tok = at_o["logits"][:, -1].argmax(-1)[:, None].to(dev)
+        decode.tokens.copy_(tok)
+        decode.cur_len.fill_(plen)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        pre = run_emulated(prefill, mesh)
+        pre_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = run_emulated(decode, mesh)
+        step_s = time.perf_counter() - t0
+        read_path("AB-tp")
+        psums = 1 + 2 * nl
+        want_counts = {"multipath_dma": 2 * 3 * psums,
+                       "ring_allgather": 2 * (psums + 1),
+                       "flash_attention": 2 * nl}
+        got_counts = {k: per_path["AB-tp"].get(k, 0) for k in want_counts}
+        check(got_counts == want_counts, f"path AB's two-card layout "
+              f"launched {got_counts}, not {want_counts} (three ring "
+              f"shifts and one gather a psum, {psums} psums and the "
+              f"logits' gather a forward; attention a card a layer a "
+              f"prefill)")
+        del engine
+    ref_pre = at_o["logits"].to(dev).float()
+    ref_dec = at_o["dec"].to(dev).float()
+    errs_ab = {"prefill": (pre[0].float() - ref_pre).abs().max().item(),
+               "decode": (step[0].float() - ref_dec).abs().max().item()}
+    tops = {"prefill": ref_pre.abs().max().item(),
+            "decode": ref_dec.abs().max().item()}
+    agree = (pre[0][:, -1].argmax(-1).cpu()
+             == at_o["logits"][:, -1].argmax(-1)).sum().item()
+    same_cards = (all(torch.equal(x, pre[0]) for x in pre)
+                  and all(torch.equal(x, step[0]) for x in step))
+    print(f"path AB: the two-card layout {list(AB_CARD_OF)} emulated on "
+          f"{dev}: each card {placed[0] / 1e9:.3f} GB placed (reckoned "
+          f"{reck[0] / 1e9:.3f}: its 48 of 96 heads, 4 of 8 kv heads, "
+          f"36864 of 73728 hidden units, 128000 of 256000 vocabulary rows "
+          f"and columns), caches at {kv_heads} kv heads; one eager "
+          f"lockstep prefill {pre_s * 1e3:.1f} ms and decode step "
+          f"{step_s * 1e3:.1f} ms (host clock, kernels on the card); "
+          f"launches {got_counts}; every card's logits the same bits "
+          f"{same_cards}; against path O: prefill max abs err "
+          f"{errs_ab['prefill']} (max |logit| {tops['prefill']}), decode "
+          f"{errs_ab['decode']} ({tops['decode']}), bound 2e-2 of max "
+          f"|logit|; last-position argmax agrees in {agree} of {b}",
+          flush=True)
+    check(same_cards and all(errs_ab[k] <= 2e-2 * tops[k] for k in tops),
+          f"path AB's two-card layout: every card the same bits "
+          f"{same_cards}, errors {errs_ab} against 2e-2 of {tops}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, pre, step, ref_pre, ref_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen1_s, gen2_s = gen_s
+    print(f"path AB vs path O (no mesh), Nemotron-4 over {nl} layers on "
+          f"{smi}: the one-card peer mesh's prefill replay "
+          f"{prefill_ms:.2f} ms, captured decode step {decode_ms:.2f} ms "
+          f"(CUDA events, {new - 1} steps, the better of two runs); "
+          f"generate of {b} x {new} tokens {gen2_s:.3f} s = "
+          f"{b * new / gen2_s:.1f} tokens/s (second call; first "
+          f"{gen1_s:.3f} s); peak {peak:.2f} GiB "
+          f"({time.perf_counter() - t_path:.1f} s)", flush=True)
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7138,7 +7384,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    at_o = serving_head_dims_path(dev, errs, per_path, read_path, smi)
+    at_o_out: dict = {}
+    at_o = serving_head_dims_path(dev, errs, per_path, read_path, smi,
+                                  at_o_out)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7183,16 +7431,21 @@ def main() -> int:
     peer_health_path(dev, errs, per_path, read_path, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tensor_parallel_path(dev, per_path, read_path, smi, at_o_out)
+    del at_o_out
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-AA): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-AB): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 35. report --------------------------------------------------------
+    # -- 36. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -59,9 +59,11 @@ NOTE = ("counted on meta tensors: matmul-class and kernel FLOPs, the "
         "unfused eager program's HBM bytes (each op's inputs read and "
         "outputs written once), which a captured replay repeats; "
         "collectives are those the device-stacked program issues (the "
-        "MoE combine psum and FSDP weight gather) — dense tensor-parallel "
-        "collectives and the data-axis gradient reduction are not issued; "
-        "the collective term is modeled at one NVLink 4 link, not measured")
+        "MoE combine psum and FSDP weight gather) — the dense "
+        "tensor-parallel psums and logits gather run only across a peer "
+        "mesh's cards in serving, and the data-axis gradient reduction is "
+        "not issued, so neither is counted here; the collective term is "
+        "modeled at one NVLink 4 link, not measured")
 
 
 def _wire_rows(op: str, result_bytes: int, n: int) -> int:

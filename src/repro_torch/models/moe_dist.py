@@ -120,31 +120,42 @@ _SHARE = threading.local()
 
 
 @contextlib.contextmanager
-def card_share(ring, card: int):
+def card_share(ring, card: int, cut=None):
     """Inside: :func:`moe_apply_dist` on a peer mesh runs card ``card``'s
     share of a program over ``ring`` (a
     :class:`~repro_torch.comm.collectives.PeerRing` begun for this run, or
     a :class:`~repro_torch.comm.collectives.LockstepRing`): the rows of
     the logical devices ``ring.card_of`` puts on ``card``, from the card's
-    placed experts, and its share of each combine. Per thread (the
-    lockstep run gives each card a thread of its own)."""
-    prev = getattr(_SHARE, "run", None)
-    _SHARE.run = (ring, card)
+    placed experts, and its share of each combine. ``cut`` (a
+    :class:`~repro_torch.models.tensor_parallel.DenseCut`, the serving
+    engine's) says which dense leaves the card's tree holds cut, and the
+    transformer then runs them tensor parallel; None (a train step's
+    share) leaves every dense leaf a replica. Per thread (the lockstep run
+    gives each card a thread of its own)."""
+    prev = getattr(_SHARE, "run", None), getattr(_SHARE, "cut", None)
+    _SHARE.run, _SHARE.cut = (ring, card), cut
     try:
         yield
     finally:
-        _SHARE.run = prev
+        _SHARE.run, _SHARE.cut = prev
+
+
+def current_share():
+    """``(ring, card, cut)`` of the card share in force on this thread, or
+    None outside one."""
+    run = getattr(_SHARE, "run", None)
+    return None if run is None else (*run, getattr(_SHARE, "cut", None))
 
 
 @contextlib.contextmanager
-def _entered(ring, card: int):
+def _entered(ring, card: int, cut=None):
     """Card ``card``'s share over ``ring`` on this thread: the lockstep
     ring's card (:meth:`~repro_torch.comm.collectives.LockstepRing.enter`)
     and :func:`card_share`."""
     enter = getattr(ring, "enter", None)
     if enter is not None:
         enter(card)
-    with card_share(ring, card):
+    with card_share(ring, card, cut):
         yield
 
 
@@ -153,13 +164,13 @@ def in_this_share(fn):
     whatever thread calls it later: a checkpointed layer's recompute runs
     in the backward, on CUDA on autograd's thread, where no share is in
     force. ``fn`` itself outside a share."""
-    run = getattr(_SHARE, "run", None)
-    if run is None:
+    share = current_share()
+    if share is None:
         return fn
 
     @functools.wraps(fn)
     def bound(*args, **kwargs):
-        with _entered(*run):
+        with _entered(*share):
             return fn(*args, **kwargs)
     return bound
 

@@ -56,6 +56,16 @@ backward (``torch.utils.checkpoint``, non-reentrant, RNG state not
 preserved: the model draws no random numbers, and reading the RNG state
 would break graph capture); inside a card's share of a peer mesh's step
 the recompute runs in that share too (:func:`~.moe_dist.in_this_share`).
+
+Inside a card's share of a peer mesh's serving program whose
+:class:`~.tensor_parallel.DenseCut` cuts dense leaves (the card's tree of
+:func:`~repro_torch.training.sharding.place_params` with a config), the
+embedding, attention, dense MLP, shared expert and head run tensor
+parallel (:mod:`.tensor_parallel`): the card's heads, hidden units and
+vocabulary blocks, one peer psum after each of the embedding, the
+attention's ``wo`` and the MLP's ``w2``, and one all-gather of the
+logits; its decode cache (:func:`init_cache` with the card's ``cut``)
+holds only the kv heads its attention reads.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import moe_dist
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        blockwise_attention,
                                        chunked_decode_attention, mlp_apply,
@@ -211,15 +222,25 @@ def unstacked_layers(params: Params) -> list[Params]:
 
 
 # ============================ full-sequence path =============================
+def _kv_proj(x: torch.Tensor, w: torch.Tensor, hd: int, kv: int,
+             take: list[int] | None) -> torch.Tensor:
+    """``x @ w`` as ``(..., kv, hd)``: every head of ``w``, or, where a
+    card's q heads read some of a replica's (``take``), those."""
+    y = (x @ w).reshape(x.shape[:-1] + (-1, hd))
+    return y if take is None else tp.take(y, -2, take)
+
+
 def attention_qkv(x: torch.Tensor, ap: Params, cfg: ArchConfig,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, cut=None):
     """q ``(B, H, S, hd)``, k and v ``(B, Hkv, S, hd)`` of one block,
-    RoPE applied to q and k."""
+    RoPE applied to q and k; under a head ``cut`` (:mod:`.tensor_parallel`)
+    the card's heads and the kv heads they read."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    h, kv, take = tp.heads(cfg, cut)
+    hd = cfg.head_dim_
     q = (x @ ap["wq"]).reshape(b, s, h, hd).transpose(1, 2)
-    k = (x @ ap["wk"]).reshape(b, s, kv, hd).transpose(1, 2)
-    v = (x @ ap["wv"]).reshape(b, s, kv, hd).transpose(1, 2)
+    k = _kv_proj(x, ap["wk"], hd, kv, take).transpose(1, 2)
+    v = _kv_proj(x, ap["wv"], hd, kv, take).transpose(1, 2)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -228,11 +249,14 @@ def attention_qkv(x: torch.Tensor, ap: Params, cfg: ArchConfig,
 def _attention_full(x, ap, cfg: ArchConfig, window: int, positions,
                     return_kv: bool = False):
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim_
-    q, k, v = attention_qkv(x, ap, cfg, positions)
+    hd = cfg.head_dim_
+    cut = tp.in_force()
+    q, k, v = attention_qkv(x, ap, cfg, positions, cut)
     o = blockwise_attention(q, k, v, causal=cfg.causal, window=window,
                             scale=hd ** -0.5)
-    out = o.transpose(1, 2).reshape(b, s, h * hd) @ ap["wo"]
+    out = o.transpose(1, 2).reshape(b, s, q.shape[1] * hd) @ ap["wo"]
+    if cut is not None and cut.heads:
+        out = tp.psum(out)
     if return_kv:
         return out, (k, v)
     return out
@@ -243,7 +267,9 @@ def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
     the flattened tokens — expert-parallel (:mod:`.moe_dist`, its combine
     one psum through the mesh's session) when a mesh with a model axis
     over 1 is ambient, else :func:`~.moe.moe_apply`. Returns (out, aux);
-    aux is 0 for a dense MLP."""
+    aux is 0 for a dense MLP. Under a dense cut the card's hidden units of
+    the dense MLP or the shared expert, and one psum of their products."""
+    cut = tp.in_force()
     if cfg.num_experts:
         flat = x.reshape(-1, x.shape[-1])
         res = moe_dist.moe_apply_dist(
@@ -253,14 +279,18 @@ def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
         if res is not None:
             out, aux = res
             if "shared" in lp["moe"]:
-                out = out + mlp_apply(flat, lp["moe"]["shared"], cfg.mlp)
+                sh = mlp_apply(flat, lp["moe"]["shared"], cfg.mlp)
+                out = out + (tp.psum(sh) if cut is not None and cut.shared
+                             else sh)
         else:
             out, aux = moe_lib.moe_apply(
                 flat, lp["moe"], top_k=cfg.top_k, kind=cfg.mlp,
                 capacity_factor=cfg.capacity_factor, dropless=dropless)
         return out.reshape(x.shape), aux
-    return (mlp_apply(x, lp["mlp"], cfg.mlp),
-            torch.zeros((), device=x.device))
+    out = mlp_apply(x, lp["mlp"], cfg.mlp)
+    if cut is not None and cut.ff:
+        out = tp.psum(out)
+    return out, torch.zeros((), device=x.device)
 
 
 def _mix_hybrid(a, s, lp):
@@ -290,11 +320,23 @@ def embed_inputs(params: Params, cfg: ArchConfig,
                  batch: dict) -> torch.Tensor:
     """The first layer's input ``(B, S, d)``: an audio model's float32
     ``features`` ``(B, S, frontend_dim)`` in the model's dtype times
-    ``frontend_proj``, else the embeddings of ``tokens``."""
+    ``frontend_proj``, else the embeddings of ``tokens``
+    (:func:`embed_tokens`)."""
     if cfg.frontend == "audio":
         return (batch["features"].to(_dtype(cfg))
                 @ params["frontend_proj"])
-    return params["embed"][batch["tokens"]]
+    return embed_tokens(params, cfg, batch["tokens"])
+
+
+def embed_tokens(params: Params, cfg: ArchConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The embeddings of ``tokens``: rows of ``embed``, or under a
+    vocabulary cut the card's rows summed over the cards
+    (:func:`~.tensor_parallel.embed`)."""
+    cut = tp.in_force()
+    if cut is not None and cut.vocab:
+        return tp.embed(params["embed"], tokens, cut, cfg.vocab_size)
+    return params["embed"][tokens]
 
 
 def forward(params: Params, cfg: ArchConfig, batch: dict,
@@ -318,9 +360,9 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
         else:
             x, a = block_apply(x, lp, cfg, window, positions)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"])
-    head = params["lm_head"] if cfg.decoder else params["head"]
-    return x @ head, aux
+    if cfg.decoder:
+        return head_logits(params, x), aux
+    return rms_norm(x, params["final_norm"]) @ params["head"], aux
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
@@ -380,7 +422,8 @@ def prefill_forward(params: Params, cfg: ArchConfig, batch: dict,
     check_decoder(cfg)
     x = embed_inputs(params, cfg, batch)
     if cache is None:
-        cache = init_cache(cfg, x.shape[0], spec, device=x.device)
+        cache = init_cache(cfg, x.shape[0], spec, device=x.device,
+                           cut=tp.in_force())
     x = prefill_blocks(params, cfg, x, spec, cache, range(cfg.num_layers))
     return head_logits(params, x), cache
 
@@ -425,8 +468,14 @@ def prefill_blocks(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The final norm and the output projection: a decoder's logits."""
-    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    """The final norm and the output projection: a decoder's logits;
+    under a vocabulary cut the card's blocks, gathered from every card
+    (:func:`~.tensor_parallel.gather_vocab`)."""
+    logits = rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    cut = tp.in_force()
+    if cut is not None and cut.vocab:
+        return tp.gather_vocab(logits, cut)
+    return logits
 
 
 # ================================ decode path ================================
@@ -452,14 +501,16 @@ def cache_spec(cfg: ArchConfig, max_len: int, kv_chunks: int = 16,
 
 
 def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
-               device=None) -> Cache:
+               device=None, cut=None) -> Cache:
     """A zero decode cache: keys and values for attention models (beside
     the float32 SSM state and the conv inputs for hybrid ones), the
-    recurrent state and the token-shift input for SSM models. An encoder
-    raises (:func:`check_decoder`)."""
+    recurrent state and the token-shift input for SSM models; under a
+    card's dense ``cut`` only the kv heads its attention reads
+    (:func:`~.tensor_parallel.heads`). An encoder raises
+    (:func:`check_decoder`)."""
     check_decoder(cfg)
-    l, kv, hd, d = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
-                    cfg.d_model)
+    l, hd, d = cfg.num_layers, cfg.head_dim_, cfg.d_model
+    kv = tp.heads(cfg, cut)[1]
     dt = _dtype(cfg)
     if cfg.family == "ssm":
         rh = cfg.rwkv_head_dim
@@ -492,10 +543,12 @@ def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
     writes its key and value into ``cache_k``/``cache_v`` in place.
     Returns out (B, d)."""
     b, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    cut = tp.in_force()
+    h, kv, take = tp.heads(cfg, cut)
+    hd = cfg.head_dim_
     q = (x @ ap["wq"]).reshape(b, h, hd)
-    k = (x @ ap["wk"]).reshape(b, kv, hd)
-    v = (x @ ap["wv"]).reshape(b, kv, hd)
+    k = _kv_proj(x, ap["wk"], hd, kv, take)
+    v = _kv_proj(x, ap["wv"], hd, kv, take)
     pos = cur_len.view(1)
     q = apply_rope(q[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
     k = apply_rope(k[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
@@ -525,7 +578,8 @@ def _attention_decode(x, ap, cfg: ArchConfig, window: int, cache_k, cache_v,
         cache_v.view(flat).index_copy_(2, pos, v[:, :, None])
         o = chunked_decode_attention(q, cache_k, cache_v, cur_len + 1,
                                      window=window, scale=hd ** -0.5)
-    return o.reshape(b, h * hd) @ ap["wo"]
+    out = o.reshape(b, h * hd) @ ap["wo"]
+    return tp.psum(out) if cut is not None and cut.heads else out
 
 
 def decode_block_apply(x, lp, cfg: ArchConfig, window: int, cache_l: dict,
@@ -562,7 +616,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     the cache's device, or an int, which becomes one. Nothing is read back
     to the host. An encoder raises (:func:`check_decoder`)."""
     check_decoder(cfg)
-    x = params["embed"][tokens[:, 0]]
+    x = embed_tokens(params, cfg, tokens[:, 0])
     cur_len = torch.as_tensor(cur_len, dtype=torch.int64, device=x.device)
     x = decode_blocks(params, cfg, cache, x, cur_len, spec,
                       range(cfg.num_layers))

@@ -33,25 +33,30 @@ graphs as the ring's own kernel launches. :func:`pick_kv_chunks` picks
 the split-KV chunk count for a mesh.
 
 Under an ambient **peer mesh** (``make_host_mesh(..., devices=[...])``)
-the engine serves expert parallel across the session's cards: it takes
-whole parameters, which it places
-(:func:`~repro_torch.training.sharding.place_params`: a card's own
-experts and a replica of the rest), or trees already placed, one a card.
+the engine serves expert and tensor parallel across the session's cards:
+it takes whole parameters, which it places
+(:func:`~repro_torch.training.sharding.place_params` with the config: a
+card's own experts, its blocks of the dense leaves the model axis cuts,
+:func:`~repro_torch.training.sharding.card_cuts`, and a replica of the
+rest), or trees already placed so, one a card (any other cut raises).
 Each program spans the cards: a static tokens buffer, position and cache
-a card, and one body a card, that card's prefill or decode step
-(``prefill_blocks`` / ``decode_blocks``) on its own tree
-(:func:`~repro_torch.models.moe_dist.card_share`), whose every MoE
-combine is the card's share of one peer
-psum over the program's own :class:`~repro_torch.comm.collectives.
-PeerRing`. On a CUDA card each body is recorded as graphs of its card,
-one a segment of at most :data:`GRAPH_LAYERS` layers, and the cards are
-ordered before every replay; the first run, the capture's warm-up, runs
+a card (the cache at the card's kv heads), and one body a card, that
+card's prefill or decode step (``prefill_blocks`` / ``decode_blocks``)
+on its own tree (:func:`~repro_torch.models.moe_dist.card_share` with
+the card's cut), whose every MoE combine and tensor-parallel psum is the
+card's share of one peer psum, and whose logits over its vocabulary
+blocks are gathered by one all-gather, over the program's own
+:class:`~repro_torch.comm.collectives.PeerRing`. On a CUDA card each
+body is recorded as graphs of its card, one a segment of at most
+:data:`GRAPH_LAYERS` layers, and the cards are ordered before every
+replay; the first run, the capture's warm-up, runs
 one host thread a card in lockstep at the ring's steps
 (:func:`~repro_torch.comm.collectives.run_in_lockstep`) when there are
 several. Callers write card 0's inputs (``tokens``, ``cur_len``); a
 call stages them to every other card, and the logits are card 0's
-(``devices[0]``'s), where ``generate`` samples. On the CPU the same
-bodies run eagerly with the plain versions.
+(``devices[0]``'s), where ``generate`` samples; every card's are the
+same bits. On the CPU the same bodies run eagerly with the plain
+versions.
 
 ``make_captured_decode_step`` captures one decode step — the
 ``flash_attention`` kernel beside a KV-chunk migration — as ONE CUDA
@@ -77,6 +82,7 @@ from repro_torch.launch.mesh import ambient_mesh, is_peer, set_mesh
 from repro_torch.models import moe_dist
 from repro_torch.models import transformer as tfm
 from repro_torch.training import sharding as shd
+from repro_torch.tree import leaves_with_paths
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.comm.capture import CapturedStep
@@ -208,6 +214,7 @@ class _ServeProgram(GraphProgram):
         self.spec = engine.spec
         self.mesh = engine.mesh
         self.trees = engine.trees
+        self.cuts = engine.cuts
         self.params = self.trees[0]
         self._cards = engine.cards
         self.device = self._cards[0]
@@ -275,7 +282,7 @@ class _ServeProgram(GraphProgram):
             self.logits = logits
 
     def _share(self, seg: int, ring, card: int) -> None:
-        with moe_dist.card_share(ring, card):
+        with moe_dist.card_share(ring, card, self.cuts[card]):
             self.body(card, seg)
 
     def _run_card(self, card: int, seg: int) -> None:
@@ -359,8 +366,9 @@ class DecodeProgram(_ServeProgram):
 
     def __init__(self, engine: "ServeEngine", batch: int):
         super().__init__(engine, [
-            tfm.init_cache(engine.cfg, batch, engine.spec, device=card)
-            for card in engine.cards])
+            tfm.init_cache(engine.cfg, batch, engine.spec, device=card,
+                           cut=cut)
+            for card, cut in zip(engine.cards, engine.cuts)])
         self._tokens = [torch.zeros((batch, 1), dtype=torch.long,
                                     device=card) for card in self._cards]
         self._cur_len = [torch.zeros((), dtype=torch.long, device=card)
@@ -373,7 +381,8 @@ class DecodeProgram(_ServeProgram):
         return [self._tokens[card], self._cur_len[card]]
 
     def embed(self, card: int) -> torch.Tensor:
-        return self.trees[card]["embed"][self._tokens[card][:, 0]]
+        return tfm.embed_tokens(self.trees[card], self.cfg,
+                                self._tokens[card][:, 0])
 
     def blocks(self, card: int, x: torch.Tensor,
                layers: range) -> torch.Tensor:
@@ -417,25 +426,52 @@ class ServeEngine:
         #: the serving layer surfaces that it happened.
         self.health_events: list[dict] = []
         #: The ambient peer mesh the engine serves on, or None; its cards
-        #: (one device for any other engine) and one tree a card.
+        #: (one device for any other engine), one tree a card and each
+        #: card's dense cut (None off a peer mesh).
         mesh = ambient_mesh()
         self.mesh = mesh if is_peer(mesh) else None
         if self.mesh is None:
             self.trees = [params]
             self.cards = (params["embed"].device,)
+            self.cuts = [None]
         else:
-            self.cards = tuple(dict.fromkeys(mesh.session.devices))
-            self.trees = (list(params) if isinstance(params, (list, tuple))
-                          else shd.place_params(params, mesh))
-            held = [str(t["embed"].device) for t in self.trees]
-            if held != [str(c) for c in self.cards]:
-                raise ValueError(f"placed trees on {held}, not one on each "
-                                 f"of the peer mesh's cards")
+            self.cards = shd._card_layout(mesh, "ServeEngine")[0]
+            self.cuts = shd.card_cuts(cfg, mesh)
+            if isinstance(params, (list, tuple)):
+                self.trees = list(params)
+                self._check_placed(mesh)
+            else:
+                self.trees = shd.place_params(params, mesh, cfg)
         self.params = self.trees[0]
         self.device = self.cards[0]
         self._decodes: dict[int, DecodeProgram] = {}
         self._prefills: collections.OrderedDict[
             tuple[int, int], PrefillProgram] = collections.OrderedDict()
+
+    def _check_placed(self, mesh: "LogicalMesh") -> None:
+        """Raise ``ValueError`` unless the caller's trees are one a card,
+        on the mesh's cards, each cut as :func:`~repro_torch.training.
+        sharding.place_params` cuts that card's (whole dense leaves on a
+        card that holds a cut of them raise)."""
+        held = [str(t["embed"].device) for t in self.trees]
+        if held != [str(c) for c in self.cards]:
+            raise ValueError(f"placed trees on {held}, not one on each "
+                             f"of the peer mesh's cards")
+        _, helds = shd._card_layout(mesh, "ServeEngine")
+        model = mesh.shape.get("model", 1)
+        for card, (tree, cut, devs) in enumerate(zip(self.trees, self.cuts,
+                                                     helds)):
+            want = dict(leaves_with_paths(shd.place_card(
+                tfm.param_shapes(self.cfg), devs, model, "meta", cut)))
+            got = dict(leaves_with_paths(tree))
+            bad = sorted("/".join(path) for path in want.keys() | got.keys()
+                         if path not in want or path not in got
+                         or got[path].shape != want[path].shape)
+            if bad:
+                raise ValueError(
+                    f"card {card}'s tree differs from its placement at "
+                    f"{bad[:4]}: trees on this peer mesh must be placed as "
+                    f"place_params(params, mesh, cfg) places them")
 
     def _drain_health(self) -> None:
         """Fold the comm session's pending health events into

@@ -25,7 +25,11 @@ devices, :func:`shard_tree` lays each leaf out as the ``(n, ...)`` stack
 of the mesh's ``n`` logical devices' local shards (row-major over the
 mesh axes) and :func:`unshard_tree` puts the whole back. On a peer mesh
 (``make_host_mesh(..., devices=[...])``), :func:`place_params` gives one
-tree a card: its logical devices' experts, and a replica of the rest.
+tree a card: its logical devices' experts and, for serving, its blocks of
+the dense leaves the model axis cuts (whole heads, hidden units and
+vocabulary blocks only, :func:`~repro_torch.models.tensor_parallel.
+dense_cut`), and a replica of the rest; :func:`place_state` places a
+train state with its dense leaves replicated.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import LogicalMesh
 from repro_torch.models.pspec import P, PartitionSpec
+from repro_torch.models.tensor_parallel import DenseCut, dense_cut
 from repro_torch.tree import leaves_with_paths
 
 
@@ -331,18 +336,13 @@ def cut_experts(w: torch.Tensor, name: str, held: list[int],
     expert (expert-TP; ``ff`` must divide), as
     :func:`~repro_torch.models.moe_dist._row_weights` cuts a row. A view
     of ``w`` where ``held`` is one run of consecutive devices."""
-    e = w.shape[-3]
-    if e % model == 0:
-        dim, size = w.dim() - 3, e // model
-    else:
-        dim = w.dim() - (2 if name == "w2" else 1)
-        if w.shape[dim] % model:
-            raise ValueError(f"expert-TP over {model} devices needs the ff "
-                             f"dim {w.shape[dim]} of {name} to divide")
-        size = w.shape[dim] // model
-    parts = [w.narrow(dim, a * size, (b - a) * size)
-             for a, b in _held_runs(sorted(held))]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    if w.shape[-3] % model == 0:
+        return cut_dense(w, -3, held, model)
+    dim = -2 if name == "w2" else -1
+    if w.shape[dim] % model:
+        raise ValueError(f"expert-TP over {model} devices needs the ff "
+                         f"dim {w.shape[dim]} of {name} to divide")
+    return cut_dense(w, dim, held, model)
 
 
 def is_expert(path: tuple) -> bool:
@@ -352,14 +352,60 @@ def is_expert(path: tuple) -> bool:
             and path[-1] in ("w1", "w3", "w2"))
 
 
-def place_card(params, held: list[int], model: int, device):
+def dense_dim(path: tuple, cut: DenseCut | None) -> int | None:
+    """The dim (from the end) along which ``cut`` cuts the dense leaf at
+    ``path`` (a key tuple), or None where the leaf stays whole: ``embed``
+    rows and ``lm_head`` columns (the vocabulary), ``wq`` columns and
+    ``wo`` rows (heads), ``wk``/``wv`` columns (kv heads), and ``w1``/``w3``
+    columns and ``w2`` rows of the dense MLP (``mlp``) and of the shared
+    expert (``moe``/``shared``), as the reference's rules cut them on the
+    model axis."""
+    if cut is None:
+        return None
+    name = path[-1]
+    if name == "embed" and cut.vocab:
+        return -2
+    if name == "lm_head" and cut.vocab:
+        return -1
+    if "attn" in path:
+        if name == "wq" and cut.heads or name in ("wk", "wv") and cut.kv:
+            return -1
+        if name == "wo" and cut.heads:
+            return -2
+    if ("mlp" in path and cut.ff) or ("shared" in path and cut.shared):
+        if name in ("w1", "w3"):
+            return -1
+        if name == "w2":
+            return -2
+    return None
+
+
+def cut_dense(w: torch.Tensor, dim: int, held: list[int],
+              model: int) -> torch.Tensor:
+    """The blocks ``held`` (ascending) of ``w``'s dim ``dim`` cut into
+    ``model``, in index order: a view where they are one run."""
+    dim %= w.dim()
+    size = w.shape[dim] // model
+    parts = [w.narrow(dim, a * size, (b - a) * size)
+             for a, b in _held_runs(sorted(held))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def place_card(params, held: list[int], model: int, device,
+               cut: DenseCut | None = None):
     """One card's tree of ``params``: the expert leaves (``w1``, ``w3``,
     ``w2`` under ``moe``, not ``shared``) cut to the model-axis devices
-    ``held`` (:func:`cut_experts`), every other leaf a replica, all on
-    ``device``; a leaf already there stays a view."""
+    ``held`` (:func:`cut_experts`); with ``cut`` (a serving tree's) the
+    dense leaves it cuts cut to the same devices (:func:`dense_dim`,
+    :func:`cut_dense`); every other leaf a replica, all on ``device``. A
+    leaf already there stays a view where its cut is one run."""
     def place(path, x):
         if is_expert(path):
             x = cut_experts(x, path[-1], held, model)
+        else:
+            dim = dense_dim(path, cut)
+            if dim is not None:
+                x = cut_dense(x, dim, held, model)
         return x.to(device)
 
     return _map_with_path(place, params)
@@ -378,23 +424,35 @@ def _card_layout(mesh: LogicalMesh, what: str):
                    for card in cards]
 
 
-def place_params(params, mesh: LogicalMesh) -> list:
-    """Expert parallelism placed on a peer mesh: one tree a card of the
-    mesh's session (its distinct devices, in first-use order), each
+def card_cuts(cfg: ArchConfig, mesh: LogicalMesh) -> list[DenseCut]:
+    """The serving layout of a peer mesh: each card's :class:`~repro_torch.
+    models.tensor_parallel.DenseCut` (its cards in first-use order)."""
+    _, helds = _card_layout(mesh, "card_cuts")
+    model = mesh.shape.get("model", 1)
+    return [dense_cut(cfg, held, model) for held in helds]
+
+
+def place_params(params, mesh: LogicalMesh, cfg: ArchConfig) -> list:
+    """Parameters placed on a peer mesh: one tree a card of the mesh's
+    session (its distinct devices, in first-use order), each
     :func:`place_card` of the logical devices that card holds.
 
-    Only the experts are cut. Dense tensor parallelism is not placed: the
-    reference gets it from GSPMD, the port has no collectives for it, and
-    the pspec constraints are not ported, so every card holds the whole of
-    the embeddings, attention, norms, router and shared experts, and runs
-    them on its own replica. On the card that already holds a leaf, the
-    leaf (or its expert cut, for one run of devices) stays a view: the
-    serving engine only reads it, and a train step's update is functional
-    (new tensors), so neither writes the caller's."""
+    Every card holds its own experts and only its blocks of the dense
+    leaves its :func:`card_cuts` cut (the serving layout): the
+    vocabulary, whole heads, the dense MLP's and the shared expert's
+    hidden units, where the model axis divides them, which the card runs
+    tensor parallel (:mod:`~repro_torch.models.tensor_parallel`). On a
+    card that holds every logical device, and for norms, routers and
+    Mamba's and RWKV-6's mixers on any card, the leaves stay whole
+    replicas (:func:`place_state` keeps every dense leaf whole). On the
+    card that already holds a leaf, a cut of one run of devices (or
+    the whole leaf) stays a view: the serving engine only reads it, and a
+    train step's update is functional (new tensors), so neither writes
+    the caller's."""
     cards, helds = _card_layout(mesh, "place_params")
     model = mesh.shape.get("model", 1)
-    return [place_card(params, held, model, card)
-            for card, held in zip(cards, helds)]
+    return [place_card(params, held, model, card, cut)
+            for card, held, cut in zip(cards, helds, card_cuts(cfg, mesh))]
 
 
 def place_state(state, mesh: LogicalMesh) -> list:
@@ -419,35 +477,43 @@ def place_state(state, mesh: LogicalMesh) -> list:
             for card, held in zip(cards, helds)]
 
 
-def unplace_state(trees: list, mesh: LogicalMesh):
+def unplace_state(trees: list, mesh: LogicalMesh,
+                  cfg: ArchConfig | None = None):
     """The whole tree back from one tree a card of ``mesh`` (the inverse
-    of :func:`place_state`, or of :func:`place_params` for parameters):
-    each expert leaf the cards' cuts put back in device order, every other
-    leaf card 0's replica; all on card 0's device."""
+    of :func:`place_state`, or of :func:`place_params` for parameters,
+    given the same ``cfg``): each cut leaf, expert or dense, the cards'
+    cuts put back in device order, every other leaf card 0's replica; all
+    on card 0's device."""
     cards, helds = _card_layout(mesh, "unplace_state")
     if len(trees) != len(cards):
         raise ValueError(f"{mesh} has {len(cards)} cards, got "
                          f"{len(trees)} trees")
     model = mesh.shape.get("model", 1)
-    return _uncut_tree(trees, helds, model, cards[0], ())
+    cuts = (card_cuts(cfg, mesh) if cfg is not None
+            else [None] * len(cards))
+    return _uncut_tree(trees, helds, model, cards[0], (), cuts=cuts)
 
 
 def _uncut_tree(parts: list, helds: list, model: int, device,
-                path: tuple, experts: int | None = None):
+                path: tuple, experts: int | None = None, *, cuts: list):
     """:func:`unplace_state` over the subtrees ``parts`` (one a card) at
     ``path``; ``experts`` the expert count of the MoE block above (its
-    router's last dim)."""
+    router's last dim); ``cuts`` each card's dense cut (or None)."""
     first = parts[0]
     if isinstance(first, dict):
         if "router" in first:
             experts = first["router"].shape[-1]
         return {k: _uncut_tree([p[k] for p in parts], helds, model, device,
-                               path + (k,), experts)
+                               path + (k,), experts, cuts=cuts)
                 for k in first}
-    if not is_expert(path):
-        return first.to(device)
-    dim = (first.dim() - 3 if experts % model == 0
-           else first.dim() - (2 if path[-1] == "w2" else 1))
+    if is_expert(path):
+        dim = (first.dim() - 3 if experts % model == 0
+               else first.dim() - (2 if path[-1] == "w2" else 1))
+    else:
+        dim = dense_dim(path, cuts[0])
+        if dim is None:
+            return first.to(device)
+        dim %= first.dim()
     blocks = {}
     for part, held in zip(parts, helds):
         size = part.shape[dim] // len(held)

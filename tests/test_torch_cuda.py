@@ -81,10 +81,14 @@ device, each bit for bit as the stacked session's; on one card, on four
 and on two cards holding two logical devices each.
 Expert-parallel serving on a peer mesh (``-k peer_moe``): reduced
 Mixtral served by ``ServeEngine`` under ``make_host_mesh((1, 4),
-devices=...)``, tokens and prefill and decode logits bit for bit the
-stacked mesh's, one graph a card a program and one ``ring_allgather``
-launch a card a MoE layer a replay; on one card, on four and on two
-cards holding two logical devices each.
+devices=...)``, tokens the stacked mesh's; on one card prefill and decode
+logits bit for bit the stacked mesh's and one ``ring_allgather`` launch
+a card a MoE layer a replay; on four cards and on two cards holding two
+logical devices each (the attention and vocabulary then cut a card)
+every card's logits the same bits, within 1e-5 of the stacked mesh's,
+and one launch a card a psum and one for the logits; one graph a card a
+program segment. Dense tensor parallelism (``-k tensor_parallel``): the
+same for reduced Nemotron-4 at head dim 192.
 Expert-parallel training on a peer mesh (``-k peer_moe_training``):
 reduced Mixtral (``remat="full"``) trained two steps by
 ``make_train_step`` from ``place_state`` under ``make_host_mesh((1, 4),
@@ -1939,15 +1943,24 @@ def test_peer_training_across_four_cards(dev):
         peer_training_checks(devices, cards[0])
 
 
-def peer_moe_serving_checks(devices, dev):
-    """Reduced Mixtral served on a ``(1, 4)`` peer mesh over ``devices``
-    (its whole parameters placed by the engine) against the stacked mesh
-    on ``dev``: ``generate``'s tokens, the prefill's logits and three
-    decode steps' logits bit for bit; each program one graph a card, and
-    ``ring_allgather`` launched once a card a MoE layer a replay."""
+def peer_serving_checks(devices, dev, arch: str = "mixtral_8x22b",
+                        **replace):
+    """Reduced ``arch`` (float32) served on a ``(1, 4)`` peer mesh over
+    ``devices`` (its whole parameters placed by the engine) against the
+    stacked mesh on ``dev``: ``generate``'s tokens the same; on one card
+    the prefill's logits and three decode steps' logits bit for bit, and
+    ``ring_allgather`` launched once a card a MoE layer a replay; across
+    cards (each holding its heads, hidden units and vocabulary blocks)
+    every card's logits the same bits and within 1e-5 of the stacked
+    mesh's (``tests/test_torch_peer_tp.py``'s float32 bound), and
+    ``ring_allgather`` launched once a card a psum (the embedding's,
+    attention's, the MLP's or the combine, a layer) and once for the
+    logits; each program one graph a card a segment."""
     from repro_torch.launch.mesh import make_host_mesh, set_mesh
 
-    cfg, params, _ = _served(dev, "mixtral_8x22b")
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    params = _on(tfm.init_params(
+        cfg, generator=torch.Generator().manual_seed(0)), dev)
     toks = [list(range(1, 13)), [5, 6, 7] * 4]
 
     def serve(mesh):
@@ -1957,37 +1970,62 @@ def peer_moe_serving_checks(devices, dev):
             logits, _ = engine.prefill(toks)
             decode = engine.decode_program(2)
             tok = logits[:, -1].argmax(-1)[:, None]
-            steps, launched = [], []
+            steps, launched, same = [], [], []
             for pos in range(12, 15):
                 decode.tokens.copy_(tok)
                 decode.cur_len.fill_(pos)
                 before = rk.LAUNCHES
                 steps.append(decode().clone())
                 launched.append(rk.LAUNCHES - before)
+                same.append(all(torch.equal(t.to(dev), steps[-1].to(dev))
+                                for t in decode.card_logits))
                 tok = steps[-1].argmax(-1)[:, None]
-        return engine, [r.out for r in res], logits, steps, launched
+        return engine, [r.out for r in res], logits, steps, launched, same
 
-    _, souts, slogits, ssteps, _ = serve(make_host_mesh((1, 4), device=dev))
-    engine, outs, logits, steps, launched = serve(
+    _, souts, slogits, ssteps, _, _ = serve(
+        make_host_mesh((1, 4), device=dev))
+    engine, outs, logits, steps, launched, same = serve(
         make_host_mesh((1, 4), devices=devices))
     cards = tuple(dict.fromkeys(torch.device(d) for d in devices))
     assert engine.cards == cards and logits.device == cards[0]
-    assert outs == souts and torch.equal(logits.to(dev), slogits)
-    assert all(torch.equal(a.to(dev), b) for a, b in zip(steps, ssteps))
+    assert outs == souts and all(same)
+    if len(cards) == 1:
+        assert torch.equal(logits.to(dev), slogits)
+        assert all(torch.equal(a.to(dev), b) for a, b in zip(steps, ssteps))
+        per_card = cfg.num_layers if cfg.num_experts else 0
+    else:
+        prefill = engine.prefill_program(2, 12)
+        assert all(torch.equal(t.to(dev), prefill.logits.to(dev))
+                   for t in prefill.card_logits)
+        for a, b in zip([logits, *steps], [slogits, *ssteps]):
+            torch.testing.assert_close(a.to(dev), b, atol=1e-5, rtol=0)
+        per_card = 1 + 2 * cfg.num_layers + 1
     for prog in (engine.decode_program(2), engine.prefill_program(2, 12)):
         assert len(prog._graphs) == len(cards) * len(prog.segments)
         assert prog.replays >= 1
-    assert launched == [cfg.num_layers * len(cards)] * 3
+    assert launched == [per_card * len(cards)] * 3
 
 
 def test_peer_moe_serving_on_one_card_bitwise_stacked(dev):
-    peer_moe_serving_checks([dev] * 4, dev)
+    peer_serving_checks([dev] * 4, dev)
 
 
 def test_peer_moe_serving_across_four_cards(dev):
     cards = peer_cards(4)
     for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
-        peer_moe_serving_checks(devices, cards[0])
+        peer_serving_checks(devices, cards[0])
+
+
+def test_tensor_parallel_serving_on_a_peer_mesh(dev):
+    """Reduced Nemotron-4 (squared ReLU, head dim 192) served dense tensor
+    parallel: a logical device a card on four cards and two a card on
+    two, against the stacked mesh (:func:`peer_serving_checks`); on one
+    card bit for bit."""
+    peer_serving_checks([dev] * 4, dev, "nemotron_4_340b", head_dim=192)
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_serving_checks(devices, cards[0], "nemotron_4_340b",
+                            head_dim=192)
 
 
 def peer_moe_training_checks(devices, dev, dtype: str):

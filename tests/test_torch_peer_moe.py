@@ -264,12 +264,12 @@ def test_expert_tp_cuts_the_ff_dim_and_needs_it_to_divide():
 
 
 def test_place_params_gives_one_tree_a_card():
-    _, _, _, params = carried("mixtral_8x22b")
-    (tree,) = place_params(params, peer_mesh((1, 4)))
+    _, cfg, _, params = carried("mixtral_8x22b")
+    (tree,) = place_params(params, peer_mesh((1, 4)), cfg)
     assert all(a.data_ptr() == b.data_ptr()
                for a, b in zip(leaves(tree), leaves(params)))
     with pytest.raises(ValueError, match="peer mesh"):
-        place_params(params, make_host_mesh((1, 4), device="cpu"))
+        place_params(params, make_host_mesh((1, 4), device="cpu"), cfg)
 
 
 # -- serving ------------------------------------------------------------------
@@ -321,8 +321,8 @@ def test_serve_engine_on_a_peer_mesh_bitwise_stacked(arch):
     assert outs == souts
     assert torch.equal(logits, slogits) and torch.equal(step, sstep)
     # the same from trees placed by the caller
-    _, pouts, plogits, pstep, _ = serve(cfg, place_params(params, peer),
-                                        peer)
+    _, pouts, plogits, pstep, _ = serve(cfg, place_params(params, peer,
+                                                          cfg), peer)
     assert pouts == outs and torch.equal(plogits, logits)
     assert torch.equal(pstep, step)
     # the decode step against the unsharded step and the reference's
@@ -375,9 +375,13 @@ def test_engine_programs_run_two_cards_in_lockstep(monkeypatch,
     """The first run of a program over several cards: one host thread a
     card, each card's body on its own tree, inputs and cache, meeting at
     the ring's steps. Emulated with two "cards" on the CPU (the ring's
-    ``card_of`` ``[0, 0, 1, 1]``): tokens and every card's logits bit for
-    bit the stacked mesh's engine, and card 1's inputs staged from card
-    0's."""
+    ``card_of`` and the placement's layout ``[0, 0, 1, 1]``): each card
+    holds its experts and its cut of the dense leaves, so every card's
+    logits are the same bits and within ``tests/test_torch_peer_tp.py``'s
+    float32 bound (1e-5) of the stacked mesh's engine, whose tokens they
+    give; card 1's inputs are staged from card 0's."""
+    from repro_torch.training import sharding as shd
+
     _, cfg, _, params = carried("mixtral_8x22b", capacity_factor=8.0)
     cpu = torch.device("cpu")
 
@@ -387,22 +391,25 @@ def test_engine_programs_run_two_cards_in_lockstep(monkeypatch,
             self.card_of, self.cards = [0, 0, 1, 1], (cpu, cpu)
 
     monkeypatch.setattr(coll, "PeerRing", TwoCards)
+    monkeypatch.setattr(shd, "_card_layout", lambda mesh, what: (
+        (cpu, cpu), [[0, 1], [2, 3]]))
     monkeypatch.setattr(serving_engine, "GRAPH_LAYERS", graph_layers)
     peer = peer_mesh((1, 4))
     with set_mesh(peer):
         engine = ServeEngine(cfg, params, max_len=16, kv_chunks=4)
-    engine.cards = (cpu, cpu)
-    engine.trees = [place_card(params, held, 4, cpu)
-                    for held in ([0, 1], [2, 3])]
-    engine.params = engine.trees[0]
+    assert engine.cards == (cpu, cpu) and all(c.heads for c in engine.cuts)
     outs, pre, dec, _ = serve_engine(engine, peer)
     stacked = make_host_mesh((1, 4), device="cpu")
     with set_mesh(stacked):
         want = serve_engine(ServeEngine(cfg, params, max_len=16,
                                         kv_chunks=4), stacked)
     assert outs == want[0]
-    assert all(torch.equal(x, want[1][0]) for x in pre)
-    assert all(torch.equal(x, want[2][0]) for x in dec)
+    assert all(torch.equal(x, pre[0]) for x in pre)
+    assert all(torch.equal(x, dec[0]) for x in dec)
+    np.testing.assert_allclose(pre[0].numpy(), want[1][0].numpy(),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dec[0].numpy(), want[2][0].numpy(),
+                               atol=ATOL, rtol=0)
     decode = engine.decode_program(len(PROMPTS))
     assert torch.equal(decode._tokens[1], decode.tokens)
     assert torch.equal(decode._cur_len[1], decode.cur_len)
@@ -415,7 +422,7 @@ def test_serve_engine_refuses_trees_off_the_mesh_cards():
     _, cfg, _, params = carried("mixtral_8x22b")
     peer = peer_mesh((1, 4))
     with set_mesh(peer), pytest.raises(ValueError, match="one on each"):
-        ServeEngine(cfg, place_params(params, peer) * 2, max_len=16)
+        ServeEngine(cfg, place_params(params, peer, cfg) * 2, max_len=16)
 
 
 def test_make_host_mesh_takes_device_or_devices():

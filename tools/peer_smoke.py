@@ -118,31 +118,64 @@ instead (after the topology, names and power limits; TF32 off)::
     python3 tools/peer_smoke.py --moe              # a few minutes
 
 ``make_host_mesh((1, 4), devices=cards)``: each card holds its logical
-device's 2 experts a layer and a replica of the rest, and each MoE
-combine is one peer psum a forward a layer, one ``ring_allgather``
-launch a card. Path S's requests (4 prompts of 512/384/256/128 tokens,
-32 new, greedy), full width:
+device's 2 experts a layer, its 12 of the 48 heads (2 of 8 kv heads)
+and its quarter of the vocabulary, and a replica of the rest; each MoE
+combine and attention's output is one peer psum a forward a layer, one
+``ring_allgather`` launch a card, and the logits one more. Path S's
+requests (4 prompts of 512/384/256/128 tokens, 32 new, greedy), full
+width:
 
 * at 8 layers, from path S's seeded weights (drawn whole on card 0 and
-  placed by the engine): ``generate``'s tokens, the prefill's logits and
-  one decode step's bit for bit one card's stacked path S
-  (``make_host_mesh((1, 4), device=cards[0])`` in the same process),
-  every card's logits the same bits;
+  placed by the engine), against one card's stacked path S
+  (``make_host_mesh((1, 4), device=cards[0])`` in the same process):
+  every card's logits the same bits, the distance from path S's logits
+  and the greedy tokens that agree reported; then the same weights with
+  every expert routed (``top_k`` 8, no discrete choice to flip), every
+  card the same bits and the prefill's and a decode step's logits
+  within TP_BOUND of the stacked run's largest;
 * at the deepest depth the meta reckoning admits (each card's placed
-  weights, its KV cache and its combines' buffers, with MOE_HEADROOM
-  left for graphs and activations; at most 56 layers), the trees drawn
-  layer by layer and placed without a whole model on any card:
-  ``generate`` twice (the same tokens), every card's prefill and decode
-  logits the same bits, the prefill replay and the captured decode step
-  by CUDA events on every card (the slowest), tokens/s of the second
-  ``generate``, ``ring_allgather`` launches a decode replay, each card's
-  peak GiB, and one prefill and one decode replay under the profiler
-  (device ms by kernel over the cards);
+  weights, its KV cache and its psums' and the logits' buffers, with
+  SERVE_HEADROOM left for graphs and activations; at most 56 layers),
+  the trees drawn layer by layer and placed without a whole model on
+  any card: ``generate`` twice (the same tokens), every card's prefill
+  and decode logits the same bits, the prefill replay and the captured
+  decode step by CUDA events on every card (the slowest), tokens/s of
+  the second ``generate``, ``ring_allgather`` launches a decode replay,
+  each card's peak GiB, and one prefill and one decode replay under the
+  profiler (device ms by kernel over the cards);
 * one combine, a peer psum of path S's prefill rows (2048, 6144) and of
   a decode step's (4, 6144) bfloat16 a card: the call and its program's
   replay, against path S's 1.1031-1.4110 ms a layer.
 
 Every reading also goes to ``chiprun_out/peer_moe.json``.
+
+With ``--tp`` it serves Nemotron-4 340B tensor parallel on a peer mesh
+instead (after the topology, names and power limits; TF32 off)::
+
+    python3 tools/peer_smoke.py --tp               # about two minutes
+
+``make_host_mesh((1, 4), devices=cards)``: each card holds its 24 of the
+96 heads (2 of 8 kv heads), its 18432 of the 73728 hidden units and its
+64000 of the 256000 vocabulary rows and columns; one peer psum after the
+embedding and after attention and the MLP a layer, the logits gathered
+once. Path O's requests (4 prompts of 512/384/256/128 tokens, 32 new,
+greedy), full width:
+
+* (a) at TP_CHECK_LAYERS (path O's 4) from path O's seeded weights,
+  against one card's stacked engine in the same process: every card's
+  prefill logits and a decode step's (from the stacked run's token) the
+  same bits, within TP_BOUND of the stacked run's largest, the greedy
+  tokens that agree, the prefill replay and captured decode step beside
+  the stacked ones, ``ring_allgather`` launches a decode replay;
+* (b) at the deepest depth the meta reckoning admits, the trees drawn
+  layer by layer: as ``--moe``'s deep run, and the ring's kernels'
+  device ms a card a psum from the profiler;
+* one prefill psum (2048, 18432) and one decode psum (4, 18432) bfloat16
+  a card: the call and its program's replay beside NCCL's all-reduce of
+  the same operands, the bytes a card takes in at 450 GB/s and the
+  dry-run's modeled term at one NVLink 4 link.
+
+Every reading also goes to ``chiprun_out/peer_tp.json``.
 
 With ``--moe-train`` it trains Mixtral-8x22B expert parallel on a peer
 mesh instead (after the topology, names and power limits; TF32 off)::
@@ -1190,7 +1223,10 @@ def training(cards, smi) -> dict:
 MOE_CHECK_LAYERS = 8
 MOE_PROMPTS = (512, 384, 256, 128)
 MOE_NEW = 32
-MOE_HEADROOM = 10e9
+#: The device memory a card keeps beyond the reckoned weights, caches and
+#: psum and gather buffers when ``--moe`` and ``--tp`` serve at depth (the
+#: graphs' pools, activations, the allocator's slack).
+SERVE_HEADROOM = 10e9
 
 
 def moe_prompts(cfg) -> list[list[int]]:
@@ -1267,9 +1303,10 @@ def moe_times(engine, got: dict, cards) -> dict:
 
 def moe_profile(fn, cards, top: int = 6) -> dict:
     """One call of ``fn`` (after one unprofiled) under ``torch.profiler``:
-    the device ms of every card's kernels summed, their count, and the
-    ``top`` kernels by device ms (a peer kernel's time includes its waits
-    on the other cards)."""
+    the device ms of every card's kernels summed, their count, the ``top``
+    kernels by device ms (a peer kernel's time includes its waits on the
+    other cards), and the ring's kernels' ms (``multipath_dma``'s and
+    ``ring_allgather``'s, prologues included) summed over the cards."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1284,80 +1321,14 @@ def moe_profile(fn, cards, top: int = 6) -> dict:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
+    ring = {"multipath_dma": ("multipath_dma",),
+            "ring_allgather": ("ring_allgather", "ring_peer")}
     return {"device_ms_all_cards": sum(ms for _, ms, _ in rows),
             "kernels": sum(c for *_, c in rows),
-            "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:top]]}
-
-
-def moe_reckoning(cfg, cards) -> dict:
-    """Card 0's bytes at ``L`` layers on the peer mesh, reckoned on meta
-    tensors: its placed weights and KV cache (path S's requests, max_len
-    1024), and its combines' buffers, three times a prefill combine's
-    operand (2048 x 6144 bfloat16) a layer (a ring shift's send and
-    receipt and the gather's replicas); the deepest ``L`` of at most the
-    config's whose bytes leave MOE_HEADROOM of the card."""
-    import dataclasses
-
-    from repro_torch.models import transformer as tfm
-    from repro_torch.training.sharding import place_card
-
-    def card_bytes(layers):
-        c = dataclasses.replace(cfg, num_layers=layers)
-        tree = place_card(tfm.param_shapes(c), [0], len(cards), "meta")
-        spec = tfm.cache_spec(c, max_len=1024, kv_chunks=4)
-        cache = tfm.cache_shapes(c, len(MOE_PROMPTS), spec)
-        weights = sum(t.numel() * t.element_size() for t in leaves(tree))
-        kv = sum(t.numel() * t.element_size() for t in cache.values())
-        combine = 3 * layers * sum(MOE_PROMPTS[:1]) * len(MOE_PROMPTS) \
-            * cfg.d_model * 2
-        return weights, kv, combine
-
-    w0, k0, c0 = card_bytes(0)
-    w1, k1, c1 = card_bytes(1)
-    total = torch.cuda.mem_get_info(cards[0])[1]
-    per_layer = (w1 - w0) + (k1 - k0) + (c1 - c0)
-    fixed = w0 + k0 + c0
-    depth = min(cfg.num_layers,
-                int((total - MOE_HEADROOM - fixed) // per_layer))
-    return {"card_bytes": total, "fixed_bytes": fixed,
-            "weight_bytes_a_layer": w1 - w0, "kv_bytes_a_layer": k1 - k0,
-            "combine_bytes_a_layer": c1 - c0, "layers": depth,
-            "reckoned_bytes": fixed + depth * per_layer}
-
-
-def moe_trees(cfg, cards, seed: int) -> list:
-    """One placed tree a card of ``cfg`` on the peer mesh of ``cards`` (a
-    logical device a card), drawn layer by layer on card 0 from ``seed``
-    (the top-level leaves first, then each layer's block) and copied into
-    each card's part, so no card ever holds the whole model."""
-    import dataclasses
-
-    from repro_torch.models import transformer as tfm
-    from repro_torch.training.sharding import place_card
-    from repro_torch.tree import tree_map
-
-    n, c0 = len(cards), cards[0]
-    trees = [tree_map(lambda t, card=card: torch.empty(
-        t.shape, dtype=t.dtype, device=card), place_card(
-        tfm.param_shapes(cfg), [c], n, "meta"))
-        for c, card in enumerate(cards)]
-    gen = torch.Generator(device=c0).manual_seed(seed)
-    top = tfm.init_params(dataclasses.replace(cfg, num_layers=0),
-                          generator=gen, device=c0)
-    for tree in trees:
-        for key, t in top.items():
-            if key != "layers":
-                tree[key].copy_(t)
-    del top
-    for i in range(cfg.num_layers):
-        layer = tfm.block_init(cfg, generator=gen, device=c0)
-        for c, tree in enumerate(trees):
-            part = place_card(layer, [c], n, c0)     # views on card 0
-            for dst, src in zip(leaves(tree["layers"]), leaves(part)):
-                dst[i].copy_(src)
-        del layer, part
-    sync_all(cards)
-    return trees
+            "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:top]],
+            "by_kernel": {name: sum(ms for k, ms, _ in rows
+                                    if any(p in k for p in prefixes))
+                          for name, prefixes in ring.items()}}
 
 
 def moe_combine(sess, cards, rows: int, d: int,
@@ -1391,8 +1362,19 @@ def program_of_shape(sess, local: tuple):
 
 
 def moe_bitwise(cards, peer) -> dict:
-    """``--moe`` at MOE_CHECK_LAYERS layers: the peer mesh ``peer`` against
-    one card's stacked path S on path S's seeded weights."""
+    """``--moe`` at MOE_CHECK_LAYERS layers on path S's seeded weights: the
+    served model (top 2 of 8 experts) on the peer mesh ``peer`` against
+    one card's stacked path S, every card the same bits, its distance
+    from path S reported (:func:`against_stacked`); then the same weights
+    with every expert routed (``top_k`` 8, the gates the whole softmax),
+    held within TP_BOUND of the stacked run's. Each card holds its
+    attention heads and vocabulary blocks too, so the cards' psums add
+    partial products, and a token whose two top experts are near-tied can
+    take the other one under that rounding: a top-2 choice is not a
+    continuous function of its input, so that token's output moves by
+    O(1) and its neighbours' through attention. Routing every expert
+    leaves no choice to flip and holds the rest of the path to the
+    bound."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1406,37 +1388,50 @@ def moe_bitwise(cards, peer) -> dict:
     prompts = moe_prompts(cfg)
     params = tfm.init_params(cfg, generator=torch.Generator(
         device=c0).manual_seed(0), device=c0)
-    with set_mesh(make_host_mesh((1, 4), device=c0)):
-        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
-        want = moe_serve(engine, prompts, [c0])
-        stacked = moe_times(engine, want, [c0])
-        del engine
-    free(cards)
-    with set_mesh(peer):
-        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
-        got = moe_serve(engine, prompts, cards)
-        out = moe_times(engine, got, cards)
-        out["peak_gib"] = peaks_gib(cards)
-        del engine
-    same = {"tokens": got["outs"] == want["outs"],
-            "prefill logits": torch.equal(got["logits"], want["logits"]),
-            "decode logits": torch.equal(got["step"], want["step"]),
-            "every card's logits": all(
-                torch.equal(t.to(c0), got["logits"])
-                for t in got["prefill_cards"]) and all(
-                torch.equal(t.to(c0), got["step"])
-                for t in got["decode_cards"])}
-    out.update({"bitwise": same, "stacked": stacked})
-    print(f"moe at {MOE_CHECK_LAYERS} layers on {peer} a card: bit for bit "
-          f"one card's stacked path S: {same}; prefill replay "
-          f"{out['prefill_ms']:.2f} ms (one card's "
+
+    def stacked_then_peer(c, timed: bool):
+        with set_mesh(make_host_mesh((1, 4), device=c0)):
+            engine = ServeEngine(c, params, max_len=1024, kv_chunks=4)
+            want = moe_serve(engine, prompts, [c0])
+            stacked = moe_times(engine, want, [c0]) if timed else {}
+            del engine
+        free(cards)
+        with set_mesh(peer):
+            engine = ServeEngine(c, params, max_len=1024, kv_chunks=4)
+            got = moe_serve(engine, prompts, cards)
+            out = against_stacked(engine, got, want, cards)
+            if timed:
+                out.update(moe_times(engine, got, cards))
+                out["peak_gib"] = peaks_gib(cards)
+            del engine
+        free(cards)
+        out["stacked"] = stacked
+        return out
+
+    out = stacked_then_peer(cfg, True)
+    stacked = out["stacked"]
+    every = stacked_then_peer(dataclasses.replace(
+        cfg, top_k=cfg.num_experts), False)
+    out["every_expert_routed"] = every
+    print(f"moe at {MOE_CHECK_LAYERS} layers on {peer} a card: every "
+          f"card the same bits {out['every_card_same_bits']}; against one "
+          f"card's stacked path S max abs err {out['max_abs_err']} (max "
+          f"|logit| {out['max_abs_logit']}); greedy tokens agree in "
+          f"{out['tokens_agree']} of {out['tokens']}; with every expert "
+          f"routed: every card the same bits "
+          f"{every['every_card_same_bits']}, max abs err "
+          f"{every['max_abs_err']} (max |logit| {every['max_abs_logit']}, "
+          f"bound {TP_BOUND} of it: {every['within_bound']}); prefill "
+          f"replay {out['prefill_ms']:.2f} ms (one card's "
           f"{stacked['prefill_ms']:.2f}), captured decode step "
           f"{out['decode_ms']:.2f} ms ({stacked['decode_ms']:.2f}); "
           f"ring_allgather {out['gather_launches_a_decode']} launches a "
           f"decode replay; peak GiB a card {out['peak_gib']}", flush=True)
-    check(all(same.values()), f"moe at {MOE_CHECK_LAYERS} layers differs "
-          f"from one card's stacked path S: {same}")
-    del params, want, got
+    check(out["every_card_same_bits"] and every["every_card_same_bits"]
+          and every["within_bound"], f"moe at {MOE_CHECK_LAYERS} layers: "
+          f"every card the same bits, and with every expert routed within "
+          f"{TP_BOUND} of one card's stacked path S: {out}")
+    del params
     free(cards)
     return out
 
@@ -1448,24 +1443,19 @@ def moe_deep(cards, peer) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import set_mesh
     from repro_torch.serving import ServeEngine
+    from repro_torch.training import sharding as shd
 
     c0 = cards[0]
     full = get_config("mixtral_8x22b")
-    reck = moe_reckoning(full, cards)
+    reck = serve_reckoning(full, peer, cards)
     depth = reck["layers"]
     print(f"moe reckoning (meta tensors, card 0 of 4): "
-          f"{reck['fixed_bytes'] / 1e9:.3f} GB fixed, a layer "
-          f"{reck['weight_bytes_a_layer'] / 1e9:.3f} GB of weights + "
-          f"{reck['kv_bytes_a_layer'] / 1e6:.1f} MB of KV cache + "
-          f"{reck['combine_bytes_a_layer'] / 1e6:.1f} MB of combine "
-          f"buffers; the card {reck['card_bytes'] / 1e9:.2f} GB less "
-          f"{MOE_HEADROOM / 1e9:.0f} GB: {depth} of {full.num_layers} "
-          f"layers ({reck['reckoned_bytes'] / 1e9:.2f} GB reckoned)",
-          flush=True)
+          f"{reck_text(reck, full)}", flush=True)
     cfg = dataclasses.replace(full, num_layers=depth)
     prompts = moe_prompts(cfg)
     t0 = time.perf_counter()
-    trees = moe_trees(cfg, cards, seed=0)
+    trees = placed_trees(cfg, cards, seed=0,
+                         cuts=shd.card_cuts(cfg, peer))
     build_s = time.perf_counter() - t0
     print(f"moe: {depth} layers drawn and placed a card in {build_s:.1f} "
           f"s; GiB a card {peaks_gib(cards)}", flush=True)
@@ -1508,9 +1498,12 @@ def moe_deep(cards, peer) -> dict:
               f"count): {prof['top']}", flush=True)
     check(deep["same_tokens_twice"] and deep["every_card_same_logits"]
           and deep["logits_finite"], f"moe at {depth} layers: {deep}")
-    check(deep["gather_launches_a_decode"] == depth * len(cards),
+    psums = 1 + 2 * depth               # the embedding's, two a layer
+    check(deep["gather_launches_a_decode"] == (psums + 1) * len(cards),
           f"moe: {deep['gather_launches_a_decode']} ring_allgather "
-          f"launches a decode replay, not one a card a layer")
+          f"launches a decode replay, not one a card a psum (the "
+          f"embedding's, attention's and the combine a layer) and one for "
+          f"the logits")
     del trees, got
     free(cards)
     return deep
@@ -1819,7 +1812,7 @@ def moe_train_deep(cards, peer) -> dict:
     opt = moe_train_opt(cfg)
     t0 = time.perf_counter()
     trees = [{"params": p, "opt": init_opt_state(p, opt)}
-             for p in moe_trees(cfg, cards, seed=0)]
+             for p in placed_trees(cfg, cards, seed=0)]
     build_s = time.perf_counter() - t0
     batches = moe_train_batches(cfg, cards[0], 1 + MOE_TRAIN_TIMED)
     step = make_train_step(cfg, TrainStepConfig(), opt, device=cards[0])
@@ -1901,6 +1894,351 @@ PCIE_BYTES_PER_S = 64e9
 #: (``tests/test_torch_health.py::test_chip_schedule_counts``).
 HEALTH_SPEC = "drop@2x2:0-2;degrade@6x4:0-3*0.25;flap@12~2x2:0-1"
 HEALTH_COUNTS = {"retries": 1, "replans": 1, "faults_seen": 7}
+
+
+#: ``--tp``: the layers of the check against one card's stacked run (path
+#: O's), and the logits' bound of ``--moe`` and ``--tp`` against one
+#: card's stacked run: within this share of its largest |logit|
+#: (bfloat16, ``tests/test_torch_peer_tp.py``).
+TP_CHECK_LAYERS = 4
+TP_BOUND = 2e-2
+
+
+def against_stacked(engine, got: dict, want: dict, cards) -> dict:
+    """The peer engine's readings ``got`` (:func:`moe_serve`, just run)
+    against one card's stacked run ``want``: every card's prefill logits
+    the same bits, and a decode step from the stacked run's token (at the
+    same position, after the same prefill) on every card the same bits;
+    both within TP_BOUND of the stacked run's largest |logit|; the greedy
+    tokens counted where they agree."""
+    c0 = cards[0]
+    b, plen = got["toks"].shape
+    decode = engine.decode_program(b)
+    decode.tokens.copy_(want["logits"][:, -1].argmax(-1)[:, None].to(c0))
+    decode.cur_len.fill_(plen)
+    step = decode().clone()
+    step_cards = [t.clone() for t in decode.card_logits]
+    sync_all(cards)
+
+    def err(a, b):
+        return (a.to(c0).float() - b.to(c0).float()).abs().max().item()
+
+    errs = {"prefill": err(got["logits"], want["logits"]),
+            "decode": err(step, want["step"])}
+    tops = {"prefill": want["logits"].float().abs().max().item(),
+            "decode": want["step"].float().abs().max().item()}
+    pairs = [(a, w) for o, wo in zip(got["outs"][0], want["outs"][0])
+             for a, w in zip(o, wo)]
+    return {"max_abs_err": errs, "max_abs_logit": tops,
+            "within_bound": all(errs[k] <= TP_BOUND * tops[k] for k in errs),
+            "every_card_same_bits": all(
+                torch.equal(t.to(c0), got["logits"])
+                for t in got["prefill_cards"]) and all(
+                torch.equal(t.to(c0), step) for t in step_cards),
+            "tokens_agree": sum(a == w for a, w in pairs),
+            "tokens": len(pairs),
+            "first_tokens_agree": [o[0] for o in got["outs"][0]]
+            == [o[0] for o in want["outs"][0]]}
+
+
+def tp_check(cards, peer, smi) -> dict:
+    """``--tp`` (a): Nemotron-4 340B at full width over TP_CHECK_LAYERS
+    layers, path O's seeded weights drawn whole on card 0, one card's
+    stacked engine, then the peer mesh's (the engine places each card's
+    cut): :func:`against_stacked`, the prefill replay and the captured
+    decode step against the stacked ones, ``ring_allgather`` launches a
+    decode replay."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+
+    c0 = cards[0]
+    cfg = dataclasses.replace(get_config("nemotron_4_340b"),
+                              num_layers=TP_CHECK_LAYERS)
+    prompts = moe_prompts(cfg)
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=c0).manual_seed(0), device=c0)
+    engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+    want = moe_serve(engine, prompts, [c0])
+    stacked = moe_times(engine, want, [c0])
+    del engine
+    free(cards)
+    with set_mesh(peer):
+        engine = ServeEngine(cfg, params, max_len=1024, kv_chunks=4)
+        got = moe_serve(engine, prompts, cards)
+        out = against_stacked(engine, got, want, cards)
+        out.update(moe_times(engine, got, cards))
+        out["cuts"] = [str(c) for c in engine.cuts]
+        out["peak_gib"] = peaks_gib(cards)
+        del engine
+    psums = 1 + 2 * TP_CHECK_LAYERS
+    out["stacked"] = stacked
+    print(f"tp at {TP_CHECK_LAYERS} layers on {peer} a card ({smi[0]}): "
+          f"every card the same bits {out['every_card_same_bits']}; "
+          f"against one card's stacked run max abs err "
+          f"{out['max_abs_err']} (max |logit| {out['max_abs_logit']}, "
+          f"bound {TP_BOUND} of it: {out['within_bound']}); greedy tokens "
+          f"agree in {out['tokens_agree']} of {out['tokens']} (first "
+          f"tokens {out['first_tokens_agree']}); prefill replay "
+          f"{out['prefill_ms']:.2f} ms (one card's "
+          f"{stacked['prefill_ms']:.2f}), captured decode step "
+          f"{out['decode_ms']:.2f} ms ({stacked['decode_ms']:.2f}); "
+          f"ring_allgather {out['gather_launches_a_decode']} launches a "
+          f"decode replay; peak GiB a card {out['peak_gib']}", flush=True)
+    check(out["every_card_same_bits"] and out["within_bound"],
+          f"tp at {TP_CHECK_LAYERS} layers: {out}")
+    check(out["gather_launches_a_decode"] == (psums + 1) * len(cards),
+          f"tp: {out['gather_launches_a_decode']} ring_allgather launches "
+          f"a decode replay, not one a card a psum ({psums}) and one for "
+          f"the logits")
+    del params, want, got
+    free(cards)
+    return out
+
+
+def serve_reckoning(cfg, peer, cards) -> dict:
+    """Card 0's bytes at ``L`` layers on the peer mesh, reckoned on meta
+    tensors: its placed weights (``place_card`` of its cut) and KV cache
+    at its kv heads (path O's requests, max_len 1024); its psums' buffers,
+    three times a prefill psum's operand ((2048, d) bfloat16 a card: a
+    ring shift's sends and receipts and the gather's replicas), the
+    embedding's and two a layer; the logits: its vocabulary shard, the
+    gather's replicas, the gathered copy and the engine's two copies (a
+    card's and card 0's). The deepest ``L`` of at most the config's whose
+    bytes leave SERVE_HEADROOM of the card."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import sharding as shd
+
+    rows = len(MOE_PROMPTS) * max(MOE_PROMPTS)
+    n = len(cards)
+
+    def card_bytes(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        cut = shd.card_cuts(c, peer)[0]
+        tree = shd.place_card(tfm.param_shapes(c), list(cut.held),
+                              cut.model, "meta", cut)
+        spec = tfm.cache_spec(c, max_len=1024, kv_chunks=4)
+        cache = tfm.init_cache(c, len(MOE_PROMPTS), spec, device="meta",
+                               cut=cut)
+        weights = sum(t.numel() * t.element_size() for t in leaves(tree))
+        kv = sum(t.numel() * t.element_size() for t in cache.values())
+        psum = 3 * rows * cfg.d_model * 2 * (1 + 2 * layers)
+        logits = rows * cfg.vocab_size * 2 * (1 / n + 4)
+        return weights, kv, psum, logits
+
+    zero, one = card_bytes(0), card_bytes(1)
+    total = torch.cuda.mem_get_info(cards[0])[1]
+    per_layer = sum(one) - sum(zero)
+    depth = min(cfg.num_layers,
+                int((total - SERVE_HEADROOM - sum(zero)) // per_layer))
+    return {"card_bytes": total, "fixed_bytes": sum(zero),
+            "weight_bytes_a_layer": one[0] - zero[0],
+            "kv_bytes_a_layer": one[1] - zero[1],
+            "psum_bytes_a_layer": one[2] - zero[2],
+            "vocab_bytes": zero[0], "logits_bytes": zero[3],
+            "layers": depth,
+            "reckoned_bytes": sum(zero) + depth * per_layer}
+
+
+def reck_text(reck: dict, full) -> str:
+    return (f"{reck['fixed_bytes'] / 1e9:.3f} GB fixed "
+            f"({reck['vocab_bytes'] / 1e9:.3f} GB of vocabulary, "
+            f"{reck['logits_bytes'] / 1e9:.3f} GB of logits), a layer "
+            f"{reck['weight_bytes_a_layer'] / 1e9:.3f} GB of weights + "
+            f"{reck['kv_bytes_a_layer'] / 1e6:.1f} MB of KV cache + "
+            f"{reck['psum_bytes_a_layer'] / 1e6:.1f} MB of psum buffers; "
+            f"the card {reck['card_bytes'] / 1e9:.2f} GB less "
+            f"{SERVE_HEADROOM / 1e9:.0f} GB: {reck['layers']} of "
+            f"{full.num_layers} layers ({reck['reckoned_bytes'] / 1e9:.2f} "
+            f"GB reckoned)")
+
+
+def placed_trees(cfg, cards, seed: int, cuts=None) -> list:
+    """One placed tree a card of ``cfg`` on a peer mesh of ``cards`` (a
+    logical device a card), drawn on card 0 from ``seed`` without the
+    whole model on any card: the top-level leaves first (each card's part
+    copied out, the whole freed), then each layer's block, whose part each
+    card copies into its layer stacks. Each card holds its own experts and,
+    with ``cuts`` (a card's :class:`~repro_torch.models.tensor_parallel.
+    DenseCut` each: the serving layout), its cut of the dense leaves;
+    without, a replica of them (the training layout)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import sharding as shd
+    from repro_torch.tree import tree_map
+
+    n, c0 = len(cards), cards[0]
+    cuts = cuts or [None] * n
+
+    def part(tree, c, device):
+        return shd.place_card(tree, [c], n, device, cuts[c])
+
+    gen = torch.Generator(device=c0).manual_seed(seed)
+    top = tfm.init_params(dataclasses.replace(cfg, num_layers=0),
+                          generator=gen, device=c0)
+    trees = []
+    for c, card in enumerate(cards):
+        mine = part({k: t for k, t in top.items() if k != "layers"}, c, c0)
+        trees.append({k: torch.empty(t.shape, dtype=t.dtype,
+                                     device=card).copy_(t)
+                      for k, t in mine.items()})
+    del top, mine
+    free(cards)
+    shapes = tfm.param_shapes(cfg)
+    for c, (card, tree) in enumerate(zip(cards, trees)):
+        tree["layers"] = tree_map(lambda t, card=card: torch.empty(
+            t.shape, dtype=t.dtype, device=card),
+            part(shapes, c, "meta")["layers"])
+    for i in range(cfg.num_layers):
+        layer = tfm.block_init(cfg, generator=gen, device=c0)
+        for c, tree in enumerate(trees):
+            mine = part({"layers": layer}, c, c0)["layers"]
+            for dst, src in zip(leaves(tree["layers"]), leaves(mine)):
+                dst[i].copy_(src)
+        del layer, mine
+    sync_all(cards)
+    return trees
+
+
+def psum_times(sess, cards, rows: int, d: int) -> dict:
+    """One tensor-parallel psum of ``(rows, d)`` bfloat16 a card
+    (:func:`moe_combine`: the call and its program's replay by CUDA events,
+    the slowest card) beside NCCL's all-reduce of the same operands, the
+    bytes each card takes in (2(n-1)/n of the operand) at
+    NVLINK_BYTES_PER_S, and the dry-run's modeled term for the same wire
+    bytes at one NVLink 4 link (``launch/roofline.py``)."""
+    from repro_torch.launch import roofline
+
+    out = moe_combine(sess, cards, rows, d)
+    gen = torch.Generator(device=cards[0]).manual_seed(4)
+    parts = [torch.randn(rows, d, generator=gen, device=cards[0]).to(
+        torch.bfloat16).to(c) for c in cards]
+    n = len(cards)
+    wire = 2 * (n - 1) / n * rows * d * 2
+    out.update({"nccl_ms": nccl_ms("all_reduce", parts, cards),
+                "bound_ms": wire / NVLINK_BYTES_PER_S * 1e3,
+                "modeled_ms": roofline.roofline_terms(
+                    0, 0, wire)[0]["collective"] * 1e3,
+                "wire_bytes_a_card": wire})
+    return out
+
+
+def tp_deep(cards, peer) -> dict:
+    """``--tp`` (b): at the deepest depth :func:`serve_reckoning` admits,
+    the trees drawn by :func:`placed_trees`: ``generate`` twice, the
+    prefill replay and the captured decode step (CUDA events, slowest card),
+    tokens/s, each card's GiB and one prefill and one decode replay under
+    the profiler, whose ``multipath_dma`` and ``ring_allgather`` device
+    time is the psums' and the gather's wire and wait time."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training import sharding as shd
+
+    c0 = cards[0]
+    full = get_config("nemotron_4_340b")
+    reck = serve_reckoning(full, peer, cards)
+    depth = reck["layers"]
+    print(f"tp reckoning (meta tensors, card 0 of 4): "
+          f"{reck_text(reck, full)}", flush=True)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    prompts = moe_prompts(cfg)
+    t0 = time.perf_counter()
+    trees = placed_trees(cfg, cards, seed=0,
+                         cuts=shd.card_cuts(cfg, peer))
+    build_s = time.perf_counter() - t0
+    print(f"tp: {depth} layers drawn and placed a card in {build_s:.1f} s; "
+          f"GiB a card {peaks_gib(cards)}", flush=True)
+    reset_peaks(cards)
+    with set_mesh(peer):
+        engine = ServeEngine(cfg, trees, max_len=1024, kv_chunks=4)
+        got = moe_serve(engine, prompts, cards)
+        deep = moe_times(engine, got, cards)
+        del engine
+    gen1, gen2 = got["gen_s"]
+    tokens = len(prompts) * MOE_NEW
+    psums = 1 + 2 * depth
+    deep.update({
+        "reckoning": reck, "layers": depth, "build_s": build_s,
+        "generate_s": got["gen_s"], "tokens_per_s": tokens / gen2,
+        "peak_gib": peaks_gib(cards),
+        "same_tokens_twice": got["outs"][0] == got["outs"][1],
+        "every_card_same_logits": all(
+            torch.equal(t.to(c0), got["logits"])
+            for t in got["prefill_cards"]) and all(
+            torch.equal(t.to(c0), got["step"])
+            for t in got["decode_cards"]),
+        "logits_finite": bool(torch.isfinite(got["logits"]).all())})
+    for name in ("prefill", "decode"):
+        prof = deep[f"{name}_profile"]
+        comm = prof["by_kernel"]
+        deep[f"{name}_comm_ms_a_card_a_psum"] = (
+            sum(comm.values()) / len(cards) / (psums + 1))
+    print(f"tp at {depth} layers on 4 cards: prefill replay "
+          f"{deep['prefill_ms']:.2f} ms (cards "
+          f"{[round(x, 2) for x in deep['prefill_ms_cards']]}), captured "
+          f"decode step {deep['decode_ms']:.2f} ms (CUDA events, slowest "
+          f"card), generate of {tokens} tokens {gen2:.3f} s = "
+          f"{deep['tokens_per_s']:.1f} tokens/s (first {gen1:.3f} s, with "
+          f"the captures); ring_allgather "
+          f"{deep['gather_launches_a_decode']} launches a decode replay; "
+          f"graphs {deep['graph_gb']:.2f} GB; peak GiB a card "
+          f"{deep['peak_gib']}; same tokens twice "
+          f"{deep['same_tokens_twice']}, every card's logits the same "
+          f"bits {deep['every_card_same_logits']}", flush=True)
+    for name in ("prefill", "decode"):
+        prof = deep[f"{name}_profile"]
+        print(f"tp at {depth} layers, profiler, one {name} replay: "
+              f"{prof['device_ms_all_cards']:.2f} ms of device time over "
+              f"the 4 cards in {prof['kernels']} kernels; the ring's "
+              f"kernels {prof['by_kernel']} ms over the cards, "
+              f"{deep[name + '_comm_ms_a_card_a_psum']:.4f} ms a card a "
+              f"psum ({psums} psums and the logits' gather); top (name, "
+              f"ms, count): {prof['top']}", flush=True)
+    check(deep["same_tokens_twice"] and deep["every_card_same_logits"]
+          and deep["logits_finite"], f"tp at {depth} layers: {deep}")
+    check(deep["gather_launches_a_decode"] == (psums + 1) * len(cards),
+          f"tp: {deep['gather_launches_a_decode']} ring_allgather "
+          f"launches a decode replay, not one a card a psum and one for "
+          f"the logits")
+    del trees, got
+    free(cards)
+    return deep
+
+
+def tp(cards, smi) -> dict:
+    """``--tp``: Nemotron-4 340B served tensor parallel on a peer mesh a
+    card (module docstring)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    peer = make_host_mesh((1, 4), devices=cards)
+    d = 18432                                 # Nemotron-4 340B's d_model
+    out = {"cards": smi, "check": tp_check(cards, peer, smi),
+           "deep": tp_deep(cards, peer),
+           "psum": [psum_times(peer.session, cards, rows, d)
+                    for rows in (max(MOE_PROMPTS) * len(MOE_PROMPTS),
+                                 len(MOE_PROMPTS))]}
+    for row in out["psum"]:
+        print(f"tp psum, a peer psum of ({row['rows']}, {row['d']}) "
+              f"bfloat16 a card on 4 cards ({smi[0]}): the call "
+              f"{row['call_ms']:.4f} ms, its program's replay "
+              f"{row['replay_ms']:.4f} ms (CUDA events, slowest card); "
+              f"NCCL's all-reduce {row['nccl_ms']} ms; bound "
+              f"{row['bound_ms']:.4f} ms "
+              f"({row['wire_bytes_a_card'] / 1e6:.2f} MB into a card at "
+              f"450 GB/s); the dry-run's modeled term "
+              f"{row['modeled_ms']:.4f} ms (one NVLink 4 link); every card "
+              f"the same bits, max abs vs the float sum "
+              f"{row['max_abs_vs_float_sum']}", flush=True)
+    return out
 
 
 def timed_send(sess, x, src: int, dst: int, cards, **kw):
@@ -2308,6 +2646,9 @@ def main() -> int:
                          "mesh a card instead")
     ap.add_argument("--health", action="store_true",
                     help="run the health ladder across the cards instead")
+    ap.add_argument("--tp", action="store_true",
+                    help="serve Nemotron-4 340B tensor parallel on a peer "
+                         "mesh a card instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
     args = ap.parse_args()
@@ -2337,9 +2678,17 @@ def main() -> int:
                       "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     if (args.sweep or args.collectives or args.training or args.moe
-            or args.moe_train or args.health):
+            or args.moe_train or args.health or args.tp):
         if args.sweep:
             sweep(cards)
+        elif args.tp:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            results = tp(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out", "peer_tp.json"),
+                      "w") as f:
+                json.dump(results, f, indent=1, default=str)
+            print(json.dumps({"tp": results}, default=str), flush=True)
         elif args.health:
             results = health(cards, smi)
             os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
