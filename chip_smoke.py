@@ -532,7 +532,29 @@ What it does, in order (any failed check exits nonzero):
     whose logits are gathered by one more (launches counted exactly);
     every card's logits the same bits and within 2e-2 of path O's largest
     |logit|;
-36. one JSON line ``{"kernels": [...]}``, then as the last line
+36. main path AC, counters set to 0 before each of its two peer runs and
+    read after it: training under dense tensor parallelism on a peer
+    mesh, Llama-3 8B at full width (``remat="full"``, float32 moments,
+    8 x 512 tokens, 2 steps of ``make_train_step``), each peer run held
+    against the unsharded step from the same seed and batches, run just
+    before it and not counted. Four logical devices on the one card, 4
+    layers in bfloat16: ``place_state(state, mesh, cfg)`` cuts nothing
+    (views of the state) and both steps are the unsharded step's bit for
+    bit. Then 2 layers in float32 (TF32 off; in bfloat16 the update's
+    rounding moves parameters beyond path Z's limit), the two-card
+    layout ``[0, 0, 1, 1]`` emulated on the card: each
+    card's state its 16 heads, 4 kv heads, 7168 hidden units and 64128
+    vocabulary rows and columns with their moments (bytes as reckoned
+    from the config); one host thread a card; every psum of the conjugate
+    pairs, of the loss and of the clip norm three ``multipath_dma`` ring
+    shifts and one ``ring_allgather`` launch (one real card), the loss's
+    block
+    log-sum-exps one more gather, attention forward and recompute and
+    its backward a card a layer (launches counted exactly); every card's
+    replicated leaves the same bits, losses and parameters within path
+    Z's limits of the unsharded step (AdamW's ε region counted apart);
+    the step ms of every run;
+37. one JSON line ``{"kernels": [...]}``, then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -6477,7 +6499,7 @@ def peer_moe_training_path(dev, per_path, read_path, smi) -> dict:
 
     def peer_start():
         state = fresh()
-        trees = place_state(state, mesh)
+        trees = place_state(state, mesh, cfg)
         views = all(a.untyped_storage().data_ptr()
                     == b.untyped_storage().data_ptr()
                     for a, b in zip(_leaves(trees[0]), _leaves(state)))
@@ -6490,7 +6512,7 @@ def peer_moe_training_path(dev, per_path, read_path, smi) -> dict:
     losses, step_ms, trees = run(mesh, peer_start)
     read_path("Z")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    got = unplace_state(trees, mesh)["params"]
+    got = unplace_state(trees, mesh, cfg)["params"]
     del trees
     worst, where = 0.0, ""
     for i, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
@@ -6914,21 +6936,37 @@ def peer_health_path(dev, errs, per_path, read_path, smi: str) -> dict:
 AB_CARD_OF = (0, 0, 1, 1)
 
 
-def tp_reckoning(cfg, cut) -> int:
-    """The bytes of a dense decoder's serving tree under ``cut`` (a card's
+def tp_elements(cfg, cut) -> tuple[int, int]:
+    """The elements of a dense decoder's tree under ``cut`` (a card's
     :class:`~repro_torch.models.tensor_parallel.DenseCut`), reckoned from
-    the config alone: each cut dim at ``cut.part`` of its length."""
+    the config alone, each cut dim at ``cut.part`` of its length: (the
+    matrices', in the model's dtype; the float32 norms')."""
     def part(n: int, on: bool) -> int:
         return cut.part(n) if on else n
 
-    d, hd, isz = cfg.d_model, cfg.head_dim_, 2
-    vocab = 2 * part(cfg.vocab_size, cut.vocab) * d * isz
+    d, hd = cfg.d_model, cfg.head_dim_
     mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
-    layer = (2 * d * part(cfg.num_heads, cut.heads) * hd * isz
-             + 2 * d * part(cfg.num_kv_heads, cut.kv) * hd * isz
-             + mats * d * part(cfg.d_ff, cut.ff) * isz
-             + 2 * d * 4)                                 # ln1, ln2
-    return vocab + d * 4 + cfg.num_layers * layer
+    layer = (2 * d * part(cfg.num_heads, cut.heads) * hd
+             + 2 * d * part(cfg.num_kv_heads, cut.kv) * hd
+             + mats * d * part(cfg.d_ff, cut.ff))
+    return (2 * part(cfg.vocab_size, cut.vocab) * d + cfg.num_layers * layer,
+            d + cfg.num_layers * 2 * d)                   # final, ln1, ln2
+
+
+def tp_reckoning(cfg, cut) -> int:
+    """The bytes of a dense decoder's tree under ``cut`` (:func:`tp_elements`:
+    the matrices in the model's dtype, the norms in float32)."""
+    mats, norms = tp_elements(cfg, cut)
+    isz = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return isz * mats + 4 * norms
+
+
+def tp_state_reckoning(cfg, cut, moment_bytes: int) -> int:
+    """The bytes of a dense decoder's train state under ``cut``: the
+    parameters (:func:`tp_reckoning`), two moments of ``moment_bytes`` an
+    element of every parameter and the 4-byte step."""
+    mats, norms = tp_elements(cfg, cut)
+    return tp_reckoning(cfg, cut) + 2 * moment_bytes * (mats + norms) + 4
 
 
 class emulated_cards:
@@ -7128,6 +7166,302 @@ def tensor_parallel_path(dev, per_path, read_path, smi: str,
           f"{b * new / gen2_s:.1f} tokens/s (second call; first "
           f"{gen1_s:.3f} s); peak {peak:.2f} GiB "
           f"({time.perf_counter() - t_path:.1f} s)", flush=True)
+
+
+#: Path AC's depths of Llama-3 8B at full width: the one-card layout's
+#: bitwise check in the config's bfloat16, and the two-card layout's
+#: check in float32 (TF32 off), as ``tools/peer_smoke.py --moe-train``
+#: held its four cards. In bfloat16 path Z's parameter limit cannot hold
+#: across two summation orders: each update rounds to bfloat16, so a
+#: float32 update a few ulps apart lands one bfloat16 step away, and
+#: AdamW moves every element whose |g| is below the bfloat16 noise of
+#: its gradient by up to ±lr (on the CPU at reduced width: of 197,184
+#: elements 6,047 one step apart and 1,303 further).
+AC_LAYERS = 4
+AC_TWO_CARD_LAYERS = 2
+
+
+def tp_step_psums(layers: int) -> int:
+    """The peer psums a card runs in one train step of a dense decoder
+    whose every part is cut, under ``remat="full"``, as the code issues
+    them: the embedding's g, the gold logit's g, f's on the final norm's
+    output and the clip norm's; a layer's two g in the forward, the
+    attention's g again in the recompute (the checkpoint stops its
+    recompute once the tensors the backward saved are back, before the
+    MLP's g, which saves none) and its two f in the backward. The loss's
+    block log-sum-exps are one gather besides (``4 + 5L`` psums, not the
+    ``4 + 6L`` of a recompute run to its end)."""
+    return 4 + 5 * layers
+
+
+def peer_update_diffs(got, want, delta: float, small, lr_sum: float
+                      ) -> dict:
+    """Leaf by leaf, the updated float32 parameters ``got`` of a
+    tensor-parallel step against ``want`` (the unsharded step's) at path
+    Z's limit, within PEER_TRAIN_DELTA_SHARE of ``delta`` (the unsharded
+    update's largest |change|), counting what that limit does not take:
+    ``eps``, elements whose unsharded |g| fell below EPS_CONDITIONED at
+    some step (``small``, AdamW's ε region), held within twice the steps'
+    summed lr; ``beyond``, every other element (none may be). Returns the
+    counts, the largest difference and its leaf."""
+    out = {"worst": 0.0, "where": "", "eps": 0, "beyond": 0,
+           "eps_worst": 0.0, "elements": 0}
+    bound = PEER_TRAIN_DELTA_SHARE * delta
+    for i, (a, b, eps) in enumerate(zip(got, want, small)):
+        diff = (a.float() - b.float()).abs()
+        err = diff.max().item()
+        if err >= out["worst"]:
+            out["worst"], out["where"] = err, f"leaf {i} {tuple(b.shape)}"
+        left = diff > bound
+        held = left & eps & (diff <= 2 * lr_sum)
+        out["eps"] += int(held.sum())
+        if bool(held.any()):
+            out["eps_worst"] = max(out["eps_worst"], diff[held].max().item())
+        out["beyond"] += int((left & ~held).sum())
+        out["elements"] += b.numel()
+    return out
+
+
+def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
+    """Main path AC (phase 36): training under dense tensor parallelism
+    on a peer mesh, Llama-3 8B at full width (``remat="full"``, float32
+    moments, 8 x 512 tokens, 2 steps of ``make_train_step``), each peer
+    run held against the unsharded step run just before it from the same
+    seed and batches (not counted). (1) ``AC_LAYERS`` layers in the
+    config's bfloat16, four logical devices on the card,
+    ``make_host_mesh((1, 4), devices=["cuda:0"] * 4)``: the card holds
+    every device, so ``place_state(state, mesh, cfg)`` cuts nothing
+    (views of the state, bytes as :func:`tp_state_reckoning`) and both
+    steps are the unsharded step's bit for bit: losses, ``grad_norm`` and
+    every parameter (hard check; counted run). (2) ``AC_TWO_CARD_LAYERS``
+    layers in float32, the two-card layout ``AB_CARD_OF`` emulated on
+    the card (:class:`emulated_cards`): each card's state its blocks
+    (bytes as reckoned); two steps, one host thread a card (counted
+    run); every launch counted exactly (:func:`tp_step_psums` psums a
+    step a card, each three ``multipath_dma`` ring shifts and one
+    ``ring_allgather`` launch of the one real card, one more gather for
+    the loss; attention forward and recompute, and its backward, a layer
+    a card); every
+    card's replicated leaves the same bits; losses within
+    PEER_TRAIN_LOSS_RTOL of the unsharded step's and every parameter at
+    path Z's limit but in AdamW's ε region (:func:`peer_update_diffs`;
+    hard checks). Prints the step ms of each run (host clock, synced),
+    the errors and the peak GiB."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import train_step as tsm
+    from repro_torch.tree import leaves_with_paths
+
+    # -- 36. main path AC: training tensor parallel on a peer mesh ---------
+    t_path = time.perf_counter()
+    full = get_config("llama3_8b")
+    check((full.remat, full.dtype, full.d_model, full.optimizer_dtype)
+          == ("full", "bfloat16", 4096, "float32"), f"path AC: not Llama-3 "
+          f"8B at full width: {full}")
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                      moment_dtype=full.optimizer_dtype)
+    ts = TrainStepConfig()
+    batches = family_batches(full, dev, 8, 512, 2)
+    mbytes = torch.empty((), dtype=getattr(torch, opt.moment_dtype)
+                         ).element_size()
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+
+    def fresh(cfg):
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(81), device=dev)
+
+    def run(cfg, mesh, box, small=None) -> tuple[list, list, list, list]:
+        """2 steps of ``cfg`` under ``mesh`` (None: none) from ``box[0]``
+        (the only name on the state, so that each step's old state is
+        freed as it is replaced): losses, grad norms, lrs, step ms; the
+        last state left in ``box``; with ``small`` (a list) the elements
+        of each leaf whose |g| fell below EPS_CONDITIONED at some step put
+        there."""
+        step = make_train_step(cfg, ts, opt, device=dev)
+        losses, norms, lrs, times = [], [], [], []
+        update = tsm._update
+
+        def record(params, grads, opt_state, opt_, **kw):
+            now = [g.abs() < EPS_CONDITIONED for g in _leaves(grads)]
+            small[:] = now if not small else [
+                a | b for a, b in zip(small, now)]
+            return update(params, grads, opt_state, opt_, **kw)
+
+        if small is not None:
+            tsm._update = record
+        try:
+            with set_mesh(mesh):
+                for bt in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    box[0], m = step(box[0], bt)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].clone())
+                    norms.append(m["grad_norm"].clone())
+                    lrs.append(float(m["lr"]))
+                    del m
+        finally:
+            tsm._update = update
+        return losses, norms, lrs, times
+
+    def state_bytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    def unsharded(cfg, small=None):
+        """The unsharded step's run: its losses, norms, lrs and ms, its
+        updated parameters and the update's largest |change|."""
+        box = [fresh(cfg)]
+        first = [t.clone() for t in _leaves(box[0]["params"])]
+        out = run(cfg, None, box, small)
+        want = box[0]["params"]
+        box.clear()
+        delta = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(_leaves(want), first))
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return out, want, delta
+
+    # (1) four logical devices on the card, bfloat16: nothing cut
+    cfg = dataclasses.replace(full, num_layers=AC_LAYERS)
+    (want_losses, want_norms, _, want_ms), want, _ = unsharded(cfg)
+    state = fresh(cfg)
+    trees = shd.place_state(state, mesh, cfg)
+    (cut,) = shd.card_cuts(cfg, mesh)
+    views = all(a.untyped_storage().data_ptr()
+                == b.untyped_storage().data_ptr()
+                for a, b in zip(_leaves(trees[0]), _leaves(state)))
+    reck = tp_state_reckoning(cfg, cut, mbytes)
+    check(len(trees) == 1 and views and not cut.cuts
+          and state_bytes(trees[0]) == reck, f"path AC: the one card's "
+          f"state is not the whole state's views ({cut}, "
+          f"{state_bytes(trees[0])} B against {reck})")
+    del state
+    box = [trees]
+    del trees
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    one_losses, one_norms, _, one_ms = run(cfg, mesh, box)
+    read_path("AC-one")
+    (tree,) = box[0]
+    box.clear()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(one_losses,
+                                                      want_losses))
+               and all(torch.equal(a, b) for a, b in zip(one_norms,
+                                                         want_norms))
+               and all(torch.equal(a, b) for a, b in zip(
+                   _leaves(tree["params"]), _leaves(want))))
+    del tree, want
+    print(f"path AC ({smi}): Llama-3 8B make_train_step under {mesh} on a "
+          f"peer session of 4 logical devices on {dev}, full width, "
+          f"{AC_LAYERS} of 32 layers, remat full, bfloat16, float32 "
+          f"moments, 8 x 512 tokens, 2 steps from place_state: the card "
+          f"holds every device, so nothing is cut ({reck / 1e9:.3f} GB of "
+          f"state, as reckoned, views); losses, grad_norm and parameters "
+          f"bit for bit the unsharded step's: {bitwise}; step ms "
+          f"{[round(t, 2) for t in one_ms]} (unsharded "
+          f"{[round(t, 2) for t in want_ms]}); launches "
+          f"{per_path['AC-one']}", flush=True)
+    check(bitwise, "path AC: the one-card layout's step is not the "
+          "unsharded step bit for bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (2) the two-card layout emulated on the card, float32
+    cfg = dataclasses.replace(full, num_layers=AC_TWO_CARD_LAYERS,
+                              dtype="float32")
+    nl = cfg.num_layers
+    small: list = []
+    (want_losses, want_norms, lrs, want_ms), want, delta = unsharded(
+        cfg, small)
+    lr_sum = sum(lrs)
+    with emulated_cards(AB_CARD_OF, dev):
+        cuts = shd.card_cuts(cfg, mesh)
+        box = [shd.place_state(fresh(cfg), mesh, cfg)]
+        placed = [state_bytes(tree) for tree in box[0]]
+        reck2 = [tp_state_reckoning(cfg, c, mbytes) for c in cuts]
+        check(len(cuts) == 2 and all(c.heads and c.kv and c.ff and c.vocab
+                                     for c in cuts) and placed == reck2,
+              f"path AC: the two-card layout's cuts {cuts} or state bytes "
+              f"{placed} (reckoned {reck2})")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, norms, _, two_ms = run(cfg, mesh, box)
+        read_path("AC-tp")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trees = box[0]
+        box.clear()
+        rep = [[t for path, t in leaves_with_paths(tree)
+                if not shd.is_cut(path, cuts[0])] for tree in trees]
+        replicas = all(torch.equal(a, b) for a, b in zip(*rep))
+        del rep
+        got = shd.unplace_state(trees, mesh, cfg)["params"]
+        del trees
+    psums = tp_step_psums(nl)
+    steps = len(batches)
+    # a ring program launches once a real card (both emulated cards'
+    # parts in one launch); attention runs once a card a layer
+    want_counts = {"multipath_dma": 3 * psums * steps,
+                   "ring_allgather": (psums + 1) * steps,
+                   "flash_attention": 2 * 2 * nl * steps,
+                   "flash_attention_bwd": 2 * nl * steps}
+    got_counts = {k: per_path["AC-tp"].get(k, 0) for k in want_counts}
+    diffs = peer_update_diffs(_leaves(got), _leaves(want), delta, small,
+                              lr_sum)
+    losses = [float(x) for x in losses]
+    want_l = [float(x) for x in want_losses]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+    norm_rel = max(abs(float(a) - float(b)) / float(b)
+                   for a, b in zip(norms, want_norms))
+    del got, want, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path AC: the two-card layout {list(AB_CARD_OF)} emulated on "
+          f"{dev}, {nl} layers in float32 (TF32 off): each card "
+          f"{placed[0] / 1e9:.3f} GB of state (reckoned "
+          f"{reck2[0] / 1e9:.3f}: its 16 of 32 heads, 4 of 8 kv heads, 7168 "
+          f"of 14336 hidden units and 64128 of 128256 vocabulary rows and "
+          f"columns, with their float32 moments); losses {losses} "
+          f"(unsharded {want_l}; largest relative difference "
+          f"{loss_rel:.3g}, limit {PEER_TRAIN_LOSS_RTOL}); grad_norm's "
+          f"largest relative difference {norm_rel:.3g}; parameters' largest "
+          f"difference {diffs['worst']} ({diffs['where']}) against the "
+          f"unsharded update's largest |change| {delta} (limit "
+          f"{PEER_TRAIN_DELTA_SHARE} of it): of {diffs['elements']} "
+          f"elements {diffs['eps']} in AdamW's ε region beyond it (largest "
+          f"{diffs['eps_worst']:.4g}, held within 2 x the summed lr "
+          f"{2 * lr_sum:.4g}), {diffs['beyond']} others beyond; every "
+          f"card's replicated leaves the same bits {replicas}; step ms "
+          f"{[round(t, 2) for t in two_ms]} (unsharded "
+          f"{[round(t, 2) for t in want_ms]}; host clock, synced, the "
+          f"first with the ring's programs built; one host thread a card); "
+          f"launches {got_counts} over {steps} steps ({psums} psums a step "
+          f"a card and the loss's gather); peak {peak:.2f} GiB "
+          f"({time.perf_counter() - t_path:.1f} s)", flush=True)
+    check(got_counts == want_counts, f"path AC's two-card layout launched "
+          f"{got_counts}, not {want_counts}")
+    check(replicas, "path AC: the cards' replicated leaves differ")
+    check(loss_rel <= PEER_TRAIN_LOSS_RTOL and all(
+        math.isfinite(x) for x in losses), f"path AC: losses {losses} vs "
+          f"the unsharded step's {want_l}")
+    check(diffs["beyond"] == 0, f"path AC: {diffs['beyond']} parameters "
+          f"differ beyond {PEER_TRAIN_DELTA_SHARE} of the unsharded update's "
+          f"largest |change| {delta} outside AdamW's ε region ({diffs})")
+    return {"one_card_layers": AC_LAYERS, "one_card_ms": one_ms,
+            "two_card_layers": nl, "two_card_ms": two_ms,
+            "unsharded_ms": want_ms, "peak_gib": peak,
+            "loss_rel": loss_rel, "diffs": diffs, "delta": delta}
 
 
 def main() -> int:
@@ -7436,16 +7770,20 @@ def main() -> int:
     del at_o_out
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tp_training_path(dev, per_path, read_path, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-AB): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-AC): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 36. report --------------------------------------------------------
+    # -- 37. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -47,8 +47,9 @@ every device receives the same bits, those of the stacked mesh's row 0):
   and moved to its device, and the combine is
   ``session.collectives.psum(list)``: one dispatch a data index.
 
-Under autograd on a peer mesh every card computes the whole loss on its
-replica, so the combine's backward is Megatron's conjugate pair
+Under autograd on a peer mesh every card computes the whole loss from
+replicated activations, so the combine's backward is Megatron's
+conjugate pair
 (:class:`PeerCombineFn`, :class:`PeerGatherFn`): around the combine, g
 (forward the card's share of the psum, backward the identity: each of
 the card's rows gets the combine output's cotangent, the same on every
@@ -128,10 +129,11 @@ def card_share(ring, card: int, cut=None):
     the logical devices ``ring.card_of`` puts on ``card``, from the card's
     placed experts, and its share of each combine. ``cut`` (a
     :class:`~repro_torch.models.tensor_parallel.DenseCut`, the serving
-    engine's) says which dense leaves the card's tree holds cut, and the
-    transformer then runs them tensor parallel; None (a train step's
-    share) leaves every dense leaf a replica. Per thread (the lockstep run
-    gives each card a thread of its own)."""
+    engine's or the train step's) says which dense leaves the card's tree
+    holds cut, and the transformer then runs them tensor parallel (under
+    autograd inside the conjugate pair); None leaves every dense leaf a
+    replica. Per thread (the lockstep run gives each card a thread of its
+    own)."""
     prev = getattr(_SHARE, "run", None), getattr(_SHARE, "cut", None)
     _SHARE.run, _SHARE.cut = (ring, card), cut
     try:

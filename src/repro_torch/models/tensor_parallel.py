@@ -32,6 +32,23 @@ psum adds the cards' partials in the activations' dtype, as GSPMD's
 all-reduce of a bfloat16 dot does, and gives every card the same bits
 (:func:`~repro_torch.models.moe_dist.share_psum`). Indices are Python
 ints and every pick a slice, so a share records into a CUDA graph.
+
+A train step's card shares (:func:`~repro_torch.training.sharding.
+place_state` with a config) run the same cuts under autograd. Every card
+computes the whole loss from replicated activations, so each cut region
+stands inside Megatron's conjugate pair: g (:func:`psum`, forward the
+card's share of ONE peer psum, backward the identity) after its
+row-parallel product, f (:func:`enter`, forward the identity, backward
+ONE peer psum of the card's cotangents, added in the activations'
+dtype) on what it reads: the normed input of the card's heads, hidden
+units and vocabulary blocks, and the replicated ``wk``/``wv`` whose kv
+heads a card's q heads read (each card's gradient of them holds only
+its heads' part). The loss over a vocabulary cut (:func:`vocab_nll`)
+gathers no logits: each card's block log-sum-exps go to every card in
+ONE all-gather of ``(B·S)`` floats a block, and the gold logit is ONE g
+psum. Both Functions keep the share's ring and card and re-enter it on
+the thread that runs their backward (on CUDA autograd's own thread a
+device), as :class:`~repro_torch.models.moe_dist.PeerGatherFn` does.
 """
 
 from __future__ import annotations
@@ -92,7 +109,7 @@ def dense_cut(cfg: ArchConfig, held, model: int) -> DenseCut:
 
 def in_force() -> DenseCut | None:
     """The cut of the card share in force on this thread, where it cuts
-    anything; else None (no share, a training share, a card holding
+    anything; else None (no share, a share with no cut, a card holding
     every device)."""
     share = moe_dist.current_share()
     if share is None or share[2] is None or not share[2].cuts:
@@ -100,11 +117,61 @@ def in_force() -> DenseCut | None:
     return share[2]
 
 
+class PsumFn(torch.autograd.Function):
+    """g: forward the card's share of ONE peer psum over ``ring``, the sum
+    of every card's ``x`` (the same bits on every card); backward the
+    identity (what follows is replicated, so the cotangent is every
+    card's)."""
+
+    @staticmethod
+    def forward(ctx, ring, card: int, x: torch.Tensor) -> torch.Tensor:
+        return moe_dist.share_psum(ring, card, x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return None, None, grad
+
+
+class EnterFn(torch.autograd.Function):
+    """f: forward the identity of each of ``xs``; backward ONE peer psum
+    over ``ring`` of their cotangents, flattened into one operand in the
+    first's dtype (the activations'), so that each card's gradients hold
+    every card's part. Re-enters the card on the thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, ring, card: int, *xs: torch.Tensor):
+        ctx.run = (ring, card)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        dt = grads[0].dtype
+        flat = torch.cat([g.reshape(-1).to(dt) for g in grads])
+        with moe_dist._entered(*ctx.run):
+            total = moe_dist.share_psum(*ctx.run, flat).clone()
+        out, off = [], 0
+        for g in grads:
+            out.append(total[off:off + g.numel()].view(g.shape).to(g.dtype))
+            off += g.numel()
+        return (None, None, *out)
+
+
 def psum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every card's ``x``: the card's share of ONE peer psum
-    over the share's ring, the same bits on every card."""
+    """The sum of every card's ``x``: g, the card's share of ONE peer psum
+    over the share's ring, the same bits on every card (its backward the
+    identity)."""
     ring, card, _ = moe_dist.current_share()
-    return moe_dist.share_psum(ring, card, x)
+    return PsumFn.apply(ring, card, x)
+
+
+def enter(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """f on what a cut region reads: ``xs`` themselves, whose gradients
+    are summed over the cards by ONE peer psum in the backward; ``xs``
+    as they are where no gradient is taken."""
+    if not torch.is_grad_enabled():
+        return xs
+    ring, card, _ = moe_dist.current_share()
+    return EnterFn.apply(ring, card, *xs)
 
 
 def heads(cfg: ArchConfig, cut: DenseCut | None
@@ -173,3 +240,54 @@ def gather_vocab(logits: torch.Tensor, cut: DenseCut) -> torch.Tensor:
     full = ring.gather(shards)[cut.held[0]]         # (model, rows, vb)
     return full.permute(1, 0, 2).reshape(
         logits.shape[:-1] + (ring.n * vb,))
+
+
+class BlockGatherFn(torch.autograd.Function):
+    """Every model-axis device's block row ``(B, S)`` on every card: the
+    card's rows ``rows`` (one a held device, in order) gathered with ONE
+    all-gather over ``ring`` into ``(model, B, S)`` (a copy). Backward:
+    each of the card's rows its own slice of the cotangent (every card
+    computes the same loss from the gather, so no sum is needed)."""
+
+    @staticmethod
+    def forward(ctx, ring, card: int, held: tuple, *rows: torch.Tensor):
+        ctx.held = held
+        shards = [None] * ring.n
+        for d, x in zip(held, rows):
+            shards[d] = x.reshape(1, -1)
+        full = ring.gather(shards)[held[0]]             # (model, 1, B·S)
+        return full.reshape((ring.n,) + rows[0].shape).clone()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (None, None, None, *(grad[d] for d in ctx.held))
+
+
+def vocab_nll(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+              cut: DenseCut, vocab: int) -> torch.Tensor:
+    """The float32 NLL ``(B, S)`` of ``labels`` under the logits ``h @
+    head`` over the whole vocabulary, from the card's vocabulary blocks
+    ``head`` ``(d, part(V))`` alone: no ``(B, S, V)`` logits are
+    gathered. Each block's row log-sum-exp goes to every card by ONE
+    all-gather (:class:`BlockGatherFn`), and every card takes the
+    log-sum-exp over the blocks in device order (the same bits on every
+    card; within float rounding of one log-sum-exp over ``V``); the gold
+    logit is the card's where the label falls in its blocks, else 0,
+    summed by ONE g psum (exact: one card adds it, the others zeros).
+    ``h`` enters through f."""
+    ring, card, _ = moe_dist.current_share()
+    (h,) = enter(h)
+    lf = (h @ head).float()
+    vb = vocab // cut.model
+    lab = labels.long()
+    blocks, gold = [], None
+    for i, d in enumerate(cut.held):
+        block = lf[..., i * vb:(i + 1) * vb]
+        blocks.append(torch.logsumexp(block, dim=-1))
+        inside = (lab >= d * vb) & (lab < (d + 1) * vb)
+        pick = torch.gather(block, -1, torch.where(
+            inside, lab - d * vb, 0)[..., None])[..., 0]
+        mine = torch.where(inside, pick, torch.zeros((), device=pick.device))
+        gold = mine if gold is None else gold + mine
+    every = BlockGatherFn.apply(ring, card, cut.held, *blocks)
+    return torch.logsumexp(every, dim=0) - psum(gold)

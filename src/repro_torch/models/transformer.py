@@ -57,15 +57,18 @@ preserved: the model draws no random numbers, and reading the RNG state
 would break graph capture); inside a card's share of a peer mesh's step
 the recompute runs in that share too (:func:`~.moe_dist.in_this_share`).
 
-Inside a card's share of a peer mesh's serving program whose
+Inside a card's share of a peer mesh's program whose
 :class:`~.tensor_parallel.DenseCut` cuts dense leaves (the card's tree of
-:func:`~repro_torch.training.sharding.place_params` with a config), the
-embedding, attention, dense MLP, shared expert and head run tensor
-parallel (:mod:`.tensor_parallel`): the card's heads, hidden units and
-vocabulary blocks, one peer psum after each of the embedding, the
-attention's ``wo`` and the MLP's ``w2``, and one all-gather of the
-logits; its decode cache (:func:`init_cache` with the card's ``cut``)
-holds only the kv heads its attention reads.
+:func:`~repro_torch.training.sharding.place_params` or ``place_state``
+with a config), the embedding, attention, dense MLP, shared expert and
+head run tensor parallel (:mod:`.tensor_parallel`): the card's heads,
+hidden units and vocabulary blocks, one peer psum (g) after each of the
+embedding, the attention's ``wo`` and the MLP's ``w2``, and one
+all-gather of the logits; its decode cache (:func:`init_cache` with the
+card's ``cut``) holds only the kv heads its attention reads. Under
+autograd each cut region's input passes f (its backward one peer psum),
+and :func:`loss_fn` takes the NLL from the card's vocabulary blocks
+without gathering the logits.
 """
 
 from __future__ import annotations
@@ -251,6 +254,14 @@ def _attention_full(x, ap, cfg: ArchConfig, window: int, positions,
     b, s, _ = x.shape
     hd = cfg.head_dim_
     cut = tp.in_force()
+    if cut is not None and cut.heads:
+        # f on what the card's heads read: x, and wk/wv where they stay
+        # replicas of which its q heads read only some kv heads
+        if cut.kv:
+            (x,) = tp.enter(x)
+        else:
+            x, wk, wv = tp.enter(x, ap["wk"], ap["wv"])
+            ap = {**ap, "wk": wk, "wv": wv}
     q, k, v = attention_qkv(x, ap, cfg, positions, cut)
     o = blockwise_attention(q, k, v, causal=cfg.causal, window=window,
                             scale=hd ** -0.5)
@@ -268,7 +279,8 @@ def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
     one psum through the mesh's session) when a mesh with a model axis
     over 1 is ambient, else :func:`~.moe.moe_apply`. Returns (out, aux);
     aux is 0 for a dense MLP. Under a dense cut the card's hidden units of
-    the dense MLP or the shared expert, and one psum of their products."""
+    the dense MLP or the shared expert, between f on their input and one
+    psum (g) of their products."""
     cut = tp.in_force()
     if cfg.num_experts:
         flat = x.reshape(-1, x.shape[-1])
@@ -279,17 +291,23 @@ def _ffn(x, lp, cfg: ArchConfig, dropless: bool = False):
         if res is not None:
             out, aux = res
             if "shared" in lp["moe"]:
-                sh = mlp_apply(flat, lp["moe"]["shared"], cfg.mlp)
-                out = out + (tp.psum(sh) if cut is not None and cut.shared
-                             else sh)
+                if cut is not None and cut.shared:
+                    (xs,) = tp.enter(flat)
+                    sh = tp.psum(mlp_apply(xs, lp["moe"]["shared"],
+                                           cfg.mlp))
+                else:
+                    sh = mlp_apply(flat, lp["moe"]["shared"], cfg.mlp)
+                out = out + sh
         else:
             out, aux = moe_lib.moe_apply(
                 flat, lp["moe"], top_k=cfg.top_k, kind=cfg.mlp,
                 capacity_factor=cfg.capacity_factor, dropless=dropless)
         return out.reshape(x.shape), aux
-    out = mlp_apply(x, lp["mlp"], cfg.mlp)
     if cut is not None and cut.ff:
-        out = tp.psum(out)
+        (xf,) = tp.enter(x)
+        out = tp.psum(mlp_apply(xf, lp["mlp"], cfg.mlp))
+    else:
+        out = mlp_apply(x, lp["mlp"], cfg.mlp)
     return out, torch.zeros((), device=x.device)
 
 
@@ -345,6 +363,16 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
     features (B, S, frontend_dim).
 
     Returns (logits (B, S, V), aux_loss)."""
+    x, aux = hidden_states(params, cfg, batch)
+    if cfg.decoder:
+        return head_logits(params, x), aux
+    return rms_norm(x, params["final_norm"]) @ params["head"], aux
+
+
+def hidden_states(params: Params, cfg: ArchConfig, batch: dict,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The last layer's output ``(B, S, d)`` of :func:`forward` (before
+    the final norm) and the summed auxiliary loss."""
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
@@ -360,9 +388,7 @@ def forward(params: Params, cfg: ArchConfig, batch: dict,
         else:
             x, a = block_apply(x, lp, cfg, window, positions)
         aux = aux + a
-    if cfg.decoder:
-        return head_logits(params, x), aux
-    return rms_norm(x, params["final_norm"]) @ params["head"], aux
+    return x, aux
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
@@ -371,13 +397,21 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
     a decoder, the frame's unit for an encoder), from float32 log-sum-exps
     of the logits, plus ``aux_coef`` × the auxiliary loss. batch: tokens
     (or features), labels (B, S) int and an optional float mask (B, S).
-    Nothing is read back to the host."""
-    logits, aux = forward(params, cfg, batch)
+    Nothing is read back to the host. Under a vocabulary cut the card's
+    blocks give the NLL without a gather of the logits
+    (:func:`~.tensor_parallel.vocab_nll`)."""
     labels = batch["labels"]
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    cut = tp.in_force()
+    if cut is not None and cut.vocab:
+        x, aux = hidden_states(params, cfg, batch)
+        nll = tp.vocab_nll(rms_norm(x, params["final_norm"]),
+                           params["lm_head"], labels, cut, cfg.vocab_size)
+    else:
+        logits, aux = forward(params, cfg, batch)
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        nll = lse - gold
     mask = batch.get("mask")
     if mask is not None:
         nll = nll * mask

@@ -82,7 +82,6 @@ from repro_torch.launch.mesh import ambient_mesh, is_peer, set_mesh
 from repro_torch.models import moe_dist
 from repro_torch.models import transformer as tfm
 from repro_torch.training import sharding as shd
-from repro_torch.tree import leaves_with_paths
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.comm.capture import CapturedStep
@@ -439,7 +438,9 @@ class ServeEngine:
             self.cuts = shd.card_cuts(cfg, mesh)
             if isinstance(params, (list, tuple)):
                 self.trees = list(params)
-                self._check_placed(mesh)
+                shd.check_placed(self.trees, mesh, cfg,
+                                 tfm.param_shapes(cfg),
+                                 "place_params(params, mesh, cfg)")
             else:
                 self.trees = shd.place_params(params, mesh, cfg)
         self.params = self.trees[0]
@@ -447,31 +448,6 @@ class ServeEngine:
         self._decodes: dict[int, DecodeProgram] = {}
         self._prefills: collections.OrderedDict[
             tuple[int, int], PrefillProgram] = collections.OrderedDict()
-
-    def _check_placed(self, mesh: "LogicalMesh") -> None:
-        """Raise ``ValueError`` unless the caller's trees are one a card,
-        on the mesh's cards, each cut as :func:`~repro_torch.training.
-        sharding.place_params` cuts that card's (whole dense leaves on a
-        card that holds a cut of them raise)."""
-        held = [str(t["embed"].device) for t in self.trees]
-        if held != [str(c) for c in self.cards]:
-            raise ValueError(f"placed trees on {held}, not one on each "
-                             f"of the peer mesh's cards")
-        _, helds = shd._card_layout(mesh, "ServeEngine")
-        model = mesh.shape.get("model", 1)
-        for card, (tree, cut, devs) in enumerate(zip(self.trees, self.cuts,
-                                                     helds)):
-            want = dict(leaves_with_paths(shd.place_card(
-                tfm.param_shapes(self.cfg), devs, model, "meta", cut)))
-            got = dict(leaves_with_paths(tree))
-            bad = sorted("/".join(path) for path in want.keys() | got.keys()
-                         if path not in want or path not in got
-                         or got[path].shape != want[path].shape)
-            if bad:
-                raise ValueError(
-                    f"card {card}'s tree differs from its placement at "
-                    f"{bad[:4]}: trees on this peer mesh must be placed as "
-                    f"place_params(params, mesh, cfg) places them")
 
     def _drain_health(self) -> None:
         """Fold the comm session's pending health events into

@@ -25,11 +25,11 @@ devices, :func:`shard_tree` lays each leaf out as the ``(n, ...)`` stack
 of the mesh's ``n`` logical devices' local shards (row-major over the
 mesh axes) and :func:`unshard_tree` puts the whole back. On a peer mesh
 (``make_host_mesh(..., devices=[...])``), :func:`place_params` gives one
-tree a card: its logical devices' experts and, for serving, its blocks of
-the dense leaves the model axis cuts (whole heads, hidden units and
-vocabulary blocks only, :func:`~repro_torch.models.tensor_parallel.
-dense_cut`), and a replica of the rest; :func:`place_state` places a
-train state with its dense leaves replicated.
+tree a card: its logical devices' experts, its blocks of the dense
+leaves the model axis cuts (whole heads, hidden units and vocabulary
+blocks only, :func:`~repro_torch.models.tensor_parallel.dense_cut`), and
+a replica of the rest; :func:`place_state` places a train state the
+same way, each AdamW moment cut as its parameter.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import LogicalMesh
 from repro_torch.models.pspec import P, PartitionSpec
 from repro_torch.models.tensor_parallel import DenseCut, dense_cut
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves, leaves_with_paths
 
 
 def dp_axes(mesh: LogicalMesh) -> tuple[str, ...]:
@@ -393,12 +393,14 @@ def cut_dense(w: torch.Tensor, dim: int, held: list[int],
 
 def place_card(params, held: list[int], model: int, device,
                cut: DenseCut | None = None):
-    """One card's tree of ``params``: the expert leaves (``w1``, ``w3``,
-    ``w2`` under ``moe``, not ``shared``) cut to the model-axis devices
-    ``held`` (:func:`cut_experts`); with ``cut`` (a serving tree's) the
-    dense leaves it cuts cut to the same devices (:func:`dense_dim`,
-    :func:`cut_dense`); every other leaf a replica, all on ``device``. A
-    leaf already there stays a view where its cut is one run."""
+    """One card's tree of ``params`` (or of a train state, whose moments
+    sit at their parameters' paths under ``m``/``v``): the expert leaves
+    (``w1``, ``w3``, ``w2`` under ``moe``, not ``shared``) cut to the
+    model-axis devices ``held`` (:func:`cut_experts`); with ``cut`` (the
+    card's :func:`card_cuts`) the dense leaves it cuts cut to the same
+    devices (:func:`dense_dim`, :func:`cut_dense`); every other leaf a
+    replica, all on ``device``. A leaf already there stays a view where
+    its cut is one run."""
     def place(path, x):
         if is_expert(path):
             x = cut_experts(x, path[-1], held, model)
@@ -425,8 +427,9 @@ def _card_layout(mesh: LogicalMesh, what: str):
 
 
 def card_cuts(cfg: ArchConfig, mesh: LogicalMesh) -> list[DenseCut]:
-    """The serving layout of a peer mesh: each card's :class:`~repro_torch.
-    models.tensor_parallel.DenseCut` (its cards in first-use order)."""
+    """The layout of a peer mesh, in serving and training: each card's
+    :class:`~repro_torch.models.tensor_parallel.DenseCut` (its cards in
+    first-use order)."""
     _, helds = _card_layout(mesh, "card_cuts")
     model = mesh.shape.get("model", 1)
     return [dense_cut(cfg, held, model) for held in helds]
@@ -438,13 +441,12 @@ def place_params(params, mesh: LogicalMesh, cfg: ArchConfig) -> list:
     :func:`place_card` of the logical devices that card holds.
 
     Every card holds its own experts and only its blocks of the dense
-    leaves its :func:`card_cuts` cut (the serving layout): the
-    vocabulary, whole heads, the dense MLP's and the shared expert's
-    hidden units, where the model axis divides them, which the card runs
-    tensor parallel (:mod:`~repro_torch.models.tensor_parallel`). On a
-    card that holds every logical device, and for norms, routers and
-    Mamba's and RWKV-6's mixers on any card, the leaves stay whole
-    replicas (:func:`place_state` keeps every dense leaf whole). On the
+    leaves its :func:`card_cuts` cut: the vocabulary, whole heads, the
+    dense MLP's and the shared expert's hidden units, where the model
+    axis divides them, which the card runs tensor parallel
+    (:mod:`~repro_torch.models.tensor_parallel`). On a card that holds
+    every logical device, and for norms, routers and Mamba's and
+    RWKV-6's mixers on any card, the leaves stay whole replicas. On the
     card that already holds a leaf, a cut of one run of devices (or
     the whole leaf) stays a view: the serving engine only reads it, and a
     train step's update is functional (new tensors), so neither writes
@@ -455,13 +457,14 @@ def place_params(params, mesh: LogicalMesh, cfg: ArchConfig) -> list:
             for card, held, cut in zip(cards, helds, card_cuts(cfg, mesh))]
 
 
-def place_state(state, mesh: LogicalMesh) -> list:
-    """A train state (``{"params", "opt"}``) placed on a peer mesh: one
-    tree a card, as :func:`place_params` places the parameters, with the
-    AdamW moments ``m`` and ``v`` cut exactly as their parameters
-    (:func:`place_card`: a card's own experts' moments, a replica of the
-    rest) and ``step`` replicated. int8 moments raise ``ValueError``: each
-    is quantized with one absmax scale over the whole tensor, which a
+def place_state(state, mesh: LogicalMesh, cfg: ArchConfig) -> list:
+    """A train state (``{"params", "opt"}``) of ``cfg`` placed on a peer
+    mesh: one tree a card, as :func:`place_params` places the parameters
+    (the card's experts and its :func:`card_cuts` blocks of the dense
+    leaves, a replica of the rest), with the AdamW moments ``m`` and
+    ``v`` cut exactly as their parameters (:func:`place_card`) and
+    ``step`` replicated. int8 moments raise ``ValueError``: each is
+    quantized with one absmax scale over the whole tensor, which a
     card's cut would not share, so the cards' updates would leave the
     stacked step's."""
     if any(path[-1] in ("q", "scale")
@@ -473,12 +476,11 @@ def place_state(state, mesh: LogicalMesh) -> list:
             "or bfloat16 moments")
     cards, helds = _card_layout(mesh, "place_state")
     model = mesh.shape.get("model", 1)
-    return [place_card(state, held, model, card)
-            for card, held in zip(cards, helds)]
+    return [place_card(state, held, model, card, cut)
+            for card, held, cut in zip(cards, helds, card_cuts(cfg, mesh))]
 
 
-def unplace_state(trees: list, mesh: LogicalMesh,
-                  cfg: ArchConfig | None = None):
+def unplace_state(trees: list, mesh: LogicalMesh, cfg: ArchConfig):
     """The whole tree back from one tree a card of ``mesh`` (the inverse
     of :func:`place_state`, or of :func:`place_params` for parameters,
     given the same ``cfg``): each cut leaf, expert or dense, the cards'
@@ -489,9 +491,43 @@ def unplace_state(trees: list, mesh: LogicalMesh,
         raise ValueError(f"{mesh} has {len(cards)} cards, got "
                          f"{len(trees)} trees")
     model = mesh.shape.get("model", 1)
-    cuts = (card_cuts(cfg, mesh) if cfg is not None
-            else [None] * len(cards))
-    return _uncut_tree(trees, helds, model, cards[0], (), cuts=cuts)
+    return _uncut_tree(trees, helds, model, cards[0], (),
+                       cuts=card_cuts(cfg, mesh))
+
+
+def check_placed(trees: list, mesh: LogicalMesh, cfg: ArchConfig, shapes,
+                 what: str) -> None:
+    """Raise ``ValueError`` unless ``trees`` are one a card of the peer
+    ``mesh``, on its cards, each cut as :func:`place_card` cuts
+    ``shapes`` (the whole tree's meta tensors) for that card under its
+    :func:`card_cuts` cut: as ``what`` (the placing call) places them.
+    The layout is said by the placement, never guessed from a shape."""
+    cards, helds = _card_layout(mesh, what)
+    on = [str(leaves(t)[0].device) for t in trees]
+    if on != [str(c) for c in cards]:
+        raise ValueError(f"placed trees on {on}, not one on each of the "
+                         f"peer mesh's cards")
+    model = mesh.shape.get("model", 1)
+    for card, (tree, held, cut) in enumerate(zip(trees, helds,
+                                                 card_cuts(cfg, mesh))):
+        want = dict(leaves_with_paths(place_card(shapes, held, model,
+                                                 "meta", cut)))
+        got = dict(leaves_with_paths(tree))
+        bad = sorted("/".join(path) for path in want.keys() | got.keys()
+                     if path not in want or path not in got
+                     or got[path].shape != want[path].shape)
+        if bad:
+            raise ValueError(
+                f"card {card}'s tree differs from its placement at "
+                f"{bad[:4]}: trees on this peer mesh must be placed as "
+                f"{what} places them")
+
+
+def is_cut(path: tuple, cut: DenseCut | None) -> bool:
+    """Whether a card's tree holds only its part of the leaf at ``path``
+    (a key tuple) under ``cut``: an expert weight, or a dense leaf the
+    cut cuts (:func:`dense_dim`)."""
+    return is_expert(path) or dense_dim(path, cut) is not None
 
 
 def _uncut_tree(parts: list, helds: list, model: int, device,

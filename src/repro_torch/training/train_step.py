@@ -26,12 +26,17 @@ one logical device a card): the state is then one replica a device
 card, and the results are the stacked session's bit for bit.
 
 Under an ambient peer mesh (``make_host_mesh(..., devices=[...])``)
-:func:`make_train_step` trains a MoE model expert parallel: each card
-holds its own experts, their gradients and AdamW moments, and a replica
-of every other leaf (:func:`~repro_torch.training.sharding.place_state`),
-and runs its replica of the loss inside its card share
-(:func:`~repro_torch.models.moe_dist.card_share`), every MoE combine and
-its backward a peer psum over the cards; one host thread a card.
+:func:`make_train_step` trains expert and tensor parallel: each card
+holds its own experts and its blocks of the dense leaves the model axis
+cuts (whole heads, hidden units, vocabulary blocks), with their
+gradients and AdamW moments, and a replica of every other leaf
+(:func:`~repro_torch.training.sharding.place_state`), and runs its share
+of the loss inside its card share
+(:func:`~repro_torch.models.moe_dist.card_share` with its
+:class:`~repro_torch.models.tensor_parallel.DenseCut`): every MoE
+combine and tensor-parallel psum and their backwards peer psums over
+the cards, the loss from the cards' vocabulary blocks; one host thread a
+card.
 
 Every family trains, the audio encoder too (a batch of float32
 ``features`` and ``labels`` in place of ``tokens``; the captured step's
@@ -130,14 +135,17 @@ def _update(params, grads, opt_state, opt: OptimConfig, **kw):
         return apply_updates(params, grads, opt_state, opt, **kw)
 
 
-def _peer_norm(grads, ring, card: int) -> torch.Tensor:
+def _peer_norm(grads, ring, card: int, cut) -> torch.Tensor:
     """The global gradient norm of a peer mesh's step, from card ``card``'s
-    tree: each leaf's float32 sum of squares, its experts' summed over the
-    cards by ONE peer psum over ``ring`` (of one element a leaf: the same
-    bits on every card), then every leaf's added in leaf order, as
+    tree under its dense ``cut``: each leaf's float32 sum of squares,
+    every cut leaf's (expert or dense, :func:`~repro_torch.training.
+    sharding.is_cut`) summed over the cards by ONE peer psum over
+    ``ring`` (of one element a leaf: the same bits on every card), then
+    every leaf's added in leaf order, as
     :func:`~repro_torch.optim.adamw.global_norm` adds them (on one card,
     its bits)."""
-    sqs = [(shd.is_expert(path), torch.sum(torch.square(g.to(torch.float32))))
+    sqs = [(shd.is_cut(path, cut),
+            torch.sum(torch.square(g.to(torch.float32))))
            for path, g in leaves_with_paths(grads)]
     own = [sq for mine, sq in sqs if mine]
     summed = iter(moe_dist.share_psum(ring, card, torch.stack(own)).unbind(0)
@@ -149,14 +157,19 @@ def _peer_norm(grads, ring, card: int) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _make_peer_step(grads_of: Callable, opt: OptimConfig) -> Callable:
+def _make_peer_step(grads_of: Callable, opt: OptimConfig,
+                    cfg: ArchConfig) -> Callable:
     """``step(trees, batch, mesh)``: :func:`make_train_step`'s step on the
     peer mesh ``mesh``. Each card's share runs its forward and backward
-    (``grads_of``) inside :func:`~repro_torch.models.moe_dist.card_share`,
-    then the norm over the cards (:func:`_peer_norm`) and AdamW on its own
+    (``grads_of``) inside :func:`~repro_torch.models.moe_dist.card_share`
+    under its :func:`~repro_torch.training.sharding.card_cuts` cut, then
+    the norm over the cards (:func:`_peer_norm`) and AdamW on its own
     tree; one card directly, several one host thread a card in lockstep
     over the session's ring (:class:`~repro_torch.comm.collectives.
-    LockstepRing`), begun once a step."""
+    LockstepRing`), begun once a step, each card's backward on its own
+    thread (autograd's threads a device off: two cards on one device
+    would otherwise share one, and one card's psum would wait on the
+    other's, queued behind it)."""
     rings: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
     def step(trees, batch, mesh):
@@ -165,21 +178,22 @@ def _make_peer_step(grads_of: Callable, opt: OptimConfig) -> Callable:
         if ring is None:
             ring = rings[session] = coll.PeerRing(session.engine)
         if isinstance(trees, dict):
-            trees = shd.place_state(trees, mesh)
-        cards = ring.cards
-        if len(trees) != len(cards):
-            raise ValueError(f"a peer mesh's step takes one tree a card "
-                             f"({len(cards)}), got {len(trees)}")
+            trees = shd.place_state(trees, mesh, cfg)
+        shd.check_placed(trees, mesh, cfg, state_shapes(cfg, opt),
+                         "place_state(state, mesh, cfg)")
+        cards, cuts = ring.cards, shd.card_cuts(cfg, mesh)
         out: list = [None] * len(cards)
 
         def share(run, card: int) -> None:
-            dev, tree = cards[card], trees[card]
-            with moe_dist.card_share(run, card), on_device(dev):
+            dev, tree, cut = cards[card], trees[card], cuts[card]
+            with moe_dist.card_share(run, card, cut), on_device(dev), \
+                    torch.autograd.set_multithreading_enabled(
+                        len(cards) == 1):
                 loss, grads = grads_of(tree["params"], {
                     k: x.to(dev) for k, x in batch.items()})
                 new_params, new_opt, metrics = _update(
                     tree["params"], grads, tree["opt"], opt,
-                    gnorm=_peer_norm(grads, run, card))
+                    gnorm=_peer_norm(grads, run, card, cut))
             metrics["loss"] = loss
             out[card] = ({"params": new_params, "opt": new_opt}, metrics)
 
@@ -206,16 +220,17 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig, opt: OptimConfig,
     are accumulated in float32. Metrics ``loss``, ``grad_norm`` and ``lr``
     are 0-d tensors on the device.
 
-    Under an ambient peer mesh the step trains expert parallel
-    (:func:`_make_peer_step`): ``state`` is the list of
-    :func:`~repro_torch.training.sharding.place_state` (one tree is placed
-    first), the batch is staged to every card, and the step returns the
-    list of new trees and card 0's metrics, ``grad_norm`` the norm over
-    every card's gradients. Its replicated leaves are the same bits on
-    every card."""
+    Under an ambient peer mesh the step trains expert and tensor
+    parallel (:func:`_make_peer_step`): ``state`` is the list of
+    :func:`~repro_torch.training.sharding.place_state` ``(state, mesh,
+    cfg)`` (one tree is placed first; trees cut otherwise raise
+    ``ValueError``), the batch is staged to every card, and the step
+    returns the list of new trees and card 0's metrics, ``grad_norm`` the
+    norm over every card's gradients. Its replicated leaves, the loss and
+    ``grad_norm`` are the same bits on every card."""
     resolve_device(device, allow_meta=True)
     grads_of = _make_grad_fn(cfg, ts)
-    peer_step = _make_peer_step(grads_of, opt)
+    peer_step = _make_peer_step(grads_of, opt, cfg)
 
     def step(state, batch):
         mesh = ambient_mesh()

@@ -89,6 +89,12 @@ every card's logits the same bits, within 1e-5 of the stacked mesh's,
 and one launch a card a psum and one for the logits; one graph a card a
 program segment. Dense tensor parallelism (``-k tensor_parallel``): the
 same for reduced Nemotron-4 at head dim 192.
+Training under dense tensor parallelism on a peer mesh (``-k
+tensor_parallel_training``): reduced Llama-3 (``remat="full"``, float32)
+trained two steps from ``place_state(state, mesh, cfg)``: on one card bit
+for bit the unsharded step; on four cards and on two cards holding two
+logical devices each, within path Z's limits of it (AdamW's ε region
+apart), every card's replicated leaves the same bits.
 Expert-parallel training on a peer mesh (``-k peer_moe_training``):
 reduced Mixtral (``remat="full"``) trained two steps by
 ``make_train_step`` from ``place_state`` under ``make_host_mesh((1, 4),
@@ -2042,8 +2048,8 @@ def peer_moe_training_checks(devices, dev, dtype: str):
     from repro_torch.optim import OptimConfig
     from repro_torch.training import (TrainStepConfig, init_state,
                                       make_train_step)
-    from repro_torch.training.sharding import (is_expert, place_state,
-                                               unplace_state)
+    from repro_torch.training.sharding import (card_cuts, is_cut,
+                                               place_state, unplace_state)
     from repro_torch.tree import leaves_with_paths
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2071,19 +2077,20 @@ def peer_moe_training_checks(devices, dev, dtype: str):
     want, want_losses = train(make_host_mesh((1, 4), device=dev), first)
     peer = make_host_mesh((1, 4), devices=devices)
     before = launch_counts()
-    trees, losses = train(peer, place_state(fresh(), peer))
+    trees, losses = train(peer, place_state(fresh(), peer, cfg))
     launched = {k: v - before[k] for k, v in launch_counts().items()}
     cards = tuple(dict.fromkeys(torch.device(d) for d in devices))
     assert len(trees) == len(cards)
     assert all(t.device == card for tree, card in zip(trees, cards)
                for t in _tree_leaves(tree))
+    cut = card_cuts(cfg, peer)[0]
     rep = [[t.to(dev) for path, t in leaves_with_paths(tree)
-            if not is_expert(path)] for tree in trees]
+            if not is_cut(path, cut)] for tree in trees]
     assert all(torch.equal(a, b) for other in rep[1:]
                for a, b in zip(rep[0], other))
     assert all(abs(a - b) <= 1e-3 * abs(b)
                for a, b in zip(losses, want_losses)), (losses, want_losses)
-    got = unplace_state(trees, peer)["params"]
+    got = unplace_state(trees, peer, cfg)["params"]
     delta = max((a.float() - b.float()).abs().max().item() for a, b in
                 zip(_tree_leaves(want["params"]),
                     _tree_leaves(first["params"])))
@@ -2102,6 +2109,108 @@ def test_peer_moe_training_across_four_cards(dev):
     cards = peer_cards(4)
     for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
         peer_moe_training_checks(devices, cards[0], "float32")
+
+
+def peer_tp_training_checks(devices, dev):
+    """Reduced Llama-3 (``remat="full"``, float32, TF32 off) trained 2
+    steps by ``make_train_step`` under ``make_host_mesh((1, 4),
+    devices=devices)`` from ``place_state(state, mesh, cfg)``, against the
+    unsharded step on ``dev`` from the same state and batches. One card:
+    bit for bit (nothing is cut). Several: every card's loss-bearing
+    replicated leaves the same bits; losses within rtol 1e-3 and every
+    updated parameter within 2e-2 of the unsharded update's largest
+    |change| (path Z's limits), but where the unsharded |g| fell below
+    1e-6 (AdamW's ε region, held within twice the summed lr); the ring's
+    kernels, attention and its backward launched."""
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import train_step as tsm
+    from repro_torch.tree import leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3_8b").reduced(),
+                              remat="full", num_kv_heads=4)
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    ds = SyntheticDataset(cfg, DataConfig(64, 8))
+    batches = [batch_to(ds.batch_at(i), dev) for i in range(2)]
+    small, lrs = [], []
+    update = tsm._update
+
+    def record(params, grads, opt_state, opt_, **kw):
+        now = [g.abs() < 1e-6 for g in _tree_leaves(grads)]
+        small[:] = now if not small else [a | b for a, b in zip(small, now)]
+        return update(params, grads, opt_state, opt_, **kw)
+
+    def fresh():
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+
+    def train(mesh, state):
+        step = make_train_step(cfg, TrainStepConfig(), opt, device=dev)
+        losses = []
+        with set_mesh(mesh):
+            for bt in batches:
+                state, m = step(state, bt)
+                losses.append(float(m["loss"]))
+                lrs.append(float(m["lr"]))
+        return state, losses
+
+    first = fresh()
+    tsm._update = record
+    try:
+        want, want_losses = train(None, first)
+    finally:
+        tsm._update = update
+    lr_sum = sum(lrs)
+    peer = make_host_mesh((1, 4), devices=devices)
+    cuts = shd.card_cuts(cfg, peer)
+    before = launch_counts()
+    trees, losses = train(peer, shd.place_state(fresh(), peer, cfg))
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    cards = tuple(dict.fromkeys(torch.device(d) for d in devices))
+    assert len(trees) == len(cuts) == len(cards)
+    assert all(t.device == card for tree, card in zip(trees, cards)
+               for t in _tree_leaves(tree))
+    got = shd.unplace_state(trees, peer, cfg)["params"]
+    if len(cards) == 1:
+        assert losses == want_losses
+        assert all(torch.equal(a, b) for a, b in zip(
+            _tree_leaves(got), _tree_leaves(want["params"])))
+        return
+    assert all(c.heads and c.kv and c.ff and c.vocab for c in cuts)
+    rep = [[t.to(dev) for path, t in leaves_with_paths(tree)
+            if not shd.is_cut(path, cuts[0])] for tree in trees]
+    assert all(torch.equal(a, b) for other in rep[1:]
+               for a, b in zip(rep[0], other))
+    assert all(abs(a - b) <= 1e-3 * abs(b)
+               for a, b in zip(losses, want_losses)), (losses, want_losses)
+    delta = max((a - b).abs().max().item() for a, b in zip(
+        _tree_leaves(want["params"]), _tree_leaves(first["params"])))
+    for a, b, eps in zip(_tree_leaves(got), _tree_leaves(want["params"]),
+                         small):
+        diff = (a - b).abs()
+        out = diff > 2e-2 * delta
+        assert not bool((out & ~eps).any()), (diff.max().item(), delta)
+        assert bool((diff[out] <= 2 * lr_sum).all())
+    for name in ("multipath_dma", "ring_allgather", "flash_attention",
+                 "flash_attention_bwd"):
+        assert launched[name] > 0, name
+
+
+def test_tensor_parallel_training_on_a_peer_mesh(dev):
+    """Training under dense tensor parallelism on a peer mesh
+    (:func:`peer_tp_training_checks`): four logical devices on one card
+    bit for bit the unsharded step; then, where there are four cards that
+    reach each other, a logical device a card and two a card on two."""
+    peer_tp_training_checks([dev] * 4, dev)
+    cards = peer_cards(4)
+    for devices in (cards, [cards[0], cards[0], cards[1], cards[1]]):
+        peer_tp_training_checks(devices, cards[0])
 
 
 # -- multipath_dma at the edges of its copy paths -----------------------------

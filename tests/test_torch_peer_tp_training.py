@@ -1,0 +1,551 @@
+"""Training under dense tensor parallelism on a peer mesh, against the
+unsharded step, the stacked mesh's step and the reference jitted with its
+``state_shardings`` under its mesh, on the CPU.
+
+A peer mesh is ``make_host_mesh(shape, devices=["cpu"] * model)``; its
+cards are emulated as ``tests/test_torch_peer_tp.py`` emulates them (the
+session's ring runs a layout's cards, ``card_of``, and the placement
+reads the same layout), each card a host thread of its own meeting the
+others at the ring's steps (``LockstepRing``).
+
+* f and g: each card's share of ``loss_fn`` under autograd, on its tree
+  of ``place_params(params, mesh, cfg)``, at one, two and four cards and
+  the split layout ``[0, 1, 0, 1]``, with a mask and labels on the
+  vocabulary blocks' boundaries: every card's loss and replicated
+  gradients the same bits; the cards' gradients of ``embed``, ``wq``,
+  ``wk``, ``wv``, ``wo``, the MLP and ``lm_head`` put back
+  (``unplace_state``) within 1e-5 of each leaf's largest |g| of autograd
+  of the unsharded loss. A kv-cut config, and one whose replicated kv
+  heads two cards' q heads read unevenly (``wk``/``wv`` through f), whose
+  gradients of them must be the unsharded ones on every card; one case
+  with every card's backward on a thread of its own.
+* ``make_train_step``: three chained steps on ``(1, 4)`` and ``(2, 4)``
+  peer meshes of four emulated cards for reduced Llama-3 8B, Nemotron-4
+  (squared ReLU at head dim 192), Mixtral-8x22B (attention cut, experts
+  as PR 37's, ``remat`` none and full: the full one with every backward
+  on a thread of its own), Kimi K2 (its shared expert cut) and a config
+  whose 3 heads do not divide (attention a replica, MLP and vocabulary
+  cut). Every card's loss, ``grad_norm`` and replicated leaves the same
+  bits; the losses and the updated parameters (cuts put back) against
+  the unsharded step and the stacked mesh's step (loss rtol 1e-5,
+  parameters atol 2e-5 / rtol 1e-4, but in AdamW's ε region, below) and
+  against the reference's unsharded-layout step jitted with
+  ``state_shardings`` under ``make_mesh((1, 4))`` (loss 2e-3, parameters
+  5e-3: ``tests/test_sharding_data.py``'s tolerances).
+* Clipping: ``grad_norm`` within 1e-6 relative of the unsharded step's.
+* Placement: ``place_state(state, mesh, cfg)`` cuts each leaf and its
+  moments where the reference's ``param_specs`` / ``opt_state_specs``
+  put ``model`` and the unit rules hold; ``unplace_state`` puts it back
+  bit for bit; a caller's uncut trees raise.
+
+The bounds. Each TP psum adds the cards' partial products where the
+unsharded step runs one product over the whole reduction dim, and f's
+psum adds the cotangents in the activations' dtype (float32 here; a
+bfloat16 model's in bfloat16, as GSPMD's all-reduce of a bfloat16
+cotangent: 2e-2 of the largest |logit| on the card, ``chip_smoke.py``
+path AC). The loss takes the log-sum-exp over the cards' block
+log-sum-exps, not over ``V`` at once. All three differ from the
+unsharded step by float rounding only. AdamW moves a parameter by
+``lr · m / (sqrt(v) + eps)``: where |g| is near eps = 1e-8 the slope is
+~1/eps, so two summation orders a few 1e-9 apart move it by up to lr.
+Where the unsharded or stacked step's |g| fell below EPS_CONDITIONED at
+some step, a parameter is held within twice the steps' summed lr
+(``tests/test_torch_peer_moe_training.py``'s rule).
+"""
+
+import dataclasses
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.compat import make_mesh, set_mesh as jset_mesh
+from repro.configs import get_config as jget_config
+from repro.optim import OptimConfig as JOptimConfig
+from repro.training import TrainStepConfig as JTrainStepConfig
+from repro.training import init_state as jinit_state
+from repro.training import make_train_step as jmake_train_step
+from repro.training import state_shardings as jstate_shardings
+
+from repro_torch.carry import state_from_numpy
+from repro_torch.comm import collectives as coll
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh, set_mesh
+from repro_torch.models import moe_dist
+from repro_torch.models import tensor_parallel as tp
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import OptimConfig
+from repro_torch.training import TrainStepConfig, make_train_step
+from repro_torch.training import sharding as shd
+from repro_torch.training import train_step as tsm
+from repro_torch.tree import leaves, leaves_with_paths, unflatten
+
+from test_torch_peer_moe_training import (OPT, assert_params_close, batches,
+                                          on_own_thread, recording_steps)
+from test_torch_peer_tp import CPU, KEPT_WHOLE, LAYOUTS, emulate
+
+#: f and g's gradients against autograd of the unsharded loss: a share of
+#: each leaf's largest |g| (float32, the psums' order alone differs).
+GRAD_REL = 1e-5
+#: The reduced configs trained, by id: (arch, config changes).
+ARCHS = {"llama3_8b": ("llama3_8b", {}),
+         "nemotron_192": ("nemotron_4_340b", {"head_dim": 192}),
+         "mixtral": ("mixtral_8x22b", {"capacity_factor": 8.0}),
+         "mixtral_remat": ("mixtral_8x22b", {"capacity_factor": 8.0,
+                                             "remat": "full"}),
+         "kimi_k2": ("kimi_k2_1t_a32b", {"capacity_factor": 8.0}),
+         "odd_heads": ("llama3_8b", {"num_heads": 3, "num_kv_heads": 1})}
+#: The reference's changes (``remat`` changes no value).
+REF_SKIP = ("remat",)
+
+
+def configs(arch_id):
+    name, replace = ARCHS[arch_id]
+    ref = {k: v for k, v in replace.items() if k not in REF_SKIP}
+    return (dataclasses.replace(jget_config(name).reduced(), **ref),
+            dataclasses.replace(get_config(name).reduced(), **replace))
+
+
+# -- f and g -----------------------------------------------------------------
+
+#: Labels on the vocabulary blocks' edges at 2 and 4 cards (256 / 4).
+EDGES = (0, 63, 64, 127, 128, 191, 192, 255)
+
+
+def edge_batch(cfg) -> dict:
+    """Tokens (4, 8) from a seed, labels with every block edge of
+    :data:`EDGES` among them, a mask with zeros."""
+    rng = np.random.RandomState(5)
+    labels = rng.randint(0, cfg.vocab_size, (4, 8))
+    labels[0] = EDGES
+    mask = np.ones((4, 8), np.float32)
+    mask[1, :3] = 0.0
+    mask[3, 5] = 0.0
+    return {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                   (4, 8))),
+            "labels": torch.from_numpy(labels),
+            "mask": torch.from_numpy(mask)}
+
+
+def loss_grads(params, cfg, batch, *, thread=False):
+    """(loss, grads tree) of ``loss_fn`` by autograd; the backward on a
+    thread of its own with ``thread``."""
+    ps = [p.detach().requires_grad_() for p in leaves(params)]
+    with torch.enable_grad():
+        loss = tfm.loss_fn(unflatten(params, ps), cfg, batch)
+        grad = functools.partial(torch.autograd.grad, loss, ps,
+                                 allow_unused=True)
+        gs = on_own_thread(grad) if thread else grad()
+    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, gs)]
+    return loss.detach(), unflatten(params, gs)
+
+
+def card_grads(cfg, params, mesh, batch, *, thread=False):
+    """Every emulated card's (loss, grads of its placed tree) from its
+    share of ``loss_fn`` under its cut, in lockstep."""
+    trees = shd.place_params(params, mesh, cfg)
+    cuts = shd.card_cuts(cfg, mesh)
+    ring = coll.PeerRing(mesh.session.engine)
+    ring.begin()
+    lockstep = coll.LockstepRing(ring)
+    got = [None] * len(trees)
+
+    def body(card):
+        with moe_dist.card_share(lockstep, card, cuts[card]):
+            got[card] = loss_grads(trees[card], cfg, batch, thread=thread)
+
+    with set_mesh(mesh):
+        coll.run_in_lockstep(lockstep, [(CPU, body)] * len(trees))
+    return got, cuts
+
+
+def assert_grads_close(got, want) -> None:
+    for (path, a), b in zip(leaves_with_paths(got), leaves(want)):
+        top = max(b.abs().max().item(), 1e-30)
+        err = (a - b).abs().max().item()
+        assert err <= GRAD_REL * top, ("/".join(path), err, top)
+
+
+def assert_replicas_same_bits(got, cuts) -> None:
+    losses = [loss for loss, _ in got]
+    assert all(torch.equal(x, losses[0]) for x in losses)
+    rep = [[g for path, g in leaves_with_paths(grads)
+            if not shd.is_cut(path, cuts[0])] for _, grads in got]
+    assert all(torch.equal(a, b) for other in rep[1:]
+               for a, b in zip(rep[0], other))
+
+
+#: The f/g cases: (arch changes, mesh shape, card layout).
+GRAD_CASES = {
+    "one_card": ({}, (1, 4), LAYOUTS["one_card"]),
+    "two_cards": ({}, (1, 4), LAYOUTS["two_cards"]),
+    "four_cards": ({}, (1, 4), LAYOUTS["four_cards"]),
+    "split": ({}, (1, 4), LAYOUTS["split"]),
+    "kv_cut": ({"num_kv_heads": 4}, (1, 4), LAYOUTS["four_cards"]),
+    "uneven_kv": ({"num_heads": 6, "num_kv_heads": 3, "head_dim": 8},
+                  (1, 2), [0, 1]),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_card_shares_give_the_unsharded_gradients(case, monkeypatch):
+    """f and g around every cut region and the vocabulary-parallel loss:
+    the cards' gradients put back are autograd's of the unsharded loss;
+    every card's loss and replicated gradients the same bits. On one card
+    nothing is cut and the gradients are the unsharded ones bit for
+    bit."""
+    replace, shape, card_of = GRAD_CASES[case]
+    cfg = dataclasses.replace(get_config("llama3_8b").reduced(), **replace)
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(
+        4), device="cpu")
+    n = emulate(monkeypatch, card_of)
+    mesh = make_host_mesh(shape, devices=["cpu"] * shape[1])
+    batch = edge_batch(cfg)
+    got, cuts = card_grads(cfg, params, mesh, batch)
+    want_loss, want = loss_grads(params, cfg, batch)
+    assert len(got) == n and all(c.cuts == (n > 1) for c in cuts)
+    assert_replicas_same_bits(got, cuts)
+    back = shd.unplace_state([g for _, g in got], mesh, cfg)
+    if n == 1:
+        assert torch.equal(got[0][0], want_loss)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                     leaves(want)))
+        return
+    np.testing.assert_allclose(float(got[0][0]), float(want_loss),
+                               rtol=1e-6)
+    assert_grads_close(back, want)
+    if case == "uneven_kv":
+        # card 0's q heads 0-2 read kv heads 0, 0, 1; card 1's 3-5 read
+        # 1, 2, 2: the replicated wk/wv through f, every card's gradient
+        # of them the whole one
+        assert [tp.heads(cfg, c)[2] for c in cuts] == [[0, 0, 1], [1, 2, 2]]
+        for _, grads in got:
+            for name in ("wk", "wv"):
+                assert_grads_close(grads["layers"]["attn"][name],
+                                   want["layers"]["attn"][name])
+    if case == "kv_cut":
+        assert all(c.kv for c in cuts)
+
+
+def test_a_cards_backward_on_another_thread_gives_the_same_gradients(
+        monkeypatch):
+    """Every card's backward on a new thread, where neither its share nor
+    the lockstep ring's card is set: f and g re-enter the card there, and
+    the gradients are the same-thread run's, bit for bit."""
+    cfg = get_config("llama3_8b").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(
+        4), device="cpu")
+    emulate(monkeypatch, LAYOUTS["four_cards"])
+    mesh = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    batch = edge_batch(cfg)
+    same, _ = card_grads(cfg, params, mesh, batch)
+    other, _ = card_grads(cfg, params, mesh, batch, thread=True)
+    for (la, ga), (lb, gb) in zip(same, other):
+        assert torch.equal(la, lb)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(ga), leaves(gb)))
+
+
+def test_the_vocabulary_loss_gathers_no_logits(monkeypatch):
+    """A train step's loss over a vocabulary cut gathers one row of block
+    log-sum-exps a model-axis device (``(B·S)`` floats), never ``(B, S,
+    V)`` logits: every gather of the share is that small."""
+    cfg = get_config("llama3_8b").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(
+        4), device="cpu")
+    emulate(monkeypatch, LAYOUTS["four_cards"])
+    mesh = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    shapes = []
+    gather = coll.LockstepRing.gather
+
+    def seen(self, shards):
+        shapes.append(tuple(next(s for s in shards if s is not None).shape))
+        return gather(self, shards)
+
+    monkeypatch.setattr(coll.LockstepRing, "gather", seen)
+    batch = edge_batch(cfg)
+    card_grads(cfg, params, mesh, batch)
+    rows = batch["tokens"].numel()
+    assert (1, rows) in shapes
+    assert all(math.prod(s) <= 2 * rows * cfg.d_model for s in shapes)
+
+
+# -- make_train_step ---------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def reference_steps(arch_id: str, steps: int):
+    """The reference's step jitted with ``state_shardings`` under
+    ``make_mesh((1, 4))``, ``steps`` chained from ``init_state(seed=7)``:
+    (the unsharded initial state, [(loss, params)] as numpy)."""
+    jcfg, _ = configs(arch_id)
+    jopt = JOptimConfig(**OPT)
+    jmesh = make_mesh((1, 4), ("data", "model"))
+    first = jax.tree.map(np.asarray, jinit_state(jcfg, jopt, seed=7))
+    step = jax.jit(jmake_train_step(jcfg, JTrainStepConfig(), jopt))
+    out = []
+    with jset_mesh(jmesh):
+        state = jinit_state(jcfg, jopt, mesh=jmesh, seed=7)
+        for bt in batches(jcfg, steps):
+            state, m = step(state, {k: jnp.asarray(v)
+                                    for k, v in bt.items()})
+            out.append((float(m["loss"]), [
+                np.asarray(a, np.float32)
+                for a in jax.tree.leaves(state["params"])]))
+    return first, out
+
+
+def card_metrics(monkeypatch) -> dict:
+    """Record each card's loss and ``grad_norm`` in a peer step: card ->
+    list of (loss, gnorm) a step."""
+    seen: dict = {}
+    loss_fn, update = tfm.loss_fn, tsm._update
+
+    def loss(params, cfg, batch, aux_coef=0.01):
+        out = loss_fn(params, cfg, batch, aux_coef)
+        share = moe_dist.current_share()
+        if share is not None:
+            seen.setdefault(share[1], []).append([out.detach()])
+        return out
+
+    def upd(params, grads, opt_state, opt, **kw):
+        share = moe_dist.current_share()
+        if share is not None and "gnorm" in kw:
+            seen[share[1]][-1].append(kw["gnorm"])
+        return update(params, grads, opt_state, opt, **kw)
+
+    monkeypatch.setattr(tfm, "loss_fn", loss)
+    monkeypatch.setattr(tsm, "_update", upd)
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+@pytest.mark.parametrize("arch_id", list(ARCHS))
+def test_train_step_tensor_parallel_matches_unsharded_stacked_and_reference(
+        arch_id, shape, monkeypatch):
+    """Three chained steps on a peer mesh of four emulated cards from
+    ``place_state(state, mesh, cfg)`` (module docstring). With ``remat``
+    full every card's backward runs on a thread of its own, so each
+    layer's recompute and its psums run there."""
+    _, cfg = configs(arch_id)
+    first, ref = reference_steps(arch_id, 3)
+    opt = OptimConfig(**OPT)
+    plain, small_a, lrs = recording_steps(cfg, opt, None,
+                                          state_from_numpy(first), 3,
+                                          monkeypatch)
+    stacked, small_b, _ = recording_steps(
+        cfg, opt, make_host_mesh(shape, device="cpu"),
+        state_from_numpy(first), 3, monkeypatch)
+    small = [[a | b for a, b in zip(x, y)] for x, y in zip(small_a, small_b)]
+    emulate(monkeypatch, LAYOUTS["four_cards"])
+    peer = make_host_mesh(shape, devices=["cpu"] * 4)
+    cuts = shd.card_cuts(cfg, peer)
+    assert all(c.vocab and c.ff != bool(cfg.num_experts) for c in cuts)
+    assert all(c.heads == (arch_id != "odd_heads") for c in cuts)
+    if cfg.remat == "full":
+        grad = torch.autograd.grad
+        monkeypatch.setattr(torch.autograd, "grad", functools.partial(
+            on_own_thread, grad))
+    seen = card_metrics(monkeypatch)
+    trees = shd.place_state(state_from_numpy(first), peer, cfg)
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    with set_mesh(peer):
+        for i, bt in enumerate(batches(cfg, 3)):
+            trees, m = step(trees, {k: torch.from_numpy(v)
+                                    for k, v in bt.items()})
+            per_card = [seen[c][i] for c in range(4)]
+            assert all(torch.equal(a, b) for row in per_card
+                       for a, b in zip(row, per_card[0]))
+            assert torch.equal(m["loss"], per_card[0][0])
+            assert torch.equal(m["grad_norm"], per_card[0][1])
+            rep = [[t for path, t in leaves_with_paths(tree)
+                    if not shd.is_cut(path, cuts[0])] for tree in trees]
+            assert all(torch.equal(a, b) for other in rep[1:]
+                       for a, b in zip(rep[0], other))
+            whole = shd.unplace_state(trees, peer, cfg)["params"]
+            rloss, rparams = ref[i]
+            assert abs(float(m["loss"]) - rloss) < 2e-3
+            for got_p, want_p, rp in zip(leaves(whole), leaves(
+                    stacked[i][0]["params"]), rparams):
+                np.testing.assert_allclose(got_p.numpy(), rp, atol=5e-3)
+            lr = 2 * sum(lrs[:i + 1])
+            for (want, wm) in (plain[i], stacked[i]):
+                np.testing.assert_allclose(float(m["loss"]),
+                                           float(wm["loss"]), rtol=1e-5)
+                assert_params_close(leaves(whole), leaves(want["params"]),
+                                    small[i], lr)
+
+
+def test_the_clip_norm_is_over_every_cut(monkeypatch):
+    """A small ``clip_norm`` clips every step: ``grad_norm`` (the
+    replicated leaves' squares plus ONE psum of every cut leaf's, dense
+    and expert) within 1e-6 relative of the unsharded step's; the
+    parameters as there."""
+    _, cfg = configs("kimi_k2")
+    first, _ = reference_steps("kimi_k2", 3)
+    opt = OptimConfig(**OPT, clip_norm=1e-2)
+    plain, small, lrs = recording_steps(cfg, opt, None,
+                                        state_from_numpy(first), 2,
+                                        monkeypatch)
+    emulate(monkeypatch, LAYOUTS["two_cards"])
+    peer = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    trees = state_from_numpy(first)
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    with set_mesh(peer):
+        for i, bt in enumerate(batches(cfg, 2)):
+            trees, m = step(trees, {k: torch.from_numpy(v)
+                                    for k, v in bt.items()})
+            want, wm = plain[i]
+            assert float(wm["grad_norm"]) > 10 * opt.clip_norm
+            np.testing.assert_allclose(float(m["grad_norm"]),
+                                       float(wm["grad_norm"]), rtol=1e-6)
+            whole = shd.unplace_state(trees, peer, cfg)
+            assert_params_close(leaves(whole["params"]),
+                                leaves(want["params"]), small[i],
+                                2 * sum(lrs[:i + 1]))
+
+
+def test_one_card_layout_is_the_unsharded_step_bit_for_bit():
+    """Four logical devices on one card cut nothing: three steps from
+    ``place_state`` (views of the whole) are the unsharded step's bit for
+    bit."""
+    _, cfg = configs("llama3_8b")
+    first, _ = reference_steps("llama3_8b", 3)
+    opt = OptimConfig(**OPT)
+    peer = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    state = state_from_numpy(first)
+    (tree,) = shd.place_state(state, peer, cfg)
+    assert all(a.data_ptr() == b.data_ptr()
+               for a, b in zip(leaves(tree), leaves(state)))
+    step = make_train_step(cfg, TrainStepConfig(), opt, device="cpu")
+    want, trees = state, [tree]
+    for bt in batches(cfg, 3):
+        tb = {k: torch.from_numpy(v) for k, v in bt.items()}
+        want, wm = step(want, tb)
+        with set_mesh(peer):
+            trees, m = step(trees, tb)
+        assert torch.equal(m["loss"], wm["loss"])
+        assert torch.equal(m["grad_norm"], wm["grad_norm"])
+        assert all(torch.equal(a, b) for a, b in zip(leaves(trees[0]),
+                                                     leaves(want)))
+
+
+# -- the placement -------------------------------------------------------------
+
+def reference_state_dims(jcfg) -> dict:
+    """Per state leaf path (a key tuple), the dim the reference's
+    ``state_shardings`` cut on ``model`` under ``make_mesh((1, 4))``, or
+    None."""
+    jmesh = make_mesh((1, 4), ("data", "model"))
+    shardings, _ = jstate_shardings(jcfg, jmesh, JOptimConfig(**OPT))
+    flat = jax.tree_util.tree_flatten_with_path(
+        shardings, is_leaf=lambda x: isinstance(x, jax.sharding.Sharding))[0]
+    out = {}
+    for path, sh in flat:
+        dims = [i for i, e in enumerate(sh.spec)
+                if e == "model" or isinstance(e, tuple) and "model" in e]
+        out[tuple(k.key for k in path)] = dims[0] if dims else None
+    return out
+
+
+def expected_leaf(path, whole, ref_dim, cut, held):
+    """The card's part of ``whole`` at ``path`` (the parameter's name
+    last, under ``params`` or a moment): its blocks where the reference
+    cuts ``model`` and the unit rules hold, else None (whole)."""
+    if ref_dim is None or not cut.cuts or shd.is_expert(path) \
+            or path[-1] in KEPT_WHOLE:
+        return None
+    units_ok = {"embed": cut.vocab, "lm_head": cut.vocab,
+                "wq": cut.heads, "wo": cut.heads, "wk": cut.kv,
+                "wv": cut.kv}.get(path[-1])
+    if units_ok is None:                       # w1, w3, w2
+        units_ok = cut.shared if "shared" in path else cut.ff
+    if not units_ok:
+        return None
+    size = whole.shape[ref_dim] // 4
+    return torch.cat([whole.narrow(ref_dim, d * size, size) for d in held],
+                     ref_dim)
+
+
+@pytest.mark.parametrize("layout", ["two_cards", "four_cards", "split"])
+@pytest.mark.parametrize("arch_id", ["llama3_8b", "kimi_k2", "odd_heads"])
+def test_place_state_cuts_moments_as_the_reference_specs(arch_id, layout,
+                                                         monkeypatch):
+    """Per leaf of the state: each card's blocks where the reference's
+    ``param_specs`` / ``opt_state_specs`` put ``model`` and the unit rules
+    hold (every moment cut as its parameter), else the whole leaf;
+    ``unplace_state`` puts the state back bit for bit."""
+    jcfg, cfg = configs(arch_id)
+    first, _ = reference_steps(arch_id, 3)
+    state = state_from_numpy(first)
+    gen = torch.Generator().manual_seed(5)
+    for path, t in leaves_with_paths(state["opt"]):
+        if path[0] in ("m", "v"):
+            t.copy_(torch.randn(t.shape, generator=gen))
+    card_of = LAYOUTS[layout]
+    emulate(monkeypatch, card_of)
+    mesh = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    trees = shd.place_state(state, mesh, cfg)
+    dims = reference_state_dims(jcfg)
+    cut_leaves = 0
+    for card, (tree, cut) in enumerate(zip(trees, shd.card_cuts(cfg, mesh))):
+        held = [d for d, c in enumerate(card_of) if c == card]
+        for (path, got), whole in zip(leaves_with_paths(tree),
+                                      leaves(state)):
+            if shd.is_expert(path):
+                continue       # the experts' cut: test_torch_peer_moe.py
+            want = expected_leaf(path, whole, dims[path], cut, held)
+            if want is None:
+                assert torch.equal(got, whole), path
+            else:
+                assert torch.equal(got, want), path
+                cut_leaves += 1
+        for key in ("m", "v"):
+            assert [t.shape for t in leaves(tree["opt"][key])] == [
+                t.shape for t in leaves(tree["params"])]
+    assert cut_leaves > 0
+    back = shd.unplace_state(trees, mesh, cfg)
+    assert [p for p, _ in leaves_with_paths(back)] == [
+        p for p, _ in leaves_with_paths(state)]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                 leaves(state)))
+
+
+def test_the_step_refuses_trees_not_cut_as_place_state(monkeypatch):
+    """Trees of the expert-only layout (dense leaves whole) on two cards,
+    and a tree too few, raise ``ValueError``: the layout is the
+    placement's, never guessed from a shape."""
+    _, cfg = configs("llama3_8b")
+    first, _ = reference_steps("llama3_8b", 3)
+    state = state_from_numpy(first)
+    emulate(monkeypatch, LAYOUTS["two_cards"])
+    peer = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    whole = [shd.place_card(state, held, 4, CPU) for held in ([0, 1],
+                                                              [2, 3])]
+    step = make_train_step(cfg, TrainStepConfig(), OptimConfig(**OPT),
+                           device="cpu")
+    bt = {k: torch.from_numpy(v) for k, v in batches(cfg, 1)[0].items()}
+    with set_mesh(peer):
+        with pytest.raises(ValueError, match="place_state"):
+            step(whole, bt)
+        with pytest.raises(ValueError, match="one on each"):
+            step(shd.place_state(state, peer, cfg)[:1], bt)
+
+
+def test_the_encoder_head_stays_a_replica(monkeypatch):
+    """HuBERT's ``head`` (the reference cuts it on ``model``) stays whole
+    on every card, with its moments: a vocabulary cut needs a decoder."""
+    cfg = get_config("hubert_xlarge").reduced()
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(
+        0), device="cpu")
+    emulate(monkeypatch, LAYOUTS["four_cards"])
+    mesh = make_host_mesh((1, 4), devices=["cpu"] * 4)
+    state = {"params": params, "opt": {"m": params, "v": params}}
+    for tree in shd.place_state(state, mesh, cfg):
+        assert tree["params"]["head"].shape == params["head"].shape
+        assert tree["opt"]["m"]["head"].shape == params["head"].shape
+        assert tree["params"]["layers"]["mlp"]["w1"].shape[-1] * 4 == \
+            params["layers"]["mlp"]["w1"].shape[-1]
+

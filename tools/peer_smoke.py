@@ -177,16 +177,58 @@ greedy), full width:
 
 Every reading also goes to ``chiprun_out/peer_tp.json``.
 
+With ``--tp-train`` it trains tensor parallel on a peer mesh instead
+(after the topology, names and power limits; TF32 off)::
+
+    python3 tools/peer_smoke.py --tp-train         # a few minutes
+
+``make_train_step`` under ``make_host_mesh((1, 4), devices=cards)`` from
+``place_state(state, mesh, cfg)``: each card holds its quarter of the
+heads (and kv heads), of the MLP's hidden units and of the vocabulary,
+with their gradients and AdamW moments, and a replica of the norms; one
+peer psum (g) after the embedding, attention and the MLP a layer, their
+backwards one peer psum (f) each, the loss from the cards' vocabulary
+blocks (one gather of their log-sum-exps and one psum of the gold
+logit), the clip norm one psum; 8 x 512 tokens, ``remat="full"``:
+
+* (a) Llama-3 8B at full width over TP_TRAIN_CHECK_LAYERS layers, in
+  float32 and then in bfloat16 (seeded weights, float32 moments), 3
+  steps against one card's unsharded ``make_train_step`` from the same
+  seed and batches (in the same process): every card's loss,
+  ``grad_norm`` and replicated leaves the same bits, losses within path
+  Z's rtol; in float32 step 1's gradients, each card's against its part
+  of the unsharded step's, within TP_TRAIN_GRAD_REL of each leaf's
+  largest |g|, and every updated parameter within path Z's limit but in
+  AdamW's ε region (counted); in bfloat16 the gradients and parameters
+  reported (the update's bfloat16 rounding moves them further);
+* (b) Llama-3 8B whole (32 layers, vocabulary 128,256, float32 moments)
+  and (c) Nemotron-4 340B at its whole vocabulary of 256,000 with
+  bfloat16 moments, each at the deepest depth the meta reckoning admits
+  (state, gradients, the update's new state, the psums' buffers and the
+  activations, with TP_TRAIN_HEADROOM left; the trees drawn layer by
+  layer): the first step, a step by CUDA events on every card (the
+  slowest), tokens/s, each card's peak GiB against the reckoning,
+  launches a step, one step under the profiler;
+* one forward g psum and one backward f psum of (8, 512, 4096) bfloat16
+  a card: each call by CUDA events and its ring kernels' device ms by the
+  profiler, beside the same psum's replay, NCCL's all-reduce, the bytes a
+  card takes in at 450 GB/s and the dry-run's one-link term.
+
+Every reading also goes to ``chiprun_out/peer_tp_train.json``.
+
 With ``--moe-train`` it trains Mixtral-8x22B expert parallel on a peer
 mesh instead (after the topology, names and power limits; TF32 off)::
 
     python3 tools/peer_smoke.py --moe-train        # a few minutes
 
 ``make_train_step`` under ``make_host_mesh((1, 4), devices=cards)`` from
-``place_state``: each card holds its logical device's 2 experts a layer,
-their gradients and AdamW moments, and a replica of the rest; each MoE
-combine is one peer psum a forward, and its backward another. Path Z's
-tokens (8 x 512), full width:
+``place_state(state, mesh, cfg)``: each card holds its logical device's
+2 experts a layer, its 12 of the 48 heads (2 of 8 kv heads) and its
+quarter of the vocabulary, their gradients and AdamW moments, and a
+replica of the rest; each MoE combine and attention's output is one peer
+psum a forward, and its backward another (since the dense cut, held to
+path Z's limits, not to PR 37's figures). Path Z's tokens (8 x 512),
+full width:
 
 * (a) at 1 layer in float32 (TF32 off; bfloat16 moments), 3 steps
   against one card's stacked mesh step from the same seed and batches
@@ -1555,6 +1597,29 @@ MOE_TRAIN_GRAD_REL = 1e-5
 #: Where the stacked step's |g| fell below 100·eps at some step, (a) holds
 #: a parameter within 2 x the steps' summed lr, and counts it.
 MOE_TRAIN_EPS_CONDITIONED = 1e-6
+#: Since the dense cut (PR 40) the cards also sum attention's and the
+#: vocabulary's partial products, and step 1's gradients differ from the
+#: reference step's by up to MOE_TRAIN_GRAD_REL of each leaf's largest |g|
+#: (9.88e-6 measured on four cards). AdamW normalises an element's update
+#: by its own gradient, so a relative gradient error e moves it by about
+#: e·lr; path Z's limit takes e up to MOE_TRAIN_DELTA_SHARE. Where the
+#: reference step's |g| fell below twice the share of the leaf's largest
+#: at which that error reaches the limit (1e-3), (a) holds a parameter
+#: as in the ε region.
+MOE_TRAIN_COND_SHARE = 2 * MOE_TRAIN_GRAD_REL / MOE_TRAIN_DELTA_SHARE
+
+
+def ill_conditioned(grads) -> list:
+    """Per leaf of ``grads``, the elements whose AdamW update float
+    rounding of the gradients may move beyond path Z's limit: |g| under
+    MOE_TRAIN_EPS_CONDITIONED, or under MOE_TRAIN_COND_SHARE of the leaf's
+    largest |g|."""
+    out = []
+    for g in leaves(grads):
+        a = g.abs()
+        out.append((a < MOE_TRAIN_EPS_CONDITIONED)
+                   | (a < MOE_TRAIN_COND_SHARE * a.max()))
+    return out
 
 
 def moe_train_opt(cfg):
@@ -1573,28 +1638,34 @@ def moe_train_batches(cfg, dev, count: int) -> list[dict]:
 def moe_train_reckoning(cfg, cards) -> dict:
     """Card 0's bytes training ``L`` layers on the peer mesh of ``cards``
     (a logical device a card), reckoned on meta tensors: its placed state
-    (parameters and AdamW moments, ``place_card`` of ``state_shapes``),
+    (parameters and AdamW moments, ``place_card`` of ``state_shapes``
+    under the card's cut: its experts, heads and vocabulary blocks),
     the gradients (the parameters' bytes), the update's new parameters and
     moments and its float32 temporaries (nine of the largest leaf's or of
     ``UPDATE_SLICE`` elements), and three times each psum's operand a
     layer (a ring shift's send and receipt and the gather's replicas): the
     forward combine's ``(T, d)`` in the model's dtype and the backward's
-    float32 ``(T + E, d)``. The deepest ``L`` of at most the config's whose
-    bytes leave MOE_TRAIN_HEADROOM of the card."""
+    float32 ``(T + E, d)``, and the cut attention's three ``(T, d)`` (g
+    forward and in the recompute, f backward). The deepest ``L`` of at
+    most the config's whose bytes leave MOE_TRAIN_HEADROOM of the card."""
     import dataclasses
     import math
 
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.adamw import UPDATE_SLICE
-    from repro_torch.training.sharding import place_card
+    from repro_torch.training.sharding import card_cuts, place_card
     from repro_torch.training.train_step import state_shapes
 
     opt = moe_train_opt(cfg)
+    cut = card_cuts(cfg, make_host_mesh((1, len(cards)),
+                                        devices=cards))[0]
     tokens = math.prod(MOE_TRAIN_TOKENS)
     elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
 
     def card_bytes(layers):
         c = dataclasses.replace(cfg, num_layers=layers)
-        tree = place_card(state_shapes(c, opt), [0], len(cards), "meta")
+        tree = place_card(state_shapes(c, opt), [0], len(cards), "meta",
+                          cut)
         params = sum(t.numel() * t.element_size()
                      for t in leaves(tree["params"]))
         moments = sum(t.numel() * t.element_size()
@@ -1602,7 +1673,8 @@ def moe_train_reckoning(cfg, cards) -> dict:
         largest = max(t.numel() for t in leaves(tree["params"]))
         temps = 9 * 4 * min(largest, UPDATE_SLICE)
         psums = 3 * layers * cfg.d_model * (
-            tokens * elt + (tokens + cfg.num_experts) * 4)
+            tokens * elt * (1 + 3 * cut.heads)
+            + (tokens + cfg.num_experts) * 4)
         return 3 * params + 2 * moments, temps, psums
 
     s0, t0, p0 = card_bytes(0)
@@ -1618,14 +1690,52 @@ def moe_train_reckoning(cfg, cards) -> dict:
             "reckoned_bytes": fixed + depth * per_layer}
 
 
-def moe_train_steps(step, trees, batches) -> tuple[list, list[float]]:
+def card_part(g, path: tuple, held: list, model: int, cut):
+    """The part of the whole leaf ``g`` at ``path`` that a card holding
+    the model-axis devices ``held`` holds under its dense ``cut``: its
+    experts, its blocks of a cut dense leaf, else ``g``."""
+    from repro_torch.training import sharding as shd
+
+    if shd.is_expert(path):
+        return shd.cut_experts(g, path[-1], held, model)
+    dim = shd.dense_dim(path, cut)
+    return g if dim is None else shd.cut_dense(g, dim, held, model)
+
+
+def moe_train_steps(step, trees, batches, first=None
+                    ) -> tuple[list, list[float]]:
     """``step`` over ``batches`` from ``trees``: the last trees and each
-    step's card-0 loss."""
+    step's card-0 loss; ``first(trees)``, given, is called after the first
+    step."""
     losses = []
-    for bt in batches:
+    for i, bt in enumerate(batches):
         trees, m = step(trees, bt)
         losses.append(float(m["loss"]))
+        if i == 0 and first is not None:
+            first(trees)
     return trees, losses
+
+
+def param_diffs(got, want, bound: float, small) -> dict:
+    """Leaf by leaf, ``got`` against ``want`` (host tensors): the largest
+    difference and its leaf; the elements beyond ``bound``, those of them
+    outside ``small`` (``bad``) and the largest difference of those
+    inside."""
+    out = {"worst": 0.0, "where": "", "beyond": 0, "bad": 0, "bad_worst": 0.0,
+           "cond_worst": 0.0}
+    for i, (a, b, cond) in enumerate(zip(got, want, small)):
+        diff = (a.float() - b.float()).abs()
+        err = diff.max().item()
+        if err >= out["worst"]:
+            out["worst"], out["where"] = err, f"leaf {i} {tuple(b.shape)}"
+        over = diff > bound
+        bad = over & ~cond.to(over.device)
+        out["beyond"] += int(over.sum())
+        out["bad"] += int(bad.sum())
+        out["bad_worst"] = max(out["bad_worst"], (diff * bad).max().item())
+        out["cond_worst"] = max(out["cond_worst"],
+                                (diff * (over & ~bad)).max().item())
+    return out
 
 
 def moe_train_check(cards, peer) -> dict:
@@ -1634,13 +1744,18 @@ def moe_train_check(cards, peer) -> dict:
     ``place_state`` against one card's stacked mesh step from the same
     seed and batches: the losses, and every card's gradients at the first
     step (the combine's backward across cards) against the stacked step's
-    (each card's expert cut against the same cut of the whole) within
-    MOE_TRAIN_GRAD_ATOL of each leaf's largest |g|; the parameters at path
-    Z's limit, but for the elements whose stacked |g| fell under
-    MOE_TRAIN_EPS_CONDITIONED at some step (AdamW's ε region, where the
+    (each card's cut against the same cut of the whole) within
+    MOE_TRAIN_GRAD_REL of each leaf's largest |g|; the parameters after
+    the first step at path Z's limit of that step's largest |change|, but
+    for the elements of :func:`ill_conditioned` (AdamW's ε region and its
+    elements with small gradients against the leaf's, where the
     cross-card sums' order moves an update by up to its lr), held within
-    twice the steps' summed lr and counted; every card's replicated leaves
-    the same bits."""
+    twice its lr and counted; after the last step every parameter within
+    twice the steps' summed lr, the elements beyond path Z's limit
+    counted (those of the first step's ε region moved by up to lr change
+    the later steps' gradients beyond the first step's bound, so the
+    later updates are not held to it); every card's replicated leaves the
+    same bits."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1649,9 +1764,8 @@ def moe_train_check(cards, peer) -> dict:
     from repro_torch.models import moe_dist
     from repro_torch.training import (TrainStepConfig, init_state,
                                       make_train_step)
+    from repro_torch.training import sharding as shd
     from repro_torch.training import train_step as tsm
-    from repro_torch.training.sharding import (cut_experts, is_expert,
-                                               place_state, unplace_state)
     from repro_torch.tree import leaves_with_paths
 
     c0 = cards[0]
@@ -1660,10 +1774,13 @@ def moe_train_check(cards, peer) -> dict:
     opt = moe_train_opt(cfg)
     batches = moe_train_batches(cfg, c0, MOE_TRAIN_CHECK_STEPS)
     update = tsm._update
-    seen: dict = {"cond": None, "grads": None, "lrs": [], "cards": {}}
+    seen: dict = {"cond": None, "grads": None, "lrs": [], "cards": {},
+                  "first": {}}
 
     def stacked_update(params, grads, opt_state, opt_, **kw):
-        small = [g.abs() < MOE_TRAIN_EPS_CONDITIONED for g in leaves(grads)]
+        small = ill_conditioned(grads)
+        if seen["cond"] is None:
+            seen["cond1"] = [t.cpu() for t in small]
         seen["cond"] = small if seen["cond"] is None else [
             a | b for a, b in zip(seen["cond"], small)]
         if seen["grads"] is None:
@@ -1689,7 +1806,9 @@ def moe_train_check(cards, peer) -> dict:
     tsm._update = stacked_update
     try:
         with set_mesh(make_host_mesh((1, 4), device=c0)):
-            want, want_losses = moe_train_steps(step(), fresh(), batches)
+            want, want_losses = moe_train_steps(
+                step(), fresh(), batches, lambda st: seen["first"].update(
+                    want=[t.cpu() for t in leaves(st["params"])]))
     finally:
         tsm._update = update
     want = want["params"]
@@ -1697,46 +1816,44 @@ def moe_train_check(cards, peer) -> dict:
     state = fresh()
     delta = max((a.float() - b.float()).abs().max().item()
                 for a, b in zip(leaves(want), leaves(state["params"])))
-    trees = place_state(state, peer)
+    delta1 = max((a - b.cpu()).abs().max().item()
+                 for a, b in zip(seen["first"]["want"],
+                                 leaves(state["params"])))
+    trees = shd.place_state(state, peer, cfg)
+    cuts = shd.card_cuts(cfg, peer)
     del state
     before = launch_counts()
     tsm._update = peer_update
     try:
         with set_mesh(peer):
-            trees, losses = moe_train_steps(step(), trees, batches)
+            trees, losses = moe_train_steps(
+                step(), trees, batches, lambda tr: seen["first"].update(
+                    got=[t.cpu() for t in leaves(shd.unplace_state(
+                        tr, peer, cfg)["params"])]))
     finally:
         tsm._update = update
     sync_all(cards)
     launched = {k: (v - before[k]) / len(batches)
                 for k, v in launch_counts().items() if v != before[k]}
-    rep = [[t for path, t in leaves_with_paths(tree) if not is_expert(path)]
-           for tree in trees]
+    rep = [[t for path, t in leaves_with_paths(tree)
+            if not shd.is_cut(path, cuts[0])] for tree in trees]
     replicas = all(torch.equal(a.to(c0), b)
                    for other in rep[1:] for a, b in zip(other, rep[0]))
     grad_rel = (0.0, "")
     for c in range(len(cards)):
         for (path, g), mine in zip(seen["grads"], seen["cards"][c]):
-            ref = cut_experts(g, path[-1], [c], len(cards)) \
-                if is_expert(path) else g
+            ref = card_part(g, path, [c], len(cards), cuts[c])
             rel = ((mine - ref).abs().max().item()
                    / max(ref.abs().max().item(), 1e-30))
             grad_rel = max(grad_rel, (rel, f"card {c} {'/'.join(path)}"))
-    got = unplace_state(trees, peer)["params"]
+    got = shd.unplace_state(trees, peer, cfg)["params"]
+    bound1, held1 = MOE_TRAIN_DELTA_SHARE * delta1, 2 * seen["lrs"][0]
+    first = param_diffs(seen["first"]["got"], seen["first"]["want"],
+                        bound1, seen["cond1"])
     bound, held = MOE_TRAIN_DELTA_SHARE * delta, 2 * sum(seen["lrs"])
-    worst, where, beyond, cond_worst = 0.0, "", 0, 0.0
-    for i, (a, b, cond) in enumerate(zip(leaves(got), leaves(want),
-                                         seen["cond"])):
-        diff = (a - b).abs()
-        err = diff.max().item()
-        if err >= worst:
-            worst, where = err, f"leaf {i} {tuple(b.shape)}"
-        out_ = diff > bound
-        beyond += int(out_.sum())
-        check(not bool((out_ & ~cond).any()), f"moe-train: leaf {i} "
-              f"{tuple(b.shape)} differs beyond {bound} where the stacked "
-              f"|g| stayed above {MOE_TRAIN_EPS_CONDITIONED}")
-        if bool(out_.any()):
-            cond_worst = max(cond_worst, diff[out_].max().item())
+    last = param_diffs(leaves(got), leaves(want), bound, seen["cond"])
+    worst, where, beyond = last["worst"], last["where"], last["beyond"]
+    cond_worst = max(last["cond_worst"], last["bad_worst"])
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
     out = {"layers": 1, "dtype": "float32", "steps": len(batches),
            "losses": losses, "stacked_losses": want_losses,
@@ -1745,6 +1862,8 @@ def moe_train_check(cards, peer) -> dict:
            "worst_leaf": where, "stacked_delta": delta,
            "param_bound": bound, "elements_beyond_bound": beyond,
            "their_worst_diff": cond_worst, "conditioned_bound": held,
+           "step1": {**first, "bound": bound1, "held": held1,
+                     "delta": delta1},
            "replicas_bitwise": replicas, "launches_a_step": launched,
            "peak_gib": peaks_gib(cards)}
     print(f"moe-train at 1 layer, float32 (TF32 off), bfloat16 moments, "
@@ -1755,12 +1874,19 @@ def moe_train_check(cards, peer) -> dict:
           f"limit {MOE_TRAIN_LOSS_RTOL}); step 1's gradients, every card's "
           f"against the stacked step's: largest difference / the leaf's "
           f"largest |g| {grad_rel[0]:.3g} ({grad_rel[1]}; limit "
-          f"{MOE_TRAIN_GRAD_REL}); parameters' largest difference {worst} "
-          f"({where}) against the stacked update's largest |change| "
-          f"{delta} (limit {MOE_TRAIN_DELTA_SHARE} of it, {bound:.4g}): "
-          f"{beyond} elements beyond it, each with a stacked |g| under "
-          f"{MOE_TRAIN_EPS_CONDITIONED} at some step, the largest "
-          f"{cond_worst:.4g} (held within 2 x the summed lr, {held:.4g}); "
+          f"{MOE_TRAIN_GRAD_REL}); after step 1 the parameters' largest "
+          f"difference {first['worst']} ({first['where']}) against its "
+          f"largest |change| {delta1} (limit {MOE_TRAIN_DELTA_SHARE} of it, "
+          f"{bound1:.4g}): {first['beyond']} elements beyond it, "
+          f"{first['beyond'] - first['bad']} of them with a stacked |g| "
+          f"under {MOE_TRAIN_EPS_CONDITIONED} or {MOE_TRAIN_COND_SHARE} of "
+          f"its leaf's largest (the largest {first['cond_worst']:.4g}, held "
+          f"within 2 x its lr {held1:.4g}); after step "
+          f"{len(batches)} the largest difference {worst} ({where}) against "
+          f"the largest |change| {delta} ({bound:.4g}): {beyond} elements "
+          f"beyond it, {last['bad']} of them outside the ε region (the "
+          f"largest of all {cond_worst:.4g}, held within 2 x the summed lr "
+          f"{held:.4g}); "
           f"every card's replicated leaves the same bits: {replicas}; "
           f"launches a step {launched}; peak GiB a card "
           f"{out['peak_gib']}", flush=True)
@@ -1770,8 +1896,13 @@ def moe_train_check(cards, peer) -> dict:
     check(grad_rel[0] <= MOE_TRAIN_GRAD_REL, f"moe-train: step 1's "
           f"gradients differ from the stacked step's by {grad_rel[0]} of "
           f"the leaf's largest |g| ({grad_rel[1]})")
-    check(cond_worst <= held, f"moe-train: an element in AdamW's ε region "
-          f"differs by {cond_worst}, beyond 2 x the summed lr {held}")
+    check(first["bad"] == 0 and first["cond_worst"] <= held1,
+          f"moe-train: after step 1 {first['bad']} parameters differ beyond "
+          f"{bound1} outside AdamW's ε region (the largest "
+          f"{first['bad_worst']}), or one in it by {first['cond_worst']}, "
+          f"beyond 2 x its lr {held1}")
+    check(cond_worst <= held, f"moe-train: a parameter differs by "
+          f"{cond_worst}, beyond 2 x the summed lr {held}")
     del trees, got, want, rep, seen
     free(cards)
     return out
@@ -1793,6 +1924,7 @@ def moe_train_deep(cards, peer) -> dict:
     from repro_torch.launch.mesh import set_mesh
     from repro_torch.optim import init_opt_state
     from repro_torch.training import TrainStepConfig, make_train_step
+    from repro_torch.training.sharding import card_cuts
 
     full = get_config("mixtral_8x22b")
     reck = moe_train_reckoning(full, cards)
@@ -1812,7 +1944,8 @@ def moe_train_deep(cards, peer) -> dict:
     opt = moe_train_opt(cfg)
     t0 = time.perf_counter()
     trees = [{"params": p, "opt": init_opt_state(p, opt)}
-             for p in placed_trees(cfg, cards, seed=0)]
+             for p in placed_trees(cfg, cards, seed=0,
+                                   cuts=card_cuts(cfg, peer))]
     build_s = time.perf_counter() - t0
     batches = moe_train_batches(cfg, cards[0], 1 + MOE_TRAIN_TIMED)
     step = make_train_step(cfg, TrainStepConfig(), opt, device=cards[0])
@@ -2241,6 +2374,484 @@ def tp(cards, smi) -> dict:
     return out
 
 
+#: ``--tp-train``: the check's depth and steps, the tokens of every run,
+#: the timed steps, what the reckoning leaves of a card for the caching
+#: allocator and the CUDA context, and (a)'s float32 bound on step 1's
+#: gradients, each card's against the unsharded step's (a share of the
+#: leaf's largest |g|: only the cross-card sums' order differs).
+TP_TRAIN_CHECK_LAYERS = 2
+TP_TRAIN_CHECK_STEPS = 3
+TP_TRAIN_TOKENS = (8, 512)
+TP_TRAIN_TIMED = 2
+TP_TRAIN_HEADROOM = 6e9
+TP_TRAIN_GRAD_REL = 1e-5
+
+
+def tp_train_opt(cfg):
+    from repro_torch.optim import OptimConfig
+    return OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       moment_dtype=cfg.optimizer_dtype)
+
+
+def tp_train_batches(cfg, dev, count: int) -> list[dict]:
+    from repro_torch.data import DataConfig, SyntheticDataset, batch_to
+    b, s = TP_TRAIN_TOKENS
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=s, global_batch=b))
+    return [batch_to(ds.batch_at(i), dev) for i in range(count)]
+
+
+class card_readings:
+    """Inside: each card's loss and ``grad_norm`` a step of a peer step
+    (``seen[card]``: a list of (loss, gnorm) a step), and with ``grads``
+    each card's first gradients copied to the host (``grads[card]``),
+    recorded where the step computes the loss and hands the gradients to
+    AdamW."""
+
+    def __init__(self, grads: bool = False):
+        self.seen: dict = {}
+        self.grads: dict | None = {} if grads else None
+
+    def __enter__(self):
+        from repro_torch.models import moe_dist
+        from repro_torch.models import transformer as tfm
+        from repro_torch.training import train_step as tsm
+
+        self.saved = tfm.loss_fn, tsm._update
+        loss_fn, update = self.saved
+
+        def loss(params, cfg, batch, aux_coef=0.01):
+            out = loss_fn(params, cfg, batch, aux_coef)
+            share = moe_dist.current_share()
+            if share is not None:
+                self.seen.setdefault(share[1], []).append([out.detach()])
+            return out
+
+        def upd(params, grads, opt_state, opt, **kw):
+            share = moe_dist.current_share()
+            if share is not None and "gnorm" in kw:
+                self.seen[share[1]][-1].append(kw["gnorm"])
+                if self.grads is not None and share[1] not in self.grads:
+                    self.grads[share[1]] = [g.cpu() for g in leaves(grads)]
+            return update(params, grads, opt_state, opt, **kw)
+
+        tfm.loss_fn, tsm._update = loss, upd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tfm
+        from repro_torch.training import train_step as tsm
+
+        tfm.loss_fn, tsm._update = self.saved
+        return False
+
+    def same_bits(self, on) -> bool:
+        """Every card's loss and ``grad_norm`` the same bits at every
+        step."""
+        rows = [self.seen[c] for c in sorted(self.seen)]
+        return all(len(r) == len(rows[0]) for r in rows) and all(
+            torch.equal(a.to(on), b.to(on)) for r in rows[1:]
+            for step, ref in zip(r, rows[0]) for a, b in zip(step, ref))
+
+
+def tp_train_check(cards, peer, dtype: str) -> dict:
+    """``--tp-train`` (a): Llama-3 8B at full width over
+    TP_TRAIN_CHECK_LAYERS layers in ``dtype`` (TF32 off), seeded weights
+    and float32 moments, TP_TRAIN_CHECK_STEPS steps on the four cards
+    from ``place_state(state, mesh, cfg)`` against one card's unsharded
+    ``make_train_step`` from the same seed and batches (in the same
+    process). Hard: every card's loss, ``grad_norm`` and replicated
+    leaves the same bits; losses within rtol MOE_TRAIN_LOSS_RTOL (path
+    Z's). In float32 also hard: step 1's gradients, each card's against
+    its part of the unsharded step's, within TP_TRAIN_GRAD_REL of each
+    leaf's largest |g|; every updated parameter within
+    MOE_TRAIN_DELTA_SHARE of the unsharded update's largest |change|, but
+    for the elements of :func:`ill_conditioned` at some step (held within
+    twice the steps' summed lr and counted). In bfloat16 both are reported: each update rounds to
+    bfloat16, so two summation orders leave parameters a bfloat16 step or
+    more apart (``chip_smoke.py``'s AC_LAYERS note)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.training import (TrainStepConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import train_step as tsm
+    from repro_torch.tree import leaves_with_paths
+
+    c0 = cards[0]
+    cfg = dataclasses.replace(get_config("llama3_8b"),
+                              num_layers=TP_TRAIN_CHECK_LAYERS, dtype=dtype)
+    opt = tp_train_opt(cfg)
+    batches = tp_train_batches(cfg, c0, TP_TRAIN_CHECK_STEPS)
+    update = tsm._update
+    seen: dict = {"cond": None, "grads": None, "lrs": []}
+
+    def unsharded_update(params, grads, opt_state, opt_, **kw):
+        small = ill_conditioned(grads)
+        seen["cond"] = small if seen["cond"] is None else [
+            a | b for a, b in zip(seen["cond"], small)]
+        if seen["grads"] is None:
+            seen["grads"] = [(path, g.cpu())
+                             for path, g in leaves_with_paths(grads)]
+        out = update(params, grads, opt_state, opt_, **kw)
+        seen["lrs"].append(float(out[2]["lr"]))
+        return out
+
+    def fresh():
+        return init_state(cfg, opt, generator=torch.Generator(
+            device=c0).manual_seed(91), device=c0)
+
+    def step():
+        return make_train_step(cfg, TrainStepConfig(), opt, device=c0)
+
+    tsm._update = unsharded_update
+    try:
+        want, want_losses = moe_train_steps(step(), fresh(), batches)
+    finally:
+        tsm._update = update
+    want = want["params"]
+    free(cards)
+    state = fresh()
+    delta = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(leaves(want), leaves(state["params"])))
+    trees = shd.place_state(state, peer, cfg)
+    cuts = shd.card_cuts(cfg, peer)
+    del state
+    free(cards)
+    before = launch_counts()
+    with card_readings(grads=True) as rec, set_mesh(peer):
+        trees, losses = moe_train_steps(step(), trees, batches)
+    sync_all(cards)
+    launched = {k: (v - before[k]) / len(batches)
+                for k, v in launch_counts().items() if v != before[k]}
+    rep = [[t for path, t in leaves_with_paths(tree)
+            if not shd.is_cut(path, cuts[0])] for tree in trees]
+    replicas = all(torch.equal(a.to(c0), b)
+                   for other in rep[1:] for a, b in zip(other, rep[0]))
+    del rep
+    grad_rel = (0.0, "")
+    for c in range(len(cards)):
+        for (path, g), mine in zip(seen["grads"], rec.grads[c]):
+            ref = card_part(g, path, [c], len(cards), cuts[c])
+            rel = ((mine.float() - ref.float()).abs().max().item()
+                   / max(ref.float().abs().max().item(), 1e-30))
+            grad_rel = max(grad_rel, (rel, f"card {c} {'/'.join(path)}"))
+    got = shd.unplace_state(trees, peer, cfg)["params"]
+    del trees
+    bound, held = MOE_TRAIN_DELTA_SHARE * delta, 2 * sum(seen["lrs"])
+    worst, where, beyond, cond, cond_worst = 0.0, "", 0, 0, 0.0
+    for i, (a, b, small) in enumerate(zip(leaves(got), leaves(want),
+                                          seen["cond"])):
+        diff = (a.float() - b.float()).abs()
+        err = diff.max().item()
+        if err >= worst:
+            worst, where = err, f"leaf {i} {tuple(b.shape)}"
+        out_ = diff > bound
+        inside = out_ & small & (diff <= held)
+        cond += int(inside.sum())
+        bad = out_ & ~inside
+        beyond += int(bad.sum())
+        if bool(bad.any()):
+            first = [tuple(int(x) for x in ix) for ix in bad.nonzero()[:3]]
+            print(f"tp-train ({dtype}): leaf {i} {tuple(b.shape)}: "
+                  f"{int(bad.sum())} elements beyond, e.g. at {first}: got "
+                  f"{[a[ix].item() for ix in first]}, want "
+                  f"{[b[ix].item() for ix in first]}", flush=True)
+        if bool(inside.any()):
+            cond_worst = max(cond_worst, diff[inside].max().item())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    out = {"layers": cfg.num_layers, "dtype": dtype, "steps": len(batches),
+           "losses": losses, "unsharded_losses": want_losses,
+           "loss_rel": loss_rel, "grad_rel_step1": grad_rel[0],
+           "grad_rel_where": grad_rel[1], "worst_param_diff": worst,
+           "worst_leaf": where, "unsharded_delta": delta,
+           "param_bound": bound, "eps_region_beyond_bound": cond,
+           "their_worst_diff": cond_worst, "conditioned_bound": held,
+           "others_beyond_bound": beyond,
+           "metrics_same_bits": rec.same_bits(c0),
+           "replicas_bitwise": replicas, "launches_a_step": launched,
+           "cuts": [str(c) for c in cuts], "peak_gib": peaks_gib(cards)}
+    print(f"tp-train at {cfg.num_layers} layers, {dtype} (TF32 off), "
+          f"float32 moments, {len(batches)} steps of {TP_TRAIN_TOKENS[0]} x "
+          f"{TP_TRAIN_TOKENS[1]} tokens on {peer} a card, from place_state: "
+          f"losses {losses} (one card's unsharded step {want_losses}; "
+          f"largest relative difference {loss_rel:.3g}, limit "
+          f"{MOE_TRAIN_LOSS_RTOL}); every card's loss and grad_norm the same "
+          f"bits {out['metrics_same_bits']}, replicated leaves "
+          f"{replicas}; step 1's gradients, every card's against its part of "
+          f"the unsharded step's: largest difference / the leaf's largest "
+          f"|g| {grad_rel[0]:.3g} ({grad_rel[1]}); parameters' largest "
+          f"difference {worst} ({where}) against the unsharded update's "
+          f"largest |change| {delta} (limit {MOE_TRAIN_DELTA_SHARE} of it, "
+          f"{bound:.4g}): {cond} elements beyond it with an unsharded |g| "
+          f"under {MOE_TRAIN_EPS_CONDITIONED} or {MOE_TRAIN_COND_SHARE} of "
+          f"its leaf's largest at some step (largest {cond_worst:.4g}, "
+          f"within 2 x the summed lr {held:.4g}), {beyond} others; "
+          f"launches a step {launched}; peak "
+          f"GiB a card {out['peak_gib']}", flush=True)
+    check(out["metrics_same_bits"] and replicas,
+          f"tp-train ({dtype}): the cards' metrics or replicated leaves "
+          f"differ")
+    check(loss_rel <= MOE_TRAIN_LOSS_RTOL, f"tp-train ({dtype}): losses "
+          f"{losses} vs the unsharded step's {want_losses}")
+    if dtype == "float32":
+        check(grad_rel[0] <= TP_TRAIN_GRAD_REL, f"tp-train: step 1's "
+              f"gradients differ from the unsharded step's by "
+              f"{grad_rel[0]} of the leaf's largest |g| ({grad_rel[1]})")
+        check(beyond == 0, f"tp-train: {beyond} parameters beyond "
+              f"{bound} outside AdamW's ε region, or beyond {held} in it")
+    del got, want, seen, rec
+    free(cards)
+    return out
+
+
+def tp_train_reckoning(cfg, peer, cards) -> dict:
+    """Card 0's bytes training ``L`` layers of a dense decoder tensor
+    parallel on the peer mesh of ``cards`` (a logical device a card),
+    reckoned on meta tensors: its placed state (``place_card`` of
+    ``state_shapes`` under its cut), the gradients (the parameters'
+    bytes), the update's new parameters and moments and its float32
+    temporaries (nine of the largest leaf's or of ``UPDATE_SLICE``
+    elements); the psums' buffers, each psum's own (2.75 times its
+    ``(T, d)`` operand a card in the model's dtype: three ring shifts'
+    sends and receipts of a quarter each and the gather's shard and
+    replicas) for the ``4 + 5L`` psums a step (``chip_smoke.py``'s
+    ``tp_step_psums``); the activations: each layer's checkpointed input
+    ``(T, d)``, one layer's working set in the backward (its q, k, v,
+    attention output and their gradients, the MLP's hidden products:
+    about ``10·d + 6·ff/4`` elements a token) and the loss's logits over
+    the card's vocabulary (in the model's dtype, their float32 copy, its
+    gradient and the softmax's). The deepest ``L`` of at most the
+    config's whose bytes leave TP_TRAIN_HEADROOM of the card."""
+    import dataclasses
+    import math
+
+    from repro_torch.optim.adamw import UPDATE_SLICE
+    from repro_torch.training import sharding as shd
+    from repro_torch.training.train_step import state_shapes
+
+    opt = tp_train_opt(cfg)
+    tokens = math.prod(TP_TRAIN_TOKENS)
+    elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    cut = shd.card_cuts(cfg, peer)[0]
+    d, n = cfg.d_model, len(cards)
+
+    def card_bytes(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        tree = shd.place_card(state_shapes(c, opt), list(cut.held),
+                              cut.model, "meta", cut)
+        params = sum(t.numel() * t.element_size()
+                     for t in leaves(tree["params"]))
+        moments = sum(t.numel() * t.element_size()
+                      for t in leaves(tree["opt"]))
+        largest = max(t.numel() for t in leaves(tree["params"]))
+        temps = 9 * 4 * min(largest, UPDATE_SLICE)
+        psums = (4 + 5 * layers) * 2.75 * tokens * d * elt
+        acts = tokens * (layers * d * elt + (10 * d + 6 * cfg.d_ff // n)
+                         * elt + cfg.vocab_size // n * (elt + 12))
+        return 3 * params + 2 * moments, temps, psums, acts
+
+    zero, one = card_bytes(0), card_bytes(1)
+    total = torch.cuda.mem_get_info(cards[0])[1]
+    per_layer = sum(one) - sum(zero)
+    depth = min(cfg.num_layers,
+                int((total - TP_TRAIN_HEADROOM - sum(zero)) // per_layer))
+    at = card_bytes(depth)
+    return {"card_bytes": total, "fixed_bytes": sum(zero),
+            "state_bytes_a_layer": one[0] - zero[0],
+            "psum_bytes_a_layer": one[2] - zero[2],
+            "act_bytes_a_layer": one[3] - zero[3],
+            "update_temps_bytes": one[1], "layers": depth,
+            "state_bytes": at[0], "psum_bytes": at[2], "act_bytes": at[3],
+            "reckoned_bytes": sum(at)}
+
+
+def tp_train_deep(cards, peer, name: str) -> dict:
+    """``--tp-train`` (b) and (c): ``name``'s config (full width, its
+    vocabulary, dtype, moments and ``remat="full"``) at the deepest depth
+    :func:`tp_train_reckoning` admits, at most all its layers, the trees
+    drawn layer by layer (no whole model on any card) with zero moments:
+    the first step (the ring's programs built), a step by CUDA events on
+    every card (the slowest), tokens/s, each card's peak GiB against the
+    reckoning, launches a step, every card's metrics the same bits, one
+    step under the profiler."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._graph import launch_counts
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.optim import init_opt_state
+    from repro_torch.training import TrainStepConfig, make_train_step
+    from repro_torch.training import sharding as shd
+
+    full = get_config(name)
+    reck = tp_train_reckoning(full, peer, cards)
+    depth = reck["layers"]
+    print(f"tp-train reckoning for {name} (meta tensors, card 0 of 4): "
+          f"{reck['fixed_bytes'] / 1e9:.3f} GB fixed (embedding and head "
+          f"blocks and norms with gradients, moments and the update; the "
+          f"update's temporaries; 4 psums; the loss's logits), a layer "
+          f"{reck['state_bytes_a_layer'] / 1e9:.3f} GB of state (parameters, "
+          f"gradients, moments, the update's new ones) + "
+          f"{reck['psum_bytes_a_layer'] / 1e9:.3f} GB of psum buffers + "
+          f"{reck['act_bytes_a_layer'] / 1e9:.3f} GB of activations; the "
+          f"card {reck['card_bytes'] / 1e9:.2f} GB less "
+          f"{TP_TRAIN_HEADROOM / 1e9:.0f} GB: {depth} of {full.num_layers} "
+          f"layers ({reck['reckoned_bytes'] / 1e9:.2f} GB reckoned: state "
+          f"{reck['state_bytes'] / 1e9:.2f}, psums "
+          f"{reck['psum_bytes'] / 1e9:.2f}, activations "
+          f"{reck['act_bytes'] / 1e9:.2f})", flush=True)
+    check(depth >= 1, f"tp-train: no layer of {name} fits a card")
+    cfg = dataclasses.replace(full, num_layers=depth)
+    opt = tp_train_opt(cfg)
+    cuts = shd.card_cuts(cfg, peer)
+    t0 = time.perf_counter()
+    trees = [{"params": p, "opt": init_opt_state(p, opt)}
+             for p in placed_trees(cfg, cards, seed=0, cuts=cuts)]
+    build_s = time.perf_counter() - t0
+    batches = tp_train_batches(cfg, cards[0], 1 + TP_TRAIN_TIMED)
+    step = make_train_step(cfg, TrainStepConfig(), opt, device=cards[0])
+    reset_peaks(cards)
+    state = {"trees": trees, "i": 0, "losses": []}
+    del trees
+
+    def one():
+        bt = batches[state["i"] % len(batches)]
+        state["trees"], m = step(state["trees"], bt)
+        state["losses"].append(m["loss"])
+        state["i"] += 1
+
+    with card_readings() as rec, set_mesh(peer):
+        t0 = time.perf_counter()
+        one()                                 # builds the ring's programs
+        sync_all(cards)
+        first_s = time.perf_counter() - t0
+        before = launch_counts()
+        step_ms, step_per = cards_call_ms(one, cards, TP_TRAIN_TIMED,
+                                          warmup=0)
+        launched = {k: (v - before[k]) / TP_TRAIN_TIMED
+                    for k, v in launch_counts().items() if v != before[k]}
+        peak = peaks_gib(cards)
+    same = rec.same_bits(cards[0])
+    with set_mesh(peer):
+        prof = moe_profile(one, cards)
+    losses = [float(x) for x in state["losses"]]
+    del state, rec, step
+    free(cards)
+    tokens = math.prod(TP_TRAIN_TOKENS)
+    out = {"name": name, "reckoning": reck, "layers": depth,
+           "vocab": cfg.vocab_size, "moments": opt.moment_dtype,
+           "build_s": build_s, "first_step_s": first_s, "step_ms": step_ms,
+           "step_ms_cards": step_per, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_gib": peak, "losses": losses, "metrics_same_bits": same,
+           "launches_a_step": launched, "profile": prof}
+    print(f"tp-train {name} at {depth} of {full.num_layers} layers on 4 "
+          f"cards (full width, vocabulary {cfg.vocab_size}, {cfg.dtype}, "
+          f"{opt.moment_dtype} moments, remat full, {TP_TRAIN_TOKENS[0]} x "
+          f"{TP_TRAIN_TOKENS[1]} tokens): a step {step_ms:.2f} ms (CUDA "
+          f"events, slowest card; cards {[round(x, 2) for x in step_per]}) "
+          f"= {out['tokens_per_s']:.0f} tokens/s; the first step (the "
+          f"ring's programs built) {first_s:.2f} s; drawn and placed in "
+          f"{build_s:.1f} s; losses {losses}; every card's loss and "
+          f"grad_norm the same bits {same}; peak GiB a card {peak} "
+          f"(reckoned {reck['reckoned_bytes'] / 2**30:.2f}); launches a "
+          f"step {launched}", flush=True)
+    print(f"tp-train {name} at {depth} layers, profiler, one step: "
+          f"{prof['device_ms_all_cards']:.2f} ms of device time over the 4 "
+          f"cards in {prof['kernels']} kernels; the ring's kernels "
+          f"{prof['by_kernel']} ms over the cards; top (name, ms, count): "
+          f"{prof['top']}", flush=True)
+    check(same and all(math.isfinite(x) for x in losses),
+          f"tp-train {name}: losses {losses}, every card the same bits "
+          f"{same}")
+    return out
+
+
+def tp_train_psums(peer, cards, d: int) -> dict:
+    """One forward g psum and one backward f psum of ``(8, 512, d)``
+    bfloat16 a card (:mod:`repro_torch.models.tensor_parallel`'s
+    ``psum`` and ``enter``), each in card shares in lockstep over a peer
+    ring of its own: the call by CUDA events on every card (the slowest)
+    and the ring's kernels' device ms a card from the profiler; beside
+    them :func:`psum_times` of the same operand (its program's replay,
+    NCCL's all-reduce, the bytes a card takes in at 450 GB/s and the
+    dry-run's one-link term)."""
+    from repro_torch.comm import collectives as coll
+    from repro_torch.models import moe_dist
+    from repro_torch.models import tensor_parallel as tp
+
+    b, s = TP_TRAIN_TOKENS
+    gen = torch.Generator(device=cards[0]).manual_seed(5)
+    xs = [torch.randn(b, s, d, generator=gen, device=cards[0]).to(
+        torch.bfloat16).to(c) for c in cards]
+
+    def runner(kind: str):
+        ring = coll.PeerRing(peer.session.engine)
+
+        def body(lock, card):
+            with moe_dist.card_share(lock, card), \
+                    torch.autograd.set_multithreading_enabled(False):
+                if kind == "g":
+                    tp.psum(xs[card])
+                else:
+                    x = xs[card].detach().requires_grad_()
+                    with torch.enable_grad():
+                        (y,) = tp.enter(x)
+                        torch.autograd.grad(y, x, grad_outputs=xs[card])
+
+        def call():
+            ring.begin()
+            lock = coll.LockstepRing(ring)
+            coll.run_in_lockstep(lock, [
+                (c, lambda card, lock=lock: body(lock, card))
+                for c in cards])
+        return call
+
+    out = {"rows": b * s, "d": d}
+    for kind in ("g", "f"):
+        call = runner(kind)
+        call_ms, per = cards_call_ms(call, cards, 10)
+        prof = moe_profile(call, cards)
+        out[kind] = {"call_ms": call_ms, "call_ms_cards": per,
+                     "ring_ms_a_card": sum(prof["by_kernel"].values())
+                     / len(cards), "by_kernel": prof["by_kernel"]}
+    out["psum"] = psum_times(peer.session, cards, b * s, d)
+    return out
+
+
+def tp_train(cards, smi) -> dict:
+    """``--tp-train``: Llama-3 8B, and Nemotron-4 340B at its whole
+    vocabulary, trained tensor parallel on a peer mesh a card (module
+    docstring)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    peer = make_host_mesh((1, 4), devices=cards)
+    # the measurements first, the checks against one card after them
+    out = {"cards": smi,
+           "llama3_8b": tp_train_deep(cards, peer, "llama3_8b"),
+           "nemotron_4_340b": tp_train_deep(cards, peer, "nemotron_4_340b"),
+           "psums": tp_train_psums(peer, cards, 4096)}
+    row = out["psums"]
+    p = row["psum"]
+    print(f"tp-train psums of ({row['rows']}, {row['d']}) bfloat16 a card on "
+          f"4 cards ({smi[0]}): forward g {row['g']['call_ms']:.4f} ms a call "
+          f"(CUDA events, slowest card; one host thread a card), its ring "
+          f"kernels {row['g']['ring_ms_a_card']:.4f} ms a card (profiler); "
+          f"backward f {row['f']['call_ms']:.4f} ms, ring kernels "
+          f"{row['f']['ring_ms_a_card']:.4f} ms a card; the same psum's "
+          f"program replayed {p['replay_ms']:.4f} ms; NCCL's all-reduce "
+          f"{p['nccl_ms']} ms; bound {p['bound_ms']:.4f} ms "
+          f"({p['wire_bytes_a_card'] / 1e6:.2f} MB into a card at 450 "
+          f"GB/s); the dry-run's modeled term {p['modeled_ms']:.4f} ms (one "
+          f"NVLink 4 link)", flush=True)
+    out["check_float32"] = tp_train_check(cards, peer, "float32")
+    out["check_bfloat16"] = tp_train_check(cards, peer, "bfloat16")
+    return out
+
+
 def timed_send(sess, x, src: int, dst: int, cards, **kw):
     """One ``sess.send`` synced on every card: (received, host ms, its
     sample's plan + lower + schedule ms, capture ms, backoff slept ms)."""
@@ -2649,6 +3260,9 @@ def main() -> int:
     ap.add_argument("--tp", action="store_true",
                     help="serve Nemotron-4 340B tensor parallel on a peer "
                          "mesh a card instead")
+    ap.add_argument("--tp-train", action="store_true",
+                    help="train Llama-3 8B and Nemotron-4 340B tensor "
+                         "parallel on a peer mesh a card instead")
     ap.add_argument("--src", help="another checkout's src/ directory to "
                                   "import the package from")
     args = ap.parse_args()
@@ -2678,9 +3292,18 @@ def main() -> int:
                       "flash_attention", "flash_attention_bwd"))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     if (args.sweep or args.collectives or args.training or args.moe
-            or args.moe_train or args.health or args.tp):
+            or args.moe_train or args.health or args.tp or args.tp_train):
         if args.sweep:
             sweep(cards)
+        elif args.tp_train:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            results = tp_train(cards, smi)
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out",
+                                   "peer_tp_train.json"), "w") as f:
+                json.dump(results, f, indent=1, default=str)
+            print(json.dumps({"tp_train": results}, default=str),
+                  flush=True)
         elif args.tp:
             torch.backends.cuda.matmul.allow_tf32 = False
             results = tp(cards, smi)
