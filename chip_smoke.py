@@ -554,8 +554,41 @@ What it does, in order (any failed check exits nonzero):
     replicated leaves the same bits, losses and parameters within path
     Z's limits of the unsharded step (AdamW's ε region counted apart);
     the step ms of every run;
-37. one JSON line ``{"kernels": [...]}``, then as the last line
-    ``{"ok": true, "device": {...}}``.
+37. main path AD, counters set to 0 before each of its six runs and read
+    after it: the state-space mixers tensor parallel on a peer mesh,
+    RWKV-6 1.6B (24 layers) and Hymba-1.5B (32 layers) at full width in
+    bfloat16 on paths G's and K's seeded weights and requests. Four
+    logical devices on the one card: nothing is cut, and tokens, prefill
+    and decode logits are paths G's and K's bit for bit. The two-card
+    layout ``[0, 0, 1, 1]`` emulated on the card: each card's tree its 16
+    of RWKV-6's 32 heads (``w_r``..``w_g`` columns, ``w_out`` rows, ``u``,
+    ``ln_x``) or 800 of Hymba's 1600 Mamba channels (both halves of
+    ``w_in``, every per-channel leaf, ``w_dt1``/``w_B``/``w_C``/``w_out``
+    rows), its hidden units and vocabulary blocks (bytes as reckoned), its
+    decode states its heads' or channels'; one eager prefill and decode
+    step (launches counted exactly), every card's logits the same bits.
+    Their twin (RWKV-6 in float64 through the scan's recurrence, Hymba in
+    float32 through its kernels): the two-card run within 2e-2 of the
+    unsharded run's largest |logit| at every position, every card's the
+    same bits, and two faults (the mixer's psum dropped, two cards' blocks
+    swapped) beyond it; the bfloat16 runs, each itself far from the twin,
+    by their median distance from it (the two-card run's within twice the
+    unsharded run's, the dropped psum's beyond that); RWKV-6's float32
+    runs through the kernel and its group norm's input at their worst
+    positions printed as witnesses. ``rwkv6_scan`` and its
+    backward at a card's 16 heads against their plain versions and timed
+    beside their whole-head times (not counted). Each model's float32
+    train step at 2 layers on the emulated layout (one host thread a card,
+    launches counted exactly), held as path AC holds its own, AdamW's ε
+    region counted and bounded, and step 1's gradients and the grad norm
+    within path M's float32 bound of the family, beside a witness (the
+    unsharded step from nudged parameters) and a control (f's psum
+    skipped) that must exceed it; RWKV-6's parameters within twice the
+    summed lr (its group norm turns float32 rounding of its gradients
+    into signs of AdamW's first update);
+38. one JSON line ``{"kernels": [...]}`` (``rwkv6_scan`` and
+    ``rwkv6_scan_bwd`` with their times at a card's heads), then as the
+    last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1307,6 +1340,33 @@ def rwkv_checks(randn, rand, errs) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def scan_bound(b, s, h, dk, dv, chunk) -> dict:
+    """The least time of the ``rwkv6_scan`` forward at ``(B, S, H, dk,
+    dv)`` with the model's types: the larger of its bytes over the HBM
+    rate and its float32 work over the peak rate."""
+    # each input read once, each output written once: r, k, v bfloat16,
+    # w float32, one u row per head, o float32, the final state float32
+    nbytes = ((2 * dk + dv) * 2 + dk * 4 + dv * 4) * b * s * h \
+        + h * dk * 4 + b * h * dk * dv * 4
+
+    # the least work of any chunking: q̃·S and the state update, 4·dk·dv
+    # per position, plus per position in chunks of c the strictly causal
+    # scores, (c - 1)·dk, P·V with the bonus diagonal, (c + 1)·dv, and the
+    # state's decay once a chunk, dk·dv / c; at the c that needs least
+    def per_position(c):
+        return 4 * dk * dv + (c - 1) * dk + (c + 1) * dv + dk * dv / c
+
+    best = min(range(1, s + 1), key=per_position)
+    flops = round(b * h * s * per_position(best))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "best_chunk": best,
+            "kernel_flops": round(b * h * s * per_position(chunk)),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def rwkv_times(randn, rand, errs) -> dict:
     """Phase 9's ``rwkv6_scan`` row at path G's prefill shape, with the
     model's types (bfloat16 r/k/v, float32 w, u and output, the final
@@ -1351,23 +1411,10 @@ def rwkv_times(randn, rand, errs) -> dict:
         sum(ev[i].elapsed_time(ev[i + 1]) for ev in events[2:]) / iters
         for i in (0, 1))
     workspace = ws.numel() * ws.element_size()
-    # each input read once, each output written once: r, k, v bfloat16,
-    # w float32, one u row per head, o float32, the final state float32
-    nbytes = ((2 * dk + dv) * 2 + dk * 4 + dv * 4) * b * s * h \
-        + h * dk * 4 + b * h * dk * dv * 4
-    # the least work of any chunking: q̃·S and the state update, 4·dk·dv
-    # per position, plus per position in chunks of c the strictly causal
-    # scores, (c - 1)·dk, P·V with the bonus diagonal, (c + 1)·dv, and the
-    # state's decay once a chunk, dk·dv / c; at the c that needs least
-    def per_position(c):
-        return 4 * dk * dv + (c - 1) * dk + (c + 1) * dv + dk * dv / c
-
-    best = min(range(1, s + 1), key=per_position)
-    flops = round(b * h * s * per_position(best))
-    kernel_flops = round(b * h * s * per_position(chunk))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    bound = max(bytes_ms, ops_ms)
+    bnd = scan_bound(b, s, h, dk, dv, chunk)
+    nbytes, flops, kernel_flops, best = (bnd[k] for k in (
+        "bytes", "flops", "kernel_flops", "best_chunk"))
+    bytes_ms, ops_ms, bound = bnd["bytes_ms"], bnd["ops_ms"], bnd["bound_ms"]
     print(f"rwkv6_scan {RWKV_SHAPE} bf16 r/k/v, f32 w/u/out + state, chunk "
           f"{chunk}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({flops} float32"
           f" FLOPs in chunks of {best} at 67 TFLOP/s = {ops_ms:.4f} ms, the "
@@ -1702,11 +1749,20 @@ def serving_paths(dev, errs, per_path, read_path) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
-def rwkv_path(dev, errs, per_path, read_path) -> None:
+def served_readings(engine, prompts, new, toks, outs, logits) -> dict:
+    """A serving path's readings that path AD holds its peer meshes to:
+    the prompts and ``new``, generate's tokens, the padded prompts, the
+    prefill logits and one decode program step's after them (on the host)."""
+    return {"prompts": prompts, "new": new, "outs": outs,
+            "toks": toks.cpu(), "logits": logits.cpu(),
+            "dec": decode_logits(engine, toks, logits).cpu()}
+
+
+def rwkv_path(dev, errs, per_path, read_path, at_out: dict) -> None:
     """Main path G (phase 12): serving RWKV-6 1.6B at full width, read with
     the counters set to 0 just before it; then the kernel at layer 0's
     real prefill, prefill-then-decode against the full prefill, and the
-    times."""
+    times. Puts :func:`served_readings` in ``at_out``."""
     from repro_torch.comm import CommSession
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6_scan import kernel as sk
@@ -1738,6 +1794,7 @@ def rwkv_path(dev, errs, per_path, read_path) -> None:
           and cache["rwkv_shift"].dtype == torch.bfloat16,
           f"path G cache {[(k, t.dtype) for k, t in cache.items()]}")
     program_checks(cfg, engine, toks, outs, "G")
+    at_out.update(served_readings(engine, prompts, new, toks, outs, logits))
 
     # the kernel at layer 0's real prefill r/k/v/w, and the decay range
     lp = tfm.layer_params(params, 0)
@@ -3322,12 +3379,13 @@ def init_model(cfg, dev, path: str):
     return params
 
 
-def hymba_path(dev, errs, per_path, read_path) -> None:
+def hymba_path(dev, errs, per_path, read_path, at_out: dict) -> None:
     """Main path K (phase 16): serving Hymba-1.5B at full width and depth
     (attention beside Mamba in every layer), read with the counters set to
     0 just before it; then the kernel at layer 0's real prefill, the Mamba
     mixer's and its scan's share of the prefill, prefill-then-decode
-    against the full prefill, and the times."""
+    against the full prefill, and the times. Puts
+    :func:`served_readings` in ``at_out``."""
     from repro_torch.comm import CommSession
     from repro_torch.configs import get_config
     from repro_torch.models import layers, ssm
@@ -3362,6 +3420,7 @@ def hymba_path(dev, errs, per_path, read_path) -> None:
                   for k in ("k", "v", "conv")),
           f"path K cache {[(k, t.dtype) for k, t in cache.items()]}")
     program_checks(cfg, engine, toks, outs, "K")
+    at_out.update(served_readings(engine, prompts, new, toks, outs, logits))
     layer0_attention_check(cfg, params, toks, errs, "K")
 
     # the Mamba mixer and its scan at layer 0's real prefill input
@@ -3609,6 +3668,56 @@ def rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv, chunk, dtype):
     return r, k, v, w, u[:1].expand(b, -1, -1), do
 
 
+def scan_bwd_errs(r, k, v, w, u, do, chunk: int):
+    """``rwkv6_scan_bwd`` on the card against its plain version on the same
+    inputs: each gradient's largest difference over its largest |value|,
+    the largest difference, and the forward kernel's chunk-start states
+    the backward read."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+
+    _, _, states = sk.rwkv6_scan_fwd_cuda(r, k, v, w, u, chunk=chunk,
+                                          out_dtype=torch.float32)
+    got = sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states=states,
+                                 chunk=chunk)
+    want = sk.rwkv6_scan_bwd_plain(r, k, v, w, u, do, chunk=chunk)
+    rel, worst = {}, 0.0
+    for gname, g, wv in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        err = (g.float() - wv.float()).abs().max().item()
+        worst = max(worst, err)
+        rel[gname] = err / wv.float().abs().max().item()
+    return rel, worst, states
+
+
+def scan_bwd_bound(b, s, h, dk, dv, chunk, states: int) -> dict:
+    """The least time of the ``rwkv6_scan`` backward at ``(B, S, H, dk,
+    dv)`` from ``states`` float32 chunk-start state elements, with the
+    model's types (:func:`scan_bound`'s terms)."""
+    # each input read once (r, k, v bfloat16; w, dO and the chunk-start
+    # states float32; one u row per head), each output written once (dr,
+    # dk, dv bfloat16, dw float32, du)
+    nbytes = ((2 * dk + dv) * 2 * 2 + dk * 4 * 2 + dv * 4) * b * s * h \
+        + states * 4 + h * dk * 4 + b * h * dk * 4
+
+    # FMAs per position in chunks of c: the four dk x dv products (dO Sᵀ,
+    # V Gᵀ, k̂ G and the reverse pass's q̃ᵀ dO), the strictly causal A,
+    # dA k̃, dAᵀ q̃ ((c - 1) / 2 each over dk) and dA ((c - 1) / 2 over
+    # dv), Aᵀ dO with its diagonal ((c + 1) / 2 over dv) and G's decay
+    # once a chunk; at the c that needs least
+    def per_position(c):
+        return (4 * dk * dv + (c - 1) / 2 * (3 * dk + dv)
+                + (c + 1) / 2 * dv + dk * dv / c)
+
+    best = min(range(1, s + 1), key=per_position)
+    flops = round(2 * b * h * s * per_position(best))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "best_chunk": best,
+            "kernel_flops": round(2 * b * h * s * per_position(chunk)),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
     """Path M (a), not counted: the ``rwkv6_scan`` backward kernel against
     its plain version at ``RWKV_BWD_SHAPE`` (bfloat16 r/k/v, float32
@@ -3707,27 +3816,10 @@ def rwkv_bwd_checks(randn, rand, errs, smi) -> dict:
               if name.startswith("rwkv6_bwd_")}
     check(len(passes) == 3, f"path M: the profiler did not see "
           f"rwkv6_scan_bwd's three kernels: {rows}")
-    # each input read once (r, k, v bfloat16; w, dO and the chunk-start
-    # states float32; one u row per head), each output written once (dr,
-    # dk, dv bfloat16, dw float32, du)
-    nbytes = ((2 * dk + dv) * 2 * 2 + dk * 4 * 2 + dv * 4) * b * s * h \
-        + states.numel() * 4 + h * dk * 4 + b * h * dk * 4
-
-    # FMAs per position in chunks of c: the four dk x dv products (dO Sᵀ,
-    # V Gᵀ, k̂ G and the reverse pass's q̃ᵀ dO), the strictly causal A,
-    # dA k̃, dAᵀ q̃ ((c - 1) / 2 each over dk) and dA ((c - 1) / 2 over
-    # dv), Aᵀ dO with its diagonal ((c + 1) / 2 over dv) and G's decay
-    # once a chunk; at the c that needs least
-    def per_position(c):
-        return (4 * dk * dv + (c - 1) / 2 * (3 * dk + dv)
-                + (c + 1) / 2 * dv + dk * dv / c)
-
-    best = min(range(1, s + 1), key=per_position)
-    flops = round(2 * b * h * s * per_position(best))
-    kernel_flops = round(2 * b * h * s * per_position(chunk))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    bound = max(bytes_ms, ops_ms)
+    bnd = scan_bwd_bound(b, s, h, dk, dv, chunk, states.numel())
+    nbytes, flops, kernel_flops, best = (bnd[k] for k in (
+        "bytes", "flops", "kernel_flops", "best_chunk"))
+    bytes_ms, ops_ms, bound = bnd["bytes_ms"], bnd["ops_ms"], bnd["bound_ms"]
     print(f"path M ({smi}): rwkv6_scan_bwd {RWKV_BWD_SHAPE} bf16 r/k/v, f32 "
           f"w/u/dO, chunk {chunk}: kernel {ms:.4f} ms back to back, one "
           f"call captured and replayed {graph_ms:.4f} ms (the forward "
@@ -3775,7 +3867,6 @@ def scan_grads_check(dev, cfg, params, batch, bound: float,
     time-mix projections' and the bonus's readings, the worst other
     leaf's and the group norm's input spread."""
     from repro_torch.kernels.rwkv6_scan import kernel as sk
-    from repro_torch.models import ssm
     from repro_torch.models import transformer as tfm
 
     leaves = _leaves(params)
@@ -3793,35 +3884,18 @@ def scan_grads_check(dev, cfg, params, batch, bound: float,
             t.requires_grad_(False)
         return out
 
-    def plain(r, k, v, w, u, *, chunk, out_dtype=None, return_state=False):
-        return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
-                                   out_dtype=out_dtype,
-                                   return_state=return_state)
-
-    spread = []
-    finish = ssm._rwkv6_finish
-
-    def recording(o, g, p, dtype):
-        var = o.float().square().mean(-1)
-        spread.append((var.min().item(), var.median().item(),
-                       var.max().item()))
-        return finish(o, g, p, dtype)
-
-    ssm._rwkv6_finish = recording
+    var: list = []
     bwd0 = sk.LAUNCHES_BWD
-    try:
+    with rwkv_patched(spread=var):
         got = grads()
-    finally:
-        ssm._rwkv6_finish = finish
+    spread = [(t.min().item(), t.median().item(), t.max().item())
+              for t in var]
+    del var
     check(sk.LAUNCHES_BWD - bwd0 == cfg.num_layers,
           f"path M: loss.backward() launched rwkv6_scan_bwd "
           f"{sk.LAUNCHES_BWD - bwd0} times, not once per layer")
-    kernel_scan = ssm.chunked_scan
-    ssm.chunked_scan = plain
-    try:
+    with rwkv_patched(plain_scan):
         want = grads()
-    finally:
-        ssm.chunked_scan = kernel_scan
     rels, other = [], (0.0, "")
     for i, (t, g, w) in enumerate(zip(leaves, got, want)):
         name = named.get(id(t))
@@ -3916,23 +3990,10 @@ def dp_against_single(path, cfg, ts, opt, dev, batch, seed,
     del lost, dp_grads
     plain_note = ""
     if cfg.family == "ssm":     # the same with the plain scan on the card
-        from repro_torch.kernels.rwkv6_scan import kernel as sk
-        from repro_torch.models import ssm
-
-        def plain(r, k, v, w, u, *, chunk, out_dtype=None,
-                  return_state=False):
-            return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
-                                       out_dtype=out_dtype,
-                                       return_state=return_state)
-
-        kernel_scan = ssm.chunked_scan
-        ssm.chunked_scan = plain
-        try:
+        with rwkv_patched(plain_scan):
             whole = _leaves(grad_fn(state["params"], batch)[1])
             mean = [sum(per) / len(per) for per in zip(*shard_grads())]
             plain_rel = _worst_rel(mean, whole)
-        finally:
-            ssm.chunked_scan = kernel_scan
         plain_note = (f"; with the plain scan the whole batch's against "
                       f"its 4 shards' mean: {plain_rel[0]:.3g} "
                       f"({plain_rel[1]})")
@@ -6937,20 +6998,36 @@ AB_CARD_OF = (0, 0, 1, 1)
 
 
 def tp_elements(cfg, cut) -> tuple[int, int]:
-    """The elements of a dense decoder's tree under ``cut`` (a card's
+    """The elements of a decoder's tree under ``cut`` (a card's
     :class:`~repro_torch.models.tensor_parallel.DenseCut`), reckoned from
-    the config alone, each cut dim at ``cut.part`` of its length: (the
-    matrices', in the model's dtype; the float32 norms')."""
+    the config alone, each cut dim at ``cut.part`` of its length: (those
+    in the model's dtype: the matrices, Mamba's convolution; the float32
+    ones: the norms, RWKV-6's ``mu``, ``u`` and ``ln_x``, Mamba's
+    ``dt_bias``, ``A_log`` and ``D``)."""
+    from repro_torch.models.ssm import CONV_K
+
     def part(n: int, on: bool) -> int:
         return cut.part(n) if on else n
 
     d, hd = cfg.d_model, cfg.head_dim_
     mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
-    layer = (2 * d * part(cfg.num_heads, cut.heads) * hd
-             + 2 * d * part(cfg.num_kv_heads, cut.kv) * hd
-             + mats * d * part(cfg.d_ff, cut.ff))
+    layer = mats * d * part(cfg.d_ff, cut.ff)
+    f32 = 2 * d                                           # ln1, ln2
+    if cfg.family == "ssm":
+        rh = cfg.rwkv_head_dim
+        width = part(d // rh, cut.time_mix) * rh          # the card's heads
+        layer += 6 * d * width                            # w_r..w_g, w_out
+        f32 += 5 * d + 2 * width                          # mu; u, ln_x
+    else:
+        layer += (2 * d * part(cfg.num_heads, cut.heads) * hd
+                  + 2 * d * part(cfg.num_kv_heads, cut.kv) * hd)
+    if cfg.family == "hybrid":
+        di, n, r = part(d, cut.mamba), cfg.ssm_state, max(8, d // 64)
+        # w_in (both halves), conv_w, conv_b, w_dt1, w_dt2, w_B, w_C, w_out
+        layer += 3 * d * di + (CONV_K + 1) * di + 2 * di * r + 2 * di * n
+        f32 += 2 * d + di * (n + 2)         # ln_a, ln_s; A_log, dt_bias, D
     return (2 * part(cfg.vocab_size, cut.vocab) * d + cfg.num_layers * layer,
-            d + cfg.num_layers * 2 * d)                   # final, ln1, ln2
+            d + cfg.num_layers * f32)
 
 
 def tp_reckoning(cfg, cut) -> int:
@@ -7009,10 +7086,11 @@ class emulated_cards:
         return False
 
 
-def run_emulated(prog, mesh) -> list:
+def run_emulated(prog, mesh) -> tuple[torch.Tensor, bool]:
     """One eager run of a serving program over emulated cards (its first
     run: one host thread a card in lockstep at the ring's steps), card 0's
-    inputs staged to the others first: every card's logits, copied."""
+    inputs staged to the others first: card 0's logits, copied, and
+    whether every card's are the same bits."""
     from repro_torch.launch.mesh import set_mesh
 
     for c in range(1, len(prog.cards)):
@@ -7021,7 +7099,9 @@ def run_emulated(prog, mesh) -> list:
     with set_mesh(mesh):
         prog.run()
     torch.cuda.synchronize()
-    return [t.clone() for t in prog.card_logits]
+    first = prog.card_logits[0]
+    return first.clone(), all(torch.equal(t, first.to(t.device))
+                              for t in prog.card_logits[1:])
 
 
 def tensor_parallel_path(dev, per_path, read_path, smi: str,
@@ -7047,7 +7127,6 @@ def tensor_parallel_path(dev, per_path, read_path, smi: str,
     from repro_torch.configs import get_config
     from repro_torch.kernels._graph import reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh, set_mesh
-    from repro_torch.models import tensor_parallel as tp
     from repro_torch.serving import ServeEngine
 
     # -- 35. main path AB: dense tensor parallelism on a peer mesh ---------
@@ -7110,10 +7189,10 @@ def tensor_parallel_path(dev, per_path, read_path, smi: str,
         decode.cur_len.fill_(plen)
         reset_launch_counts()
         t0 = time.perf_counter()
-        pre = run_emulated(prefill, mesh)
+        pre, pre_same = run_emulated(prefill, mesh)
         pre_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        step = run_emulated(decode, mesh)
+        step, step_same = run_emulated(decode, mesh)
         step_s = time.perf_counter() - t0
         read_path("AB-tp")
         psums = 1 + 2 * nl
@@ -7129,14 +7208,13 @@ def tensor_parallel_path(dev, per_path, read_path, smi: str,
         del engine
     ref_pre = at_o["logits"].to(dev).float()
     ref_dec = at_o["dec"].to(dev).float()
-    errs_ab = {"prefill": (pre[0].float() - ref_pre).abs().max().item(),
-               "decode": (step[0].float() - ref_dec).abs().max().item()}
+    errs_ab = {"prefill": (pre.float() - ref_pre).abs().max().item(),
+               "decode": (step.float() - ref_dec).abs().max().item()}
     tops = {"prefill": ref_pre.abs().max().item(),
             "decode": ref_dec.abs().max().item()}
-    agree = (pre[0][:, -1].argmax(-1).cpu()
+    agree = (pre[:, -1].argmax(-1).cpu()
              == at_o["logits"][:, -1].argmax(-1)).sum().item()
-    same_cards = (all(torch.equal(x, pre[0]) for x in pre)
-                  and all(torch.equal(x, step[0]) for x in step))
+    same_cards = pre_same and step_same
     print(f"path AB: the two-card layout {list(AB_CARD_OF)} emulated on "
           f"{dev}: each card {placed[0] / 1e9:.3f} GB placed (reckoned "
           f"{reck[0] / 1e9:.3f}: its 48 of 96 heads, 4 of 8 kv heads, "
@@ -7222,6 +7300,69 @@ def peer_update_diffs(got, want, delta: float, small, lr_sum: float
     return out
 
 
+def train_run(cfg, mesh, box, batches, opt, dev, small=None
+              ) -> tuple[list, list, list, list]:
+    """``len(batches)`` steps of ``cfg`` under ``mesh`` (None: none) from
+    ``box[0]`` (the only name on the state, so that each step's old state
+    is freed as it is replaced): losses, grad norms, lrs, step ms (host
+    clock, synced); the last state left in ``box``; with ``small`` (a
+    list) the elements of each leaf whose |g| fell below EPS_CONDITIONED
+    at some step put there."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.training import TrainStepConfig, make_train_step
+    from repro_torch.training import train_step as tsm
+
+    step = make_train_step(cfg, TrainStepConfig(), opt, device=dev)
+    losses, norms, lrs, times = [], [], [], []
+    update = tsm._update
+
+    def record(params, grads, opt_state, opt_, **kw):
+        now = [g.abs() < EPS_CONDITIONED for g in _leaves(grads)]
+        small[:] = now if not small else [
+            a | b for a, b in zip(small, now)]
+        return update(params, grads, opt_state, opt_, **kw)
+
+    if small is not None:
+        tsm._update = record
+    try:
+        with set_mesh(mesh):
+            for bt in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                box[0], m = step(box[0], bt)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].clone())
+                norms.append(m["grad_norm"].clone())
+                lrs.append(float(m["lr"]))
+                del m
+    finally:
+        tsm._update = update
+    return losses, norms, lrs, times
+
+
+def unsharded_run(cfg, fresh, batches, opt, dev, small=None):
+    """The unsharded step's run from ``fresh(cfg)`` (:func:`train_run`):
+    its losses, norms, lrs and ms, its updated parameters and the
+    update's largest |change|."""
+    box = [fresh(cfg)]
+    first = [t.clone() for t in _leaves(box[0]["params"])]
+    out = train_run(cfg, None, box, batches, opt, dev, small)
+    want = box[0]["params"]
+    box.clear()
+    delta = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(_leaves(want), first))
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out, want, delta
+
+
+def state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
 def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
     """Main path AC (phase 36): training under dense tensor parallelism
     on a peer mesh, Llama-3 8B at full width (``remat="full"``, float32
@@ -7252,12 +7393,10 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels._graph import reset_launch_counts
-    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import OptimConfig
-    from repro_torch.training import (TrainStepConfig, init_state,
-                                      make_train_step)
+    from repro_torch.training import init_state
     from repro_torch.training import sharding as shd
-    from repro_torch.training import train_step as tsm
     from repro_torch.tree import leaves_with_paths
 
     # -- 36. main path AC: training tensor parallel on a peer mesh ---------
@@ -7268,7 +7407,6 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
           f"8B at full width: {full}")
     opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
                       moment_dtype=full.optimizer_dtype)
-    ts = TrainStepConfig()
     batches = family_batches(full, dev, 8, 512, 2)
     mbytes = torch.empty((), dtype=getattr(torch, opt.moment_dtype)
                          ).element_size()
@@ -7278,63 +7416,10 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
         return init_state(cfg, opt, generator=torch.Generator(
             device=dev).manual_seed(81), device=dev)
 
-    def run(cfg, mesh, box, small=None) -> tuple[list, list, list, list]:
-        """2 steps of ``cfg`` under ``mesh`` (None: none) from ``box[0]``
-        (the only name on the state, so that each step's old state is
-        freed as it is replaced): losses, grad norms, lrs, step ms; the
-        last state left in ``box``; with ``small`` (a list) the elements
-        of each leaf whose |g| fell below EPS_CONDITIONED at some step put
-        there."""
-        step = make_train_step(cfg, ts, opt, device=dev)
-        losses, norms, lrs, times = [], [], [], []
-        update = tsm._update
-
-        def record(params, grads, opt_state, opt_, **kw):
-            now = [g.abs() < EPS_CONDITIONED for g in _leaves(grads)]
-            small[:] = now if not small else [
-                a | b for a, b in zip(small, now)]
-            return update(params, grads, opt_state, opt_, **kw)
-
-        if small is not None:
-            tsm._update = record
-        try:
-            with set_mesh(mesh):
-                for bt in batches:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    box[0], m = step(box[0], bt)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t0) * 1e3)
-                    losses.append(m["loss"].clone())
-                    norms.append(m["grad_norm"].clone())
-                    lrs.append(float(m["lr"]))
-                    del m
-        finally:
-            tsm._update = update
-        return losses, norms, lrs, times
-
-    def state_bytes(tree) -> int:
-        return sum(t.numel() * t.element_size() for t in _leaves(tree))
-
-    def unsharded(cfg, small=None):
-        """The unsharded step's run: its losses, norms, lrs and ms, its
-        updated parameters and the update's largest |change|."""
-        box = [fresh(cfg)]
-        first = [t.clone() for t in _leaves(box[0]["params"])]
-        out = run(cfg, None, box, small)
-        want = box[0]["params"]
-        box.clear()
-        delta = max((a.float() - b.float()).abs().max().item()
-                    for a, b in zip(_leaves(want), first))
-        del first
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        return out, want, delta
-
     # (1) four logical devices on the card, bfloat16: nothing cut
     cfg = dataclasses.replace(full, num_layers=AC_LAYERS)
-    (want_losses, want_norms, _, want_ms), want, _ = unsharded(cfg)
+    (want_losses, want_norms, _, want_ms), want, _ = unsharded_run(
+        cfg, fresh, batches, opt, dev)
     state = fresh(cfg)
     trees = shd.place_state(state, mesh, cfg)
     (cut,) = shd.card_cuts(cfg, mesh)
@@ -7351,7 +7436,8 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
     del trees
     torch.cuda.synchronize()
     reset_launch_counts()
-    one_losses, one_norms, _, one_ms = run(cfg, mesh, box)
+    one_losses, one_norms, _, one_ms = train_run(cfg, mesh, box, batches,
+                                                 opt, dev)
     read_path("AC-one")
     (tree,) = box[0]
     box.clear()
@@ -7383,8 +7469,8 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
                               dtype="float32")
     nl = cfg.num_layers
     small: list = []
-    (want_losses, want_norms, lrs, want_ms), want, delta = unsharded(
-        cfg, small)
+    (want_losses, want_norms, lrs, want_ms), want, delta = unsharded_run(
+        cfg, fresh, batches, opt, dev, small)
     lr_sum = sum(lrs)
     with emulated_cards(AB_CARD_OF, dev):
         cuts = shd.card_cuts(cfg, mesh)
@@ -7397,7 +7483,8 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
               f"{placed} (reckoned {reck2})")
         torch.cuda.synchronize()
         reset_launch_counts()
-        losses, norms, _, two_ms = run(cfg, mesh, box)
+        losses, norms, _, two_ms = train_run(cfg, mesh, box, batches, opt,
+                                             dev)
         read_path("AC-tp")
         peak = torch.cuda.max_memory_allocated() / 2**30
         trees = box[0]
@@ -7462,6 +7549,858 @@ def tp_training_path(dev, per_path, read_path, smi: str) -> dict:
             "two_card_layers": nl, "two_card_ms": two_ms,
             "unsharded_ms": want_ms, "peak_gib": peak,
             "loss_rel": loss_rel, "diffs": diffs, "delta": delta}
+
+
+#: Path AD's depth of the float32 training check on the emulated
+#: two-card layout (path AC's AC_TWO_CARD_LAYERS).
+AD_TRAIN_LAYERS = 2
+#: How many of a step's compared parameter elements may take AdamW's
+#: ε-region exemption (:func:`peer_update_diffs`): at most
+#: ``ceil(EPS_EXEMPT_SHARE · elements)``, the bound of
+#: ``tests/test_torch_peer_moe_training.py`` (path AC measured 5,240 of
+#: 1.49 B, 3.5e-6).
+EPS_EXEMPT_SHARE = 2e-5
+
+
+def ssm_serve_psums(cfg, cut) -> int:
+    """The peer psums of one forward of an SSM-family decoder under a
+    card's ``cut``: the embedding's where the vocabulary is cut; a layer
+    RWKV-6's time mix and MLP, or Hymba's Mamba gates, Mamba output and
+    MLP (and its attention where its heads are cut)."""
+    a_layer = 2 if cfg.family == "ssm" else 3 + int(cut.heads)
+    return int(cut.vocab) + a_layer * cfg.num_layers
+
+
+def ssm_step_psums(cfg, cut) -> int:
+    """The peer psums a card runs in one ``remat="full"`` train step of an
+    SSM-family decoder under ``cut``, as the code issues them
+    (``tests/test_torch_peer_tp_training.py``'s STEP_PSUMS counts them on
+    the CPU): the clip norm's, and where the vocabulary is cut the
+    embedding's g, the gold logit's g and f on the final norm's output;
+    a layer of RWKV-6 the time mix's g in the forward and again in the
+    recompute, the MLP's g, f on (x, mu) and on the MLP's input; a layer
+    of Hymba the Mamba gates' and output's g in the forward and the
+    recompute, the MLP's g, f on the gates, on Mamba's and on the MLP's
+    input, and where its heads are cut the attention's g twice and its
+    f. The checkpoint's recompute stops before the MLP's g (it saves
+    nothing)."""
+    a_layer = 5 if cfg.family == "ssm" else 8 + 3 * int(cut.heads)
+    return 1 + 3 * int(cut.vocab) + a_layer * cfg.num_layers
+
+
+#: The twin of path AD's and ``--ssm-tp``'s bfloat16 serving checks, by
+#: family: the dtype in which the unsharded run and the cut's (eager, the
+#: same weights) are held to each other within TWIN_BOUND of the largest
+#: |logit| at every position. RWKV-6's in float64 through
+#: :func:`twin_scan` (the kernel takes no float64), since in float32 its
+#: per-head group norm leaves a few positions unfixed by the inputs (see
+#: :func:`serve_twin`'s witnesses); Hymba's in float32 through its kernels.
+TWIN_DTYPE = {"ssm": "float64", "hybrid": "float32"}
+#: ``tests/test_torch_peer_tp.py``'s bound: 2e-2 of the largest |logit|.
+TWIN_BOUND = 2e-2
+#: The bfloat16 runs, whose unsharded run is itself far from the twin at
+#: every position: the median over positions of each position's largest
+#: distance from the twin's unsharded logits; the cut's at most
+#: BF16_MEDIAN_FACTOR times the unsharded bfloat16 run's, and the
+#: control's (the cut mixer's psum dropped) beyond that.
+BF16_MEDIAN_FACTOR = 2.0
+
+
+def twin_scan(r, k, v, w, u, *, chunk, out_dtype=None, return_state=False):
+    """RWKV-6's scan as its recurrence, a position at a time in float64
+    (the twin's; ``chunk`` and ``out_dtype`` unused): ``o_t = r_t·(S +
+    diag(u)·k_tᵀv_t)``, then ``S ← diag(w_t)·S + k_tᵀv_t``."""
+    b, s, h, dk = r.shape
+    r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
+    state = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float64,
+                        device=r.device)
+    out = []
+    for t in range(s):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        out.append(torch.einsum("bhd,bhde->bhe", r[:, t],
+                                state + u[..., None] * kv))
+        state = w[:, t, :, :, None] * state + kv
+    o = torch.stack(out, 1)
+    return (o, state) if return_state else o
+
+
+def plain_scan(r, k, v, w, u, *, chunk, out_dtype=None,
+               return_state=False):
+    """The scan's plain version on any device (differentiable by
+    autograd): a witness of the kernel's."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+
+    return sk.rwkv6_scan_plain(r, k, v, w, u, chunk=chunk,
+                               out_dtype=out_dtype, return_state=return_state)
+
+
+class rwkv_patched:
+    """Inside: RWKV-6's time mix runs ``scan`` (:func:`twin_scan`,
+    :func:`plain_scan`) where given instead of the kernel, and with
+    ``spread`` (a list) each full-sequence call's group-norm input mean
+    square per (batch, position, head) is appended there."""
+
+    def __init__(self, scan=None, spread: list | None = None):
+        self.scan, self.spread = scan, spread
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.saved = ssm.chunked_scan, ssm._rwkv6_finish
+        finish, spread = ssm._rwkv6_finish, self.spread
+
+        def recording(o, g, p, dtype):
+            if o.dim() == 4:
+                spread.append(o.double().square().mean(-1))
+            return finish(o, g, p, dtype)
+
+        if self.scan is not None:
+            ssm.chunked_scan = self.scan
+        if spread is not None:
+            ssm._rwkv6_finish = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+
+        ssm.chunked_scan, ssm._rwkv6_finish = self.saved
+        return False
+
+
+def unsharded_logits(cfg, params, toks, tok, max_len: int):
+    """An eager unsharded prefill of ``toks`` and decode step of ``tok``
+    after it: the logits of each."""
+    from repro_torch.models import transformer as tfm
+
+    spec = tfm.cache_spec(cfg, max_len)
+    with torch.no_grad():
+        pre, cache = tfm.prefill_forward(params, cfg, {"tokens": toks}, spec)
+        dec, _ = tfm.decode_step(params, cfg, cache, tok, toks.shape[1],
+                                 spec)
+    return pre, dec
+
+
+def cut_run(cfg, weights, toks, tok, mesh, max_len: int, counted=None):
+    """One eager prefill of ``toks`` and decode step of ``tok`` of ``cfg``
+    from ``weights`` (the tree, or a list holding it, popped so that the
+    whole weights are freed once placed) on the peer mesh ``mesh`` (its
+    cards real, or emulated inside :class:`emulated_cards`), the counters
+    set to 0 just before
+    them and read just after by ``counted()`` where given: every card's
+    card 0's prefill and decode logits, and whether every card's are the
+    same bits, the engine's cuts, each card's bytes and cache shapes, card
+    0's layer 0 and the host seconds of each."""
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_map
+
+    b, plen = toks.shape
+    with set_mesh(mesh):
+        engine = ServeEngine(cfg, weights.pop() if isinstance(weights, list)
+                             else weights, max_len=max_len)
+        prefill = engine.prefill_program(b, plen)
+        decode = engine.decode_program(b)
+        shapes = {k: [tuple(cc[k].shape) for cc in decode.caches]
+                  for k in decode.caches[0]}
+        placed = [state_bytes(t) for t in engine.trees]
+        prefill.tokens.copy_(toks)
+        decode.tokens.copy_(tok)
+        decode.cur_len.fill_(plen)
+        if counted:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        pre, pre_same = run_emulated(prefill, mesh)
+        pre_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, step_same = run_emulated(decode, mesh)
+        step_s = time.perf_counter() - t0
+        if counted:
+            counted()
+        out = {"cuts": engine.cuts, "placed": placed, "caches": shapes,
+               "same": pre_same and step_same,
+               "layer0": tree_map(lambda t: t.clone(),
+                                  tfm.layer_params(engine.trees[0], 0)),
+               "pre_s": pre_s, "step_s": step_s}
+        del engine, prefill, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pre, step, out
+
+
+def with_leaf(params, mixer: str, key: str, value):
+    """``params`` with layer leaf ``mixer``/``key`` replaced by ``value``."""
+    layers = params["layers"]
+    return {**params, "layers": {**layers, mixer: {**layers[mixer],
+                                                   key: value}}}
+
+
+def mixer_controls(cfg, params) -> dict:
+    """Two faults of a two-card cut, as the unsharded model's weights would
+    carry them: ``drop``, the cut mixer's psum dropped (the second card's
+    rows of its ``w_out`` zeroed: card 0's partial alone); ``swap``, its
+    two cards' blocks of a per-head or per-channel leaf swapped (RWKV-6's
+    ``u`` heads, Mamba's ``w_dt2`` channels)."""
+    mixer, key, dim = (("rwkv", "u", 1) if cfg.family == "ssm"
+                       else ("ssm", "w_dt2", 2))
+    lp = params["layers"][mixer]
+    half = lp["w_out"].shape[1] // 2
+    w_out = lp["w_out"].clone()
+    w_out[:, half:] = 0
+    first, second = lp[key].chunk(2, dim)
+    return {"drop": with_leaf(params, mixer, "w_out", w_out),
+            "swap": with_leaf(params, mixer, key,
+                              torch.cat([second, first], dim))}
+
+
+def position_distances(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Each position's largest |difference| of logits ``t`` from ``ref``
+    (float64, a batch row at a time)."""
+    return torch.stack([(a.to(r.device).double() - r.double()).abs().amax(-1)
+                        for a, r in zip(t, ref)])
+
+
+def serve_twin(cfg, params, toks, tok, mesh, max_len: int, cards=None,
+               spread: list | None = None) -> dict:
+    """The twin of a bfloat16 serving check: ``params`` in the family's
+    TWIN_DTYPE served unsharded (:func:`unsharded_logits`) and on ``mesh``
+    (:func:`cut_run`, inside ``cards()`` where given), and the faults of
+    :func:`mixer_controls` unsharded in the twin's dtype and (``drop``)
+    in the model's (the float32 leaves stay float32); RWKV-6 through
+    :func:`twin_scan`, the unsharded prefill's group-norm spread in
+    ``spread`` where given. Returns ``ref``, each phase's (``prefill``,
+    ``decode``) unsharded twin logits, ``per``, each other run's
+    :func:`position_distances` from them by phase (``tp`` the cut twin's,
+    ``drop``, ``swap``, ``drop16``; a caller adds its own), and whether
+    every card's twin logits are the same bits."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    dt = TWIN_DTYPE[cfg.family]
+    c = dataclasses.replace(cfg, dtype=dt)
+    # the model's dtype (the matrices) to the twin's; the float32 leaves
+    # as they are (the decode step's state math is float32)
+    p = tree_map(lambda t: t.to(getattr(torch, dt))
+                 if t.dtype == getattr(torch, cfg.dtype) else t, params)
+    twin = {"ref": {}, "per": {"prefill": {}, "decode": {}}, "dtype": dt}
+
+    def put(name, pair):
+        for phase, t in zip(("prefill", "decode"), pair):
+            twin["per"][phase][name] = position_distances(
+                t, twin["ref"][phase])
+
+    with rwkv_patched(twin_scan if dt == "float64" else None):
+        with rwkv_patched(spread=spread):
+            twin["ref"]["prefill"], twin["ref"]["decode"] = unsharded_logits(
+                c, p, toks, tok, max_len)
+        for name, wrong in mixer_controls(c, p).items():
+            put(name, unsharded_logits(c, wrong, toks, tok, max_len))
+        del wrong
+        box = [p]
+        del p
+        with (cards() if cards else contextlib.nullcontext()):
+            pre, step, run = cut_run(c, box, toks, tok, mesh, max_len)
+        put("tp", (pre, step))
+        twin["same_cards"] = run["same"]
+        del pre, step, run
+    put("drop16", unsharded_logits(cfg, mixer_controls(cfg, params)["drop"],
+                                   toks, tok, max_len))
+    return twin
+
+
+def twin_distances(twin: dict, bound: float = TWIN_BOUND) -> dict:
+    """For each phase of ``twin`` (:func:`serve_twin`'s): the largest
+    |logit| of its unsharded twin run, and for every other run the
+    largest, the median and the share within ``bound`` of the largest
+    |logit| of its :func:`position_distances`, and where the largest
+    is."""
+    out = {}
+    for phase, runs in twin["per"].items():
+        top = twin["ref"][phase].abs().max().item()
+        row = {"max_abs_logit": top}
+        for name, per in runs.items():
+            flat = per.flatten()
+            worst = int(flat.argmax())
+            row[name] = {"max": flat[worst].item(),
+                         "median": flat.median().item(),
+                         "within": (flat <= bound * top).double().mean()
+                         .item(),
+                         "at": list(map(int, torch.unravel_index(
+                             torch.tensor(worst), per.shape)))}
+        out[phase] = row
+    return out
+
+
+def twin_verdict(dist: dict) -> dict:
+    """The serving check's rules over :func:`twin_distances`: ``twin``, the
+    cut's twin within TWIN_BOUND of the largest |logit| at every position;
+    ``controls``, both faults' twins beyond it somewhere; ``bf16``, the
+    cut's bfloat16 median distance at most BF16_MEDIAN_FACTOR times the
+    unsharded bfloat16 run's and the dropped psum's beyond that."""
+    def far(row, name):
+        return row[name]["max"] > TWIN_BOUND * row["max_abs_logit"]
+
+    return {"twin": all(not far(r, "tp") for r in dist.values()),
+            "controls": all(far(dist["prefill"], n) for n in ("drop", "swap")),
+            "bf16": all(r["tp16"]["median"] <= BF16_MEDIAN_FACTOR
+                        * r["one16"]["median"] < r["drop16"]["median"]
+                        for r in dist.values())}
+
+
+def ssm_tp_serve(dev, per_path, read_path, cfg, at: dict, tag: str,
+                 kernel: str, max_len: int) -> dict:
+    """Path AD's serving of ``cfg`` (path ``tag``'s model on its seeded
+    weights and requests, ``at``: its :func:`served_readings`): the
+    one-card layout bit for bit path ``tag``'s (counted), then the
+    emulated two-card layout's eager prefill and decode step (counted),
+    held with its twin (:func:`serve_twin`, :func:`twin_verdict`). Returns
+    the readings and card 0's layer 0 and the whole weights for the kernel
+    checks."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_map
+
+    name, nl = cfg.name, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, dev, "AD")
+    prompts, new = at["prompts"], at["new"]
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+    with set_mesh(mesh):
+        engine = ServeEngine(cfg, params, max_len=max_len)
+        (tree,) = engine.trees
+        (cut,) = engine.cuts
+        views = all(a.untyped_storage().data_ptr()
+                    == b.untyped_storage().data_ptr()
+                    for a, b in zip(_leaves(tree), _leaves(params)))
+        placed = state_bytes(tree)
+        check(views and not cut.cuts and placed == tp_reckoning(cfg, cut),
+              f"path AD: {name}'s one-card tree is not the whole weights' "
+              f"views ({cut}, {placed} B against {tp_reckoning(cfg, cut)})")
+        toks, outs, logits, _, gen_s = serve_requests(
+            cfg, engine, prompts, new, f"AD-{tag}", per_path, read_path,
+            kernel=kernel)
+        dec = decode_logits(engine, toks, logits)
+        same = {"tokens": outs == at["outs"]
+                and torch.equal(toks.cpu(), at["toks"]),
+                "prefill logits": torch.equal(logits.cpu(), at["logits"]),
+                "decode logits": torch.equal(dec.cpu(), at["dec"])}
+        del engine, tree, logits, dec
+    print(f"path AD: {name} over {nl} layers under {mesh} on a peer session "
+          f"of 4 logical devices on {dev}: the card holds every device, so "
+          f"nothing is cut ({placed / 1e9:.3f} GB placed, as reckoned, views "
+          f"of the weights); generate {gen_s[1]:.3f} s (second call); bit "
+          f"for bit path {tag}'s: {same}", flush=True)
+    check(all(same.values()), f"path AD differs from path {tag}: {same}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, plen = toks.shape
+    tok = at["logits"][:, -1].argmax(-1)[:, None].to(dev)
+
+    def cards():
+        return emulated_cards(AB_CARD_OF, dev)
+
+    with cards():
+        pre, step, run = cut_run(cfg, params, toks, tok, mesh, max_len,
+                                 lambda: read_path(f"AD-{tag}-tp"))
+    cuts, placed, caches = run["cuts"], run["placed"], run["caches"]
+    layer0, same_cards = run.pop("layer0"), run["same"]
+    reck = [tp_reckoning(cfg, c) for c in cuts]
+    mixer = "time_mix" if cfg.family == "ssm" else "mamba"
+    check(len(cuts) == 2 and all(getattr(c, mixer) and c.ff for c in cuts)
+          and placed == reck, f"path AD: {name}'s two-card cuts {cuts} or "
+          f"bytes {placed} (reckoned {reck})")
+    whole = tfm.cache_shapes(cfg, b, tfm.cache_spec(cfg, max_len))
+    # each card's states: its half of the heads or channels, its kv
+    # heads; the token-shift input whole
+    kv = tp.heads(cfg, cuts[0])[1]
+    part = {"rwkv_state": (2, 2), "ssm": (2, 2), "conv": (3, 2),
+            "k": (2, cfg.num_kv_heads // max(kv, 1)),
+            "v": (2, cfg.num_kv_heads // max(kv, 1))}
+    check(sorted(caches) == sorted(whole) and all(
+        shapes[0][part[k][0]] * part[k][1] == whole[k].shape[part[k][0]]
+        if k in part else shapes[0] == tuple(whole[k].shape)
+        for k, shapes in caches.items()), f"path AD: {name}'s card caches "
+          f"{caches} against the whole "
+          f"{ {k: tuple(t.shape) for k, t in whole.items()} }")
+    psums = ssm_serve_psums(cfg, cuts[0])
+    want_counts = {"multipath_dma": 2 * 3 * psums,
+                   "ring_allgather": 2 * (psums + int(cuts[0].vocab)),
+                   kernel: 2 * nl}
+    got_counts = {k: per_path[f"AD-{tag}-tp"].get(k, 0) for k in want_counts}
+    agree = (pre[:, -1].argmax(-1).cpu()
+             == at["logits"][:, -1].argmax(-1)).sum().item()
+
+    # the twin (TWIN_DTYPE) and its controls; RWKV-6's float32 runs
+    # through the kernel beside it as witnesses, and its group norm's
+    # input spread over the unsharded twin's prefill
+    spread: list = []
+    twin = serve_twin(cfg, params, toks, tok, mesh, max_len, cards,
+                      spread if cfg.family == "ssm" else None)
+    per = twin["per"]
+    for phase, one16, tp16 in (("prefill", at["logits"], pre),
+                               ("decode", at["dec"], step)):
+        per[phase]["one16"] = position_distances(one16, twin["ref"][phase])
+        per[phase]["tp16"] = position_distances(tp16, twin["ref"][phase])
+    del pre, step
+    if cfg.family == "ssm":
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        box = [tree_map(lambda t: t.float(), params)]
+        one32 = unsharded_logits(cfg32, box[0], toks, tok, max_len)
+        with cards():
+            pre32, step32, _ = cut_run(cfg32, box, toks, tok, mesh, max_len)
+        for phase, a, c in (("prefill", one32[0], pre32),
+                            ("decode", one32[1], step32)):
+            per[phase]["one32"] = position_distances(a, twin["ref"][phase])
+            per[phase]["tp32"] = position_distances(c, twin["ref"][phase])
+        del one32, pre32, step32
+    dist = twin_distances(twin)
+    verdict = twin_verdict(dist)
+    twin_same = twin["same_cards"]
+    witness = {}
+    if spread:
+        # the group norm's input mean square at the float32 cut's worst
+        # prefill positions: the least over its layers and heads there,
+        # against the median over every (layer, position, head)
+        ms = torch.stack(spread)                       # (L, B, S, h)
+        per32, one_per = per["prefill"]["tp32"], per["prefill"]["one32"]
+        rows = []
+        for i in per32.flatten().topk(3).indices.tolist():
+            bi, si = divmod(i, per32.shape[1])
+            here = ms[:, bi, si]                       # (L, h)
+            li, hi = divmod(int(here.argmin()), here.shape[1])
+            rows.append({"at": [bi, si], "tp32": per32[bi, si].item(),
+                         "one32": one_per[bi, si].item(),
+                         "least_mean_square": here.min().item(),
+                         "layer_head": [li, hi]})
+        witness = {"median_mean_square": ms.median().item(),
+                   "least_mean_square": ms.min().item(),
+                   "worst_positions": rows}
+        del ms
+    del twin, per, spread
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path AD: {name}, the two-card layout {list(AB_CARD_OF)} emulated "
+          f"on {dev}: cuts {cuts[0]}; each card {placed[0] / 1e9:.3f} GB "
+          f"placed (reckoned {reck[0] / 1e9:.3f}), card caches {caches}; one "
+          f"eager lockstep prefill {run['pre_s'] * 1e3:.1f} ms and decode "
+          f"step {run['step_s'] * 1e3:.1f} ms (host clock, kernels on the "
+          f"card); launches {got_counts} ({psums} psums a forward); every "
+          f"card's logits the same bits {same_cards}, in the twin too "
+          f"{twin_same}; last-position argmax agrees with path {tag}'s in "
+          f"{agree} of {b}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"path AD: {name}'s logits against the unsharded "
+          f"{TWIN_DTYPE[cfg.family]} twin's (each position's largest "
+          f"distance: the largest, median, share within {TWIN_BOUND} of the "
+          f"largest |logit|, where the largest is; tp the two-card twin, "
+          f"drop and swap its controls, one16 path {tag}, tp16 the two-card "
+          f"bfloat16 run, drop16 its control"
+          + ("; one32 and tp32 the float32 runs through the kernel" if
+             cfg.family == "ssm" else "") + f"): {dist}; verdict {verdict}"
+          + (f"; the group norm's input mean square at tp32's worst prefill "
+             f"positions: {witness}" if witness else ""), flush=True)
+    check(got_counts == want_counts, f"path AD's two-card layout of {name} "
+          f"launched {got_counts}, not {want_counts} (three ring shifts and "
+          f"one gather a psum, {psums} psums a forward, the logits' gather "
+          f"where the vocabulary is cut; the mixer's kernel a card a layer a "
+          f"prefill)")
+    check(same_cards and twin_same and all(verdict.values()),
+          f"path AD's two-card layout of {name}: every card the same bits "
+          f"{same_cards} (twin {twin_same}), {verdict}: {dist}")
+    return {"placed_bytes": placed, "reckoned_bytes": reck,
+            "launches": got_counts, "psums_a_forward": psums,
+            "generate_s": gen_s, "prefill_eager_ms": run["pre_s"] * 1e3,
+            "decode_eager_ms": run["step_s"] * 1e3, "distances": dist,
+            "verdict": verdict, "group_norm": witness,
+            "argmax_agree": agree}, layer0, params, toks
+
+
+def ssm_tp_scans(randn, rand, errs, lp, params, toks, cfg,
+                 rows: dict) -> dict:
+    """Path AD (not counted): the ``rwkv6_scan`` kernel and its backward
+    at a card's 16 of RWKV-6's 32 heads. The forward on layer 0's real
+    prefill r/k/v/w of card 0's layer 0 ``lp`` (its heads' columns)
+    against the plain version; both kernels at the card's head count on path G's and
+    path M's random inputs against their plain versions, timed by CUDA
+    events beside the whole-head times of ``rows`` (the kernel rows,
+    measured the same way earlier in this run) and their bounds."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    from repro_torch.models import layers, ssm
+
+    hd = cfg.rwkv_head_dim
+    x = layers.rms_norm(params["embed"][toks], lp["ln1"])
+    shifted = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    r, k, v, w, _ = ssm._rwkv6_project(x, shifted, lp["rwkv"], hd)
+    u = lp["rwkv"]["u"].expand(toks.shape[0], -1, -1)
+    o, st = sk.rwkv6_scan_cuda(r, k, v, w, u, out_dtype=torch.float32,
+                               return_state=True)
+    po, pst = sk.rwkv6_scan_plain(r, k, v, w, u, out_dtype=torch.float32,
+                                  return_state=True)
+    e_real = max(rel_err(o, po), rel_err(st, pst))
+    errs["rwkv6_scan"] = max(errs["rwkv6_scan"], (o - po).abs().max().item())
+    check(r.shape[2] == 16 and e_real < RWKV_REL, f"path AD: rwkv6_scan "
+          f"at card 0's layer-0 prefill {tuple(r.shape)}: relative err "
+          f"{e_real}")
+    del x, shifted, r, k, v, w, u, o, st, po, pst
+
+    b, s, _, dk, dv = RWKV_SHAPE
+    h = 16
+    chunk = sk.MAX_CHUNK
+    r, k, v, w, u = rwkv_inputs(randn, rand, b, s, h, dk, dv,
+                                dtype=torch.bfloat16)
+    u = u[:1].expand(b, -1, -1)
+
+    def fwd():
+        return sk.rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk,
+                                  out_dtype=torch.float32, return_state=True)
+
+    (o, st), (po, pst) = fwd(), sk.rwkv6_scan_plain(
+        r, k, v, w, u, chunk=chunk, out_dtype=torch.float32,
+        return_state=True)
+    e_fwd = max(rel_err(o, po), rel_err(st, pst))
+    errs["rwkv6_scan"] = max(errs["rwkv6_scan"], (o - po).abs().max().item())
+    check(e_fwd < RWKV_REL, f"path AD: rwkv6_scan at {(b, s, h, dk, dv)}: "
+          f"relative err {e_fwd}")
+    fwd_ms = cuda_time_ms(fwd, 20)
+    fwd_plain_ms = cuda_time_ms(lambda: sk.rwkv6_scan_plain(
+        r, k, v, w, u, chunk=chunk, out_dtype=torch.float32,
+        return_state=True), 5, warmup=1)
+    fwd_bound = scan_bound(b, s, h, dk, dv, chunk)
+    del r, k, v, w, u, o, st, po, pst
+
+    b, s, _, dk, dv = RWKV_BWD_SHAPE
+    r, k, v, w, u, do = rwkv_bwd_inputs(randn, rand, b, s, h, dk, dv, chunk,
+                                        torch.bfloat16)
+    e_bwd, err, states = scan_bwd_errs(r, k, v, w, u, do, chunk)
+    errs["rwkv6_scan_bwd"] = max(errs["rwkv6_scan_bwd"], err)
+    check(all(e <= RWKV_BWD_REL[r.dtype] for e in e_bwd.values()),
+          f"path AD: rwkv6_scan_bwd at {(b, s, h, dk, dv)}: relative errs "
+          f"{e_bwd}")
+
+    def bwd():
+        return sk.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states=states,
+                                      chunk=chunk)
+
+    bwd_ms = cuda_time_ms(bwd, 20)
+    bwd_plain_ms = cuda_time_ms(lambda: sk.rwkv6_scan_bwd_plain(
+        r, k, v, w, u, do, chunk=chunk, states=states), 3, warmup=1)
+    bwd_bound = scan_bwd_bound(b, s, h, dk, dv, chunk, states.numel())
+    del r, k, v, w, u, do, states
+    out = {"rwkv6_scan": {"shape": list(RWKV_SHAPE[:2]) + [h, 64, 64],
+                          "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                          "bound_ms": fwd_bound["bound_ms"],
+                          "whole_heads_ms": rows["rwkv6_scan"]["ms"]},
+           "rwkv6_scan_bwd": {"shape": list(RWKV_BWD_SHAPE[:2]) + [h, 64, 64],
+                              "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                              "bound_ms": bwd_bound["bound_ms"],
+                              "whole_heads_ms": rows["rwkv6_scan_bwd"]["ms"]}}
+    for kname, row in out.items():
+        print(f"path AD: {kname} at a card's 16 of 32 heads {row['shape']} "
+              f"(bf16 r/k/v, f32 w/u): kernel {row['ms']:.4f} ms (CUDA "
+              f"events, back to back), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.1%} of it), plain "
+              f"{row['plain_ms']:.4f} ms; at all 32 heads earlier in this "
+              f"run {row['whole_heads_ms']:.4f} ms (ratio "
+              f"{row['ms'] / row['whole_heads_ms']:.3f})", flush=True)
+    print(f"path AD: the kernels against their plain versions at 16 heads: "
+          f"rwkv6_scan on card 0's layer-0 prefill {e_real:.3g}, on random "
+          f"inputs {e_fwd:.3g} (limit {RWKV_REL}); rwkv6_scan_bwd "
+          + ", ".join(f"{n_} {e_:.3g}" for n_, e_ in e_bwd.items())
+          + " (limit 2e-2)", flush=True)
+    return out
+
+
+class first_grads:
+    """Inside: the gradients each card hands AdamW at its first step (an
+    unsharded step's as card 0's), with their paths, copied: by card in
+    ``self.grads``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe_dist
+        from repro_torch.training import train_step as tsm
+        from repro_torch.tree import leaves_with_paths
+
+        self.grads, self.saved = {}, tsm._update
+        update, grads_ = self.saved, self.grads
+
+        def record(params, grads, opt_state, opt_, **kw):
+            share = moe_dist.current_share()
+            card = 0 if share is None else share[1]
+            if card not in grads_:
+                grads_[card] = [(path, g.clone())
+                                for path, g in leaves_with_paths(grads)]
+            return update(params, grads, opt_state, opt_, **kw)
+
+        tsm._update = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.training import train_step as tsm
+
+        tsm._update = self.saved
+        return False
+
+    def by_card(self) -> list:
+        return [self.grads[c] for c in sorted(self.grads)]
+
+
+def grads_rel(got: list, want: list, cuts) -> tuple[float, str]:
+    """The largest difference of each card's gradients (``got``, a list a
+    card of :class:`first_grads`' entries) from its part (under its cut of
+    ``cuts``, None: the whole) of the unsharded step's ``want``, as a share
+    of that part's largest |g|, and where."""
+    from repro_torch.training import sharding as shd
+
+    worst = (0.0, "")
+    for c, (cut, mine) in enumerate(zip(cuts, got)):
+        for (path, g), (_, ref) in zip(mine, want):
+            if cut is not None:
+                ref = shd.cut_leaf(ref, path, list(cut.held), cut.model, cut)
+            rel = ((g.float() - ref.float()).abs().max().item()
+                   / max(ref.float().abs().max().item(), 1e-30))
+            worst = max(worst, (rel, f"card {c} {'/'.join(path)}"))
+    return worst
+
+
+def ssm_tp_train(dev, per_path, read_path, full, mesh, tag: str,
+                 kernels: tuple) -> dict:
+    """Path AD's training of ``full`` at AD_TRAIN_LAYERS layers in float32
+    (TF32 off), float32 moments, 8 x 512 tokens, 2 steps: the unsharded
+    step (not counted), then the emulated two-card layout from
+    ``place_state`` (counted: every launch exact, :func:`ssm_step_psums`
+    psums a step a card), held as path AC holds its two-card layout:
+    every card's replicated leaves the same bits, losses within
+    PEER_TRAIN_LOSS_RTOL, parameters at path Z's limit but in AdamW's ε
+    region (:func:`peer_update_diffs`), those at most EPS_EXEMPT_SHARE of
+    the elements. Also held: step 1's gradients, each card's against its
+    part of the unsharded step's, and its grad norm, within the family's
+    DP_GRAD_REL of the leaf's largest |g| (path M's float32 bound); beside
+    them the witness, the unsharded step's against its own from
+    parameters nudged by a float32 rounding, and the control, the
+    two-card step with f's backward psum skipped, which must exceed it.
+    RWKV-6's parameters, which two steps of AdamW leave as far apart as
+    its gradients' rounding moves their signs, within 2 x the summed lr
+    (its gradients held as above)."""
+    import dataclasses
+    import math
+
+    from repro_torch.kernels._graph import reset_launch_counts
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.optim import OptimConfig
+    from repro_torch.training import init_state
+    from repro_torch.training import sharding as shd
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(full, num_layers=AD_TRAIN_LAYERS,
+                              dtype="float32")
+    nl, name = cfg.num_layers, full.name
+    opt = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                      moment_dtype=full.optimizer_dtype)
+    batches = family_batches(full, dev, 8, 512, 2)
+    mbytes = torch.empty((), dtype=getattr(torch, opt.moment_dtype)
+                         ).element_size()
+    grad_bound = DP_GRAD_REL[cfg.family]
+
+    def fresh(c):
+        return init_state(c, opt, generator=torch.Generator(
+            device=dev).manual_seed(81), device=dev)
+
+    small: list = []
+    with first_grads() as rec:
+        (want_losses, want_norms, lrs, want_ms), want, delta = unsharded_run(
+            cfg, fresh, batches, opt, dev, small)
+    (want_g,) = rec.by_card()
+    # the witness: the unsharded step from parameters nudged by about a
+    # float32 rounding
+    nudged = fresh(cfg)
+    gen = torch.Generator(device=dev).manual_seed(82)
+    for t in _leaves(nudged["params"]):
+        t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=gen, device=dev))
+    with first_grads() as rec:
+        train_run(cfg, None, [nudged], batches[:1], opt, dev)
+    del nudged
+    witness = grads_rel(rec.by_card(), want_g, [None])
+    with emulated_cards(AB_CARD_OF, dev):
+        cuts = shd.card_cuts(cfg, mesh)
+        box = [shd.place_state(fresh(cfg), mesh, cfg)]
+        placed = [state_bytes(tree) for tree in box[0]]
+        reck = [tp_state_reckoning(cfg, c, mbytes) for c in cuts]
+        check(len(cuts) == 2 and placed == reck, f"path AD: {name}'s "
+              f"two-card state bytes {placed} (reckoned {reck})")
+        torch.cuda.synchronize()
+        with first_grads() as rec:
+            reset_launch_counts()
+            losses, norms, _, two_ms = train_run(cfg, mesh, box, batches,
+                                                 opt, dev)
+            read_path(f"AD-{tag}-train")
+        got_g = rec.by_card()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trees = box[0]
+        box.clear()
+        rep = [[t for path, t in leaves_with_paths(tree)
+                if not shd.is_cut(path, cuts[0])] for tree in trees]
+        replicas = all(torch.equal(a, b) for a, b in zip(*rep))
+        del rep
+        got = shd.unplace_state(trees, mesh, cfg)["params"]
+        del trees
+        # the control: f's backward psum skipped
+        enter = tp.enter
+        tp.enter = lambda *xs: xs
+        try:
+            with first_grads() as rec:
+                train_run(cfg, mesh, [shd.place_state(fresh(cfg), mesh, cfg)],
+                          batches[:1], opt, dev)
+        finally:
+            tp.enter = enter
+        control = grads_rel(rec.by_card(), want_g, cuts)
+    grad = grads_rel(got_g, want_g, cuts)
+    del got_g, want_g, rec
+    psums = ssm_step_psums(cfg, cuts[0])
+    steps = len(batches)
+    fwd, bwd = kernels
+    # a ring program launches once a real card (both emulated cards'
+    # parts in one launch); the mixer's kernel forward and recompute, and
+    # its backward, once a card a layer
+    want_counts = {"multipath_dma": 3 * psums * steps,
+                   "ring_allgather": (psums + int(cuts[0].vocab)) * steps,
+                   fwd: 2 * 2 * nl * steps, bwd: 2 * nl * steps}
+    got_counts = {k: per_path[f"AD-{tag}-train"].get(k, 0)
+                  for k in want_counts}
+    diffs = peer_update_diffs(_leaves(got), _leaves(want), delta, small,
+                              sum(lrs))
+    exempt = math.ceil(EPS_EXEMPT_SHARE * diffs["elements"])
+    losses = [float(x) for x in losses]
+    want_l = [float(x) for x in want_losses]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+    norm_rels = [abs(float(a) - float(b)) / float(b)
+                 for a, b in zip(norms, want_norms)]
+    del got, want, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path AD: {name} trained on the two-card layout "
+          f"{list(AB_CARD_OF)} emulated on {dev}, {nl} layers in float32 "
+          f"(TF32 off), remat full, 8 x 512 tokens: cuts {cuts[0]}; each "
+          f"card {placed[0] / 1e9:.3f} GB of state (reckoned "
+          f"{reck[0] / 1e9:.3f}, float32 moments); losses {losses} "
+          f"(unsharded {want_l}; largest relative difference "
+          f"{loss_rel:.3g}, limit {PEER_TRAIN_LOSS_RTOL}); step 1's "
+          f"gradients, each card's against its part of the unsharded "
+          f"step's, largest difference / the leaf's largest |g| "
+          f"{grad[0]:.3g} ({grad[1]}; limit {grad_bound}); the witness, the "
+          f"unsharded step's from parameters nudged by 1e-7, {witness[0]:.3g} "
+          f"({witness[1]}); the control, f's psum skipped, {control[0]:.3g} "
+          f"({control[1]}; must exceed the limit); grad_norm's relative "
+          f"difference a step {[float(f'{x:.3g}') for x in norm_rels]} "
+          f"(limit {grad_bound} at step 1, from the same parameters); "
+          f"parameters' largest "
+          f"difference {diffs['worst']} ({diffs['where']}) against the "
+          f"unsharded update's largest |change| {delta} (limit "
+          f"{PEER_TRAIN_DELTA_SHARE} of it): of {diffs['elements']} "
+          f"elements {diffs['eps']} in AdamW's ε region beyond it (at most "
+          f"{exempt}; largest {diffs['eps_worst']:.4g}, held within 2 x the "
+          f"summed lr {2 * sum(lrs):.4g}), {diffs['beyond']} others beyond; "
+          f"every card's replicated leaves the same bits {replicas}; step "
+          f"ms {[round(t, 2) for t in two_ms]} (unsharded "
+          f"{[round(t, 2) for t in want_ms]}; host clock, synced, one host "
+          f"thread a card); launches {got_counts} over {steps} steps "
+          f"({psums} psums a step a card); peak {peak:.2f} GiB", flush=True)
+    check(got_counts == want_counts, f"path AD's two-card training of "
+          f"{name} launched {got_counts}, not {want_counts}")
+    check(replicas, f"path AD: {name}'s cards' replicated leaves differ")
+    check(loss_rel <= PEER_TRAIN_LOSS_RTOL and all(
+        math.isfinite(x) for x in losses), f"path AD: {name}'s losses "
+          f"{losses} vs the unsharded step's {want_l}")
+    check(grad[0] <= grad_bound < control[0]
+          and norm_rels[0] <= grad_bound, f"path AD: {name}: step 1's "
+          f"gradients {grad} and grad_norm {norm_rels[0]} against the limit "
+          f"{grad_bound}; the control {control} must exceed it")
+    if cfg.family == "ssm":
+        check(diffs["worst"] <= 2 * sum(lrs), f"path AD: {name}: a "
+              f"parameter differs by {diffs['worst']}, beyond 2 x the "
+              f"summed lr {2 * sum(lrs)} ({diffs})")
+    else:
+        check(diffs["beyond"] == 0 and diffs["eps"] <= exempt, f"path AD: "
+              f"{name}: {diffs['beyond']} parameters differ beyond "
+              f"{PEER_TRAIN_DELTA_SHARE} of the unsharded update's largest "
+              f"|change| {delta} outside AdamW's ε region, {diffs['eps']} "
+              f"in it (at most {exempt}; {diffs})")
+    return {"layers": nl, "placed_bytes": placed, "reckoned_bytes": reck,
+            "psums_a_step": psums, "launches": got_counts, "step_ms": two_ms,
+            "unsharded_ms": want_ms, "loss_rel": loss_rel,
+            "norm_rel": norm_rels, "grad_rel": grad, "witness": witness,
+            "control": control, "diffs": diffs, "delta": delta,
+            "peak_gib": peak}
+
+
+def ssm_tp_path(dev, errs, per_path, read_path, smi: str, at_g: dict,
+                at_k: dict, rows: dict) -> dict:
+    """Main path AD (phase 37): RWKV-6's time mix cut by whole heads and
+    Hymba's Mamba by channels on a peer mesh on the one card, both at full
+    width and depth in bfloat16 on paths G's and K's seeded weights and
+    requests (``at_g``, ``at_k``). (1) Four logical devices on the card:
+    nothing is cut, and tokens, prefill and decode logits are paths G's
+    and K's bit for bit (counted runs). (2) The two-card layout
+    ``AB_CARD_OF`` emulated on the card: each card's tree its 16 of 32
+    RWKV-6 heads (or 800 of Hymba's 1600 Mamba channels), hidden units and
+    vocabulary blocks (bytes as :func:`tp_reckoning`), its caches its
+    heads' or channels' states; one eager prefill and decode step
+    (counted: :func:`ssm_serve_psums` psums a forward), every card's
+    logits the same bits, held with their twin (:func:`ssm_tp_serve`).
+    (3) ``rwkv6_scan`` and its backward at a card's 16 heads against their
+    plain versions and timed (:func:`ssm_tp_scans`, not counted). (4) Each
+    model's float32 train step at AD_TRAIN_LAYERS layers on the emulated
+    layout (:func:`ssm_tp_train`, counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # -- 37. main path AD: the state-space mixers tensor parallel ----------
+    t_path = time.perf_counter()
+    mesh = make_host_mesh((1, 4), devices=[dev] * 4)
+    dev_gen = torch.Generator(device=dev).manual_seed(43)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=dev_gen, device=dev).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=dev_gen, device=dev)
+
+    out = {}
+    print(f"path AD: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated on the card as it starts", flush=True)
+    rwkv, hymba = get_config("rwkv6_1_6b"), get_config("hymba_1_5b")
+    out["rwkv6_1_6b"], layer0, params, toks = ssm_tp_serve(
+        dev, per_path, read_path, rwkv, at_g, "G", "rwkv6_scan", 256)
+    out["scans"] = ssm_tp_scans(randn, rand, errs, layer0, params, toks,
+                                rwkv, rows)
+    del layer0, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hymba_1_5b"], *rest = ssm_tp_serve(
+        dev, per_path, read_path, hymba, at_k, "K", "flash_attention",
+        at_k["toks"].shape[1] + at_k["new"])
+    del rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["rwkv6_1_6b"]["train"] = ssm_tp_train(
+        dev, per_path, read_path, rwkv, mesh, "G",
+        ("rwkv6_scan", "rwkv6_scan_bwd"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["hymba_1_5b"]["train"] = ssm_tp_train(
+        dev, per_path, read_path, hymba, mesh, "K",
+        ("flash_attention", "flash_attention_bwd"))
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"path AD ({smi}): {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -7684,7 +8623,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rwkv_path(dev, errs, per_path, read_path)
+    at_g: dict = {}
+    rwkv_path(dev, errs, per_path, read_path, at_g)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7701,7 +8641,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    hymba_path(dev, errs, per_path, read_path)
+    at_k: dict = {}
+    hymba_path(dev, errs, per_path, read_path, at_k)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7774,16 +8715,25 @@ def main() -> int:
     tp_training_path(dev, per_path, read_path, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows = {row["name"]: row for row in kernels}
+    at_ad = ssm_tp_path(dev, errs, per_path, read_path, smi, at_g, at_k,
+                        rows)
+    del at_g, at_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, share in at_ad["scans"].items():
+        rows[name]["card_share"] = share
     for row in kernels:
         if row["name"] == "flash_attention":
             row["shapes"].update({"N": fwd_n, **at_o, "P": at_p})
         if row["name"] == "flash_attention_bwd":
             row["shapes"] = {"N": bwd_n, "R": bwd_r}
-    print(f"main-path launches (paths A-AC): {main_launches}", flush=True)
+    print(f"main-path launches (paths A-AD): {main_launches}", flush=True)
     for name, count in main_launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 
-    # -- 37. report --------------------------------------------------------
+    # -- 38. report --------------------------------------------------------
     for row in kernels:
         row["launches"] = main_launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

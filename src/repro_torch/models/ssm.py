@@ -18,6 +18,18 @@ RWKV-6's full-sequence path runs the chunked scan of
 kernel, on a CPU tensor its plain version. Its decode step is a few plain
 tensor ops on the O(1) state, as in the reference.
 
+Inside a card's share of a peer mesh's program whose
+:class:`~repro_torch.models.tensor_parallel.DenseCut` cuts a mixer
+(``time_mix`` or ``mamba``), the card's tree holds its heads or channels
+(:func:`~repro_torch.training.sharding.dense_dim`) and the mixer runs
+them: the input whole, through f (with RWKV-6's replicated ``mu``); the
+heads' count, and so ``u``'s and the state's rows, from the weights'
+columns; Mamba's dt, B and C, which contract over the channels, made
+whole by ONE peer psum of the three partials each way (g then f: what
+follows is the card's own channels again); the output a
+card's partial product, summed by ONE peer psum (g). The group norm is
+per head, so it needs no term of another card.
+
 Deliberate difference from the reference: the RWKV-6 scan runs in chunks
 of :data:`~repro_torch.kernels.rwkv6_scan.kernel.MAX_CHUNK` (64)
 positions on every device instead of 128, since the kernel's
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.kernel import MAX_CHUNK
 from repro_torch.kernels.rwkv6_scan.ops import chunked_scan
+from repro_torch.models import tensor_parallel as tp
 
 #: The causal depthwise convolution's width in the Mamba mixer.
 CONV_K = 4
@@ -73,14 +86,26 @@ def mamba_init(d: int, state: int, dtype: torch.dtype, *,
     }
 
 
+def _cut(part: str):
+    """The card's cut in force where it cuts the mixer ``part``
+    (``"mamba"`` or ``"time_mix"``), else None."""
+    cut = tp.in_force()
+    return cut if cut is not None and getattr(cut, part) else None
+
+
 def _mamba_gates(x1: torch.Tensor, p: dict):
     """Shared projections: (dt, B, C) from the conv'd float32 activation;
     the weights are taken in float32, as the reference's mixed product
-    promotes them."""
-    dt = F.softplus((x1 @ p["w_dt1"].float()) @ p["w_dt2"].float()
-                    + p["dt_bias"])                           # (..., d_i)
-    bmat = x1 @ p["w_B"].float()                              # (..., N)
-    cmat = x1 @ p["w_C"].float()
+    promotes them, in ONE product of the three ``(..., r + 2N)``. Under a
+    channel cut that product over the card's channels is a partial,
+    summed over the cards in ONE peer psum each way."""
+    n = p["w_B"].shape[-1]
+    w = torch.cat([p["w_dt1"], p["w_B"], p["w_C"]], -1).float()
+    whole = x1 @ w
+    if _cut("mamba") is not None:
+        (whole,) = tp.enter(tp.psum(whole))
+    low, bmat, cmat = whole.split([w.shape[-1] - 2 * n, n, n], -1)
+    dt = F.softplus(low @ p["w_dt2"].float() + p["dt_bias"])  # (..., d_i)
     return dt, bmat, cmat
 
 
@@ -92,6 +117,15 @@ def _mamba_drive(x1: torch.Tensor, p: dict):
     a = torch.exp(-torch.exp(p["A_log"]) * dt[..., None])
     drive = (dt * x1f)[..., None] * bmat[..., None, :]
     return a, drive, cmat, x1f
+
+
+def _mamba_out(y, x1f, z, p, x_dtype):
+    """The skip, the gate and the output projection; under a channel cut
+    the card's rows of ``w_out``, summed over the cards by ONE peer psum
+    (g)."""
+    y = y + p["D"] * x1f
+    out = (y.to(x_dtype) * F.silu(z)) @ p["w_out"]
+    return out if _cut("mamba") is None else tp.psum(out)
 
 
 def associative_scan(a: torch.Tensor, b: torch.Tensor, *,
@@ -132,6 +166,8 @@ def mamba_apply(x: torch.Tensor, p: dict, return_state: bool = False):
     prefill-into-cache: the float32 ``(B, d_i, N)`` state after the last
     position and the last ``CONV_K − 1`` raw conv inputs ``(B, K−1,
     d_i)`` (zero where the sequence is shorter)."""
+    if _cut("mamba") is not None:
+        (x,) = tp.enter(x)
     _, l, _ = x.shape
     x1_raw, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
     # causal depthwise conv, kernel CONV_K
@@ -143,8 +179,7 @@ def mamba_apply(x: torch.Tensor, p: dict, return_state: bool = False):
     h = associative_scan(a, drive)                           # (B,L,d_i,N)
     del a, drive
     y = torch.einsum("blds,bls->bld", h, cmat)
-    y = y + p["D"] * x1f
-    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    out = _mamba_out(y, x1f, z, p, x.dtype)
     if not return_state:
         return out
     return out, (h[:, -1], xp[:, l:l + CONV_K - 1])
@@ -164,9 +199,7 @@ def mamba_decode(x: torch.Tensor, p: dict, state: torch.Tensor,
     a, drive, cmat, x1f = _mamba_drive(x1, p)
     state = state * a + drive
     y = torch.einsum("bds,bs->bd", state, cmat)
-    y = y + p["D"] * x1f
-    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
-    return out, state, hist[:, 1:]
+    return _mamba_out(y, x1f, z, p, x.dtype), state, hist[:, 1:]
 
 
 # ================================ RWKV-6 ====================================
@@ -201,8 +234,7 @@ def rwkv6_init(d: int, head_dim: int, dtype: torch.dtype, *,
 def _rwkv6_project(x, shifted, p, head_dim):
     """Token-shift mix + projections → per-head r/k/v/w/g."""
     b = x.shape[:-1]
-    d = x.shape[-1]
-    h = d // head_dim
+    h = p["w_r"].shape[-1] // head_dim          # the card's heads
     delta = shifted - x
     mixed = [x + p["mu"][i].to(x.dtype) * delta for i in range(5)]
     r = (mixed[0] @ p["w_r"]).reshape(*b, h, head_dim)
@@ -223,7 +255,8 @@ def _rwkv6_finish(o, g, p, x_dtype):
     var = torch.mean(of * of, dim=-1, keepdim=True)
     of = of * torch.rsqrt(var + 1e-6)
     of = of.reshape(*b, d) * (1.0 + p["ln_x"])
-    return (of.to(x_dtype) * F.silu(g)) @ p["w_out"]
+    out = (of.to(x_dtype) * F.silu(g)) @ p["w_out"]
+    return out if _cut("time_mix") is None else tp.psum(out)
 
 
 def rwkv6_apply(x: torch.Tensor, p: dict, *, head_dim: int,
@@ -235,8 +268,12 @@ def rwkv6_apply(x: torch.Tensor, p: dict, *, head_dim: int,
     ``x[:, -1]``. Padding carries identity decay (w=1) and zero k, so
     the final state is exact regardless of padding.
     """
-    b, l, d = x.shape
-    h = d // head_dim
+    if _cut("time_mix") is not None:
+        # f on what the card's heads read: x and the replicated mu
+        x, mu = tp.enter(x, p["mu"])
+        p = {**p, "mu": mu}
+    b, l, _ = x.shape
+    h = p["w_r"].shape[-1] // head_dim          # the card's heads
     shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, w, g = _rwkv6_project(x, shifted, p, head_dim)
 

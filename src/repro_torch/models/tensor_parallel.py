@@ -23,7 +23,17 @@ card holding model-axis devices ``held`` holds, of a dim cut into
   ONE peer psum;
 * the dense MLP's and the shared expert's hidden dim (``w1``/``w3``
   columns, ``w2`` rows) when ``model`` divides it: ONE peer psum of the
-  partial products.
+  partial products;
+* RWKV-6's time mix by whole heads (``w_r``, ``w_k``, ``w_v``, ``w_w``,
+  ``w_g`` columns, ``w_out`` rows, ``u`` rows and ``ln_x``'s channels in
+  blocks of ``h / model`` heads) when ``model`` divides its ``h`` heads:
+  the scan and the per-head group norm over the card's heads, then ONE
+  peer psum; the token shift and ``mu`` stay whole;
+* Hymba's Mamba by channels (``w_in``'s columns of both its x and z
+  halves, every per-channel leaf, ``w_dt1``/``w_B``/``w_C``/``w_out``
+  rows) when ``model`` divides ``d_i``: dt, B and C contract over the
+  channels, so their partials go to every card in ONE peer psum of
+  ``r + 2N`` floats a token, and the output in ONE more.
 
 A part whose cut would split a head or not divide stays a replica and
 runs whole, as before. A card that holds every model-axis device cuts
@@ -41,9 +51,11 @@ card's share of ONE peer psum, backward the identity) after its
 row-parallel product, f (:func:`enter`, forward the identity, backward
 ONE peer psum of the card's cotangents, added in the activations'
 dtype) on what it reads: the normed input of the card's heads, hidden
-units and vocabulary blocks, and the replicated ``wk``/``wv`` whose kv
-heads a card's q heads read (each card's gradient of them holds only
-its heads' part). The loss over a vocabulary cut (:func:`vocab_nll`)
+units, vocabulary blocks and mixer channels, the replicated ``wk``/``wv``
+whose kv heads a card's q heads read and RWKV-6's replicated ``mu``
+(each card's gradient of them holds only its part). Mamba's gates stand
+inside both, g then f, since what follows their psum is the card's own
+channels again. The loss over a vocabulary cut (:func:`vocab_nll`)
 gathers no logits: each card's block log-sum-exps go to every card in
 ONE all-gather of ``(B·S)`` floats a block, and the gold logit is ONE g
 psum. Both Functions keep the share's ring and card and re-enter it on
@@ -74,10 +86,13 @@ class DenseCut:
     ff: bool = False          # the dense MLP's hidden dim
     shared: bool = False      # the shared expert's hidden dim
     vocab: bool = False       # embed rows, lm_head columns
+    time_mix: bool = False    # RWKV-6's time mix, by whole heads
+    mamba: bool = False       # Hymba's Mamba, by channels
 
     @property
     def cuts(self) -> bool:
-        return self.heads or self.ff or self.shared or self.vocab
+        return (self.heads or self.ff or self.shared or self.vocab
+                or self.time_mix or self.mamba)
 
     def part(self, n: int) -> int:
         """The card's length of a dim of ``n`` cut into ``model`` blocks."""
@@ -104,7 +119,10 @@ def dense_cut(cfg: ArchConfig, held, model: int) -> DenseCut:
         ff=not cfg.num_experts and cfg.d_ff % model == 0,
         shared=bool(cfg.num_experts and cfg.num_shared_experts)
         and cfg.d_ff * cfg.num_shared_experts % model == 0,
-        vocab=cfg.decoder and cfg.vocab_size % model == 0)
+        vocab=cfg.decoder and cfg.vocab_size % model == 0,
+        time_mix=cfg.family == "ssm"
+        and cfg.d_model // cfg.rwkv_head_dim % model == 0,
+        mamba=cfg.family == "hybrid" and cfg.d_model % model == 0)
 
 
 def in_force() -> DenseCut | None:

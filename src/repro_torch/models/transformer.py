@@ -61,11 +61,14 @@ Inside a card's share of a peer mesh's program whose
 :class:`~.tensor_parallel.DenseCut` cuts dense leaves (the card's tree of
 :func:`~repro_torch.training.sharding.place_params` or ``place_state``
 with a config), the embedding, attention, dense MLP, shared expert and
-head run tensor parallel (:mod:`.tensor_parallel`): the card's heads,
-hidden units and vocabulary blocks, one peer psum (g) after each of the
-embedding, the attention's ``wo`` and the MLP's ``w2``, and one
-all-gather of the logits; its decode cache (:func:`init_cache` with the
-card's ``cut``) holds only the kv heads its attention reads. Under
+head run tensor parallel (:mod:`.tensor_parallel`), and so do RWKV-6's
+time mix and Hymba's Mamba (:mod:`.ssm`): the card's heads, hidden
+units, vocabulary blocks and mixer channels, one peer psum (g) after
+each of the embedding, the attention's ``wo``, the mixers' ``w_out``
+and the MLP's ``w2`` (and one of Mamba's gates), and one all-gather of
+the logits; its decode cache (:func:`init_cache` with the card's
+``cut``) holds only the kv heads its attention reads and its mixer's
+heads' or channels' states. Under
 autograd each cut region's input passes f (its backward one peer psum),
 and :func:`loss_fn` takes the NLL from the card's vocabulary blocks
 without gathering the logits.
@@ -540,7 +543,9 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
     the float32 SSM state and the conv inputs for hybrid ones), the
     recurrent state and the token-shift input for SSM models; under a
     card's dense ``cut`` only the kv heads its attention reads
-    (:func:`~.tensor_parallel.heads`). An encoder raises
+    (:func:`~.tensor_parallel.heads`), its RWKV-6 heads' states and its
+    Mamba channels' (the token-shift input stays whole: every card's
+    mixing reads all of it). An encoder raises
     (:func:`check_decoder`)."""
     check_decoder(cfg)
     l, hd, d = cfg.num_layers, cfg.head_dim_, cfg.d_model
@@ -548,8 +553,10 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
     dt = _dtype(cfg)
     if cfg.family == "ssm":
         rh = cfg.rwkv_head_dim
-        return {"rwkv_state": torch.zeros((l, batch, d // rh, rh, rh),
-                                          device=device),
+        h = d // rh
+        return {"rwkv_state": torch.zeros(
+                    (l, batch, cut.part(h) if cut is not None
+                     and cut.time_mix else h, rh, rh), device=device),
                 "rwkv_shift": torch.zeros((l, batch, d), dtype=dt,
                                           device=device)}
     if spec.kind == "chunked":
@@ -559,9 +566,11 @@ def init_cache(cfg: ArchConfig, batch: int, spec: CacheSpec,
     c = {"k": torch.zeros(shape, dtype=dt, device=device),
          "v": torch.zeros(shape, dtype=dt, device=device)}
     if cfg.family == "hybrid":
-        c["ssm"] = torch.zeros((l, batch, d, cfg.ssm_state), device=device)
-        c["conv"] = torch.zeros((l, batch, ssm_lib.CONV_K - 1, d), dtype=dt,
-                                device=device)
+        d_i = cut.part(d) if cut is not None and cut.mamba else d
+        c["ssm"] = torch.zeros((l, batch, d_i, cfg.ssm_state),
+                               device=device)
+        c["conv"] = torch.zeros((l, batch, ssm_lib.CONV_K - 1, d_i),
+                                dtype=dt, device=device)
     return c
 
 

@@ -40,7 +40,8 @@ card's own experts, its blocks of the dense leaves the model axis cuts,
 :func:`~repro_torch.training.sharding.card_cuts`, and a replica of the
 rest), or trees already placed so, one a card (any other cut raises).
 Each program spans the cards: a static tokens buffer, position and cache
-a card (the cache at the card's kv heads), and one body a card, that
+a card (the cache at the card's kv heads and its RWKV-6 heads' or Mamba
+channels' states), and one body a card, that
 card's prefill or decode step (``prefill_blocks`` / ``decode_blocks``)
 on its own tree (:func:`~repro_torch.models.moe_dist.card_share` with
 the card's cut), whose every MoE combine and tensor-parallel psum is the

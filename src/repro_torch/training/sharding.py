@@ -26,8 +26,9 @@ of the mesh's ``n`` logical devices' local shards (row-major over the
 mesh axes) and :func:`unshard_tree` puts the whole back. On a peer mesh
 (``make_host_mesh(..., devices=[...])``), :func:`place_params` gives one
 tree a card: its logical devices' experts, its blocks of the dense
-leaves the model axis cuts (whole heads, hidden units and vocabulary
-blocks only, :func:`~repro_torch.models.tensor_parallel.dense_cut`), and
+leaves the model axis cuts (whole heads, hidden units, vocabulary
+blocks and the state-space mixers' heads or channels only,
+:func:`~repro_torch.models.tensor_parallel.dense_cut`), and
 a replica of the rest; :func:`place_state` places a train state the
 same way, each AdamW moment cut as its parameter.
 """
@@ -352,14 +353,29 @@ def is_expert(path: tuple) -> bool:
             and path[-1] in ("w1", "w3", "w2"))
 
 
+#: RWKV-6's leaves a time-mix cut cuts by whole heads, each at the dim
+#: (from the end) of its heads or their channels; ``mu`` stays whole.
+TIME_MIX_DIMS = {"w_r": -1, "w_k": -1, "w_v": -1, "w_w": -1, "w_g": -1,
+                 "w_out": -2, "u": -2, "ln_x": -1}
+#: Mamba's leaves a channel cut cuts, each at its ``d_i`` dim (from the
+#: end); ``w_in``'s last dim holds x's and z's channels side by side, and
+#: each half is cut (:func:`halves`).
+MAMBA_DIMS = {"w_in": -1, "conv_w": -1, "conv_b": -1, "w_dt1": -2,
+              "w_dt2": -1, "dt_bias": -1, "w_B": -2, "w_C": -2,
+              "A_log": -2, "D": -1, "w_out": -2}
+
+
 def dense_dim(path: tuple, cut: DenseCut | None) -> int | None:
     """The dim (from the end) along which ``cut`` cuts the dense leaf at
     ``path`` (a key tuple), or None where the leaf stays whole: ``embed``
     rows and ``lm_head`` columns (the vocabulary), ``wq`` columns and
-    ``wo`` rows (heads), ``wk``/``wv`` columns (kv heads), and ``w1``/``w3``
+    ``wo`` rows (heads), ``wk``/``wv`` columns (kv heads), ``w1``/``w3``
     columns and ``w2`` rows of the dense MLP (``mlp``) and of the shared
     expert (``moe``/``shared``), as the reference's rules cut them on the
-    model axis."""
+    model axis; RWKV-6's time mix (``rwkv``, :data:`TIME_MIX_DIMS`) and
+    Mamba (``ssm``, :data:`MAMBA_DIMS`), also their leaves the reference
+    keeps whole, so that a card's gradient of each is whole without a
+    psum."""
     if cut is None:
         return None
     name = path[-1]
@@ -377,18 +393,48 @@ def dense_dim(path: tuple, cut: DenseCut | None) -> int | None:
             return -1
         if name == "w2":
             return -2
+    if "rwkv" in path and cut.time_mix:
+        return TIME_MIX_DIMS.get(name)
+    if "ssm" in path and cut.mamba:
+        return MAMBA_DIMS.get(name)
     return None
 
 
+def halves(path: tuple) -> int:
+    """How many halves the cut dim of the leaf at ``path`` holds side by
+    side, each cut in ``model`` blocks (Mamba's ``w_in``: x's channels,
+    then z's); 1 for every other leaf."""
+    return 2 if tuple(path[-2:]) == ("ssm", "w_in") else 1
+
+
 def cut_dense(w: torch.Tensor, dim: int, held: list[int],
-              model: int) -> torch.Tensor:
+              model: int, halves: int = 1) -> torch.Tensor:
     """The blocks ``held`` (ascending) of ``w``'s dim ``dim`` cut into
-    ``model``, in index order: a view where they are one run."""
+    ``model``, in index order: a view where they are one run. With
+    ``halves`` the dim is that many halves side by side, and the card's
+    blocks of each are taken, half after half (a copy)."""
     dim %= w.dim()
+    if halves > 1:
+        return cut_dense(w.unflatten(dim, (halves, -1)), dim + 1, held,
+                         model).flatten(dim, dim + 1)
     size = w.shape[dim] // model
     parts = [w.narrow(dim, a * size, (b - a) * size)
              for a, b in _held_runs(sorted(held))]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def cut_leaf(x: torch.Tensor, path: tuple, held: list[int], model: int,
+             cut: DenseCut | None) -> torch.Tensor:
+    """The part of the whole leaf ``x`` at ``path`` that a card holding
+    the model-axis devices ``held`` holds under its dense ``cut``: its
+    experts (:func:`cut_experts`), its blocks of a leaf the cut cuts
+    (:func:`dense_dim`, :func:`cut_dense`), else ``x``."""
+    if is_expert(path):
+        return cut_experts(x, path[-1], held, model)
+    dim = dense_dim(path, cut)
+    if dim is None:
+        return x
+    return cut_dense(x, dim, held, model, halves(path))
 
 
 def place_card(params, held: list[int], model: int, device,
@@ -401,16 +447,8 @@ def place_card(params, held: list[int], model: int, device,
     devices (:func:`dense_dim`, :func:`cut_dense`); every other leaf a
     replica, all on ``device``. A leaf already there stays a view where
     its cut is one run."""
-    def place(path, x):
-        if is_expert(path):
-            x = cut_experts(x, path[-1], held, model)
-        else:
-            dim = dense_dim(path, cut)
-            if dim is not None:
-                x = cut_dense(x, dim, held, model)
-        return x.to(device)
-
-    return _map_with_path(place, params)
+    return _map_with_path(lambda path, x: cut_leaf(
+        x, path, held, model, cut).to(device), params)
 
 
 def _card_layout(mesh: LogicalMesh, what: str):
@@ -442,11 +480,12 @@ def place_params(params, mesh: LogicalMesh, cfg: ArchConfig) -> list:
 
     Every card holds its own experts and only its blocks of the dense
     leaves its :func:`card_cuts` cut: the vocabulary, whole heads, the
-    dense MLP's and the shared expert's hidden units, where the model
-    axis divides them, which the card runs tensor parallel
+    dense MLP's and the shared expert's hidden units, RWKV-6's time mix
+    by whole heads and Mamba by channels, where the model axis divides
+    them, which the card runs tensor parallel
     (:mod:`~repro_torch.models.tensor_parallel`). On a card that holds
-    every logical device, and for norms, routers and Mamba's and
-    RWKV-6's mixers on any card, the leaves stay whole replicas. On the
+    every logical device, and for norms, routers and RWKV-6's ``mu`` on
+    any card, the leaves stay whole replicas. On the
     card that already holds a leaf, a cut of one run of devices (or
     the whole leaf) stays a view: the serving engine only reads it, and a
     train step's update is functional (new tensors), so neither writes
@@ -550,9 +589,13 @@ def _uncut_tree(parts: list, helds: list, model: int, device,
         if dim is None:
             return first.to(device)
         dim %= first.dim()
+    # each card's part as (halves, its blocks of each half)
+    two = halves(path)
     blocks = {}
     for part, held in zip(parts, helds):
-        size = part.shape[dim] // len(held)
+        part = part.unflatten(dim, (two, -1))
+        size = part.shape[dim + 1] // len(held)
         for j, d in enumerate(sorted(held)):
-            blocks[d] = part.narrow(dim, j * size, size).to(device)
-    return torch.cat([blocks[d] for d in range(model)], dim)
+            blocks[d] = part.narrow(dim + 1, j * size, size).to(device)
+    return torch.cat([blocks[d] for d in range(model)],
+                     dim + 1).flatten(dim, dim + 1)

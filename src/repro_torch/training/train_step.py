@@ -28,7 +28,8 @@ card, and the results are the stacked session's bit for bit.
 Under an ambient peer mesh (``make_host_mesh(..., devices=[...])``)
 :func:`make_train_step` trains expert and tensor parallel: each card
 holds its own experts and its blocks of the dense leaves the model axis
-cuts (whole heads, hidden units, vocabulary blocks), with their
+cuts (whole heads, hidden units, vocabulary blocks, RWKV-6's heads and
+Mamba's channels), with their
 gradients and AdamW moments, and a replica of every other leaf
 (:func:`~repro_torch.training.sharding.place_state`), and runs its share
 of the loss inside its card share

@@ -11,21 +11,26 @@ own, meeting the others at the ring's steps (``LockstepRing``).
 * ``place_params(params, mesh, cfg)`` gives each card, per leaf, the
   blocks of its logical devices where the reference's ``param_specs``
   put ``model`` and the port's unit rules hold (whole heads, kv heads,
-  hidden units, vocabulary blocks), whole leaves elsewhere: a config
-  whose heads do not divide keeps its attention a replica, routers,
-  norms and the recurrent mixers stay replicas, a one-card layout cuts
-  nothing; ``unplace_state`` puts the cuts back bit for bit.
+  hidden units, vocabulary blocks, RWKV-6's heads, Mamba's channels),
+  with the port's own layout of Mamba's ``w_in`` (the card's channels of
+  both halves) and its own cuts of RWKV-6's ``u`` and ``ln_x`` and of
+  Mamba's per-channel leaves, whole leaves elsewhere: a config whose
+  heads do not divide keeps its attention a replica, routers, norms and
+  RWKV-6's ``mu`` stay replicas, a one-card layout cuts nothing;
+  ``unplace_state`` puts the cuts back bit for bit.
 * Card shares of ``prefill_forward`` (Llama-3 8B, Nemotron-4 with its
   squared ReLU at head dim 192, Mixtral-8x22B, Kimi K2 with its shared
-  expert, and a config whose replicated kv heads its q-head blocks read
-  unevenly) on two and four cards: every card the same bits.
+  expert, RWKV-6 with 4 heads of 16, Hymba at d = 64, and a config
+  whose replicated kv heads its q-head blocks read unevenly) on two and
+  four cards: every card the same bits.
 * ``ServeEngine``'s greedy tokens, prefill logits and decode logits:
   every card the same bits; the tokens the stacked engine's, the logits
   within the bound below of the stacked engine's, of the unsharded
   ``decode_step`` and of the reference's ``prefill_forward`` /
   ``decode_step`` jitted under ``make_mesh((1, 4))`` with its
-  ``param_shardings``; on the one-card layout bit for bit the stacked
-  engine's.
+  ``param_shardings``; each card's decode cache at its kv heads, RWKV-6
+  heads or Mamba channels; on the one-card layout bit for bit the
+  stacked engine's.
 
 * A train step's card shares carry the cut: two emulated cards' states
   from ``place_state(state, mesh, cfg)`` put back equal the unsharded
@@ -78,7 +83,9 @@ LAYOUTS = {"one_card": [0, 0, 0, 0], "two_cards": [0, 0, 1, 1],
 ARCHS = {"llama3_8b": ("llama3_8b", {}),
          "nemotron_192": ("nemotron_4_340b", {"head_dim": 192}),
          "mixtral_8x22b": ("mixtral_8x22b", {"capacity_factor": 8.0}),
-         "kimi_k2": ("kimi_k2_1t_a32b", {"capacity_factor": 8.0})}
+         "kimi_k2": ("kimi_k2_1t_a32b", {"capacity_factor": 8.0}),
+         "rwkv6": ("rwkv6_1_6b", {}),
+         "hymba": ("hymba_1_5b", {})}
 
 
 def emulate(monkeypatch, card_of) -> int:
@@ -128,42 +135,73 @@ def reference_model_dims(jcfg, jparams) -> dict:
 
 #: Leaves the reference cuts on ``model`` that the port keeps whole on
 #: purpose: the router (every card routes every token over every
-#: expert's logit), Mamba's projections and RWKV-6's (queued).
-KEPT_WHOLE = ("router", "w_in", "w_out", "w_r", "w_k", "w_v", "w_w", "w_g")
+#: expert's logit).
+KEPT_WHOLE = ("router",)
+#: The port's own cuts of leaves the reference keeps whole, so that a
+#: card's gradient of each is whole without a psum, by (mixer, name):
+#: the dim of the stacked ``(L, ...)`` leaf cut by the card's RWKV-6
+#: heads or Mamba channels.
+OWN_CUTS = {("rwkv", "u"): 1, ("rwkv", "ln_x"): 1,
+            ("ssm", "conv_w"): 2, ("ssm", "conv_b"): 1,
+            ("ssm", "w_dt1"): 1, ("ssm", "w_dt2"): 2,
+            ("ssm", "dt_bias"): 1, ("ssm", "w_B"): 1, ("ssm", "w_C"): 1,
+            ("ssm", "A_log"): 1, ("ssm", "D"): 1}
+
+
+def blocks(whole, dim, held):
+    """The model-axis devices ``held``'s blocks of ``whole``'s ``dim`` cut
+    into 4, in order."""
+    size = whole.shape[dim] // 4
+    return torch.cat([whole.narrow(dim, d * size, size) for d in held], dim)
 
 
 def expected_leaf(path, whole, ref_dim, cut, held):
-    if ref_dim is None or cut is None or shd.is_expert(path) \
+    """The card's part of ``whole`` at ``path`` (the leaf's name last,
+    under ``params`` or a moment): its blocks where the reference cuts
+    ``model`` (or the port cuts on its own, :data:`OWN_CUTS`) and the
+    unit rules hold, else None (whole). Mamba's ``w_in`` holds x's
+    channels and z's side by side: the card's blocks of each half, where
+    the reference cuts the concatenation in plain blocks."""
+    if cut is None or not cut.cuts or shd.is_expert(path) \
             or path[-1] in KEPT_WHOLE:
+        return None
+    dim = OWN_CUTS.get(tuple(path[-2:]), ref_dim)
+    if dim is None:
         return None
     units_ok = {"embed": cut.vocab, "lm_head": cut.vocab,
                 "wq": cut.heads, "wo": cut.heads, "wk": cut.kv,
                 "wv": cut.kv}.get(path[-1])
-    if units_ok is None:                       # w1, w3, w2
-        units_ok = cut.shared if "shared" in path else cut.ff
+    if units_ok is None:
+        units_ok = (cut.time_mix if "rwkv" in path else cut.mamba
+                    if "ssm" in path else cut.shared if "shared" in path
+                    else cut.ff)
     if not units_ok:
         return None
-    size = whole.shape[ref_dim] // 4
-    return torch.cat([whole.narrow(ref_dim, d * size, size) for d in held],
-                     ref_dim)
+    if tuple(path[-2:]) == ("ssm", "w_in"):
+        return torch.cat([blocks(half, dim, held)
+                          for half in whole.chunk(2, dim)], dim)
+    return blocks(whole, dim, held)
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("arch_id", ["llama3_8b", "kimi_k2", "odd_heads",
-                                     "hymba"])
+                                     "hymba", "hymba_4_heads", "rwkv6"])
 def test_place_params_cuts_as_the_reference_specs(arch_id, layout,
                                                   monkeypatch):
     """Per leaf: the card's blocks where the reference cuts ``model`` and
-    the unit rules hold, else the whole leaf. ``odd_heads`` has 3 heads
-    of 16 (the reference cuts ``wq``'s 48 columns mid-head on 4 devices;
-    the port keeps the attention whole); ``hymba``'s 25 heads likewise,
-    its Mamba a replica."""
+    the unit rules hold (:func:`expected_leaf`), else the whole leaf.
+    ``odd_heads`` has 3 heads of 16 (the reference cuts ``wq``'s 48
+    columns mid-head on 4 devices; the port keeps the attention whole);
+    ``hymba``'s 5 heads likewise, its Mamba cut by channels;
+    ``hymba_4_heads`` cuts both, ``rwkv6`` its 4 heads of 16."""
     if arch_id == "odd_heads":
         jcfg, cfg, jparams, params = carried("llama3_8b", num_heads=3,
                                              num_kv_heads=1)
     elif arch_id == "hymba":
         jcfg, cfg, jparams, params = carried("hymba_1_5b", num_heads=5,
                                              num_kv_heads=5)
+    elif arch_id == "hymba_4_heads":
+        jcfg, cfg, jparams, params = model("hymba")
     else:
         jcfg, cfg, jparams, params = model(arch_id)
     card_of = LAYOUTS[layout]
@@ -173,13 +211,15 @@ def test_place_params_cuts_as_the_reference_specs(arch_id, layout,
     cuts = shd.card_cuts(cfg, mesh)
     assert len(trees) == len(cuts) == n
     ref_dims = reference_model_dims(jcfg, jparams)
-    cut_leaves = 0
+    cut_leaves, cut_names = 0, set()
     for card, tree in enumerate(trees):
         held = [d for d, c in enumerate(card_of) if c == card]
         cut = cuts[card]
         assert cut.held == tuple(held) and cut.cuts == (n > 1)
         if arch_id in ("odd_heads", "hymba"):
             assert not cut.heads and not cut.kv
+        assert cut.time_mix == (arch_id == "rwkv6" and n > 1)
+        assert cut.mamba == (arch_id.startswith("hymba") and n > 1)
         for (path, got), whole in zip(leaves_with_paths(tree),
                                       leaves(params)):
             if shd.is_expert(path):
@@ -191,12 +231,25 @@ def test_place_params_cuts_as_the_reference_specs(arch_id, layout,
             else:
                 assert torch.equal(got, want), path
                 cut_leaves += 1
+                cut_names.add(tuple(path[-2:]))
     if n > 1:
         assert cut_leaves > 0
+        mixer = MIXER_LEAVES.get(cfg.family, set())
+        assert mixer <= cut_names and ("rwkv", "mu") not in cut_names
+
+
+#: Every leaf of each family's mixer that a multi-card layout cuts.
+MIXER_LEAVES = {
+    "ssm": {("rwkv", n) for n in ("w_r", "w_k", "w_v", "w_w", "w_g",
+                                  "w_out", "u", "ln_x")},
+    "hybrid": {("ssm", n) for n in ("w_in", "conv_w", "conv_b", "w_dt1",
+                                    "w_dt2", "dt_bias", "w_B", "w_C",
+                                    "A_log", "D", "w_out")}}
 
 
 @pytest.mark.parametrize("layout", ["two_cards", "four_cards", "split"])
-@pytest.mark.parametrize("arch_id", ["nemotron_192", "kimi_k2"])
+@pytest.mark.parametrize("arch_id", ["nemotron_192", "kimi_k2", "rwkv6",
+                                     "hymba"])
 def test_unplace_state_puts_the_cuts_back(arch_id, layout, monkeypatch):
     _, cfg, _, params = model(arch_id)
     emulate(monkeypatch, LAYOUTS[layout])
@@ -227,6 +280,18 @@ def test_a_cut_holds_whole_units_only():
     wide = dataclasses.replace(cfg, d_ff=130, vocab_size=250)
     cut = tp.dense_cut(wide, [0], 4)
     assert cut.heads and not cut.ff and not cut.vocab
+    assert not cut.time_mix and not cut.mamba
+    # RWKV-6 by whole heads (4 of 16 here), Mamba by channels (d_i = 64)
+    _, rwkv, _, _ = carried("rwkv6_1_6b")
+    assert tp.dense_cut(rwkv, [1], 4).time_mix
+    assert not tp.dense_cut(rwkv, [1], 4).heads
+    assert not tp.dense_cut(dataclasses.replace(rwkv, rwkv_head_dim=32),
+                            [1], 4).time_mix
+    _, hymba, _, _ = carried("hymba_1_5b")
+    assert tp.dense_cut(hymba, [0, 1], 4).mamba
+    assert not tp.dense_cut(dataclasses.replace(hymba, d_model=66), [0],
+                            4).mamba
+    assert not tp.dense_cut(hymba, [0, 1, 2, 3], 4).cuts
     x = torch.arange(12.).view(2, 6)
     assert torch.equal(tp.take(x, -1, [0, 1, 1, 4]),
                        x[:, [0, 1, 1, 4]])
@@ -330,8 +395,7 @@ def test_serve_engine_tensor_parallel(arch_id, layout, monkeypatch):
     assert all(torch.equal(x, dec[0]) for x in dec)
     close(pre[0], spre[0])
     close(dec[0], sdec[0])
-    assert cache["k"].shape[2] == tp.heads(cfg, engine.cuts[0])[1] \
-        < cfg.num_kv_heads
+    check_cache(cache, cfg, engine.cuts[0])
     tok = pre[0][:, -1].argmax(-1)[:, None]
     spec = tfm.cache_spec(cfg, max_len=16, kv_chunks=4)
     _, whole = tfm.prefill_forward(params, cfg, {"tokens": TOKS}, spec)
@@ -340,6 +404,26 @@ def test_serve_engine_tensor_parallel(arch_id, layout, monkeypatch):
     want_pre, want_dec = reference_serve(jcfg, jparams, tok)
     close(pre[0], want_pre)
     close(dec[0], want_dec)
+
+
+def check_cache(cache, cfg, cut) -> None:
+    """A card's decode cache under its ``cut``: its kv heads, its RWKV-6
+    heads' states (the token-shift input whole) or its Mamba channels'
+    states, each the whole cache's shape but that dim."""
+    whole = tfm.cache_shapes(cfg, len(PROMPTS),
+                             tfm.cache_spec(cfg, max_len=16, kv_chunks=4))
+    part = {"k": (2, tp.heads(cfg, cut)[1]), "v": (2, tp.heads(cfg, cut)[1]),
+            "rwkv_state": (2, cut.part(cfg.d_model // cfg.rwkv_head_dim)),
+            "ssm": (2, cut.part(cfg.d_model)),
+            "conv": (3, cut.part(cfg.d_model))}
+    assert sorted(cache) == sorted(whole)
+    for name, t in cache.items():
+        want = list(whole[name].shape)
+        if name in part:
+            dim, n = part[name]
+            assert n < want[dim], name
+            want[dim] = n
+        assert list(t.shape) == want, name
 
 
 def test_serve_engine_tensor_parallel_bfloat16(monkeypatch):
@@ -364,7 +448,8 @@ def test_serve_engine_tensor_parallel_bfloat16(monkeypatch):
     close(dec[0], sdec[0], 2e-2 * sdec[0].float().abs().max().item())
 
 
-@pytest.mark.parametrize("arch_id", ["nemotron_192", "kimi_k2"])
+@pytest.mark.parametrize("arch_id", ["nemotron_192", "kimi_k2", "rwkv6",
+                                     "hymba"])
 def test_one_card_layout_is_the_stacked_engine(arch_id):
     """Four logical devices on one card: every cut is the whole leaf and
     nothing is cut, so tokens and logits are the stacked engine's bit for
@@ -399,7 +484,7 @@ def test_serve_engine_checks_the_callers_cuts(monkeypatch):
         engine_on(cfg, whole, peer)
 
 
-def test_train_step_on_a_peer_mesh_keeps_dense_replicas(monkeypatch):
+def test_train_step_on_a_peer_mesh_cuts_the_dense_leaves(monkeypatch):
     """A train step's card shares carry the cut: ``place_state(state,
     mesh, cfg)`` gives each of two emulated cards its blocks of the dense
     leaves (and of their moments), the replicated leaves stay whole and
